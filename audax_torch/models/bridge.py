@@ -1,0 +1,61 @@
+"""Weight bridge: the JAX package's Whisper parameter tree -> the port's.
+
+``params_from_numpy`` takes the tree as nested dicts of numpy arrays, e.g.
+``jax.tree.map(np.asarray, init_whisper_params(cfg, key))`` or a tree read
+from a checkpoint, and returns the same tree of float32 tensors on
+``device``. Layouts are kept on purpose so the two packages compare like
+with like:
+
+  * stacked layers keep their leading ``[L, ...]`` axis;
+  * dense kernels keep ``[d_in, d_out]`` (``y = x @ kernel``);
+  * the conv kernels are the one deliberate change: JAX's HIO
+    ``[3, C_in, C_out]`` becomes ``F.conv1d``'s ``[C_out, C_in, 3]``.
+
+Quantized trees (``kernel_q``/``kernel_q4`` leaves) belong to the serving
+slice and are refused here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from audax_torch.core.config import WhisperConfig
+from audax_torch.core.runtime import DeviceLike, resolve_device
+
+__all__ = ["params_from_numpy"]
+
+_CONVS = ("conv1", "conv2")
+
+
+def _convert(tree: Mapping[str, Any], device: torch.device, path: str):
+    out: Dict[str, Any] = {}
+    for key, val in tree.items():
+        where = f"{path}/{key}"
+        if isinstance(val, Mapping):
+            out[key] = _convert(val, device, where)
+            continue
+        if key.startswith(("kernel_q", "embed_q")):
+            raise NotImplementedError(f"{where}: quantized weights arrive "
+                                      "with the serving slice")
+        arr = np.asarray(val, dtype=np.float32)
+        if key == "kernel" and path.rsplit("/", 1)[-1] in _CONVS:
+            arr = arr.transpose(2, 1, 0)          # HIO -> [C_out, C_in, 3]
+        out[key] = torch.from_numpy(np.array(arr, copy=True)).to(device)
+    return out
+
+
+def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """JAX-layout numpy tree -> port tree of float32 tensors on ``device``."""
+    device = resolve_device(device)
+    params = _convert(tree, device, "")
+    conv1 = params["encoder"]["conv1"]["kernel"]
+    embed = params["decoder"]["embed"]
+    if conv1.shape != (cfg.d_model, cfg.n_mels, 3) or \
+            embed.shape != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"tree does not match {cfg}: conv1 "
+                         f"{tuple(conv1.shape)}, embed {tuple(embed.shape)}")
+    return params

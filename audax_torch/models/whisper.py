@@ -1,0 +1,294 @@
+"""Whisper-family encoder-decoder in PyTorch (port of ``audax/models/whisper.py``
+and the float ``embed_lookup``/``embed_logits`` of ``models/quantize.py``).
+
+Parameters are the JAX package's tree as nested dicts of tensors
+(``models/bridge.py`` converts one, ``init_whisper_params`` draws one):
+transformer layers stay STACKED with a leading ``n_layers`` axis, dense
+kernels keep the ``[d_in, d_out]`` layout (``y = x @ kernel + bias``), and
+only the conv kernels change layout, to ``F.conv1d``'s ``[C_out, C_in, 3]``.
+The layer loops are Python loops over that axis (views, no copies).
+
+Architecture: pre-LN blocks; encoder = 2x conv1d (stride 1, 2) + fixed
+sinusoidal positions; decoder = learned positions + causal self-attention +
+cross-attention; logits tied to the token embedding; k_proj has no bias;
+LayerNorm eps 1e-5 with float32 statistics; attention scale head_dim**-0.5;
+GELU exact (erf) in float32 and the tanh form in bfloat16.
+
+The encoder's self-attention runs the flash kernel (``ops/attention.py``);
+the decoder reads its caches through the stacked decode-attention kernel.
+On CPU tensors both take their plain PyTorch versions. The dense
+projections, the conv stem and the tied-embedding logits stay
+``torch.matmul``/``F.conv1d``, as the JAX package left them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from audax_torch.core.config import WhisperConfig
+from audax_torch.core.runtime import DeviceLike, resolve_device
+from audax_torch.ops.attention import decode_attention_stacked, flash_attention
+
+Params = Dict[str, Any]
+
+__all__ = [
+    "init_whisper_params", "sinusoidal_positions", "layer_norm", "dense",
+    "conv_stem", "encode", "KVCache", "init_kv_cache", "precompute_cross_kv",
+    "decode_step", "decode_span", "embed_lookup", "embed_logits",
+    "layer_params", "tree_map",
+]
+
+
+# ---------------------------------------------------------------------------
+# init
+
+def sinusoidal_positions(length: int, channels: int) -> torch.Tensor:
+    """Whisper's fixed encoder positions (log-spaced timescales)."""
+    if channels % 2:
+        raise ValueError(f"channels must be even, got {channels}")
+    log_inc = math.log(10000.0) / (channels // 2 - 1)
+    inv = np.exp(-log_inc * np.arange(channels // 2))
+    t = np.arange(length)[:, None] * inv[None, :]
+    return torch.from_numpy(
+        np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32))
+
+
+def init_whisper_params(cfg: WhisperConfig, generator: torch.Generator, *,
+                        device: DeviceLike = None) -> Params:
+    """Random float32 parameters with the JAX ``init_whisper_params``
+    layout and scales (normal draws from ``generator``; not the JAX
+    numbers). Drawn on the generator's device, then moved to ``device``."""
+    device = resolve_device(device)
+    gen_dev = generator.device
+    d, f = cfg.d_model, 4 * cfg.d_model
+
+    def normal(*shape, std):
+        return torch.randn(*shape, generator=generator, device=gen_dev) * std
+
+    def dense(n, d_in, d_out, bias=True):
+        p = {"kernel": normal(n, d_in, d_out, std=1.0 / math.sqrt(d_in))}
+        if bias:
+            p["bias"] = torch.zeros(n, d_out, device=gen_dev)
+        return p
+
+    def ln(n):
+        return {"scale": torch.ones(n, d, device=gen_dev),
+                "bias": torch.zeros(n, d, device=gen_dev)}
+
+    def attn(n):
+        return {"q": dense(n, d, d), "k": dense(n, d, d, bias=False),
+                "v": dense(n, d, d), "out": dense(n, d, d)}
+
+    def blocks(n, cross):
+        p = {"attn_ln": ln(n), "attn": attn(n), "mlp_ln": ln(n),
+             "mlp_in": dense(n, d, f), "mlp_out": dense(n, f, d)}
+        if cross:
+            p["cross_ln"] = ln(n)
+            p["cross_attn"] = attn(n)
+        return p
+
+    final_ln = {"scale": torch.ones(d, device=gen_dev),
+                "bias": torch.zeros(d, device=gen_dev)}
+    params = {
+        "encoder": {
+            "conv1": {"kernel": normal(d, cfg.n_mels, 3,
+                                       std=1.0 / math.sqrt(3 * cfg.n_mels)),
+                      "bias": torch.zeros(d, device=gen_dev)},
+            "conv2": {"kernel": normal(d, d, 3, std=1.0 / math.sqrt(3 * d)),
+                      "bias": torch.zeros(d, device=gen_dev)},
+            "pos": sinusoidal_positions(cfg.n_audio_ctx, d).to(gen_dev),
+            "layers": blocks(cfg.encoder_layers, cross=False),
+            "ln": dict(final_ln),
+        },
+        "decoder": {
+            "embed": normal(cfg.vocab_size, d, std=0.02),
+            "pos": normal(cfg.n_text_ctx, d, std=0.01),
+            "layers": blocks(cfg.decoder_layers, cross=True),
+            "ln": {k: t.clone() for k, t in final_ln.items()},
+        },
+    }
+    return tree_map(lambda t: t.to(device), params)
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a nested-dict parameter tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer_params(stack: Params, li: int) -> Params:
+    """Layer ``li`` of a stacked layer tree (views of the stacked tensors)."""
+    return tree_map(lambda t: t[li], stack)
+
+
+# ---------------------------------------------------------------------------
+# primitives
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics, cast back to x's dtype."""
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dtype)
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["kernel"].to(x.dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, heads, d // heads).transpose(1, 2).contiguous()
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, hd = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * hd)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU in float32; the tanh form in bfloat16, where the
+    difference is below the dtype's own rounding step."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+
+
+def _mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return dense(p["mlp_out"], _gelu(dense(p["mlp_in"], x)))
+
+
+def attention(p: Params, x: torch.Tensor, heads: int) -> torch.Tensor:
+    """Maskless multi-head self-attention (the encoder's), through the flash
+    kernel on CUDA and its plain version on the CPU."""
+    q = _split_heads(dense(p["q"], x), heads)
+    k = _split_heads(dense(p["k"], x), heads)
+    v = _split_heads(dense(p["v"], x), heads)
+    out = flash_attention(q, k, v, scale=q.shape[-1] ** -0.5)
+    return dense(p["out"], _merge_heads(out))
+
+
+def embed_lookup(p: Params, idx: torch.Tensor, dtype) -> torch.Tensor:
+    """Token-embedding gather (float tables; int8/int4 come with the
+    quantized serving slice)."""
+    return p["embed"][idx].to(dtype)
+
+
+def embed_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding logit projection x [..., d] -> [..., V]."""
+    return x @ p["embed"].to(x.dtype).t()
+
+
+# ---------------------------------------------------------------------------
+# encoder
+
+def conv_stem(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
+              dtype=torch.float32) -> torch.Tensor:
+    """mel [B, T, n_mels] -> [B, T//2, d_model] with positions added."""
+    p = params["encoder"]
+    x = mel.to(dtype).transpose(1, 2)                       # [B, C, T]
+    x = _gelu(F.conv1d(x, p["conv1"]["kernel"].to(dtype),
+                       p["conv1"]["bias"].to(dtype), padding=1))
+    x = _gelu(F.conv1d(x, p["conv2"]["kernel"].to(dtype),
+                       p["conv2"]["bias"].to(dtype), stride=2, padding=1))
+    x = x.transpose(1, 2)
+    return x + p["pos"].to(dtype)[None, : x.shape[1]]
+
+
+@torch.no_grad()
+def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
+           dtype=torch.float32) -> torch.Tensor:
+    """mel [B, T_frames, n_mels] (time-major) -> encoder states
+    [B, T_frames//2, d_model]."""
+    p = params["encoder"]
+    x = conv_stem(params, cfg, mel, dtype)
+    for li in range(cfg.encoder_layers):
+        layer = layer_params(p["layers"], li)
+        x = x + attention(layer["attn"], layer_norm(layer["attn_ln"], x),
+                          cfg.heads)
+        x = x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
+    return layer_norm(p["ln"], x)
+
+
+# ---------------------------------------------------------------------------
+# decoder (incremental, KV-cached)
+
+class KVCache(NamedTuple):
+    """Fixed-shape self-attention cache: k/v [layers, B, H, max_len, hd].
+    ``decode_span`` writes it IN PLACE (unlike the JAX functional update)."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int,
+                  dtype=torch.float32, device: DeviceLike = None) -> KVCache:
+    device = resolve_device(device)
+    hd = cfg.d_model // cfg.heads
+    shape = (cfg.decoder_layers, batch, cfg.heads, max_len, hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def precompute_cross_kv(params: Params, cfg: WhisperConfig,
+                        enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of every layer, once per utterance:
+    [layers, B, H, S, hd] each."""
+    layers = params["decoder"]["layers"]["cross_attn"]
+    ks, vs = [], []
+    for li in range(cfg.decoder_layers):
+        ks.append(_split_heads(dense(layer_params(layers["k"], li), enc),
+                               cfg.heads))
+        vs.append(_split_heads(dense(layer_params(layers["v"], li), enc),
+                               cfg.heads))
+    return torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def decode_span(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
+                pos: int, cache: KVCache, cross_kv,
+                dtype=torch.float32) -> Tuple[torch.Tensor, KVCache]:
+    """Teacher-forced span decode with cache append: tokens [B, K] occupy
+    positions pos..pos+K-1; query i attends cached positions <= pos+i.
+    Returns (logits [B, K, vocab], the cache, updated in place)."""
+    p = params["decoder"]
+    kk = tokens.shape[1]
+    x = embed_lookup(p, tokens, dtype) + p["pos"][pos: pos + kk][None].to(dtype)
+    for li in range(cfg.decoder_layers):
+        layer = layer_params(p["layers"], li)
+        h = layer_norm(layer["attn_ln"], x)
+        q = _split_heads(dense(layer["attn"]["q"], h), cfg.heads)
+        cache.k[li, :, :, pos: pos + kk] = _split_heads(
+            dense(layer["attn"]["k"], h), cfg.heads)
+        cache.v[li, :, :, pos: pos + kk] = _split_heads(
+            dense(layer["attn"]["v"], h), cfg.heads)
+        scale = q.shape[-1] ** -0.5
+        attn_out = decode_attention_stacked(q, cache, li, pos=pos, scale=scale)
+        x = x + dense(layer["attn"]["out"], _merge_heads(attn_out))
+
+        h = layer_norm(layer["cross_ln"], x)
+        qc = _split_heads(dense(layer["cross_attn"]["q"], h), cfg.heads)
+        co = decode_attention_stacked(qc, cross_kv, li, scale=scale)
+        x = x + dense(layer["cross_attn"]["out"], _merge_heads(co))
+        x = x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
+    x = layer_norm(p["ln"], x)
+    return embed_logits(p, x), cache
+
+
+def decode_step(params: Params, cfg: WhisperConfig, token: torch.Tensor,
+                pos: int, cache: KVCache, cross_kv,
+                dtype=torch.float32) -> Tuple[torch.Tensor, KVCache]:
+    """One autoregressive step: token [B] at position ``pos`` -> (logits
+    [B, vocab], the cache, updated in place)."""
+    logits, cache = decode_span(params, cfg, token[:, None], pos, cache,
+                                cross_kv, dtype)
+    return logits[:, 0], cache

@@ -1,0 +1,137 @@
+"""Build and load the hand-written CUDA kernels of ``audax_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+its own shared library with a plain C interface, loaded with ``ctypes``.
+Nothing includes PyTorch's headers, so a build takes seconds, not minutes.
+
+Libraries go to ``audax_torch/build/`` (listed in ``.gitignore``), named by
+a hash of the source and the flags: an edited source builds anew, an
+unchanged one is reused. ``build()`` starts one ``nvcc`` per missing library
+and waits for all of them, so the kernels compile in parallel.
+
+The wrappers in ``ops/fused_mel.py`` and ``ops/attention.py`` call
+``library(name)`` the first time they launch on a CUDA tensor. A CUDA host
+without ``nvcc`` raises there; a CPU tensor never reaches this module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["KERNEL_SOURCES", "build", "library", "check", "nvcc_path"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+
+#: library name -> source file under csrc/
+KERNEL_SOURCES = {
+    "log_mel_overlap": "log_mel_overlap.cu",
+    "flash_fwd": "flash_fwd.cu",
+    "decode_attention": "decode_attention.cu",
+}
+
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+#: C entry points of each library: name -> (argtypes, restype). Every
+#: pointer and the stream are c_void_p, so ctypes never cuts them to 32 bits.
+SIGNATURES = {
+    "log_mel_overlap": {
+        "log_mel_overlap_smem_bytes": ([_I] * 5, _LL),
+        "log_mel_overlap_f32": ([_P, _I, _LL, _I, _I, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "flash_fwd": {
+        "flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                       _I, _P], _I),
+    },
+    "decode_attention": {
+        "decode_smem": ([_I, _I, _I], _LL),
+        "decode_attention_stacked": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _F, _I, _P], _I),
+    },
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels of audax_torch are "
+                       "built from csrc/ at first use and need the CUDA "
+                       "toolkit's compiler on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / KERNEL_SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile every named library that is not built yet, all at once.
+
+    Returns ``{name: nvcc's -Xptxas -v report}`` for the libraries compiled
+    by this call (registers, shared memory and spills per kernel). Raises
+    with the compiler's output when one fails."""
+    names = list(KERNEL_SOURCES if names is None else names)
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in todo:
+        out = _lib_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNEL_SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    reports, failed = {}, []
+    for n, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {n} (exit {proc.returncode})\n{text}")
+            continue
+        os.replace(tmp, out)             # atomic: a reader never sees half
+        reports[n] = text
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` with its C signatures set, built first
+    if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _LOADED[name] = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
+                           f"{status}")
+
