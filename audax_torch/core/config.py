@@ -1,10 +1,11 @@
 """Typed configuration with environment overlay (port of ``audax/core/config.py``).
 
-Own copy of the parts the Whisper transcription path needs: ``EnvConfig``
-(the ``from_env`` overlay and the artifact ``stamp``), ``MelConfig`` with the
-UrbanSound and Whisper presets, and ``WhisperConfig`` with the published
-tiny .. large-v3-turbo family. Field names and defaults match the JAX package
-so a config can be rebuilt from the other's ``asdict()``.
+Own copy of the parts the Whisper transcription and fine-tuning paths need:
+``EnvConfig`` (the ``from_env`` overlay and the artifact ``stamp``),
+``MelConfig`` with the UrbanSound and Whisper presets, ``WhisperConfig``
+with the published tiny .. large-v3-turbo family, and ``FineTuneConfig``.
+Field names and defaults match the JAX package so a config can be rebuilt
+from the other's ``asdict()``.
 
 The JAX ``MelConfig.matmul_precision`` field is not carried: every matmul of
 the port's log-mel runs in full float32 (the port's kernels do not use TF32,
@@ -20,7 +21,8 @@ from typing import Any, Dict, Optional, Tuple, Type, TypeVar
 
 T = TypeVar("T", bound="EnvConfig")
 
-__all__ = ["EnvConfig", "MelConfig", "WhisperConfig", "replace"]
+__all__ = ["EnvConfig", "MelConfig", "WhisperConfig", "FineTuneConfig",
+           "replace"]
 
 
 def _coerce(raw: str, typ: Any) -> Any:
@@ -165,3 +167,43 @@ class WhisperConfig(EnvConfig):
         # the distilled 4-decoder-layer large-v3 ("turbo")
         return cls(n_mels=128, d_model=1280, encoder_layers=32,
                    decoder_layers=4, heads=20, vocab_size=51866)
+
+
+@dataclass(frozen=True)
+class FineTuneConfig(EnvConfig):
+    """Seq2seq fine-tune knobs (reference: AB/fineTune.py:162-183)."""
+
+    batch_size: int = 16
+    learning_rate: float = 1e-5
+    warmup_steps: int = 10
+    max_steps: int = 50
+    eval_every: int = 10
+    gradient_checkpointing: bool = True
+    # microbatches per optimizer step (gradient_accumulation_steps,
+    # AB/fineTune.py:165); batch_size must be divisible by it
+    accum_steps: int = 1
+    lora_rank: int = 0           # 0 = full fine-tune; >0 = LoRA adapters
+    # train-loop losses are fetched from the device in chunks of this many
+    # steps (a per-step host read waits for the device every step); 1
+    # restores per-step fetching
+    loss_fetch_every: int = 8
+    lora_alpha: float = 16.0
+    label_pad_id: int = -100
+    seed: int = 0
+    # compute dtype for the train step ("float32" | "bfloat16"): master
+    # weights stay float32 either way
+    dtype: str = "float32"
+    # Adam moment STORAGE dtype ("float32" | "bfloat16" | "int8"): update
+    # math and master weights stay float32. The port carries float32 and
+    # bfloat16; int8 arrives with a later slice
+    moment_dtype: str = "bfloat16"
+    # >0 keeps an EMA average of the trainable params (train/ema.py) with
+    # this decay; WER eval + best-checkpoint then use the averaged weights
+    ema_decay: float = 0.0
+    # SpecAugment time/frequency masking on the train-batch mels
+    # (ops/augment.py); eval always runs unaugmented
+    spec_augment: bool = False
+    sa_time_masks: int = 2
+    sa_freq_masks: int = 2
+    sa_max_time_width: int = 40
+    sa_max_freq_width: int = 16

@@ -86,7 +86,7 @@ class GenerateResult(NamedTuple):
         return self.sum_logprob / torch.clamp_min(self.gen_count, 1)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def generate(params, cfg: WhisperConfig, enc: torch.Tensor,
              prompt: torch.Tensor, *, max_len: int, eos_id: int,
              temperature: float = 0.0,

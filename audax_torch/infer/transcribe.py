@@ -33,7 +33,7 @@ from audax_torch.core.config import WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
 from audax_torch.frontend.features import LogMelFrontend
 from audax_torch.infer.decode import GenerateResult, TimestampRules, generate
-from audax_torch.models.whisper import encode
+from audax_torch.models.whisper import encode, tree_map
 from audax_torch.ops import native
 from audax_torch.symbolic.tokenizer import WhisperTokenizer
 
@@ -149,7 +149,9 @@ class Transcriber:
         if task not in ("transcribe", "translate"):
             raise ValueError(f"task must be transcribe/translate, got {task!r}")
         self.device = resolve_device(device)
-        self.params = params
+        # serving records no graph: trained leaves that require grad are
+        # detached (the same storage, no copy)
+        self.params = tree_map(lambda t: t.detach(), params)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.lang = lang
@@ -229,6 +231,7 @@ class Transcriber:
                         timestamps=rules, dtype=self.dtype,
                         no_speech_id=ns_id, no_speech_pos=ns_pos)
 
+    @torch.inference_mode()
     def warmup(self, *, batch_chunks: int = 4) -> None:
         """Build the CUDA kernels (on a CUDA device) and run one dummy
         window group through the frontend, encoder and greedy decode."""
@@ -239,6 +242,7 @@ class Transcriber:
         enc = encode(self.params, self.cfg, mel, self.dtype)
         self._decode_once(enc, self._prompt(batch_chunks), 0.0)
 
+    @torch.inference_mode()
     def _decode_chunk_batch(self, audio_chunks: np.ndarray,
                             prev: Optional[List[int]] = None,
                             lang: Optional[str] = None):
@@ -289,6 +293,7 @@ class Transcriber:
             pending = still
         return results
 
+    @torch.inference_mode()
     def transcribe(self, audio: np.ndarray, *, batch_chunks: int = 4
                    ) -> TranscriptionResult:
         """audio: 1-D float waveform at 16 kHz, split into windows."""

@@ -12,7 +12,8 @@ with like:
     ``[3, C_in, C_out]`` becomes ``F.conv1d``'s ``[C_out, C_in, 3]``.
 
 Quantized trees (``kernel_q``/``kernel_q4`` leaves) belong to the serving
-slice and are refused here.
+slice and are refused here. ``lora_from_numpy`` converts the JAX package's
+flat LoRA adapter tree the same way; adapters of the conv kernels raise.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ import torch
 
 from audax_torch.core.config import WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
+from audax_torch.models.lora import check_not_conv
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "lora_from_numpy"]
 
 _CONVS = ("conv1", "conv2")
 
@@ -44,6 +46,21 @@ def _convert(tree: Mapping[str, Any], device: torch.device, path: str):
         if key == "kernel" and path.rsplit("/", 1)[-1] in _CONVS:
             arr = arr.transpose(2, 1, 0)          # HIO -> [C_out, C_in, 3]
         out[key] = torch.from_numpy(np.array(arr, copy=True)).to(device)
+    return out
+
+
+def lora_from_numpy(tree: Mapping[str, Any],
+                    device: DeviceLike = None) -> Dict[str, Any]:
+    """The JAX package's flat LoRA tree (``{path: {"a", "b"}}``, numpy
+    arrays) -> the port's, float32 tensors on ``device``. Adapters of the
+    conv kernels, whose layout the port changes, raise ``ValueError``."""
+    device = resolve_device(device)
+    out = {}
+    for path, ab in tree.items():
+        check_not_conv(path)
+        out[path] = {k: torch.from_numpy(
+            np.array(ab[k], dtype=np.float32, copy=True)).to(device)
+            for k in ("a", "b")}
     return out
 
 

@@ -14,33 +14,45 @@ cross-attention; logits tied to the token embedding; k_proj has no bias;
 LayerNorm eps 1e-5 with float32 statistics; attention scale head_dim**-0.5;
 GELU exact (erf) in float32 and the tanh form in bfloat16.
 
-The encoder's self-attention runs the flash kernel (``ops/attention.py``);
-the decoder reads its caches through the stacked decode-attention kernel.
-On CPU tensors both take their plain PyTorch versions. The dense
-projections, the conv stem and the tied-embedding logits stay
-``torch.matmul``/``F.conv1d``, as the JAX package left them to XLA.
+Every attention of ``encode`` and the teacher-forced ``decode_train`` goes
+through ``ops/attention.py:dot_product_attention``: the flash kernels (K2
+forward, K7/K8 backward) wherever ``flash_applicable`` holds, the
+materialised twin otherwise. The incremental decoder reads its caches
+through the stacked decode-attention kernel (K3). On CPU tensors the
+kernels take their plain PyTorch versions. The dense projections, the conv
+stem and the tied-embedding logits stay ``torch.matmul``/``F.conv1d``, as
+the JAX package left them to XLA.
+
+``remat`` (the training path) checkpoints each layer's body with
+``torch.utils.checkpoint``: True recomputes the whole layer in the backward,
+"dots" keeps its dense-projection outputs (the JAX
+``dots_with_no_batch_dims_saveable`` policy), False saves everything.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from audax_torch.core.config import WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
-from audax_torch.ops.attention import decode_attention_stacked, flash_attention
+from audax_torch.ops.attention import (decode_attention_stacked,
+                                       dot_product_attention)
 
 Params = Dict[str, Any]
 
 __all__ = [
     "init_whisper_params", "sinusoidal_positions", "layer_norm", "dense",
-    "conv_stem", "encode", "KVCache", "init_kv_cache", "precompute_cross_kv",
-    "decode_step", "decode_span", "embed_lookup", "embed_logits",
-    "layer_params", "tree_map",
+    "attention", "conv_stem", "encode", "decode_train", "whisper_forward",
+    "KVCache", "init_kv_cache", "precompute_cross_kv", "decode_step",
+    "decode_span", "embed_lookup", "embed_logits", "layer_params",
+    "tree_map", "tree_leaves", "tree_unflatten",
 ]
 
 
@@ -115,11 +127,27 @@ def init_whisper_params(cfg: WhisperConfig, generator: torch.Generator, *,
     return tree_map(lambda t: t.to(device), params)
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every tensor of a nested-dict parameter tree."""
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every tensor of a nested-dict parameter tree (and
+    the matching leaves of ``rest``, trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested-dict tree, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves) -> Params:
+    """A tree shaped like ``template`` holding ``leaves`` (in
+    ``tree_leaves`` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
 
 
 def layer_params(stack: Params, li: int) -> Params:
@@ -167,13 +195,19 @@ def _mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return dense(p["mlp_out"], _gelu(dense(p["mlp_in"], x)))
 
 
-def attention(p: Params, x: torch.Tensor, heads: int) -> torch.Tensor:
-    """Maskless multi-head self-attention (the encoder's), through the flash
-    kernel on CUDA and its plain version on the CPU."""
+def attention(p: Params, x: torch.Tensor, heads: int, *,
+              kv: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None,
+              causal: bool = False) -> torch.Tensor:
+    """Multi-head attention through ``dot_product_attention``. ``kv``: the
+    cross-attention source (self-attention when None); ``mask``: a boolean
+    [.., Tq, Tk] mask, which takes the materialised twin."""
     q = _split_heads(dense(p["q"], x), heads)
-    k = _split_heads(dense(p["k"], x), heads)
-    v = _split_heads(dense(p["v"], x), heads)
-    out = flash_attention(q, k, v, scale=q.shape[-1] ** -0.5)
+    src = kv if kv is not None else x
+    k = _split_heads(dense(p["k"], src), heads)
+    v = _split_heads(dense(p["v"], src), heads)
+    out = dot_product_attention(q, k, v, causal=causal, mask=mask,
+                                scale=q.shape[-1] ** -0.5)
     return dense(p["out"], _merge_heads(out))
 
 
@@ -204,19 +238,87 @@ def conv_stem(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
     return x + p["pos"].to(dtype)[None, : x.shape[1]]
 
 
-@torch.no_grad()
+#: the dense projections' ops, saved by remat="dots"
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_body(body, remat):
+    """Per-LAYER gradient checkpointing of a layer body ``body(x, layer)``:
+    the backward recomputes one layer at a time, so only the layer
+    boundaries (and, for "dots", the projection outputs) stay saved. A
+    whole-forward checkpoint would replay every layer at once and save no
+    memory. Outside autograd the body runs as it is."""
+    if not remat:
+        return body
+
+    def run(x, layer):
+        if not torch.is_grad_enabled():
+            return body(x, layer)
+        kw = {}
+        if remat == "dots":
+            kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+                _save_dots)
+        return checkpoint(body, x, layer, use_reentrant=False, **kw)
+    return run
+
+
 def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
-           dtype=torch.float32) -> torch.Tensor:
+           dtype=torch.float32, *, remat=False) -> torch.Tensor:
     """mel [B, T_frames, n_mels] (time-major) -> encoder states
-    [B, T_frames//2, d_model]."""
+    [B, T_frames//2, d_model]. ``remat`` (False | True | "dots")
+    checkpoints each layer (training path)."""
     p = params["encoder"]
     x = conv_stem(params, cfg, mel, dtype)
-    for li in range(cfg.encoder_layers):
-        layer = layer_params(p["layers"], li)
+
+    def body(x, layer):
         x = x + attention(layer["attn"], layer_norm(layer["attn_ln"], x),
                           cfg.heads)
-        x = x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
+        return x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
+
+    body = _remat_body(body, remat)
+    for li in range(cfg.encoder_layers):
+        x = body(x, layer_params(p["layers"], li))
     return layer_norm(p["ln"], x)
+
+
+# ---------------------------------------------------------------------------
+# decoder (training / teacher-forced)
+
+def decode_train(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
+                 enc: torch.Tensor, dtype=torch.float32, *,
+                 remat=False) -> torch.Tensor:
+    """tokens [B, L] -> logits [B, L, vocab] with causal self-attention
+    and cross-attention to ``enc``."""
+    p = params["decoder"]
+    n = tokens.shape[1]
+    x = embed_lookup(p, tokens, dtype) + p["pos"][:n].to(dtype)
+
+    def body(x, layer):
+        x = x + attention(layer["attn"], layer_norm(layer["attn_ln"], x),
+                          cfg.heads, causal=True)
+        x = x + attention(layer["cross_attn"],
+                          layer_norm(layer["cross_ln"], x), cfg.heads, kv=enc)
+        return x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
+
+    body = _remat_body(body, remat)
+    for li in range(cfg.decoder_layers):
+        x = body(x, layer_params(p["layers"], li))
+    return embed_logits(p, layer_norm(p["ln"], x))
+
+
+def whisper_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
+                    tokens: torch.Tensor, dtype=torch.float32, *,
+                    remat=False) -> torch.Tensor:
+    """Full seq2seq forward (fine-tuning path): mel + decoder input tokens
+    -> logits [B, L, vocab]."""
+    return decode_train(params, cfg, tokens,
+                        encode(params, cfg, mel, dtype, remat=remat),
+                        dtype, remat=remat)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,23 @@
-"""Attention: the CUDA kernels K2 (flash forward) and K3 (stacked decode
-attention) with their plain PyTorch versions.
+"""Attention: the CUDA kernels K2 (flash forward), K7/K8 (flash backward)
+and K3 (stacked decode attention) with their plain PyTorch versions.
 
 Port of ``audax/ops/attention.py``:
 
   * ``flash_forward`` -- the forward of ``flash_attention`` (TPU kernel
     ``_fwd_kernel``): online-softmax attention writing O and the logsumexp,
     with grouped-query heads (kv head = q head // group), a ragged Tk and an
-    optional causal mask (Tq == Tk). Whisper's encoder self-attention calls
-    ``flash_attention`` directly: the JAX ``dot_product_attention``
-    dispatcher's explicit-mask path has no caller in this slice. Its plain
-    version mirrors the JAX package's ``xla_attention``.
+    optional causal mask (Tq == Tk). Its plain version mirrors the JAX
+    package's ``xla_attention``.
+  * ``flash_backward`` -- the gradients of ``flash_attention`` (TPU kernels
+    ``_dq_kernel`` and ``_dkv_kernel`` of ``_bwd_pallas``): P is recomputed
+    from the saved logsumexp, delta = rowsum(dO * O) is a plain float32 pass
+    (the JAX package leaves it to XLA), and a kv head's gradient sums its
+    whole q-head group. ``flash_attention`` is a ``torch.autograd.Function``
+    whose forward is K2 and whose backward is K7 + K8.
+  * ``xla_attention`` (the materialised twin, any mask), ``flash_applicable``
+    and ``dot_product_attention``, which takes the flash path wherever
+    ``flash_applicable`` holds -- the rule the TPU path follows -- and the
+    twin otherwise. Whisper's attention sites all go through it.
   * ``decode_attention_stacked`` -- small-Tq attention over the
     layer-stacked ``[L, B, Hkv, S, D]`` KV cache (TPU kernel
     ``_dec_kernel_stacked``), the layer picked by index inside the kernel,
@@ -17,11 +25,10 @@ Port of ``audax/ops/attention.py``:
     layer per token (self- and cross-attention). Its plain version mirrors
     ``_decode_attention_xla``.
 
-Each public function dispatches on the tensor it is given: a CPU tensor
+Each kernel function dispatches on the tensor it is given: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises. The
-flash backward kernels (K7, K8) and the int8 ``QuantKV`` arm of K3 belong to
-later slices. Head folding (``fold``) was a TPU VMEM device and is not
-ported.
+int8 ``QuantKV`` arm of K3 belongs to a later slice. Head folding (``fold``)
+was a TPU VMEM device and is not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +40,10 @@ import torch
 from audax_torch.ops import native
 
 __all__ = ["flash_forward", "flash_forward_cuda", "flash_forward_plain",
-           "flash_attention",
+           "flash_backward", "flash_backward_plain", "flash_backward_dq_plain",
+           "flash_backward_dkv_plain", "flash_backward_dq_cuda",
+           "flash_backward_dkv_cuda", "flash_attention", "FlashAttention",
+           "xla_attention", "flash_applicable", "dot_product_attention",
            "decode_attention_stacked", "decode_attention_stacked_cuda",
            "decode_attention_stacked_plain"]
 
@@ -131,12 +141,252 @@ def flash_forward(q, k, v, *, causal=False, scale=None):
     return fn(q, k, v, causal=causal, scale=scale)
 
 
+def _probs_plain(q, k, lse, causal, scale):
+    """P = exp(scale * q k^T - lse) recomputed from the saved logsumexp, as
+    the kernels do, in float32 (keys repeated over the q-head group).
+    Returns (P [B, Hq, Tq, Tk], k repeated)."""
+    b, hq, tq, _ = q.shape
+    group = hq // k.shape[1]
+    kr = k.repeat_interleave(group, dim=1) if group > 1 else k
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    p = torch.exp(s - lse.reshape(b, hq, tq, 1))
+    if causal:
+        tk = s.shape[-1]
+        keep = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
+        p = p.masked_fill(~keep, 0.0)
+    return p, kr
+
+
+def _dp_ds_plain(q, k, v, o, lse, do, causal, scale):
+    p, kr = _probs_plain(q, k, lse, causal, scale)
+    group = q.shape[1] // k.shape[1]
+    vr = v.repeat_interleave(group, dim=1) if group > 1 else v
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vr.float())
+    return p, p * (dp - delta) * scale, kr
+
+
+def _fold_group(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    """[B, Hq, T, D] -> [B, Hkv, T, D], summing each kv head's q heads."""
+    b, hq, t, d = x.shape
+    return x.reshape(b, hkv, hq // hkv, t, d).sum(2)
+
+
+def flash_backward_dq_plain(q, k, v, o, lse, do, *, causal=False,
+                            scale=None) -> torch.Tensor:
+    """dQ = dS K with dS = P * (dO V^T - rowsum(dO * O)) * scale, dS cast
+    to K's dtype before the product (the TPU ``_dq_kernel`` math)."""
+    flash_backward_dq_plain.launches += 1
+    _, ds, kr = _dp_ds_plain(q, k, v, o, lse, do, causal, _scale(q, scale))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), kr.float())
+    return dq.to(q.dtype)
+
+
+flash_backward_dq_plain.launches = 0
+
+
+def flash_backward_dkv_plain(q, k, v, o, lse, do, *, causal=False,
+                             scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK = dS^T Q (dS cast to Q's dtype) and dV = P^T dO (P cast to dO's
+    dtype), each kv head summing its q-head group (the ``_dkv_kernel``
+    math)."""
+    flash_backward_dkv_plain.launches += 1
+    p, ds, _ = _dp_ds_plain(q, k, v, o, lse, do, causal, _scale(q, scale))
+    hkv = k.shape[1]
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do.float())
+    return (_fold_group(dk, hkv).to(k.dtype),
+            _fold_group(dv, hkv).to(v.dtype))
+
+
+flash_backward_dkv_plain.launches = 0
+
+
+def flash_backward_plain(q, k, v, o, lse, do, *, causal=False, scale=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of flash attention from the forward's ``o`` and
+    ``lse [B*Hq, Tq]`` and the output gradient ``do``, recomputing P from
+    the logsumexp as the kernels do."""
+    dq = flash_backward_dq_plain(q, k, v, o, lse, do, causal=causal,
+                                 scale=scale)
+    dk, dv = flash_backward_dkv_plain(q, k, v, o, lse, do, causal=causal,
+                                      scale=scale)
+    return dq, dk, dv
+
+
+def _check_backward(q, k, v, o, lse, do, causal):
+    _check_cuda("flash_backward", q, k, v, o, do)
+    b, hq, tq, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_backward: q {tuple(q.shape)} does not match "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_backward: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must match q {tuple(q.shape)}")
+    if (lse.dtype != torch.float32 or lse.device != q.device
+            or tuple(lse.shape) != (b * hq, tq) or not lse.is_contiguous()):
+        raise ValueError(f"flash_backward: lse must be a contiguous float32 "
+                         f"[{b * hq}, {tq}] on {q.device}")
+    hkv, tk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    if causal and tq != tk:
+        raise ValueError("causal flash attention requires Tq == Tk")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_backward: head_dim {d} not in {_HEAD_DIMS}")
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in float32, [B*Hq, Tq]."""
+    b, hq, tq, _ = o.shape
+    return (do.float() * o.float()).sum(-1).reshape(b * hq, tq).contiguous()
+
+
+def flash_backward_dq_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
+                           delta: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Kernel K7 (``csrc/flash_bwd.cu``); same contract as
+    ``flash_backward_dq_plain``. ``delta`` may be passed precomputed."""
+    _check_backward(q, k, v, o, lse, do, causal)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if tk == 0:
+        return torch.zeros_like(q)
+    dq = torch.empty_like(q)
+    if tq == 0:
+        return dq
+    delta = _delta(o, do) if delta is None else delta
+    status = native.library("flash_bwd").flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, hq, hkv, tq, tk,
+        d, _scale(q, scale), int(causal), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(status, "flash_backward_dq")
+    flash_backward_dq_cuda.launches += 1
+    return dq
+
+
+flash_backward_dq_cuda.launches = 0
+
+
+def flash_backward_dkv_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
+                            delta: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K8 (``csrc/flash_bwd.cu``); same contract as
+    ``flash_backward_dkv_plain``. ``delta`` may be passed precomputed."""
+    _check_backward(q, k, v, o, lse, do, causal)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if tq == 0:
+        return torch.zeros_like(k), torch.zeros_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if tk == 0:
+        return dk, dv
+    delta = _delta(o, do) if delta is None else delta
+    status = native.library("flash_bwd").flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq,
+        hkv, tq, tk, d, _scale(q, scale), int(causal), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(status, "flash_backward_dkv")
+    flash_backward_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_backward_dkv_cuda.launches = 0
+
+
+def flash_backward(q, k, v, o, lse, do, *, causal=False, scale=None):
+    """``(dq, dk, dv)``: kernels K7 and K8 for CUDA tensors (one delta pass
+    shared by both), else the plain version."""
+    if not q.is_cuda:
+        return flash_backward_plain(q, k, v, o, lse, do, causal=causal,
+                                    scale=scale)
+    delta = _delta(o, do)
+    dq = flash_backward_dq_cuda(q, k, v, o, lse, do, causal=causal,
+                                scale=scale, delta=delta)
+    dk, dv = flash_backward_dkv_cuda(q, k, v, o, lse, do, causal=causal,
+                                     scale=scale, delta=delta)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: forward K2, backward K7 + K8 (their
+    plain versions on CPU tensors). Saves q, k, v, o and the logsumexp;
+    nothing O(Tq * Tk) is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_forward(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(),
+                                    causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Fused attention output. q [B, Hq, Tq, D]; k/v [B, Hkv, Tk, D] with
-    Hq % Hkv == 0. Causal requires Tq == Tk. Forward only in this slice."""
-    return flash_forward(q, k, v, causal=causal, scale=scale)[0]
+    Hq % Hkv == 0. Causal requires Tq == Tk. Differentiable: the backward
+    runs the flash backward kernels."""
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError("causal flash attention requires Tq == Tk")
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"Hq={q.shape[1]} not a multiple of Hkv={k.shape[1]}")
+    return FlashAttention.apply(q, k, v, causal, _scale(q, scale))
+
+
+# ----------------------------------------------------------- twin / dispatch --
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = False, mask: Optional[torch.Tensor] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """The materialised twin (the JAX ``xla_attention`` math): softmax in
+    float32, probabilities cast to q's dtype before PV; GQA, an end-aligned
+    causal mask and any boolean ``mask`` broadcastable to [B, H, Tq, Tk].
+    Differentiable through autograd."""
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q * _scale(q, scale), k)
+    if causal:
+        tq, tk = s.shape[-2:]
+        cm = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril(tk - tq)
+        mask = cm if mask is None else mask & cm
+    if mask is not None:
+        s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def flash_applicable(q_shape, k_shape, mask, causal: bool = False) -> bool:
+    """Flash path: no arbitrary mask, head dims equal, q heads a multiple of
+    kv heads, at least 16 rows and 16 keys, and for causal a square
+    Tq == Tk (the JAX package's rule)."""
+    return (mask is None and q_shape[-1] == k_shape[-1]
+            and q_shape[1] % k_shape[1] == 0 and q_shape[2] >= 16
+            and k_shape[2] >= 16
+            and (not causal or q_shape[2] == k_shape[2]))
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = False,
+                          mask: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention (K2 forward, K7/K8 backward on CUDA) wherever
+    ``flash_applicable`` holds, the materialised twin otherwise."""
+    if flash_applicable(q.shape, k.shape, mask, causal):
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    return xla_attention(q, k, v, causal=causal, mask=mask, scale=scale)
 
 
 # ----------------------------------------------------------------- decode --

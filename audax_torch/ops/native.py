@@ -34,6 +34,7 @@ BUILD = _PKG / "build"
 KERNEL_SOURCES = {
     "log_mel_overlap": "log_mel_overlap.cu",
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
     "decode_attention": "decode_attention.cu",
 }
 
@@ -50,6 +51,10 @@ SIGNATURES = {
     "flash_fwd": {
         "flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                        _I, _P], _I),
+    },
+    "flash_bwd": {
+        "flash_bwd_dq": ([_P] * 7 + [_I] * 6 + [_F, _I, _I, _P], _I),
+        "flash_bwd_dkv": ([_P] * 8 + [_I] * 6 + [_F, _I, _I, _P], _I),
     },
     "decode_attention": {
         "decode_smem": ([_I, _I, _I], _LL),

@@ -3,27 +3,41 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-It builds the port's CUDA kernels from ``audax_torch/csrc`` and drives the
-Whisper transcription main path at the full width of Whisper-tiny, in five
-phases, one output line each (the kernel and main-path phases print one
+``--profile`` adds a ``torch.profiler`` window over each fine-tune step
+(device time by kernel family, the device's busy share). It builds the port's CUDA kernels from ``audax_torch/csrc`` and drives the
+port's two main paths -- Whisper transcription at the full width of
+Whisper-tiny and Whisper fine-tuning at the full width of Whisper-base --
+in six phases, one output line each (the kernel and path phases print one
 line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel, in parallel, with its wall time;
+  2. build   -- nvcc of every kernel library (four), in parallel, with its
+     wall time;
   3. kernels -- each kernel against its plain PyTorch version on the card at
-     the main path's shapes: max |err| against the stated tolerance, kernel
+     the main paths' shapes: max |err| against the stated tolerance, kernel
      ms, plain ms, the one-call library yardstick where there is one, and
      the least time the card could take (bytes or operations over the
      H100's published peaks);
-  4. main path -- random Whisper-tiny weights from a seeded generator, a
-     tokenizer with the published 51,865-token layout, two requests (30 s
+  4. transcription -- random Whisper-tiny weights from a seeded generator,
+     a tokenizer with the published 51,865-token layout, two requests (30 s
      and 47 s of synthetic audio) through ``Transcriber(device="cuda")``;
-     every kernel's launch counter must rise and no plain version's may;
-     then the card is held against the port's CPU path in float32
-     (encoder states, and teacher-forced logits of every decode step);
-  5. the kernels' JSON line, then the result line.
+     the counters of its kernels (K1, K2, K3) must rise and no plain
+     version's may; then the card is held against the port's CPU path in
+     float32 (encoder states, and teacher-forced logits of every decode
+     step);
+  5. fine-tune -- random Whisper-base weights, eight synthetic 30 s clips
+     written as 16-bit wavs with transcript sidecars, ``build_speech_dataset``
+     and two ``finetune_whisper(device="cuda")`` runs: LoRA (rank 8 on
+     attn/q and attn/v, with one WER eval) and full-parameter (overfitting
+     four clips: the last loss must fall below 0.7x the first). K1, K2, K3,
+     K7 and K8 must all launch and no plain version may. Then the step
+     time, steps/s, tokens/s, peak memory and launches of the
+     full-parameter and the LoRA step at batch 4, and one step's loss and
+     every gradient leaf on the card against the port's CPU path at batch 1
+     in float32;
+  6. the kernels' JSON line, then the result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or without the ``audax_torch`` package beside it, it exits with 2
@@ -32,6 +46,7 @@ and prints no result. It imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -55,6 +70,16 @@ TOL_BF16 = 2e-2
 #: the only difference, compounded over the layers
 TOL_ENC = 1e-3
 TOL_LOGITS = 1e-3
+#: one fine-tune step, card vs CPU in float32: the loss (relative), and each
+#: gradient leaf against 1e-3 of that leaf's largest CPU value (+1e-6)
+TOL_STEP_LOSS = 1e-4
+TOL_STEP_GRAD = 1e-3
+
+#: the kernels each main path must launch
+TRANSCRIBE_KERNELS = ("log_mel_overlap", "flash_forward",
+                      "decode_attention_stacked")
+FINETUNE_KERNELS = ("log_mel_overlap", "flash_forward", "flash_backward_dq",
+                    "flash_backward_dkv", "decode_attention_stacked")
 
 
 def _run(cmd):
@@ -167,6 +192,11 @@ def kernel_phase(torch, rng):
                False, TOL_BF16, False)
     flash_case("f32 causal GQA 8q/2kv T=200", 2, 8, 2, 200, 200,
                torch.float32, True, TOL_F32, False)
+    # the fine-tune path's sites at Whisper-base width
+    flash_case("f32 [4,8,1500,64]", 4, 8, 8, 1500, 1500, torch.float32,
+               False, TOL_F32, False)
+    flash_case("f32 cross q [4,8,48,64] kv [4,8,1500,64]", 4, 8, 8, 48, 1500,
+               torch.float32, False, TOL_F32, False)
 
     # ---- K3: stacked decode attention -----------------------------------------
     def decode_case(label, s_len, pos, main, h=6, hkv=6, tq=1):
@@ -220,6 +250,74 @@ def kernel_phase(torch, rng):
     decode_case("cross [4,4,6,1500,64] pos=None", 1500, None, True)
     decode_case("GQA 8q/2kv Tq=3 S=64 pos [0,5,30,63]", 64, [0, 5, 30, 63],
                 False, h=8, hkv=2, tq=3)
+
+    # ---- K7 / K8: flash backward (dQ; dK and dV) ------------------------------
+    def bwd_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main):
+        q = torch.randn(b, hq, tq, 64, device=dev).to(dtype)
+        k = torch.randn(b, hkv, tk, 64, device=dev).to(dtype)
+        v = torch.randn(b, hkv, tk, 64, device=dev).to(dtype)
+        do = torch.randn(b, hq, tq, 64, device=dev).to(dtype)
+        o, lse = att.flash_forward_cuda(q, k, v, causal=causal)
+        args = (q, k, v, o, lse, do)
+        delta = att._delta(o, do)       # shared by both kernels on the path
+        dq = att.flash_backward_dq_cuda(*args, causal=causal, delta=delta)
+        dk, dv = att.flash_backward_dkv_cuda(*args, causal=causal,
+                                             delta=delta)
+        rdq = att.flash_backward_dq_plain(*args, causal=causal)
+        rdk, rdv = att.flash_backward_dkv_plain(*args, causal=causal)
+
+        def rel(a, r):        # max |err| scaled by the plain gradient's max
+            return err(a, r) / float(r.float().abs().max())
+        e_dq, e_dkv = rel(dq, rdq), max(rel(dk, rdk), rel(dv, rdv))
+        ms_dq = _time_ms(torch, lambda: att.flash_backward_dq_cuda(
+            *args, causal=causal, delta=delta))
+        ms_dkv = _time_ms(torch, lambda: att.flash_backward_dkv_cuda(
+            *args, causal=causal, delta=delta))
+        plain_dq = _time_ms(torch, lambda: att.flash_backward_dq_plain(
+            *args, causal=causal), reps=5)
+        plain_dkv = _time_ms(torch, lambda: att.flash_backward_dkv_plain(
+            *args, causal=causal), reps=5)
+        # yardstick: the backward alone of SDPA (all three gradients), on a
+        # graph built once
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                              enable_gqa=hq != hkv)
+        lib = _time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), do, retain_graph=True))
+        pairs = tq * (tq + 1) // 2 if causal else tq * tk
+        elt, rate = q.element_size(), (F32_FLOPS if dtype == torch.float32
+                                       else BF16_FLOPS)
+        rows_q, rows_kv = b * hq * tq, b * hkv * tk
+        # dQ: S, dP and dS K (6 per pair and dim); reads q, do, k, v, lse,
+        # delta and writes dq. dK/dV: S, dP, P^T dO, dS^T Q (8); writes dk, dv
+        bound_dq = _bound(6 * b * hq * pairs * 64,
+                          elt * 64 * (3 * rows_q + 2 * rows_kv) + 8 * rows_q,
+                          rate)
+        bound_dkv = _bound(8 * b * hq * pairs * 64,
+                           elt * 64 * (2 * rows_q + 4 * rows_kv) + 8 * rows_q,
+                           rate)
+        _report(f"flash_backward_dq[{label}]", e_dq, tol, ms_dq, plain_dq,
+                lib, bound_dq)
+        _report(f"flash_backward_dkv[{label}]", e_dkv, tol, ms_dkv,
+                plain_dkv, lib, bound_dkv)
+        if main:
+            out["flash_backward_dq"] = dict(
+                max_abs_err=err(dq, rdq), ms=ms_dq, plain_ms=plain_dq,
+                library_ms=lib, bound=bound_dq)
+            out["flash_backward_dkv"] = dict(
+                max_abs_err=max(err(dk, rdk), err(dv, rdv)), ms=ms_dkv,
+                plain_ms=plain_dkv, library_ms=lib, bound=bound_dkv)
+
+    bwd_case("encoder f32 [4,8,1500,64]", 4, 8, 8, 1500, 1500, torch.float32,
+             False, TOL_F32, True)
+    bwd_case("encoder bf16 [4,8,1500,64]", 4, 8, 8, 1500, 1500,
+             torch.bfloat16, False, TOL_BF16, False)
+    bwd_case("decoder self causal f32 [4,8,48,64]", 4, 8, 8, 48, 48,
+             torch.float32, True, TOL_F32, False)
+    bwd_case("cross f32 q [4,8,48,64] kv [4,8,1500,64]", 4, 8, 8, 48, 1500,
+             torch.float32, False, TOL_F32, False)
+    bwd_case("causal GQA 8q/2kv T=77 f32", 2, 8, 2, 77, 77, torch.float32,
+             True, TOL_F32, False)
     return out
 
 
@@ -241,17 +339,25 @@ def _tokenizer():
     return WhisperTokenizer.for_vocab_size(BPE(vocab, bpe.merges), 51865)
 
 
-def _speechlike(rng, seconds, sr=16000):
+def _speechlike(rng, seconds, sr=16000, pitch=120.0, syllables=4.0):
     """Deterministic synthetic audio: gliding harmonic tones under a
     syllable-rate envelope, plus noise."""
     import numpy as np
     t = np.arange(int(seconds * sr)) / sr
-    f0 = 120 + 40 * np.sin(2 * np.pi * 0.3 * t)
+    f0 = pitch + 40 * np.sin(2 * np.pi * 0.3 * t)
     phase = 2 * np.pi * np.cumsum(f0) / sr
     voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
-    env = 0.5 * (1 + np.sin(2 * np.pi * 4 * t)) ** 2
+    env = 0.5 * (1 + np.sin(2 * np.pi * syllables * t)) ** 2
     x = 0.2 * env * voiced + 0.01 * rng.standard_normal(t.shape)
     return x.astype(np.float32)
+
+
+def _check_launches(counts, kernels, path):
+    """Every kernel of ``kernels`` launched and no plain version ran."""
+    for name, c in counts.items():
+        if c["plain"] != 0 or (name in kernels and c["cuda"] <= 0):
+            raise AssertionError(f"{name}: kernel launches {c['cuda']}, plain "
+                                 f"{c['plain']} on the {path} path")
 
 
 def main_path_phase(torch, rng):
@@ -287,10 +393,7 @@ def main_path_phase(torch, rng):
               flush=True)
     counts = launch_counts()
     print(f"[main] launches: {json.dumps(counts)}", flush=True)
-    for name, c in counts.items():
-        if c["cuda"] <= 0 or c["plain"] != 0:
-            raise AssertionError(f"{name}: kernel launches {c['cuda']}, plain "
-                                 f"{c['plain']} on the main path")
+    _check_launches(counts, TRANSCRIBE_KERNELS, "transcription")
 
     # ---- the card against the port's CPU path, float32 ------------------------
     audio = requests[0][1][None, : tr.chunk_samples]
@@ -332,7 +435,255 @@ def main_path_phase(torch, rng):
     return counts
 
 
+def _transcripts(rng, tok, n, lo=30, hi=45):
+    """``n`` texts of ``lo``..``hi`` tokens from the tokenizer's corpus."""
+    words = ("the quick brown fox jumps over the lazy dog hello world how "
+             "are you today speech recognition on a graphics card one two "
+             "three four five six seven eight nine ten").split()
+    texts = []
+    while len(texts) < n:
+        text, target = [], int(rng.integers(lo, hi + 1))
+        while len(tok.encode(" ".join(text))) < target:
+            text.append(str(rng.choice(words)))
+        if lo <= len(tok.encode(" ".join(text))) <= hi:
+            texts.append(" ".join(text))
+    return texts
+
+
+def _kernel_group(name):
+    """The family of a CUDA kernel, from its name."""
+    groups = (("K7 flash_bwd_dq", ("flash_bwd_dq",)),
+              ("K8 flash_bwd_dkv", ("flash_bwd_dkv",)),
+              ("K2 flash_fwd", ("flash_fwd",)),
+              ("K1 log_mel", ("log_mel",)),
+              ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "splitK")),
+              ("conv (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad")),
+              ("optimizer foreach", ("multi_tensor_apply",)),
+              ("reductions", ("reduce",)),
+              ("elementwise", ("elementwise", "vectorized", "unrolled")),
+              ("index/scatter", ("index", "scatter", "gather")))
+    low = name.lower()
+    for group, keys in groups:
+        if any(k.lower() in low for k in keys):
+            return group
+    return "other"
+
+
+def _profile(torch, fn, label, n=3):
+    """``n`` calls of ``fn`` under ``torch.profiler``: device time by kernel
+    family and the ten longest kernels, and the device's busy share of the
+    window (the kernels' summed time over the window's wall time, which the
+    profiler's own host overhead lengthens, so the share is a lower bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels)
+    if total <= 0:
+        print(f"[profile] {label}: the profiler saw no device time; busy "
+              "share not measured", flush=True)
+        return
+    groups = {}
+    for e in kernels:
+        g = groups.setdefault(_kernel_group(e.key), [0.0, 0])
+        g[0] += e.self_device_time_total
+        g[1] += e.count
+    fams = ", ".join(f"{g} {t / n / 1e3:.2f} ms ({100 * t / total:.1f}%, "
+                     f"{c // n} launches)"
+                     for g, (t, c) in sorted(groups.items(),
+                                             key=lambda kv: -kv[1][0]))
+    print(f"[profile] {label}: device {total / n / 1e3:.2f} ms per call of "
+          f"{wall_us / n / 1e3:.2f} ms wall (busy share >= "
+          f"{total / wall_us:.3f}); by family: {fams}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile]   {e.self_device_time_total / n / 1e3:8.3f} ms "
+              f"{e.count // n:5d}x  {e.key[:110]}", flush=True)
+
+
+def finetune_phase(torch, rng, profile=False):
+    """Whisper-base fine-tunes through ``finetune_whisper(device="cuda")``;
+    returns the launch counts of both runs. ``profile`` adds a profiler
+    window over each mode's step."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from audax_torch.core.config import FineTuneConfig, MelConfig, WhisperConfig
+    from audax_torch.data.audio_io import write_wav
+    from audax_torch.frontend.features import LogMelFrontend
+    from audax_torch.models import whisper as W
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.train.finetune_loop import (build_speech_dataset,
+                                                 finetune_whisper)
+    from audax_torch.train.optim import GradientTransformation
+    from audax_torch.train.seq2seq import (LABEL_PAD, FTState,
+                                           collate_seq2seq, init_finetune,
+                                           make_finetune_step)
+
+    cfg = WhisperConfig.base()
+    tok = _tokenizer()
+    mel_cfg = MelConfig.whisper(cfg.n_mels)
+    params = W.init_whisper_params(cfg, torch.Generator().manual_seed(1),
+                                   device="cuda")
+    n_params = sum(t.numel() for t in W.tree_leaves(params))
+    with tempfile.TemporaryDirectory() as d:
+        for i, text in enumerate(_transcripts(rng, tok, 8)):
+            audio = _speechlike(rng, 30.0, pitch=100.0 + 15 * i,
+                                syllables=3.0 + 0.5 * i)
+            write_wav(os.path.join(d, f"clip{i}.wav"), audio, 16000)
+            with open(os.path.join(d, f"clip{i}.txt"), "w") as fh:
+                fh.write(text)
+        examples = build_speech_dataset(d, tok, mel_cfg, chunk_seconds=30.0)
+    lens = [len(ex["labels"]) for ex in examples]
+    print(f"[finetune] Whisper-base (d_model {cfg.d_model}, "
+          f"{cfg.encoder_layers}+{cfg.decoder_layers} layers, {cfg.heads} "
+          f"heads, vocab {cfg.vocab_size}, {n_params} parameters); "
+          f"{len(examples)} clips of 30 s, label lengths {lens}", flush=True)
+    if len(examples) != 8:
+        raise AssertionError(f"dataset holds {len(examples)} examples, not 8")
+
+    reset_launches()
+    # ---- LoRA: rank 8 on attn/q and attn/v, one WER eval ----------------------
+    snapshot = W.tree_map(lambda t: t.clone(), params)
+    lora_ft = FineTuneConfig(lora_rank=8, batch_size=4, max_steps=10,
+                             eval_every=10, learning_rate=1e-3,
+                             warmup_steps=2)
+    t0 = time.perf_counter()
+    state, hist = finetune_whisper(params, cfg, tok, examples, lora_ft,
+                                   eval_examples=examples[:1], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = max(float(ab["b"].detach().abs().max())
+                for ab in state.trainable.values())
+    same = all(torch.equal(a, b) for a, b in zip(
+        W.tree_leaves(state.base_params), W.tree_leaves(snapshot)))
+    print(f"[finetune] LoRA rank 8 ({len(state.trainable)} adapted kernels): "
+          f"10 steps + eval in {wall:.2f} s, losses "
+          f"{[round(x, 4) for x in hist['loss']]}, eval WER "
+          f"{hist['wer'][0]['wer']:.3f}, base bit-unchanged {same}, max |B| "
+          f"{moved:.3e}", flush=True)
+    if not same or not moved > 0 or len(hist["wer"]) != 1:
+        raise AssertionError("LoRA run: base changed, adapters still, or no "
+                             "eval")
+    del snapshot
+
+    # ---- full-parameter: overfit four clips -----------------------------------
+    ft = FineTuneConfig(batch_size=4, max_steps=20, moment_dtype="float32",
+                        learning_rate=1e-3, warmup_steps=2)
+    t0 = time.perf_counter()
+    state, hist = finetune_whisper(params, cfg, tok, examples[:4], ft,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = hist["loss"]
+    print(f"[finetune] full-parameter, 4 clips x 20 steps in {wall:.2f} s "
+          f"({20 / wall:.3f} steps/s with loop overhead), losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < 0.7 * losses[0]):
+        raise AssertionError(f"full fine-tune loss {losses[0]} -> "
+                             f"{losses[-1]}: not below 0.7x")
+    counts = launch_counts()
+    print(f"[finetune] launches: {json.dumps(counts)}", flush=True)
+    _check_launches(counts, FINETUNE_KERNELS, "fine-tune")
+    del state
+
+    # ---- the step alone, both modes: time, rate, memory, launches ------------
+    frontend = LogMelFrontend(mel_cfg, device="cuda", whisper_frames=True)
+    audio = np.stack([ex["audio"] for ex in examples[:4]])
+    coll = collate_seq2seq([ex["labels"] for ex in examples[:4]],
+                           decoder_start_id=tok.sot)
+    batch = {"mel": frontend(audio),
+             **{k: torch.from_numpy(v).cuda() for k, v in coll.items()}}
+    labels = int((coll["labels"] != LABEL_PAD).sum())
+    tokens = 4 * cfg.n_audio_ctx + labels
+    step = make_finetune_step(cfg, remat=True)
+    for mode, mode_cfg in (("full-parameter", ft), ("LoRA rank 8", lora_ft)):
+        state = init_finetune(params, mode_cfg)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        n = 5
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / n
+        launches = {k: c["cuda"] / n for k, c in launch_counts().items()}
+        print(f"[finetune] {mode} step (B=4, L={coll['labels'].shape[1]}, "
+              f"remat, f32): {step_s * 1e3:.2f} ms, {1 / step_s:.3f} steps/s, "
+              f"{tokens} tokens/step ({4 * cfg.n_audio_ctx} audio frames + "
+              f"{labels} label tokens) = {tokens / step_s:.1f} tokens/s, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches per step {json.dumps(launches)}", flush=True)
+        if profile:
+            _profile(torch, lambda: step(state, batch), f"{mode} step")
+        del state
+
+    # ---- one step's loss and gradients, card vs CPU (batch 1, f32) ------------
+    def recording(trainable):
+        seen = []
+
+        def update(grads, st, p):
+            seen.append(W.tree_map(lambda g: g.detach().cpu(), grads))
+            return W.tree_map(torch.zeros_like, grads), st
+        return FTState(step=0, base_params={}, trainable=W.tree_map(
+            lambda t: t.detach().clone().requires_grad_(True), trainable),
+            opt_state=None, tx=GradientTransformation(lambda p: None,
+                                                      update)), seen
+
+    one = {k: v[:1] for k, v in batch.items()}
+    step = make_finetune_step(cfg, remat=True)
+    st, g_card = recording(params)
+    _, m_card = step(st, one)
+    cpu_params = W.tree_map(lambda t: t.cpu(), params)
+    st, g_cpu = recording(cpu_params)
+    _, m_cpu = step(st, {k: v.cpu() for k, v in one.items()})
+    l_card, l_cpu = float(m_card["loss"]), float(m_cpu["loss"])
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(_paths(g_cpu[0]), W.tree_leaves(g_card[0]),
+                          W.tree_leaves(g_cpu[0])):
+        ratio = float((a - b).abs().max()) / (
+            TOL_STEP_GRAD * float(b.abs().max()) + 1e-6)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    print(f"[finetune] one step card vs CPU (B=1, f32): loss {l_card:.6f} vs "
+          f"{l_cpu:.6f} (rel {rel:.2e}, tol {TOL_STEP_LOSS:.0e}); worst "
+          f"gradient leaf {worst_name} at {worst:.3f} of its tolerance "
+          f"({TOL_STEP_GRAD:.0e} x max|g_cpu| + 1e-6)", flush=True)
+    if not (rel <= TOL_STEP_LOSS and worst <= 1.0):
+        raise AssertionError("card and CPU fine-tune steps disagree")
+    return counts
+
+
+def _paths(tree, prefix=""):
+    """Leaf paths of a nested dict, in ``tree_leaves`` order."""
+    out = []
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        out.extend(_paths(v, p) if isinstance(v, dict) else [p])
+    return out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="add a torch.profiler window over each "
+                             "fine-tune step: device time by kernel family "
+                             "and the device's busy share")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -371,18 +722,25 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
-    counts = main_path_phase(torch, rng)
+    serve = main_path_phase(torch, rng)
+    train = finetune_phase(torch, rng, profile=args.profile)
+    # launches of both main paths, each counted from 0 just before it
+    launches = {k: serve[k]["cuda"] + train[k]["cuda"] for k in serve}
 
     sources = {"log_mel_overlap": ("audax_torch/csrc/log_mel_overlap.cu",
                                    "audax/ops/pallas_mel.py:199"),
                "flash_forward": ("audax_torch/csrc/flash_fwd.cu",
                                  "audax/ops/attention.py:161"),
+               "flash_backward_dq": ("audax_torch/csrc/flash_bwd.cu",
+                                     "audax/ops/attention.py:293"),
+               "flash_backward_dkv": ("audax_torch/csrc/flash_bwd.cu",
+                                      "audax/ops/attention.py:329"),
                "decode_attention_stacked": (
                    "audax_torch/csrc/decode_attention.cu",
                    "audax/ops/attention.py:680")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name]["cuda"],
+         "launches": launches[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound"][0],
