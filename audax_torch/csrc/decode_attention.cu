@@ -30,10 +30,23 @@
 // slices are combined through shared memory. The grid has only B*H blocks
 // (24 at Whisper-tiny B=4), so most SMs idle; splitting S across blocks
 // (flash-decoding) is the known next step.
+//
+// The int8 arm (decode_attention_stacked_q8; the TPU kernel's quant=True)
+// reads k, v as int8 [L, B, Hkv, S, D] with float32 per-vector scales
+// ks, vs [L, B, Hkv, S], widened to float32 in registers four at a time:
+//
+//   s_rj = (scale * q_r . k_j) * ks_j,   l_r = sum_j p_rj (unscaled p),
+//   o[b, h, r] = sum_j round(p_rj * vs_j) v_j / l_r,
+//
+// where round() casts to q's dtype, as the TPU kernel casts p * vs before
+// PV. It halves (bf16) or quarters (f32) the K/V bytes, which bound it. The
+// same kernel with L = 1 serves decode_attention (the TPU _dec_kernel) for
+// an unstacked [B, Hkv, S, D] cache.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -47,6 +60,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = __ldg(reinterpret_cast<const char4*>(p));
+  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
 }
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
@@ -85,10 +102,13 @@ __device__ float block_reduce(float v, float* red) {
   return v;
 }
 
-template <int D, typename T>
+// T: q and o's dtype; KV: the cache's (T, or int8_t when QUANT, with the
+// per-vector scales ks, vs; unused otherwise).
+template <int D, typename T, typename KV, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o,
+decode_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                   const KV* __restrict__ v, const float* __restrict__ ks,
+                   const float* __restrict__ vs, T* __restrict__ o,
                    const int* __restrict__ pos, int layer, int batch,
                    int heads, int hkv, int tq, int s_len, float scale) {
   constexpr int TPR = D / 4;             // threads per value row in PV
@@ -104,8 +124,10 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / heads, h = bh % heads;
   const int kvh = h / (heads / hkv);
   const long long row0 = (((long long)layer * batch + b) * hkv + kvh) * s_len;
-  const T* kb = k + row0 * D;
-  const T* vb = v + row0 * D;
+  const KV* kb = k + row0 * D;
+  const KV* vb = v + row0 * D;
+  const float* ksb = QUANT ? ks + row0 : nullptr;
+  const float* vsb = QUANT ? vs + row0 : nullptr;
   const int p = pos[b];
   const int n_keys = max(0, min(s_len, p + tq));   // keys any row may see
 
@@ -118,7 +140,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[MAXQ];
 #pragma unroll
     for (int r = 0; r < MAXQ; ++r) s[r] = 0.f;
-    const T* kr = kb + (long long)j * D;
+    const KV* kr = kb + (long long)j * D;
+    const float kj = QUANT ? __ldg(ksb + j) : 1.f;
 #pragma unroll
     for (int d = 0; d < D; d += 4) {
       const float4 kv4 = load4(kr + d);
@@ -132,7 +155,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int r = 0; r < MAXQ; ++r)
-      if (r < tq) sc[r * n_keys + j] = j <= p + r ? s[r] * scale : NEG;
+      if (r < tq)
+        sc[r * n_keys + j] =
+            j <= p + r ? (QUANT ? s[r] * scale * kj : s[r] * scale) : NEG;
   }
   __syncthreads();
 
@@ -146,7 +171,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = threadIdx.x; j < n_keys; j += THREADS) {
       const float e = j <= p + r ? expf(row[j] - mx) : 0.f;
       sum += e;
-      row[j] = to_f32(from_f32<T>(e));  // p cast to q's dtype before PV
+      // p (times v's scale in the int8 arm) cast to q's dtype before PV
+      row[j] = to_f32(from_f32<T>(QUANT ? e * __ldg(vsb + j) : e));
     }
     sum = block_reduce<false>(sum, red);
     if (threadIdx.x == 0) lsum[r] = sum;
@@ -195,19 +221,20 @@ long long smem_bytes(int head_dim, int tq, int s_len) {
                 + (long long)slices * tq * head_dim + (long long)tq * s_len);
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* pos, int layer, int batch, int heads, int hkv, int tq,
-           int s_len, float scale, cudaStream_t stream) {
+template <int D, typename T, typename KV, bool QUANT>
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, void* o, const int* pos, int layer, int batch,
+           int heads, int hkv, int tq, int s_len, float scale,
+           cudaStream_t stream) {
   const long long smem = smem_bytes(D, tq, s_len);
-  auto kern = decode_attn_kernel<D, T>;
+  auto kern = decode_attn_kernel<D, T, KV, QUANT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<batch * heads, THREADS, (size_t)smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), pos, layer, batch, heads,
-      hkv, tq, s_len, scale);
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), ks, vs, static_cast<T*>(o), pos, layer,
+      batch, heads, hkv, tq, s_len, scale);
   return (int)cudaGetLastError();
 }
 
@@ -234,10 +261,12 @@ int decode_attention_stacked(const void* q, const void* k, const void* v,
 #define DEC_CASE(DIM)                                                       \
   case DIM:                                                                 \
     return dtype == 0                                                       \
-        ? launch<DIM, float>(q, k, v, o, pos, layer, batch, heads, hkv, tq, \
-                             s_len, scale, s)                               \
-        : launch<DIM, __nv_bfloat16>(q, k, v, o, pos, layer, batch, heads,  \
-                                     hkv, tq, s_len, scale, s);
+        ? launch<DIM, float, float, false>(q, k, v, nullptr, nullptr, o,    \
+                                           pos, layer, batch, heads, hkv,   \
+                                           tq, s_len, scale, s)             \
+        : launch<DIM, __nv_bfloat16, __nv_bfloat16, false>(                 \
+              q, k, v, nullptr, nullptr, o, pos, layer, batch, heads, hkv,  \
+              tq, s_len, scale, s);
   switch (head_dim) {
     DEC_CASE(16)
     DEC_CASE(32)
@@ -246,6 +275,38 @@ int decode_attention_stacked(const void* q, const void* k, const void* v,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DEC_CASE
+}
+
+// The int8 arm: q, o [B, H, Tq, D] float32 or bfloat16 (dtype 0 / 1); k, v
+// int8 [L, B, Hkv, S, D]; ks, vs float32 [L, B, Hkv, S]; the rest as
+// decode_attention_stacked. Returns cudaGetLastError() after the launch.
+int decode_attention_stacked_q8(const void* q, const void* k, const void* ks,
+                                const void* v, const void* vs, void* o,
+                                const int* pos, int layer, int batch,
+                                int heads, int hkv, int tq, int s_len,
+                                int head_dim, float scale, int dtype,
+                                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tq < 1 || tq > MAXQ) return (int)cudaErrorInvalidValue;
+  const float* ksf = static_cast<const float*>(ks);
+  const float* vsf = static_cast<const float*>(vs);
+#define Q8_CASE(DIM)                                                        \
+  case DIM:                                                                 \
+    return dtype == 0                                                       \
+        ? launch<DIM, float, int8_t, true>(q, k, v, ksf, vsf, o, pos,       \
+                                           layer, batch, heads, hkv, tq,    \
+                                           s_len, scale, s)                 \
+        : launch<DIM, __nv_bfloat16, int8_t, true>(                         \
+              q, k, v, ksf, vsf, o, pos, layer, batch, heads, hkv, tq,      \
+              s_len, scale, s);
+  switch (head_dim) {
+    Q8_CASE(16)
+    Q8_CASE(32)
+    Q8_CASE(64)
+    Q8_CASE(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef Q8_CASE
 }
 
 }  // extern "C"

@@ -2,11 +2,12 @@
 ``audax/data/audio_io.py``: ``read_wav``, ``write_wav``, ``to_mono``,
 ``resample``).
 
-Supports PCM 8/16/24/32, float32/64 and WAVE_FORMAT_EXTENSIBLE. Resampling
-is windowed-sinc polyphase (kaiser), the same filter design as the JAX
-package's. The compressed-container front door (``read_audio``,
-``memo_to_wav``) needs the JAX package's native decode module and is not
-carried.
+Supports PCM 8/16/24/32, float32/64 and WAVE_FORMAT_EXTENSIBLE
+(``decode_wav`` parses the bytes of a file already in memory, as an HTTP
+upload is). Resampling is windowed-sinc polyphase (kaiser), the same filter
+design as the JAX package's. Compressed containers (m4a/AAC, mp3, ogg,
+flac) need the native C++ decoder of ``audax/native``, which a later slice
+of the port brings with ``read_audio`` and ``memo_to_wav``.
 """
 
 from __future__ import annotations
@@ -16,11 +17,17 @@ import struct
 
 import numpy as np
 
-__all__ = ["read_wav", "write_wav", "resample", "to_mono"]
+__all__ = ["read_wav", "decode_wav", "is_wav", "write_wav", "resample",
+           "to_mono"]
 
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
 _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
+
+
+def is_wav(data: bytes) -> bool:
+    """True when ``data`` opens with a RIFF/WAVE header."""
+    return data[:4] == b"RIFF" and data[8:12] == b"WAVE"
 
 
 def read_wav(path: str, *, with_bits: bool = False):
@@ -29,8 +36,14 @@ def read_wav(path: str, *, with_bits: bool = False):
     ``with_bits=True`` additionally returns the source PCM bit depth (0 for
     IEEE-float sources)."""
     with open(path, "rb") as fh:
-        data = fh.read()
-    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+        return decode_wav(fh.read(), path, with_bits=with_bits)
+
+
+def decode_wav(data: bytes, name: str = "<bytes>", *,
+               with_bits: bool = False):
+    """``read_wav`` of the file's bytes; ``name`` labels errors."""
+    path = name
+    if not is_wav(data):
         raise ValueError(f"{path}: not a RIFF/WAVE file")
     pos, end = 12, min(len(data), 8 + struct.unpack_from("<I", data, 4)[0])
     fmt = None

@@ -17,8 +17,10 @@ the first generated token must be a timestamp; timestamps come in pairs;
 the opening timestamp counts as a completed pair; timestamps are
 monotonically non-decreasing, and a new segment's opener strictly greater.
 
-Tensor parallelism (``mesh``) and int8 KV (``kv_quant``) arrive with later
-slices of the port.
+``kv_quant`` keeps the self- and cross-attention caches in int8 with
+per-vector scales (``models/whisper.py:QuantKV``; K3's int8 arm on the
+card). Tensor parallelism (``mesh``) arrives with a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -96,20 +98,23 @@ def generate(params, cfg: WhisperConfig, enc: torch.Tensor,
              timestamps: Optional[TimestampRules] = None,
              dtype=torch.float32,
              no_speech_id: Optional[int] = None,
-             no_speech_pos: Optional[int] = None) -> GenerateResult:
+             no_speech_pos: Optional[int] = None,
+             kv_quant: bool = False) -> GenerateResult:
     """Decode until EOS or ``max_len``.
 
     enc [B, S, d] encoder states; prompt [B, P] forced prefix (the SOT
     sequence). ``suppress`` ids are never emitted; ``first_suppress`` ids
     are banned at the first generated position only (whisper's
-    SuppressBlank). Sampling (``temperature > 0``) draws from
+    SuppressBlank). ``kv_quant``: int8 self- and cross-attention caches.
+    Sampling (``temperature > 0``) draws from
     ``generator`` -- a fresh one seeded 0 on enc's device when None, so a
     call is deterministic for its seed."""
     device = enc.device
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
     b, p_len = prompt.shape
-    cross_kv = precompute_cross_kv(params, cfg, enc)
-    cache = init_kv_cache(cfg, b, max_len, dtype, device=device)
+    cross_kv = precompute_cross_kv(params, cfg, enc, quant=kv_quant)
+    cache = init_kv_cache(cfg, b, max_len, dtype, device=device,
+                          quant=kv_quant)
     tokens = torch.zeros(b, max_len, dtype=torch.long, device=device)
     tokens[:, :p_len] = prompt
     if temperature > 0.0 and generator is None:

@@ -12,10 +12,11 @@ log-probability or gzip compression ratio looks degenerate; a window whose
 silence. ``condition_on_previous`` decodes windows one at a time with the
 previous text as ``<|startofprev|>`` context.
 
-This slice carries greedy decoding with the fallback ladder. Beam search,
-best-of sampling, word timestamps, speculative drafts, quantized weights
-and KV, tensor parallelism, clip ranges, hallucination filtering, seeking
-by timestamps, energy VAD and language detection raise
+The port carries greedy decoding with the fallback ladder, int8/int4
+weight-only trees (``quantize``, ``models/quantize.py``) and int8 KV caches
+(``kv_quant``). Beam search, best-of sampling, word timestamps,
+speculative drafts, tensor parallelism, clip ranges, hallucination
+filtering, seeking by timestamps, energy VAD and language detection raise
 ``NotImplementedError`` until the later slices that bring them.
 """
 
@@ -33,6 +34,7 @@ from audax_torch.core.config import WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
 from audax_torch.frontend.features import LogMelFrontend
 from audax_torch.infer.decode import GenerateResult, TimestampRules, generate
+from audax_torch.models.quantize import quantize_tree
 from audax_torch.models.whisper import encode, tree_map
 from audax_torch.ops import native
 from audax_torch.symbolic.tokenizer import WhisperTokenizer
@@ -53,8 +55,6 @@ _LATER_KNOBS = {
     "length_penalty": (None, "serving tiers (beam search)"),
     "word_timestamps": (False, "serving tiers (word alignment)"),
     "draft": (None, "serving tiers (speculative decoding)"),
-    "quantize": (False, "serving tiers (int8/int4 weights)"),
-    "kv_quant": (False, "serving tiers (int8 KV, the int8 arm of K3)"),
     "mesh": (None, "parallelism"),
     "clip_timestamps": (None, "serving tiers (clip ranges)"),
     "hallucination_silence_threshold": (None, "serving tiers (word "
@@ -132,7 +132,7 @@ class Transcriber:
         given = dict(beam_width=beam_width, best_of=best_of,
                      patience=patience, length_penalty=length_penalty,
                      word_timestamps=word_timestamps, draft=draft,
-                     quantize=quantize, kv_quant=kv_quant, mesh=mesh,
+                     mesh=mesh,
                      clip_timestamps=clip_timestamps,
                      hallucination_silence_threshold=(
                          hallucination_silence_threshold),
@@ -151,7 +151,17 @@ class Transcriber:
         self.device = resolve_device(device)
         # serving records no graph: trained leaves that require grad are
         # detached (the same storage, no copy)
-        self.params = tree_map(lambda t: t.detach(), params)
+        params = tree_map(lambda t: t.detach(), params)
+        if quantize:
+            # weight-only serving: True/8/"int8" -> int8, 4/"int4" -> int4
+            if str(quantize) not in ("True", "8", "int8", "4", "int4"):
+                raise ValueError(f"quantize={quantize!r}: expected True/8/"
+                                 f"'int8' or 4/'int4'")
+            params = quantize_tree(
+                params, bits=4 if str(quantize) in ("4", "int4") else 8)
+        self.params = params
+        #: int8 self- and cross-attention KV caches in decode
+        self.kv_quant = kv_quant
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.lang = lang
@@ -229,7 +239,8 @@ class Transcriber:
                         suppress=self.suppress,
                         first_suppress=self.first_suppress,
                         timestamps=rules, dtype=self.dtype,
-                        no_speech_id=ns_id, no_speech_pos=ns_pos)
+                        no_speech_id=ns_id, no_speech_pos=ns_pos,
+                        kv_quant=self.kv_quant)
 
     @torch.inference_mode()
     def warmup(self, *, batch_chunks: int = 4) -> None:

@@ -2,18 +2,22 @@
 
 ``params_from_numpy`` takes the tree as nested dicts of numpy arrays, e.g.
 ``jax.tree.map(np.asarray, init_whisper_params(cfg, key))`` or a tree read
-from a checkpoint, and returns the same tree of float32 tensors on
-``device``. Layouts are kept on purpose so the two packages compare like
-with like:
+from a checkpoint, and returns the same tree of tensors on ``device``.
+Layouts are kept on purpose so the two packages compare like with like:
 
   * stacked layers keep their leading ``[L, ...]`` axis;
   * dense kernels keep ``[d_in, d_out]`` (``y = x @ kernel``);
   * the conv kernels are the one deliberate change: JAX's HIO
     ``[3, C_in, C_out]`` becomes ``F.conv1d``'s ``[C_out, C_in, 3]``.
 
-Quantized trees (``kernel_q``/``kernel_q4`` leaves) belong to the serving
-slice and are refused here. ``lora_from_numpy`` converts the JAX package's
-flat LoRA adapter tree the same way; adapters of the conv kernels raise.
+Float leaves become float32. Quantized trees (``models/quantize.py``, as
+``quantize_tree`` or ``convert-hf --quantize`` writes them) keep their
+codes byte for byte: ``kernel_q``/``embed_q`` stay int8,
+``kernel_q4``/``embed_q4`` stay uint8, and every ``*_scale*`` is float32.
+Conv kernels are never quantized (a quantized conv raises
+``NotImplementedError``), so their transpose is unchanged.
+``lora_from_numpy`` converts the JAX package's flat LoRA adapter tree the
+same way; adapters of the conv kernels raise.
 """
 
 from __future__ import annotations
@@ -40,8 +44,14 @@ def _convert(tree: Mapping[str, Any], device: torch.device, path: str):
             out[key] = _convert(val, device, where)
             continue
         if key.startswith(("kernel_q", "embed_q")):
-            raise NotImplementedError(f"{where}: quantized weights arrive "
-                                      "with the serving slice")
+            if path.rsplit("/", 1)[-1] in _CONVS:
+                raise NotImplementedError(f"{where}: quantized conv kernels "
+                                          "are not carried (quantize_tree "
+                                          "keeps convs float)")
+            dt = np.uint8 if key.endswith("_q4") else np.int8
+            out[key] = torch.from_numpy(np.array(val, dtype=dt,
+                                                 copy=True)).to(device)
+            continue
         arr = np.asarray(val, dtype=np.float32)
         if key == "kernel" and path.rsplit("/", 1)[-1] in _CONVS:
             arr = arr.transpose(2, 1, 0)          # HIO -> [C_out, C_in, 3]
@@ -66,13 +76,19 @@ def lora_from_numpy(tree: Mapping[str, Any],
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
                       device: DeviceLike = None) -> Dict[str, Any]:
-    """JAX-layout numpy tree -> port tree of float32 tensors on ``device``."""
+    """JAX-layout numpy tree -> port tree on ``device`` (float32 leaves,
+    quantized codes and scales as they are)."""
     device = resolve_device(device)
     params = _convert(tree, device, "")
     conv1 = params["encoder"]["conv1"]["kernel"]
-    embed = params["decoder"]["embed"]
-    if conv1.shape != (cfg.d_model, cfg.n_mels, 3) or \
-            embed.shape != (cfg.vocab_size, cfg.d_model):
+    dec = params["decoder"]
+    if "embed" in dec:
+        embed, want = dec["embed"], (cfg.vocab_size, cfg.d_model)
+    elif "embed_q" in dec:
+        embed, want = dec["embed_q"], (cfg.vocab_size, cfg.d_model)
+    else:                                  # int4: [d/2, V]
+        embed, want = dec["embed_q4"], (cfg.d_model // 2, cfg.vocab_size)
+    if conv1.shape != (cfg.d_model, cfg.n_mels, 3) or embed.shape != want:
         raise ValueError(f"tree does not match {cfg}: conv1 "
                          f"{tuple(conv1.shape)}, embed {tuple(embed.shape)}")
     return params

@@ -1,5 +1,4 @@
-"""Whisper-family encoder-decoder in PyTorch (port of ``audax/models/whisper.py``
-and the float ``embed_lookup``/``embed_logits`` of ``models/quantize.py``).
+"""Whisper-family encoder-decoder in PyTorch (port of ``audax/models/whisper.py``).
 
 Parameters are the JAX package's tree as nested dicts of tensors
 (``models/bridge.py`` converts one, ``init_whisper_params`` draws one):
@@ -18,10 +17,17 @@ Every attention of ``encode`` and the teacher-forced ``decode_train`` goes
 through ``ops/attention.py:dot_product_attention``: the flash kernels (K2
 forward, K7/K8 backward) wherever ``flash_applicable`` holds, the
 materialised twin otherwise. The incremental decoder reads its caches
-through the stacked decode-attention kernel (K3). On CPU tensors the
-kernels take their plain PyTorch versions. The dense projections, the conv
-stem and the tied-embedding logits stay ``torch.matmul``/``F.conv1d``, as
-the JAX package left them to XLA.
+through the stacked decode-attention kernel (K3; its int8 arm for a
+``QuantKV`` cache), and ``attention(kv_cached=)`` through K6. On CPU
+tensors the kernels take their plain PyTorch versions. Float and int8 dense
+projections, the conv stem and float tied-embedding logits stay
+``torch.matmul``/``F.conv1d``, as the JAX package left them to XLA; int4
+trees (``models/quantize.py``) run their projections and logits through
+kernel K9.
+
+Serving (``infer/continuous.py``) decodes with ``decode_step_ragged``:
+every slot at its own position, its new K/V row written in place at that
+position.
 
 ``remat`` (the training path) checkpoints each layer's body with
 ``torch.utils.checkpoint``: True recomputes the whole layer in the backward,
@@ -32,7 +38,7 @@ the JAX package left them to XLA.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,7 +48,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from audax_torch.core.config import WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
-from audax_torch.ops.attention import (decode_attention_stacked,
+from audax_torch.models.quantize import (dequant_dense, embed_logits,
+                                         embed_lookup)
+from audax_torch.ops.attention import (decode_attention,
+                                       decode_attention_stacked,
                                        dot_product_attention)
 
 Params = Dict[str, Any]
@@ -50,8 +59,9 @@ Params = Dict[str, Any]
 __all__ = [
     "init_whisper_params", "sinusoidal_positions", "layer_norm", "dense",
     "attention", "conv_stem", "encode", "decode_train", "whisper_forward",
-    "KVCache", "init_kv_cache", "precompute_cross_kv", "decode_step",
-    "decode_span", "embed_lookup", "embed_logits", "layer_params",
+    "KVCache", "QuantKV", "quantize_kv", "init_kv_cache",
+    "precompute_cross_kv", "decode_step", "decode_span",
+    "decode_step_ragged", "embed_lookup", "embed_logits", "layer_params",
     "tree_map", "tree_leaves", "tree_unflatten",
 ]
 
@@ -169,6 +179,8 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "kernel_q" in p or "kernel_q4" in p:     # int8/int4 weight-only
+        return dequant_dense(p, x)
     y = x @ p["kernel"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
@@ -198,28 +210,30 @@ def _mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 def attention(p: Params, x: torch.Tensor, heads: int, *,
               kv: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None,
-              causal: bool = False) -> torch.Tensor:
+              causal: bool = False, kv_cached=None) -> torch.Tensor:
     """Multi-head attention through ``dot_product_attention``. ``kv``: the
     cross-attention source (self-attention when None); ``mask``: a boolean
-    [.., Tq, Tk] mask, which takes the materialised twin."""
+    [.., Tq, Tk] mask, which takes the materialised twin. ``kv_cached``:
+    precomputed head tensors, float (k, v) [B, H, S, hd] or a ``QuantKV``;
+    without a mask they go through ``decode_attention`` (K6)."""
     q = _split_heads(dense(p["q"], x), heads)
-    src = kv if kv is not None else x
-    k = _split_heads(dense(p["k"], src), heads)
-    v = _split_heads(dense(p["v"], src), heads)
+    scale = q.shape[-1] ** -0.5
+    if kv_cached is not None and mask is None:
+        out = decode_attention(q, kv_cached, scale=scale)
+        return dense(p["out"], _merge_heads(out))
+    if isinstance(kv_cached, QuantKV):
+        # every int8-KV caller is maskless and takes K6 above, as in JAX
+        raise NotImplementedError("QuantKV attention with an explicit mask "
+                                  "has no caller; use the decode fast path")
+    if kv_cached is not None:
+        k, v = kv_cached
+    else:
+        src = kv if kv is not None else x
+        k = _split_heads(dense(p["k"], src), heads)
+        v = _split_heads(dense(p["v"], src), heads)
     out = dot_product_attention(q, k, v, causal=causal, mask=mask,
-                                scale=q.shape[-1] ** -0.5)
+                                scale=scale)
     return dense(p["out"], _merge_heads(out))
-
-
-def embed_lookup(p: Params, idx: torch.Tensor, dtype) -> torch.Tensor:
-    """Token-embedding gather (float tables; int8/int4 come with the
-    quantized serving slice)."""
-    return p["embed"][idx].to(dtype)
-
-
-def embed_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Tied-embedding logit projection x [..., d] -> [..., V]."""
-    return x @ p["embed"].to(x.dtype).t()
 
 
 # ---------------------------------------------------------------------------
@@ -326,25 +340,58 @@ def whisper_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
 
 class KVCache(NamedTuple):
     """Fixed-shape self-attention cache: k/v [layers, B, H, max_len, hd].
-    ``decode_span`` writes it IN PLACE (unlike the JAX functional update)."""
+    The decode steps write it IN PLACE (unlike the JAX functional update)."""
     k: torch.Tensor
     v: torch.Tensor
 
 
+class QuantKV(NamedTuple):
+    """Int8 K/V with one float32 scale per key/value vector: ``*_q`` int8
+    [..., T, hd], ``*_scale`` [..., T]. The scales fold into the attention
+    (scores times k_scale over the key axis, probabilities times v_scale
+    before PV), so no float K/V is ever rebuilt."""
+    k_q: torch.Tensor
+    k_scale: torch.Tensor
+    v_q: torch.Tensor
+    v_scale: torch.Tensor
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor) -> QuantKV:
+    """Per-vector symmetric int8 over the head dim (any leading shape)."""
+
+    def one(x):
+        s = torch.clamp_min(x.float().abs().amax(dim=-1) / 127.0, 1e-8)
+        q = torch.clamp(torch.round(x.float() / s[..., None]), -127, 127)
+        return q.to(torch.int8), s
+
+    kq, ks = one(k)
+    vq, vs = one(v)
+    return QuantKV(kq, ks, vq, vs)
+
+
 def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int,
-                  dtype=torch.float32, device: DeviceLike = None) -> KVCache:
+                  dtype=torch.float32, device: DeviceLike = None,
+                  quant: bool = False):
+    """Zeroed self-attention cache [layers, batch, H, max_len, hd]: float
+    (``KVCache``) or, with ``quant``, int8 codes and unit scales
+    (``QuantKV``)."""
     device = resolve_device(device)
     hd = cfg.d_model // cfg.heads
     shape = (cfg.decoder_layers, batch, cfg.heads, max_len, hd)
+    if quant:
+        return QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.ones(shape[:-1], device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.ones(shape[:-1], device=device))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
 @torch.no_grad()
 def precompute_cross_kv(params: Params, cfg: WhisperConfig,
-                        enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                        enc: torch.Tensor, quant: bool = False):
     """Cross-attention K/V of every layer, once per utterance:
-    [layers, B, H, S, hd] each."""
+    [layers, B, H, S, hd] each (``quant``: a ``QuantKV``)."""
     layers = params["decoder"]["layers"]["cross_attn"]
     ks, vs = [], []
     for li in range(cfg.decoder_layers):
@@ -352,16 +399,40 @@ def precompute_cross_kv(params: Params, cfg: WhisperConfig,
                                cfg.heads))
         vs.append(_split_heads(dense(layer_params(layers["v"], li), enc),
                                cfg.heads))
-    return torch.stack(ks), torch.stack(vs)
+    k, v = torch.stack(ks), torch.stack(vs)
+    return quantize_kv(k, v) if quant else (k, v)
+
+
+def _write_kv(cache, li: int, index, k1: torch.Tensor, v1: torch.Tensor):
+    """Write new K/V heads into layer ``li`` of the cache at ``index`` (a
+    tuple indexing the [B, H, T] axes), quantizing them for a QuantKV."""
+    if isinstance(cache, QuantKV):
+        new = quantize_kv(k1, v1)
+        for dst, src in zip(cache, new):
+            dst[(li,) + index] = src
+    else:
+        cache.k[(li,) + index] = k1
+        cache.v[(li,) + index] = v1
+
+
+def _cross_and_mlp(layer: Params, cfg: WhisperConfig, x: torch.Tensor,
+                   cross_kv, li: int) -> torch.Tensor:
+    h = layer_norm(layer["cross_ln"], x)
+    qc = _split_heads(dense(layer["cross_attn"]["q"], h), cfg.heads)
+    co = decode_attention_stacked(qc, cross_kv, li,
+                                  scale=qc.shape[-1] ** -0.5)
+    x = x + dense(layer["cross_attn"]["out"], _merge_heads(co))
+    return x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
 
 
 @torch.no_grad()
 def decode_span(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
-                pos: int, cache: KVCache, cross_kv,
-                dtype=torch.float32) -> Tuple[torch.Tensor, KVCache]:
+                pos: int, cache, cross_kv, dtype=torch.float32):
     """Teacher-forced span decode with cache append: tokens [B, K] occupy
     positions pos..pos+K-1; query i attends cached positions <= pos+i.
-    Returns (logits [B, K, vocab], the cache, updated in place)."""
+    ``cache``/``cross_kv`` are float (``KVCache`` / (k, v)) or int8
+    (``QuantKV``). Returns (logits [B, K, vocab], the cache, updated in
+    place)."""
     p = params["decoder"]
     kk = tokens.shape[1]
     x = embed_lookup(p, tokens, dtype) + p["pos"][pos: pos + kk][None].to(dtype)
@@ -369,28 +440,56 @@ def decode_span(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
         layer = layer_params(p["layers"], li)
         h = layer_norm(layer["attn_ln"], x)
         q = _split_heads(dense(layer["attn"]["q"], h), cfg.heads)
-        cache.k[li, :, :, pos: pos + kk] = _split_heads(
-            dense(layer["attn"]["k"], h), cfg.heads)
-        cache.v[li, :, :, pos: pos + kk] = _split_heads(
-            dense(layer["attn"]["v"], h), cfg.heads)
-        scale = q.shape[-1] ** -0.5
-        attn_out = decode_attention_stacked(q, cache, li, pos=pos, scale=scale)
+        k1 = _split_heads(dense(layer["attn"]["k"], h), cfg.heads)
+        v1 = _split_heads(dense(layer["attn"]["v"], h), cfg.heads)
+        _write_kv(cache, li, (slice(None), slice(None), slice(pos, pos + kk)),
+                  k1, v1)
+        attn_out = decode_attention_stacked(q, cache, li, pos=pos,
+                                            scale=q.shape[-1] ** -0.5)
         x = x + dense(layer["attn"]["out"], _merge_heads(attn_out))
-
-        h = layer_norm(layer["cross_ln"], x)
-        qc = _split_heads(dense(layer["cross_attn"]["q"], h), cfg.heads)
-        co = decode_attention_stacked(qc, cross_kv, li, scale=scale)
-        x = x + dense(layer["cross_attn"]["out"], _merge_heads(co))
-        x = x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
+        x = _cross_and_mlp(layer, cfg, x, cross_kv, li)
     x = layer_norm(p["ln"], x)
     return embed_logits(p, x), cache
 
 
 def decode_step(params: Params, cfg: WhisperConfig, token: torch.Tensor,
-                pos: int, cache: KVCache, cross_kv,
-                dtype=torch.float32) -> Tuple[torch.Tensor, KVCache]:
+                pos: int, cache, cross_kv,
+                dtype=torch.float32):
     """One autoregressive step: token [B] at position ``pos`` -> (logits
     [B, vocab], the cache, updated in place)."""
     logits, cache = decode_span(params, cfg, token[:, None], pos, cache,
                                 cross_kv, dtype)
     return logits[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step_ragged(params: Params, cfg: WhisperConfig,
+                       token: torch.Tensor, pos: torch.Tensor, cache,
+                       cross_kv, dtype=torch.float32):
+    """``decode_step`` with PER-SLOT positions: token [B], pos [B] (integer
+    tensor on the model's device). Slot b writes its new K/V at ``pos[b]``
+    (in place, one indexed write per tensor) and attends cached keys
+    ``<= pos[b]``: the step that lets continuous batching refill a finished
+    slot while its neighbours keep decoding. Slots that are done still
+    write at their frozen position, as in JAX. Returns (logits [B, vocab],
+    the cache)."""
+    p = params["decoder"]
+    pos = pos.long()
+    pos32 = pos.to(torch.int32)
+    bidx = torch.arange(token.shape[0], device=token.device)
+    x = embed_lookup(p, token[:, None], dtype) + p["pos"][pos][:, None].to(dtype)
+    for li in range(cfg.decoder_layers):
+        layer = layer_params(p["layers"], li)
+        h = layer_norm(layer["attn_ln"], x)
+        q = _split_heads(dense(layer["attn"]["q"], h), cfg.heads)
+        k1 = _split_heads(dense(layer["attn"]["k"], h), cfg.heads)
+        v1 = _split_heads(dense(layer["attn"]["v"], h), cfg.heads)
+        # row b of the new K/V lands at (li, b, :, pos[b])
+        _write_kv(cache, li, (bidx, slice(None), pos), k1[:, :, 0],
+                  v1[:, :, 0])
+        attn_out = decode_attention_stacked(q, cache, li, pos=pos32,
+                                            scale=q.shape[-1] ** -0.5)
+        x = x + dense(layer["attn"]["out"], _merge_heads(attn_out))
+        x = _cross_and_mlp(layer, cfg, x, cross_kv, li)
+    x = layer_norm(p["ln"], x)
+    return embed_logits(p, x)[:, 0], cache

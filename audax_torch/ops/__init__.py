@@ -2,9 +2,16 @@
 
 ``KERNELS`` lists every CUDA kernel of the port with its plain version, so
 a run can reset and read the launch counters of all of them at once.
+``int4_matmul_dequant`` (the dequantize + ``torch.matmul`` branch of
+``int4_matmul`` for more than 256 rows) is no kernel, but its counter is
+reset with theirs.
 """
 
-from audax_torch.ops.attention import (decode_attention_stacked_cuda,
+from audax_torch.ops.attention import (decode_attention_cuda,
+                                       decode_attention_plain,
+                                       decode_attention_stacked_cuda,
+                                       decode_attention_stacked_int8_cuda,
+                                       decode_attention_stacked_int8_plain,
                                        decode_attention_stacked_plain,
                                        flash_backward_dkv_cuda,
                                        flash_backward_dkv_plain,
@@ -13,6 +20,9 @@ from audax_torch.ops.attention import (decode_attention_stacked_cuda,
                                        flash_forward_cuda, flash_forward_plain)
 from audax_torch.ops.fused_mel import (log_mel_overlap_cuda,
                                        log_mel_overlap_plain)
+from audax_torch.ops.int4_matmul import (int4_matmul_cuda,
+                                         int4_matmul_dequant,
+                                         int4_matmul_plain)
 
 __all__ = ["KERNELS", "reset_launches", "launch_counts"]
 
@@ -24,6 +34,10 @@ KERNELS = {
     "flash_backward_dkv": (flash_backward_dkv_cuda, flash_backward_dkv_plain),
     "decode_attention_stacked": (decode_attention_stacked_cuda,
                                  decode_attention_stacked_plain),
+    "decode_attention_stacked_int8": (decode_attention_stacked_int8_cuda,
+                                      decode_attention_stacked_int8_plain),
+    "decode_attention": (decode_attention_cuda, decode_attention_plain),
+    "int4_matmul": (int4_matmul_cuda, int4_matmul_plain),
 }
 
 
@@ -31,6 +45,7 @@ def reset_launches() -> None:
     for cuda_fn, plain_fn in KERNELS.values():
         cuda_fn.launches = 0
         plain_fn.launches = 0
+    int4_matmul_dequant.launches = 0
 
 
 def launch_counts() -> dict:

@@ -22,13 +22,15 @@ Port of ``audax/ops/attention.py``:
     layer-stacked ``[L, B, Hkv, S, D]`` KV cache (TPU kernel
     ``_dec_kernel_stacked``), the layer picked by index inside the kernel,
     keys masked per slot by ``pos``. Whisper's decoder runs it twice per
-    layer per token (self- and cross-attention). Its plain version mirrors
-    ``_decode_attention_xla``.
+    layer per token (self- and cross-attention). The cache is float (K3)
+    or int8 with per-vector float32 scales (``QuantKV``, K3's int8 arm,
+    counted on its own). Its plain version mirrors ``_decode_attention_xla``.
+  * ``decode_attention`` -- the same for one unstacked ``[B, Hkv, S, D]``
+    cache (TPU kernel ``_dec_kernel``, K6): K3's kernel launched with L = 1.
 
 Each kernel function dispatches on the tensor it is given: a CPU tensor
-takes the plain version, a CUDA tensor launches the kernel or raises. The
-int8 ``QuantKV`` arm of K3 belongs to a later slice. Head folding (``fold``)
-was a TPU VMEM device and is not ported.
+takes the plain version, a CUDA tensor launches the kernel or raises. Head
+folding (``fold``) was a TPU VMEM device and is not ported.
 """
 
 from __future__ import annotations
@@ -45,7 +47,10 @@ __all__ = ["flash_forward", "flash_forward_cuda", "flash_forward_plain",
            "flash_backward_dkv_cuda", "flash_attention", "FlashAttention",
            "xla_attention", "flash_applicable", "dot_product_attention",
            "decode_attention_stacked", "decode_attention_stacked_cuda",
-           "decode_attention_stacked_plain"]
+           "decode_attention_stacked_plain",
+           "decode_attention_stacked_int8_cuda",
+           "decode_attention_stacked_int8_plain", "decode_attention",
+           "decode_attention_cuda", "decode_attention_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -392,28 +397,30 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ----------------------------------------------------------------- decode --
 
 def _split_kv(kv: Sequence[torch.Tensor]):
+    """(k, k_scale, v, v_scale): the scales are None for a float pair."""
     if len(kv) == 4:
-        raise NotImplementedError("int8 QuantKV decode attention arrives "
-                                  "with the kv_quant serving slice")
-    return kv
+        return tuple(kv)
+    k, v = kv
+    return k, None, v, None
 
 
-def decode_attention_stacked_plain(q: torch.Tensor, kv, layer: int, *,
-                                   pos: Pos = None,
-                                   scale: Optional[float] = None
-                                   ) -> torch.Tensor:
-    """The JAX ``_decode_attention_xla`` math on the selected layer: query
-    row i sees keys <= pos + i (``pos`` scalar or per-slot [B]; None = all
-    keys), softmax in float32, probabilities cast to q's dtype before PV."""
-    decode_attention_stacked_plain.launches += 1
-    k, v = _split_kv(kv)
-    k, v = k[layer], v[layer]
+def _decode_plain(q, k, ks, v, vs, pos, scale):
+    """The JAX ``_decode_attention_xla`` math on one layer's cache [B, Hkv,
+    S, D]: query row i sees keys <= pos + i (``pos`` scalar or per-slot
+    [B]; None = all keys), softmax in float32, probabilities cast to q's
+    dtype before PV. Int8 K/V (``ks``/``vs`` [B, Hkv, S] given) scale the
+    scores by k_scale over the key axis and the probabilities by v_scale."""
     dt = q.dtype
     group = q.shape[1] // k.shape[1]
     if group > 1:
         k = k.repeat_interleave(group, dim=1)
         v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q * _scale(q, scale), k)
+        if ks is not None:
+            ks = ks.repeat_interleave(group, dim=1)
+            vs = vs.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q * _scale(q, scale), k.to(dt))
+    if ks is not None:
+        s = s * ks[:, :, None, :].to(dt)
     if pos is not None:
         tq, s_len = s.shape[-2:]
         cols = torch.arange(s_len, device=q.device)[None, :]
@@ -425,51 +432,119 @@ def decode_attention_stacked_plain(q: torch.Tensor, kv, layer: int, *,
             mask = (cols[None] <= pos_b[:, None, None] + rows[None])[:, None]
         s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
     p = torch.softmax(s.float(), dim=-1).to(dt)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+    if vs is not None:
+        p = p * vs[:, :, None, :].to(dt)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(dt))
+
+
+def decode_attention_stacked_plain(q: torch.Tensor, kv, layer: int, *,
+                                   pos: Pos = None,
+                                   scale: Optional[float] = None
+                                   ) -> torch.Tensor:
+    """Plain version of K3 on the selected layer (float pair; an int8
+    4-tuple takes ``decode_attention_stacked_int8_plain``)."""
+    if len(kv) == 4:
+        return decode_attention_stacked_int8_plain(q, kv, layer, pos=pos,
+                                                   scale=scale)
+    decode_attention_stacked_plain.launches += 1
+    k, v = kv
+    return _decode_plain(q, k[layer], None, v[layer], None, pos, scale)
 
 
 decode_attention_stacked_plain.launches = 0
+
+
+def decode_attention_stacked_int8_plain(q: torch.Tensor, kv, layer: int, *,
+                                        pos: Pos = None,
+                                        scale: Optional[float] = None
+                                        ) -> torch.Tensor:
+    """Plain version of K3's int8 arm: ``kv`` = (k_q, k_scale, v_q,
+    v_scale) with int8 [L, B, Hkv, S, D] codes and float32 [L, B, Hkv, S]
+    scales."""
+    decode_attention_stacked_int8_plain.launches += 1
+    k, ks, v, vs = kv
+    return _decode_plain(q, k[layer], ks[layer], v[layer], vs[layer], pos,
+                         scale)
+
+
+decode_attention_stacked_int8_plain.launches = 0
+
+
+def _pos_vector(pos: Pos, b: int, s_len: int, device) -> torch.Tensor:
+    if pos is None:
+        pos = s_len
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        if pos.shape[0] != b:
+            raise ValueError(f"pos has {pos.shape[0]} entries for batch {b}")
+        return pos.to(device=device, dtype=torch.int32).contiguous()
+    return torch.full((b,), int(pos), dtype=torch.int32, device=device)
+
+
+def _launch_decode(name: str, q, k, ks, v, vs, layer: int, pos: Pos,
+                   scale) -> torch.Tensor:
+    """Launch the K3 kernel (float or int8 arm) on ``layer`` of the stacked
+    cache k, v [L, B, Hkv, S, D] (int8 with float32 [L, B, Hkv, S] scales
+    ``ks``/``vs``, or None)."""
+    quant = ks is not None
+    if quant:
+        _check_cuda(name, q)
+        for t, dt in ((k, torch.int8), (v, torch.int8), (ks, torch.float32),
+                      (vs, torch.float32)):
+            if t.device != q.device or t.dtype != dt or not t.is_contiguous():
+                raise ValueError(f"{name}: int8 K/V and float32 scales must "
+                                 f"be contiguous on {q.device}, got "
+                                 f"{t.dtype} on {t.device}")
+    else:
+        _check_cuda(name, q, k, v)
+    b, h, tq, d = q.shape
+    if k.dim() != 5 or k.shape != v.shape or k.shape[1] != b or k.shape[4] != d:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match the "
+                         f"cache {tuple(k.shape)}")
+    n_layers, _, hkv, s_len, _ = k.shape
+    if quant and (ks.shape != k.shape[:4] or vs.shape != k.shape[:4]):
+        raise ValueError(f"{name}: scales {tuple(ks.shape)} do not match the "
+                         f"cache {tuple(k.shape)}")
+    if h % hkv:
+        raise ValueError(f"H={h} not a multiple of Hkv={hkv}")
+    if not 0 <= int(layer) < n_layers:
+        raise IndexError(f"layer {layer} outside a {n_layers}-layer cache")
+    if not 1 <= tq <= _MAX_DECODE_ROWS or d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: Tq={tq} (1..16) and head_dim={d} "
+                         f"{_HEAD_DIMS} not supported")
+    lib = native.library("decode_attention")
+    if lib.decode_smem(d, tq, s_len) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: Tq*S={tq * s_len} scores exceed one "
+                         "block's shared memory")
+    pos_v = _pos_vector(pos, b, s_len, q.device)
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if quant:
+        status = lib.decode_attention_stacked_q8(
+            q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
+            vs.data_ptr(), o.data_ptr(), pos_v.data_ptr(), int(layer), b, h,
+            hkv, tq, s_len, d, _scale(q, scale), _DTYPES[q.dtype], stream)
+    else:
+        status = lib.decode_attention_stacked(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            pos_v.data_ptr(), int(layer), b, h, hkv, tq, s_len, d,
+            _scale(q, scale), _DTYPES[q.dtype], stream)
+    native.check(status, name)
+    return o
 
 
 def decode_attention_stacked_cuda(q: torch.Tensor, kv, layer: int, *,
                                   pos: Pos = None,
                                   scale: Optional[float] = None
                                   ) -> torch.Tensor:
-    """The CUDA kernel (``csrc/decode_attention.cu``); same contract as
-    ``decode_attention_stacked_plain``."""
-    k, v = _split_kv(kv)
-    _check_cuda("decode_attention_stacked", q, k, v)
-    b, h, tq, d = q.shape
-    if k.dim() != 5 or k.shape != v.shape or k.shape[1] != b or k.shape[4] != d:
-        raise ValueError(f"decode_attention_stacked: q {tuple(q.shape)} does "
-                         f"not match the cache {tuple(k.shape)}")
-    n_layers, _, hkv, s_len, _ = k.shape
-    if h % hkv:
-        raise ValueError(f"H={h} not a multiple of Hkv={hkv}")
-    if not 0 <= int(layer) < n_layers:
-        raise IndexError(f"layer {layer} outside a {n_layers}-layer cache")
-    if not 1 <= tq <= _MAX_DECODE_ROWS or d not in _HEAD_DIMS:
-        raise ValueError(f"decode_attention_stacked: Tq={tq} (1..16) and "
-                         f"head_dim={d} {_HEAD_DIMS} not supported")
-    lib = native.library("decode_attention")
-    if lib.decode_smem(d, tq, s_len) > _SMEM_LIMIT:
-        raise ValueError(f"decode_attention_stacked: Tq*S={tq * s_len} "
-                         "scores exceed one block's shared memory")
-    if pos is None:
-        pos = s_len
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        if pos.shape[0] != b:
-            raise ValueError(f"pos has {pos.shape[0]} entries for batch {b}")
-        pos_v = pos.to(device=q.device, dtype=torch.int32).contiguous()
-    else:
-        pos_v = torch.full((b,), int(pos), dtype=torch.int32, device=q.device)
-    o = torch.empty_like(q)
-    status = lib.decode_attention_stacked(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        pos_v.data_ptr(), int(layer), b, h, hkv, tq, s_len, d,
-        _scale(q, scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    native.check(status, "decode_attention_stacked")
+    """Kernel K3 (``csrc/decode_attention.cu``), float K/V; same contract
+    as ``decode_attention_stacked_plain``. An int8 4-tuple takes
+    ``decode_attention_stacked_int8_cuda``."""
+    if len(kv) == 4:
+        return decode_attention_stacked_int8_cuda(q, kv, layer, pos=pos,
+                                                  scale=scale)
+    k, v = kv
+    o = _launch_decode("decode_attention_stacked", q, k, None, v, None,
+                       layer, pos, scale)
     decode_attention_stacked_cuda.launches += 1
     return o
 
@@ -477,14 +552,75 @@ def decode_attention_stacked_cuda(q: torch.Tensor, kv, layer: int, *,
 decode_attention_stacked_cuda.launches = 0
 
 
+def decode_attention_stacked_int8_cuda(q: torch.Tensor, kv, layer: int, *,
+                                       pos: Pos = None,
+                                       scale: Optional[float] = None
+                                       ) -> torch.Tensor:
+    """K3's int8 arm (``decode_attention_stacked_q8`` of
+    ``csrc/decode_attention.cu``); same contract as
+    ``decode_attention_stacked_int8_plain``."""
+    k, ks, v, vs = kv
+    o = _launch_decode("decode_attention_stacked_int8", q, k, ks, v, vs,
+                       layer, pos, scale)
+    decode_attention_stacked_int8_cuda.launches += 1
+    return o
+
+
+decode_attention_stacked_int8_cuda.launches = 0
+
+
 def decode_attention_stacked(q: torch.Tensor, kv, layer: int, *,
                              pos: Pos = None,
                              scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention against the layer-stacked cache. q [B, H, Tq, D];
-    ``kv`` the float pair (k, v) [L, B, Hkv, S, D]; ``layer`` picks the
-    layer; ``pos`` a scalar, a per-slot [B] vector, or None (every key --
-    cross-attention). The CUDA kernel for CUDA tensors, else the plain
-    version."""
+    ``kv`` the float pair (k, v) [L, B, Hkv, S, D] or the int8 4-tuple
+    (k_q, k_scale, v_q, v_scale) with [L, B, Hkv, S] scales (``QuantKV``);
+    ``layer`` picks the layer; ``pos`` a scalar, a per-slot [B] vector, or
+    None (every key -- cross-attention). The CUDA kernel for CUDA tensors,
+    else the plain version."""
     fn = (decode_attention_stacked_cuda if q.is_cuda
           else decode_attention_stacked_plain)
     return fn(q, kv, layer, pos=pos, scale=scale)
+
+
+# ------------------------------------------------------- one-layer decode --
+
+def decode_attention_plain(q: torch.Tensor, kv, *, pos: Pos = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of K6: the decode attention of one unstacked cache,
+    float (k, v) [B, Hkv, S, D] or the int8 4-tuple with [B, Hkv, S]
+    scales."""
+    decode_attention_plain.launches += 1
+    k, ks, v, vs = _split_kv(kv)
+    return _decode_plain(q, k, ks, v, vs, pos, scale)
+
+
+decode_attention_plain.launches = 0
+
+
+def decode_attention_cuda(q: torch.Tensor, kv, *, pos: Pos = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """K6 (the TPU ``_dec_kernel``): K3's kernel on the cache viewed as one
+    layer, [1, B, Hkv, S, D] -- no copy; same contract as
+    ``decode_attention_plain``."""
+    k, ks, v, vs = _split_kv(kv)
+    if k.dim() != 4:
+        raise ValueError(f"decode_attention: the cache must be [B, Hkv, S, "
+                         f"D], got {tuple(k.shape)}")
+    one = [None if t is None else t.unsqueeze(0) for t in (k, ks, v, vs)]
+    o = _launch_decode("decode_attention", q, *one, 0, pos, scale)
+    decode_attention_cuda.launches += 1
+    return o
+
+
+decode_attention_cuda.launches = 0
+
+
+def decode_attention(q: torch.Tensor, kv, *, pos: Pos = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Attention for the KV-cached decode path (Tq of 1..16) over one
+    unstacked cache: q [B, H, Tq, D]; ``kv`` float (k, v) [B, Hkv, S, D] or
+    the int8 4-tuple with [B, Hkv, S] scales; ``pos`` scalar, per-slot [B],
+    or None (every key). K6 for CUDA tensors, else the plain version."""
+    fn = decode_attention_cuda if q.is_cuda else decode_attention_plain
+    return fn(q, kv, pos=pos, scale=scale)

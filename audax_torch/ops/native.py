@@ -9,7 +9,8 @@ a hash of the source and the flags: an edited source builds anew, an
 unchanged one is reused. ``build()`` starts one ``nvcc`` per missing library
 and waits for all of them, so the kernels compile in parallel.
 
-The wrappers in ``ops/fused_mel.py`` and ``ops/attention.py`` call
+The wrappers in ``ops/fused_mel.py``, ``ops/attention.py`` and
+``ops/int4_matmul.py`` call
 ``library(name)`` the first time they launch on a CUDA tensor. A CUDA host
 without ``nvcc`` raises there; a CPU tensor never reaches this module.
 """
@@ -36,6 +37,7 @@ KERNEL_SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
     "decode_attention": "decode_attention.cu",
+    "int4_matmul": "int4_matmul.cu",
 }
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -60,6 +62,12 @@ SIGNATURES = {
         "decode_smem": ([_I, _I, _I], _LL),
         "decode_attention_stacked": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _F, _I, _P], _I),
+        "decode_attention_stacked_q8": ([_P] * 7 + [_I] * 7 + [_F, _I, _P],
+                                        _I),
+    },
+    "int4_matmul": {
+        "int4_matmul_splits": ([_I, _I, _I], _I),
+        "int4_matmul": ([_P] * 5 + [_I] * 6 + [_P], _I),
     },
 }
 

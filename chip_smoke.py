@@ -5,15 +5,18 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py [--profile]
 
-``--profile`` adds a ``torch.profiler`` window over each fine-tune step
-(device time by kernel family, the device's busy share). It builds the port's CUDA kernels from ``audax_torch/csrc`` and drives the
-port's two main paths -- Whisper transcription at the full width of
-Whisper-tiny and Whisper fine-tuning at the full width of Whisper-base --
-in six phases, one output line each (the kernel and path phases print one
-line per case):
+``--profile`` adds a ``torch.profiler`` window over each fine-tune step and
+one serving decode step (device time by kernel family, the device's busy
+share). It builds the
+port's CUDA kernels from ``audax_torch/csrc`` and drives the port's three
+main paths -- Whisper transcription at the full width of Whisper-tiny,
+Whisper fine-tuning at the full width of Whisper-base, and quantized
+continuous-batching serving over HTTP at the full width of
+Whisper-large-v3-turbo -- in seven phases, one output line each (the
+kernel and path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (four), in parallel, with its
+  2. build   -- nvcc of every kernel library (five), in parallel, with its
      wall time;
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' shapes: max |err| against the stated tolerance, kernel
@@ -37,7 +40,17 @@ line per case):
      full-parameter and the LoRA step at batch 4, and one step's loss and
      every gradient leaf on the card against the port's CPU path at batch 1
      in float32;
-  6. the kernels' JSON line, then the result line.
+  6. serving -- random Whisper-large-v3-turbo weights quantized to int4 on
+     the CPU and moved to the card, ``ContinuousBatcher(slots=8,
+     kv_quant=True, max_new_tokens=64)`` behind ``serve_http``, twelve
+     client threads posting 16-bit WAVs of 5-30 s: every answer must be 200
+     with a well-formed JSON body; K1, K2, K3's int8 arm and K9 must launch
+     and no plain version may. Then requests/s, latency p50 and max, decode
+     steps, tokens/s, launches per decode step and peak memory; the card
+     against the port's CPU path (teacher-forced ``decode_step_ragged``
+     with float and with int8 self-KV), and ``attention(kv_cached=)``
+     through K6;
+  7. the kernels' JSON line, then the result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or without the ``audax_torch`` package beside it, it exits with 2
@@ -66,10 +79,20 @@ BF16_FLOPS = 989e12
 TOL_MEL = 2e-3
 TOL_F32 = 1e-4
 TOL_BF16 = 2e-2
+#: int4 matmul, relative to max |plain|: float32 (summation order only)
+TOL_INT4_F32 = 1e-4
 #: card vs the port's CPU path, float32 with TF32 off: summation order is
 #: the only difference, compounded over the layers
 TOL_ENC = 1e-3
 TOL_LOGITS = 1e-3
+#: the same with an int8 self-attention cache: a K/V vector computed on the
+#: card and on the CPU may round one code to a neighbouring int8 step, and
+#: how many codes sit on a rounding edge depends on the inputs and on the
+#: kernels' summation order. At Whisper-large-v3-turbo width (int4 weights,
+#: 8 steps x 4 slots, H100 80GB HBM3) the exact path has read 6.9e-4 and
+#: 2.6e-3, the planted fault "codes truncated, not rounded" 3.9e-2: the
+#: limit sits about 4x from each
+TOL_LOGITS_Q8 = 1e-2
 #: one fine-tune step, card vs CPU in float32: the loss (relative), and each
 #: gradient leaf against 1e-3 of that leaf's largest CPU value (+1e-6)
 TOL_STEP_LOSS = 1e-4
@@ -80,6 +103,8 @@ TRANSCRIBE_KERNELS = ("log_mel_overlap", "flash_forward",
                       "decode_attention_stacked")
 FINETUNE_KERNELS = ("log_mel_overlap", "flash_forward", "flash_backward_dq",
                     "flash_backward_dkv", "decode_attention_stacked")
+SERVE_KERNELS = ("log_mel_overlap", "flash_forward",
+                 "decode_attention_stacked_int8", "int4_matmul")
 
 
 def _run(cmd):
@@ -101,14 +126,33 @@ def _time_ms(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(torch, fn, reps=20):
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph and replayed, so the host's launch cost between them is gone."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = _time_ms(torch, graph.replay, reps=5, warmup=1) / reps
+    del graph
+    return ms
+
+
 def _bound(flops, nbytes, flop_rate):
     t_ops, t_bytes = flops / flop_rate * 1e3, nbytes / HBM_BPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _report(case, err, tol, ms, plain_ms, lib_ms, bound):
+def _report(case, err, tol, ms, plain_ms, lib_ms, bound,
+            err_name="max_abs_err"):
     lib = f"{lib_ms:.4f}" if lib_ms is not None else "null"
-    print(f"[kernels] {case}: max_abs_err {err:.3e} (tol {tol:.0e}) "
+    print(f"[kernels] {case}: {err_name} {err:.3e} (tol {tol:.0e}) "
           f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} "
           f"bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
     if not err <= tol:
@@ -134,6 +178,8 @@ def kernel_phase(torch, rng):
 
     # ---- K1: overlap log-mel -------------------------------------------------
     for name, cfg, shape in (("whisper", MelConfig.whisper(), (4, 480000)),
+                             ("whisper 128 mels", MelConfig.whisper(128),
+                              (8, 480000)),
                              ("urbansound_v2", MelConfig.urbansound_v2(),
                               (16, 64000))):
         t = np.arange(shape[1]) / 16000.0
@@ -195,8 +241,10 @@ def kernel_phase(torch, rng):
     # the fine-tune path's sites at Whisper-base width
     flash_case("f32 [4,8,1500,64]", 4, 8, 8, 1500, 1500, torch.float32,
                False, TOL_F32, False)
-    flash_case("f32 cross q [4,8,48,64] kv [4,8,1500,64]", 4, 8, 8, 48, 1500,
+    flash_case("f32 cross q [4,8,56,64] kv [4,8,1500,64]", 4, 8, 8, 56, 1500,
                torch.float32, False, TOL_F32, False)
+    flash_case("f32 decoder self causal [4,8,56,64]", 4, 8, 8, 56, 56,
+               torch.float32, True, TOL_F32, False)
 
     # ---- K3: stacked decode attention -----------------------------------------
     def decode_case(label, s_len, pos, main, h=6, hkv=6, tq=1):
@@ -297,9 +345,9 @@ def kernel_phase(torch, rng):
                            elt * 64 * (2 * rows_q + 4 * rows_kv) + 8 * rows_q,
                            rate)
         _report(f"flash_backward_dq[{label}]", e_dq, tol, ms_dq, plain_dq,
-                lib, bound_dq)
+                lib, bound_dq, "max_rel_err")
         _report(f"flash_backward_dkv[{label}]", e_dkv, tol, ms_dkv,
-                plain_dkv, lib, bound_dkv)
+                plain_dkv, lib, bound_dkv, "max_rel_err")
         if main:
             out["flash_backward_dq"] = dict(
                 max_abs_err=err(dq, rdq), ms=ms_dq, plain_ms=plain_dq,
@@ -312,19 +360,156 @@ def kernel_phase(torch, rng):
              False, TOL_F32, True)
     bwd_case("encoder bf16 [4,8,1500,64]", 4, 8, 8, 1500, 1500,
              torch.bfloat16, False, TOL_BF16, False)
-    bwd_case("decoder self causal f32 [4,8,48,64]", 4, 8, 8, 48, 48,
+    bwd_case("decoder self causal f32 [4,8,56,64]", 4, 8, 8, 56, 56,
              torch.float32, True, TOL_F32, False)
-    bwd_case("cross f32 q [4,8,48,64] kv [4,8,1500,64]", 4, 8, 8, 48, 1500,
+    bwd_case("cross f32 q [4,8,56,64] kv [4,8,1500,64]", 4, 8, 8, 56, 1500,
              torch.float32, False, TOL_F32, False)
     bwd_case("causal GQA 8q/2kv T=77 f32", 2, 8, 2, 77, 77, torch.float32,
              True, TOL_F32, False)
+
+    # ---- K3 int8 arm and K6 (K3's kernel at L = 1) ----------------------------
+    from audax_torch.models.whisper import quantize_kv
+
+    def deq(codes, scales):
+        return codes.float() * scales[..., None]
+
+    def q8_case(label, L, b, h, s_len, pos, main):
+        d = 64
+        q = torch.randn(b, h, 1, d, device=dev)
+        kv = quantize_kv(torch.randn(L, b, h, s_len, d, device=dev),
+                         torch.randn(L, b, h, s_len, d, device=dev))
+        pos_t = (torch.tensor(pos, dtype=torch.int32, device=dev)
+                 if pos is not None else None)
+        e = max(err(att.decode_attention_stacked_int8_cuda(q, kv, li,
+                                                           pos=pos_t),
+                    att.decode_attention_stacked_int8_plain(q, kv, li,
+                                                            pos=pos_t))
+                for li in range(L))
+        it = iter(range(10 ** 9))         # cycle the layers past the L2
+        ms = _time_ms(torch, lambda: att.decode_attention_stacked_int8_cuda(
+            q, kv, next(it) % L, pos=pos_t))
+        plain = _time_ms(torch, lambda: att.decode_attention_stacked_int8_plain(
+            q, kv, next(it) % L, pos=pos_t))
+        kf, vf = deq(kv.k_q, kv.k_scale), deq(kv.v_q, kv.v_scale)
+        if pos is None:
+            mask, pos = None, [s_len] * b
+        else:
+            cols = torch.arange(s_len, device=dev)
+            mask = (cols[None, None, :] <= pos_t[:, None, None].long()
+                    )[:, None]
+
+        def sdpa():
+            li = next(it) % L
+            return F.scaled_dot_product_attention(q, kf[li], vf[li],
+                                                  attn_mask=mask)
+        lib = _time_ms(torch, sdpa)
+        rows = sum(min(s_len, p + 1) for p in pos)
+        # one layer's valid int8 K/V rows and their scales, q in, o out
+        nbytes = h * rows * 2 * (d + 4) + 4 * 2 * b * h * d
+        bound = _bound(4 * d * h * rows, nbytes, F32_FLOPS)
+        _report(f"decode_attention_stacked_int8[{label}]", e, TOL_F32, ms,
+                plain, lib, bound)
+        if main:
+            out["decode_attention_stacked_int8"] = dict(
+                max_abs_err=e, ms=ms, plain_ms=plain, library_ms=lib,
+                bound=bound)
+
+    q8_case("cross [4,8,20,1500,64] pos=None", 4, 8, 20, 1500, None, True)
+    pos = [int(p) for p in rng.integers(0, 68, size=8)]
+    q8_case(f"self [4,8,20,68,64] pos {pos}", 4, 8, 20, 68, pos, False)
+
+    def k6_case(label, quant, pos, main):
+        b, h, s_len, d = 8, 20, 1500, 64
+        q = torch.randn(b, h, 1, d, device=dev)
+        k = torch.randn(b, h, s_len, d, device=dev)
+        v = torch.randn(b, h, s_len, d, device=dev)
+        kv = quantize_kv(k, v) if quant else (k, v)
+        kf, vf = ((deq(kv.k_q, kv.k_scale), deq(kv.v_q, kv.v_scale))
+                  if quant else (k, v))
+        e = err(att.decode_attention_cuda(q, kv, pos=pos),
+                att.decode_attention_plain(q, kv, pos=pos))
+        ms = _time_ms(torch, lambda: att.decode_attention_cuda(q, kv, pos=pos))
+        plain = _time_ms(torch, lambda: att.decode_attention_plain(
+            q, kv, pos=pos))
+        mask = (None if pos is None else
+                torch.arange(s_len, device=dev)[None, None, None] <= pos)
+        lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kf, vf, attn_mask=mask))
+        rows = b * h * (s_len if pos is None else min(s_len, pos + 1))
+        elt = 1 if quant else 4
+        nbytes = rows * 2 * (d * elt + (4 if quant else 0)) + 8 * b * h * d
+        bound = _bound(4 * d * rows, nbytes, F32_FLOPS)
+        _report(f"decode_attention[{label}]", e, TOL_F32, ms, plain, lib,
+                bound)
+        if main:
+            out["decode_attention"] = dict(max_abs_err=e, ms=ms,
+                                           plain_ms=plain, library_ms=lib,
+                                           bound=bound)
+
+    k6_case("int8 [8,20,1500,64] pos=None", True, None, True)
+    k6_case("f32 [8,20,1500,64] pos=700", False, 700, False)
+
+    # ---- K9: int4 weight-only matmul at the decode shapes (M = 8) -----------
+    from audax_torch.ops import int4_matmul as i4
+
+    def int4_case(label, k_dim, n, dtype, tol, main):
+        m = 8
+        packed, scales = i4.quantize_int4(torch.randn(k_dim, n, device=dev)
+                                          / k_dim ** 0.5)
+        w = i4.dequantize_int4(packed, scales)          # the yardstick's
+        x = torch.randn(m, k_dim, device=dev).to(dtype)
+        got = i4.int4_matmul_cuda(x, packed, scales)
+        ref = i4.int4_matmul_plain(x, packed, scales)
+        scale = float(ref.float().abs().max())
+        e = err(got, ref)
+        # cycle copies of the weights (120 MB in all, over twice the 50 MB
+        # L2) so each launch reads them from HBM, as decode does (the step's
+        # other weights evict them from L2); the graph captures one call per
+        # copy for the same reason
+        copies = max(1, -(-120_000_000 // (packed.numel() + 4 * scales.numel())))
+        ws = [(packed.clone(), scales.clone()) for _ in range(copies)]
+        wf = [w.clone() for _ in range(max(1, -(-120_000_000 // (4 * w.numel()))))]
+        it = iter(range(10 ** 9))
+
+        def pick(seq):
+            return seq[next(it) % len(seq)]
+        ms = _time_ms(torch, lambda: i4.int4_matmul_cuda(x, *pick(ws)))
+        dev_ms = _graph_ms(torch, lambda: i4.int4_matmul_cuda(x, *pick(ws)),
+                           reps=max(20, copies))
+        plain = _time_ms(torch, lambda: i4.int4_matmul_plain(x, *pick(ws)))
+        lib = _time_ms(torch, lambda: torch.matmul(x.float(), pick(wf)))
+        elt = x.element_size()
+        nbytes = (elt * m * k_dim + packed.numel() + 4 * scales.numel()
+                  + elt * m * n)
+        # the products run in float32 on CUDA cores for f32 x; bf16 x could
+        # take the bf16 tensor cores (the nibbles are exact in bf16)
+        bound = _bound(2 * m * k_dim * n, nbytes,
+                       F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        _report(f"int4_matmul[{label}] (max_abs_err {e:.3e}, device ms in "
+                f"a CUDA graph {dev_ms:.4f})", e / scale, tol, ms, plain, lib,
+                bound, "max_rel_err")
+        del ws, wf
+        if main:
+            out["int4_matmul"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                                      library_ms=lib, bound=bound)
+
+    for k_dim, n, what in ((1280, 1280, "q/k/v/out"), (1280, 5120, "mlp_in"),
+                           (5120, 1280, "mlp_out"),
+                           (1280, 51866, "tied logits")):
+        for dtype, tol in ((torch.float32, TOL_INT4_F32),
+                           (torch.bfloat16, TOL_BF16)):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            int4_case(f"{what} {name} [8,{k_dim}]x[{k_dim},{n}]", k_dim, n,
+                      dtype, tol, what == "tied logits"
+                      and dtype == torch.float32)
     return out
 
 
-def _tokenizer():
-    """Whisper tokenizer with the published 51,865-token layout: a BPE
-    trained on a tiny corpus, padded with never-produced filler tokens to
-    the published 50,257-token base."""
+def _tokenizer(vocab_size=51865):
+    """Whisper tokenizer with a published layout (51,865 tokens; 51,866 for
+    large-v3, whose 100 languages add one): a BPE trained on a tiny corpus,
+    padded with never-produced filler tokens to the published 50,257-token
+    base."""
     from audax_torch.symbolic.bpe import BPE, train_bpe
     from audax_torch.symbolic.tokenizer import WhisperTokenizer
 
@@ -336,7 +521,7 @@ def _tokenizer():
     vocab = dict(bpe.vocab)
     for i in range(len(vocab), 50257):
         vocab[f"<unused{i}>"] = i
-    return WhisperTokenizer.for_vocab_size(BPE(vocab, bpe.merges), 51865)
+    return WhisperTokenizer.for_vocab_size(BPE(vocab, bpe.merges), vocab_size)
 
 
 def _speechlike(rng, seconds, sr=16000, pitch=120.0, syllables=4.0):
@@ -452,7 +637,9 @@ def _transcripts(rng, tok, n, lo=30, hi=45):
 
 def _kernel_group(name):
     """The family of a CUDA kernel, from its name."""
-    groups = (("K7 flash_bwd_dq", ("flash_bwd_dq",)),
+    groups = (("K9 int4_matmul", ("int4_kernel", "reduce_splits")),
+              ("K3/K6 decode_attn", ("decode_attn",)),
+              ("K7 flash_bwd_dq", ("flash_bwd_dq",)),
               ("K8 flash_bwd_dkv", ("flash_bwd_dkv",)),
               ("K2 flash_fwd", ("flash_fwd",)),
               ("K1 log_mel", ("log_mel",)),
@@ -668,6 +855,247 @@ def finetune_phase(torch, rng, profile=False):
     return counts
 
 
+def _post_wav(port, body, timeout=600):
+    """POST one WAV to the server; (status, parsed JSON body, seconds)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/audio/transcriptions", data=body,
+        method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, raw = r.status, r.read()
+    except urllib.error.HTTPError as exc:
+        code, raw = exc.code, exc.read()
+    return code, json.loads(raw), time.perf_counter() - t0
+
+
+def serve_phase(torch, rng, profile=False):
+    """Quantized continuous-batching serving at Whisper-large-v3-turbo
+    width: int4 weights (quantized on the CPU, then moved to the card),
+    int8 KV, 8 slots, behind ``serve_http``; twelve concurrent clients.
+    ``profile`` adds a profiler window over one decode step of the eight
+    slots. Returns (the serving launch counts, the K6 launch counts of
+    ``attention(kv_cached=)``)."""
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from audax_torch.cli.http_server import serve_http
+    from audax_torch.core.config import WhisperConfig
+    from audax_torch.data.audio_io import write_wav
+    from audax_torch.infer.continuous import ContinuousBatcher
+    from audax_torch.models import whisper as W
+    from audax_torch.models.quantize import quantize_tree, tree_bytes
+    from audax_torch.ops import int4_matmul as i4
+    from audax_torch.ops import launch_counts, reset_launches
+
+    cfg = WhisperConfig.large_v3_turbo()
+    tok = _tokenizer(cfg.vocab_size)
+    t0 = time.perf_counter()
+    params = W.init_whisper_params(cfg, torch.Generator().manual_seed(2),
+                                   device="cpu")
+    qcpu = quantize_tree(params, bits=4)         # identical codes on both
+    float_bytes = tree_bytes(params)
+    del params
+    qparams = W.tree_map(lambda t: t.cuda(), qcpu)
+    torch.cuda.synchronize()
+    print(f"[serve] Whisper-large-v3-turbo (d_model {cfg.d_model}, "
+          f"{cfg.encoder_layers}+{cfg.decoder_layers} layers, {cfg.heads} "
+          f"heads, {cfg.n_mels} mels, vocab {cfg.vocab_size}): tree_bytes "
+          f"float {float_bytes} -> int4 {tree_bytes(qcpu)} "
+          f"({float_bytes / tree_bytes(qcpu):.2f}x); init + quantize on the "
+          f"CPU + copy {time.perf_counter() - t0:.2f} s", flush=True)
+
+    cb = ContinuousBatcher(qparams, cfg, tok, slots=8, kv_quant=True,
+                           max_new_tokens=64, device="cuda")
+    t0 = time.perf_counter()
+    cb.warmup()
+    torch.cuda.synchronize()
+    print(f"[serve] ContinuousBatcher(slots=8, kv_quant=True, "
+          f"max_new_tokens=64) warmup {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    seconds = np.linspace(5.0, 30.0, 12)
+    bodies = []
+    with tempfile.TemporaryDirectory() as d:
+        for i, sec in enumerate(seconds):
+            path = os.path.join(d, f"req{i}.wav")
+            write_wav(path, _speechlike(rng, float(sec), pitch=95.0 + 10 * i),
+                      16000)
+            with open(path, "rb") as fh:
+                bodies.append(fh.read())
+    server = serve_http(cb, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    results, errors = {}, []
+
+    def client(i):
+        try:
+            results[i] = _post_wav(port, bodies[i])
+        except OSError as exc:           # reported by the check below
+            errors.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(12)]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        dequant = i4.int4_matmul_dequant.launches
+        peak = torch.cuda.max_memory_allocated()
+        metrics = server.scheduler.metrics()
+    finally:
+        server.scheduler.shutdown()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if errors or any(t.is_alive() for t in threads) or len(results) != 12:
+        raise AssertionError(f"clients failed: {errors}")
+    lat, n_tok = [], 0
+    for i, (code, body, sec) in sorted(results.items()):
+        ok = (code == 200 and set(body) == {"text", "avg_logprob", "tokens",
+                                            "audio_seconds"}
+              and isinstance(body["text"], str)
+              and np.isfinite(body["avg_logprob"])
+              and abs(body["audio_seconds"] - seconds[i]) < 1e-3
+              and all(0 <= t < cfg.vocab_size for t in body["tokens"]))
+        if not ok:
+            raise AssertionError(f"request {i}: {code} {body}")
+        lat.append(sec)
+        n_tok += len(body["tokens"])
+    steps = counts["decode_attention_stacked_int8"]["cuda"] // (
+        2 * cfg.decoder_layers)
+    per_step = {k: round(c["cuda"] / max(steps, 1), 3)
+                for k, c in counts.items() if c["cuda"]}
+    print(f"[serve] 12 requests of 5-30 s over HTTP in {wall:.3f} s: "
+          f"{12 / wall:.4f} requests/s; latency p50 "
+          f"{float(np.percentile(lat, 50)):.3f} s, max {max(lat):.3f} s; "
+          f"{steps} decode steps, {n_tok} generated tokens "
+          f"({n_tok / wall:.2f} tokens/s, {steps / wall:.2f} steps/s); "
+          f"launches per decode step {json.dumps(per_step)}; int4 "
+          f"dequantize+matmul branch {dequant} calls (encoder and cross-K/V "
+          f"at admit); peak memory {peak / 2**30:.3f} GiB; server metrics "
+          f"{json.dumps(metrics)}", flush=True)
+    print(f"[serve] launches: {json.dumps(counts)}", flush=True)
+    _check_launches(counts, SERVE_KERNELS, "serving")
+    if counts["decode_attention_stacked"]["cuda"]:
+        raise AssertionError("the float K3 arm ran on the int8-KV path")
+
+    # ---- the card against the port's CPU path, teacher-forced ----------------
+    b, n_steps, max_len = 4, 8, 16
+    audio = np.stack([_speechlike(rng, 30.0, pitch=110.0 + 20 * i)
+                      for i in range(b)])
+    with torch.inference_mode():
+        enc = W.encode(qparams, cfg, cb.frontend(audio))
+        xkv = W.precompute_cross_kv(qparams, cfg, enc, quant=True)
+    xkv_cpu = W.QuantKV(*(t.cpu() for t in xkv))
+    toks = torch.from_numpy(rng.integers(0, 50257, size=(b, max_len)))
+    start = torch.tensor([0, 1, 3, 6])
+
+    def teacher_forced(p, dev, quant_self, cross):
+        """[n_steps, b, vocab] logits of ragged steps at per-slot positions
+        (slot i starts at step start[i]), on the CPU."""
+        cache = W.init_kv_cache(cfg, b, max_len, device=dev, quant=quant_self)
+        out = []
+        for step in range(n_steps):
+            pos = torch.clamp_min(step - start, 0)
+            tok = toks[torch.arange(b), pos]
+            lg, _ = W.decode_step_ragged(p, cfg, tok.to(dev), pos.to(dev),
+                                         cache, cross)
+            out.append(lg.cpu())
+        return torch.stack(out)
+
+    what = (f"int8 cross-KV, int4 weights, {n_steps} steps x {b} slots at "
+            f"positions start {start.tolist()}")
+    for quant_self, tol in ((False, TOL_LOGITS), (True, TOL_LOGITS_Q8)):
+        lg = teacher_forced(qparams, "cuda", quant_self, xkv)
+        lc = teacher_forced(qcpu, "cpu", quant_self, xkv_cpu)
+        e_log = float((lg - lc).abs().max())
+        agree = int((lg.argmax(-1) == lc.argmax(-1)).sum())
+        kind = "int8" if quant_self else "float"
+        print(f"[serve] teacher-forced decode_step_ragged card vs CPU, {kind} "
+              f"self-KV, {what}: logits max_abs_err {e_log:.3e} (tol "
+              f"{tol:.0e}), argmax agreement {agree}/{n_steps * b}",
+              flush=True)
+        if not (np.isfinite(e_log) and e_log <= tol):
+            raise AssertionError(f"{kind} self-KV logits differ by {e_log}")
+
+    # planted faults in the card's int8 self-KV writes, held against the int8
+    # run's CPU logits ``lc``: the limit above must catch each of them
+    exact = W.quantize_kv
+
+    def v_scale_dropped(k, v):
+        kq, ks, vq, vs = exact(k, v)
+        return W.QuantKV(kq, ks, vq, torch.ones_like(vs))
+
+    def truncated(k, v):
+        def one(t):
+            s = torch.clamp_min(t.float().abs().amax(-1) / 127.0, 1e-8)
+            return torch.trunc(t.float() / s[..., None]).to(torch.int8), s
+        return W.QuantKV(*one(k), *one(v))
+
+    for label, fault in (("v_scale dropped", v_scale_dropped),
+                         ("codes truncated, not rounded", truncated)):
+        W.quantize_kv = fault
+        try:
+            lf = teacher_forced(qparams, "cuda", True, xkv)
+        finally:
+            W.quantize_kv = exact
+        e_f = float((lf - lc).abs().max())
+        print(f"[serve] planted fault in the card's int8 self-KV writes "
+              f"({label}), {what}: logits max_abs_err {e_f:.3e} (must exceed "
+              f"tol {TOL_LOGITS_Q8:.0e})", flush=True)
+        if not e_f > TOL_LOGITS_Q8:
+            raise AssertionError(f"the int8 self-KV limit misses a planted "
+                                 f"fault ({label}): {e_f}")
+
+    if profile:
+        cache = W.init_kv_cache(cfg, 8, cb._max_len, device="cuda",
+                                quant=True)
+        with torch.inference_mode():
+            mels = cb.frontend(np.stack([_speechlike(rng, 30.0)] * 8))
+            xkv8 = W.precompute_cross_kv(
+                qparams, cfg, W.encode(qparams, cfg, mels), quant=True)
+        tok8 = torch.randint(0, 50257, (8,), device="cuda")
+        pos8 = torch.arange(8, device="cuda") * 7
+        _profile(torch, lambda: W.decode_step_ragged(qparams, cfg, tok8, pos8,
+                                                     cache, xkv8),
+                 "serving decode step (8 slots, int4, int8 KV)")
+        del cache, xkv8
+
+    # ---- K6's entry point: attention(kv_cached=) over one layer's cache ------
+    layer = W.layer_params(qparams["decoder"]["layers"]["cross_attn"], 0)
+    layer_cpu = W.layer_params(qcpu["decoder"]["layers"]["cross_attn"], 0)
+    one = W.QuantKV(*(t[0] for t in xkv))
+    h = torch.randn(b, 1, cfg.d_model, device="cuda")
+    reset_launches()
+    with torch.inference_mode():
+        got = W.attention(layer, h, cfg.heads, kv_cached=one)
+    k6_counts = launch_counts()
+    ref = W.attention(layer_cpu, h.cpu(), cfg.heads,
+                      kv_cached=W.QuantKV(*(t.cpu() for t in one)))
+    e = float((got.cpu() - ref).abs().max())
+    print(f"[serve] attention(kv_cached=QuantKV) [{b},1,{cfg.d_model}] over "
+          f"[{b},{cfg.heads},{cfg.n_audio_ctx},64] card vs CPU: max_abs_err "
+          f"{e:.3e} (tol {TOL_LOGITS:.0e}); K6 launches "
+          f"{k6_counts['decode_attention']['cuda']}", flush=True)
+    _check_launches(k6_counts, ("decode_attention",), "attention(kv_cached=)")
+    if not e <= TOL_LOGITS:
+        raise AssertionError(f"attention(kv_cached=) differs by {e}")
+    return counts, k6_counts
+
+
 def _paths(tree, prefix=""):
     """Leaf paths of a nested dict, in ``tree_leaves`` order."""
     out = []
@@ -681,8 +1109,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="add a torch.profiler window over each "
-                             "fine-tune step: device time by kernel family "
-                             "and the device's busy share")
+                             "fine-tune step and one serving decode step: "
+                             "device time by kernel family and the "
+                             "device's busy share")
     args = parser.parse_args()
     try:
         import torch
@@ -722,10 +1151,12 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
-    serve = main_path_phase(torch, rng)
+    transcribe = main_path_phase(torch, rng)
     train = finetune_phase(torch, rng, profile=args.profile)
-    # launches of both main paths, each counted from 0 just before it
-    launches = {k: serve[k]["cuda"] + train[k]["cuda"] for k in serve}
+    serve, k6 = serve_phase(torch, rng, profile=args.profile)
+    # launches of the main paths, each counted from 0 just before it
+    launches = {k: sum(p[k]["cuda"] for p in (transcribe, train, serve, k6))
+                for k in transcribe}
 
     sources = {"log_mel_overlap": ("audax_torch/csrc/log_mel_overlap.cu",
                                    "audax/ops/pallas_mel.py:199"),
@@ -737,7 +1168,14 @@ def main() -> int:
                                       "audax/ops/attention.py:329"),
                "decode_attention_stacked": (
                    "audax_torch/csrc/decode_attention.cu",
-                   "audax/ops/attention.py:680")}
+                   "audax/ops/attention.py:680"),
+               "decode_attention_stacked_int8": (
+                   "audax_torch/csrc/decode_attention.cu",
+                   "audax/ops/attention.py:680"),
+               "decode_attention": ("audax_torch/csrc/decode_attention.cu",
+                                    "audax/ops/attention.py:547"),
+               "int4_matmul": ("audax_torch/csrc/int4_matmul.cu",
+                               "audax/ops/int4_matmul.py:236")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

@@ -88,10 +88,19 @@ def test_decode_plain_matches_jax(rng, pos_kind, h, hkv, tq):
 
 
 def test_decode_quant_kv_not_in_this_slice(rng):
+    """The int8 QuantKV arm, refused before the serving slice, now takes
+    its own plain version: int8 codes with unit scales attend exactly as
+    the same values in float32 (the JAX parity of the arm is in
+    ``test_torch_decode_quant.py``)."""
     q = torch.from_numpy(_randn(rng, 1, 2, 1, 16))
-    kv = torch.zeros(1, 1, 2, 4, 16)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        decode_attention_stacked_plain(q, (kv, kv, kv, kv), 0)
+    codes = torch.from_numpy(rng.integers(-127, 128, (1, 1, 2, 4, 16))
+                             ).to(torch.int8)
+    ones = torch.ones(1, 1, 2, 4)
+    got = decode_attention_stacked_plain(q, (codes, ones, codes, ones), 0,
+                                         pos=2)
+    ref = decode_attention_stacked_plain(q, (codes.float(), codes.float()), 0,
+                                         pos=2)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
 
 
 # ---------------------------------------------------------------- backward --
