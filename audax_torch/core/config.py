@@ -1,11 +1,14 @@
 """Typed configuration with environment overlay (port of ``audax/core/config.py``).
 
-Own copy of the parts the Whisper transcription and fine-tuning paths need:
-``EnvConfig`` (the ``from_env`` overlay and the artifact ``stamp``),
-``MelConfig`` with the UrbanSound and Whisper presets, ``WhisperConfig``
-with the published tiny .. large-v3-turbo family, and ``FineTuneConfig``.
-Field names and defaults match the JAX package so a config can be rebuilt
-from the other's ``asdict()``.
+Own copy of the parts the Whisper transcription and fine-tuning paths and
+the UrbanSound classification path need: ``EnvConfig`` (the ``from_env``
+overlay and the artifact ``stamp``), ``MelConfig`` with the UrbanSound and
+Whisper presets, ``UrbanSoundConfig``, the classifier configs
+(``TransformerClassifierConfig``, ``CNNClassifierConfig``,
+``ClassifierTrainConfig``), ``WhisperConfig`` with the published tiny ..
+large-v3-turbo family, and ``FineTuneConfig``. Field names and defaults
+match the JAX package so a config can be rebuilt from the other's
+``asdict()``.
 
 The JAX ``MelConfig.matmul_precision`` field is not carried: every matmul of
 the port's log-mel runs in full float32 (the port's kernels do not use TF32,
@@ -21,7 +24,9 @@ from typing import Any, Dict, Optional, Tuple, Type, TypeVar
 
 T = TypeVar("T", bound="EnvConfig")
 
-__all__ = ["EnvConfig", "MelConfig", "WhisperConfig", "FineTuneConfig",
+__all__ = ["EnvConfig", "MelConfig", "UrbanSoundConfig",
+           "TransformerClassifierConfig", "CNNClassifierConfig",
+           "ClassifierTrainConfig", "WhisperConfig", "FineTuneConfig",
            "replace"]
 
 
@@ -124,6 +129,57 @@ class MelConfig(EnvConfig):
             n_fft=400, hop_length=160, n_mels=n_mels, fmax=8000.0,
             htk=False, norm_slaney=True, log_mode="whisper",
         )
+
+
+@dataclass(frozen=True)
+class UrbanSoundConfig(EnvConfig):
+    """UrbanSound8K dataset/preprocessing contract."""
+
+    dataset_root: str = "data/UrbanSound8K"
+    metadata_csv: str = "metadata/UrbanSound8K.csv"
+    duration_s: float = 4.0
+    num_classes: int = 10
+    train_folds: Tuple[int, ...] = (1, 2, 3, 4, 5, 6, 7, 8)
+    eval_fold: int = 9
+    test_fold: int = 10
+    parquet_dir: str = "artifacts"
+
+    @property
+    def num_samples(self) -> int:
+        return int(self.duration_s * 16000)
+
+
+@dataclass(frozen=True)
+class TransformerClassifierConfig(EnvConfig):
+    """Encoder-only classifier dims."""
+
+    dim: int = 128
+    heads: int = 4
+    layers: int = 2
+    mlp_dim: int = 256
+    dropout: float = 0.1
+    pool: str = "cls"            # "cls" | "mean"
+    num_classes: int = 10
+
+
+@dataclass(frozen=True)
+class CNNClassifierConfig(EnvConfig):
+    """1D-CNN over mel bins as channels."""
+
+    channels: Tuple[int, ...] = (128, 256, 512, 512)
+    head_dims: Tuple[int, ...] = (256, 128)
+    dropout: float = 0.3
+    num_classes: int = 10
+
+
+@dataclass(frozen=True)
+class ClassifierTrainConfig(EnvConfig):
+    batch_size: int = 16
+    epochs: int = 20
+    learning_rate: float = 3e-4
+    weight_decay: float = 1e-4
+    seed: int = 0
+    log_every: int = 10
 
 
 @dataclass(frozen=True)

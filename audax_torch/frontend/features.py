@@ -10,11 +10,11 @@
     The frame is dropped BEFORE the clamp: a loud trimmed frame must not set
     the clamp floor of the frames the model sees.
 
-The frontend lives on one device (``None`` = the CUDA card). On CUDA the
-overlap-reuse kernel (``ops/fused_mel.py``) computes the raw log-mel; on the
-CPU its plain PyTorch version does. Configs the overlap kernel does not
-cover (power != 2, a short window) run ``ops/stft.py:log_mel_plain`` on the
-CPU; on CUDA they raise until the packed and generic kernels are ported.
+The frontend lives on one device (``None`` = the CUDA card). The raw
+log-mel comes from ``ops/fused_mel.py:log_mel_fused``, which picks the
+overlap-reuse kernel K1 (every in-tree preset), the packed kernel K4 (any
+other power-2 config) or the generic kernel K5 (power != 2). On CUDA they
+launch; on the CPU their plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -27,9 +27,7 @@ import torch.nn.functional as F
 
 from audax_torch.core.config import MelConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
-from audax_torch.ops.fused_mel import (log_mel_overlap, overlap_applicable,
-                                       whisper_post_clamp)
-from audax_torch.ops.stft import log_mel_plain
+from audax_torch.ops.fused_mel import log_mel_fused, whisper_post_clamp
 
 __all__ = ["LogMelFrontend", "pad_or_trim"]
 
@@ -70,24 +68,12 @@ class LogMelFrontend:
         cfg = MelConfig.urbansound_v2() if version == 2 else MelConfig.urbansound_v1()
         return cls(cfg, **kw)
 
-    def _raw(self, audio: torch.Tensor, whisper_post: bool) -> torch.Tensor:
-        if overlap_applicable(self.cfg):
-            mel = log_mel_overlap(audio, self.cfg)
-            if self.cfg.log_mode == "whisper" and whisper_post:
-                mel = whisper_post_clamp(mel)
-            return mel
-        if audio.is_cuda:
-            raise NotImplementedError(
-                f"{self.cfg} needs the packed or generic log-mel kernel "
-                "(pallas_mel.py K4/K5), which a later slice of the port "
-                "brings; pass device='cpu' for the plain path")
-        return log_mel_plain(audio, self.cfg, whisper_post=whisper_post)
-
     def __call__(self, audio, *, mel_first: bool = False) -> torch.Tensor:
         if isinstance(audio, np.ndarray):
             audio = torch.from_numpy(np.ascontiguousarray(audio, np.float32))
         audio = audio.to(self.device, torch.float32)
-        mel = self._raw(audio, whisper_post=not self.whisper_frames)
+        mel = log_mel_fused(audio, self.cfg,
+                            whisper_post=not self.whisper_frames)
         if self.whisper_frames:
             mel = mel[..., :-1, :]
             if self.cfg.log_mode == "whisper":

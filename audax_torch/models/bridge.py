@@ -18,6 +18,9 @@ Conv kernels are never quantized (a quantized conv raises
 ``NotImplementedError``), so their transpose is unchanged.
 ``lora_from_numpy`` converts the JAX package's flat LoRA adapter tree the
 same way; adapters of the conv kernels raise.
+
+``classifier_from_numpy`` copies a flax classifier's ``params`` and
+``batch_stats`` into a ``models/classifiers.py`` module, matched by name.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from audax_torch.core.config import WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
 from audax_torch.models.lora import check_not_conv
 
-__all__ = ["params_from_numpy", "lora_from_numpy"]
+__all__ = ["params_from_numpy", "lora_from_numpy", "classifier_from_numpy"]
 
 _CONVS = ("conv1", "conv2")
 
@@ -92,3 +95,52 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
         raise ValueError(f"tree does not match {cfg}: conv1 "
                          f"{tuple(conv1.shape)}, embed {tuple(embed.shape)}")
     return params
+
+
+def classifier_from_numpy(variables: Mapping[str, Any],
+                          model: torch.nn.Module) -> torch.nn.Module:
+    """Copy flax classifier variables (``{"params": ..., "batch_stats":
+    ...}``, numpy arrays) into ``model``'s parameters and buffers, in place,
+    and return it. Conv kernels go from HIO ``[k, C_in, C_out]`` to
+    ``[C_out, C_in, k]``; the attention kernels ``[dim, heads, head_dim]``
+    and ``[heads, head_dim, dim]`` and biases ``[heads, head_dim]`` are
+    flattened over heads; dense kernels keep ``[in, out]``. Every entry must
+    meet a tensor of the same shape (so ``pos_embed`` needs the same
+    ``max_len``) and every tensor of the module must be filled."""
+    targets = dict(model.named_parameters())
+    targets.update(model.named_buffers())
+    filled = set()
+
+    def walk(tree: Mapping[str, Any], path: tuple) -> None:
+        for key, val in tree.items():
+            where = path + (key,)
+            if isinstance(val, Mapping):
+                walk(val, where)
+                continue
+            name = ".".join(where)
+            if name not in targets:
+                raise ValueError(f"{name}: no such tensor in "
+                                 f"{type(model).__name__}")
+            arr = np.asarray(val, dtype=np.float32)
+            owner = where[-2] if len(where) > 1 else ""
+            if owner in ("query", "key", "value"):
+                arr = arr.reshape(arr.shape[0], -1) if key == "kernel" \
+                    else arr.reshape(-1)
+            elif owner == "out" and key == "kernel":
+                arr = arr.reshape(-1, arr.shape[-1])
+            elif key == "kernel" and arr.ndim == 3:
+                arr = arr.transpose(2, 1, 0)      # HIO -> [C_out, C_in, k]
+            target = targets[name]
+            if tuple(arr.shape) != tuple(target.shape):
+                raise ValueError(f"{name}: shape {arr.shape} does not match "
+                                 f"{tuple(target.shape)}")
+            with torch.no_grad():
+                target.copy_(torch.from_numpy(np.array(arr, copy=True)))
+            filled.add(name)
+
+    walk(variables["params"], ())
+    walk(variables.get("batch_stats", {}), ())
+    missing = sorted(set(targets) - filled)
+    if missing:
+        raise ValueError(f"variables leave {missing} unset")
+    return model

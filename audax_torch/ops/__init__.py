@@ -18,6 +18,10 @@ from audax_torch.ops.attention import (decode_attention_cuda,
                                        flash_backward_dq_cuda,
                                        flash_backward_dq_plain,
                                        flash_forward_cuda, flash_forward_plain)
+from audax_torch.ops.direct_mel import (fused_logmel_frames_cuda,
+                                        fused_logmel_frames_plain,
+                                        fused_logmel_packed_cuda,
+                                        fused_logmel_packed_plain)
 from audax_torch.ops.fused_mel import (log_mel_overlap_cuda,
                                        log_mel_overlap_plain)
 from audax_torch.ops.int4_matmul import (int4_matmul_cuda,
@@ -29,6 +33,8 @@ __all__ = ["KERNELS", "reset_launches", "launch_counts"]
 #: kernel name -> (CUDA wrapper, plain PyTorch version)
 KERNELS = {
     "log_mel_overlap": (log_mel_overlap_cuda, log_mel_overlap_plain),
+    "log_mel_packed": (fused_logmel_packed_cuda, fused_logmel_packed_plain),
+    "log_mel_generic": (fused_logmel_frames_cuda, fused_logmel_frames_plain),
     "flash_forward": (flash_forward_cuda, flash_forward_plain),
     "flash_backward_dq": (flash_backward_dq_cuda, flash_backward_dq_plain),
     "flash_backward_dkv": (flash_backward_dkv_cuda, flash_backward_dkv_plain),

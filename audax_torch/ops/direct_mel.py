@@ -1,0 +1,165 @@
+"""Direct log-mel on frames: the CUDA kernels K4 (packed) and K5 (generic)
+and their plain PyTorch versions.
+
+Port of ``audax/ops/pallas_mel.py``'s ``fused_logmel_packed`` (the tier for
+power-2 configs the overlap kernel does not cover) and
+``fused_logmel_frames`` (the tier for any spectrogram power != 2):
+
+  * packed:  ``log(((frames @ dft) ** 2) @ fb2)`` with the window-folded
+    packed basis and the power-routing filterbank of
+    ``ops/mel.py:packed_frontend_constants``;
+  * generic: ``re = frames @ cos``, ``im = frames @ sin``,
+    ``p = sqrt(max(re^2 + im^2, 0)) ** power``, ``log(p @ fb)`` with the
+    constants of ``ops/mel.py:frontend_constants``.
+
+``log_mode`` is the kernel's log: "log1e6" is ``log(x + 1e-6)``, "log10"
+``log10(max(x, 1e-10))`` (Whisper's clamp stays outside, as in JAX).
+
+``frames`` is ``[..., n_fft]``. The CUDA wrappers take the frame view that
+``ops/fused_mel.py:log_mel_fused`` makes of the padded signal
+(``unfold``: ``[B, T, n_fft]`` with strides ``(clip, hop, 1)``, or a
+contiguous ``[N, n_fft]``) and read it in place, so no ``[N, n_fft]`` copy
+is made. A CPU tensor takes the plain version; a CUDA tensor launches the
+kernel of ``csrc/log_mel_direct.cu`` or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from audax_torch.ops import native
+from audax_torch.ops.stft import apply_log
+
+__all__ = ["fused_logmel_packed", "fused_logmel_packed_cuda",
+           "fused_logmel_packed_plain", "fused_logmel_frames",
+           "fused_logmel_frames_cuda", "fused_logmel_frames_plain"]
+
+#: mel bands the kernels hold in registers (16 x the widest per-thread row)
+MAX_MELS = 256
+#: the kernels' log epilogues, by their flag
+_LOG_FLAGS = {"log1e6": 0, "log10": 1}
+
+
+def fused_logmel_packed_plain(frames: torch.Tensor, dft: torch.Tensor,
+                              fb2: torch.Tensor,
+                              log_mode: str = "log1e6") -> torch.Tensor:
+    """Plain version of K4: ``[..., n_fft]`` frames -> ``[..., M]``."""
+    fused_logmel_packed_plain.launches += 1
+    ri = frames @ dft
+    return apply_log((ri * ri) @ fb2, log_mode)
+
+
+fused_logmel_packed_plain.launches = 0
+
+
+def fused_logmel_frames_plain(frames: torch.Tensor, cos_w: torch.Tensor,
+                              sin_w: torch.Tensor, fb: torch.Tensor,
+                              log_mode: str = "log1e6",
+                              power: float = 2.0) -> torch.Tensor:
+    """Plain version of K5: ``[..., n_fft]`` frames -> ``[..., M]``."""
+    fused_logmel_frames_plain.launches += 1
+    real = frames @ cos_w
+    imag = frames @ sin_w
+    p = real * real + imag * imag
+    if power != 2.0:
+        p = torch.pow(torch.sqrt(torch.clamp_min(p, 0.0)), power)
+    return apply_log(p @ fb, log_mode)
+
+
+fused_logmel_frames_plain.launches = 0
+
+
+def _frame_view(frames: torch.Tensor):
+    """``frames`` as ``[B, T, n_fft]`` with unit sample stride, plus the
+    clip stride and the hop (the stride between frames)."""
+    if not frames.is_cuda or frames.dtype != torch.float32:
+        raise ValueError("the direct log-mel kernels take a float32 CUDA "
+                         f"tensor, got {frames.dtype} on {frames.device}")
+    if frames.ndim == 2:
+        frames = frames.unsqueeze(0)
+    if frames.ndim != 3 or frames.stride(-1) != 1:
+        raise ValueError("frames must be [N, n_fft] or [B, T, n_fft] with "
+                         f"unit sample stride, got {tuple(frames.shape)} "
+                         f"strides {frames.stride()}")
+    return frames, frames.stride(0), frames.stride(1)
+
+
+def _check_constant(t: torch.Tensor, shape, name: str) -> None:
+    if (tuple(t.shape) != tuple(shape) or not t.is_cuda
+            or t.dtype != torch.float32 or not t.is_contiguous()):
+        raise ValueError(f"{name}: want a contiguous float32 CUDA tensor of "
+                         f"shape {tuple(shape)}, got {tuple(t.shape)} "
+                         f"{t.dtype} on {t.device}")
+
+
+def _launch(generic: int, frames, basis0, basis1, width, fb, log_mode,
+            power) -> torch.Tensor:
+    lead = frames.shape[:-1]
+    f3, clip_stride, hop = _frame_view(frames)
+    b, t, n_fft = f3.shape
+    m = fb.shape[1]
+    if not 1 <= m <= MAX_MELS:
+        raise ValueError(f"the direct log-mel kernels hold 1..{MAX_MELS} mel "
+                         f"bands, got {m}")
+    out = torch.empty(b * t, m, device=f3.device)
+    if b * t == 0:
+        return out.reshape(lead + (m,))
+    lib = native.library("log_mel_direct")
+    status = lib.log_mel_direct_f32(
+        generic, f3.data_ptr(), clip_stride, hop, t, b * t, n_fft,
+        basis0.data_ptr(), basis1.data_ptr(), width, fb.data_ptr(),
+        out.data_ptr(), m, _LOG_FLAGS[log_mode], float(power),
+        torch.cuda.current_stream(f3.device).cuda_stream)
+    native.check(status, "log_mel_direct")
+    return out.reshape(lead + (m,))
+
+
+def fused_logmel_packed_cuda(frames: torch.Tensor, dft: torch.Tensor,
+                             fb2: torch.Tensor,
+                             log_mode: str = "log1e6") -> torch.Tensor:
+    """K4: same contract as ``fused_logmel_packed_plain``."""
+    n_fft, width = frames.shape[-1], dft.shape[1]
+    _check_constant(dft, (n_fft, width), "dft")
+    _check_constant(fb2, (width, fb2.shape[1]), "fb2")
+    out = _launch(0, frames, dft, dft, width, fb2, log_mode, 2.0)
+    if out.numel():
+        fused_logmel_packed_cuda.launches += 1
+    return out
+
+
+fused_logmel_packed_cuda.launches = 0
+
+
+def fused_logmel_frames_cuda(frames: torch.Tensor, cos_w: torch.Tensor,
+                             sin_w: torch.Tensor, fb: torch.Tensor,
+                             log_mode: str = "log1e6",
+                             power: float = 2.0) -> torch.Tensor:
+    """K5: same contract as ``fused_logmel_frames_plain``."""
+    n_fft, f = frames.shape[-1], cos_w.shape[1]
+    _check_constant(cos_w, (n_fft, f), "cos_w")
+    _check_constant(sin_w, (n_fft, f), "sin_w")
+    _check_constant(fb, (f, fb.shape[1]), "fb")
+    out = _launch(1, frames, cos_w, sin_w, f, fb, log_mode, power)
+    if out.numel():
+        fused_logmel_frames_cuda.launches += 1
+    return out
+
+
+fused_logmel_frames_cuda.launches = 0
+
+
+def fused_logmel_packed(frames, dft, fb2, log_mode="log1e6"):
+    """K4 for a CUDA tensor, its plain version for a CPU tensor."""
+    if frames.is_cuda:
+        return fused_logmel_packed_cuda(frames, dft, fb2, log_mode)
+    return fused_logmel_packed_plain(frames, dft, fb2, log_mode)
+
+
+def fused_logmel_frames(frames, cos_w, sin_w, fb, log_mode="log1e6",
+                        power=2.0):
+    """K5 for a CUDA tensor, its plain version for a CPU tensor."""
+    if frames.is_cuda:
+        return fused_logmel_frames_cuda(frames, cos_w, sin_w, fb, log_mode,
+                                        power)
+    return fused_logmel_frames_plain(frames, cos_w, sin_w, fb, log_mode,
+                                     power)

@@ -1,21 +1,26 @@
-"""Overlap-reuse log-mel: the CUDA kernel K1 and its plain PyTorch version.
+"""The three-tier log-mel dispatcher and the overlap-reuse CUDA kernel K1
+with its plain PyTorch version.
 
-Port of ``audax/ops/pallas_mel.py``'s overlap tier (``log_mel_overlap``,
-``overlap_applicable``) and of ``whisper_post_clamp``. Each g-sample block
-of the reflect-padded signal is zoom-DFT'd once, frames are recombined from
-NB twiddle-shifted block spectra, the periodic Hann window is applied as an
-exact 3-tap spectral convolution, then |X|^2, the mel projection and the log
-(math in ``ops/mel.py:overlap_frontend_constants``).
+Port of ``audax/ops/pallas_mel.py``: ``log_mel_fused`` is the counterpart
+of ``log_mel_pallas`` and picks, per config, exactly as it does:
 
-``log_mel_overlap`` dispatches on the tensor it is given: a CPU tensor takes
-``log_mel_overlap_plain``; a CUDA tensor launches the kernel of
-``csrc/log_mel_overlap.cu`` or raises. The reflect padding and the Whisper
-epilogue stay plain PyTorch around the kernel, as the JAX package kept
-them in XLA around the Pallas call.
+  1. the overlap-reuse kernel K1 (``log_mel_overlap``, this module) when
+     ``overlap_applicable``: every in-tree preset;
+  2. the packed direct kernel K4 for any other power-2 config;
+  3. the generic direct kernel K5 for any power != 2
+     (K4 and K5 live in ``ops/direct_mel.py``).
 
-The packed (K4) and generic (K5) tiers for configs the overlap kernel does
-not cover are not ported yet; ``frontend/features.py`` runs those configs
-through ``ops/stft.py:log_mel_plain`` on the CPU and raises on CUDA.
+K1 zoom-DFTs each g-sample block of the reflect-padded signal once,
+recombines frames from NB twiddle-shifted block spectra, applies the
+periodic Hann window as an exact 3-tap spectral convolution, then |X|^2,
+the mel projection and the log (math in
+``ops/mel.py:overlap_frontend_constants``).
+
+Each kernel's wrapper dispatches on the tensor it is given: a CPU tensor
+takes the plain version; a CUDA tensor launches the kernel or raises. The
+reflect padding, the framing view and the Whisper epilogue stay plain
+PyTorch around the kernels, as the JAX package kept them in XLA around the
+Pallas calls.
 """
 
 from __future__ import annotations
@@ -27,10 +32,16 @@ import torch.nn.functional as F
 
 from audax_torch.core.config import MelConfig
 from audax_torch.ops import native
-from audax_torch.ops.mel import overlap_block_size, overlap_frontend_constants
+from audax_torch.ops.direct_mel import fused_logmel_frames, fused_logmel_packed
+from audax_torch.ops.mel import (frontend_constants, overlap_block_size,
+                                 overlap_frontend_constants,
+                                 packed_frontend_constants)
+from audax_torch.ops.stft import apply_log
 
-__all__ = ["log_mel_overlap", "log_mel_overlap_cuda", "log_mel_overlap_plain",
-           "overlap_applicable", "whisper_post_clamp"]
+__all__ = ["direct_constants", "direct_frames", "log_mel_fused",
+           "log_mel_overlap", "log_mel_overlap_cuda",
+           "log_mel_overlap_plain", "overlap_applicable",
+           "whisper_post_clamp"]
 
 #: largest shared-memory tile the wrapper plans for one block (two blocks
 #: per SM fit in the H100's 228 KB)
@@ -75,10 +86,9 @@ def _pad(x: torch.Tensor, cfg: MelConfig):
     return x.contiguous(), lead, t
 
 
-def _log(mel: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
-    if cfg.log_mode == "log1e6":
-        return torch.log(mel + 1e-6)
-    return torch.log10(torch.clamp_min(mel, 1e-10))
+def _kernel_log(cfg: MelConfig) -> str:
+    """The kernels' log: ``log1e6``, else log10 (Whisper's clamp after)."""
+    return "log1e6" if cfg.log_mode == "log1e6" else "log10"
 
 
 def log_mel_overlap_plain(x: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
@@ -112,7 +122,7 @@ def log_mel_overlap_plain(x: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     wr = 0.5 * xr - 0.25 * (left_r + right_r)
     wi = 0.5 * xi - 0.25 * (left_i + right_i)
     mel = (wr * wr + wi * wi) @ fb
-    return _log(mel, cfg).reshape(lead + (t, cfg.n_mels))
+    return apply_log(mel, _kernel_log(cfg)).reshape(lead + (t, cfg.n_mels))
 
 
 log_mel_overlap_plain.launches = 0
@@ -162,3 +172,43 @@ def log_mel_overlap(x: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     if x.is_cuda:
         return log_mel_overlap_cuda(x, cfg)
     return log_mel_overlap_plain(x, cfg)
+
+
+@functools.lru_cache(maxsize=16)
+def direct_constants(cfg: MelConfig, device: torch.device):
+    """K4's ``(dft, fb2)`` for power 2, else K5's ``(cos, sin, fb)``."""
+    tables = (packed_frontend_constants(cfg) if cfg.power == 2.0
+              else frontend_constants(cfg))
+    return tuple(torch.from_numpy(a).to(device) for a in tables)
+
+
+def direct_frames(x: torch.Tensor, cfg: MelConfig):
+    """``[..., n]`` -> (``[B, T, n_fft]`` frames, a view of the padded
+    signal with strides ``(clip, hop, 1)``; the lead shape)."""
+    sig, lead, _ = _pad(x, cfg)
+    if sig.shape[-1] < cfg.n_fft:           # sub-window clip, center=False
+        return sig.new_zeros(sig.shape[0], 0, cfg.n_fft), lead
+    return sig.unfold(-1, cfg.n_fft, cfg.hop_length), lead
+
+
+def log_mel_fused(x: torch.Tensor, cfg: MelConfig, *,
+                  whisper_post: bool = True) -> torch.Tensor:
+    """Log-mel of ``[..., n_samples]`` audio -> ``[..., T, n_mels]`` through
+    the tier ``cfg`` calls for (overlap K1, packed K4, generic K5). With
+    ``whisper_post=False`` the Whisper mode returns the raw log10, for the
+    caller to trim frames and then apply ``whisper_post_clamp``."""
+    if overlap_applicable(cfg):
+        mel = log_mel_overlap(x, cfg)
+    else:
+        frames, lead = direct_frames(x, cfg)
+        mode = _kernel_log(cfg)
+        consts = direct_constants(cfg, frames.device)
+        if cfg.power == 2.0:
+            mel = fused_logmel_packed(frames, *consts, log_mode=mode)
+        else:
+            mel = fused_logmel_frames(frames, *consts, log_mode=mode,
+                                      power=cfg.power)
+        mel = mel.reshape(lead + mel.shape[1:])
+    if cfg.log_mode == "whisper" and whisper_post:
+        mel = whisper_post_clamp(mel)
+    return mel

@@ -20,8 +20,8 @@ from audax_torch.core.config import MelConfig
 
 __all__ = [
     "hz_to_mel", "mel_to_hz", "mel_filterbank", "hann_window",
-    "dft_matrices", "frontend_constants", "overlap_frontend_constants",
-    "overlap_block_size",
+    "dft_matrices", "frontend_constants", "packed_frontend_constants",
+    "overlap_frontend_constants", "overlap_block_size",
 ]
 
 
@@ -115,6 +115,45 @@ def dft_matrices(n_fft: int, window: np.ndarray | None = None, dtype=np.float32)
         cos_m = cos_m * window.astype(np.float64)[:, None]
         sin_m = sin_m * window.astype(np.float64)[:, None]
     return cos_m.astype(dtype), sin_m.astype(dtype)
+
+
+def packed_frontend_constants(cfg: MelConfig, dtype=np.float32):
+    """Constants of the packed direct kernel (K4): ``(dft, fb2)``.
+
+    Of the F = n_fft//2 + 1 bins, imag(k=0) and imag(k=Nyquist) are always
+    zero, so exactly F-1 real and F-1 imaginary columns are computed, the
+    Nyquist *real* basis taking the dead imag(k=0) slot::
+
+        dft [n_fft, 2*(F-1)]:  cols [0, F-1)   = windowed cos(k=0..F-2)
+                               col  [F-1]      = windowed cos(k=Nyquist)
+                               cols (F, 2F-2]  = windowed -sin(k=1..F-2)
+        ri  = frames @ dft ;  r2 = ri * ri      (elementwise)
+        mel = r2 @ fb2                          (fb2 [2*(F-1), n_mels])
+
+    fb2 routes each squared column to the mel rows of its bin, so
+    real^2 + imag^2 is absorbed into the second product. A window shorter
+    than n_fft is centre-padded with zeros, as torch.stft does.
+    """
+    win = hann_window(cfg.win, dtype=np.float64)
+    if cfg.win < cfg.n_fft:
+        pad_l = (cfg.n_fft - cfg.win) // 2
+        win = np.pad(win, (pad_l, cfg.n_fft - cfg.win - pad_l))
+    cos_m, sin_m = dft_matrices(cfg.n_fft, window=win, dtype=np.float64)
+    f = cfg.n_freqs                       # n_fft//2 + 1
+    half = f - 1                          # columns per part
+    dft = np.empty((cfg.n_fft, 2 * half), dtype=np.float64)
+    dft[:, :half] = cos_m[:, :half]       # k = 0..F-2 real
+    dft[:, half] = cos_m[:, half]         # k = Nyquist real (imag k=0 slot)
+    dft[:, half + 1:] = sin_m[:, 1:half]  # k = 1..F-2 imag
+
+    fb = mel_filterbank(f, cfg.n_mels, cfg.sample_rate, cfg.fmin, cfg.fmax,
+                        htk=cfg.htk, norm_slaney=cfg.norm_slaney,
+                        dtype=np.float64)
+    fb2 = np.zeros((2 * half, cfg.n_mels), dtype=np.float64)
+    fb2[:half] = fb[:half]                # real^2 of k=0..F-2
+    fb2[half] = fb[half]                  # Nyquist power
+    fb2[half + 1:] = fb[1:half]           # imag^2 of k=1..F-2
+    return dft.astype(dtype), fb2.astype(dtype)
 
 
 def overlap_block_size(cfg: MelConfig) -> int:

@@ -9,8 +9,8 @@ a hash of the source and the flags: an edited source builds anew, an
 unchanged one is reused. ``build()`` starts one ``nvcc`` per missing library
 and waits for all of them, so the kernels compile in parallel.
 
-The wrappers in ``ops/fused_mel.py``, ``ops/attention.py`` and
-``ops/int4_matmul.py`` call
+The wrappers in ``ops/fused_mel.py``, ``ops/direct_mel.py``,
+``ops/attention.py`` and ``ops/int4_matmul.py`` call
 ``library(name)`` the first time they launch on a CUDA tensor. A CUDA host
 without ``nvcc`` raises there; a CPU tensor never reaches this module.
 """
@@ -34,6 +34,7 @@ BUILD = _PKG / "build"
 #: library name -> source file under csrc/
 KERNEL_SOURCES = {
     "log_mel_overlap": "log_mel_overlap.cu",
+    "log_mel_direct": "log_mel_direct.cu",
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
     "decode_attention": "decode_attention.cu",
@@ -49,6 +50,10 @@ SIGNATURES = {
         "log_mel_overlap_smem_bytes": ([_I] * 5, _LL),
         "log_mel_overlap_f32": ([_P, _I, _LL, _I, _I, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "log_mel_direct": {
+        "log_mel_direct_f32": ([_I, _P, _LL, _I, _I, _LL, _I, _P, _P, _I, _P,
+                                _P, _I, _I, _F, _P], _I),
     },
     "flash_fwd": {
         "flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,

@@ -1,6 +1,7 @@
-"""The fine-tune optimizer: AdamW with reduced-precision moment storage and
-the warmup + linear-decay schedule (port of ``audax/train/optim.py``:
-``seq2seq_schedule``, ``scale_by_adam_lp``, ``adamw_lp``).
+"""The optimizers: the classifiers' AdamW, and the fine-tune AdamW with
+reduced-precision moment storage and the warmup + linear-decay schedule
+(port of ``audax/train/optim.py``: ``adamw``, ``seq2seq_schedule``,
+``scale_by_adam_lp``, ``adamw_lp``).
 
 These are plain functions on nested-dict tensor trees, not
 ``torch.optim`` classes, because the JAX chain fixes an operation order
@@ -29,7 +30,7 @@ import torch
 
 from audax_torch.models.whisper import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["seq2seq_schedule", "scale_by_adam_lp", "adamw_lp",
+__all__ = ["adamw", "seq2seq_schedule", "scale_by_adam_lp", "adamw_lp",
            "GradientTransformation", "ScaleByAdamLPState", "apply_updates",
            "global_norm"]
 
@@ -163,6 +164,15 @@ def adamw_lp(learning_rate: Union[float, Schedule],
         return direction, state
 
     return GradientTransformation(adam.init, update)
+
+
+def adamw(learning_rate: float, weight_decay: float = 0.0,
+          grad_clip: Optional[float] = None) -> GradientTransformation:
+    """``optax.adamw`` (b1 0.9, b2 0.999, eps 1e-8, decay on every leaf),
+    after an optional global-norm clip: ``adamw_lp`` with float32
+    moments."""
+    return adamw_lp(learning_rate, weight_decay, moments="float32",
+                    grad_clip=grad_clip)
 
 
 @torch.no_grad()

@@ -5,24 +5,27 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py [--profile]
 
-``--profile`` adds a ``torch.profiler`` window over each fine-tune step and
-one serving decode step (device time by kernel family, the device's busy
-share). It builds the
-port's CUDA kernels from ``audax_torch/csrc`` and drives the port's three
+``--profile`` adds a ``torch.profiler`` window over each fine-tune step,
+one serving decode step and each classifier's train step (device time by
+kernel family, the device's busy share). It builds the
+port's CUDA kernels from ``audax_torch/csrc`` and drives the port's four
 main paths -- Whisper transcription at the full width of Whisper-tiny,
-Whisper fine-tuning at the full width of Whisper-base, and quantized
+Whisper fine-tuning at the full width of Whisper-base, quantized
 continuous-batching serving over HTTP at the full width of
-Whisper-large-v3-turbo -- in seven phases, one output line each (the
-kernel and path phases print one line per case):
+Whisper-large-v3-turbo, and UrbanSound classification at the reference
+classifiers' widths -- in eight phases, one output line each (the kernel
+and path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (five), in parallel, with its
+  2. build   -- nvcc of every kernel library (six), in parallel, with its
      wall time;
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' shapes: max |err| against the stated tolerance, kernel
-     ms, plain ms, the one-call library yardstick where there is one, and
-     the least time the card could take (bytes or operations over the
-     H100's published peaks);
+     ms, plain ms, the one-call library yardstick where there is one (for
+     K4/K5 a composite: ``torch.stft`` + ``|X|^p`` + the mel product + the
+     log), and the least time the card could take (bytes or operations
+     over the H100's published peaks; for a log-mel, the operations of an
+     FFT per frame and the filterbank's nonzeros, whichever tier runs);
   4. transcription -- random Whisper-tiny weights from a seeded generator,
      a tokenizer with the published 51,865-token layout, two requests (30 s
      and 47 s of synthetic audio) through ``Transcriber(device="cuda")``;
@@ -50,7 +53,23 @@ kernel and path phases print one line per case):
      against the port's CPU path (teacher-forced ``decode_step_ragged``
      with float and with int8 self-KV), and ``attention(kv_cached=)``
      through K6;
-  7. the kernels' JSON line, then the result line.
+  7. classify -- 400 synthetic 4 s clips in the UrbanSound8K layout
+     (``make_synthetic_urbansound``, seed 0), featurized on the card by
+     ``featurize_clips`` (int16 upload, batches of 64) under three frontend
+     configs, one per log-mel tier: UrbanSound v2 (K1), PANNs' Cnn14_16k
+     geometry (K4) and UrbanSound v2 as a magnitude mel (K5); each run must
+     launch its kernel and no other tier or plain version. Then
+     ``fit_classifier`` for 3 epochs on folds 1-8 and ``evaluate_classifier``
+     on folds 9 and 10 for ``CNNClassifier`` (v2 features),
+     ``TransformerClassifier(pool="cls", max_len=2048)`` (PANNs features)
+     and ``TransformerClassifier(pool="mean")`` (magnitude features): the
+     last epoch's train loss must be below the first's (accuracy is printed,
+     not gated); each model's eval logits, one train step's loss and
+     BatchNorm running statistics (f32) and every gradient leaf of that
+     step (f64, where both devices take the same ReLU and max-pool
+     branches) on the card against the port's CPU path (dropout 0); and
+     the train step's time;
+  8. the kernels' JSON line, then the result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or without the ``audax_torch`` package beside it, it exits with 2
@@ -97,6 +116,18 @@ TOL_LOGITS_Q8 = 1e-2
 #: gradient leaf against 1e-3 of that leaf's largest CPU value (+1e-6)
 TOL_STEP_LOSS = 1e-4
 TOL_STEP_GRAD = 1e-3
+#: classifiers, card vs CPU in float32 with dropout 0: eval logits against
+#: 1e-3 of the largest CPU logit; BatchNorm running statistics after one
+#: step against 1e-5 of each statistic's largest CPU value (at least 1)
+TOL_CLS_LOGITS = 1e-3
+TOL_BN_STATS = 1e-5
+
+#: the two public frontends that take the direct log-mel tiers: PANNs'
+#: Cnn14_16k geometry (power 2, g = 32, a = 5: not overlap-applicable -> K4)
+#: and UrbanSound v2 as a magnitude mel (power 1 -> K5)
+PANNS_MEL = dict(n_fft=512, hop_length=160, n_mels=64, fmin=50.0,
+                 fmax=8000.0, htk=False, norm_slaney=True)
+MAGNITUDE_MEL = dict(power=1.0)
 
 #: the kernels each main path must launch
 TRANSCRIBE_KERNELS = ("log_mel_overlap", "flash_forward",
@@ -105,6 +136,10 @@ FINETUNE_KERNELS = ("log_mel_overlap", "flash_forward", "flash_backward_dq",
                     "flash_backward_dkv", "decode_attention_stacked")
 SERVE_KERNELS = ("log_mel_overlap", "flash_forward",
                  "decode_attention_stacked_int8", "int4_matmul")
+#: the classification path: one frontend config per log-mel tier
+CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap"),
+                      ("PANNs geometry", PANNS_MEL, "log_mel_packed"),
+                      ("magnitude v2", MAGNITUDE_MEL, "log_mel_generic"))
 
 
 def _run(cmd):
@@ -149,6 +184,31 @@ def _bound(flops, nbytes, flop_rate):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _filterbank(cfg):
+    from audax_torch.ops.mel import mel_filterbank
+    return mel_filterbank(cfg.n_freqs, cfg.n_mels, cfg.sample_rate, cfg.fmin,
+                          cfg.fmax, htk=cfg.htk, norm_slaney=cfg.norm_slaney)
+
+
+def _logmel_bound(cfg, b, n, frames):
+    """Least time of the log-mel of ``b`` clips of ``n`` samples
+    (``frames`` frames each), whichever kernel computes it: by its cheapest
+    known route, a real FFT per frame (2.5 n_fft log2 n_fft operations),
+    the window, |X|^p, the filterbank's nonzeros and the log; the padded
+    clips read once, the mel written once."""
+    import math
+
+    import numpy as np
+    nnz = int(np.count_nonzero(_filterbank(cfg)))
+    per_frame = (2.5 * cfg.n_fft * math.log2(cfg.n_fft) + cfg.win
+                 + cfg.n_freqs * (3 if cfg.power == 2.0 else 5)
+                 + 2 * nnz + cfg.n_mels)
+    n_pad = n + 2 * (cfg.n_fft // 2) if cfg.center else n
+    rows = b * frames
+    nbytes = 4 * (b * n_pad + rows * cfg.n_mels + nnz)
+    return _bound(rows * per_frame, nbytes, F32_FLOPS)
+
+
 def _report(case, err, tol, ms, plain_ms, lib_ms, bound,
             err_name="max_abs_err"):
     lib = f"{lib_ms:.4f}" if lib_ms is not None else "null"
@@ -168,7 +228,6 @@ def kernel_phase(torch, rng):
     from audax_torch.core.config import MelConfig
     from audax_torch.ops import attention as att
     from audax_torch.ops import fused_mel
-    from audax_torch.ops.mel import overlap_block_size
 
     dev = "cuda"
     out = {}
@@ -190,21 +249,82 @@ def kernel_phase(torch, rng):
         ref = fused_mel.log_mel_overlap_plain(x, cfg)
         ms = _time_ms(torch, lambda: fused_mel.log_mel_overlap_cuda(x, cfg))
         plain = _time_ms(torch, lambda: fused_mel.log_mel_overlap_plain(x, cfg))
-        b, n = shape
-        frames = got.shape[1]
-        g, f, m = overlap_block_size(cfg), cfg.n_freqs, cfg.n_mels
-        nb, adv = cfg.n_fft // g, cfg.hop_length // g
-        nblk = (frames - 1) * adv + nb
-        flops = b * (nblk * g * f * 4 + frames * f * (nb * 8 + 10)
-                     + frames * f * m * 2 + frames * m)
-        nbytes = 4 * (b * n + b * frames * m + 2 * g * f + 2 * nb * f + f * m)
-        bound = _bound(flops, nbytes, F32_FLOPS)
+        bound = _logmel_bound(cfg, shape[0], shape[1], got.shape[1])
         e = err(got, ref)
         _report(f"log_mel_overlap[{name} {list(shape)}]", e, TOL_MEL, ms,
                 plain, None, bound)
         if name == "whisper":
             out["log_mel_overlap"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
                                           library_ms=None, bound=bound)
+
+    # ---- K4 / K5: direct log-mel (packed; generic) ----------------------------
+    from audax_torch.ops import direct_mel
+
+    # their own generator: the later phases keep drawing the inputs they
+    # drew before these cases existed
+    direct_rng = np.random.default_rng(4)
+
+    def direct_case(label, cfg, shape, main):
+        t = np.arange(shape[1]) / 16000.0
+        x = (0.3 * np.sin(2 * np.pi * 440 * t) * (1 + np.sin(t))
+             + 0.05 * direct_rng.standard_normal(shape)).astype(np.float32)
+        x = torch.from_numpy(x).to(dev)
+        frames, _ = fused_mel.direct_frames(x, cfg)
+        consts = fused_mel.direct_constants(cfg, x.device)
+        mode = "log1e6" if cfg.log_mode == "log1e6" else "log10"
+        if cfg.power == 2.0:
+            name = "log_mel_packed"
+            kern = lambda: direct_mel.fused_logmel_packed_cuda(  # noqa: E731
+                frames, *consts, mode)
+            plain = lambda: direct_mel.fused_logmel_packed_plain(  # noqa: E731
+                frames, *consts, mode)
+        else:
+            name = "log_mel_generic"
+            kern = lambda: direct_mel.fused_logmel_frames_cuda(  # noqa: E731
+                frames, *consts, mode, cfg.power)
+            plain = lambda: direct_mel.fused_logmel_frames_plain(  # noqa: E731
+                frames, *consts, mode, cfg.power)
+        got, ref = kern(), plain()
+        e = err(got, ref)
+        ms = _time_ms(torch, kern)
+        plain_ms = _time_ms(torch, plain)
+        # composite yardstick (no single call computes a log-mel): torch.stft
+        # (cuFFT) + |X|^p + the mel product + the log
+        window = torch.hann_window(cfg.win, device=dev)
+        fb = torch.from_numpy(_filterbank(cfg)).to(dev)
+
+        def library():
+            spec = torch.stft(x, cfg.n_fft, cfg.hop_length, cfg.win,
+                              window=window, center=cfg.center,
+                              pad_mode="reflect", return_complex=True)
+            mel = spec.abs().pow(cfg.power).transpose(1, 2) @ fb
+            return (torch.log(mel + 1e-6) if mode == "log1e6"
+                    else torch.log10(torch.clamp_min(mel, 1e-10)))
+        lib_err = err(library(), ref)
+        lib = _time_ms(torch, library)
+        bound = _logmel_bound(cfg, shape[0], shape[1], frames.shape[1])
+        _report(f"{name}[{label} x {list(shape)} -> {list(got.shape)}] "
+                f"(composite library vs plain {lib_err:.3e})", e, TOL_MEL,
+                ms, plain_ms, lib, bound)
+        if main:
+            out[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib, bound=bound)
+
+    # the classification path's shapes: 64 clips of 4 s per featurize batch
+    direct_case("PANNs geometry", MelConfig(**PANNS_MEL), (64, 64000), True)
+    direct_case("magnitude v2", MelConfig(**MAGNITUDE_MEL), (64, 64000),
+                True)
+    # ragged edges: n_fft 400 (not a multiple of 32), a short window, log10,
+    # center=False, odd F with a power of 1.5, 200 and 256 mel bands
+    direct_case("n_fft 400 win 320 hop 160 80 mels log10",
+                MelConfig(n_fft=400, win_length=320, hop_length=160,
+                          n_mels=80, log_mode="log10"), (4, 16001), False)
+    direct_case("n_fft 400 power 1.5 200 mels center=False",
+                MelConfig(n_fft=400, hop_length=160, n_mels=200, power=1.5,
+                          center=False), (3, 16001), False)
+    direct_case("n_fft 1024 hop 100 256 mels",
+                MelConfig(n_fft=1024, hop_length=100, n_mels=256),
+                (2, 8000), False)
 
     # ---- K2: flash forward ---------------------------------------------------
     def flash_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main):
@@ -642,6 +762,7 @@ def _kernel_group(name):
               ("K7 flash_bwd_dq", ("flash_bwd_dq",)),
               ("K8 flash_bwd_dkv", ("flash_bwd_dkv",)),
               ("K2 flash_fwd", ("flash_fwd",)),
+              ("K4/K5 log_mel_direct", ("log_mel_direct",)),
               ("K1 log_mel", ("log_mel",)),
               ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "splitK")),
               ("conv (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad")),
@@ -1096,6 +1217,238 @@ def serve_phase(torch, rng, profile=False):
     return counts, k6_counts
 
 
+def _featurize(torch, us, name, kw, kernel):
+    """The synthetic dataset through ``featurize_clips`` on the card in
+    batches of 64; (x [N, T, n_mels], y, fold) on the host and the launch
+    counts of the run."""
+    import numpy as np
+
+    from audax_torch.core.config import MelConfig
+    from audax_torch.data.urbansound import featurize_clips
+    from audax_torch.frontend.features import LogMelFrontend
+    from audax_torch.ops import launch_counts, reset_launches
+
+    mel = MelConfig(**kw)
+    frontend = LogMelFrontend(mel, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    feats, rows = [], []
+    for batch_rows, f in featurize_clips(us, mel, batch_size=64,
+                                         frontend=frontend):
+        if f is None:
+            raise AssertionError(f"{batch_rows[0]['slice_file_name']} did "
+                                 "not decode")
+        feats.append(f.transpose(1, 2))           # [B, T, n_mels]
+        rows.extend(batch_rows)
+    x = torch.cat(feats).cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    direct = {"log_mel_overlap", "log_mel_packed", "log_mel_generic"}
+    _check_launches(counts, (kernel,), f"featurize ({name})")
+    others = {k: c["cuda"] for k, c in counts.items()
+              if k in direct - {kernel} and c["cuda"]}
+    if others or not np.isfinite(x).all():
+        raise AssertionError(f"featurize ({name}): other tiers {others} or "
+                             "non-finite features")
+    print(f"[classify] featurize {name} (n_fft {mel.n_fft}, hop "
+          f"{mel.hop_length}, {mel.n_mels} mels, power {mel.power}): "
+          f"{len(rows)} clips -> {list(x.shape)} in {wall:.3f} s = "
+          f"{len(rows) / wall:.1f} clips/s (WAV read, int16 upload, "
+          f"{kernel} {counts[kernel]['cuda']} launches)", flush=True)
+    y = np.array([r["class_id"] for r in rows], np.int64)
+    fold = np.array([r["fold"] for r in rows])
+    return (x, y, fold), counts
+
+
+def _check_card_vs_cpu(torch, label, build, x, y):
+    """One model built twice from the same draws (dropout 0): eval logits
+    on 8 clips, then one ``train_step``'s loss and BatchNorm running
+    statistics in float32, and its gradients in float64, card vs the port's
+    CPU path.
+
+    The gradient is discontinuous where a ReLU input sits at 0 or two
+    max-pooled values tie: in float32 the card and the CPU, rounding
+    differently, can take different branches at a few of the model's
+    ~1.8 M such points, and each moves a reduction of ~1,000 terms by about
+    one term (a few 1e-3 of a gradient's largest value). In float64 both
+    take the same branches, so the gradients are held there."""
+    import copy
+
+    from audax_torch.train.optim import GradientTransformation
+    from audax_torch.train.steps import TrainState, make_classifier_steps
+
+    torch.manual_seed(1)
+    cpu = build(0.0)
+    card = copy.deepcopy(cpu).cuda()
+    cpu64 = copy.deepcopy(cpu).double()
+    card64 = copy.deepcopy(cpu64).cuda()
+    with torch.no_grad():
+        lc = cpu(torch.from_numpy(x[:8]))
+        lg = card(torch.from_numpy(x[:8]).cuda()).cpu()
+    e_log = float((lg - lc).abs().max()) / float(lc.abs().max())
+
+    def step(model, batch, device):
+        """One train step whose update is zero; returns (metrics, grads)."""
+        seen = {}
+
+        def update(grads, st, p):
+            seen.update({k: g.detach().cpu() for k, g in grads.items()})
+            return {k: torch.zeros_like(g) for k, g in grads.items()}, st
+        st = TrainState.create(model, GradientTransformation(
+            lambda p: None, update))
+        _, metrics = make_classifier_steps(model)[0](
+            st, {k: v.to(device) for k, v in batch.items()})
+        return metrics, seen
+
+    batch = {"x": torch.from_numpy(x[:16]), "y": torch.from_numpy(y[:16])}
+    m_card, _ = step(card, batch, "cuda")
+    m_cpu, _ = step(cpu, batch, "cpu")
+    batch64 = dict(batch, x=batch["x"].double())
+    _, g_card = step(card64, batch64, "cuda")
+    _, g_cpu = step(cpu64, batch64, "cpu")
+    l_cpu, l_card = float(m_cpu["loss"]), float(m_card["loss"])
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst, worst_name = 0.0, ""
+    for name, g in g_cpu.items():
+        ratio = float((g_card[name] - g).abs().max()) / (
+            TOL_STEP_GRAD * float(g.abs().max()) + 1e-6)
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+    e_bn = 0.0
+    for name, b in dict(cpu.named_buffers()).items():
+        a = dict(card.named_buffers())[name].cpu()
+        e_bn = max(e_bn, float((a - b).abs().max())
+                   / max(1.0, float(b.abs().max())))
+    print(f"[classify] {label} card vs CPU (dropout 0): eval logits on 8 "
+          f"clips (f32) {e_log:.3e} of max|logit| (tol {TOL_CLS_LOGITS:.0e});"
+          f" one step (B=16, f32) loss {l_card:.6f} vs {l_cpu:.6f} (rel "
+          f"{rel:.2e}, tol {TOL_STEP_LOSS:.0e}); BatchNorm running "
+          f"statistics {e_bn:.3e} (tol {TOL_BN_STATS:.0e}); the step's "
+          f"gradients (f64): worst leaf {worst_name} at {worst:.3e} of its "
+          f"tolerance ({TOL_STEP_GRAD:.0e} x max|g_cpu| + 1e-6)", flush=True)
+    if not (e_log <= TOL_CLS_LOGITS and rel <= TOL_STEP_LOSS and worst <= 1.0
+            and e_bn <= TOL_BN_STATS):
+        raise AssertionError(f"{label}: card and CPU disagree")
+    return card, batch
+
+
+def classify_phase(torch, profile=False):
+    """The UrbanSound fold protocol on the synthetic stand-in dataset: 400
+    clips featurized on the card under one frontend config per log-mel
+    tier (K1, K4, K5), then three classifiers at the reference widths
+    trained 3 epochs on folds 1-8 and evaluated on folds 9 and 10. Returns
+    the featurize runs' launch counts, summed. ``profile`` adds a profiler
+    window over each classifier's train step."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from audax_torch.core.config import (ClassifierTrainConfig,
+                                         CNNClassifierConfig,
+                                         TransformerClassifierConfig,
+                                         UrbanSoundConfig)
+    from audax_torch.data.synth import make_synthetic_urbansound
+    from audax_torch.models.classifiers import (CNNClassifier,
+                                                TransformerClassifier)
+    from audax_torch.train.loops import evaluate_classifier, fit_classifier
+    from audax_torch.train.metrics_sink import MetricsSink
+    from audax_torch.train.optim import adamw
+    from audax_torch.train.steps import TrainState, make_classifier_steps
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        make_synthetic_urbansound(d, per_fold=40, seed=0)
+        print(f"[classify] synthetic UrbanSound8K layout: 400 clips of 4 s "
+              f"(40 per fold, 16-bit WAV) written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        us = UrbanSoundConfig(dataset_root=d)
+        feats, counts = {}, None
+        for name, kw, kernel in CLASSIFY_FRONTENDS:
+            feats[name], c = _featurize(torch, us, name, kw, kernel)
+            counts = c if counts is None else {
+                k: {s: counts[k][s] + c[k][s] for s in c[k]} for k in c}
+
+        cfg = ClassifierTrainConfig(epochs=3)
+        # the reference widths and dropouts (the CLI's max_len 2048 for
+        # the CLS transformer); ``build(rate)`` draws from torch's generator
+        cnn, tf = CNNClassifierConfig(), TransformerClassifierConfig()
+        models = (
+            ("CNNClassifier", "cnn", "UrbanSound v2", cnn.dropout,
+             lambda rate: CNNClassifier(CNNClassifierConfig(dropout=rate),
+                                        n_mels=128)),
+            ("TransformerClassifier(cls, max_len 2048)", "transformer_cls",
+             "PANNs geometry", tf.dropout, lambda rate: TransformerClassifier(
+                 TransformerClassifierConfig(pool="cls", dropout=rate),
+                 max_len=2048, n_mels=64)),
+            ("TransformerClassifier(mean)", "transformer_mean",
+             "magnitude v2", tf.dropout,
+             lambda rate: TransformerClassifier(TransformerClassifierConfig(
+                 pool="mean", dropout=rate), n_mels=128)),
+        )
+        for label, run, feat_name, dropout, build in models:
+            x, y, fold = feats[feat_name]
+
+            def split(folds):
+                keep = np.isin(fold, folds)
+                return {"x": x[keep], "y": y[keep]}
+            train = split(us.train_folds)
+            torch.manual_seed(0)
+            model = build(dropout)
+            n_params = sum(p.numel() for p in model.parameters())
+            sink = MetricsSink(run, out_dir=os.path.join(d, "runs"))
+            t0 = time.perf_counter()
+            state, hist = fit_classifier(model, train, split([us.eval_fold]),
+                                         cfg, sink=sink, device="cuda")
+            wall = time.perf_counter() - t0
+            sink.close()
+            with open(sink.path) as fh:
+                rate = [json.loads(line)["examples_per_s"] for line in fh
+                        if "examples_per_s" in line]
+            _, eval_step = make_classifier_steps(model)
+            m10, _ = evaluate_classifier(eval_step, state,
+                                         split([us.test_fold]),
+                                         cfg.batch_size, 10)
+            m9, losses = hist["eval"][-1], hist["train_loss"]
+            print(f"[classify] {label} on {feat_name} features "
+                  f"{list(x.shape[1:])} ({n_params} parameters): 3 epochs "
+                  f"on folds 1-8 ({len(train['y'])} clips, batch "
+                  f"{cfg.batch_size}, lr {cfg.learning_rate}, wd "
+                  f"{cfg.weight_decay}) in {wall:.2f} s; train loss "
+                  f"{[round(v, 4) for v in losses]}; examples/s per epoch "
+                  f"{[round(v, 1) for v in rate]}; fold 9 accuracy "
+                  f"{m9['accuracy']:.4f} f1_macro {m9['f1_macro']:.4f}; "
+                  f"fold 10 accuracy {m10['accuracy']:.4f} f1_macro "
+                  f"{m10['f1_macro']:.4f}", flush=True)
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                raise AssertionError(f"{label}: train loss {losses[0]} -> "
+                                     f"{losses[-1]} did not fall")
+
+            card, batch = _check_card_vs_cpu(torch, label, build, x, y)
+            # the step alone on the card: batch 16, AdamW, dropout 0
+            step, _ = make_classifier_steps(card)
+            st = TrainState.create(card, adamw(cfg.learning_rate,
+                                               cfg.weight_decay))
+            batch = {k: v.cuda() for k, v in batch.items()}
+            st, _ = step(st, batch)
+            torch.cuda.synchronize()
+            n = 20
+            t0 = time.perf_counter()
+            for _ in range(n):
+                st, _ = step(st, batch)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / n * 1e3
+            print(f"[classify] {label} train step (B=16, AdamW, f32): "
+                  f"{step_ms:.3f} ms = {16e3 / step_ms:.1f} examples/s",
+                  flush=True)
+            if profile:
+                _profile(torch, lambda: step(st, batch),
+                         f"{label} train step")
+    return counts
+
+
 def _paths(tree, prefix=""):
     """Leaf paths of a nested dict, in ``tree_leaves`` order."""
     out = []
@@ -1109,9 +1462,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="add a torch.profiler window over each "
-                             "fine-tune step and one serving decode step: "
-                             "device time by kernel family and the "
-                             "device's busy share")
+                             "fine-tune step, one serving decode step and "
+                             "each classifier's train step: device time by "
+                             "kernel family and the device's busy share")
     args = parser.parse_args()
     try:
         import torch
@@ -1154,12 +1507,18 @@ def main() -> int:
     transcribe = main_path_phase(torch, rng)
     train = finetune_phase(torch, rng, profile=args.profile)
     serve, k6 = serve_phase(torch, rng, profile=args.profile)
+    classify = classify_phase(torch, profile=args.profile)
     # launches of the main paths, each counted from 0 just before it
-    launches = {k: sum(p[k]["cuda"] for p in (transcribe, train, serve, k6))
+    launches = {k: sum(p[k]["cuda"] for p in (transcribe, train, serve, k6,
+                                              classify))
                 for k in transcribe}
 
     sources = {"log_mel_overlap": ("audax_torch/csrc/log_mel_overlap.cu",
                                    "audax/ops/pallas_mel.py:199"),
+               "log_mel_packed": ("audax_torch/csrc/log_mel_direct.cu",
+                                  "audax/ops/pallas_mel.py:271"),
+               "log_mel_generic": ("audax_torch/csrc/log_mel_direct.cu",
+                                   "audax/ops/pallas_mel.py:334"),
                "flash_forward": ("audax_torch/csrc/flash_fwd.cu",
                                  "audax/ops/attention.py:161"),
                "flash_backward_dq": ("audax_torch/csrc/flash_bwd.cu",

@@ -151,8 +151,15 @@ def test_port_imports_nothing_of_jax():
         "n.startswith('jax.') or n == 'audax' or n.startswith('audax.'))\n"
         "assert not bad, bad\n"
         "need = {'audax_torch.cli.http_server', 'audax_torch.infer.continuous',"
-        " 'audax_torch.models.quantize', 'audax_torch.ops.int4_matmul'}\n"
+        " 'audax_torch.models.quantize', 'audax_torch.ops.int4_matmul',"
+        " 'audax_torch.ops.direct_mel', 'audax_torch.data.synth',"
+        " 'audax_torch.data.batching', 'audax_torch.data.urbansound',"
+        " 'audax_torch.eval.metrics', 'audax_torch.models.classifiers',"
+        " 'audax_torch.train.steps', 'audax_torch.train.loops'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
+        "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('pandas', 'pyarrow'))\n"
+        "assert not heavy, heavy\n"
         "print(len([n for n in sys.modules if n.startswith('audax_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
