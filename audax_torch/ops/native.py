@@ -5,12 +5,15 @@ its own shared library with a plain C interface, loaded with ``ctypes``.
 Nothing includes PyTorch's headers, so a build takes seconds, not minutes.
 
 Libraries go to ``audax_torch/build/`` (listed in ``.gitignore``), named by
-a hash of the source and the flags: an edited source builds anew, an
-unchanged one is reused. ``build()`` starts one ``nvcc`` per missing library
-and waits for all of them, so the kernels compile in parallel.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags: an
+edited source or header builds anew, an unchanged one is reused.
+``build()`` starts one ``nvcc`` per missing library and waits for all of
+them, so the kernels compile in parallel.
 
 The wrappers in ``ops/fused_mel.py``, ``ops/direct_mel.py``,
-``ops/attention.py`` and ``ops/int4_matmul.py`` call
+``ops/attention.py``, ``ops/int4_matmul.py`` and the int4 experiment tools
+(``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
+``tools/w4a8_probe.py``, ``tools/int4_unpack_probe.py``) call
 ``library(name)`` the first time they launch on a CUDA tensor. A CUDA host
 without ``nvcc`` raises there; a CPU tensor never reaches this module.
 """
@@ -39,6 +42,9 @@ KERNEL_SOURCES = {
     "flash_bwd": "flash_bwd.cu",
     "decode_attention": "decode_attention.cu",
     "int4_matmul": "int4_matmul.cu",
+    "int4_word_matmul": "int4_word_matmul.cu",
+    "w4a8_matmul": "w4a8_matmul.cu",
+    "int4_unpack_variants": "int4_unpack_variants.cu",
 }
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -74,6 +80,19 @@ SIGNATURES = {
         "int4_matmul_splits": ([_I, _I, _I], _I),
         "int4_matmul": ([_P] * 5 + [_I] * 6 + [_P], _I),
     },
+    "int4_word_matmul": {
+        "int4_word_matmul_splits": ([_I, _I, _I], _I),
+        "int4_word_matmul": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    },
+    "w4a8_matmul": {
+        "w4a8_matmul_splits": ([_I, _I, _I], _I),
+        "w4a8_matmul": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    },
+    "int4_unpack_variants": {
+        "int4_unpack_v1_splits": ([_I] * 4, _I),
+        "int4_unpack_v1": ([_P] * 5 + [_I] * 7 + [_P], _I),
+        "int4_unpack_v2": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    },
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -96,7 +115,9 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / KERNEL_SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"{name}-{digest[:16]}.so"
 
 

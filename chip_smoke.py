@@ -13,19 +13,25 @@ main paths -- Whisper transcription at the full width of Whisper-tiny,
 Whisper fine-tuning at the full width of Whisper-base, quantized
 continuous-batching serving over HTTP at the full width of
 Whisper-large-v3-turbo, and UrbanSound classification at the reference
-classifiers' widths -- in eight phases, one output line each (the kernel
-and path phases print one line per case):
+classifiers' widths -- and the four int4 kernel-experiment tools, in nine
+phases, one output line each (the kernel and path phases print one line
+per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (six), in parallel, with its
+  2. build   -- nvcc of every kernel library (nine), in parallel, with its
      wall time;
   3. kernels -- each kernel against its plain PyTorch version on the card at
-     the main paths' shapes: max |err| against the stated tolerance, kernel
-     ms, plain ms, the one-call library yardstick where there is one (for
-     K4/K5 a composite: ``torch.stft`` + ``|X|^p`` + the mel product + the
-     log), and the least time the card could take (bytes or operations
-     over the H100's published peaks; for a log-mel, the operations of an
-     FFT per frame and the filterbank's nonzeros, whichever tier runs);
+     the main paths' and the tools' shapes: max |err| against the stated
+     tolerance, kernel ms, plain ms, the one-call library yardstick where
+     there is one (for the log-mel kernels K1/K4/K5 a composite:
+     ``torch.stft`` + ``|X|^p`` + the mel product + the log, with Whisper's
+     clamp for the Whisper preset), and the least time the card could take
+     (bytes or operations over the H100's published peaks; for a log-mel,
+     the operations of an FFT per frame and the filterbank's nonzeros,
+     whichever tier runs). The int4 kernels (K9 and the tools' P2-P5) and
+     their ``torch.matmul`` yardstick are slope-timed in CUDA graphs with
+     the weights from HBM (copies cycled past twice the L2), the L2-warm
+     time beside;
   4. transcription -- random Whisper-tiny weights from a seeded generator,
      a tokenizer with the published 51,865-token layout, two requests (30 s
      and 47 s of synthetic audio) through ``Transcriber(device="cuda")``;
@@ -69,7 +75,12 @@ and path phases print one line per case):
      step (f64, where both devices take the same ReLU and max-pool
      branches) on the card against the port's CPU path (dropout 0); and
      the train step's time;
-  8. the kernels' JSON line, then the result line.
+  8. probes -- the four int4 tools through their entry points on the card
+     (``int4_layout_ab`` check and bench, ``int4_plane_probe``,
+     ``w4a8_probe``, ``int4_unpack_probe``): each prints its rows, then one
+     JSON line per tool with its rows and verdict; each tool's kernels (and
+     K9, its "current" arm) must launch and no plain version may;
+  9. the kernels' JSON line, then the result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or without the ``audax_torch`` package beside it, it exits with 2
@@ -88,18 +99,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
-#: FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
+#: FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s, int8
+#: tensor-core OP/s
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 #: tolerances: float32 log-mel in the log domain (the JAX package's own
 #: frontend bound); float32 attention; bf16 attention (bf16 rounds p before PV)
 TOL_MEL = 2e-3
 TOL_F32 = 1e-4
 TOL_BF16 = 2e-2
-#: int4 matmul, relative to max |plain|: float32 (summation order only)
+#: int4 matmul (K9, the word kernel, unpack v1/v2), relative to max
+#: |plain|: float32 (summation order only); bf16 x takes TOL_BF16, one bf16
+#: step of the output (v2's weights round identically in kernel and plain)
 TOL_INT4_F32 = 1e-4
+#: W4A8 in float32, relative to max |plain|: each group's int8 sum is an
+#: exact integer in both, so only the float32 scaling and the order of the
+#: group sums differ
+TOL_W4A8_F32 = 1e-5
 #: card vs the port's CPU path, float32 with TF32 off: summation order is
 #: the only difference, compounded over the layers
 TOL_ENC = 1e-3
@@ -136,6 +155,13 @@ FINETUNE_KERNELS = ("log_mel_overlap", "flash_forward", "flash_backward_dq",
                     "flash_backward_dkv", "decode_attention_stacked")
 SERVE_KERNELS = ("log_mel_overlap", "flash_forward",
                  "decode_attention_stacked_int8", "int4_matmul")
+#: the int4 tools and the kernels each must launch (K9 is every tool's
+#: "current" arm)
+PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul")),
+               ("int4_plane_probe", ("int4_plane_matmul", "int4_matmul")),
+               ("w4a8_probe", ("w4a8_matmul", "int4_matmul")),
+               ("int4_unpack_probe", ("int4_unpack_v1", "int4_unpack_v2",
+                                      "int4_matmul")))
 #: the classification path: one frontend config per log-mel tier
 CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap"),
                       ("PANNs geometry", PANNS_MEL, "log_mel_packed"),
@@ -159,24 +185,6 @@ def _time_ms(torch, fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _graph_ms(torch, fn, reps=20):
-    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
-    graph and replayed, so the host's launch cost between them is gone."""
-    fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    ms = _time_ms(torch, graph.replay, reps=5, warmup=1) / reps
-    del graph
-    return ms
 
 
 def _bound(flops, nbytes, flop_rate):
@@ -207,6 +215,24 @@ def _logmel_bound(cfg, b, n, frames):
     rows = b * frames
     nbytes = 4 * (b * n_pad + rows * cfg.n_mels + nnz)
     return _bound(rows * per_frame, nbytes, F32_FLOPS)
+
+
+def _library_logmel(torch, x, cfg):
+    """The composite yardstick of a log-mel kernel (no single PyTorch call
+    computes a log-mel): ``torch.stft`` (cuFFT) + |X|^p + the mel product +
+    the log, with Whisper's clamp for the Whisper preset."""
+    from audax_torch.ops.stft import apply_log
+
+    window = torch.hann_window(cfg.win, device=x.device)
+    fb = torch.from_numpy(_filterbank(cfg)).to(x.device)
+
+    def library():
+        spec = torch.stft(x, cfg.n_fft, cfg.hop_length, cfg.win,
+                          window=window, center=cfg.center,
+                          pad_mode="reflect", return_complex=True)
+        mel = spec.abs().pow(cfg.power).transpose(1, 2) @ fb
+        return apply_log(mel, cfg.log_mode)
+    return library
 
 
 def _report(case, err, tol, ms, plain_ms, lib_ms, bound,
@@ -249,13 +275,20 @@ def kernel_phase(torch, rng):
         ref = fused_mel.log_mel_overlap_plain(x, cfg)
         ms = _time_ms(torch, lambda: fused_mel.log_mel_overlap_cuda(x, cfg))
         plain = _time_ms(torch, lambda: fused_mel.log_mel_overlap_plain(x, cfg))
+        library = _library_logmel(torch, x, cfg)
+        if cfg.log_mode == "whisper":       # the kernel leaves the clamp out
+            ref_lib = fused_mel.whisper_post_clamp(ref)
+        else:
+            ref_lib = ref
+        lib_err = err(library(), ref_lib)
+        lib = _time_ms(torch, library)
         bound = _logmel_bound(cfg, shape[0], shape[1], got.shape[1])
         e = err(got, ref)
-        _report(f"log_mel_overlap[{name} {list(shape)}]", e, TOL_MEL, ms,
-                plain, None, bound)
+        _report(f"log_mel_overlap[{name} {list(shape)}] (composite library "
+                f"vs plain {lib_err:.3e})", e, TOL_MEL, ms, plain, lib, bound)
         if name == "whisper":
             out["log_mel_overlap"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                                          library_ms=None, bound=bound)
+                                          library_ms=lib, bound=bound)
 
     # ---- K4 / K5: direct log-mel (packed; generic) ----------------------------
     from audax_torch.ops import direct_mel
@@ -288,18 +321,7 @@ def kernel_phase(torch, rng):
         e = err(got, ref)
         ms = _time_ms(torch, kern)
         plain_ms = _time_ms(torch, plain)
-        # composite yardstick (no single call computes a log-mel): torch.stft
-        # (cuFFT) + |X|^p + the mel product + the log
-        window = torch.hann_window(cfg.win, device=dev)
-        fb = torch.from_numpy(_filterbank(cfg)).to(dev)
-
-        def library():
-            spec = torch.stft(x, cfg.n_fft, cfg.hop_length, cfg.win,
-                              window=window, center=cfg.center,
-                              pad_mode="reflect", return_complex=True)
-            mel = spec.abs().pow(cfg.power).transpose(1, 2) @ fb
-            return (torch.log(mel + 1e-6) if mode == "log1e6"
-                    else torch.log10(torch.clamp_min(mel, 1e-10)))
+        library = _library_logmel(torch, x, cfg)
         lib_err = err(library(), ref)
         lib = _time_ms(torch, library)
         bound = _logmel_bound(cfg, shape[0], shape[1], frames.shape[1])
@@ -569,59 +591,102 @@ def kernel_phase(torch, rng):
     k6_case("int8 [8,20,1500,64] pos=None", True, None, True)
     k6_case("f32 [8,20,1500,64] pos=700", False, 700, False)
 
-    # ---- K9: int4 weight-only matmul at the decode shapes (M = 8) -----------
+    # ---- K9 and the int4 tools' kernels at the decode shapes (M = 8) --------
     from audax_torch.ops import int4_matmul as i4
+    from audax_torch.tools import arm_times
+    from audax_torch.tools import int4_layout_ab as lab
+    from audax_torch.tools import int4_plane_probe as pp
+    from audax_torch.tools import int4_unpack_probe as up
+    from audax_torch.tools import w4a8_probe as wp
 
-    def int4_case(label, k_dim, n, dtype, tol, main):
+    def split_half(w):
+        q, s = i4.quantize_int4(w)
+        return (q, s), i4.dequantize_int4(q, s)
+
+    def words(quantize):
+        def pack(w):
+            word, s = quantize(w)[:2]
+            return (word, s), lab.dequantize_int4_v2(word, s)
+        return pack
+
+    def plane(fn):              # the group from the shapes: K / G
+        return lambda x, word, s: fn(x, word, s,
+                                     group=8 * word.shape[0] // s.shape[0])
+
+    #: name -> (CUDA wrapper, plain version, packing, peak of the unit that
+    #: does its products exactly: None = f32 CUDA cores for f32 x, bf16
+    #: tensor cores for bf16 x; int8 tensor cores for W4A8)
+    int4_kernels = {
+        "int4_matmul": (i4.int4_matmul_cuda, i4.int4_matmul_plain,
+                        split_half, None),
+        "int4_word_matmul": (lab.int4_matmul_v2_cuda,
+                             lab.int4_matmul_v2_plain,
+                             words(lab.quantize_int4_v2), None),
+        "int4_plane_matmul": (plane(pp.plane_matmul_cuda),
+                              plane(pp.plane_matmul_plain),
+                              words(pp.quantize_int4_planes), None),
+        "w4a8_matmul": (wp.w4a8_matmul_cuda, wp.w4a8_matmul_plain,
+                        split_half, INT8_OPS),
+        "int4_unpack_v1": (up.unpack_v1_cuda, up.unpack_v1_plain, split_half,
+                           None),
+        "int4_unpack_v2": (up.unpack_v2_cuda, up.unpack_v2_plain, split_half,
+                           None),
+    }
+
+    def int4_case(name, what, k_dim, n, dtype, tol, main, gen=None):
+        """One int4 kernel against its plain version; its time with the
+        weights from HBM -- copies cycled past twice the 50 MB L2, one per
+        captured call, as a decode step's other weights evict them -- and
+        warm in L2 (``tools.arm_times``); the yardstick ``torch.matmul`` on
+        the dequantized weights in x's dtype, from HBM the same way."""
+        cuda_fn, plain_fn, pack, rate = int4_kernels[name]
         m = 8
-        packed, scales = i4.quantize_int4(torch.randn(k_dim, n, device=dev)
-                                          / k_dim ** 0.5)
-        w = i4.dequantize_int4(packed, scales)          # the yardstick's
-        x = torch.randn(m, k_dim, device=dev).to(dtype)
-        got = i4.int4_matmul_cuda(x, packed, scales)
-        ref = i4.int4_matmul_plain(x, packed, scales)
-        scale = float(ref.float().abs().max())
+        weights, wd = pack(torch.randn(k_dim, n, device=dev, generator=gen)
+                           / k_dim ** 0.5)
+        x = torch.randn(m, k_dim, device=dev, generator=gen).to(dtype)
+        got, ref = cuda_fn(x, *weights), plain_fn(x, *weights)
         e = err(got, ref)
-        # cycle copies of the weights (120 MB in all, over twice the 50 MB
-        # L2) so each launch reads them from HBM, as decode does (the step's
-        # other weights evict them from L2); the graph captures one call per
-        # copy for the same reason
-        copies = max(1, -(-120_000_000 // (packed.numel() + 4 * scales.numel())))
-        ws = [(packed.clone(), scales.clone()) for _ in range(copies)]
-        wf = [w.clone() for _ in range(max(1, -(-120_000_000 // (4 * w.numel()))))]
-        it = iter(range(10 ** 9))
-
-        def pick(seq):
-            return seq[next(it) % len(seq)]
-        ms = _time_ms(torch, lambda: i4.int4_matmul_cuda(x, *pick(ws)))
-        dev_ms = _graph_ms(torch, lambda: i4.int4_matmul_cuda(x, *pick(ws)),
-                           reps=max(20, copies))
-        plain = _time_ms(torch, lambda: i4.int4_matmul_plain(x, *pick(ws)))
-        lib = _time_ms(torch, lambda: torch.matmul(x.float(), pick(wf)))
+        cold, warm = arm_times(cuda_fn, x, weights)
+        plain = _time_ms(torch, lambda: plain_fn(x, *weights))
+        lib, _ = arm_times(torch.matmul, x, (wd.to(dtype),))
         elt = x.element_size()
-        nbytes = (elt * m * k_dim + packed.numel() + 4 * scales.numel()
-                  + elt * m * n)
-        # the products run in float32 on CUDA cores for f32 x; bf16 x could
-        # take the bf16 tensor cores (the nibbles are exact in bf16)
-        bound = _bound(2 * m * k_dim * n, nbytes,
-                       F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
-        _report(f"int4_matmul[{label}] (max_abs_err {e:.3e}, device ms in "
-                f"a CUDA graph {dev_ms:.4f})", e / scale, tol, ms, plain, lib,
-                bound, "max_rel_err")
-        del ws, wf
+        nbytes = elt * m * (k_dim + n) + sum(t.numel() * t.element_size()
+                                             for t in weights)
+        if rate is None:
+            rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        bound = _bound(2 * m * k_dim * n, nbytes, rate)
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        _report(f"{name}[{what}{dt} [8,{k_dim}]x[{k_dim},{n}]] (max_abs_err "
+                f"{e:.3e}; ms from HBM, L2-warm {1e3 * warm:.4f})",
+                e / float(ref.float().abs().max()), tol, 1e3 * cold, plain,
+                1e3 * lib, bound, "max_rel_err")
         if main:
-            out["int4_matmul"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                                      library_ms=lib, bound=bound)
+            out[name] = dict(max_abs_err=e, ms=1e3 * cold, plain_ms=plain,
+                             library_ms=1e3 * lib, bound=bound)
 
     for k_dim, n, what in ((1280, 1280, "q/k/v/out"), (1280, 5120, "mlp_in"),
                            (5120, 1280, "mlp_out"),
                            (1280, 51866, "tied logits")):
         for dtype, tol in ((torch.float32, TOL_INT4_F32),
                            (torch.bfloat16, TOL_BF16)):
-            name = "f32" if dtype == torch.float32 else "bf16"
-            int4_case(f"{what} {name} [8,{k_dim}]x[{k_dim},{n}]", k_dim, n,
-                      dtype, tol, what == "tied logits"
-                      and dtype == torch.float32)
+            int4_case("int4_matmul", f"{what} ", k_dim, n, dtype, tol,
+                      what == "tied logits" and dtype == torch.float32)
+    # the tools' kernels at the tools' shapes, on their own generator (the
+    # later phases keep the inputs they drew before these cases existed);
+    # the main case is the tools' own: bf16 x at [8,1280]x[1280,5120]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tool_shapes = {"int4_word_matmul": ((1280, 5120), (5120, 1280),
+                                        (1280, 1280))}
+    for name in ("int4_word_matmul", "int4_plane_matmul", "w4a8_matmul",
+                 "int4_unpack_v1", "int4_unpack_v2"):
+        for k_dim, n in tool_shapes.get(name, ((1280, 5120),)):
+            for dtype in (torch.float32, torch.bfloat16):
+                tol = (TOL_BF16 if dtype == torch.bfloat16 else
+                       TOL_W4A8_F32 if name == "w4a8_matmul" else
+                       TOL_INT4_F32)
+                int4_case(name, "", k_dim, n, dtype, tol,
+                          (k_dim, n) == (1280, 5120)
+                          and dtype == torch.bfloat16, gen)
     return out
 
 
@@ -1449,6 +1514,40 @@ def classify_phase(torch, profile=False):
     return counts
 
 
+def probes_phase(torch):
+    """The four int4 tools of ``audax_torch.tools`` on the card, each
+    through its own entry point (``int4_layout_ab``: ``check`` then
+    ``bench``): one JSON line per tool with its rows and verdict. Each
+    tool's kernels must launch and no plain version may. Returns the launch
+    counts of the tools' kernels, summed over the four."""
+    import importlib
+
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.tools import probe_launch_counts, reset_probe_launches
+
+    total = {}
+    for name, kernels in PROBE_TOOLS:
+        tool = importlib.import_module(f"audax_torch.tools.{name}")
+        runs = ((tool.check, tool.bench) if name == "int4_layout_ab"
+                else (tool.main,))
+        reset_launches()
+        reset_probe_launches()
+        t0 = time.perf_counter()
+        reports = [run(device="cuda") for run in runs]
+        wall = time.perf_counter() - t0
+        counts = {**launch_counts(), **probe_launch_counts()}
+        _check_launches(counts, kernels, f"{name} tool")
+        print(json.dumps({
+            "probe": name, "seconds": round(wall, 3),
+            "verdicts": [r["verdict"] for r in reports],
+            "launches": {k: c["cuda"] for k, c in counts.items()
+                         if c["cuda"]},
+            "reports": reports}), flush=True)
+        for k, c in probe_launch_counts().items():
+            total[k] = total.get(k, 0) + c["cuda"]
+    return total
+
+
 def _paths(tree, prefix=""):
     """Leaf paths of a nested dict, in ``tree_leaves`` order."""
     out = []
@@ -1508,10 +1607,13 @@ def main() -> int:
     train = finetune_phase(torch, rng, profile=args.profile)
     serve, k6 = serve_phase(torch, rng, profile=args.profile)
     classify = classify_phase(torch, profile=args.profile)
-    # launches of the main paths, each counted from 0 just before it
+    probes = probes_phase(torch)
+    # launches of the main paths, each counted from 0 just before it; the
+    # tools' kernels from the probes phase
     launches = {k: sum(p[k]["cuda"] for p in (transcribe, train, serve, k6,
                                               classify))
                 for k in transcribe}
+    launches.update(probes)
 
     sources = {"log_mel_overlap": ("audax_torch/csrc/log_mel_overlap.cu",
                                    "audax/ops/pallas_mel.py:199"),
@@ -1534,7 +1636,17 @@ def main() -> int:
                "decode_attention": ("audax_torch/csrc/decode_attention.cu",
                                     "audax/ops/attention.py:547"),
                "int4_matmul": ("audax_torch/csrc/int4_matmul.cu",
-                               "audax/ops/int4_matmul.py:236")}
+                               "audax/ops/int4_matmul.py:236"),
+               "int4_word_matmul": ("audax_torch/csrc/int4_word_matmul.cu",
+                                    "tools/int4_layout_ab.py:107"),
+               "int4_plane_matmul": ("audax_torch/csrc/int4_word_matmul.cu",
+                                     "tools/int4_plane_probe.py:114"),
+               "w4a8_matmul": ("audax_torch/csrc/w4a8_matmul.cu",
+                               "tools/w4a8_probe.py:66"),
+               "int4_unpack_v1": ("audax_torch/csrc/int4_unpack_variants.cu",
+                                  "tools/int4_unpack_probe.py:105"),
+               "int4_unpack_v2": ("audax_torch/csrc/int4_unpack_variants.cu",
+                                  "tools/int4_unpack_probe.py:105")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

@@ -155,7 +155,10 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.ops.direct_mel', 'audax_torch.data.synth',"
         " 'audax_torch.data.batching', 'audax_torch.data.urbansound',"
         " 'audax_torch.eval.metrics', 'audax_torch.models.classifiers',"
-        " 'audax_torch.train.steps', 'audax_torch.train.loops'}\n"
+        " 'audax_torch.train.steps', 'audax_torch.train.loops',"
+        " 'audax_torch.utils.profiling', 'audax_torch.tools.int4_layout_ab',"
+        " 'audax_torch.tools.int4_plane_probe', 'audax_torch.tools.w4a8_probe',"
+        " 'audax_torch.tools.int4_unpack_probe'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow'))\n"
