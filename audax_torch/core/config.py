@@ -249,9 +249,8 @@ class FineTuneConfig(EnvConfig):
     # compute dtype for the train step ("float32" | "bfloat16"): master
     # weights stay float32 either way
     dtype: str = "float32"
-    # Adam moment STORAGE dtype ("float32" | "bfloat16" | "int8"): update
-    # math and master weights stay float32. The port carries float32 and
-    # bfloat16; int8 arrives with a later slice
+    # Adam moment STORAGE dtype ("float32" | "bfloat16" | "int8": blockwise
+    # int8 m and bfloat16 v): update math and master weights stay float32
     moment_dtype: str = "bfloat16"
     # >0 keeps an EMA average of the trainable params (train/ema.py) with
     # this decay; WER eval + best-checkpoint then use the averaged weights

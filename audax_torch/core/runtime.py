@@ -1,4 +1,4 @@
-"""Device resolution and the float32 precision policy (port of
+"""Device resolution and the matmul precision policy (port of
 ``audax/core/runtime.py``).
 
 The JAX package pins its platform and compilation cache here; the port's
@@ -9,9 +9,12 @@ plain PyTorch versions of the kernels (the tests do this).
 
 On CUDA, float32 work stays float32: PyTorch lets cuDNN convolutions run in
 TF32 by default, which would break the float32 parity of Whisper's conv
-stem with the JAX reference (``audax/models/whisper.py:conv_stem``).
-``resolve_device`` therefore turns TF32 off for matmuls and cuDNN whenever
-it hands out a CUDA device. These are process-wide PyTorch flags.
+stem with the JAX reference (``audax/models/whisper.py:conv_stem``). And
+bf16 and fp16 products accumulate in float32: cuBLAS may otherwise reduce
+them in reduced precision (PyTorch's default), where JAX sums them in
+float32 (``preferred_element_type=jnp.float32``). ``resolve_device``
+therefore sets ``full_precision_matmuls`` whenever it hands out a CUDA
+device. These are process-wide PyTorch flags.
 """
 
 from __future__ import annotations
@@ -20,15 +23,19 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "disable_tf32"]
+__all__ = ["resolve_device", "full_precision_matmuls"]
 
 DeviceLike = Optional[Union[str, torch.device]]
 
 
-def disable_tf32() -> None:
-    """Full-float32 matmuls and convolutions on CUDA (no TF32)."""
+def full_precision_matmuls() -> None:
+    """Full-float32 matmuls and convolutions on CUDA (no TF32), and bf16 and
+    fp16 matmuls that accumulate in float32 (no reduced-precision
+    reduction)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -39,5 +46,5 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch path on the host")
-        disable_tf32()
+        full_precision_matmuls()
     return dev

@@ -23,24 +23,32 @@
 // the float32 reference. bfloat16 inputs are widened to float32 in shared
 // memory and take the same path -- moving them to wgmma is later work.
 //
-// Design: both kernels follow flash_fwd.cu's layout -- 4 warps, tiles of 64
-// rows staged in shared memory as float32 with rows padded to D+4 floats
-// (float4 reads free of bank conflicts), four rows scored at a time with
-// lane L taking columns L and L+32, and the recomputed P or dS passed
+// Design: both kernels follow flash_fwd.cu's layout -- 4 warps, tiles
+// staged in shared memory as float32 with rows padded to D+4 floats (float4
+// reads free of bank conflicts), four rows scored at a time with lane L
+// taking columns L, L+32, ... of the tile, and the recomputed P or dS passed
 // through a per-warp shared buffer into the accumulating product, whose
 // float32 sums stay in registers (lane L holds dims L, L+32, ...).
 //
-//   K7: one block per (batch*q-head, tile of 64 query rows); it loops over
-//       the K/V tiles, each warp accumulating dQ for its 16 rows. Causal
-//       mode skips the key tiles wholly above the diagonal.
-//   K8: one block per (batch*kv-head, tile of keys: 64, or 32 at D = 128 to
-//       keep two accumulators in registers); it loops over the group's q
-//       heads and their query tiles, each warp accumulating dK and dV for
-//       its keys. Causal mode starts at the first query tile that reaches
-//       the block's first key.
+//   K7: one block per (batch*q-head, tile of BQ query rows); it loops over
+//       BK-key tiles of K and V, each warp accumulating dQ for its BQ/4
+//       rows. Causal mode skips the key tiles wholly above the diagonal.
+//   K8: one block per (batch*kv-head, tile of BK keys); it loops over the
+//       group's q heads and their BQ-row query tiles, each warp
+//       accumulating dK and dV for its BK/4 keys. Causal mode starts at the
+//       first query tile that reaches the block's first key.
+//
+// The tiles (BQ, BK) are template parameters. The default is 64 x 64, with
+// K8 at 32 keys for D = 128 to keep its two accumulators in registers;
+// dispatch() lists the instantiated set, which ops/attention.py validates
+// a call against (TILES, resolve_tile).
 //
 // Every output element is written by exactly one block and no float atomics
 // are used, so the gradients are the same from run to run.
+//
+// The file builds two libraries (ops/native.py): with AUDAX_FLASH_BWD_DQ it
+// holds K7 and flash_bwd_dq, with AUDAX_FLASH_BWD_DKV K8 and flash_bwd_dkv,
+// so that the two kernels' tile instantiations compile in parallel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,8 +58,6 @@ namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int BQ = 64;           // query rows per tile
-constexpr int BK = 64;           // keys per tile in K7
 constexpr int RG = 4;            // rows scored together
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -90,7 +96,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
 
 // ------------------------------------------------------------------- K7 --
 
-template <int D, typename T>
+template <int D, int BQ, int BK, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -101,6 +107,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int DP = D + 4;
   constexpr int DPL = (D + 31) / 32;      // accumulated dims per lane
   constexpr int RPW = BQ / WARPS;         // query rows per warp
+  constexpr int NC = BK / 32;             // keys per lane in a tile
   extern __shared__ float smem[];
   float* qs = smem;                       // [BQ][DP]
   float* dos = qs + BQ * DP;              // [BQ][DP]
@@ -145,27 +152,30 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int g0 = 0; g0 < RPW; g0 += RG) {
       const int row0 = warp * RPW + g0;   // row within the block's tile
-      float s[RG][2], dp[RG][2];
+      float s[RG][NC], dp[RG][NC];
 #pragma unroll
-      for (int r = 0; r < RG; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+      for (int r = 0; r < RG; ++r)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) s[r][c] = dp[r][c] = 0.f;
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
-        const float4 ka = *reinterpret_cast<const float4*>(ks + lane * DP + d);
-        const float4 kb =
-            *reinterpret_cast<const float4*>(ks + (lane + 32) * DP + d);
-        const float4 va = *reinterpret_cast<const float4*>(vs + lane * DP + d);
-        const float4 vb =
-            *reinterpret_cast<const float4*>(vs + (lane + 32) * DP + d);
+        float4 kc[NC], vc[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          kc[c] = *reinterpret_cast<const float4*>(ks + (lane + 32 * c) * DP + d);
+          vc[c] = *reinterpret_cast<const float4*>(vs + (lane + 32 * c) * DP + d);
+        }
 #pragma unroll
         for (int r = 0; r < RG; ++r) {
           const float4 qv =
               *reinterpret_cast<const float4*>(qs + (row0 + r) * DP + d);
           const float4 ov =
               *reinterpret_cast<const float4*>(dos + (row0 + r) * DP + d);
-          s[r][0] += dot4(qv, ka);
-          s[r][1] += dot4(qv, kb);
-          dp[r][0] += dot4(ov, va);
-          dp[r][1] += dot4(ov, vb);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            s[r][c] += dot4(qv, kc[c]);
+            dp[r][c] += dot4(ov, vc[c]);
+          }
         }
       }
 #pragma unroll
@@ -173,7 +183,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int row = q0 + row0 + r;
         const float l = lses[row0 + r], dl = dlts[row0 + r];
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
+        for (int c = 0; c < NC; ++c) {
           const int col = k0 + lane + 32 * c;
           const bool ok = col < tk && (!causal || col <= row);
           const float p = ok ? expf(s[r][c] * scale - l) : 0.f;
@@ -219,12 +229,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------- K8 --
 
-template <int D> struct DkvTile {
-  static constexpr int BKV = D >= 128 ? 32 : 64;   // keys per block
-  static constexpr int KPW = BKV / WARPS;          // keys per warp
-};
-
-template <int D, typename T>
+template <int D, int BQ, int BKV, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -234,8 +239,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      float scale, int causal) {
   constexpr int DP = D + 4;
   constexpr int DPL = (D + 31) / 32;
-  constexpr int BKV = DkvTile<D>::BKV;
-  constexpr int KPW = DkvTile<D>::KPW;
+  constexpr int KPW = BKV / WARPS;        // keys per warp
+  constexpr int NQ = BQ / 32;             // query rows per lane in a tile
   extern __shared__ float smem[];
   float* ks = smem;                       // [BKV][DP]
   float* vs = ks + BKV * DP;              // [BKV][DP]
@@ -285,37 +290,37 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int g0 = 0; g0 < KPW; g0 += RG) {
         const int key0 = warp * KPW + g0;   // key within the block's tile
-        float s[RG][2], dp[RG][2];
+        float s[RG][NQ], dp[RG][NQ];
 #pragma unroll
         for (int r = 0; r < RG; ++r)
-          s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+#pragma unroll
+          for (int c = 0; c < NQ; ++c) s[r][c] = dp[r][c] = 0.f;
 #pragma unroll
         for (int d = 0; d < D; d += 4) {
-          const float4 qa =
-              *reinterpret_cast<const float4*>(qs + lane * DP + d);
-          const float4 qb =
-              *reinterpret_cast<const float4*>(qs + (lane + 32) * DP + d);
-          const float4 oa =
-              *reinterpret_cast<const float4*>(dos + lane * DP + d);
-          const float4 ob =
-              *reinterpret_cast<const float4*>(dos + (lane + 32) * DP + d);
+          float4 qc[NQ], oc[NQ];
+#pragma unroll
+          for (int c = 0; c < NQ; ++c) {
+            qc[c] = *reinterpret_cast<const float4*>(qs + (lane + 32 * c) * DP + d);
+            oc[c] = *reinterpret_cast<const float4*>(dos + (lane + 32 * c) * DP + d);
+          }
 #pragma unroll
           for (int r = 0; r < RG; ++r) {
             const float4 kv =
                 *reinterpret_cast<const float4*>(ks + (key0 + r) * DP + d);
             const float4 vv =
                 *reinterpret_cast<const float4*>(vs + (key0 + r) * DP + d);
-            s[r][0] += dot4(qa, kv);
-            s[r][1] += dot4(qb, kv);
-            dp[r][0] += dot4(oa, vv);
-            dp[r][1] += dot4(ob, vv);
+#pragma unroll
+            for (int c = 0; c < NQ; ++c) {
+              s[r][c] += dot4(qc[c], kv);
+              dp[r][c] += dot4(oc[c], vv);
+            }
           }
         }
 #pragma unroll
         for (int r = 0; r < RG; ++r) {
           const int col = k0 + key0 + r;
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
+          for (int c = 0; c < NQ; ++c) {
             const int rr = lane + 32 * c;   // row within the query tile
             const int row = q0 + rr;
             const bool ok = row < tq && col < tk && (!causal || col <= row);
@@ -384,14 +389,27 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, typename T>
-int launch_dq(const Args& a) {
-  constexpr int DP = D + 4;
-  const int smem = 4 * (2 * BQ * DP + 2 * BK * DP + 2 * BQ + WARPS * RG * BK);
-  auto kern = flash_bwd_dq_kernel<D, T>;
+// cudaFuncSetAttribute once per instantiation, on its first (eager) launch:
+// a later call captured into a CUDA graph issues nothing but the launch
+template <typename K>
+int allow_smem(K kern, int smem, bool& ready) {
+  if (ready) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  ready = true;
+  return 0;
+}
+
+template <int D, int BQ, int BK, typename T>
+int launch_dq(const Args& a) {
+  constexpr int DP = D + 4;
+  constexpr int smem =
+      4 * (2 * BQ * DP + 2 * BK * DP + 2 * BQ + WARPS * RG * BK);
+  static_assert(smem <= 232448, "tile exceeds one block's shared memory");
+  auto kern = flash_bwd_dq_kernel<D, BQ, BK, T>;
+  static bool ready = false;
+  if (int err = allow_smem(kern, smem, ready)) return err;
   dim3 grid((a.tq + BQ - 1) / BQ, a.batch * a.hq);
   kern<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -401,16 +419,15 @@ int launch_dq(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int D, typename T>
+template <int D, int BQ, int BKV, typename T>
 int launch_dkv(const Args& a) {
   constexpr int DP = D + 4;
-  constexpr int BKV = DkvTile<D>::BKV;
-  const int smem =
+  constexpr int smem =
       4 * (2 * BKV * DP + 2 * BQ * DP + 2 * BQ + 2 * WARPS * RG * BQ);
-  auto kern = flash_bwd_dkv_kernel<D, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  static_assert(smem <= 232448, "tile exceeds one block's shared memory");
+  auto kern = flash_bwd_dkv_kernel<D, BQ, BKV, T>;
+  static bool ready = false;
+  if (int err = allow_smem(kern, smem, ready)) return err;
   dim3 grid((a.tk + BKV - 1) / BKV, a.batch * a.hkv);
   kern<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -420,21 +437,42 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <bool DKV, typename T>
-int dispatch(int d, const Args& a) {
-  switch (d) {
-    case 16: return DKV ? launch_dkv<16, T>(a) : launch_dq<16, T>(a);
-    case 32: return DKV ? launch_dkv<32, T>(a) : launch_dq<32, T>(a);
-    case 64: return DKV ? launch_dkv<64, T>(a) : launch_dq<64, T>(a);
-    case 128: return DKV ? launch_dkv<128, T>(a) : launch_dq<128, T>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// The instantiated (head_dim, block_q, block_k) set of each kernel: the
+// default tile at every head dim, and the 3 x 3 grid of 32/64/128 at D = 64
+#if defined(AUDAX_FLASH_BWD_DKV)
+#define AUDAX_LAUNCH launch_dkv
+constexpr bool kDkv = true;
+#else
+#define AUDAX_LAUNCH launch_dq
+constexpr bool kDkv = false;
+#endif
+
+template <typename T>
+int dispatch(int d, int bq, int bk, const Args& a) {
+#define AUDAX_BWD(D_, BQ_, BK_)                                          \
+  if (d == D_ && bq == BQ_ && bk == BK_)                                 \
+    return AUDAX_LAUNCH<D_, BQ_, BK_, T>(a);
+  AUDAX_BWD(16, 64, 64)
+  AUDAX_BWD(32, 64, 64)
+  AUDAX_BWD(64, 32, 32)
+  AUDAX_BWD(64, 32, 64)
+  AUDAX_BWD(64, 32, 128)
+  AUDAX_BWD(64, 64, 32)
+  AUDAX_BWD(64, 64, 64)
+  AUDAX_BWD(64, 64, 128)
+  AUDAX_BWD(64, 128, 32)
+  AUDAX_BWD(64, 128, 64)
+  AUDAX_BWD(64, 128, 128)
+#undef AUDAX_BWD
+  // head_dim 128: K7 at 64 x 64, K8 at 64 x 32
+  if (d == 128 && bq == 64 && bk == (kDkv ? 32 : 64))
+    return AUDAX_LAUNCH<128, 64, (kDkv ? 32 : 64), T>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
-template <bool DKV>
-int run(int head_dim, int dtype, const Args& a) {
-  if (dtype == 0) return dispatch<DKV, float>(head_dim, a);
-  return dispatch<DKV, __nv_bfloat16>(head_dim, a);
+int run(int head_dim, int dtype, int bq, int bk, const Args& a) {
+  if (dtype == 0) return dispatch<float>(head_dim, bq, bk, a);
+  return dispatch<__nv_bfloat16>(head_dim, bq, bk, a);
 }
 
 }  // namespace
@@ -443,26 +481,29 @@ extern "C" {
 
 // q, dout [B, Hq, Tq, D]; k, v [B, Hkv, Tk, D]; lse, delta [B*Hq, Tq]
 // float32; dq like q; dk, dv like k; all contiguous. dtype 0 = float32,
-// 1 = bfloat16. head_dim in {16, 32, 64, 128}. Each returns
-// cudaGetLastError() after its launch.
-int flash_bwd_dq(const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* delta,
-                 void* dq, int batch, int hq, int hkv, int tq, int tk,
-                 int head_dim, float scale, int causal, int dtype,
-                 void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, nullptr, batch, hq, hkv, tq,
-               tk, scale, causal, (cudaStream_t)stream};
-  return run<false>(head_dim, dtype, a);
-}
-
+// 1 = bfloat16. (head_dim, block_q, block_k) must be one of dispatch's set.
+// Each returns cudaGetLastError() after its launch (cudaErrorInvalidValue
+// for an unsupported set).
+#if defined(AUDAX_FLASH_BWD_DKV)
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   void* dk, void* dv, int batch, int hq, int hkv, int tq,
                   int tk, int head_dim, float scale, int causal, int dtype,
-                  void* stream) {
+                  int block_q, int block_k, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, tq, tk,
                scale, causal, (cudaStream_t)stream};
-  return run<true>(head_dim, dtype, a);
+  return run(head_dim, dtype, block_q, block_k, a);
 }
+#else
+int flash_bwd_dq(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int batch, int hq, int hkv, int tq, int tk,
+                 int head_dim, float scale, int causal, int dtype,
+                 int block_q, int block_k, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, batch, hq, hkv, tq,
+               tk, scale, causal, (cudaStream_t)stream};
+  return run(head_dim, dtype, block_q, block_k, a);
+}
+#endif
 
 }  // extern "C"

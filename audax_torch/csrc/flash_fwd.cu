@@ -2,18 +2,20 @@
 // accumulation, float32 or bfloat16 inputs.
 //
 // Replaces the TPU kernel audax/ops/attention.py:_fwd_kernel (the forward of
-// flash_attention, called from _fwd). For q [B, Hq, Tq, D] and k, v
-// [B, Hkv, Tk, D] it writes
+// flash_attention, called from _fwd, K2) and the head-folded probe
+// tools/attn_headfold_probe.py:_fold_kernel (launched by fold_fwd, P1). For
+// q [B, Hq, Tq, D] and k, v [B, Hkv, tk_stride, D] it writes
 //
 //   o[b, h, i]  = sum_j softmax_j(scale * q_i . k_j) v_j      (kv head h / G)
 //   lse[b*Hq+h, i] = m_i + log(l_i)
 //
-// with keys j >= Tk masked (a ragged Tk needs no padding), and j > i masked
-// when causal (Tq == Tk). Masked scores are -1e30 (not -inf, which would
-// make the m recurrence produce NaN); a row that sees no key (l == 0)
-// divides by 1. As on the TPU, the probabilities are cast to V's dtype
-// before the PV product (bfloat16 rounds them), l sums them unrounded, and
-// the output is cast to q's dtype.
+// with keys j >= kv_len masked (a ragged Tk needs no padding; kv_len may be
+// below the row stride tk_stride of K/V, and key tiles wholly past kv_len are
+// never read), and j > i masked when causal (Tq == Tk). Masked scores are
+// -1e30 (not -inf, which would make the m recurrence produce NaN); a row
+// that sees no key (l == 0) divides by 1. As on the TPU, the probabilities
+// are cast to V's dtype before the PV product (bfloat16 rounds them), l sums
+// them unrounded, and the output is cast to q's dtype.
 //
 // What bounds it on this card: at Whisper's encoder shape [4, 6, 1500, 64]
 // the work is 4*B*H*T*T*D = 6.9 GFLOP against 9 MB of q, k, v and o, so it
@@ -22,15 +24,24 @@
 // reference; bfloat16 inputs are widened to float32 in shared memory and
 // take the same path here -- moving them to wgmma is later work.
 //
-// Design: one block of 4 warps per (batch*head, tile of 64 query rows); a
-// loop over 64-key tiles of K and V staged in shared memory (float32, rows
+// Design: one warp group (4 warps) per (batch*head, tile of BQ query rows);
+// a loop over BK-key tiles of K and V staged in shared memory (float32, rows
 // padded to D+4 floats so float4 reads are free of bank conflicts). Each
-// warp owns 16 query rows and keeps their running max m, sum l and output
+// warp owns BQ/4 query rows and keeps their running max m, sum l and output
 // accumulator in registers: lane L holds dims L, L+32, ... of each row.
-// Scores are computed four rows at a time, lane L taking keys L and L+32,
-// so one float4 of K feeds eight FMAs; the probabilities go through a
-// per-warp shared buffer for the PV product. Whole key tiles above the
-// diagonal are skipped in causal mode, as the TPU kernel's pl.when did.
+// Scores are computed four rows at a time, lane L taking keys L, L+32, ...
+// (BK/32 of them), so one float4 of K feeds 4*BK/32 FMAs; the probabilities
+// go through a per-warp shared buffer for the PV product. Whole key tiles
+// above the diagonal are skipped in causal mode, as the TPU kernel's pl.when
+// did.
+//
+// Tiles and folding are template parameters (BQ, BK, FOLD). FOLD = f puts f
+// consecutive heads of the fused B*H axis in one block of 4*f warps: warp
+// group g owns head blockIdx.y*f + g, with its own q, K/V and probability
+// buffers, and the f heads' K/V tiles are staged together under one barrier
+// per key tile (the TPU probe's fold: independent heads per grid step).
+// FOLD = 1 is the kernel without folding. Shared memory grows f-fold, so
+// fold 4 fits only the 64x64 tile at D = 64 (221,184 of 232,448 B).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,10 +49,8 @@
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per tile
-constexpr int WARPS = 4;
-constexpr int RPW = BQ / WARPS;  // query rows per warp
+constexpr int WARPS = 4;         // warps per head (one warp group)
+constexpr int GROUP = WARPS * 32;
 constexpr int RG = 4;            // rows per score group
 constexpr float NEG = -1e30f;
 
@@ -73,29 +82,39 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+// floats of shared memory one warp group uses
+template <int D, int BQ, int BK>
+__host__ __device__ constexpr int group_floats() {
+  return BQ * (D + 4) + BK * (D + 4) + BK * D + WARPS * RG * BK;
+}
+
+template <int D, int BQ, int BK, int FOLD, typename T>
+__global__ void __launch_bounds__(GROUP * FOLD)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int hq, int group, int tq, int tk,
-                 float scale, int causal) {
+                 float* __restrict__ lse, int hq, int group, int tq,
+                 int kv_len, int tk_stride, float scale, int causal) {
   constexpr int DP = D + 4;               // padded smem row (float4 aligned)
   constexpr int DPL = (D + 31) / 32;      // output dims per lane
+  constexpr int RPW = BQ / WARPS;         // query rows per warp
+  constexpr int NC = BK / 32;             // keys per lane in a tile
   extern __shared__ float smem[];
-  float* qs = smem;                       // [BQ][DP]
+  const int g = threadIdx.x / GROUP;      // warp group = folded head
+  const int tid = threadIdx.x % GROUP;
+  float* qs = smem + g * group_floats<D, BQ, BK>();   // [BQ][DP]
   float* ks = qs + BQ * DP;               // [BK][DP]
   float* vs = ks + BK * DP;               // [BK][D]
   float* ps = vs + BK * D;                // [WARPS][RG][BK]
 
-  const int bh = blockIdx.y;              // b * hq + h
+  const int bh = blockIdx.y * FOLD + g;   // b * hq + h
   const int bkv = (bh / hq) * (hq / group) + (bh % hq) / group;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = tid / 32, lane = tid % 32;
   const T* qg = q + ((long long)bh * tq) * D;
-  const T* kg = k + ((long long)bkv * tk) * D;
-  const T* vg = v + ((long long)bkv * tk) * D;
+  const T* kg = k + ((long long)bkv * tk_stride) * D;
+  const T* vg = v + ((long long)bkv * tk_stride) * D;
 
-  for (int i = threadIdx.x; i < BQ * D; i += WARPS * 32) {
+  for (int i = tid; i < BQ * D; i += GROUP) {
     const int r = i / D, d = i % D;
     qs[r * DP + d] = (q0 + r < tq) ? to_f32(qg[(long long)(q0 + r) * D + d])
                                    : 0.f;
@@ -110,16 +129,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   }
 
-  int n_tiles = (tk + BK - 1) / BK;
+  // every warp group of a block shares q0, so all take the same tile count
+  // and meet every barrier
+  int n_tiles = (kv_len + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
   float* pw = ps + warp * RG * BK;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();                      // previous tile fully consumed
-    for (int i = threadIdx.x; i < BK * D; i += WARPS * 32) {
+    for (int i = tid; i < BK * D; i += GROUP) {
       const int r = i / D, d = i % D;
-      const bool in = k0 + r < tk;
+      const bool in = k0 + r < kv_len;
       ks[r * DP + d] = in ? to_f32(kg[(long long)(k0 + r) * D + d]) : 0.f;
       vs[r * D + d] = in ? to_f32(vg[(long long)(k0 + r) * D + d]) : 0.f;
     }
@@ -128,44 +149,56 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int g0 = 0; g0 < RPW; g0 += RG) {
       const int row0 = warp * RPW + g0;   // row within the block's tile
-      float s[RG][2];
+      float s[RG][NC];
 #pragma unroll
-      for (int r = 0; r < RG; ++r) s[r][0] = s[r][1] = 0.f;
+      for (int r = 0; r < RG; ++r)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) s[r][c] = 0.f;
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
-        const float4 ka = *reinterpret_cast<const float4*>(ks + lane * DP + d);
-        const float4 kb =
-            *reinterpret_cast<const float4*>(ks + (lane + 32) * DP + d);
+        float4 kc[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          kc[c] = *reinterpret_cast<const float4*>(ks + (lane + 32 * c) * DP + d);
 #pragma unroll
         for (int r = 0; r < RG; ++r) {
           const float4 qv =
               *reinterpret_cast<const float4*>(qs + (row0 + r) * DP + d);
-          s[r][0] += qv.x * ka.x + qv.y * ka.y + qv.z * ka.z + qv.w * ka.w;
-          s[r][1] += qv.x * kb.x + qv.y * kb.y + qv.z * kb.z + qv.w * kb.w;
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            s[r][c] += qv.x * kc[c].x + qv.y * kc[c].y + qv.z * kc[c].z +
+                       qv.w * kc[c].w;
         }
       }
 #pragma unroll
       for (int r = 0; r < RG; ++r) {
         const int row = q0 + row0 + r;
-        float p2[2];
-        bool ok[2];
+        float pc[NC];
+        bool ok[NC];
+        float smax = NEG;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
+        for (int c = 0; c < NC; ++c) {
           const int col = k0 + lane + 32 * c;
-          ok[c] = col < tk && (!causal || col <= row);
+          ok[c] = col < kv_len && (!causal || col <= row);
           s[r][c] = ok[c] ? s[r][c] * scale : NEG;
+          smax = fmaxf(smax, s[r][c]);
         }
         const float m_prev = m[g0 + r];
-        const float m_new = fmaxf(m_prev, warp_max(fmaxf(s[r][0], s[r][1])));
+        const float m_new = fmaxf(m_prev, warp_max(smax));
         const float alpha = expf(m_prev - m_new);
+        float psum = 0.f;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) p2[c] = ok[c] ? expf(s[r][c] - m_new) : 0.f;
-        l[g0 + r] = alpha * l[g0 + r] + warp_sum(p2[0] + p2[1]);
+        for (int c = 0; c < NC; ++c) {
+          pc[c] = ok[c] ? expf(s[r][c] - m_new) : 0.f;
+          psum += pc[c];
+        }
+        l[g0 + r] = alpha * l[g0 + r] + warp_sum(psum);
         m[g0 + r] = m_new;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) acc[g0 + r][i] *= alpha;
-        pw[r * BK + lane] = round_to<T>(p2[0]);
-        pw[r * BK + lane + 32] = round_to<T>(p2[1]);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          pw[r * BK + lane + 32 * c] = round_to<T>(pc[c]);
       }
       __syncwarp();
       for (int j = 0; j < BK; j += 4) {
@@ -205,54 +238,87 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int batch, int hq, int hkv, int tq, int tk, float scale,
-           int causal, cudaStream_t stream) {
-  constexpr int DP = D + 4;
-  const int smem = 4 * (BQ * DP + BK * DP + BK * D + WARPS * RG * BK);
-  auto kern = flash_fwd_kernel<D, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((tq + BQ - 1) / BQ, batch * hq);
-  kern<<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, hq, hq / hkv, tq, tk,
-      scale, causal);
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int batch, hq, hkv, tq, kv_len, tk_stride;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <int D, int BQ, int BK, int FOLD>
+__host__ __device__ constexpr int smem_bytes() {
+  return 4 * FOLD * group_floats<D, BQ, BK>();
+}
+
+template <int D, int BQ, int BK, int FOLD, typename T>
+int launch(const Args& a) {
+  constexpr int smem = smem_bytes<D, BQ, BK, FOLD>();
+  static_assert(smem <= 232448, "tile exceeds one block's shared memory");
+  auto kern = flash_fwd_kernel<D, BQ, BK, FOLD, T>;
+  // once per instantiation, on its first (eager) launch: nothing but the
+  // launch itself is issued when a later call is captured into a CUDA graph
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  if ((a.batch * a.hq) % FOLD) return (int)cudaErrorInvalidValue;
+  dim3 grid((a.tq + BQ - 1) / BQ, a.batch * a.hq / FOLD);
+  kern<<<grid, GROUP * FOLD, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.hq,
+      a.hq / a.hkv, a.tq, a.kv_len, a.tk_stride, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
+// The instantiated (head_dim, block_q, block_k, fold) set; ops/attention.py
+// holds the same set (TILES, FOLDS, resolve_tile) and validates a call
+// against it before it reaches the card.
 template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* o,
-             float* lse, int batch, int hq, int hkv, int tq, int tk,
-             float scale, int causal, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<16, T>(q, k, v, o, lse, batch, hq, hkv, tq, tk, scale, causal, s);
-    case 32: return launch<32, T>(q, k, v, o, lse, batch, hq, hkv, tq, tk, scale, causal, s);
-    case 64: return launch<64, T>(q, k, v, o, lse, batch, hq, hkv, tq, tk, scale, causal, s);
-    case 128: return launch<128, T>(q, k, v, o, lse, batch, hq, hkv, tq, tk, scale, causal, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int dispatch(int d, int bq, int bk, int fold, const Args& a) {
+#define AUDAX_FWD(D_, BQ_, BK_, F_)                               \
+  if (d == D_ && bq == BQ_ && bk == BK_ && fold == F_)            \
+    return launch<D_, BQ_, BK_, F_, T>(a);
+  AUDAX_FWD(16, 64, 64, 1)
+  AUDAX_FWD(32, 64, 64, 1)
+  AUDAX_FWD(128, 64, 64, 1)
+  AUDAX_FWD(64, 64, 64, 1)
+  AUDAX_FWD(64, 32, 32, 1)
+  AUDAX_FWD(64, 32, 64, 1)
+  AUDAX_FWD(64, 32, 128, 1)
+  AUDAX_FWD(64, 64, 32, 1)
+  AUDAX_FWD(64, 64, 128, 1)
+  AUDAX_FWD(64, 128, 32, 1)
+  AUDAX_FWD(64, 128, 64, 1)
+  AUDAX_FWD(64, 128, 128, 1)
+  AUDAX_FWD(64, 64, 64, 2)
+  AUDAX_FWD(64, 64, 64, 4)
+#undef AUDAX_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D], o like q, lse [B*Hq, Tq] float32;
-// all contiguous. dtype 0 = float32, 1 = bfloat16. head_dim in {16, 32,
-// 64, 128}. Returns cudaGetLastError() after the launch.
+// q [B, Hq, Tq, D], k/v [B, Hkv, tk_stride, D] (keys >= kv_len masked), o
+// like q, lse [B*Hq, Tq] float32; all contiguous. dtype 0 = float32, 1 =
+// bfloat16. (head_dim, block_q, block_k, fold) must be one of dispatch's
+// set, and fold > 1 needs B*Hq % fold == 0. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for an unsupported set).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
-              float* lse, int batch, int hq, int hkv, int tq, int tk,
-              int head_dim, float scale, int causal, int dtype,
-              void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch<float>(head_dim, q, k, v, o, lse, batch, hq, hkv, tq, tk,
-                           scale, causal, s);
-  return dispatch<__nv_bfloat16>(head_dim, q, k, v, o, lse, batch, hq, hkv,
-                                 tq, tk, scale, causal, s);
+              float* lse, int batch, int hq, int hkv, int tq, int kv_len,
+              int tk_stride, int head_dim, float scale, int causal, int dtype,
+              int block_q, int block_k, int fold, void* stream) {
+  const Args a{q, k, v, o, lse, batch, hq, hkv, tq, kv_len, tk_stride,
+               scale, causal, (cudaStream_t)stream};
+  if (dtype == 0) return dispatch<float>(head_dim, block_q, block_k, fold, a);
+  return dispatch<__nv_bfloat16>(head_dim, block_q, block_k, fold, a);
 }
 
 }  // extern "C"

@@ -7,7 +7,11 @@ Port of ``audax/ops/attention.py``:
     ``_fwd_kernel``): online-softmax attention writing O and the logsumexp,
     with grouped-query heads (kv head = q head // group), a ragged Tk and an
     optional causal mask (Tq == Tk). Its plain version mirrors the JAX
-    package's ``xla_attention``.
+    package's ``xla_attention``. ``fold`` heads of the fused B*H axis may
+    share one block (the TPU probe ``tools/attn_headfold_probe.py``'s P1,
+    a template parameter of K2's kernel); ``launch_flash_forward`` is the
+    kernel launch itself, with a key count ``kv_len`` apart from the K/V
+    row stride, for callers that keep their own counter.
   * ``flash_backward`` -- the gradients of ``flash_attention`` (TPU kernels
     ``_dq_kernel`` and ``_dkv_kernel`` of ``_bwd_pallas``): P is recomputed
     from the saved logsumexp, delta = rowsum(dO * O) is a plain float32 pass
@@ -17,7 +21,10 @@ Port of ``audax/ops/attention.py``:
   * ``xla_attention`` (the materialised twin, any mask), ``flash_applicable``
     and ``dot_product_attention``, which takes the flash path wherever
     ``flash_applicable`` holds -- the rule the TPU path follows -- and the
-    twin otherwise. Whisper's attention sites all go through it.
+    twin otherwise, or the twin always with ``backend="xla"`` (JAX's
+    ``backend=``). ``attention_backend`` sets the default of ``backend=None``
+    for a ``with`` block (JAX's ``AUDAX_ATTN_BACKEND``); the default is
+    "flash". Whisper's attention sites all go through it.
   * ``decode_attention_stacked`` -- small-Tq attention over the
     layer-stacked ``[L, B, Hkv, S, D]`` KV cache (TPU kernel
     ``_dec_kernel_stacked``), the layer picked by index inside the kernel,
@@ -25,23 +32,37 @@ Port of ``audax/ops/attention.py``:
     layer per token (self- and cross-attention). The cache is float (K3)
     or int8 with per-vector float32 scales (``QuantKV``, K3's int8 arm,
     counted on its own). Its plain version mirrors ``_decode_attention_xla``.
+    The kernel takes at most 16 query rows; a longer span (a speculative
+    prefill) is launched in chunks of 16, chunk r0 at ``pos + r0``.
   * ``decode_attention`` -- the same for one unstacked ``[B, Hkv, S, D]``
     cache (TPU kernel ``_dec_kernel``, K6): K3's kernel launched with L = 1.
 
+Tiles. ``block_q`` is the query rows per block of K2 and K7 and the query
+tile K8 loops over; ``block_k`` the keys per tile of K2 and K7 and the keys
+per block of K8. ``None`` keeps each kernel's default, (64, 64), with K8 at
+(64, 32) for head_dim 128. The caller-set tiles are ``TILES`` -- every pair
+of 32, 64 and 128 -- at head_dim 64, for all three kernels; ``fold`` 2 or 4
+(``FOLDS``) runs at head_dim 64 with the default tile. A wrapper checks
+(block_q, block_k, head_dim, fold) against that set before it dispatches,
+so a CPU call raises the same ``ValueError`` as the card would; nothing is
+silently replaced. JAX's tiles (2048, 512, ...) are TPU VMEM blocks.
+
 Each kernel function dispatches on the tensor it is given: a CPU tensor
-takes the plain version, a CUDA tensor launches the kernel or raises. Head
-folding (``fold``) was a TPU VMEM device and is not ported.
+takes the plain version, a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import contextlib
+from typing import Callable, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 
 from audax_torch.ops import native
 
-__all__ = ["flash_forward", "flash_forward_cuda", "flash_forward_plain",
+__all__ = ["TILES", "FOLDS", "resolve_tile", "pick_fold",
+           "flash_forward", "flash_forward_cuda", "flash_forward_plain",
+           "launch_flash_forward", "attention_backend",
            "flash_backward", "flash_backward_plain", "flash_backward_dq_plain",
            "flash_backward_dkv_plain", "flash_backward_dq_cuda",
            "flash_backward_dkv_cuda", "flash_attention", "FlashAttention",
@@ -57,6 +78,18 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_DECODE_ROWS = 16
 #: dynamic shared memory one block may use on an H100 (227 KB)
 _SMEM_LIMIT = 232448
+
+#: the caller-set (block_q, block_k) tiles of K2, K7 and K8 at head_dim 64
+TILES = tuple((bq, bk) for bq in (32, 64, 128) for bk in (32, 64, 128))
+#: K2's head folds above 1, at head_dim 64 and the default tile
+FOLDS = (2, 4)
+_FOLD_HEAD_DIM, _FOLD_TILE = 64, (64, 64)
+_BACKENDS = ("flash", "xla")
+#: the default of dot_product_attention(backend=None), set for a block by
+#: attention_backend. Process-wide, as JAX's environment switch is: a layer
+#: checkpointed in the forward is recomputed during the backward on
+#: autograd's device thread, and must take the path the forward took.
+_backend_default = "flash"
 
 Pos = Union[None, int, torch.Tensor]
 
@@ -78,21 +111,75 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
+# ------------------------------------------------------------------ tiles --
+
+def _default_tile(kernel: str, d: int) -> Tuple[int, int]:
+    return (64, 32) if kernel == "dkv" and d >= 128 else (64, 64)
+
+
+def _fwd_smem(d: int, block_q: int, block_k: int, fold: int) -> int:
+    """Shared memory of K2 (``csrc/flash_fwd.cu``): per folded head a q
+    tile, a K tile (rows padded to d + 4 floats), a V tile and the
+    per-warp probability rows."""
+    return 4 * fold * ((block_q + block_k) * (d + 4) + block_k * d
+                       + 16 * block_k)
+
+
+def resolve_tile(kernel: str, d: int, block_q: Optional[int] = None,
+                 block_k: Optional[int] = None, fold: int = 1
+                 ) -> Tuple[int, int]:
+    """``(block_q, block_k)`` of ``kernel`` ("fwd" K2, "dq" K7, "dkv" K8)
+    at head_dim ``d``: ``None`` takes the kernel's default. Raises
+    ``ValueError`` for a (block_q, block_k, head_dim, fold) the kernels are
+    not instantiated at -- ``TILES`` at head_dim 64, ``fold`` in ``FOLDS``
+    (K2 only) at head_dim 64 with the default tile -- naming the shared
+    memory limit when a fold does not fit. (Which head dims the kernels
+    take at the default tile, the CUDA wrappers check.)"""
+    default = _default_tile(kernel, d)
+    tile = (default[0] if block_q is None else int(block_q),
+            default[1] if block_k is None else int(block_k))
+    if fold != 1:
+        if kernel != "fwd" or fold not in FOLDS:
+            raise ValueError(f"fold {fold}: only the forward (K2) folds, by "
+                             f"one of {FOLDS}")
+        smem = _fwd_smem(d, *tile, fold)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"fold {fold} at block_q {tile[0]}, block_k "
+                             f"{tile[1]}, head_dim {d} needs {smem} B of "
+                             f"shared memory; one block may use "
+                             f"{_SMEM_LIMIT} B")
+        if (d, tile) != (_FOLD_HEAD_DIM, _FOLD_TILE):
+            raise ValueError(f"fold {fold} is built at head_dim "
+                             f"{_FOLD_HEAD_DIM} with the tile {_FOLD_TILE}, "
+                             f"not head_dim {d} with {tile}")
+    elif tile != default and not (d == 64 and tile in TILES):
+        raise ValueError(f"{kernel} tile (block_q, block_k) = {tile} is not "
+                         f"built at head_dim {d}: the default {default}, or "
+                         f"at head_dim 64 one of {TILES}")
+    return tile
+
+
+def pick_fold(fold: int, *, causal: bool, group: int, bhq: int) -> int:
+    """The fold the product call runs (JAX's ``_pick_fold``): folding
+    applies only to non-causal MHA (group 1), capped at 2, and only when
+    the fused B*Hq axis divides by it; otherwise 1."""
+    if causal or group != 1 or fold <= 1:
+        return 1
+    fold = min(int(fold), 2)
+    return 1 if bhq % fold else fold
+
+
 # ------------------------------------------------------------------ flash --
 
-def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = False, scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Materialised attention (the JAX ``xla_attention`` math): softmax in
-    float32, probabilities cast to q's dtype before PV. Returns
-    ``(o [B, Hq, Tq, D], lse [B*Hq, Tq] float32)``."""
-    flash_forward_plain.launches += 1
+def _forward_math(q, k, v, causal, scale):
+    """Materialised attention: softmax in float32, probabilities cast to
+    q's dtype before PV. Returns (o, lse [B*Hq, Tq] float32)."""
     b, hq, tq, _ = q.shape
     group = hq // k.shape[1]
     if group > 1:
         k = k.repeat_interleave(group, dim=1)
         v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q * _scale(q, scale), k)
+    s = torch.einsum("bhqd,bhkd->bhqk", q * scale, k)
     if causal:
         tk = s.shape[-1]
         keep = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril(tk - tq)
@@ -103,47 +190,89 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, torch.logsumexp(s32, dim=-1).reshape(b * hq, tq)
 
 
+def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = False, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Materialised attention (the JAX ``xla_attention`` math): softmax in
+    float32, probabilities cast to q's dtype before PV. Returns
+    ``(o [B, Hq, Tq, D], lse [B*Hq, Tq] float32)`` -- whatever tile or fold
+    the kernel would run."""
+    flash_forward_plain.launches += 1
+    return _forward_math(q, k, v, causal, _scale(q, scale))
+
+
 flash_forward_plain.launches = 0
 
 
-def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       causal: bool = False, scale: Optional[float] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel (``csrc/flash_fwd.cu``); same contract as
-    ``flash_forward_plain``."""
-    _check_cuda("flash_forward", q, k, v)
+def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = False,
+                         scale: Optional[float] = None,
+                         block_q: Optional[int] = None,
+                         block_k: Optional[int] = None, fold: int = 1,
+                         kv_len: Optional[int] = None,
+                         name: str = "flash_forward"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K2's kernel (``csrc/flash_fwd.cu``), counted by no
+    one: q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D] with keys at or past
+    ``kv_len`` (default Tk) masked and never read; ``fold`` heads of the
+    fused B*Hq axis per block. Returns ``(o, lse [B*Hq, Tq])``."""
+    _check_cuda(name, q, k, v)
     b, hq, tq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"flash_forward: q {tuple(q.shape)} does not match "
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match "
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
     hkv, tk = k.shape[1], k.shape[2]
+    kv_len = tk if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= tk:
+        raise ValueError(f"{name}: kv_len {kv_len} outside 0..{tk}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
     if causal and tq != tk:
         raise ValueError("causal flash attention requires Tq == Tk")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_forward: head_dim {d} not in {_HEAD_DIMS}")
+        raise ValueError(f"{name}: head_dim {d} not in {_HEAD_DIMS}")
+    bq, bk = resolve_tile("fwd", d, block_q, block_k, fold)
+    if fold > 1 and (hq != hkv or causal or (b * hq) % fold):
+        raise ValueError(f"{name}: fold {fold} needs non-causal MHA and B*Hq "
+                         f"= {b * hq} divisible by it")
     o = torch.empty_like(q)
     lse = torch.empty(b * hq, tq, device=q.device, dtype=torch.float32)
     if tq == 0:
         return o, lse
-    lib = native.library("flash_fwd")
-    status = lib.flash_fwd(
+    status = native.library("flash_fwd").flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, hq, hkv, tq, tk, d, _scale(q, scale), int(causal),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    native.check(status, "flash_forward")
-    flash_forward_cuda.launches += 1
+        lse.data_ptr(), b, hq, hkv, tq, kv_len, tk, d, _scale(q, scale),
+        int(causal), _DTYPES[q.dtype], bq, bk, int(fold),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(status, name)
     return o, lse
+
+
+def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = False, scale: Optional[float] = None,
+                       block_q: Optional[int] = None,
+                       block_k: Optional[int] = None, fold: int = 1
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel K2 (``csrc/flash_fwd.cu``); same contract as
+    ``flash_forward_plain``."""
+    out = launch_flash_forward(q, k, v, causal=causal, scale=scale,
+                               block_q=block_q, block_k=block_k, fold=fold)
+    flash_forward_cuda.launches += 1
+    return out
 
 
 flash_forward_cuda.launches = 0
 
 
-def flash_forward(q, k, v, *, causal=False, scale=None):
-    """``(o, lse)``: the CUDA kernel for CUDA tensors, else the plain version."""
-    fn = flash_forward_cuda if q.is_cuda else flash_forward_plain
-    return fn(q, k, v, causal=causal, scale=scale)
+def flash_forward(q, k, v, *, causal=False, scale=None, block_q=None,
+                  block_k=None, fold=1):
+    """``(o, lse)``: the CUDA kernel for CUDA tensors, else the plain version;
+    the tiles and fold are checked first, on either device."""
+    resolve_tile("fwd", q.shape[-1], block_q, block_k, fold)
+    if not q.is_cuda:
+        return flash_forward_plain(q, k, v, causal=causal, scale=scale)
+    return flash_forward_cuda(q, k, v, causal=causal, scale=scale,
+                              block_q=block_q, block_k=block_k, fold=fold)
 
 
 def _probs_plain(q, k, lse, causal, scale):
@@ -248,12 +377,14 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def flash_backward_dq_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
+                           block_q=None, block_k=None,
                            delta: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Kernel K7 (``csrc/flash_bwd.cu``); same contract as
     ``flash_backward_dq_plain``. ``delta`` may be passed precomputed."""
     _check_backward(q, k, v, o, lse, do, causal)
     b, hq, tq, d = q.shape
+    bq, bk = resolve_tile("dq", d, block_q, block_k)
     hkv, tk = k.shape[1], k.shape[2]
     if tk == 0:
         return torch.zeros_like(q)
@@ -261,10 +392,10 @@ def flash_backward_dq_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
     if tq == 0:
         return dq
     delta = _delta(o, do) if delta is None else delta
-    status = native.library("flash_bwd").flash_bwd_dq(
+    status = native.library("flash_bwd_dq").flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, hq, hkv, tq, tk,
-        d, _scale(q, scale), int(causal), _DTYPES[q.dtype],
+        d, _scale(q, scale), int(causal), _DTYPES[q.dtype], bq, bk,
         torch.cuda.current_stream(q.device).cuda_stream)
     native.check(status, "flash_backward_dq")
     flash_backward_dq_cuda.launches += 1
@@ -275,12 +406,14 @@ flash_backward_dq_cuda.launches = 0
 
 
 def flash_backward_dkv_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
+                            block_q=None, block_k=None,
                             delta: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K8 (``csrc/flash_bwd.cu``); same contract as
     ``flash_backward_dkv_plain``. ``delta`` may be passed precomputed."""
     _check_backward(q, k, v, o, lse, do, causal)
     b, hq, tq, d = q.shape
+    bq, bk = resolve_tile("dkv", d, block_q, block_k)
     hkv, tk = k.shape[1], k.shape[2]
     if tq == 0:
         return torch.zeros_like(k), torch.zeros_like(v)
@@ -288,11 +421,11 @@ def flash_backward_dkv_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
     if tk == 0:
         return dk, dv
     delta = _delta(o, do) if delta is None else delta
-    status = native.library("flash_bwd").flash_bwd_dkv(
+    status = native.library("flash_bwd_dkv").flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq,
         hkv, tq, tk, d, _scale(q, scale), int(causal), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        bq, bk, torch.cuda.current_stream(q.device).cuda_stream)
     native.check(status, "flash_backward_dkv")
     flash_backward_dkv_cuda.launches += 1
     return dk, dv
@@ -301,52 +434,78 @@ def flash_backward_dkv_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
 flash_backward_dkv_cuda.launches = 0
 
 
-def flash_backward(q, k, v, o, lse, do, *, causal=False, scale=None):
+def flash_backward(q, k, v, o, lse, do, *, causal=False, scale=None,
+                   block_q=None, block_k=None):
     """``(dq, dk, dv)``: kernels K7 and K8 for CUDA tensors (one delta pass
-    shared by both), else the plain version."""
+    shared by both), else the plain version. ``block_q``/``block_k`` are
+    the tiles of both kernels (None: each kernel's default), checked first
+    on either device."""
+    d = q.shape[-1]
+    resolve_tile("dq", d, block_q, block_k)
+    resolve_tile("dkv", d, block_q, block_k)
+    tiles = dict(block_q=block_q, block_k=block_k)
     if not q.is_cuda:
         return flash_backward_plain(q, k, v, o, lse, do, causal=causal,
                                     scale=scale)
     delta = _delta(o, do)
     dq = flash_backward_dq_cuda(q, k, v, o, lse, do, causal=causal,
-                                scale=scale, delta=delta)
+                                scale=scale, delta=delta, **tiles)
     dk, dv = flash_backward_dkv_cuda(q, k, v, o, lse, do, causal=causal,
-                                     scale=scale, delta=delta)
+                                     scale=scale, delta=delta, **tiles)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: forward K2, backward K7 + K8 (their
     plain versions on CPU tensors). Saves q, k, v, o and the logsumexp;
-    nothing O(Tq * Tk) is kept for the backward."""
+    nothing O(Tq * Tk) is kept for the backward. The backward takes the
+    forward's tiles and never folds, as in JAX."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
+    def forward(ctx, q, k, v, causal: bool, scale: float, block_q, block_k,
+                fold: int):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_forward(q, k, v, causal=causal, scale=scale)
+        o, lse = flash_forward(q, k, v, causal=causal, scale=scale,
+                               block_q=block_q, block_k=block_k, fold=fold)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
+        ctx.tiles = dict(block_q=block_q, block_k=block_k)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(),
-                                    causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                    causal=ctx.causal, scale=ctx.scale,
+                                    **ctx.tiles)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = False,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = False, scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    fold: int = 1) -> torch.Tensor:
     """Fused attention output. q [B, Hq, Tq, D]; k/v [B, Hkv, Tk, D] with
     Hq % Hkv == 0. Causal requires Tq == Tk. Differentiable: the backward
-    runs the flash backward kernels."""
-    if causal and q.shape[2] != k.shape[2]:
+    runs the flash backward kernels.
+
+    ``block_q``/``block_k`` set the tiles of K2, K7 and K8 (module
+    docstring; None keeps each kernel's default). ``fold`` asks the forward
+    to fold heads (JAX's ``AUDAX_ATTN_FOLD``); ``pick_fold`` decides what
+    runs: non-causal MHA only, at most 2, else 1. Every tile and fold is
+    checked before anything runs."""
+    b, hq, tq, d = q.shape
+    if causal and tq != k.shape[2]:
         raise ValueError("causal flash attention requires Tq == Tk")
-    if q.shape[1] % k.shape[1]:
-        raise ValueError(f"Hq={q.shape[1]} not a multiple of Hkv={k.shape[1]}")
-    return FlashAttention.apply(q, k, v, causal, _scale(q, scale))
+    if hq % k.shape[1]:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={k.shape[1]}")
+    fold = pick_fold(fold, causal=causal, group=hq // k.shape[1], bhq=b * hq)
+    resolve_tile("fwd", d, block_q, block_k, fold)
+    resolve_tile("dq", d, block_q, block_k)
+    resolve_tile("dkv", d, block_q, block_k)
+    return FlashAttention.apply(q, k, v, causal, _scale(q, scale), block_q,
+                                block_k, fold)
 
 
 # ----------------------------------------------------------- twin / dispatch --
@@ -383,13 +542,37 @@ def flash_applicable(q_shape, k_shape, mask, causal: bool = False) -> bool:
             and (not causal or q_shape[2] == k_shape[2]))
 
 
+@contextlib.contextmanager
+def attention_backend(backend: str) -> Iterator[None]:
+    """``with attention_backend("xla"):`` makes the materialised twin the
+    default of ``dot_product_attention(backend=None)`` inside the block
+    (and ``"flash"`` the flash path), for the whole process -- autograd's
+    threads included -- until the block ends. Outside any such block the
+    default is "flash". Not for threads that want different defaults at
+    once."""
+    global _backend_default
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {_BACKENDS}")
+    outer, _backend_default = _backend_default, backend
+    try:
+        yield
+    finally:
+        _backend_default = outer
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = False,
                           mask: Optional[torch.Tensor] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention (K2 forward, K7/K8 backward on CUDA) wherever
-    ``flash_applicable`` holds, the materialised twin otherwise."""
-    if flash_applicable(q.shape, k.shape, mask, causal):
+                          scale: Optional[float] = None,
+                          backend: Optional[str] = None) -> torch.Tensor:
+    """``backend="flash"``: flash attention (K2 forward, K7/K8 backward on
+    CUDA) wherever ``flash_applicable`` holds, the materialised twin
+    otherwise; ``"xla"``: the twin always. ``None`` takes the default that
+    ``attention_backend`` sets ("flash" outside it)."""
+    backend = _backend_default if backend is None else backend
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {_BACKENDS}")
+    if backend == "flash" and flash_applicable(q.shape, k.shape, mask, causal):
         return flash_attention(q, k, v, causal=causal, scale=scale)
     return xla_attention(q, k, v, causal=causal, mask=mask, scale=scale)
 
@@ -480,11 +663,29 @@ def _pos_vector(pos: Pos, b: int, s_len: int, device) -> torch.Tensor:
     return torch.full((b,), int(pos), dtype=torch.int32, device=device)
 
 
+def _decode_rows(launch: Callable[[torch.Tensor, Pos], torch.Tensor],
+                 q: torch.Tensor, pos: Pos) -> torch.Tensor:
+    """``launch(q_rows, pos_rows)`` over chunks of at most 16 query rows of
+    q [B, H, Tq, D], concatenated along Tq. Row i sees keys <= pos + i, so
+    the chunk starting at row r0 runs at ``pos + r0`` (scalar or per slot;
+    None, every key, stays None). The decode kernel's scores of all its rows
+    share one block's shared memory, so each chunk is checked at its own
+    length (16 at most), never at Tq."""
+    tq = q.shape[2]
+    if tq <= _MAX_DECODE_ROWS:
+        return launch(q, pos)
+    outs = []
+    for r0 in range(0, tq, _MAX_DECODE_ROWS):
+        rows = q[:, :, r0:r0 + _MAX_DECODE_ROWS].contiguous()
+        outs.append(launch(rows, None if pos is None else pos + r0))
+    return torch.cat(outs, dim=2)
+
+
 def _launch_decode(name: str, q, k, ks, v, vs, layer: int, pos: Pos,
                    scale) -> torch.Tensor:
-    """Launch the K3 kernel (float or int8 arm) on ``layer`` of the stacked
-    cache k, v [L, B, Hkv, S, D] (int8 with float32 [L, B, Hkv, S] scales
-    ``ks``/``vs``, or None)."""
+    """Launch the K3 kernel (float or int8 arm) once on ``layer`` of the
+    stacked cache k, v [L, B, Hkv, S, D] (int8 with float32 [L, B, Hkv, S]
+    scales ``ks``/``vs``, or None), for 1..16 query rows."""
     quant = ks is not None
     if quant:
         _check_cuda(name, q)
@@ -543,10 +744,13 @@ def decode_attention_stacked_cuda(q: torch.Tensor, kv, layer: int, *,
         return decode_attention_stacked_int8_cuda(q, kv, layer, pos=pos,
                                                   scale=scale)
     k, v = kv
-    o = _launch_decode("decode_attention_stacked", q, k, None, v, None,
-                       layer, pos, scale)
-    decode_attention_stacked_cuda.launches += 1
-    return o
+
+    def launch(rows, at):
+        o = _launch_decode("decode_attention_stacked", rows, k, None, v,
+                           None, layer, at, scale)
+        decode_attention_stacked_cuda.launches += 1
+        return o
+    return _decode_rows(launch, q, pos)
 
 
 decode_attention_stacked_cuda.launches = 0
@@ -560,10 +764,13 @@ def decode_attention_stacked_int8_cuda(q: torch.Tensor, kv, layer: int, *,
     ``csrc/decode_attention.cu``); same contract as
     ``decode_attention_stacked_int8_plain``."""
     k, ks, v, vs = kv
-    o = _launch_decode("decode_attention_stacked_int8", q, k, ks, v, vs,
-                       layer, pos, scale)
-    decode_attention_stacked_int8_cuda.launches += 1
-    return o
+
+    def launch(rows, at):
+        o = _launch_decode("decode_attention_stacked_int8", rows, k, ks, v,
+                           vs, layer, at, scale)
+        decode_attention_stacked_int8_cuda.launches += 1
+        return o
+    return _decode_rows(launch, q, pos)
 
 
 decode_attention_stacked_int8_cuda.launches = 0
@@ -608,9 +815,12 @@ def decode_attention_cuda(q: torch.Tensor, kv, *, pos: Pos = None,
         raise ValueError(f"decode_attention: the cache must be [B, Hkv, S, "
                          f"D], got {tuple(k.shape)}")
     one = [None if t is None else t.unsqueeze(0) for t in (k, ks, v, vs)]
-    o = _launch_decode("decode_attention", q, *one, 0, pos, scale)
-    decode_attention_cuda.launches += 1
-    return o
+
+    def launch(rows, at):
+        o = _launch_decode("decode_attention", rows, *one, 0, at, scale)
+        decode_attention_cuda.launches += 1
+        return o
+    return _decode_rows(launch, q, pos)
 
 
 decode_attention_cuda.launches = 0
@@ -618,9 +828,9 @@ decode_attention_cuda.launches = 0
 
 def decode_attention(q: torch.Tensor, kv, *, pos: Pos = None,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """Attention for the KV-cached decode path (Tq of 1..16) over one
-    unstacked cache: q [B, H, Tq, D]; ``kv`` float (k, v) [B, Hkv, S, D] or
-    the int8 4-tuple with [B, Hkv, S] scales; ``pos`` scalar, per-slot [B],
-    or None (every key). K6 for CUDA tensors, else the plain version."""
+    """Attention for the KV-cached decode path (any Tq >= 1; the kernel
+    takes 16 rows per launch) over one unstacked cache: q [B, H, Tq, D];
+    ``kv`` float (k, v) [B, Hkv, S, D] or the int8 4-tuple with [B, Hkv, S]
+    scales; ``pos`` scalar, per-slot [B], or None (every key). K6 for CUDA tensors, else the plain version."""
     fn = decode_attention_cuda if q.is_cuda else decode_attention_plain
     return fn(q, kv, pos=pos, scale=scale)

@@ -6,13 +6,17 @@ Nothing includes PyTorch's headers, so a build takes seconds, not minutes.
 
 Libraries go to ``audax_torch/build/`` (listed in ``.gitignore``), named by
 a hash of the source, the shared headers (``csrc/*.cuh``) and the flags: an
-edited source or header builds anew, an unchanged one is reused.
+edited source or header builds anew, an unchanged one is reused. One source
+may make more than one library: ``flash_bwd.cu`` is built once with
+``-DAUDAX_FLASH_BWD_DQ`` (K7) and once with ``-DAUDAX_FLASH_BWD_DKV`` (K8),
+so that its two kernels' many tile instantiations compile in parallel.
 ``build()`` starts one ``nvcc`` per missing library and waits for all of
 them, so the kernels compile in parallel.
 
 The wrappers in ``ops/fused_mel.py``, ``ops/direct_mel.py``,
-``ops/attention.py``, ``ops/int4_matmul.py`` and the int4 experiment tools
-(``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
+``ops/attention.py`` (which also serves the head-fold probe
+``tools/attn_headfold_probe.py``), ``ops/int4_matmul.py`` and the int4
+experiment tools (``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
 ``tools/w4a8_probe.py``, ``tools/int4_unpack_probe.py``) call
 ``library(name)`` the first time they launch on a CUDA tensor. A CUDA host
 without ``nvcc`` raises there; a CPU tensor never reaches this module.
@@ -25,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -39,7 +44,8 @@ KERNEL_SOURCES = {
     "log_mel_overlap": "log_mel_overlap.cu",
     "log_mel_direct": "log_mel_direct.cu",
     "flash_fwd": "flash_fwd.cu",
-    "flash_bwd": "flash_bwd.cu",
+    "flash_bwd_dq": "flash_bwd.cu",
+    "flash_bwd_dkv": "flash_bwd.cu",
     "decode_attention": "decode_attention.cu",
     "int4_matmul": "int4_matmul.cu",
     "int4_word_matmul": "int4_word_matmul.cu",
@@ -62,12 +68,13 @@ SIGNATURES = {
                                 _P, _I, _I, _F, _P], _I),
     },
     "flash_fwd": {
-        "flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                       _I, _P], _I),
+        "flash_fwd": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P], _I),
     },
-    "flash_bwd": {
-        "flash_bwd_dq": ([_P] * 7 + [_I] * 6 + [_F, _I, _I, _P], _I),
-        "flash_bwd_dkv": ([_P] * 8 + [_I] * 6 + [_F, _I, _I, _P], _I),
+    "flash_bwd_dq": {
+        "flash_bwd_dq": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+    },
+    "flash_bwd_dkv": {
+        "flash_bwd_dkv": ([_P] * 8 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
     },
     "decode_attention": {
         "decode_smem": ([_I, _I, _I], _LL),
@@ -97,6 +104,9 @@ SIGNATURES = {
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: library name -> the macros that select its part of a shared source
+DEFINES = {"flash_bwd_dq": ("-DAUDAX_FLASH_BWD_DQ",),
+           "flash_bwd_dkv": ("-DAUDAX_FLASH_BWD_DKV",)}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -116,17 +126,20 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     src = (CSRC / KERNEL_SOURCES[name]).read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    flags = NVCC_FLAGS + DEFINES.get(name, ())
     digest = hashlib.sha256(src + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags).encode()).hexdigest()
     return BUILD / f"{name}-{digest[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every named library that is not built yet, all at once.
 
-    Returns ``{name: nvcc's -Xptxas -v report}`` for the libraries compiled
-    by this call (registers, shared memory and spills per kernel). Raises
-    with the compiler's output when one fails."""
+    Returns ``{name: report}`` for the libraries compiled by this call: a
+    first line ``nvcc <name>: <seconds> s`` (the compile's wall time, all
+    running at once), then nvcc's -Xptxas -v report (registers, shared
+    memory and spills per kernel). Raises with the compiler's output when
+    one fails."""
     names = list(KERNEL_SOURCES if names is None else names)
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
@@ -134,23 +147,37 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     nvcc = nvcc_path()
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for n in todo:
         out = _lib_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNEL_SOURCES[n])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, out)
+        log = out.with_suffix(f".{os.getpid()}.log")
+        cmd = [nvcc, *NVCC_FLAGS, *DEFINES.get(n, ()), "-o", str(tmp),
+               str(CSRC / KERNEL_SOURCES[n])]
+        with open(log, "w") as fh:       # a file, not a pipe: never fills
+            proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+        procs[n] = (proc, tmp, out, log)
+    seconds, pending = {}, set(procs)
+    while pending:
+        for n in [n for n in pending if procs[n][0].poll() is not None]:
+            seconds[n] = time.perf_counter() - t0
+            pending.discard(n)
+        if pending:
+            time.sleep(0.05)
     reports, failed = {}, []
-    for n, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {n} (exit {proc.returncode})\n{text}")
+    for n, (proc, tmp, out, log) in procs.items():
+        text = log.read_text()
+        log.unlink()
+        if proc.returncode != 0:      # the head: the first errors
+            failed.append(f"--- {n} (exit {proc.returncode}, "
+                          f"{seconds[n]:.2f} s)\n{text[:4000]}")
             continue
         os.replace(tmp, out)             # atomic: a reader never sees half
-        reports[n] = text
+        reports[n] = f"nvcc {n}: {seconds[n]:.2f} s\n{text}"
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        built = "; ".join(r.splitlines()[0] for r in reports.values())
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)
+                           + f"\n(built: {built})")
     return reports
 
 

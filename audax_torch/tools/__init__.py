@@ -1,27 +1,36 @@
-"""The int4 kernel-experiment tools (port of ``tools/int4_layout_ab.py``,
-``tools/int4_plane_probe.py``, ``tools/w4a8_probe.py`` and
-``tools/int4_unpack_probe.py``).
+"""The kernel-experiment tools (port of ``tools/``): the four int4 tools
+(``int4_layout_ab.py``, ``int4_plane_probe.py``, ``w4a8_probe.py``,
+``int4_unpack_probe.py``) and the four attention tools
+(``attn_headfold_probe.py``, ``attn_block_probe.py``,
+``train_step_breakdown.py``, ``mfu_study.py``).
 
-Each tool A/Bs one int4 design against kernel K9 (``ops/int4_matmul.py``)
-on the card, with a hand-written kernel of its own (``csrc/``), a plain
-PyTorch version and the tool's entry point:
+Each int4 tool A/Bs one int4 design against kernel K9
+(``ops/int4_matmul.py``) on the card, with a hand-written kernel of its own
+(``csrc/``) and a plain PyTorch version. The attention tools measure the
+flash kernels K2/K7/K8 and the fine-tune step: the head-fold probe P1 (a
+fold of K2's kernel, ``csrc/flash_fwd.cu``), the tile sweep, the step's
+stages, and the MFU grid. Their entry points:
 
     python -m audax_torch.tools.int4_layout_ab check|bench [--device cpu] [--out PATH]
     python -m audax_torch.tools.int4_plane_probe [--device cpu] [--out PATH]
     python -m audax_torch.tools.w4a8_probe [--device cpu] [--out PATH]
     python -m audax_torch.tools.int4_unpack_probe [--device cpu] [--out PATH]
+    python -m audax_torch.tools.attn_headfold_probe [--device cpu] [--out PATH]
+    python -m audax_torch.tools.attn_block_probe [--device cpu] [--out PATH]
+    python -m audax_torch.tools.train_step_breakdown [--attn flash|xla] ... [--device cpu] [--out PATH]
+    python -m audax_torch.tools.mfu_study [--only 0,10] ... [--device cpu] [--out PATH]
 
 They run on the CUDA card unless ``--device cpu`` is given (and raise on a
-host without one); on the CPU they run the plain versions at a small shape,
-so the times they print there say nothing of the card. Every row is
-printed as a JSON line; ``--out`` also writes the tool's report as JSON.
-Nothing is written into ``results/`` (the TPU's record).
+host without one); on the CPU they run the plain versions at a small shape
+or a tiny width, so the times they print there say nothing of the card.
+Every row is printed as a JSON line; ``--out`` also writes the tool's
+report as JSON. Nothing is written into ``results/`` (the TPU's record).
 
-This module holds what the tools share: the timing of an arm with its
+This module holds what the tools share: the timing of an int4 arm with its
 weights from device memory and from L2, the verdict rule, the report, the
-command line, and the registry of the tools' kernels and launch counters
-(``probe_kernels``). Nothing here runs CUDA work or builds a kernel at
-import.
+command line, and the registry of the tools' own kernels and launch
+counters (``probe_kernels``: P1-P5). Nothing here runs CUDA work or builds
+a kernel at import.
 """
 
 from __future__ import annotations
@@ -172,9 +181,12 @@ def split_half_shape(who: str, x: torch.Tensor, packed: torch.Tensor,
 
 def probe_kernels() -> Dict[str, tuple]:
     """The tools' kernels: name -> (CUDA wrapper, plain version)."""
-    from audax_torch.tools import (int4_layout_ab, int4_plane_probe,
-                                   int4_unpack_probe, w4a8_probe)
+    from audax_torch.tools import (attn_headfold_probe, int4_layout_ab,
+                                   int4_plane_probe, int4_unpack_probe,
+                                   w4a8_probe)
     return {
+        "flash_forward_fold": (attn_headfold_probe.fold_fwd_cuda,
+                               attn_headfold_probe.fold_fwd_plain),
         "int4_word_matmul": (int4_layout_ab.int4_matmul_v2_cuda,
                              int4_layout_ab.int4_matmul_v2_plain),
         "int4_plane_matmul": (int4_plane_probe.plane_matmul_cuda,

@@ -1,7 +1,7 @@
 """The optimizers: the classifiers' AdamW, and the fine-tune AdamW with
 reduced-precision moment storage and the warmup + linear-decay schedule
 (port of ``audax/train/optim.py``: ``adamw``, ``seq2seq_schedule``,
-``scale_by_adam_lp``, ``adamw_lp``).
+``scale_by_adam_lp``, ``adamw_lp``, ``moment_bytes_per_param``).
 
 These are plain functions on nested-dict tensor trees, not
 ``torch.optim`` classes, because the JAX chain fixes an operation order
@@ -16,26 +16,37 @@ that ``torch.optim.AdamW`` and ``clip_grad_norm_`` do not follow:
     the first update of a warmup schedule has lr 0.
 
 ``moments`` is the STORAGE dtype of m and v: "float32" is the exact twin of
-optax's chain; "bfloat16" halves the optimizer-state bytes. The update
-arithmetic is float32 either way and parameters stay float32 master
-weights. The int8 moments belong to a later slice of the port.
+optax's chain; "bfloat16" halves the optimizer-state bytes; "int8" keeps m
+as blockwise-absmax int8 (the tensor flattened into blocks of 256, each
+with one float32 scale, absmax / 127; codes round half to even) and v in
+bfloat16 -- 3.02 bytes per parameter against 8. v stays bfloat16 because a
+linear int8 code would crush entries far below their block's max to zero
+and blow up their step. The state's ``mu`` is then ``{"q": tree of int8
+[blocks, 256], "s": tree of float32 [blocks]}``, as in JAX. The update
+arithmetic is float32 in every mode and parameters stay float32 master
+weights.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Union
+import math
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audax_torch.models.whisper import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["adamw", "seq2seq_schedule", "scale_by_adam_lp", "adamw_lp",
            "GradientTransformation", "ScaleByAdamLPState", "apply_updates",
-           "global_norm"]
+           "global_norm", "moment_bytes_per_param"]
 
 Schedule = Callable[[int], float]
-_STORE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: storage dtype of v (and of m but for "int8") per moments mode
+_STORE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.bfloat16}
+_Q8_BLOCK = 256
 
 
 def _f32(x) -> np.float32:
@@ -77,28 +88,55 @@ class ScaleByAdamLPState(NamedTuple):
     nu: Any
 
 
-def _check_moments(moments: str) -> None:
-    if moments == "int8":
-        raise NotImplementedError(
-            "moments='int8' (blockwise int8 m, bf16 v) arrives with a later "
-            "slice of the port (int8 optimizer moments); use 'float32' or "
-            "'bfloat16'")
-    if moments not in _STORE:
-        raise ValueError(f"moments={moments!r}")
+def moment_bytes_per_param(moments: str) -> float:
+    """Optimizer-state bytes per parameter of a ``moments`` mode."""
+    return {"float32": 8.0, "bfloat16": 4.0,
+            "int8": 1.0 + 4.0 / _Q8_BLOCK + 2.0}[moments]
+
+
+def _blocks(p: torch.Tensor) -> int:
+    return (p.numel() + _Q8_BLOCK - 1) // _Q8_BLOCK
+
+
+def _q8_encode(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise absmax int8 of float32 ``x``: flattened, zero-padded to
+    256-element blocks, each scaled by its absmax / 127 (codes [blocks,
+    256] int8, scales [blocks] float32)."""
+    flat = x.reshape(-1)
+    blocks = F.pad(flat, (0, (-flat.numel()) % _Q8_BLOCK)).reshape(
+        -1, _Q8_BLOCK)
+    scale = blocks.abs().amax(dim=1) / 127.0
+    q = torch.round(blocks / torch.clamp_min(scale, 1e-30)[:, None])
+    return q.to(torch.int8), scale
+
+
+def _q8_decode(q: torch.Tensor, s: torch.Tensor, shape) -> torch.Tensor:
+    n = math.prod(shape)
+    return (q.float() * s[:, None]).reshape(-1)[:n].reshape(shape)
 
 
 def scale_by_adam_lp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                      *, moments: str = "bfloat16") -> GradientTransformation:
     """Adam's direction ``m_hat / (sqrt(v_hat) + eps)`` with m and v stored
-    in ``moments`` dtype and every operation in float32."""
-    _check_moments(moments)
+    as ``moments`` says (module docstring) and every operation in
+    float32."""
+    if moments not in _STORE:
+        raise ValueError(f"moments={moments!r}")
     store = _STORE[moments]
+    int8 = moments == "int8"
 
     def init(params) -> ScaleByAdamLPState:
-        zeros = lambda p: torch.zeros(p.shape, dtype=store,  # noqa: E731
-                                      device=p.device)
-        return ScaleByAdamLPState(0, tree_map(zeros, params),
-                                  tree_map(zeros, params))
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=store, device=p.device)
+        if int8:        # zeros encode to codes 0 and scales 0
+            mu = {"q": tree_map(lambda p: torch.zeros(
+                      _blocks(p), _Q8_BLOCK, dtype=torch.int8,
+                      device=p.device), params),
+                  "s": tree_map(lambda p: torch.zeros(
+                      _blocks(p), device=p.device), params)}
+        else:
+            mu = tree_map(zeros, params)
+        return ScaleByAdamLPState(0, mu, tree_map(zeros, params))
 
     @torch.no_grad()
     def update(grads, state: ScaleByAdamLPState, params=None):
@@ -107,7 +145,11 @@ def scale_by_adam_lp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         c1 = float(_f32(1) - np.power(_f32(b1), _f32(count)))
         c2 = float(_f32(1) - np.power(_f32(b2), _f32(count)))
         gs = [g.float() for g in tree_leaves(grads)]
-        ms = [m.float() for m in tree_leaves(state.mu)]
+        if int8:
+            ms = [_q8_decode(q, s, g.shape) for q, s, g in zip(
+                tree_leaves(state.mu["q"]), tree_leaves(state.mu["s"]), gs)]
+        else:
+            ms = [m.float() for m in tree_leaves(state.mu)]
         ns = [n.float() for n in tree_leaves(state.nu)]
         # m = b1 m + (1 - b1) g ;  n = b2 n + (1 - b2) g^2
         ms = torch._foreach_add(torch._foreach_mul(ms, b1),
@@ -119,7 +161,12 @@ def scale_by_adam_lp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         torch._foreach_add_(den, eps)
         out = torch._foreach_div(torch._foreach_div(ms, c1), den)
         out = [o.to(g.dtype) for o, g in zip(out, tree_leaves(grads))]
-        mu = tree_unflatten(state.mu, [m.to(store) for m in ms])
+        if int8:
+            codes = [_q8_encode(m) for m in ms]
+            mu = {"q": tree_unflatten(state.mu["q"], [c[0] for c in codes]),
+                  "s": tree_unflatten(state.mu["s"], [c[1] for c in codes])}
+        else:
+            mu = tree_unflatten(state.mu, [m.to(store) for m in ms])
         nu = tree_unflatten(state.nu, [n.to(store) for n in ns])
         return tree_unflatten(grads, out), ScaleByAdamLPState(count, mu, nu)
 

@@ -1,2 +1,2 @@
 """Utilities of the port: ``profiling`` (tracing, slope timing, H100
-peaks)."""
+peaks) and ``flops`` (analytic Whisper train-step FLOPs)."""

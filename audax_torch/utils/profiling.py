@@ -10,7 +10,11 @@ two run lengths, which cancels the fixed costs of a measurement.
 On CUDA the two run lengths are two CUDA graphs captured once and replayed
 between CUDA events: eager Python launches of a kernel wrapper cost several
 microseconds each, so timing a 10-20 us kernel eagerly would time the host.
-On the CPU the slopes are taken with ``time.perf_counter`` over eager loops.
+``slope_timed_eager`` takes the same slope over eager calls between CUDA
+events, for millisecond-scale calls whose launches the card outruns no
+more than the host issues them, and for work a graph does not capture
+simply (an autograd backward). On the CPU the slopes are taken with
+``time.perf_counter`` over eager loops.
 
 The peaks are the NVIDIA H100 SXM data sheet's (dense, at the full 700 W
 power limit): ``mfu`` reports against them.
@@ -26,8 +30,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 __all__ = ["trace", "time_fn", "flops_estimate_matmul", "slope_timed",
-           "slope_timed_chained", "step_flops", "mfu", "H100_BF16_FLOPS",
-           "H100_F32_FLOPS", "H100_INT8_OPS", "H100_HBM_BPS"]
+           "slope_timed_chained", "slope_timed_eager", "step_flops", "mfu",
+           "H100_BF16_FLOPS", "H100_F32_FLOPS", "H100_INT8_OPS", "H100_HBM_BPS"]
 
 #: NVIDIA H100 SXM data-sheet peaks (dense): bf16 tensor cores, float32 on
 #: CUDA cores, int8 tensor cores, and HBM3 bytes/s
@@ -117,16 +121,39 @@ def mfu(flops_per_step: float, sec_per_step: float, n_chips: int = 1,
             "mfu_pct": round(100.0 * per_chip / peak, 2)}
 
 
+def _events(fn: Callable[[], Any], repeats: int) -> float:
+    """Best of ``repeats`` seconds of ``fn()`` between two CUDA events."""
+    ts = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end) / 1e3)
+    return min(ts)
+
+
 def _two_length_slope(run: Callable[[int], Callable[[], Any]], iters,
-                      repeats: int, dev: Optional[torch.device]) -> float:
+                      repeats: int, dev: Optional[torch.device],
+                      graphs: bool = True) -> float:
     """``run(n)`` returns a callable that performs n calls. Best-of-
     ``repeats`` time per length; returns (t2 - t1) / (n2 - n1) seconds.
 
     On CUDA each length is captured once into a CUDA graph (after one eager
     warm-up call, which builds kernels and cuBLAS handles outside the
-    capture) and replayed between CUDA events."""
+    capture) and replayed between CUDA events; with ``graphs=False`` the
+    calls run eagerly between the events."""
     n1, n2 = iters
     best = []
+    if dev is not None and not graphs:
+        with torch.cuda.device(dev):
+            run(1)()
+            torch.cuda.synchronize()
+            for n in (n1, n2):
+                best.append(_events(run(n), repeats))
+        return (best[1] - best[0]) / (n2 - n1)
     if dev is None:
         for n in (n1, n2):
             f = run(n)
@@ -150,16 +177,7 @@ def _two_length_slope(run: Callable[[int], Callable[[], Any]], iters,
             with torch.cuda.graph(graph):
                 run(n)()
             graph.replay()
-            ts = []
-            for _ in range(repeats):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                graph.replay()
-                end.record()
-                end.synchronize()
-                ts.append(start.elapsed_time(end) / 1e3)
-            best.append(min(ts))
+            best.append(_events(graph.replay, repeats))
             del graph
     return (best[1] - best[0]) / (n2 - n1)
 
@@ -209,3 +227,23 @@ def slope_timed_chained(fn: Callable, x0: torch.Tensor, extra=(),
         return calls
 
     return _two_length_slope(run, iters, repeats, _cuda_device((x0, extra)))
+
+
+def slope_timed_eager(fn: Callable, args=(), iters=(5, 25), repeats: int = 2,
+                      device: Optional[torch.device] = None) -> float:
+    """``slope_timed`` with eager calls between CUDA events instead of CUDA
+    graphs (a ``time.perf_counter`` slope on the host, as there). The
+    slope cancels the fixed cost of the first launches; the calls must take
+    longer on the card than their launches take on the host, which holds
+    for millisecond-scale kernels and train-step stages."""
+    dev = device if device is not None else _cuda_device(args)
+    if dev is not None and dev.type != "cuda":
+        dev = None
+
+    def run(n):
+        def calls():
+            for _ in range(n):
+                fn(*args)
+        return calls
+
+    return _two_length_slope(run, iters, repeats, dev, graphs=False)

@@ -13,13 +13,13 @@ main paths -- Whisper transcription at the full width of Whisper-tiny,
 Whisper fine-tuning at the full width of Whisper-base, quantized
 continuous-batching serving over HTTP at the full width of
 Whisper-large-v3-turbo, and UrbanSound classification at the reference
-classifiers' widths -- and the four int4 kernel-experiment tools, in nine
-phases, one output line each (the kernel and path phases print one line
-per case):
+classifiers' widths -- the four int4 kernel-experiment tools and the four
+attention tools, in eleven phases, one output line each (the kernel and
+path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (nine), in parallel, with its
-     wall time;
+  2. build   -- nvcc of every kernel library (ten), in parallel, with the
+     wall time of each and of all, the registers and any spills;
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' and the tools' shapes: max |err| against the stated
      tolerance, kernel ms, plain ms, the one-call library yardstick where
@@ -31,7 +31,13 @@ per case):
      whichever tier runs). The int4 kernels (K9 and the tools' P2-P5) and
      their ``torch.matmul`` yardstick are slope-timed in CUDA graphs with
      the weights from HBM (copies cycled past twice the L2), the L2-warm
-     time beside;
+     time beside. It also holds decode attention at 40 query rows (K3 in
+     chunks of 16), every caller-set tile of K2, K7 and K8 at
+     [4, 8, 1500, 64] float32, and P1 -- K2 folding 2 or 4 heads per block,
+     ``tools/attn_headfold_probe.py:fold_fwd`` -- at the tool's bf16
+     [96, 1536, 64] and with a ragged key count (1500 of 1536 rows);
+  3b. precision -- a bf16 ``dense`` at [12000, 5120] x [5120, 1280] within
+     one bf16 step of the float64 product (float32 accumulation);
   4. transcription -- random Whisper-tiny weights from a seeded generator,
      a tokenizer with the published 51,865-token layout, two requests (30 s
      and 47 s of synthetic audio) through ``Transcriber(device="cuda")``;
@@ -57,8 +63,11 @@ per case):
      and no plain version may. Then requests/s, latency p50 and max, decode
      steps, tokens/s, launches per decode step and peak memory; the card
      against the port's CPU path (teacher-forced ``decode_step_ragged``
-     with float and with int8 self-KV), and ``attention(kv_cached=)``
-     through K6;
+     with float and with int8 self-KV, two faults planted in the int8
+     writes that the limit must reject, and the int8 reading over 16 seeds
+     of one decode step: largest and median beside the limit, the written
+     codes within +-1 and scales within 1e-3 relative), and
+     ``attention(kv_cached=)`` through K6;
   7. classify -- 400 synthetic 4 s clips in the UrbanSound8K layout
      (``make_synthetic_urbansound``, seed 0), featurized on the card by
      ``featurize_clips`` (int16 upload, batches of 64) under three frontend
@@ -80,7 +89,16 @@ per case):
      ``w4a8_probe``, ``int4_unpack_probe``): each prints its rows, then one
      JSON line per tool with its rows and verdict; each tool's kernels (and
      K9, its "current" arm) must launch and no plain version may;
-  9. the kernels' JSON line, then the result line.
+  9. attention_tools -- ``attn_headfold_probe`` (the four kernel arms and
+     the product A/B), ``attn_block_probe`` (the tile set, forward and
+     backward, at [8, 12, 1500, 64] bf16), ``train_step_breakdown`` at
+     Whisper-small width (B = 8, label length 32, ``--attn flash`` and
+     ``--attn xla``, 3 iterations) and ``mfu_study --only 0,10 --steps 3``,
+     each through its entry point on the card: one JSON line each with
+     its rows, verdict, seconds and launches; K2/K7/K8 (and P1 in the fold
+     probe) must launch where a tool drives them, none in the xla arm, and
+     no plain version anywhere;
+ 10. the kernels' JSON line, then the result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or without the ``audax_torch`` package beside it, it exits with 2
@@ -162,6 +180,21 @@ PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul")),
                ("w4a8_probe", ("w4a8_matmul", "int4_matmul")),
                ("int4_unpack_probe", ("int4_unpack_v1", "int4_unpack_v2",
                                       "int4_matmul")))
+#: the attention tools' runs on the card: (label, tool, its arguments, the
+#: kernels it must launch, the kernels it must not)
+FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+STEP_ARGS = dict(size="small", batch=8, label_len=32, iters=3)
+ATTENTION_TOOLS = (
+    ("attn_headfold_probe", "attn_headfold_probe", {},
+     ("flash_forward", "flash_forward_fold"), ()),
+    ("attn_block_probe", "attn_block_probe", {}, FLASH, ()),
+    ("train_step_breakdown --attn flash", "train_step_breakdown",
+     dict(STEP_ARGS, attn="flash"), FLASH, ()),
+    ("train_step_breakdown --attn xla", "train_step_breakdown",
+     dict(STEP_ARGS, attn="xla"), (), FLASH + ("flash_forward_fold",)),
+    ("mfu_study --only 0,10", "mfu_study", dict(only="0,10", steps=3),
+     FLASH, ()),
+)
 #: the classification path: one frontend config per log-mel tier
 CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap"),
                       ("PANNs geometry", PANNS_MEL, "log_mel_packed"),
@@ -349,16 +382,19 @@ def kernel_phase(torch, rng):
                 (2, 8000), False)
 
     # ---- K2: flash forward ---------------------------------------------------
-    def flash_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main):
-        q = torch.randn(b, hq, tq, 64, device=dev).to(dtype)
-        k = torch.randn(b, hkv, tk, 64, device=dev).to(dtype)
-        v = torch.randn(b, hkv, tk, 64, device=dev).to(dtype)
-        o, lse = att.flash_forward_cuda(q, k, v, causal=causal)
+    def flash_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main,
+                   tile=(None, None), gen=None):
+        q = torch.randn(b, hq, tq, 64, device=dev, generator=gen).to(dtype)
+        k = torch.randn(b, hkv, tk, 64, device=dev, generator=gen).to(dtype)
+        v = torch.randn(b, hkv, tk, 64, device=dev, generator=gen).to(dtype)
+        bq, bk = tile
+        o, lse = att.flash_forward_cuda(q, k, v, causal=causal, block_q=bq,
+                                        block_k=bk)
         o_ref, lse_ref = att.flash_forward_plain(q, k, v, causal=causal)
         e = max(err(o, o_ref), err(lse, lse_ref) if dtype == torch.float32
                 else 0.0)
-        ms = _time_ms(torch, lambda: att.flash_forward_cuda(q, k, v,
-                                                            causal=causal))
+        ms = _time_ms(torch, lambda: att.flash_forward_cuda(
+            q, k, v, causal=causal, block_q=bq, block_k=bk))
         plain = _time_ms(torch, lambda: att.flash_forward_plain(
             q, k, v, causal=causal))
         lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -389,11 +425,11 @@ def kernel_phase(torch, rng):
                torch.float32, True, TOL_F32, False)
 
     # ---- K3: stacked decode attention -----------------------------------------
-    def decode_case(label, s_len, pos, main, h=6, hkv=6, tq=1):
+    def decode_case(label, s_len, pos, main, h=6, hkv=6, tq=1, gen=None):
         L, b, d = 4, 4, 64
-        q = torch.randn(b, h, tq, d, device=dev)
-        k = torch.randn(L, b, hkv, s_len, d, device=dev)
-        v = torch.randn(L, b, hkv, s_len, d, device=dev)
+        q = torch.randn(b, h, tq, d, device=dev, generator=gen)
+        k = torch.randn(L, b, hkv, s_len, d, device=dev, generator=gen)
+        v = torch.randn(L, b, hkv, s_len, d, device=dev, generator=gen)
         pos_t = (torch.tensor(pos, dtype=torch.int32, device=dev)
                  if pos is not None else None)
         e = 0.0
@@ -440,19 +476,27 @@ def kernel_phase(torch, rng):
     decode_case("cross [4,4,6,1500,64] pos=None", 1500, None, True)
     decode_case("GQA 8q/2kv Tq=3 S=64 pos [0,5,30,63]", 64, [0, 5, 30, 63],
                 False, h=8, hkv=2, tq=3)
+    # more rows than one launch takes (a speculative prefill): chunks of 16
+    # at pos + 0, 16, 32, each row masked at its own position
+    gen = torch.Generator(device=dev).manual_seed(6)
+    decode_case("self Tq=40 in chunks of 16, pos [0,17,200,400]", 448,
+                [0, 17, 200, 400], False, tq=40, gen=gen)
 
     # ---- K7 / K8: flash backward (dQ; dK and dV) ------------------------------
-    def bwd_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main):
-        q = torch.randn(b, hq, tq, 64, device=dev).to(dtype)
-        k = torch.randn(b, hkv, tk, 64, device=dev).to(dtype)
-        v = torch.randn(b, hkv, tk, 64, device=dev).to(dtype)
-        do = torch.randn(b, hq, tq, 64, device=dev).to(dtype)
+    def bwd_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main,
+                 tile=(None, None), gen=None):
+        q = torch.randn(b, hq, tq, 64, device=dev, generator=gen).to(dtype)
+        k = torch.randn(b, hkv, tk, 64, device=dev, generator=gen).to(dtype)
+        v = torch.randn(b, hkv, tk, 64, device=dev, generator=gen).to(dtype)
+        do = torch.randn(b, hq, tq, 64, device=dev, generator=gen).to(dtype)
         o, lse = att.flash_forward_cuda(q, k, v, causal=causal)
         args = (q, k, v, o, lse, do)
         delta = att._delta(o, do)       # shared by both kernels on the path
-        dq = att.flash_backward_dq_cuda(*args, causal=causal, delta=delta)
+        tiles = dict(block_q=tile[0], block_k=tile[1])
+        dq = att.flash_backward_dq_cuda(*args, causal=causal, delta=delta,
+                                        **tiles)
         dk, dv = att.flash_backward_dkv_cuda(*args, causal=causal,
-                                             delta=delta)
+                                             delta=delta, **tiles)
         rdq = att.flash_backward_dq_plain(*args, causal=causal)
         rdk, rdv = att.flash_backward_dkv_plain(*args, causal=causal)
 
@@ -460,9 +504,9 @@ def kernel_phase(torch, rng):
             return err(a, r) / float(r.float().abs().max())
         e_dq, e_dkv = rel(dq, rdq), max(rel(dk, rdk), rel(dv, rdv))
         ms_dq = _time_ms(torch, lambda: att.flash_backward_dq_cuda(
-            *args, causal=causal, delta=delta))
+            *args, causal=causal, delta=delta, **tiles))
         ms_dkv = _time_ms(torch, lambda: att.flash_backward_dkv_cuda(
-            *args, causal=causal, delta=delta))
+            *args, causal=causal, delta=delta, **tiles))
         plain_dq = _time_ms(torch, lambda: att.flash_backward_dq_plain(
             *args, causal=causal), reps=5)
         plain_dkv = _time_ms(torch, lambda: att.flash_backward_dkv_plain(
@@ -508,6 +552,20 @@ def kernel_phase(torch, rng):
              torch.float32, False, TOL_F32, False)
     bwd_case("causal GQA 8q/2kv T=77 f32", 2, 8, 2, 77, 77, torch.float32,
              True, TOL_F32, False)
+
+    # ---- caller-set tiles of K2, K7, K8 and P1 (K2 folding heads) -------------
+    # on their own generator: the later phases keep the inputs they drew
+    # before these cases existed
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for tile in att.TILES:
+        if tile == (64, 64):
+            continue
+        label = f"f32 [4,8,1500,64] block_q {tile[0]} block_k {tile[1]}"
+        flash_case(label, 4, 8, 8, 1500, 1500, torch.float32, False,
+                   TOL_F32, False, tile=tile, gen=gen)
+        bwd_case(label, 4, 8, 8, 1500, 1500, torch.float32, False, TOL_F32,
+                 False, tile=tile, gen=gen)
+    out["flash_forward_fold"] = fold_cases(torch, gen)
 
     # ---- K3 int8 arm and K6 (K3's kernel at L = 1) ----------------------------
     from audax_torch.models.whisper import quantize_kv
@@ -688,6 +746,93 @@ def kernel_phase(torch, rng):
                           (k_dim, n) == (1280, 5120)
                           and dtype == torch.bfloat16, gen)
     return out
+
+
+def fold_cases(torch, gen):
+    """P1 (``tools/attn_headfold_probe.py:fold_fwd``: K2's kernel folding 2
+    or 4 heads per block) against its plain version at the tool's shape,
+    bf16 [96, 1536, 64], and with a ragged key count (1500 of 1536 rows) in
+    float32 and bf16; returns the summary of the fold-2 case at the tool's
+    shape. The bound takes the bf16 tensor cores' peak for bf16 inputs;
+    the label gives the float32 CUDA-core bound beside it (the cores the
+    kernel runs on)."""
+    import torch.nn.functional as F
+
+    from audax_torch.tools import attn_headfold_probe as hf
+
+    dev, bh, t, d = "cuda", 96, 1536, 64
+    main = None
+    for fold, dtype, kv_len in ((2, torch.bfloat16, t), (4, torch.bfloat16, t),
+                                (2, torch.float32, 1500),
+                                (2, torch.bfloat16, 1500)):
+        q, k, v = (torch.randn(bh, t, d, device=dev, generator=gen).to(dtype)
+                   for _ in range(3))
+        kw = dict(scale=d ** -0.5, kv_len=kv_len)
+        o, lse = hf.fold_fwd_cuda(q, k, v, fold=fold, **kw)
+        o_ref, lse_ref = hf.fold_fwd_plain(q, k, v, **kw)
+        e = float((o.float() - o_ref.float()).abs().max())
+        if dtype == torch.float32:
+            e, tol = max(e, float((lse - lse_ref).abs().max())), TOL_F32
+            rel = e
+        else:       # bf16: against the plain output's largest value
+            tol, rel = TOL_BF16, e / float(o_ref.float().abs().max())
+        ms = _time_ms(torch, lambda: hf.fold_fwd_cuda(q, k, v, fold=fold,
+                                                      **kw))
+        plain = _time_ms(torch, lambda: hf.fold_fwd_plain(q, k, v, **kw),
+                         reps=5)
+        ks, vs = k[None, :, :kv_len], v[None, :, :kv_len]
+        lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[None], ks, vs))
+        flops = 4 * bh * t * kv_len * d
+        nbytes = q.element_size() * d * 2 * bh * (t + kv_len) + 4 * bh * t
+        rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        bound = _bound(flops, nbytes, rate)
+        f32_core = _bound(flops, nbytes, F32_FLOPS)[0]
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        _report(f"flash_forward_fold[fold {fold} {dt} [{bh},{t},{d}] kv_len "
+                f"{kv_len}] (max_abs_err {e:.3e}; bound on f32 CUDA cores "
+                f"{f32_core:.4f} ms)", rel, tol, ms, plain, lib, bound,
+                "max_abs_err" if dtype == torch.float32 else "max_rel_err")
+        if main is None:
+            main = dict(max_abs_err=e, ms=ms, plain_ms=plain, library_ms=lib,
+                        bound=bound)
+    return main
+
+
+def precision_check(torch):
+    """A bf16 ``models/whisper.py:dense`` at Whisper-large-v3's MLP shape,
+    x [8*1500, 5120] @ [5120, 1280], against the float64 product of the
+    same bf16 operands: with float32 accumulation (``resolve_device``'s
+    flags) every output lies within one bf16 step (ulp) of it, plus 1e-5
+    of max |y| for the outputs near zero, where the float32 sum's own
+    rounding (~1e-6) outweighs their step. The old flags (reduced-precision
+    reduction allowed) are read beside it, not held."""
+    from audax_torch.models.whisper import dense
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(8 * 1500, 5120, device="cuda", generator=gen).bfloat16()
+    w = torch.randn(5120, 1280, device="cuda", generator=gen) / 5120 ** 0.5
+    ref = x.double() @ w.bfloat16().double()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    ulp += 1e-5 * ref.abs().max()
+    flags = torch.backends.cuda.matmul
+    readings = {}
+    for label, reduced in (("float32 accumulation", False),
+                           ("reduced-precision reduction", True)):
+        flags.allow_bf16_reduced_precision_reduction = reduced
+        try:
+            y = dense({"kernel": w}, x).double()
+        finally:
+            flags.allow_bf16_reduced_precision_reduction = False
+        readings[label] = (float(((y - ref).abs() / ulp).max()),
+                           float((y - ref).abs().max() / ref.abs().max()))
+    (ulps, rel), (ulps_old, rel_old) = readings.values()
+    print(f"[precision] bf16 dense [12000,5120]x[5120,1280] vs float64: float32 "
+          f"accumulation max {ulps:.3f} bf16 steps + 1e-5 max|y| ({rel:.3e} "
+          f"of max|y|, tol 1); reduced-precision reduction {ulps_old:.3f} "
+          f"({rel_old:.3e})", flush=True)
+    if not ulps <= 1.0:
+        raise AssertionError(f"bf16 dense off by {ulps} bf16 steps")
 
 
 def _tokenizer(vocab_size=51865):
@@ -1246,6 +1391,8 @@ def serve_phase(torch, rng, profile=False):
             raise AssertionError(f"the int8 self-KV limit misses a planted "
                                  f"fault ({label}): {e_f}")
 
+    q8_margin(torch, qparams, qcpu, cfg, xkv, xkv_cpu)
+
     if profile:
         cache = W.init_kv_cache(cfg, 8, cb._max_len, device="cuda",
                                 quant=True)
@@ -1280,6 +1427,64 @@ def serve_phase(torch, rng, profile=False):
     if not e <= TOL_LOGITS:
         raise AssertionError(f"attention(kv_cached=) differs by {e}")
     return counts, k6_counts
+
+
+def q8_margin(torch, qparams, qcpu, cfg, xkv, xkv_cpu, seeds=16):
+    """The int8 self-KV reading over ``seeds`` inputs: per seed, one
+    ``decode_step_ragged`` of 4 slots at random positions over a random int8
+    cache (identical codes on both devices), card vs the port's CPU path.
+    Prints the largest and the median logits difference beside
+    ``TOL_LOGITS_Q8``, and what the step wrote: the new K/V codes (card vs
+    CPU, each rounded from its own float32 projection) and their scales.
+    Holds every reading below the limit, the codes within +-1 (a tie of
+    the rounding) and the scales within 1e-3 relative: the K/V projections
+    differ in float32 between the card's int4 kernel and the CPU's plain
+    version (read 6.9e-6 absolute on scales of ~2e-2)."""
+    import numpy as np
+
+    from audax_torch.models import whisper as W
+
+    b, max_len = 4, 16
+    shape = (cfg.decoder_layers, b, cfg.heads, max_len,
+             cfg.d_model // cfg.heads)
+    logit_err, code_diff, scale_diff, scale_rel, flipped = [], 0, 0.0, 0.0, 0
+    for seed in range(seeds):
+        rng = np.random.default_rng(1000 + seed)
+        kv = W.quantize_kv(*(torch.from_numpy(rng.standard_normal(shape)
+                                              .astype(np.float32))
+                             for _ in range(2)))
+        tok = torch.from_numpy(rng.integers(0, 50257, size=b))
+        pos = torch.from_numpy(rng.integers(1, max_len, size=b))
+        caches, logits = [], []
+        for p, dev, cross in ((qparams, "cuda", xkv), (qcpu, "cpu", xkv_cpu)):
+            cache = W.QuantKV(*(t.clone().to(dev) for t in kv))
+            lg, _ = W.decode_step_ragged(p, cfg, tok.to(dev), pos.to(dev),
+                                         cache, cross)
+            caches.append(W.QuantKV(*(t.cpu() for t in cache)))
+            logits.append(lg.cpu())
+        logit_err.append(float((logits[0] - logits[1]).abs().max()))
+        for i in (0, 2):                        # codes k_q, v_q
+            d = (caches[0][i].int() - caches[1][i].int()).abs()
+            code_diff = max(code_diff, int(d.max()))
+            flipped += int((d > 0).sum())
+        for i in (1, 3):                        # scales
+            d = (caches[0][i] - caches[1][i]).abs()
+            scale_diff = max(scale_diff, float(d.max()))
+            scale_rel = max(scale_rel, float((d / caches[1][i].abs()).max()))
+    print(f"[serve] int8 self-KV over {seeds} seeds (one decode_step_ragged, "
+          f"4 slots at random positions over a random int8 cache): logits "
+          f"max_abs_err largest {max(logit_err):.3e}, median "
+          f"{float(np.median(logit_err)):.3e} (limit {TOL_LOGITS_Q8:.0e}); "
+          f"written codes card vs CPU differ by at most {code_diff} "
+          f"({flipped} of {seeds * 2 * cfg.decoder_layers * b * cfg.heads * shape[-1]}"
+          f" codes flipped), scales by at most {scale_diff:.3e} = "
+          f"{scale_rel:.3e} relative (tol 1e-03); "
+          f"readings {[float(f'{e:.3e}') for e in logit_err]}", flush=True)
+    if not (code_diff <= 1 and scale_rel <= 1e-3
+            and all(e <= TOL_LOGITS_Q8 for e in logit_err)):
+        raise AssertionError(f"int8 self-KV over seeds: logits {logit_err}, "
+                             f"codes by {code_diff}, scales by {scale_rel}")
+    return logit_err
 
 
 def _featurize(torch, us, name, kw, kernel):
@@ -1548,6 +1753,47 @@ def probes_phase(torch):
     return total
 
 
+def attention_tools_phase(torch):
+    """The four attention tools of ``audax_torch.tools`` on the card through
+    their entry points (``train_step_breakdown`` once per ``--attn`` arm):
+    one JSON line per run with its rows, verdict, seconds and launches. The
+    kernels each run drives must launch, none may in the xla arm, and no
+    plain version may anywhere. Returns the launch counts of the runs,
+    summed."""
+    import importlib
+
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.tools import probe_launch_counts, reset_probe_launches
+
+    total = {}
+    for label, name, kwargs, kernels, absent in ATTENTION_TOOLS:
+        tool = importlib.import_module(f"audax_torch.tools.{name}")
+        reset_launches()
+        reset_probe_launches()
+        t0 = time.perf_counter()
+        rep = tool.main(device="cuda", **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**launch_counts(), **probe_launch_counts()}
+        _check_launches(counts, kernels, f"{label} tool")
+        ran = {k for k in absent if counts[k]["cuda"]}
+        if ran:
+            raise AssertionError(f"{label}: {sorted(ran)} launched")
+        rows = rep.get("rows", rep.get("configs"))
+        if not rows or any("error" in r for r in rows):
+            raise AssertionError(f"{label}: no rows, or rows with errors")
+        print(json.dumps({
+            "attention_tool": label, "seconds": round(wall, 3),
+            "verdict": rep["verdict"],
+            "launches": {k: c["cuda"] for k, c in counts.items()
+                         if c["cuda"]},
+            "report": rep}), flush=True)
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c["cuda"]
+        torch.cuda.empty_cache()
+    return total
+
+
 def _paths(tree, prefix=""):
     """Leaf paths of a nested dict, in ``tree_leaves`` order."""
     out = []
@@ -1597,23 +1843,34 @@ def main() -> int:
     regs = sorted({line.split("ptxas info    : ")[-1]
                    for text in reports.values() for line in text.splitlines()
                    if "registers" in line})
-    print(f"[build] {len(native.KERNEL_SOURCES)} kernels ({len(reports)} "
-          f"compiled now) in {time.perf_counter() - t0:.2f} s; ptxas: "
-          f"{' | '.join(regs)}", flush=True)
+    spills = sorted({line.strip() for text in reports.values()
+                     for line in text.splitlines()
+                     if "spill" in line and not line.strip().startswith("0")
+                     and " 0 bytes spill stores, 0 bytes spill loads" not in line})
+    nvcc_s = [text.splitlines()[0] for text in reports.values()]
+    print(f"[build] {len(native.KERNEL_SOURCES)} kernel libraries "
+          f"({len(reports)} compiled now) in {time.perf_counter() - t0:.2f} s "
+          f"({'; '.join(nvcc_s)}); ptxas: {' | '.join(regs)}; spills: "
+          f"{' | '.join(spills) or 'none'}", flush=True)
 
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
+    precision_check(torch)
     transcribe = main_path_phase(torch, rng)
     train = finetune_phase(torch, rng, profile=args.profile)
     serve, k6 = serve_phase(torch, rng, profile=args.profile)
     classify = classify_phase(torch, profile=args.profile)
     probes = probes_phase(torch)
+    tools = attention_tools_phase(torch)
     # launches of the main paths, each counted from 0 just before it; the
-    # tools' kernels from the probes phase
+    # tools' kernels from the probes phase; K2/K7/K8 and P1 from the
+    # attention tools as well
     launches = {k: sum(p[k]["cuda"] for p in (transcribe, train, serve, k6,
                                               classify))
                 for k in transcribe}
     launches.update(probes)
+    for k in FLASH + ("flash_forward_fold",):
+        launches[k] = launches.get(k, 0) + tools[k]
 
     sources = {"log_mel_overlap": ("audax_torch/csrc/log_mel_overlap.cu",
                                    "audax/ops/pallas_mel.py:199"),
@@ -1623,6 +1880,8 @@ def main() -> int:
                                    "audax/ops/pallas_mel.py:334"),
                "flash_forward": ("audax_torch/csrc/flash_fwd.cu",
                                  "audax/ops/attention.py:161"),
+               "flash_forward_fold": ("audax_torch/csrc/flash_fwd.cu",
+                                      "tools/attn_headfold_probe.py:90"),
                "flash_backward_dq": ("audax_torch/csrc/flash_bwd.cu",
                                      "audax/ops/attention.py:293"),
                "flash_backward_dkv": ("audax_torch/csrc/flash_bwd.cu",

@@ -107,8 +107,11 @@ def test_clip_matches_optax_and_int8_waits():
         np.testing.assert_allclose(v, 0.1 * _flat(ref)[k], rtol=1e-6)
     assert abs(float(O.global_norm(tg)) - float(optax.global_norm(
         jax.tree.map(jnp.asarray, g)))) < 1e-5
-    with pytest.raises(NotImplementedError, match="later slice"):
-        O.adamw_lp(1e-3, moments="int8")
+    # int8 moments no longer wait for a later slice: m is blockwise int8
+    # (test_torch_optim_int8.py holds it against JAX)
+    mu = O.adamw_lp(1e-3, moments="int8").init(tg).mu
+    assert set(mu) == {"q", "s"}
+    assert all(q.dtype == torch.int8 for q in tree_leaves(mu["q"]))
     with pytest.raises(ValueError):
         O.scale_by_adam_lp(moments="float16")
 

@@ -158,7 +158,11 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.train.steps', 'audax_torch.train.loops',"
         " 'audax_torch.utils.profiling', 'audax_torch.tools.int4_layout_ab',"
         " 'audax_torch.tools.int4_plane_probe', 'audax_torch.tools.w4a8_probe',"
-        " 'audax_torch.tools.int4_unpack_probe'}\n"
+        " 'audax_torch.tools.int4_unpack_probe', 'audax_torch.utils.flops',"
+        " 'audax_torch.tools.attn_headfold_probe',"
+        " 'audax_torch.tools.attn_block_probe',"
+        " 'audax_torch.tools.train_step_breakdown',"
+        " 'audax_torch.tools.mfu_study'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow'))\n"
