@@ -21,8 +21,10 @@
 // the work is 4*B*H*T*T*D = 6.9 GFLOP against 9 MB of q, k, v and o, so it
 // is bound by operations. In float32 those run on the CUDA cores (67
 // TFLOP/s), because TF32 tensor cores would break parity with the float32
-// reference; bfloat16 inputs are widened to float32 in shared memory and
-// take the same path here -- moving them to wgmma is later work.
+// reference. bfloat16 at 64 or 128 query rows a block, unfolded, moved to
+// the tensor cores: csrc/flash_fwd_sm90.cu (wgmma) serves it, at every head
+// dim. Here bfloat16 keeps only the 32-row tiles and the folds, widened to
+// float32 in shared memory; ops/attention.py:FWD_BODIES routes each call.
 //
 // Design: one warp group (4 warps) per (batch*head, tile of BQ query rows);
 // a loop over BK-key tiles of K and V staged in shared memory (float32, rows

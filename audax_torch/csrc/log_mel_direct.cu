@@ -21,7 +21,10 @@
 // cores (67 TFLOP/s) bounds it, not memory. The TPU ran both products at
 // HIGHEST precision; here they are float32 FMAs on the CUDA cores, because
 // near-silent bins come out of cancelling sums and TF32's 10-bit mantissa
-// would break the log-domain parity.
+// would break the log-domain parity. K5 at a power-of-two n_fft from 256 to
+// 2048 moved to the FFT body, csrc/log_mel_fft.cu (ops/direct_mel.py:
+// fft_applicable routes it); this body keeps K5 at every other n_fft (400,
+// Whisper's STFT geometry, among them) and all of K4.
 //
 // Design: one block of 256 threads owns 64 frames and loops over column
 // tiles of the basis (K4: 64 packed columns; K5: 32 bins, their cos and sin

@@ -17,8 +17,11 @@ from audax_torch.ops.attention import (decode_attention_cuda,
                                        flash_backward_dkv_plain,
                                        flash_backward_dq_cuda,
                                        flash_backward_dq_plain,
-                                       flash_forward_cuda, flash_forward_plain)
-from audax_torch.ops.direct_mel import (fused_logmel_frames_cuda,
+                                       flash_forward_cuda, flash_forward_plain,
+                                       flash_forward_wgmma_cuda)
+from audax_torch.ops.direct_mel import (fused_logmel_fft_cuda,
+                                        fused_logmel_fft_plain,
+                                        fused_logmel_frames_cuda,
                                         fused_logmel_frames_plain,
                                         fused_logmel_packed_cuda,
                                         fused_logmel_packed_plain)
@@ -35,7 +38,9 @@ KERNELS = {
     "log_mel_overlap": (log_mel_overlap_cuda, log_mel_overlap_plain),
     "log_mel_packed": (fused_logmel_packed_cuda, fused_logmel_packed_plain),
     "log_mel_generic": (fused_logmel_frames_cuda, fused_logmel_frames_plain),
+    "log_mel_fft": (fused_logmel_fft_cuda, fused_logmel_fft_plain),
     "flash_forward": (flash_forward_cuda, flash_forward_plain),
+    "flash_forward_wgmma": (flash_forward_wgmma_cuda, flash_forward_plain),
     "flash_backward_dq": (flash_backward_dq_cuda, flash_backward_dq_plain),
     "flash_backward_dkv": (flash_backward_dkv_cuda, flash_backward_dkv_plain),
     "decode_attention_stacked": (decode_attention_stacked_cuda,

@@ -40,12 +40,18 @@ Port of ``audax/ops/attention.py``:
 Tiles. ``block_q`` is the query rows per block of K2 and K7 and the query
 tile K8 loops over; ``block_k`` the keys per tile of K2 and K7 and the keys
 per block of K8. ``None`` keeps each kernel's default, (64, 64), with K8 at
-(64, 32) for head_dim 128. The caller-set tiles are ``TILES`` -- every pair
-of 32, 64 and 128 -- at head_dim 64, for all three kernels; ``fold`` 2 or 4
-(``FOLDS``) runs at head_dim 64 with the default tile. A wrapper checks
-(block_q, block_k, head_dim, fold) against that set before it dispatches,
-so a CPU call raises the same ``ValueError`` as the card would; nothing is
-silently replaced. JAX's tiles (2048, 512, ...) are TPU VMEM blocks.
+(64, 32) for head_dim 128 and K2 at ``WGMMA_TILE`` for bf16. The
+caller-set tiles are ``TILES`` -- every pair of 32, 64 and 128 -- at
+head_dim 64, for all three kernels; ``fold`` 2 or 4 (``FOLDS``) runs at
+head_dim 64 with the 64 x 64 tile. K2 has two bodies, and one table,
+``FWD_BODIES``, maps each (dtype, head_dim, tile, fold) it takes to one:
+float32 on the CUDA cores (``csrc/flash_fwd.cu``); bf16 on the tensor cores
+(``csrc/flash_fwd_sm90.cu``, wgmma) at every tile of 64 or 128 query rows,
+its 32-row tiles and folds on the CUDA cores. A wrapper checks (block_q,
+block_k, head_dim, fold) and K2's (dtype, ...) against that set before it
+dispatches, so a CPU call raises the same ``ValueError`` as the card would;
+nothing is silently replaced. JAX's tiles (2048, 512, ...) are TPU VMEM
+blocks.
 
 Each kernel function dispatches on the tensor it is given: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
@@ -60,8 +66,10 @@ import torch
 
 from audax_torch.ops import native
 
-__all__ = ["TILES", "FOLDS", "resolve_tile", "pick_fold",
+__all__ = ["TILES", "FOLDS", "WGMMA_TILE", "BODIES", "FWD_BODIES",
+           "fwd_body", "resolve_tile", "pick_fold",
            "flash_forward", "flash_forward_cuda", "flash_forward_plain",
+           "flash_forward_wgmma_cuda",
            "launch_flash_forward", "attention_backend",
            "flash_backward", "flash_backward_plain", "flash_backward_dq_plain",
            "flash_backward_dkv_plain", "flash_backward_dq_cuda",
@@ -113,29 +121,89 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
 
 # ------------------------------------------------------------------ tiles --
 
-def _default_tile(kernel: str, d: int) -> Tuple[int, int]:
+#: K2's bf16 tile on the tensor-core body at every head dim (block_q,
+#: block_k): the fastest of the card's ``attn_block_probe`` sweep
+WGMMA_TILE = (64, 128)
+#: K2's two bodies: float32 FMAs on the CUDA cores (``csrc/flash_fwd.cu``)
+#: and bf16 wgmma on the tensor cores (``csrc/flash_fwd_sm90.cu``)
+BODIES = ("cuda_core", "wgmma")
+
+
+def _fwd_bodies() -> dict:
+    """``{(dtype, head_dim, (block_q, block_k), fold): body}``: every K2
+    call the kernels are built for, and the body that serves it. float32
+    runs on the CUDA cores at the default tile for every head dim, at every
+    caller-set tile at head_dim 64 and in the folds. bf16 runs on the
+    tensor cores at ``WGMMA_TILE`` for every head dim and at every caller-set
+    tile of 64 or 128 query rows (wgmma takes 64-row tiles); its 32-row
+    tiles and its folds stay on the CUDA cores."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    table = {(f32, d, (64, 64), 1): "cuda_core" for d in _HEAD_DIMS}
+    for dt in (f32, bf16):
+        for tile in TILES:
+            if dt == f32 or tile[0] == 32:
+                table[(dt, 64, tile, 1)] = "cuda_core"
+        for fold in FOLDS:
+            table[(dt, _FOLD_HEAD_DIM, _FOLD_TILE, fold)] = "cuda_core"
+    for d in _HEAD_DIMS:
+        table[(bf16, d, WGMMA_TILE, 1)] = "wgmma"
+    for tile in TILES:
+        if tile[0] >= 64:
+            table[(bf16, 64, tile, 1)] = "wgmma"
+    return table
+
+
+#: the K2 body table (``_fwd_bodies``): ``resolve_tile`` and
+#: ``launch_flash_forward`` read it, and a call off it raises
+FWD_BODIES = _fwd_bodies()
+
+
+def _default_tile(kernel: str, d: int, dtype: torch.dtype = torch.float32,
+                  fold: int = 1) -> Tuple[int, int]:
+    if kernel == "fwd":
+        return WGMMA_TILE if dtype == torch.bfloat16 and fold == 1 else (64, 64)
     return (64, 32) if kernel == "dkv" and d >= 128 else (64, 64)
 
 
 def _fwd_smem(d: int, block_q: int, block_k: int, fold: int) -> int:
-    """Shared memory of K2 (``csrc/flash_fwd.cu``): per folded head a q
-    tile, a K tile (rows padded to d + 4 floats), a V tile and the
-    per-warp probability rows."""
+    """Shared memory of K2's CUDA-core body (``csrc/flash_fwd.cu``): per
+    folded head a q tile, a K tile (rows padded to d + 4 floats), a V tile
+    and the per-warp probability rows."""
     return 4 * fold * ((block_q + block_k) * (d + 4) + block_k * d
                        + 16 * block_k)
 
 
+def _fwd_wgmma_smem(d: int, block_q: int, block_k: int) -> int:
+    """Shared memory of K2's tensor-core body (``csrc/flash_fwd_sm90.cu``,
+    ``smem_bytes``): the bf16 q tile and two stages of K and V, the head
+    dim padded to 64, plus 1024 bytes to align the swizzle atoms."""
+    return 2 * max(d, 64) * (block_q + 4 * block_k) + 1024
+
+
+def fwd_body(dtype: torch.dtype, d: int, block_q: Optional[int] = None,
+             block_k: Optional[int] = None, fold: int = 1) -> str:
+    """The body of ``BODIES`` that serves a K2 call (tiles as
+    ``resolve_tile`` takes them); raises ``ValueError`` off the table."""
+    tile = resolve_tile("fwd", d, block_q, block_k, fold, dtype=dtype)
+    if (dtype, d, tile, fold) not in FWD_BODIES:
+        raise ValueError(f"K2 has no body for {dtype} at head_dim {d}")
+    return FWD_BODIES[(dtype, d, tile, fold)]
+
+
 def resolve_tile(kernel: str, d: int, block_q: Optional[int] = None,
-                 block_k: Optional[int] = None, fold: int = 1
-                 ) -> Tuple[int, int]:
+                 block_k: Optional[int] = None, fold: int = 1, *,
+                 dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """``(block_q, block_k)`` of ``kernel`` ("fwd" K2, "dq" K7, "dkv" K8)
-    at head_dim ``d``: ``None`` takes the kernel's default. Raises
-    ``ValueError`` for a (block_q, block_k, head_dim, fold) the kernels are
-    not instantiated at -- ``TILES`` at head_dim 64, ``fold`` in ``FOLDS``
-    (K2 only) at head_dim 64 with the default tile -- naming the shared
-    memory limit when a fold does not fit. (Which head dims the kernels
-    take at the default tile, the CUDA wrappers check.)"""
-    default = _default_tile(kernel, d)
+    at head_dim ``d``: ``None`` takes the kernel's default (K2's depends on
+    ``dtype``: ``WGMMA_TILE`` for unfolded bf16). Raises ``ValueError`` for
+    a (block_q, block_k, head_dim, fold) the kernels are not instantiated
+    at -- ``TILES`` at head_dim 64, ``fold`` in ``FOLDS`` (K2 only) at
+    head_dim 64 with the 64 x 64 tile, and for K2 any (dtype, head_dim,
+    tile, fold) off ``FWD_BODIES`` at a head dim it takes -- naming the
+    shared memory limit when a fold does not fit. (Which head dims the
+    kernels take at the default tile, the CUDA wrappers check; the plain
+    versions take any.)"""
+    default = _default_tile(kernel, d, dtype, fold)
     tile = (default[0] if block_q is None else int(block_q),
             default[1] if block_k is None else int(block_k))
     if fold != 1:
@@ -156,6 +224,11 @@ def resolve_tile(kernel: str, d: int, block_q: Optional[int] = None,
         raise ValueError(f"{kernel} tile (block_q, block_k) = {tile} is not "
                          f"built at head_dim {d}: the default {default}, or "
                          f"at head_dim 64 one of {TILES}")
+    if (kernel == "fwd" and dtype in _DTYPES and d in _HEAD_DIMS
+            and (dtype, d, tile, fold) not in FWD_BODIES):
+        raise ValueError(f"fwd tile (block_q, block_k) = {tile} with fold "
+                         f"{fold} has no {dtype} body at head_dim {d}: see "
+                         f"FWD_BODIES")
     return tile
 
 
@@ -212,10 +285,12 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: Optional[int] = None,
                          name: str = "flash_forward"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of K2's kernel (``csrc/flash_fwd.cu``), counted by no
-    one: q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D] with keys at or past
-    ``kv_len`` (default Tk) masked and never read; ``fold`` heads of the
-    fused B*Hq axis per block. Returns ``(o, lse [B*Hq, Tq])``."""
+    """One launch of K2 on the body ``FWD_BODIES`` names (the CUDA-core
+    ``csrc/flash_fwd.cu`` or, counted by ``flash_forward_wgmma_cuda``, the
+    tensor-core ``csrc/flash_fwd_sm90.cu``), otherwise counted by no one:
+    q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D] with keys at or past ``kv_len``
+    (default Tk) masked and never read; ``fold`` heads of the fused B*Hq
+    axis per block. Returns ``(o, lse [B*Hq, Tq])``."""
     _check_cuda(name, q, k, v)
     b, hq, tq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -231,10 +306,14 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("causal flash attention requires Tq == Tk")
     if d not in _HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {d} not in {_HEAD_DIMS}")
-    bq, bk = resolve_tile("fwd", d, block_q, block_k, fold)
+    bq, bk = resolve_tile("fwd", d, block_q, block_k, fold, dtype=q.dtype)
     if fold > 1 and (hq != hkv or causal or (b * hq) % fold):
         raise ValueError(f"{name}: fold {fold} needs non-causal MHA and B*Hq "
                          f"= {b * hq} divisible by it")
+    if FWD_BODIES[(q.dtype, d, (bq, bk), fold)] == "wgmma":
+        return flash_forward_wgmma_cuda(q, k, v, causal=causal, scale=scale,
+                                        block_q=bq, block_k=bk, kv_len=kv_len,
+                                        name=name)
     o = torch.empty_like(q)
     lse = torch.empty(b * hq, tq, device=q.device, dtype=torch.float32)
     if tq == 0:
@@ -246,6 +325,48 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     native.check(status, name)
     return o, lse
+
+
+def flash_forward_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = False,
+                             scale: Optional[float] = None,
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None,
+                             kv_len: Optional[int] = None,
+                             name: str = "flash_forward"
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's bf16 tensor-core body (``csrc/flash_fwd_sm90.cu``): one
+    counted launch, same contract as ``flash_forward_plain`` with keys at or
+    past ``kv_len`` masked. Takes bf16, 16-byte-aligned operands at a
+    (head_dim, tile) that ``FWD_BODIES`` gives this body; raises
+    otherwise."""
+    _check_cuda(name, q, k, v)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    kv_len = tk if kv_len is None else int(kv_len)
+    tile = resolve_tile("fwd", d, block_q, block_k, dtype=q.dtype)
+    if FWD_BODIES.get((q.dtype, d, tile, 1)) != "wgmma":
+        raise ValueError(f"{name}: the tensor-core body takes bf16 at a "
+                         f"FWD_BODIES tile, not {q.dtype} at head_dim {d} "
+                         f"with {tile}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: the tensor-core body copies 16-byte "
+                         f"chunks; q, k and v must be 16-byte aligned")
+    o = torch.empty_like(q)
+    lse = torch.empty(b * hq, tq, device=q.device, dtype=torch.float32)
+    if tq == 0:
+        return o, lse
+    status = native.library("flash_fwd_sm90").flash_fwd_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, hq, hkv, tq, kv_len, tk, d, _scale(q, scale),
+        int(causal), tile[0], tile[1],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(status, name)
+    flash_forward_wgmma_cuda.launches += 1
+    return o, lse
+
+
+flash_forward_wgmma_cuda.launches = 0
 
 
 def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -266,9 +387,10 @@ flash_forward_cuda.launches = 0
 
 def flash_forward(q, k, v, *, causal=False, scale=None, block_q=None,
                   block_k=None, fold=1):
-    """``(o, lse)``: the CUDA kernel for CUDA tensors, else the plain version;
-    the tiles and fold are checked first, on either device."""
-    resolve_tile("fwd", q.shape[-1], block_q, block_k, fold)
+    """``(o, lse)``: the CUDA kernel for CUDA tensors -- the body
+    ``FWD_BODIES`` gives (dtype, head_dim, tile, fold) -- else the plain
+    version; the tiles and fold are checked first, on either device."""
+    resolve_tile("fwd", q.shape[-1], block_q, block_k, fold, dtype=q.dtype)
     if not q.is_cuda:
         return flash_forward_plain(q, k, v, causal=causal, scale=scale)
     return flash_forward_cuda(q, k, v, causal=causal, scale=scale,
@@ -501,7 +623,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hq % k.shape[1]:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={k.shape[1]}")
     fold = pick_fold(fold, causal=causal, group=hq // k.shape[1], bhq=b * hq)
-    resolve_tile("fwd", d, block_q, block_k, fold)
+    resolve_tile("fwd", d, block_q, block_k, fold, dtype=q.dtype)
     resolve_tile("dq", d, block_q, block_k)
     resolve_tile("dkv", d, block_q, block_k)
     return FlashAttention.apply(q, k, v, causal, _scale(q, scale), block_q,

@@ -1,5 +1,5 @@
-"""Direct log-mel on frames: the CUDA kernels K4 (packed) and K5 (generic)
-and their plain PyTorch versions.
+"""Direct log-mel on frames: the CUDA kernels K4 (packed) and K5 (generic,
+in two bodies) and their plain PyTorch versions.
 
 Port of ``audax/ops/pallas_mel.py``'s ``fused_logmel_packed`` (the tier for
 power-2 configs the overlap kernel does not cover) and
@@ -12,6 +12,16 @@ power-2 configs the overlap kernel does not cover) and
     ``p = sqrt(max(re^2 + im^2, 0)) ** power``, ``log(p @ fb)`` with the
     constants of ``ops/mel.py:frontend_constants``.
 
+K5 has two bodies, and ``fft_applicable(n_fft, power)`` routes between
+them: power != 2 with a power-of-two n_fft from 256 to 2048 (``FFT_SIZES``;
+UrbanSound's 1024 is the main case) takes the FFT body
+(``fused_logmel_fft``, ``csrc/log_mel_fft.cu``: ``rfft`` of the windowed
+frame, ``|X|^power``, each band summed over its bin range, the log; the
+constants of ``ops/mel.py:fft_frontend_constants``), every other n_fft the
+direct body (``fused_logmel_frames``, ``csrc/log_mel_direct.cu``). Both
+compute the same function; the FFT body is held against the direct body's
+plain version on the card.
+
 ``log_mode`` is the kernel's log: "log1e6" is ``log(x + 1e-6)``, "log10"
 ``log10(max(x, 1e-10))`` (Whisper's clamp stays outside, as in JAX).
 
@@ -20,7 +30,8 @@ power-2 configs the overlap kernel does not cover) and
 (``unfold``: ``[B, T, n_fft]`` with strides ``(clip, hop, 1)``, or a
 contiguous ``[N, n_fft]``) and read it in place, so no ``[N, n_fft]`` copy
 is made. A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel of ``csrc/log_mel_direct.cu`` or raises.
+kernel of ``csrc/log_mel_direct.cu`` (``csrc/log_mel_fft.cu`` for the FFT
+body) or raises.
 """
 
 from __future__ import annotations
@@ -32,12 +43,23 @@ from audax_torch.ops.stft import apply_log
 
 __all__ = ["fused_logmel_packed", "fused_logmel_packed_cuda",
            "fused_logmel_packed_plain", "fused_logmel_frames",
-           "fused_logmel_frames_cuda", "fused_logmel_frames_plain"]
+           "fused_logmel_frames_cuda", "fused_logmel_frames_plain",
+           "FFT_SIZES", "fft_applicable", "fused_logmel_fft",
+           "fused_logmel_fft_cuda", "fused_logmel_fft_plain"]
 
 #: mel bands the kernels hold in registers (16 x the widest per-thread row)
 MAX_MELS = 256
 #: the kernels' log epilogues, by their flag
 _LOG_FLAGS = {"log1e6": 0, "log10": 1}
+#: the n_fft K5's FFT body is built for
+FFT_SIZES = (256, 512, 1024, 2048)
+
+
+def fft_applicable(n_fft: int, power: float) -> bool:
+    """The route of the generic tier (power != 2): the FFT body for a
+    power-of-two n_fft from 256 to 2048 (``FFT_SIZES``), the direct body
+    for any other. Power 2 is K4's (or K1's), never this tier's."""
+    return power != 2.0 and n_fft in FFT_SIZES
 
 
 def fused_logmel_packed_plain(frames: torch.Tensor, dft: torch.Tensor,
@@ -163,3 +185,84 @@ def fused_logmel_frames(frames, cos_w, sin_w, fb, log_mode="log1e6",
                                         power)
     return fused_logmel_frames_plain(frames, cos_w, sin_w, fb, log_mode,
                                      power)
+
+
+def _band_weights(fb: torch.Tensor, ranges: torch.Tensor) -> torch.Tensor:
+    """``fb`` with every weight outside its band's bin range zeroed."""
+    k = torch.arange(fb.shape[0], device=fb.device)[:, None]
+    lo, hi = ranges[:, 0].to(fb.device), ranges[:, 1].to(fb.device)
+    return torch.where((k >= lo) & (k < hi), fb, torch.zeros_like(fb))
+
+
+def fused_logmel_fft_plain(frames: torch.Tensor, window: torch.Tensor,
+                           fb: torch.Tensor, ranges: torch.Tensor,
+                           twiddles: torch.Tensor, log_mode: str = "log1e6",
+                           power: float = 2.0) -> torch.Tensor:
+    """Plain version of K5's FFT body: ``[..., n_fft]`` frames ->
+    ``[..., M]`` as ``rfft(frames * window)``, ``|X|^power``, each band
+    summed over its bin range of ``ranges``, the log (``torch.fft``
+    computes its own twiddles)."""
+    fused_logmel_fft_plain.launches += 1
+    if frames.numel() == 0:             # no frame: MKL's rfft refuses it
+        return frames.new_zeros(frames.shape[:-1] + fb.shape[-1:])
+    spec = torch.fft.rfft(frames * window)
+    p = spec.real * spec.real + spec.imag * spec.imag
+    if power != 2.0:
+        p = torch.pow(torch.sqrt(torch.clamp_min(p, 0.0)), power)
+    return apply_log(p @ _band_weights(fb, ranges), log_mode)
+
+
+fused_logmel_fft_plain.launches = 0
+
+
+def fused_logmel_fft_cuda(frames: torch.Tensor, window: torch.Tensor,
+                          fb: torch.Tensor, ranges: torch.Tensor,
+                          twiddles: torch.Tensor, log_mode: str = "log1e6",
+                          power: float = 2.0) -> torch.Tensor:
+    """K5's FFT body (``csrc/log_mel_fft.cu``): same contract as
+    ``fused_logmel_fft_plain``, on the frame view read in place. ``ranges``
+    must hold every non-zero of ``fb`` (``ops/mel.py:mel_bin_ranges``)."""
+    n_fft = frames.shape[-1]
+    if n_fft not in FFT_SIZES:
+        raise ValueError(f"the FFT log-mel body takes n_fft in {FFT_SIZES}, "
+                         f"got {n_fft}")
+    f, m = n_fft // 2 + 1, fb.shape[-1]
+    _check_constant(window, (n_fft,), "window")
+    _check_constant(fb, (f, m), "fb")
+    _check_constant(twiddles, (n_fft + 1, 2), "twiddles")
+    if (tuple(ranges.shape) != (m, 2) or ranges.dtype != torch.int32
+            or not ranges.is_cuda or not ranges.is_contiguous()):
+        raise ValueError(f"ranges: want a contiguous int32 CUDA tensor of "
+                         f"shape ({m}, 2), got {tuple(ranges.shape)} "
+                         f"{ranges.dtype} on {ranges.device}")
+    if not 1 <= m <= MAX_MELS:
+        raise ValueError(f"the FFT log-mel body holds 1..{MAX_MELS} mel "
+                         f"bands, got {m}")
+    lead = frames.shape[:-1]
+    f3, clip_stride, hop = _frame_view(frames)
+    b, t, _ = f3.shape
+    out = torch.empty(b * t, m, device=f3.device)
+    if b * t == 0:
+        return out.reshape(lead + (m,))
+    status = native.library("log_mel_fft").log_mel_fft_f32(
+        f3.data_ptr(), clip_stride, hop, t, b * t, n_fft, window.data_ptr(),
+        twiddles.data_ptr(), fb.data_ptr(), ranges.data_ptr(),
+        out.data_ptr(), m, _LOG_FLAGS[log_mode], float(power),
+        torch.cuda.current_stream(f3.device).cuda_stream)
+    native.check(status, "log_mel_fft")
+    fused_logmel_fft_cuda.launches += 1
+    return out.reshape(lead + (m,))
+
+
+fused_logmel_fft_cuda.launches = 0
+
+
+def fused_logmel_fft(frames, window, fb, ranges, twiddles, log_mode="log1e6",
+                     power=2.0):
+    """K5's FFT body for a CUDA tensor, its plain version for a CPU
+    tensor."""
+    if frames.is_cuda:
+        return fused_logmel_fft_cuda(frames, window, fb, ranges, twiddles,
+                                     log_mode, power)
+    return fused_logmel_fft_plain(frames, window, fb, ranges, twiddles,
+                                  log_mode, power)

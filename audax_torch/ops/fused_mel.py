@@ -7,7 +7,9 @@ of ``log_mel_pallas`` and picks, per config, exactly as it does:
   1. the overlap-reuse kernel K1 (``log_mel_overlap``, this module) when
      ``overlap_applicable``: every in-tree preset;
   2. the packed direct kernel K4 for any other power-2 config;
-  3. the generic direct kernel K5 for any power != 2
+  3. the generic kernel K5 for any power != 2, in the body
+     ``direct_mel.fft_applicable`` picks: the FFT body for a power-of-two
+     n_fft from 256 to 2048, the direct body for any other
      (K4 and K5 live in ``ops/direct_mel.py``).
 
 K1 zoom-DFTs each g-sample block of the reflect-padded signal once,
@@ -32,13 +34,17 @@ import torch.nn.functional as F
 
 from audax_torch.core.config import MelConfig
 from audax_torch.ops import native
-from audax_torch.ops.direct_mel import fused_logmel_frames, fused_logmel_packed
-from audax_torch.ops.mel import (frontend_constants, overlap_block_size,
+from audax_torch.ops.direct_mel import (fft_applicable, fused_logmel_fft,
+                                        fused_logmel_frames,
+                                        fused_logmel_packed)
+from audax_torch.ops.mel import (fft_frontend_constants, frontend_constants,
+                                 overlap_block_size,
                                  overlap_frontend_constants,
                                  packed_frontend_constants)
 from audax_torch.ops.stft import apply_log
 
-__all__ = ["direct_constants", "direct_frames", "log_mel_fused",
+__all__ = ["direct_constants", "direct_frames", "fft_constants",
+           "log_mel_fused",
            "log_mel_overlap", "log_mel_overlap_cuda",
            "log_mel_overlap_plain", "overlap_applicable",
            "whisper_post_clamp"]
@@ -182,6 +188,14 @@ def direct_constants(cfg: MelConfig, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in tables)
 
 
+@functools.lru_cache(maxsize=16)
+def fft_constants(cfg: MelConfig, device: torch.device):
+    """K5's FFT body's ``(window, fb, ranges, twiddles)``
+    (``ops/mel.py:fft_frontend_constants``)."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in fft_frontend_constants(cfg))
+
+
 def direct_frames(x: torch.Tensor, cfg: MelConfig):
     """``[..., n]`` -> (``[B, T, n_fft]`` frames, a view of the padded
     signal with strides ``(clip, hop, 1)``; the lead shape)."""
@@ -194,7 +208,8 @@ def direct_frames(x: torch.Tensor, cfg: MelConfig):
 def log_mel_fused(x: torch.Tensor, cfg: MelConfig, *,
                   whisper_post: bool = True) -> torch.Tensor:
     """Log-mel of ``[..., n_samples]`` audio -> ``[..., T, n_mels]`` through
-    the tier ``cfg`` calls for (overlap K1, packed K4, generic K5). With
+    the tier ``cfg`` calls for (overlap K1, packed K4, generic K5 -- its FFT
+    body where ``direct_mel.fft_applicable`` holds, else its direct body). With
     ``whisper_post=False`` the Whisper mode returns the raw log10, for the
     caller to trim frames and then apply ``whisper_post_clamp``."""
     if overlap_applicable(cfg):
@@ -202,12 +217,17 @@ def log_mel_fused(x: torch.Tensor, cfg: MelConfig, *,
     else:
         frames, lead = direct_frames(x, cfg)
         mode = _kernel_log(cfg)
-        consts = direct_constants(cfg, frames.device)
-        if cfg.power == 2.0:
-            mel = fused_logmel_packed(frames, *consts, log_mode=mode)
+        if fft_applicable(cfg.n_fft, cfg.power):
+            mel = fused_logmel_fft(frames, *fft_constants(cfg, frames.device),
+                                   log_mode=mode, power=cfg.power)
+        elif cfg.power == 2.0:
+            mel = fused_logmel_packed(frames,
+                                      *direct_constants(cfg, frames.device),
+                                      log_mode=mode)
         else:
-            mel = fused_logmel_frames(frames, *consts, log_mode=mode,
-                                      power=cfg.power)
+            mel = fused_logmel_frames(frames,
+                                      *direct_constants(cfg, frames.device),
+                                      log_mode=mode, power=cfg.power)
         mel = mel.reshape(lead + mel.shape[1:])
     if cfg.log_mode == "whisper" and whisper_post:
         mel = whisper_post_clamp(mel)

@@ -21,7 +21,8 @@ from audax_torch.core.config import MelConfig
 __all__ = [
     "hz_to_mel", "mel_to_hz", "mel_filterbank", "hann_window",
     "dft_matrices", "frontend_constants", "packed_frontend_constants",
-    "overlap_frontend_constants", "overlap_block_size",
+    "overlap_frontend_constants", "overlap_block_size", "mel_bin_ranges",
+    "fft_twiddles", "fft_frontend_constants",
 ]
 
 
@@ -225,3 +226,52 @@ def frontend_constants(cfg: MelConfig, dtype=np.float32):
         htk=cfg.htk, norm_slaney=cfg.norm_slaney, dtype=dtype,
     )
     return cos_w, sin_w, fb
+
+
+def mel_bin_ranges(fb: np.ndarray) -> np.ndarray:
+    """``[n_mels, 2]`` int32: for each band (column of ``fb [F, n_mels]``)
+    the bins ``[lo, hi)`` from its first to its last non-zero weight, so
+    that summing the band over its range is exact for any filterbank (a
+    dense one gives ``[0, F)``; an all-zero band ``[0, 0)``)."""
+    nz = np.asarray(fb) != 0
+    f = nz.shape[0]
+    any_nz = nz.any(axis=0)
+    lo = np.where(any_nz, nz.argmax(axis=0), 0)
+    hi = np.where(any_nz, f - nz[::-1].argmax(axis=0), 0)
+    return np.stack([lo, hi], axis=1).astype(np.int32)
+
+
+def fft_twiddles(n_fft: int, dtype=np.float32) -> np.ndarray:
+    """Twiddle table of the FFT log-mel kernel (``csrc/log_mel_fft.cu``),
+    ``[n_fft + 1, 2]`` (cos, -sin), computed in float64 and rounded once:
+    first ``W_L^(j k2)`` at row ``k2 * 32 + j`` (``L = n_fft / 2`` complex
+    points, ``k2 < L / 32``, lane ``j < 32``), then ``W_N^k`` for
+    ``k = 0 .. L`` (``N = n_fft``)."""
+    if n_fft % 64 or n_fft & (n_fft - 1):
+        raise ValueError(f"n_fft {n_fft}: the FFT kernel takes a power of "
+                         "two, at least 64")
+    half = n_fft // 2
+    j = np.arange(32, dtype=np.float64)[None, :]
+    k2 = np.arange(half // 32, dtype=np.float64)[:, None]
+    ang = np.concatenate([(2.0 * np.pi * j * k2 / half).reshape(-1),
+                          2.0 * np.pi * np.arange(half + 1) / n_fft])
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
+
+
+def fft_frontend_constants(cfg: MelConfig, dtype=np.float32):
+    """Constants of the FFT log-mel kernel: ``(window, fb, ranges,
+    twiddles)``. ``window [n_fft]`` is the centre-padded periodic Hann that
+    ``frontend_constants`` folds into its bases (``window == cos_w[:, 0]``
+    exactly), ``fb [F, n_mels]`` the same filterbank, ``ranges
+    [n_mels, 2]`` int32 its bands' bin ranges (``mel_bin_ranges``) and
+    ``twiddles`` the table of ``fft_twiddles``."""
+    win = hann_window(cfg.win, dtype=np.float64)
+    if cfg.win < cfg.n_fft:
+        pad_l = (cfg.n_fft - cfg.win) // 2
+        win = np.pad(win, (pad_l, cfg.n_fft - cfg.win - pad_l))
+    fb = mel_filterbank(
+        cfg.n_freqs, cfg.n_mels, cfg.sample_rate, cfg.fmin, cfg.fmax,
+        htk=cfg.htk, norm_slaney=cfg.norm_slaney, dtype=dtype,
+    )
+    return (win.astype(dtype), fb, mel_bin_ranges(fb),
+            fft_twiddles(cfg.n_fft, dtype))

@@ -13,8 +13,10 @@ so that its two kernels' many tile instantiations compile in parallel.
 ``build()`` starts one ``nvcc`` per missing library and waits for all of
 them, so the kernels compile in parallel.
 
-The wrappers in ``ops/fused_mel.py``, ``ops/direct_mel.py``,
-``ops/attention.py`` (which also serves the head-fold probe
+The wrappers in ``ops/fused_mel.py``, ``ops/direct_mel.py`` (K4, K5 and
+K5's FFT body ``log_mel_fft.cu``),
+``ops/attention.py`` (K2's two bodies, ``flash_fwd.cu`` and
+``flash_fwd_sm90.cu``, which also serve the head-fold probe
 ``tools/attn_headfold_probe.py``), ``ops/int4_matmul.py`` and the int4
 experiment tools (``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
 ``tools/w4a8_probe.py``, ``tools/int4_unpack_probe.py``) call
@@ -33,7 +35,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["KERNEL_SOURCES", "build", "library", "check", "nvcc_path"]
+__all__ = ["KERNEL_SOURCES", "build", "library", "lib_path", "check",
+           "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,7 +46,9 @@ BUILD = _PKG / "build"
 KERNEL_SOURCES = {
     "log_mel_overlap": "log_mel_overlap.cu",
     "log_mel_direct": "log_mel_direct.cu",
+    "log_mel_fft": "log_mel_fft.cu",
     "flash_fwd": "flash_fwd.cu",
+    "flash_fwd_sm90": "flash_fwd_sm90.cu",
     "flash_bwd_dq": "flash_bwd.cu",
     "flash_bwd_dkv": "flash_bwd.cu",
     "decode_attention": "decode_attention.cu",
@@ -67,8 +72,17 @@ SIGNATURES = {
         "log_mel_direct_f32": ([_I, _P, _LL, _I, _I, _LL, _I, _P, _P, _I, _P,
                                 _P, _I, _I, _F, _P], _I),
     },
+    "log_mel_fft": {
+        "log_mel_fft_smem": ([_I] * 2, _LL),
+        "log_mel_fft_f32": ([_P, _LL, _I, _I, _LL, _I, _P, _P, _P, _P, _P,
+                             _I, _I, _F, _P], _I),
+    },
     "flash_fwd": {
         "flash_fwd": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P], _I),
+    },
+    "flash_fwd_sm90": {
+        "flash_fwd_sm90_smem": ([_I] * 3, _I),
+        "flash_fwd_sm90": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P], _I),
     },
     "flash_bwd_dq": {
         "flash_bwd_dq": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
@@ -123,7 +137,9 @@ def nvcc_path() -> str:
                        "toolkit's compiler on PATH")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where library ``name`` is (or will be) built: keyed by a hash of its
+    source, the shared headers and the flags."""
     src = (CSRC / KERNEL_SOURCES[name]).read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     flags = NVCC_FLAGS + DEFINES.get(name, ())
@@ -141,7 +157,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     memory and spills per kernel). Raises with the compiler's output when
     one fails."""
     names = list(KERNEL_SOURCES if names is None else names)
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()
@@ -149,7 +165,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     procs = {}
     t0 = time.perf_counter()
     for n in todo:
-        out = _lib_path(n)
+        out = lib_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = out.with_suffix(f".{os.getpid()}.log")
         cmd = [nvcc, *NVCC_FLAGS, *DEFINES.get(n, ()), "-o", str(tmp),
@@ -187,7 +203,7 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype

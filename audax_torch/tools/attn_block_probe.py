@@ -18,7 +18,7 @@ Times are slopes over eager calls between CUDA events
 FLOPs: 4*B*S^2*(H*hd) forward, 2.5x that backward (the JAX tool's
 convention). Verdict: ``keep`` when a tile's forward + backward beats the
 default's by ``tools.KEEP_RATIO``, else ``reject``; ``best`` names the
-fastest tile.
+fastest tile (forward + backward), ``best_fwd`` the fastest forward.
 
     python -m audax_torch.tools.attn_block_probe [--device cpu] [--out PATH]
 """
@@ -29,14 +29,14 @@ import numpy as np
 import torch
 
 from audax_torch.core.runtime import resolve_device
-from audax_torch.ops.attention import TILES, flash_attention
+from audax_torch.ops.attention import TILES, WGMMA_TILE, flash_attention
 from audax_torch.tools import cli, report, verdict
 from audax_torch.utils.profiling import slope_timed_eager
 
 __all__ = ["GRID", "main"]
 
-#: the default tile, then every other tile the kernels are built at
-GRID = ((None, None),) + tuple(t for t in TILES if t != (64, 64))
+#: the defaults, then every tile the kernels are built at
+GRID = ((None, None),) + TILES
 _CUDA_TIMING = ((5, 25), 2)
 _CPU_TIMING = ((1, 4), 2)
 
@@ -79,10 +79,13 @@ def main(device=None, out=None, b=8, heads=12, seq=1500, hd=64) -> dict:
                      "max_abs_err_vs_default": err})
     total = [r["fwd_us"] + r["bwd_us"] for r in rows]
     best = rows[int(np.argmin(total))]
+    fwd = rows[int(np.argmin([r["fwd_us"] for r in rows]))]
     return report("attn_block_probe", dev, rows,
                   verdict(min(total[1:]), total[0]), out, shape=list(shp),
-                  best={"block_q": best["block_q"] or 64,
-                        "block_k": best["block_k"] or 64},
+                  best={"block_q": best["block_q"] or WGMMA_TILE[0],
+                        "block_k": best["block_k"] or WGMMA_TILE[1]},
+                  best_fwd={"block_q": fwd["block_q"] or WGMMA_TILE[0],
+                            "block_k": fwd["block_k"] or WGMMA_TILE[1]},
                   timing="eager calls between CUDA events, slope of "
                          f"{iters[0]} and {iters[1]} calls, best of "
                          f"{repeats}" if cuda else "host clock (CPU)")

@@ -13,10 +13,12 @@ returning O in q's dtype and lse [BH, Tq, 1] float32. Its plain version is
 K2's plain math on the first ``kv_len`` keys of every head.
 
 ``main`` times four kernel arms at bf16 [96, 1536, 64] (Whisper-small's
-encoder, B = 8 x 12 heads): K2 at its default 64 x 64 tile
-("base_bq64", the reference of ``speedup_vs_default``), K2 with 128 query
-rows per block ("base_bq128"), and P1 folding 2 and 4 heads at the default
-tile ("fold2_bq64", "fold4_bq64"). fold2_bq64 and base_bq128 each take 128
+encoder, B = 8 x 12 heads): K2 at the 64 x 64 tile ("base_bq64", the
+reference of ``speedup_vs_default``), K2 with 128 query rows per block
+("base_bq128"), and P1 folding 2 and 4 heads at the 64 x 64 tile
+("fold2_bq64", "fold4_bq64"). In bf16 the two unfolded arms run K2's
+tensor-core body and the folds its CUDA-core body
+(``ops/attention.py:FWD_BODIES``). fold2_bq64 and base_bq128 each take 128
 query rows per block, of two heads or of one. Then the product A/B: the
 real ``flash_attention`` at [8, 12, 1500, 64] with ``fold=2`` and
 ``fold=1`` (JAX: ``AUDAX_ATTN_FOLD``). Each arm is slope-timed over eager
@@ -98,7 +100,8 @@ def fold_fwd(q3, k3, v3, *, scale, kv_len, fold, block_q=None, block_k=None):
     """(o [BH, Tq, D], lse [BH, Tq, 1]): P1 for CUDA tensors, its plain
     version for CPU tensors; the fold and tiles are checked first, on
     either device."""
-    att.resolve_tile("fwd", q3.shape[-1], block_q, block_k, fold)
+    att.resolve_tile("fwd", q3.shape[-1], block_q, block_k, fold,
+                     dtype=q3.dtype)
     if not q3.is_cuda:
         return fold_fwd_plain(q3, k3, v3, scale=scale, kv_len=kv_len)
     return fold_fwd_cuda(q3, k3, v3, scale=scale, kv_len=kv_len, fold=fold,

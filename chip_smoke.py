@@ -18,8 +18,10 @@ attention tools, in eleven phases, one output line each (the kernel and
 path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (ten), in parallel, with the
-     wall time of each and of all, the registers and any spills;
+  2. build   -- nvcc of every kernel library (twelve), in parallel, with
+     the wall time of each and of all, the registers and any spills; then
+     the count of HGMMA (wgmma) instructions in the SASS of K2's
+     tensor-core body (``cuobjdump --dump-sass``), which must not be 0;
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' and the tools' shapes: max |err| against the stated
      tolerance, kernel ms, plain ms, the one-call library yardstick where
@@ -35,7 +37,15 @@ path phases print one line per case):
      chunks of 16), every caller-set tile of K2, K7 and K8 at
      [4, 8, 1500, 64] float32, and P1 -- K2 folding 2 or 4 heads per block,
      ``tools/attn_headfold_probe.py:fold_fwd`` -- at the tool's bf16
-     [96, 1536, 64] and with a ragged key count (1500 of 1536 rows);
+     [96, 1536, 64] and with a ragged key count (1500 of 1536 rows). K2's
+     bf16 tensor-core body (``csrc/flash_fwd_sm90.cu``) is held, o and
+     lse, at Whisper-small's [8, 12, 1500, 64], causal GQA, cross
+     attention, a ragged key count, head dims 16/32/128 and each of its
+     tiles; K7/K8 in bf16 at [8, 12, 1500, 64] on its lse; K5's FFT body
+     (``csrc/log_mel_fft.cu``) at UrbanSound's magnitude batch, n_fft
+     512/1024/2048, 256 bands at power 1.5 and a silent clip, against the
+     direct DFT's plain version; the n_fft-400 configs keep the direct
+     body;
   3b. precision -- a bf16 ``dense`` at [12000, 5120] x [5120, 1280] within
      one bf16 step of the float64 product (float32 accumulation);
   4. transcription -- random Whisper-tiny weights from a seeded generator,
@@ -70,10 +80,12 @@ path phases print one line per case):
      ``attention(kv_cached=)`` through K6;
   7. classify -- 400 synthetic 4 s clips in the UrbanSound8K layout
      (``make_synthetic_urbansound``, seed 0), featurized on the card by
-     ``featurize_clips`` (int16 upload, batches of 64) under three frontend
-     configs, one per log-mel tier: UrbanSound v2 (K1), PANNs' Cnn14_16k
-     geometry (K4) and UrbanSound v2 as a magnitude mel (K5); each run must
-     launch its kernel and no other tier or plain version. Then
+     ``featurize_clips`` (int16 upload, batches of 64) under four frontend
+     configs, one per log-mel tier and body: UrbanSound v2 (K1), PANNs'
+     Cnn14_16k geometry (K4), UrbanSound v2 as a magnitude mel (K5's FFT
+     body) and a magnitude mel at n_fft 400 (K5's direct body, featurized
+     only); each run must launch its kernel and no other tier, body or
+     plain version. Then
      ``fit_classifier`` for 3 epochs on folds 1-8 and ``evaluate_classifier``
      on folds 9 and 10 for ``CNNClassifier`` (v2 features),
      ``TransformerClassifier(pool="cls", max_len=2048)`` (PANNs features)
@@ -96,8 +108,9 @@ path phases print one line per case):
      ``--attn xla``, 3 iterations) and ``mfu_study --only 0,10 --steps 3``,
      each through its entry point on the card: one JSON line each with
      its rows, verdict, seconds and launches; K2/K7/K8 (and P1 in the fold
-     probe) must launch where a tool drives them, none in the xla arm, and
-     no plain version anywhere;
+     probe) must launch where a tool drives them, K2's tensor-core body in
+     every run (and it alone in the step and the MFU runs), none in the
+     xla arm, and no plain version anywhere;
  10. the kernels' JSON line, then the result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
@@ -109,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -165,6 +179,9 @@ TOL_BN_STATS = 1e-5
 PANNS_MEL = dict(n_fft=512, hop_length=160, n_mels=64, fmin=50.0,
                  fmax=8000.0, htk=False, norm_slaney=True)
 MAGNITUDE_MEL = dict(power=1.0)
+#: a magnitude mel at Whisper's STFT geometry (n_fft 400, hop 160): an n_fft
+#: the FFT body is not built for, so K5's direct body serves it
+MAGNITUDE_400_MEL = dict(n_fft=400, hop_length=160, power=1.0)
 
 #: the kernels each main path must launch
 TRANSCRIBE_KERNELS = ("log_mel_overlap", "flash_forward",
@@ -183,22 +200,31 @@ PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul")),
 #: the attention tools' runs on the card: (label, tool, its arguments, the
 #: kernels it must launch, the kernels it must not)
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+#: every tool run is bf16, so K2's tensor-core body must serve it
+FLASH_BF16 = FLASH + ("flash_forward_wgmma",)
 STEP_ARGS = dict(size="small", batch=8, label_len=32, iters=3)
 ATTENTION_TOOLS = (
     ("attn_headfold_probe", "attn_headfold_probe", {},
-     ("flash_forward", "flash_forward_fold"), ()),
-    ("attn_block_probe", "attn_block_probe", {}, FLASH, ()),
+     ("flash_forward", "flash_forward_fold", "flash_forward_wgmma"), ()),
+    ("attn_block_probe", "attn_block_probe", {}, FLASH_BF16, ()),
     ("train_step_breakdown --attn flash", "train_step_breakdown",
-     dict(STEP_ARGS, attn="flash"), FLASH, ()),
+     dict(STEP_ARGS, attn="flash"), FLASH_BF16, ()),
     ("train_step_breakdown --attn xla", "train_step_breakdown",
-     dict(STEP_ARGS, attn="xla"), (), FLASH + ("flash_forward_fold",)),
+     dict(STEP_ARGS, attn="xla"), (), FLASH_BF16 + ("flash_forward_fold",)),
     ("mfu_study --only 0,10", "mfu_study", dict(only="0,10", steps=3),
-     FLASH, ()),
+     FLASH_BF16, ()),
 )
-#: the classification path: one frontend config per log-mel tier
+#: the tool runs whose every K2 call is bf16 at a default tile, unfolded:
+#: the tensor-core body must serve each one
+ALL_WGMMA_TOOLS = ("train_step_breakdown --attn flash",
+                   "mfu_study --only 0,10")
+#: the classification path: one frontend config per log-mel tier and body
+#: (the last is featurized only: no classifier trains on it)
 CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap"),
                       ("PANNs geometry", PANNS_MEL, "log_mel_packed"),
-                      ("magnitude v2", MAGNITUDE_MEL, "log_mel_generic"))
+                      ("magnitude v2", MAGNITUDE_MEL, "log_mel_fft"),
+                      ("magnitude n_fft 400", MAGNITUDE_400_MEL,
+                       "log_mel_generic"))
 
 
 def _run(cmd):
@@ -330,10 +356,12 @@ def kernel_phase(torch, rng):
     # drew before these cases existed
     direct_rng = np.random.default_rng(4)
 
-    def direct_case(label, cfg, shape, main):
+    def direct_case(label, cfg, shape, main, silent=False):
         t = np.arange(shape[1]) / 16000.0
         x = (0.3 * np.sin(2 * np.pi * 440 * t) * (1 + np.sin(t))
              + 0.05 * direct_rng.standard_normal(shape)).astype(np.float32)
+        if silent:                 # one silent clip: its log floor is finite
+            x[0] = 0.0
         x = torch.from_numpy(x).to(dev)
         frames, _ = fused_mel.direct_frames(x, cfg)
         consts = fused_mel.direct_constants(cfg, x.device)
@@ -345,13 +373,31 @@ def kernel_phase(torch, rng):
             plain = lambda: direct_mel.fused_logmel_packed_plain(  # noqa: E731
                 frames, *consts, mode)
         else:
-            name = "log_mel_generic"
-            kern = lambda: direct_mel.fused_logmel_frames_cuda(  # noqa: E731
-                frames, *consts, mode, cfg.power)
+            # K5's body by the dispatcher's rule; either is held against
+            # the direct DFT's plain version on the bases of
+            # frontend_constants
+            fft = direct_mel.fft_applicable(cfg.n_fft, cfg.power)
+            name = "log_mel_fft" if fft else "log_mel_generic"
+            if fft:
+                fconsts = fused_mel.fft_constants(cfg, x.device)
+                kern = lambda: direct_mel.fused_logmel_fft_cuda(  # noqa: E731
+                    frames, *fconsts, mode, cfg.power)
+            else:
+                kern = lambda: direct_mel.fused_logmel_frames_cuda(  # noqa: E731
+                    frames, *consts, mode, cfg.power)
             plain = lambda: direct_mel.fused_logmel_frames_plain(  # noqa: E731
                 frames, *consts, mode, cfg.power)
         got, ref = kern(), plain()
         e = err(got, ref)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}[{label}]: non-finite log-mel")
+        if silent:
+            floor = math.log(1e-6) if mode == "log1e6" else -10.0
+            e_floor = float((got[0] - floor).abs().max())
+            if not e_floor <= TOL_MEL:
+                raise AssertionError(f"{name}[{label}]: the silent clip is "
+                                     f"{e_floor:.3e} off the log floor")
+            label += f", silent clip at the floor within {e_floor:.1e}"
         ms = _time_ms(torch, kern)
         plain_ms = _time_ms(torch, plain)
         library = _library_logmel(torch, x, cfg)
@@ -369,6 +415,8 @@ def kernel_phase(torch, rng):
     direct_case("PANNs geometry", MelConfig(**PANNS_MEL), (64, 64000), True)
     direct_case("magnitude v2", MelConfig(**MAGNITUDE_MEL), (64, 64000),
                 True)
+    direct_case("magnitude n_fft 400", MelConfig(**MAGNITUDE_400_MEL),
+                (64, 64000), True)
     # ragged edges: n_fft 400 (not a multiple of 32), a short window, log10,
     # center=False, odd F with a power of 1.5, 200 and 256 mel bands
     direct_case("n_fft 400 win 320 hop 160 80 mels log10",
@@ -380,35 +428,60 @@ def kernel_phase(torch, rng):
     direct_case("n_fft 1024 hop 100 256 mels",
                 MelConfig(n_fft=1024, hop_length=100, n_mels=256),
                 (2, 8000), False)
+    # the FFT body off the main shape: 256 bands at power 1.5, n_fft 512
+    # and 2048 unpadded, and a silent clip
+    direct_case("n_fft 1024 hop 100 256 mels power 1.5",
+                MelConfig(n_fft=1024, hop_length=100, n_mels=256, power=1.5),
+                (2, 8000), False)
+    direct_case("n_fft 512 hop 160 power 1 center=False",
+                MelConfig(n_fft=512, hop_length=160, power=1.0,
+                          center=False), (3, 16001), False)
+    direct_case("n_fft 2048 hop 512 power 1 center=False",
+                MelConfig(n_fft=2048, hop_length=512, power=1.0,
+                          center=False), (3, 16001), False)
+    direct_case("magnitude v2", MelConfig(**MAGNITUDE_MEL), (4, 64000),
+                False, silent=True)
 
     # ---- K2: flash forward ---------------------------------------------------
     def flash_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main,
-                   tile=(None, None), gen=None):
-        q = torch.randn(b, hq, tq, 64, device=dev, generator=gen).to(dtype)
-        k = torch.randn(b, hkv, tk, 64, device=dev, generator=gen).to(dtype)
-        v = torch.randn(b, hkv, tk, 64, device=dev, generator=gen).to(dtype)
+                   tile=(None, None), gen=None, d=64, kv_len=None,
+                   key="flash_forward"):
+        q = torch.randn(b, hq, tq, d, device=dev, generator=gen).to(dtype)
+        k = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
+        v = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
         bq, bk = tile
-        o, lse = att.flash_forward_cuda(q, k, v, causal=causal, block_q=bq,
-                                        block_k=bk)
-        o_ref, lse_ref = att.flash_forward_plain(q, k, v, causal=causal)
-        e = max(err(o, o_ref), err(lse, lse_ref) if dtype == torch.float32
-                else 0.0)
-        ms = _time_ms(torch, lambda: att.flash_forward_cuda(
-            q, k, v, causal=causal, block_q=bq, block_k=bk))
+        kv = tk if kv_len is None else kv_len
+        body = att.fwd_body(dtype, d, bq, bk)
+
+        def kern():
+            return att.launch_flash_forward(q, k, v, causal=causal,
+                                            block_q=bq, block_k=bk,
+                                            kv_len=kv)
+        before = att.flash_forward_wgmma_cuda.launches
+        o, lse = kern()
+        if (att.flash_forward_wgmma_cuda.launches - before
+                != (body == "wgmma")):
+            raise AssertionError(f"flash_forward[{label}]: the {body} body "
+                                 "did not serve the call")
+        ks, vs = k[:, :, :kv], v[:, :, :kv]
+        o_ref, lse_ref = att.flash_forward_plain(q, ks, vs, causal=causal)
+        e = max(err(o, o_ref), err(lse, lse_ref))
+        ms = _time_ms(torch, kern)
         plain = _time_ms(torch, lambda: att.flash_forward_plain(
-            q, k, v, causal=causal))
+            q, ks, vs, causal=causal))
         lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=hq != hkv))
-        pairs = tq * (tq + 1) // 2 if causal else tq * tk
-        flops = 4 * b * hq * pairs * 64
+            q, ks, vs, is_causal=causal, enable_gqa=hq != hkv))
+        pairs = tq * (tq + 1) // 2 if causal else tq * kv
+        flops = 4 * b * hq * pairs * d
         elt = q.element_size()
-        nbytes = elt * 64 * (2 * b * hq * tq + 2 * b * hkv * tk) + 4 * b * hq * tq
+        nbytes = elt * d * (2 * b * hq * tq + 2 * b * hkv * kv) + 4 * b * hq * tq
         bound = _bound(flops, nbytes,
                        F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
-        _report(f"flash_forward[{label}]", e, tol, ms, plain, lib, bound)
+        _report(f"{key}[{label}] ({body} body, o and lse)", e, tol, ms,
+                plain, lib, bound)
         if main:
-            out["flash_forward"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                                        library_ms=lib, bound=bound)
+            out[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound=bound)
 
     flash_case("f32 [4,6,1500,64]", 4, 6, 6, 1500, 1500, torch.float32,
                False, TOL_F32, True)
@@ -423,6 +496,34 @@ def kernel_phase(torch, rng):
                torch.float32, False, TOL_F32, False)
     flash_case("f32 decoder self causal [4,8,56,64]", 4, 8, 8, 56, 56,
                torch.float32, True, TOL_F32, False)
+    # K2's bf16 body on the tensor cores (csrc/flash_fwd_sm90.cu): Whisper-
+    # small's encoder (the bf16 fine-tune step's shape), the masks, head
+    # dims 16/32/128 and every tile it is built at; on their own generator
+    gen9 = torch.Generator(device=dev).manual_seed(9)
+    bf16 = torch.bfloat16
+    flash_case("bf16 [8,12,1500,64]", 8, 12, 12, 1500, 1500, bf16, False,
+               TOL_BF16, True, gen=gen9, key="flash_forward_wgmma")
+    flash_case("bf16 causal GQA 8q/2kv T=200", 2, 8, 2, 200, 200, bf16,
+               True, TOL_BF16, False, gen=gen9, key="flash_forward_wgmma")
+    flash_case("bf16 cross q [4,8,56,64] kv [4,8,1500,64]", 4, 8, 8, 56,
+               1500, bf16, False, TOL_BF16, False, gen=gen9,
+               key="flash_forward_wgmma")
+    flash_case("bf16 ragged kv_len 1400 of 1536 rows", 4, 6, 6, 1500, 1536,
+               bf16, False, TOL_BF16, False, gen=gen9, kv_len=1400,
+               key="flash_forward_wgmma")
+    for d in (16, 32, 128):
+        flash_case(f"bf16 head_dim {d} [4,8,300,{d}]", 4, 8, 8, 300, 300,
+                   bf16, False, TOL_BF16, False, gen=gen9, d=d,
+                   key="flash_forward_wgmma")
+        flash_case(f"bf16 head_dim {d} causal GQA 8q/4kv T=130", 2, 8, 4,
+                   130, 130, bf16, True, TOL_BF16, False, gen=gen9, d=d,
+                   key="flash_forward_wgmma")
+    for tile in att.TILES:
+        if tile[0] >= 64 and tile != att.WGMMA_TILE:
+            flash_case(f"bf16 [8,12,1500,64] block_q {tile[0]} block_k "
+                       f"{tile[1]}", 8, 12, 12, 1500, 1500, bf16, False,
+                       TOL_BF16, False, tile=tile, gen=gen9,
+                       key="flash_forward_wgmma")
 
     # ---- K3: stacked decode attention -----------------------------------------
     def decode_case(label, s_len, pos, main, h=6, hkv=6, tq=1, gen=None):
@@ -546,6 +647,10 @@ def kernel_phase(torch, rng):
              False, TOL_F32, True)
     bwd_case("encoder bf16 [4,8,1500,64]", 4, 8, 8, 1500, 1500,
              torch.bfloat16, False, TOL_BF16, False)
+    # the bf16 fine-tune step's encoder shape (Whisper-small, B = 8), on the
+    # lse of K2's tensor-core body, beside SDPA's bf16 backward
+    bwd_case("encoder bf16 [8,12,1500,64]", 8, 12, 12, 1500, 1500,
+             torch.bfloat16, False, TOL_BF16, False, gen=gen9)
     bwd_case("decoder self causal f32 [4,8,56,64]", 4, 8, 8, 56, 56,
              torch.float32, True, TOL_F32, False)
     bwd_case("cross f32 q [4,8,56,64] kv [4,8,1500,64]", 4, 8, 8, 56, 1500,
@@ -971,8 +1076,10 @@ def _kernel_group(name):
               ("K3/K6 decode_attn", ("decode_attn",)),
               ("K7 flash_bwd_dq", ("flash_bwd_dq",)),
               ("K8 flash_bwd_dkv", ("flash_bwd_dkv",)),
+              ("K2 flash_fwd_sm90 (wgmma)", ("flash_fwd_sm90",)),
               ("K2 flash_fwd", ("flash_fwd",)),
               ("K4/K5 log_mel_direct", ("log_mel_direct",)),
+              ("K5 log_mel_fft", ("log_mel_fft",)),
               ("K1 log_mel", ("log_mel",)),
               ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "splitK")),
               ("conv (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad")),
@@ -1515,7 +1622,8 @@ def _featurize(torch, us, name, kw, kernel):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    direct = {"log_mel_overlap", "log_mel_packed", "log_mel_generic"}
+    direct = {"log_mel_overlap", "log_mel_packed", "log_mel_generic",
+              "log_mel_fft"}
     _check_launches(counts, (kernel,), f"featurize ({name})")
     others = {k: c["cuda"] for k, c in counts.items()
               if k in direct - {kernel} and c["cuda"]}
@@ -1762,9 +1870,17 @@ def attention_tools_phase(torch):
     summed."""
     import importlib
 
+    from audax_torch.ops import attention as att
     from audax_torch.ops import launch_counts, reset_launches
     from audax_torch.tools import probe_launch_counts, reset_probe_launches
 
+    # the tools' bf16 calls at 64 or more query rows, unfolded, are the
+    # tensor-core body's by the body table; its 32-row tiles and the folds
+    # are the CUDA cores'
+    core = [t for t in att.TILES if t[0] >= 64 and att.fwd_body(
+        torch.bfloat16, 64, *t) != "wgmma"]
+    if core or att.fwd_body(torch.bfloat16, 64) != "wgmma":
+        raise AssertionError(f"bf16 tiles {core} routed to the CUDA cores")
     total = {}
     for label, name, kwargs, kernels, absent in ATTENTION_TOOLS:
         tool = importlib.import_module(f"audax_torch.tools.{name}")
@@ -1779,6 +1895,11 @@ def attention_tools_phase(torch):
         ran = {k for k in absent if counts[k]["cuda"]}
         if ran:
             raise AssertionError(f"{label}: {sorted(ran)} launched")
+        if label in ALL_WGMMA_TOOLS and (counts["flash_forward"]["cuda"]
+                                         != counts["flash_forward_wgmma"]
+                                         ["cuda"]):
+            raise AssertionError(f"{label}: a bf16 K2 call ran on the "
+                                 "CUDA-core body")
         rows = rep.get("rows", rep.get("configs"))
         if not rows or any("error" in r for r in rows):
             raise AssertionError(f"{label}: no rows, or rows with errors")
@@ -1853,6 +1974,15 @@ def main() -> int:
           f"({'; '.join(nvcc_s)}); ptxas: {' | '.join(regs)}; spills: "
           f"{' | '.join(spills) or 'none'}", flush=True)
 
+    lib = str(native.lib_path("flash_fwd_sm90"))
+    cuobjdump = str(Path(native.nvcc_path()).parent / "cuobjdump")
+    sass = _run([cuobjdump, "--dump-sass", lib])
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"[build] flash_fwd_sm90 SASS: {hgmma} HGMMA instructions",
+          flush=True)
+    if hgmma == 0:
+        raise AssertionError("the tensor-core body holds no HGMMA")
+
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
     precision_check(torch)
@@ -1869,7 +1999,7 @@ def main() -> int:
                                               classify))
                 for k in transcribe}
     launches.update(probes)
-    for k in FLASH + ("flash_forward_fold",):
+    for k in FLASH_BF16 + ("flash_forward_fold",):
         launches[k] = launches.get(k, 0) + tools[k]
 
     sources = {"log_mel_overlap": ("audax_torch/csrc/log_mel_overlap.cu",
@@ -1878,8 +2008,12 @@ def main() -> int:
                                   "audax/ops/pallas_mel.py:271"),
                "log_mel_generic": ("audax_torch/csrc/log_mel_direct.cu",
                                    "audax/ops/pallas_mel.py:334"),
+               "log_mel_fft": ("audax_torch/csrc/log_mel_fft.cu",
+                               "audax/ops/pallas_mel.py:334"),
                "flash_forward": ("audax_torch/csrc/flash_fwd.cu",
                                  "audax/ops/attention.py:161"),
+               "flash_forward_wgmma": ("audax_torch/csrc/flash_fwd_sm90.cu",
+                                       "audax/ops/attention.py:161"),
                "flash_forward_fold": ("audax_torch/csrc/flash_fwd.cu",
                                       "tools/attn_headfold_probe.py:90"),
                "flash_backward_dq": ("audax_torch/csrc/flash_bwd.cu",

@@ -12,6 +12,11 @@
 * ``flash_attention(fold=)`` follows JAX's ``_pick_fold``; the tiles and
   folds a wrapper takes are the documented set, and anything else raises
   ``ValueError`` before any dispatch.
+* K2's body table (``FWD_BODIES``): every call the paths and tools make
+  resolves to one body -- bf16 at 64 or more query rows unfolded to the
+  tensor cores, the rest to the CUDA cores -- the table agrees with the
+  instantiations in both sources, and every tile fits one block's shared
+  memory.
 * ``dot_product_attention(backend=)`` and ``attention_backend`` route to
   the twin or the flash path (read off the plain versions' counters).
 * ``utils/flops.py`` equals the JAX package's exactly.
@@ -26,6 +31,7 @@
 import functools
 import importlib.util
 import json
+import re
 import threading
 from pathlib import Path
 
@@ -205,6 +211,95 @@ def test_tiles_off_head_dim_64_keep_the_defaults_only():
         att.resolve_tile("dq", 128, 64, 32)
 
 
+# ---- K2's body table --------------------------------------------------------------
+
+def _k2_calls():
+    """Every (dtype, head_dim, block_q, block_k, fold) of a K2 call the
+    paths and tools make: each path's default at every head dim, the block
+    probe's grid, the fold probe's arms and ``flash_attention(fold=)``."""
+    calls = set()
+    for dt in (torch.float32, torch.bfloat16):
+        calls |= {(dt, d, None, None, 1) for d in (16, 32, 64, 128)}
+        calls |= {(dt, 64, bq, bk, 1) for bq, bk in bp.GRID}
+        calls |= {(dt, 64, bq, hf.BLOCK_K, f) for _, f, bq in hf.ARMS}
+        calls |= {(dt, 64, None, None, f) for f in att.FOLDS}
+    return sorted(calls, key=str)
+
+
+@pytest.mark.parametrize("call", _k2_calls(), ids=str)
+def test_every_k2_call_resolves_to_one_body(call):
+    dt, d, bq, bk, fold = call
+    body = att.fwd_body(dt, d, bq, bk, fold)
+    tile = att.resolve_tile("fwd", d, bq, bk, fold, dtype=dt)
+    assert body in att.BODIES
+    assert att.FWD_BODIES[(dt, d, tile, fold)] == body
+    tensor_cores = dt == torch.bfloat16 and fold == 1 and tile[0] >= 64
+    assert body == ("wgmma" if tensor_cores else "cuda_core")
+
+
+def test_head_dims_no_kernel_takes_keep_the_plain_path_on_cpu():
+    """A head dim off the kernels' set (8, a tiny test model's) resolves to
+    the default tile and runs the plain version on the CPU, in either
+    dtype, as before the body table; it has no body on the card."""
+    for dt in (torch.float32, torch.bfloat16):
+        assert att.resolve_tile("fwd", 8, dtype=dt) == att._default_tile(
+            "fwd", 8, dt)
+        with pytest.raises(ValueError, match="no body"):
+            att.fwd_body(dt, 8)
+        q, k, v = (t.to(dt) for t in _qkv(d=8))
+        out = att.flash_attention(q, k, v)
+        torch.testing.assert_close(out, att.xla_attention(q, k, v),
+                                   rtol=0, atol=0)
+
+
+def test_bf16_keeps_32_row_tiles_and_folds_on_the_cuda_cores():
+    bf16 = torch.bfloat16
+    for bk in (32, 64, 128):
+        assert att.fwd_body(bf16, 64, 32, bk) == "cuda_core"
+    for fold in att.FOLDS:
+        assert att.fwd_body(bf16, 64, fold=fold) == "cuda_core"
+        assert att.resolve_tile("fwd", 64, fold=fold, dtype=bf16) == (64, 64)
+    for d in (16, 32, 64, 128):
+        assert att.resolve_tile("fwd", d, dtype=bf16) == att.WGMMA_TILE
+        assert att.fwd_body(bf16, d) == "wgmma"
+        assert att.fwd_body(torch.float32, d) == "cuda_core"
+
+
+@pytest.mark.parametrize("call", [
+    (torch.bfloat16, 32, 64, 64, 1), (torch.bfloat16, 128, 32, 32, 1),
+    (torch.bfloat16, 16, 128, 64, 1), (torch.bfloat16, 64, 256, 64, 1),
+    (torch.bfloat16, 64, 128, 128, 2), (torch.float32, 32, 128, 64, 1),
+], ids=str)
+def test_k2_calls_off_the_body_table_raise(call):
+    dt, d, bq, bk, fold = call
+    with pytest.raises(ValueError):
+        att.fwd_body(dt, d, bq, bk, fold)
+    q = torch.zeros(1, 2, 20, d, dtype=dt)
+    before = att.flash_forward_plain.launches
+    with pytest.raises(ValueError):
+        att.flash_forward(q, q, q, block_q=bq, block_k=bk, fold=fold)
+    assert att.flash_forward_plain.launches == before
+
+
+def test_body_table_matches_the_sources_and_fits_shared_memory():
+    csrc = REPO / "audax_torch" / "csrc"
+    wgmma = {tuple(map(int, m)) for m in re.findall(
+        r"AUDAX_FWD90\((\d+), (\d+), (\d+)\)",
+        (csrc / "flash_fwd_sm90.cu").read_text())}
+    core = {tuple(map(int, m)) for m in re.findall(
+        r"AUDAX_FWD\((\d+), (\d+), (\d+), (\d+)\)",
+        (csrc / "flash_fwd.cu").read_text())}
+    table = {body: {(d,) + tile + ((fold,) if body == "cuda_core" else ())
+                    for (_, d, tile, fold), b in att.FWD_BODIES.items()
+                    if b == body} for body in att.BODIES}
+    assert table["wgmma"] == wgmma
+    assert table["cuda_core"] <= core
+    assert all(att._fwd_wgmma_smem(*t) <= 232448 for t in wgmma)
+    assert all(att._fwd_smem(*t) <= 232448 for t in core)
+    with pytest.raises(ValueError, match="CUDA"):
+        att.flash_forward_wgmma_cuda(*[torch.zeros(1, 2, 20, 64)] * 3)
+
+
 # ---- the backend and its scoped default ----------------------------------------
 
 def _flash_calls(fn):
@@ -317,7 +412,8 @@ def test_block_probe_on_cpu(tmp_path, results_untouched):
         json.dumps(rep["rows"]))
     tiles = [(r["block_q"], r["block_k"]) for r in rep["rows"]]
     assert tiles[0] == (None, None)
-    assert sorted(tiles[1:] + [(64, 64)]) == sorted(att.TILES)
+    assert sorted(tiles[1:]) == sorted(att.TILES)
+    assert tuple(rep["best_fwd"].values()) in att.TILES
     assert {"block_q", "block_k", "fwd_us", "fwd_tflops", "bwd_us",
             "bwd_tflops"} <= _keys(rep["rows"])
     assert not any("error" in r for r in rep["rows"])

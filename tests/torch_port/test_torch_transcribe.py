@@ -162,7 +162,9 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.tools.attn_headfold_probe',"
         " 'audax_torch.tools.attn_block_probe',"
         " 'audax_torch.tools.train_step_breakdown',"
-        " 'audax_torch.tools.mfu_study'}\n"
+        " 'audax_torch.tools.mfu_study', 'audax_torch.ops.attention',"
+        " 'audax_torch.ops.fused_mel', 'audax_torch.ops.mel',"
+        " 'audax_torch.ops.native'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow'))\n"
