@@ -516,11 +516,6 @@ int launch(const Args& a) {
 
 extern "C" {
 
-// Shared memory one block of (head_dim, block_q, block_k) takes.
-int flash_fwd_sm90_smem(int head_dim, int block_q, int block_k) {
-  return smem_bytes(head_dim, block_q, block_k);
-}
-
 // q [B, Hq, Tq, D], k/v [B, Hkv, tk_stride, D] (keys >= kv_len masked), o
 // like q, all bfloat16, contiguous and 16-byte aligned; lse [B*Hq, Tq]
 // float32. (head_dim, block_q, block_k) must be one of the set below, which

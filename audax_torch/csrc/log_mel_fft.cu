@@ -239,11 +239,6 @@ int launch(const float* sig, long long clip_stride, int hop, int n_frames,
 
 extern "C" {
 
-// Shared memory one block takes at (n_fft, n_mels).
-long long log_mel_fft_smem(int n_fft, int n_mels) {
-  return 4 * smem_floats(n_fft, n_mels);
-}
-
 // Frames: frame t of clip b starts at sig + b * clip_stride + t * hop
 // (n_frames frames a clip, n_rows = clips * n_frames in all; unit sample
 // stride). window [n_fft], tw [(n_fft + 1) * 2] (the layout above), fb

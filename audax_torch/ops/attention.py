@@ -124,14 +124,14 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
 #: K2's bf16 tile on the tensor-core body at every head dim (block_q,
 #: block_k): the fastest of the card's ``attn_block_probe`` sweep
 WGMMA_TILE = (64, 128)
-#: K2's two bodies: float32 FMAs on the CUDA cores (``csrc/flash_fwd.cu``)
-#: and bf16 wgmma on the tensor cores (``csrc/flash_fwd_sm90.cu``)
-BODIES = ("cuda_core", "wgmma")
 
 
 def _fwd_bodies() -> dict:
     """``{(dtype, head_dim, (block_q, block_k), fold): body}``: every K2
-    call the kernels are built for, and the body that serves it. float32
+    call the kernels are built for, and the body that serves it --
+    "cuda_core" (float32 FMAs, ``csrc/flash_fwd.cu``, built in either
+    dtype at every (head_dim, tile, fold) float32 takes) or "wgmma" (bf16 on the tensor cores,
+    ``csrc/flash_fwd_sm90.cu``). float32
     runs on the CUDA cores at the default tile for every head dim, at every
     caller-set tile at head_dim 64 and in the folds. bf16 runs on the
     tensor cores at ``WGMMA_TILE`` for every head dim and at every caller-set
@@ -182,8 +182,8 @@ def _fwd_wgmma_smem(d: int, block_q: int, block_k: int) -> int:
 
 def fwd_body(dtype: torch.dtype, d: int, block_q: Optional[int] = None,
              block_k: Optional[int] = None, fold: int = 1) -> str:
-    """The body of ``BODIES`` that serves a K2 call (tiles as
-    ``resolve_tile`` takes them); raises ``ValueError`` off the table."""
+    """The body ``FWD_BODIES`` gives a K2 call (tiles as ``resolve_tile``
+    takes them); raises ``ValueError`` off the table."""
     tile = resolve_tile("fwd", d, block_q, block_k, fold, dtype=dtype)
     if (dtype, d, tile, fold) not in FWD_BODIES:
         raise ValueError(f"K2 has no body for {dtype} at head_dim {d}")
@@ -283,14 +283,18 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          block_q: Optional[int] = None,
                          block_k: Optional[int] = None, fold: int = 1,
                          kv_len: Optional[int] = None,
-                         name: str = "flash_forward"
+                         name: str = "flash_forward",
+                         body: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of K2 on the body ``FWD_BODIES`` names (the CUDA-core
     ``csrc/flash_fwd.cu`` or, counted by ``flash_forward_wgmma_cuda``, the
     tensor-core ``csrc/flash_fwd_sm90.cu``), otherwise counted by no one:
     q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D] with keys at or past ``kv_len``
     (default Tk) masked and never read; ``fold`` heads of the fused B*Hq
-    axis per block. Returns ``(o, lse [B*Hq, Tq])``."""
+    axis per block. ``body="cuda_core"`` takes the CUDA-core body at any
+    (head_dim, tile, fold) float32 takes, whatever the dtype (the
+    head-fold probe's A/B within that body). Returns
+    ``(o, lse [B*Hq, Tq])``."""
     _check_cuda(name, q, k, v)
     b, hq, tq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -310,7 +314,11 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if fold > 1 and (hq != hkv or causal or (b * hq) % fold):
         raise ValueError(f"{name}: fold {fold} needs non-causal MHA and B*Hq "
                          f"= {b * hq} divisible by it")
-    if FWD_BODIES[(q.dtype, d, (bq, bk), fold)] == "wgmma":
+    if body is not None and (body != "cuda_core" or (
+            torch.float32, d, (bq, bk), fold) not in FWD_BODIES):
+        raise ValueError(f"{name}: no {body!r} body at head_dim {d}, tile "
+                         f"{(bq, bk)}, fold {fold}")
+    if body is None and FWD_BODIES[(q.dtype, d, (bq, bk), fold)] == "wgmma":
         return flash_forward_wgmma_cuda(q, k, v, causal=causal, scale=scale,
                                         block_q=bq, block_k=bk, kv_len=kv_len,
                                         name=name)
@@ -338,17 +346,18 @@ def flash_forward_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
     """K2's bf16 tensor-core body (``csrc/flash_fwd_sm90.cu``): one
     counted launch, same contract as ``flash_forward_plain`` with keys at or
     past ``kv_len`` masked. Takes bf16, 16-byte-aligned operands at a
-    (head_dim, tile) that ``FWD_BODIES`` gives this body; raises
-    otherwise."""
+    (head_dim, tile) that ``FWD_BODIES`` gives this body (default
+    ``WGMMA_TILE``), as ``launch_flash_forward`` routes them; the library
+    refuses any other with ``cudaErrorInvalidValue``, which raises."""
     _check_cuda(name, q, k, v)
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     kv_len = tk if kv_len is None else int(kv_len)
-    tile = resolve_tile("fwd", d, block_q, block_k, dtype=q.dtype)
-    if FWD_BODIES.get((q.dtype, d, tile, 1)) != "wgmma":
-        raise ValueError(f"{name}: the tensor-core body takes bf16 at a "
-                         f"FWD_BODIES tile, not {q.dtype} at head_dim {d} "
-                         f"with {tile}")
+    tile = (WGMMA_TILE[0] if block_q is None else int(block_q),
+            WGMMA_TILE[1] if block_k is None else int(block_k))
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the tensor-core body takes bf16, not "
+                         f"{q.dtype}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: the tensor-core body copies 16-byte "
                          f"chunks; q, k and v must be 16-byte aligned")
@@ -374,8 +383,11 @@ def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        block_q: Optional[int] = None,
                        block_k: Optional[int] = None, fold: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel K2 (``csrc/flash_fwd.cu``); same contract as
-    ``flash_forward_plain``."""
+    """The CUDA kernel K2 on the body ``FWD_BODIES`` gives the call
+    (``csrc/flash_fwd.cu`` on the CUDA cores or ``csrc/flash_fwd_sm90.cu``
+    on the tensor cores); same contract as ``flash_forward_plain``. Its
+    count holds K2's launches on both bodies; those of the tensor-core body
+    are ``flash_forward_wgmma_cuda``'s count as well."""
     out = launch_flash_forward(q, k, v, causal=causal, scale=scale,
                                block_q=block_q, block_k=block_k, fold=fold)
     flash_forward_cuda.launches += 1

@@ -73,7 +73,6 @@ SIGNATURES = {
                                 _P, _I, _I, _F, _P], _I),
     },
     "log_mel_fft": {
-        "log_mel_fft_smem": ([_I] * 2, _LL),
         "log_mel_fft_f32": ([_P, _LL, _I, _I, _LL, _I, _P, _P, _P, _P, _P,
                              _I, _I, _F, _P], _I),
     },
@@ -81,7 +80,6 @@ SIGNATURES = {
         "flash_fwd": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P], _I),
     },
     "flash_fwd_sm90": {
-        "flash_fwd_sm90_smem": ([_I] * 3, _I),
         "flash_fwd_sm90": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P], _I),
     },
     "flash_bwd_dq": {

@@ -9,21 +9,24 @@ takes the same query tile of ``fold`` consecutive heads, each warp group
 its own head, and the heads' K/V tiles are staged under one barrier per key
 tile. ``fold_fwd`` is P1: that kernel on q3 [BH, Tq, D] and k3/v3 [BH,
 Tk_p, D] with keys at or past ``kv_len`` masked (no GQA, no causal mask),
-returning O in q's dtype and lse [BH, Tq, 1] float32. Its plain version is
+returning O in q's dtype and lse [BH, Tq, 1] float32. It always runs K2's
+CUDA-core body, in either dtype and at fold 1 too. Its plain version is
 K2's plain math on the first ``kv_len`` keys of every head.
 
 ``main`` times four kernel arms at bf16 [96, 1536, 64] (Whisper-small's
-encoder, B = 8 x 12 heads): K2 at the 64 x 64 tile ("base_bq64", the
-reference of ``speedup_vs_default``), K2 with 128 query rows per block
-("base_bq128"), and P1 folding 2 and 4 heads at the 64 x 64 tile
-("fold2_bq64", "fold4_bq64"). In bf16 the two unfolded arms run K2's
-tensor-core body and the folds its CUDA-core body
-(``ops/attention.py:FWD_BODIES``). fold2_bq64 and base_bq128 each take 128
+encoder, B = 8 x 12 heads), all on that one body, so the A/B is the fold's
+alone: fold 1 at the 64 x 64 tile ("base_bq64", the reference of
+``speedup_vs_default``), fold 1 with 128 query rows per block
+("base_bq128"), and folding 2 and 4 heads at the 64 x 64 tile
+("fold2_bq64", "fold4_bq64"). fold2_bq64 and base_bq128 each take 128
 query rows per block, of two heads or of one. Then the product A/B: the
 real ``flash_attention`` at [8, 12, 1500, 64] with ``fold=2`` and
-``fold=1`` (JAX: ``AUDAX_ATTN_FOLD``). Each arm is slope-timed over eager
-calls between CUDA events (``utils/profiling.py:slope_timed_eager``, 5 and
-25 calls, best of 2). Verdict: ``keep`` when the product call folded is at
+``fold=1`` (JAX: ``AUDAX_ATTN_FOLD``), each on the body the product gives
+it (``ops/attention.py:FWD_BODIES``): in bf16 the fold runs on the CUDA
+cores and fold 1 on the tensor cores, so that verdict weighs folding
+against the body it gives up. Each arm is slope-timed over eager calls
+between CUDA events (``utils/profiling.py:slope_timed_eager``, 5 and 25
+calls, best of 2). Verdict: ``keep`` when the product call folded is at
 least 1.05x faster, as in JAX.
 
     python -m audax_torch.tools.attn_headfold_probe [--device cpu] [--out PATH]
@@ -83,12 +86,14 @@ def fold_fwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, *,
                   scale: float, kv_len: int, fold: int,
                   block_q: Optional[int] = None,
                   block_k: Optional[int] = None):
-    """P1: K2's kernel folding ``fold`` heads per block (``fold`` 1 is K2
-    itself); same contract as ``fold_fwd_plain``."""
+    """P1: K2's CUDA-core kernel folding ``fold`` heads per block (``fold``
+    1 is that body unfolded, in bf16 too); same contract as
+    ``fold_fwd_plain``."""
     _check_3d("fold_fwd", q3, k3, v3)
     o, lse = att.launch_flash_forward(
         q3[None], k3[None], v3[None], scale=scale, block_q=block_q,
-        block_k=block_k, fold=fold, kv_len=kv_len, name="fold_fwd")
+        block_k=block_k, fold=fold, kv_len=kv_len, name="fold_fwd",
+        body="cuda_core")
     fold_fwd_cuda.launches += 1
     return o[0], lse.reshape(*q3.shape[:2], 1)
 
@@ -128,15 +133,9 @@ def main(device=None, out=None) -> dict:
 
     rows, t_ref, o_base = [], None, None
     for arm, fold, bq in ARMS:
-        if fold == 1:        # K2, as the JAX tool runs the shipped _fwd
-            def fn(bq=bq):
-                return att.flash_forward(q[None], k[None], v[None],
-                                         scale=scale, block_q=bq,
-                                         block_k=BLOCK_K)[0][0]
-        else:
-            def fn(fold=fold, bq=bq):
-                return fold_fwd(q, k, v, scale=scale, kv_len=t, fold=fold,
-                                block_q=bq, block_k=BLOCK_K)[0]
+        def fn(fold=fold, bq=bq):
+            return fold_fwd(q, k, v, scale=scale, kv_len=t, fold=fold,
+                            block_q=bq, block_k=BLOCK_K)[0]
         o = fn().float()
         o_base = o if o_base is None else o_base
         err = float((o - o_base).abs().max())

@@ -231,7 +231,7 @@ def test_every_k2_call_resolves_to_one_body(call):
     dt, d, bq, bk, fold = call
     body = att.fwd_body(dt, d, bq, bk, fold)
     tile = att.resolve_tile("fwd", d, bq, bk, fold, dtype=dt)
-    assert body in att.BODIES
+    assert body in ("cuda_core", "wgmma")
     assert att.FWD_BODIES[(dt, d, tile, fold)] == body
     tensor_cores = dt == torch.bfloat16 and fold == 1 and tile[0] >= 64
     assert body == ("wgmma" if tensor_cores else "cuda_core")
@@ -291,9 +291,15 @@ def test_body_table_matches_the_sources_and_fits_shared_memory():
         (csrc / "flash_fwd.cu").read_text())}
     table = {body: {(d,) + tile + ((fold,) if body == "cuda_core" else ())
                     for (_, d, tile, fold), b in att.FWD_BODIES.items()
-                    if b == body} for body in att.BODIES}
+                    if b == body} for body in ("cuda_core", "wgmma")}
     assert table["wgmma"] == wgmma
     assert table["cuda_core"] <= core
+    # the CUDA-core body is built, in either dtype, wherever float32 runs:
+    # the head-fold probe's arms take it at fold 1 too
+    assert {(d,) + tile + (fold,) for (dt, d, tile, fold) in att.FWD_BODIES
+            if dt == torch.float32} <= core
+    assert all((torch.float32, 64, (bq, hf.BLOCK_K), f) in att.FWD_BODIES
+               for _, f, bq in hf.ARMS)
     assert all(att._fwd_wgmma_smem(*t) <= 232448 for t in wgmma)
     assert all(att._fwd_smem(*t) <= 232448 for t in core)
     with pytest.raises(ValueError, match="CUDA"):
