@@ -20,8 +20,11 @@
 // two kernels do 14*B*H*T*T*D = 64.5 GFLOP (6 in dQ, 8 in dK/dV) against
 // 31 MB of operands, so they are bound by operations. In float32 those run
 // on the CUDA cores (67 TFLOP/s): TF32 tensor cores would break parity with
-// the float32 reference. bfloat16 inputs are widened to float32 in shared
-// memory and take the same path -- moving them to wgmma is later work.
+// the float32 reference. bfloat16 runs on the tensor cores
+// (csrc/flash_bwd_sm90.cu, wgmma) wherever that body takes the tile;
+// here bfloat16 inputs are widened to float32 in shared memory and take
+// the float32 path, for the tiles wgmma cannot take (K7 at 32 query rows,
+// K8 at 32 keys) and for a caller that asks for this body by name.
 //
 // Design: both kernels follow flash_fwd.cu's layout -- 4 warps, tiles
 // staged in shared memory as float32 with rows padded to D+4 floats (float4
@@ -40,8 +43,8 @@
 //
 // The tiles (BQ, BK) are template parameters. The default is 64 x 64, with
 // K8 at 32 keys for D = 128 to keep its two accumulators in registers;
-// dispatch() lists the instantiated set, which ops/attention.py validates
-// a call against (TILES, resolve_tile).
+// dispatch() lists the instantiated set, which ops/attention.py's body
+// table (BWD_BODIES) holds too.
 //
 // Every output element is written by exactly one block and no float atomics
 // are used, so the gradients are the same from run to run.
@@ -441,10 +444,8 @@ int launch_dkv(const Args& a) {
 // default tile at every head dim, and the 3 x 3 grid of 32/64/128 at D = 64
 #if defined(AUDAX_FLASH_BWD_DKV)
 #define AUDAX_LAUNCH launch_dkv
-constexpr bool kDkv = true;
 #else
 #define AUDAX_LAUNCH launch_dq
-constexpr bool kDkv = false;
 #endif
 
 template <typename T>
@@ -463,10 +464,13 @@ int dispatch(int d, int bq, int bk, const Args& a) {
   AUDAX_BWD(64, 128, 32)
   AUDAX_BWD(64, 128, 64)
   AUDAX_BWD(64, 128, 128)
-#undef AUDAX_BWD
   // head_dim 128: K7 at 64 x 64, K8 at 64 x 32
-  if (d == 128 && bq == 64 && bk == (kDkv ? 32 : 64))
-    return AUDAX_LAUNCH<128, 64, (kDkv ? 32 : 64), T>(a);
+#if defined(AUDAX_FLASH_BWD_DKV)
+  AUDAX_BWD(128, 64, 32)
+#else
+  AUDAX_BWD(128, 64, 64)
+#endif
+#undef AUDAX_BWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,8 +15,10 @@ from audax_torch.ops.attention import (decode_attention_cuda,
                                        decode_attention_stacked_plain,
                                        flash_backward_dkv_cuda,
                                        flash_backward_dkv_plain,
+                                       flash_backward_dkv_wgmma_cuda,
                                        flash_backward_dq_cuda,
                                        flash_backward_dq_plain,
+                                       flash_backward_dq_wgmma_cuda,
                                        flash_forward_cuda, flash_forward_plain,
                                        flash_forward_wgmma_cuda)
 from audax_torch.ops.direct_mel import (fused_logmel_fft_cuda,
@@ -43,6 +45,10 @@ KERNELS = {
     "flash_forward_wgmma": (flash_forward_wgmma_cuda, flash_forward_plain),
     "flash_backward_dq": (flash_backward_dq_cuda, flash_backward_dq_plain),
     "flash_backward_dkv": (flash_backward_dkv_cuda, flash_backward_dkv_plain),
+    "flash_backward_dq_wgmma": (flash_backward_dq_wgmma_cuda,
+                                flash_backward_dq_plain),
+    "flash_backward_dkv_wgmma": (flash_backward_dkv_wgmma_cuda,
+                                 flash_backward_dkv_plain),
     "decode_attention_stacked": (decode_attention_stacked_cuda,
                                  decode_attention_stacked_plain),
     "decode_attention_stacked_int8": (decode_attention_stacked_int8_cuda,

@@ -18,6 +18,8 @@ Port of ``audax/ops/attention.py``:
     (the JAX package leaves it to XLA), and a kv head's gradient sums its
     whole q-head group. ``flash_attention`` is a ``torch.autograd.Function``
     whose forward is K2 and whose backward is K7 + K8.
+    ``flash_backward_dq_wgmma_cuda`` / ``flash_backward_dkv_wgmma_cuda``
+    launch K7/K8's bf16 bodies on the tensor cores.
   * ``xla_attention`` (the materialised twin, any mask), ``flash_applicable``
     and ``dot_product_attention``, which takes the flash path wherever
     ``flash_applicable`` holds -- the rule the TPU path follows -- and the
@@ -39,19 +41,27 @@ Port of ``audax/ops/attention.py``:
 
 Tiles. ``block_q`` is the query rows per block of K2 and K7 and the query
 tile K8 loops over; ``block_k`` the keys per tile of K2 and K7 and the keys
-per block of K8. ``None`` keeps each kernel's default, (64, 64), with K8 at
-(64, 32) for head_dim 128 and K2 at ``WGMMA_TILE`` for bf16. The
-caller-set tiles are ``TILES`` -- every pair of 32, 64 and 128 -- at
-head_dim 64, for all three kernels; ``fold`` 2 or 4 (``FOLDS``) runs at
-head_dim 64 with the 64 x 64 tile. K2 has two bodies, and one table,
-``FWD_BODIES``, maps each (dtype, head_dim, tile, fold) it takes to one:
-float32 on the CUDA cores (``csrc/flash_fwd.cu``); bf16 on the tensor cores
-(``csrc/flash_fwd_sm90.cu``, wgmma) at every tile of 64 or 128 query rows,
-its 32-row tiles and folds on the CUDA cores. A wrapper checks (block_q,
-block_k, head_dim, fold) and K2's (dtype, ...) against that set before it
-dispatches, so a CPU call raises the same ``ValueError`` as the card would;
-nothing is silently replaced. JAX's tiles (2048, 512, ...) are TPU VMEM
-blocks.
+per block of K8. ``None`` keeps each kernel's default: in float32 (64, 64),
+with K8 at (64, 32) for head_dim 128; in bf16 ``WGMMA_TILE`` for K2 and
+``BWD_WGMMA_TILE`` for K7 and K8. The caller-set tiles are ``TILES`` --
+every pair of 32, 64 and 128 -- at head_dim 64, for all three kernels;
+``fold`` 2 or 4 (``FOLDS``) runs at head_dim 64 with the 64 x 64 tile.
+
+Bodies. Each of K2, K7 and K8 has two, and one table per direction maps
+every call the kernels are built for to one of them: ``FWD_BODIES``
+((dtype, head_dim, tile, fold) of K2) and ``BWD_BODIES`` ((kernel, dtype,
+head_dim, tile) of K7 "dq" and K8 "dkv"). float32 runs on the CUDA cores
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) everywhere; bf16 runs on
+the tensor cores (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``,
+wgmma) wherever wgmma takes the tile -- K2 and K7 at 64 or 128 query
+rows, K8 at 64 or 128 keys -- and its other tiles and K2's folds on the
+CUDA cores. A wrapper checks (block_q, block_k, head_dim, fold) and the
+(dtype, ...) against those tables before it dispatches, so a CPU call
+raises the same ``ValueError`` as the card would; nothing is silently
+replaced. Each body counts its own launches: ``flash_forward_cuda``,
+``flash_backward_dq_cuda`` and ``flash_backward_dkv_cuda`` those on the
+CUDA cores, the ``*_wgmma_cuda`` launchers those on the tensor cores.
+JAX's tiles (2048, 512, ...) are TPU VMEM blocks.
 
 Each kernel function dispatches on the tensor it is given: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
@@ -66,14 +76,16 @@ import torch
 
 from audax_torch.ops import native
 
-__all__ = ["TILES", "FOLDS", "WGMMA_TILE", "BODIES", "FWD_BODIES",
-           "fwd_body", "resolve_tile", "pick_fold",
+__all__ = ["TILES", "FOLDS", "WGMMA_TILE", "BWD_WGMMA_TILE", "FWD_BODIES",
+           "BWD_BODIES", "fwd_body", "bwd_body", "resolve_tile", "pick_fold",
            "flash_forward", "flash_forward_cuda", "flash_forward_plain",
            "flash_forward_wgmma_cuda",
            "launch_flash_forward", "attention_backend",
            "flash_backward", "flash_backward_plain", "flash_backward_dq_plain",
            "flash_backward_dkv_plain", "flash_backward_dq_cuda",
-           "flash_backward_dkv_cuda", "flash_attention", "FlashAttention",
+           "flash_backward_dkv_cuda", "flash_backward_dq_wgmma_cuda",
+           "flash_backward_dkv_wgmma_cuda", "flash_attention",
+           "FlashAttention",
            "xla_attention", "flash_applicable", "dot_product_attention",
            "decode_attention_stacked", "decode_attention_stacked_cuda",
            "decode_attention_stacked_plain",
@@ -124,6 +136,11 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
 #: K2's bf16 tile on the tensor-core body at every head dim (block_q,
 #: block_k): the fastest of the card's ``attn_block_probe`` sweep
 WGMMA_TILE = (64, 128)
+#: K7's and K8's bf16 tile on their tensor-core bodies at every head dim
+#: (block_q, block_k): the fastest backward of the card's
+#: ``attn_block_probe`` sweep among the tiles both bodies take
+BWD_WGMMA_TILE = (128, 128)
+_BWD_KERNELS = ("dq", "dkv")
 
 
 def _fwd_bodies() -> dict:
@@ -162,7 +179,41 @@ def _default_tile(kernel: str, d: int, dtype: torch.dtype = torch.float32,
                   fold: int = 1) -> Tuple[int, int]:
     if kernel == "fwd":
         return WGMMA_TILE if dtype == torch.bfloat16 and fold == 1 else (64, 64)
+    if dtype == torch.bfloat16:
+        return BWD_WGMMA_TILE
     return (64, 32) if kernel == "dkv" and d >= 128 else (64, 64)
+
+
+def _bwd_bodies() -> dict:
+    """``{(kernel, dtype, head_dim, (block_q, block_k)): body}`` for K7
+    ("dq") and K8 ("dkv"): every call the kernels are built for, and the
+    body that serves it -- "cuda_core" (float32 FMAs, ``csrc/flash_bwd.cu``,
+    built in either dtype at every (head_dim, tile) float32 takes) or
+    "wgmma" (bf16 on the tensor cores, ``csrc/flash_bwd_sm90.cu``). float32
+    runs on the CUDA cores at its default tile for every head dim and at
+    every caller-set tile at head_dim 64. bf16 runs on the tensor cores at
+    ``BWD_WGMMA_TILE`` for every head dim and at each caller-set tile that
+    wgmma takes: K7 at 64 or 128 query rows, K8 at 64 or 128 keys (one warp
+    group per 64 of them); K7's 32-row and K8's 32-key tiles stay on the
+    CUDA cores."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    table = {}
+    for kernel in _BWD_KERNELS:
+        for d in _HEAD_DIMS:
+            table[(kernel, f32, d, _default_tile(kernel, d))] = "cuda_core"
+        for tile in TILES:
+            table[(kernel, f32, 64, tile)] = "cuda_core"
+            rows = tile[0] if kernel == "dq" else tile[1]
+            table[(kernel, bf16, 64, tile)] = ("wgmma" if rows >= 64
+                                               else "cuda_core")
+        for d in _HEAD_DIMS:
+            table[(kernel, bf16, d, BWD_WGMMA_TILE)] = "wgmma"
+    return table
+
+
+#: the K7/K8 body table (``_bwd_bodies``): ``resolve_tile`` and the
+#: backward wrappers read it, and a call off it raises
+BWD_BODIES = _bwd_bodies()
 
 
 def _fwd_smem(d: int, block_q: int, block_k: int, fold: int) -> int:
@@ -173,11 +224,17 @@ def _fwd_smem(d: int, block_q: int, block_k: int, fold: int) -> int:
                        + 16 * block_k)
 
 
-def _fwd_wgmma_smem(d: int, block_q: int, block_k: int) -> int:
-    """Shared memory of K2's tensor-core body (``csrc/flash_fwd_sm90.cu``,
-    ``smem_bytes``): the bf16 q tile and two stages of K and V, the head
-    dim padded to 64, plus 1024 bytes to align the swizzle atoms."""
-    return 2 * max(d, 64) * (block_q + 4 * block_k) + 1024
+def bwd_body(kernel: str, dtype: torch.dtype, d: int,
+             block_q: Optional[int] = None,
+             block_k: Optional[int] = None) -> str:
+    """The body ``BWD_BODIES`` gives a K7 ("dq") or K8 ("dkv") call (tiles
+    as ``resolve_tile`` takes them); raises ``ValueError`` off the table."""
+    if kernel not in _BWD_KERNELS:
+        raise ValueError(f"kernel {kernel!r} not in {_BWD_KERNELS}")
+    tile = resolve_tile(kernel, d, block_q, block_k, dtype=dtype)
+    if (kernel, dtype, d, tile) not in BWD_BODIES:
+        raise ValueError(f"{kernel} has no body for {dtype} at head_dim {d}")
+    return BWD_BODIES[(kernel, dtype, d, tile)]
 
 
 def fwd_body(dtype: torch.dtype, d: int, block_q: Optional[int] = None,
@@ -198,11 +255,12 @@ def resolve_tile(kernel: str, d: int, block_q: Optional[int] = None,
     ``dtype``: ``WGMMA_TILE`` for unfolded bf16). Raises ``ValueError`` for
     a (block_q, block_k, head_dim, fold) the kernels are not instantiated
     at -- ``TILES`` at head_dim 64, ``fold`` in ``FOLDS`` (K2 only) at
-    head_dim 64 with the 64 x 64 tile, and for K2 any (dtype, head_dim,
-    tile, fold) off ``FWD_BODIES`` at a head dim it takes -- naming the
-    shared memory limit when a fold does not fit. (Which head dims the
-    kernels take at the default tile, the CUDA wrappers check; the plain
-    versions take any.)"""
+    head_dim 64 with the 64 x 64 tile, and any (dtype, head_dim, tile,
+    fold) off ``FWD_BODIES`` (K2) or ``BWD_BODIES`` (K7, K8) at a head dim
+    they take -- naming the shared memory limit when a fold does not fit.
+    The defaults of K7/K8 depend on ``dtype`` too (``BWD_WGMMA_TILE`` for
+    bf16). (Which head dims the kernels take at the default tile, the CUDA
+    wrappers check; the plain versions take any.)"""
     default = _default_tile(kernel, d, dtype, fold)
     tile = (default[0] if block_q is None else int(block_q),
             default[1] if block_k is None else int(block_k))
@@ -229,6 +287,10 @@ def resolve_tile(kernel: str, d: int, block_q: Optional[int] = None,
         raise ValueError(f"fwd tile (block_q, block_k) = {tile} with fold "
                          f"{fold} has no {dtype} body at head_dim {d}: see "
                          f"FWD_BODIES")
+    if (kernel in _BWD_KERNELS and dtype in _DTYPES and d in _HEAD_DIMS
+            and (kernel, dtype, d, tile) not in BWD_BODIES):
+        raise ValueError(f"{kernel} tile (block_q, block_k) = {tile} has no "
+                         f"{dtype} body at head_dim {d}: see BWD_BODIES")
     return tile
 
 
@@ -386,11 +448,12 @@ def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The CUDA kernel K2 on the body ``FWD_BODIES`` gives the call
     (``csrc/flash_fwd.cu`` on the CUDA cores or ``csrc/flash_fwd_sm90.cu``
     on the tensor cores); same contract as ``flash_forward_plain``. Its
-    count holds K2's launches on both bodies; those of the tensor-core body
-    are ``flash_forward_wgmma_cuda``'s count as well."""
+    count holds K2's launches on the CUDA cores; those on the tensor cores
+    are ``flash_forward_wgmma_cuda``'s."""
     out = launch_flash_forward(q, k, v, causal=causal, scale=scale,
                                block_q=block_q, block_k=block_k, fold=fold)
-    flash_forward_cuda.launches += 1
+    if fwd_body(q.dtype, q.shape[-1], block_q, block_k, fold) == "cuda_core":
+        flash_forward_cuda.launches += 1
     return out
 
 
@@ -510,22 +573,92 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).reshape(b * hq, tq).contiguous()
 
 
+def _check_wgmma(name: str, *ts: torch.Tensor) -> None:
+    if ts[0].dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the tensor-core body takes bf16, not "
+                         f"{ts[0].dtype}")
+    _check_cuda(name, *ts)
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: the tensor-core body copies 16-byte "
+                         f"chunks; q, k, v and do must be 16-byte aligned")
+
+
+def flash_backward_dq_wgmma_cuda(q, k, v, do, lse, delta, *, causal=False,
+                                 scale=None, block_q=None, block_k=None
+                                 ) -> torch.Tensor:
+    """One counted launch of K7's bf16 tensor-core body
+    (``csrc/flash_bwd_sm90.cu``) on the library's operands: q, do [B, Hq,
+    Tq, D], k, v [B, Hkv, Tk, D] (Tq, Tk > 0), lse and ``delta`` = rowsum(dO
+    * O) [B*Hq, Tq] float32. ``flash_backward_dq_cuda`` checks the call and
+    routes it here where ``BWD_BODIES`` names this body (default tile
+    ``BWD_WGMMA_TILE``); this takes bf16, 16-byte-aligned operands, and the
+    library refuses a tile it is not built at with
+    ``cudaErrorInvalidValue``, which raises."""
+    _check_wgmma("flash_backward_dq_wgmma", q, k, v, do)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    status = native.library("flash_bwd_dq_sm90").flash_bwd_dq_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, hq, hkv, tq, tk,
+        d, _scale(q, scale), int(causal), block_q or BWD_WGMMA_TILE[0],
+        block_k or BWD_WGMMA_TILE[1],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(status, "flash_backward_dq_wgmma")
+    flash_backward_dq_wgmma_cuda.launches += 1
+    return dq
+
+
+flash_backward_dq_wgmma_cuda.launches = 0
+
+
+def flash_backward_dkv_wgmma_cuda(q, k, v, do, lse, delta, *, causal=False,
+                                  scale=None, block_q=None, block_k=None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One counted launch of K8's bf16 tensor-core body
+    (``csrc/flash_bwd_sm90.cu``), ``(dk, dv)``; operands and routing as
+    ``flash_backward_dq_wgmma_cuda`` takes them, from
+    ``flash_backward_dkv_cuda``."""
+    _check_wgmma("flash_backward_dkv_wgmma", q, k, v, do)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    status = native.library("flash_bwd_dkv_sm90").flash_bwd_dkv_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq,
+        hkv, tq, tk, d, _scale(q, scale), int(causal),
+        block_q or BWD_WGMMA_TILE[0], block_k or BWD_WGMMA_TILE[1],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(status, "flash_backward_dkv_wgmma")
+    flash_backward_dkv_wgmma_cuda.launches += 1
+    return dk, dv
+
+
+flash_backward_dkv_wgmma_cuda.launches = 0
+
+
 def flash_backward_dq_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
                            block_q=None, block_k=None,
                            delta: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Kernel K7 (``csrc/flash_bwd.cu``); same contract as
+    """Kernel K7 on the body ``BWD_BODIES`` names: ``csrc/flash_bwd.cu`` on
+    the CUDA cores, counted here, or ``flash_backward_dq_wgmma_cuda`` on the
+    tensor cores, counted there; same contract as
     ``flash_backward_dq_plain``. ``delta`` may be passed precomputed."""
     _check_backward(q, k, v, o, lse, do, causal)
     b, hq, tq, d = q.shape
-    bq, bk = resolve_tile("dq", d, block_q, block_k)
+    bq, bk = resolve_tile("dq", d, block_q, block_k, dtype=q.dtype)
     hkv, tk = k.shape[1], k.shape[2]
     if tk == 0:
         return torch.zeros_like(q)
-    dq = torch.empty_like(q)
     if tq == 0:
-        return dq
+        return torch.empty_like(q)
     delta = _delta(o, do) if delta is None else delta
+    if BWD_BODIES[("dq", q.dtype, d, (bq, bk))] == "wgmma":
+        return flash_backward_dq_wgmma_cuda(q, k, v, do, lse, delta,
+                                            causal=causal, scale=scale,
+                                            block_q=bq, block_k=bk)
+    dq = torch.empty_like(q)
     status = native.library("flash_bwd_dq").flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, hq, hkv, tq, tk,
@@ -543,23 +676,29 @@ def flash_backward_dkv_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
                             block_q=None, block_k=None,
                             delta: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K8 (``csrc/flash_bwd.cu``); same contract as
-    ``flash_backward_dkv_plain``. ``delta`` may be passed precomputed."""
+    """Kernel K8 on the body ``BWD_BODIES`` names: ``csrc/flash_bwd.cu``,
+    counted here, or ``flash_backward_dkv_wgmma_cuda``, counted there; same
+    contract as ``flash_backward_dkv_plain``. ``delta`` as
+    ``flash_backward_dq_cuda`` takes it."""
     _check_backward(q, k, v, o, lse, do, causal)
     b, hq, tq, d = q.shape
-    bq, bk = resolve_tile("dkv", d, block_q, block_k)
+    bq, bk = resolve_tile("dkv", d, block_q, block_k, dtype=q.dtype)
     hkv, tk = k.shape[1], k.shape[2]
     if tq == 0:
         return torch.zeros_like(k), torch.zeros_like(v)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
     if tk == 0:
-        return dk, dv
+        return torch.empty_like(k), torch.empty_like(v)
     delta = _delta(o, do) if delta is None else delta
+    if BWD_BODIES[("dkv", q.dtype, d, (bq, bk))] == "wgmma":
+        return flash_backward_dkv_wgmma_cuda(q, k, v, do, lse, delta,
+                                             causal=causal, scale=scale,
+                                             block_q=bq, block_k=bk)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     status = native.library("flash_bwd_dkv").flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq,
-        hkv, tq, tk, d, _scale(q, scale), int(causal), _DTYPES[q.dtype],
-        bq, bk, torch.cuda.current_stream(q.device).cuda_stream)
+        hkv, tq, tk, d, _scale(q, scale), int(causal), _DTYPES[q.dtype], bq,
+        bk, torch.cuda.current_stream(q.device).cuda_stream)
     native.check(status, "flash_backward_dkv")
     flash_backward_dkv_cuda.launches += 1
     return dk, dv
@@ -570,13 +709,13 @@ flash_backward_dkv_cuda.launches = 0
 
 def flash_backward(q, k, v, o, lse, do, *, causal=False, scale=None,
                    block_q=None, block_k=None):
-    """``(dq, dk, dv)``: kernels K7 and K8 for CUDA tensors (one delta pass
-    shared by both), else the plain version. ``block_q``/``block_k`` are
-    the tiles of both kernels (None: each kernel's default), checked first
-    on either device."""
+    """``(dq, dk, dv)``: kernels K7 and K8 for CUDA tensors, each on the
+    body ``BWD_BODIES`` names (one delta pass shared by both), else the
+    plain version. ``block_q``/``block_k`` are the tiles of both kernels
+    (None: each kernel's default), checked first on either device."""
     d = q.shape[-1]
-    resolve_tile("dq", d, block_q, block_k)
-    resolve_tile("dkv", d, block_q, block_k)
+    resolve_tile("dq", d, block_q, block_k, dtype=q.dtype)
+    resolve_tile("dkv", d, block_q, block_k, dtype=q.dtype)
     tiles = dict(block_q=block_q, block_k=block_k)
     if not q.is_cuda:
         return flash_backward_plain(q, k, v, o, lse, do, causal=causal,
@@ -636,8 +775,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"Hq={hq} not a multiple of Hkv={k.shape[1]}")
     fold = pick_fold(fold, causal=causal, group=hq // k.shape[1], bhq=b * hq)
     resolve_tile("fwd", d, block_q, block_k, fold, dtype=q.dtype)
-    resolve_tile("dq", d, block_q, block_k)
-    resolve_tile("dkv", d, block_q, block_k)
+    resolve_tile("dq", d, block_q, block_k, dtype=q.dtype)
+    resolve_tile("dkv", d, block_q, block_k, dtype=q.dtype)
     return FlashAttention.apply(q, k, v, causal, _scale(q, scale), block_q,
                                 block_k, fold)
 

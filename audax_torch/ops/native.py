@@ -7,9 +7,10 @@ Nothing includes PyTorch's headers, so a build takes seconds, not minutes.
 Libraries go to ``audax_torch/build/`` (listed in ``.gitignore``), named by
 a hash of the source, the shared headers (``csrc/*.cuh``) and the flags: an
 edited source or header builds anew, an unchanged one is reused. One source
-may make more than one library: ``flash_bwd.cu`` is built once with
-``-DAUDAX_FLASH_BWD_DQ`` (K7) and once with ``-DAUDAX_FLASH_BWD_DKV`` (K8),
-so that its two kernels' many tile instantiations compile in parallel.
+may make more than one library: ``flash_bwd.cu`` (and its tensor-core
+twin ``flash_bwd_sm90.cu``) is built once with ``-DAUDAX_FLASH_BWD_DQ``
+(K7) and once with ``-DAUDAX_FLASH_BWD_DKV`` (K8), so that its two
+kernels' many tile instantiations compile in parallel.
 ``build()`` starts one ``nvcc`` per missing library and waits for all of
 them, so the kernels compile in parallel.
 
@@ -17,7 +18,8 @@ The wrappers in ``ops/fused_mel.py``, ``ops/direct_mel.py`` (K4, K5 and
 K5's FFT body ``log_mel_fft.cu``),
 ``ops/attention.py`` (K2's two bodies, ``flash_fwd.cu`` and
 ``flash_fwd_sm90.cu``, which also serve the head-fold probe
-``tools/attn_headfold_probe.py``), ``ops/int4_matmul.py`` and the int4
+``tools/attn_headfold_probe.py``, and K7/K8's two, ``flash_bwd.cu`` and
+``flash_bwd_sm90.cu``), ``ops/int4_matmul.py`` and the int4
 experiment tools (``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
 ``tools/w4a8_probe.py``, ``tools/int4_unpack_probe.py``) call
 ``library(name)`` the first time they launch on a CUDA tensor. A CUDA host
@@ -51,6 +53,8 @@ KERNEL_SOURCES = {
     "flash_fwd_sm90": "flash_fwd_sm90.cu",
     "flash_bwd_dq": "flash_bwd.cu",
     "flash_bwd_dkv": "flash_bwd.cu",
+    "flash_bwd_dq_sm90": "flash_bwd_sm90.cu",
+    "flash_bwd_dkv_sm90": "flash_bwd_sm90.cu",
     "decode_attention": "decode_attention.cu",
     "int4_matmul": "int4_matmul.cu",
     "int4_word_matmul": "int4_word_matmul.cu",
@@ -88,6 +92,14 @@ SIGNATURES = {
     "flash_bwd_dkv": {
         "flash_bwd_dkv": ([_P] * 8 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
     },
+    "flash_bwd_dq_sm90": {
+        "flash_bwd_dq_sm90": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+                              _I),
+    },
+    "flash_bwd_dkv_sm90": {
+        "flash_bwd_dkv_sm90": ([_P] * 8 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+                               _I),
+    },
     "decode_attention": {
         "decode_smem": ([_I, _I, _I], _LL),
         "decode_attention_stacked": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -118,7 +130,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: library name -> the macros that select its part of a shared source
 DEFINES = {"flash_bwd_dq": ("-DAUDAX_FLASH_BWD_DQ",),
-           "flash_bwd_dkv": ("-DAUDAX_FLASH_BWD_DKV",)}
+           "flash_bwd_dkv": ("-DAUDAX_FLASH_BWD_DKV",),
+           "flash_bwd_dq_sm90": ("-DAUDAX_FLASH_BWD_DQ",),
+           "flash_bwd_dkv_sm90": ("-DAUDAX_FLASH_BWD_DKV",)}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -18,10 +18,12 @@ attention tools, in eleven phases, one output line each (the kernel and
 path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (twelve), in parallel, with
+  2. build   -- nvcc of every kernel library (fourteen), in parallel, with
      the wall time of each and of all, the registers and any spills; then
-     the count of HGMMA (wgmma) instructions in the SASS of K2's
-     tensor-core body (``cuobjdump --dump-sass``), which must not be 0;
+     the count of HGMMA (wgmma) instructions in the SASS of the three
+     tensor-core libraries, K2's and K7's and K8's (``cuobjdump
+     --dump-sass``), none of which may be 0, and a spill in K7's or K8's
+     fails;
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' and the tools' shapes: max |err| against the stated
      tolerance, kernel ms, plain ms, the one-call library yardstick where
@@ -43,7 +45,15 @@ path phases print one line per case):
      rounding bf16 allows (2^-7 of the attention-weighted |v| plus one
      bf16 step), at Whisper-small's [8, 12, 1500, 64], causal GQA, cross
      attention, a ragged key count, head dims 16/32/128 and each of its
-     tiles; K7/K8 in bf16 at [8, 12, 1500, 64] on its lse; K5's FFT body
+     tiles; K7/K8's bf16 bodies on the tensor cores
+     (``csrc/flash_bwd_sm90.cu``) at [8, 12, 1500, 64] (timed beside the
+     CUDA-core body in bf16, its library called directly, and SDPA's
+     backward; both must beat the former) and [4, 8, 1500, 64], the bf16
+     decoder sites of Whisper-small's step (causal [8, 12, 40, 64], cross q
+     40 x kv 1500) and of the bf16 Whisper-base fine-tune (causal [4, 8,
+     56, 64], cross q 56 x kv 1500), causal GQA, head dims 16/32/128 and
+     every tile of ``TILES``, each call launching the body ``BWD_BODIES``
+     names once, no other body and no plain version; K5's FFT body
      (``csrc/log_mel_fft.cu``) at UrbanSound's magnitude batch, n_fft
      512/1024/2048, 256 bands at power 1.5 and a silent clip, against the
      direct DFT's plain version; the n_fft-400 configs keep the direct
@@ -62,7 +72,10 @@ path phases print one line per case):
      and two ``finetune_whisper(device="cuda")`` runs: LoRA (rank 8 on
      attn/q and attn/v, with one WER eval) and full-parameter (overfitting
      four clips: the last loss must fall below 0.7x the first). K1, K2, K3,
-     K7 and K8 must all launch and no plain version may. Then the step
+     K7 and K8 must all launch, on their CUDA-core bodies only, and no
+     plain version may. A third run, LoRA in bf16 (4 clips x 5 steps), must
+     launch the tensor-core bodies of K2, K7 and K8 and no CUDA-core one,
+     with a finite, falling loss. Then the step
      time, steps/s, tokens/s, peak memory and launches of the
      full-parameter and the LoRA step at batch 4, and one step's loss and
      every gradient leaf on the card against the port's CPU path at batch 1
@@ -110,12 +123,14 @@ path phases print one line per case):
      ``--attn xla``, 3 iterations) and ``mfu_study --only 0,10 --steps 3``,
      each through its entry point on the card: one JSON line each with
      its rows, verdict, seconds and launches; K2/K7/K8 (and P1 in the fold
-     probe) must launch where a tool drives them, K2's tensor-core body in
-     every run (and it alone in the step and the MFU runs), none in the
-     xla arm, and no plain version anywhere;
- 10. the kernels' JSON line (``flash_forward``, the row of
-     ``csrc/flash_fwd.cu``, counts K2's CUDA-core launches alone), then
-     the result line.
+     probe) must launch where a tool drives them, their tensor-core bodies
+     in every run (and they alone in the step and the MFU runs), none in
+     the xla arm, and no plain version anywhere;
+ 10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
+     ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
+     ``csrc/flash_bwd.cu``, count the CUDA-core launches; the ``_wgmma``
+     rows the tensor-core bodies': each body counts its own), then the
+     result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or without the ``audax_torch`` package beside it, it exits with 2
@@ -204,24 +219,27 @@ PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul")),
 #: the attention tools' runs on the card: (label, tool, its arguments, the
 #: kernels it must launch, the kernels it must not)
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
-#: every tool run is bf16, so K2's tensor-core body must serve it
-FLASH_BF16 = FLASH + ("flash_forward_wgmma",)
+#: every tool run is bf16, so the tensor-core bodies of K2, K7 and K8 must
+#: serve it; in the step and MFU runs, whose every call is at a default
+#: tile, unfolded, they alone
+WGMMA = ("flash_forward_wgmma", "flash_backward_dq_wgmma",
+         "flash_backward_dkv_wgmma")
+FLASH_BF16 = FLASH + WGMMA
 STEP_ARGS = dict(size="small", batch=8, label_len=32, iters=3)
 ATTENTION_TOOLS = (
     ("attn_headfold_probe", "attn_headfold_probe", {},
      ("flash_forward", "flash_forward_fold", "flash_forward_wgmma"), ()),
     ("attn_block_probe", "attn_block_probe", {}, FLASH_BF16, ()),
     ("train_step_breakdown --attn flash", "train_step_breakdown",
-     dict(STEP_ARGS, attn="flash"), FLASH_BF16, ()),
+     dict(STEP_ARGS, attn="flash"), WGMMA, FLASH),
     ("train_step_breakdown --attn xla", "train_step_breakdown",
      dict(STEP_ARGS, attn="xla"), (), FLASH_BF16 + ("flash_forward_fold",)),
     ("mfu_study --only 0,10", "mfu_study", dict(only="0,10", steps=3),
-     FLASH_BF16, ()),
+     WGMMA, FLASH),
 )
-#: the tool runs whose every K2 call is bf16 at a default tile, unfolded:
-#: the tensor-core body must serve each one
-ALL_WGMMA_TOOLS = ("train_step_breakdown --attn flash",
-                   "mfu_study --only 0,10")
+#: the libraries of the tensor-core bodies: K2's, then K7's and K8's
+TENSOR_CORE_LIBS = ("flash_fwd_sm90", "flash_bwd_dq_sm90",
+                    "flash_bwd_dkv_sm90")
 #: the classification path: one frontend config per log-mel tier and body
 #: (the last is featurized only: no classifier trains on it)
 CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap"),
@@ -248,6 +266,27 @@ def _time_ms(torch, fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _ptxas_kernels(report):
+    """``[(template arguments, registers, spill bytes)]`` of each kernel in
+    a library's ``-Xptxas -v`` report, in the order ptxas compiled them."""
+    import re
+    kernels, args, spill = [], "?", 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\S*?kernelI((?:Li\d+E)+)",
+                      line)
+        if m:
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(1)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            kernels.append((args, int(m.group(1)), spill))
+            args, spill = "?", 0
+    return kernels
 
 
 def _bound(flops, nbytes, flop_rate):
@@ -316,7 +355,7 @@ def kernel_phase(torch, rng):
 
     from audax_torch.core.config import MelConfig
     from audax_torch.ops import attention as att
-    from audax_torch.ops import fused_mel
+    from audax_torch.ops import fused_mel, native
 
     dev = "cuda"
     out = {}
@@ -609,20 +648,59 @@ def kernel_phase(torch, rng):
                 [0, 17, 200, 400], False, tq=40, gen=gen)
 
     # ---- K7 / K8: flash backward (dQ; dK and dV) ------------------------------
+    # each kernel's counters: its CUDA-core body, its tensor-core body, its
+    # plain version
+    counters = {"dq": (att.flash_backward_dq_cuda,
+                       att.flash_backward_dq_wgmma_cuda,
+                       att.flash_backward_dq_plain),
+                "dkv": (att.flash_backward_dkv_cuda,
+                        att.flash_backward_dkv_wgmma_cuda,
+                        att.flash_backward_dkv_plain)}
+
+    def core_bwd(kn, q, k, v, do, lse, delta, causal, tile):
+        """One launch of the CUDA-core body (csrc/flash_bwd.cu), its library
+        called directly at ``tile``, in q's dtype: the A/B of the bodies."""
+        b, hq, tq, d = q.shape
+        outs = ([torch.empty_like(q)] if kn == "dq"
+                else [torch.empty_like(k), torch.empty_like(v)])
+        lib = native.library(f"flash_bwd_{kn}")
+        status = getattr(lib, f"flash_bwd_{kn}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            b, hq, k.shape[1], tq, k.shape[2], d, d ** -0.5, int(causal),
+            int(q.dtype == torch.bfloat16), *tile,
+            torch.cuda.current_stream().cuda_stream)
+        native.check(status, f"flash_bwd_{kn}")
+        return outs
+
     def bwd_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main,
-                 tile=(None, None), gen=None):
-        q = torch.randn(b, hq, tq, 64, device=dev, generator=gen).to(dtype)
-        k = torch.randn(b, hkv, tk, 64, device=dev, generator=gen).to(dtype)
-        v = torch.randn(b, hkv, tk, 64, device=dev, generator=gen).to(dtype)
-        do = torch.randn(b, hq, tq, 64, device=dev, generator=gen).to(dtype)
+                 tile=(None, None), gen=None, d=64, reps=20, plain_reps=5,
+                 core_ab=False):
+        q = torch.randn(b, hq, tq, d, device=dev, generator=gen).to(dtype)
+        k = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
+        v = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
+        do = torch.randn(b, hq, tq, d, device=dev, generator=gen).to(dtype)
         o, lse = att.flash_forward_cuda(q, k, v, causal=causal)
         args = (q, k, v, o, lse, do)
         delta = att._delta(o, do)       # shared by both kernels on the path
         tiles = dict(block_q=tile[0], block_k=tile[1])
+        # the body BWD_BODIES names must serve each kernel exactly once, and
+        # neither the other body nor the plain version
+        bodies = {kn: att.bwd_body(kn, dtype, d, *tile) for kn in counters}
+        before = {kn: [f.launches for f in fns]
+                  for kn, fns in counters.items()}
         dq = att.flash_backward_dq_cuda(*args, causal=causal, delta=delta,
                                         **tiles)
         dk, dv = att.flash_backward_dkv_cuda(*args, causal=causal,
                                              delta=delta, **tiles)
+        for kn, fns in counters.items():
+            ran = tuple(f.launches - n for f, n in zip(fns, before[kn]))
+            want = (0, 1, 0) if bodies[kn] == "wgmma" else (1, 0, 0)
+            if ran != want:
+                raise AssertionError(f"flash_backward_{kn}[{label}]: the "
+                                     f"{bodies[kn]} body did not serve the "
+                                     f"call alone, once (CUDA-core, wgmma, "
+                                     f"plain launches {ran})")
         rdq = att.flash_backward_dq_plain(*args, causal=causal)
         rdk, rdv = att.flash_backward_dkv_plain(*args, causal=causal)
 
@@ -630,41 +708,66 @@ def kernel_phase(torch, rng):
             return err(a, r) / float(r.float().abs().max())
         e_dq, e_dkv = rel(dq, rdq), max(rel(dk, rdk), rel(dv, rdv))
         ms_dq = _time_ms(torch, lambda: att.flash_backward_dq_cuda(
-            *args, causal=causal, delta=delta, **tiles))
+            *args, causal=causal, delta=delta, **tiles), reps=reps)
         ms_dkv = _time_ms(torch, lambda: att.flash_backward_dkv_cuda(
-            *args, causal=causal, delta=delta, **tiles))
+            *args, causal=causal, delta=delta, **tiles), reps=reps)
         plain_dq = _time_ms(torch, lambda: att.flash_backward_dq_plain(
-            *args, causal=causal), reps=5)
+            *args, causal=causal), reps=plain_reps, warmup=1)
         plain_dkv = _time_ms(torch, lambda: att.flash_backward_dkv_plain(
-            *args, causal=causal), reps=5)
+            *args, causal=causal), reps=plain_reps, warmup=1)
         # yardstick: the backward alone of SDPA (all three gradients), on a
         # graph built once
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
         sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                               enable_gqa=hq != hkv)
         lib = _time_ms(torch, lambda: torch.autograd.grad(
-            sdpa, (qg, kg, vg), do, retain_graph=True))
+            sdpa, (qg, kg, vg), do, retain_graph=True), reps=reps)
         pairs = tq * (tq + 1) // 2 if causal else tq * tk
         elt, rate = q.element_size(), (F32_FLOPS if dtype == torch.float32
                                        else BF16_FLOPS)
         rows_q, rows_kv = b * hq * tq, b * hkv * tk
         # dQ: S, dP and dS K (6 per pair and dim); reads q, do, k, v, lse,
         # delta and writes dq. dK/dV: S, dP, P^T dO, dS^T Q (8); writes dk, dv
-        bound_dq = _bound(6 * b * hq * pairs * 64,
-                          elt * 64 * (3 * rows_q + 2 * rows_kv) + 8 * rows_q,
+        bound_dq = _bound(6 * b * hq * pairs * d,
+                          elt * d * (3 * rows_q + 2 * rows_kv) + 8 * rows_q,
                           rate)
-        bound_dkv = _bound(8 * b * hq * pairs * 64,
-                           elt * 64 * (2 * rows_q + 4 * rows_kv) + 8 * rows_q,
+        bound_dkv = _bound(8 * b * hq * pairs * d,
+                           elt * d * (2 * rows_q + 4 * rows_kv) + 8 * rows_q,
                            rate)
-        _report(f"flash_backward_dq[{label}]", e_dq, tol, ms_dq, plain_dq,
-                lib, bound_dq, "max_rel_err")
-        _report(f"flash_backward_dkv[{label}]", e_dkv, tol, ms_dkv,
-                plain_dkv, lib, bound_dkv, "max_rel_err")
+        keys = {kn: f"flash_backward_{kn}"
+                + ("_wgmma" if bodies[kn] == "wgmma" else "")
+                for kn in counters}
+        _report(f"{keys['dq']}[{label}] ({bodies['dq']} body)", e_dq, tol,
+                ms_dq, plain_dq, lib, bound_dq, "max_rel_err")
+        _report(f"{keys['dkv']}[{label}] ({bodies['dkv']} body)", e_dkv, tol,
+                ms_dkv, plain_dkv, lib, bound_dkv, "max_rel_err")
+        if core_ab:
+            # the same call on the CUDA-core body (csrc/flash_bwd.cu) at its
+            # float32 default tile, held against the plain versions too: the
+            # tensor-core bodies must beat it
+            cdq, = core_bwd("dq", q, k, v, do, lse, delta, causal, (64, 64))
+            cdk, cdv = core_bwd("dkv", q, k, v, do, lse, delta, causal,
+                                (64, 64))
+            e_core = max(rel(cdq, rdq), rel(cdk, rdk), rel(cdv, rdv))
+            if not e_core <= tol:
+                raise AssertionError(f"K7/K8 [{label}]: the CUDA-core body "
+                                     f"is off the plain versions by {e_core}")
+            core = {kn: _time_ms(torch, lambda kn=kn: core_bwd(
+                kn, q, k, v, do, lse, delta, causal, (64, 64)), reps=3,
+                warmup=1) for kn in counters}
+            print(f"[kernels] K7/K8 [{label}] A/B in one run: wgmma "
+                  f"{ms_dq:.4f} + {ms_dkv:.4f} ms, CUDA-core body (64 x 64, "
+                  f"max_rel_err {e_core:.3e}) {core['dq']:.4f} + "
+                  f"{core['dkv']:.4f} ms, SDPA's backward {lib:.4f} ms",
+                  flush=True)
+            if not (ms_dq < core["dq"] and ms_dkv < core["dkv"]):
+                raise AssertionError(f"K7/K8 [{label}]: a tensor-core body "
+                                     "is not faster than the CUDA-core body")
         if main:
-            out["flash_backward_dq"] = dict(
+            out[keys["dq"]] = dict(
                 max_abs_err=err(dq, rdq), ms=ms_dq, plain_ms=plain_dq,
                 library_ms=lib, bound=bound_dq)
-            out["flash_backward_dkv"] = dict(
+            out[keys["dkv"]] = dict(
                 max_abs_err=max(err(dk, rdk), err(dv, rdv)), ms=ms_dkv,
                 plain_ms=plain_dkv, library_ms=lib, bound=bound_dkv)
 
@@ -673,15 +776,45 @@ def kernel_phase(torch, rng):
     bwd_case("encoder bf16 [4,8,1500,64]", 4, 8, 8, 1500, 1500,
              torch.bfloat16, False, TOL_BF16, False)
     # the bf16 fine-tune step's encoder shape (Whisper-small, B = 8), on the
-    # lse of K2's tensor-core body, beside SDPA's bf16 backward
+    # lse of K2's tensor-core body, beside SDPA's bf16 backward and the
+    # CUDA-core body
     bwd_case("encoder bf16 [8,12,1500,64]", 8, 12, 12, 1500, 1500,
-             torch.bfloat16, False, TOL_BF16, False, gen=gen9)
+             torch.bfloat16, False, TOL_BF16, True, gen=gen9, core_ab=True)
     bwd_case("decoder self causal f32 [4,8,56,64]", 4, 8, 8, 56, 56,
              torch.float32, True, TOL_F32, False)
     bwd_case("cross f32 q [4,8,56,64] kv [4,8,1500,64]", 4, 8, 8, 56, 1500,
              torch.float32, False, TOL_F32, False)
     bwd_case("causal GQA 8q/2kv T=77 f32", 2, 8, 2, 77, 77, torch.float32,
              True, TOL_F32, False)
+    # K7/K8's bf16 bodies on the tensor cores (csrc/flash_bwd_sm90.cu): the
+    # bf16 step's decoder sites at Whisper-small width (40 label tokens),
+    # the masks and head dims 16/32/128, on their own generator
+    gen8 = torch.Generator(device=dev).manual_seed(8)
+    bf16 = torch.bfloat16
+    bwd_case("decoder self causal bf16 [8,12,40,64]", 8, 12, 12, 40, 40,
+             bf16, True, TOL_BF16, False, gen=gen8)
+    bwd_case("cross bf16 q [8,12,40,64] kv [8,12,1500,64]", 8, 12, 12, 40,
+             1500, bf16, False, TOL_BF16, False, gen=gen8)
+    # the bf16 Whisper-base fine-tune's decoder sites (56 label tokens)
+    bwd_case("decoder self causal bf16 [4,8,56,64]", 4, 8, 8, 56, 56, bf16,
+             True, TOL_BF16, False, gen=gen8)
+    bwd_case("cross bf16 q [4,8,56,64] kv [4,8,1500,64]", 4, 8, 8, 56, 1500,
+             bf16, False, TOL_BF16, False, gen=gen8)
+    bwd_case("causal GQA 8q/2kv T=77 bf16", 2, 8, 2, 77, 77, bf16, True,
+             TOL_BF16, False, gen=gen8)
+    for d in (16, 32, 128):
+        bwd_case(f"bf16 head_dim {d} [4,8,300,{d}]", 4, 8, 8, 300, 300, bf16,
+                 False, TOL_BF16, False, gen=gen8, d=d, reps=5)
+        bwd_case(f"bf16 head_dim {d} causal GQA 8q/4kv T=130", 2, 8, 4, 130,
+                 130, bf16, True, TOL_BF16, False, gen=gen8, d=d, reps=5)
+    # every caller-set bf16 tile, on whichever body BWD_BODIES names for
+    # each kernel (few reps: the tile sweep itself is attn_block_probe's)
+    for tile in att.TILES:
+        if tile != att.BWD_WGMMA_TILE:
+            bwd_case(f"bf16 [8,12,1500,64] block_q {tile[0]} block_k "
+                     f"{tile[1]}", 8, 12, 12, 1500, 1500, bf16, False,
+                     TOL_BF16, False, tile=tile, gen=gen8, reps=3,
+                     plain_reps=1)
 
     # ---- caller-set tiles of K2, K7, K8 and P1 (K2 folding heads) -------------
     # on their own generator: the later phases keep the inputs they drew
@@ -1099,6 +1232,8 @@ def _kernel_group(name):
     """The family of a CUDA kernel, from its name."""
     groups = (("K9 int4_matmul", ("int4_kernel", "reduce_splits")),
               ("K3/K6 decode_attn", ("decode_attn",)),
+              ("K7 flash_bwd_dq_sm90 (wgmma)", ("flash_bwd_dq_sm90",)),
+              ("K8 flash_bwd_dkv_sm90 (wgmma)", ("flash_bwd_dkv_sm90",)),
               ("K7 flash_bwd_dq", ("flash_bwd_dq",)),
               ("K8 flash_bwd_dkv", ("flash_bwd_dkv",)),
               ("K2 flash_fwd_sm90 (wgmma)", ("flash_fwd_sm90",)),
@@ -1246,6 +1381,40 @@ def finetune_phase(torch, rng, profile=False):
     counts = launch_counts()
     print(f"[finetune] launches: {json.dumps(counts)}", flush=True)
     _check_launches(counts, FINETUNE_KERNELS, "fine-tune")
+    ran = {k: counts[k]["cuda"] for k in WGMMA if counts[k]["cuda"]}
+    if ran:
+        raise AssertionError(f"the float32 fine-tunes ran tensor-core "
+                             f"bodies: {ran}")
+    del state
+
+    # ---- bf16 LoRA: K2, K7 and K8 on their tensor-core bodies ----------------
+    reset_launches()
+    bf16_ft = FineTuneConfig(lora_rank=8, batch_size=4, max_steps=5,
+                             learning_rate=1e-3, warmup_steps=0,
+                             dtype="bfloat16")
+    t0 = time.perf_counter()
+    state, hist = finetune_whisper(params, cfg, tok, examples[:4], bf16_ft,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bf16_counts = launch_counts()
+    losses = hist["loss"]
+    print(f"[finetune] LoRA rank 8 in bf16, 4 clips x 5 steps in {wall:.2f} "
+          f"s, losses {[round(x, 4) for x in losses]}, launches "
+          f"{json.dumps({k: c['cuda'] for k, c in bf16_counts.items() if c['cuda']})}",
+          flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"bf16 LoRA loss {losses[0]} -> {losses[-1]}: "
+                             "not finite and falling")
+    _check_launches(bf16_counts, ("log_mel_overlap",) + WGMMA,
+                    "bf16 fine-tune")
+    ran = {k: bf16_counts[k]["cuda"] for k in FLASH if bf16_counts[k]["cuda"]}
+    if ran:
+        raise AssertionError(f"bf16 fine-tune calls ran on the CUDA-core "
+                             f"bodies: {ran}")
+    for k, c in bf16_counts.items():
+        counts[k] = {"cuda": counts[k]["cuda"] + c["cuda"],
+                     "plain": counts[k]["plain"] + c["plain"]}
     del state
 
     # ---- the step alone, both modes: time, rate, memory, launches ------------
@@ -1886,24 +2055,15 @@ def probes_phase(torch):
     return total
 
 
-def _core_launches(counts):
-    """K2's launches on its CUDA-core body (``csrc/flash_fwd.cu``): K2's
-    count holds both bodies, and every launch of the tensor-core body
-    passes through it (P1 takes the CUDA-core body only)."""
-    return (counts["flash_forward"]["cuda"]
-            - counts["flash_forward_wgmma"]["cuda"])
-
-
 def attention_tools_phase(torch):
     """The four attention tools of ``audax_torch.tools`` on the card through
     their entry points (``train_step_breakdown`` once per ``--attn`` arm):
     one JSON line per run with its rows, verdict, seconds and launches. The
-    kernels each run drives must launch, none may in the xla arm, and no
-    plain version may anywhere. Returns the launch counts of the runs,
-    summed."""
+    kernels each run drives must launch, the CUDA-core K2/K7/K8 none in the
+    step and MFU runs, none in the xla arm, and no plain version anywhere.
+    Returns the launch counts of the runs, summed."""
     import importlib
 
-    from audax_torch.ops import attention as att
     from audax_torch.ops import launch_counts, reset_launches
     from audax_torch.tools import probe_launch_counts, reset_probe_launches
 
@@ -1921,9 +2081,6 @@ def attention_tools_phase(torch):
         ran = {k for k in absent if counts[k]["cuda"]}
         if ran:
             raise AssertionError(f"{label}: {sorted(ran)} launched")
-        if label in ALL_WGMMA_TOOLS and _core_launches(counts):
-            raise AssertionError(f"{label}: {_core_launches(counts)} bf16 "
-                                 "K2 calls ran on the CUDA-core body")
         rows = rep.get("rows", rep.get("configs"))
         if not rows or any("error" in r for r in rows):
             raise AssertionError(f"{label}: no rows, or rows with errors")
@@ -1998,14 +2155,30 @@ def main() -> int:
           f"({'; '.join(nvcc_s)}); ptxas: {' | '.join(regs)}; spills: "
           f"{' | '.join(spills) or 'none'}", flush=True)
 
-    lib = str(native.lib_path("flash_fwd_sm90"))
     cuobjdump = str(Path(native.nvcc_path()).parent / "cuobjdump")
-    sass = _run([cuobjdump, "--dump-sass", lib])
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"[build] flash_fwd_sm90 SASS: {hgmma} HGMMA instructions",
-          flush=True)
-    if hgmma == 0:
-        raise AssertionError("the tensor-core body holds no HGMMA")
+    for name in TENSOR_CORE_LIBS:
+        sass = _run([cuobjdump, "--dump-sass", str(native.lib_path(name))])
+        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        print(f"[build] {name} SASS: {hgmma} HGMMA instructions", flush=True)
+        if hgmma == 0:
+            raise AssertionError(f"the tensor-core body {name} holds no "
+                                 "HGMMA")
+    # registers of each tensor-core instantiation (D, BQ, BK); the
+    # backward's accumulators must stay in registers: a spill in either of
+    # its libraries fails (ptxas reports only what this call compiled)
+    for name in TENSOR_CORE_LIBS:
+        if name not in reports:
+            print(f"[build] {name} was built before: its registers and "
+                  "spills are not reported", flush=True)
+            continue
+        kernels = _ptxas_kernels(reports[name])
+        print(f"[build] {name} ptxas (D,BQ,BK: registers, spill bytes): "
+              + "; ".join(f"{a}: {r}, {sp}" for a, r, sp in kernels),
+              flush=True)
+        spilled = [k for k in kernels if k[2]]
+        if name != TENSOR_CORE_LIBS[0] and (spilled or not kernels):
+            raise AssertionError(f"{name} spills (or reports no kernel): "
+                                 f"{spilled}")
 
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
@@ -2025,8 +2198,6 @@ def main() -> int:
     launches.update(probes)
     for k in FLASH_BF16 + ("flash_forward_fold",):
         launches[k] = launches.get(k, 0) + tools[k]
-    # flash_fwd.cu's row: K2's launches on the CUDA-core body alone
-    launches["flash_forward"] -= launches["flash_forward_wgmma"]
 
     sources = {"log_mel_overlap": ("audax_torch/csrc/log_mel_overlap.cu",
                                    "audax/ops/pallas_mel.py:199"),
@@ -2046,6 +2217,12 @@ def main() -> int:
                                      "audax/ops/attention.py:293"),
                "flash_backward_dkv": ("audax_torch/csrc/flash_bwd.cu",
                                       "audax/ops/attention.py:329"),
+               "flash_backward_dq_wgmma": (
+                   "audax_torch/csrc/flash_bwd_sm90.cu",
+                   "audax/ops/attention.py:293"),
+               "flash_backward_dkv_wgmma": (
+                   "audax_torch/csrc/flash_bwd_sm90.cu",
+                   "audax/ops/attention.py:329"),
                "decode_attention_stacked": (
                    "audax_torch/csrc/decode_attention.cu",
                    "audax/ops/attention.py:680"),

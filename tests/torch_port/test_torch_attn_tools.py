@@ -16,7 +16,7 @@
   resolves to one body -- bf16 at 64 or more query rows unfolded to the
   tensor cores, the rest to the CUDA cores -- the table agrees with the
   instantiations in both sources, and every tile fits one block's shared
-  memory.
+  memory (the tensor-core body's ``smem_bytes`` read from its source).
 * ``dot_product_attention(backend=)`` and ``attention_backend`` route to
   the twin or the flash path (read off the plain versions' counters).
 * ``utils/flops.py`` equals the JAX package's exactly.
@@ -51,6 +51,8 @@ from audax_torch.tools import attn_headfold_probe as hf
 from audax_torch.tools import cli, mfu_study, probe_launch_counts
 from audax_torch.tools import train_step_breakdown as tsb
 from audax_torch.utils import flops as TF
+
+from .csrc_constexpr import constexpr_function
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -300,7 +302,8 @@ def test_body_table_matches_the_sources_and_fits_shared_memory():
             if dt == torch.float32} <= core
     assert all((torch.float32, 64, (bq, hf.BLOCK_K), f) in att.FWD_BODIES
                for _, f, bq in hf.ARMS)
-    assert all(att._fwd_wgmma_smem(*t) <= 232448 for t in wgmma)
+    smem = constexpr_function("flash_fwd_sm90.cu", "smem_bytes")
+    assert all(smem(*t) <= 232448 for t in wgmma)
     assert all(att._fwd_smem(*t) <= 232448 for t in core)
     with pytest.raises(ValueError, match="CUDA"):
         att.flash_forward_wgmma_cuda(*[torch.zeros(1, 2, 20, 64)] * 3)
