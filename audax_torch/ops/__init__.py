@@ -26,8 +26,10 @@ from audax_torch.ops.direct_mel import (fused_logmel_fft_cuda,
                                         fused_logmel_frames_cuda,
                                         fused_logmel_frames_plain,
                                         fused_logmel_packed_cuda,
+                                        fused_logmel_packed_fft_cuda,
                                         fused_logmel_packed_plain)
 from audax_torch.ops.fused_mel import (log_mel_overlap_cuda,
+                                       log_mel_overlap_fft_cuda,
                                        log_mel_overlap_plain)
 from audax_torch.ops.int4_matmul import (int4_matmul_cuda,
                                          int4_matmul_dequant,
@@ -35,10 +37,15 @@ from audax_torch.ops.int4_matmul import (int4_matmul_cuda,
 
 __all__ = ["KERNELS", "reset_launches", "launch_counts"]
 
-#: kernel name -> (CUDA wrapper, plain PyTorch version)
+#: kernel name -> (CUDA wrapper, plain PyTorch version); K1's and K4's
+#: tiers on the FFT body (``csrc/log_mel_fft.cu``) count apart from their
+#: own kernels and from K5's FFT body, each beside its tier's plain version
 KERNELS = {
     "log_mel_overlap": (log_mel_overlap_cuda, log_mel_overlap_plain),
+    "log_mel_overlap_fft": (log_mel_overlap_fft_cuda, log_mel_overlap_plain),
     "log_mel_packed": (fused_logmel_packed_cuda, fused_logmel_packed_plain),
+    "log_mel_packed_fft": (fused_logmel_packed_fft_cuda,
+                           fused_logmel_packed_plain),
     "log_mel_generic": (fused_logmel_frames_cuda, fused_logmel_frames_plain),
     "log_mel_fft": (fused_logmel_fft_cuda, fused_logmel_fft_plain),
     "flash_forward": (flash_forward_cuda, flash_forward_plain),

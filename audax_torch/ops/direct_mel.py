@@ -22,6 +22,12 @@ direct body (``fused_logmel_frames``, ``csrc/log_mel_direct.cu``). Both
 compute the same function; the FFT body is held against the direct body's
 plain version on the card.
 
+K4's tier takes the same FFT body at power 2 on the card, for an n_fft in
+``POWER2_FFT_SIZES`` (the powers of two and Whisper's 400, a mixed-radix
+instantiation): ``fused_logmel_packed_fft_cuda``, counted apart from K5's
+launches (``ops/fused_mel.py:BODIES`` routes). On a CPU tensor the tier
+keeps its own plain version, ``fused_logmel_packed_plain``.
+
 ``log_mode`` is the kernel's log: "log1e6" is ``log(x + 1e-6)``, "log10"
 ``log10(max(x, 1e-10))`` (Whisper's clamp stays outside, as in JAX).
 
@@ -44,8 +50,10 @@ from audax_torch.ops.stft import apply_log
 __all__ = ["fused_logmel_packed", "fused_logmel_packed_cuda",
            "fused_logmel_packed_plain", "fused_logmel_frames",
            "fused_logmel_frames_cuda", "fused_logmel_frames_plain",
-           "FFT_SIZES", "fft_applicable", "fused_logmel_fft",
-           "fused_logmel_fft_cuda", "fused_logmel_fft_plain"]
+           "FFT_SIZES", "POWER2_FFT_SIZES", "fft_applicable",
+           "fused_logmel_fft", "fused_logmel_fft_cuda",
+           "fused_logmel_fft_plain", "fused_logmel_packed_fft_cuda",
+           "launch_fft_body"]
 
 #: mel bands the kernels hold in registers (16 x the widest per-thread row)
 MAX_MELS = 256
@@ -53,6 +61,9 @@ MAX_MELS = 256
 _LOG_FLAGS = {"log1e6": 0, "log10": 1}
 #: the n_fft K5's FFT body is built for
 FFT_SIZES = (256, 512, 1024, 2048)
+#: the n_fft the FFT body takes at power 2, for K1's and K4's tiers: the
+#: powers of two and Whisper's 400 (L = 200 = 8 x 25 complex points)
+POWER2_FFT_SIZES = (256, 400, 512, 1024, 2048)
 
 
 def fft_applicable(n_fft: int, power: float) -> bool:
@@ -215,16 +226,13 @@ def fused_logmel_fft_plain(frames: torch.Tensor, window: torch.Tensor,
 fused_logmel_fft_plain.launches = 0
 
 
-def fused_logmel_fft_cuda(frames: torch.Tensor, window: torch.Tensor,
-                          fb: torch.Tensor, ranges: torch.Tensor,
-                          twiddles: torch.Tensor, log_mode: str = "log1e6",
-                          power: float = 2.0) -> torch.Tensor:
-    """K5's FFT body (``csrc/log_mel_fft.cu``): same contract as
-    ``fused_logmel_fft_plain``, on the frame view read in place. ``ranges``
-    must hold every non-zero of ``fb`` (``ops/mel.py:mel_bin_ranges``)."""
+def launch_fft_body(frames, window, fb, ranges, twiddles, log_mode, power,
+                    sizes):
+    """One launch of ``csrc/log_mel_fft.cu`` on the frame view, read in
+    place, for an n_fft in ``sizes``: ``(out [..., M], launched)``."""
     n_fft = frames.shape[-1]
-    if n_fft not in FFT_SIZES:
-        raise ValueError(f"the FFT log-mel body takes n_fft in {FFT_SIZES}, "
+    if n_fft not in sizes:
+        raise ValueError(f"the FFT log-mel body takes n_fft in {sizes}, "
                          f"got {n_fft}")
     f, m = n_fft // 2 + 1, fb.shape[-1]
     _check_constant(window, (n_fft,), "window")
@@ -243,18 +251,49 @@ def fused_logmel_fft_cuda(frames: torch.Tensor, window: torch.Tensor,
     b, t, _ = f3.shape
     out = torch.empty(b * t, m, device=f3.device)
     if b * t == 0:
-        return out.reshape(lead + (m,))
+        return out.reshape(lead + (m,)), False
     status = native.library("log_mel_fft").log_mel_fft_f32(
         f3.data_ptr(), clip_stride, hop, t, b * t, n_fft, window.data_ptr(),
         twiddles.data_ptr(), fb.data_ptr(), ranges.data_ptr(),
         out.data_ptr(), m, _LOG_FLAGS[log_mode], float(power),
         torch.cuda.current_stream(f3.device).cuda_stream)
     native.check(status, "log_mel_fft")
-    fused_logmel_fft_cuda.launches += 1
-    return out.reshape(lead + (m,))
+    return out.reshape(lead + (m,)), True
+
+
+def fused_logmel_fft_cuda(frames: torch.Tensor, window: torch.Tensor,
+                          fb: torch.Tensor, ranges: torch.Tensor,
+                          twiddles: torch.Tensor, log_mode: str = "log1e6",
+                          power: float = 2.0) -> torch.Tensor:
+    """K5's FFT body (``csrc/log_mel_fft.cu``): same contract as
+    ``fused_logmel_fft_plain``, on the frame view read in place, for an
+    n_fft in ``FFT_SIZES``. ``ranges`` must hold every non-zero of ``fb``
+    (``ops/mel.py:mel_bin_ranges``)."""
+    out, launched = launch_fft_body(frames, window, fb, ranges, twiddles,
+                                    log_mode, power, FFT_SIZES)
+    fused_logmel_fft_cuda.launches += launched
+    return out
 
 
 fused_logmel_fft_cuda.launches = 0
+
+
+def fused_logmel_packed_fft_cuda(frames: torch.Tensor, window: torch.Tensor,
+                                 fb: torch.Tensor, ranges: torch.Tensor,
+                                 twiddles: torch.Tensor,
+                                 log_mode: str = "log1e6") -> torch.Tensor:
+    """K4's tier on the FFT body (``csrc/log_mel_fft.cu`` at power 2) for an
+    n_fft in ``POWER2_FFT_SIZES``: the function of
+    ``fused_logmel_packed_plain`` from the constants of
+    ``ops/mel.py:fft_frontend_constants``, on the frame view read in
+    place."""
+    out, launched = launch_fft_body(frames, window, fb, ranges, twiddles,
+                                    log_mode, 2.0, POWER2_FFT_SIZES)
+    fused_logmel_packed_fft_cuda.launches += launched
+    return out
+
+
+fused_logmel_packed_fft_cuda.launches = 0
 
 
 def fused_logmel_fft(frames, window, fb, ranges, twiddles, log_mode="log1e6",

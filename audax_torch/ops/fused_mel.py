@@ -2,15 +2,25 @@
 with its plain PyTorch version.
 
 Port of ``audax/ops/pallas_mel.py``: ``log_mel_fused`` is the counterpart
-of ``log_mel_pallas`` and picks, per config, exactly as it does:
+of ``log_mel_pallas`` and picks, per config, the tier it picks
+(``mel_tier``):
 
-  1. the overlap-reuse kernel K1 (``log_mel_overlap``, this module) when
+  1. "overlap", K1 (``log_mel_overlap``, this module) when
      ``overlap_applicable``: every in-tree preset;
-  2. the packed direct kernel K4 for any other power-2 config;
-  3. the generic kernel K5 for any power != 2, in the body
-     ``direct_mel.fft_applicable`` picks: the FFT body for a power-of-two
-     n_fft from 256 to 2048, the direct body for any other
+  2. "packed", K4, for any other power-2 config;
+  3. "generic", K5, for any power != 2
      (K4 and K5 live in ``ops/direct_mel.py``).
+
+On the card each tier runs one of two bodies, by n_fft (``BODIES``,
+``mel_body``): the FFT body (``csrc/log_mel_fft.cu``: ``rfft`` of the
+windowed frame, ``|X|^power``, the banded mel, the log) where its n_fft
+is listed -- at power 2 the powers of two from 256 to 2048 and Whisper's
+400, so Whisper 80/128, UrbanSound v1/v2 and PANNs; for K5 the powers of
+two only (``direct_mel.fft_applicable``) -- and the tier's own kernel
+elsewhere. Each (tier, body) pair counts its own launches under its name
+in ``ops.KERNELS``. On a CPU tensor K1 and K4 keep their own plain
+versions; K5 takes its bodies' plain versions by the same route as on the
+card.
 
 K1 zoom-DFTs each g-sample block of the reflect-padded signal once,
 recombines frames from NB twiddle-shifted block spectra, applies the
@@ -34,24 +44,36 @@ import torch.nn.functional as F
 
 from audax_torch.core.config import MelConfig
 from audax_torch.ops import native
-from audax_torch.ops.direct_mel import (fft_applicable, fused_logmel_fft,
-                                        fused_logmel_frames,
-                                        fused_logmel_packed)
+from audax_torch.ops.direct_mel import (FFT_SIZES, POWER2_FFT_SIZES,
+                                        fused_logmel_fft, fused_logmel_frames,
+                                        fused_logmel_packed,
+                                        fused_logmel_packed_fft_cuda,
+                                        launch_fft_body)
 from audax_torch.ops.mel import (fft_frontend_constants, frontend_constants,
                                  overlap_block_size,
                                  overlap_frontend_constants,
                                  packed_frontend_constants)
 from audax_torch.ops.stft import apply_log
 
-__all__ = ["direct_constants", "direct_frames", "fft_constants",
+__all__ = ["BODIES", "direct_constants", "direct_frames", "fft_constants",
            "log_mel_fused",
            "log_mel_overlap", "log_mel_overlap_cuda",
-           "log_mel_overlap_plain", "overlap_applicable",
-           "whisper_post_clamp"]
+           "log_mel_overlap_fft_cuda", "log_mel_overlap_plain", "mel_body",
+           "mel_tier", "overlap_applicable", "whisper_post_clamp"]
 
 #: largest shared-memory tile the wrapper plans for one block (two blocks
 #: per SM fit in the H100's 228 KB)
 _SMEM_TARGET = 110 * 1024
+
+
+#: each tier's bodies on the card: tier -> (the n_fft its FFT body takes,
+#: the kernel there, the tier's own kernel at every other n_fft), by their
+#: names in ``ops.KERNELS``
+BODIES = {
+    "overlap": (POWER2_FFT_SIZES, "log_mel_overlap_fft", "log_mel_overlap"),
+    "packed": (POWER2_FFT_SIZES, "log_mel_packed_fft", "log_mel_packed"),
+    "generic": (FFT_SIZES, "log_mel_fft", "log_mel_generic"),
+}
 
 
 def whisper_post_clamp(log_spec: torch.Tensor) -> torch.Tensor:
@@ -71,6 +93,22 @@ def overlap_applicable(cfg: MelConfig) -> bool:
     g = overlap_block_size(cfg)
     nb, adv = cfg.n_fft // g, cfg.hop_length // g
     return g % 8 == 0 and adv in (1, 2) and nb > adv
+
+
+def mel_tier(cfg: MelConfig) -> str:
+    """The tier of ``cfg``, as ``log_mel_pallas`` picks it: "overlap"
+    (K1), "packed" (K4, power 2) or "generic" (K5, power != 2)."""
+    if overlap_applicable(cfg):
+        return "overlap"
+    return "packed" if cfg.power == 2.0 else "generic"
+
+
+def mel_body(cfg: MelConfig) -> str:
+    """The kernel (its name in ``ops.KERNELS``) that serves ``cfg`` on the
+    card: its tier's FFT body where ``BODIES`` lists the n_fft, its own
+    kernel otherwise."""
+    sizes, fft, own = BODIES[mel_tier(cfg)]
+    return fft if cfg.n_fft in sizes else own
 
 
 @functools.lru_cache(maxsize=16)
@@ -172,12 +210,37 @@ def log_mel_overlap_cuda(x: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
 log_mel_overlap_cuda.launches = 0
 
 
+def log_mel_overlap_fft_cuda(x: torch.Tensor, cfg: MelConfig
+                             ) -> torch.Tensor:
+    """K1's tier on the FFT body (``csrc/log_mel_fft.cu`` at power 2, on the
+    frame view of the reflect-padded signal, read in place) for an n_fft in
+    ``direct_mel.POWER2_FFT_SIZES``: same contract as
+    ``log_mel_overlap_plain``."""
+    if mel_body(cfg) != "log_mel_overlap_fft":
+        raise ValueError(f"the FFT body does not serve K1's tier at n_fft "
+                         f"{cfg.n_fft}: {cfg}")
+    if not x.is_cuda:
+        raise ValueError("log_mel_overlap_fft_cuda takes a CUDA tensor")
+    frames, lead = direct_frames(x, cfg)
+    mel, launched = launch_fft_body(
+        frames, *fft_constants(cfg, frames.device), _kernel_log(cfg), 2.0,
+        POWER2_FFT_SIZES)
+    log_mel_overlap_fft_cuda.launches += launched
+    return mel.reshape(lead + mel.shape[1:])
+
+
+log_mel_overlap_fft_cuda.launches = 0
+
+
 def log_mel_overlap(x: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
-    """[..., n] -> [..., T, n_mels] raw log-mel: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return log_mel_overlap_cuda(x, cfg)
-    return log_mel_overlap_plain(x, cfg)
+    """[..., n] -> [..., T, n_mels] raw log-mel: for a CUDA tensor the body
+    ``mel_body`` names (the FFT body or the overlap kernel), the plain
+    version for a CPU tensor."""
+    if not x.is_cuda:
+        return log_mel_overlap_plain(x, cfg)
+    if mel_body(cfg) == "log_mel_overlap_fft":
+        return log_mel_overlap_fft_cuda(x, cfg)
+    return log_mel_overlap_cuda(x, cfg)
 
 
 @functools.lru_cache(maxsize=16)
@@ -190,7 +253,7 @@ def direct_constants(cfg: MelConfig, device: torch.device):
 
 @functools.lru_cache(maxsize=16)
 def fft_constants(cfg: MelConfig, device: torch.device):
-    """K5's FFT body's ``(window, fb, ranges, twiddles)``
+    """The FFT body's ``(window, fb, ranges, twiddles)``
     (``ops/mel.py:fft_frontend_constants``)."""
     return tuple(torch.from_numpy(a).to(device)
                  for a in fft_frontend_constants(cfg))
@@ -208,19 +271,23 @@ def direct_frames(x: torch.Tensor, cfg: MelConfig):
 def log_mel_fused(x: torch.Tensor, cfg: MelConfig, *,
                   whisper_post: bool = True) -> torch.Tensor:
     """Log-mel of ``[..., n_samples]`` audio -> ``[..., T, n_mels]`` through
-    the tier ``cfg`` calls for (overlap K1, packed K4, generic K5 -- its FFT
-    body where ``direct_mel.fft_applicable`` holds, else its direct body). With
-    ``whisper_post=False`` the Whisper mode returns the raw log10, for the
-    caller to trim frames and then apply ``whisper_post_clamp``."""
-    if overlap_applicable(cfg):
+    the tier ``cfg`` calls for (overlap K1, packed K4, generic K5), on the
+    card in the body ``mel_body`` names. With ``whisper_post=False`` the
+    Whisper mode returns the raw log10, for the caller to trim frames and
+    then apply ``whisper_post_clamp``."""
+    tier, body = mel_tier(cfg), mel_body(cfg)
+    if tier == "overlap":
         mel = log_mel_overlap(x, cfg)
     else:
         frames, lead = direct_frames(x, cfg)
         mode = _kernel_log(cfg)
-        if fft_applicable(cfg.n_fft, cfg.power):
+        if body == "log_mel_fft":
             mel = fused_logmel_fft(frames, *fft_constants(cfg, frames.device),
                                    log_mode=mode, power=cfg.power)
-        elif cfg.power == 2.0:
+        elif body == "log_mel_packed_fft" and frames.is_cuda:
+            mel = fused_logmel_packed_fft_cuda(
+                frames, *fft_constants(cfg, frames.device), log_mode=mode)
+        elif tier == "packed":
             mel = fused_logmel_packed(frames,
                                       *direct_constants(cfg, frames.device),
                                       log_mode=mode)

@@ -22,7 +22,7 @@ __all__ = [
     "hz_to_mel", "mel_to_hz", "mel_filterbank", "hann_window",
     "dft_matrices", "frontend_constants", "packed_frontend_constants",
     "overlap_frontend_constants", "overlap_block_size", "mel_bin_ranges",
-    "fft_twiddles", "fft_frontend_constants",
+    "fft_twiddles", "fft_twiddles_400", "fft_frontend_constants",
 ]
 
 
@@ -241,6 +241,18 @@ def mel_bin_ranges(fb: np.ndarray) -> np.ndarray:
     return np.stack([lo, hi], axis=1).astype(np.int32)
 
 
+def _fft_twiddle_table(n_fft: int, lanes: int, dtype) -> np.ndarray:
+    """``[n_fft + 1, 2]`` (cos, -sin) in float64, rounded once: ``W_L^(j
+    k2)`` at row ``k2 * lanes + j`` (``L = n_fft / 2``, ``k2 < L /
+    lanes``, lane ``j < lanes``), then ``W_N^k`` for ``k = 0 .. L``."""
+    half = n_fft // 2
+    j = np.arange(lanes, dtype=np.float64)[None, :]
+    k2 = np.arange(half // lanes, dtype=np.float64)[:, None]
+    ang = np.concatenate([(2.0 * np.pi * j * k2 / half).reshape(-1),
+                          2.0 * np.pi * np.arange(half + 1) / n_fft])
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
+
+
 def fft_twiddles(n_fft: int, dtype=np.float32) -> np.ndarray:
     """Twiddle table of the FFT log-mel kernel (``csrc/log_mel_fft.cu``),
     ``[n_fft + 1, 2]`` (cos, -sin), computed in float64 and rounded once:
@@ -250,12 +262,22 @@ def fft_twiddles(n_fft: int, dtype=np.float32) -> np.ndarray:
     if n_fft % 64 or n_fft & (n_fft - 1):
         raise ValueError(f"n_fft {n_fft}: the FFT kernel takes a power of "
                          "two, at least 64")
-    half = n_fft // 2
-    j = np.arange(32, dtype=np.float64)[None, :]
-    k2 = np.arange(half // 32, dtype=np.float64)[:, None]
-    ang = np.concatenate([(2.0 * np.pi * j * k2 / half).reshape(-1),
-                          2.0 * np.pi * np.arange(half + 1) / n_fft])
-    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
+    return _fft_twiddle_table(n_fft, 32, dtype)
+
+
+def fft_twiddles_400(n_fft: int = 400, dtype=np.float32) -> np.ndarray:
+    """Twiddle table of the FFT log-mel kernel's mixed-radix instantiation
+    for Whisper's n_fft 400 (``L = 200 = 8 x 25`` complex points: lane
+    ``j < 25`` holds ``z[j + 25 p]`` for ``p < 8``), ``[401, 2]`` (cos,
+    -sin), computed in float64 and rounded once: first ``W_L^(j k2)`` at
+    row ``k2 * 25 + j`` (``k2 < 8``), then ``W_N^k`` for ``k = 0 .. L``,
+    the table the radix-5 lane stages also take their roots from
+    (``W_5 = W_N^80``, ``W_25 = W_N^16``, by conjugate symmetry past
+    ``L``)."""
+    if n_fft != 400:
+        raise ValueError(f"n_fft {n_fft}: the mixed-radix FFT kernel takes "
+                         "400 only")
+    return _fft_twiddle_table(n_fft, 25, dtype)
 
 
 def fft_frontend_constants(cfg: MelConfig, dtype=np.float32):
@@ -264,7 +286,8 @@ def fft_frontend_constants(cfg: MelConfig, dtype=np.float32):
     ``frontend_constants`` folds into its bases (``window == cos_w[:, 0]``
     exactly), ``fb [F, n_mels]`` the same filterbank, ``ranges
     [n_mels, 2]`` int32 its bands' bin ranges (``mel_bin_ranges``) and
-    ``twiddles`` the table of ``fft_twiddles``."""
+    ``twiddles`` the table of ``fft_twiddles`` (``fft_twiddles_400`` at
+    n_fft 400)."""
     win = hann_window(cfg.win, dtype=np.float64)
     if cfg.win < cfg.n_fft:
         pad_l = (cfg.n_fft - cfg.win) // 2
@@ -273,5 +296,6 @@ def fft_frontend_constants(cfg: MelConfig, dtype=np.float32):
         cfg.n_freqs, cfg.n_mels, cfg.sample_rate, cfg.fmin, cfg.fmax,
         htk=cfg.htk, norm_slaney=cfg.norm_slaney, dtype=dtype,
     )
-    return (win.astype(dtype), fb, mel_bin_ranges(fb),
-            fft_twiddles(cfg.n_fft, dtype))
+    twiddles = (fft_twiddles_400(cfg.n_fft, dtype) if cfg.n_fft == 400
+                else fft_twiddles(cfg.n_fft, dtype))
+    return win.astype(dtype), fb, mel_bin_ranges(fb), twiddles

@@ -15,7 +15,7 @@ kernels' many tile instantiations compile in parallel.
 them, so the kernels compile in parallel.
 
 The wrappers in ``ops/fused_mel.py``, ``ops/direct_mel.py`` (K4, K5 and
-K5's FFT body ``log_mel_fft.cu``),
+the FFT log-mel body ``log_mel_fft.cu`` of K1's, K4's and K5's tiers),
 ``ops/attention.py`` (K2's two bodies, ``flash_fwd.cu`` and
 ``flash_fwd_sm90.cu``, which also serve the head-fold probe
 ``tools/attn_headfold_probe.py``, and K7/K8's two, ``flash_bwd.cu`` and

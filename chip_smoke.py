@@ -23,7 +23,9 @@ path phases print one line per case):
      the count of HGMMA (wgmma) instructions in the SASS of the three
      tensor-core libraries, K2's and K7's and K8's (``cuobjdump
      --dump-sass``), none of which may be 0, and a spill in K7's or K8's
-     fails;
+     fails; the registers and spills of each n_fft the FFT log-mel body
+     is built for (Whisper's 400-point mixed radix among them), where a
+     spill fails too;
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' and the tools' shapes: max |err| against the stated
      tolerance, kernel ms, plain ms, the one-call library yardstick where
@@ -53,30 +55,36 @@ path phases print one line per case):
      40 x kv 1500) and of the bf16 Whisper-base fine-tune (causal [4, 8,
      56, 64], cross q 56 x kv 1500), causal GQA, head dims 16/32/128 and
      every tile of ``TILES``, each call launching the body ``BWD_BODIES``
-     names once, no other body and no plain version; K5's FFT body
-     (``csrc/log_mel_fft.cu``) at UrbanSound's magnitude batch, n_fft
-     512/1024/2048, 256 bands at power 1.5 and a silent clip, against the
-     direct DFT's plain version; the n_fft-400 configs keep the direct
-     body;
+     names once, no other body and no plain version; the FFT log-mel body
+     (``csrc/log_mel_fft.cu``) in every tier the body table
+     ``ops/fused_mel.py:BODIES`` gives it: K1's at Whisper 80 and 128 mels
+     and UrbanSound v2, K4's at PANNs' geometry (each against its tier's
+     plain version, timed beside the tier's own kernel, which it must
+     beat, and the composite), Whisper's 400 points at 200 bands, a short
+     window, log10 and a silent clip, and K5's at UrbanSound's magnitude
+     batch, n_fft 512/1024/2048, 256 bands at power 1.5 and a silent clip,
+     against the direct DFT's plain version; the tiers' own kernels off
+     the table (K1 at n_fft 480, K4 at 1000, K5 at 400);
   3b. precision -- a bf16 ``dense`` at [12000, 5120] x [5120, 1280] within
      one bf16 step of the float64 product (float32 accumulation);
   4. transcription -- random Whisper-tiny weights from a seeded generator,
      a tokenizer with the published 51,865-token layout, two requests (30 s
      and 47 s of synthetic audio) through ``Transcriber(device="cuda")``;
-     the counters of its kernels (K1, K2, K3) must rise and no plain
-     version's may; then the card is held against the port's CPU path in
-     float32 (encoder states, and teacher-forced logits of every decode
-     step);
+     the counters of its kernels (K1's tier on the FFT body, K2, K3) must
+     rise and no plain version's or old K1/K4 body's may; then the card is
+     held against the port's CPU path in float32 (the log-mel, FFT body
+     against K1's plain version; encoder states, and teacher-forced
+     logits of every decode step);
   5. fine-tune -- random Whisper-base weights, eight synthetic 30 s clips
      written as 16-bit wavs with transcript sidecars, ``build_speech_dataset``
      and two ``finetune_whisper(device="cuda")`` runs: LoRA (rank 8 on
      attn/q and attn/v, with one WER eval) and full-parameter (overfitting
-     four clips: the last loss must fall below 0.7x the first). K1, K2, K3,
-     K7 and K8 must all launch, on their CUDA-core bodies only, and no
-     plain version may. A third run, LoRA in bf16 (4 clips x 5 steps), must
-     launch the tensor-core bodies of K2, K7 and K8 and no CUDA-core one,
-     with a finite, falling loss. Then the step
-     time, steps/s, tokens/s, peak memory and launches of the
+     four clips: the last loss must fall below 0.7x the first). K1 (its
+     FFT body), K2, K3, K7 and K8 must all launch, the flash kernels on
+     their CUDA-core bodies only, and no plain version may. A third run,
+     LoRA in bf16 (4 clips x 5 steps), must launch the tensor-core bodies
+     of K2, K7 and K8 and no CUDA-core one, with a finite, falling loss.
+     Then the step time, steps/s, tokens/s, peak memory and launches of the
      full-parameter and the LoRA step at batch 4, and one step's loss and
      every gradient leaf on the card against the port's CPU path at batch 1
      in float32;
@@ -84,9 +92,9 @@ path phases print one line per case):
      the CPU and moved to the card, ``ContinuousBatcher(slots=8,
      kv_quant=True, max_new_tokens=64)`` behind ``serve_http``, twelve
      client threads posting 16-bit WAVs of 5-30 s: every answer must be 200
-     with a well-formed JSON body; K1, K2, K3's int8 arm and K9 must launch
-     and no plain version may. Then requests/s, latency p50 and max, decode
-     steps, tokens/s, launches per decode step and peak memory; the card
+     with a well-formed JSON body; K1 (its FFT body), K2, K3's int8 arm
+     and K9 must launch and no plain version may. Then requests/s, latency
+     p50 and max, decode steps, tokens/s, launches per decode step and peak memory; the card
      against the port's CPU path (teacher-forced ``decode_step_ragged``
      with float and with int8 self-KV, two faults planted in the int8
      writes that the limit must reject, and the int8 reading over 16 seeds
@@ -96,11 +104,11 @@ path phases print one line per case):
   7. classify -- 400 synthetic 4 s clips in the UrbanSound8K layout
      (``make_synthetic_urbansound``, seed 0), featurized on the card by
      ``featurize_clips`` (int16 upload, batches of 64) under four frontend
-     configs, one per log-mel tier and body: UrbanSound v2 (K1), PANNs'
-     Cnn14_16k geometry (K4), UrbanSound v2 as a magnitude mel (K5's FFT
-     body) and a magnitude mel at n_fft 400 (K5's direct body, featurized
-     only); each run must launch its kernel and no other tier, body or
-     plain version. Then
+     configs: UrbanSound v2 (K1's tier) and PANNs' Cnn14_16k geometry
+     (K4's), both on the FFT body, UrbanSound v2 as a magnitude mel (K5's
+     FFT body) and a magnitude mel at n_fft 400 (K5's direct body,
+     featurized only); each run must launch its kernel and no other tier,
+     body or plain version. Then
      ``fit_classifier`` for 3 epochs on folds 1-8 and ``evaluate_classifier``
      on folds 9 and 10 for ``CNNClassifier`` (v2 features),
      ``TransformerClassifier(pool="cls", max_len=2048)`` (PANNs features)
@@ -129,8 +137,10 @@ path phases print one line per case):
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
      ``csrc/flash_bwd.cu``, count the CUDA-core launches; the ``_wgmma``
-     rows the tensor-core bodies': each body counts its own), then the
-     result line.
+     rows the tensor-core bodies'; ``log_mel_overlap_fft`` and
+     ``log_mel_packed_fft`` K1's and K4's tiers on the FFT body, apart from
+     ``log_mel_overlap``/``log_mel_packed`` and K5's ``log_mel_fft``: each
+     body counts its own), then the result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or without the ``audax_torch`` package beside it, it exits with 2
@@ -198,17 +208,22 @@ TOL_BN_STATS = 1e-5
 PANNS_MEL = dict(n_fft=512, hop_length=160, n_mels=64, fmin=50.0,
                  fmax=8000.0, htk=False, norm_slaney=True)
 MAGNITUDE_MEL = dict(power=1.0)
-#: a magnitude mel at Whisper's STFT geometry (n_fft 400, hop 160): an n_fft
-#: the FFT body is not built for, so K5's direct body serves it
+#: a magnitude mel at Whisper's STFT geometry (n_fft 400, hop 160): K5
+#: keeps its direct body at n_fft 400 (its FFT body takes powers of two)
 MAGNITUDE_400_MEL = dict(n_fft=400, hop_length=160, power=1.0)
 
-#: the kernels each main path must launch
-TRANSCRIBE_KERNELS = ("log_mel_overlap", "flash_forward",
+#: the kernels each main path must launch: K1's tier runs the FFT body
+#: (``log_mel_overlap_fft``) at every Whisper and UrbanSound preset
+TRANSCRIBE_KERNELS = ("log_mel_overlap_fft", "flash_forward",
                       "decode_attention_stacked")
-FINETUNE_KERNELS = ("log_mel_overlap", "flash_forward", "flash_backward_dq",
-                    "flash_backward_dkv", "decode_attention_stacked")
-SERVE_KERNELS = ("log_mel_overlap", "flash_forward",
+FINETUNE_KERNELS = ("log_mel_overlap_fft", "flash_forward",
+                    "flash_backward_dq", "flash_backward_dkv",
+                    "decode_attention_stacked")
+SERVE_KERNELS = ("log_mel_overlap_fft", "flash_forward",
                  "decode_attention_stacked_int8", "int4_matmul")
+#: K1's and K4's own kernels: no main path launches them, since every
+#: config a path runs takes the FFT body (``ops/fused_mel.py:BODIES``)
+OLD_MEL_BODIES = ("log_mel_overlap", "log_mel_packed")
 #: the int4 tools and the kernels each must launch (K9 is every tool's
 #: "current" arm)
 PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul")),
@@ -242,8 +257,8 @@ TENSOR_CORE_LIBS = ("flash_fwd_sm90", "flash_bwd_dq_sm90",
                     "flash_bwd_dkv_sm90")
 #: the classification path: one frontend config per log-mel tier and body
 #: (the last is featurized only: no classifier trains on it)
-CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap"),
-                      ("PANNs geometry", PANNS_MEL, "log_mel_packed"),
+CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap_fft"),
+                      ("PANNs geometry", PANNS_MEL, "log_mel_packed_fft"),
                       ("magnitude v2", MAGNITUDE_MEL, "log_mel_fft"),
                       ("magnitude n_fft 400", MAGNITUDE_400_MEL,
                        "log_mel_generic"))
@@ -266,6 +281,15 @@ def _time_ms(torch, fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fn):
+    """Device ms per call of ``fn``, slope-timed in CUDA graphs: the host's
+    launch overhead (the wrapper's Python, some 40 us a call on the card's
+    host) left out, for calls that take less than it on the card."""
+    from audax_torch.utils.profiling import slope_timed
+    return 1e3 * slope_timed(fn, (), iters=(5, 25), repeats=3,
+                             device=torch.device("cuda"))
 
 
 def _ptxas_kernels(report):
@@ -363,19 +387,56 @@ def kernel_phase(torch, rng):
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    # ---- K1: overlap log-mel -------------------------------------------------
-    for name, cfg, shape in (("whisper", MelConfig.whisper(), (4, 480000)),
-                             ("whisper 128 mels", MelConfig.whisper(128),
-                              (8, 480000)),
-                             ("urbansound_v2", MelConfig.urbansound_v2(),
-                              (16, 64000))):
+    # ---- K1's tier: the FFT body at power 2, the overlap kernel elsewhere ---
+    def frames_f64(x, cfg):
+        """The raw log-mel of ``x`` from a float64 FFT (cuFFT) of the
+        windowed frames: the oracle the race's errors are read against."""
+        from audax_torch.ops.stft import apply_log
+        frames, _ = fused_mel.direct_frames(x, cfg)
+        window, fb, _, _ = fused_mel.fft_constants(cfg, x.device)
+        spec = torch.fft.rfft(frames.double() * window.double())
+        mel = (spec.real ** 2 + spec.imag ** 2) @ fb.double()
+        return apply_log(mel, "log1e6" if cfg.log_mode == "log1e6"
+                         else "log10")
+
+    def race_note(kern, old_fn, ms, old_ms, old_e, old_name, oracle, got,
+                  old_got, ref):
+        """The A/B's line: the old body's device ms and error, both bodies'
+        eager (CUDA events) ms, and each body's and the plain version's
+        error against the float64 oracle."""
+        def f64(a):
+            return err(a.reshape(oracle.shape), oracle)
+        return (f", {old_name} ms {old_ms:.4f} max_abs_err {old_e:.3e} "
+                f"({old_ms / ms:.2f}x the FFT body; CUDA-graph device "
+                f"times; events ms {_time_ms(torch, kern):.4f} / "
+                f"{_time_ms(torch, old_fn):.4f}); against a float64 FFT: "
+                f"FFT body {f64(got):.3e}, {old_name} {f64(old_got):.3e}, "
+                f"plain {f64(ref):.3e}")
+
+    def faster(label, ms, old_ms):
+        """The FFT body must beat the tier's own kernel where BODIES sends
+        it the tier's work."""
+        if not ms < old_ms:
+            raise AssertionError(f"{label}: the FFT body takes {ms:.4f} ms, "
+                                 f"the old body {old_ms:.4f}")
+
+    def overlap_case(name, cfg, shape, x_rng, main=False, race=False):
+        """K1's tier through the body ``fused_mel.mel_body`` names, held
+        against the tier's plain version; with ``race`` the overlap kernel
+        (``csrc/log_mel_overlap.cu``, its wrapper called directly) beside
+        the FFT body on the same input, held and timed too, and slower."""
         t = np.arange(shape[1]) / 16000.0
         x = (0.3 * np.sin(2 * np.pi * 440 * t) * (1 + np.sin(t))
-             + 0.05 * rng.standard_normal(shape)).astype(np.float32)
+             + 0.05 * x_rng.standard_normal(shape)).astype(np.float32)
         x = torch.from_numpy(x).to(dev)
-        got = fused_mel.log_mel_overlap_cuda(x, cfg)
+        body = fused_mel.mel_body(cfg)
+        kern = (fused_mel.log_mel_overlap_fft_cuda
+                if body == "log_mel_overlap_fft"
+                else fused_mel.log_mel_overlap_cuda)
+        got = kern(x, cfg)
         ref = fused_mel.log_mel_overlap_plain(x, cfg)
-        ms = _time_ms(torch, lambda: fused_mel.log_mel_overlap_cuda(x, cfg))
+        e = err(got, ref)
+        ms = (_graph_ms if race else _time_ms)(torch, lambda: kern(x, cfg))
         plain = _time_ms(torch, lambda: fused_mel.log_mel_overlap_plain(x, cfg))
         library = _library_logmel(torch, x, cfg)
         if cfg.log_mode == "whisper":       # the kernel leaves the clamp out
@@ -385,12 +446,48 @@ def kernel_phase(torch, rng):
         lib_err = err(library(), ref_lib)
         lib = _time_ms(torch, library)
         bound = _logmel_bound(cfg, shape[0], shape[1], got.shape[1])
-        e = err(got, ref)
-        _report(f"log_mel_overlap[{name} {list(shape)}] (composite library "
-                f"vs plain {lib_err:.3e})", e, TOL_MEL, ms, plain, lib, bound)
-        if name == "whisper":
-            out["log_mel_overlap"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                                          library_ms=lib, bound=bound)
+        old = ""
+        if race:
+            old_fn = lambda: fused_mel.log_mel_overlap_cuda(x, cfg)  # noqa: E731
+            old_e = err(old_fn(), ref)
+            old_ms = _graph_ms(torch, old_fn)
+            old = race_note(lambda: kern(x, cfg), old_fn, ms, old_ms, old_e,
+                            "overlap kernel", frames_f64(x, cfg), got,
+                            old_fn(), ref)
+            _report(f"log_mel_overlap[{name} {list(shape)}]", old_e, TOL_MEL,
+                    old_ms, plain, lib, bound)
+            if main:
+                out["log_mel_overlap"] = dict(max_abs_err=old_e, ms=old_ms,
+                                              plain_ms=plain, library_ms=lib,
+                                              bound=bound)
+        _report(f"{body}[{name} {list(shape)} -> {list(got.shape)}] "
+                f"(composite library vs plain {lib_err:.3e}{old})", e,
+                TOL_MEL, ms, plain, lib, bound)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{body}[{name}]: non-finite log-mel")
+        if old:
+            faster(f"{body}[{name}]", ms, old_ms)
+        if main:
+            out[body] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                             library_ms=lib, bound=bound)
+
+    for name, cfg, shape in (("whisper", MelConfig.whisper(), (4, 480000)),
+                             ("whisper 128 mels", MelConfig.whisper(128),
+                              (8, 480000)),
+                             ("urbansound_v2", MelConfig.urbansound_v2(),
+                              (16, 64000))):
+        overlap_case(name, cfg, shape, rng, main=name == "whisper",
+                     race=True)
+    # their own generator: the later phases keep drawing the inputs they
+    # drew before these cases existed
+    overlap_rng = np.random.default_rng(9)
+    # Whisper's geometry at 200 bands (F = 201, the widest mel tile), and
+    # the overlap kernel off the FFT body's sizes
+    overlap_case("n_fft 400 hop 160 200 mels center=False",
+                 MelConfig(n_fft=400, hop_length=160, n_mels=200,
+                           center=False), (3, 16001), overlap_rng)
+    overlap_case("n_fft 480 hop 160", MelConfig(n_fft=480, hop_length=160),
+                 (4, 64000), overlap_rng)
 
     # ---- K4 / K5: direct log-mel (packed; generic) ----------------------------
     from audax_torch.ops import direct_mel
@@ -399,7 +496,11 @@ def kernel_phase(torch, rng):
     # drew before these cases existed
     direct_rng = np.random.default_rng(4)
 
-    def direct_case(label, cfg, shape, main, silent=False):
+    def direct_case(label, cfg, shape, main, silent=False, race=False):
+        """K4's or K5's tier through the body ``fused_mel.mel_body`` names,
+        held against the tier's plain version (K5's bodies against the
+        direct DFT's, on the bases of frontend_constants); with ``race`` K4's
+        packed kernel beside the FFT body, held and timed too, and slower."""
         t = np.arange(shape[1]) / 16000.0
         x = (0.3 * np.sin(2 * np.pi * 440 * t) * (1 + np.sin(t))
              + 0.05 * direct_rng.standard_normal(shape)).astype(np.float32)
@@ -409,25 +510,26 @@ def kernel_phase(torch, rng):
         frames, _ = fused_mel.direct_frames(x, cfg)
         consts = fused_mel.direct_constants(cfg, x.device)
         mode = "log1e6" if cfg.log_mode == "log1e6" else "log10"
+        name = fused_mel.mel_body(cfg)
+        if name in ("log_mel_packed_fft", "log_mel_fft"):
+            fconsts = fused_mel.fft_constants(cfg, x.device)
+        packed = lambda: direct_mel.fused_logmel_packed_cuda(  # noqa: E731
+            frames, *consts, mode)
+        if name == "log_mel_packed_fft":
+            kern = lambda: direct_mel.fused_logmel_packed_fft_cuda(  # noqa: E731
+                frames, *fconsts, mode)
+        elif name == "log_mel_packed":
+            kern = packed
+        elif name == "log_mel_fft":
+            kern = lambda: direct_mel.fused_logmel_fft_cuda(  # noqa: E731
+                frames, *fconsts, mode, cfg.power)
+        else:
+            kern = lambda: direct_mel.fused_logmel_frames_cuda(  # noqa: E731
+                frames, *consts, mode, cfg.power)
         if cfg.power == 2.0:
-            name = "log_mel_packed"
-            kern = lambda: direct_mel.fused_logmel_packed_cuda(  # noqa: E731
-                frames, *consts, mode)
             plain = lambda: direct_mel.fused_logmel_packed_plain(  # noqa: E731
                 frames, *consts, mode)
         else:
-            # K5's body by the dispatcher's rule; either is held against
-            # the direct DFT's plain version on the bases of
-            # frontend_constants
-            fft = direct_mel.fft_applicable(cfg.n_fft, cfg.power)
-            name = "log_mel_fft" if fft else "log_mel_generic"
-            if fft:
-                fconsts = fused_mel.fft_constants(cfg, x.device)
-                kern = lambda: direct_mel.fused_logmel_fft_cuda(  # noqa: E731
-                    frames, *fconsts, mode, cfg.power)
-            else:
-                kern = lambda: direct_mel.fused_logmel_frames_cuda(  # noqa: E731
-                    frames, *consts, mode, cfg.power)
             plain = lambda: direct_mel.fused_logmel_frames_plain(  # noqa: E731
                 frames, *consts, mode, cfg.power)
         got, ref = kern(), plain()
@@ -441,21 +543,36 @@ def kernel_phase(torch, rng):
                 raise AssertionError(f"{name}[{label}]: the silent clip is "
                                      f"{e_floor:.3e} off the log floor")
             label += f", silent clip at the floor within {e_floor:.1e}"
-        ms = _time_ms(torch, kern)
+        ms = (_graph_ms if race else _time_ms)(torch, kern)
         plain_ms = _time_ms(torch, plain)
         library = _library_logmel(torch, x, cfg)
         lib_err = err(library(), ref)
         lib = _time_ms(torch, library)
         bound = _logmel_bound(cfg, shape[0], shape[1], frames.shape[1])
+        old = ""
+        if race:
+            old_e = err(packed(), ref)
+            old_ms = _graph_ms(torch, packed)
+            old = race_note(kern, packed, ms, old_ms, old_e, "packed kernel",
+                            frames_f64(x, cfg), got, packed(), ref)
+            _report(f"log_mel_packed[{label} x {list(shape)}]", old_e,
+                    TOL_MEL, old_ms, plain_ms, lib, bound)
+            if main:
+                out["log_mel_packed"] = dict(max_abs_err=old_e, ms=old_ms,
+                                             plain_ms=plain_ms,
+                                             library_ms=lib, bound=bound)
         _report(f"{name}[{label} x {list(shape)} -> {list(got.shape)}] "
-                f"(composite library vs plain {lib_err:.3e})", e, TOL_MEL,
-                ms, plain_ms, lib, bound)
+                f"(composite library vs plain {lib_err:.3e}{old})", e,
+                TOL_MEL, ms, plain_ms, lib, bound)
+        if race:
+            faster(f"{name}[{label}]", ms, old_ms)
         if main:
             out[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                              library_ms=lib, bound=bound)
 
     # the classification path's shapes: 64 clips of 4 s per featurize batch
-    direct_case("PANNs geometry", MelConfig(**PANNS_MEL), (64, 64000), True)
+    direct_case("PANNs geometry", MelConfig(**PANNS_MEL), (64, 64000), True,
+                race=True)
     direct_case("magnitude v2", MelConfig(**MAGNITUDE_MEL), (64, 64000),
                 True)
     direct_case("magnitude n_fft 400", MelConfig(**MAGNITUDE_400_MEL),
@@ -484,6 +601,14 @@ def kernel_phase(torch, rng):
                           center=False), (3, 16001), False)
     direct_case("magnitude v2", MelConfig(**MAGNITUDE_MEL), (4, 64000),
                 False, silent=True)
+    # the 400-point body at a short window, unpadded, in log10, with a
+    # silent clip; the packed kernel off the FFT body's sizes
+    direct_case("n_fft 400 win 320 hop 160 80 mels log10 center=False",
+                MelConfig(n_fft=400, win_length=320, hop_length=160,
+                          n_mels=80, log_mode="log10", center=False),
+                (4, 16001), False, silent=True)
+    direct_case("n_fft 1000 hop 160", MelConfig(n_fft=1000, hop_length=160),
+                (4, 64000), False)
 
     # ---- K2: flash forward ---------------------------------------------------
     def flash_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main,
@@ -1131,9 +1256,12 @@ def _speechlike(rng, seconds, sr=16000, pitch=120.0, syllables=4.0):
 
 
 def _check_launches(counts, kernels, path):
-    """Every kernel of ``kernels`` launched and no plain version ran."""
+    """Every kernel of ``kernels`` launched, no plain version ran, and no
+    old K1 or K4 body (``OLD_MEL_BODIES``) unless ``kernels`` names it."""
     for name, c in counts.items():
-        if c["plain"] != 0 or (name in kernels and c["cuda"] <= 0):
+        if (c["plain"] != 0 or (name in kernels and c["cuda"] <= 0)
+                or (name in OLD_MEL_BODIES and name not in kernels
+                    and c["cuda"])):
             raise AssertionError(f"{name}: kernel launches {c['cuda']}, plain "
                                  f"{c['plain']} on the {path} path")
 
@@ -1142,6 +1270,7 @@ def main_path_phase(torch, rng):
     import numpy as np
 
     from audax_torch.core.config import WhisperConfig
+    from audax_torch.frontend.features import LogMelFrontend
     from audax_torch.infer.transcribe import Transcriber
     from audax_torch.models import whisper as W
     from audax_torch.ops import launch_counts, reset_launches
@@ -1176,6 +1305,13 @@ def main_path_phase(torch, rng):
     # ---- the card against the port's CPU path, float32 ------------------------
     audio = requests[0][1][None, : tr.chunk_samples]
     mel = tr.frontend(audio)
+    mel_cpu = LogMelFrontend(tr.frontend.cfg, device="cpu",
+                             whisper_frames=True)(audio)
+    e_mel = float((mel.cpu() - mel_cpu).abs().max())
+    print(f"[main] log-mel card (FFT body) vs CPU (K1's plain version): "
+          f"max_abs_err {e_mel:.3e} (tol {TOL_MEL:.0e})", flush=True)
+    if not e_mel <= TOL_MEL:
+        raise AssertionError(f"log-mel differs by {e_mel:.3e}")
     enc = W.encode(params, cfg, mel)
     cpu_params = W.tree_map(lambda t: t.cpu(), params)
     enc_cpu = W.encode(cpu_params, cfg, mel.cpu())
@@ -1208,7 +1344,7 @@ def main_path_phase(torch, rng):
           flush=True)
     if not e_log <= TOL_LOGITS:
         raise AssertionError(f"decode logits differ by {e_log:.3e}")
-    if not all(np.isfinite(v) for v in (e_enc, e_log)):
+    if not all(np.isfinite(v) for v in (e_mel, e_enc, e_log)):
         raise AssertionError("non-finite comparison")
     return counts
 
@@ -1239,7 +1375,7 @@ def _kernel_group(name):
               ("K2 flash_fwd_sm90 (wgmma)", ("flash_fwd_sm90",)),
               ("K2 flash_fwd", ("flash_fwd",)),
               ("K4/K5 log_mel_direct", ("log_mel_direct",)),
-              ("K5 log_mel_fft", ("log_mel_fft",)),
+              ("K1/K4/K5 log_mel_fft", ("log_mel_fft",)),
               ("K1 log_mel", ("log_mel",)),
               ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "splitK")),
               ("conv (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad")),
@@ -1406,7 +1542,7 @@ def finetune_phase(torch, rng, profile=False):
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"bf16 LoRA loss {losses[0]} -> {losses[-1]}: "
                              "not finite and falling")
-    _check_launches(bf16_counts, ("log_mel_overlap",) + WGMMA,
+    _check_launches(bf16_counts, ("log_mel_overlap_fft",) + WGMMA,
                     "bf16 fine-tune")
     ran = {k: bf16_counts[k]["cuda"] for k in FLASH if bf16_counts[k]["cuda"]}
     if ran:
@@ -1816,8 +1952,8 @@ def _featurize(torch, us, name, kw, kernel):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    direct = {"log_mel_overlap", "log_mel_packed", "log_mel_generic",
-              "log_mel_fft"}
+    direct = {"log_mel_overlap", "log_mel_overlap_fft", "log_mel_packed",
+              "log_mel_packed_fft", "log_mel_generic", "log_mel_fft"}
     _check_launches(counts, (kernel,), f"featurize ({name})")
     others = {k: c["cuda"] for k, c in counts.items()
               if k in direct - {kernel} and c["cuda"]}
@@ -2180,6 +2316,21 @@ def main() -> int:
             raise AssertionError(f"{name} spills (or reports no kernel): "
                                  f"{spilled}")
 
+    # the FFT log-mel body's instantiations by n_fft, Whisper's 400-point
+    # mixed radix among them: registers and spills (a spill fails)
+    if "log_mel_fft" in reports:
+        kernels = _ptxas_kernels(reports["log_mel_fft"])
+        print("[build] log_mel_fft ptxas (n_fft: registers, spill bytes): "
+              + "; ".join(f"{a}: {r}, {sp}" for a, r, sp in kernels),
+              flush=True)
+        if any(sp for _, _, sp in kernels) or "400" not in {
+                a for a, _, _ in kernels}:
+            raise AssertionError(f"log_mel_fft spills or lacks n_fft 400: "
+                                 f"{kernels}")
+    else:
+        print("[build] log_mel_fft was built before: its registers and "
+              "spills are not reported", flush=True)
+
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
     precision_check(torch)
@@ -2201,8 +2352,12 @@ def main() -> int:
 
     sources = {"log_mel_overlap": ("audax_torch/csrc/log_mel_overlap.cu",
                                    "audax/ops/pallas_mel.py:199"),
+               "log_mel_overlap_fft": ("audax_torch/csrc/log_mel_fft.cu",
+                                       "audax/ops/pallas_mel.py:199"),
                "log_mel_packed": ("audax_torch/csrc/log_mel_direct.cu",
                                   "audax/ops/pallas_mel.py:271"),
+               "log_mel_packed_fft": ("audax_torch/csrc/log_mel_fft.cu",
+                                      "audax/ops/pallas_mel.py:271"),
                "log_mel_generic": ("audax_torch/csrc/log_mel_direct.cu",
                                    "audax/ops/pallas_mel.py:334"),
                "log_mel_fft": ("audax_torch/csrc/log_mel_fft.cu",
