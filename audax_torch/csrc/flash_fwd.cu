@@ -17,14 +17,18 @@
 // are cast to V's dtype before the PV product (bfloat16 rounds them), l sums
 // them unrounded, and the output is cast to q's dtype.
 //
-// What bounds it on this card: at Whisper's encoder shape [4, 6, 1500, 64]
-// the work is 4*B*H*T*T*D = 6.9 GFLOP against 9 MB of q, k, v and o, so it
-// is bound by operations. In float32 those run on the CUDA cores (67
-// TFLOP/s), because TF32 tensor cores would break parity with the float32
-// reference. bfloat16 at 64 or 128 query rows a block, unfolded, moved to
-// the tensor cores: csrc/flash_fwd_sm90.cu (wgmma) serves it, at every head
-// dim. Here bfloat16 keeps only the 32-row tiles and the folds, widened to
-// float32 in shared memory; ops/attention.py:FWD_BODIES routes each call.
+// What bounds it on this card: at Whisper-base's encoder shape [4, 6, 1500,
+// 64] the work is 4*B*H*T*T*D = 13.8 GFLOP against 9 MB of q, k, v and o,
+// so it is bound by operations. Here those run on the CUDA cores (67
+// TFLOP/s), because one TF32 pass on the tensor cores would break parity
+// with the float32 reference. Three passes keep it: float32 at 64 query
+// rows a block, unfolded, moved to the tensor cores in 3xTF32
+// (csrc/flash_fwd_tf32x3.cu, at every head dim), and bfloat16 at 64 or
+// 128 query rows to wgmma (csrc/flash_fwd_sm90.cu). This body keeps
+// float32 at 32 and 128 query rows, bfloat16 at 32 (widened to float32 in
+// shared memory) and the folds; ops/attention.py:FWD_BODIES routes each
+// call, and launch_flash_forward(..., body="cuda_core") forces this body
+// for an A/B.
 //
 // Design: one warp group (4 warps) per (batch*head, tile of BQ query rows);
 // a loop over BK-key tiles of K and V staged in shared memory (float32, rows

@@ -21,10 +21,10 @@
 // cores (67 TFLOP/s) bounds it, not memory. The TPU ran both products at
 // HIGHEST precision; here they are float32 FMAs on the CUDA cores, because
 // near-silent bins come out of cancelling sums and TF32's 10-bit mantissa
-// would break the log-domain parity. K5 at a power-of-two n_fft from 256 to
+// would break the log-domain parity. K5 at n_fft 256, 400, 512, 1024 and
 // 2048 moved to the FFT body, csrc/log_mel_fft.cu (ops/direct_mel.py:
-// fft_applicable routes it); this body keeps K5 at every other n_fft (400,
-// Whisper's STFT geometry, among them) and all of K4.
+// fft_applicable routes it); this body keeps K5 at every other n_fft (1000
+// among them) and K4 wherever the FFT body is not built.
 //
 // Design: one block of 256 threads owns 64 frames and loops over column
 // tiles of the basis (K4: 64 packed columns; K5: 32 bins, their cos and sin
@@ -35,7 +35,10 @@
 // the power tile to shared memory with the tile's filterbank rows; and adds
 // power @ fb into a [64, M] mel accumulator held in registers (4 rows x
 // M / 16 columns per thread). The log is taken once, at the end. Nothing
-// but the output goes back to device memory.
+// but the output goes back to device memory. One launch holds at most 256
+// bands; above that the wrapper launches once per chunk of 256 bands
+// (ops/direct_mel.py:band_chunks), each chunk writing its own columns of
+// the output (row stride ld) and computing the spectrum again.
 //
 // Frames are read in place from the padded signal: frame t of clip b starts
 // at sig + b * clip_stride + t * hop, so the [N, n_fft] frame matrix is never
@@ -71,7 +74,7 @@ log_mel_direct_kernel(const float* __restrict__ sig, long long clip_stride,
                       const float* __restrict__ basis0,
                       const float* __restrict__ basis1, int width,
                       const float* __restrict__ fb,
-                      float* __restrict__ out, int nm, int log_mode,
+                      float* __restrict__ out, int nm, int ld, int log_mode,
                       float power) {
   constexpr int PW = power_cols(GENERIC);   // power columns per tile
   constexpr int MW = 16 * MJ;               // mel columns held (zero-padded)
@@ -178,7 +181,7 @@ log_mel_direct_kernel(const float* __restrict__ sig, long long clip_stride,
     for (int e = tid; e < PW * MW; e += THREADS) {
       const int c = e / MW, m = e % MW;
       const int row = c0 + c;
-      Fs[e] = (row < width && m < nm) ? __ldg(fb + (long long)row * nm + m)
+      Fs[e] = (row < width && m < nm) ? __ldg(fb + (long long)row * ld + m)
                                       : 0.f;
     }
     __syncthreads();
@@ -203,7 +206,7 @@ log_mel_direct_kernel(const float* __restrict__ sig, long long clip_stride,
   for (int i = 0; i < 4; ++i) {
     const long long g = row0 + ty * 4 + i;
     if (g >= n_rows) continue;
-    float* dst = out + g * nm;
+    float* dst = out + g * ld;
 #pragma unroll
     for (int j = 0; j < MJ; ++j) {
       const int m = tx + 16 * j;
@@ -218,7 +221,7 @@ template <int GENERIC, int MJ>
 int launch(const float* sig, long long clip_stride, int hop, int n_frames,
            long long n_rows, int n_fft, const float* basis0,
            const float* basis1, int width, const float* fb, float* out,
-           int nm, int log_mode, float power, cudaStream_t stream) {
+           int nm, int ld, int log_mode, float power, cudaStream_t stream) {
   const long long smem = smem_bytes(GENERIC, MJ);
   cudaError_t err = cudaFuncSetAttribute(
       log_mel_direct_kernel<GENERIC, MJ>,
@@ -228,7 +231,7 @@ int launch(const float* sig, long long clip_stride, int hop, int n_frames,
   log_mel_direct_kernel<GENERIC, MJ><<<(unsigned)blocks, THREADS,
                                        (size_t)smem, stream>>>(
       sig, clip_stride, hop, n_frames, n_rows, n_fft, basis0, basis1, width,
-      fb, out, nm, log_mode, power);
+      fb, out, nm, ld, log_mode, power);
   return (int)cudaGetLastError();
 }
 
@@ -240,20 +243,24 @@ extern "C" {
 // (n_frames frames per clip, n_rows = batch * n_frames in all). generic 0
 // (K4): basis0 = dft [n_fft, width], basis1 unused, fb = fb2 [width, nm].
 // generic 1 (K5): basis0 = cos, basis1 = sin [n_fft, width = F], fb [F, nm].
-// out [n_rows, nm] float32. log_mode 0 = log(x + 1e-6), 1 = log10(max(x,
+// fb's rows and out's rows are ld floats apart (ld >= nm): a launch computes
+// nm bands, the columns of a wider filterbank and output that the two
+// pointers start at, so a wrapper covers more than 256 bands in chunks.
+// out [n_rows, ld] float32. log_mode 0 = log(x + 1e-6), 1 = log10(max(x,
 // 1e-10)). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for nm outside [1, 256].
+// cudaErrorInvalidValue for nm outside [1, 256] or ld < nm.
 int log_mel_direct_f32(int generic, const float* sig, long long clip_stride,
                        int hop, int n_frames, long long n_rows, int n_fft,
                        const float* basis0, const float* basis1, int width,
-                       const float* fb, float* out, int nm, int log_mode,
-                       float power, void* stream) {
-  if (nm < 1 || nm > 256 || n_frames < 1 || n_rows < 1)
+                       const float* fb, float* out, int nm, int ld,
+                       int log_mode, float power, void* stream) {
+  if (nm < 1 || nm > 256 || ld < nm || n_frames < 1 || n_rows < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define AUDAX_LAUNCH(G, MJ)                                                  \
   return launch<G, MJ>(sig, clip_stride, hop, n_frames, n_rows, n_fft,       \
-                       basis0, basis1, width, fb, out, nm, log_mode, power, s)
+                       basis0, basis1, width, fb, out, nm, ld, log_mode,     \
+                       power, s)
   if (generic) {
     if (nm <= 64) AUDAX_LAUNCH(1, 4);
     if (nm <= 128) AUDAX_LAUNCH(1, 8);

@@ -20,6 +20,7 @@ from audax_torch.ops.attention import (decode_attention_cuda,
                                        flash_backward_dq_plain,
                                        flash_backward_dq_wgmma_cuda,
                                        flash_forward_cuda, flash_forward_plain,
+                                       flash_forward_tf32x3_cuda,
                                        flash_forward_wgmma_cuda)
 from audax_torch.ops.direct_mel import (fused_logmel_fft_cuda,
                                         fused_logmel_fft_plain,
@@ -50,6 +51,7 @@ KERNELS = {
     "log_mel_fft": (fused_logmel_fft_cuda, fused_logmel_fft_plain),
     "flash_forward": (flash_forward_cuda, flash_forward_plain),
     "flash_forward_wgmma": (flash_forward_wgmma_cuda, flash_forward_plain),
+    "flash_forward_tf32x3": (flash_forward_tf32x3_cuda, flash_forward_plain),
     "flash_backward_dq": (flash_backward_dq_cuda, flash_backward_dq_plain),
     "flash_backward_dkv": (flash_backward_dkv_cuda, flash_backward_dkv_plain),
     "flash_backward_dq_wgmma": (flash_backward_dq_wgmma_cuda,

@@ -12,6 +12,8 @@ Port of ``audax/ops/attention.py``:
     a template parameter of K2's kernel); ``launch_flash_forward`` is the
     kernel launch itself, with a key count ``kv_len`` apart from the K/V
     row stride, for callers that keep their own counter.
+    ``flash_forward_tf32x3_cuda`` launches K2's float32 body on the tensor
+    cores (3xTF32), ``flash_forward_wgmma_cuda`` its bf16 body.
   * ``flash_backward`` -- the gradients of ``flash_attention`` (TPU kernels
     ``_dq_kernel`` and ``_dkv_kernel`` of ``_bwd_pallas``): P is recomputed
     from the saved logsumexp, delta = rowsum(dO * O) is a plain float32 pass
@@ -47,20 +49,24 @@ with K8 at (64, 32) for head_dim 128; in bf16 ``WGMMA_TILE`` for K2 and
 every pair of 32, 64 and 128 -- at head_dim 64, for all three kernels;
 ``fold`` 2 or 4 (``FOLDS``) runs at head_dim 64 with the 64 x 64 tile.
 
-Bodies. Each of K2, K7 and K8 has two, and one table per direction maps
-every call the kernels are built for to one of them: ``FWD_BODIES``
+Bodies. K2 has three, K7 and K8 two each, and one table per direction
+maps every call the kernels are built for to one of them: ``FWD_BODIES``
 ((dtype, head_dim, tile, fold) of K2) and ``BWD_BODIES`` ((kernel, dtype,
-head_dim, tile) of K7 "dq" and K8 "dkv"). float32 runs on the CUDA cores
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) everywhere; bf16 runs on
-the tensor cores (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``,
-wgmma) wherever wgmma takes the tile -- K2 and K7 at 64 or 128 query
-rows, K8 at 64 or 128 keys -- and its other tiles and K2's folds on the
-CUDA cores. A wrapper checks (block_q, block_k, head_dim, fold) and the
-(dtype, ...) against those tables before it dispatches, so a CPU call
-raises the same ``ValueError`` as the card would; nothing is silently
-replaced. Each body counts its own launches: ``flash_forward_cuda``,
+head_dim, tile) of K7 "dq" and K8 "dkv"). K2 in float32 runs on the tensor
+cores in 3xTF32 (``csrc/flash_fwd_tf32x3.cu``, mma.sync) at 64 query rows,
+unfolded, and on the CUDA cores (``csrc/flash_fwd.cu``) at 32 or 128 rows
+and in the folds; K7/K8 in float32 run on the CUDA cores
+(``csrc/flash_bwd.cu``) everywhere; bf16 runs on the tensor cores
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``, wgmma) wherever
+wgmma takes the tile -- K2 and K7 at 64 or 128 query rows, K8 at 64 or
+128 keys -- and its other tiles and K2's folds on the CUDA cores. A
+wrapper checks (block_q, block_k, head_dim, fold) and the (dtype, ...)
+against those tables before it dispatches, so a CPU call raises the same
+``ValueError`` as the card would; nothing is silently replaced. Each body
+counts its own launches: ``flash_forward_cuda``,
 ``flash_backward_dq_cuda`` and ``flash_backward_dkv_cuda`` those on the
-CUDA cores, the ``*_wgmma_cuda`` launchers those on the tensor cores.
+CUDA cores, ``flash_forward_tf32x3_cuda`` K2's float32 ones on the tensor
+cores, the ``*_wgmma_cuda`` launchers the bf16 ones on the tensor cores.
 JAX's tiles (2048, 512, ...) are TPU VMEM blocks.
 
 Each kernel function dispatches on the tensor it is given: a CPU tensor
@@ -79,7 +85,7 @@ from audax_torch.ops import native
 __all__ = ["TILES", "FOLDS", "WGMMA_TILE", "BWD_WGMMA_TILE", "FWD_BODIES",
            "BWD_BODIES", "fwd_body", "bwd_body", "resolve_tile", "pick_fold",
            "flash_forward", "flash_forward_cuda", "flash_forward_plain",
-           "flash_forward_wgmma_cuda",
+           "flash_forward_wgmma_cuda", "flash_forward_tf32x3_cuda",
            "launch_flash_forward", "attention_backend",
            "flash_backward", "flash_backward_plain", "flash_backward_dq_plain",
            "flash_backward_dkv_plain", "flash_backward_dq_cuda",
@@ -147,26 +153,29 @@ def _fwd_bodies() -> dict:
     """``{(dtype, head_dim, (block_q, block_k), fold): body}``: every K2
     call the kernels are built for, and the body that serves it --
     "cuda_core" (float32 FMAs, ``csrc/flash_fwd.cu``, built in either
-    dtype at every (head_dim, tile, fold) float32 takes) or "wgmma" (bf16 on the tensor cores,
-    ``csrc/flash_fwd_sm90.cu``). float32
-    runs on the CUDA cores at the default tile for every head dim, at every
-    caller-set tile at head_dim 64 and in the folds. bf16 runs on the
-    tensor cores at ``WGMMA_TILE`` for every head dim and at every caller-set
-    tile of 64 or 128 query rows (wgmma takes 64-row tiles); its 32-row
-    tiles and its folds stay on the CUDA cores."""
+    dtype at every (head_dim, tile, fold) float32 takes), "tf32x3" (float32
+    on the tensor cores in 3xTF32, ``csrc/flash_fwd_tf32x3.cu``) or "wgmma"
+    (bf16 on the tensor cores, ``csrc/flash_fwd_sm90.cu``). float32 runs on
+    the tensor cores wherever a block holds 64 query rows, unfolded (4
+    warps, one m16n8k8 row tile of 16 rows each): the default 64 x 64 tile
+    at every head dim (16, 32, 64 and 128) and the caller-set tiles
+    (64, 32) and (64, 128) at head_dim 64; its caller-set 32- and 128-row
+    tiles and the folds (the head-fold probe's A/B within one body) stay
+    on the CUDA cores. bf16 runs on the tensor cores at ``WGMMA_TILE`` for
+    every head dim and at every caller-set tile of 64 or 128 query rows
+    (wgmma takes 64-row tiles); its 32-row tiles and its folds stay on the
+    CUDA cores."""
     f32, bf16 = torch.float32, torch.bfloat16
-    table = {(f32, d, (64, 64), 1): "cuda_core" for d in _HEAD_DIMS}
-    for dt in (f32, bf16):
-        for tile in TILES:
-            if dt == f32 or tile[0] == 32:
-                table[(dt, 64, tile, 1)] = "cuda_core"
-        for fold in FOLDS:
-            table[(dt, _FOLD_HEAD_DIM, _FOLD_TILE, fold)] = "cuda_core"
+    table = {}
     for d in _HEAD_DIMS:
+        table[(f32, d, (64, 64), 1)] = "tf32x3"
         table[(bf16, d, WGMMA_TILE, 1)] = "wgmma"
     for tile in TILES:
-        if tile[0] >= 64:
-            table[(bf16, 64, tile, 1)] = "wgmma"
+        table[(f32, 64, tile, 1)] = "tf32x3" if tile[0] == 64 else "cuda_core"
+        table[(bf16, 64, tile, 1)] = "wgmma" if tile[0] >= 64 else "cuda_core"
+    for dt in (f32, bf16):
+        for fold in FOLDS:
+            table[(dt, _FOLD_HEAD_DIM, _FOLD_TILE, fold)] = "cuda_core"
     return table
 
 
@@ -349,8 +358,9 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          body: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of K2 on the body ``FWD_BODIES`` names (the CUDA-core
-    ``csrc/flash_fwd.cu`` or, counted by ``flash_forward_wgmma_cuda``, the
-    tensor-core ``csrc/flash_fwd_sm90.cu``), otherwise counted by no one:
+    ``csrc/flash_fwd.cu``, or on the tensor cores, each counted by its own
+    launcher, ``csrc/flash_fwd_tf32x3.cu`` for float32 and
+    ``csrc/flash_fwd_sm90.cu`` for bf16), otherwise counted by no one:
     q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D] with keys at or past ``kv_len``
     (default Tk) masked and never read; ``fold`` heads of the fused B*Hq
     axis per block. ``body="cuda_core"`` takes the CUDA-core body at any
@@ -380,10 +390,12 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.float32, d, (bq, bk), fold) not in FWD_BODIES):
         raise ValueError(f"{name}: no {body!r} body at head_dim {d}, tile "
                          f"{(bq, bk)}, fold {fold}")
-    if body is None and FWD_BODIES[(q.dtype, d, (bq, bk), fold)] == "wgmma":
-        return flash_forward_wgmma_cuda(q, k, v, causal=causal, scale=scale,
-                                        block_q=bq, block_k=bk, kv_len=kv_len,
-                                        name=name)
+    tensor_core = {"wgmma": flash_forward_wgmma_cuda,
+                   "tf32x3": flash_forward_tf32x3_cuda}.get(
+        FWD_BODIES[(q.dtype, d, (bq, bk), fold)] if body is None else body)
+    if tensor_core is not None:
+        return tensor_core(q, k, v, causal=causal, scale=scale, block_q=bq,
+                           block_k=bk, kv_len=kv_len, name=name)
     o = torch.empty_like(q)
     lse = torch.empty(b * hq, tq, device=q.device, dtype=torch.float32)
     if tq == 0:
@@ -395,6 +407,46 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     native.check(status, name)
     return o, lse
+
+
+def _tensor_core_forward(lib: str, dtype: torch.dtype,
+                         default_tile: Tuple[int, int], q, k, v, causal,
+                         scale, block_q, block_k, kv_len, name):
+    """One launch of the tensor-core body of K2 in library ``lib`` (entry
+    point of the same name) on ``dtype`` operands: ``(o, lse, launched)``.
+    Checks what the C entry point does not (device, dtype, shapes,
+    ``kv_len``, 16-byte alignment for its copies); the library refuses a
+    (head_dim, tile) it is not built at with ``cudaErrorInvalidValue``,
+    which raises."""
+    _check_cuda(name, q, k, v)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    kv_len = tk if kv_len is None else int(kv_len)
+    tile = (default_tile[0] if block_q is None else int(block_q),
+            default_tile[1] if block_k is None else int(block_k))
+    if q.dtype != dtype:
+        raise ValueError(f"{name}: the {lib} body takes {dtype}, not "
+                         f"{q.dtype}")
+    if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b
+            or k.shape[3] != d or hq % hkv or not 0 <= kv_len <= tk
+            or (causal and tq != tk)):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, kv_len {kv_len}, causal "
+                         f"{causal} is not a call the {lib} body takes")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: the {lib} body copies 16-byte chunks; "
+                         f"q, k and v must be 16-byte aligned")
+    o = torch.empty_like(q)
+    lse = torch.empty(b * hq, tq, device=q.device, dtype=torch.float32)
+    if tq == 0:
+        return o, lse, False
+    status = getattr(native.library(lib), lib)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, hq, hkv, tq, kv_len, tk, d, _scale(q, scale),
+        int(causal), tile[0], tile[1],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(status, name)
+    return o, lse, True
 
 
 def flash_forward_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -411,33 +463,39 @@ def flash_forward_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
     (head_dim, tile) that ``FWD_BODIES`` gives this body (default
     ``WGMMA_TILE``), as ``launch_flash_forward`` routes them; the library
     refuses any other with ``cudaErrorInvalidValue``, which raises."""
-    _check_cuda(name, q, k, v)
-    b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    kv_len = tk if kv_len is None else int(kv_len)
-    tile = (WGMMA_TILE[0] if block_q is None else int(block_q),
-            WGMMA_TILE[1] if block_k is None else int(block_k))
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the tensor-core body takes bf16, not "
-                         f"{q.dtype}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: the tensor-core body copies 16-byte "
-                         f"chunks; q, k and v must be 16-byte aligned")
-    o = torch.empty_like(q)
-    lse = torch.empty(b * hq, tq, device=q.device, dtype=torch.float32)
-    if tq == 0:
-        return o, lse
-    status = native.library("flash_fwd_sm90").flash_fwd_sm90(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, hq, hkv, tq, kv_len, tk, d, _scale(q, scale),
-        int(causal), tile[0], tile[1],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    native.check(status, name)
-    flash_forward_wgmma_cuda.launches += 1
+    o, lse, launched = _tensor_core_forward(
+        "flash_fwd_sm90", torch.bfloat16, WGMMA_TILE, q, k, v, causal,
+        scale, block_q, block_k, kv_len, name)
+    flash_forward_wgmma_cuda.launches += launched
     return o, lse
 
 
 flash_forward_wgmma_cuda.launches = 0
+
+
+def flash_forward_tf32x3_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = False,
+                              scale: Optional[float] = None,
+                              block_q: Optional[int] = None,
+                              block_k: Optional[int] = None,
+                              kv_len: Optional[int] = None,
+                              name: str = "flash_forward"
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's float32 body on the tensor cores (``csrc/flash_fwd_tf32x3.cu``,
+    3xTF32 on mma.sync): one counted launch, same contract as
+    ``flash_forward_plain`` with keys at or past ``kv_len`` masked. Takes
+    float32, 16-byte-aligned operands at a (head_dim, tile) that
+    ``FWD_BODIES`` gives this body (default 64 x 64), as
+    ``launch_flash_forward`` routes them; the library refuses any other
+    with ``cudaErrorInvalidValue``, which raises."""
+    o, lse, launched = _tensor_core_forward(
+        "flash_fwd_tf32x3", torch.float32, (64, 64), q, k, v, causal, scale,
+        block_q, block_k, kv_len, name)
+    flash_forward_tf32x3_cuda.launches += launched
+    return o, lse
+
+
+flash_forward_tf32x3_cuda.launches = 0
 
 
 def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -446,10 +504,11 @@ def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        block_k: Optional[int] = None, fold: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernel K2 on the body ``FWD_BODIES`` gives the call
-    (``csrc/flash_fwd.cu`` on the CUDA cores or ``csrc/flash_fwd_sm90.cu``
-    on the tensor cores); same contract as ``flash_forward_plain``. Its
-    count holds K2's launches on the CUDA cores; those on the tensor cores
-    are ``flash_forward_wgmma_cuda``'s."""
+    (``csrc/flash_fwd.cu`` on the CUDA cores, or on the tensor cores
+    ``csrc/flash_fwd_tf32x3.cu`` in float32 and ``csrc/flash_fwd_sm90.cu``
+    in bf16); same contract as ``flash_forward_plain``. Its count holds
+    K2's launches on the CUDA cores; those on the tensor cores are
+    ``flash_forward_tf32x3_cuda``'s and ``flash_forward_wgmma_cuda``'s."""
     out = launch_flash_forward(q, k, v, causal=causal, scale=scale,
                                block_q=block_q, block_k=block_k, fold=fold)
     if fwd_body(q.dtype, q.shape[-1], block_q, block_k, fold) == "cuda_core":

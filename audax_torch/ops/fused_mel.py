@@ -14,13 +14,13 @@ of ``log_mel_pallas`` and picks, per config, the tier it picks
 On the card each tier runs one of two bodies, by n_fft (``BODIES``,
 ``mel_body``): the FFT body (``csrc/log_mel_fft.cu``: ``rfft`` of the
 windowed frame, ``|X|^power``, the banded mel, the log) where its n_fft
-is listed -- at power 2 the powers of two from 256 to 2048 and Whisper's
-400, so Whisper 80/128, UrbanSound v1/v2 and PANNs; for K5 the powers of
-two only (``direct_mel.fft_applicable``) -- and the tier's own kernel
-elsewhere. Each (tier, body) pair counts its own launches under its name
-in ``ops.KERNELS``. On a CPU tensor K1 and K4 keep their own plain
-versions; K5 takes its bodies' plain versions by the same route as on the
-card.
+is listed -- in every tier the powers of two from 256 to 2048 and
+Whisper's 400 (``direct_mel.FFT_SIZES``), so Whisper 80/128, UrbanSound
+v1/v2, PANNs and a magnitude mel at Whisper's geometry -- and the tier's
+own kernel elsewhere. Each (tier, body) pair counts its own launches
+under its name in ``ops.KERNELS``. On a CPU tensor K1 and K4 keep their
+own plain versions; K5 takes its bodies' plain versions by the same route
+as on the card.
 
 K1 zoom-DFTs each g-sample block of the reflect-padded signal once,
 recombines frames from NB twiddle-shifted block spectra, applies the
@@ -44,8 +44,8 @@ import torch.nn.functional as F
 
 from audax_torch.core.config import MelConfig
 from audax_torch.ops import native
-from audax_torch.ops.direct_mel import (FFT_SIZES, POWER2_FFT_SIZES,
-                                        fused_logmel_fft, fused_logmel_frames,
+from audax_torch.ops.direct_mel import (FFT_SIZES, fused_logmel_fft,
+                                        fused_logmel_frames,
                                         fused_logmel_packed,
                                         fused_logmel_packed_fft_cuda,
                                         launch_fft_body)
@@ -70,8 +70,8 @@ _SMEM_TARGET = 110 * 1024
 #: the kernel there, the tier's own kernel at every other n_fft), by their
 #: names in ``ops.KERNELS``
 BODIES = {
-    "overlap": (POWER2_FFT_SIZES, "log_mel_overlap_fft", "log_mel_overlap"),
-    "packed": (POWER2_FFT_SIZES, "log_mel_packed_fft", "log_mel_packed"),
+    "overlap": (FFT_SIZES, "log_mel_overlap_fft", "log_mel_overlap"),
+    "packed": (FFT_SIZES, "log_mel_packed_fft", "log_mel_packed"),
     "generic": (FFT_SIZES, "log_mel_fft", "log_mel_generic"),
 }
 
@@ -214,7 +214,7 @@ def log_mel_overlap_fft_cuda(x: torch.Tensor, cfg: MelConfig
                              ) -> torch.Tensor:
     """K1's tier on the FFT body (``csrc/log_mel_fft.cu`` at power 2, on the
     frame view of the reflect-padded signal, read in place) for an n_fft in
-    ``direct_mel.POWER2_FFT_SIZES``: same contract as
+    ``direct_mel.FFT_SIZES``: same contract as
     ``log_mel_overlap_plain``."""
     if mel_body(cfg) != "log_mel_overlap_fft":
         raise ValueError(f"the FFT body does not serve K1's tier at n_fft "
@@ -224,7 +224,7 @@ def log_mel_overlap_fft_cuda(x: torch.Tensor, cfg: MelConfig
     frames, lead = direct_frames(x, cfg)
     mel, launched = launch_fft_body(
         frames, *fft_constants(cfg, frames.device), _kernel_log(cfg), 2.0,
-        POWER2_FFT_SIZES)
+        FFT_SIZES)
     log_mel_overlap_fft_cuda.launches += launched
     return mel.reshape(lead + mel.shape[1:])
 

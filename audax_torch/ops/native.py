@@ -16,8 +16,9 @@ them, so the kernels compile in parallel.
 
 The wrappers in ``ops/fused_mel.py``, ``ops/direct_mel.py`` (K4, K5 and
 the FFT log-mel body ``log_mel_fft.cu`` of K1's, K4's and K5's tiers),
-``ops/attention.py`` (K2's two bodies, ``flash_fwd.cu`` and
-``flash_fwd_sm90.cu``, which also serve the head-fold probe
+``ops/attention.py`` (K2's three bodies, ``flash_fwd.cu``,
+``flash_fwd_tf32x3.cu`` and ``flash_fwd_sm90.cu``, the first of which
+also serves the head-fold probe
 ``tools/attn_headfold_probe.py``, and K7/K8's two, ``flash_bwd.cu`` and
 ``flash_bwd_sm90.cu``), ``ops/int4_matmul.py`` and the int4
 experiment tools (``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
@@ -51,6 +52,7 @@ KERNEL_SOURCES = {
     "log_mel_fft": "log_mel_fft.cu",
     "flash_fwd": "flash_fwd.cu",
     "flash_fwd_sm90": "flash_fwd_sm90.cu",
+    "flash_fwd_tf32x3": "flash_fwd_tf32x3.cu",
     "flash_bwd_dq": "flash_bwd.cu",
     "flash_bwd_dkv": "flash_bwd.cu",
     "flash_bwd_dq_sm90": "flash_bwd_sm90.cu",
@@ -74,7 +76,7 @@ SIGNATURES = {
     },
     "log_mel_direct": {
         "log_mel_direct_f32": ([_I, _P, _LL, _I, _I, _LL, _I, _P, _P, _I, _P,
-                                _P, _I, _I, _F, _P], _I),
+                                _P, _I, _I, _I, _F, _P], _I),
     },
     "log_mel_fft": {
         "log_mel_fft_f32": ([_P, _LL, _I, _I, _LL, _I, _P, _P, _P, _P, _P,
@@ -85,6 +87,10 @@ SIGNATURES = {
     },
     "flash_fwd_sm90": {
         "flash_fwd_sm90": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P], _I),
+    },
+    "flash_fwd_tf32x3": {
+        "flash_fwd_tf32x3": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+                             _I),
     },
     "flash_bwd_dq": {
         "flash_bwd_dq": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),

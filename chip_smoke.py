@@ -18,14 +18,16 @@ attention tools, in eleven phases, one output line each (the kernel and
 path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (fourteen), in parallel, with
+  2. build   -- nvcc of every kernel library (fifteen), in parallel, with
      the wall time of each and of all, the registers and any spills; then
-     the count of HGMMA (wgmma) instructions in the SASS of the three
+     the count of HGMMA (wgmma) instructions in the SASS of the three bf16
      tensor-core libraries, K2's and K7's and K8's (``cuobjdump
      --dump-sass``), none of which may be 0, and a spill in K7's or K8's
-     fails; the registers and spills of each n_fft the FFT log-mel body
-     is built for (Whisper's 400-point mixed radix among them), where a
-     spill fails too;
+     fails; the count of TF32 HMMA (mma.sync) instructions in the SASS of
+     K2's float32 tensor-core body (``flash_fwd_tf32x3``), which may not be
+     0, and its registers by instantiation, where a spill fails; the
+     registers and spills of each n_fft the FFT log-mel body is built for
+     (Whisper's 400-point mixed radix among them), where a spill fails too;
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' and the tools' shapes: max |err| against the stated
      tolerance, kernel ms, plain ms, the one-call library yardstick where
@@ -42,6 +44,14 @@ path phases print one line per case):
      [4, 8, 1500, 64] float32, and P1 -- K2 folding 2 or 4 heads per block,
      ``tools/attn_headfold_probe.py:fold_fwd`` -- at the tool's bf16
      [96, 1536, 64] and with a ragged key count (1500 of 1536 rows). K2's
+     float32 body on the tensor cores (``csrc/flash_fwd_tf32x3.cu``,
+     3xTF32) is held, o and lse, within the float32 tolerance at Whisper-
+     base's [4, 6, 1500, 64] and [4, 8, 1500, 64], its cross and causal
+     decoder sites, causal GQA, a ragged key count, head dims 16/32/128 and
+     the serving encoder's [8, 20, 1500, 64], and timed beside the
+     CUDA-core body (``body="cuda_core"``) at the first and the last; each
+     case names the body it ran and its bound (3xTF32 at a third of the
+     TF32 peak). K2's
      bf16 tensor-core body (``csrc/flash_fwd_sm90.cu``) is held, o and
      lse, within the bf16 tolerance and each element of o within the
      rounding bf16 allows (2^-7 of the attention-weighted |v| plus one
@@ -62,16 +72,21 @@ path phases print one line per case):
      plain version, timed beside the tier's own kernel, which it must
      beat, and the composite), Whisper's 400 points at 200 bands, a short
      window, log10 and a silent clip, and K5's at UrbanSound's magnitude
-     batch, n_fft 512/1024/2048, 256 bands at power 1.5 and a silent clip,
-     against the direct DFT's plain version; the tiers' own kernels off
-     the table (K1 at n_fft 480, K4 at 1000, K5 at 400);
+     batch, Whisper's n_fft 400 at power 1 (timed beside K5's direct body
+     on the same [64, 401, 400] frames) and 1.5, n_fft 512/1024/2048, 256
+     bands at power 1.5 and a silent clip, against the direct DFT's plain
+     version; the tiers' own kernels off the table (K1 at n_fft 480, K4
+     and K5 at 1000); and more than 256 bands on every body (320 or 512:
+     the FFT body in K1's, K4's and K5's tiers, the direct bodies of K4 and
+     K5 at n_fft 1000, one launch per chunk of 256 bands);
   3b. precision -- a bf16 ``dense`` at [12000, 5120] x [5120, 1280] within
      one bf16 step of the float64 product (float32 accumulation);
   4. transcription -- random Whisper-tiny weights from a seeded generator,
      a tokenizer with the published 51,865-token layout, two requests (30 s
      and 47 s of synthetic audio) through ``Transcriber(device="cuda")``;
-     the counters of its kernels (K1's tier on the FFT body, K2, K3) must
-     rise and no plain version's or old K1/K4 body's may; then the card is
+     the counters of its kernels (K1's tier on the FFT body, K2 on its
+     3xTF32 body, K3) must rise and no plain version's, old K1/K4 body's
+     or CUDA-core K2's may; then the card is
      held against the port's CPU path in float32 (the log-mel, FFT body
      against K1's plain version; encoder states, and teacher-forced
      logits of every decode step);
@@ -80,8 +95,9 @@ path phases print one line per case):
      and two ``finetune_whisper(device="cuda")`` runs: LoRA (rank 8 on
      attn/q and attn/v, with one WER eval) and full-parameter (overfitting
      four clips: the last loss must fall below 0.7x the first). K1 (its
-     FFT body), K2, K3, K7 and K8 must all launch, the flash kernels on
-     their CUDA-core bodies only, and no plain version may. A third run,
+     FFT body), K2 (its 3xTF32 body, no CUDA-core launch), K3, K7 and K8
+     (their CUDA-core bodies) must all launch, none on a bf16 tensor-core
+     body, and no plain version may. A third run,
      LoRA in bf16 (4 clips x 5 steps), must launch the tensor-core bodies
      of K2, K7 and K8 and no CUDA-core one, with a finite, falling loss.
      Then the step time, steps/s, tokens/s, peak memory and launches of the
@@ -92,8 +108,9 @@ path phases print one line per case):
      the CPU and moved to the card, ``ContinuousBatcher(slots=8,
      kv_quant=True, max_new_tokens=64)`` behind ``serve_http``, twelve
      client threads posting 16-bit WAVs of 5-30 s: every answer must be 200
-     with a well-formed JSON body; K1 (its FFT body), K2, K3's int8 arm
-     and K9 must launch and no plain version may. Then requests/s, latency
+     with a well-formed JSON body; K1 (its FFT body), K2 (its 3xTF32 body,
+     no CUDA-core launch), K3's int8 arm and K9 must launch and no plain
+     version may. Then requests/s, latency
      p50 and max, decode steps, tokens/s, launches per decode step and peak memory; the card
      against the port's CPU path (teacher-forced ``decode_step_ragged``
      with float and with int8 self-KV, two faults planted in the int8
@@ -106,7 +123,7 @@ path phases print one line per case):
      ``featurize_clips`` (int16 upload, batches of 64) under four frontend
      configs: UrbanSound v2 (K1's tier) and PANNs' Cnn14_16k geometry
      (K4's), both on the FFT body, UrbanSound v2 as a magnitude mel (K5's
-     FFT body) and a magnitude mel at n_fft 400 (K5's direct body,
+     FFT body) and a magnitude mel at n_fft 400 (K5's FFT body too,
      featurized only); each run must launch its kernel and no other tier,
      body or plain version. Then
      ``fit_classifier`` for 3 epochs on folds 1-8 and ``evaluate_classifier``
@@ -136,8 +153,9 @@ path phases print one line per case):
      the xla arm, and no plain version anywhere;
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
-     ``csrc/flash_bwd.cu``, count the CUDA-core launches; the ``_wgmma``
-     rows the tensor-core bodies'; ``log_mel_overlap_fft`` and
+     ``csrc/flash_bwd.cu``, count the CUDA-core launches;
+     ``flash_forward_tf32x3`` K2's float32 body on the tensor cores; the
+     ``_wgmma`` rows the bf16 tensor-core bodies'; ``log_mel_overlap_fft`` and
      ``log_mel_packed_fft`` K1's and K4's tiers on the FFT body, apart from
      ``log_mel_overlap``/``log_mel_packed`` and K5's ``log_mel_fft``: each
      body counts its own), then the result line.
@@ -161,11 +179,13 @@ ROOT = Path(__file__).resolve().parent
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
 #: FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s, int8
-#: tensor-core OP/s
+#: tensor-core OP/s; and the float32 rate of 3xTF32 on the tensor cores,
+#: three TF32 products (495 TFLOP/s) for each float32 one
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+TF32X3_FLOPS = 495e12 / 3
 
 #: tolerances: float32 log-mel in the log domain (the JAX package's own
 #: frontend bound); float32 attention; bf16 attention (bf16 rounds p before PV)
@@ -208,18 +228,22 @@ TOL_BN_STATS = 1e-5
 PANNS_MEL = dict(n_fft=512, hop_length=160, n_mels=64, fmin=50.0,
                  fmax=8000.0, htk=False, norm_slaney=True)
 MAGNITUDE_MEL = dict(power=1.0)
-#: a magnitude mel at Whisper's STFT geometry (n_fft 400, hop 160): K5
-#: keeps its direct body at n_fft 400 (its FFT body takes powers of two)
+#: a magnitude mel at Whisper's STFT geometry (n_fft 400, hop 160): K5's
+#: FFT body takes it through the 400-point mixed radix, as K1's tier does
+#: at power 2; K5's direct body keeps every n_fft off the FFT body's table
 MAGNITUDE_400_MEL = dict(n_fft=400, hop_length=160, power=1.0)
+MAGNITUDE_1000_MEL = dict(n_fft=1000, hop_length=160, power=1.0)
 
 #: the kernels each main path must launch: K1's tier runs the FFT body
-#: (``log_mel_overlap_fft``) at every Whisper and UrbanSound preset
-TRANSCRIBE_KERNELS = ("log_mel_overlap_fft", "flash_forward",
+#: (``log_mel_overlap_fft``) at every Whisper and UrbanSound preset, K2
+#: its float32 body on the tensor cores (``flash_forward_tf32x3``); the
+#: CUDA-core K2 (``flash_forward``) must not launch on these paths
+TRANSCRIBE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
                       "decode_attention_stacked")
-FINETUNE_KERNELS = ("log_mel_overlap_fft", "flash_forward",
+FINETUNE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
                     "flash_backward_dq", "flash_backward_dkv",
                     "decode_attention_stacked")
-SERVE_KERNELS = ("log_mel_overlap_fft", "flash_forward",
+SERVE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
                  "decode_attention_stacked_int8", "int4_matmul")
 #: K1's and K4's own kernels: no main path launches them, since every
 #: config a path runs takes the FFT body (``ops/fused_mel.py:BODIES``)
@@ -261,7 +285,7 @@ CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap_fft"),
                       ("PANNs geometry", PANNS_MEL, "log_mel_packed_fft"),
                       ("magnitude v2", MAGNITUDE_MEL, "log_mel_fft"),
                       ("magnitude n_fft 400", MAGNITUDE_400_MEL,
-                       "log_mel_generic"))
+                       "log_mel_fft"))
 
 
 def _run(cmd):
@@ -390,12 +414,16 @@ def kernel_phase(torch, rng):
     # ---- K1's tier: the FFT body at power 2, the overlap kernel elsewhere ---
     def frames_f64(x, cfg):
         """The raw log-mel of ``x`` from a float64 FFT (cuFFT) of the
-        windowed frames: the oracle the race's errors are read against."""
+        windowed frames, ``|X|^power``: the oracle the races' and A/Bs'
+        errors are read against."""
         from audax_torch.ops.stft import apply_log
         frames, _ = fused_mel.direct_frames(x, cfg)
         window, fb, _, _ = fused_mel.fft_constants(cfg, x.device)
         spec = torch.fft.rfft(frames.double() * window.double())
-        mel = (spec.real ** 2 + spec.imag ** 2) @ fb.double()
+        p = spec.real ** 2 + spec.imag ** 2
+        if cfg.power != 2.0:
+            p = p.sqrt() ** cfg.power
+        mel = p @ fb.double()
         return apply_log(mel, "log1e6" if cfg.log_mode == "log1e6"
                          else "log10")
 
@@ -488,6 +516,10 @@ def kernel_phase(torch, rng):
                            center=False), (3, 16001), overlap_rng)
     overlap_case("n_fft 480 hop 160", MelConfig(n_fft=480, hop_length=160),
                  (4, 64000), overlap_rng)
+    # more than 256 bands on the FFT body in K1's tier
+    overlap_case("n_fft 1024 hop 512 320 mels",
+                 MelConfig(n_fft=1024, hop_length=512, n_mels=320),
+                 (4, 64000), overlap_rng)
 
     # ---- K4 / K5: direct log-mel (packed; generic) ----------------------------
     from audax_torch.ops import direct_mel
@@ -496,11 +528,15 @@ def kernel_phase(torch, rng):
     # drew before these cases existed
     direct_rng = np.random.default_rng(4)
 
-    def direct_case(label, cfg, shape, main, silent=False, race=False):
+    def direct_case(label, cfg, shape, main, silent=False, race=False,
+                    direct_ab=False):
         """K4's or K5's tier through the body ``fused_mel.mel_body`` names,
         held against the tier's plain version (K5's bodies against the
-        direct DFT's, on the bases of frontend_constants); with ``race`` K4's
-        packed kernel beside the FFT body, held and timed too, and slower."""
+        direct DFT's, on the bases of frontend_constants); a direct body
+        must launch once per chunk of ``band_chunks``, the FFT body once.
+        With ``race`` K4's packed kernel beside the FFT body, held and timed
+        too, and slower; with ``direct_ab`` K5's direct body beside its FFT
+        body on the same frames, held and timed in the same run."""
         t = np.arange(shape[1]) / 16000.0
         x = (0.3 * np.sin(2 * np.pi * 440 * t) * (1 + np.sin(t))
              + 0.05 * direct_rng.standard_normal(shape)).astype(np.float32)
@@ -532,8 +568,23 @@ def kernel_phase(torch, rng):
         else:
             plain = lambda: direct_mel.fused_logmel_frames_plain(  # noqa: E731
                 frames, *consts, mode, cfg.power)
-        got, ref = kern(), plain()
+        counter = {"log_mel_packed": direct_mel.fused_logmel_packed_cuda,
+                   "log_mel_generic": direct_mel.fused_logmel_frames_cuda,
+                   "log_mel_fft": direct_mel.fused_logmel_fft_cuda,
+                   "log_mel_packed_fft":
+                       direct_mel.fused_logmel_packed_fft_cuda}[name]
+        want = (len(direct_mel.band_chunks(cfg.n_mels))
+                if name in ("log_mel_packed", "log_mel_generic") else 1)
+        n0 = counter.launches
+        got = kern()
+        if counter.launches - n0 != want:
+            raise AssertionError(f"{name}[{label}]: {counter.launches - n0} "
+                                 f"launches for {cfg.n_mels} bands, not "
+                                 f"{want}")
+        ref = plain()
         e = err(got, ref)
+        if want > 1:
+            label += f", {want} launches of <= {direct_mel.MAX_MELS} bands"
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name}[{label}]: non-finite log-mel")
         if silent:
@@ -569,6 +620,23 @@ def kernel_phase(torch, rng):
         if main:
             out[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                              library_ms=lib, bound=bound)
+        if direct_ab:
+            direct = lambda: direct_mel.fused_logmel_frames_cuda(  # noqa: E731
+                frames, *consts, mode, cfg.power)
+            dgot = direct()
+            de = err(dgot, ref)
+            dms = _time_ms(torch, direct)
+            oracle = frames_f64(x, cfg).reshape(got.shape)
+            _report(f"log_mel_generic[{label} x {list(shape)}] (K5's direct "
+                    "body beside its FFT body)", de, TOL_MEL, dms, plain_ms,
+                    lib, bound)
+            print(f"[kernels] K5 [{label}] A/B in one run on frames "
+                  f"{list(frames.shape)}: FFT body {ms:.4f} ms, direct body "
+                  f"{dms:.4f} ms ({dms / ms:.2f}x), composite {lib:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms; against a float64 FFT: FFT "
+                  f"body {err(got, oracle):.3e}, direct body "
+                  f"{err(dgot, oracle):.3e}, plain {err(ref, oracle):.3e}",
+                  flush=True)
 
     # the classification path's shapes: 64 clips of 4 s per featurize batch
     direct_case("PANNs geometry", MelConfig(**PANNS_MEL), (64, 64000), True,
@@ -576,7 +644,7 @@ def kernel_phase(torch, rng):
     direct_case("magnitude v2", MelConfig(**MAGNITUDE_MEL), (64, 64000),
                 True)
     direct_case("magnitude n_fft 400", MelConfig(**MAGNITUDE_400_MEL),
-                (64, 64000), True)
+                (64, 64000), False, direct_ab=True)
     # ragged edges: n_fft 400 (not a multiple of 32), a short window, log10,
     # center=False, odd F with a power of 1.5, 200 and 256 mel bands
     direct_case("n_fft 400 win 320 hop 160 80 mels log10",
@@ -609,28 +677,60 @@ def kernel_phase(torch, rng):
                 (4, 16001), False, silent=True)
     direct_case("n_fft 1000 hop 160", MelConfig(n_fft=1000, hop_length=160),
                 (4, 64000), False)
+    # K5's direct body at the classification path's batch, off the FFT
+    # body's sizes (n_fft 1000)
+    direct_case("magnitude n_fft 1000", MelConfig(**MAGNITUDE_1000_MEL),
+                (64, 64000), True)
+    # more than 256 bands: the FFT body in K4's and K5's tiers (320), and
+    # both direct bodies (512), one launch per chunk of 256 bands
+    direct_case("n_fft 1024 hop 160 320 mels",
+                MelConfig(n_fft=1024, hop_length=160, n_mels=320),
+                (4, 16000), False)
+    direct_case("n_fft 1024 hop 256 320 mels power 1",
+                MelConfig(n_fft=1024, hop_length=256, n_mels=320, power=1.0),
+                (4, 16000), False)
+    direct_case("n_fft 1000 hop 160 512 mels",
+                MelConfig(n_fft=1000, hop_length=160, n_mels=512),
+                (4, 16000), False)
+    direct_case("n_fft 1000 hop 160 512 mels power 1.5",
+                MelConfig(n_fft=1000, hop_length=160, n_mels=512, power=1.5),
+                (4, 16000), False)
 
     # ---- K2: flash forward ---------------------------------------------------
+    #: K2's bodies: the launcher that counts each (launch_flash_forward runs
+    #: the CUDA-core body uncounted), the rate that bounds it, and its key
+    #: in the kernels line
+    k2_bodies = {"cuda_core": (None, F32_FLOPS, "flash_forward"),
+                 "tf32x3": (att.flash_forward_tf32x3_cuda, TF32X3_FLOPS,
+                            "flash_forward_tf32x3"),
+                 "wgmma": (att.flash_forward_wgmma_cuda, BF16_FLOPS,
+                           "flash_forward_wgmma")}
+
     def flash_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main,
                    tile=(None, None), gen=None, d=64, kv_len=None,
-                   key="flash_forward"):
+                   core_ab=False):
+        """K2 on the body ``FWD_BODIES`` names, held (o and lse) against
+        the plain version; with ``core_ab`` the same call on the CUDA-core
+        body too, held and timed in the same run."""
         q = torch.randn(b, hq, tq, d, device=dev, generator=gen).to(dtype)
         k = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
         v = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
         bq, bk = tile
         kv = tk if kv_len is None else kv_len
         body = att.fwd_body(dtype, d, bq, bk)
+        _, rate, key = k2_bodies[body]
 
-        def kern():
+        def kern(body=None):
             return att.launch_flash_forward(q, k, v, causal=causal,
                                             block_q=bq, block_k=bk,
-                                            kv_len=kv)
-        before = att.flash_forward_wgmma_cuda.launches
+                                            kv_len=kv, body=body)
+        counted = {n: c for n, (c, _, _) in k2_bodies.items() if c}
+        before = {n: c.launches for n, c in counted.items()}
         o, lse = kern()
-        if (att.flash_forward_wgmma_cuda.launches - before
-                != (body == "wgmma")):
-            raise AssertionError(f"flash_forward[{label}]: the {body} body "
-                                 "did not serve the call")
+        ran = {n: c.launches - before[n] for n, c in counted.items()}
+        if ran != {n: int(n == body) for n in counted}:
+            raise AssertionError(f"{key}[{label}]: the {body} body did not "
+                                 f"serve the call alone, once ({ran})")
         ks, vs = k[:, :, :kv], v[:, :, :kv]
         o_ref, lse_ref = att.flash_forward_plain(q, ks, vs, causal=causal)
         e = max(err(o, o_ref), err(lse, lse_ref))
@@ -664,55 +764,80 @@ def kernel_phase(torch, rng):
         flops = 4 * b * hq * pairs * d
         elt = q.element_size()
         nbytes = elt * d * (2 * b * hq * tq + 2 * b * hkv * kv) + 4 * b * hq * tq
-        bound = _bound(flops, nbytes,
-                       F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        bound = _bound(flops, nbytes, rate)
         _report(f"{key}[{label}] ({body} body, o and lse)", e, tol, ms,
                 plain, lib, bound)
         if main:
             out[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
                             library_ms=lib, bound=bound)
+        if core_ab:
+            co, clse = kern("cuda_core")
+            ce = max(err(co, o_ref), err(clse, lse_ref))
+            cms = _time_ms(torch, lambda: kern("cuda_core"))
+            cbound = _bound(flops, nbytes, F32_FLOPS)
+            _report(f"flash_forward[{label}] (cuda_core body, o and lse)",
+                    ce, tol, cms, plain, lib, cbound)
+            print(f"[kernels] K2 [{label}] A/B in one run: {body} body "
+                  f"{ms:.4f} ms, CUDA-core body {cms:.4f} ms "
+                  f"({cms / ms:.2f}x), SDPA {lib:.4f} ms; bound "
+                  f"{bound[0]:.4f} ms ({body}) / {cbound[0]:.4f} ms (CUDA "
+                  "cores)", flush=True)
+            if main:
+                out["flash_forward"] = dict(max_abs_err=ce, ms=cms,
+                                            plain_ms=plain, library_ms=lib,
+                                            bound=cbound)
 
-    flash_case("f32 [4,6,1500,64]", 4, 6, 6, 1500, 1500, torch.float32,
-               False, TOL_F32, True)
+    f32 = torch.float32
+    flash_case("f32 [4,6,1500,64]", 4, 6, 6, 1500, 1500, f32, False,
+               TOL_F32, True, core_ab=True)
     flash_case("bf16 [4,6,1500,64]", 4, 6, 6, 1500, 1500, torch.bfloat16,
                False, TOL_BF16, False)
-    flash_case("f32 causal GQA 8q/2kv T=200", 2, 8, 2, 200, 200,
-               torch.float32, True, TOL_F32, False)
+    flash_case("f32 causal GQA 8q/2kv T=200", 2, 8, 2, 200, 200, f32, True,
+               TOL_F32, False)
     # the fine-tune path's sites at Whisper-base width
-    flash_case("f32 [4,8,1500,64]", 4, 8, 8, 1500, 1500, torch.float32,
-               False, TOL_F32, False)
+    flash_case("f32 [4,8,1500,64]", 4, 8, 8, 1500, 1500, f32, False,
+               TOL_F32, False)
     flash_case("f32 cross q [4,8,56,64] kv [4,8,1500,64]", 4, 8, 8, 56, 1500,
-               torch.float32, False, TOL_F32, False)
-    flash_case("f32 decoder self causal [4,8,56,64]", 4, 8, 8, 56, 56,
-               torch.float32, True, TOL_F32, False)
+               f32, False, TOL_F32, False)
+    flash_case("f32 decoder self causal [4,8,56,64]", 4, 8, 8, 56, 56, f32,
+               True, TOL_F32, False)
+    # K2's float32 body on the tensor cores off the main shape: a ragged key
+    # count, head dims 16/32/128, and the serving encoder at Whisper-large-
+    # v3-turbo width (8 windows, 20 heads) beside the CUDA-core body; on
+    # their own generator
+    gen11 = torch.Generator(device=dev).manual_seed(11)
+    flash_case("f32 ragged kv_len 1400 of 1536 rows", 4, 6, 6, 1500, 1536,
+               f32, False, TOL_F32, False, gen=gen11, kv_len=1400)
+    for d in (16, 32, 128):
+        flash_case(f"f32 head_dim {d} [4,8,300,{d}]", 4, 8, 8, 300, 300, f32,
+                   False, TOL_F32, False, gen=gen11, d=d)
+        flash_case(f"f32 head_dim {d} causal GQA 8q/4kv T=130", 2, 8, 4, 130,
+                   130, f32, True, TOL_F32, False, gen=gen11, d=d)
+    flash_case("f32 serving [8,20,1500,64]", 8, 20, 20, 1500, 1500, f32,
+               False, TOL_F32, False, gen=gen11, core_ab=True)
     # K2's bf16 body on the tensor cores (csrc/flash_fwd_sm90.cu): Whisper-
     # small's encoder (the bf16 fine-tune step's shape), the masks, head
     # dims 16/32/128 and every tile it is built at; on their own generator
     gen9 = torch.Generator(device=dev).manual_seed(9)
     bf16 = torch.bfloat16
     flash_case("bf16 [8,12,1500,64]", 8, 12, 12, 1500, 1500, bf16, False,
-               TOL_BF16, True, gen=gen9, key="flash_forward_wgmma")
+               TOL_BF16, True, gen=gen9)
     flash_case("bf16 causal GQA 8q/2kv T=200", 2, 8, 2, 200, 200, bf16,
-               True, TOL_BF16, False, gen=gen9, key="flash_forward_wgmma")
+               True, TOL_BF16, False, gen=gen9)
     flash_case("bf16 cross q [4,8,56,64] kv [4,8,1500,64]", 4, 8, 8, 56,
-               1500, bf16, False, TOL_BF16, False, gen=gen9,
-               key="flash_forward_wgmma")
+               1500, bf16, False, TOL_BF16, False, gen=gen9)
     flash_case("bf16 ragged kv_len 1400 of 1536 rows", 4, 6, 6, 1500, 1536,
-               bf16, False, TOL_BF16, False, gen=gen9, kv_len=1400,
-               key="flash_forward_wgmma")
+               bf16, False, TOL_BF16, False, gen=gen9, kv_len=1400)
     for d in (16, 32, 128):
         flash_case(f"bf16 head_dim {d} [4,8,300,{d}]", 4, 8, 8, 300, 300,
-                   bf16, False, TOL_BF16, False, gen=gen9, d=d,
-                   key="flash_forward_wgmma")
+                   bf16, False, TOL_BF16, False, gen=gen9, d=d)
         flash_case(f"bf16 head_dim {d} causal GQA 8q/4kv T=130", 2, 8, 4,
-                   130, 130, bf16, True, TOL_BF16, False, gen=gen9, d=d,
-                   key="flash_forward_wgmma")
+                   130, 130, bf16, True, TOL_BF16, False, gen=gen9, d=d)
     for tile in att.TILES:
         if tile[0] >= 64 and tile != att.WGMMA_TILE:
             flash_case(f"bf16 [8,12,1500,64] block_q {tile[0]} block_k "
                        f"{tile[1]}", 8, 12, 12, 1500, 1500, bf16, False,
-                       TOL_BF16, False, tile=tile, gen=gen9,
-                       key="flash_forward_wgmma")
+                       TOL_BF16, False, tile=tile, gen=gen9)
 
     # ---- K3: stacked decode attention -----------------------------------------
     def decode_case(label, s_len, pos, main, h=6, hkv=6, tq=1, gen=None):
@@ -1255,6 +1380,14 @@ def _speechlike(rng, seconds, sr=16000, pitch=120.0, syllables=4.0):
     return x.astype(np.float32)
 
 
+def _no_core_k2(counts, path):
+    """K2's float32 calls on a main path all take the 3xTF32 body: the
+    CUDA-core body (``flash_forward``) launched none."""
+    if counts["flash_forward"]["cuda"]:
+        raise AssertionError(f"the {path} path launched the CUDA-core K2 "
+                             f"{counts['flash_forward']['cuda']} times")
+
+
 def _check_launches(counts, kernels, path):
     """Every kernel of ``kernels`` launched, no plain version ran, and no
     old K1 or K4 body (``OLD_MEL_BODIES``) unless ``kernels`` names it."""
@@ -1301,6 +1434,7 @@ def main_path_phase(torch, rng):
     counts = launch_counts()
     print(f"[main] launches: {json.dumps(counts)}", flush=True)
     _check_launches(counts, TRANSCRIBE_KERNELS, "transcription")
+    _no_core_k2(counts, "transcription")
 
     # ---- the card against the port's CPU path, float32 ------------------------
     audio = requests[0][1][None, : tr.chunk_samples]
@@ -1373,6 +1507,7 @@ def _kernel_group(name):
               ("K7 flash_bwd_dq", ("flash_bwd_dq",)),
               ("K8 flash_bwd_dkv", ("flash_bwd_dkv",)),
               ("K2 flash_fwd_sm90 (wgmma)", ("flash_fwd_sm90",)),
+              ("K2 flash_fwd_tf32x3 (3xTF32)", ("flash_fwd_tf32x3",)),
               ("K2 flash_fwd", ("flash_fwd",)),
               ("K4/K5 log_mel_direct", ("log_mel_direct",)),
               ("K1/K4/K5 log_mel_fft", ("log_mel_fft",)),
@@ -1517,9 +1652,10 @@ def finetune_phase(torch, rng, profile=False):
     counts = launch_counts()
     print(f"[finetune] launches: {json.dumps(counts)}", flush=True)
     _check_launches(counts, FINETUNE_KERNELS, "fine-tune")
+    _no_core_k2(counts, "float32 fine-tune")
     ran = {k: counts[k]["cuda"] for k in WGMMA if counts[k]["cuda"]}
     if ran:
-        raise AssertionError(f"the float32 fine-tunes ran tensor-core "
+        raise AssertionError(f"the float32 fine-tunes ran bf16 tensor-core "
                              f"bodies: {ran}")
     del state
 
@@ -1757,6 +1893,7 @@ def serve_phase(torch, rng, profile=False):
           f"{json.dumps(metrics)}", flush=True)
     print(f"[serve] launches: {json.dumps(counts)}", flush=True)
     _check_launches(counts, SERVE_KERNELS, "serving")
+    _no_core_k2(counts, "serving")
     if counts["decode_attention_stacked"]["cuda"]:
         raise AssertionError("the float K3 arm ran on the int8-KV path")
 
@@ -2316,6 +2453,26 @@ def main() -> int:
             raise AssertionError(f"{name} spills (or reports no kernel): "
                                  f"{spilled}")
 
+    # K2's float32 body on the tensor cores: TF32 HMMA (mma.sync) in its
+    # SASS, and every (D, BK) instantiation's registers without a spill
+    tf32 = "flash_fwd_tf32x3"
+    sass = _run([cuobjdump, "--dump-sass", str(native.lib_path(tf32))])
+    hmma = sum("HMMA" in line and "TF32" in line for line in sass.splitlines())
+    print(f"[build] {tf32} SASS: {hmma} TF32 HMMA instructions", flush=True)
+    if hmma == 0:
+        raise AssertionError(f"the 3xTF32 body {tf32} holds no TF32 HMMA")
+    if tf32 in reports:
+        kernels = _ptxas_kernels(reports[tf32])
+        print(f"[build] {tf32} ptxas (D,BK: registers, spill bytes): "
+              + "; ".join(f"{a}: {r}, {sp}" for a, r, sp in kernels),
+              flush=True)
+        if not kernels or any(sp for _, _, sp in kernels):
+            raise AssertionError(f"{tf32} spills (or reports no kernel): "
+                                 f"{kernels}")
+    else:
+        print(f"[build] {tf32} was built before: its registers and spills "
+              "are not reported", flush=True)
+
     # the FFT log-mel body's instantiations by n_fft, Whisper's 400-point
     # mixed radix among them: registers and spills (a spill fails)
     if "log_mel_fft" in reports:
@@ -2366,6 +2523,9 @@ def main() -> int:
                                  "audax/ops/attention.py:161"),
                "flash_forward_wgmma": ("audax_torch/csrc/flash_fwd_sm90.cu",
                                        "audax/ops/attention.py:161"),
+               "flash_forward_tf32x3": (
+                   "audax_torch/csrc/flash_fwd_tf32x3.cu",
+                   "audax/ops/attention.py:161"),
                "flash_forward_fold": ("audax_torch/csrc/flash_fwd.cu",
                                       "tools/attn_headfold_probe.py:90"),
                "flash_backward_dq": ("audax_torch/csrc/flash_bwd.cu",

@@ -14,7 +14,8 @@
   ``ValueError`` before any dispatch.
 * K2's body table (``FWD_BODIES``): every call the paths and tools make
   resolves to one body -- bf16 at 64 or more query rows unfolded to the
-  tensor cores, the rest to the CUDA cores -- the table agrees with the
+  tensor cores (wgmma), float32 at 64 query rows unfolded to the tensor
+  cores too (3xTF32), the rest to the CUDA cores -- the table agrees with the
   instantiations in both sources, and every tile fits one block's shared
   memory (the tensor-core body's ``smem_bytes`` read from its source).
 * ``dot_product_attention(backend=)`` and ``attention_backend`` route to
@@ -233,10 +234,12 @@ def test_every_k2_call_resolves_to_one_body(call):
     dt, d, bq, bk, fold = call
     body = att.fwd_body(dt, d, bq, bk, fold)
     tile = att.resolve_tile("fwd", d, bq, bk, fold, dtype=dt)
-    assert body in ("cuda_core", "wgmma")
+    assert body in ("cuda_core", "tf32x3", "wgmma")
     assert att.FWD_BODIES[(dt, d, tile, fold)] == body
-    tensor_cores = dt == torch.bfloat16 and fold == 1 and tile[0] >= 64
-    assert body == ("wgmma" if tensor_cores else "cuda_core")
+    wgmma = dt == torch.bfloat16 and fold == 1 and tile[0] >= 64
+    tf32x3 = dt == torch.float32 and fold == 1 and tile[0] == 64
+    assert body == ("wgmma" if wgmma else "tf32x3" if tf32x3
+                    else "cuda_core")
 
 
 def test_head_dims_no_kernel_takes_keep_the_plain_path_on_cpu():
@@ -264,7 +267,7 @@ def test_bf16_keeps_32_row_tiles_and_folds_on_the_cuda_cores():
     for d in (16, 32, 64, 128):
         assert att.resolve_tile("fwd", d, dtype=bf16) == att.WGMMA_TILE
         assert att.fwd_body(bf16, d) == "wgmma"
-        assert att.fwd_body(torch.float32, d) == "cuda_core"
+        assert att.fwd_body(torch.float32, d) == "tf32x3"
 
 
 @pytest.mark.parametrize("call", [

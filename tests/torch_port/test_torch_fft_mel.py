@@ -10,12 +10,15 @@ routing, and its formulation against the JAX package.
   ``fused_logmel_frames`` (its Pallas kernel in interpret mode) within
   2e-4 in the log domain, the bound ``test_torch_logmel_direct.py`` holds
   the direct tiers to: both are float32 sums in different orders.
-* The kernel's own schedule, transcribed into numpy with the twiddle
-  table the kernel reads (``fft_twiddles``), equals numpy's float64
-  ``rfft`` to float32 rounding: the table's layout and the four-step index
-  map are right.
-* ``direct_mel.fft_applicable`` sends each (n_fft, power) to its tier, and
-  the dispatcher follows it on a CPU tensor.
+* The kernel's own radix-2 schedule, transcribed into numpy with the
+  twiddle table the kernel reads (``fft_twiddles``), equals numpy's float64
+  ``rfft`` to float32 rounding at each power-of-two size: the table's
+  layout and the four-step index map are right (the 400-point mixed radix
+  is ``test_torch_fft_mel400.py``'s).
+* ``direct_mel.fft_applicable`` sends each (n_fft, power) to its tier --
+  Whisper's n_fft 400 to the FFT body too -- and the dispatcher follows it
+  on a CPU tensor; at n_fft 400 the port's frontend (the FFT body's plain
+  version) matches JAX's generic tier within 2e-3 at power 1 and 1.5.
 """
 
 import jax.numpy as jnp
@@ -30,9 +33,10 @@ from audax_torch.core.config import MelConfig
 from audax_torch.frontend import LogMelFrontend
 from audax_torch.ops import direct_mel, fused_mel
 from audax_torch.ops.mel import (fft_frontend_constants, fft_twiddles,
-                                 frontend_constants, mel_bin_ranges)
+                                 fft_twiddles_400, frontend_constants,
+                                 mel_bin_ranges)
 
-from .test_torch_logmel_direct import CONFIGS, TOL
+from .test_torch_logmel_direct import CONFIGS, TOL, _jax_frontend
 
 POW2 = {n: kw for n, kw in CONFIGS.items()
         if direct_mel.fft_applicable(MelConfig(**kw).n_fft, 1.0)}
@@ -60,7 +64,9 @@ def _fft_logmel(frames, window, fb, ranges, power):
 
 
 def test_every_power_of_two_config_is_covered():
-    assert set(POW2) == set(CONFIGS) - {"power_1_5_log10"}
+    # every n_fft of the direct tiers' configs -- 512, 1024 and Whisper's
+    # 400 -- is one the FFT body is built for
+    assert set(POW2) == set(CONFIGS)
 
 
 @pytest.mark.parametrize("name", sorted(POW2))
@@ -72,7 +78,8 @@ def test_window_is_the_bases_window(name):
     np.testing.assert_array_equal(window, cos_w[:, 0])
     np.testing.assert_array_equal(fb, fb_direct)
     assert tw.dtype == np.float32 and tw.shape == (cfg.n_fft + 1, 2)
-    np.testing.assert_array_equal(tw, fft_twiddles(cfg.n_fft))
+    table = fft_twiddles_400 if cfg.n_fft == 400 else fft_twiddles
+    np.testing.assert_array_equal(tw, table(cfg.n_fft))
 
 
 @pytest.mark.parametrize("name", sorted(POW2))
@@ -165,7 +172,7 @@ def _kernel_schedule(x, window, tw):
     return 0.5 * (a + b) + post * (a - b) / 2j
 
 
-@pytest.mark.parametrize("n_fft", direct_mel.FFT_SIZES)
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048])
 def test_kernel_schedule_and_twiddles_give_rfft(n_fft):
     window, _, _, tw = fft_frontend_constants(MelConfig(n_fft=n_fft))
     x = _signal(n_fft + 1, n_fft)
@@ -176,7 +183,7 @@ def test_kernel_schedule_and_twiddles_give_rfft(n_fft):
 
 @pytest.mark.parametrize("n_fft,power,tier", [
     (1024, 1.0, "fft"), (1024, 1.5, "fft"), (256, 1.0, "fft"),
-    (512, 0.5, "fft"), (2048, 1.0, "fft"), (400, 1.0, "direct"),
+    (512, 0.5, "fft"), (2048, 1.0, "fft"), (400, 1.0, "fft"),
     (128, 1.0, "direct"), (4096, 1.0, "direct"), (1000, 1.5, "direct"),
     (1024, 2.0, "power 2"), (400, 2.0, "power 2"),
 ])
@@ -188,7 +195,7 @@ def test_fft_applicable_routes_each_config(n_fft, power, tier):
 @pytest.mark.parametrize("kw,body", [
     (dict(power=1.0), "fft"),
     (dict(n_fft=2048, hop_length=512, power=1.5, center=False), "fft"),
-    (dict(n_fft=400, hop_length=160, power=1.0), "direct"),
+    (dict(n_fft=400, hop_length=160, power=1.0), "fft"),
 ])
 def test_dispatcher_follows_the_route_on_cpu(kw, body):
     counters = (direct_mel.fused_logmel_fft_plain,
@@ -223,4 +230,22 @@ def test_fft_cuda_wrapper_refuses_cpu_tensors_and_other_sizes():
     with pytest.raises(ValueError, match="CUDA"):
         direct_mel.fused_logmel_fft_cuda(torch.zeros(4, 1024), *consts)
     with pytest.raises(ValueError, match="n_fft"):
-        direct_mel.fused_logmel_fft_cuda(torch.zeros(4, 400), *consts)
+        direct_mel.fused_logmel_fft_cuda(torch.zeros(4, 480), *consts)
+
+
+@pytest.mark.parametrize("power", [1.0, 1.5])
+def test_n_fft_400_fft_body_matches_the_jax_generic_tier(power):
+    """A magnitude mel (power 1) and a power-1.5 mel at Whisper's STFT
+    geometry run the FFT body's plain version on the CPU, by the route the
+    card takes, and match JAX's generic tier (``fused_logmel_frames`` in
+    interpret mode) within 2e-3, the frontend bound."""
+    kw = dict(n_fft=400, hop_length=160, power=power)
+    cfg, jcfg = MelConfig(**kw), JaxMelConfig(**kw)
+    assert fused_mel.mel_body(cfg) == "log_mel_fft"
+    x = np.stack([_signal(13, 8000), _signal(14, 8000)])
+    before = direct_mel.fused_logmel_fft_plain.launches
+    ours = LogMelFrontend(cfg, device="cpu")(x).numpy()
+    assert direct_mel.fused_logmel_fft_plain.launches == before + 1
+    ref = _jax_frontend(x, jcfg)
+    assert ours.shape == ref.shape == (2, cfg.frames_for(8000), cfg.n_mels)
+    np.testing.assert_allclose(ours, ref, atol=2e-3, rtol=0)

@@ -12,8 +12,9 @@ formulation against the JAX package.
 * ``fused_mel.BODIES``/``mel_body``: Whisper 80/128, UrbanSound v1/v2 and
   PANNs go to the FFT body on the card; n_fft 480 hop 160 stays on the
   overlap kernel, n_fft 1000 hop 160 on the packed kernel, a magnitude mel
-  at n_fft 400 on K5's direct body (K5's route is ``fft_applicable``, as
-  before). The source's lane split and shared memory fit every size the
+  at n_fft 400 on K5's FFT body too (K5's route is ``fft_applicable``),
+  at n_fft 1000 on K5's direct body. The source's lane split and shared
+  memory fit every size the
   table names (``test_torch_exports.py`` holds the table against the
   counters and the source's instantiations).
 * The power-2 FFT formulation (``fused_logmel_fft_plain`` on the constants
@@ -57,7 +58,9 @@ ROUTES = {
     "n_fft_400_win_320": (MelConfig(n_fft=400, win_length=320,
                                     hop_length=160), "log_mel_packed_fft"),
     "magnitude_400": (MelConfig(n_fft=400, hop_length=160, power=1.0),
-                      "log_mel_generic"),
+                      "log_mel_fft"),
+    "magnitude_1000": (MelConfig(n_fft=1000, hop_length=160, power=1.0),
+                       "log_mel_generic"),
     "magnitude_v2": (MelConfig(power=1.0), "log_mel_fft"),
     "power_1_5_n_fft_2048": (MelConfig(n_fft=2048, hop_length=512,
                                        power=1.5), "log_mel_fft"),
@@ -178,7 +181,7 @@ def test_body_table_routes_each_config(name):
         assert body == want
 
 
-@pytest.mark.parametrize("n_fft", direct_mel.POWER2_FFT_SIZES)
+@pytest.mark.parametrize("n_fft", direct_mel.FFT_SIZES)
 def test_source_lanes_and_shared_memory(n_fft):
     """The source's lane split matches the twiddle table's layout, and the
     widest tile (256 bands) fits one block's shared memory."""
@@ -281,7 +284,11 @@ def test_fft_entry_points_refuse_cpu_tensors_and_sizes_off_the_table():
     with pytest.raises(ValueError, match="n_fft"):
         direct_mel.fused_logmel_packed_fft_cuda(torch.zeros(4, 1000),
                                                 *consts)
-    # K5's FFT body still takes the powers of two only
-    with pytest.raises(ValueError, match="n_fft"):
+    # K5's FFT body takes Whisper's 400 too (a CPU tensor stops at the
+    # device check), and nothing off the table
+    with pytest.raises(ValueError, match="CUDA"):
         direct_mel.fused_logmel_fft_cuda(
             torch.zeros(4, 400), *fused_mel.fft_constants(whisper, cpu))
+    with pytest.raises(ValueError, match="n_fft"):
+        direct_mel.fused_logmel_fft_cuda(
+            torch.zeros(4, 480), *fused_mel.fft_constants(whisper, cpu))

@@ -151,16 +151,18 @@ def test_batch_rank_silence_and_sub_window(name, rng):
 
 def test_cpu_tensor_reaches_the_direct_plain_versions(rng):
     """A non-overlap config on a CPU tensor runs K4's (power 2) or K5's
-    (power != 2) plain version -- K5's FFT body's for a power-of-two n_fft
-    from 256 to 2048, its direct body's for any other -- never the overlap
-    tier."""
+    (power != 2) plain version -- K5's FFT body's for an n_fft the FFT body
+    is built for (Whisper's 400 among them), its direct body's for any
+    other -- never the overlap tier."""
     x = torch.from_numpy(_signal(rng, (1, 4000)))
     counters = (direct_mel.fused_logmel_packed_plain,
                 direct_mel.fused_logmel_frames_plain,
                 fused_mel.log_mel_overlap_plain,
                 direct_mel.fused_logmel_fft_plain)
     for kw, want in ((PANNS, (1, 0, 0, 0)), (MAGNITUDE, (0, 0, 0, 1)),
-                     (CONFIGS["power_1_5_log10"], (0, 1, 0, 0)),
+                     (CONFIGS["power_1_5_log10"], (0, 0, 0, 1)),
+                     (dict(n_fft=1000, hop_length=160, power=1.5),
+                      (0, 1, 0, 0)),
                      ({}, (0, 0, 1, 0))):
         before = [f.launches for f in counters]
         LogMelFrontend(MelConfig(**kw), device="cpu")(x)
