@@ -18,13 +18,15 @@
 //
 // What bounds it on this card: at the encoder's shape [4, 8, 1500, 64] the
 // two kernels do 14*B*H*T*T*D = 64.5 GFLOP (6 in dQ, 8 in dK/dV) against
-// 31 MB of operands, so they are bound by operations. In float32 those run
-// on the CUDA cores (67 TFLOP/s): TF32 tensor cores would break parity with
-// the float32 reference. bfloat16 runs on the tensor cores
-// (csrc/flash_bwd_sm90.cu, wgmma) wherever that body takes the tile;
-// here bfloat16 inputs are widened to float32 in shared memory and take
-// the float32 path, for the tiles wgmma cannot take (K7 at 32 query rows,
-// K8 at 32 keys) and for a caller that asks for this body by name.
+// 31 MB of operands, so they are bound by operations. Here they run as
+// float32 FMAs on the CUDA cores (67 TFLOP/s). The tensor cores take the
+// tiles of 64 query rows (K7) or keys (K8): float32 in 3xTF32, which keeps
+// float32 parity (csrc/flash_bwd_tf32x3.cu; one TF32 pass would not),
+// bfloat16 on wgmma (csrc/flash_bwd_sm90.cu, also at 128). This body keeps
+// the float32 tiles of 32 or 128 rows or keys, the bfloat16 tiles wgmma
+// cannot take (K7 at 32 query rows, K8 at 32 keys) -- bfloat16 inputs
+// widened to float32 in shared memory -- and a caller that asks for it by
+// name (chip_smoke.py's A/B of the bodies).
 //
 // Design: both kernels follow flash_fwd.cu's layout -- 4 warps, tiles
 // staged in shared memory as float32 with rows padded to D+4 floats (float4
@@ -41,10 +43,9 @@
 //       accumulating dK and dV for its BK/4 keys. Causal mode starts at the
 //       first query tile that reaches the block's first key.
 //
-// The tiles (BQ, BK) are template parameters. The default is 64 x 64, with
-// K8 at 32 keys for D = 128 to keep its two accumulators in registers;
-// dispatch() lists the instantiated set, which ops/attention.py's body
-// table (BWD_BODIES) holds too.
+// The tiles (BQ, BK) are template parameters; dispatch() lists the
+// instantiated set, every caller-set tile at head_dim 64, which
+// ops/attention.py's body table (BWD_BODIES) holds too.
 //
 // Every output element is written by exactly one block and no float atomics
 // are used, so the gradients are the same from run to run.
@@ -441,7 +442,7 @@ int launch_dkv(const Args& a) {
 }
 
 // The instantiated (head_dim, block_q, block_k) set of each kernel: the
-// default tile at every head dim, and the 3 x 3 grid of 32/64/128 at D = 64
+// 3 x 3 grid of 32/64/128 at D = 64
 #if defined(AUDAX_FLASH_BWD_DKV)
 #define AUDAX_LAUNCH launch_dkv
 #else
@@ -453,8 +454,6 @@ int dispatch(int d, int bq, int bk, const Args& a) {
 #define AUDAX_BWD(D_, BQ_, BK_)                                          \
   if (d == D_ && bq == BQ_ && bk == BK_)                                 \
     return AUDAX_LAUNCH<D_, BQ_, BK_, T>(a);
-  AUDAX_BWD(16, 64, 64)
-  AUDAX_BWD(32, 64, 64)
   AUDAX_BWD(64, 32, 32)
   AUDAX_BWD(64, 32, 64)
   AUDAX_BWD(64, 32, 128)
@@ -464,12 +463,6 @@ int dispatch(int d, int bq, int bk, const Args& a) {
   AUDAX_BWD(64, 128, 32)
   AUDAX_BWD(64, 128, 64)
   AUDAX_BWD(64, 128, 128)
-  // head_dim 128: K7 at 64 x 64, K8 at 64 x 32
-#if defined(AUDAX_FLASH_BWD_DKV)
-  AUDAX_BWD(128, 64, 32)
-#else
-  AUDAX_BWD(128, 64, 64)
-#endif
 #undef AUDAX_BWD
   return (int)cudaErrorInvalidValue;
 }

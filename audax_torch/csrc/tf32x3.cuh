@@ -1,6 +1,6 @@
 // Float32 products on Hopper's tensor cores by 3xTF32, for the float32
-// bodies of the flash kernels (csrc/flash_fwd_tf32x3.cu; the backward's
-// float32 body is to reuse it).
+// bodies of the flash kernels: K2's (csrc/flash_fwd_tf32x3.cu), K7's and
+// K8's (csrc/flash_bwd_tf32x3.cu).
 //
 // A TF32 operand keeps 10 of float32's 23 mantissa bits, so one TF32
 // product is off by about 2^-11 relative: too far for the 1e-4 parity the
@@ -95,7 +95,8 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
 
 // The B fragment of a row-major [K][N] tile in shared memory (row stride ld
 // floats) in the permuted k order of a_from_c: b0 = tile[k0 + 2t][n0 + g],
-// b1 = tile[k0 + 2t + 1][n0 + g] (O += P V with V as the tile)
+// b1 = tile[k0 + 2t + 1][n0 + g] (O += P V with V as the tile; dQ += dS K,
+// dV += P^T dO, dK += dS^T Q with K, dO, Q)
 __device__ __forceinline__ FragB load_b_rows_perm(const float* tile, int ld,
                                                   int k0, int n0, int lane) {
   const float* p = tile + (k0 + 2 * (lane % 4)) * ld + n0 + lane / 4;
@@ -115,6 +116,13 @@ __device__ __forceinline__ FragB load_b_t(const float* x, int ld, int n0,
 __device__ __forceinline__ FragA a_from_c(const float (&c)[4]) {
   const float x[4] = {c[0], c[2], c[1], c[3]};
   return split_a(x);
+}
+
+// acc += c in float32, rounded to nearest: a chain of products summed in c
+// from zero is added so, since the tensor core's own accumulation truncates
+__device__ __forceinline__ void add(float (&acc)[4], const float (&c)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += c[i];
 }
 
 // wait until at most N committed cp.async groups of this thread are pending

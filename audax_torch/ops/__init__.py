@@ -15,9 +15,11 @@ from audax_torch.ops.attention import (decode_attention_cuda,
                                        decode_attention_stacked_plain,
                                        flash_backward_dkv_cuda,
                                        flash_backward_dkv_plain,
+                                       flash_backward_dkv_tf32x3_cuda,
                                        flash_backward_dkv_wgmma_cuda,
                                        flash_backward_dq_cuda,
                                        flash_backward_dq_plain,
+                                       flash_backward_dq_tf32x3_cuda,
                                        flash_backward_dq_wgmma_cuda,
                                        flash_forward_cuda, flash_forward_plain,
                                        flash_forward_tf32x3_cuda,
@@ -58,6 +60,10 @@ KERNELS = {
                                 flash_backward_dq_plain),
     "flash_backward_dkv_wgmma": (flash_backward_dkv_wgmma_cuda,
                                  flash_backward_dkv_plain),
+    "flash_backward_dq_tf32x3": (flash_backward_dq_tf32x3_cuda,
+                                 flash_backward_dq_plain),
+    "flash_backward_dkv_tf32x3": (flash_backward_dkv_tf32x3_cuda,
+                                  flash_backward_dkv_plain),
     "decode_attention_stacked": (decode_attention_stacked_cuda,
                                  decode_attention_stacked_plain),
     "decode_attention_stacked_int8": (decode_attention_stacked_int8_cuda,

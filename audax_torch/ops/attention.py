@@ -20,8 +20,10 @@ Port of ``audax/ops/attention.py``:
     (the JAX package leaves it to XLA), and a kv head's gradient sums its
     whole q-head group. ``flash_attention`` is a ``torch.autograd.Function``
     whose forward is K2 and whose backward is K7 + K8.
+    ``flash_backward_dq_tf32x3_cuda`` / ``flash_backward_dkv_tf32x3_cuda``
+    launch K7/K8's float32 bodies on the tensor cores (3xTF32),
     ``flash_backward_dq_wgmma_cuda`` / ``flash_backward_dkv_wgmma_cuda``
-    launch K7/K8's bf16 bodies on the tensor cores.
+    their bf16 bodies.
   * ``xla_attention`` (the materialised twin, any mask), ``flash_applicable``
     and ``dot_product_attention``, which takes the flash path wherever
     ``flash_applicable`` holds -- the rule the TPU path follows -- and the
@@ -43,20 +45,20 @@ Port of ``audax/ops/attention.py``:
 
 Tiles. ``block_q`` is the query rows per block of K2 and K7 and the query
 tile K8 loops over; ``block_k`` the keys per tile of K2 and K7 and the keys
-per block of K8. ``None`` keeps each kernel's default: in float32 (64, 64),
-with K8 at (64, 32) for head_dim 128; in bf16 ``WGMMA_TILE`` for K2 and
-``BWD_WGMMA_TILE`` for K7 and K8. The caller-set tiles are ``TILES`` --
+per block of K8. ``None`` keeps each kernel's default: in float32 (64, 64);
+in bf16 ``WGMMA_TILE`` for K2 and ``BWD_WGMMA_TILE`` for K7 and K8. The caller-set tiles are ``TILES`` --
 every pair of 32, 64 and 128 -- at head_dim 64, for all three kernels;
 ``fold`` 2 or 4 (``FOLDS``) runs at head_dim 64 with the 64 x 64 tile.
 
-Bodies. K2 has three, K7 and K8 two each, and one table per direction
+Bodies. K2, K7 and K8 have three each, and one table per direction
 maps every call the kernels are built for to one of them: ``FWD_BODIES``
 ((dtype, head_dim, tile, fold) of K2) and ``BWD_BODIES`` ((kernel, dtype,
 head_dim, tile) of K7 "dq" and K8 "dkv"). K2 in float32 runs on the tensor
 cores in 3xTF32 (``csrc/flash_fwd_tf32x3.cu``, mma.sync) at 64 query rows,
 unfolded, and on the CUDA cores (``csrc/flash_fwd.cu``) at 32 or 128 rows
-and in the folds; K7/K8 in float32 run on the CUDA cores
-(``csrc/flash_bwd.cu``) everywhere; bf16 runs on the tensor cores
+and in the folds; K7 in float32 runs in 3xTF32 (``csrc/flash_bwd_tf32x3.cu``)
+at 64 query rows, K8 at 64 keys, and both on the CUDA cores
+(``csrc/flash_bwd.cu``) at their other tiles; bf16 runs on the tensor cores
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``, wgmma) wherever
 wgmma takes the tile -- K2 and K7 at 64 or 128 query rows, K8 at 64 or
 128 keys -- and its other tiles and K2's folds on the CUDA cores. A
@@ -65,7 +67,7 @@ against those tables before it dispatches, so a CPU call raises the same
 ``ValueError`` as the card would; nothing is silently replaced. Each body
 counts its own launches: ``flash_forward_cuda``,
 ``flash_backward_dq_cuda`` and ``flash_backward_dkv_cuda`` those on the
-CUDA cores, ``flash_forward_tf32x3_cuda`` K2's float32 ones on the tensor
+CUDA cores, the ``*_tf32x3_cuda`` launchers the float32 ones on the tensor
 cores, the ``*_wgmma_cuda`` launchers the bf16 ones on the tensor cores.
 JAX's tiles (2048, 512, ...) are TPU VMEM blocks.
 
@@ -90,7 +92,8 @@ __all__ = ["TILES", "FOLDS", "WGMMA_TILE", "BWD_WGMMA_TILE", "FWD_BODIES",
            "flash_backward", "flash_backward_plain", "flash_backward_dq_plain",
            "flash_backward_dkv_plain", "flash_backward_dq_cuda",
            "flash_backward_dkv_cuda", "flash_backward_dq_wgmma_cuda",
-           "flash_backward_dkv_wgmma_cuda", "flash_attention",
+           "flash_backward_dkv_wgmma_cuda", "flash_backward_dq_tf32x3_cuda",
+           "flash_backward_dkv_tf32x3_cuda", "flash_attention",
            "FlashAttention",
            "xla_attention", "flash_applicable", "dot_product_attention",
            "decode_attention_stacked", "decode_attention_stacked_cuda",
@@ -188,31 +191,34 @@ def _default_tile(kernel: str, d: int, dtype: torch.dtype = torch.float32,
                   fold: int = 1) -> Tuple[int, int]:
     if kernel == "fwd":
         return WGMMA_TILE if dtype == torch.bfloat16 and fold == 1 else (64, 64)
-    if dtype == torch.bfloat16:
-        return BWD_WGMMA_TILE
-    return (64, 32) if kernel == "dkv" and d >= 128 else (64, 64)
+    return BWD_WGMMA_TILE if dtype == torch.bfloat16 else (64, 64)
 
 
 def _bwd_bodies() -> dict:
     """``{(kernel, dtype, head_dim, (block_q, block_k)): body}`` for K7
     ("dq") and K8 ("dkv"): every call the kernels are built for, and the
     body that serves it -- "cuda_core" (float32 FMAs, ``csrc/flash_bwd.cu``,
-    built in either dtype at every (head_dim, tile) float32 takes) or
-    "wgmma" (bf16 on the tensor cores, ``csrc/flash_bwd_sm90.cu``). float32
-    runs on the CUDA cores at its default tile for every head dim and at
-    every caller-set tile at head_dim 64. bf16 runs on the tensor cores at
-    ``BWD_WGMMA_TILE`` for every head dim and at each caller-set tile that
-    wgmma takes: K7 at 64 or 128 query rows, K8 at 64 or 128 keys (one warp
-    group per 64 of them); K7's 32-row and K8's 32-key tiles stay on the
-    CUDA cores."""
+    built in either dtype at every caller-set tile), "tf32x3" (float32 on
+    the tensor cores in 3xTF32, ``csrc/flash_bwd_tf32x3.cu``) or "wgmma"
+    (bf16 on the tensor cores, ``csrc/flash_bwd_sm90.cu``). A kernel's rows
+    are K7's query rows and K8's keys per block (``block_q`` and
+    ``block_k``). float32 runs on the tensor cores wherever a block holds
+    64 rows (4 warps, one m16n8k8 row tile of 16 rows each): the default
+    64 x 64 tile at every head dim (16, 32, 64 and 128) and the caller-set
+    tiles of 64 rows at head_dim 64; its caller-set tiles of 32 or 128 rows
+    stay on the CUDA cores. bf16 runs on the tensor cores at
+    ``BWD_WGMMA_TILE`` for every head dim and at each caller-set tile of 64
+    or 128 rows (one warp group per 64 of them); its 32-row tiles stay on
+    the CUDA cores."""
     f32, bf16 = torch.float32, torch.bfloat16
     table = {}
     for kernel in _BWD_KERNELS:
         for d in _HEAD_DIMS:
-            table[(kernel, f32, d, _default_tile(kernel, d))] = "cuda_core"
+            table[(kernel, f32, d, _default_tile(kernel, d))] = "tf32x3"
         for tile in TILES:
-            table[(kernel, f32, 64, tile)] = "cuda_core"
             rows = tile[0] if kernel == "dq" else tile[1]
+            table[(kernel, f32, 64, tile)] = ("tf32x3" if rows == 64
+                                              else "cuda_core")
             table[(kernel, bf16, 64, tile)] = ("wgmma" if rows >= 64
                                                else "cuda_core")
         for d in _HEAD_DIMS:
@@ -632,38 +638,51 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).reshape(b * hq, tq).contiguous()
 
 
-def _check_wgmma(name: str, *ts: torch.Tensor) -> None:
-    if ts[0].dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the tensor-core body takes bf16, not "
-                         f"{ts[0].dtype}")
-    _check_cuda(name, *ts)
-    if any(t.data_ptr() % 16 for t in ts):
+def _tensor_core_backward(kernel: str, lib: str, dtype: torch.dtype,
+                          default_tile: Tuple[int, int], q, k, v, do, lse,
+                          delta, causal, scale, block_q, block_k,
+                          name: str) -> Tuple[torch.Tensor, ...]:
+    """One launch of K7 ("dq": ``(dq,)``) or K8 ("dkv": ``(dk, dv)``) on the
+    tensor-core body in library ``lib`` (entry point of the same name) on
+    ``dtype`` operands: q, do [B, Hq, Tq, D], k, v [B, Hkv, Tk, D] (Tq, Tk
+    > 0), lse and ``delta`` = rowsum(dO * O) [B*Hq, Tq] float32. Checks what
+    the C entry point does not (dtype, device, 16-byte alignment for its
+    copies); the library refuses a (head_dim, tile) it is not built at with
+    ``cudaErrorInvalidValue``, which raises."""
+    if q.dtype != dtype:
+        want = "bf16" if dtype == torch.bfloat16 else "float32"
+        raise ValueError(f"{name}: the tensor-core body {lib} takes {want}, "
+                         f"not {q.dtype}")
+    _check_cuda(name, q, k, v, do)
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError(f"{name}: the tensor-core body copies 16-byte "
                          f"chunks; q, k, v and do must be 16-byte aligned")
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    outs = ((torch.empty_like(q),) if kernel == "dq"
+            else (torch.empty_like(k), torch.empty_like(v)))
+    status = getattr(native.library(lib), lib)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), b,
+        hq, hkv, tq, tk, d, _scale(q, scale), int(causal),
+        block_q or default_tile[0], block_k or default_tile[1],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(status, name)
+    return outs
 
 
 def flash_backward_dq_wgmma_cuda(q, k, v, do, lse, delta, *, causal=False,
                                  scale=None, block_q=None, block_k=None
                                  ) -> torch.Tensor:
     """One counted launch of K7's bf16 tensor-core body
-    (``csrc/flash_bwd_sm90.cu``) on the library's operands: q, do [B, Hq,
-    Tq, D], k, v [B, Hkv, Tk, D] (Tq, Tk > 0), lse and ``delta`` = rowsum(dO
-    * O) [B*Hq, Tq] float32. ``flash_backward_dq_cuda`` checks the call and
-    routes it here where ``BWD_BODIES`` names this body (default tile
-    ``BWD_WGMMA_TILE``); this takes bf16, 16-byte-aligned operands, and the
-    library refuses a tile it is not built at with
-    ``cudaErrorInvalidValue``, which raises."""
-    _check_wgmma("flash_backward_dq_wgmma", q, k, v, do)
-    b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    dq = torch.empty_like(q)
-    status = native.library("flash_bwd_dq_sm90").flash_bwd_dq_sm90(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, hq, hkv, tq, tk,
-        d, _scale(q, scale), int(causal), block_q or BWD_WGMMA_TILE[0],
-        block_k or BWD_WGMMA_TILE[1],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    native.check(status, "flash_backward_dq_wgmma")
+    (``csrc/flash_bwd_sm90.cu``) on the library's operands
+    (``_tensor_core_backward``). ``flash_backward_dq_cuda`` checks the call
+    and routes it here where ``BWD_BODIES`` names this body (default tile
+    ``BWD_WGMMA_TILE``); this takes bf16, 16-byte-aligned operands."""
+    dq, = _tensor_core_backward(
+        "dq", "flash_bwd_dq_sm90", torch.bfloat16, BWD_WGMMA_TILE, q, k, v,
+        do, lse, delta, causal, scale, block_q, block_k,
+        "flash_backward_dq_wgmma")
     flash_backward_dq_wgmma_cuda.launches += 1
     return dq
 
@@ -678,17 +697,10 @@ def flash_backward_dkv_wgmma_cuda(q, k, v, do, lse, delta, *, causal=False,
     (``csrc/flash_bwd_sm90.cu``), ``(dk, dv)``; operands and routing as
     ``flash_backward_dq_wgmma_cuda`` takes them, from
     ``flash_backward_dkv_cuda``."""
-    _check_wgmma("flash_backward_dkv_wgmma", q, k, v, do)
-    b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    status = native.library("flash_bwd_dkv_sm90").flash_bwd_dkv_sm90(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq,
-        hkv, tq, tk, d, _scale(q, scale), int(causal),
-        block_q or BWD_WGMMA_TILE[0], block_k or BWD_WGMMA_TILE[1],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    native.check(status, "flash_backward_dkv_wgmma")
+    dk, dv = _tensor_core_backward(
+        "dkv", "flash_bwd_dkv_sm90", torch.bfloat16, BWD_WGMMA_TILE, q, k, v,
+        do, lse, delta, causal, scale, block_q, block_k,
+        "flash_backward_dkv_wgmma")
     flash_backward_dkv_wgmma_cuda.launches += 1
     return dk, dv
 
@@ -696,14 +708,52 @@ def flash_backward_dkv_wgmma_cuda(q, k, v, do, lse, delta, *, causal=False,
 flash_backward_dkv_wgmma_cuda.launches = 0
 
 
+def flash_backward_dq_tf32x3_cuda(q, k, v, do, lse, delta, *, causal=False,
+                                  scale=None, block_q=None, block_k=None
+                                  ) -> torch.Tensor:
+    """One counted launch of K7's float32 body on the tensor cores
+    (``csrc/flash_bwd_tf32x3.cu``, 3xTF32 on mma.sync) on the library's
+    operands (``_tensor_core_backward``). ``flash_backward_dq_cuda`` checks
+    the call and routes it here where ``BWD_BODIES`` names this body
+    (default tile 64 x 64); this takes float32, 16-byte-aligned operands."""
+    dq, = _tensor_core_backward(
+        "dq", "flash_bwd_dq_tf32x3", torch.float32, (64, 64), q, k, v, do,
+        lse, delta, causal, scale, block_q, block_k,
+        "flash_backward_dq_tf32x3")
+    flash_backward_dq_tf32x3_cuda.launches += 1
+    return dq
+
+
+flash_backward_dq_tf32x3_cuda.launches = 0
+
+
+def flash_backward_dkv_tf32x3_cuda(q, k, v, do, lse, delta, *, causal=False,
+                                   scale=None, block_q=None, block_k=None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One counted launch of K8's float32 body on the tensor cores
+    (``csrc/flash_bwd_tf32x3.cu``), ``(dk, dv)``; operands and routing as
+    ``flash_backward_dq_tf32x3_cuda`` takes them, from
+    ``flash_backward_dkv_cuda``."""
+    dk, dv = _tensor_core_backward(
+        "dkv", "flash_bwd_dkv_tf32x3", torch.float32, (64, 64), q, k, v, do,
+        lse, delta, causal, scale, block_q, block_k,
+        "flash_backward_dkv_tf32x3")
+    flash_backward_dkv_tf32x3_cuda.launches += 1
+    return dk, dv
+
+
+flash_backward_dkv_tf32x3_cuda.launches = 0
+
+
 def flash_backward_dq_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
                            block_q=None, block_k=None,
                            delta: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Kernel K7 on the body ``BWD_BODIES`` names: ``csrc/flash_bwd.cu`` on
-    the CUDA cores, counted here, or ``flash_backward_dq_wgmma_cuda`` on the
-    tensor cores, counted there; same contract as
-    ``flash_backward_dq_plain``. ``delta`` may be passed precomputed."""
+    the CUDA cores, counted here, or on the tensor cores
+    ``flash_backward_dq_tf32x3_cuda`` (float32) or
+    ``flash_backward_dq_wgmma_cuda`` (bf16), counted there; same contract
+    as ``flash_backward_dq_plain``. ``delta`` may be passed precomputed."""
     _check_backward(q, k, v, o, lse, do, causal)
     b, hq, tq, d = q.shape
     bq, bk = resolve_tile("dq", d, block_q, block_k, dtype=q.dtype)
@@ -713,10 +763,12 @@ def flash_backward_dq_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
     if tq == 0:
         return torch.empty_like(q)
     delta = _delta(o, do) if delta is None else delta
-    if BWD_BODIES[("dq", q.dtype, d, (bq, bk))] == "wgmma":
-        return flash_backward_dq_wgmma_cuda(q, k, v, do, lse, delta,
-                                            causal=causal, scale=scale,
-                                            block_q=bq, block_k=bk)
+    tensor_core = {"tf32x3": flash_backward_dq_tf32x3_cuda,
+                   "wgmma": flash_backward_dq_wgmma_cuda}.get(
+        BWD_BODIES[("dq", q.dtype, d, (bq, bk))])
+    if tensor_core is not None:
+        return tensor_core(q, k, v, do, lse, delta, causal=causal,
+                           scale=scale, block_q=bq, block_k=bk)
     dq = torch.empty_like(q)
     status = native.library("flash_bwd_dq").flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -736,9 +788,10 @@ def flash_backward_dkv_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
                             delta: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K8 on the body ``BWD_BODIES`` names: ``csrc/flash_bwd.cu``,
-    counted here, or ``flash_backward_dkv_wgmma_cuda``, counted there; same
-    contract as ``flash_backward_dkv_plain``. ``delta`` as
-    ``flash_backward_dq_cuda`` takes it."""
+    counted here, or ``flash_backward_dkv_tf32x3_cuda`` /
+    ``flash_backward_dkv_wgmma_cuda``, counted there; same contract as
+    ``flash_backward_dkv_plain``. ``delta`` as ``flash_backward_dq_cuda``
+    takes it."""
     _check_backward(q, k, v, o, lse, do, causal)
     b, hq, tq, d = q.shape
     bq, bk = resolve_tile("dkv", d, block_q, block_k, dtype=q.dtype)
@@ -748,10 +801,12 @@ def flash_backward_dkv_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
     if tk == 0:
         return torch.empty_like(k), torch.empty_like(v)
     delta = _delta(o, do) if delta is None else delta
-    if BWD_BODIES[("dkv", q.dtype, d, (bq, bk))] == "wgmma":
-        return flash_backward_dkv_wgmma_cuda(q, k, v, do, lse, delta,
-                                             causal=causal, scale=scale,
-                                             block_q=bq, block_k=bk)
+    tensor_core = {"tf32x3": flash_backward_dkv_tf32x3_cuda,
+                   "wgmma": flash_backward_dkv_wgmma_cuda}.get(
+        BWD_BODIES[("dkv", q.dtype, d, (bq, bk))])
+    if tensor_core is not None:
+        return tensor_core(q, k, v, do, lse, delta, causal=causal,
+                           scale=scale, block_q=bq, block_k=bk)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     status = native.library("flash_bwd_dkv").flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

@@ -8,9 +8,10 @@ Libraries go to ``audax_torch/build/`` (listed in ``.gitignore``), named by
 a hash of the source, the shared headers (``csrc/*.cuh``) and the flags: an
 edited source or header builds anew, an unchanged one is reused. One source
 may make more than one library: ``flash_bwd.cu`` (and its tensor-core
-twin ``flash_bwd_sm90.cu``) is built once with ``-DAUDAX_FLASH_BWD_DQ``
-(K7) and once with ``-DAUDAX_FLASH_BWD_DKV`` (K8), so that its two
-kernels' many tile instantiations compile in parallel.
+twins ``flash_bwd_sm90.cu`` and ``flash_bwd_tf32x3.cu``) is built once
+with ``-DAUDAX_FLASH_BWD_DQ`` (K7) and once with ``-DAUDAX_FLASH_BWD_DKV``
+(K8), so that its two kernels' many tile instantiations compile in
+parallel.
 ``build()`` starts one ``nvcc`` per missing library and waits for all of
 them, so the kernels compile in parallel.
 
@@ -19,8 +20,8 @@ the FFT log-mel body ``log_mel_fft.cu`` of K1's, K4's and K5's tiers),
 ``ops/attention.py`` (K2's three bodies, ``flash_fwd.cu``,
 ``flash_fwd_tf32x3.cu`` and ``flash_fwd_sm90.cu``, the first of which
 also serves the head-fold probe
-``tools/attn_headfold_probe.py``, and K7/K8's two, ``flash_bwd.cu`` and
-``flash_bwd_sm90.cu``), ``ops/int4_matmul.py`` and the int4
+``tools/attn_headfold_probe.py``, and K7/K8's three, ``flash_bwd.cu``,
+``flash_bwd_tf32x3.cu`` and ``flash_bwd_sm90.cu``), ``ops/int4_matmul.py`` and the int4
 experiment tools (``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
 ``tools/w4a8_probe.py``, ``tools/int4_unpack_probe.py``) call
 ``library(name)`` the first time they launch on a CUDA tensor. A CUDA host
@@ -57,6 +58,8 @@ KERNEL_SOURCES = {
     "flash_bwd_dkv": "flash_bwd.cu",
     "flash_bwd_dq_sm90": "flash_bwd_sm90.cu",
     "flash_bwd_dkv_sm90": "flash_bwd_sm90.cu",
+    "flash_bwd_dq_tf32x3": "flash_bwd_tf32x3.cu",
+    "flash_bwd_dkv_tf32x3": "flash_bwd_tf32x3.cu",
     "decode_attention": "decode_attention.cu",
     "int4_matmul": "int4_matmul.cu",
     "int4_word_matmul": "int4_word_matmul.cu",
@@ -106,6 +109,14 @@ SIGNATURES = {
         "flash_bwd_dkv_sm90": ([_P] * 8 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
                                _I),
     },
+    "flash_bwd_dq_tf32x3": {
+        "flash_bwd_dq_tf32x3": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 3
+                                + [_P], _I),
+    },
+    "flash_bwd_dkv_tf32x3": {
+        "flash_bwd_dkv_tf32x3": ([_P] * 8 + [_I] * 6 + [_F] + [_I] * 3
+                                 + [_P], _I),
+    },
     "decode_attention": {
         "decode_smem": ([_I, _I, _I], _LL),
         "decode_attention_stacked": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -138,7 +149,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DEFINES = {"flash_bwd_dq": ("-DAUDAX_FLASH_BWD_DQ",),
            "flash_bwd_dkv": ("-DAUDAX_FLASH_BWD_DKV",),
            "flash_bwd_dq_sm90": ("-DAUDAX_FLASH_BWD_DQ",),
-           "flash_bwd_dkv_sm90": ("-DAUDAX_FLASH_BWD_DKV",)}
+           "flash_bwd_dkv_sm90": ("-DAUDAX_FLASH_BWD_DKV",),
+           "flash_bwd_dq_tf32x3": ("-DAUDAX_FLASH_BWD_DQ",),
+           "flash_bwd_dkv_tf32x3": ("-DAUDAX_FLASH_BWD_DKV",)}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

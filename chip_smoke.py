@@ -18,14 +18,16 @@ attention tools, in eleven phases, one output line each (the kernel and
 path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (fifteen), in parallel, with
+  2. build   -- nvcc of every kernel library (seventeen), in parallel, with
      the wall time of each and of all, the registers and any spills; then
      the count of HGMMA (wgmma) instructions in the SASS of the three bf16
      tensor-core libraries, K2's and K7's and K8's (``cuobjdump
      --dump-sass``), none of which may be 0, and a spill in K7's or K8's
      fails; the count of TF32 HMMA (mma.sync) instructions in the SASS of
-     K2's float32 tensor-core body (``flash_fwd_tf32x3``), which may not be
-     0, and its registers by instantiation, where a spill fails; the
+     the three float32 tensor-core libraries, K2's, K7's and K8's
+     (``flash_fwd_tf32x3``, ``flash_bwd_dq_tf32x3``,
+     ``flash_bwd_dkv_tf32x3``), none of which may be 0, and their registers
+     by instantiation, where a spill fails; the
      registers and spills of each n_fft the FFT log-mel body is built for
      (Whisper's 400-point mixed radix among them), where a spill fails too;
   3. kernels -- each kernel against its plain PyTorch version on the card at
@@ -51,7 +53,16 @@ path phases print one line per case):
      the serving encoder's [8, 20, 1500, 64], and timed beside the
      CUDA-core body (``body="cuda_core"``) at the first and the last; each
      case names the body it ran and its bound (3xTF32 at a third of the
-     TF32 peak). K2's
+     TF32 peak). K7/K8's float32 bodies on the tensor cores
+     (``csrc/flash_bwd_tf32x3.cu``, 3xTF32) are held within the float32
+     tolerance at every float32 backward case -- Whisper-base's encoder
+     [4, 8, 1500, 64] and its cross (q 56 x kv 1500) and causal decoder
+     sites, causal GQA, a q-head group of four at [4, 8, 1500, 64] (K8's
+     longest sums), head dims 16/32/128 and the caller-set tiles of 64
+     rows (K7) or keys (K8) -- and timed at the encoder and the cross site
+     beside the CUDA-core body (its library called directly at 64 x 64,
+     held against the plain versions too) and SDPA's backward: both must
+     beat the CUDA-core body there. K2's
      bf16 tensor-core body (``csrc/flash_fwd_sm90.cu``) is held, o and
      lse, within the bf16 tolerance and each element of o within the
      rounding bf16 allows (2^-7 of the attention-weighted |v| plus one
@@ -95,9 +106,9 @@ path phases print one line per case):
      and two ``finetune_whisper(device="cuda")`` runs: LoRA (rank 8 on
      attn/q and attn/v, with one WER eval) and full-parameter (overfitting
      four clips: the last loss must fall below 0.7x the first). K1 (its
-     FFT body), K2 (its 3xTF32 body, no CUDA-core launch), K3, K7 and K8
-     (their CUDA-core bodies) must all launch, none on a bf16 tensor-core
-     body, and no plain version may. A third run,
+     FFT body), K2, K7 and K8 (their 3xTF32 bodies, no CUDA-core launch)
+     and K3 must all launch, none on a bf16 tensor-core body, and no plain
+     version may. A third run,
      LoRA in bf16 (4 clips x 5 steps), must launch the tensor-core bodies
      of K2, K7 and K8 and no CUDA-core one, with a finite, falling loss.
      Then the step time, steps/s, tokens/s, peak memory and launches of the
@@ -153,8 +164,9 @@ path phases print one line per case):
      the xla arm, and no plain version anywhere;
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
-     ``csrc/flash_bwd.cu``, count the CUDA-core launches;
-     ``flash_forward_tf32x3`` K2's float32 body on the tensor cores; the
+     ``csrc/flash_bwd.cu``, count the CUDA-core launches, the last two timed
+     in the float32 A/B at [4, 8, 1500, 64]; the ``_tf32x3`` rows the
+     float32 bodies on the tensor cores (K2, K7, K8); the
      ``_wgmma`` rows the bf16 tensor-core bodies'; ``log_mel_overlap_fft`` and
      ``log_mel_packed_fft`` K1's and K4's tiers on the FFT body, apart from
      ``log_mel_overlap``/``log_mel_packed`` and K5's ``log_mel_fft``: each
@@ -236,12 +248,13 @@ MAGNITUDE_1000_MEL = dict(n_fft=1000, hop_length=160, power=1.0)
 
 #: the kernels each main path must launch: K1's tier runs the FFT body
 #: (``log_mel_overlap_fft``) at every Whisper and UrbanSound preset, K2
-#: its float32 body on the tensor cores (``flash_forward_tf32x3``); the
-#: CUDA-core K2 (``flash_forward``) must not launch on these paths
+#: (and in the fine-tune K7 and K8) its float32 body on the tensor cores
+#: (``*_tf32x3``); their CUDA-core bodies (``FLASH``) must not launch on
+#: these paths
 TRANSCRIBE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
                       "decode_attention_stacked")
 FINETUNE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
-                    "flash_backward_dq", "flash_backward_dkv",
+                    "flash_backward_dq_tf32x3", "flash_backward_dkv_tf32x3",
                     "decode_attention_stacked")
 SERVE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
                  "decode_attention_stacked_int8", "int4_matmul")
@@ -276,9 +289,12 @@ ATTENTION_TOOLS = (
     ("mfu_study --only 0,10", "mfu_study", dict(only="0,10", steps=3),
      WGMMA, FLASH),
 )
-#: the libraries of the tensor-core bodies: K2's, then K7's and K8's
+#: the libraries of the bf16 tensor-core bodies: K2's, then K7's and K8's
 TENSOR_CORE_LIBS = ("flash_fwd_sm90", "flash_bwd_dq_sm90",
                     "flash_bwd_dkv_sm90")
+#: the libraries of the float32 (3xTF32) tensor-core bodies: K2's, K7's, K8's
+TF32X3_LIBS = ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3",
+               "flash_bwd_dkv_tf32x3")
 #: the classification path: one frontend config per log-mel tier and body
 #: (the last is featurized only: no classifier trains on it)
 CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap_fft"),
@@ -898,14 +914,17 @@ def kernel_phase(torch, rng):
                 [0, 17, 200, 400], False, tq=40, gen=gen)
 
     # ---- K7 / K8: flash backward (dQ; dK and dV) ------------------------------
-    # each kernel's counters: its CUDA-core body, its tensor-core body, its
-    # plain version
-    counters = {"dq": (att.flash_backward_dq_cuda,
-                       att.flash_backward_dq_wgmma_cuda,
-                       att.flash_backward_dq_plain),
-                "dkv": (att.flash_backward_dkv_cuda,
-                        att.flash_backward_dkv_wgmma_cuda,
-                        att.flash_backward_dkv_plain)}
+    # each kernel's counted launchers by body, its plain version beside them;
+    # the rate that bounds each body in float32 (in bf16 every body is
+    # bounded at the bf16 tensor cores' peak)
+    bwd_bodies = {kn: {"cuda_core": getattr(att, f"flash_backward_{kn}_cuda"),
+                       "tf32x3": getattr(att,
+                                         f"flash_backward_{kn}_tf32x3_cuda"),
+                       "wgmma": getattr(att, f"flash_backward_{kn}_wgmma_cuda"),
+                       "plain": getattr(att, f"flash_backward_{kn}_plain")}
+                  for kn in ("dq", "dkv")}
+    f32_rates = {"cuda_core": F32_FLOPS, "tf32x3": TF32X3_FLOPS}
+    suffix = {"cuda_core": "", "tf32x3": "_tf32x3", "wgmma": "_wgmma"}
 
     def core_bwd(kn, q, k, v, do, lse, delta, causal, tile):
         """One launch of the CUDA-core body (csrc/flash_bwd.cu), its library
@@ -926,6 +945,12 @@ def kernel_phase(torch, rng):
     def bwd_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main,
                  tile=(None, None), gen=None, d=64, reps=20, plain_reps=5,
                  core_ab=False):
+        """K7 and K8 on the bodies ``BWD_BODIES`` names, held against the
+        plain versions (relative to the plain gradient's largest value);
+        with ``core_ab`` the same call on the CUDA-core body at 64 x 64
+        too, held and timed in the same run, which both bodies must beat.
+        ``main`` records the bodies' rows of the kernels line, and in
+        float32 with ``core_ab`` the CUDA-core rows too."""
         q = torch.randn(b, hq, tq, d, device=dev, generator=gen).to(dtype)
         k = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
         v = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
@@ -935,22 +960,20 @@ def kernel_phase(torch, rng):
         delta = att._delta(o, do)       # shared by both kernels on the path
         tiles = dict(block_q=tile[0], block_k=tile[1])
         # the body BWD_BODIES names must serve each kernel exactly once, and
-        # neither the other body nor the plain version
-        bodies = {kn: att.bwd_body(kn, dtype, d, *tile) for kn in counters}
-        before = {kn: [f.launches for f in fns]
-                  for kn, fns in counters.items()}
+        # no other body nor the plain version
+        bodies = {kn: att.bwd_body(kn, dtype, d, *tile) for kn in bwd_bodies}
+        before = {kn: {n: f.launches for n, f in fns.items()}
+                  for kn, fns in bwd_bodies.items()}
         dq = att.flash_backward_dq_cuda(*args, causal=causal, delta=delta,
                                         **tiles)
         dk, dv = att.flash_backward_dkv_cuda(*args, causal=causal,
                                              delta=delta, **tiles)
-        for kn, fns in counters.items():
-            ran = tuple(f.launches - n for f, n in zip(fns, before[kn]))
-            want = (0, 1, 0) if bodies[kn] == "wgmma" else (1, 0, 0)
-            if ran != want:
+        for kn, fns in bwd_bodies.items():
+            ran = {n: f.launches - before[kn][n] for n, f in fns.items()}
+            if ran != {n: int(n == bodies[kn]) for n in fns}:
                 raise AssertionError(f"flash_backward_{kn}[{label}]: the "
                                      f"{bodies[kn]} body did not serve the "
-                                     f"call alone, once (CUDA-core, wgmma, "
-                                     f"plain launches {ran})")
+                                     f"call alone, once ({ran})")
         rdq = att.flash_backward_dq_plain(*args, causal=causal)
         rdk, rdv = att.flash_backward_dkv_plain(*args, causal=causal)
 
@@ -973,46 +996,29 @@ def kernel_phase(torch, rng):
         lib = _time_ms(torch, lambda: torch.autograd.grad(
             sdpa, (qg, kg, vg), do, retain_graph=True), reps=reps)
         pairs = tq * (tq + 1) // 2 if causal else tq * tk
-        elt, rate = q.element_size(), (F32_FLOPS if dtype == torch.float32
-                                       else BF16_FLOPS)
+        elt = q.element_size()
         rows_q, rows_kv = b * hq * tq, b * hkv * tk
-        # dQ: S, dP and dS K (6 per pair and dim); reads q, do, k, v, lse,
-        # delta and writes dq. dK/dV: S, dP, P^T dO, dS^T Q (8); writes dk, dv
-        bound_dq = _bound(6 * b * hq * pairs * d,
-                          elt * d * (3 * rows_q + 2 * rows_kv) + 8 * rows_q,
-                          rate)
-        bound_dkv = _bound(8 * b * hq * pairs * d,
+
+        def bounds(body):
+            """(dQ, dK/dV) bounds on ``body``: dQ's S, dP and dS K (6 per
+            pair and dim) against q, do, k, v, lse, delta read and dq
+            written; dK/dV's S, dP, P^T dO and dS^T Q (8) against dk, dv
+            written"""
+            rate = (f32_rates[body] if dtype == torch.float32
+                    else BF16_FLOPS)
+            return (_bound(6 * b * hq * pairs * d,
+                           elt * d * (3 * rows_q + 2 * rows_kv) + 8 * rows_q,
+                           rate),
+                    _bound(8 * b * hq * pairs * d,
                            elt * d * (2 * rows_q + 4 * rows_kv) + 8 * rows_q,
-                           rate)
-        keys = {kn: f"flash_backward_{kn}"
-                + ("_wgmma" if bodies[kn] == "wgmma" else "")
-                for kn in counters}
+                           rate))
+        bound_dq, bound_dkv = bounds(bodies["dq"])[0], bounds(bodies["dkv"])[1]
+        keys = {kn: f"flash_backward_{kn}{suffix[bodies[kn]]}"
+                for kn in bwd_bodies}
         _report(f"{keys['dq']}[{label}] ({bodies['dq']} body)", e_dq, tol,
                 ms_dq, plain_dq, lib, bound_dq, "max_rel_err")
         _report(f"{keys['dkv']}[{label}] ({bodies['dkv']} body)", e_dkv, tol,
                 ms_dkv, plain_dkv, lib, bound_dkv, "max_rel_err")
-        if core_ab:
-            # the same call on the CUDA-core body (csrc/flash_bwd.cu) at its
-            # float32 default tile, held against the plain versions too: the
-            # tensor-core bodies must beat it
-            cdq, = core_bwd("dq", q, k, v, do, lse, delta, causal, (64, 64))
-            cdk, cdv = core_bwd("dkv", q, k, v, do, lse, delta, causal,
-                                (64, 64))
-            e_core = max(rel(cdq, rdq), rel(cdk, rdk), rel(cdv, rdv))
-            if not e_core <= tol:
-                raise AssertionError(f"K7/K8 [{label}]: the CUDA-core body "
-                                     f"is off the plain versions by {e_core}")
-            core = {kn: _time_ms(torch, lambda kn=kn: core_bwd(
-                kn, q, k, v, do, lse, delta, causal, (64, 64)), reps=3,
-                warmup=1) for kn in counters}
-            print(f"[kernels] K7/K8 [{label}] A/B in one run: wgmma "
-                  f"{ms_dq:.4f} + {ms_dkv:.4f} ms, CUDA-core body (64 x 64, "
-                  f"max_rel_err {e_core:.3e}) {core['dq']:.4f} + "
-                  f"{core['dkv']:.4f} ms, SDPA's backward {lib:.4f} ms",
-                  flush=True)
-            if not (ms_dq < core["dq"] and ms_dkv < core["dkv"]):
-                raise AssertionError(f"K7/K8 [{label}]: a tensor-core body "
-                                     "is not faster than the CUDA-core body")
         if main:
             out[keys["dq"]] = dict(
                 max_abs_err=err(dq, rdq), ms=ms_dq, plain_ms=plain_dq,
@@ -1020,9 +1026,43 @@ def kernel_phase(torch, rng):
             out[keys["dkv"]] = dict(
                 max_abs_err=max(err(dk, rdk), err(dv, rdv)), ms=ms_dkv,
                 plain_ms=plain_dkv, library_ms=lib, bound=bound_dkv)
+        if not core_ab:
+            return
+        # the same call on the CUDA-core body (csrc/flash_bwd.cu) at 64 x
+        # 64, held against the plain versions too: the tensor-core bodies
+        # must beat it
+        cdq, = core_bwd("dq", q, k, v, do, lse, delta, causal, (64, 64))
+        cdk, cdv = core_bwd("dkv", q, k, v, do, lse, delta, causal, (64, 64))
+        e_core = max(rel(cdq, rdq), rel(cdk, rdk), rel(cdv, rdv))
+        if not e_core <= tol:
+            raise AssertionError(f"K7/K8 [{label}]: the CUDA-core body is "
+                                 f"off the plain versions by {e_core}")
+        core = {kn: _time_ms(torch, lambda kn=kn: core_bwd(
+            kn, q, k, v, do, lse, delta, causal, (64, 64)), reps=3,
+            warmup=1) for kn in bwd_bodies}
+        core_bounds = bounds("cuda_core")
+        print(f"[kernels] K7/K8 [{label}] A/B in one run: {bodies['dq']} / "
+              f"{bodies['dkv']} {ms_dq:.4f} + {ms_dkv:.4f} ms, CUDA-core "
+              f"body (64 x 64, max_rel_err {e_core:.3e}) {core['dq']:.4f} + "
+              f"{core['dkv']:.4f} ms ({core['dq'] / ms_dq:.2f}x, "
+              f"{core['dkv'] / ms_dkv:.2f}x), SDPA's backward {lib:.4f} ms; "
+              f"bound {bound_dq[0]:.4f} + {bound_dkv[0]:.4f} ms "
+              f"({bodies['dq']}) / {core_bounds[0][0]:.4f} + "
+              f"{core_bounds[1][0]:.4f} ms (CUDA cores)", flush=True)
+        if not (ms_dq < core["dq"] and ms_dkv < core["dkv"]):
+            raise AssertionError(f"K7/K8 [{label}]: a tensor-core body is "
+                                 "not faster than the CUDA-core body")
+        if main and dtype == torch.float32:
+            out["flash_backward_dq"] = dict(
+                max_abs_err=err(cdq, rdq), ms=core["dq"], plain_ms=plain_dq,
+                library_ms=lib, bound=core_bounds[0])
+            out["flash_backward_dkv"] = dict(
+                max_abs_err=max(err(cdk, rdk), err(cdv, rdv)),
+                ms=core["dkv"], plain_ms=plain_dkv, library_ms=lib,
+                bound=core_bounds[1])
 
     bwd_case("encoder f32 [4,8,1500,64]", 4, 8, 8, 1500, 1500, torch.float32,
-             False, TOL_F32, True)
+             False, TOL_F32, True, core_ab=True)
     bwd_case("encoder bf16 [4,8,1500,64]", 4, 8, 8, 1500, 1500,
              torch.bfloat16, False, TOL_BF16, False)
     # the bf16 fine-tune step's encoder shape (Whisper-small, B = 8), on the
@@ -1033,9 +1073,21 @@ def kernel_phase(torch, rng):
     bwd_case("decoder self causal f32 [4,8,56,64]", 4, 8, 8, 56, 56,
              torch.float32, True, TOL_F32, False)
     bwd_case("cross f32 q [4,8,56,64] kv [4,8,1500,64]", 4, 8, 8, 56, 1500,
-             torch.float32, False, TOL_F32, False)
+             torch.float32, False, TOL_F32, False, core_ab=True)
     bwd_case("causal GQA 8q/2kv T=77 f32", 2, 8, 2, 77, 77, torch.float32,
              True, TOL_F32, False)
+    # K7/K8's float32 bodies on the tensor cores at head dims 16/32/128 and
+    # at the longest sums of the encoder shape (K8's over a q-head group of
+    # four times 1500 queries), on their own generator
+    gen12 = torch.Generator(device=dev).manual_seed(12)
+    bwd_case("f32 GQA 8q/2kv [4,8,1500,64]", 4, 8, 2, 1500, 1500,
+             torch.float32, False, TOL_F32, False, gen=gen12, reps=5)
+    for d in (16, 32, 128):
+        bwd_case(f"f32 head_dim {d} [4,8,300,{d}]", 4, 8, 8, 300, 300,
+                 torch.float32, False, TOL_F32, False, gen=gen12, d=d, reps=5)
+        bwd_case(f"f32 head_dim {d} causal GQA 8q/4kv T=130", 2, 8, 4, 130,
+                 130, torch.float32, True, TOL_F32, False, gen=gen12, d=d,
+                 reps=5)
     # K7/K8's bf16 bodies on the tensor cores (csrc/flash_bwd_sm90.cu): the
     # bf16 step's decoder sites at Whisper-small width (40 label tokens),
     # the masks and head dims 16/32/128, on their own generator
@@ -1380,12 +1432,13 @@ def _speechlike(rng, seconds, sr=16000, pitch=120.0, syllables=4.0):
     return x.astype(np.float32)
 
 
-def _no_core_k2(counts, path):
-    """K2's float32 calls on a main path all take the 3xTF32 body: the
-    CUDA-core body (``flash_forward``) launched none."""
-    if counts["flash_forward"]["cuda"]:
-        raise AssertionError(f"the {path} path launched the CUDA-core K2 "
-                             f"{counts['flash_forward']['cuda']} times")
+def _no_core_flash(counts, path):
+    """The flash kernels' float32 calls on a main path all take the 3xTF32
+    bodies: the CUDA-core bodies (``FLASH``: K2, K7, K8) launched none."""
+    ran = {k: counts[k]["cuda"] for k in FLASH if counts[k]["cuda"]}
+    if ran:
+        raise AssertionError(f"the {path} path launched the CUDA-core "
+                             f"flash bodies: {ran}")
 
 
 def _check_launches(counts, kernels, path):
@@ -1434,7 +1487,7 @@ def main_path_phase(torch, rng):
     counts = launch_counts()
     print(f"[main] launches: {json.dumps(counts)}", flush=True)
     _check_launches(counts, TRANSCRIBE_KERNELS, "transcription")
-    _no_core_k2(counts, "transcription")
+    _no_core_flash(counts, "transcription")
 
     # ---- the card against the port's CPU path, float32 ------------------------
     audio = requests[0][1][None, : tr.chunk_samples]
@@ -1504,6 +1557,8 @@ def _kernel_group(name):
               ("K3/K6 decode_attn", ("decode_attn",)),
               ("K7 flash_bwd_dq_sm90 (wgmma)", ("flash_bwd_dq_sm90",)),
               ("K8 flash_bwd_dkv_sm90 (wgmma)", ("flash_bwd_dkv_sm90",)),
+              ("K7 flash_bwd_dq_tf32x3 (3xTF32)", ("flash_bwd_dq_tf32x3",)),
+              ("K8 flash_bwd_dkv_tf32x3 (3xTF32)", ("flash_bwd_dkv_tf32x3",)),
               ("K7 flash_bwd_dq", ("flash_bwd_dq",)),
               ("K8 flash_bwd_dkv", ("flash_bwd_dkv",)),
               ("K2 flash_fwd_sm90 (wgmma)", ("flash_fwd_sm90",)),
@@ -1652,7 +1707,7 @@ def finetune_phase(torch, rng, profile=False):
     counts = launch_counts()
     print(f"[finetune] launches: {json.dumps(counts)}", flush=True)
     _check_launches(counts, FINETUNE_KERNELS, "fine-tune")
-    _no_core_k2(counts, "float32 fine-tune")
+    _no_core_flash(counts, "float32 fine-tune")
     ran = {k: counts[k]["cuda"] for k in WGMMA if counts[k]["cuda"]}
     if ran:
         raise AssertionError(f"the float32 fine-tunes ran bf16 tensor-core "
@@ -1893,7 +1948,7 @@ def serve_phase(torch, rng, profile=False):
           f"{json.dumps(metrics)}", flush=True)
     print(f"[serve] launches: {json.dumps(counts)}", flush=True)
     _check_launches(counts, SERVE_KERNELS, "serving")
-    _no_core_k2(counts, "serving")
+    _no_core_flash(counts, "serving")
     if counts["decode_attention_stacked"]["cuda"]:
         raise AssertionError("the float K3 arm ran on the int8-KV path")
 
@@ -2453,25 +2508,29 @@ def main() -> int:
             raise AssertionError(f"{name} spills (or reports no kernel): "
                                  f"{spilled}")
 
-    # K2's float32 body on the tensor cores: TF32 HMMA (mma.sync) in its
-    # SASS, and every (D, BK) instantiation's registers without a spill
-    tf32 = "flash_fwd_tf32x3"
-    sass = _run([cuobjdump, "--dump-sass", str(native.lib_path(tf32))])
-    hmma = sum("HMMA" in line and "TF32" in line for line in sass.splitlines())
-    print(f"[build] {tf32} SASS: {hmma} TF32 HMMA instructions", flush=True)
-    if hmma == 0:
-        raise AssertionError(f"the 3xTF32 body {tf32} holds no TF32 HMMA")
-    if tf32 in reports:
+    # the float32 bodies on the tensor cores (K2, K7, K8): TF32 HMMA
+    # (mma.sync) in each SASS, and every instantiation's registers without
+    # a spill (K2's by (D, BK), K7's by (D, BK), K8's by (D, BQ))
+    for tf32 in TF32X3_LIBS:
+        sass = _run([cuobjdump, "--dump-sass", str(native.lib_path(tf32))])
+        hmma = sum("HMMA" in line and "TF32" in line
+                   for line in sass.splitlines())
+        print(f"[build] {tf32} SASS: {hmma} TF32 HMMA instructions",
+              flush=True)
+        if hmma == 0:
+            raise AssertionError(f"the 3xTF32 body {tf32} holds no TF32 "
+                                 "HMMA")
+        if tf32 not in reports:
+            print(f"[build] {tf32} was built before: its registers and "
+                  "spills are not reported", flush=True)
+            continue
         kernels = _ptxas_kernels(reports[tf32])
-        print(f"[build] {tf32} ptxas (D,BK: registers, spill bytes): "
-              + "; ".join(f"{a}: {r}, {sp}" for a, r, sp in kernels),
+        print(f"[build] {tf32} ptxas (template arguments: registers, spill "
+              "bytes): " + "; ".join(f"{a}: {r}, {sp}" for a, r, sp in kernels),
               flush=True)
         if not kernels or any(sp for _, _, sp in kernels):
             raise AssertionError(f"{tf32} spills (or reports no kernel): "
                                  f"{kernels}")
-    else:
-        print(f"[build] {tf32} was built before: its registers and spills "
-              "are not reported", flush=True)
 
     # the FFT log-mel body's instantiations by n_fft, Whisper's 400-point
     # mixed radix among them: registers and spills (a spill fails)
@@ -2537,6 +2596,12 @@ def main() -> int:
                    "audax/ops/attention.py:293"),
                "flash_backward_dkv_wgmma": (
                    "audax_torch/csrc/flash_bwd_sm90.cu",
+                   "audax/ops/attention.py:329"),
+               "flash_backward_dq_tf32x3": (
+                   "audax_torch/csrc/flash_bwd_tf32x3.cu",
+                   "audax/ops/attention.py:293"),
+               "flash_backward_dkv_tf32x3": (
+                   "audax_torch/csrc/flash_bwd_tf32x3.cu",
                    "audax/ops/attention.py:329"),
                "decode_attention_stacked": (
                    "audax_torch/csrc/decode_attention.cu",

@@ -2,8 +2,13 @@
 their text and evaluated in Python, so that a test holds the formula the
 kernel compiles (the shared memory of a tile, ...) and not a copy of it.
 
+``instantiated`` reads the (head_dim, block_q, block_k) sets that an
+instantiation macro lists, as one ``-D`` build of a two-library source
+sees them.
+
 A function qualifies when its body is one ``return`` of integer
-arithmetic, comparisons, ``||``/``&&`` and at most one ``?:``; constants
+arithmetic, comparisons, ``||``/``&&`` and ``?:`` (nested only in the
+last operand, ``a ? b : c ? d : e``); constants
 are ``constexpr int NAME = <expression>;`` lines at namespace level (no
 indent), each an expression of the integers and constants before it. The
 source's quoted ``#include`` headers are read first.
@@ -25,7 +30,8 @@ def _python(expr: str) -> str:
     expr = expr.replace("||", " or ").replace("&&", " and ")
     expr = re.sub(r"(?<![/])/(?![/])", "//", expr)
     m = re.fullmatch(r"\s*(.+?)\s*\?\s*(.+?)\s*:\s*(.+?)\s*", expr)
-    return f"(({m[2]}) if ({m[1]}) else ({m[3]}))" if m else expr
+    return (f"(({m[2]}) if ({m[1]}) else ({_python(m[3])}))" if m
+            else expr)
 
 
 def constexpr_function(source: str, name: str) -> Callable[..., int]:
@@ -41,3 +47,24 @@ def constexpr_function(source: str, name: str) -> Callable[..., int]:
         args = ", ".join(p.split()[-1] for p in params.split(","))
         ns[fn] = eval(f"lambda {args}: {_python(expr)}", ns)
     return ns[name]
+
+
+def instantiated(source: str, macro: str, kernel: str) -> set:
+    """``(head_dim, block_q, block_k)`` that ``macro`` instantiates in the
+    library of ``kernel`` built from ``csrc/<source>`` ("dq":
+    ``-DAUDAX_FLASH_BWD_DQ``, "dkv": ``-DAUDAX_FLASH_BWD_DKV``): the lines
+    of ``#if defined(AUDAX_FLASH_BWD_DKV)`` / ``#else`` / ``#endif`` that
+    build keeps."""
+    keep, lines = True, []
+    for line in (CSRC / source).read_text().splitlines():
+        word = line.strip()
+        if word.startswith("#if defined(AUDAX_FLASH_BWD_DKV)"):
+            keep = kernel == "dkv"
+        elif word == "#else":
+            keep = not keep
+        elif word.startswith("#endif"):
+            keep = True
+        elif keep:
+            lines.append(line)
+    return {tuple(map(int, m)) for m in re.findall(
+        rf"{macro}\((\d+), (\d+), (\d+)\)", "\n".join(lines))}

@@ -206,8 +206,10 @@ def test_unsupported_tiles_raise_before_dispatch(call, match):
 
 def test_tiles_off_head_dim_64_keep_the_defaults_only():
     assert att.resolve_tile("fwd", 32) == (64, 64)
-    assert att.resolve_tile("dkv", 128) == (64, 32)
-    assert att.resolve_tile("dkv", 128, 64, 32) == (64, 32)
+    assert att.resolve_tile("dkv", 128) == (64, 64)
+    assert att.resolve_tile("dkv", 128, 64, 64) == (64, 64)
+    with pytest.raises(ValueError):
+        att.resolve_tile("dkv", 128, 64, 32)
     with pytest.raises(ValueError):
         att.resolve_tile("fwd", 32, 32, 32)
     with pytest.raises(ValueError):

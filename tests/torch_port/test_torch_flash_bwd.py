@@ -1,16 +1,17 @@
 """K7/K8, the flash backward: the bodies' table, the bf16 gradients against
-the JAX package, and the tensor-core bodies' schedules transcribed into
-numpy.
+the JAX package, and the bf16 tensor-core bodies' schedules transcribed
+into numpy (the float32 body's are ``test_torch_flash_bwd_tf32x3.py``'s).
 
 * ``BWD_BODIES`` against the instantiations of ``csrc/flash_bwd_sm90.cu``
-  (the wgmma bodies) and ``csrc/flash_bwd.cu`` (the CUDA-core bodies), each
-  library read as its ``-DAUDAX_FLASH_BWD_DQ`` / ``-DAUDAX_FLASH_BWD_DKV``
-  build sees it, with every wgmma tile within one block's shared memory
-  (``dq_smem`` / ``dkv_smem`` read from the source);
-  ``bwd_body`` and ``resolve_tile`` route bf16 32-row (K7) and 32-key (K8)
-  tiles and all float32 to the CUDA cores, and calls off the table raise
-  the same ``ValueError`` on the CPU as on the card; the tensor-core
-  launchers take bf16 CUDA tensors only.
+  (the wgmma bodies), ``csrc/flash_bwd_tf32x3.cu`` (the 3xTF32 bodies) and
+  ``csrc/flash_bwd.cu`` (the CUDA-core bodies), each library read as its
+  ``-DAUDAX_FLASH_BWD_DQ`` / ``-DAUDAX_FLASH_BWD_DKV`` build sees it, with
+  every wgmma tile within one block's shared memory (``dq_smem`` /
+  ``dkv_smem`` read from the source); ``bwd_body`` and ``resolve_tile``
+  route K7 by its query rows and K8 by its keys -- bf16 at 64 or 128 to
+  wgmma, float32 at 64 to 3xTF32, the rest to the CUDA cores -- and calls
+  off the table raise the same ``ValueError`` on the CPU as on the card;
+  the wgmma launchers take bf16 CUDA tensors only.
 * bf16 gradients of the port's ``flash_attention`` (CPU tensors: K7/K8's
   plain versions) against ``jax.grad`` of the Pallas kernels in interpret
   mode, in bf16, on the cases of the float32 test in
@@ -39,7 +40,7 @@ import torch
 from audax.ops.attention import flash_attention as jax_flash
 from audax_torch.ops import attention as att
 
-from .csrc_constexpr import constexpr_function
+from .csrc_constexpr import constexpr_function, instantiated
 
 CSRC = Path(__file__).resolve().parents[2] / "audax_torch" / "csrc"
 BF16 = torch.bfloat16
@@ -52,56 +53,46 @@ TOL_SCHEDULE = 1e-5
 
 # ---- the body table ------------------------------------------------------------
 
-def _instantiated(source: str, macro: str, kernel: str) -> set:
-    """``(head_dim, block_q, block_k)`` that ``macro`` instantiates in the
-    library of ``kernel`` ("dq": ``-DAUDAX_FLASH_BWD_DQ``, "dkv":
-    ``-DAUDAX_FLASH_BWD_DKV``): the lines of ``#if
-    defined(AUDAX_FLASH_BWD_DKV)`` / ``#else`` / ``#endif`` that build
-    keeps."""
-    keep, lines = True, []
-    for line in (CSRC / source).read_text().splitlines():
-        word = line.strip()
-        if word.startswith("#if defined(AUDAX_FLASH_BWD_DKV)"):
-            keep = kernel == "dkv"
-        elif word == "#else":
-            keep = not keep
-        elif word.startswith("#endif"):
-            keep = True
-        elif keep:
-            lines.append(line)
-    return {tuple(map(int, m)) for m in re.findall(
-        rf"{macro}\((\d+), (\d+), (\d+)\)", "\n".join(lines))}
-
-
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
 def test_body_table_matches_the_sources_and_fits_shared_memory(kernel):
-    wgmma = _instantiated("flash_bwd_sm90.cu",
-                          "AUDAX_DQ90" if kernel == "dq" else "AUDAX_DKV90",
+    big = "DQ" if kernel == "dq" else "DKV"
+    wgmma = instantiated("flash_bwd_sm90.cu", f"AUDAX_{big}90", kernel)
+    tf32x3 = instantiated("flash_bwd_tf32x3.cu", f"AUDAX_{big}_TF32X3",
                           kernel)
-    core = _instantiated("flash_bwd.cu", "AUDAX_BWD", kernel)
+    core = instantiated("flash_bwd.cu", "AUDAX_BWD", kernel)
     table = {body: {(d,) + tile
                     for (kn, _, d, tile), b in att.BWD_BODIES.items()
                     if kn == kernel and b == body}
-             for body in ("cuda_core", "wgmma")}
+             for body in ("cuda_core", "tf32x3", "wgmma")}
     assert table["wgmma"] == wgmma
+    assert table["tf32x3"] == tf32x3
+    # the CUDA-core body is built, in either dtype, at every caller-set
+    # tile of head_dim 64 (bf16 takes its 32-row ones, float32 those off
+    # the 3xTF32 body; chip_smoke.py's A/B of the bodies calls it at 64 x
+    # 64 in both dtypes)
     assert table["cuda_core"] <= core
-    # the CUDA-core body is built, in either dtype, wherever float32 runs
-    # (chip_smoke.py's A/B of the two bodies calls it there in bf16)
+    assert {(64,) + tile for tile in att.TILES} <= core
+    # every float32 call has a body built for it
     assert {(d,) + tile for (kn, dt, d, tile) in att.BWD_BODIES
-            if kn == kernel and dt == torch.float32} == core
+            if kn == kernel and dt == torch.float32} <= tf32x3 | core
     smem = constexpr_function("flash_bwd_sm90.cu", f"{kernel}_smem")
     assert all(smem(*t) <= 232448 for t in wgmma)
 
 
 @pytest.mark.parametrize("tile", att.TILES, ids=lambda t: f"{t[0]}x{t[1]}")
 def test_bf16_routes_by_rows_and_keys_float32_to_the_cuda_cores(tile):
+    """bf16 takes wgmma at 64 or 128 rows, float32 the 3xTF32 body at 64
+    rows (K7's query rows, K8's keys); the rest goes to the CUDA cores."""
     bq, bk = tile
     assert att.bwd_body("dq", BF16, 64, bq, bk) == (
         "wgmma" if bq >= 64 else "cuda_core")
     assert att.bwd_body("dkv", BF16, 64, bq, bk) == (
         "wgmma" if bk >= 64 else "cuda_core")
+    assert att.bwd_body("dq", torch.float32, 64, bq, bk) == (
+        "tf32x3" if bq == 64 else "cuda_core")
+    assert att.bwd_body("dkv", torch.float32, 64, bq, bk) == (
+        "tf32x3" if bk == 64 else "cuda_core")
     for kernel in ("dq", "dkv"):
-        assert att.bwd_body(kernel, torch.float32, 64, bq, bk) == "cuda_core"
         assert att.resolve_tile(kernel, 64, bq, bk, dtype=BF16) == tile
 
 
@@ -110,10 +101,8 @@ def test_defaults_per_dtype_and_head_dim(d):
     for kernel in ("dq", "dkv"):
         assert att.resolve_tile(kernel, d, dtype=BF16) == att.BWD_WGMMA_TILE
         assert att.bwd_body(kernel, BF16, d) == "wgmma"
-        assert att.bwd_body(kernel, torch.float32, d) == "cuda_core"
-    f32 = (64, 32) if d == 128 else (64, 64)
-    assert att.resolve_tile("dkv", d) == f32
-    assert att.resolve_tile("dq", d) == (64, 64)
+        assert att.bwd_body(kernel, torch.float32, d) == "tf32x3"
+        assert att.resolve_tile(kernel, d) == (64, 64)
 
 
 def _qkv(d, dtype, tq=40):

@@ -38,48 +38,12 @@ from audax_torch.ops import KERNELS, native
 from audax_torch.ops import attention as att
 
 from .csrc_constexpr import CSRC, constexpr_function
+from .tf32x3_lanes import G, T, a_from_c, mma3, split, tf32
 
-LANE = np.arange(32)
-G, T = LANE // 4, LANE % 4
 NEG = np.float32(-1e30)
 LOG2E = np.float32(1.4426950408889634)
 LN2 = np.float32(0.6931471805599453)
 BQ, WARPS = 64, 4
-
-
-def tf32(x):
-    """``cvt.rna.tf32.f32``: keep 10 mantissa bits, round to nearest with
-    ties away from zero (the magnitude's low 13 bits, sign apart)."""
-    bits = np.asarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
-        np.float32)
-
-
-def split(x):
-    big = tf32(x)
-    return big, tf32(x - big)
-
-
-def mma(c, a, b):
-    """One ``mma.sync.m16n8k8.row.col`` on a warp's fragments: c [32, 4] +=
-    A @ B with A 16x8 from a [32, 4] and B 8x8 from b [32, 2]."""
-    am = np.zeros((16, 8))
-    am[G, T], am[G + 8, T] = a[:, 0], a[:, 1]
-    am[G, T + 4], am[G + 8, T + 4] = a[:, 2], a[:, 3]
-    bm = np.zeros((8, 8))
-    bm[T, G], bm[T + 4, G] = b[:, 0], b[:, 1]
-    d = am @ bm
-    return (c + np.stack([d[G, 2 * T], d[G, 2 * T + 1], d[G + 8, 2 * T],
-                          d[G + 8, 2 * T + 1]], 1)).astype(np.float32)
-
-
-def mma3(c, a, b, passes=3):
-    """c += a b in 3xTF32 in the kernel's order (``tf32x3::mma3``), or in
-    one TF32 pass."""
-    if passes == 1:
-        return mma(c, tf32(a), tf32(b))
-    (ab, as_), (bb, bs) = split(a), split(b)
-    return mma(mma(mma(c, as_, bb), ab, bs), ab, bb)
 
 
 def kernel_schedule(q, k, v, *, causal=False, kv_len=None, bk=64,
@@ -147,7 +111,7 @@ def kernel_schedule(q, k, v, *, causal=False, kv_len=None, bk=64,
                         m[:, hh] = m_new
                         acc[:, :, 2 * hh: 2 * hh + 2] *= alpha[None, :, None]
                     for j in range(nt_):
-                        afr = s[j][:, [0, 2, 1, 3]]     # C -> A, k permuted
+                        afr = a_from_c(s[j])            # k permuted
                         for nd in range(ks):
                             bfr = np.stack([vt[8 * j + 2 * T, 8 * nd + G],
                                             vt[8 * j + 2 * T + 1, 8 * nd + G]],
