@@ -1,14 +1,18 @@
-// What the int4 matmul kernels share (csrc/int4_matmul.cu, K9;
-// csrc/int4_word_matmul.cu; csrc/w4a8_matmul.cu;
+// What the int4 matmul kernels share (csrc/int4_matmul.cu, K9's split-half
+// body; csrc/int4_word_matmul.cu; csrc/w4a8_matmul.cu;
 // csrc/int4_unpack_variants.cu): conversions, the 4-column load of K9's
-// packed bytes, the fixed-order sum of split-K partials, and K9's kernel
+// packed bytes, the fixed-order sum of split-K partials, and split_half_kernel
 // itself, templated on the threads per block and on how a nibble becomes a
-// float, so that the unpack variant shares every other line with K9.
+// float, so that the unpack variant shares every other line with it.
 //
-// K9's kernel computes, for x [M, K] (float32 or bfloat16), packed uint8
-// [K/2, N] (byte (c, n) holds K-row c in its low nibble and K-row c + K/2
-// in its high nibble, each stored as q + 8) and float32 scales [G, N]
-// (group = K/G divides K/2),
+// split_half_kernel is K9's first body on the CUDA cores, kept for P5 v1
+// (csrc/int4_unpack_variants.cu) and for the calls K9's tensor-core body
+// (csrc/int4_matmul_mma.cu) does not take: a group that is not a multiple
+// of 16 packed rows, or K/2 past that body's 16 splits of 512 rows
+// (ops/int4_matmul.py:BODIES). It computes, for x [M, K] (float32 or
+// bfloat16), packed uint8 [K/2, N] (byte (c, n) holds K-row c in its low
+// nibble and K-row c + K/2 in its high nibble, each stored as q + 8) and
+// float32 scales [G, N] (group = K/G divides K/2),
 //
 //   y[m, n] = sum_g s[g, n] * sum_{k in g} x[m, k] * (nib[k, n] - 8)
 //
@@ -21,7 +25,10 @@
 // partials are scaled at each group's end. The packed rows are split
 // across blocks (grid.y); each split writes a float32 partial to a
 // workspace and reduce_splits sums them in a fixed order (no atomics). A
-// ragged N takes 2-byte or 1-byte loads and a bounds-checked tail.
+// ragged N takes 2-byte or 1-byte loads and a bounds-checked tail. Too few
+// bytes in flight, the partials' round trip through device memory and a
+// second launch hold it at 50-65x its bound at the decode projections on
+// an H100; the tensor-core body is the answer to each.
 
 #pragma once
 

@@ -11,11 +11,11 @@
 // in x's dtype, summed in float32 without atomics.
 //
 // Variant 1 replaces the TPU kernel tools/int4_unpack_probe.py:_kernel_v1
-// (called by run_variant): K9's kernel and geometry (int4_common.cuh's
-// split_half_kernel, the same template K9 instantiates), with one
-// difference, the unpack. K9 turns each nibble into a float with an
-// integer-to-float conversion, which runs at a fraction of the FMA rate;
-// here one byte
+// (called by run_variant): the kernel and geometry of K9's split-half body
+// (int4_common.cuh's split_half_kernel, the same template that body
+// instantiates), with one difference, the unpack. That body turns each
+// nibble into a float with an integer-to-float conversion, which runs at a
+// fraction of the FMA rate; here one byte
 // permute (__byte_perm) writes the nibble under the exponent of 2^23 (the
 // bits nib | 0x4B000000 read as a float are 2^23 + nib) and one float
 // subtraction of 2^23 + 8 leaves nib - 8, exactly. That is this card's

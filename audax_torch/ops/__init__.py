@@ -36,13 +36,16 @@ from audax_torch.ops.fused_mel import (log_mel_overlap_cuda,
                                        log_mel_overlap_plain)
 from audax_torch.ops.int4_matmul import (int4_matmul_cuda,
                                          int4_matmul_dequant,
+                                         int4_matmul_mma_cuda,
                                          int4_matmul_plain)
 
 __all__ = ["KERNELS", "reset_launches", "launch_counts"]
 
 #: kernel name -> (CUDA wrapper, plain PyTorch version); K1's and K4's
 #: tiers on the FFT body (``csrc/log_mel_fft.cu``) count apart from their
-#: own kernels and from K5's FFT body, each beside its tier's plain version
+#: own kernels and from K5's FFT body, each beside its tier's plain version;
+#: K9's tensor-core body (``int4_matmul_mma``) apart from its split-half
+#: body (``int4_matmul``)
 KERNELS = {
     "log_mel_overlap": (log_mel_overlap_cuda, log_mel_overlap_plain),
     "log_mel_overlap_fft": (log_mel_overlap_fft_cuda, log_mel_overlap_plain),
@@ -70,6 +73,7 @@ KERNELS = {
                                       decode_attention_stacked_int8_plain),
     "decode_attention": (decode_attention_cuda, decode_attention_plain),
     "int4_matmul": (int4_matmul_cuda, int4_matmul_plain),
+    "int4_matmul_mma": (int4_matmul_mma_cuda, int4_matmul_plain),
 }
 
 

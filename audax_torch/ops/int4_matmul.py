@@ -18,8 +18,16 @@ from the JAX package so its int4 trees cross the bridge unchanged:
 
 ``int4_matmul`` dispatches on the tensor it is given:
 
-  * CUDA, M <= 256 rows: kernel K9 (``csrc/int4_matmul.cu``), which reads
-    the packed bytes and scales once and never builds a float weight;
+  * CUDA, M <= 256 rows: kernel K9, which reads the packed bytes and scales
+    once and never builds a float weight, on the body ``BODIES`` gives the
+    call's (K/2, group): the tensor-core body (``csrc/int4_matmul_mma.cu``,
+    mma.sync, one launch with its K splits reduced in a thread block
+    cluster) wherever it takes the call -- every group that is a multiple
+    of 16 packed rows, K/2 up to 8192: each Whisper projection -- and the
+    split-half body (``csrc/int4_matmul.cu``, CUDA cores, a second launch
+    for its split-K sum) for the rest. Each body has a wrapper of its own
+    that checks the operands and counts its launches
+    (``int4_matmul_mma_cuda``, ``int4_matmul_cuda``);
   * CUDA, M > 256 (the encoder, the cross-K/V projection at admit):
     dequantize, then ``torch.matmul`` -- what the JAX function does outside
     its kernel. It counts its own launches (``int4_matmul_dequant``); a
@@ -40,12 +48,29 @@ import torch
 from audax_torch.ops import native
 
 __all__ = ["fit_group", "quantize_int4", "dequantize_int4", "int4_matmul",
-           "int4_matmul_plain", "int4_matmul_cuda", "int4_matmul_dequant",
-           "MAX_KERNEL_ROWS"]
+           "int4_matmul_plain", "int4_matmul_cuda", "int4_matmul_mma_cuda",
+           "int4_matmul_dequant", "MAX_KERNEL_ROWS", "BODIES", "int4_body"]
 
 #: the kernel's row limit; larger M dequantizes and calls torch.matmul
 MAX_KERNEL_ROWS = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: K9's bodies on a CUDA tensor, in the order ``int4_body`` tries them:
+#: name -> (the counter of its launches in ``ops.KERNELS``, whether it takes
+#: a call's (K/2, group)). The tensor-core body's rule is the source's
+#: ``int4mma::takes``: a group of whole 16-row products and at most 16
+#: splits of 512 packed rows; the split-half body takes every call.
+BODIES = {
+    "mma": ("int4_matmul_mma",
+            lambda kh, group: group % 16 == 0 and kh <= 16 * 512),
+    "split_half": ("int4_matmul", lambda kh, group: True),
+}
+
+
+def int4_body(k_dim: int, group: int) -> str:
+    """The body ``BODIES`` gives a [.., K] x [K/2, N] call at ``group``."""
+    return next(name for name, (_, takes) in BODIES.items()
+                if takes(k_dim // 2, group))
 
 
 def fit_group(k_dim: int, group: int = 128) -> int:
@@ -132,37 +157,74 @@ def int4_matmul_dequant(x: torch.Tensor, packed: torch.Tensor,
 int4_matmul_dequant.launches = 0
 
 
-def int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
-                     scales: torch.Tensor, *, layer=None) -> torch.Tensor:
-    """Kernel K9 (``csrc/int4_matmul.cu``): x [..., K] float32 or bfloat16
-    with at most 256 rows, packed uint8 [(L,) K//2, N], scales float32
-    [(L,) G, N] -> [..., N] in x's dtype, summed in float32."""
+def _operands(who, x, packed, scales, layer):
+    """Check K9's operands on the card: (x as [M, K] contiguous, packed
+    [K//2, N] and scales [G, N] of ``layer`` -- views --, the leading dims
+    of x, K, N and the group). Raises ``ValueError`` on anything the
+    kernels do not take."""
     packed, scales = _select(packed, scales, layer)
     if not (x.is_cuda and packed.is_cuda and scales.is_cuda
             and x.device == packed.device == scales.device):
-        raise ValueError("int4_matmul_cuda: every operand must be on one "
-                         "CUDA device")
+        raise ValueError(f"{who}: every operand must be on one CUDA device")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"int4_matmul_cuda: x must be float32 or bfloat16, "
-                         f"got {x.dtype}")
+        raise ValueError(f"{who}: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
     if packed.dtype != torch.uint8 or scales.dtype != torch.float32:
-        raise ValueError(f"int4_matmul_cuda: packed must be uint8 and scales "
-                         f"float32, got {packed.dtype} / {scales.dtype}")
+        raise ValueError(f"{who}: packed must be uint8 and scales float32, "
+                         f"got {packed.dtype} / {scales.dtype}")
     if not (packed.is_contiguous() and scales.is_contiguous()):
-        raise ValueError("int4_matmul_cuda: packed and scales must be "
-                         "contiguous")
+        raise ValueError(f"{who}: packed and scales must be contiguous")
     kh, n = packed.shape
     k_dim, num_g = 2 * kh, scales.shape[0]
     if x.shape[-1] != k_dim or scales.shape[1] != n or num_g % 2 \
             or k_dim % num_g:
-        raise ValueError(f"int4_matmul_cuda: x {tuple(x.shape)}, packed "
+        raise ValueError(f"{who}: x {tuple(x.shape)}, packed "
                          f"{tuple(packed.shape)} and scales "
                          f"{tuple(scales.shape)} do not match")
-    lead = x.shape[:-1]
     x2 = x.reshape(-1, k_dim).contiguous()
+    if x2.shape[0] > MAX_KERNEL_ROWS:
+        raise ValueError(f"{who}: {x2.shape[0]} rows > {MAX_KERNEL_ROWS}")
+    return x2, packed, scales, x.shape[:-1], k_dim, n, k_dim // num_g
+
+
+def int4_matmul_mma_cuda(x: torch.Tensor, packed: torch.Tensor,
+                         scales: torch.Tensor, *, layer=None) -> torch.Tensor:
+    """K9's tensor-core body (``csrc/int4_matmul_mma.cu``), one counted
+    launch: x [..., K] float32 or bfloat16 with at most 256 rows, packed
+    uint8 [(L,) K//2, N], scales float32 [(L,) G, N] -> [..., N] in x's
+    dtype, summed in float32, at a (K/2, group) that ``BODIES`` gives this
+    body (raises ``ValueError`` otherwise)."""
+    x2, packed, scales, lead, k_dim, n, group = _operands(
+        "int4_matmul_mma_cuda", x, packed, scales, layer)
+    if int4_body(k_dim, group) != "mma":
+        raise ValueError(f"int4_matmul_mma_cuda: no tensor-core body at "
+                         f"K={k_dim}, group {group}")
     m = x2.shape[0]
-    if m > MAX_KERNEL_ROWS:
-        raise ValueError(f"int4_matmul_cuda: {m} rows > {MAX_KERNEL_ROWS}")
+    y = torch.empty(m, n, device=x.device, dtype=x.dtype)
+    if m == 0:
+        return y.reshape(*lead, n)
+    if x2.data_ptr() % (2 * x2.element_size()):    # it loads pairs of x
+        x2 = x2.clone()
+    status = native.library("int4_matmul_mma").int4_matmul_mma(
+        x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(), m,
+        k_dim, n, group, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    native.check(status, "int4_matmul_mma")
+    int4_matmul_mma_cuda.launches += 1
+    return y.reshape(*lead, n)
+
+
+int4_matmul_mma_cuda.launches = 0
+
+
+def int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
+                     scales: torch.Tensor, *, layer=None) -> torch.Tensor:
+    """K9's split-half body (``csrc/int4_matmul.cu``, CUDA cores), one
+    counted call -- its kernel and, with more than one K split, the split
+    sum: same operands as ``int4_matmul_mma_cuda``, at any (K/2, group)."""
+    x2, packed, scales, lead, k_dim, n, group = _operands(
+        "int4_matmul_cuda", x, packed, scales, layer)
+    m, kh = x2.shape[0], k_dim // 2
     y = torch.empty(m, n, device=x.device, dtype=x.dtype)
     if m == 0:
         return y.reshape(*lead, n)
@@ -172,7 +234,7 @@ def int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
           if splits > 1 else y)
     status = lib.int4_matmul(
         x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
-        ws.data_ptr(), m, k_dim, n, k_dim // num_g, splits, _DTYPES[x.dtype],
+        ws.data_ptr(), m, k_dim, n, group, splits, _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     native.check(status, "int4_matmul")
     int4_matmul_cuda.launches += 1
@@ -186,11 +248,15 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 *, layer: Optional[int] = None) -> torch.Tensor:
     """``x @ dequant(packed, scales)`` -> [..., N]. ``packed``/``scales`` as
     ``quantize_int4`` writes them, optionally with one leading stacked axis
-    picked by ``layer``. CUDA: kernel K9 for at most 256 rows, dequantize +
-    ``torch.matmul`` above that; CPU: the plain version."""
+    picked by ``layer``. CUDA: kernel K9 for at most 256 rows (on the body
+    ``BODIES`` gives), dequantize + ``torch.matmul`` above that; CPU: the
+    plain version."""
     if not x.is_cuda:
         return int4_matmul_plain(x, packed, scales, layer=layer)
     m = x.numel() // max(x.shape[-1], 1)
     if m > MAX_KERNEL_ROWS:
         return int4_matmul_dequant(x, packed, scales, layer=layer)
+    k_dim = x.shape[-1]
+    if int4_body(k_dim, k_dim // max(scales.shape[-2], 1)) == "mma":
+        return int4_matmul_mma_cuda(x, packed, scales, layer=layer)
     return int4_matmul_cuda(x, packed, scales, layer=layer)

@@ -21,7 +21,8 @@ the FFT log-mel body ``log_mel_fft.cu`` of K1's, K4's and K5's tiers),
 ``flash_fwd_tf32x3.cu`` and ``flash_fwd_sm90.cu``, the first of which
 also serves the head-fold probe
 ``tools/attn_headfold_probe.py``, and K7/K8's three, ``flash_bwd.cu``,
-``flash_bwd_tf32x3.cu`` and ``flash_bwd_sm90.cu``), ``ops/int4_matmul.py`` and the int4
+``flash_bwd_tf32x3.cu`` and ``flash_bwd_sm90.cu``), ``ops/int4_matmul.py``
+(K9's two bodies, ``int4_matmul_mma.cu`` and ``int4_matmul.cu``) and the int4
 experiment tools (``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
 ``tools/w4a8_probe.py``, ``tools/int4_unpack_probe.py``) call
 ``library(name)`` the first time they launch on a CUDA tensor. A CUDA host
@@ -62,6 +63,7 @@ KERNEL_SOURCES = {
     "flash_bwd_dkv_tf32x3": "flash_bwd_tf32x3.cu",
     "decode_attention": "decode_attention.cu",
     "int4_matmul": "int4_matmul.cu",
+    "int4_matmul_mma": "int4_matmul_mma.cu",
     "int4_word_matmul": "int4_word_matmul.cu",
     "w4a8_matmul": "w4a8_matmul.cu",
     "int4_unpack_variants": "int4_unpack_variants.cu",
@@ -127,6 +129,9 @@ SIGNATURES = {
     "int4_matmul": {
         "int4_matmul_splits": ([_I, _I, _I], _I),
         "int4_matmul": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    },
+    "int4_matmul_mma": {
+        "int4_matmul_mma": ([_P] * 4 + [_I] * 5 + [_P], _I),
     },
     "int4_word_matmul": {
         "int4_word_matmul_splits": ([_I, _I, _I], _I),

@@ -47,7 +47,8 @@ from audax_torch.utils.profiling import slope_timed
 
 __all__ = ["L2_BYTES", "KEEP_RATIO", "device_name", "hbm_copies",
            "arm_times", "arm_row", "verdict", "report", "cli",
-           "kernel_operands", "split_half_shape", "probe_kernels",
+           "kernel_operands", "split_half_shape", "current_arm",
+           "probe_kernels",
            "reset_probe_launches", "probe_launch_counts"]
 
 #: the H100's L2 cache; timed weights cycle over copies of more than twice
@@ -177,6 +178,17 @@ def split_half_shape(who: str, x: torch.Tensor, packed: torch.Tensor,
                          f"{tuple(packed.shape)} and scales "
                          f"{tuple(scales.shape)} do not match")
     return k_dim, n, k_dim // num_g
+
+
+def current_arm(dev: torch.device, k_dim: int, group: int = 128) -> str:
+    """What serves a tool's "current" arm (``ops.int4_matmul.int4_matmul``
+    at M = 8): on the card the K9 body ``ops/int4_matmul.py:BODIES`` gives
+    [8, K] x [K/2, N] at ``group``, on the CPU K9's plain version."""
+    from audax_torch.ops import int4_matmul as i4
+    if dev.type != "cuda":
+        return "K9 plain version (int4_matmul_plain)"
+    body = i4.int4_body(k_dim, group)
+    return f"K9 {body} body ({i4.BODIES[body][0]})"
 
 
 def probe_kernels() -> Dict[str, tuple]:

@@ -18,13 +18,14 @@ takes ``int4_matmul_v2_plain`` (dequantize, a float32 product).
 ``int4_plane_probe`` (the same kernel at a group that may straddle planes).
 
 The question on this card: do native words of 8 K-rows beat K9's 4 columns
-x 2 rows per 32-bit load? ``bench`` times K9 ("v1-u8"), this kernel
-("v2-i32") and a bf16 ``torch.matmul`` at the decode shapes of
-Whisper-large-v3 ([8, 1280] x [1280, 5120], [8, 5120] x [5120, 1280],
-[8, 1280] x [1280, 1280]), each with its weights from device memory and
-warm in L2; its bytes count the finer scales of this layout. Verdict:
-``keep`` when v2 beats K9 by the common margin (``tools.KEEP_RATIO``) at
-every shape.
+x 2 rows per 32-bit load? ``bench`` times K9 ("v1-u8": on the card its
+tensor-core body, ``csrc/int4_matmul_mma.cu``, which the report's
+``current`` names), this kernel ("v2-i32") and a bf16 ``torch.matmul`` at
+the decode shapes of Whisper-large-v3 ([8, 1280] x [1280, 5120], [8, 5120]
+x [5120, 1280], [8, 1280] x [1280, 1280]), each with its weights from
+device memory and warm in L2; its bytes count the finer scales of this
+layout. Verdict: ``keep`` when v2 beats K9 by the common margin
+(``tools.KEEP_RATIO``) at every shape.
 
     python -m audax_torch.tools.int4_layout_ab check   # numerics
     python -m audax_torch.tools.int4_layout_ab bench [--out PATH]
@@ -38,7 +39,8 @@ import torch
 from audax_torch.core.runtime import resolve_device
 from audax_torch.ops import int4_matmul as i4
 from audax_torch.ops import native
-from audax_torch.tools import arm_row, arm_times, cli, kernel_operands, report
+from audax_torch.tools import (arm_row, arm_times, cli, current_arm,
+                               kernel_operands, report)
 from audax_torch.tools import verdict as rule
 
 __all__ = ["fit_group_v2", "quantize_words", "quantize_int4_v2",
@@ -213,7 +215,8 @@ def bench(device=None, out=None) -> dict:
             rows.append(arm_row(arm, (m, k_dim, n), t[arm], warm, nbytes))
         keep.append(rule(t["v2-i32"], t["v1-u8"]) == "keep")
     return report("int4_layout_ab bench", dev, rows,
-                  "keep" if all(keep) else "reject", out)
+                  "keep" if all(keep) else "reject", out,
+                  current=current_arm(dev, shapes[0][1]))
 
 
 def main(device=None, out=None, mode="bench") -> dict:

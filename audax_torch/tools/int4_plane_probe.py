@@ -26,7 +26,7 @@ import torch
 
 from audax_torch.core.runtime import resolve_device
 from audax_torch.ops import int4_matmul as i4
-from audax_torch.tools import arm_times, cli, report
+from audax_torch.tools import arm_times, cli, current_arm, report
 from audax_torch.tools import verdict as rule
 from audax_torch.tools.int4_layout_ab import (dequantize_int4_v2,
                                               launch_word_matmul,
@@ -121,7 +121,8 @@ def main(device=None, out=None) -> dict:
                floor_us_selected_bytes=row["bytes_plane"] / H100_HBM_BPS
                * 1e6,
                speedup=t_cur / t_pl, verdict=rule(t_pl, t_cur))
-    return report("int4_plane_probe", dev, [row], row["verdict"], out)
+    return report("int4_plane_probe", dev, [row], row["verdict"], out,
+                  current=current_arm(dev, k_dim))
 
 
 if __name__ == "__main__":

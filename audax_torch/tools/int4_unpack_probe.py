@@ -37,8 +37,8 @@ import torch
 from audax_torch.core.runtime import resolve_device
 from audax_torch.ops import int4_matmul as i4
 from audax_torch.ops import native
-from audax_torch.tools import (arm_row, arm_times, cli, kernel_operands,
-                               report, split_half_shape)
+from audax_torch.tools import (arm_row, arm_times, cli, current_arm,
+                               kernel_operands, report, split_half_shape)
 from audax_torch.tools import verdict as rule
 
 __all__ = ["BLOCK_N", "DEFAULT_BLOCK_N", "run_variant", "unpack_v1_plain",
@@ -173,7 +173,8 @@ def main(device=None, out=None) -> dict:
                             block_n=bn))
     best = min(v for a, v in t.items() if a != "v0 current")
     return report("int4_unpack_probe", dev, rows,
-                  rule(best, t["v0 current"]), out, nrmse=nrmse)
+                  rule(best, t["v0 current"]), out, nrmse=nrmse,
+                  current=current_arm(dev, k_dim))
 
 
 if __name__ == "__main__":

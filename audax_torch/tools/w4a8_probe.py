@@ -29,8 +29,8 @@ import torch
 from audax_torch.core.runtime import resolve_device
 from audax_torch.ops import int4_matmul as i4
 from audax_torch.ops import native
-from audax_torch.tools import (arm_row, arm_times, cli, kernel_operands,
-                               report, split_half_shape)
+from audax_torch.tools import (arm_row, arm_times, cli, current_arm,
+                               kernel_operands, report, split_half_shape)
 from audax_torch.tools import verdict as rule
 
 __all__ = ["quantize_activations", "w4a8_matmul", "w4a8_matmul_plain",
@@ -142,7 +142,8 @@ def main(device=None, out=None) -> dict:
     quant, _ = arm_times(lambda x_: quantize_activations(x_), xbf, ())
     return report("w4a8_probe", dev, rows,
                   rule(t["w4a8 (probe)"], t["w4a16 (current)"]), out,
-                  nrmse=nrmse, us_activation_quant=1e6 * quant)
+                  nrmse=nrmse, us_activation_quant=1e6 * quant,
+                  current=current_arm(dev, k_dim))
 
 
 if __name__ == "__main__":

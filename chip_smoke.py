@@ -18,7 +18,7 @@ attention tools, in eleven phases, one output line each (the kernel and
 path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (seventeen), in parallel, with
+  2. build   -- nvcc of every kernel library (eighteen), in parallel, with
      the wall time of each and of all, the registers and any spills; then
      the count of HGMMA (wgmma) instructions in the SASS of the three bf16
      tensor-core libraries, K2's and K7's and K8's (``cuobjdump
@@ -41,7 +41,13 @@ path phases print one line per case):
      whichever tier runs). The int4 kernels (K9 and the tools' P2-P5) and
      their ``torch.matmul`` yardstick are slope-timed in CUDA graphs with
      the weights from HBM (copies cycled past twice the L2), the L2-warm
-     time beside. It also holds decode attention at 40 query rows (K3 in
+     time beside. K9 runs on its tensor-core body (``csrc/
+     int4_matmul_mma.cu``) at the serving step's four shapes in both
+     dtypes, each call made twice (the same bits), timed beside its
+     split-half body (``csrc/int4_matmul.cu``) and, in bf16,
+     ``_weight_int4pack_mm`` ("not available" where the build lacks it),
+     then held at ragged N (odd, 258), M = 1, 16 and 256, groups 64 and 80
+     and stacked layer views. It also holds decode attention at 40 query rows (K3 in
      chunks of 16), every caller-set tile of K2, K7 and K8 at
      [4, 8, 1500, 64] float32, and P1 -- K2 folding 2 or 4 heads per block,
      ``tools/attn_headfold_probe.py:fold_fwd`` -- at the tool's bf16
@@ -121,7 +127,7 @@ path phases print one line per case):
      client threads posting 16-bit WAVs of 5-30 s: every answer must be 200
      with a well-formed JSON body; K1 (its FFT body), K2 (its 3xTF32 body,
      no CUDA-core launch), K3's int8 arm and K9 must launch and no plain
-     version may. Then requests/s, latency
+     version may; K9 33 times a decode step, all on its tensor-core body. Then requests/s, latency
      p50 and max, decode steps, tokens/s, launches per decode step and peak memory; the card
      against the port's CPU path (teacher-forced ``decode_step_ragged``
      with float and with int8 self-KV, two faults planted in the int8
@@ -151,7 +157,8 @@ path phases print one line per case):
      (``int4_layout_ab`` check and bench, ``int4_plane_probe``,
      ``w4a8_probe``, ``int4_unpack_probe``): each prints its rows, then one
      JSON line per tool with its rows and verdict; each tool's kernels (and
-     K9, its "current" arm) must launch and no plain version may;
+     K9's tensor-core body, its "current" arm) must launch and no plain
+     version may;
   9. attention_tools -- ``attn_headfold_probe`` (the four kernel arms and
      the product A/B), ``attn_block_probe`` (the tile set, forward and
      backward, at [8, 12, 1500, 64] bf16), ``train_step_breakdown`` at
@@ -257,17 +264,20 @@ FINETUNE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
                     "flash_backward_dq_tf32x3", "flash_backward_dkv_tf32x3",
                     "decode_attention_stacked")
 SERVE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
-                 "decode_attention_stacked_int8", "int4_matmul")
+                 "decode_attention_stacked_int8", "int4_matmul_mma")
+#: K9's launches per serving decode step on its tensor-core body: 4 decoder
+#: layers x 8 projections and the tied logits; its split-half body, none
+K9_PER_STEP = 33
 #: K1's and K4's own kernels: no main path launches them, since every
 #: config a path runs takes the FFT body (``ops/fused_mel.py:BODIES``)
 OLD_MEL_BODIES = ("log_mel_overlap", "log_mel_packed")
-#: the int4 tools and the kernels each must launch (K9 is every tool's
-#: "current" arm)
-PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul")),
-               ("int4_plane_probe", ("int4_plane_matmul", "int4_matmul")),
-               ("w4a8_probe", ("w4a8_matmul", "int4_matmul")),
+#: the int4 tools and the kernels each must launch (K9's tensor-core body
+#: is every tool's "current" arm)
+PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul_mma")),
+               ("int4_plane_probe", ("int4_plane_matmul", "int4_matmul_mma")),
+               ("w4a8_probe", ("w4a8_matmul", "int4_matmul_mma")),
                ("int4_unpack_probe", ("int4_unpack_v1", "int4_unpack_v2",
-                                      "int4_matmul")))
+                                      "int4_matmul_mma")))
 #: the attention tools' runs on the card: (label, tool, its arguments, the
 #: kernels it must launch, the kernels it must not)
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
@@ -1240,8 +1250,6 @@ def kernel_phase(torch, rng):
     #: does its products exactly: None = f32 CUDA cores for f32 x, bf16
     #: tensor cores for bf16 x; int8 tensor cores for W4A8)
     int4_kernels = {
-        "int4_matmul": (i4.int4_matmul_cuda, i4.int4_matmul_plain,
-                        split_half, None),
         "int4_word_matmul": (lab.int4_matmul_v2_cuda,
                              lab.int4_matmul_v2_plain,
                              words(lab.quantize_int4_v2), None),
@@ -1256,8 +1264,13 @@ def kernel_phase(torch, rng):
                            None),
     }
 
+    def int4_bound(m, k_dim, n, dtype, weights, rate):
+        nbytes = (torch.finfo(dtype).bits // 8) * m * (k_dim + n) + sum(
+            t.numel() * t.element_size() for t in weights)
+        return _bound(2 * m * k_dim * n, nbytes, rate)
+
     def int4_case(name, what, k_dim, n, dtype, tol, main, gen=None):
-        """One int4 kernel against its plain version; its time with the
+        """One int4 tool kernel against its plain version; its time with the
         weights from HBM -- copies cycled past twice the 50 MB L2, one per
         captured call, as a decode step's other weights evict them -- and
         warm in L2 (``tools.arm_times``); the yardstick ``torch.matmul`` on
@@ -1272,12 +1285,9 @@ def kernel_phase(torch, rng):
         cold, warm = arm_times(cuda_fn, x, weights)
         plain = _time_ms(torch, lambda: plain_fn(x, *weights))
         lib, _ = arm_times(torch.matmul, x, (wd.to(dtype),))
-        elt = x.element_size()
-        nbytes = elt * m * (k_dim + n) + sum(t.numel() * t.element_size()
-                                             for t in weights)
         if rate is None:
             rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-        bound = _bound(2 * m * k_dim * n, nbytes, rate)
+        bound = int4_bound(m, k_dim, n, dtype, weights, rate)
         dt = "f32" if dtype == torch.float32 else "bf16"
         _report(f"{name}[{what}{dt} [8,{k_dim}]x[{k_dim},{n}]] (max_abs_err "
                 f"{e:.3e}; ms from HBM, L2-warm {1e3 * warm:.4f})",
@@ -1287,13 +1297,144 @@ def kernel_phase(torch, rng):
             out[name] = dict(max_abs_err=e, ms=1e3 * cold, plain_ms=plain,
                              library_ms=1e3 * lib, bound=bound)
 
+    def int4pack_mm(x, q, s):
+        """``torch.ops.aten._weight_int4pack_mm`` on K9's codes, packed by
+        ``_convert_weight_to_int4pack`` (contiguous bytes of [N, K/2],
+        K-row 2j in the high nibble) with the scales rounded to bf16 and a
+        zero point of 0: (code - 8) * scale, K9's function; the conversion
+        is outside the timed call. Returns (the call, its packed operands,
+        None), or (None, None, why) where the card's build does not take
+        it (its kernel wants N % 8 == 0, which the tied logits are not)."""
+        try:
+            aten = torch.ops.aten
+            codes = torch.cat([q & 0xF, q >> 4], 0).t().to(torch.int32)
+            packed = aten._convert_weight_to_int4pack(
+                (codes[:, 0::2] << 4 | codes[:, 1::2]).to(torch.uint8)
+                .contiguous(), 8)
+            group = 2 * q.shape[0] // s.shape[0]
+            sz = torch.stack([s, torch.zeros_like(s)], -1).to(
+                torch.bfloat16).contiguous()
+            fn = lambda x, w, z: aten._weight_int4pack_mm(x, w, group, z)
+            fn(x, packed, sz)
+            torch.cuda.synchronize()
+            return fn, (packed, sz), None
+        except (RuntimeError, NotImplementedError, AttributeError) as exc:
+            return None, None, f"{type(exc).__name__}: {str(exc)[:120]}"
+
+    #: K9's bodies -> their wrappers (``BODIES`` names each one's counter)
+    k9_wrappers = {"mma": i4.int4_matmul_mma_cuda,
+                   "split_half": i4.int4_matmul_cuda}
+
+    def k9_case(what, m, k_dim, n, dtype, tol, main=False, timed=False,
+                layers=None, group=128, gen=None):
+        """K9 through ``int4_matmul`` -- one launch of the body ``BODIES``
+        gives the call and none of the other's -- against its plain version
+        at [m, K] x [K, N] (a stacked layer view with ``layers``), called
+        twice: the outputs must be the same bits. ``timed``: its time from
+        HBM and L2-warm; the split-half body's at the same shape
+        (``int4_matmul_cuda`` called directly), held against the plain
+        version with the same tolerance; cuBLAS on the dequantized weights
+        and, in bf16, ``_weight_int4pack_mm``."""
+        shape = (k_dim, n) if layers is None else (layers, k_dim, n)
+        q, s = i4.quantize_int4(torch.randn(*shape, device=dev, generator=gen)
+                                / k_dim ** 0.5, group=group)
+        group = 2 * q.shape[-2] // s.shape[-2]
+        body = i4.int4_body(k_dim, group)
+        layer = None if layers is None else layers // 2
+        x = torch.randn(m, k_dim, device=dev, generator=gen).to(dtype)
+        before = {b: fn.launches for b, fn in k9_wrappers.items()}
+        got = i4.int4_matmul(x, q, s, layer=layer)
+        again = i4.int4_matmul(x, q, s, layer=layer)
+        runs = {b: fn.launches - before[b] for b, fn in k9_wrappers.items()}
+        if runs != {b: 2 * (b == body) for b in k9_wrappers}:
+            raise AssertionError(f"K9 {what}: launches {runs}, not two of "
+                                 f"the {body} body alone")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K9 {what}: two calls differ")
+        ref = i4.int4_matmul_plain(x, q, s, layer=layer)
+        ref_max = float(ref.float().abs().max())
+        e = err(got, ref)
+        rel = e / ref_max
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        view = "" if layers is None else f" layer {layer} of {layers}"
+        shape_text = (f"{what} {dt} [{m},{k_dim}]x[{k_dim},{n}]{view} "
+                      f"group {group}")
+        label = f"{i4.BODIES[body][0]}[{shape_text}]"
+        if not timed:
+            if not rel <= tol:
+                raise AssertionError(f"{label}: max rel err {rel:.3e} > "
+                                     f"{tol:.0e}")
+            print(f"[kernels] {label}: max_rel_err {rel:.3e} (tol {tol:.0e}),"
+                  f" max_abs_err {e:.3e}, bit-identical twice", flush=True)
+            return
+        weights = (q, s)
+        cold, warm = arm_times(k9_wrappers[body], x, weights)
+        old_e = err(i4.int4_matmul_cuda(x, q, s), ref)
+        old_cold, old_warm = arm_times(i4.int4_matmul_cuda, x, weights)
+        plain = _time_ms(torch, lambda: i4.int4_matmul_plain(x, q, s))
+        lib, _ = arm_times(torch.matmul, x,
+                           (i4.dequantize_int4(q, s).to(dtype),))
+        pack_note = "bf16 only"
+        if dtype == torch.bfloat16:
+            fn, ops, why = int4pack_mm(x, q, s)
+            pack_note = f"not available ({why})"
+            if fn is not None:
+                pk_e = err(fn(x, *ops), ref)
+                pk_cold, pk_warm = arm_times(fn, x, ops)
+                pack_note = (f"{1e3 * pk_cold:.4f}, L2-warm "
+                             f"{1e3 * pk_warm:.4f} (max_rel_err "
+                             f"{pk_e / ref_max:.3e}, scales in bf16)")
+        parts = 3 if dtype == torch.float32 else 1
+        bound = int4_bound(m, k_dim, n, dtype, weights, BF16_FLOPS / parts)
+        old_bound = int4_bound(m, k_dim, n, dtype, weights,
+                               F32_FLOPS if dtype == torch.float32
+                               else BF16_FLOPS)
+        _report(f"int4_matmul[{shape_text}] (split-half body, CUDA cores, "
+                f"the A/B; max_abs_err {old_e:.3e}; ms from HBM, L2-warm "
+                f"{1e3 * old_warm:.4f})", old_e / ref_max, tol,
+                1e3 * old_cold, plain, 1e3 * lib, old_bound, "max_rel_err")
+        _report(f"{label} (max_abs_err {e:.3e}, bit-identical twice; ms from "
+                f"HBM, L2-warm {1e3 * warm:.4f}; _weight_int4pack_mm ms "
+                f"{pack_note})", rel, tol, 1e3 * cold, plain, 1e3 * lib,
+                bound, "max_rel_err")
+        if main:
+            out[i4.BODIES[body][0]] = dict(max_abs_err=e, ms=1e3 * cold,
+                                           plain_ms=plain,
+                                           library_ms=1e3 * lib, bound=bound)
+            out["int4_matmul"] = dict(max_abs_err=old_e, ms=1e3 * old_cold,
+                                      plain_ms=plain, library_ms=1e3 * lib,
+                                      bound=old_bound)
+
+    # K9 at the serving step's four shapes, M = 8 (24, 4, 4 and 1 launches a
+    # step), both dtypes; then, on their own generator (the later phases
+    # keep the inputs they drew before these cases existed), ragged N (odd;
+    # 258 = 2 mod 16, as 51,866), M = 1, 16 and 256, groups 64 and 80 and a
+    # stacked layer view; then, drawn after those, group 40 and K/2 = 8704
+    # on the split-half body
     for k_dim, n, what in ((1280, 1280, "q/k/v/out"), (1280, 5120, "mlp_in"),
                            (5120, 1280, "mlp_out"),
                            (1280, 51866, "tied logits")):
         for dtype, tol in ((torch.float32, TOL_INT4_F32),
                            (torch.bfloat16, TOL_BF16)):
-            int4_case("int4_matmul", f"{what} ", k_dim, n, dtype, tol,
-                      what == "tied logits" and dtype == torch.float32)
+            k9_case(what, 8, k_dim, n, dtype, tol,
+                    main=what == "tied logits" and dtype == torch.float32,
+                    timed=True)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for dtype, tol in ((torch.float32, TOL_INT4_F32),
+                       (torch.bfloat16, TOL_BF16)):
+        for m, n in ((8, 1287), (8, 258), (1, 7), (1, 1280), (16, 1280),
+                     (16, 51866), (256, 1280), (256, 258)):
+            k9_case("ragged" if n % 16 else "rows", m, 1280, n, dtype, tol,
+                    gen=gen)
+        k9_case("stacked", 8, 1280, 1280, dtype, tol, layers=4, gen=gen)
+        k9_case("stacked ragged", 8, 1280, 1287, dtype, tol, layers=3,
+                gen=gen)
+        k9_case("group 64", 8, 1280, 258, dtype, tol, group=64, gen=gen)
+        k9_case("group 80", 8, 640, 1280, dtype, tol, group=80, gen=gen)
+    for dtype, tol in ((torch.float32, TOL_INT4_F32),
+                       (torch.bfloat16, TOL_BF16)):
+        k9_case("group 40", 8, 1280, 1287, dtype, tol, group=40, gen=gen)
+        k9_case("K/2 8704", 8, 17408, 258, dtype, tol, gen=gen)
     # the tools' kernels at the tools' shapes, on their own generator (the
     # later phases keep the inputs they drew before these cases existed);
     # the main case is the tools' own: bf16 x at [8,1280]x[1280,5120]
@@ -1553,7 +1694,8 @@ def _transcripts(rng, tok, n, lo=30, hi=45):
 
 def _kernel_group(name):
     """The family of a CUDA kernel, from its name."""
-    groups = (("K9 int4_matmul", ("int4_kernel", "reduce_splits")),
+    groups = (("K9 int4_matmul (mma body; split-half body)",
+               ("int4mma", "split_half_kernel", "reduce_splits")),
               ("K3/K6 decode_attn", ("decode_attn",)),
               ("K7 flash_bwd_dq_sm90 (wgmma)", ("flash_bwd_dq_sm90",)),
               ("K8 flash_bwd_dkv_sm90 (wgmma)", ("flash_bwd_dkv_sm90",)),
@@ -1951,6 +2093,11 @@ def serve_phase(torch, rng, profile=False):
     _no_core_flash(counts, "serving")
     if counts["decode_attention_stacked"]["cuda"]:
         raise AssertionError("the float K3 arm ran on the int8-KV path")
+    k9 = (counts["int4_matmul_mma"]["cuda"], counts["int4_matmul"]["cuda"])
+    if k9 != (K9_PER_STEP * steps, 0):
+        raise AssertionError(f"K9 launches (tensor-core, split-half body) "
+                             f"{k9} over {steps} decode steps; want "
+                             f"{K9_PER_STEP} a step on the tensor-core body")
 
     # ---- the card against the port's CPU path, teacher-forced ----------------
     b, n_steps, max_len = 4, 8, 16
@@ -2613,6 +2760,8 @@ def main() -> int:
                                     "audax/ops/attention.py:547"),
                "int4_matmul": ("audax_torch/csrc/int4_matmul.cu",
                                "audax/ops/int4_matmul.py:236"),
+               "int4_matmul_mma": ("audax_torch/csrc/int4_matmul_mma.cu",
+                                   "audax/ops/int4_matmul.py:236"),
                "int4_word_matmul": ("audax_torch/csrc/int4_word_matmul.cu",
                                     "tools/int4_layout_ab.py:107"),
                "int4_plane_matmul": ("audax_torch/csrc/int4_word_matmul.cu",
