@@ -1,4 +1,7 @@
-// Small-query attention over a layer-stacked KV cache for Hopper (sm_90a).
+// Small-query attention over a layer-stacked KV cache for Hopper (sm_90a):
+// K3's and K6's first body. Every call now runs decode_attention_sm90.cu;
+// this body is reached only by body="cuda_core" (ops/attention.py), the
+// A/B that chip_smoke.py times it in.
 //
 // Replaces the TPU kernel audax/ops/attention.py:_dec_kernel_stacked (called
 // by decode_attention_stacked). For q [B, H, Tq, D] (Tq <= 16) and the cache
@@ -28,8 +31,8 @@
 // PV with 16 threads per value row reading float4s, so a warp reads two
 // whole rows with coalesced 16-byte loads; the partial sums of the key
 // slices are combined through shared memory. The grid has only B*H blocks
-// (24 at Whisper-tiny B=4), so most SMs idle; splitting S across blocks
-// (flash-decoding) is the known next step.
+// (24 at Whisper-tiny B=4), so most SMs idle: the sm90 body splits the
+// keys over a thread block cluster.
 //
 // The int8 arm (decode_attention_stacked_q8; the TPU kernel's quant=True)
 // reads k, v as int8 [L, B, Hkv, S, D] with float32 per-vector scales

@@ -7,8 +7,11 @@ a run can reset and read the launch counters of all of them at once.
 reset with theirs.
 """
 
-from audax_torch.ops.attention import (decode_attention_cuda,
+from audax_torch.ops.attention import (decode_attention_core_cuda,
+                                       decode_attention_cuda,
                                        decode_attention_plain,
+                                       decode_attention_sm90_cuda,
+                                       decode_attention_sm90_int8_cuda,
                                        decode_attention_stacked_cuda,
                                        decode_attention_stacked_int8_cuda,
                                        decode_attention_stacked_int8_plain,
@@ -45,7 +48,10 @@ __all__ = ["KERNELS", "reset_launches", "launch_counts"]
 #: tiers on the FFT body (``csrc/log_mel_fft.cu``) count apart from their
 #: own kernels and from K5's FFT body, each beside its tier's plain version;
 #: K9's tensor-core body (``int4_matmul_mma``) apart from its split-half
-#: body (``int4_matmul``)
+#: body (``int4_matmul``); K3's and K6's launches (the TPU kernels' counts)
+#: also by the body that ran them: ``decode_attention_sm90`` and
+#: ``_sm90_int8`` (every call), ``decode_attention_cuda_core`` (the first
+#: body, only for an A/B)
 KERNELS = {
     "log_mel_overlap": (log_mel_overlap_cuda, log_mel_overlap_plain),
     "log_mel_overlap_fft": (log_mel_overlap_fft_cuda, log_mel_overlap_plain),
@@ -72,6 +78,12 @@ KERNELS = {
     "decode_attention_stacked_int8": (decode_attention_stacked_int8_cuda,
                                       decode_attention_stacked_int8_plain),
     "decode_attention": (decode_attention_cuda, decode_attention_plain),
+    "decode_attention_sm90": (decode_attention_sm90_cuda,
+                              decode_attention_stacked_plain),
+    "decode_attention_sm90_int8": (decode_attention_sm90_int8_cuda,
+                                   decode_attention_stacked_int8_plain),
+    "decode_attention_cuda_core": (decode_attention_core_cuda,
+                                   decode_attention_stacked_plain),
     "int4_matmul": (int4_matmul_cuda, int4_matmul_plain),
     "int4_matmul_mma": (int4_matmul_mma_cuda, int4_matmul_plain),
 }

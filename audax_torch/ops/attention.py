@@ -38,10 +38,16 @@ Port of ``audax/ops/attention.py``:
     layer per token (self- and cross-attention). The cache is float (K3)
     or int8 with per-vector float32 scales (``QuantKV``, K3's int8 arm,
     counted on its own). Its plain version mirrors ``_decode_attention_xla``.
-    The kernel takes at most 16 query rows; a longer span (a speculative
+    On the card every call runs ``csrc/decode_attention_sm90.cu`` (the keys
+    split over a thread block cluster, one softmax max for the cluster),
+    counted by ``decode_attention_sm90_cuda`` (float) and
+    ``decode_attention_sm90_int8_cuda`` (int8) besides K3's own counters;
+    ``body="cuda_core"`` takes the first body, ``csrc/decode_attention.cu``
+    (``decode_attention_core_cuda``), for an A/B (``DECODE_BODIES``).
+    A launch takes at most 16 query rows; a longer span (a speculative
     prefill) is launched in chunks of 16, chunk r0 at ``pos + r0``.
   * ``decode_attention`` -- the same for one unstacked ``[B, Hkv, S, D]``
-    cache (TPU kernel ``_dec_kernel``, K6): K3's kernel launched with L = 1.
+    cache (TPU kernel ``_dec_kernel``, K6): K3's body launched with L = 1.
 
 Tiles. ``block_q`` is the query rows per block of K2 and K7 and the query
 tile K8 loops over; ``block_k`` the keys per tile of K2 and K7 and the keys
@@ -100,11 +106,17 @@ __all__ = ["TILES", "FOLDS", "WGMMA_TILE", "BWD_WGMMA_TILE", "FWD_BODIES",
            "decode_attention_stacked_plain",
            "decode_attention_stacked_int8_cuda",
            "decode_attention_stacked_int8_plain", "decode_attention",
-           "decode_attention_cuda", "decode_attention_plain"]
+           "decode_attention_cuda", "decode_attention_plain",
+           "DECODE_BODIES", "decode_attention_sm90_cuda",
+           "decode_attention_sm90_int8_cuda", "decode_attention_core_cuda"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_DECODE_ROWS = 16
+#: K3's and K6's bodies on the card: "sm90" (``csrc/decode_attention_sm90.cu``,
+#: the keys split over a thread block cluster) serves every call; "cuda_core"
+#: (``csrc/decode_attention.cu``, the first body) only an explicit A/B
+DECODE_BODIES = ("sm90", "cuda_core")
 #: dynamic shared memory one block may use on an H100 (227 KB)
 _SMEM_LIMIT = 232448
 
@@ -1055,9 +1067,9 @@ def _decode_rows(launch: Callable[[torch.Tensor, Pos], torch.Tensor],
     """``launch(q_rows, pos_rows)`` over chunks of at most 16 query rows of
     q [B, H, Tq, D], concatenated along Tq. Row i sees keys <= pos + i, so
     the chunk starting at row r0 runs at ``pos + r0`` (scalar or per slot;
-    None, every key, stays None). The decode kernel's scores of all its rows
-    share one block's shared memory, so each chunk is checked at its own
-    length (16 at most), never at Tq."""
+    None, every key, stays None). A decode kernel launch takes at most 16
+    query rows (its shared memory is planned for them), so each chunk is
+    checked at its own length, never at Tq."""
     tq = q.shape[2]
     if tq <= _MAX_DECODE_ROWS:
         return launch(q, pos)
@@ -1068,13 +1080,12 @@ def _decode_rows(launch: Callable[[torch.Tensor, Pos], torch.Tensor],
     return torch.cat(outs, dim=2)
 
 
-def _launch_decode(name: str, q, k, ks, v, vs, layer: int, pos: Pos,
-                   scale) -> torch.Tensor:
-    """Launch the K3 kernel (float or int8 arm) once on ``layer`` of the
-    stacked cache k, v [L, B, Hkv, S, D] (int8 with float32 [L, B, Hkv, S]
-    scales ``ks``/``vs``, or None), for 1..16 query rows."""
-    quant = ks is not None
-    if quant:
+def _decode_operands(name: str, q, k, ks, v, vs, layer: int):
+    """Check one launch's operands (either body): q [B, H, Tq, D] on the
+    card, 1..16 rows; k, v [L, B, Hkv, S, D] in q's dtype, or int8 with
+    float32 [L, B, Hkv, S] scales ``ks``/``vs``; all contiguous. Returns
+    (b, h, hkv, tq, s_len, d)."""
+    if ks is not None:
         _check_cuda(name, q)
         for t, dt in ((k, torch.int8), (v, torch.int8), (ks, torch.float32),
                       (vs, torch.float32)):
@@ -1089,7 +1100,8 @@ def _launch_decode(name: str, q, k, ks, v, vs, layer: int, pos: Pos,
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match the "
                          f"cache {tuple(k.shape)}")
     n_layers, _, hkv, s_len, _ = k.shape
-    if quant and (ks.shape != k.shape[:4] or vs.shape != k.shape[:4]):
+    if ks is not None and (ks.shape != k.shape[:4]
+                           or vs.shape != k.shape[:4]):
         raise ValueError(f"{name}: scales {tuple(ks.shape)} do not match the "
                          f"cache {tuple(k.shape)}")
     if h % hkv:
@@ -1099,6 +1111,95 @@ def _launch_decode(name: str, q, k, ks, v, vs, layer: int, pos: Pos,
     if not 1 <= tq <= _MAX_DECODE_ROWS or d not in _HEAD_DIMS:
         raise ValueError(f"{name}: Tq={tq} (1..16) and head_dim={d} "
                          f"{_HEAD_DIMS} not supported")
+    return b, h, hkv, tq, s_len, d
+
+
+def _launch_sm90(name: str, q, k, ks, v, vs, layer: int, pos: Pos,
+                 scale) -> torch.Tensor:
+    """One launch of ``csrc/decode_attention_sm90.cu`` (either arm) for
+    1..16 query rows. A host-known ``pos`` (None = every key, or a scalar)
+    goes to the kernel as an int; only a per-slot [B] vector is a device
+    operand. Raises where the source's plan has no block that fits 227 KB
+    (``decode_sm90_smem``), and where the card fits no cluster of it."""
+    b, h, hkv, tq, s_len, d = _decode_operands(name, q, k, ks, v, vs, layer)
+    if any(t.data_ptr() % 16 for t in (k, v)):
+        raise ValueError(f"{name}: the sm90 body copies 16-byte pieces of "
+                         "K/V; k and v must be 16-byte aligned")
+    quant = ks is not None
+    pos_v = None
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        if pos.shape[0] != b:
+            raise ValueError(f"pos has {pos.shape[0]} entries for batch {b}")
+        pos_v = pos.to(device=q.device, dtype=torch.int32).contiguous()
+        host = 0
+    else:   # every row sees no key at pos <= -Tq, every key at pos >= S
+        host = s_len if pos is None else max(-tq, min(int(pos), s_len))
+    lib = native.library("decode_attention_sm90")
+    smem = lib.decode_sm90_smem(b, h, hkv, tq, s_len, d, host,
+                                int(pos_v is not None), k.element_size(),
+                                int(quant))
+    if not 0 < smem <= _SMEM_LIMIT:
+        raise ValueError(f"{name}: no plan of the sm90 body fits S={s_len} "
+                         f"keys of Tq={tq} rows in one block's shared memory")
+    o = torch.empty_like(q)
+    status = lib.decode_sm90(
+        q.data_ptr(), k.data_ptr(), ks.data_ptr() if quant else None,
+        v.data_ptr(), vs.data_ptr() if quant else None, o.data_ptr(),
+        None if pos_v is None else pos_v.data_ptr(), host, int(layer), b, h,
+        hkv, tq, s_len, d, _scale(q, scale), _DTYPES[q.dtype], int(quant),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(status, name)
+    return o
+
+
+def decode_attention_sm90_cuda(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, layer: int, *,
+                               pos: Pos = None,
+                               scale: Optional[float] = None,
+                               name: str = "decode_attention_stacked"
+                               ) -> torch.Tensor:
+    """One counted launch of K3's and K6's body on Hopper
+    (``csrc/decode_attention_sm90.cu``: the keys split over a thread block
+    cluster), float K/V [L, B, Hkv, S, D] in q's dtype, 1..16 query rows;
+    the contract of ``decode_attention_stacked_plain``."""
+    o = _launch_sm90(name, q, k, None, v, None, layer, pos, scale)
+    decode_attention_sm90_cuda.launches += 1
+    return o
+
+
+decode_attention_sm90_cuda.launches = 0
+
+
+def decode_attention_sm90_int8_cuda(q: torch.Tensor, k: torch.Tensor,
+                                    ks: torch.Tensor, v: torch.Tensor,
+                                    vs: torch.Tensor, layer: int, *,
+                                    pos: Pos = None,
+                                    scale: Optional[float] = None,
+                                    name: str = "decode_attention_stacked_int8"
+                                    ) -> torch.Tensor:
+    """The same body's int8 arm, counted apart: int8 K/V [L, B, Hkv, S, D]
+    with float32 [L, B, Hkv, S] scales; the contract of
+    ``decode_attention_stacked_int8_plain``."""
+    o = _launch_sm90(name, q, k, ks, v, vs, layer, pos, scale)
+    decode_attention_sm90_int8_cuda.launches += 1
+    return o
+
+
+decode_attention_sm90_int8_cuda.launches = 0
+
+
+def decode_attention_core_cuda(q: torch.Tensor, k: torch.Tensor,
+                               ks: Optional[torch.Tensor], v: torch.Tensor,
+                               vs: Optional[torch.Tensor], layer: int, *,
+                               pos: Pos = None,
+                               scale: Optional[float] = None,
+                               name: str = "decode_attention_stacked"
+                               ) -> torch.Tensor:
+    """One counted launch of the first body (``csrc/decode_attention.cu``:
+    a block per (batch, q-head) on the CUDA cores), either arm (``ks``/
+    ``vs`` None for float K/V). No path launches it: the entry points reach
+    it only with ``body="cuda_core"``, for an A/B."""
+    b, h, hkv, tq, s_len, d = _decode_operands(name, q, k, ks, v, vs, layer)
     lib = native.library("decode_attention")
     if lib.decode_smem(d, tq, s_len) > _SMEM_LIMIT:
         raise ValueError(f"{name}: Tq*S={tq * s_len} scores exceed one "
@@ -1106,7 +1207,7 @@ def _launch_decode(name: str, q, k, ks, v, vs, layer: int, pos: Pos,
     pos_v = _pos_vector(pos, b, s_len, q.device)
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if quant:
+    if ks is not None:
         status = lib.decode_attention_stacked_q8(
             q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
             vs.data_ptr(), o.data_ptr(), pos_v.data_ptr(), int(layer), b, h,
@@ -1117,24 +1218,50 @@ def _launch_decode(name: str, q, k, ks, v, vs, layer: int, pos: Pos,
             pos_v.data_ptr(), int(layer), b, h, hkv, tq, s_len, d,
             _scale(q, scale), _DTYPES[q.dtype], stream)
     native.check(status, name)
+    decode_attention_core_cuda.launches += 1
     return o
+
+
+decode_attention_core_cuda.launches = 0
+
+
+def _decode_body(name: str, k, ks, v, vs, layer: int, scale, body):
+    """``launch(rows, pos)`` of one body for ``_decode_rows``: the sm90
+    body's float or int8 arm, or with ``body="cuda_core"`` the first
+    body."""
+    if body not in DECODE_BODIES:
+        raise ValueError(f"{name}: body {body!r} not in {DECODE_BODIES}")
+
+    def launch(rows, at):
+        if body == "cuda_core":
+            return decode_attention_core_cuda(rows, k, ks, v, vs, layer,
+                                              pos=at, scale=scale, name=name)
+        if ks is None:
+            return decode_attention_sm90_cuda(rows, k, v, layer, pos=at,
+                                              scale=scale, name=name)
+        return decode_attention_sm90_int8_cuda(rows, k, ks, v, vs, layer,
+                                               pos=at, scale=scale,
+                                               name=name)
+    return launch
 
 
 def decode_attention_stacked_cuda(q: torch.Tensor, kv, layer: int, *,
                                   pos: Pos = None,
-                                  scale: Optional[float] = None
-                                  ) -> torch.Tensor:
-    """Kernel K3 (``csrc/decode_attention.cu``), float K/V; same contract
-    as ``decode_attention_stacked_plain``. An int8 4-tuple takes
-    ``decode_attention_stacked_int8_cuda``."""
+                                  scale: Optional[float] = None,
+                                  body: str = "sm90") -> torch.Tensor:
+    """Kernel K3, float K/V: the sm90 body (``decode_attention_sm90_cuda``;
+    ``body="cuda_core"`` the first body, for an A/B), each launch counted
+    here too; same contract as ``decode_attention_stacked_plain``. An int8
+    4-tuple takes ``decode_attention_stacked_int8_cuda``."""
     if len(kv) == 4:
         return decode_attention_stacked_int8_cuda(q, kv, layer, pos=pos,
-                                                  scale=scale)
+                                                  scale=scale, body=body)
     k, v = kv
+    one = _decode_body("decode_attention_stacked", k, None, v, None, layer,
+                       scale, body)
 
     def launch(rows, at):
-        o = _launch_decode("decode_attention_stacked", rows, k, None, v,
-                           None, layer, at, scale)
+        o = one(rows, at)
         decode_attention_stacked_cuda.launches += 1
         return o
     return _decode_rows(launch, q, pos)
@@ -1145,16 +1272,18 @@ decode_attention_stacked_cuda.launches = 0
 
 def decode_attention_stacked_int8_cuda(q: torch.Tensor, kv, layer: int, *,
                                        pos: Pos = None,
-                                       scale: Optional[float] = None
-                                       ) -> torch.Tensor:
-    """K3's int8 arm (``decode_attention_stacked_q8`` of
-    ``csrc/decode_attention.cu``); same contract as
-    ``decode_attention_stacked_int8_plain``."""
+                                       scale: Optional[float] = None,
+                                       body: str = "sm90") -> torch.Tensor:
+    """K3's int8 arm: the sm90 body's int8 arm
+    (``decode_attention_sm90_int8_cuda``; ``body="cuda_core"`` the first
+    body's ``decode_attention_stacked_q8``), each launch counted here too;
+    same contract as ``decode_attention_stacked_int8_plain``."""
     k, ks, v, vs = kv
+    one = _decode_body("decode_attention_stacked_int8", k, ks, v, vs, layer,
+                       scale, body)
 
     def launch(rows, at):
-        o = _launch_decode("decode_attention_stacked_int8", rows, k, ks, v,
-                           vs, layer, at, scale)
+        o = one(rows, at)
         decode_attention_stacked_int8_cuda.launches += 1
         return o
     return _decode_rows(launch, q, pos)
@@ -1193,18 +1322,22 @@ decode_attention_plain.launches = 0
 
 
 def decode_attention_cuda(q: torch.Tensor, kv, *, pos: Pos = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """K6 (the TPU ``_dec_kernel``): K3's kernel on the cache viewed as one
-    layer, [1, B, Hkv, S, D] -- no copy; same contract as
+                          scale: Optional[float] = None,
+                          body: str = "sm90") -> torch.Tensor:
+    """K6 (the TPU ``_dec_kernel``): K3's body on the cache viewed as one
+    layer, [1, B, Hkv, S, D] -- no copy -- counted here and by the body's
+    own launcher (``body="cuda_core"``: the first body); same contract as
     ``decode_attention_plain``."""
     k, ks, v, vs = _split_kv(kv)
     if k.dim() != 4:
         raise ValueError(f"decode_attention: the cache must be [B, Hkv, S, "
                          f"D], got {tuple(k.shape)}")
-    one = [None if t is None else t.unsqueeze(0) for t in (k, ks, v, vs)]
+    one = _decode_body("decode_attention",
+                       *[None if t is None else t.unsqueeze(0)
+                         for t in (k, ks, v, vs)], 0, scale, body)
 
     def launch(rows, at):
-        o = _launch_decode("decode_attention", rows, *one, 0, at, scale)
+        o = one(rows, at)
         decode_attention_cuda.launches += 1
         return o
     return _decode_rows(launch, q, pos)

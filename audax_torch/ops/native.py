@@ -21,7 +21,9 @@ the FFT log-mel body ``log_mel_fft.cu`` of K1's, K4's and K5's tiers),
 ``flash_fwd_tf32x3.cu`` and ``flash_fwd_sm90.cu``, the first of which
 also serves the head-fold probe
 ``tools/attn_headfold_probe.py``, and K7/K8's three, ``flash_bwd.cu``,
-``flash_bwd_tf32x3.cu`` and ``flash_bwd_sm90.cu``), ``ops/int4_matmul.py``
+``flash_bwd_tf32x3.cu`` and ``flash_bwd_sm90.cu``, and K3/K6's two,
+``decode_attention_sm90.cu`` and ``decode_attention.cu``),
+``ops/int4_matmul.py``
 (K9's two bodies, ``int4_matmul_mma.cu`` and ``int4_matmul.cu``) and the int4
 experiment tools (``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
 ``tools/w4a8_probe.py``, ``tools/int4_unpack_probe.py``) call
@@ -62,6 +64,7 @@ KERNEL_SOURCES = {
     "flash_bwd_dq_tf32x3": "flash_bwd_tf32x3.cu",
     "flash_bwd_dkv_tf32x3": "flash_bwd_tf32x3.cu",
     "decode_attention": "decode_attention.cu",
+    "decode_attention_sm90": "decode_attention_sm90.cu",
     "int4_matmul": "int4_matmul.cu",
     "int4_matmul_mma": "int4_matmul_mma.cu",
     "int4_word_matmul": "int4_word_matmul.cu",
@@ -125,6 +128,10 @@ SIGNATURES = {
                                       _I, _I, _I, _F, _I, _P], _I),
         "decode_attention_stacked_q8": ([_P] * 7 + [_I] * 7 + [_F, _I, _P],
                                         _I),
+    },
+    "decode_attention_sm90": {
+        "decode_sm90_smem": ([_I] * 10, _LL),
+        "decode_sm90": ([_P] * 7 + [_I] * 8 + [_F, _I, _I, _P], _I),
     },
     "int4_matmul": {
         "int4_matmul_splits": ([_I, _I, _I], _I),

@@ -18,7 +18,7 @@ attention tools, in eleven phases, one output line each (the kernel and
 path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (eighteen), in parallel, with
+  2. build   -- nvcc of every kernel library (nineteen), in parallel, with
      the wall time of each and of all, the registers and any spills; then
      the count of HGMMA (wgmma) instructions in the SASS of the three bf16
      tensor-core libraries, K2's and K7's and K8's (``cuobjdump
@@ -29,7 +29,8 @@ path phases print one line per case):
      ``flash_bwd_dkv_tf32x3``), none of which may be 0, and their registers
      by instantiation, where a spill fails; the
      registers and spills of each n_fft the FFT log-mel body is built for
-     (Whisper's 400-point mixed radix among them), where a spill fails too;
+     (Whisper's 400-point mixed radix among them), where a spill fails too,
+     and of each instantiation of K3's and K6's sm90 body, likewise;
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' and the tools' shapes: max |err| against the stated
      tolerance, kernel ms, plain ms, the one-call library yardstick where
@@ -47,8 +48,15 @@ path phases print one line per case):
      split-half body (``csrc/int4_matmul.cu``) and, in bf16,
      ``_weight_int4pack_mm`` ("not available" where the build lacks it),
      then held at ragged N (odd, 258), M = 1, 16 and 256, groups 64 and 80
-     and stacked layer views. It also holds decode attention at 40 query rows (K3 in
-     chunks of 16), every caller-set tile of K2, K7 and K8 at
+     and stacked layer views. K3, its int8 arm and K6 run on their sm90
+     body (``csrc/decode_attention_sm90.cu``, the keys split over a thread
+     block cluster) at the transcription and serving shapes, each call made
+     twice (the same bits), slope-timed in CUDA graphs beside the first
+     body (``body="cuda_core"``, ``csrc/decode_attention.cu``) and SDPA,
+     then held at S 1 with pos 0, Tq 16 and 40 (chunks of 16), head dims
+     16, 32 and 128, GQA, bf16 q, per-slot positions at 0 and S - 1, and a
+     chunk copied in tiles. It also holds every caller-set tile of K2, K7
+     and K8 at
      [4, 8, 1500, 64] float32, and P1 -- K2 folding 2 or 4 heads per block,
      ``tools/attn_headfold_probe.py:fold_fwd`` -- at the tool's bf16
      [96, 1536, 64] and with a ragged key count (1500 of 1536 rows). K2's
@@ -102,8 +110,9 @@ path phases print one line per case):
      a tokenizer with the published 51,865-token layout, two requests (30 s
      and 47 s of synthetic audio) through ``Transcriber(device="cuda")``;
      the counters of its kernels (K1's tier on the FFT body, K2 on its
-     3xTF32 body, K3) must rise and no plain version's, old K1/K4 body's
-     or CUDA-core K2's may; then the card is
+     3xTF32 body, K3 on its sm90 body) must rise and no plain version's,
+     old K1/K4 body's, CUDA-core K2's or first K3 body's may; then the
+     card is
      held against the port's CPU path in float32 (the log-mel, FFT body
      against K1's plain version; encoder states, and teacher-forced
      logits of every decode step);
@@ -127,14 +136,15 @@ path phases print one line per case):
      client threads posting 16-bit WAVs of 5-30 s: every answer must be 200
      with a well-formed JSON body; K1 (its FFT body), K2 (its 3xTF32 body,
      no CUDA-core launch), K3's int8 arm and K9 must launch and no plain
-     version may; K9 33 times a decode step, all on its tensor-core body. Then requests/s, latency
+     version may; K3-int8 8 times a decode step and K9 33, all on their
+     sm90 and tensor-core bodies. Then requests/s, latency
      p50 and max, decode steps, tokens/s, launches per decode step and peak memory; the card
      against the port's CPU path (teacher-forced ``decode_step_ragged``
      with float and with int8 self-KV, two faults planted in the int8
      writes that the limit must reject, and the int8 reading over 16 seeds
      of one decode step: largest and median beside the limit, the written
      codes within +-1 and scales within 1e-3 relative), and
-     ``attention(kv_cached=)`` through K6;
+     ``attention(kv_cached=)`` through K6 (its sm90 body's int8 arm);
   7. classify -- 400 synthetic 4 s clips in the UrbanSound8K layout
      (``make_synthetic_urbansound``, seed 0), featurized on the card by
      ``featurize_clips`` (int16 upload, batches of 64) under four frontend
@@ -259,18 +269,29 @@ MAGNITUDE_1000_MEL = dict(n_fft=1000, hop_length=160, power=1.0)
 #: (``*_tf32x3``); their CUDA-core bodies (``FLASH``) must not launch on
 #: these paths
 TRANSCRIBE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
-                      "decode_attention_stacked")
+                      "decode_attention_stacked", "decode_attention_sm90")
 FINETUNE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
                     "flash_backward_dq_tf32x3", "flash_backward_dkv_tf32x3",
-                    "decode_attention_stacked")
+                    "decode_attention_stacked", "decode_attention_sm90")
 SERVE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
-                 "decode_attention_stacked_int8", "int4_matmul_mma")
+                 "decode_attention_stacked_int8", "decode_attention_sm90_int8",
+                 "int4_matmul_mma")
+#: K6's entry point, ``attention(kv_cached=QuantKV)``
+K6_KERNELS = ("decode_attention", "decode_attention_sm90_int8")
 #: K9's launches per serving decode step on its tensor-core body: 4 decoder
 #: layers x 8 projections and the tied logits; its split-half body, none
 K9_PER_STEP = 33
 #: K1's and K4's own kernels: no main path launches them, since every
 #: config a path runs takes the FFT body (``ops/fused_mel.py:BODIES``)
 OLD_MEL_BODIES = ("log_mel_overlap", "log_mel_packed")
+#: K3's and K6's first body (``csrc/decode_attention.cu``): only phase 3's
+#: A/B launches it (``body="cuda_core"``); every path runs the sm90 body
+OLD_DECODE_BODIES = ("decode_attention_cuda_core",)
+#: the counters of K3's and K6's entry points (one per TPU kernel and arm)
+#: and of the sm90 body's two arms, which every launch of theirs must match
+DECODE_ENTRY = ("decode_attention_stacked", "decode_attention_stacked_int8",
+                "decode_attention")
+DECODE_SM90 = ("decode_attention_sm90", "decode_attention_sm90_int8")
 #: the int4 tools and the kernels each must launch (K9's tensor-core body
 #: is every tool's "current" arm)
 PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul_mma")),
@@ -865,63 +886,149 @@ def kernel_phase(torch, rng):
                        f"{tile[1]}", 8, 12, 12, 1500, 1500, bf16, False,
                        TOL_BF16, False, tile=tile, gen=gen9)
 
-    # ---- K3: stacked decode attention -----------------------------------------
-    def decode_case(label, s_len, pos, main, h=6, hkv=6, tq=1, gen=None):
-        L, b, d = 4, 4, 64
-        q = torch.randn(b, h, tq, d, device=dev, generator=gen)
-        k = torch.randn(L, b, hkv, s_len, d, device=dev, generator=gen)
-        v = torch.randn(L, b, hkv, s_len, d, device=dev, generator=gen)
+    # ---- K3, its int8 arm and K6 on the sm90 body ------------------------------
+    from audax_torch.models.whisper import quantize_kv
+
+    def deq(codes, scales):
+        return codes.float() * scales[..., None]
+
+    def decode_case(label, s_len, pos, *, L=4, b=4, h=6, hkv=None, tq=1,
+                    d=64, dtype=torch.float32, quant=False, k6=False,
+                    main=None, timed=True, old=True, gen=None):
+        """K3 (``k6``: K6 on one unstacked layer) on the sm90 body against
+        its plain version, every call made twice for the same bits; the
+        first body (``body="cuda_core"``) against it too where it takes the
+        call (``old``). ``timed``: both bodies slope-timed in CUDA graphs
+        (the device time; K/V cycled over L layers past the 50 MB L2 as on
+        the main path) and by CUDA events (the host's launch time included), the
+        plain version and SDPA beside, the bound from the visible keys."""
+        hkv = h if hkv is None else hkv
+        shape = (b, hkv, s_len, d) if k6 else (L, b, hkv, s_len, d)
+        q = torch.randn(b, h, tq, d, device=dev, generator=gen).to(dtype)
+        k = torch.randn(*shape, device=dev, generator=gen)
+        v = torch.randn(*shape, device=dev, generator=gen)
+        kv = quantize_kv(k, v) if quant else (k.to(dtype), v.to(dtype))
         pos_t = (torch.tensor(pos, dtype=torch.int32, device=dev)
-                 if pos is not None else None)
-        e = 0.0
-        for layer in range(L):
-            got = att.decode_attention_stacked_cuda(q, (k, v), layer, pos=pos_t)
-            ref = att.decode_attention_stacked_plain(q, (k, v), layer,
-                                                     pos=pos_t)
+                 if isinstance(pos, list) else pos)
+
+        def call(i, body="sm90"):
+            if k6:
+                return att.decode_attention_cuda(q, kv, pos=pos_t, body=body)
+            return att.decode_attention_stacked_cuda(q, kv, i % L, pos=pos_t,
+                                                     body=body)
+
+        def plain(i):
+            if k6:
+                return att.decode_attention_plain(q, kv, pos=pos_t)
+            return att.decode_attention_stacked_plain(q, kv, i % L,
+                                                      pos=pos_t)
+
+        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+        e, old_e = 0.0, 0.0
+        for li in range(1 if k6 else L):
+            got, again, ref = call(li), call(li), plain(li)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label}: two calls gave other bits")
             e = max(e, err(got, ref))
-        # cycle the layers: 4 layers of K/V exceed the 50 MB L2 as they do
-        # on the main path
+            if old:
+                old_e = max(old_e, err(call(li, "cuda_core"), ref))
+        if not old_e <= tol:
+            raise AssertionError(f"{label}: the first body's max |err| "
+                                 f"{old_e:.3e} > {tol:.0e}")
+        kind = "decode_attention" if k6 else (
+            "decode_attention_stacked_int8" if quant
+            else "decode_attention_stacked")
+        if not timed:
+            print(f"[kernels] {kind}[{label}]: max_abs_err {e:.3e} (tol "
+                  f"{tol:.0e}), two calls the same bits"
+                  + (f"; first body {old_e:.3e}" if old else ""), flush=True)
+            if not e <= tol:
+                raise AssertionError(f"{label}: max |err| {e:.3e} > {tol:.0e}")
+            return
         it = iter(range(10 ** 9))
-        ms = _time_ms(torch, lambda: att.decode_attention_stacked_cuda(
-            q, (k, v), next(it) % L, pos=pos_t))
-        plain = _time_ms(torch, lambda: att.decode_attention_stacked_plain(
-            q, (k, v), next(it) % L, pos=pos_t))
-        if pos is None:
-            mask, pos = None, [s_len] * b
-        else:
+        ms = _graph_ms(torch, lambda: call(next(it)))
+        old_ms = _graph_ms(torch, lambda: call(next(it), "cuda_core"))
+        ev_ms = _time_ms(torch, lambda: call(next(it)))
+        ev_old = _time_ms(torch, lambda: call(next(it), "cuda_core"))
+        plain_ms = _time_ms(torch, lambda: plain(next(it)))
+        kf, vf = ((deq(kv.k_q, kv.k_scale), deq(kv.v_q, kv.v_scale))
+                  if quant else kv)
+        kf, vf = kf.to(dtype), vf.to(dtype)
+        ps = [s_len] * b if pos is None else (
+            [int(pos)] * b if isinstance(pos, int) else list(pos))
+        mask = None
+        if pos is not None:
             cols = torch.arange(s_len, device=dev)
             rows = torch.arange(tq, device=dev)
-            mask = (cols[None, None, :] <= pos_t[:, None, None].long()
+            pv = torch.tensor(ps, device=dev)
+            mask = (cols[None, None, :] <= pv[:, None, None]
                     + rows[None, :, None])[:, None]
 
         def sdpa():
-            layer = next(it) % L
+            i = next(it) % L
             return F.scaled_dot_product_attention(
-                q, k[layer], v[layer], attn_mask=mask, enable_gqa=h != hkv)
-        lib = _time_ms(torch, sdpa)
-        # keys each row may see, and the K/V rows a block must read
-        seen = sum(min(s_len, p + r + 1) for p in pos for r in range(tq))
-        rows_read = sum(min(s_len, p + tq) for p in pos)
-        flops = 4 * d * h * seen
-        nbytes = 4 * d * (2 * b * h * tq + 2 * hkv * rows_read)
-        bound = _bound(flops, nbytes, F32_FLOPS)
-        _report(f"decode_attention_stacked[{label}]", e, TOL_F32, ms, plain,
-                lib, bound)
+                q, kf if k6 else kf[i], vf if k6 else vf[i], attn_mask=mask,
+                enable_gqa=h != hkv)
+        lib = _graph_ms(torch, sdpa)
+        # keys each row may see, and the K/V rows (and scales) a kv head
+        # must read once
+        seen = sum(max(0, min(s_len, p + r + 1)) for p in ps
+                   for r in range(tq))
+        rows_read = sum(max(0, min(s_len, p + tq)) for p in ps)
+        elt = 1 if quant else kf.element_size()
+        nbytes = (2 * hkv * rows_read * (d * elt + 4 * quant)
+                  + 2 * b * h * tq * d * q.element_size())
+        bound = _bound(4 * d * h * seen, nbytes, F32_FLOPS)
+        _report(f"{kind}[{label}]", e, tol, ms, plain_ms, lib, bound)
+        print(f"[kernels]   first body (cuda_core) {old_ms:.4f} ms "
+              f"({old_ms / ms:.2f}x; max_abs_err {old_e:.3e}); CUDA-graph "
+              f"device times, SDPA too; events ms {ev_ms:.4f} / first body "
+              f"{ev_old:.4f}", flush=True)
         if main:
-            out["decode_attention_stacked"] = dict(
-                max_abs_err=e, ms=ms, plain_ms=plain, library_ms=lib,
-                bound=bound)
+            out[main] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib, bound=bound)
 
     pos = [int(p) for p in rng.integers(0, 448, size=4)]
-    decode_case(f"self [4,4,6,448,64] pos {pos}", 448, pos, False)
-    decode_case("cross [4,4,6,1500,64] pos=None", 1500, None, True)
+    decode_case(f"self [4,4,6,448,64] pos {pos}", 448, pos)
+    decode_case("cross [4,4,6,1500,64] pos=None", 1500, None,
+                main="decode_attention_stacked")
+    decode_case("cross [4,4,6,1500,64] per-slot pos [0,1499,700,3]", 1500,
+                [0, 1499, 700, 3])
     decode_case("GQA 8q/2kv Tq=3 S=64 pos [0,5,30,63]", 64, [0, 5, 30, 63],
-                False, h=8, hkv=2, tq=3)
+                h=8, hkv=2, tq=3)
+    decode_case("S=1 pos 0", 1, 0, timed=False)
+    decode_case("Tq=16 S=448 pos [0,447,100,7]", 448, [0, 447, 100, 7],
+                tq=16, timed=False)
+    for d in (16, 32, 128):
+        decode_case(f"head_dim {d} GQA 8q/2kv S=448 pos [0,447,200,31]", 448,
+                    [0, 447, 200, 31], h=8, hkv=2, tq=2, d=d, timed=False)
+    decode_case("bf16 cross [4,4,6,1500,64]", 1500, None,
+                dtype=torch.bfloat16)
+    decode_case("bf16 Tq=3 S=448 pos [0,447,9,100]", 448, [0, 447, 9, 100],
+                tq=3, dtype=torch.bfloat16, timed=False)
+    # a chunk past one block's shared memory, copied in tiles (the first
+    # body takes no such call: its scores of S keys overflow)
+    decode_case("tiles: head_dim 128 Tq=16 S=3000", 3000, None, L=1, b=1,
+                h=2, tq=16, d=128, timed=False, old=False)
     # more rows than one launch takes (a speculative prefill): chunks of 16
     # at pos + 0, 16, 32, each row masked at its own position
     gen = torch.Generator(device=dev).manual_seed(6)
     decode_case("self Tq=40 in chunks of 16, pos [0,17,200,400]", 448,
-                [0, 17, 200, 400], False, tq=40, gen=gen)
+                [0, 17, 200, 400], tq=40, gen=gen)
+    decode_case("int8 cross [4,8,20,1500,64] pos=None", 1500, None, b=8,
+                h=20, quant=True, main="decode_attention_stacked_int8")
+    # slots at the first and the last position among them
+    pos = [0, 67] + [int(p) for p in rng.integers(0, 68, size=8)][2:]
+    decode_case(f"int8 self [4,8,20,68,64] pos {pos}", 68, pos, b=8, h=20,
+                quant=True)
+    decode_case("int8 Tq=16 head_dim 32 S=300 pos [0,299]", 300, [0, 299],
+                b=2, h=4, hkv=2, tq=16, d=32, quant=True, timed=False)
+    decode_case("int8 bf16 q S=500 pos [0,499,3,250]", 500, [0, 499, 3, 250],
+                quant=True, dtype=torch.bfloat16, timed=False)
+    decode_case("K6 int8 [8,20,1500,64] pos=None", 1500, None, b=8, h=20,
+                quant=True, k6=True, main="decode_attention")
+    decode_case("K6 f32 [8,20,1500,64] pos=700", 1500, 700, b=8, h=20,
+                k6=True)
 
     # ---- K7 / K8: flash backward (dQ; dK and dV) ------------------------------
     # each kernel's counted launchers by body, its plain version beside them;
@@ -1141,88 +1248,6 @@ def kernel_phase(torch, rng):
         bwd_case(label, 4, 8, 8, 1500, 1500, torch.float32, False, TOL_F32,
                  False, tile=tile, gen=gen)
     out["flash_forward_fold"] = fold_cases(torch, gen)
-
-    # ---- K3 int8 arm and K6 (K3's kernel at L = 1) ----------------------------
-    from audax_torch.models.whisper import quantize_kv
-
-    def deq(codes, scales):
-        return codes.float() * scales[..., None]
-
-    def q8_case(label, L, b, h, s_len, pos, main):
-        d = 64
-        q = torch.randn(b, h, 1, d, device=dev)
-        kv = quantize_kv(torch.randn(L, b, h, s_len, d, device=dev),
-                         torch.randn(L, b, h, s_len, d, device=dev))
-        pos_t = (torch.tensor(pos, dtype=torch.int32, device=dev)
-                 if pos is not None else None)
-        e = max(err(att.decode_attention_stacked_int8_cuda(q, kv, li,
-                                                           pos=pos_t),
-                    att.decode_attention_stacked_int8_plain(q, kv, li,
-                                                            pos=pos_t))
-                for li in range(L))
-        it = iter(range(10 ** 9))         # cycle the layers past the L2
-        ms = _time_ms(torch, lambda: att.decode_attention_stacked_int8_cuda(
-            q, kv, next(it) % L, pos=pos_t))
-        plain = _time_ms(torch, lambda: att.decode_attention_stacked_int8_plain(
-            q, kv, next(it) % L, pos=pos_t))
-        kf, vf = deq(kv.k_q, kv.k_scale), deq(kv.v_q, kv.v_scale)
-        if pos is None:
-            mask, pos = None, [s_len] * b
-        else:
-            cols = torch.arange(s_len, device=dev)
-            mask = (cols[None, None, :] <= pos_t[:, None, None].long()
-                    )[:, None]
-
-        def sdpa():
-            li = next(it) % L
-            return F.scaled_dot_product_attention(q, kf[li], vf[li],
-                                                  attn_mask=mask)
-        lib = _time_ms(torch, sdpa)
-        rows = sum(min(s_len, p + 1) for p in pos)
-        # one layer's valid int8 K/V rows and their scales, q in, o out
-        nbytes = h * rows * 2 * (d + 4) + 4 * 2 * b * h * d
-        bound = _bound(4 * d * h * rows, nbytes, F32_FLOPS)
-        _report(f"decode_attention_stacked_int8[{label}]", e, TOL_F32, ms,
-                plain, lib, bound)
-        if main:
-            out["decode_attention_stacked_int8"] = dict(
-                max_abs_err=e, ms=ms, plain_ms=plain, library_ms=lib,
-                bound=bound)
-
-    q8_case("cross [4,8,20,1500,64] pos=None", 4, 8, 20, 1500, None, True)
-    pos = [int(p) for p in rng.integers(0, 68, size=8)]
-    q8_case(f"self [4,8,20,68,64] pos {pos}", 4, 8, 20, 68, pos, False)
-
-    def k6_case(label, quant, pos, main):
-        b, h, s_len, d = 8, 20, 1500, 64
-        q = torch.randn(b, h, 1, d, device=dev)
-        k = torch.randn(b, h, s_len, d, device=dev)
-        v = torch.randn(b, h, s_len, d, device=dev)
-        kv = quantize_kv(k, v) if quant else (k, v)
-        kf, vf = ((deq(kv.k_q, kv.k_scale), deq(kv.v_q, kv.v_scale))
-                  if quant else (k, v))
-        e = err(att.decode_attention_cuda(q, kv, pos=pos),
-                att.decode_attention_plain(q, kv, pos=pos))
-        ms = _time_ms(torch, lambda: att.decode_attention_cuda(q, kv, pos=pos))
-        plain = _time_ms(torch, lambda: att.decode_attention_plain(
-            q, kv, pos=pos))
-        mask = (None if pos is None else
-                torch.arange(s_len, device=dev)[None, None, None] <= pos)
-        lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, kf, vf, attn_mask=mask))
-        rows = b * h * (s_len if pos is None else min(s_len, pos + 1))
-        elt = 1 if quant else 4
-        nbytes = rows * 2 * (d * elt + (4 if quant else 0)) + 8 * b * h * d
-        bound = _bound(4 * d * rows, nbytes, F32_FLOPS)
-        _report(f"decode_attention[{label}]", e, TOL_F32, ms, plain, lib,
-                bound)
-        if main:
-            out["decode_attention"] = dict(max_abs_err=e, ms=ms,
-                                           plain_ms=plain, library_ms=lib,
-                                           bound=bound)
-
-    k6_case("int8 [8,20,1500,64] pos=None", True, None, True)
-    k6_case("f32 [8,20,1500,64] pos=700", False, 700, False)
 
     # ---- K9 and the int4 tools' kernels at the decode shapes (M = 8) --------
     from audax_torch.ops import int4_matmul as i4
@@ -1583,14 +1608,23 @@ def _no_core_flash(counts, path):
 
 
 def _check_launches(counts, kernels, path):
-    """Every kernel of ``kernels`` launched, no plain version ran, and no
-    old K1 or K4 body (``OLD_MEL_BODIES``) unless ``kernels`` names it."""
+    """Every kernel of ``kernels`` launched, no plain version ran, no old
+    K1 or K4 body (``OLD_MEL_BODIES``) unless ``kernels`` names it, no
+    launch of K3's and K6's first body (``OLD_DECODE_BODIES``), and every
+    K3/K6 launch on the sm90 body (its two arms' counts sum to the entry
+    points')."""
     for name, c in counts.items():
         if (c["plain"] != 0 or (name in kernels and c["cuda"] <= 0)
                 or (name in OLD_MEL_BODIES and name not in kernels
-                    and c["cuda"])):
+                    and c["cuda"])
+                or (name in OLD_DECODE_BODIES and c["cuda"])):
             raise AssertionError(f"{name}: kernel launches {c['cuda']}, plain "
                                  f"{c['plain']} on the {path} path")
+    entry = sum(counts[k]["cuda"] for k in DECODE_ENTRY)
+    body = sum(counts[k]["cuda"] for k in DECODE_SM90)
+    if entry != body:
+        raise AssertionError(f"the {path} path made {entry} K3/K6 launches, "
+                             f"{body} of them on the sm90 body")
 
 
 def main_path_phase(torch, rng):
@@ -1629,6 +1663,11 @@ def main_path_phase(torch, rng):
     print(f"[main] launches: {json.dumps(counts)}", flush=True)
     _check_launches(counts, TRANSCRIBE_KERNELS, "transcription")
     _no_core_flash(counts, "transcription")
+    print(f"[main] K3 launches per request "
+          f"{counts['decode_attention_stacked']['cuda'] / len(requests)}, on "
+          f"the sm90 body {counts['decode_attention_sm90']['cuda']}, the "
+          f"first body {counts['decode_attention_cuda_core']['cuda']}",
+          flush=True)
 
     # ---- the card against the port's CPU path, float32 ------------------------
     audio = requests[0][1][None, : tr.chunk_samples]
@@ -1696,7 +1735,8 @@ def _kernel_group(name):
     """The family of a CUDA kernel, from its name."""
     groups = (("K9 int4_matmul (mma body; split-half body)",
                ("int4mma", "split_half_kernel", "reduce_splits")),
-              ("K3/K6 decode_attn", ("decode_attn",)),
+              ("K3/K6 decode_cluster (sm90 body)", ("decode_cluster",)),
+              ("K3/K6 decode_attn (first body)", ("decode_attn",)),
               ("K7 flash_bwd_dq_sm90 (wgmma)", ("flash_bwd_dq_sm90",)),
               ("K8 flash_bwd_dkv_sm90 (wgmma)", ("flash_bwd_dkv_sm90",)),
               ("K7 flash_bwd_dq_tf32x3 (3xTF32)", ("flash_bwd_dq_tf32x3",)),
@@ -2093,6 +2133,14 @@ def serve_phase(torch, rng, profile=False):
     _no_core_flash(counts, "serving")
     if counts["decode_attention_stacked"]["cuda"]:
         raise AssertionError("the float K3 arm ran on the int8-KV path")
+    k3 = counts["decode_attention_stacked_int8"]["cuda"]
+    if k3 != 2 * cfg.decoder_layers * steps or k3 != counts[
+            "decode_attention_sm90_int8"]["cuda"]:
+        raise AssertionError(f"K3-int8 launches {k3} (sm90 body "
+                             f"{counts['decode_attention_sm90_int8']['cuda']})"
+                             f" over {steps} decode steps; want "
+                             f"{2 * cfg.decoder_layers} a step on the sm90 "
+                             "body")
     k9 = (counts["int4_matmul_mma"]["cuda"], counts["int4_matmul"]["cuda"])
     if k9 != (K9_PER_STEP * steps, 0):
         raise AssertionError(f"K9 launches (tensor-core, split-half body) "
@@ -2198,8 +2246,9 @@ def serve_phase(torch, rng, profile=False):
     print(f"[serve] attention(kv_cached=QuantKV) [{b},1,{cfg.d_model}] over "
           f"[{b},{cfg.heads},{cfg.n_audio_ctx},64] card vs CPU: max_abs_err "
           f"{e:.3e} (tol {TOL_LOGITS:.0e}); K6 launches "
-          f"{k6_counts['decode_attention']['cuda']}", flush=True)
-    _check_launches(k6_counts, ("decode_attention",), "attention(kv_cached=)")
+          f"{k6_counts['decode_attention']['cuda']} (sm90 body "
+          f"{k6_counts['decode_attention_sm90_int8']['cuda']})", flush=True)
+    _check_launches(k6_counts, K6_KERNELS, "attention(kv_cached=)")
     if not e <= TOL_LOGITS:
         raise AssertionError(f"attention(kv_cached=) differs by {e}")
     return counts, k6_counts
@@ -2693,6 +2742,21 @@ def main() -> int:
     else:
         print("[build] log_mel_fft was built before: its registers and "
               "spills are not reported", flush=True)
+    # K3's and K6's sm90 body: registers of each instantiation by head dim
+    # (float32, bf16, and the int8 arm with float32 and bf16 q; each with
+    # the PV pass of many rows and of one), where a spill fails
+    if "decode_attention_sm90" in reports:
+        kernels = _ptxas_kernels(reports["decode_attention_sm90"])
+        print("[build] decode_attention_sm90 ptxas (head dim: registers, "
+              "spill bytes): " + "; ".join(f"{a}: {r}, {sp}"
+                                            for a, r, sp in kernels),
+              flush=True)
+        if len(kernels) != 32 or any(sp for _, _, sp in kernels):
+            raise AssertionError(f"decode_attention_sm90 spills (or lacks "
+                                 f"an instantiation): {kernels}")
+    else:
+        print("[build] decode_attention_sm90 was built before: its "
+              "registers and spills are not reported", flush=True)
 
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
@@ -2751,13 +2815,14 @@ def main() -> int:
                    "audax_torch/csrc/flash_bwd_tf32x3.cu",
                    "audax/ops/attention.py:329"),
                "decode_attention_stacked": (
-                   "audax_torch/csrc/decode_attention.cu",
+                   "audax_torch/csrc/decode_attention_sm90.cu",
                    "audax/ops/attention.py:680"),
                "decode_attention_stacked_int8": (
-                   "audax_torch/csrc/decode_attention.cu",
+                   "audax_torch/csrc/decode_attention_sm90.cu",
                    "audax/ops/attention.py:680"),
-               "decode_attention": ("audax_torch/csrc/decode_attention.cu",
-                                    "audax/ops/attention.py:547"),
+               "decode_attention": (
+                   "audax_torch/csrc/decode_attention_sm90.cu",
+                   "audax/ops/attention.py:547"),
                "int4_matmul": ("audax_torch/csrc/int4_matmul.cu",
                                "audax/ops/int4_matmul.py:236"),
                "int4_matmul_mma": ("audax_torch/csrc/int4_matmul_mma.cu",
