@@ -2,9 +2,11 @@
 // accumulation, float32 or bfloat16 inputs.
 //
 // Replaces the TPU kernel audax/ops/attention.py:_fwd_kernel (the forward of
-// flash_attention, called from _fwd, K2) and the head-folded probe
-// tools/attn_headfold_probe.py:_fold_kernel (launched by fold_fwd, P1). For
-// q [B, Hq, Tq, D] and k, v [B, Hkv, tk_stride, D] it writes
+// flash_attention, called from _fwd, K2) at the tiles the tensor-core
+// bodies do not take; its head folds (tools/attn_headfold_probe.py:
+// _fold_kernel, P1) serve only an A/B against those bodies, which run
+// every fold. For q [B, Hq, Tq, D] and k, v [B, Hkv, tk_stride, D] it
+// writes
 //
 //   o[b, h, i]  = sum_j softmax_j(scale * q_i . k_j) v_j      (kv head h / G)
 //   lse[b*Hq+h, i] = m_i + log(l_i)
@@ -22,13 +24,14 @@
 // so it is bound by operations. Here those run on the CUDA cores (67
 // TFLOP/s), because one TF32 pass on the tensor cores would break parity
 // with the float32 reference. Three passes keep it: float32 at 64 query
-// rows a block, unfolded, moved to the tensor cores in 3xTF32
+// rows a block moved to the tensor cores in 3xTF32
 // (csrc/flash_fwd_tf32x3.cu, at every head dim), and bfloat16 at 64 or
-// 128 query rows to wgmma (csrc/flash_fwd_sm90.cu). This body keeps
-// float32 at 32 and 128 query rows, bfloat16 at 32 (widened to float32 in
-// shared memory) and the folds; ops/attention.py:FWD_BODIES routes each
-// call, and launch_flash_forward(..., body="cuda_core") forces this body
-// for an A/B.
+// 128 query rows to wgmma (csrc/flash_fwd_sm90.cu), the folds of both
+// dtypes with them. This body keeps float32 at 32 and 128 query rows and
+// bfloat16 at 32 (widened to float32 in shared memory);
+// ops/attention.py:FWD_BODIES routes each call, and
+// launch_flash_forward(..., body="cuda_core") forces this body, its folds
+// included, for an A/B.
 //
 // Design: one warp group (4 warps) per (batch*head, tile of BQ query rows);
 // a loop over BK-key tiles of K and V staged in shared memory (float32, rows

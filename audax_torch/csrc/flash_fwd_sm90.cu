@@ -2,9 +2,11 @@
 // bfloat16 body of K2, with wgmma products and float32 accumulators.
 //
 // Replaces the TPU kernel audax/ops/attention.py:_fwd_kernel (the forward of
-// flash_attention, called from _fwd) for bfloat16 inputs at block_q >= 64;
-// csrc/flash_fwd.cu keeps float32, bfloat16 at block_q 32 and the head
-// folds. For q [B, Hq, Tq, D] and k, v [B, Hkv, tk_stride, D] it writes
+// flash_attention, called from _fwd) for bfloat16 inputs at block_q >= 64,
+// and the head-folded probe tools/attn_headfold_probe.py:_fold_kernel
+// (launched by fold_fwd, P1) in bfloat16; csrc/flash_fwd_tf32x3.cu keeps
+// float32, csrc/flash_fwd.cu bfloat16 at block_q 32. For q [B, Hq, Tq, D]
+// and k, v [B, Hkv, tk_stride, D] it writes
 //
 //   o[b, h, i]  = sum_j softmax_j(scale * q_i . k_j) v_j      (kv head h / G)
 //   lse[b*Hq+h, i] = m_i + log(l_i)
@@ -54,6 +56,18 @@
 // a row's 16 contiguous bytes), lse in float32. The building blocks
 // (cp.async staging, the swizzle and its descriptors, the wgmma products)
 // live in csrc/sm90_wgmma.cuh, shared with K7/K8's bf16 body.
+//
+// Folding (P1): FOLD = f puts f consecutive heads of the fused B*H axis in
+// one block of f warp groups at the same 64 query rows; warp group g owns
+// head blockIdx.y * f + g, with its own Q tile and its own two-stage K/V
+// ring (the heads share no operand), and copies its own tiles. Once per key
+// tile a head's warp group meets its own named barrier (bar.sync 1 + g
+// over its 128 threads, sm90_wgmma.cuh:fold_sync), so no head waits on
+// another: 5 - 20 % faster on the H100 than one block barrier for all
+// heads (PERF.md, P1).
+// FOLD = 1 is the kernel without folding; folds are built
+// at head_dim 64 with the 64 x 64 tile (fold 4: 164,864 B of shared
+// memory, 512 threads, so at most 128 registers a thread).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,10 +83,11 @@ using namespace sm90;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// dynamic shared memory: Q, two stages of K and V, and 1024 bytes to align
-// the swizzle atoms (8 rows x 128 bytes) on 1024 bytes
-__host__ __device__ constexpr int smem_bytes(int d, int bq, int bk) {
-  return 2 * padded_dim(d) * (bq + 4 * bk) + 1024;
+// dynamic shared memory: for each folded head Q and two stages of K and V,
+// and 1024 bytes to align the swizzle atoms (8 rows x 128 bytes) on 1024
+// bytes (a head's share is a multiple of 1024)
+__host__ __device__ constexpr int smem_bytes(int d, int bq, int bk, int fold) {
+  return fold * 2 * padded_dim(d) * (bq + 4 * bk) + 1024;
 }
 
 // the two rows a thread holds in the S and O fragments (r0 and r0 + 8 of
@@ -166,13 +181,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
       pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(BQ / 64 * WG)
+template <int D, int BQ, int BK, int FOLD>
+__global__ void __launch_bounds__(FOLD * BQ / 64 * WG)
 flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       float* __restrict__ lse, int hq, int group, int tq,
                       int kv_len, int tk_stride, float scale, int causal) {
-  constexpr int NT = BQ / 64 * WG;
+  constexpr int HT = BQ / 64 * WG;      // threads of one head
+  constexpr int NT = FOLD * HT;
   constexpr int DP = padded_dim(D);
   constexpr int NCB = DP / CB;          // column blocks (1 or 2)
   constexpr int NS = BK / 2;            // S values per thread
@@ -181,14 +197,16 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KV_BYTES = BK * DP * 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t qs = (raw + 1023) & ~1023u;
-  const uint32_t ks = qs + Q_BYTES;         // stage st: ks + st * KV_BYTES
-  const uint32_t vs = ks + 2 * KV_BYTES;
+  const uint32_t base = (raw + 1023) & ~1023u;
 
   const int tid = threadIdx.x;
-  const int wg = tid / WG, t = tid % WG;
+  const int g = tid / HT, ht = tid % HT;    // folded head, thread in it
+  const int wg = ht / WG, t = ht % WG;
   const int lane = t % 32;
-  const int bh = blockIdx.y;                // b * hq + h
+  const uint32_t qs = base + g * (Q_BYTES + 4 * KV_BYTES);
+  const uint32_t ks = qs + Q_BYTES;         // stage st: ks + st * KV_BYTES
+  const uint32_t vs = ks + 2 * KV_BYTES;
+  const int bh = blockIdx.y * FOLD + g;     // b * hq + h
   const int bkv = (bh / hq) * (hq / group) + (bh % hq) / group;
   const int q0 = blockIdx.x * BQ;
   const bf16* qg = q + (long long)bh * tq * D;
@@ -200,15 +218,16 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row_lo = q0 + wg * 64;          // this warp group's first row
 
   if (D < CB) {     // the padding columns stay zero; the copies skip them
-    uint4* z = reinterpret_cast<uint4*>(smem_raw + (qs - raw));
-    for (int i = tid; i < (Q_BYTES + 4 * KV_BYTES) / 16; i += NT)
+    uint4* z = reinterpret_cast<uint4*>(smem_raw + (base - raw));
+    for (int i = tid; i < FOLD * (Q_BYTES + 4 * KV_BYTES) / 16; i += NT)
       z[i] = make_uint4(0, 0, 0, 0);
     __syncthreads();
   }
-  stage<D, BQ, NT>(qs, qg, q0, tq, tid);
+  // each head's threads copy its own tiles
+  stage<D, BQ, HT>(qs, qg, q0, tq, ht);
   if (n_tiles > 0) {
-    stage<D, BK, NT>(ks, kg, 0, kv_len, tid);
-    stage<D, BK, NT>(vs, vg, 0, kv_len, tid);
+    stage<D, BK, HT>(ks, kg, 0, kv_len, ht);
+    stage<D, BK, HT>(vs, vg, 0, kv_len, ht);
   }
   cp_async_commit();
 
@@ -230,12 +249,12 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = j & 1;
     cp_async_wait_all();
     fence_proxy_async();
-    __syncthreads();        // tile j landed; tile j - 1 fully consumed
+    fold_sync<FOLD, HT>(g);   // tile j landed; tile j - 1 fully consumed
     if (j + 1 < n_tiles) {
-      stage<D, BK, NT>(ks + (st ^ 1) * KV_BYTES, kg, (j + 1) * BK, kv_len,
-                       tid);
-      stage<D, BK, NT>(vs + (st ^ 1) * KV_BYTES, vg, (j + 1) * BK, kv_len,
-                       tid);
+      stage<D, BK, HT>(ks + (st ^ 1) * KV_BYTES, kg, (j + 1) * BK, kv_len,
+                       ht);
+      stage<D, BK, HT>(vs + (st ^ 1) * KV_BYTES, vg, (j + 1) * BK, kv_len,
+                       ht);
     }
     cp_async_commit();
     const int k0 = j * BK;
@@ -296,11 +315,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, int BQ, int BK>
+template <int D, int BQ, int BK, int FOLD>
 int launch(const Args& a) {
-  constexpr int smem = smem_bytes(D, BQ, BK);
+  constexpr int smem = smem_bytes(D, BQ, BK, FOLD);
   static_assert(smem <= 232448, "tile exceeds one block's shared memory");
-  auto kern = flash_fwd_sm90_kernel<D, BQ, BK>;
+  static_assert(FOLD == 1 || BQ == 64, "a fold takes 64 query rows a head");
+  auto kern = flash_fwd_sm90_kernel<D, BQ, BK, FOLD>;
   // once per instantiation, on its first (eager) launch: nothing but the
   // launch itself is issued when a later call is captured into a CUDA graph
   static bool ready = false;
@@ -310,8 +330,9 @@ int launch(const Args& a) {
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  dim3 grid((a.tq + BQ - 1) / BQ, a.batch * a.hq);
-  kern<<<grid, BQ / 64 * WG, smem, a.stream>>>(
+  if ((a.batch * a.hq) % FOLD) return (int)cudaErrorInvalidValue;
+  dim3 grid((a.tq + BQ - 1) / BQ, a.batch * a.hq / FOLD);
+  kern<<<grid, FOLD * BQ / 64 * WG, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.hq,
       a.hq / a.hkv, a.tq, a.kv_len, a.tk_stride, a.scale, a.causal);
@@ -324,28 +345,32 @@ extern "C" {
 
 // q [B, Hq, Tq, D], k/v [B, Hkv, tk_stride, D] (keys >= kv_len masked), o
 // like q, all bfloat16, contiguous and 16-byte aligned; lse [B*Hq, Tq]
-// float32. (head_dim, block_q, block_k) must be one of the set below, which
-// ops/attention.py's body table (FWD_BODIES) holds too. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a set not
-// built).
+// float32; `fold` heads of the fused B*Hq axis a block. (head_dim, block_q,
+// block_k, fold) must be one of the set below, which ops/attention.py's
+// body table (FWD_BODIES) holds too, and B*Hq must divide by the fold.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// set not built or a fold that does not divide B*Hq).
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                    float* lse, int batch, int hq, int hkv, int tq, int kv_len,
                    int tk_stride, int head_dim, float scale, int causal,
-                   int block_q, int block_k, void* stream) {
+                   int block_q, int block_k, int fold, void* stream) {
   const Args a{q, k, v, o, lse, batch, hq, hkv, tq, kv_len, tk_stride,
                scale, causal, (cudaStream_t)stream};
-#define AUDAX_FWD90(D_, BQ_, BK_)                                   \
-  if (head_dim == D_ && block_q == BQ_ && block_k == BK_)           \
-    return launch<D_, BQ_, BK_>(a);
-  AUDAX_FWD90(64, 64, 32)
-  AUDAX_FWD90(64, 64, 64)
-  AUDAX_FWD90(64, 64, 128)
-  AUDAX_FWD90(64, 128, 32)
-  AUDAX_FWD90(64, 128, 64)
-  AUDAX_FWD90(64, 128, 128)
-  AUDAX_FWD90(16, 64, 128)
-  AUDAX_FWD90(32, 64, 128)
-  AUDAX_FWD90(128, 64, 128)
+#define AUDAX_FWD90(D_, BQ_, BK_, F_)                               \
+  if (head_dim == D_ && block_q == BQ_ && block_k == BK_ &&         \
+      fold == F_)                                                   \
+    return launch<D_, BQ_, BK_, F_>(a);
+  AUDAX_FWD90(64, 64, 32, 1)
+  AUDAX_FWD90(64, 64, 64, 1)
+  AUDAX_FWD90(64, 64, 128, 1)
+  AUDAX_FWD90(64, 128, 32, 1)
+  AUDAX_FWD90(64, 128, 64, 1)
+  AUDAX_FWD90(64, 128, 128, 1)
+  AUDAX_FWD90(16, 64, 128, 1)
+  AUDAX_FWD90(32, 64, 128, 1)
+  AUDAX_FWD90(128, 64, 128, 1)
+  AUDAX_FWD90(64, 64, 64, 2)
+  AUDAX_FWD90(64, 64, 64, 4)
 #undef AUDAX_FWD90
   return (int)cudaErrorInvalidValue;
 }

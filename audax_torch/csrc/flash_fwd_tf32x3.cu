@@ -2,10 +2,11 @@
 // cores: K2's float32 body, its products in 3xTF32 on mma.sync.
 //
 // Replaces the TPU kernel audax/ops/attention.py:_fwd_kernel (the forward of
-// flash_attention, called from _fwd) for float32 inputs at block_q 64,
-// unfolded; csrc/flash_fwd.cu keeps float32 at block_q 32 and the head
-// folds, csrc/flash_fwd_sm90.cu bfloat16. For q [B, Hq, Tq, D] and k, v
-// [B, Hkv, tk_stride, D] it writes
+// flash_attention, called from _fwd) for float32 inputs at block_q 64, and
+// the head-folded probe tools/attn_headfold_probe.py:_fold_kernel
+// (launched by fold_fwd, P1) in float32; csrc/flash_fwd.cu keeps float32
+// at block_q 32 and 128, csrc/flash_fwd_sm90.cu bfloat16. For q [B, Hq,
+// Tq, D] and k, v [B, Hkv, tk_stride, D] it writes
 //
 //   o[b, h, i]  = sum_j softmax_j(scale * q_i . k_j) v_j      (kv head h / G)
 //   lse[b*Hq+h, i] = m_i + log(l_i)
@@ -52,6 +53,21 @@
 // The copy of tile j + 1 is in flight while tile j computes. The epilogue
 // reduces l over the quad, divides and stores o from the fragments (two
 // floats a lane a row), lse in natural log.
+//
+// Folding (P1): FOLD = f puts f consecutive heads of the fused B*H axis in
+// one block of 4f warps at the same 64 query rows; warps 4g .. 4g + 3 own
+// head blockIdx.y * f + g, with their own two-stage K/V ring (the heads
+// share no operand), and copy their own tiles. Twice per key tile a
+// head's warps meet their own named barrier (bar.sync 1 + g over 128
+// threads, sm90_wgmma.cuh:fold_sync), so no head waits on another; one
+// block barrier for all heads ran no faster on the H100 (PERF.md, P1).
+// Folds are built at head_dim 64
+// with the 64 x 64 tile. A head's ring takes 69,632 B, so fold 4 (278,528
+// B) does not fit one block: its ring holds 32-key halves of the key tile
+// (ring_keys), each half one step of the online softmax, 139,264 B in all.
+// Fold 4 has 512 threads, so at most 128 registers a thread: Q (64
+// registers split), O (32) and S would not fit, so it reads Q at use, as
+// head_dim 128 does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,14 +82,24 @@ constexpr int BQ = 64;                 // query rows a block: 16 a warp
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory of a block
 
-// two stages of a K and a V tile, rows padded to d + 4 floats
-__host__ __device__ constexpr int smem_bytes(int d, int bk) {
-  return 4 * 2 * 2 * bk * (d + 4);
+// the keys of one stage of a head's ring for the key tile bk: the whole
+// tile, or its half where fold rings of whole tiles exceed a block's
+// shared memory
+__host__ __device__ constexpr int ring_keys(int d, int bk, int fold) {
+  return fold * 16 * bk * (d + 4) <= SMEM_LIMIT ? bk : bk / 2;
 }
 
-template <int D, int BK>
-__global__ void __launch_bounds__(THREADS)
+// for each folded head two stages of a K and a V tile of ring_keys rows,
+// rows padded to d + 4 floats
+__host__ __device__ constexpr int smem_bytes(int d, int bk, int fold) {
+  return fold * 16 * ring_keys(d, bk, fold) * (d + 4);
+}
+
+// BK is the ring's keys a stage (ring_keys of the call's key tile)
+template <int D, int BK, int FOLD>
+__global__ void __launch_bounds__(FOLD * THREADS)
 flash_fwd_tf32x3_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
@@ -83,15 +109,18 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
   constexpr int KS = D / 8;            // k-steps of Q K^T, n-tiles of O
   constexpr int NT = BK / 8;           // n-tiles of S, k-steps of P V
   constexpr int CH = D / 4;            // 16-byte chunks of a row
-  constexpr bool HOLD = D <= 64;       // Q held split, else read at use
+  // Q held split, else read at use
+  constexpr bool HOLD = D <= 64 && FOLD < 4;
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                    // [2][BK][DP]
+  const int g = threadIdx.x / THREADS;  // folded head
+  const int ht = threadIdx.x % THREADS; // thread in the head's warps
+  float* ks = smem + g * 4 * BK * DP;  // [2][BK][DP]
   float* vs = ks + 2 * BK * DP;        // [2][BK][DP]
 
-  const int bh = blockIdx.y;           // b * hq + h
+  const int bh = blockIdx.y * FOLD + g;  // b * hq + h
   const int bkv = (bh / hq) * (hq / group) + (bh % hq) / group;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = ht / 32, lane = ht % 32;
   const int t = lane % 4;
   const int w0 = q0 + 16 * warp;       // the warp's first row
   const int r0 = w0 + lane / 4;        // this thread's rows: r0, r0 + 8
@@ -105,7 +134,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     const int k0 = tile * BK;
     float* kd = ks + stage * BK * DP;
     float* vd = vs + stage * BK * DP;
-    for (int c = threadIdx.x; c < BK * CH; c += THREADS) {
+    for (int c = ht; c < BK * CH; c += THREADS) {
       const int r = c / CH, col = (c % CH) * 4;
       const bool in = k0 + r < kv_len;
       const long long off = in ? (long long)(k0 + r) * D + col : 0;
@@ -151,7 +180,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     } else {
       tf32x3::cp_async_wait<0>();
     }
-    __syncthreads();                   // tile's K and V are in place
+    sm90::fold_sync<FOLD, THREADS>(g); // tile's K and V are in place
     const int k0 = tile * BK;
     const float* kt = ks + (tile & 1) * BK * DP;
     const float* vt = vs + (tile & 1) * BK * DP;
@@ -225,7 +254,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
                                                             8 * nd, lane));
       }
     }
-    __syncthreads();                   // the stage is free for tile + 2
+    sm90::fold_sync<FOLD, THREADS>(g); // the stage is free for tile + 2
   }
 
 #pragma unroll
@@ -257,11 +286,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, int BK>
+template <int D, int BK, int FOLD>
 int launch(const Args& a) {
-  constexpr int smem = smem_bytes(D, BK);
-  static_assert(smem <= 232448, "tile exceeds one block's shared memory");
-  auto kern = flash_fwd_tf32x3_kernel<D, BK>;
+  constexpr int smem = smem_bytes(D, BK, FOLD);
+  static_assert(smem <= SMEM_LIMIT, "tile exceeds one block's shared memory");
+  auto kern = flash_fwd_tf32x3_kernel<D, ring_keys(D, BK, FOLD), FOLD>;
   // once per instantiation, on its first (eager) launch: nothing but the
   // launch itself is issued when a later call is captured into a CUDA graph
   static bool ready = false;
@@ -271,10 +300,11 @@ int launch(const Args& a) {
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  dim3 grid((a.tq + BQ - 1) / BQ, a.batch * a.hq);
-  kern<<<grid, THREADS, smem, a.stream>>>(a.q, a.k, a.v, a.o, a.lse, a.hq,
-                                          a.hq / a.hkv, a.tq, a.kv_len,
-                                          a.tk_stride, a.scale, a.causal);
+  if ((a.batch * a.hq) % FOLD) return (int)cudaErrorInvalidValue;
+  dim3 grid((a.tq + BQ - 1) / BQ, a.batch * a.hq / FOLD);
+  kern<<<grid, FOLD * THREADS, smem, a.stream>>>(
+      a.q, a.k, a.v, a.o, a.lse, a.hq, a.hq / a.hkv, a.tq, a.kv_len,
+      a.tk_stride, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
@@ -284,25 +314,30 @@ extern "C" {
 
 // q [B, Hq, Tq, D], k/v [B, Hkv, tk_stride, D] (keys >= kv_len masked), o
 // like q, all float32, contiguous and 16-byte aligned; lse [B*Hq, Tq]
-// float32. (head_dim, block_q, block_k) must be one of the set below, which
-// ops/attention.py's body table (FWD_BODIES) holds too. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a set not
-// built).
+// float32; `fold` heads of the fused B*Hq axis a block. (head_dim, block_q,
+// block_k, fold) must be one of the set below, which ops/attention.py's
+// body table (FWD_BODIES) holds too, and B*Hq must divide by the fold.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// set not built or a fold that does not divide B*Hq).
 int flash_fwd_tf32x3(const float* q, const float* k, const float* v,
                      float* o, float* lse, int batch, int hq, int hkv, int tq,
                      int kv_len, int tk_stride, int head_dim, float scale,
-                     int causal, int block_q, int block_k, void* stream) {
+                     int causal, int block_q, int block_k, int fold,
+                     void* stream) {
   const Args a{q, k, v, o, lse, batch, hq, hkv, tq, kv_len, tk_stride,
                scale, causal, (cudaStream_t)stream};
-#define AUDAX_TF32X3(D_, BQ_, BK_)                                  \
-  if (head_dim == D_ && block_q == BQ_ && block_k == BK_)           \
-    return launch<D_, BK_>(a);
-  AUDAX_TF32X3(16, 64, 64)
-  AUDAX_TF32X3(32, 64, 64)
-  AUDAX_TF32X3(64, 64, 64)
-  AUDAX_TF32X3(128, 64, 64)
-  AUDAX_TF32X3(64, 64, 32)
-  AUDAX_TF32X3(64, 64, 128)
+#define AUDAX_TF32X3(D_, BQ_, BK_, F_)                              \
+  if (head_dim == D_ && block_q == BQ_ && block_k == BK_ &&         \
+      fold == F_)                                                   \
+    return launch<D_, BK_, F_>(a);
+  AUDAX_TF32X3(16, 64, 64, 1)
+  AUDAX_TF32X3(32, 64, 64, 1)
+  AUDAX_TF32X3(64, 64, 64, 1)
+  AUDAX_TF32X3(128, 64, 64, 1)
+  AUDAX_TF32X3(64, 64, 32, 1)
+  AUDAX_TF32X3(64, 64, 128, 1)
+  AUDAX_TF32X3(64, 64, 64, 2)
+  AUDAX_TF32X3(64, 64, 64, 4)
 #undef AUDAX_TF32X3
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,9 @@
 //
 //   * cp.async copies of 16 (or 4) bytes, global -> shared, with the
 //     zero-fill form (src-size 0 writes zeros and reads nothing), and the
-//     proxy fence that makes them visible to wgmma;
+//     proxy fence that makes them visible to wgmma; a named barrier over
+//     some of a block's threads, and fold_sync, the barrier of K2's folded
+//     heads (each head's own warps);
 //   * wgmma's fence / commit / wait, and fence_regs, which pins an
 //     accumulator's registers between the asynchronous product and the code
 //     that reads or writes them;
@@ -71,6 +73,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // stores) visible to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1 .. 15; 0 is __syncthreads') over the N threads that meet
+// it: one folded head's warps in a block that holds several heads
+template <int N>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
+// The barrier a folded head's HT threads (head g of a K2 block that holds
+// FOLD heads) meet once per key tile: their own named barrier, so no head
+// waits on another. Unfolded, the block's.
+template <int FOLD, int HT>
+__device__ __forceinline__ void fold_sync(int g) {
+  if constexpr (FOLD == 1) {
+    __syncthreads();
+  } else {
+    named_sync<HT>(1 + g);
+  }
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -9,7 +9,8 @@ Port of ``audax/ops/attention.py``:
     optional causal mask (Tq == Tk). Its plain version mirrors the JAX
     package's ``xla_attention``. ``fold`` heads of the fused B*H axis may
     share one block (the TPU probe ``tools/attn_headfold_probe.py``'s P1,
-    a template parameter of K2's kernel); ``launch_flash_forward`` is the
+    a template parameter of K2's tensor-core bodies in either dtype);
+    ``launch_flash_forward`` is the
     kernel launch itself, with a key count ``kv_len`` apart from the K/V
     row stride, for callers that keep their own counter.
     ``flash_forward_tf32x3_cuda`` launches K2's float32 body on the tensor
@@ -61,13 +62,13 @@ maps every call the kernels are built for to one of them: ``FWD_BODIES``
 ((dtype, head_dim, tile, fold) of K2) and ``BWD_BODIES`` ((kernel, dtype,
 head_dim, tile) of K7 "dq" and K8 "dkv"). K2 in float32 runs on the tensor
 cores in 3xTF32 (``csrc/flash_fwd_tf32x3.cu``, mma.sync) at 64 query rows,
-unfolded, and on the CUDA cores (``csrc/flash_fwd.cu``) at 32 or 128 rows
-and in the folds; K7 in float32 runs in 3xTF32 (``csrc/flash_bwd_tf32x3.cu``)
+its folds included, and on the CUDA cores (``csrc/flash_fwd.cu``) at 32 or
+128 rows; K7 in float32 runs in 3xTF32 (``csrc/flash_bwd_tf32x3.cu``)
 at 64 query rows, K8 at 64 keys, and both on the CUDA cores
 (``csrc/flash_bwd.cu``) at their other tiles; bf16 runs on the tensor cores
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``, wgmma) wherever
-wgmma takes the tile -- K2 and K7 at 64 or 128 query rows, K8 at 64 or
-128 keys -- and its other tiles and K2's folds on the CUDA cores. A
+wgmma takes the tile -- K2 and K7 at 64 or 128 query rows, its folds
+included, K8 at 64 or 128 keys -- and its other tiles on the CUDA cores. A
 wrapper checks (block_q, block_k, head_dim, fold) and the (dtype, ...)
 against those tables before it dispatches, so a CPU call raises the same
 ``ValueError`` as the card would; nothing is silently replaced. Each body
@@ -171,15 +172,17 @@ def _fwd_bodies() -> dict:
     dtype at every (head_dim, tile, fold) float32 takes), "tf32x3" (float32
     on the tensor cores in 3xTF32, ``csrc/flash_fwd_tf32x3.cu``) or "wgmma"
     (bf16 on the tensor cores, ``csrc/flash_fwd_sm90.cu``). float32 runs on
-    the tensor cores wherever a block holds 64 query rows, unfolded (4
+    the tensor cores wherever a block holds 64 query rows of a head (4
     warps, one m16n8k8 row tile of 16 rows each): the default 64 x 64 tile
-    at every head dim (16, 32, 64 and 128) and the caller-set tiles
-    (64, 32) and (64, 128) at head_dim 64; its caller-set 32- and 128-row
-    tiles and the folds (the head-fold probe's A/B within one body) stay
-    on the CUDA cores. bf16 runs on the tensor cores at ``WGMMA_TILE`` for
-    every head dim and at every caller-set tile of 64 or 128 query rows
-    (wgmma takes 64-row tiles); its 32-row tiles and its folds stay on the
-    CUDA cores."""
+    at every head dim (16, 32, 64 and 128), the caller-set tiles (64, 32)
+    and (64, 128) at head_dim 64, and the folds; its caller-set 32- and
+    128-row tiles stay on the CUDA cores. bf16 runs on the tensor cores at
+    ``WGMMA_TILE`` for every head dim, at every caller-set tile of 64 or
+    128 query rows (wgmma takes 64-row tiles) and in the folds; its 32-row
+    tiles stay on the CUDA cores. Each fold (``FOLDS``, at head_dim 64 and
+    the 64 x 64 tile) is a block of ``fold`` heads, one warp group each,
+    on the tensor-core body of its dtype; the CUDA-core body keeps its
+    folds only for an A/B (``launch_flash_forward(..., body="cuda_core")``)."""
     f32, bf16 = torch.float32, torch.bfloat16
     table = {}
     for d in _HEAD_DIMS:
@@ -188,9 +191,9 @@ def _fwd_bodies() -> dict:
     for tile in TILES:
         table[(f32, 64, tile, 1)] = "tf32x3" if tile[0] == 64 else "cuda_core"
         table[(bf16, 64, tile, 1)] = "wgmma" if tile[0] >= 64 else "cuda_core"
-    for dt in (f32, bf16):
-        for fold in FOLDS:
-            table[(dt, _FOLD_HEAD_DIM, _FOLD_TILE, fold)] = "cuda_core"
+    for fold in FOLDS:
+        table[(f32, _FOLD_HEAD_DIM, _FOLD_TILE, fold)] = "tf32x3"
+        table[(bf16, _FOLD_HEAD_DIM, _FOLD_TILE, fold)] = "wgmma"
     return table
 
 
@@ -251,6 +254,29 @@ def _fwd_smem(d: int, block_q: int, block_k: int, fold: int) -> int:
                        + 16 * block_k)
 
 
+def _fwd_smem_wgmma(d: int, block_q: int, block_k: int, fold: int) -> int:
+    """Shared memory of K2's bf16 tensor-core body (``csrc/flash_fwd_sm90.cu``
+    ``smem_bytes``): per folded head Q and two stages of K and V in bf16,
+    the head dim padded to 64, and 1024 bytes of alignment."""
+    return fold * 2 * max(d, 64) * (block_q + 4 * block_k) + 1024
+
+
+def _fwd_smem_tf32x3(d: int, block_q: int, block_k: int, fold: int) -> int:
+    """Shared memory of K2's float32 tensor-core body
+    (``csrc/flash_fwd_tf32x3.cu`` ``smem_bytes``): per folded head two
+    stages of K and V, rows padded to d + 4 floats, of the whole key tile,
+    or of its half where whole tiles do not fit (``ring_keys``; Q is read
+    from device memory)."""
+    ring = block_k if fold * 16 * block_k * (d + 4) <= _SMEM_LIMIT \
+        else block_k // 2
+    return fold * 16 * ring * (d + 4)
+
+
+#: each K2 body's shared memory at (head_dim, block_q, block_k, fold)
+_FWD_SMEM = {"cuda_core": _fwd_smem, "wgmma": _fwd_smem_wgmma,
+             "tf32x3": _fwd_smem_tf32x3}
+
+
 def bwd_body(kernel: str, dtype: torch.dtype, d: int,
              block_q: Optional[int] = None,
              block_k: Optional[int] = None) -> str:
@@ -284,7 +310,9 @@ def resolve_tile(kernel: str, d: int, block_q: Optional[int] = None,
     at -- ``TILES`` at head_dim 64, ``fold`` in ``FOLDS`` (K2 only) at
     head_dim 64 with the 64 x 64 tile, and any (dtype, head_dim, tile,
     fold) off ``FWD_BODIES`` (K2) or ``BWD_BODIES`` (K7, K8) at a head dim
-    they take -- naming the shared memory limit when a fold does not fit.
+    they take -- naming the body and the shared memory limit when a fold
+    does not fit by that body's formula (the body that serves the dtype's
+    folds; the CUDA-core body's for a dtype no kernel takes).
     The defaults of K7/K8 depend on ``dtype`` too (``BWD_WGMMA_TILE`` for
     bf16). (Which head dims the kernels take at the default tile, the CUDA
     wrappers check; the plain versions take any.)"""
@@ -295,12 +323,14 @@ def resolve_tile(kernel: str, d: int, block_q: Optional[int] = None,
         if kernel != "fwd" or fold not in FOLDS:
             raise ValueError(f"fold {fold}: only the forward (K2) folds, by "
                              f"one of {FOLDS}")
-        smem = _fwd_smem(d, *tile, fold)
+        body = FWD_BODIES.get((dtype, _FOLD_HEAD_DIM, _FOLD_TILE, fold),
+                              "cuda_core")
+        smem = _FWD_SMEM[body](d, *tile, fold)
         if smem > _SMEM_LIMIT:
             raise ValueError(f"fold {fold} at block_q {tile[0]}, block_k "
                              f"{tile[1]}, head_dim {d} needs {smem} B of "
-                             f"shared memory; one block may use "
-                             f"{_SMEM_LIMIT} B")
+                             f"shared memory on the {body} body; one block "
+                             f"may use {_SMEM_LIMIT} B")
         if (d, tile) != (_FOLD_HEAD_DIM, _FOLD_TILE):
             raise ValueError(f"fold {fold} is built at head_dim "
                              f"{_FOLD_HEAD_DIM} with the tile {_FOLD_TILE}, "
@@ -381,10 +411,10 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``csrc/flash_fwd_sm90.cu`` for bf16), otherwise counted by no one:
     q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D] with keys at or past ``kv_len``
     (default Tk) masked and never read; ``fold`` heads of the fused B*Hq
-    axis per block. ``body="cuda_core"`` takes the CUDA-core body at any
-    (head_dim, tile, fold) float32 takes, whatever the dtype (the
-    head-fold probe's A/B within that body). Returns
-    ``(o, lse [B*Hq, Tq])``."""
+    axis per block (on the tensor-core body of the dtype). ``body=
+    "cuda_core"`` takes the CUDA-core body at any (head_dim, tile, fold)
+    float32 takes, whatever the dtype, its folds included (an A/B against
+    the tensor-core bodies). Returns ``(o, lse [B*Hq, Tq])``."""
     _check_cuda(name, q, k, v)
     b, hq, tq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -413,7 +443,7 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         FWD_BODIES[(q.dtype, d, (bq, bk), fold)] if body is None else body)
     if tensor_core is not None:
         return tensor_core(q, k, v, causal=causal, scale=scale, block_q=bq,
-                           block_k=bk, kv_len=kv_len, name=name)
+                           block_k=bk, fold=fold, kv_len=kv_len, name=name)
     o = torch.empty_like(q)
     lse = torch.empty(b * hq, tq, device=q.device, dtype=torch.float32)
     if tq == 0:
@@ -429,13 +459,14 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _tensor_core_forward(lib: str, dtype: torch.dtype,
                          default_tile: Tuple[int, int], q, k, v, causal,
-                         scale, block_q, block_k, kv_len, name):
+                         scale, block_q, block_k, fold, kv_len, name):
     """One launch of the tensor-core body of K2 in library ``lib`` (entry
-    point of the same name) on ``dtype`` operands: ``(o, lse, launched)``.
-    Checks what the C entry point does not (device, dtype, shapes,
-    ``kv_len``, 16-byte alignment for its copies); the library refuses a
-    (head_dim, tile) it is not built at with ``cudaErrorInvalidValue``,
-    which raises."""
+    point of the same name) on ``dtype`` operands, ``fold`` heads of the
+    fused B*Hq axis a block: ``(o, lse, launched)``. Checks what the C
+    entry point does not (device, dtype, shapes, ``kv_len``, 16-byte
+    alignment for its copies); the library refuses a (head_dim, tile,
+    fold) it is not built at, or a fold that does not divide B*Hq, with
+    ``cudaErrorInvalidValue``, which raises."""
     _check_cuda(name, q, k, v)
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -461,7 +492,7 @@ def _tensor_core_forward(lib: str, dtype: torch.dtype,
     status = getattr(native.library(lib), lib)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, hq, hkv, tq, kv_len, tk, d, _scale(q, scale),
-        int(causal), tile[0], tile[1],
+        int(causal), tile[0], tile[1], int(fold),
         torch.cuda.current_stream(q.device).cuda_stream)
     native.check(status, name)
     return o, lse, True
@@ -471,19 +502,20 @@ def flash_forward_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = False,
                              scale: Optional[float] = None,
                              block_q: Optional[int] = None,
-                             block_k: Optional[int] = None,
+                             block_k: Optional[int] = None, fold: int = 1,
                              kv_len: Optional[int] = None,
                              name: str = "flash_forward"
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's bf16 tensor-core body (``csrc/flash_fwd_sm90.cu``): one
     counted launch, same contract as ``flash_forward_plain`` with keys at or
     past ``kv_len`` masked. Takes bf16, 16-byte-aligned operands at a
-    (head_dim, tile) that ``FWD_BODIES`` gives this body (default
-    ``WGMMA_TILE``), as ``launch_flash_forward`` routes them; the library
-    refuses any other with ``cudaErrorInvalidValue``, which raises."""
+    (head_dim, tile, fold) that ``FWD_BODIES`` gives this body (default
+    ``WGMMA_TILE``, unfolded), as ``launch_flash_forward`` routes them; the
+    library refuses any other with ``cudaErrorInvalidValue``, which
+    raises."""
     o, lse, launched = _tensor_core_forward(
         "flash_fwd_sm90", torch.bfloat16, WGMMA_TILE, q, k, v, causal,
-        scale, block_q, block_k, kv_len, name)
+        scale, block_q, block_k, fold, kv_len, name)
     flash_forward_wgmma_cuda.launches += launched
     return o, lse
 
@@ -495,20 +527,20 @@ def flash_forward_tf32x3_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = False,
                               scale: Optional[float] = None,
                               block_q: Optional[int] = None,
-                              block_k: Optional[int] = None,
+                              block_k: Optional[int] = None, fold: int = 1,
                               kv_len: Optional[int] = None,
                               name: str = "flash_forward"
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's float32 body on the tensor cores (``csrc/flash_fwd_tf32x3.cu``,
     3xTF32 on mma.sync): one counted launch, same contract as
     ``flash_forward_plain`` with keys at or past ``kv_len`` masked. Takes
-    float32, 16-byte-aligned operands at a (head_dim, tile) that
-    ``FWD_BODIES`` gives this body (default 64 x 64), as
+    float32, 16-byte-aligned operands at a (head_dim, tile, fold) that
+    ``FWD_BODIES`` gives this body (default 64 x 64, unfolded), as
     ``launch_flash_forward`` routes them; the library refuses any other
     with ``cudaErrorInvalidValue``, which raises."""
     o, lse, launched = _tensor_core_forward(
         "flash_fwd_tf32x3", torch.float32, (64, 64), q, k, v, causal, scale,
-        block_q, block_k, kv_len, name)
+        block_q, block_k, fold, kv_len, name)
     flash_forward_tf32x3_cuda.launches += launched
     return o, lse
 

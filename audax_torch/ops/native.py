@@ -18,8 +18,8 @@ them, so the kernels compile in parallel.
 The wrappers in ``ops/fused_mel.py``, ``ops/direct_mel.py`` (K4, K5 and
 the FFT log-mel body ``log_mel_fft.cu`` of K1's, K4's and K5's tiers),
 ``ops/attention.py`` (K2's three bodies, ``flash_fwd.cu``,
-``flash_fwd_tf32x3.cu`` and ``flash_fwd_sm90.cu``, the first of which
-also serves the head-fold probe
+``flash_fwd_tf32x3.cu`` and ``flash_fwd_sm90.cu``, the last two of which
+also serve the head-fold probe
 ``tools/attn_headfold_probe.py``, and K7/K8's three, ``flash_bwd.cu``,
 ``flash_bwd_tf32x3.cu`` and ``flash_bwd_sm90.cu``, and K3/K6's two,
 ``decode_attention_sm90.cu`` and ``decode_attention.cu``),
@@ -94,10 +94,10 @@ SIGNATURES = {
         "flash_fwd": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P], _I),
     },
     "flash_fwd_sm90": {
-        "flash_fwd_sm90": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P], _I),
+        "flash_fwd_sm90": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I),
     },
     "flash_fwd_tf32x3": {
-        "flash_fwd_tf32x3": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+        "flash_fwd_tf32x3": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
                              _I),
     },
     "flash_bwd_dq": {

@@ -8,7 +8,8 @@ Each int4 tool A/Bs one int4 design against kernel K9
 (``ops/int4_matmul.py``) on the card, with a hand-written kernel of its own
 (``csrc/``) and a plain PyTorch version. The attention tools measure the
 flash kernels K2/K7/K8 and the fine-tune step: the head-fold probe P1 (a
-fold of K2's kernel, ``csrc/flash_fwd.cu``), the tile sweep, the step's
+fold of K2's tensor-core bodies, ``csrc/flash_fwd_sm90.cu`` and
+``csrc/flash_fwd_tf32x3.cu``), the tile sweep, the step's
 stages, and the MFU grid. Their entry points:
 
     python -m audax_torch.tools.int4_layout_ab check|bench [--device cpu] [--out PATH]

@@ -4,27 +4,31 @@
 The TPU probe gave each grid step of the flash forward ``fold``
 independent heads of the fused B*H axis, so that one head's softmax could
 overlap another's matrix products. On the card the same fold is a template
-parameter of K2's kernel (``csrc/flash_fwd.cu``): one block of 4*fold warps
-takes the same query tile of ``fold`` consecutive heads, each warp group
-its own head, and the heads' K/V tiles are staged under one barrier per key
-tile. ``fold_fwd`` is P1: that kernel on q3 [BH, Tq, D] and k3/v3 [BH,
-Tk_p, D] with keys at or past ``kv_len`` masked (no GQA, no causal mask),
-returning O in q's dtype and lse [BH, Tq, 1] float32. It always runs K2's
-CUDA-core body, in either dtype and at fold 1 too. Its plain version is
-K2's plain math on the first ``kv_len`` keys of every head.
+parameter of K2's tensor-core bodies (``csrc/flash_fwd_sm90.cu``, wgmma,
+in bf16; ``csrc/flash_fwd_tf32x3.cu``, 3xTF32 on mma.sync, in float32):
+one block takes the same 64 query rows of ``fold`` consecutive heads,
+each head one warp group with its own Q tile and K/V ring, and each head's
+warps meet their own barrier once per key tile. ``fold_fwd`` is P1: K2 on
+q3 [BH, Tq, D] and k3/v3 [BH, Tk_p, D] with keys at or past ``kv_len``
+masked (no GQA, no causal mask), returning O in q's dtype and lse [BH, Tq,
+1] float32, on the body ``ops/attention.py:FWD_BODIES`` gives (fold, tile,
+dtype) -- the tensor-core body of the dtype at every fold, fold 1
+included at the arms' tiles. Its plain version is K2's plain math on the
+first ``kv_len`` keys of every head. The CUDA-core body
+(``csrc/flash_fwd.cu``) keeps its folds for an A/B only
+(``fold_fwd_cuda(..., body="cuda_core")``).
 
 ``main`` times four kernel arms at bf16 [96, 1536, 64] (Whisper-small's
-encoder, B = 8 x 12 heads), all on that one body, so the A/B is the fold's
-alone: fold 1 at the 64 x 64 tile ("base_bq64", the reference of
+encoder, B = 8 x 12 heads), all on the wgmma body, so the A/B is the
+fold's alone: fold 1 at the 64 x 64 tile ("base_bq64", the reference of
 ``speedup_vs_default``), fold 1 with 128 query rows per block
 ("base_bq128"), and folding 2 and 4 heads at the 64 x 64 tile
 ("fold2_bq64", "fold4_bq64"). fold2_bq64 and base_bq128 each take 128
 query rows per block, of two heads or of one. Then the product A/B: the
 real ``flash_attention`` at [8, 12, 1500, 64] with ``fold=2`` and
 ``fold=1`` (JAX: ``AUDAX_ATTN_FOLD``), each on the body the product gives
-it (``ops/attention.py:FWD_BODIES``): in bf16 the fold runs on the CUDA
-cores and fold 1 on the tensor cores, so that verdict weighs folding
-against the body it gives up. Each arm is slope-timed over eager calls
+it: in bf16 both on the wgmma body, fold 2 at the 64 x 64 tile against
+fold 1 at ``WGMMA_TILE`` (64 x 128). Each arm is slope-timed over eager calls
 between CUDA events (``utils/profiling.py:slope_timed_eager``, 5 and 25
 calls, best of 2). Verdict: ``keep`` when the product call folded is at
 least 1.05x faster, as in JAX.
@@ -85,15 +89,17 @@ fold_fwd_plain.launches = 0
 def fold_fwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, *,
                   scale: float, kv_len: int, fold: int,
                   block_q: Optional[int] = None,
-                  block_k: Optional[int] = None):
-    """P1: K2's CUDA-core kernel folding ``fold`` heads per block (``fold``
-    1 is that body unfolded, in bf16 too); same contract as
-    ``fold_fwd_plain``."""
+                  block_k: Optional[int] = None,
+                  body: Optional[str] = None):
+    """P1: K2 folding ``fold`` heads per block on the body ``FWD_BODIES``
+    gives (``fold`` 1 is K2 unfolded), counted by that body's launcher as
+    well; ``body="cuda_core"`` forces K2's CUDA-core body for an A/B. Same
+    contract as ``fold_fwd_plain``."""
     _check_3d("fold_fwd", q3, k3, v3)
     o, lse = att.launch_flash_forward(
         q3[None], k3[None], v3[None], scale=scale, block_q=block_q,
         block_k=block_k, fold=fold, kv_len=kv_len, name="fold_fwd",
-        body="cuda_core")
+        body=body)
     fold_fwd_cuda.launches += 1
     return o[0], lse.reshape(*q3.shape[:2], 1)
 

@@ -28,9 +28,10 @@ path phases print one line per case):
      (``flash_fwd_tf32x3``, ``flash_bwd_dq_tf32x3``,
      ``flash_bwd_dkv_tf32x3``), none of which may be 0, and their registers
      by instantiation, where a spill fails; the
-     registers and spills of each n_fft the FFT log-mel body is built for
-     (Whisper's 400-point mixed radix among them), where a spill fails too,
-     and of each instantiation of K3's and K6's sm90 body, likewise;
+     registers and spills of P1's folded instantiations (fold 2 and 4 of
+     K2's two tensor-core bodies), of each n_fft the FFT log-mel body is built for (Whisper's
+     400-point mixed radix among them) and of each instantiation of K3's
+     and K6's sm90 body, where a spill fails;
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' and the tools' shapes: max |err| against the stated
      tolerance, kernel ms, plain ms, the one-call library yardstick where
@@ -58,8 +59,11 @@ path phases print one line per case):
      chunk copied in tiles. It also holds every caller-set tile of K2, K7
      and K8 at
      [4, 8, 1500, 64] float32, and P1 -- K2 folding 2 or 4 heads per block,
-     ``tools/attn_headfold_probe.py:fold_fwd`` -- at the tool's bf16
-     [96, 1536, 64] and with a ragged key count (1500 of 1536 rows). K2's
+     ``tools/attn_headfold_probe.py:fold_fwd``, on the tensor-core body of
+     its dtype (wgmma in bf16, 3xTF32 in float32) -- at the tool's bf16
+     [96, 1536, 64] and with a ragged key count (1500 of 1536 rows) in
+     float32 (folds 2 and 4) and bf16, slope-timed in CUDA graphs beside
+     the CUDA-core fold and SDPA. K2's
      float32 body on the tensor cores (``csrc/flash_fwd_tf32x3.cu``,
      3xTF32) is held, o and lse, within the float32 tolerance at Whisper-
      base's [4, 6, 1500, 64] and [4, 8, 1500, 64], its cross and causal
@@ -177,8 +181,8 @@ path phases print one line per case):
      each through its entry point on the card: one JSON line each with
      its rows, verdict, seconds and launches; K2/K7/K8 (and P1 in the fold
      probe) must launch where a tool drives them, their tensor-core bodies
-     in every run (and they alone in the step and the MFU runs), none in
-     the xla arm, and no plain version anywhere;
+     in every run (and they alone in the fold probe, the step and the MFU
+     runs), none in the xla arm, and no plain version anywhere;
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
      ``csrc/flash_bwd.cu``, count the CUDA-core launches, the last two timed
@@ -311,7 +315,7 @@ FLASH_BF16 = FLASH + WGMMA
 STEP_ARGS = dict(size="small", batch=8, label_len=32, iters=3)
 ATTENTION_TOOLS = (
     ("attn_headfold_probe", "attn_headfold_probe", {},
-     ("flash_forward", "flash_forward_fold", "flash_forward_wgmma"), ()),
+     ("flash_forward_fold", "flash_forward_wgmma"), ("flash_forward",)),
     ("attn_block_probe", "attn_block_probe", {}, FLASH_BF16, ()),
     ("train_step_breakdown --attn flash", "train_step_breakdown",
      dict(STEP_ARGS, attn="flash"), WGMMA, FLASH),
@@ -326,6 +330,9 @@ TENSOR_CORE_LIBS = ("flash_fwd_sm90", "flash_bwd_dq_sm90",
 #: the libraries of the float32 (3xTF32) tensor-core bodies: K2's, K7's, K8's
 TF32X3_LIBS = ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3",
                "flash_bwd_dkv_tf32x3")
+#: the libraries that hold P1, K2's head folds on its tensor-core bodies,
+#: with the number of folded instantiations each must hold
+FOLD_LIBS = (("flash_fwd_sm90", 2), ("flash_fwd_tf32x3", 2))
 #: the classification path: one frontend config per log-mel tier and body
 #: (the last is featurized only: no classifier trains on it)
 CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap_fft"),
@@ -1480,26 +1487,42 @@ def kernel_phase(torch, rng):
 
 
 def fold_cases(torch, gen):
-    """P1 (``tools/attn_headfold_probe.py:fold_fwd``: K2's kernel folding 2
-    or 4 heads per block) against its plain version at the tool's shape,
-    bf16 [96, 1536, 64], and with a ragged key count (1500 of 1536 rows) in
-    float32 and bf16; returns the summary of the fold-2 case at the tool's
-    shape. The bound takes the bf16 tensor cores' peak for bf16 inputs;
-    the label gives the float32 CUDA-core bound beside it (the cores the
-    kernel runs on)."""
+    """P1 (``tools/attn_headfold_probe.py:fold_fwd``: K2 folding 2 or 4
+    heads per block) on the tensor-core body of its dtype (wgmma in bf16,
+    3xTF32 in float32) against its plain version at the tool's shape, bf16
+    [96, 1536, 64], and with a ragged key count (1500 of 1536 rows) in
+    float32 (folds 2 and 4: fold 4 rings 32-key half tiles and reads Q at
+    use) and bf16; each call must launch that body once and no other.
+    Each case is slope-timed in CUDA graphs beside the CUDA-core fold
+    (``body="cuda_core"``, in brackets) and SDPA; the plain
+    version by CUDA events. The bound takes the peak of the body's
+    arithmetic (bf16 tensor cores; 3xTF32 for float32). Returns the
+    summary of the fold-2 bf16 case at the tool's shape."""
     import torch.nn.functional as F
 
+    from audax_torch.ops import attention as att
     from audax_torch.tools import attn_headfold_probe as hf
 
     dev, bh, t, d = "cuda", 96, 1536, 64
+    counters = {"wgmma": att.flash_forward_wgmma_cuda,
+                "tf32x3": att.flash_forward_tf32x3_cuda}
     main = None
     for fold, dtype, kv_len in ((2, torch.bfloat16, t), (4, torch.bfloat16, t),
                                 (2, torch.float32, 1500),
-                                (2, torch.bfloat16, 1500)):
+                                (2, torch.bfloat16, 1500),
+                                (4, torch.float32, 1500)):
         q, k, v = (torch.randn(bh, t, d, device=dev, generator=gen).to(dtype)
                    for _ in range(3))
         kw = dict(scale=d ** -0.5, kv_len=kv_len)
+        body = att.fwd_body(dtype, d, fold=fold)
+        before = {n: c.launches for n, c in counters.items()}
+        core_before = att.flash_forward_cuda.launches
         o, lse = hf.fold_fwd_cuda(q, k, v, fold=fold, **kw)
+        ran = {n: c.launches - before[n] for n, c in counters.items()}
+        if (ran != {n: int(n == body) for n in counters}
+                or att.flash_forward_cuda.launches != core_before):
+            raise AssertionError(f"P1 fold {fold} {dtype}: the {body} body "
+                                 f"did not serve the call alone ({ran})")
         o_ref, lse_ref = hf.fold_fwd_plain(q, k, v, **kw)
         e = float((o.float() - o_ref.float()).abs().max())
         if dtype == torch.float32:
@@ -1507,23 +1530,29 @@ def fold_cases(torch, gen):
             rel = e
         else:       # bf16: against the plain output's largest value
             tol, rel = TOL_BF16, e / float(o_ref.float().abs().max())
-        ms = _time_ms(torch, lambda: hf.fold_fwd_cuda(q, k, v, fold=fold,
-                                                      **kw))
+        ms = _graph_ms(torch, lambda: hf.fold_fwd_cuda(
+            q, k, v, fold=fold, **kw))
+        core_ms = _graph_ms(torch, lambda: hf.fold_fwd_cuda(
+            q, k, v, fold=fold, body="cuda_core", **kw))
         plain = _time_ms(torch, lambda: hf.fold_fwd_plain(q, k, v, **kw),
                          reps=5)
         ks, vs = k[None, :, :kv_len], v[None, :, :kv_len]
-        lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        lib = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
             q[None], ks, vs))
         flops = 4 * bh * t * kv_len * d
         nbytes = q.element_size() * d * 2 * bh * (t + kv_len) + 4 * bh * t
-        rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        rate = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
         bound = _bound(flops, nbytes, rate)
-        f32_core = _bound(flops, nbytes, F32_FLOPS)[0]
         dt = "f32" if dtype == torch.float32 else "bf16"
         _report(f"flash_forward_fold[fold {fold} {dt} [{bh},{t},{d}] kv_len "
-                f"{kv_len}] (max_abs_err {e:.3e}; bound on f32 CUDA cores "
-                f"{f32_core:.4f} ms)", rel, tol, ms, plain, lib, bound,
+                f"{kv_len}] ({body} body, max_abs_err {e:.3e}; CUDA-core fold "
+                f"[{core_ms:.4f}] ms)", rel, tol, ms, plain, lib, bound,
                 "max_abs_err" if dtype == torch.float32 else "max_rel_err")
+        print(f"[kernels] P1 fold {fold} {dt} kv_len {kv_len} A/B in one "
+              f"run (CUDA graphs): {body} body {ms:.4f} ms; CUDA-core "
+              f"fold {core_ms:.4f} ms ({core_ms / ms:.2f}x); SDPA "
+              f"{lib:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})",
+              flush=True)
         if main is None:
             main = dict(max_abs_err=e, ms=ms, plain_ms=plain, library_ms=lib,
                         bound=bound)
@@ -2728,6 +2757,23 @@ def main() -> int:
             raise AssertionError(f"{tf32} spills (or reports no kernel): "
                                  f"{kernels}")
 
+    # P1, K2's head folds on its tensor-core bodies (the template argument
+    # FOLD last): registers of each folded instantiation, where a spill
+    # fails
+    for name, n_folds in FOLD_LIBS:
+        if name not in reports:
+            print(f"[build] {name} was built before: its folds' registers "
+                  "and spills are not reported", flush=True)
+            continue
+        folded = [kn for kn in _ptxas_kernels(reports[name])
+                  if kn[0].split(",")[-1] in ("2", "4")]
+        print(f"[build] {name} folds ptxas (template arguments, FOLD last: "
+              "registers, spill bytes): " + "; ".join(
+                  f"{a}: {r}, {sp}" for a, r, sp in folded), flush=True)
+        if len(folded) != n_folds or any(sp for _, _, sp in folded):
+            raise AssertionError(f"{name}: a folded instantiation spills "
+                                 f"(or is missing): {folded}")
+
     # the FFT log-mel body's instantiations by n_fft, Whisper's 400-point
     # mixed radix among them: registers and spills (a spill fails)
     if "log_mel_fft" in reports:
@@ -2796,8 +2842,10 @@ def main() -> int:
                "flash_forward_tf32x3": (
                    "audax_torch/csrc/flash_fwd_tf32x3.cu",
                    "audax/ops/attention.py:161"),
-               "flash_forward_fold": ("audax_torch/csrc/flash_fwd.cu",
-                                      "tools/attn_headfold_probe.py:90"),
+               "flash_forward_fold": (
+                   "audax_torch/csrc/flash_fwd_sm90.cu, "
+                   "audax_torch/csrc/flash_fwd_tf32x3.cu",
+                   "tools/attn_headfold_probe.py:90"),
                "flash_backward_dq": ("audax_torch/csrc/flash_bwd.cu",
                                      "audax/ops/attention.py:293"),
                "flash_backward_dkv": ("audax_torch/csrc/flash_bwd.cu",

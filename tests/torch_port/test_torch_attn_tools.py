@@ -13,11 +13,12 @@
   folds a wrapper takes are the documented set, and anything else raises
   ``ValueError`` before any dispatch.
 * K2's body table (``FWD_BODIES``): every call the paths and tools make
-  resolves to one body -- bf16 at 64 or more query rows unfolded to the
-  tensor cores (wgmma), float32 at 64 query rows unfolded to the tensor
-  cores too (3xTF32), the rest to the CUDA cores -- the table agrees with the
-  instantiations in both sources, and every tile fits one block's shared
-  memory (the tensor-core body's ``smem_bytes`` read from its source).
+  resolves to one body -- bf16 at 64 or more query rows to the tensor
+  cores (wgmma), float32 at 64 query rows to the tensor cores too
+  (3xTF32), the folds included, the rest to the CUDA cores -- the table
+  agrees with the instantiations in the sources, and every tile fits one
+  block's shared memory (the tensor-core body's ``smem_bytes`` read from
+  its source).
 * ``dot_product_attention(backend=)`` and ``attention_backend`` route to
   the twin or the flash path (read off the plain versions' counters).
 * ``utils/flops.py`` equals the JAX package's exactly.
@@ -238,8 +239,8 @@ def test_every_k2_call_resolves_to_one_body(call):
     tile = att.resolve_tile("fwd", d, bq, bk, fold, dtype=dt)
     assert body in ("cuda_core", "tf32x3", "wgmma")
     assert att.FWD_BODIES[(dt, d, tile, fold)] == body
-    wgmma = dt == torch.bfloat16 and fold == 1 and tile[0] >= 64
-    tf32x3 = dt == torch.float32 and fold == 1 and tile[0] == 64
+    wgmma = dt == torch.bfloat16 and tile[0] >= 64
+    tf32x3 = dt == torch.float32 and tile[0] == 64
     assert body == ("wgmma" if wgmma else "tf32x3" if tf32x3
                     else "cuda_core")
 
@@ -259,12 +260,13 @@ def test_head_dims_no_kernel_takes_keep_the_plain_path_on_cpu():
                                    rtol=0, atol=0)
 
 
-def test_bf16_keeps_32_row_tiles_and_folds_on_the_cuda_cores():
+def test_bf16_keeps_32_row_tiles_on_the_cuda_cores_and_folds_on_wgmma():
     bf16 = torch.bfloat16
     for bk in (32, 64, 128):
         assert att.fwd_body(bf16, 64, 32, bk) == "cuda_core"
     for fold in att.FOLDS:
-        assert att.fwd_body(bf16, 64, fold=fold) == "cuda_core"
+        assert att.fwd_body(bf16, 64, fold=fold) == "wgmma"
+        assert att.fwd_body(torch.float32, 64, fold=fold) == "tf32x3"
         assert att.resolve_tile("fwd", 64, fold=fold, dtype=bf16) == (64, 64)
     for d in (16, 32, 64, 128):
         assert att.resolve_tile("fwd", d, dtype=bf16) == att.WGMMA_TILE
@@ -291,22 +293,23 @@ def test_k2_calls_off_the_body_table_raise(call):
 def test_body_table_matches_the_sources_and_fits_shared_memory():
     csrc = REPO / "audax_torch" / "csrc"
     wgmma = {tuple(map(int, m)) for m in re.findall(
-        r"AUDAX_FWD90\((\d+), (\d+), (\d+)\)",
+        r"AUDAX_FWD90\((\d+), (\d+), (\d+), (\d+)\)",
         (csrc / "flash_fwd_sm90.cu").read_text())}
     core = {tuple(map(int, m)) for m in re.findall(
         r"AUDAX_FWD\((\d+), (\d+), (\d+), (\d+)\)",
         (csrc / "flash_fwd.cu").read_text())}
-    table = {body: {(d,) + tile + ((fold,) if body == "cuda_core" else ())
+    table = {body: {(d,) + tile + (fold,)
                     for (_, d, tile, fold), b in att.FWD_BODIES.items()
                     if b == body} for body in ("cuda_core", "wgmma")}
     assert table["wgmma"] == wgmma
     assert table["cuda_core"] <= core
-    # the CUDA-core body is built, in either dtype, wherever float32 runs:
-    # the head-fold probe's arms take it at fold 1 too
+    # the CUDA-core body is built, in either dtype, wherever float32 runs,
+    # the folds included (their A/B against the tensor-core bodies)
     assert {(d,) + tile + (fold,) for (dt, d, tile, fold) in att.FWD_BODIES
             if dt == torch.float32} <= core
-    assert all((torch.float32, 64, (bq, hf.BLOCK_K), f) in att.FWD_BODIES
-               for _, f, bq in hf.ARMS)
+    # the head-fold probe's bf16 arms all run on the wgmma body
+    assert all(att.FWD_BODIES[(torch.bfloat16, 64, (bq, hf.BLOCK_K), f)]
+               == "wgmma" for _, f, bq in hf.ARMS)
     smem = constexpr_function("flash_fwd_sm90.cu", "smem_bytes")
     assert all(smem(*t) <= 232448 for t in wgmma)
     assert all(att._fwd_smem(*t) <= 232448 for t in core)

@@ -38,97 +38,46 @@ from audax_torch.ops import KERNELS, native
 from audax_torch.ops import attention as att
 
 from .csrc_constexpr import CSRC, constexpr_function
-from .tf32x3_lanes import G, T, a_from_c, mma3, split, tf32
+from .tf32x3_lanes import G, T, fwd_warps, split
 
-NEG = np.float32(-1e30)
 LOG2E = np.float32(1.4426950408889634)
-LN2 = np.float32(0.6931471805599453)
 BQ, WARPS = 64, 4
 
 
 def kernel_schedule(q, k, v, *, causal=False, kv_len=None, bk=64,
                     passes=3):
-    """``flash_fwd_tf32x3_kernel`` in numpy, one warp at a time: q [B, Hq,
-    Tq, D], k/v [B, Hkv, Tk, D] float32 -> (o, lse [B*Hq, Tq])."""
+    """``flash_fwd_tf32x3_kernel`` in numpy, a head's warps at once
+    (``tf32x3_lanes.fwd_warps``): q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D]
+    float32 -> (o, lse [B*Hq, Tq])."""
     b, hq, tq, d = q.shape
     group, tk = hq // k.shape[1], k.shape[2]
     kv_len = tk if kv_len is None else kv_len
-    ks, nt_ = d // 8, bk // 8
+    ks, nx = d // 8, -(-tq // BQ)
     qscale = np.float32(d ** -0.5) * LOG2E
-    n_tiles = -(-kv_len // bk)
+    # warp w of query block x owns rows 64 x + 16 w .. + 15
+    w0 = BQ * np.arange(nx)[:, None] + 16 * np.arange(WARPS)[None, :]
+    r0 = w0[..., None] + G                                    # [x, w, lane]
     o = np.zeros_like(q)
     lse = np.zeros((b * hq, tq), np.float32)
     for bh in range(b * hq):
         bi, h = divmod(bh, hq)
         # K/V as staged: rows past kv_len zero-filled, never read
-        rows = n_tiles * bk
+        rows = -(-kv_len // bk) * bk
         kst, vst = (np.zeros((rows, d), np.float32) for _ in range(2))
         kst[:kv_len] = k[bi, h // group, :kv_len]
         vst[:kv_len] = v[bi, h // group, :kv_len]
-        qp = np.zeros((-(-tq // BQ) * BQ, d), np.float32)
+        qp = np.zeros((nx * BQ, d), np.float32)
         qp[:tq] = q[bi, h] * qscale
-        for q0 in range(0, tq, BQ):
-            tiles = min(n_tiles, (q0 + BQ - 1) // bk + 1) if causal \
-                else n_tiles
-            for w in range(WARPS):
-                w0 = q0 + 16 * w
-                r0 = w0 + G
-                qa = [np.stack([qp[r0, 8 * kk + T], qp[r0 + 8, 8 * kk + T],
-                                qp[r0, 8 * kk + T + 4],
-                                qp[r0 + 8, 8 * kk + T + 4]], 1)
-                      for kk in range(ks)]
-                m = np.full((32, 2), NEG, np.float32)
-                lpart = np.zeros((32, 2), np.float32)
-                acc = np.zeros((ks, 32, 4), np.float32)
-                for tile in range(tiles):
-                    k0 = tile * bk
-                    if causal and k0 > w0 + 15:
-                        continue
-                    kt, vt = kst[k0: k0 + bk], vst[k0: k0 + bk]
-                    s = np.zeros((nt_, 32, 4), np.float32)
-                    for kk in range(ks):
-                        for nt in range(nt_):
-                            bfr = np.stack([kt[8 * nt + G, 8 * kk + T],
-                                            kt[8 * nt + G, 8 * kk + T + 4]],
-                                           1)
-                            s[nt] = mma3(s[nt], qa[kk], bfr, passes)
-                    if k0 + bk > kv_len or (causal and k0 + bk - 1 > w0):
-                        i = np.arange(4)
-                        col = (k0 + 8 * np.arange(nt_)[:, None, None]
-                               + 2 * T[None, :, None] + (i & 1))
-                        row = r0[None, :, None] + 8 * (i >> 1)
-                        s[(col >= kv_len) | (causal & (col > row))] = NEG
-                    for hh in range(2):
-                        vals = s[:, :, 2 * hh: 2 * hh + 2]
-                        mx = vals.max(axis=(0, 2))
-                        mx = np.repeat(mx.reshape(8, 4).max(1), 4)   # quad
-                        m_new = np.maximum(m[:, hh], mx)
-                        alpha = np.exp2(m[:, hh] - m_new)
-                        mu = np.where(m_new == NEG, np.float32(0), m_new)
-                        p = np.exp2(vals - mu[None, :, None])
-                        s[:, :, 2 * hh: 2 * hh + 2] = p
-                        lpart[:, hh] = lpart[:, hh] * alpha + p.sum((0, 2))
-                        m[:, hh] = m_new
-                        acc[:, :, 2 * hh: 2 * hh + 2] *= alpha[None, :, None]
-                    for j in range(nt_):
-                        afr = a_from_c(s[j])            # k permuted
-                        for nd in range(ks):
-                            bfr = np.stack([vt[8 * j + 2 * T, 8 * nd + G],
-                                            vt[8 * j + 2 * T + 1, 8 * nd + G]],
-                                           1)
-                            acc[nd] = mma3(acc[nd], afr, bfr, passes)
-                lt = np.repeat(lpart.reshape(8, 4, 2).sum(1), 4, axis=0)
-                for hh in range(2):
-                    row = r0 + 8 * hh
-                    ok = row < tq
-                    ls = np.where(lt[:, hh] == 0, np.float32(1), lt[:, hh])
-                    for nd in range(ks):
-                        for e in range(2):
-                            o[bi, h, row[ok], 8 * nd + 2 * T[ok] + e] = (
-                                acc[nd][ok, 2 * hh + e] / ls[ok])
-                    lse[bh, row[ok]] = np.where(
-                        lt[ok, hh] == 0, NEG,
-                        m[ok, hh] * LN2 + np.log(lt[ok, hh]))
+        # A fragments: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+        # t + 4)
+        qa = np.stack([np.stack([qp[r0 + r8, 8 * kk + tt]
+                                 for r8, tt in ((0, T), (8, T), (0, T + 4),
+                                                (8, T + 4))], -1)
+                       for kk in range(ks)], -3)        # [x, w, KS, 32, 4]
+        ow, lw = fwd_warps(qa, kst, vst, kv_len, bk, passes,
+                           rows=w0 if causal else None)
+        o[bi, h] = ow.reshape(nx * BQ, d)[:tq]
+        lse[bh] = lw.reshape(nx * BQ)[:tq]
     return o, lse
 
 
@@ -219,16 +168,18 @@ def _source():
 
 def test_body_table_matches_the_source_and_fits_shared_memory():
     built = {tuple(map(int, m)) for m in re.findall(
-        r"AUDAX_TF32X3\((\d+), (\d+), (\d+)\)", _source())}
-    table = {(d,) + tile for (_, d, tile, _), body in att.FWD_BODIES.items()
+        r"AUDAX_TF32X3\((\d+), (\d+), (\d+), (\d+)\)", _source())}
+    table = {(d,) + tile + (fold,)
+             for (_, d, tile, fold), body in att.FWD_BODIES.items()
              if body == "tf32x3"}
     assert table == built
-    assert all(dt == torch.float32 and fold == 1 and tile[0] == 64
+    assert all(dt == torch.float32 and tile[0] == 64
+               and (fold == 1 or (d, tile) == (64, (64, 64)))
                for (dt, d, tile, fold), body in att.FWD_BODIES.items()
                if body == "tf32x3")
     smem = constexpr_function("flash_fwd_tf32x3.cu", "smem_bytes")
-    assert all(smem(d, bk) <= 232448 for d, _, bk in built)
-    assert smem(64, 64) == 2 * 2 * 64 * 68 * 4
+    assert all(smem(d, bk, fold) <= 232448 for d, _, bk, fold in built)
+    assert smem(64, 64, 1) == 2 * 2 * 64 * 68 * 4
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
