@@ -1,5 +1,7 @@
 // K9 redesigned for Hopper (sm_90a): the int4 weight-only decode matmul in
-// one launch, its products on the tensor cores (mma.sync).
+// one launch, its products on the tensor cores (mma.sync). On the same
+// skeleton, two int4 tool kernels redesigned: P5 v2 and P4 (see "Routes"
+// below).
 //
 // Replaces the TPU kernel audax/ops/int4_matmul.py:_int4_kernel (called by
 // int4_matmul). For x [M, K] (float32 or bfloat16, M <= 256), packed uint8
@@ -77,11 +79,65 @@
 // packed rows, or K/2 > MAX_SPLITS * MAX_RANGE -- return
 // cudaErrorInvalidValue; ops/int4_matmul.py:BODIES sends them to the
 // split-half body before any launch.
+//
+// Routes. The copy plan, the swizzle, the split plan and the cluster
+// reduction serve three bodies, a template argument (ROUTE) apart; the way
+// from a nibble to a product differs (steps 0, 2 and 3 and the group's end
+// below). Each is its own library (ops/native.py's DEFINES):
+//
+// ROUTE_K9: K9, as above (library int4_matmul_mma).
+//
+// ROUTE_V2 (library int4_unpack_v2_mma, -DAUDAX_INT4_V2) replaces the TPU
+// kernel tools/int4_unpack_probe.py:_kernel_v2 (called by run_variant):
+// the weights dequantized in x's dtype, W~[k, n] = (nib - 8) * s[g(k), n]
+// rounded there, then one contraction over the whole K with float32 sums,
+// no per-group partials. bf16 x: K9's unpack gives nib - 8 as bf16 pairs,
+// one mul.rn.bf16x2 by the bf16-rounded scale of the pair's column makes
+// W~ (a 4-bit times an 8-bit significand is exact before its one
+// rounding, so W~ is the plain version's bit for bit), then m16n8k16 as
+// K9, one accumulator chain per half over all of K. float32 x: W~ = q * s
+// rounded once in float32 is no bf16 value, so the products run in 3xTF32
+// on m16n8k8 (tf32x3.cuh). An 8-row step's ldmatrix register is a TF32 A
+// fragment once k is relabelled -- packed rows 2t and 2t + 1 are k slots t
+// and t + 4: a0 = byte 0 (column 2g, row 2t), a1 = byte 1 (column 2g +
+// 1), a2, a3 = bytes 2, 3 (row 2t + 1) -- and B is staged in that order:
+// x's pair (2t, 2t + 1), split once into big and small TF32 parts. A
+// nibble becomes a float by a byte permute under the exponent of 2^23 and
+// one subtraction of 2^23 + 8; each k16 step's twelve products are summed
+// from zero and added in float32. At [8, 1280] x [1280, 5120] the packed
+// bytes and scales bound it (1.0 us); the products take at least 0.1 us
+// in bf16, 0.6 us in 3xTF32.
+//
+// ROUTE_W4A8 (library w4a8_matmul_mma, -DAUDAX_INT4_W4A8) replaces the TPU
+// kernel tools/w4a8_probe.py:_w4a8_kernel_zp (called by w4a8_matmul), the
+// activation quantization included: xs[m] = max(absmax(x[m]), 1e-12) /
+// 127, xq = clip(round_half_even(x / xs), +-127) in int8, and
+//
+//   y[m, n] = xs[m] * sum_g s[g, n] * (int32) sum_{k in g} xq[m, k] * (nib[k, n] - 8)
+//
+// in x's dtype. Each block takes the row maxima of |x| over its range
+// while the weights' copies fly; after one cluster barrier each reads the
+// other blocks' through distributed shared memory, so every block holds
+// the maxima over all of K, and quantizes its range (IEEE division,
+// round half to even, clamp): the int8 values of the wrapper-side
+// quantization, with no launch before the kernel. The products run on the
+// int8 tensor cores, mma.sync.m16n8k32 s8 x s8 -> s32: two byte permutes
+// of a pair of ldmatrix registers give A's word of four k values of one
+// column (0x6420: column 2g, 0x7531: column 2g + 1; packed rows 2t, 2t +
+// 1, 2t + 8, 2t + 9 at k slots 4t .. 4t + 3), a mask and a per-byte
+// subtraction of 8 (__vsub4) make them int8 nib - 8, and x's int8 B
+// fragments are staged in the same k order. Each group's sums are exact
+// int32 (low and high nibbles apart: two groups), converted once, scaled
+// by s_g and added in float32 at the group's end; the owner applies xs
+// after the cluster sum. It takes groups of whole k32 steps (takes_w4a8).
+// Bound as v2 (1.0 us of bytes; the products 0.05 us).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -99,6 +155,11 @@ constexpr int SMS = 132;                   // an H100 SXM's SMs
 constexpr int TARGET_BLOCKS = 264;         // two blocks per SM
 constexpr int XB = 4;                      // x entries a thread loads at once
 constexpr int SMEM_LIMIT = 232448;         // an H100 block's shared memory
+constexpr int MAX_M = MT * 65535;          // rows of x: the grid's z axis
+// what the body computes from the nibbles (see "Routes" above)
+constexpr int ROUTE_K9 = 0;
+constexpr int ROUTE_V2 = 1;
+constexpr int ROUTE_W4A8 = 2;
 
 __host__ __device__ constexpr int cdiv(int a, int b) {
   return (a + b - 1) / b;
@@ -113,6 +174,11 @@ __host__ __device__ constexpr int clampi(int v, int lo, int hi) {
 // Whether this body takes packed rows kh at ``group`` (K = 2 kh).
 __host__ __device__ constexpr int takes(int kh, int group) {
   return group > 0 && group % KSTEP == 0 && kh % group == 0 &&
+         kh <= MAX_SPLITS * MAX_RANGE;
+}
+// ROUTE_V2 takes what K9 takes; ROUTE_W4A8 groups of whole k32 steps.
+__host__ __device__ constexpr int takes_w4a8(int kh, int group) {
+  return group > 0 && group % STAGE == 0 && kh % group == 0 &&
          kh <= MAX_SPLITS * MAX_RANGE;
 }
 // A warp owns nt A tiles (16 nt output columns), a block 64 nt; a block
@@ -177,6 +243,25 @@ __host__ __device__ constexpr int smem_bytes(int parts, int vec, int nt,
                                             int range, int group) {
   return x_bytes(parts, range) + w_bytes(vec, nt, range) +
          4 * WARPS * scale_floats(range, group, nt) + 4 * red_floats(nt);
+}
+// x's staged B fragments a route keeps, in uint2 per lane, k16 step and
+// half (``parts`` above): K9 one per bf16 part (1 or 3); v2 in float32 the
+// big and small TF32 parts of two pairs (4); W4A8 one int8 uint2 per k32
+// step (counted as 1)
+__host__ __device__ constexpr int route_parts(int route, int f32) {
+  return route == ROUTE_W4A8 ? 1 : route == ROUTE_V2 ? 1 + 3 * f32
+                                                     : 1 + 2 * f32;
+}
+// W4A8's row maxima (each warp's [MT], the block's [MT], read by the
+// cluster) and row scales [MT], after the cluster's partial sums
+__host__ __device__ constexpr int quant_floats(int route) {
+  return route == ROUTE_W4A8 ? (WARPS + 2) * MT : 0;
+}
+__host__ __device__ constexpr int route_smem_bytes(int route, int f32, int vec,
+                                                  int nt, int range,
+                                                  int group) {
+  return smem_bytes(route_parts(route, f32), vec, nt, range, group) +
+         4 * quant_floats(route);
 }
 // The 16-byte chunk of row r where chunk c of an aligned row is stored: rows
 // 128 / (16 nt) apart share banks, so their chunks are XORed apart and an
@@ -270,6 +355,30 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
+// c += a * b, one m16n8k32 int8 product with int32 accumulation (exact)
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// v2 in bf16: two bf16 products, each rounded once to nearest even
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// v2 in float32: nibble k (0-3) of a register masked to 0x0F0F0F0F as the
+// float nib - 8: written under the exponent of 2^23, less 2^23 + 8 (exact)
+__device__ __forceinline__ float nib_f32(uint32_t nibs, int k) {
+  return __uint_as_float(__byte_perm(nibs, 0x4B000000u, 0x7540 | k)) -
+         8388616.f;
+}
+
 // The ldmatrix-layout registers of a warp's 32 packed rows at ``rows``
 // (this warp's copy in shared memory, ROWB bytes a row): r[i][j] holds
 // tile i's rows 8j + 2t and 8j + 2t + 1 at its columns 2g, 2g + 1. VEC 16:
@@ -339,25 +448,25 @@ __device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a,
   b = bf16_hi(v);
 }
 
-// x's parts: 1 for bf16 x, 3 (hi, mid, lo) for float32 x
-template <typename T>
-struct Parts {
-  static constexpr int N = sizeof(T) == 4 ? 3 : 1;
-};
-
 // grid (column tiles, splits, 8-row tiles of x), cluster (1, splits, 1)
-template <typename T, int VEC, int NT>
+template <int ROUTE, typename T, int VEC, int NT>
 __global__ void __launch_bounds__(THREADS)
 int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
                const float* __restrict__ s, T* __restrict__ y, int m, int kh,
                int n, int group, int range) {
-  constexpr int PARTS = Parts<T>::N;
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr bool QUANT = ROUTE == ROUTE_W4A8;
+  constexpr int PARTS = route_parts(ROUTE, F32);
   constexpr int ROWB = row_bytes(VEC, NT);
   constexpr int NCH = ROWB / 16;           // chunks a warp copies per row
   constexpr int WCOLS = 16 * NT, BCOLS = WARPS * WCOLS;
+  // x values a lane stages per step (W4A8: a k32 step, else a k16 step)
+  // and steps a thread loads at once
+  constexpr int XV = QUANT ? 8 : 4;
+  constexpr int XN = QUANT ? 2 : XB;
   extern __shared__ __align__(16) uint8_t smem[];
-  // every block of the cluster has started once the wait before the
-  // partial sums' exchange returns
+  // every block of the cluster has started once the first wait on the
+  // cluster's barrier returns
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -365,6 +474,7 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
   const int c0 = split * range, c1 = min(kh, c0 + range);
   const int rows = c1 - c0;                // > 0, a multiple of KSTEP
   const int steps = rows / KSTEP, ksteps = range / KSTEP;
+  const int nst = cdiv(rows, STAGE);
   const int nb = blockIdx.x * BCOLS;       // the block's first column
   const int nw = nb + warp * WCOLS;        // this warp's first column
   const int m0 = blockIdx.z * MT;
@@ -380,24 +490,30 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
   float* red = reinterpret_cast<float*>(smem + x_bytes(PARTS, range) +
                                         w_bytes(VEC, NT, range)) +
                WARPS * sfl;
+  float* quant = red + red_floats(NT);     // W4A8 only
 
   // 0. x's rows m0 .. m0 + 7 over the range's two halves (rows past M are
-  // 0): a thread's first XB entries of [half][k16 step][lane] into
-  // registers, so their latency overlaps the weights' copies
-  const int entries = 2 * steps * 32;
-  float v[XB][4];
+  // 0): a thread's first XN entries of [half][step][lane] into registers,
+  // so their latency overlaps the weights' copies. A k16 step's entry is
+  // x[.][c + 2t, 2t + 1, 2t + 8, 2t + 9]; W4A8's k32 step adds 2t + 16,
+  // 2t + 17, 2t + 24, 2t + 25 (the k order of its A words)
+  const int xsteps = QUANT ? nst : steps;
+  const int entries = 2 * xsteps * 32;
+  float v[XN][XV];
   auto load_x = [&](int e0) {
 #pragma unroll
-    for (int b = 0; b < XB; ++b) {
+    for (int b = 0; b < XN; ++b) {
       const int e = e0 + b * THREADS, el = e % 32;
-      const int j = (e / 32) % steps, h = e / (32 * steps);
+      const int j = (e / 32) % xsteps, h = e / (32 * xsteps);
       const int mm = m0 + el / 4;
-      v[b][0] = v[b][1] = v[b][2] = v[b][3] = 0.f;
+#pragma unroll
+      for (int q = 0; q < XV; ++q) v[b][q] = 0.f;
       if (e < entries && mm < m) {
-        const T* xr = x + (long long)mm * 2 * kh + h * kh + c0 + j * KSTEP +
-                      2 * (el % 4);
-        load_pair(xr, v[b][0], v[b][1]);
-        load_pair(xr + 8, v[b][2], v[b][3]);
+        const T* xr = x + (long long)mm * 2 * kh + h * kh + c0 +
+                      j * (QUANT ? STAGE : KSTEP) + 2 * (el % 4);
+#pragma unroll
+        for (int q = 0; q < XV / 2; ++q)
+          load_pair(xr + 8 * q, v[b][2 * q], v[b][2 * q + 1]);
       }
     }
   };
@@ -410,7 +526,6 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
   const uint8_t* w_lo = reinterpret_cast<const uint8_t*>(   // holds w[0]
       reinterpret_cast<uintptr_t>(w) & ~static_cast<uintptr_t>(15));
   const uintptr_t gaddr0 = reinterpret_cast<uintptr_t>(w + c0 * ln + nw);
-  const int nst = cdiv(rows, STAGE);
   for (int st = 0; st < nst; ++st) {
 #pragma unroll
     for (int k = 0; k < NCH; ++k) {
@@ -441,70 +556,144 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
     cp_async_commit();
   }
 
-  // 2. split x into bf16 parts and store them as B fragments; a thread's
-  // next XB entries are loaded before it splits any
-  for (int e0 = threadIdx.x; e0 < entries; e0 += XB * THREADS) {
-    if (e0 != threadIdx.x) load_x(e0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+
+  // 2. x's B fragments in shared memory; a thread's next XN entries are
+  // loaded before it stages any
+  if constexpr (QUANT) {
+    // W4A8: the row maxima of |x| over this block's range, then over the
+    // cluster's (all of K), then the rows quantized to int8
+    float* wmax = quant;                   // [WARPS][MT]
+    float* bmax = quant + WARPS * MT;      // [MT], read by the cluster
+    float* rs = bmax + MT;                 // [MT], the row scales
+    float amax = 0.f;
+    for (int e0 = threadIdx.x; e0 < entries; e0 += XN * THREADS) {
+      if (e0 != threadIdx.x) load_x(e0);
 #pragma unroll
-    for (int b = 0; b < XB; ++b) {
-      const int e = e0 + b * THREADS, el = e % 32;
-      if (e >= entries) break;
-      const int j = (e / 32) % steps, h = e / (32 * steps);
-      uint2* dst = xs + ((h * ksteps + j) * PARTS) * 32 + el;
+      for (int b = 0; b < XN; ++b)
 #pragma unroll
-      for (int p = 0; p < PARTS; ++p) {
-        const uint32_t b01 = pack_bf16(v[b][0], v[b][1]);
-        const uint32_t b23 = pack_bf16(v[b][2], v[b][3]);
-        dst[p * 32] = make_uint2(b01, b23);
-        v[b][0] -= bf16_lo(b01); v[b][1] -= bf16_hi(b01);
-        v[b][2] -= bf16_lo(b23); v[b][3] -= bf16_hi(b23);
+        for (int q = 0; q < XV; ++q) amax = fmaxf(amax, fabsf(v[b][q]));
+    }
+    // a lane's entries are all of row g: the four lanes of a row, then the
+    // warps
+    amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, 1));
+    amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, 2));
+    if (t == 0) wmax[warp * MT + g] = amax;
+    __syncthreads();
+    if (threadIdx.x < MT) {
+      float a = wmax[threadIdx.x];
+#pragma unroll
+      for (int k = 1; k < WARPS; ++k) a = fmaxf(a, wmax[k * MT + threadIdx.x]);
+      bmax[threadIdx.x] = a;
+    }
+    // every block has started (the first wait) and written its maxima (the
+    // second barrier); the weights' copies stay in flight
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    if (threadIdx.x < MT) {
+      float a = 0.f;
+      for (int q = 0; q < splits; ++q)
+        a = fmaxf(a, cluster.map_shared_rank(bmax, q)[threadIdx.x]);
+      rs[threadIdx.x] = __fdiv_rn(fmaxf(a, 1e-12f), 127.f);
+    }
+    __syncthreads();
+    const float scale = rs[g];
+    const int nstr = range / STAGE;
+    for (int e0 = threadIdx.x; e0 < entries; e0 += XN * THREADS) {
+      if (entries > XN * THREADS) load_x(e0);   // else v holds them
+#pragma unroll
+      for (int b = 0; b < XN; ++b) {
+        const int e = e0 + b * THREADS, el = e % 32;
+        if (e >= entries) break;
+        const int j = (e / 32) % nst, h = e / (32 * nst);
+        uint32_t word[2] = {0u, 0u};
+#pragma unroll
+        for (int q = 0; q < XV; ++q) {
+          const int iq = max(-127, min(127, __float2int_rn(
+                                                __fdiv_rn(v[b][q], scale))));
+          word[q / 4] |= (uint32_t)(iq & 0xFF) << (8 * (q % 4));
+        }
+        xs[(h * nstr + j) * 32 + el] = make_uint2(word[0], word[1]);
+      }
+    }
+  } else {
+    for (int e0 = threadIdx.x; e0 < entries; e0 += XN * THREADS) {
+      if (e0 != threadIdx.x) load_x(e0);
+#pragma unroll
+      for (int b = 0; b < XN; ++b) {
+        const int e = e0 + b * THREADS, el = e % 32;
+        if (e >= entries) break;
+        const int j = (e / 32) % steps, h = e / (32 * steps);
+        uint2* dst = xs + ((h * ksteps + j) * PARTS) * 32 + el;
+        if constexpr (ROUTE == ROUTE_V2 && F32) {
+          // v2 in float32: the big TF32 parts of pairs (2t, 2t + 1) and
+          // (2t + 8, 2t + 9), then their small parts
+          tf32x3::Split sp[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sp[q] = tf32x3::split(v[b][q]);
+          dst[0] = make_uint2(sp[0].big, sp[1].big);
+          dst[32] = make_uint2(sp[2].big, sp[3].big);
+          dst[64] = make_uint2(sp[0].small, sp[1].small);
+          dst[96] = make_uint2(sp[2].small, sp[3].small);
+        } else {
+          // K9 and v2 in bf16: x split into PARTS bf16 parts
+#pragma unroll
+          for (int p = 0; p < PARTS; ++p) {
+            const uint32_t b01 = pack_bf16(v[b][0], v[b][1]);
+            const uint32_t b23 = pack_bf16(v[b][2], v[b][3]);
+            dst[p * 32] = make_uint2(b01, b23);
+            v[b][0] -= bf16_lo(b01); v[b][1] -= bf16_hi(b01);
+            v[b][2] -= bf16_lo(b23); v[b][3] -= bf16_hi(b23);
+          }
+        }
       }
     }
   }
   __syncthreads();
 
-  // 3. the products, 32 rows at a time as they land; each tile and each
-  // part of x in its own sums (independent chains), each group's sums from
-  // zero, the parts added smallest first, scaled and added in float32 at the
-  // group's end (or the range's)
-  float tot[NT][4], plo[NT][PARTS][4], phi[NT][PARTS][4];
+  // 3. the products, 32 rows at a time as they land, each tile in its own
+  // sums (independent chains)
+  float tot[NT][4];
 #pragma unroll
   for (int i = 0; i < NT; ++i)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      tot[i][q] = 0.f;
+    for (int q = 0; q < 4; ++q) tot[i][q] = 0.f;
+  if constexpr (QUANT) {
+    // W4A8: one k32 product per half and tile a stage; a group's exact
+    // int32 sums converted, scaled and added in float32 at its end
+    const int nstr = range / STAGE;
+    int ilo[NT][4], ihi[NT][4];
 #pragma unroll
-      for (int p = 0; p < PARTS; ++p) plo[i][p][q] = phi[i][p][q] = 0.f;
-    }
-  for (int st = 0; st < nst; ++st) {
-    cp_async_wait(nst - 1 - st);
-    __syncwarp();
-    uint32_t r[NT][4];
-    load_a<VEC, NT>(r, ws + st * STAGE * ROWB, gaddr0 + st * STAGE * ln, ln,
-                    lane);
+    for (int i = 0; i < NT; ++i)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int j = 2 * st + half;         // k16 step in the range
-      if (j >= steps) break;
-      const uint2* blo = xs + (j * PARTS) * 32 + lane;
-      const uint2* bhi = xs + ((ksteps + j) * PARTS) * 32 + lane;
-      uint2 bl[PARTS], bh[PARTS];
-#pragma unroll
-      for (int p = 0; p < PARTS; ++p) {
-        bl[p] = blo[p * 32];
-        bh[p] = bhi[p * 32];
-      }
+      for (int q = 0; q < 4; ++q) ilo[i][q] = ihi[i][q] = 0;
+    for (int st = 0; st < nst; ++st) {
+      cp_async_wait(nst - 1 - st);
+      __syncwarp();
+      uint32_t r[NT][4];
+      load_a<VEC, NT>(r, ws + st * STAGE * ROWB, gaddr0 + st * STAGE * ln, ln,
+                      lane);
+      const uint2 bl = xs[st * 32 + lane], bh = xs[(nstr + st) * 32 + lane];
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
+        // rows 2t, 2t + 1, 2t + 8, 2t + 9 (+ 16) of columns 2g, 2g + 1
+        const uint32_t a[4] = {__byte_perm(r[i][0], r[i][1], 0x6420),
+                               __byte_perm(r[i][0], r[i][1], 0x7531),
+                               __byte_perm(r[i][2], r[i][3], 0x6420),
+                               __byte_perm(r[i][2], r[i][3], 0x7531)};
         uint32_t alo[4], ahi[4];
-        unpack(r[i][2 * half], r[i][2 * half + 1], alo, ahi);
 #pragma unroll
-        for (int p = 0; p < PARTS; ++p) {
-          mma(plo[i][p], alo, bl[p]);
-          mma(phi[i][p], ahi, bh[p]);
+        for (int q = 0; q < 4; ++q) {
+          alo[q] = __vsub4(a[q] & 0x0F0F0F0Fu, 0x08080808u);
+          ahi[q] = __vsub4((a[q] >> 4) & 0x0F0F0F0Fu, 0x08080808u);
         }
+        mma_s8(ilo[i], alo, bl);
+        mma_s8(ihi[i], ahi, bh);
       }
-      const int c = c0 + (j + 1) * KSTEP;
+      const int c = c0 + (st + 1) * STAGE;
       if (c % group == 0 || c >= c1) {
         const float* sg = ss + ((c - 1) / group - g_first) * 2 * WCOLS;
 #pragma unroll
@@ -514,18 +703,165 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
                                sg[WCOLS + 16 * i + 2 * g + 1]};
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            float lo = plo[i][PARTS - 1][q], hi = phi[i][PARTS - 1][q];
-#pragma unroll
-            for (int p = PARTS - 2; p >= 0; --p) {
-              lo += plo[i][p][q];
-              hi += phi[i][p][q];
-            }
-            tot[i][q] += lo * sl[q / 2] + hi * sh[q / 2];
-#pragma unroll
-            for (int p = 0; p < PARTS; ++p) plo[i][p][q] = phi[i][p][q] = 0.f;
+            tot[i][q] += (float)ilo[i][q] * sl[q / 2] +
+                         (float)ihi[i][q] * sh[q / 2];
+            ilo[i][q] = ihi[i][q] = 0;
           }
         }
       }
+    }
+  } else if constexpr (ROUTE == ROUTE_V2 && F32) {
+    // v2 in float32: W~ = (nib - 8) * s rounded in float32, split into
+    // TF32 parts; a k16 step's products (two 8-row steps, two halves,
+    // three each) summed from zero, then added in float32
+    float sf[NT][4];                       // s of columns 2g, 2g + 1: lo, hi
+    for (int st = 0; st < nst; ++st) {
+      cp_async_wait(nst - 1 - st);
+      __syncwarp();
+      uint32_t r[NT][4];
+      load_a<VEC, NT>(r, ws + st * STAGE * ROWB, gaddr0 + st * STAGE * ln, ln,
+                      lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 2 * st + half;       // k16 step in the range
+        if (j >= steps) break;
+        const int c = c0 + j * KSTEP;
+        if (j == 0 || c % group == 0) {
+          const float* sg = ss + (c / group - g_first) * 2 * WCOLS;
+#pragma unroll
+          for (int i = 0; i < NT; ++i) {
+            sf[i][0] = sg[16 * i + 2 * g];
+            sf[i][1] = sg[16 * i + 2 * g + 1];
+            sf[i][2] = sg[WCOLS + 16 * i + 2 * g];
+            sf[i][3] = sg[WCOLS + 16 * i + 2 * g + 1];
+          }
+        }
+        const uint2* blo = xs + (j * PARTS) * 32 + lane;
+        const uint2* bhi = xs + ((ksteps + j) * PARTS) * 32 + lane;
+        uint2 bl[4], bh[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          bl[p] = blo[p * 32];
+          bh[p] = bhi[p * 32];
+        }
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {    // packed rows 8e .. 8e + 7
+            const uint32_t rr = r[i][2 * half + e];
+            const uint32_t lo = rr & 0x0F0F0F0Fu, hi = (rr >> 4) & 0x0F0F0F0Fu;
+            float wl[4], wh[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {  // byte k: column 2g + k % 2
+              wl[k] = __fmul_rn(nib_f32(lo, k), sf[i][k % 2]);
+              wh[k] = __fmul_rn(nib_f32(hi, k), sf[i][2 + k % 2]);
+            }
+            const tf32x3::FragB fl = {{bl[e].x, bl[e].y},
+                                      {bl[2 + e].x, bl[2 + e].y}};
+            const tf32x3::FragB fh = {{bh[e].x, bh[e].y},
+                                      {bh[2 + e].x, bh[2 + e].y}};
+            tf32x3::mma3(acc, tf32x3::split_a(wl), fl);
+            tf32x3::mma3(acc, tf32x3::split_a(wh), fh);
+          }
+          tf32x3::add(tot[i], acc);
+        }
+      }
+    }
+  } else {
+    // K9: each part of x in its own sums, each group's sums from zero, the
+    // parts added smallest first, scaled and added in float32 at the
+    // group's end (or the range's). v2 in bf16: q times the bf16 scale
+    // pair of its column, one chain per half over the range
+    float plo[NT][PARTS][4], phi[NT][PARTS][4];
+    uint32_t sv[NT][4];                    // v2: bf16 s pairs: lo, hi
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int p = 0; p < PARTS; ++p) plo[i][p][q] = phi[i][p][q] = 0.f;
+    for (int st = 0; st < nst; ++st) {
+      cp_async_wait(nst - 1 - st);
+      __syncwarp();
+      uint32_t r[NT][4];
+      load_a<VEC, NT>(r, ws + st * STAGE * ROWB, gaddr0 + st * STAGE * ln,
+                      ln, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 2 * st + half;       // k16 step in the range
+        if (j >= steps) break;
+        if constexpr (ROUTE == ROUTE_V2) {
+          const int c = c0 + j * KSTEP;
+          if (j == 0 || c % group == 0) {
+            const float* sg = ss + (c / group - g_first) * 2 * WCOLS;
+#pragma unroll
+            for (int i = 0; i < NT; ++i) {
+              const float f[4] = {sg[16 * i + 2 * g], sg[16 * i + 2 * g + 1],
+                                  sg[WCOLS + 16 * i + 2 * g],
+                                  sg[WCOLS + 16 * i + 2 * g + 1]};
+#pragma unroll
+              for (int q = 0; q < 4; ++q) sv[i][q] = pack_bf16(f[q], f[q]);
+            }
+          }
+        }
+        const uint2* blo = xs + (j * PARTS) * 32 + lane;
+        const uint2* bhi = xs + ((ksteps + j) * PARTS) * 32 + lane;
+        uint2 bl[PARTS], bh[PARTS];
+#pragma unroll
+        for (int p = 0; p < PARTS; ++p) {
+          bl[p] = blo[p * 32];
+          bh[p] = bhi[p * 32];
+        }
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          uint32_t alo[4], ahi[4];
+          unpack(r[i][2 * half], r[i][2 * half + 1], alo, ahi);
+          if constexpr (ROUTE == ROUTE_V2) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {  // a0a1, a4a5: column 2g
+              alo[q] = mul_bf16x2(alo[q], sv[i][q % 2]);
+              ahi[q] = mul_bf16x2(ahi[q], sv[i][2 + q % 2]);
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < PARTS; ++p) {
+            mma(plo[i][p], alo, bl[p]);
+            mma(phi[i][p], ahi, bh[p]);
+          }
+        }
+        if constexpr (ROUTE == ROUTE_K9) {
+          const int c = c0 + (j + 1) * KSTEP;
+          if (c % group == 0 || c >= c1) {
+            const float* sg = ss + ((c - 1) / group - g_first) * 2 * WCOLS;
+#pragma unroll
+            for (int i = 0; i < NT; ++i) {
+              const float sl[2] = {sg[16 * i + 2 * g], sg[16 * i + 2 * g + 1]};
+              const float sh[2] = {sg[WCOLS + 16 * i + 2 * g],
+                                   sg[WCOLS + 16 * i + 2 * g + 1]};
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                float lo = plo[i][PARTS - 1][q], hi = phi[i][PARTS - 1][q];
+#pragma unroll
+                for (int p = PARTS - 2; p >= 0; --p) {
+                  lo += plo[i][p][q];
+                  hi += phi[i][p][q];
+                }
+                tot[i][q] += lo * sl[q / 2] + hi * sh[q / 2];
+#pragma unroll
+                for (int p = 0; p < PARTS; ++p)
+                  plo[i][p][q] = phi[i][p][q] = 0.f;
+              }
+            }
+          }
+        }
+      }
+    }
+    if constexpr (ROUTE == ROUTE_V2) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) tot[i][q] = plo[i][0][q] + phi[i][0][q];
     }
   }
 
@@ -534,13 +870,12 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
   // fragment (w NT + i) 32 + l); block r owns fragments [r F, (r + 1) F)
   // (F = the fragments over the splits, rounded up). Each block writes each
   // fragment, one float4, into slot [its rank] of its owner's shared memory;
-  // after the barrier each owner sums its slots 0, 1, ... and writes y.
-  cg::cluster_group cluster = cg::this_cluster();
-  const int splits = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
+  // after the barrier each owner sums its slots 0, 1, ... and writes y
+  // (W4A8: times the row scale).
   const int share = cdiv(WARPS * NT * 32, splits);
   float4* red4 = reinterpret_cast<float4*>(red);
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if constexpr (!QUANT)                    // W4A8 waited in step 2
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
     const int f = (warp * NT + i) * 32 + lane;
@@ -564,18 +899,21 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
     const int nn = nb + fw * WCOLS + 16 * fi + 2 * (fl / 4);
     const float vals[4] = {acc.x, acc.y, acc.z, acc.w};
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+    for (int q = 0; q < 4; ++q) {
+      float val = vals[q];
+      if constexpr (QUANT) val *= quant[(WARPS + 1) * MT + 2 * (fl % 4) + q % 2];
       if (mm + q % 2 < m && nn + q / 2 < n)
-        y[(long long)(mm + q % 2) * ln + nn + q / 2] = from_f32<T>(vals[q]);
+        y[(long long)(mm + q % 2) * ln + nn + q / 2] = from_f32<T>(val);
+    }
   }
 }
 
 namespace {  // internal linkage: each library keeps its own ``sized``
 
-template <typename T, int VEC, int NT>
+template <int ROUTE, typename T, int VEC, int NT>
 int launch(const void* x, const uint8_t* w, const float* s, void* y, int m,
            int kh, int n, int group, cudaStream_t stream) {
-  auto kernel = int4mma_kernel<T, VEC, NT>;
+  auto kernel = int4mma_kernel<ROUTE, T, VEC, NT>;
   static bool sized = false;               // once per instantiation
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -589,7 +927,8 @@ int launch(const void* x, const uint8_t* w, const float* s, void* y, int m,
   const int tiles = block_tiles(m, n, NT);
   const int range = split_range(tiles, kh, NT);
   const int splits = split_count(tiles, kh, NT);
-  const int smem = smem_bytes(Parts<T>::N, VEC, NT, range, group);
+  const int smem = route_smem_bytes(ROUTE, sizeof(T) == 4, VEC, NT, range,
+                                    group);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cdiv(n, 64 * NT), splits, cdiv(m, MT));
@@ -610,24 +949,42 @@ int launch(const void* x, const uint8_t* w, const float* s, void* y, int m,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
+// nt A tiles a warp: 1, 2 or 4, or 0 for the plan's pick_nt
+template <int ROUTE, typename T, int VEC>
 int launch_nt(const void* x, const uint8_t* w, const float* s, void* y,
-              int m, int kh, int n, int group, cudaStream_t stream) {
-  const int nt = pick_nt(m, n, kh);
-  if (nt == 4) return launch<T, VEC, 4>(x, w, s, y, m, kh, n, group, stream);
-  if (nt == 2) return launch<T, VEC, 2>(x, w, s, y, m, kh, n, group, stream);
-  return launch<T, VEC, 1>(x, w, s, y, m, kh, n, group, stream);
+              int m, int kh, int n, int group, int nt, cudaStream_t stream) {
+  if (nt == 0) nt = pick_nt(m, n, kh);
+  if (nt == 4)
+    return launch<ROUTE, T, VEC, 4>(x, w, s, y, m, kh, n, group, stream);
+  if (nt == 2)
+    return launch<ROUTE, T, VEC, 2>(x, w, s, y, m, kh, n, group, stream);
+  return launch<ROUTE, T, VEC, 1>(x, w, s, y, m, kh, n, group, stream);
 }
 
-template <typename T>
+template <int ROUTE, typename T>
 int launch_vec(const void* x, const uint8_t* w, const float* s, void* y,
-               int m, int kh, int n, int group, cudaStream_t stream) {
+               int m, int kh, int n, int group, int nt, cudaStream_t stream) {
   const uintptr_t base = reinterpret_cast<uintptr_t>(w);
   if (n % 16 == 0 && base % 16 == 0)
-    return launch_nt<T, 16>(x, w, s, y, m, kh, n, group, stream);
+    return launch_nt<ROUTE, T, 16>(x, w, s, y, m, kh, n, group, nt, stream);
   if (n % 2 == 0 && base % 2 == 0)
-    return launch_nt<T, 2>(x, w, s, y, m, kh, n, group, stream);
-  return launch_nt<T, 1>(x, w, s, y, m, kh, n, group, stream);
+    return launch_nt<ROUTE, T, 2>(x, w, s, y, m, kh, n, group, nt, stream);
+  return launch_nt<ROUTE, T, 1>(x, w, s, y, m, kh, n, group, nt, stream);
+}
+
+template <int ROUTE>
+int launch_dtype(const void* x, const void* packed, const void* scales,
+                 void* y, int m, int kh, int n, int group, int nt, int dtype,
+                 void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* w = static_cast<const uint8_t*>(packed);
+  const float* s = static_cast<const float*>(scales);
+  if (dtype == 0)
+    return launch_vec<ROUTE, float>(x, w, s, y, m, kh, n, group, nt, st);
+  if (dtype == 1)
+    return launch_vec<ROUTE, __nv_bfloat16>(x, w, s, y, m, kh, n, group, nt,
+                                            st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -635,6 +992,50 @@ int launch_vec(const void* x, const uint8_t* w, const float* s, void* y,
 }  // namespace int4mma
 
 extern "C" {
+
+#if defined(AUDAX_INT4_V2)
+
+// P5 v2 (ROUTE_V2): x [m, k] (dtype 0 = float32, 1 = bfloat16, 1 <= m <=
+// MAX_M), packed [k/2, n] uint8, scales [k/group, n] float32, y [m, n] in
+// x's dtype; all contiguous on the device, x aligned to two of its
+// elements; nt A tiles a warp (64 nt columns a block: 1, 2 or 4, with
+// k/2 <= MAX_SPLITS * max_range(nt)) or 0 for the plan's pick_nt. One
+// launch; returns cudaGetLastError() after it, or cudaErrorInvalidValue
+// for a call this body does not take (int4mma::takes).
+int int4_unpack_v2_mma(const void* x, const void* packed, const void* scales,
+                       void* y, int m, int k, int n, int group, int nt,
+                       int dtype, void* stream) {
+  using namespace int4mma;
+  const int kh = k / 2;
+  if (m < 1 || m > MAX_M || k < 2 || k % 2 || n < 1 || !takes(kh, group) ||
+      !(nt == 0 || ((nt == 1 || nt == 2 || nt == 4) &&
+                    kh <= MAX_SPLITS * max_range(nt))))
+    return (int)cudaErrorInvalidValue;
+  return launch_dtype<ROUTE_V2>(x, packed, scales, y, m, kh, n, group, nt,
+                                dtype, stream);
+}
+
+#elif defined(AUDAX_INT4_W4A8)
+
+// P4 (ROUTE_W4A8), its activation quantization inside: x [m, k] (dtype 0 =
+// float32, 1 = bfloat16, 1 <= m <= MAX_M), packed [k/2, n] uint8, scales
+// [k/group, n] float32, y [m, n] in x's dtype; all contiguous on the
+// device, x aligned to two of its elements. One launch; returns
+// cudaGetLastError() after it, or cudaErrorInvalidValue for a call this
+// body does not take (int4mma::takes_w4a8).
+int w4a8_matmul_mma(const void* x, const void* packed, const void* scales,
+                    void* y, int m, int k, int n, int group, int dtype,
+                    void* stream) {
+  using namespace int4mma;
+  const int kh = k / 2;
+  if (m < 1 || m > MAX_M || k < 2 || k % 2 || n < 1 ||
+      !takes_w4a8(kh, group))
+    return (int)cudaErrorInvalidValue;
+  return launch_dtype<ROUTE_W4A8>(x, packed, scales, y, m, kh, n, group, 0,
+                                  dtype, stream);
+}
+
+#else
 
 // x [m, k] (dtype 0 = float32, 1 = bfloat16, 1 <= m <= 256), packed [k/2, n]
 // uint8, scales [k/group, n] float32, y [m, n] in x's dtype; all
@@ -648,15 +1049,10 @@ int int4_matmul_mma(const void* x, const void* packed, const void* scales,
   if (m < 1 || m > 256 || k < 2 || k % 2 || n < 1 ||
       !int4mma::takes(kh, group))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint8_t* w = static_cast<const uint8_t*>(packed);
-  const float* s = static_cast<const float*>(scales);
-  if (dtype == 0)
-    return int4mma::launch_vec<float>(x, w, s, y, m, kh, n, group, st);
-  if (dtype == 1)
-    return int4mma::launch_vec<__nv_bfloat16>(x, w, s, y, m, kh, n, group,
-                                              st);
-  return (int)cudaErrorInvalidValue;
+  return int4mma::launch_dtype<int4mma::ROUTE_K9>(x, packed, scales, y, m, kh,
+                                                  n, group, 0, dtype, stream);
 }
+
+#endif
 
 }  // extern "C"

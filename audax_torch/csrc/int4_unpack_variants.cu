@@ -29,21 +29,25 @@
 // tile of weights into shared memory in x's dtype, rounding as the JAX body
 // does ((nib - 8) and s each cast to x's dtype, their product rounded to
 // x's dtype), then one contraction over the whole K, with no per-group
-// partials. K is streamed through shared memory in chunks of 32 packed rows
-// (64 K-rows: the low and the high nibbles): a whole [5120, 64] bf16 tile
-// would be 655 KB, over the 227 KB a block can use. A block owns 32, 64 or
-// 128 columns (the sweep's knob; one warp per 8 columns) and all of K, so
-// it needs no second pass. bfloat16 x goes through the tensor cores with
-// mma.sync.m16n8k16 (bf16 products, float32 sums), x's 8 rows padded to
-// the instruction's 16 with zero registers; float32 x runs on the CUDA
-// cores (no TF32, for parity).
+// partials. This is its first body, kept for the calls that the tensor-core
+// body (int4_matmul_mma.cu, ROUTE_V2) does not take -- a group that is not
+// a multiple of 16 packed rows, or K/2 > 8192;
+// tools/int4_unpack_probe.py:V2_BODIES routes them before any launch. K is
+// streamed through shared memory in chunks of 32 packed rows (64 K-rows:
+// the low and the high nibbles): a whole [5120, 64] bf16 tile would be
+// 655 KB, over the 227 KB a block can use. A block owns 64 columns (one
+// warp per 8) and all of K, so it needs no second pass. bfloat16 x goes
+// through the tensor cores with mma.sync.m16n8k16 (bf16 products, float32
+// sums), x's 8 rows padded to the instruction's 16 with zero registers;
+// float32 x runs on the CUDA cores (no TF32, for parity).
 //
 // What bounds them: at decode (M = 8) 16 FLOPs per weight, 32 per packed
 // byte. On an H100 SXM's data-sheet peaks (3.35 TB/s; 67 TFLOP/s float32
 // on CUDA cores, 989 TFLOP/s bf16 on tensor cores) variant 1 and variant
 // 2 in float32 are bound by their FMAs, variant 2 in bfloat16 by the
 // packed bytes and scales. Neither is tuned: variant 2 waits on two
-// barriers per chunk, with no copy in flight while it computes.
+// barriers per chunk, with no copy in flight while it computes (what its
+// tensor-core body does about that: int4_matmul_mma.cu).
 //
 // A ragged N takes narrower loads and bounds-checked tails; the weights are
 // never padded.
@@ -59,6 +63,7 @@ using int4mm::load_cols;
 using int4mm::to_f32;
 
 constexpr int KC = 32;                     // variant 2: packed rows per chunk
+constexpr int V2_BN = 64;                  // variant 2: columns per block
 
 // (nib - 8) * s rounded as the JAX body rounds in x's dtype: in float32 one
 // rounding of the product; in bfloat16 s rounded to bf16 first, then the
@@ -181,18 +186,10 @@ v2_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
 
 template <typename T, int VW>
 int launch_v2(const void* x, const uint8_t* w, const float* s, void* y,
-              int m, int k, int n, int group, int block_n, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  const dim3 grid(ceil_div(n, block_n), ceil_div(m, sizeof(T) == 2 ? 16 : 8));
-  if (block_n == 32)
-    v2_kernel<T, VW, 32><<<grid, 128, 0, st>>>(xt, w, s, yt, m, k, n, group);
-  else if (block_n == 64)
-    v2_kernel<T, VW, 64><<<grid, 256, 0, st>>>(xt, w, s, yt, m, k, n, group);
-  else if (block_n == 128)
-    v2_kernel<T, VW, 128><<<grid, 512, 0, st>>>(xt, w, s, yt, m, k, n, group);
-  else
-    return (int)cudaErrorInvalidValue;
+              int m, int k, int n, int group, cudaStream_t st) {
+  const dim3 grid(ceil_div(n, V2_BN), ceil_div(m, sizeof(T) == 2 ? 16 : 8));
+  v2_kernel<T, VW, V2_BN><<<grid, 4 * V2_BN, 0, st>>>(
+      static_cast<const T*>(x), w, s, static_cast<T*>(y), m, k, n, group);
   return (int)cudaGetLastError();
 }
 
@@ -214,13 +211,10 @@ int dispatch_v1(const void* x, const uint8_t* w, const float* s, void* y,
 
 template <typename T>
 int dispatch_v2(const void* x, const uint8_t* w, const float* s, void* y,
-                int m, int k, int n, int group, int block_n,
-                cudaStream_t st) {
-  if (n % 4 == 0)
-    return launch_v2<T, 4>(x, w, s, y, m, k, n, group, block_n, st);
-  if (n % 2 == 0)
-    return launch_v2<T, 2>(x, w, s, y, m, k, n, group, block_n, st);
-  return launch_v2<T, 1>(x, w, s, y, m, k, n, group, block_n, st);
+                int m, int k, int n, int group, cudaStream_t st) {
+  if (n % 4 == 0) return launch_v2<T, 4>(x, w, s, y, m, k, n, group, st);
+  if (n % 2 == 0) return launch_v2<T, 2>(x, w, s, y, m, k, n, group, st);
+  return launch_v2<T, 1>(x, w, s, y, m, k, n, group, st);
 }
 
 bool bad_shape(int m, int k, int n, int group) {
@@ -260,19 +254,17 @@ int int4_unpack_v1(const void* x, const void* packed, const void* scales,
   return (int)cudaErrorInvalidValue;
 }
 
-// As int4_unpack_v1 without a workspace; block_n 32, 64 or 128.
+// As int4_unpack_v1 without a workspace, at 64 columns per block.
 int int4_unpack_v2(const void* x, const void* packed, const void* scales,
-                   void* y, int m, int k, int n, int group, int block_n,
-                   int dtype, void* stream) {
+                   void* y, int m, int k, int n, int group, int dtype,
+                   void* stream) {
   if (bad_shape(m, k, n, group)) return (int)cudaErrorInvalidValue;
   const uint8_t* w = static_cast<const uint8_t*>(packed);
   const float* s = static_cast<const float*>(scales);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_v2<float>(x, w, s, y, m, k, n, group, block_n, st);
+  if (dtype == 0) return dispatch_v2<float>(x, w, s, y, m, k, n, group, st);
   if (dtype == 1)
-    return dispatch_v2<__nv_bfloat16>(x, w, s, y, m, k, n, group, block_n,
-                                      st);
+    return dispatch_v2<__nv_bfloat16>(x, w, s, y, m, k, n, group, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,7 +30,8 @@ report as JSON. Nothing is written into ``results/`` (the TPU's record).
 This module holds what the tools share: the timing of an int4 arm with its
 weights from device memory and from L2, the verdict rule, the report, the
 command line, and the registry of the tools' own kernels and launch
-counters (``probe_kernels``: P1-P5). Nothing here runs CUDA work or builds
+counters (``probe_kernels``: P1-P5, P4 and P5 v2 with both their
+bodies). Nothing here runs CUDA work or builds
 a kernel at import.
 """
 
@@ -206,10 +207,14 @@ def probe_kernels() -> Dict[str, tuple]:
                               int4_plane_probe.plane_matmul_plain),
         "w4a8_matmul": (w4a8_probe.w4a8_matmul_cuda,
                         w4a8_probe.w4a8_matmul_plain),
+        "w4a8_matmul_mma": (w4a8_probe.w4a8_matmul_mma_cuda,
+                            w4a8_probe.w4a8_matmul_plain),
         "int4_unpack_v1": (int4_unpack_probe.unpack_v1_cuda,
                            int4_unpack_probe.unpack_v1_plain),
         "int4_unpack_v2": (int4_unpack_probe.unpack_v2_cuda,
                            int4_unpack_probe.unpack_v2_plain),
+        "int4_unpack_v2_mma": (int4_unpack_probe.unpack_v2_mma_cuda,
+                               int4_unpack_probe.unpack_v2_plain),
     }
 
 

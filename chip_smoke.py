@@ -18,7 +18,7 @@ attention tools, in eleven phases, one output line each (the kernel and
 path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (nineteen), in parallel, with
+  2. build   -- nvcc of every kernel library (twenty-one), in parallel, with
      the wall time of each and of all, the registers and any spills; then
      the count of HGMMA (wgmma) instructions in the SASS of the three bf16
      tensor-core libraries, K2's and K7's and K8's (``cuobjdump
@@ -31,7 +31,9 @@ path phases print one line per case):
      registers and spills of P1's folded instantiations (fold 2 and 4 of
      K2's two tensor-core bodies), of each n_fft the FFT log-mel body is built for (Whisper's
      400-point mixed radix among them) and of each instantiation of K3's
-     and K6's sm90 body, where a spill fails;
+     and K6's sm90 body, where a spill fails; the registers and spills of
+     each instantiation of ``csrc/int4_matmul_mma.cu``'s three libraries
+     (K9, P5 v2, P4; reported);
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' and the tools' shapes: max |err| against the stated
      tolerance, kernel ms, plain ms, the one-call library yardstick where
@@ -49,7 +51,16 @@ path phases print one line per case):
      split-half body (``csrc/int4_matmul.cu``) and, in bf16,
      ``_weight_int4pack_mm`` ("not available" where the build lacks it),
      then held at ragged N (odd, 258), M = 1, 16 and 256, groups 64 and 80
-     and stacked layer views. K3, its int8 arm and K6 run on their sm90
+     and stacked layer views. The tools' P4 and P5 v2 run on their
+     tensor-core bodies on K9's skeleton (``csrc/int4_matmul_mma.cu``: v2
+     on bf16 ``mma.sync`` and in 3xTF32, W4A8 on the int8 tensor cores with
+     its activation quantization inside) through the tools' entry points
+     (``w4a8_matmul``, ``run_variant("v2")``), each call launching the
+     body its table gives once and no other, twice for the same bits: at
+     the tools' shape in both dtypes, timed beside their first bodies
+     (called directly, the A/B) and cuBLAS, then at N 1287 and M = 9; at
+     group 40 the tables send both to their first bodies (``__dp4a``, and
+     v2's 64-column body). K3, its int8 arm and K6 run on their sm90
      body (``csrc/decode_attention_sm90.cu``, the keys split over a thread
      block cluster) at the transcription and serving shapes, each call made
      twice (the same bits), slope-timed in CUDA graphs beside the first
@@ -171,8 +182,9 @@ path phases print one line per case):
      (``int4_layout_ab`` check and bench, ``int4_plane_probe``,
      ``w4a8_probe``, ``int4_unpack_probe``): each prints its rows, then one
      JSON line per tool with its rows and verdict; each tool's kernels (and
-     K9's tensor-core body, its "current" arm) must launch and no plain
-     version may;
+     K9's tensor-core body, its "current" arm) must launch, P4's and P5
+     v2's first bodies must not (the tools' shape takes the tensor-core
+     bodies) and no plain version may;
   9. attention_tools -- ``attn_headfold_probe`` (the four kernel arms and
      the product A/B), ``attn_block_probe`` (the tile set, forward and
      backward, at [8, 12, 1500, 64] bf16), ``train_step_breakdown`` at
@@ -300,9 +312,14 @@ DECODE_SM90 = ("decode_attention_sm90", "decode_attention_sm90_int8")
 #: is every tool's "current" arm)
 PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul_mma")),
                ("int4_plane_probe", ("int4_plane_matmul", "int4_matmul_mma")),
-               ("w4a8_probe", ("w4a8_matmul", "int4_matmul_mma")),
-               ("int4_unpack_probe", ("int4_unpack_v1", "int4_unpack_v2",
+               ("w4a8_probe", ("w4a8_matmul_mma", "int4_matmul_mma")),
+               ("int4_unpack_probe", ("int4_unpack_v1", "int4_unpack_v2_mma",
                                       "int4_matmul_mma")))
+#: P4's and P5 v2's first bodies (``csrc/w4a8_matmul.cu``, v2 in
+#: ``csrc/int4_unpack_variants.cu``): the tools' shape takes the
+#: tensor-core bodies (``W4A8_BODIES``, ``V2_BODIES``), so no tool run may
+#: launch them; phase 3 holds them at group 40 and times them directly
+OLD_TOOL_BODIES = ("w4a8_matmul", "int4_unpack_v2")
 #: the attention tools' runs on the card: (label, tool, its arguments, the
 #: kernels it must launch, the kernels it must not)
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
@@ -333,6 +350,9 @@ TF32X3_LIBS = ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3",
 #: the libraries that hold P1, K2's head folds on its tensor-core bodies,
 #: with the number of folded instantiations each must hold
 FOLD_LIBS = (("flash_fwd_sm90", 2), ("flash_fwd_tf32x3", 2))
+#: the libraries built from ``csrc/int4_matmul_mma.cu``: K9's tensor-core
+#: body, and P5 v2's and P4's on its skeleton
+INT4_MMA_LIBS = ("int4_matmul_mma", "int4_unpack_v2_mma", "w4a8_matmul_mma")
 #: the classification path: one frontend config per log-mel tier and body
 #: (the last is featurized only: no classifier trains on it)
 CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap_fft"),
@@ -389,6 +409,16 @@ def _ptxas_kernels(report):
             kernels.append((args, int(m.group(1)), spill))
             args, spill = "?", 0
     return kernels
+
+
+def _int4mma_kernels(report):
+    """``_ptxas_kernels`` of a library built from ``csrc/int4_matmul_mma.cu``:
+    the template arguments read as (route, dtype, vec, nt), route 0 K9, 1
+    P5 v2, 2 P4, dtype 0 float32, 1 bfloat16."""
+    import re
+    return _ptxas_kernels(re.sub(
+        r"int4mma_kernelILi(\d)E(f|13__nv_bfloat16)",
+        lambda m: f"kernelILi{m[1]}ELi{int(m[2] != 'f')}E", report))
 
 
 def _bound(flops, nbytes, flop_rate):
@@ -1280,7 +1310,9 @@ def kernel_phase(torch, rng):
 
     #: name -> (CUDA wrapper, plain version, packing, peak of the unit that
     #: does its products exactly: None = f32 CUDA cores for f32 x, bf16
-    #: tensor cores for bf16 x; int8 tensor cores for W4A8)
+    #: tensor cores for bf16 x; int8 tensor cores for W4A8). P4 and P5 v2
+    #: here are their first bodies, called directly (the A/B of
+    #: ``tool_case`` below)
     int4_kernels = {
         "int4_word_matmul": (lab.int4_matmul_v2_cuda,
                              lab.int4_matmul_v2_plain,
@@ -1294,6 +1326,23 @@ def kernel_phase(torch, rng):
                            None),
         "int4_unpack_v2": (up.unpack_v2_cuda, up.unpack_v2_plain, split_half,
                            None),
+    }
+
+    #: P4 and P5 v2 through the tools' entry points: name -> (entry point,
+    #: {body: its wrapper}, plain version, the body table and its rule, the
+    #: peak of the unit each body's products run on, by x's dtype)
+    tool_entries = {
+        "int4_unpack_v2": (
+            lambda x, q, s: up.run_variant("v2", x, q, s),
+            {"mma": up.unpack_v2_mma_cuda, "blocked": up.unpack_v2_cuda},
+            up.unpack_v2_plain, up.V2_BODIES, up.v2_body,
+            {"mma": (TF32X3_FLOPS, BF16_FLOPS),
+             "blocked": (F32_FLOPS, BF16_FLOPS)}),
+        "w4a8_matmul": (
+            wp.w4a8_matmul,
+            {"mma": wp.w4a8_matmul_mma_cuda, "dp4a": wp.w4a8_matmul_cuda},
+            wp.w4a8_matmul_plain, wp.W4A8_BODIES, wp.w4a8_body,
+            {"mma": (INT8_OPS, INT8_OPS), "dp4a": (INT8_OPS, INT8_OPS)}),
     }
 
     def int4_bound(m, k_dim, n, dtype, weights, rate):
@@ -1483,6 +1532,78 @@ def kernel_phase(torch, rng):
                 int4_case(name, "", k_dim, n, dtype, tol,
                           (k_dim, n) == (1280, 5120)
                           and dtype == torch.bfloat16, gen)
+
+    def tool_case(name, what, m, k_dim, n, dtype, tol, timed=False,
+                  main=False, group=128, gen=None):
+        """P4 or P5 v2 through its tool's entry point: each of two calls
+        launches the body the tool's table gives once and no other, and
+        both give the same bits; against the plain version at [m, K] x
+        [K, N]. ``timed``: the body's time from HBM and L2-warm beside
+        cuBLAS on the dequantized weights in x's dtype."""
+        entry, wrappers, plain_fn, bodies, body_of, rates = tool_entries[name]
+        q, s = i4.quantize_int4(torch.randn(k_dim, n, device=dev,
+                                            generator=gen) / k_dim ** 0.5,
+                                group=group)
+        group = 2 * q.shape[0] // s.shape[0]
+        body = body_of(k_dim, group)
+        x = torch.randn(m, k_dim, device=dev, generator=gen).to(dtype)
+        outs = []
+        for _ in range(2):
+            before = {b: fn.launches for b, fn in wrappers.items()}
+            outs.append(entry(x, q, s))
+            runs = {b: fn.launches - before[b] for b, fn in wrappers.items()}
+            if runs != {b: int(b == body) for b in wrappers}:
+                raise AssertionError(f"{name} {what}: launches {runs}, not "
+                                     f"one of the {body} body alone")
+        got = outs[0]
+        if not torch.equal(got, outs[1]):
+            raise AssertionError(f"{name} {what}: two calls differ")
+        ref = plain_fn(x, q, s)
+        ref_max = float(ref.float().abs().max())
+        e = err(got, ref)
+        rel = e / ref_max
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        label = (f"{bodies[body][0]}[{what} {dt} [{m},{k_dim}]x[{k_dim},{n}] "
+                 f"group {group}]")
+        if not timed:
+            if not rel <= tol:
+                raise AssertionError(f"{label}: max rel err {rel:.3e} > "
+                                     f"{tol:.0e}")
+            print(f"[kernels] {label}: max_rel_err {rel:.3e} (tol {tol:.0e}),"
+                  f" max_abs_err {e:.3e}, bit-identical twice, one launch "
+                  f"of the {body} body a call", flush=True)
+            return
+        cold, warm = arm_times(wrappers[body], x, (q, s))
+        plain = _time_ms(torch, lambda: plain_fn(x, q, s))
+        lib, _ = arm_times(torch.matmul, x,
+                           (i4.dequantize_int4(q, s).to(dtype),))
+        rate = rates[body][dtype == torch.bfloat16]
+        bound = int4_bound(m, k_dim, n, dtype, (q, s), rate)
+        _report(f"{label} (max_abs_err {e:.3e}, bit-identical twice, one "
+                f"launch of the {body} body a call; ms from HBM, L2-warm "
+                f"{1e3 * warm:.4f})", rel, tol, 1e3 * cold, plain, 1e3 * lib,
+                bound, "max_rel_err")
+        if main:
+            out[bodies[body][0]] = dict(max_abs_err=e, ms=1e3 * cold,
+                                        plain_ms=plain, library_ms=1e3 * lib,
+                                        bound=bound)
+
+    # P4 and P5 v2 on their tensor-core bodies at the tools' shape (the
+    # main case bf16, as the tools run them), ragged N and M = 9; at group
+    # 40 (not a whole k16 / k32 step) on their first bodies. On their own
+    # generator: the later phases keep the inputs they drew before these
+    # cases existed
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for name in ("int4_unpack_v2", "w4a8_matmul"):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = (TOL_BF16 if dtype == torch.bfloat16 else
+                   TOL_W4A8_F32 if name == "w4a8_matmul" else TOL_INT4_F32)
+            tool_case(name, "tools", 8, 1280, 5120, dtype, tol, timed=True,
+                      main=dtype == torch.bfloat16, gen=gen)
+            tool_case(name, "ragged", 8, 1280, 1287, dtype, tol, gen=gen)
+            tool_case(name, "rows", 9, 1280, 5120, dtype, tol, gen=gen)
+            tool_case(name, "group 40", 8, 1280, 1287, dtype, tol, group=40,
+                      gen=gen)
     return out
 
 
@@ -2597,6 +2718,11 @@ def probes_phase(torch):
         wall = time.perf_counter() - t0
         counts = {**launch_counts(), **probe_launch_counts()}
         _check_launches(counts, kernels, f"{name} tool")
+        ran = {k: counts[k]["cuda"] for k in OLD_TOOL_BODIES
+               if counts[k]["cuda"]}
+        if ran:
+            raise AssertionError(f"the {name} tool launched the first "
+                                 f"bodies {ran}")
         print(json.dumps({
             "probe": name, "seconds": round(wall, 3),
             "verdicts": [r["verdict"] for r in reports],
@@ -2804,6 +2930,18 @@ def main() -> int:
         print("[build] decode_attention_sm90 was built before: its "
               "registers and spills are not reported", flush=True)
 
+    # K9's tensor-core source and the int4 tools' bodies built from it:
+    # registers and spills of each instantiation
+    for name in INT4_MMA_LIBS:
+        if name not in reports:
+            print(f"[build] {name} was built before: its registers and "
+                  "spills are not reported", flush=True)
+            continue
+        print(f"[build] {name} ptxas (route,dtype,vec,nt: registers, spill "
+              "bytes): " + "; ".join(f"{a}: {r}, {sp}" for a, r, sp in
+                                     _int4mma_kernels(reports[name])),
+              flush=True)
+
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
     precision_check(torch)
@@ -2884,7 +3022,11 @@ def main() -> int:
                "int4_unpack_v1": ("audax_torch/csrc/int4_unpack_variants.cu",
                                   "tools/int4_unpack_probe.py:105"),
                "int4_unpack_v2": ("audax_torch/csrc/int4_unpack_variants.cu",
-                                  "tools/int4_unpack_probe.py:105")}
+                                  "tools/int4_unpack_probe.py:105"),
+               "int4_unpack_v2_mma": ("audax_torch/csrc/int4_matmul_mma.cu",
+                                      "tools/int4_unpack_probe.py:105"),
+               "w4a8_matmul_mma": ("audax_torch/csrc/int4_matmul_mma.cu",
+                                   "tools/w4a8_probe.py:66")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
