@@ -1,7 +1,7 @@
 // K9 redesigned for Hopper (sm_90a): the int4 weight-only decode matmul in
 // one launch, its products on the tensor cores (mma.sync). On the same
-// skeleton, two int4 tool kernels redesigned: P5 v2 and P4 (see "Routes"
-// below).
+// skeleton, the int4 tool kernels redesigned: P5 v1, P5 v2, P4 (see
+// "Routes" below) and the word kernel of P2 and P3 (see "The word route").
 //
 // Replaces the TPU kernel audax/ops/int4_matmul.py:_int4_kernel (called by
 // int4_matmul). For x [M, K] (float32 or bfloat16, M <= 256), packed uint8
@@ -87,6 +87,18 @@
 //
 // ROUTE_K9: K9, as above (library int4_matmul_mma).
 //
+// ROUTE_V1 (library int4_unpack_v1_mma, -DAUDAX_INT4_V1) replaces the TPU
+// kernel tools/int4_unpack_probe.py:_kernel_v1 (called by run_variant):
+// K9's function, layout and per-group sums, its nibbles unpacked by mask
+// and shift with no widen. Here that is K9 with one difference, how a
+// nibble pair becomes a bf16 pair: no byte permute, one mask and magic
+// (a lop3) per pair, (r >> s) & 0x000F000F | 0x43004300. Bytes 0 and 2 of
+// an ldmatrix register are column 2g at packed rows 2t and 2t + 1, bytes 1
+// and 3 column 2g + 1, so s = 0, 8 give the low nibbles of columns 2g and
+// 2g + 1 and s = 4, 12 the high nibbles; K9's bf16x2 subtraction of 136
+// leaves nib - 8. The A fragments are K9's bit for bit, so is y. Bound as
+// K9 (1.0 us of bytes at [8, 1280] x [1280, 5120]).
+//
 // ROUTE_V2 (library int4_unpack_v2_mma, -DAUDAX_INT4_V2) replaces the TPU
 // kernel tools/int4_unpack_probe.py:_kernel_v2 (called by run_variant):
 // the weights dequantized in x's dtype, W~[k, n] = (nib - 8) * s[g(k), n]
@@ -131,6 +143,46 @@
 // by s_g and added in float32 at the group's end; the owner applies xs
 // after the cluster sum. It takes groups of whole k32 steps (takes_w4a8).
 // Bound as v2 (1.0 us of bytes; the products 0.05 us).
+//
+// The word route (library int4_word_matmul_mma, -DAUDAX_INT4_WORD;
+// int4word_kernel) replaces two TPU kernels of one function over one
+// layout: tools/int4_layout_ab.py:_int4v2_kernel (called by
+// int4_matmul_v2; the group divides the plane K/8) and
+// tools/int4_plane_probe.py:_plane_kernel (called by plane_matmul; the
+// group divides K, so it may straddle two planes). For x [M, K], words
+// int32 [K/8, N] (nibble p of word (c, n) holds K-row p K/8 + c as q + 8)
+// and float32 scales [K/group, N]:
+//
+//   y[m, n] = sum_k x[m, k] * (nib[k, n] - 8) * s[k / group, n]
+//
+// in x's dtype, summed in float32. K9's skeleton and split plan with words
+// for rows: a warp's 16 nt columns of a word row are 64 nt contiguous
+// bytes, copied by 16-byte cp.async (one commit group per 16 word rows,
+// the scales of the range's groups of all eight planes with the first, 16
+// bytes at a time where the rows are aligned), swizzled so that the reads
+// below hit 32 banks (wswizzle); a row that is not 16-byte
+// aligned (N % 4 != 0) as the 4 nt + 1 aligned chunks that cover it, read
+// in 4-byte pieces at its offset. One word holds a column's eight planes
+// at one word row, so one read feeds eight k16 products, one a plane.
+// The k order inside a step is free as long as x's B fragments are staged
+// in it: k slot 2t + e (+ 8) is word row t + 4e (+ 8) of the step, so
+// lane (g, t) reads with one 8-byte load a row's words of columns 2g and
+// 2g + 1 (A rows g, g + 8, as K9) at word rows t, t + 4, t + 8, t + 12.
+// Two byte permutes of the words of k slots 2t, 2t + 1 (0x5410, 0x7632)
+// give planes 0-3 and 4-7 of the pair in the two halves of a register;
+// plane p's bf16 pair is then V1's mask and magic at s = 4 (p % 4), and
+// K9's subtraction of 136. B for plane p: x[m0 + g][p K/8 + c + t + 4e
+// (+ 8)], float32 x as K9's three bf16 parts. Groups: with group % 16 ==
+// 0 and (K/8) % 16 == 0 no k16 step of any plane straddles a group
+// (plane p's step at word row c is K-rows p K/8 + c ..+ 16); each step's
+// words stay in registers while the planes are walked, each plane's
+// products summed from zero over the step, scaled by its own group's
+// scales of the columns and added in float32 -- one live partial per part,
+// not eight. At [8, 1280] x [1280, 5120] the words and the group-32 scales
+// bound it (3.28 + 0.82 MB: 1.2 us); the products take at least 0.1 us in
+// bf16 (three times that in float32). Calls it does not take (takes_word)
+// return cudaErrorInvalidValue; tools/int4_layout_ab.py:WORD_BODIES sends
+// them to the first body (csrc/int4_word_matmul.cu) before any launch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -160,6 +212,11 @@ constexpr int MAX_M = MT * 65535;          // rows of x: the grid's z axis
 constexpr int ROUTE_K9 = 0;
 constexpr int ROUTE_V2 = 1;
 constexpr int ROUTE_W4A8 = 2;
+constexpr int ROUTE_V1 = 3;
+constexpr int ROUTE_WORD = 4;              // int4word_kernel (the word route)
+// the word route: nibbles a word, and word rows x 16 columns a warp stages
+constexpr int PLANES = 8;
+constexpr int MAX_WRANGE = 256;
 
 __host__ __device__ constexpr int cdiv(int a, int b) {
   return (a + b - 1) / b;
@@ -181,39 +238,58 @@ __host__ __device__ constexpr int takes_w4a8(int kh, int group) {
   return group > 0 && group % STAGE == 0 && kh % group == 0 &&
          kh <= MAX_SPLITS * MAX_RANGE;
 }
-// A warp owns nt A tiles (16 nt output columns), a block 64 nt; a block
-// stages at most MAX_RANGE / nt packed rows.
-__host__ __device__ constexpr int max_range(int nt) { return MAX_RANGE / nt; }
+// The split plan, one for every route. A warp owns nt A tiles (16 nt output
+// columns), a block 64 nt. kh counts the rows a split runs over: packed
+// rows (K/2) on K9's routes, word rows (K/8) on the word route. A block
+// stages at most plan_rows(route) / nt of them, and a split's rows are a
+// multiple of plan_step(route): one ldmatrix.x4 of packed rows, one k16
+// step of word rows.
+__host__ __device__ constexpr int plan_rows(int route) {
+  return route == ROUTE_WORD ? MAX_WRANGE : MAX_RANGE;
+}
+__host__ __device__ constexpr int plan_step(int route) {
+  return route == ROUTE_WORD ? KSTEP : STAGE;
+}
+__host__ __device__ constexpr int max_range(int route, int nt) {
+  return plan_rows(route) / nt;
+}
 // Blocks of one split: column tiles times 8-row tiles of x.
 __host__ __device__ constexpr int block_tiles(int m, int n, int nt) {
   return cdiv(n, 64 * nt) * cdiv(m, MT);
 }
 // Splits wanted: enough blocks to fill the card, at least kh / max_range,
-// at most a cluster and one STAGE of rows each.
-__host__ __device__ constexpr int want_splits(int tiles, int kh, int nt) {
-  return clampi(cdiv(TARGET_BLOCKS, tiles), cdiv(kh, max_range(nt)),
-                mini(MAX_SPLITS, cdiv(kh, STAGE)));
+// at most a cluster and one step of rows each.
+__host__ __device__ constexpr int want_splits(int route, int tiles, int kh,
+                                              int nt) {
+  return clampi(cdiv(TARGET_BLOCKS, tiles), cdiv(kh, max_range(route, nt)),
+                mini(MAX_SPLITS, cdiv(kh, plan_step(route))));
 }
-// Packed rows per split (a multiple of STAGE) and the splits that gives.
-__host__ __device__ constexpr int split_range(int tiles, int kh, int nt) {
-  return cdiv(cdiv(kh, want_splits(tiles, kh, nt)), STAGE) * STAGE;
+// Rows per split (a multiple of the step) and the splits that gives.
+__host__ __device__ constexpr int split_range(int route, int tiles, int kh,
+                                              int nt) {
+  return cdiv(cdiv(kh, want_splits(route, tiles, kh, nt)), plan_step(route)) *
+         plan_step(route);
 }
-__host__ __device__ constexpr int split_count(int tiles, int kh, int nt) {
-  return cdiv(kh, split_range(tiles, kh, nt));
+__host__ __device__ constexpr int split_count(int route, int tiles, int kh,
+                                              int nt) {
+  return cdiv(kh, split_range(route, tiles, kh, nt));
 }
-__host__ __device__ constexpr int grid_blocks(int m, int n, int kh, int nt) {
-  return block_tiles(m, n, nt) * split_count(block_tiles(m, n, nt), kh, nt);
+__host__ __device__ constexpr int grid_blocks(int route, int m, int n, int kh,
+                                              int nt) {
+  return block_tiles(m, n, nt) *
+         split_count(route, block_tiles(m, n, nt), kh, nt);
 }
 // The widest warp tile whose grid (tiles x splits) still gives every SM a
-// block and whose K/2 fits a cluster: a block's row run is its 64 nt
+// block and whose rows fit a cluster: a block's row run is its 64 nt
 // columns, so wider tiles read longer runs and split x's staging over more
 // columns; on the card 4 wins at 1280 -> 5120 and the tied logits, 2 at
 // 5120 -> 1280, 1 at 1280 -> 1280 (too few blocks at 2).
-__host__ __device__ constexpr int pick_nt(int m, int n, int kh) {
-  return grid_blocks(m, n, kh, 4) >= SMS && kh <= MAX_SPLITS * max_range(4)
+__host__ __device__ constexpr int pick_nt(int route, int m, int n, int kh) {
+  return grid_blocks(route, m, n, kh, 4) >= SMS &&
+                 kh <= MAX_SPLITS * max_range(route, 4)
              ? 4
-             : grid_blocks(m, n, kh, 2) >= SMS &&
-                       kh <= MAX_SPLITS * max_range(2)
+             : grid_blocks(route, m, n, kh, 2) >= SMS &&
+                       kh <= MAX_SPLITS * max_range(route, 2)
                    ? 2
                    : 1;
 }
@@ -262,6 +338,46 @@ __host__ __device__ constexpr int route_smem_bytes(int route, int f32, int vec,
                                                   int group) {
   return smem_bytes(route_parts(route, f32), vec, nt, range, group) +
          4 * quant_floats(route);
+}
+// The word route (int4word_kernel) runs the split plan above over word
+// rows kw = K/8; a warp stages at most MAX_WRANGE / nt of them (16 KB). It
+// takes groups of whole k16 steps in every plane.
+__host__ __device__ constexpr int takes_word(int kw, int group) {
+  return group > 0 && group % KSTEP == 0 && kw % KSTEP == 0 &&
+         PLANES * kw % group == 0 && kw <= MAX_SPLITS * MAX_WRANGE;
+}
+// Its shared memory: x's B fragments ([plane][k16 step][part][lane]
+// uint2), each warp's word rows (its 4 nt chunks of a row, or the 4 nt + 1
+// aligned chunks that cover an unaligned one), each warp's scales
+// ([plane][group][16 nt]: a plane's rows of a range meet at most
+// cdiv(range, group) + 1 groups) and K9's slots of the cluster's sums.
+__host__ __device__ constexpr int wx_bytes(int parts, int range) {
+  return PLANES * 16 * parts * range;
+}
+__host__ __device__ constexpr int wrow_bytes(int vec, int nt) {
+  return vec == 16 ? 64 * nt : 64 * nt + 16;
+}
+__host__ __device__ constexpr int ww_bytes(int vec, int nt, int range) {
+  return WARPS * range * wrow_bytes(vec, nt);
+}
+__host__ __device__ constexpr int wgroups(int range, int group) {
+  return cdiv(range, group) + 1;
+}
+__host__ __device__ constexpr int wscale_floats(int range, int group,
+                                               int nt) {
+  return PLANES * wgroups(range, group) * 16 * nt;
+}
+__host__ __device__ constexpr int word_smem_bytes(int f32, int vec, int nt,
+                                                 int range, int group) {
+  return wx_bytes(1 + 2 * f32, range) + ww_bytes(vec, nt, range) +
+         4 * WARPS * wscale_floats(range, group, nt) + 4 * red_floats(nt);
+}
+// The 16-byte chunk of word row r where chunk c of an aligned row is
+// stored. Lanes (g, t) of a half warp read 8 bytes of chunk 4i + g / 2 at
+// rows t (+ 4 e): the four rows' two chunks are XORed onto eight distinct
+// 16-byte bank groups (at nt 1 two rows share a 128-byte bank line).
+__host__ __device__ constexpr int wswizzle(int r, int c, int nt) {
+  return nt == 1 ? c ^ 2 * (r / 2 % 2) : c ^ 2 * (r % 4);
 }
 // The 16-byte chunk of row r where chunk c of an aligned row is stored: rows
 // 128 / (16 nt) apart share banks, so their chunks are XORed apart and an
@@ -343,6 +459,26 @@ __device__ __forceinline__ void unpack(uint32_t r0, uint32_t r1,
   hi[1] = sub136(__byte_perm(h0, 0x43434343u, 0x4341));
   hi[2] = sub136(__byte_perm(h1, 0x43434343u, 0x4240));
   hi[3] = sub136(__byte_perm(h1, 0x43434343u, 0x4341));
+}
+
+// V1 and the word route: the bf16 pair nib - 8 of the nibbles at bits s
+// and 16 + s of r, by mask and magic (one lop3) and K9's subtraction
+__device__ __forceinline__ uint32_t nib_pair(uint32_t r, int s) {
+  return sub136(((r >> s) & 0x000F000Fu) | 0x43004300u);
+}
+// ROUTE_V1's unpack: K9's A fragments with no byte permute (bytes 0, 2 of
+// a register: column 2g; bytes 1, 3: column 2g + 1)
+__device__ __forceinline__ void unpack_v1(uint32_t r0, uint32_t r1,
+                                          uint32_t (&lo)[4],
+                                          uint32_t (&hi)[4]) {
+  lo[0] = nib_pair(r0, 0);
+  lo[1] = nib_pair(r0, 8);
+  lo[2] = nib_pair(r1, 0);
+  lo[3] = nib_pair(r1, 8);
+  hi[0] = nib_pair(r0, 4);
+  hi[1] = nib_pair(r0, 12);
+  hi[2] = nib_pair(r1, 4);
+  hi[3] = nib_pair(r1, 12);
 }
 
 // c += a * b, one m16n8k16 bf16 product with float32 accumulation
@@ -446,6 +582,59 @@ __device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a,
   const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(p));
   a = bf16_lo(v);
   b = bf16_hi(v);
+}
+
+// The sum of a tile's partials over the cluster's blocks in block order,
+// written to y (times the row scale rs[8] where SCALED). A block's partial
+// is WARPS * NT * 32 fragments of 4 floats (tile i of warp w, lane l:
+// fragment (w NT + i) 32 + l); block r owns fragments [r F, (r + 1) F) (F
+// = the fragments over the splits, rounded up). Each block writes each
+// fragment, one float4, into slot [its rank] of its owner's shared memory
+// (red); after the barrier each owner sums its slots 0, 1, ... and writes
+// y. Every block of the cluster must have started (a wait on the
+// cluster's barrier) before it is called.
+template <bool SCALED, int NT, typename T>
+__device__ __forceinline__ void cluster_sum(const float (&tot)[NT][4],
+                                            float* red, const float* rs,
+                                            T* __restrict__ y, int m, int n,
+                                            int m0, int nb,
+                                            cg::cluster_group& cluster) {
+  constexpr int WCOLS = 16 * NT;
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int share = cdiv(WARPS * NT * 32, splits);
+  float4* red4 = reinterpret_cast<float4*>(red);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int f = (warp * NT + i) * 32 + lane;
+    float4* slot = cluster.map_shared_rank(red4, f / share);
+    slot[rank * share + f % share] =
+        make_float4(tot[i][0], tot[i][1], tot[i][2], tot[i][3]);
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  for (int j = threadIdx.x; j < share; j += THREADS) {
+    const int f = rank * share + j;
+    if (f >= WARPS * NT * 32) break;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < splits; ++q) {
+      const float4 v = red4[q * share + j];
+      acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+    }
+    // fragment f: rows 2t, 2t + 1 of columns 2g, 2g + 1 of its tile
+    const int fl = f % 32, fw = f / (32 * NT), fi = (f / 32) % NT;
+    const int mm = m0 + 2 * (fl % 4);
+    const int nn = nb + fw * WCOLS + 16 * fi + 2 * (fl / 4);
+    const float vals[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float val = vals[q];
+      if constexpr (SCALED) val *= rs[2 * (fl % 4) + q % 2];
+      if (mm + q % 2 < m && nn + q / 2 < n)
+        y[(long long)(mm + q % 2) * n + nn + q / 2] = from_f32<T>(val);
+    }
+  }
 }
 
 // grid (column tiles, splits, 8-row tiles of x), cluster (1, splits, 1)
@@ -557,8 +746,6 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
   }
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int splits = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
 
   // 2. x's B fragments in shared memory; a thread's next XN entries are
   // loaded before it stages any
@@ -594,6 +781,7 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
     asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
     if (threadIdx.x < MT) {
+      const int splits = (int)cluster.num_blocks();
       float a = 0.f;
       for (int q = 0; q < splits; ++q)
         a = fmaxf(a, cluster.map_shared_rank(bmax, q)[threadIdx.x]);
@@ -769,9 +957,9 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
       }
     }
   } else {
-    // K9: each part of x in its own sums, each group's sums from zero, the
-    // parts added smallest first, scaled and added in float32 at the
-    // group's end (or the range's). v2 in bf16: q times the bf16 scale
+    // K9 (and V1): each part of x in its own sums, each group's sums from
+    // zero, the parts added smallest first, scaled and added in float32 at
+    // the group's end (or the range's). v2 in bf16: q times the bf16 scale
     // pair of its column, one chain per half over the range
     float plo[NT][PARTS][4], phi[NT][PARTS][4];
     uint32_t sv[NT][4];                    // v2: bf16 s pairs: lo, hi
@@ -816,7 +1004,10 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
         for (int i = 0; i < NT; ++i) {
           uint32_t alo[4], ahi[4];
-          unpack(r[i][2 * half], r[i][2 * half + 1], alo, ahi);
+          if constexpr (ROUTE == ROUTE_V1)
+            unpack_v1(r[i][2 * half], r[i][2 * half + 1], alo, ahi);
+          else
+            unpack(r[i][2 * half], r[i][2 * half + 1], alo, ahi);
           if constexpr (ROUTE == ROUTE_V2) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) {  // a0a1, a4a5: column 2g
@@ -830,7 +1021,7 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
             mma(phi[i][p], ahi, bh[p]);
           }
         }
-        if constexpr (ROUTE == ROUTE_K9) {
+        if constexpr (ROUTE == ROUTE_K9 || ROUTE == ROUTE_V1) {
           const int c = c0 + (j + 1) * KSTEP;
           if (c % group == 0 || c >= c1) {
             const float* sg = ss + ((c - 1) / group - g_first) * 2 * WCOLS;
@@ -865,56 +1056,282 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
     }
   }
 
-  // 4. the sum over the cluster's blocks in block order. A block's partial
-  // is WARPS * NT * 32 fragments of 4 floats (tile i of warp w, lane l:
-  // fragment (w NT + i) 32 + l); block r owns fragments [r F, (r + 1) F)
-  // (F = the fragments over the splits, rounded up). Each block writes each
-  // fragment, one float4, into slot [its rank] of its owner's shared memory;
-  // after the barrier each owner sums its slots 0, 1, ... and writes y
-  // (W4A8: times the row scale).
-  const int share = cdiv(WARPS * NT * 32, splits);
-  float4* red4 = reinterpret_cast<float4*>(red);
+  // 4. the sum over the cluster's blocks (W4A8: times the row scale)
   if constexpr (!QUANT)                    // W4A8 waited in step 2
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  cluster_sum<QUANT, NT>(tot, red, quant + (WARPS + 1) * MT, y, m, n, m0, nb,
+                         cluster);
+}
+
+// a / d for 0 <= a < 2^22 and d > 0 without an integer division (a chain
+// of some twenty instructions, which on the word route's critical path
+// showed in the call's time): a times inv = 1 / d rounded to nearest is
+// within (a / d) 2^-23 < 1/2 of a / d, so its truncation is off by at most
+// one, which the two products correct
+__device__ __forceinline__ int div_by(int a, int d, float inv) {
+  int q = __float2int_rz(__int2float_rz(a) * inv);
+  q -= q * d > a;
+  q += (q + 1) * d <= a;
+  return q;
+}
+
+// one value of x as float32
+__device__ __forceinline__ float load_one(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_one(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// The word route's A registers of one k16 step of a warp, from this warp's
+// copy of the step's 16 word rows at ``rows`` (ROWB bytes a row, the first
+// at global address gaddr0): a[i][q][h] is A register q of tile i (q = 0:
+// column 2g at k slots 2t, 2t + 1 = word rows t, t + 4; 1: column 2g + 1;
+// 2, 3: the same at k slots 2t + 8, 2t + 9 = word rows t + 8, t + 12)
+// holding planes 4h .. 4h + 3 of its two words, the first k slot's in the
+// low half. VEC 16: one 8-byte read of a row's swizzled chunk (columns 2g,
+// 2g + 1); VEC 4: each row at its offset in the 4 nt + 1 aligned chunks
+// that cover it, in 4-byte reads.
+template <int VEC, int NT>
+__device__ __forceinline__ void load_words(uint32_t (&a)[NT][4][2],
+                                           const uint8_t* rows,
+                                           uintptr_t gaddr0,
+                                           long long rowstride, int lane) {
+  constexpr int ROWB = wrow_bytes(VEC, NT);
+  const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
-    const int f = (warp * NT + i) * 32 + lane;
-    float4* slot = cluster.map_shared_rank(red4, f / share);
-    slot[rank * share + f % share] =
-        make_float4(tot[i][0], tot[i][1], tot[i][2], tot[i][3]);
-  }
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-  for (int j = threadIdx.x; j < share; j += THREADS) {
-    const int f = rank * share + j;
-    if (f >= WARPS * NT * 32) break;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int q = 0; q < splits; ++q) {
-      const float4 v = red4[q * share + j];
-      acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+    uint32_t u[4][2];                      // [word row t + 4e][column]
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = t + 4 * e;
+      if constexpr (VEC == 16) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            rows + ROWB * r + 16 * wswizzle(r, 4 * i + g / 2, NT) +
+            8 * (g % 2));
+        u[e][0] = v.x;
+        u[e][1] = v.y;
+      } else {
+        const uint32_t* p = reinterpret_cast<const uint32_t*>(
+                                rows + ROWB * r +
+                                (int)((gaddr0 + r * rowstride) & 15)) +
+                            16 * i + 2 * g;
+        u[e][0] = p[0];
+        u[e][1] = p[1];
+      }
     }
-    // fragment f: rows 2t, 2t + 1 of columns 2g, 2g + 1 of its tile
-    const int fl = f % 32, fw = f / (32 * NT), fi = (f / 32) % NT;
-    const int mm = m0 + 2 * (fl % 4);
-    const int nn = nb + fw * WCOLS + 16 * fi + 2 * (fl / 4);
-    const float vals[4] = {acc.x, acc.y, acc.z, acc.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      float val = vals[q];
-      if constexpr (QUANT) val *= quant[(WARPS + 1) * MT + 2 * (fl % 4) + q % 2];
-      if (mm + q % 2 < m && nn + q / 2 < n)
-        y[(long long)(mm + q % 2) * ln + nn + q / 2] = from_f32<T>(val);
+      const uint32_t w0 = u[2 * (q / 2)][q % 2], w1 = u[2 * (q / 2) + 1][q % 2];
+      a[i][q][0] = __byte_perm(w0, w1, 0x5410);
+      a[i][q][1] = __byte_perm(w0, w1, 0x7632);
     }
   }
 }
 
+// The word route (see above): x [m, 8 kw], words [kw, n], scales
+// [8 kw / group, n]. grid (column tiles, splits, 8-row tiles of x),
+// cluster (1, splits, 1); each block owns ``range`` word rows.
+template <typename T, int VEC, int NT>
+__global__ void __launch_bounds__(THREADS)
+int4word_kernel(const T* __restrict__ x, const uint32_t* __restrict__ w,
+                const float* __restrict__ s, T* __restrict__ y, int m, int kw,
+                int n, int group, int range) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int PARTS = 1 + 2 * F32;
+  constexpr int ROWB = wrow_bytes(VEC, NT);
+  constexpr int NCH = ROWB / 16;           // chunks a warp copies per row
+  constexpr int WCOLS = 16 * NT, BCOLS = WARPS * WCOLS;
+  extern __shared__ __align__(16) uint8_t smem[];
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int c0 = blockIdx.y * range, c1 = min(kw, c0 + range);
+  const int steps = (c1 - c0) / KSTEP, ksteps = range / KSTEP;
+  const int nb = blockIdx.x * BCOLS;       // the block's first column
+  const int nw = nb + warp * WCOLS;        // this warp's first column
+  const int m0 = blockIdx.z * MT;
+  const int ngw = wgroups(range, group);
+  const int sfl = wscale_floats(range, group, NT);
+  const long long ln = n, k = (long long)PLANES * kw;
+  const long long rowstride = 4 * ln;      // bytes of a word row
+  const float inv_group = __frcp_rn((float)group);
+  const float inv_steps = __frcp_rn((float)steps);
+  int g0[PLANES];                          // each plane's first group
+#pragma unroll
+  for (int p = 0; p < PLANES; ++p)
+    g0[p] = div_by(p * kw + c0, group, inv_group);
+
+  uint2* xs = reinterpret_cast<uint2*>(smem);
+  uint8_t* ws = smem + wx_bytes(PARTS, range) + warp * range * ROWB;
+  float* ss = reinterpret_cast<float*>(smem + wx_bytes(PARTS, range) +
+                                       ww_bytes(VEC, NT, range)) + warp * sfl;
+  float* red = reinterpret_cast<float*>(smem + wx_bytes(PARTS, range) +
+                                        ww_bytes(VEC, NT, range)) +
+               WARPS * sfl;
+
+  // 0. x's rows m0 .. m0 + 7 at every plane's word rows of the range (rows
+  // past M are 0): entry [plane][step][lane] is x[.][p kw + c + t + 4e],
+  // e = 0 .. 3; a thread's first XB entries into registers, so that their
+  // latency overlaps the copies
+  const int entries = PLANES * steps * 32;
+  float v[XB][4];
+  auto load_x = [&](int e0) {
+#pragma unroll
+    for (int b = 0; b < XB; ++b) {
+      const int e = e0 + b * THREADS, el = e % 32;
+      const int p = div_by(e / 32, steps, inv_steps);
+      const int j = e / 32 - p * steps;
+      const int mm = m0 + el / 4;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[b][q] = 0.f;
+      if (e < entries && mm < m) {
+        const T* xr = x + mm * k + p * kw + c0 + j * KSTEP + el % 4;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[b][q] = load_one(xr + 4 * q);
+      }
+    }
+  };
+  load_x(threadIdx.x);
+
+  // 1. this warp's 16 nt columns of word rows [c0, c1): one commit group
+  // per k16 step, neighbouring lanes on a row's neighbouring chunks; the
+  // scales of every plane's groups of the range with the first
+  const uint8_t* wb = reinterpret_cast<const uint8_t*>(w);
+  const uint8_t* w_end = wb + kw * rowstride;
+  const uint8_t* w_lo = reinterpret_cast<const uint8_t*>(   // holds w[0]
+      reinterpret_cast<uintptr_t>(wb) & ~static_cast<uintptr_t>(15));
+  const uintptr_t gaddr0 = reinterpret_cast<uintptr_t>(w + c0 * ln + nw);
+  for (int st = 0; st < steps; ++st) {
+    for (int e = lane; e < KSTEP * NCH; e += 32) {
+      const int rr = st * KSTEP + e / NCH, ch = e % NCH;
+      if constexpr (VEC == 16) {
+        const bool ok = nw + 4 * ch < n;
+        cp_async16(ws + rr * ROWB + 16 * wswizzle(rr, ch, NT),
+                   ok ? w + (c0 + rr) * ln + nw + 4 * ch : w, ok ? 16 : 0);
+      } else {
+        const uint8_t* src =
+            reinterpret_cast<const uint8_t*>((gaddr0 + rr * rowstride) &
+                                             ~static_cast<uintptr_t>(15)) +
+            16 * ch;
+        const bool ok = src < w_end;
+        cp_async16(ws + rr * ROWB + 16 * ch, ok ? src : w_lo, ok ? 16 : 0);
+      }
+    }
+    if (st == 0) {
+#pragma unroll
+      for (int p = 0; p < PLANES; ++p) {  // groups g0[p] .. of plane p
+        const int ng = div_by(p * kw + c1 - 1, group, inv_group) - g0[p] + 1;
+        float* dst = ss + p * ngw * WCOLS;
+        const float* src = s + (long long)g0[p] * ln + nw;
+        if constexpr (VEC == 16) {        // rows 16-byte aligned, as w's
+          for (int e = lane; e < ng * (WCOLS / 4); e += 32) {
+            const int gi = e / (WCOLS / 4), ch = e % (WCOLS / 4);
+            const bool ok = nw + 4 * ch < n;
+            cp_async16(dst + gi * WCOLS + 4 * ch,
+                       ok ? src + gi * ln + 4 * ch : s, ok ? 16 : 0);
+          }
+        } else {
+          for (int e = lane; e < ng * WCOLS; e += 32) {
+            const int gi = e / WCOLS, j = e % WCOLS;
+            const bool ok = nw + j < n;
+            cp_async4(dst + gi * WCOLS + j, ok ? src + gi * ln + j : s,
+                      ok ? 4 : 0);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+
+  // 2. x's B fragments in shared memory, split into PARTS bf16 parts; a
+  // thread's next XB entries are loaded before it stages any
+  for (int e0 = threadIdx.x; e0 < entries; e0 += XB * THREADS) {
+    if (e0 != threadIdx.x) load_x(e0);
+#pragma unroll
+    for (int b = 0; b < XB; ++b) {
+      const int e = e0 + b * THREADS, el = e % 32;
+      if (e >= entries) break;
+      const int p = div_by(e / 32, steps, inv_steps);
+      const int j = e / 32 - p * steps;
+      uint2* dst = xs + ((p * ksteps + j) * PARTS) * 32 + el;
+#pragma unroll
+      for (int pp = 0; pp < PARTS; ++pp) {
+        const uint32_t b01 = pack_bf16(v[b][0], v[b][1]);
+        const uint32_t b23 = pack_bf16(v[b][2], v[b][3]);
+        dst[pp * 32] = make_uint2(b01, b23);
+        v[b][0] -= bf16_lo(b01); v[b][1] -= bf16_hi(b01);
+        v[b][2] -= bf16_lo(b23); v[b][3] -= bf16_hi(b23);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. a k16 step at a time as it lands: its words in registers, then the
+  // eight planes, each plane's products from zero, the parts added
+  // smallest first, scaled by the plane's group's scales and added in
+  // float32
+  float tot[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) tot[i][q] = 0.f;
+  for (int j = 0; j < steps; ++j) {
+    cp_async_wait(steps - 1 - j);
+    __syncwarp();
+    uint32_t aw[NT][4][2];
+    load_words<VEC, NT>(aw, ws + j * KSTEP * ROWB,
+                        gaddr0 + j * KSTEP * rowstride, rowstride, lane);
+    const int c = c0 + j * KSTEP;
+#pragma unroll
+    for (int p = 0; p < PLANES; ++p) {
+      const float* sg =
+          ss + (p * ngw + div_by(p * kw + c, group, inv_group) - g0[p]) *
+                   WCOLS + 2 * g;
+      const uint2* bx = xs + ((p * ksteps + j) * PARTS) * 32 + lane;
+      uint2 b[PARTS];
+#pragma unroll
+      for (int pp = 0; pp < PARTS; ++pp) b[pp] = bx[pp * 32];
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        uint32_t a[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          a[q] = nib_pair(aw[i][q][p / 4], 4 * (p % 4));
+        float acc[PARTS][4];
+#pragma unroll
+        for (int pp = 0; pp < PARTS; ++pp) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[pp][q] = 0.f;
+          mma(acc[pp], a, b[pp]);
+        }
+        const float2 sc = *reinterpret_cast<const float2*>(sg + 16 * i);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {   // q / 2: column 2g or 2g + 1
+          float sum = acc[PARTS - 1][q];
+#pragma unroll
+          for (int pp = PARTS - 2; pp >= 0; --pp) sum += acc[pp][q];
+          tot[i][q] += sum * (q < 2 ? sc.x : sc.y);
+        }
+      }
+    }
+  }
+
+  // 4. the sum over the cluster's blocks
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  cluster_sum<false, NT>(tot, red, nullptr, y, m, n, m0, nb, cluster);
+}
+
 namespace {  // internal linkage: each library keeps its own ``sized``
 
-template <int ROUTE, typename T, int VEC, int NT>
-int launch(const void* x, const uint8_t* w, const float* s, void* y, int m,
-           int kh, int n, int group, cudaStream_t stream) {
-  auto kernel = int4mma_kernel<ROUTE, T, VEC, NT>;
-  static bool sized = false;               // once per instantiation
+// One launch of ``kernel`` over the grid (column tiles of 64 nt, splits,
+// 8-row tiles of x), the splits one thread block cluster; the kernel's
+// attributes set at its first launch (``sized``, one flag an
+// instantiation). Returns cudaGetLastError() after it.
+template <typename... P, typename... A>
+int launch_cluster(void (*kernel)(P...), bool& sized, int m, int n, int nt,
+                   int splits, int smem, cudaStream_t stream, A... args) {
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
@@ -924,14 +1341,9 @@ int launch(const void* x, const uint8_t* w, const float* s, void* y, int m,
     if (err != cudaSuccess) return (int)err;
     sized = true;
   }
-  const int tiles = block_tiles(m, n, NT);
-  const int range = split_range(tiles, kh, NT);
-  const int splits = split_count(tiles, kh, NT);
-  const int smem = route_smem_bytes(ROUTE, sizeof(T) == 4, VEC, NT, range,
-                                    group);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cdiv(n, 64 * NT), splits, cdiv(m, MT));
+  cfg.gridDim = dim3(cdiv(n, 64 * nt), splits, cdiv(m, MT));
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -942,18 +1354,39 @@ int launch(const void* x, const uint8_t* w, const float* s, void* y, int m,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(x), w, s, static_cast<T*>(y), m, kh,
-      n, group, range);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// kh: the K/2 packed rows, or on the word route the K/8 word rows
+template <int ROUTE, typename T, int VEC, int NT>
+int launch(const void* x, const uint8_t* w, const float* s, void* y, int m,
+           int kh, int n, int group, cudaStream_t stream) {
+  static bool sized = false;               // once per instantiation
+  const int tiles = block_tiles(m, n, NT);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  const int range = split_range(ROUTE, tiles, kh, NT);
+  const int splits = split_count(ROUTE, tiles, kh, NT);
+  if constexpr (ROUTE == ROUTE_WORD) {
+    return launch_cluster(
+        int4word_kernel<T, VEC, NT>, sized, m, n, NT, splits,
+        word_smem_bytes(sizeof(T) == 4, VEC, NT, range, group), stream, xt,
+        reinterpret_cast<const uint32_t*>(w), s, yt, m, kh, n, group, range);
+  } else {
+    return launch_cluster(
+        int4mma_kernel<ROUTE, T, VEC, NT>, sized, m, n, NT, splits,
+        route_smem_bytes(ROUTE, sizeof(T) == 4, VEC, NT, range, group),
+        stream, xt, w, s, yt, m, kh, n, group, range);
+  }
 }
 
 // nt A tiles a warp: 1, 2 or 4, or 0 for the plan's pick_nt
 template <int ROUTE, typename T, int VEC>
 int launch_nt(const void* x, const uint8_t* w, const float* s, void* y,
               int m, int kh, int n, int group, int nt, cudaStream_t stream) {
-  if (nt == 0) nt = pick_nt(m, n, kh);
+  if (nt == 0) nt = pick_nt(ROUTE, m, n, kh);
   if (nt == 4)
     return launch<ROUTE, T, VEC, 4>(x, w, s, y, m, kh, n, group, stream);
   if (nt == 2)
@@ -965,11 +1398,18 @@ template <int ROUTE, typename T>
 int launch_vec(const void* x, const uint8_t* w, const float* s, void* y,
                int m, int kh, int n, int group, int nt, cudaStream_t stream) {
   const uintptr_t base = reinterpret_cast<uintptr_t>(w);
-  if (n % 16 == 0 && base % 16 == 0)
-    return launch_nt<ROUTE, T, 16>(x, w, s, y, m, kh, n, group, nt, stream);
-  if (n % 2 == 0 && base % 2 == 0)
-    return launch_nt<ROUTE, T, 2>(x, w, s, y, m, kh, n, group, nt, stream);
-  return launch_nt<ROUTE, T, 1>(x, w, s, y, m, kh, n, group, nt, stream);
+  if constexpr (ROUTE == ROUTE_WORD) {     // rows of 4 n bytes, as s's
+    if (n % 4 == 0 && base % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(s) % 16 == 0)
+      return launch_nt<ROUTE, T, 16>(x, w, s, y, m, kh, n, group, nt, stream);
+    return launch_nt<ROUTE, T, 4>(x, w, s, y, m, kh, n, group, nt, stream);
+  } else {
+    if (n % 16 == 0 && base % 16 == 0)
+      return launch_nt<ROUTE, T, 16>(x, w, s, y, m, kh, n, group, nt, stream);
+    if (n % 2 == 0 && base % 2 == 0)
+      return launch_nt<ROUTE, T, 2>(x, w, s, y, m, kh, n, group, nt, stream);
+    return launch_nt<ROUTE, T, 1>(x, w, s, y, m, kh, n, group, nt, stream);
+  }
 }
 
 template <int ROUTE>
@@ -999,9 +1439,10 @@ extern "C" {
 // MAX_M), packed [k/2, n] uint8, scales [k/group, n] float32, y [m, n] in
 // x's dtype; all contiguous on the device, x aligned to two of its
 // elements; nt A tiles a warp (64 nt columns a block: 1, 2 or 4, with
-// k/2 <= MAX_SPLITS * max_range(nt)) or 0 for the plan's pick_nt. One
-// launch; returns cudaGetLastError() after it, or cudaErrorInvalidValue
-// for a call this body does not take (int4mma::takes).
+// k/2 <= MAX_SPLITS * max_range(ROUTE_V2, nt)) or 0 for the plan's
+// pick_nt. One launch; returns cudaGetLastError() after it, or
+// cudaErrorInvalidValue for a call this body does not take
+// (int4mma::takes).
 int int4_unpack_v2_mma(const void* x, const void* packed, const void* scales,
                        void* y, int m, int k, int n, int group, int nt,
                        int dtype, void* stream) {
@@ -1009,10 +1450,46 @@ int int4_unpack_v2_mma(const void* x, const void* packed, const void* scales,
   const int kh = k / 2;
   if (m < 1 || m > MAX_M || k < 2 || k % 2 || n < 1 || !takes(kh, group) ||
       !(nt == 0 || ((nt == 1 || nt == 2 || nt == 4) &&
-                    kh <= MAX_SPLITS * max_range(nt))))
+                    kh <= MAX_SPLITS * max_range(ROUTE_V2, nt))))
     return (int)cudaErrorInvalidValue;
   return launch_dtype<ROUTE_V2>(x, packed, scales, y, m, kh, n, group, nt,
                                 dtype, stream);
+}
+
+#elif defined(AUDAX_INT4_V1)
+
+// P5 v1 (ROUTE_V1): the arguments, rules and return of int4_unpack_v2_mma.
+int int4_unpack_v1_mma(const void* x, const void* packed, const void* scales,
+                       void* y, int m, int k, int n, int group, int nt,
+                       int dtype, void* stream) {
+  using namespace int4mma;
+  const int kh = k / 2;
+  if (m < 1 || m > MAX_M || k < 2 || k % 2 || n < 1 || !takes(kh, group) ||
+      !(nt == 0 || ((nt == 1 || nt == 2 || nt == 4) &&
+                    kh <= MAX_SPLITS * max_range(ROUTE_V1, nt))))
+    return (int)cudaErrorInvalidValue;
+  return launch_dtype<ROUTE_V1>(x, packed, scales, y, m, kh, n, group, nt,
+                                dtype, stream);
+}
+
+#elif defined(AUDAX_INT4_WORD)
+
+// P2 and P3 (the word route): x [m, k] (dtype 0 = float32, 1 = bfloat16,
+// 1 <= m <= MAX_M), words int32 [k/8, n], scales [k/group, n] float32, y
+// [m, n] in x's dtype; all contiguous on the device; nt by the plan's
+// pick_nt. One launch; returns cudaGetLastError() after it, or
+// cudaErrorInvalidValue for a call this body does not take
+// (int4mma::takes_word).
+int int4_word_matmul_mma(const void* x, const void* words,
+                         const void* scales, void* y, int m, int k, int n,
+                         int group, int dtype, void* stream) {
+  using namespace int4mma;
+  const int kw = k / PLANES;
+  if (m < 1 || m > MAX_M || k < PLANES || k % PLANES || n < 1 ||
+      !takes_word(kw, group))
+    return (int)cudaErrorInvalidValue;
+  return launch_dtype<ROUTE_WORD>(x, words, scales, y, m, kw, n, group, 0,
+                                  dtype, stream);
 }
 
 #elif defined(AUDAX_INT4_W4A8)

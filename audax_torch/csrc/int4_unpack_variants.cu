@@ -22,8 +22,10 @@
 // counterpart of unpacking by mask and shift with no widen. Per group the
 // float32 partials are scaled by the group's scales; the packed rows are
 // split across blocks and a second kernel sums the splits in a fixed order.
-// The columns per block (128, 256 or 512: 32, 64 or 128 threads of 4
-// columns) are the sweep's knob.
+// A block owns 256 columns (64 threads of 4 columns). This is its first
+// body, kept for the calls that the tensor-core body (int4_matmul_mma.cu,
+// ROUTE_V1) does not take; tools/int4_unpack_probe.py:V1_BODIES routes them
+// before any launch.
 //
 // Variant 2 replaces tools/int4_unpack_probe.py:_kernel_v2: dequantize a
 // tile of weights into shared memory in x's dtype, rounding as the JAX body
@@ -63,6 +65,7 @@ using int4mm::load_cols;
 using int4mm::to_f32;
 
 constexpr int KC = 32;                     // variant 2: packed rows per chunk
+constexpr int V1_BN = 256;                 // variant 1: columns per block
 constexpr int V2_BN = 64;                  // variant 2: columns per block
 
 // (nib - 8) * s rounded as the JAX body rounds in x's dtype: in float32 one
@@ -194,19 +197,11 @@ int launch_v2(const void* x, const uint8_t* w, const float* s, void* y,
 }
 
 template <typename T>
-int dispatch_v1(const void* x, const uint8_t* w, const float* s, void* y,
-                float* ws, int m, int k, int n, int group, int splits,
-                int block_n, cudaStream_t st) {
-  if (block_n == 128)
-    return int4mm::launch_split_half<T, 32, true>(x, w, s, y, ws, m, k, n,
-                                                group, splits, st);
-  if (block_n == 256)
-    return int4mm::launch_split_half<T, 64, true>(x, w, s, y, ws, m, k, n,
-                                                group, splits, st);
-  if (block_n == 512)
-    return int4mm::launch_split_half<T, 128, true>(x, w, s, y, ws, m, k, n,
-                                                 group, splits, st);
-  return (int)cudaErrorInvalidValue;
+int launch_v1(const void* x, const uint8_t* w, const float* s, void* y,
+              float* ws, int m, int k, int n, int group, int splits,
+              cudaStream_t st) {
+  return int4mm::launch_split_half<T, V1_BN / COLS, true>(
+      x, w, s, y, ws, m, k, n, group, splits, st);
 }
 
 template <typename T>
@@ -225,20 +220,20 @@ bool bad_shape(int m, int k, int n, int group) {
 
 extern "C" {
 
-// Variant 1's packed-row splits for an [m, 2*kh] x [kh, n] product at
-// block_n columns per block (K9's rule). With more than one split the
-// wrapper allocates a float32 workspace of splits * m * n.
-int int4_unpack_v1_splits(int m, int kh, int n, int block_n) {
-  return int4mm::split_half_splits(m, kh, n, block_n);
+// Variant 1's packed-row splits for an [m, 2*kh] x [kh, n] product (K9's
+// rule at 256 columns per block). With more than one split the wrapper
+// allocates a float32 workspace of splits * m * n.
+int int4_unpack_v1_splits(int m, int kh, int n) {
+  return int4mm::split_half_splits(m, kh, n, V1_BN);
 }
 
 // x [m, k] (dtype 0 = float32, 1 = bfloat16), packed uint8 [k/2, n], scales
 // float32 [k/group, n], y [m, n] in x's dtype; ws float32 [splits, m, n]
-// when splits > 1; block_n 128, 256 or 512. All contiguous, on the device.
-// Returns cudaGetLastError() after the launches.
+// when splits > 1. All contiguous, on the device. Returns
+// cudaGetLastError() after the launches.
 int int4_unpack_v1(const void* x, const void* packed, const void* scales,
                    void* y, void* ws, int m, int k, int n, int group,
-                   int splits, int block_n, int dtype, void* stream) {
+                   int splits, int dtype, void* stream) {
   if (bad_shape(m, k, n, group) || splits < 1)
     return (int)cudaErrorInvalidValue;
   const uint8_t* w = static_cast<const uint8_t*>(packed);
@@ -246,11 +241,10 @@ int int4_unpack_v1(const void* x, const void* packed, const void* scales,
   float* wsf = static_cast<float*>(ws);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_v1<float>(x, w, s, y, wsf, m, k, n, group, splits,
-                              block_n, st);
+    return launch_v1<float>(x, w, s, y, wsf, m, k, n, group, splits, st);
   if (dtype == 1)
-    return dispatch_v1<__nv_bfloat16>(x, w, s, y, wsf, m, k, n, group, splits,
-                                      block_n, st);
+    return launch_v1<__nv_bfloat16>(x, w, s, y, wsf, m, k, n, group, splits,
+                                    st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,8 +12,9 @@ twins ``flash_bwd_sm90.cu`` and ``flash_bwd_tf32x3.cu``) is built once
 with ``-DAUDAX_FLASH_BWD_DQ`` (K7) and once with ``-DAUDAX_FLASH_BWD_DKV``
 (K8), so that its two kernels' many tile instantiations compile in
 parallel; ``int4_matmul_mma.cu`` makes K9's tensor-core body and, with
-``-DAUDAX_INT4_V2`` and ``-DAUDAX_INT4_W4A8``, the int4 tool kernels P5 v2
-and P4 redesigned on its skeleton.
+``-DAUDAX_INT4_V1``, ``-DAUDAX_INT4_V2``, ``-DAUDAX_INT4_W4A8`` and
+``-DAUDAX_INT4_WORD``, the int4 tool kernels P5 v1, P5 v2, P4 and the word
+kernel of P2 and P3 redesigned on its skeleton.
 ``build()`` starts one ``nvcc`` per missing library and waits for all of
 them, so the kernels compile in parallel.
 
@@ -28,7 +29,7 @@ also serve the head-fold probe
 ``ops/int4_matmul.py``
 (K9's two bodies, ``int4_matmul_mma.cu`` and ``int4_matmul.cu``) and the int4
 experiment tools (``tools/int4_layout_ab.py``, ``tools/int4_plane_probe.py``,
-``tools/w4a8_probe.py``, ``tools/int4_unpack_probe.py``; P4's and P5 v2's
+``tools/w4a8_probe.py``, ``tools/int4_unpack_probe.py``; their
 tensor-core bodies from ``int4_matmul_mma.cu``) call
 ``library(name)`` the first time they launch on a CUDA tensor. A CUDA host
 without ``nvcc`` raises there; a CPU tensor never reaches this module.
@@ -70,8 +71,10 @@ KERNEL_SOURCES = {
     "decode_attention_sm90": "decode_attention_sm90.cu",
     "int4_matmul": "int4_matmul.cu",
     "int4_matmul_mma": "int4_matmul_mma.cu",
+    "int4_unpack_v1_mma": "int4_matmul_mma.cu",
     "int4_unpack_v2_mma": "int4_matmul_mma.cu",
     "w4a8_matmul_mma": "int4_matmul_mma.cu",
+    "int4_word_matmul_mma": "int4_matmul_mma.cu",
     "int4_word_matmul": "int4_word_matmul.cu",
     "w4a8_matmul": "w4a8_matmul.cu",
     "int4_unpack_variants": "int4_unpack_variants.cu",
@@ -145,11 +148,17 @@ SIGNATURES = {
     "int4_matmul_mma": {
         "int4_matmul_mma": ([_P] * 4 + [_I] * 5 + [_P], _I),
     },
+    "int4_unpack_v1_mma": {
+        "int4_unpack_v1_mma": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    },
     "int4_unpack_v2_mma": {
         "int4_unpack_v2_mma": ([_P] * 4 + [_I] * 6 + [_P], _I),
     },
     "w4a8_matmul_mma": {
         "w4a8_matmul_mma": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    },
+    "int4_word_matmul_mma": {
+        "int4_word_matmul_mma": ([_P] * 4 + [_I] * 5 + [_P], _I),
     },
     "int4_word_matmul": {
         "int4_word_matmul_splits": ([_I, _I, _I], _I),
@@ -160,8 +169,8 @@ SIGNATURES = {
         "w4a8_matmul": ([_P] * 6 + [_I] * 6 + [_P], _I),
     },
     "int4_unpack_variants": {
-        "int4_unpack_v1_splits": ([_I] * 4, _I),
-        "int4_unpack_v1": ([_P] * 5 + [_I] * 7 + [_P], _I),
+        "int4_unpack_v1_splits": ([_I] * 3, _I),
+        "int4_unpack_v1": ([_P] * 5 + [_I] * 6 + [_P], _I),
         "int4_unpack_v2": ([_P] * 4 + [_I] * 5 + [_P], _I),
     },
 }
@@ -175,8 +184,10 @@ DEFINES = {"flash_bwd_dq": ("-DAUDAX_FLASH_BWD_DQ",),
            "flash_bwd_dkv_sm90": ("-DAUDAX_FLASH_BWD_DKV",),
            "flash_bwd_dq_tf32x3": ("-DAUDAX_FLASH_BWD_DQ",),
            "flash_bwd_dkv_tf32x3": ("-DAUDAX_FLASH_BWD_DKV",),
+           "int4_unpack_v1_mma": ("-DAUDAX_INT4_V1",),
            "int4_unpack_v2_mma": ("-DAUDAX_INT4_V2",),
-           "w4a8_matmul_mma": ("-DAUDAX_INT4_W4A8",)}
+           "w4a8_matmul_mma": ("-DAUDAX_INT4_W4A8",),
+           "int4_word_matmul_mma": ("-DAUDAX_INT4_WORD",)}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -30,8 +30,7 @@ report as JSON. Nothing is written into ``results/`` (the TPU's record).
 This module holds what the tools share: the timing of an int4 arm with its
 weights from device memory and from L2, the verdict rule, the report, the
 command line, and the registry of the tools' own kernels and launch
-counters (``probe_kernels``: P1-P5, P4 and P5 v2 with both their
-bodies). Nothing here runs CUDA work or builds
+counters (``probe_kernels``: P1-P5, P2-P5 with both their bodies). Nothing here runs CUDA work or builds
 a kernel at import.
 """
 
@@ -203,14 +202,20 @@ def probe_kernels() -> Dict[str, tuple]:
                                attn_headfold_probe.fold_fwd_plain),
         "int4_word_matmul": (int4_layout_ab.int4_matmul_v2_cuda,
                              int4_layout_ab.int4_matmul_v2_plain),
+        "int4_word_matmul_mma": (int4_layout_ab.int4_matmul_v2_mma_cuda,
+                                 int4_layout_ab.int4_matmul_v2_plain),
         "int4_plane_matmul": (int4_plane_probe.plane_matmul_cuda,
                               int4_plane_probe.plane_matmul_plain),
+        "int4_plane_matmul_mma": (int4_plane_probe.plane_matmul_mma_cuda,
+                                  int4_plane_probe.plane_matmul_plain),
         "w4a8_matmul": (w4a8_probe.w4a8_matmul_cuda,
                         w4a8_probe.w4a8_matmul_plain),
         "w4a8_matmul_mma": (w4a8_probe.w4a8_matmul_mma_cuda,
                             w4a8_probe.w4a8_matmul_plain),
         "int4_unpack_v1": (int4_unpack_probe.unpack_v1_cuda,
                            int4_unpack_probe.unpack_v1_plain),
+        "int4_unpack_v1_mma": (int4_unpack_probe.unpack_v1_mma_cuda,
+                               int4_unpack_probe.unpack_v1_plain),
         "int4_unpack_v2": (int4_unpack_probe.unpack_v2_cuda,
                            int4_unpack_probe.unpack_v2_plain),
         "int4_unpack_v2_mma": (int4_unpack_probe.unpack_v2_mma_cuda,

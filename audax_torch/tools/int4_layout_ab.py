@@ -10,17 +10,30 @@ Layout (``K`` = contraction dim, ``N`` = output dim):
                             the group (128 by default) until it divides
                             the plane length K/8 (32 at K = 1280)
 
-``int4_matmul_v2`` dispatches on the tensor it is given: a CUDA tensor
-launches the hand-written kernel (``csrc/int4_word_matmul.cu``), which
-loads whole words, eight K-rows of one column per 32-bit load; a CPU tensor
-takes ``int4_matmul_v2_plain`` (dequantize, a float32 product).
-``launch_word_matmul`` is the launch itself, shared with
-``int4_plane_probe`` (the same kernel at a group that may straddle planes).
+``int4_matmul_v2`` dispatches on the tensor it is given: a CPU tensor
+takes ``int4_matmul_v2_plain`` (dequantize, a float32 product); a CUDA
+tensor launches the body the table ``WORD_BODIES`` gives. Both bodies
+compute P2 and P3 (``int4_plane_probe``: the same function at a group that
+may straddle planes), and the table is shared with that tool:
+
+  * the tensor-core body on K9's skeleton (``csrc/int4_matmul_mma.cu``,
+    library ``int4_word_matmul_mma``): a warp's columns of each word row
+    copied whole by 16-byte ``cp.async``, each word read once for all its
+    eight planes, one bf16 ``mma.sync`` a plane (float32 x in three bf16
+    parts), every plane's partial scaled by its own group, the K splits
+    one thread block cluster -- wherever it takes the call: groups and
+    the plane K/8 whole k16 steps, K/8 <= 4096;
+  * the first body (``csrc/int4_word_matmul.cu``: a word per thread and
+    row, float32 FMAs, splits summed by a second launch) for the rest.
+
+``launch_word_matmul`` and ``launch_word_mma`` are the launches
+themselves, shared with ``int4_plane_probe``; each caller counts its own.
 
 The question on this card: do native words of 8 K-rows beat K9's 4 columns
 x 2 rows per 32-bit load? ``bench`` times K9 ("v1-u8": on the card its
 tensor-core body, ``csrc/int4_matmul_mma.cu``, which the report's
-``current`` names), this kernel ("v2-i32") and a bf16 ``torch.matmul`` at
+``current`` names), ``int4_matmul_v2`` ("v2-i32", on the body its table
+gives; the report's ``word_body``) and a bf16 ``torch.matmul`` at
 the decode shapes of Whisper-large-v3 ([8, 1280] x [1280, 5120], [8, 5120]
 x [5120, 1280], [8, 1280] x [1280, 1280]), each with its weights from
 device memory and warm in L2; its bytes count the finer scales of this
@@ -44,13 +57,39 @@ from audax_torch.tools import (arm_row, arm_times, cli, current_arm,
 from audax_torch.tools import verdict as rule
 
 __all__ = ["fit_group_v2", "quantize_words", "quantize_int4_v2",
-           "dequantize_int4_v2", "int4_matmul_v2", "int4_matmul_v2_plain",
-           "int4_matmul_v2_cuda", "launch_word_matmul", "check", "bench",
-           "main"]
+           "dequantize_int4_v2", "WORD_BODIES", "word_body",
+           "int4_matmul_v2", "int4_matmul_v2_plain", "int4_matmul_v2_cuda",
+           "int4_matmul_v2_mma_cuda", "launch_word_matmul",
+           "launch_word_mma", "check", "bench", "main"]
 
 #: the bench's shapes (M, K, N) on the card and, for a CPU rehearsal, small
 BENCH_SHAPES = ((8, 1280, 5120), (8, 5120, 1280), (8, 1280, 1280))
 CPU_BENCH_SHAPES = ((8, 256, 512), (8, 512, 256), (8, 256, 256))
+
+
+def _word_mma_takes(kw: int, group: int) -> bool:
+    """The source's ``int4mma::takes_word`` at K/8 = ``kw`` word rows."""
+    return (group % 16 == 0 and kw % 16 == 0 and 8 * kw % group == 0
+            and kw <= 16 * 256)
+
+
+#: the word kernel's bodies on a CUDA tensor, in the order ``word_body``
+#: tries them: name -> (the counter of P2's launches in
+#: ``tools.probe_kernels``, whether it takes a call's (K/8, group)).
+#: ``int4_plane_probe.PLANE_BODIES`` takes the same rules with P3's
+#: counters. The tensor-core body's rule is the source's
+#: ``int4mma::takes_word``; the first body takes every group dividing K.
+WORD_BODIES = {
+    "mma": ("int4_word_matmul_mma", _word_mma_takes),
+    "cuda_core": ("int4_word_matmul", lambda kw, group: True),
+}
+
+
+def word_body(k_dim: int, group: int) -> str:
+    """The body ``WORD_BODIES`` gives a [.., K] x words [K/8, N] call at
+    ``group``."""
+    return next(name for name, (_, takes) in WORD_BODIES.items()
+                if takes(k_dim // 8, group))
 
 
 def fit_group_v2(k_dim: int, group=None) -> int:
@@ -109,11 +148,9 @@ def int4_matmul_v2_plain(x: torch.Tensor, word: torch.Tensor,
 int4_matmul_v2_plain.launches = 0
 
 
-def launch_word_matmul(who: str, x: torch.Tensor, word: torch.Tensor,
-                       scales: torch.Tensor, group: int) -> torch.Tensor:
-    """Launch ``csrc/int4_word_matmul.cu``: x [..., K] float32 or bfloat16,
-    words int32 [K/8, N], scales float32 [K/group, N] -> [..., N] in x's
-    dtype. Counts nothing: each caller counts its own launches."""
+def _word_operands(who, x, word, scales, group):
+    """(dtype code, x as [M, K] contiguous, an empty y [M, N]) of a word
+    kernel's call; raises on operands it does not take."""
     dtype = kernel_operands(who, x, word, scales, torch.int32)
     plane, n = word.shape
     k_dim = 8 * plane
@@ -122,30 +159,62 @@ def launch_word_matmul(who: str, x: torch.Tensor, word: torch.Tensor,
         raise ValueError(f"{who}: x {tuple(x.shape)}, words "
                          f"{tuple(word.shape)}, scales {tuple(scales.shape)} "
                          f"and group {group} do not match")
-    lead = x.shape[:-1]
     x2 = x.reshape(-1, k_dim).contiguous()
-    m = x2.shape[0]
-    y = torch.empty(m, n, device=x.device, dtype=x.dtype)
-    if m == 0:
-        return y.reshape(*lead, n)
-    lib = native.library("int4_word_matmul")
-    splits = lib.int4_word_matmul_splits(m, plane, n)
-    ws = (torch.empty(splits * m * n, device=x.device, dtype=torch.float32)
-          if splits > 1 else y)
-    status = lib.int4_word_matmul(
-        x2.data_ptr(), word.data_ptr(), scales.data_ptr(), y.data_ptr(),
-        ws.data_ptr(), m, k_dim, n, group, splits, dtype,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    native.check(status, who)
-    return y.reshape(*lead, n)
+    return dtype, x2, torch.empty(x2.shape[0], n, device=x.device,
+                                  dtype=x.dtype)
+
+
+def launch_word_matmul(who: str, x: torch.Tensor, word: torch.Tensor,
+                       scales: torch.Tensor, group: int) -> torch.Tensor:
+    """Launch the first body, ``csrc/int4_word_matmul.cu``: x [..., K]
+    float32 or bfloat16, words int32 [K/8, N], scales float32 [K/group, N]
+    -> [..., N] in x's dtype, at any group dividing K. Counts nothing:
+    each caller counts its own launches."""
+    dtype, x2, y = _word_operands(who, x, word, scales, group)
+    (m, k_dim), (plane, n) = x2.shape, word.shape
+    if m:
+        lib = native.library("int4_word_matmul")
+        splits = lib.int4_word_matmul_splits(m, plane, n)
+        ws = (torch.empty(splits * m * n, device=x.device,
+                          dtype=torch.float32) if splits > 1 else y)
+        status = lib.int4_word_matmul(
+            x2.data_ptr(), word.data_ptr(), scales.data_ptr(), y.data_ptr(),
+            ws.data_ptr(), m, k_dim, n, group, splits, dtype,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        native.check(status, who)
+    return y.reshape(*x.shape[:-1], n)
+
+
+def launch_word_mma(who: str, x: torch.Tensor, word: torch.Tensor,
+                    scales: torch.Tensor, group: int) -> torch.Tensor:
+    """Launch the tensor-core body (``csrc/int4_matmul_mma.cu``, library
+    ``int4_word_matmul_mma``), one launch, with the operands of
+    ``launch_word_matmul`` at a (K/8, group) that ``WORD_BODIES`` gives it
+    (raises ``ValueError`` otherwise). Counts nothing."""
+    dtype, x2, y = _word_operands(who, x, word, scales, group)
+    (m, k_dim), n = x2.shape, word.shape[1]
+    if not _word_mma_takes(k_dim // 8, group):
+        raise ValueError(f"{who}: no tensor-core body at K={k_dim}, group "
+                         f"{group}")
+    if m:
+        status = native.library(
+            "int4_word_matmul_mma").int4_word_matmul_mma(
+            x2.data_ptr(), word.data_ptr(), scales.data_ptr(), y.data_ptr(),
+            m, k_dim, n, group, dtype,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        native.check(status, who)
+    return y.reshape(*x.shape[:-1], n)
+
+
+def _group(word, scales):
+    return 8 * word.shape[-2] // max(scales.shape[-2], 1)
 
 
 def int4_matmul_v2_cuda(x: torch.Tensor, word: torch.Tensor,
                         scales: torch.Tensor) -> torch.Tensor:
-    """The kernel (``csrc/int4_word_matmul.cu``) on CUDA tensors."""
-    k_dim = 8 * word.shape[0]
+    """The first body (``csrc/int4_word_matmul.cu``) on CUDA tensors."""
     y = launch_word_matmul("int4_matmul_v2_cuda", x, word, scales,
-                           k_dim // max(scales.shape[0], 1))
+                           _group(word, scales))
     int4_matmul_v2_cuda.launches += 1
     return y
 
@@ -153,13 +222,29 @@ def int4_matmul_v2_cuda(x: torch.Tensor, word: torch.Tensor,
 int4_matmul_v2_cuda.launches = 0
 
 
+def int4_matmul_v2_mma_cuda(x: torch.Tensor, word: torch.Tensor,
+                            scales: torch.Tensor) -> torch.Tensor:
+    """The tensor-core body (``launch_word_mma``) on CUDA tensors, one
+    counted launch."""
+    y = launch_word_mma("int4_matmul_v2_mma_cuda", x, word, scales,
+                        _group(word, scales))
+    int4_matmul_v2_mma_cuda.launches += 1
+    return y
+
+
+int4_matmul_v2_mma_cuda.launches = 0
+
+
 def int4_matmul_v2(x: torch.Tensor, word: torch.Tensor,
                    scales: torch.Tensor) -> torch.Tensor:
-    """``x @ dequant(words, scales)`` -> [..., N] in x's dtype: the kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return int4_matmul_v2_cuda(x, word, scales)
-    return int4_matmul_v2_plain(x, word, scales)
+    """``x @ dequant(words, scales)`` -> [..., N] in x's dtype: for a CUDA
+    tensor the body ``WORD_BODIES`` gives, for a CPU tensor the plain
+    version."""
+    if not x.is_cuda:
+        return int4_matmul_v2_plain(x, word, scales)
+    if word_body(x.shape[-1], _group(word, scales)) == "mma":
+        return int4_matmul_v2_mma_cuda(x, word, scales)
+    return int4_matmul_v2_cuda(x, word, scales)
 
 
 def _normal(rng, shape, dev):
@@ -216,7 +301,10 @@ def bench(device=None, out=None) -> dict:
         keep.append(rule(t["v2-i32"], t["v1-u8"]) == "keep")
     return report("int4_layout_ab bench", dev, rows,
                   "keep" if all(keep) else "reject", out,
-                  current=current_arm(dev, shapes[0][1]))
+                  current=current_arm(dev, shapes[0][1]),
+                  word_body=[WORD_BODIES[word_body(k, fit_group_v2(k))][0]
+                             if dev.type == "cuda" else
+                             "int4_matmul_v2_plain" for _, k, _ in shapes])
 
 
 def main(device=None, out=None, mode="bench") -> dict:

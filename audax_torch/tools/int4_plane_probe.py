@@ -4,9 +4,13 @@
 The packing is ``int4_layout_ab``'s split-eighth words (nibble p of word
 (c, n) holds K-row c + p*K/8), but the quantization groups are K9's: the
 group (128 by default) is halved until it divides K, not K/8, so a group
-may straddle two planes (K = 1280: plane 160, group 128). The kernel is
-``int4_layout_ab``'s (``csrc/int4_word_matmul.cu``), which takes any group
-that divides K; ``plane_matmul`` counts its own launches.
+may straddle two planes (K = 1280: plane 160, group 128). The kernels are
+``int4_layout_ab``'s, routed by its table (``PLANE_BODIES``: the rules of
+``WORD_BODIES``, P3's own counters): the tensor-core body on K9's skeleton
+(``csrc/int4_matmul_mma.cu``, library ``int4_word_matmul_mma``, each plane
+scaled by its own group at each k16 step, so a straddling group costs
+nothing) where it takes the call, the first body
+(``csrc/int4_word_matmul.cu``, any group that divides K) for the rest.
 
 ``main`` checks the plane kernel against K9 on the same round-to-nearest
 grid (bf16 x: they must agree to 2e-2 of the largest output), counts the
@@ -28,13 +32,23 @@ from audax_torch.core.runtime import resolve_device
 from audax_torch.ops import int4_matmul as i4
 from audax_torch.tools import arm_times, cli, current_arm, report
 from audax_torch.tools import verdict as rule
-from audax_torch.tools.int4_layout_ab import (dequantize_int4_v2,
+from audax_torch.tools.int4_layout_ab import (WORD_BODIES,
+                                              dequantize_int4_v2,
                                               launch_word_matmul,
-                                              quantize_words)
+                                              launch_word_mma, quantize_words,
+                                              word_body)
 from audax_torch.utils.profiling import H100_HBM_BPS
 
-__all__ = ["quantize_int4_planes", "plane_matmul", "plane_matmul_plain",
-           "plane_matmul_cuda", "main"]
+__all__ = ["PLANE_BODIES", "quantize_int4_planes", "plane_matmul",
+           "plane_matmul_plain", "plane_matmul_cuda", "plane_matmul_mma_cuda",
+           "main"]
+
+#: the bodies on a CUDA tensor: ``int4_layout_ab.WORD_BODIES``' rules, with
+#: the counters of P3's launches in ``tools.probe_kernels``
+PLANE_BODIES = {
+    "mma": ("int4_plane_matmul_mma", WORD_BODIES["mma"][1]),
+    "cuda_core": ("int4_plane_matmul", WORD_BODIES["cuda_core"][1]),
+}
 
 
 def quantize_int4_planes(w: torch.Tensor, *, group: int = 128):
@@ -70,7 +84,7 @@ plane_matmul_plain.launches = 0
 
 def plane_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
                       scales: torch.Tensor, *, group: int) -> torch.Tensor:
-    """The word kernel at a group that may straddle planes."""
+    """The word kernel's first body at a group that may straddle planes."""
     y = launch_word_matmul("plane_matmul_cuda", x, packed, scales, group)
     plane_matmul_cuda.launches += 1
     return y
@@ -79,13 +93,28 @@ def plane_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
 plane_matmul_cuda.launches = 0
 
 
+def plane_matmul_mma_cuda(x: torch.Tensor, packed: torch.Tensor,
+                          scales: torch.Tensor, *, group: int
+                          ) -> torch.Tensor:
+    """The word kernel's tensor-core body at a group that may straddle
+    planes, one counted launch (``int4_layout_ab.launch_word_mma``)."""
+    y = launch_word_mma("plane_matmul_mma_cuda", x, packed, scales, group)
+    plane_matmul_mma_cuda.launches += 1
+    return y
+
+
+plane_matmul_mma_cuda.launches = 0
+
+
 def plane_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                  *, group: int) -> torch.Tensor:
-    """x [..., K] @ plane-packed int4 -> [..., N]: the kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return plane_matmul_cuda(x, packed, scales, group=group)
-    return plane_matmul_plain(x, packed, scales, group=group)
+    """x [..., K] @ plane-packed int4 -> [..., N]: for a CUDA tensor the
+    body ``PLANE_BODIES`` gives, for a CPU tensor the plain version."""
+    if not x.is_cuda:
+        return plane_matmul_plain(x, packed, scales, group=group)
+    if word_body(x.shape[-1], group) == "mma":
+        return plane_matmul_mma_cuda(x, packed, scales, group=group)
+    return plane_matmul_cuda(x, packed, scales, group=group)
 
 
 def main(device=None, out=None) -> dict:
@@ -121,8 +150,10 @@ def main(device=None, out=None) -> dict:
                floor_us_selected_bytes=row["bytes_plane"] / H100_HBM_BPS
                * 1e6,
                speedup=t_cur / t_pl, verdict=rule(t_pl, t_cur))
+    body = (PLANE_BODIES[word_body(k_dim, gp)][0] if dev.type == "cuda"
+            else "plane_matmul_plain")
     return report("int4_plane_probe", dev, [row], row["verdict"], out,
-                  current=current_arm(dev, k_dim))
+                  current=current_arm(dev, k_dim), plane_body=body)
 
 
 if __name__ == "__main__":

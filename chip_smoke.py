@@ -18,7 +18,7 @@ attention tools, in eleven phases, one output line each (the kernel and
 path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
-  2. build   -- nvcc of every kernel library (twenty-one), in parallel, with
+  2. build   -- nvcc of every kernel library (twenty-three), in parallel, with
      the wall time of each and of all, the registers and any spills; then
      the count of HGMMA (wgmma) instructions in the SASS of the three bf16
      tensor-core libraries, K2's and K7's and K8's (``cuobjdump
@@ -32,8 +32,8 @@ path phases print one line per case):
      K2's two tensor-core bodies), of each n_fft the FFT log-mel body is built for (Whisper's
      400-point mixed radix among them) and of each instantiation of K3's
      and K6's sm90 body, where a spill fails; the registers and spills of
-     each instantiation of ``csrc/int4_matmul_mma.cu``'s three libraries
-     (K9, P5 v2, P4; reported);
+     each instantiation of ``csrc/int4_matmul_mma.cu``'s five libraries
+     (K9, P5 v1, P5 v2, P4, the word kernel of P2 and P3; reported);
   3. kernels -- each kernel against its plain PyTorch version on the card at
      the main paths' and the tools' shapes: max |err| against the stated
      tolerance, kernel ms, plain ms, the one-call library yardstick where
@@ -60,7 +60,14 @@ path phases print one line per case):
      the tools' shape in both dtypes, timed beside their first bodies
      (called directly, the A/B) and cuBLAS, then at N 1287 and M = 9; at
      group 40 the tables send both to their first bodies (``__dp4a``, and
-     v2's 64-column body). K3, its int8 arm and K6 run on their sm90
+     v2's 64-column body). P5 v1 (K9 with a mask-and-magic unpack) and the
+     word kernel (P2, and P3 at its group 128 that straddles planes) run on
+     their tensor-core bodies on the same skeleton through the tools' entry
+     points (``run_variant("v1")``, ``int4_matmul_v2``, ``plane_matmul``)
+     in the same way: timed at the tools' shapes (P2 at its three) in both
+     dtypes beside their first bodies (called directly) and cuBLAS, then at
+     N 1287 and M = 9; off the tables (group 40; P3 at K/8 = 168) on their
+     first bodies. K3, its int8 arm and K6 run on their sm90
      body (``csrc/decode_attention_sm90.cu``, the keys split over a thread
      block cluster) at the transcription and serving shapes, each call made
      twice (the same bits), slope-timed in CUDA graphs beside the first
@@ -182,9 +189,9 @@ path phases print one line per case):
      (``int4_layout_ab`` check and bench, ``int4_plane_probe``,
      ``w4a8_probe``, ``int4_unpack_probe``): each prints its rows, then one
      JSON line per tool with its rows and verdict; each tool's kernels (and
-     K9's tensor-core body, its "current" arm) must launch, P4's and P5
-     v2's first bodies must not (the tools' shape takes the tensor-core
-     bodies) and no plain version may;
+     K9's tensor-core body, its "current" arm) must launch on their
+     tensor-core bodies, none of the tools' first bodies may (the tools'
+     shapes take the tensor-core bodies) and no plain version may;
   9. attention_tools -- ``attn_headfold_probe`` (the four kernel arms and
      the product A/B), ``attn_block_probe`` (the tile set, forward and
      backward, at [8, 12, 1500, 64] bf16), ``train_step_breakdown`` at
@@ -310,16 +317,21 @@ DECODE_ENTRY = ("decode_attention_stacked", "decode_attention_stacked_int8",
 DECODE_SM90 = ("decode_attention_sm90", "decode_attention_sm90_int8")
 #: the int4 tools and the kernels each must launch (K9's tensor-core body
 #: is every tool's "current" arm)
-PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul", "int4_matmul_mma")),
-               ("int4_plane_probe", ("int4_plane_matmul", "int4_matmul_mma")),
+PROBE_TOOLS = (("int4_layout_ab", ("int4_word_matmul_mma", "int4_matmul_mma")),
+               ("int4_plane_probe", ("int4_plane_matmul_mma",
+                                     "int4_matmul_mma")),
                ("w4a8_probe", ("w4a8_matmul_mma", "int4_matmul_mma")),
-               ("int4_unpack_probe", ("int4_unpack_v1", "int4_unpack_v2_mma",
+               ("int4_unpack_probe", ("int4_unpack_v1_mma",
+                                      "int4_unpack_v2_mma",
                                       "int4_matmul_mma")))
-#: P4's and P5 v2's first bodies (``csrc/w4a8_matmul.cu``, v2 in
-#: ``csrc/int4_unpack_variants.cu``): the tools' shape takes the
-#: tensor-core bodies (``W4A8_BODIES``, ``V2_BODIES``), so no tool run may
-#: launch them; phase 3 holds them at group 40 and times them directly
-OLD_TOOL_BODIES = ("w4a8_matmul", "int4_unpack_v2")
+#: the int4 tools' first bodies (``csrc/w4a8_matmul.cu``,
+#: ``csrc/int4_unpack_variants.cu``'s v1 and v2, ``csrc/int4_word_matmul.cu``
+#: as P2 and P3): the tools' shapes take the tensor-core bodies
+#: (``W4A8_BODIES``, ``V1_BODIES``, ``V2_BODIES``, ``WORD_BODIES``,
+#: ``PLANE_BODIES``), so no tool run may launch them; phase 3 holds them
+#: off those tables and times them directly
+OLD_TOOL_BODIES = ("w4a8_matmul", "int4_unpack_v1", "int4_unpack_v2",
+                   "int4_word_matmul", "int4_plane_matmul")
 #: the attention tools' runs on the card: (label, tool, its arguments, the
 #: kernels it must launch, the kernels it must not)
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
@@ -351,8 +363,11 @@ TF32X3_LIBS = ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3",
 #: with the number of folded instantiations each must hold
 FOLD_LIBS = (("flash_fwd_sm90", 2), ("flash_fwd_tf32x3", 2))
 #: the libraries built from ``csrc/int4_matmul_mma.cu``: K9's tensor-core
-#: body, and P5 v2's and P4's on its skeleton
-INT4_MMA_LIBS = ("int4_matmul_mma", "int4_unpack_v2_mma", "w4a8_matmul_mma")
+#: body, and P5 v1's, P5 v2's, P4's and the word kernel's (P2, P3) on its
+#: skeleton
+INT4_MMA_LIBS = ("int4_matmul_mma", "int4_unpack_v1_mma",
+                 "int4_unpack_v2_mma", "w4a8_matmul_mma",
+                 "int4_word_matmul_mma")
 #: the classification path: one frontend config per log-mel tier and body
 #: (the last is featurized only: no classifier trains on it)
 CLASSIFY_FRONTENDS = (("UrbanSound v2", {}, "log_mel_overlap_fft"),
@@ -414,11 +429,15 @@ def _ptxas_kernels(report):
 def _int4mma_kernels(report):
     """``_ptxas_kernels`` of a library built from ``csrc/int4_matmul_mma.cu``:
     the template arguments read as (route, dtype, vec, nt), route 0 K9, 1
-    P5 v2, 2 P4, dtype 0 float32, 1 bfloat16."""
+    P5 v2, 2 P4, 3 P5 v1, 4 the word kernel (``int4word_kernel``), dtype 0
+    float32, 1 bfloat16."""
     import re
+    report = re.sub(r"int4mma_kernelILi(\d)E(f|13__nv_bfloat16)",
+                    lambda m: f"kernelILi{m[1]}ELi{int(m[2] != 'f')}E",
+                    report)
     return _ptxas_kernels(re.sub(
-        r"int4mma_kernelILi(\d)E(f|13__nv_bfloat16)",
-        lambda m: f"kernelILi{m[1]}ELi{int(m[2] != 'f')}E", report))
+        r"int4word_kernelI(f|13__nv_bfloat16)",
+        lambda m: f"kernelILi4ELi{int(m[1] != 'f')}E", report))
 
 
 def _bound(flops, nbytes, flop_rate):
@@ -1288,7 +1307,7 @@ def kernel_phase(torch, rng):
 
     # ---- K9 and the int4 tools' kernels at the decode shapes (M = 8) --------
     from audax_torch.ops import int4_matmul as i4
-    from audax_torch.tools import arm_times
+    from audax_torch.tools import arm_times, probe_kernels
     from audax_torch.tools import int4_layout_ab as lab
     from audax_torch.tools import int4_plane_probe as pp
     from audax_torch.tools import int4_unpack_probe as up
@@ -1310,9 +1329,9 @@ def kernel_phase(torch, rng):
 
     #: name -> (CUDA wrapper, plain version, packing, peak of the unit that
     #: does its products exactly: None = f32 CUDA cores for f32 x, bf16
-    #: tensor cores for bf16 x; int8 tensor cores for W4A8). P4 and P5 v2
-    #: here are their first bodies, called directly (the A/B of
-    #: ``tool_case`` below)
+    #: tensor cores for bf16 x; int8 tensor cores for W4A8). Each here is
+    #: its tool's first body, called directly (the A/B of ``tool_case``
+    #: below)
     int4_kernels = {
         "int4_word_matmul": (lab.int4_matmul_v2_cuda,
                              lab.int4_matmul_v2_plain,
@@ -1328,21 +1347,51 @@ def kernel_phase(torch, rng):
                            None),
     }
 
-    #: P4 and P5 v2 through the tools' entry points: name -> (entry point,
-    #: {body: its wrapper}, plain version, the body table and its rule, the
-    #: peak of the unit each body's products run on, by x's dtype)
+    def split_half_at(w, group):
+        q, s = i4.quantize_int4(w, group=group)
+        return (q, s), i4.dequantize_int4(q, s)
+
+    def words_at(w, group):
+        word, s = lab.quantize_words(w, group)
+        return (word, s), lab.dequantize_int4_v2(word, s)
+
+    #: P2-P5 through the tools' entry points: name -> (entry point, {body:
+    #: its wrapper as (x, weights, scales)}, plain version, packing at a
+    #: group, the body table (each body's launch counter in
+    #: ``tools.probe_kernels`` and rule) and the body it gives, the peak of
+    #: the unit each body's products run on, by x's dtype (f32, bf16)). The
+    #: tensor-core bodies of K9's skeleton run float32 x as three bf16 parts
+    mma3 = (BF16_FLOPS / 3, BF16_FLOPS)
     tool_entries = {
+        "int4_unpack_v1": (
+            lambda x, q, s: up.run_variant("v1", x, q, s),
+            {"mma": up.unpack_v1_mma_cuda, "split_half": up.unpack_v1_cuda},
+            up.unpack_v1_plain, split_half_at, up.V1_BODIES, up.v1_body,
+            {"mma": mma3, "split_half": (F32_FLOPS, F32_FLOPS)}),
         "int4_unpack_v2": (
             lambda x, q, s: up.run_variant("v2", x, q, s),
             {"mma": up.unpack_v2_mma_cuda, "blocked": up.unpack_v2_cuda},
-            up.unpack_v2_plain, up.V2_BODIES, up.v2_body,
+            up.unpack_v2_plain, split_half_at, up.V2_BODIES, up.v2_body,
             {"mma": (TF32X3_FLOPS, BF16_FLOPS),
              "blocked": (F32_FLOPS, BF16_FLOPS)}),
         "w4a8_matmul": (
             wp.w4a8_matmul,
             {"mma": wp.w4a8_matmul_mma_cuda, "dp4a": wp.w4a8_matmul_cuda},
-            wp.w4a8_matmul_plain, wp.W4A8_BODIES, wp.w4a8_body,
+            wp.w4a8_matmul_plain, split_half_at, wp.W4A8_BODIES,
+            wp.w4a8_body,
             {"mma": (INT8_OPS, INT8_OPS), "dp4a": (INT8_OPS, INT8_OPS)}),
+        "int4_word_matmul": (
+            lab.int4_matmul_v2,
+            {"mma": lab.int4_matmul_v2_mma_cuda,
+             "cuda_core": lab.int4_matmul_v2_cuda},
+            lab.int4_matmul_v2_plain, words_at, lab.WORD_BODIES,
+            lab.word_body, {"mma": mma3, "cuda_core": (F32_FLOPS, F32_FLOPS)}),
+        "int4_plane_matmul": (
+            plane(pp.plane_matmul),
+            {"mma": plane(pp.plane_matmul_mma_cuda),
+             "cuda_core": plane(pp.plane_matmul_cuda)},
+            plane(pp.plane_matmul_plain), words_at, pp.PLANE_BODIES,
+            lab.word_body, {"mma": mma3, "cuda_core": (F32_FLOPS, F32_FLOPS)}),
     }
 
     def int4_bound(m, k_dim, n, dtype, weights, rate):
@@ -1535,24 +1584,24 @@ def kernel_phase(torch, rng):
 
     def tool_case(name, what, m, k_dim, n, dtype, tol, timed=False,
                   main=False, group=128, gen=None):
-        """P4 or P5 v2 through its tool's entry point: each of two calls
-        launches the body the tool's table gives once and no other, and
-        both give the same bits; against the plain version at [m, K] x
-        [K, N]. ``timed``: the body's time from HBM and L2-warm beside
-        cuBLAS on the dequantized weights in x's dtype."""
-        entry, wrappers, plain_fn, bodies, body_of, rates = tool_entries[name]
-        q, s = i4.quantize_int4(torch.randn(k_dim, n, device=dev,
-                                            generator=gen) / k_dim ** 0.5,
-                                group=group)
-        group = 2 * q.shape[0] // s.shape[0]
+        """P2-P5 through the tool's entry point: each of two calls launches
+        the body the tool's table gives once and no other, and both give
+        the same bits; against the plain version at [m, K] x [K, N].
+        ``timed``: the body's time from HBM and L2-warm beside cuBLAS on
+        the dequantized weights in x's dtype."""
+        (entry, wrappers, plain_fn, pack, bodies, body_of,
+         rates) = tool_entries[name]
+        (q, s), wd = pack(torch.randn(k_dim, n, device=dev, generator=gen)
+                          / k_dim ** 0.5, group)
         body = body_of(k_dim, group)
         x = torch.randn(m, k_dim, device=dev, generator=gen).to(dtype)
+        counters = {b: probe_kernels()[c][0] for b, (c, _) in bodies.items()}
         outs = []
         for _ in range(2):
-            before = {b: fn.launches for b, fn in wrappers.items()}
+            before = {b: fn.launches for b, fn in counters.items()}
             outs.append(entry(x, q, s))
-            runs = {b: fn.launches - before[b] for b, fn in wrappers.items()}
-            if runs != {b: int(b == body) for b in wrappers}:
+            runs = {b: fn.launches - before[b] for b, fn in counters.items()}
+            if runs != {b: int(b == body) for b in counters}:
                 raise AssertionError(f"{name} {what}: launches {runs}, not "
                                      f"one of the {body} body alone")
         got = outs[0]
@@ -1575,8 +1624,7 @@ def kernel_phase(torch, rng):
             return
         cold, warm = arm_times(wrappers[body], x, (q, s))
         plain = _time_ms(torch, lambda: plain_fn(x, q, s))
-        lib, _ = arm_times(torch.matmul, x,
-                           (i4.dequantize_int4(q, s).to(dtype),))
+        lib, _ = arm_times(torch.matmul, x, (wd.to(dtype),))
         rate = rates[body][dtype == torch.bfloat16]
         bound = int4_bound(m, k_dim, n, dtype, (q, s), rate)
         _report(f"{label} (max_abs_err {e:.3e}, bit-identical twice, one "
@@ -1604,6 +1652,38 @@ def kernel_phase(torch, rng):
             tool_case(name, "rows", 9, 1280, 5120, dtype, tol, gen=gen)
             tool_case(name, "group 40", 8, 1280, 1287, dtype, tol, group=40,
                       gen=gen)
+    # P5 v1 and the word kernel (P2; P3 at its straddling group 128) on
+    # their tensor-core bodies at the tools' shapes (the main case bf16 at
+    # [8,1280]x[1280,5120], as the tools run them; P2 at its three), ragged
+    # N (the word body's 4-byte rows at nt 1, 4 and 2: N 1287 at K 1280,
+    # N 5127, and N 1287 at K 5120) and M = 9, each dtype; off the tables on
+    # their first bodies: group 40 (not a whole k16 step) and, for P3, K/8
+    # = 168 (not one either). On their own generator, drawn after the cases
+    # above
+    gen = torch.Generator(device=dev).manual_seed(17)
+    p2_shapes = ((1280, 5120, 32), (5120, 1280, 128), (1280, 1280, 32))
+    p2_ragged = ((1280, 1287, 32), (1280, 5127, 32), (5120, 1287, 128))
+    for name, timed_shapes, ragged, group, off_table in (
+            ("int4_unpack_v1", ((1280, 5120, 128),), ((1280, 1287, 128),),
+             128, (1280, 1287, 40)),
+            ("int4_word_matmul", p2_shapes, p2_ragged, 32, (1280, 1287, 40)),
+            ("int4_plane_matmul", ((1280, 5120, 128),), ((1280, 1287, 128),),
+             128, (1344, 1287, 64))):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_INT4_F32
+            for k_dim, n, g in timed_shapes:
+                tool_case(name, "tools", 8, k_dim, n, dtype, tol, timed=True,
+                          main=(dtype == torch.bfloat16
+                                and (k_dim, n) == (1280, 5120)),
+                          group=g, gen=gen)
+            for k_dim, n, g in ragged:
+                tool_case(name, "ragged", 8, k_dim, n, dtype, tol, group=g,
+                          gen=gen)
+            tool_case(name, "rows", 9, 1280, 5120, dtype, tol, group=group,
+                      gen=gen)
+            k_dim, n, g = off_table
+            tool_case(name, f"group {g} off the table", 8, k_dim, n, dtype,
+                      tol, group=g, gen=gen)
     return out
 
 
@@ -3015,12 +3095,20 @@ def main() -> int:
                                    "audax/ops/int4_matmul.py:236"),
                "int4_word_matmul": ("audax_torch/csrc/int4_word_matmul.cu",
                                     "tools/int4_layout_ab.py:107"),
+               "int4_word_matmul_mma": (
+                   "audax_torch/csrc/int4_matmul_mma.cu",
+                   "tools/int4_layout_ab.py:107"),
                "int4_plane_matmul": ("audax_torch/csrc/int4_word_matmul.cu",
                                      "tools/int4_plane_probe.py:114"),
+               "int4_plane_matmul_mma": (
+                   "audax_torch/csrc/int4_matmul_mma.cu",
+                   "tools/int4_plane_probe.py:114"),
                "w4a8_matmul": ("audax_torch/csrc/w4a8_matmul.cu",
                                "tools/w4a8_probe.py:66"),
                "int4_unpack_v1": ("audax_torch/csrc/int4_unpack_variants.cu",
                                   "tools/int4_unpack_probe.py:105"),
+               "int4_unpack_v1_mma": ("audax_torch/csrc/int4_matmul_mma.cu",
+                                      "tools/int4_unpack_probe.py:105"),
                "int4_unpack_v2": ("audax_torch/csrc/int4_unpack_variants.cu",
                                   "tools/int4_unpack_probe.py:105"),
                "int4_unpack_v2_mma": ("audax_torch/csrc/int4_matmul_mma.cu",

@@ -74,12 +74,13 @@ def _fn(name):
     return constexpr_function(SRC, name)
 
 
-def plan(m, n, kh, nt=None):
-    """(nt, packed rows a split, splits) as the launcher picks them."""
-    nt = nt or _fn("pick_nt")(m, n, kh)
+def plan(route, m, n, kh, nt=None):
+    """(nt, packed rows a split, splits) as the launcher picks them on
+    ``route`` (the source's ROUTE_* number)."""
+    nt = nt or _fn("pick_nt")(route, m, n, kh)
     tiles = _fn("block_tiles")(m, n, nt)
-    return nt, _fn("split_range")(tiles, kh, nt), _fn("split_count")(tiles,
-                                                                        kh, nt)
+    return (nt, _fn("split_range")(route, tiles, kh, nt),
+            _fn("split_count")(route, tiles, kh, nt))
 
 
 def mma16(c, a, b):
@@ -173,7 +174,7 @@ def schedule(route, x, q, s, group, nt=None, record=None):
     m, k_dim = x.shape
     kh, n = q.shape
     kind = route.split("_")[0]
-    nt, rng, splits = plan(m, n, kh, nt)
+    nt, rng, splits = plan(_fn(f"ROUTE_{kind.upper()}"), m, n, kh, nt)
     u = -(-n // 16)                              # 16-column A tiles
     rows_p = splits * rng + STAGE
     qp = np.zeros((rows_p, 16 * u), np.uint8)
@@ -586,8 +587,8 @@ def test_every_plan_fits_a_block(m, kh, n):
     for nt in (None, 1, 2, 4):
         if nt and kh > 16 * 512 // nt:
             continue
-        nt_, rng, _ = plan(m, n, kh, nt)
         for route in (0, 1, 2):
+            nt_, rng, _ = plan(route, m, n, kh, nt)
             for f32 in (0, 1):
                 for vec in (16, 2, 1):
                     for group in (32, 64, 128):

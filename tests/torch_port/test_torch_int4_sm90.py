@@ -175,10 +175,11 @@ def kernel_schedule(x, mem, base, kh, n, scales, group, parts=None, nt=None):
     (A tiles per warp) defaults to the source's ``pick_nt``."""
     m = x.shape[0]
     parts = parts or 3
-    nt = nt or _fn("pick_nt")(m, n, kh)
+    k9 = _fn("ROUTE_K9")
+    nt = nt or _fn("pick_nt")(k9, m, n, kh)
     tiles = _fn("block_tiles")(m, n, nt)
-    rng = _fn("split_range")(tiles, kh, nt)
-    splits = _fn("split_count")(tiles, kh, nt)
+    rng = _fn("split_range")(k9, tiles, kh, nt)
+    splits = _fn("split_count")(k9, tiles, kh, nt)
     wcols = WARP_N * nt
     num_g = 2 * kh // group
     vec = vec_of(n, base)
@@ -422,14 +423,15 @@ def test_body_table_is_the_source_rule(kh, group):
                                     (8, 4096, 51866), (16, 2048, 20000),
                                     (8, 8192, 1280)])
 def test_split_plan_fills_the_card_and_fits(m, kh, n):
-    nt = _fn("pick_nt")(m, n, kh)
+    k9 = _fn("ROUTE_K9")
+    nt = _fn("pick_nt")(k9, m, n, kh)
     tiles = _fn("block_tiles")(m, n, nt)
-    rng = _fn("split_range")(tiles, kh, nt)
-    splits = _fn("split_count")(tiles, kh, nt)
+    rng = _fn("split_range")(k9, tiles, kh, nt)
+    splits = _fn("split_count")(k9, tiles, kh, nt)
     assert nt in (1, 2, 4) and (nt == 1 or tiles * splits >= 132)
     assert rng % STAGE == 0 and rng <= 512 // nt and 1 <= splits <= 16
     assert (splits - 1) * rng < kh <= splits * rng
-    assert _fn("grid_blocks")(m, n, kh, nt) == tiles * splits
+    assert _fn("grid_blocks")(k9, m, n, kh, nt) == tiles * splits
     decode = {(8, 640, 1280): 1, (8, 640, 5120): 4, (8, 2560, 1280): 2,
               (8, 640, 51866): 4}                # the widths the card chose
     if (m, kh, n) in decode:
