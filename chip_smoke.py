@@ -10,11 +10,14 @@ one serving decode step and each classifier's train step (device time by
 kernel family, the device's busy share). It builds the
 port's CUDA kernels from ``audax_torch/csrc`` and drives the port's four
 main paths -- Whisper transcription at the full width of Whisper-tiny,
+the rest of Whisper decoding (beam search, best-of, speculative decoding,
+word timestamps in the seek loop, language detection, streaming over
+WebSocket) at the full widths of Whisper-small and Whisper-tiny,
 Whisper fine-tuning at the full width of Whisper-base, quantized
 continuous-batching serving over HTTP at the full width of
 Whisper-large-v3-turbo, and UrbanSound classification at the reference
 classifiers' widths -- the four int4 kernel-experiment tools and the four
-attention tools, in eleven phases, one output line each (the kernel and
+attention tools, in twelve phases, one output line each (the kernel and
 path phases print one line per case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
@@ -138,6 +141,31 @@ path phases print one line per case):
      held against the port's CPU path in float32 (the log-mel, FFT body
      against K1's plain version; encoder states, and teacher-forced
      logits of every decode step);
+  4b. decoders -- random Whisper-small and Whisper-tiny weights, a 30 s
+     and a 47 s request (its last 10 s silent), ``max_new_tokens`` 64,
+     through ``Transcriber`` on the card: beam search (``beam_width=5,
+     patience=2.0``) in float32 and with int8 KV, ``best_of=5`` at
+     t = 0.4, speculative decoding (Whisper-tiny drafting for
+     Whisper-small with 8 tokens a pass, then Whisper-small drafting for
+     itself with 9), ``word_timestamps`` in the seek loop
+     (``seek_by_timestamps``, ``hallucination_silence_threshold=2.0``,
+     ``vad_threshold_db=-40``, the silent tail as a clip of its own) and
+     ``lang="auto"``; then ``StreamingTranscriber`` at Whisper-tiny (8
+     slots, 6 streams of two windows fed in 0.5 s pieces, one silent
+     under VAD) and the same audio through ``serve_streaming`` to two
+     WebSocket clients. Each path must launch K1 (its FFT body), K2 (its
+     3xTF32 body) and K3 (its sm90 body; its int8 arm with int8 KV) and
+     no plain version; the silent window no K3. Then: ``beam_width=1``
+     equals greedy ``generate`` token for token; the best beam's
+     sum-logprob teacher-forced through the port's CPU path within 1e-3
+     per token; best-of keeps the ranker's maximum; speculative tokens
+     equal greedy's up to a position where greedy's top two logits are
+     closer than ``TOL_SPEC_TIE`` (printed with its margin, the accepted
+     tokens per pass and the wall time against greedy); one window's
+     alignment matrix card against CPU within ``TOL_ALIGN`` and its word
+     timings within one frame; the WebSocket clients receive the direct
+     calls' segments. Each request prints its wall time and RTF with the
+     card's name and power limit;
   5. fine-tune -- random Whisper-base weights, eight synthetic 30 s clips
      written as 16-bit wavs with transcript sidecars, ``build_speech_dataset``
      and two ``finetune_whisper(device="cuda")`` runs: LoRA (rank 8 on
@@ -264,6 +292,16 @@ TOL_LOGITS = 1e-3
 #: 2.6e-3, the planted fault "codes truncated, not rounded" 3.9e-2: the
 #: limit sits about 4x from each
 TOL_LOGITS_Q8 = 1e-2
+#: speculative decoding against greedy ``generate`` on the card: a token
+#: where the two part is allowed only where greedy's top two logits there
+#: are closer than this (the K-row verify span and the 1-row step are
+#: different products, so a near-tie may flip)
+TOL_SPEC_TIE = TOL_LOGITS
+#: word alignment, card against the port's CPU path on the same tokens and
+#: encoder states: the alignment matrix and the attention mass; each word's
+#: start and end within one encoder frame
+TOL_ALIGN = 1e-3
+ALIGN_FRAME_S = 0.02
 #: one fine-tune step, card vs CPU in float32: the loss (relative), and each
 #: gradient leaf against 1e-3 of that leaf's largest CPU value (+1e-6)
 TOL_STEP_LOSS = 1e-4
@@ -299,6 +337,11 @@ FINETUNE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
 SERVE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
                  "decode_attention_stacked_int8", "decode_attention_sm90_int8",
                  "int4_matmul_mma")
+#: the decoders phase's paths with ``kv_quant``: K3's int8 arm (its other
+#: paths launch ``TRANSCRIBE_KERNELS``)
+DECODE_Q8_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
+                     "decode_attention_stacked_int8",
+                     "decode_attention_sm90_int8")
 #: K6's entry point, ``attention(kv_cached=QuantKV)``
 K6_KERNELS = ("decode_attention", "decode_attention_sm90_int8")
 #: K9's launches per serving decode step on its tensor-core body: 4 decoder
@@ -1946,6 +1989,420 @@ def main_path_phase(torch, rng):
     return counts
 
 
+def _forced_rows(torch, W, params, cfg, enc, tokens, p_len, suppress,
+                 first_suppress):
+    """Teacher-force ``tokens`` [L] through ``decode_step`` on ``enc``'s
+    device: the constrained logits [L - p_len, V] that produced tokens
+    p_len..L-1 (the suppressed ids, and the first-position ones, at
+    ``NEG_INF``, as ``generate`` and ``beam_search`` apply them)."""
+    from audax_torch.infer.decode import NEG_INF
+    n = len(tokens)
+    cache = W.init_kv_cache(cfg, 1, n, device=enc.device)
+    xkv = W.precompute_cross_kv(params, cfg, enc)
+    rows = []
+    for pos in range(n - 1):
+        lg, cache = W.decode_step(params, cfg, tokens[pos: pos + 1], pos,
+                                  cache, xkv)
+        if pos + 1 < p_len:
+            continue
+        lg = lg.float()
+        lg[:, suppress] = NEG_INF
+        if pos + 1 == p_len:
+            lg[:, first_suppress] = NEG_INF
+        rows.append(lg[0])
+    return torch.stack(rows)
+
+
+def _ws_connect(port, stream_id):
+    """A WebSocket client: the RFC 6455 upgrade, checked."""
+    import base64
+    import os
+    import socket
+
+    from audax_torch.cli.stream_server import ws_handshake_accept
+    sock = socket.create_connection(("127.0.0.1", port), timeout=300)
+    key = base64.b64encode(os.urandom(16)).decode()
+    sock.sendall((f"GET /ws?stream={stream_id} HTTP/1.1\r\n"
+                  f"Host: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
+                  f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                  "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+    resp = b""
+    while b"\r\n\r\n" not in resp:
+        resp += sock.recv(4096)
+    if (" 101 " not in resp.split(b"\r\n")[0].decode("latin-1") + " "
+            or ws_handshake_accept(key).encode() not in resp):
+        raise AssertionError(f"WebSocket upgrade refused: {resp[:200]!r}")
+    return sock
+
+
+def _ws_send(sock, opcode, payload):
+    """One client frame, masked as RFC 6455 requires of clients."""
+    import os
+    import struct
+
+    import numpy as np
+    mask = os.urandom(4)
+    data = np.frombuffer(payload, np.uint8)
+    key = np.frombuffer((mask * (len(payload) // 4 + 1))[: len(payload)],
+                        np.uint8)
+    n = len(payload)
+    head = bytes([0x80 | opcode])
+    if n < 126:
+        head += bytes([0x80 | n])
+    elif n < (1 << 16):
+        head += bytes([0x80 | 126]) + struct.pack(">H", n)
+    else:
+        head += bytes([0x80 | 127]) + struct.pack(">Q", n)
+    sock.sendall(head + mask + (data ^ key).tobytes())
+
+
+def decoders_phase(torch, rng, smi, device="cuda"):
+    """The rest of Whisper decoding through ``Transcriber`` and the
+    streaming surfaces at full width: beam search (float and int8 KV),
+    best-of sampling, speculative decoding, word timestamps in the seek
+    loop with the hallucination filter and energy VAD, language detection,
+    ``StreamingTranscriber`` and ``serve_streaming``. Returns the launch
+    counts summed over its paths. ``device`` is the card; a rehearsal on
+    the CPU passes "cpu" with the configs cut down."""
+    import socket
+    import threading
+
+    import numpy as np
+
+    from audax_torch.cli.stream_server import (OP_BINARY, OP_CLOSE,
+                                               OP_TEXT, read_frame,
+                                               serve_streaming)
+    from audax_torch.core.config import WhisperConfig
+    from audax_torch.infer import align as A
+    from audax_torch.infer.beam import beam_search
+    from audax_torch.infer.decode import generate
+    from audax_torch.infer.speculative import generate_speculative
+    from audax_torch.infer.streaming import StreamingTranscriber
+    from audax_torch.infer.transcribe import Transcriber
+    from audax_torch.models import whisper as W
+    from audax_torch.ops import launch_counts, reset_launches
+
+    sr = 16000
+    small, tiny = WhisperConfig.small(), WhisperConfig.tiny()
+    p_small = W.init_whisper_params(small, torch.Generator().manual_seed(1),
+                                    device=device)
+    p_tiny = W.init_whisper_params(tiny, torch.Generator().manual_seed(2),
+                                   device=device)
+    cpu_small = W.tree_map(lambda t: t.cpu(), p_small)
+    tok = _tokenizer()
+    print(f"[decoders] {smi}: Whisper-small (d_model {small.d_model}, "
+          f"{small.encoder_layers}+{small.decoder_layers} layers, vocab "
+          f"{small.vocab_size}) and Whisper-tiny (d_model {tiny.d_model}) "
+          f"random weights, max_new_tokens 64", flush=True)
+    a30 = _speechlike(rng, 30.0)
+    # a 47 s request whose last 10 s are silent
+    a47 = np.concatenate([_speechlike(rng, 37.0, pitch=140.0),
+                          np.zeros(10 * sr, np.float32)])
+    total = {}
+
+    def path(label, kernels, fn):
+        """``fn()`` with every count set to 0 just before it and read just
+        after: its kernels must launch, no plain version may."""
+        sync()
+        reset_launches()
+        out = fn()
+        sync()
+        counts = launch_counts()
+        print(f"[decoders] {label} launches: " + json.dumps(
+            {k: c["cuda"] for k, c in counts.items() if c["cuda"]}),
+            flush=True)
+        _check_launches(counts, kernels, f"decoders: {label}")
+        _no_core_flash(counts, f"decoders: {label}")
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c["cuda"]
+        return out, counts
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def request(tr, audio, label, kernels, **kw):
+        res, counts = path(label, kernels,
+                           lambda: tr.transcribe(audio, **kw))
+        n_tok = sum(len(s.tokens or ()) for s in res.segments)
+        print(f"[decoders] {label}: {len(audio) / sr:.0f} s request, "
+              f"{len(res.segments)} segments, {n_tok} tokens, wall "
+              f"{res.wall_seconds:.3f} s, RTF {res.rtf:.5f} ({smi})",
+              flush=True)
+        return res, counts
+
+    common = dict(device=device, max_new_tokens=64,
+                  temperature_fallback=False)
+    # ---- beam search, float and int8 KV --------------------------------
+    beam_tr = Transcriber(p_small, small, tok, beam_width=5, patience=2.0,
+                          **common)
+    beam_tr.warmup(batch_chunks=1)
+    request(beam_tr, a30, "beam W=5 patience 2", TRANSCRIBE_KERNELS)
+    q8_tr = Transcriber(p_small, small, tok, beam_width=5, patience=2.0,
+                        kv_quant=True, **common)
+    request(q8_tr, a30, "beam W=5 patience 2 int8 KV", DECODE_Q8_KERNELS)
+
+    mel = beam_tr.frontend(a30[None, : beam_tr.chunk_samples])
+    enc = W.encode(p_small, small, mel)
+    prompt_np = beam_tr._prompt(1)
+    p_len = prompt_np.shape[1]
+    prompt = torch.from_numpy(prompt_np).to(device)
+    kw = dict(max_len=p_len + 64, eos_id=tok.eot, suppress=beam_tr.suppress,
+              first_suppress=beam_tr.first_suppress)
+    greedy = generate(p_small, small, enc, prompt, **kw)
+    one = beam_search(p_small, small, enc, prompt, beam_width=1, **kw)
+    same = (torch.equal(one.tokens[:, 0], greedy.tokens)
+            and torch.equal(one.lengths[:, 0], greedy.lengths))
+    print(f"[decoders] beam_width=1 vs greedy generate on the card: "
+          f"{'token for token equal' if same else 'DIFFER'} "
+          f"({int(greedy.lengths[0]) - p_len} tokens)", flush=True)
+    if not same:
+        raise AssertionError("beam_width=1 differs from greedy generate")
+    best = beam_search(p_small, small, enc, prompt, beam_width=5,
+                       patience=2.0, **kw)
+    n_best = int(best.lengths[0, 0])
+    rows = _forced_rows(torch, W, cpu_small, small, enc.cpu(),
+                        best.tokens[0, 0, :n_best].cpu(), p_len,
+                        beam_tr.suppress.cpu(),
+                        beam_tr.first_suppress.cpu())
+    forced = float(torch.log_softmax(rows, -1).gather(
+        1, best.tokens[0, 0, p_len:n_best].cpu()[:, None]).sum())
+    err = abs(forced - float(best.sum_logprob[0, 0]))
+    tol = 1e-3 * (n_best - p_len)
+    print(f"[decoders] beam best hypothesis ({n_best - p_len} tokens) "
+          f"teacher-forced on the CPU: sum_logprob "
+          f"{float(best.sum_logprob[0, 0]):.5f} (card) vs {forced:.5f} "
+          f"(CPU), |err| {err:.3e} (tol {tol:.3e})", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"beam sum_logprob off by {err:.3e}")
+
+    # ---- best-of at t = 0.4 --------------------------------------------
+    bo_tr = Transcriber(p_small, small, tok, best_of=5, temperatures=(0.4,),
+                        **common)
+    request(bo_tr, a30, "best_of=5 at t=0.4", TRANSCRIBE_KERNELS)
+    kept = bo_tr._decode_once(enc, prompt_np, 0.4)
+    hand = generate(p_small, small, enc.repeat_interleave(5, 0),
+                    prompt.repeat_interleave(5, 0), temperature=0.4, **kw)
+    # the Transcriber's ranker: mean logprob in float64 on the host
+    score = (hand.sum_logprob.cpu().numpy()
+             / np.maximum(hand.gen_count.cpu().numpy(), 1))
+    pick = int(score.argmax())
+    if not torch.equal(kept.tokens[0], hand.tokens[pick]):
+        raise AssertionError("best-of did not keep the ranker's best sample")
+    print(f"[decoders] best-of: kept sample {pick} of 5, the ranker's "
+          f"maximum (avg logprob {score[pick]:.4f}; the five: "
+          f"{', '.join(f'{s:.4f}' for s in score)})", flush=True)
+
+    # ---- speculative decoding ------------------------------------------
+    denc = W.encode(p_tiny, tiny, mel)
+    for label, dparams, dcfg, dstate, k in (
+            ("tiny -> small", p_tiny, tiny, denc, 8),
+            ("small -> small", p_small, small, enc, 9)):
+        spec_tr = Transcriber(p_small, small, tok, draft=(dparams, dcfg),
+                              spec_tokens=k, **common)
+        request(spec_tr, a30, f"speculative {label} spec_tokens {k}",
+                TRANSCRIBE_KERNELS, batch_chunks=1)
+        skw = dict(kw, max_len=min(p_len + 64, small.n_text_ctx - k + 1))
+        sync()
+        t0 = time.perf_counter()
+        g = generate(p_small, small, enc, prompt, **skw)
+        sync()
+        t_greedy = time.perf_counter() - t0
+        acc = []
+        t0 = time.perf_counter()
+        s = generate_speculative(dparams, p_small, dcfg, small, dstate, enc,
+                                 prompt, spec_tokens=k, accepted=acc, **skw)
+        sync()
+        t_spec = time.perf_counter() - t0
+        gt, st = g.tokens[0].tolist(), s.tokens[0].tolist()
+        gl, sl = int(g.lengths[0]), int(s.lengths[0])
+        diff = next((i for i in range(p_len, min(gl, sl)) if gt[i] != st[i]),
+                    None)
+        if diff is None and gl != sl:
+            raise AssertionError(f"speculative {label}: lengths {sl} vs "
+                                 f"greedy {gl}")
+        note = "token for token equal"
+        if diff is not None:
+            rows = _forced_rows(torch, W, p_small, small, enc,
+                                g.tokens[0, :diff + 1], p_len,
+                                beam_tr.suppress, beam_tr.first_suppress)
+            top2 = rows[diff - p_len].topk(2).values
+            margin = float(top2[0] - top2[1])
+            note = (f"first differs at position {diff} (greedy's top two "
+                    f"logits {margin:.3e} apart, tol {TOL_SPEC_TIE:.0e})")
+            if not margin < TOL_SPEC_TIE:
+                raise AssertionError(f"speculative {label}: {note}")
+        print(f"[decoders] speculative {label}: {sl - p_len} tokens in "
+              f"{len(acc)} passes, accepted per pass {np.mean(acc):.2f} "
+              f"({acc}); wall {t_spec * 1e3:.1f} ms vs greedy generate "
+              f"{t_greedy * 1e3:.1f} ms; vs greedy: {note} ({smi})",
+              flush=True)
+
+    # ---- words, the seek loop, hallucination filter, VAD, clips ----------
+    words_tr = Transcriber(p_small, small, tok, timestamps=True,
+                           word_timestamps=True,
+                           hallucination_silence_threshold=2.0,
+                           seek_by_timestamps=True, vad_threshold_db=-40.0,
+                           clip_timestamps="0,37,37", **common)
+    windows = []
+    own_silent = words_tr._is_silent
+
+    def k3():
+        c = launch_counts()
+        return sum(c[name]["cuda"] for name in DECODE_ENTRY)
+
+    def judged(chunk):
+        verdict = own_silent(chunk)
+        windows.append((verdict, k3()))
+        return verdict
+
+    words_tr._is_silent = judged
+    res, _ = request(words_tr, a47, "words + seek loop + VAD",
+                     TRANSCRIBE_KERNELS)
+    after = k3()
+    spent = [(v, (windows[i + 1][1] if i + 1 < len(windows) else after) - c)
+             for i, (v, c) in enumerate(windows)]
+    n_words = sum(len(s.words or ()) for s in res.segments)
+    print(f"[decoders] seek loop: {len(spent)} windows (silent: "
+          f"{sum(v for v, _ in spent)}), K3 launches per window "
+          f"{[n for _, n in spent]}, {n_words} words", flush=True)
+    if not any(v for v, _ in spent) or any(n for v, n in spent if v):
+        raise AssertionError(f"a silent window launched K3 (or none was "
+                             f"silent): {spent}")
+    # one window's alignment, card against CPU on the same encoder states
+    # and tokens: a sentence of the tokenizer's corpus (the random model's
+    # own tokens are fillers that merge into one word)
+    enc0 = W.encode(p_small, small,
+                    words_tr.frontend(a47[None, : words_tr.chunk_samples]))
+    ids = tok.encode(" the quick brown fox jumps over the lazy dog hello "
+                     "world how are you today")
+    row = [int(t) for t in words_tr._prompt(1, None, "en")[0]]
+    max_len = min(len(row) + 64, small.n_text_ctx)
+    toks = (row + ids + [tok.eot] * max_len)[:max_len]
+    t_card = torch.tensor([toks], device=device)
+    w, mass = A.cross_attention_weights(p_small, small, t_card, enc0[:1])
+    w_cpu, mass_cpu = A.cross_attention_weights(cpu_small, small,
+                                                t_card.cpu(), enc0[:1].cpu())
+    e_w = float((w.cpu() - w_cpu).abs().max())
+    e_m = float((mass.cpu() - mass_cpu).abs().max())
+    sl_ = slice(len(row), len(row) + len(ids))
+    wt = A.word_timings(w[0, sl_].cpu().numpy(), ids, tok,
+                        mass=mass[0, sl_].cpu().numpy())
+    wt_cpu = A.word_timings(w_cpu[0, sl_].numpy(), ids, tok,
+                            mass=mass_cpu[0, sl_].numpy())
+    off = max((max(abs(a.start - b.start), abs(a.end - b.end))
+               for a, b in zip(wt, wt_cpu)), default=0.0)
+    print(f"[decoders] alignment of window 0 ({len(ids)} tokens x "
+          f"{w.shape[-1]} frames) card vs CPU: matrix max_abs_err "
+          f"{e_w:.3e}, mass {e_m:.3e} (tol {TOL_ALIGN:.0e}); {len(wt)} "
+          f"words, timings at most {off:.3f} s apart (tol "
+          f"{ALIGN_FRAME_S} s)", flush=True)
+    if not (e_w <= TOL_ALIGN and e_m <= TOL_ALIGN and len(wt) == len(wt_cpu)
+            and [a.word for a in wt] == [b.word for b in wt_cpu]
+            and off <= ALIGN_FRAME_S + 1e-9):
+        raise AssertionError("the alignment differs between card and CPU")
+
+    # ---- language detection ----------------------------------------------
+    auto_tr = Transcriber(p_small, small, tok, lang="auto", **common)
+    res, _ = request(auto_tr, a30, "lang='auto'", TRANSCRIBE_KERNELS)
+    best_lang, probs = auto_tr.detect(a30)
+    print(f"[decoders] detected language {best_lang!r} "
+          f"(p {probs[best_lang]:.4f} over {len(probs)} languages)",
+          flush=True)
+
+    # ---- streaming at Whisper-tiny: 8 slots, 6 streams ------------------
+    st = StreamingTranscriber(p_tiny, tiny, tok, batch_slots=8,
+                              max_new_tokens=64, vad_threshold_db=-40.0,
+                              device=device)
+    st.warmup()
+    streams = {f"s{i}": (_speechlike(rng, 60.0, pitch=100.0 + 15 * i)
+                         if i != 5 else
+                         (1e-4 * rng.standard_normal(60 * sr))
+                         .astype(np.float32))
+               for i in range(6)}
+    piece = sr // 2
+
+    def stream_all():
+        direct, lat = {}, []
+        for r in range(60 * sr // piece):
+            for sid, x in streams.items():
+                st.feed(sid, x[r * piece: (r + 1) * piece])
+            if st.pending_chunks():
+                t0 = time.perf_counter()
+                segs = st.drain()
+                sync()
+                lat.append((time.perf_counter() - t0, len(segs)))
+                for s in segs:
+                    direct.setdefault(s.stream_id, []).append(
+                        (s.index, s.text, s.audio_seconds))
+        return direct, lat
+
+    (direct, lat), _ = path("streaming", TRANSCRIBE_KERNELS, stream_all)
+    silent = [sid for sid, segs in direct.items() if not any(t for _, t, _ in
+                                                              segs)]
+    print(f"[decoders] streaming: 6 streams x 2 windows in 0.5 s pieces, "
+          f"8 slots; a window's segment {', '.join(f'{t * 1e3:.1f} ms' for t, _ in lat)} "
+          f"after its last piece ({[n for _, n in lat]} segments per "
+          f"batch); VAD-silent streams {silent} ({smi})", flush=True)
+    if (sorted(direct) != sorted(streams) or "s5" not in silent
+            or any(len(v) != 2 for v in direct.values())):
+        raise AssertionError(f"streaming segments wrong: {direct}")
+    for sid in streams:
+        st.remove(sid)
+
+    def websocket():
+        server = serve_streaming(st, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        got, errors = {}, []
+
+        def client(sid):
+            try:
+                sock = _ws_connect(server.server_address[1], "ws-" + sid)
+                x = streams[sid]
+                for i in range(0, len(x), piece):
+                    _ws_send(sock, OP_BINARY, x[i: i + piece].astype(
+                        "<f4").tobytes())
+                segs = []
+                while len(segs) < 2:
+                    op, payload = read_frame(sock)
+                    if op != OP_TEXT:
+                        raise AssertionError(f"opcode {op}")
+                    seg = json.loads(payload)
+                    segs.append((seg["index"], seg["text"],
+                                 seg["audio_seconds"]))
+                _ws_send(sock, OP_CLOSE, b"\x03\xe8")
+                read_frame(sock)
+                sock.close()
+                got[sid] = segs
+            except (AssertionError, OSError, socket.timeout) as exc:
+                errors.append(f"{sid}: {exc!r}")
+
+        clients = [threading.Thread(target=client, args=(sid,))
+                   for sid in ("s0", "s1")]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(600)
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+        if errors or any(c.is_alive() for c in clients) or thread.is_alive():
+            raise AssertionError(f"WebSocket clients failed: {errors}")
+        return got
+
+    t0 = time.perf_counter()
+    got, _ = path("WebSocket", TRANSCRIBE_KERNELS, websocket)
+    same = all(got[sid] == direct[sid] for sid in ("s0", "s1"))
+    print(f"[decoders] serve_streaming: 2 WebSocket clients x 2 windows in "
+          f"{time.perf_counter() - t0:.2f} s; segments "
+          f"{'equal to' if same else 'DIFFER from'} the direct calls",
+          flush=True)
+    if not same:
+        raise AssertionError(f"WebSocket segments {got} vs direct {direct}")
+    return {k: {"cuda": n, "plain": 0} for k, n in total.items()}
+
+
 def _transcripts(rng, tok, n, lo=30, hi=45):
     """``n`` texts of ``lo``..``hi`` tokens from the tokenizer's corpus."""
     words = ("the quick brown fox jumps over the lazy dog hello world how "
@@ -3026,6 +3483,7 @@ def main() -> int:
     kern = kernel_phase(torch, rng)
     precision_check(torch)
     transcribe = main_path_phase(torch, rng)
+    decoders = decoders_phase(torch, rng, smi)
     train = finetune_phase(torch, rng, profile=args.profile)
     serve, k6 = serve_phase(torch, rng, profile=args.profile)
     classify = classify_phase(torch, profile=args.profile)
@@ -3034,8 +3492,8 @@ def main() -> int:
     # launches of the main paths, each counted from 0 just before it; the
     # tools' kernels from the probes phase; K2/K7/K8 and P1 from the
     # attention tools as well
-    launches = {k: sum(p[k]["cuda"] for p in (transcribe, train, serve, k6,
-                                              classify))
+    launches = {k: sum(p[k]["cuda"] for p in (transcribe, decoders, train,
+                                              serve, k6, classify))
                 for k in transcribe}
     launches.update(probes)
     for k in FLASH_BF16 + ("flash_forward_fold",):

@@ -136,9 +136,23 @@ def test_device_none_needs_cuda(model):
     ("lang", "auto"),
 ])
 def test_later_slice_knobs_raise(model, knob, value):
+    """Only ``mesh`` (the parallelism slice) still raises; every other knob
+    of the JAX Transcriber is accepted and kept."""
     _, tok, _, _, cfg, params = model
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.Transcriber(params, cfg, tok, device="cpu", **{knob: value})
+    if knob in T._LATER_KNOBS:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            T.Transcriber(params, cfg, tok, device="cpu", **{knob: value})
+        return
+    assert set(T._LATER_KNOBS) == {"mesh"}
+    extra = {}
+    if knob == "draft":
+        value = (params, cfg)
+    if knob == "hallucination_silence_threshold":
+        extra = dict(word_timestamps=True, timestamps=True)
+    tr = T.Transcriber(params, cfg, tok, device="cpu", **{knob: value},
+                       **extra)
+    kept = getattr(tr, knob)
+    assert (kept[1] is cfg) if knob == "draft" else kept == value
 
 
 def test_port_imports_nothing_of_jax():
@@ -164,7 +178,10 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.tools.train_step_breakdown',"
         " 'audax_torch.tools.mfu_study', 'audax_torch.ops.attention',"
         " 'audax_torch.ops.fused_mel', 'audax_torch.ops.mel',"
-        " 'audax_torch.ops.native'}\n"
+        " 'audax_torch.ops.native', 'audax_torch.infer.vad',"
+        " 'audax_torch.infer.beam', 'audax_torch.infer.speculative',"
+        " 'audax_torch.infer.align', 'audax_torch.infer.writers',"
+        " 'audax_torch.infer.streaming', 'audax_torch.cli.stream_server'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow'))\n"
