@@ -6,7 +6,8 @@ overlay and the artifact ``stamp``), ``MelConfig`` with the UrbanSound and
 Whisper presets, ``UrbanSoundConfig``, the classifier configs
 (``TransformerClassifierConfig``, ``CNNClassifierConfig``,
 ``ClassifierTrainConfig``), ``WhisperConfig`` with the published tiny ..
-large-v3-turbo family, and ``FineTuneConfig``. Field names and defaults
+large-v3-turbo family, ``FineTuneConfig`` and the music two-tower's
+``TwoTowerConfig``. Field names and defaults
 match the JAX package so a config can be rebuilt from the other's
 ``asdict()``.
 
@@ -27,7 +28,7 @@ T = TypeVar("T", bound="EnvConfig")
 __all__ = ["EnvConfig", "MelConfig", "UrbanSoundConfig",
            "TransformerClassifierConfig", "CNNClassifierConfig",
            "ClassifierTrainConfig", "WhisperConfig", "FineTuneConfig",
-           "replace"]
+           "TwoTowerConfig", "replace"]
 
 
 def _coerce(raw: str, typ: Any) -> Any:
@@ -262,3 +263,27 @@ class FineTuneConfig(EnvConfig):
     sa_freq_masks: int = 2
     sa_max_time_width: int = 40
     sa_max_freq_width: int = 16
+
+
+@dataclass(frozen=True)
+class TwoTowerConfig(EnvConfig):
+    """Frozen-audio-encoder + adapter + causal-LM transcription model
+    (reference: .charles/music2midi/model.py:18-21, .env.example knobs)."""
+
+    whisper_size: str = "base"
+    adapter_heads: int = 8
+    adapter_ffn_mult: int = 4
+    top_k_unfrozen_layers: int = 4
+    max_target_tokens: int = 512
+    adapter_lr: float = 1e-4
+    lm_lr: float = 2e-5
+    grad_clip: float = 1.0
+    batch_size: int = 8
+    # microbatches per optimizer step (gradient_accumulation_steps
+    # semantics, AB/fineTune.py:165); batch_size must be divisible by it
+    accum_steps: int = 1
+    # MoE decoders only: weight of the Switch load-balancing aux loss (HF
+    # router_aux_loss_coef semantics). 0 disables.
+    moe_aux_coef: float = 0.0
+    epochs: int = 10
+    seed: int = 0

@@ -1,6 +1,7 @@
 """Continuous batching: slot-refill serving over a ragged decode batch (port
 of ``audax/infer/continuous.py``: ``Result``, ``_SlotEngine``,
-``ContinuousBatcher``, ``_advance``).
+``ContinuousBatcher``, ``_advance``, and the two-tower
+``ContinuousGenerator`` with its ``_gen_admit``/``_gen_chunk``).
 
 Fixed-batch decoding convoys every request behind the slowest one. Here the
 decode loop runs in chunks of up to ``steps_per_sync`` ragged steps over
@@ -29,10 +30,20 @@ Weights may be float, int8 or int4 trees (``models/quantize.py``); with
 kernels K1 (log-mel), K2 (encoder attention), K3 (its int8 arm with
 ``kv_quant``) and, for int4 trees, K9.
 
-The engine lives on one device: ``device=None`` is the CUDA card (raising
+``ContinuousGenerator`` serves the music two-tower (``models/
+two_tower.py``) on the same shell: an admit encodes the clips and projects
+the adapter's cross-attention K/V once into the slot; a chunk step embeds
+each slot's last token, fuses it through the adapter, runs one LM step
+with per-slot positions (K3 over the layer-stacked cache) and samples:
+greedy at temperature 0, else from the slot's own ``torch.Generator``,
+reseeded from the request's ``submit(seed=)`` at admit and drawn only
+while the request is live, so a request's samples depend on its seed and
+depth alone (the JAX engine folds (seed, pos) into a key). An
+``allowed_ids`` mask constrains every step.
+
+The engines live on one device: ``device=None`` is the CUDA card (raising
 without one); ``device="cpu"`` runs the plain PyTorch versions. Tensor
-parallelism (``mesh``) waits for the parallelism slice, and the two-tower
-``ContinuousGenerator`` for the music slice.
+parallelism (``mesh``) waits for the parallelism slice.
 """
 
 from __future__ import annotations
@@ -46,13 +57,16 @@ import torch
 from audax_torch.core.config import WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
 from audax_torch.frontend.features import LogMelFrontend
+from audax_torch.models.causal_lm import init_lm_cache
+from audax_torch.models.two_tower import (_allowed_mask, adapter_cross_kv,
+                                          two_tower_step)
 from audax_torch.models.whisper import (decode_step_ragged, encode,
                                         init_kv_cache, precompute_cross_kv,
                                         tree_map)
 from audax_torch.ops import native
 from audax_torch.symbolic.tokenizer import WhisperTokenizer
 
-__all__ = ["ContinuousBatcher", "Result"]
+__all__ = ["ContinuousBatcher", "ContinuousGenerator", "Result"]
 
 
 @dataclass
@@ -395,3 +409,166 @@ class ContinuousBatcher(_SlotEngine):
         if self.device.type == "cuda":
             native.build()
         super().warmup()
+
+
+# ---------------------------------------------------- two-tower engine ----
+class ContinuousGenerator(_SlotEngine):
+    """Slot-refill two-tower audio -> ABC generation with per-request
+    reproducible temperature sampling. Usage::
+
+        g = ContinuousGenerator(model, bpe=bpe, start_id=s, end_id=e)
+        g.submit("req-1", samples, seed=7)
+        results = g.run()
+    """
+
+    def __init__(self, model, *, bpe=None, start_id: int, end_id: int,
+                 params=None, slots: int = 4, window_seconds: float = 10.0,
+                 max_new_tokens: int = 256, temperature: float = 0.7,
+                 steps_per_sync: int = 32, dtype=torch.float32, mesh=None,
+                 allowed_ids=None, device: DeviceLike = None):
+        if mesh is not None:
+            raise NotImplementedError("ContinuousGenerator(mesh=...) arrives "
+                                      "with the parallelism slice of the port")
+        self.device = resolve_device(device)
+        self.model = model
+        self.bpe = bpe
+        # the engine's own device copies, detached: serving records no graph
+        self.params = tree_map(lambda t: t.detach().to(self.device),
+                               params if params is not None else model.params)
+        self.audio_params = tree_map(lambda t: t.detach().to(self.device),
+                                     model.audio_params)
+        #: constrained decoding: permit only these ids (+ end_id)
+        self.allowed_mask = _allowed_mask(allowed_ids, end_id,
+                                          model.lm_cfg.vocab_size,
+                                          self.device)
+        self.slots = slots
+        self.dtype = dtype
+        self.temperature = float(temperature)
+        self.steps_per_sync = steps_per_sync
+        self.frontend = LogMelFrontend.whisper(model.audio_cfg.n_mels,
+                                               device=self.device)
+        self.sample_rate = self.frontend.cfg.sample_rate
+        self.window = int(window_seconds * self.sample_rate)
+        self._p_len = 1
+        self._max_len = 1 + max_new_tokens
+        self._stop_id = end_id
+        self._prompt_row = torch.zeros(self._max_len, dtype=torch.long,
+                                       device=self.device)
+        self._prompt_row[0] = start_id
+        self._seed_counter = 0
+        #: one sampling stream per slot, reseeded at each admit
+        self._gens = [torch.Generator(device=self.device).manual_seed(0)
+                      for _ in range(slots)]
+        #: ragged decode steps actually run (a chunk stops early once every
+        #: slot is done)
+        self.decode_steps = 0
+        # encoder positions of this window (the conv stem halves frames)
+        self._state = self._init_state(self.frontend.num_frames(self.window)
+                                       // 2)
+        self._init_shell()
+
+    def _init_state(self, s: int) -> dict:
+        b, dev = self.slots, self.device
+        heads = self.model.cfg.adapter_heads
+        hd = self.model.lm_cfg.d_model // heads
+        long = dict(dtype=torch.long, device=dev)
+        return {
+            "cache": init_lm_cache(self.model.lm_cfg, b, self._max_len,
+                                   self.dtype, device=dev),
+            "cross_k": torch.zeros(b, heads, s, hd, dtype=self.dtype,
+                                   device=dev),
+            "cross_v": torch.zeros(b, heads, s, hd, dtype=self.dtype,
+                                   device=dev),
+            "tokens": torch.zeros(b, self._max_len, **long),
+            "pos": torch.zeros(b, **long),
+            "done": torch.ones(b, dtype=torch.bool, device=dev),  # all free
+            "lengths": torch.full((b,), self._max_len, **long),
+            "sum_logprob": torch.zeros(b, device=dev),
+            "gen_count": torch.zeros(b, **long),
+            "budget": torch.full((b,), self._max_len, **long),
+        }
+
+    def submit(self, request_id: str, samples: np.ndarray,
+               max_new_tokens: Optional[int] = None,
+               seed: Optional[int] = None, extra: tuple = ()) -> None:
+        """``seed`` pins this request's sampling stream (reproducible
+        replay); default is a fresh per-engine counter value."""
+        if seed is None:
+            seed = self._seed_counter
+            self._seed_counter += 1
+        super().submit(request_id, samples, max_new_tokens,
+                       extra=(int(seed),))
+
+    @torch.inference_mode()
+    def _install(self, batch, slot_ids, budgets, extras) -> None:
+        """Encode the admitted clips in one frozen-encoder pass, project the
+        adapter's cross-K/V once, and install each into its slot (the JAX
+        ``_gen_admit``). The LM cache needs no clearing: the per-slot
+        causal mask hides the previous occupant's rows."""
+        st = self._state
+        mels = self.frontend(batch)
+        enc = encode(self.audio_params, self.model.audio_cfg, mels,
+                     self.dtype)
+        ck, cv = adapter_cross_kv(self.params["adapter"], enc.to(self.dtype),
+                                  self.model.cfg.adapter_heads)
+        slots = torch.from_numpy(slot_ids).to(self.device)
+        st["cross_k"][slots] = ck
+        st["cross_v"][slots] = cv
+        st["tokens"][slots] = self._prompt_row
+        st["pos"][slots] = 0
+        st["done"][slots] = False
+        st["lengths"][slots] = self._max_len
+        st["sum_logprob"][slots] = 0.0
+        st["gen_count"][slots] = 0
+        st["budget"][slots] = torch.from_numpy(budgets).to(self.device)
+        for slot, e in zip(slot_ids, extras):
+            self._gens[int(slot)].manual_seed(e[0] if e else 0)
+
+    @torch.inference_mode()
+    def _chunk(self) -> None:
+        """Up to ``steps_per_sync`` ragged two-tower steps: embed, fuse
+        through the adapter (precomputed cross-K/V), one LM step at every
+        slot's own position, sample (the JAX ``_gen_chunk``). One host read
+        of the ``done`` flags a step."""
+        st = self._state
+        lm_cfg = self.model.lm_cfg
+        bidx = torch.arange(self.slots, device=self.device)
+        floor = torch.finfo(torch.float32).min
+        for _ in range(self.steps_per_sync):
+            done = st["done"].cpu().numpy()
+            if done.all():
+                break
+            pos = st["pos"]
+            logits, _ = two_tower_step(self.params, lm_cfg,
+                                       st["tokens"][bidx, pos],
+                                       st["cross_k"], st["cross_v"], pos,
+                                       st["cache"], self.dtype)
+            if self.allowed_mask is not None:
+                # constrained decoding (the reference's abandoned "mask out
+                # non-ABC tokens" variant, model.py:346-417, made to work)
+                logits = logits.masked_fill(~self.allowed_mask[None], floor)
+            if self.temperature == 0.0:
+                nxt = logits.argmax(-1)
+            else:
+                probs = torch.softmax(logits / self.temperature, -1)
+                nxt = torch.zeros(self.slots, dtype=torch.long,
+                                  device=self.device)
+                for i in np.flatnonzero(~done):
+                    nxt[i] = torch.multinomial(probs[i], 1,
+                                               generator=self._gens[i])[0]
+            _advance(st, nxt, logits, p_len=self._p_len,
+                     eos_id=self._stop_id, bidx=bidx)
+            self.decode_steps += 1
+
+    def _text(self, ids) -> str:
+        if self.bpe is None:
+            return ""
+        return self.bpe.decode(ids, skip_specials=True)
+
+    def warmup(self) -> None:
+        """Build the CUDA kernels (on the card), then serve the dummy
+        requests of ``_SlotEngine.warmup``."""
+        if self.device.type == "cuda":
+            native.build()
+        super().warmup()
+        self.decode_steps = 0

@@ -21,6 +21,12 @@ same way; adapters of the conv kernels raise.
 
 ``classifier_from_numpy`` copies a flax classifier's ``params`` and
 ``batch_stats`` into a ``models/classifiers.py`` module, matched by name.
+
+``causal_lm_from_numpy`` converts the JAX causal LM's tree
+(``audax/models/causal_lm.py``: stacked ``layers``, ``embed``, ``norm``,
+an optional ``lm_head``) and ``two_tower_from_numpy`` the two-tower's
+trainable params (``{"adapter": ..., "lm": ...}``), with no layout change;
+the audio tower is a Whisper tree for ``params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from audax_torch.core.config import WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
 from audax_torch.models.lora import check_not_conv
 
-__all__ = ["params_from_numpy", "lora_from_numpy", "classifier_from_numpy"]
+__all__ = ["params_from_numpy", "lora_from_numpy", "classifier_from_numpy",
+           "causal_lm_from_numpy", "two_tower_from_numpy"]
 
 _CONVS = ("conv1", "conv2")
 
@@ -95,6 +102,31 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
         raise ValueError(f"tree does not match {cfg}: conv1 "
                          f"{tuple(conv1.shape)}, embed {tuple(embed.shape)}")
     return params
+
+
+def causal_lm_from_numpy(tree: Mapping[str, Any], cfg,
+                         device: DeviceLike = None) -> Dict[str, Any]:
+    """The JAX causal LM's numpy tree -> the port's on ``device`` (float32
+    leaves; ``cfg`` a ``models/causal_lm.py:CausalLMConfig``, checked
+    against the embedding and the q projection)."""
+    device = resolve_device(device)
+    params = _convert(tree, device, "")
+    embed = tuple(params["embed"].shape)
+    q = tuple(params["layers"]["q"]["kernel"].shape)
+    want_q = (cfg.layers, cfg.d_model, cfg.heads * cfg.head_dim)
+    if embed != (cfg.vocab_size, cfg.d_model) or q != want_q:
+        raise ValueError(f"tree does not match {cfg}: embed {embed}, "
+                         f"q {q}")
+    return params
+
+
+def two_tower_from_numpy(tree: Mapping[str, Any], lm_cfg,
+                         device: DeviceLike = None) -> Dict[str, Any]:
+    """The JAX two-tower's trainable params (``{"adapter", "lm"}``, numpy
+    arrays) -> the port's on ``device``."""
+    device = resolve_device(device)
+    return {"adapter": _convert(tree["adapter"], device, "/adapter"),
+            "lm": causal_lm_from_numpy(tree["lm"], lm_cfg, device)}
 
 
 def classifier_from_numpy(variables: Mapping[str, Any],

@@ -1,0 +1,450 @@
+"""Decoder-only causal LM, the dense Qwen2/Qwen3/LLaMA family, in PyTorch
+(port of ``audax/models/causal_lm.py``).
+
+The reference's two-tower model wraps HF ``Qwen/Qwen3-0.6B-Base``
+(reference: .charles/music2midi/model.py:209-224); this module owns the
+architecture: RMSNorm with float32 statistics, rotary position embeddings
+(HF half-split, float32 angles), grouped-query attention, optional
+per-head q/k norms (Qwen3) applied before RoPE, optional q/k/v biases
+(Qwen2), a SwiGLU MLP and tied (or separate) output embeddings.
+
+Parameters are the JAX package's tree as nested dicts of tensors
+(``models/bridge.py:causal_lm_from_numpy`` converts one; ``init_causal_lm``
+draws one): layers STACKED with a leading ``[L, ...]`` axis, dense kernels
+``[d_in, d_out]``. Float, int8 and int4 dense leaves run through
+``models/whisper.py:dense``.
+
+Attention sites:
+
+  * the teacher-forced forward (``forward_with_embeds``, ``lm_forward``)
+    calls ``ops/attention.py:dot_product_attention`` causally: without a
+    padding mask it takes the flash path (kernel K2 on the card, GQA
+    inside the kernel), with one the materialised twin, as in JAX;
+  * a decode step (``lm_decode_step``) writes its new K/V row in place into
+    the layer-STACKED cache ``[L, B, kvH, S, hd]`` at a scalar position or
+    at each slot's own (a ``[B]`` vector, continuous batching) and reads it
+    through ``decode_attention_stacked`` (kernel K3, GQA and the per-slot
+    causal mask inside the kernel).
+
+The rotary tables are computed once per forward or step and shared by
+every layer (the JAX package recomputes them per layer; same float32
+numbers). ``port_causal_lm_from_hf`` takes an in-memory HF model (this
+module imports no ``transformers``). The mixture-of-experts paths of the
+JAX module (``num_experts > 0``) wait for the MoE slice of the port and
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from audax_torch.core.runtime import DeviceLike, resolve_device
+from audax_torch.models.quantize import embed_logits, embed_lookup
+from audax_torch.models.whisper import dense, layer_params, tree_map
+from audax_torch.ops.attention import (decode_attention_stacked,
+                                       dot_product_attention)
+
+Params = Dict[str, Any]
+
+__all__ = ["CausalLMConfig", "init_causal_lm", "rms_norm",
+           "lm_forward", "lm_logits", "embed_tokens", "forward_with_embeds",
+           "LMKVCache", "init_lm_cache", "lm_decode_step",
+           "resize_embeddings", "port_causal_lm_from_hf", "check_dense"]
+
+_MOE = ("mixture-of-experts layers (num_experts > 0) arrive with the MoE "
+        "slice of the port")
+
+
+@dataclass(frozen=True)
+class CausalLMConfig:
+    vocab_size: int = 2048
+    d_model: int = 256
+    layers: int = 4
+    heads: int = 8
+    kv_heads: int = 4            # GQA; == heads -> MHA
+    #: per-head width; 0 -> d_model // heads. Qwen3 DECOUPLES it
+    #: (hidden 1024, 16 heads, head_dim 128 -> q proj is [1024, 2048])
+    head_dim: int = 0
+    ffn_dim: int = 0             # 0 -> 8/3 * d rounded to 128
+    rope_theta: float = 1e6
+    rms_eps: float = 1e-6
+    qkv_bias: bool = False       # Qwen2: True, Qwen3/llama: False
+    qk_norm: bool = False        # Qwen3: True
+    tie_embeddings: bool = True
+    max_seq: int = 2048
+    # mixture-of-experts fields, kept so a JAX config rebuilds here; any
+    # num_experts > 0 raises (check_dense)
+    num_experts: int = 0
+    experts_per_tok: int = 0
+    moe_ffn_dim: int = 0
+    norm_topk_prob: bool = True
+    moe_impl: str = "ragged"
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.heads)
+        if self.num_experts and not self.experts_per_tok:
+            raise ValueError("MoE config needs experts_per_tok >= 1")
+
+    @property
+    def ffn(self) -> int:
+        if self.ffn_dim:
+            return self.ffn_dim
+        return ((int(self.d_model * 8 / 3) + 127) // 128) * 128
+
+    @classmethod
+    def qwen3_0_6b(cls) -> "CausalLMConfig":
+        """Qwen3-0.6B's published config (HF ``Qwen/Qwen3-0.6B-Base``
+        config.json): hidden 1024, 28 layers, 16 query and 8 KV heads of
+        128, intermediate 3072, vocab 151,936, rope_theta 1e6, q/k norms,
+        tied embeddings."""
+        return cls(vocab_size=151936, d_model=1024, layers=28, heads=16,
+                   kv_heads=8, head_dim=128, ffn_dim=3072, rope_theta=1e6,
+                   rms_eps=1e-6, qk_norm=True, tie_embeddings=True,
+                   max_seq=40960)
+
+
+def check_dense(cfg: CausalLMConfig) -> None:
+    if cfg.num_experts:
+        raise NotImplementedError(_MOE)
+
+
+# ---------------------------------------------------------------- init ----
+def init_causal_lm(cfg: CausalLMConfig, generator: torch.Generator, *,
+                   device: DeviceLike = None) -> Params:
+    """Random float32 parameters with the JAX ``init_causal_lm`` layout and
+    scales (dense kernels normal / sqrt(d_in), zero biases, unit norms,
+    embeddings normal x 0.02), drawn from ``generator`` on its device,
+    then moved to ``device``."""
+    check_dense(cfg)
+    device = resolve_device(device)
+    gen_dev = generator.device
+    n, d, hd = cfg.layers, cfg.d_model, cfg.head_dim
+
+    def lin(d_in, d_out, bias=False, stack=True):
+        shape = (n, d_in, d_out) if stack else (d_in, d_out)
+        p = {"kernel": torch.randn(*shape, generator=generator,
+                                   device=gen_dev) / math.sqrt(d_in)}
+        if bias:
+            p["bias"] = torch.zeros(*shape[:-2], d_out, device=gen_dev)
+        return p
+
+    def norm(width):
+        return {"scale": torch.ones(n, width, device=gen_dev)}
+
+    layers = {"attn_norm": norm(d),
+              "q": lin(d, cfg.heads * hd, cfg.qkv_bias),
+              "k": lin(d, cfg.kv_heads * hd, cfg.qkv_bias),
+              "v": lin(d, cfg.kv_heads * hd, cfg.qkv_bias),
+              "o": lin(cfg.heads * hd, d),
+              "mlp_norm": norm(d),
+              "gate": lin(d, cfg.ffn), "up": lin(d, cfg.ffn),
+              "down": lin(cfg.ffn, d)}
+    if cfg.qk_norm:
+        layers["q_norm"] = norm(hd)
+        layers["k_norm"] = norm(hd)
+    params = {"embed": torch.randn(cfg.vocab_size, d, generator=generator,
+                                   device=gen_dev) * 0.02,
+              "layers": layers,
+              "norm": {"scale": torch.ones(d, device=gen_dev)}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = lin(d, cfg.vocab_size, stack=False)
+    return tree_map(lambda t: t.to(device), params)
+
+
+# ------------------------------------------------------------ primitives --
+def rms_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with float32 statistics, cast back to x's dtype."""
+    x32 = x.float()
+    scale = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * scale * p["scale"]).to(x.dtype)
+
+
+def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the HF half-split rotary embedding, float32, shaped to
+    broadcast over [B, H, T, head_dim / 2]: positions [T] give [1, 1, T,
+    hd/2], positions [B, T] give [B, 1, T, hd/2]."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv           # [(B,) T, hd/2]
+    ang = ang[None, None] if positions.dim() == 1 else ang[:, None]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rope(x: torch.Tensor, rope) -> torch.Tensor:
+    cos, sin = rope
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _heads(y: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    b, t, _ = y.shape
+    return y.reshape(b, t, heads, hd).transpose(1, 2)
+
+
+class LMKVCache(NamedTuple):
+    """Layer-stacked self-attention cache, k/v [L, B, kvH, max_len, hd];
+    the decode steps write it IN PLACE."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+Pos = Union[int, torch.Tensor]
+
+
+def _attn_block(layer: Params, cfg: CausalLMConfig, x: torch.Tensor, rope,
+                *, mask: Optional[torch.Tensor] = None, causal: bool = False,
+                cache: Optional[LMKVCache] = None, pos: Optional[Pos] = None,
+                layer_idx: int = 0) -> torch.Tensor:
+    """Pre-norm GQA self-attention. Without ``cache``: ``causal`` plus an
+    optional key-padding ``mask`` [B or 1, 1, 1 or Tq, Tk] through
+    ``dot_product_attention``. With it: the new K/V rows land in layer
+    ``layer_idx`` of the stacked cache at ``pos`` (an int: rows pos..pos+T-1;
+    a [B] tensor: row b at pos[b]) and ``decode_attention_stacked`` reads
+    keys <= pos (+ the query row)."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    h = rms_norm(layer["attn_norm"], x, cfg.rms_eps)
+    q = _heads(dense(layer["q"], h), cfg.heads, hd)
+    k = _heads(dense(layer["k"], h), cfg.kv_heads, hd)
+    v = _heads(dense(layer["v"], h), cfg.kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(layer["q_norm"], q, cfg.rms_eps)
+        k = rms_norm(layer["k_norm"], k, cfg.rms_eps)
+    q = _rope(q, rope)                     # contiguous (a concatenation)
+    k = _rope(k, rope)
+    if cache is not None:
+        if isinstance(pos, int):
+            cache.k[layer_idx, :, :, pos: pos + t] = k
+            cache.v[layer_idx, :, :, pos: pos + t] = v
+            at = pos
+        else:
+            # per-slot decode depths: row b's new K/V at (layer, b, :, pos[b])
+            bidx = torch.arange(b, device=x.device)
+            cache.k[layer_idx, bidx, :, pos] = k[:, :, 0]
+            cache.v[layer_idx, bidx, :, pos] = v[:, :, 0]
+            at = pos.to(torch.int32)
+        out = decode_attention_stacked(q, cache, layer_idx, pos=at,
+                                       scale=hd ** -0.5)
+    else:
+        out = dot_product_attention(q, k, v.contiguous(), causal=causal,
+                                    mask=mask, scale=hd ** -0.5)
+    out = out.transpose(1, 2).reshape(b, t, cfg.heads * hd)
+    return dense(layer["o"], out)
+
+
+def _mlp_block(layer: Params, cfg: CausalLMConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(layer["mlp_norm"], x, cfg.rms_eps)
+    return dense(layer["down"],
+                 F.silu(dense(layer["gate"], h)) * dense(layer["up"], h))
+
+
+def _check_tree(params: Params) -> None:
+    if "router" in params["layers"]:
+        raise NotImplementedError(_MOE)
+
+
+# ------------------------------------------------------------- forward ----
+def embed_tokens(params: Params, tokens: torch.Tensor,
+                 dtype=torch.float32) -> torch.Tensor:
+    return embed_lookup(params, tokens, dtype)
+
+
+def forward_with_embeds(params: Params, cfg: CausalLMConfig,
+                        embeds: torch.Tensor,
+                        attention_mask: Optional[torch.Tensor] = None,
+                        dtype=torch.float32) -> torch.Tensor:
+    """Hidden states [B, T, d] (before the logits) from input embeddings
+    [B, T, d] (the two-tower fusion's entry point). ``attention_mask`` [B,
+    T], 1 = real: padding is masked from the keys (which takes the
+    materialised twin); without it the causal attention rides the flash
+    path."""
+    check_dense(cfg)
+    _check_tree(params)
+    b, t, _ = embeds.shape
+    x = embeds.to(dtype)
+    rope = _rope_tables(torch.arange(t, device=x.device), cfg.head_dim,
+                       cfg.rope_theta)
+    mask = (attention_mask[:, None, None, :].bool()
+            if attention_mask is not None else None)
+    for li in range(cfg.layers):
+        layer = layer_params(params["layers"], li)
+        x = x + _attn_block(layer, cfg, x, rope, mask=mask, causal=True)
+        x = x + _mlp_block(layer, cfg, x)
+    return rms_norm(params["norm"], x, cfg.rms_eps)
+
+
+def lm_logits(params: Params, cfg: CausalLMConfig,
+              hidden: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding logits (or the separate ``lm_head``): [..., V]."""
+    if cfg.tie_embeddings or not any(k.startswith("lm_head")
+                                     for k in params):
+        return embed_logits(params, hidden)
+    return dense(params["lm_head"], hidden)
+
+
+def lm_forward(params: Params, cfg: CausalLMConfig, tokens: torch.Tensor,
+               attention_mask: Optional[torch.Tensor] = None,
+               dtype=torch.float32) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, V]."""
+    hidden = forward_with_embeds(params, cfg,
+                                 embed_tokens(params, tokens, dtype),
+                                 attention_mask, dtype)
+    return lm_logits(params, cfg, hidden)
+
+
+# ---------------------------------------------------------------- decode --
+def init_lm_cache(cfg: CausalLMConfig, batch: int, max_len: int,
+                  dtype=torch.float32, device: DeviceLike = None
+                  ) -> LMKVCache:
+    device = resolve_device(device)
+    shape = (cfg.layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
+    return LMKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                     torch.zeros(shape, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def lm_decode_step(params: Params, cfg: CausalLMConfig,
+                   embed: torch.Tensor, pos: Pos, cache: LMKVCache,
+                   dtype=torch.float32) -> Tuple[torch.Tensor, LMKVCache]:
+    """One autoregressive step from an input EMBEDDING [B, d] (so the
+    two-tower fusion reuses it). ``pos``: an int (every row at that depth)
+    or a per-slot [B] integer tensor on the model's device (each row writes
+    its K/V at its own depth and attends keys <= pos[b]). Returns (logits
+    [B, V], the cache, updated in place)."""
+    check_dense(cfg)
+    _check_tree(params)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 0:
+        pos = int(pos)
+    x = embed.to(dtype)[:, None, :]
+    if isinstance(pos, int):
+        positions = torch.tensor([pos], device=x.device)
+    else:
+        pos = pos.long()
+        positions = pos[:, None]
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for li in range(cfg.layers):
+        layer = layer_params(params["layers"], li)
+        x = x + _attn_block(layer, cfg, x, rope, cache=cache, pos=pos,
+                            layer_idx=li)
+        x = x + _mlp_block(layer, cfg, x)
+    hidden = rms_norm(params["norm"], x, cfg.rms_eps)
+    return lm_logits(params, cfg, hidden)[:, 0], cache
+
+
+# ----------------------------------------------------------------- vocab --
+def resize_embeddings(params: Params, cfg: CausalLMConfig, new_vocab: int,
+                      generator: torch.Generator
+                      ) -> Tuple[Params, CausalLMConfig]:
+    """Extend (or shrink) the token embedding to ``new_vocab`` rows; new
+    rows are the mean of the existing rows plus 0.02 x normal noise from
+    ``generator`` (HF resize_token_embeddings semantics; the reference's
+    matched-pair contract, music2midi/README.md:16-26). The noise is
+    drawn on the generator's device."""
+    embed = params["embed"]
+    old_vocab = embed.shape[0]
+
+    def noise(*shape):
+        return torch.randn(*shape, generator=generator,
+                           device=generator.device).to(embed.device,
+                                                       embed.dtype)
+
+    if new_vocab <= old_vocab:
+        new_embed = embed[:new_vocab]
+    else:
+        extra = embed.mean(0, keepdim=True) + 0.02 * noise(
+            new_vocab - old_vocab, embed.shape[1])
+        new_embed = torch.cat([embed, extra], 0)
+    out = dict(params)
+    out["embed"] = new_embed
+    if "lm_head" in params:
+        head = params["lm_head"]["kernel"]
+        if new_vocab <= old_vocab:
+            new_head = head[:, :new_vocab]
+        else:
+            extra = head.mean(1, keepdim=True) + 0.02 * noise(
+                head.shape[0], new_vocab - old_vocab)
+            new_head = torch.cat([head, extra], 1)
+        out["lm_head"] = {**params["lm_head"], "kernel": new_head}
+        if "bias" in params["lm_head"]:
+            bias = params["lm_head"]["bias"]
+            nb = torch.zeros(new_vocab, dtype=bias.dtype, device=bias.device)
+            keep = min(old_vocab, new_vocab)
+            nb[:keep] = bias[:keep]
+            out["lm_head"]["bias"] = nb
+    return out, dataclasses.replace(cfg, vocab_size=new_vocab)
+
+
+# ------------------------------------------------------------------ port --
+def port_causal_lm_from_hf(hf_model, *, device: DeviceLike = None
+                           ) -> Tuple[Params, CausalLMConfig]:
+    """Port an in-memory HF Qwen2/Qwen3/LLaMA-style ForCausalLM (no
+    network): (params on ``device``, config). Mixture-of-experts models
+    raise ``NotImplementedError`` (the MoE slice)."""
+    device = resolve_device(device)
+    hc = hf_model.config
+    sd = {k: v.detach().to("cpu", torch.float32)
+          for k, v in hf_model.state_dict().items()}
+    if (int(getattr(hc, "num_experts", 0) or 0) > 0
+            or any(".mlp.experts." in k for k in sd)):
+        raise NotImplementedError(_MOE)
+    # a tied lm_head still appears in state_dict: trust the config flag
+    tie = bool(getattr(hc, "tie_word_embeddings", "lm_head.weight" not in sd))
+    cfg = CausalLMConfig(
+        vocab_size=hc.vocab_size, d_model=hc.hidden_size,
+        layers=hc.num_hidden_layers, heads=hc.num_attention_heads,
+        kv_heads=getattr(hc, "num_key_value_heads", hc.num_attention_heads),
+        # Qwen3 decouples head_dim from hidden_size // heads
+        head_dim=int(getattr(hc, "head_dim", 0) or 0),
+        ffn_dim=hc.intermediate_size,
+        rope_theta=float(getattr(hc, "rope_theta", 1e6)),
+        rms_eps=float(getattr(hc, "rms_norm_eps", 1e-6)),
+        qkv_bias=any(k.endswith("self_attn.q_proj.bias") for k in sd),
+        qk_norm=any(k.endswith("self_attn.q_norm.weight") for k in sd),
+        tie_embeddings=tie,
+        max_seq=getattr(hc, "max_position_embeddings", 2048))
+
+    def lin(prefix):
+        p = {"kernel": sd[f"{prefix}.weight"].t()}
+        if f"{prefix}.bias" in sd:
+            p["bias"] = sd[f"{prefix}.bias"]
+        return p
+
+    layers = []
+    for i in range(cfg.layers):
+        pr = f"model.layers.{i}"
+        layer = {
+            "attn_norm": {"scale": sd[f"{pr}.input_layernorm.weight"]},
+            "q": lin(f"{pr}.self_attn.q_proj"),
+            "k": lin(f"{pr}.self_attn.k_proj"),
+            "v": lin(f"{pr}.self_attn.v_proj"),
+            "o": lin(f"{pr}.self_attn.o_proj"),
+            "mlp_norm": {"scale":
+                         sd[f"{pr}.post_attention_layernorm.weight"]},
+            "gate": lin(f"{pr}.mlp.gate_proj"),
+            "up": lin(f"{pr}.mlp.up_proj"),
+            "down": lin(f"{pr}.mlp.down_proj"),
+        }
+        if cfg.qk_norm:
+            layer["q_norm"] = {"scale": sd[f"{pr}.self_attn.q_norm.weight"]}
+            layer["k_norm"] = {"scale": sd[f"{pr}.self_attn.k_norm.weight"]}
+        layers.append(layer)
+    params: Params = {
+        "embed": sd["model.embed_tokens.weight"],
+        "layers": tree_map(lambda *xs: torch.stack(xs), *layers),
+        "norm": {"scale": sd["model.norm.weight"]},
+    }
+    if not tie:
+        params["lm_head"] = {"kernel": sd["lm_head.weight"].t()}
+    return tree_map(lambda t: t.contiguous().to(device), params), cfg

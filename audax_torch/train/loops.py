@@ -11,8 +11,16 @@ batch and masks the padding rows, and fetches its predictions once.
 Two differences from the JAX loop, by design: ``fit_classifier`` trains the
 module's parameters as the caller built (or bridged) them, where the JAX
 loop initialises from ``cfg.seed``; and it trains one device, so ``mesh=``
-waits for the parallelism slice (ROADMAP item 11) and ``ckpt_manager=`` for
-the checkpoint port (ROADMAP A7.1).
+waits for the parallelism slice (ROADMAP item 11).
+
+``ckpt_manager`` (a ``train/checkpoints.py:CheckpointManager``) keeps the
+JAX contract: every epoch's end saves the parameters, the BatchNorm
+statistics, the optimizer state and the step (asynchronously; the loop
+calls ``wait()`` once at the end), and a run whose manager holds a step
+resumes after the latest one. The port also saves the dropout generator's
+state, which the JAX loop need not (it folds the step into its key), so a
+run stopped after an epoch and resumed ends bit-equal to one that was not
+stopped.
 """
 
 from __future__ import annotations
@@ -55,6 +63,37 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device):
 
 def _device_of(state: TrainState) -> torch.device:
     return next(iter(state.params.values())).device
+
+
+def _ckpt_tree(state: TrainState, generator: torch.Generator) -> Dict:
+    return {"params": state.params, "batch_stats": state.buffers,
+            "opt_state": state.opt_state, "step": state.step,
+            "rng": generator.get_state()}
+
+
+def _resume(ckpt_manager, state: TrainState,
+            generator: torch.Generator) -> TrainState:
+    """Load the latest checkpoint into the module's own tensors (in place),
+    the optimizer state, the step and the dropout generator. A checkpoint
+    of parameters and statistics alone resets the Adam moments."""
+    try:
+        restored = ckpt_manager.restore(_ckpt_tree(state, generator))
+    except KeyError:
+        restored = ckpt_manager.restore({"params": state.params,
+                                         "batch_stats": state.buffers})
+        restored.update(opt_state=state.opt_state, step=state.step,
+                        rng=generator.get_state())
+        log.warning("checkpoint has no optimizer state (old format); "
+                    "Adam moments reset")
+    with torch.no_grad():
+        for name, t in list(state.params.items()) + list(
+                state.buffers.items()):
+            src = (restored["params"] if name in state.params
+                   else restored["batch_stats"])[name]
+            t.copy_(src)
+    generator.set_state(restored["rng"])
+    return state.replace(opt_state=restored["opt_state"],
+                         step=restored["step"])
 
 
 def evaluate_classifier(eval_step, state: TrainState,
@@ -104,10 +143,6 @@ def fit_classifier(
     epoch's record (loss, accuracy, ``examples_per_s``, eval metrics) goes
     to ``sink`` or the log."""
     _no_mesh(mesh)
-    if ckpt_manager is not None:
-        raise NotImplementedError(
-            "ckpt_manager= (per-epoch checkpoints and resume) waits for the "
-            "checkpoint port (ROADMAP A7.1)")
     device = resolve_device(device)
     model.to(device)
     train_data = {k: train_data[k] for k in ("x", "y")}
@@ -119,8 +154,14 @@ def fit_classifier(
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     history: Dict[str, list] = {"train_loss": [], "eval": []}
 
+    start_epoch = 0
+    if ckpt_manager is not None and ckpt_manager.latest_step() is not None:
+        state = _resume(ckpt_manager, state, generator)
+        start_epoch = int(ckpt_manager.latest_step()) + 1
+        log.info("resumed from epoch %d", start_epoch - 1)
+
     n_train = len(train_data["y"])
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
         losses, accs = [], []
         for batch in train_batches(train_data, cfg.batch_size, cfg.seed,
@@ -159,4 +200,10 @@ def fit_classifier(
             log.info("epoch %d: %s", epoch,
                      {k: round(v, 4) for k, v in record.items()
                       if isinstance(v, float)})
+        if ckpt_manager is not None:
+            ckpt_manager.save(epoch, _ckpt_tree(state, generator),
+                              metrics={"val_loss": record.get("eval_loss",
+                                                              train_loss)})
+    if ckpt_manager is not None:
+        ckpt_manager.wait()
     return state, history

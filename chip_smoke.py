@@ -15,10 +15,12 @@ word timestamps in the seek loop, language detection, streaming over
 WebSocket) at the full widths of Whisper-small and Whisper-tiny,
 Whisper fine-tuning at the full width of Whisper-base, quantized
 continuous-batching serving over HTTP at the full width of
-Whisper-large-v3-turbo, and UrbanSound classification at the reference
-classifiers' widths -- the four int4 kernel-experiment tools and the four
-attention tools, in twelve phases, one output line each (the kernel and
-path phases print one line per case):
+Whisper-large-v3-turbo, UrbanSound classification at the reference
+classifiers' widths, and the music two-tower's serving path (``infer-
+music``) at Qwen3-0.6B + Whisper-base width -- the four int4
+kernel-experiment tools and the four attention tools, in thirteen phases,
+one output line each (the kernel and path phases print one line per
+case):
 
   1. device  -- nvidia-smi's name and power limit, torch/CUDA/nvcc versions;
   2. build   -- nvcc of every kernel library (twenty-three), in parallel, with
@@ -77,7 +79,9 @@ path phases print one line per case):
      body (``body="cuda_core"``, ``csrc/decode_attention.cu``) and SDPA,
      then held at S 1 with pos 0, Tq 16 and 40 (chunks of 16), head dims
      16, 32 and 128, GQA, bf16 q, per-slot positions at 0 and S - 1, and a
-     chunk copied in tiles. It also holds every caller-set tile of K2, K7
+     chunk copied in tiles; the music LM's decode step (28 stacked layers,
+     GQA 16q/8kv at head dim 128, S 256) at a host-int position and at
+     per-slot positions with 0 and S - 1 among them, timed too. It also holds every caller-set tile of K2, K7
      and K8 at
      [4, 8, 1500, 64] float32, and P1 -- K2 folding 2 or 4 heads per block,
      ``tools/attn_headfold_probe.py:fold_fwd``, on the tensor-core body of
@@ -89,7 +93,10 @@ path phases print one line per case):
      3xTF32) is held, o and lse, within the float32 tolerance at Whisper-
      base's [4, 6, 1500, 64] and [4, 8, 1500, 64], its cross and causal
      decoder sites, causal GQA, a ragged key count, head dims 16/32/128 and
-     the serving encoder's [8, 20, 1500, 64], and timed beside the
+     the serving encoder's [8, 20, 1500, 64], the music path's sites at
+     head dim 128 (the adapter's cross-attention q 64 x kv 500, the LM's
+     causal GQA 16q/8kv at 64 and 256 tokens) and its Whisper-base encoder
+     over 10 s windows [4, 8, 500, 64], and timed beside the
      CUDA-core body (``body="cuda_core"``) at the first and the last; each
      case names the body it ran and its bound (3xTF32 at a third of the
      TF32 peak). K7/K8's float32 bodies on the tensor cores
@@ -230,6 +237,29 @@ path phases print one line per case):
      probe) must launch where a tool drives them, their tensor-core bodies
      in every run (and they alone in the fold probe, the step and the MFU
      runs), none in the xla arm, and no plain version anywhere;
+ 9b. music -- Qwen3-0.6B's published config (hidden 1024, 28 layers, 16
+     query and 8 KV heads of 128, intermediate 3072, q/k norms, tied
+     embeddings) with its 151,936-row vocabulary grown by 128 added ABC
+     tokens (a BPE trained on synthetic ABC tunes, padded with filler to
+     Qwen's size), a Whisper-base audio tower and the 8-head adapter, all
+     random from seed 0 on the card, float32, as ``infer-music`` builds
+     them; the adapter's zero-initialised gates opened. A trainable-only
+     checkpoint saved by ``save_trainable_checkpoint`` and merged back by
+     ``load_trainable_checkpoint`` must restore every leaf bit-exactly;
+     one teacher-forced 64-token sequence through ``TwoTowerModel.forward``
+     (K2 at the adapter's cross and the LM's causal GQA sites) within
+     ``TOL_LOGITS`` of the CPU path; one 4-slot decode step
+     (``two_tower_step``, the step both generators serve) timed and
+     profiled (its kernels by family, its launches, the busy share; a
+     profile with no device time fails the phase); then ``infer-music
+     --constrained`` at t = 0 through ``cli.main.main`` with the
+     checkpoint: ``--wav`` on one 10 s synthetic clip with ``--prompt``,
+     ``--wav-dir`` on six clips over four slots. Each run must launch K1
+     (FFT body), K2 (3xTF32 body) and K3 (sm90 body, 28 a decode step
+     exactly) and no plain version; each request's tokens must equal the
+     CPU path's teacher-forced argmax over the allowed ids up to the first
+     near-tie (``TOL_MUSIC_TIE``). Prints wall, ms a step, tokens/s and
+     launches a step with the card's name and power limit;
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
      ``csrc/flash_bwd.cu``, count the CUDA-core launches, the last two timed
@@ -666,6 +696,10 @@ def kernel_phase(torch, rng):
     overlap_case("n_fft 1024 hop 512 320 mels",
                  MelConfig(n_fft=1024, hop_length=512, n_mels=320),
                  (4, 64000), overlap_rng)
+    # the music path's clips: Whisper's 80 mels over a 10 s window, an admit
+    # of four slots (on a generator of its own)
+    overlap_case("whisper 10 s (music)", MelConfig.whisper(), (4, 160000),
+                 np.random.default_rng(19))
 
     # ---- K4 / K5: direct log-mel (packed; generic) ----------------------------
     from audax_torch.ops import direct_mel
@@ -961,6 +995,19 @@ def kernel_phase(torch, rng):
                    130, f32, True, TOL_F32, False, gen=gen11, d=d)
     flash_case("f32 serving [8,20,1500,64]", 8, 20, 20, 1500, 1500, f32,
                False, TOL_F32, False, gen=gen11, core_ab=True)
+    # the music two-tower's sites: its adapter's cross-attention (8 heads of
+    # 128, q 64 x kv 500: a 64-token teacher-forced sequence over a 10 s
+    # window) and Qwen3-0.6B's causal GQA (16q/8kv of 128) at 64 and at 256
+    # tokens (the generation length), and Whisper-base's encoder over four
+    # 10 s windows (an admit of four slots)
+    flash_case("f32 music adapter cross q [1,8,64,128] kv [1,8,500,128]", 1,
+               8, 8, 64, 500, f32, False, TOL_F32, False, gen=gen11, d=128)
+    flash_case("f32 music LM causal GQA 16q/8kv [1,16,64,128]", 1, 16, 8, 64,
+               64, f32, True, TOL_F32, False, gen=gen11, d=128)
+    flash_case("f32 music LM causal GQA 16q/8kv [4,16,256,128]", 4, 16, 8,
+               256, 256, f32, True, TOL_F32, False, gen=gen11, d=128)
+    flash_case("f32 music encoder 10 s [4,8,500,64]", 4, 8, 8, 500, 500, f32,
+               False, TOL_F32, False, gen=gen11)
     # K2's bf16 body on the tensor cores (csrc/flash_fwd_sm90.cu): Whisper-
     # small's encoder (the bf16 fine-tune step's shape), the masks, head
     # dims 16/32/128 and every tile it is built at; on their own generator
@@ -1128,6 +1175,16 @@ def kernel_phase(torch, rng):
                 quant=True, k6=True, main="decode_attention")
     decode_case("K6 f32 [8,20,1500,64] pos=700", 1500, 700, b=8, h=20,
                 k6=True)
+    # the music LM's decode step at Qwen3-0.6B width: 28 stacked layers, GQA
+    # 16q/8kv (group 2) at head_dim 128 over a 256-row cache; a host-int
+    # position (the single-clip generate) and per-slot positions at 0 and
+    # S - 1 among them (ContinuousGenerator's four slots)
+    gen19 = torch.Generator(device=dev).manual_seed(19)
+    decode_case("music LM [28,1,8,256,128] GQA 16q/8kv pos 200", 256, 200,
+                L=28, b=1, h=16, hkv=8, d=128, gen=gen19)
+    decode_case("music LM [28,4,8,256,128] GQA 16q/8kv per-slot pos "
+                "[0,255,17,128]", 256, [0, 255, 17, 128], L=28, b=4, h=16,
+                hkv=8, d=128, gen=gen19)
 
     # ---- K7 / K8: flash backward (dQ; dK and dV) ------------------------------
     # each kernel's counted launchers by body, its plain version beside them;
@@ -2453,7 +2510,9 @@ def _profile(torch, fn, label, n=3):
     """``n`` calls of ``fn`` under ``torch.profiler``: device time by kernel
     family and the ten longest kernels, and the device's busy share of the
     window (the kernels' summed time over the window's wall time, which the
-    profiler's own host overhead lengthens, so the share is a lower bound)."""
+    profiler's own host overhead lengthens, so the share is a lower bound).
+    Returns (device ms, kernel launches) a call, None where the profiler saw
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2472,7 +2531,7 @@ def _profile(torch, fn, label, n=3):
     if total <= 0:
         print(f"[profile] {label}: the profiler saw no device time; busy "
               "share not measured", flush=True)
-        return
+        return None
     groups = {}
     for e in kernels:
         g = groups.setdefault(_kernel_group(e.key), [0.0, 0])
@@ -2488,6 +2547,7 @@ def _profile(torch, fn, label, n=3):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   {e.self_device_time_total / n / 1e3:8.3f} ms "
               f"{e.count // n:5d}x  {e.key[:110]}", flush=True)
+    return total / n / 1e3, sum(e.count for e in kernels) // n
 
 
 def finetune_phase(torch, rng, profile=False):
@@ -3312,6 +3372,357 @@ def attention_tools_phase(torch):
     return total
 
 
+#: the music two-tower's serving path: K1's tier on the FFT body (each
+#: clip's log-mel), K2's 3xTF32 body (the Whisper encoder; the scoring
+#: forward's adapter cross-attention and the LM's causal GQA) and K3 on its
+#: sm90 body (the LM's decode steps over its layer-stacked cache)
+MUSIC_KERNELS = TRANSCRIBE_KERNELS
+#: the music phase's teacher-forced scoring forward: no decode step, so no K3
+MUSIC_SCORE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3")
+#: the 125 ABC symbols added to the LM's vocabulary after the three
+#: specials (<abc_start>, <abc_end>, <abc_pad>): 128 rows in all, room the
+#: reference's resize_token_embeddings made in Qwen's vocabulary
+ABC_SYMBOLS = tuple(
+    [n for c in "CDEFGAB" for n in (c + ",", c, c.lower(), c.lower() + "'")]
+    + [a + n for c in "CDEFGAB" for n in (c, c.lower()) for a in "^_"]
+    + ["2", "3", "4", "6", "8", "/2", "/4", "3/2"]
+    + ["|", "||", "|:", ":|", "|]", "[|", "::"]
+    + ["z", "z2", "z4", "z8"]
+    + ["X:", "T:", "M:", "L:", "K:", "Q:", "V:", "P:", "N:", "R:", "w:"]
+    + ["K:C", "K:G", "K:D", "K:A", "K:E", "K:F", "K:Bb", "K:Am", "K:Em",
+       "K:Dm"]
+    + ["M:4/4", "M:3/4", "M:6/8", "M:2/4", "M:C|"]
+    + ["L:1/8", "L:1/4", "L:1/16"]
+    + ['"C"', '"G"', '"D"', '"Am"', '"Em"', '"F"', '"Dm"', '"G7"']
+    + ["(3", "-", "(", ")", "{", "}", ">", "<", "~", ".", "!trill!",
+       "!fermata!", "%"])
+#: the music phase's token hold: the card's greedy tokens must equal the
+#: CPU's argmax, position by position, up to the first position where the
+#: CPU's top two (constrained) logits are closer than this -- each side may
+#: be off by TOL_LOGITS, so a flip needs a gap under twice it
+TOL_MUSIC_TIE = 2 * TOL_LOGITS
+#: the single-clip run's teacher-forced ABC header
+MUSIC_PROMPT = "X:1\nK:D\n"
+#: the LM preset of ``infer-music --lm-size``: Qwen3-0.6B's published config
+MUSIC_LM = "qwen3-0.6b"
+
+
+def _abc_tunes(rng, n):
+    """Synthetic ABC tunes: a header and eight bars of random notes."""
+    notes = list("CDEFGABcdefgab")
+    tunes = []
+    for i in range(n):
+        bars = ["".join(str(rng.choice(notes)) + str(rng.choice(["", "2"]))
+                        for _ in range(4)) for _ in range(8)]
+        tunes.append(f"X:{i + 1}\nT:Tune {i + 1}\n"
+                     f"M:{rng.choice(['4/4', '3/4', '6/8'])}\nL:1/8\n"
+                     f"K:{rng.choice(['C', 'G', 'D', 'Am'])}\n"
+                     + "|".join(bars) + "|]\n")
+    return tunes
+
+
+def _abc_tokenizer(rng, base_vocab):
+    """Qwen3's vocabulary layout with ABC added: a BPE trained on synthetic
+    ABC tunes, padded with never-produced filler tokens to ``base_vocab``
+    (151,936), then the three ABC specials and the 125 ABC symbols appended
+    by ``add_tokens`` (the constrained decoding's allowed set)."""
+    from audax_torch.symbolic.bpe import BPE, train_bpe
+
+    bpe = train_bpe(_abc_tunes(rng, 64), vocab_size=600)
+    vocab = dict(bpe.vocab)
+    for i in range(len(vocab), base_vocab):
+        vocab[f"<unused{i}>"] = i
+    bpe = BPE(vocab, bpe.merges)
+    added = bpe.add_tokens(["<abc_start>", "<abc_end>", "<abc_pad>"]
+                           + [f"<abc {s}>" for s in ABC_SYMBOLS])
+    if added != 128 or len(bpe) != base_vocab + 128:
+        raise AssertionError(f"ABC tokenizer: {added} added, {len(bpe)} "
+                             "tokens")
+    return bpe
+
+
+def _music_clip(rng, seconds, sr=16000):
+    """Deterministic synthetic music: a random melody of quarter-second
+    harmonic notes (MIDI 55-79) with decaying envelopes, plus noise."""
+    import numpy as np
+    t = np.arange(int(seconds * sr)) / sr
+    x = np.zeros_like(t)
+    for start in np.arange(0.0, seconds, 0.25):
+        f = 440.0 * 2 ** ((int(rng.integers(55, 80)) - 69) / 12)
+        m = (t >= start) & (t < start + 0.25)
+        tt = t[m] - start
+        x[m] = np.exp(-6 * tt) * sum(np.sin(2 * np.pi * k * f * tt) / k
+                                     for k in range(1, 5))
+    return (0.2 * x + 0.005 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def music_phase(torch, rng, smi):
+    """The music two-tower's serving path at Qwen3-0.6B + Whisper-base
+    width through ``infer-music``; returns the launch counts of its three
+    runs (the scoring forward, ``--wav``, ``--wav-dir``)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from audax_torch.cli import main as cli
+    from audax_torch.core.config import TwoTowerConfig
+    from audax_torch.data.audio_io import read_wav, to_mono, write_wav
+    from audax_torch.frontend.features import LogMelFrontend
+    from audax_torch.models.causal_lm import CausalLMConfig, init_lm_cache
+    from audax_torch.models.two_tower import (adapter_cross_kv,
+                                              build_two_tower, two_tower_step)
+    from audax_torch.models.whisper import tree_leaves, tree_map
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.train.two_tower import (TwoTowerState,
+                                             load_trainable_checkpoint,
+                                             save_trainable_checkpoint)
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    tt = TwoTowerConfig.from_env()
+    audio_cfg = cli._whisper_preset(tt.whisper_size)
+    lm_cfg = cli._lm_preset(MUSIC_LM, 2048)
+    bpe = _abc_tokenizer(rng, CausalLMConfig.qwen3_0_6b().vocab_size)
+    vocab = len(bpe)
+    allowed = bpe.added_token_ids()
+    start, end = bpe.vocab["<abc_start>"], bpe.vocab["<abc_end>"]
+
+    # the model infer-music builds (the same config, seed and device), its
+    # adapter gates opened as training would, so the audio reaches the LM
+    t0 = time.perf_counter()
+    model = build_two_tower(tt, audio_cfg, lm_cfg, vocab,
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    lm_cfg = model.lm_cfg
+    g = torch.Generator(device=dev).manual_seed(1)
+    for gate in ("out", "ffn_out"):
+        k = model.params["adapter"][gate]["kernel"]
+        model.params["adapter"][gate]["kernel"] = torch.randn(
+            k.shape, generator=g, device=dev) / math.sqrt(k.shape[0])
+    sync()
+    n_lm = sum(t.numel() for t in tree_leaves(model.params["lm"]))
+    n_ad = sum(t.numel() for t in tree_leaves(model.params["adapter"]))
+    n_audio = sum(t.numel() for t in tree_leaves(model.audio_params))
+    step_bytes = 4 * (n_lm + n_ad)
+    print(f"[music] {smi}: LM {MUSIC_LM} (d_model {lm_cfg.d_model}, "
+          f"{lm_cfg.layers} layers, {lm_cfg.heads}q/{lm_cfg.kv_heads}kv heads "
+          f"of {lm_cfg.head_dim}, ffn {lm_cfg.ffn}, qk_norm {lm_cfg.qk_norm}, "
+          f"vocab {vocab} = {vocab - 128} + 128 added ABC tokens), "
+          f"Whisper-{tt.whisper_size} audio tower (d_model {audio_cfg.d_model},"
+          f" {audio_cfg.encoder_layers} layers), adapter {tt.adapter_heads} "
+          f"heads x ffn {tt.adapter_ffn_mult}; {n_lm / 1e6:.1f} M LM + "
+          f"{n_ad / 1e6:.1f} M adapter + {n_audio / 1e6:.1f} M audio params, "
+          f"float32, random from seed 0, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    counts_all = []
+    with tempfile.TemporaryDirectory() as d:
+        # ---- trainable-only checkpoint: save, reload, bit-equal ----------
+        ck = os.path.join(d, "trainable")
+        t0 = time.perf_counter()
+        save_trainable_checkpoint(ck, TwoTowerState(step=0,
+                                                    params=model.params),
+                                  model)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_trainable_checkpoint(ck, model)
+        sync()
+        t_load = time.perf_counter() - t0
+        leaves = list(zip(tree_leaves(back.params),
+                          tree_leaves(model.params)))
+        same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+        size = sum(os.path.getsize(os.path.join(ck, f))
+                   for f in os.listdir(ck))
+        print(f"[music] trainable checkpoint (adapter, top "
+              f"{min(tt.top_k_unfrozen_layers, lm_cfg.layers)} layers, "
+              f"embeddings, norm): {size / 1e6:.1f} MB, saved in "
+              f"{t_save:.2f} s, merged back in {t_load:.2f} s; "
+              f"{same}/{len(leaves)} leaves bit-equal", flush=True)
+        if same != len(leaves):
+            raise AssertionError("the trainable checkpoint did not restore "
+                                 "bit-exactly")
+        del back
+
+        # ---- one teacher-forced 64-token sequence, card against CPU ------
+        clip = _music_clip(rng, 10.0)
+        fe = LogMelFrontend.whisper(audio_cfg.n_mels, device=dev)
+        ids = torch.tensor([[start] + [int(i) for i in rng.choice(
+            allowed, 63)]], device=dev)
+        sync()
+        reset_launches()
+        mel = fe(clip[None])
+        enc = model.encode_audio(mel)
+        with torch.no_grad():
+            logits = model.forward(model.params, enc, ids)
+        sync()
+        counts = launch_counts()
+        counts_all.append(counts)
+        _check_launches(counts, MUSIC_SCORE_KERNELS, "music scoring")
+        _no_core_flash(counts, "music scoring")
+        k2 = counts["flash_forward_tf32x3"]["cuda"]
+        want_k2 = audio_cfg.encoder_layers + 1 + lm_cfg.layers
+        if k2 != want_k2:
+            raise AssertionError(f"music scoring: {k2} K2 launches, "
+                                 f"{want_k2} expected (encoder, adapter "
+                                 "cross, LM causal)")
+        cpu = model._replace(audio_params=tree_map(lambda t: t.cpu(),
+                                                   model.audio_params),
+                             params=tree_map(lambda t: t.cpu(),
+                                             model.params))
+        mel_cpu = LogMelFrontend.whisper(audio_cfg.n_mels,
+                                         device="cpu")(clip[None])
+        with torch.no_grad():
+            logits_cpu = cpu.forward(cpu.params, cpu.encode_audio(mel_cpu),
+                                     ids.cpu())
+        e_sc = float((logits.cpu() - logits_cpu).abs().max())
+        print(f"[music] scoring forward [1, 64] -> logits [1, 64, {vocab}]: "
+              f"K2 launches {k2} (encoder {audio_cfg.encoder_layers}, adapter "
+              f"cross q 64 x kv {enc.shape[1]}, LM causal GQA "
+              f"{lm_cfg.heads}q/{lm_cfg.kv_heads}kv x {lm_cfg.layers}); card "
+              f"vs CPU max_abs_err {e_sc:.3e} (tol {TOL_LOGITS:.0e}), logit "
+              f"scale {float(logits_cpu.abs().max()):.3f}", flush=True)
+        if not e_sc <= TOL_LOGITS:
+            raise AssertionError(f"music scoring logits differ by {e_sc:.3e}")
+
+        # ---- one decode step of four slots: its time and its launches ------
+        ck4, cv4 = adapter_cross_kv(model.params["adapter"],
+                                    enc.repeat(4, 1, 1), tt.adapter_heads)
+        cache = init_lm_cache(lm_cfg, 4, 256, device=dev)
+        pos4 = torch.tensor([0, 85, 170, 255], device=dev)
+        tok4 = torch.tensor(rng.choice(allowed, 4), device=dev)
+
+        # the served step itself (``generate``'s and ``ContinuousGenerator``'s)
+        @torch.inference_mode()
+        def step():
+            return two_tower_step(model.params, lm_cfg, tok4, ck4, cv4, pos4,
+                                  cache)[0].argmax(-1)
+        step_ms = _time_ms(torch, step, reps=10)
+        bound = step_bytes / HBM_BPS * 1e3
+        print(f"[music] decode step, 4 slots at pos [0, 85, 170, 255] "
+              f"(adapter + LM + argmax; CUDA events, host issue included): "
+              f"{step_ms:.3f} ms; the weights' bytes ({step_bytes / 1e9:.3f} "
+              f"GB) over HBM bound it at {bound:.3f} ms "
+              f"({step_ms / bound:.1f}x) ({smi})", flush=True)
+        prof = _profile(torch, step, "music decode step (4 slots)", n=3)
+        if prof is None:
+            raise AssertionError("music decode step: the profiler saw no "
+                                 "device time, so its launches a step are "
+                                 "unknown")
+        step_launches = prof[1]
+        del cache
+
+        # ---- infer-music through the command line ----------------------
+        tok_dir = os.path.join(d, "tok")
+        bpe.save(tok_dir)
+        wav = os.path.join(d, "clip.wav")
+        write_wav(wav, clip, 16000)
+        wav_dir = os.path.join(d, "clips")
+        os.makedirs(wav_dir)
+        for i, sec in enumerate((10.0, 8.5, 10.0, 6.0, 9.5, 10.0)):
+            write_wav(os.path.join(wav_dir, f"clip{i}.wav"),
+                      _music_clip(rng, sec), 16000)
+        common = ["--tokenizer-dir", tok_dir, "--ckpt", ck, "--lm-size",
+                  MUSIC_LM, "--constrained", "--temperature", "0",
+                  "--max-tokens", "256", "--device", "cuda"]
+        runs = {}
+        for label, args in (("--wav", ["--wav", wav, "--prompt",
+                                       MUSIC_PROMPT]),
+                            ("--wav-dir", ["--wav-dir", wav_dir, "--slots",
+                                           "4"])):
+            out_json = os.path.join(d, label.strip("-") + ".json")
+            sync()
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["infer-music"] + args + common
+                          + ["--out", out_json])
+            sync()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            counts_all.append(counts)
+            if rc != 0:
+                raise AssertionError(f"infer-music {label} returned {rc}")
+            with open(out_json) as fh:
+                rec = json.load(fh)
+            _check_launches(counts, MUSIC_KERNELS, f"music {label}")
+            _no_core_flash(counts, f"music {label}")
+            steps = rec["decode_steps"]
+            k3 = counts["decode_attention_stacked"]["cuda"]
+            if k3 != lm_cfg.layers * steps:
+                raise AssertionError(f"infer-music {label}: {k3} K3 launches "
+                                     f"for {steps} decode steps of "
+                                     f"{lm_cfg.layers} layers")
+            n_gen = sum(len(r["tokens"]) for r in rec["requests"])
+            print(f"[music] infer-music {label} ({len(rec['requests'])} "
+                  f"clips, --constrained, t = 0, max 256 tokens): wall "
+                  f"{wall:.2f} s (model build and checkpoint merge "
+                  f"included), generation {rec['seconds']:.2f} s, "
+                  f"{steps} decode steps, {rec['seconds'] / steps * 1e3:.2f} "
+                  f"ms a step (encodes and admits included), {n_gen} tokens,"
+                  f" {n_gen / rec['seconds']:.1f} tokens/s; kernel launches"
+                  f" a decode step {step_launches} (profiled above), K3 "
+                  f"{k3 / steps:.0f} of them (one a layer); K1 "
+                  f"{counts['log_mel_overlap_fft']['cuda']}"
+                  f", K2 {counts['flash_forward_tf32x3']['cuda']} ({smi})",
+                  flush=True)
+            runs[label] = rec
+
+        # ---- the card's tokens against the CPU, up to the first near-tie ---
+        mask = torch.zeros(vocab, dtype=torch.bool)
+        mask[torch.tensor(allowed + [end])] = True
+        p_len = len(bpe.encode(MUSIC_PROMPT))
+        fe_cpu = LogMelFrontend.whisper(audio_cfg.n_mels, device="cpu")
+        # the 16-bit audio as the command line read it back
+        seqs = [("--wav clip.wav", wav,
+                 runs["--wav"]["requests"][0]["all_tokens"][
+                     : runs["--wav"]["decode_steps"] + 1], p_len)]
+        for r in runs["--wav-dir"]["requests"]:
+            seq = [start] + r["tokens"]
+            if len(r["tokens"]) < 255:
+                seq.append(end)
+            seqs.append((f"--wav-dir {r['id']}",
+                         os.path.join(wav_dir, r["id"]), seq, 0))
+        t0 = time.perf_counter()
+        held, ties = 0, []
+        for label, path, seq, forced in seqs:
+            audio = to_mono(read_wav(path)[0])
+            x = np.zeros(160000, np.float32)
+            x[: len(audio)] = audio[:160000]
+            with torch.no_grad():
+                lg = cpu.forward(cpu.params,
+                                 cpu.encode_audio(fe_cpu(x[None])),
+                                 torch.tensor([seq[:-1]]))[0]
+            top = lg.masked_fill(~mask, float("-inf")).topk(2)
+            tie = None
+            for i in range(forced, len(seq) - 1):
+                margin = float(top.values[i, 0] - top.values[i, 1])
+                if margin < TOL_MUSIC_TIE:
+                    tie = (i, margin)
+                    break
+                if int(top.indices[i, 0]) != seq[i + 1]:
+                    raise AssertionError(
+                        f"infer-music {label}: position {i + 1} token "
+                        f"{seq[i + 1]} on the card, {int(top.indices[i, 0])} "
+                        f"on the CPU, their top two {margin:.3e} apart")
+                held += 1
+            ties.append(tie)
+            print(f"[music] {label}: {len(seq)} tokens, {held} held so far; "
+                  + (f"first near-tie at position {tie[0] + 1} (margin "
+                     f"{tie[1]:.2e} < {TOL_MUSIC_TIE:.0e})" if tie else
+                     "no near-tie"), flush=True)
+        print(f"[music] card tokens vs the CPU's teacher-forced argmax: "
+              f"{held} positions held over {len(seqs)} requests in "
+              f"{time.perf_counter() - t0:.2f} s; near-ties "
+              f"{sum(t is not None for t in ties)}", flush=True)
+        if held == 0:
+            raise AssertionError("infer-music: no token held against the "
+                                 "CPU")
+    print(f"[music] phase wall {time.perf_counter() - t_phase:.2f} s ({smi})",
+          flush=True)
+    return counts_all
+
+
 def _paths(tree, prefix=""):
     """Leaf paths of a nested dict, in ``tree_leaves`` order."""
     out = []
@@ -3489,11 +3900,13 @@ def main() -> int:
     classify = classify_phase(torch, profile=args.profile)
     probes = probes_phase(torch)
     tools = attention_tools_phase(torch)
+    # on a generator of its own, so the phases before it draw what they drew
+    music = music_phase(torch, np.random.default_rng(19), smi)
     # launches of the main paths, each counted from 0 just before it; the
     # tools' kernels from the probes phase; K2/K7/K8 and P1 from the
     # attention tools as well
     launches = {k: sum(p[k]["cuda"] for p in (transcribe, decoders, train,
-                                              serve, k6, classify))
+                                              serve, k6, classify, *music))
                 for k in transcribe}
     launches.update(probes)
     for k in FLASH_BF16 + ("flash_forward_fold",):

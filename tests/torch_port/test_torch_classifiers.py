@@ -30,6 +30,7 @@ from audax_torch.core.config import (ClassifierTrainConfig,
 from audax_torch.eval import metrics as port_metrics
 from audax_torch.models import classifiers as PC
 from audax_torch.models.bridge import classifier_from_numpy
+from audax_torch.train.checkpoints import CheckpointManager
 from audax_torch.train.loops import evaluate_classifier, fit_classifier
 from audax_torch.train.optim import adamw
 from audax_torch.train.steps import TrainState, make_classifier_steps
@@ -229,15 +230,18 @@ def test_metrics_and_report_equal(rng):
         port_metrics.confusion_matrix(np.array([-1]), np.array([0]), 10)
 
 
-def test_one_device_knobs_raise(rng):
+def test_one_device_knobs_raise(rng, tmp_path):
+    """``mesh=`` raises (the parallelism slice); ``ckpt_manager=`` no longer
+    does: it saves every epoch (``test_torch_checkpoints.py`` holds the
+    resume)."""
     _, pm, shape = _pair("cnn")
     data = _data(rng, 16, shape)
     cfg = ClassifierTrainConfig(batch_size=16, epochs=1)
     with pytest.raises(NotImplementedError, match="item 11"):
         fit_classifier(pm, data, None, cfg, mesh="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7.1"):
-        fit_classifier(pm, data, None, cfg, ckpt_manager=object(),
-                       device="cpu")
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    fit_classifier(pm, data, None, cfg, ckpt_manager=mgr, device="cpu")
+    assert mgr.latest_step() == 0 and (tmp_path / "ck" / "0").is_dir()
 
 
 def test_bridge_checks_shapes(rng):

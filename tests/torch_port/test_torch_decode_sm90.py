@@ -192,6 +192,11 @@ CASES = [  # (L, B, H, Hkv, Tq, S, D, pos kind, int8)
     (1, 2, 8, 2, 3, 64, 64, "vector", False),
     (1, 2, 8, 2, 16, 68, 32, "vector", True),
     (1, 2, 8, 2, 1, 448, 128, "scalar", True),
+    # the music LM's decode step (Qwen3-0.6B: GQA 16q/8kv, group 2, head
+    # dim 128, a 256-row cache): a host-int position and four slots with
+    # 0 and S - 1 among them
+    (2, 1, 16, 8, 1, 256, 128, "scalar", False),
+    (2, 4, 16, 8, 1, 256, 128, "vector", False),
 ]
 
 
