@@ -6,8 +6,8 @@ overlay and the artifact ``stamp``), ``MelConfig`` with the UrbanSound and
 Whisper presets, ``UrbanSoundConfig``, the classifier configs
 (``TransformerClassifierConfig``, ``CNNClassifierConfig``,
 ``ClassifierTrainConfig``), ``WhisperConfig`` with the published tiny ..
-large-v3-turbo family, ``FineTuneConfig`` and the music two-tower's
-``TwoTowerConfig``. Field names and defaults
+large-v3-turbo family, ``FineTuneConfig``, the music two-tower's
+``TwoTowerConfig`` and the synthetic MIDI datagen's ``DataGenConfig``. Field names and defaults
 match the JAX package so a config can be rebuilt from the other's
 ``asdict()``.
 
@@ -28,7 +28,7 @@ T = TypeVar("T", bound="EnvConfig")
 __all__ = ["EnvConfig", "MelConfig", "UrbanSoundConfig",
            "TransformerClassifierConfig", "CNNClassifierConfig",
            "ClassifierTrainConfig", "WhisperConfig", "FineTuneConfig",
-           "TwoTowerConfig", "replace"]
+           "TwoTowerConfig", "DataGenConfig", "replace"]
 
 
 def _coerce(raw: str, typ: Any) -> Any:
@@ -286,4 +286,28 @@ class TwoTowerConfig(EnvConfig):
     # router_aux_loss_coef semantics). 0 disables.
     moe_aux_coef: float = 0.0
     epochs: int = 10
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class DataGenConfig(EnvConfig):
+    """Synthetic MIDI->audio dataset generation (reference:
+    AB/synthDataset.py:43-91, .charles/music2midi/preprocess_data.py +
+    .env.example)."""
+
+    sample_rate: int = 16000
+    chunk_duration_s: float = 10.0
+    num_items: int = 1000
+    notes_per_item: int = 5
+    velocity: int = 100
+    # distribution-coverage jitters (all 0 = the reference's fixed
+    # velocity-100 clean renders): per-NOTE velocity in [velocity-j,
+    # velocity+j], per-ITEM gain in +/- dB, and white noise mixed at the
+    # given SNR (0 = no noise)
+    velocity_jitter: int = 0
+    gain_jitter_db: float = 0.0
+    noise_snr_db: float = 0.0
+    soundfont: str = ""
+    bpe_vocab_size: int = 2000
+    out_dir: str = "artifacts/datagen"
     seed: int = 0

@@ -46,7 +46,8 @@ import torch.nn.functional as F
 
 from audax_torch.core.runtime import DeviceLike, resolve_device
 from audax_torch.models.quantize import embed_logits, embed_lookup
-from audax_torch.models.whisper import dense, layer_params, tree_map
+from audax_torch.models.whisper import (_remat_body, dense, layer_params,
+                                        tree_map)
 from audax_torch.ops.attention import (decode_attention_stacked,
                                        dot_product_attention)
 
@@ -55,7 +56,8 @@ Params = Dict[str, Any]
 __all__ = ["CausalLMConfig", "init_causal_lm", "rms_norm",
            "lm_forward", "lm_logits", "embed_tokens", "forward_with_embeds",
            "LMKVCache", "init_lm_cache", "lm_decode_step",
-           "resize_embeddings", "port_causal_lm_from_hf", "check_dense"]
+           "resize_embeddings", "port_causal_lm_from_hf", "check_dense",
+           "load_balance_loss"]
 
 _MOE = ("mixture-of-experts layers (num_experts > 0) arrive with the MoE "
         "slice of the port")
@@ -264,12 +266,21 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
 def forward_with_embeds(params: Params, cfg: CausalLMConfig,
                         embeds: torch.Tensor,
                         attention_mask: Optional[torch.Tensor] = None,
-                        dtype=torch.float32) -> torch.Tensor:
+                        dtype=torch.float32,
+                        return_router_logits: bool = False,
+                        remat=False) -> torch.Tensor:
     """Hidden states [B, T, d] (before the logits) from input embeddings
     [B, T, d] (the two-tower fusion's entry point). ``attention_mask`` [B,
     T], 1 = real: padding is masked from the keys (which takes the
     materialised twin); without it the causal attention rides the flash
-    path."""
+    path. ``remat`` (False | True | "dots") checkpoints each layer
+    (``models/whisper.py:_remat_body``; the training path).
+    ``return_router_logits`` belongs to the MoE decoders and raises."""
+    if return_router_logits:
+        if not cfg.num_experts:
+            raise ValueError("return_router_logits requires an MoE config "
+                             "(num_experts > 0)")
+        raise NotImplementedError(_MOE)
     check_dense(cfg)
     _check_tree(params)
     b, t, _ = embeds.shape
@@ -278,10 +289,14 @@ def forward_with_embeds(params: Params, cfg: CausalLMConfig,
                        cfg.rope_theta)
     mask = (attention_mask[:, None, None, :].bool()
             if attention_mask is not None else None)
-    for li in range(cfg.layers):
-        layer = layer_params(params["layers"], li)
+
+    def body(x, layer):
         x = x + _attn_block(layer, cfg, x, rope, mask=mask, causal=True)
-        x = x + _mlp_block(layer, cfg, x)
+        return x + _mlp_block(layer, cfg, x)
+
+    body = _remat_body(body, remat)
+    for li in range(cfg.layers):
+        x = body(x, layer_params(params["layers"], li))
     return rms_norm(params["norm"], x, cfg.rms_eps)
 
 
@@ -296,12 +311,23 @@ def lm_logits(params: Params, cfg: CausalLMConfig,
 
 def lm_forward(params: Params, cfg: CausalLMConfig, tokens: torch.Tensor,
                attention_mask: Optional[torch.Tensor] = None,
-               dtype=torch.float32) -> torch.Tensor:
-    """tokens [B, T] -> logits [B, T, V]."""
+               dtype=torch.float32, return_router_logits: bool = False,
+               remat=False) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, V]. ``remat`` checkpoints each layer
+    (training path); ``return_router_logits`` (MoE) raises."""
     hidden = forward_with_embeds(params, cfg,
                                  embed_tokens(params, tokens, dtype),
-                                 attention_mask, dtype)
+                                 attention_mask, dtype,
+                                 return_router_logits=return_router_logits,
+                                 remat=remat)
     return lm_logits(params, cfg, hidden)
+
+
+def load_balance_loss(router_logits, num_experts: int, top_k: int,
+                      attention_mask=None):
+    """The Switch load-balancing aux loss of the MoE decoders: not ported
+    yet (raises)."""
+    raise NotImplementedError(_MOE)
 
 
 # ---------------------------------------------------------------- decode --

@@ -21,9 +21,9 @@ log-mel of the callers (``infer/continuous.py``, ``cli/main.py``) K1.
 
 ``generate`` is the JAX ``lax.while_loop`` as a host loop with one host
 read of the ``done`` flags a step; sampling at a temperature draws from a
-``torch.Generator`` (parity with JAX holds at temperature 0).
-Training (the two-tower optimizer and step) and the MoE decoders arrive
-with later slices of the port.
+``torch.Generator`` (parity with JAX holds at temperature 0). Training
+(the dual-LR optimizer and the step) is ``train/two_tower.py``; the MoE
+decoders arrive with a later slice of the port.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Whisper fine-tune loop: dataset build, step loop, periodic WER eval and
-best-by-WER tracking (port of ``audax/train/finetune_loop.py``:
-``build_speech_dataset``, ``eval_wer``, ``finetune_whisper``).
+best-by-WER tracking, and the synthetic MIDI fine-tune proof (port of
+``audax/train/finetune_loop.py``: ``build_speech_dataset``, ``eval_wer``,
+``finetune_whisper``, ``midi_finetune_proof``).
 
 On the card every part of a step runs there: the batch's audio is gathered
 from a device copy of the dataset, the log-mel kernel (K1) computes its
@@ -11,8 +12,7 @@ whose decode reads the stacked decode-attention kernel (K3).
 Batches are drawn exactly as the JAX loop draws them
 (``np.random.default_rng(cfg.seed).choice``), so both packages train on the
 same examples in the same order. The mesh, FSDP and sequence-parallel
-modes belong to the parallelism slice of the port; the synthetic MIDI
-fine-tune proof waits for the data-generation slice.
+modes belong to the parallelism slice of the port.
 """
 
 from __future__ import annotations
@@ -42,7 +42,8 @@ from audax_torch.train.seq2seq import (FTState, collate_seq2seq,
 
 log = get_logger("audax_torch.finetune")
 
-__all__ = ["build_speech_dataset", "finetune_whisper", "eval_wer"]
+__all__ = ["build_speech_dataset", "finetune_whisper", "eval_wer",
+           "midi_finetune_proof"]
 
 
 def _pad_or_trim(x: np.ndarray, n: int) -> np.ndarray:
@@ -229,3 +230,156 @@ def finetune_whisper(
     if ema is not None:
         history["ema_params"] = _copy(ema_model_params(state, ema))
     return state, history
+
+
+def midi_finetune_proof(
+    out_dir: str,
+    *,
+    num_items: int = 16,
+    notes_per_item: int = 3,
+    steps: int = 80,
+    chunk_seconds: float = 6.0,
+    d_model: int = 64,
+    layers: int = 2,
+    seed: int = 0,
+    holdout_items: int = 6,
+    augment: bool = False,
+    moment_dtype: str = "float32",
+    device: DeviceLike = None,
+) -> Dict:
+    """End-to-end synthetic fine-tune proof on ``device`` (default the CUDA
+    card): a note-name dataset from the MIDI datagen
+    (``data/synth.py:make_midi_dataset``), a byte-level BPE over its labels,
+    a compact random Whisper (drawn from a CPU ``torch.Generator`` seeded
+    ``seed``), transcriptions BEFORE, ``finetune_whisper``, transcriptions
+    AFTER (float32 and bfloat16), and a comparison CSV (file, target,
+    previous, finetuned, finetuned_bf16, split) plus a metrics JSON in
+    ``out_dir``. ``holdout_items`` clips of the same distribution with a
+    disjoint seed are never trained on. ``augment`` widens the TRAIN
+    datagen (velocity/gain jitter, noise at 25 dB SNR) and turns on
+    SpecAugment's frequency masks; the holdout stays clean. Returns the WERs
+    and the two paths."""
+    import json
+
+    from audax_torch.core.config import DataGenConfig
+    from audax_torch.data.synth import make_midi_dataset
+    from audax_torch.eval.wer import word_error_rate
+    from audax_torch.models.whisper import init_whisper_params
+    from audax_torch.ops.augment import (SHORT_CLIP_FREQ_WIDTH,
+                                         SHORT_CLIP_TIME_WIDTH)
+    from audax_torch.symbolic.bpe import train_bpe
+
+    device = resolve_device(device)
+    gen = DataGenConfig(num_items=num_items, notes_per_item=notes_per_item,
+                        out_dir=os.path.join(out_dir, "datagen"), seed=seed,
+                        velocity_jitter=20 if augment else 0,
+                        gain_jitter_db=6.0 if augment else 0.0,
+                        noise_snr_db=25.0 if augment else 0.0)
+    labels_csv = make_midi_dataset(gen)
+    holdout_csv = None
+    if holdout_items > 0:
+        holdout_csv = make_midi_dataset(DataGenConfig(
+            num_items=holdout_items, notes_per_item=notes_per_item,
+            out_dir=os.path.join(out_dir, "datagen_holdout"), seed=seed + 1))
+    with open(labels_csv, newline="") as fh:
+        label_texts = [row["labels"] for row in csv.DictReader(fh)]
+    # tokenizer over the TRAIN labels only (byte-level fallback covers the
+    # holdout's)
+    tokenizer = WhisperTokenizer(
+        train_bpe(label_texts, vocab_size=320,
+                  special_tokens=["<|MIDI|>", "<|/MIDI|>"]))
+    frames = int(chunk_seconds * 16000) // 160          # whisper hop 160
+    model_cfg = WhisperConfig(
+        n_mels=80, n_audio_ctx=frames // 2, d_model=d_model,
+        encoder_layers=layers, decoder_layers=layers,
+        heads=max(2, d_model // 32), vocab_size=tokenizer.vocab_size,
+        n_text_ctx=64)
+    mel_cfg = MelConfig.whisper(80)
+    params = init_whisper_params(model_cfg, torch.Generator().manual_seed(
+        seed), device=device)
+    examples = build_speech_dataset("", tokenizer, mel_cfg,
+                                    labels_csv=labels_csv,
+                                    chunk_seconds=chunk_seconds)
+    if not examples:
+        raise RuntimeError("the datagen produced no usable examples")
+    holdout = build_speech_dataset("", tokenizer, mel_cfg,
+                                   labels_csv=holdout_csv,
+                                   chunk_seconds=chunk_seconds) \
+        if holdout_csv else []
+
+    def snapshot(p, exs, dtype=torch.float32):
+        # suppress_tokens=[]: the default non-speech ban includes '#', a
+        # third of the note-name alphabet
+        tr = Transcriber(p, model_cfg, tokenizer, max_new_tokens=24,
+                         temperature_fallback=False, suppress_tokens=[],
+                         chunk_seconds=chunk_seconds, dtype=dtype,
+                         device=device)
+        return {ex["file"]: tr.transcribe(ex["audio"]).text for ex in exs}
+
+    def wer_of(snap, exs):
+        return word_error_rate([ex["text"] for ex in exs],
+                               [snap[ex["file"]] for ex in exs])
+
+    before = snapshot(params, examples)
+    wer_before = wer_of(before, examples)
+    before_h = snapshot(params, holdout) if holdout else {}
+    holdout_wer_before = wer_of(before_h, holdout) if holdout else None
+
+    ft = FineTuneConfig(learning_rate=1e-3, warmup_steps=5, max_steps=steps,
+                        eval_every=steps, batch_size=8, lora_rank=0,
+                        seed=seed, moment_dtype=moment_dtype,
+                        spec_augment=augment, sa_time_masks=0,
+                        sa_max_time_width=SHORT_CLIP_TIME_WIDTH,
+                        sa_max_freq_width=SHORT_CLIP_FREQ_WIDTH)
+    state, history = finetune_whisper(params, model_cfg, tokenizer, examples,
+                                      ft, mel_cfg=mel_cfg,
+                                      eval_examples=examples,
+                                      eval_suppress_tokens=[], device=device)
+    serving = state.model_params()
+    after = snapshot(serving, examples)
+    wer_after = wer_of(after, examples)
+    after_h = snapshot(serving, holdout) if holdout else {}
+    holdout_wer_after = wer_of(after_h, holdout) if holdout else None
+    after_bf16 = snapshot(serving, examples, dtype=torch.bfloat16)
+    wer_after_bf16 = wer_of(after_bf16, examples)
+
+    os.makedirs(out_dir, exist_ok=True)
+    csv_path = os.path.join(out_dir, "midi_finetune_comparison.csv")
+    with open(csv_path, "w", newline="") as fh:
+        w = csv.DictWriter(fh, fieldnames=["file", "target", "previous",
+                                           "finetuned", "finetuned_bf16",
+                                           "split"])
+        w.writeheader()
+        for ex in examples:
+            w.writerow({"file": ex["file"], "target": ex["text"],
+                        "previous": before[ex["file"]],
+                        "finetuned": after[ex["file"]],
+                        "finetuned_bf16": after_bf16[ex["file"]],
+                        "split": "train"})
+        for ex in holdout:
+            w.writerow({"file": ex["file"], "target": ex["text"],
+                        "previous": before_h[ex["file"]],
+                        "finetuned": after_h[ex["file"]],
+                        "finetuned_bf16": "", "split": "holdout"})
+    metrics = {"wer_before": round(float(wer_before), 4),
+               "wer_after": round(float(wer_after), 4),
+               "wer_after_bf16": round(float(wer_after_bf16), 4),
+               "steps": steps, "items": len(examples),
+               "augment": augment, "moment_dtype": moment_dtype,
+               "loss_first": round(history["loss"][0], 4),
+               "loss_last": round(history["loss"][-1], 4)}
+    if holdout:
+        metrics["holdout_items"] = len(holdout)
+        metrics["holdout_wer_before"] = round(float(holdout_wer_before), 4)
+        metrics["holdout_wer_after"] = round(float(holdout_wer_after), 4)
+    metrics_path = os.path.join(out_dir, "midi_finetune_metrics.json")
+    with open(metrics_path, "w") as fh:
+        json.dump(metrics, fh, indent=2)
+    log.success("fine-tune proof: WER %.3f -> %.3f (bf16 %.3f; holdout "
+                "%s -> %s) (%s)", wer_before, wer_after, wer_after_bf16,
+                holdout_wer_before, holdout_wer_after, csv_path)
+    return {"wer_before": wer_before, "wer_after": wer_after,
+            "wer_after_bf16": wer_after_bf16,
+            "holdout_wer_before": holdout_wer_before,
+            "holdout_wer_after": holdout_wer_after,
+            "csv": csv_path, "metrics": metrics_path, **metrics}

@@ -1,7 +1,9 @@
 """The optimizers: the classifiers' AdamW, and the fine-tune AdamW with
 reduced-precision moment storage and the warmup + linear-decay schedule
 (port of ``audax/train/optim.py``: ``adamw``, ``seq2seq_schedule``,
-``scale_by_adam_lp``, ``adamw_lp``, ``moment_bytes_per_param``).
+``scale_by_adam_lp``, ``adamw_lp``, ``moment_bytes_per_param``), and the
+causal-LM pretraining's ``warmup_cosine_decay_schedule`` (optax's, which
+``audax/train/lm.py`` uses).
 
 These are plain functions on nested-dict tensor trees, not
 ``torch.optim`` classes, because the JAX chain fixes an operation order
@@ -38,9 +40,10 @@ import torch.nn.functional as F
 
 from audax_torch.models.whisper import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["adamw", "seq2seq_schedule", "scale_by_adam_lp", "adamw_lp",
-           "GradientTransformation", "ScaleByAdamLPState", "apply_updates",
-           "global_norm", "moment_bytes_per_param"]
+__all__ = ["adamw", "seq2seq_schedule", "warmup_cosine_decay_schedule",
+           "scale_by_adam_lp", "adamw_lp", "GradientTransformation",
+           "ScaleByAdamLPState", "apply_updates", "global_norm",
+           "clip_by_global_norm", "moment_bytes_per_param"]
 
 Schedule = Callable[[int], float]
 #: storage dtype of v (and of m but for "int8") per moments mode
@@ -72,6 +75,27 @@ def seq2seq_schedule(learning_rate: float, warmup_steps: int,
         if count < warmup_steps:
             return float(_linear(0.0, learning_rate, warm, count))
         return float(_linear(learning_rate, 0.0, decay, count - warmup_steps))
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0) -> Schedule:
+    """``optax.warmup_cosine_decay_schedule`` in float32: linear from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
+    to ``end_value`` at ``decay_steps`` (counted from 0, warmup
+    included)."""
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError("decay_steps must exceed warmup_steps")
+    alpha = _f32(0.0 if peak_value == 0.0 else end_value / peak_value)
+    span = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return float(_linear(init_value, peak_value, warmup_steps, count))
+        c = _f32(min(count - warmup_steps, span))
+        cos = _f32(0.5) * (_f32(1) + np.cos(_f32(np.pi) * c / _f32(span)))
+        return float(_f32(peak_value) * ((_f32(1) - alpha) * cos + alpha))
     return schedule
 
 
@@ -179,6 +203,18 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+def clip_by_global_norm(grads, max_norm: float):
+    """``optax.clip_by_global_norm``: every leaf times ``max_norm / norm``
+    where the global norm is at least ``max_norm``, decided on the device
+    (no host read of the norm)."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    den = torch.where(keep, one, norm)
+    num = torch.where(keep, one, torch.full_like(norm, max_norm))
+    return tree_map(lambda g: g / den * num, grads)
+
+
 def adamw_lp(learning_rate: Union[float, Schedule],
              weight_decay: float = 1e-4, b1: float = 0.9, b2: float = 0.999,
              eps: float = 1e-8, *, moments: str = "bfloat16",
@@ -194,14 +230,7 @@ def adamw_lp(learning_rate: Union[float, Schedule],
     @torch.no_grad()
     def update(grads, state: ScaleByAdamLPState, params):
         if grad_clip:
-            # clip_by_global_norm: (g / norm) * max_norm where norm >= max,
-            # decided on the device (no host read of the norm)
-            norm = global_norm(grads)
-            keep = norm < grad_clip
-            one = torch.ones_like(norm)
-            den = torch.where(keep, one, norm)
-            num = torch.where(keep, one, torch.full_like(norm, grad_clip))
-            grads = tree_map(lambda g: g / den * num, grads)
+            grads = clip_by_global_norm(grads, grad_clip)
         lr = float(_f32(schedule(state.count)))
         direction, state = adam.update(grads, state)
         ds = tree_leaves(direction)

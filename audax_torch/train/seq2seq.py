@@ -32,8 +32,9 @@ from audax_torch.train.optim import (GradientTransformation, adamw_lp,
 
 LABEL_PAD = -100
 
-__all__ = ["collate_seq2seq", "seq2seq_loss", "seq2seq_loss_sum",
-           "make_finetune_step", "FTState", "init_finetune", "LABEL_PAD"]
+__all__ = ["collate_seq2seq", "accumulate_grads", "seq2seq_loss",
+           "seq2seq_loss_sum", "make_finetune_step", "FTState",
+           "init_finetune", "LABEL_PAD"]
 
 
 def collate_seq2seq(
@@ -77,6 +78,35 @@ def seq2seq_loss_sum(logits: torch.Tensor, labels: torch.Tensor
                             labels.reshape(-1), ignore_index=LABEL_PAD,
                             reduction="sum")
     return total, (labels != LABEL_PAD).sum()
+
+
+def accumulate_grads(loss_sum_fn: Callable, leaves: Sequence[torch.Tensor],
+                     batch, accum_steps: int):
+    """Gradient accumulation: ``batch`` (a tensor or a dict of tensors, B
+    rows, B divisible by ``accum_steps``) split into ``accum_steps``
+    microbatches run one after the other; the gradients of each one's
+    summed loss (``loss_sum_fn(micro) -> (total, count)``) and the counts
+    accumulate and are normalised once, so the update equals the
+    full-batch step even with ragged label rows. Returns (gradients of
+    ``leaves``, mean loss, summed count)."""
+    rows = (next(iter(batch.values())) if isinstance(batch, dict)
+            else batch).shape[0]
+    if rows % accum_steps:
+        raise ValueError(f"batch size {rows} not divisible by "
+                         f"accum_steps={accum_steps}")
+    mb = rows // accum_steps
+    gsum, lsum, csum = None, 0.0, 0.0
+    for i in range(accum_steps):
+        part = slice(i * mb, (i + 1) * mb)
+        micro = ({k: v[part] for k, v in batch.items()}
+                 if isinstance(batch, dict) else batch[part])
+        total, count = loss_sum_fn(micro)
+        g = torch.autograd.grad(total, leaves)
+        gsum = list(g) if gsum is None else torch._foreach_add(gsum, g)
+        lsum = lsum + total.detach()
+        csum = csum + count.float()
+    denom = torch.clamp_min(csum, 1.0)
+    return [g / denom for g in gsum], lsum / denom, csum
 
 
 def seq2seq_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -156,22 +186,11 @@ def make_finetune_step(model_cfg: WhisperConfig, *, remat=True,
         if accum_steps == 1:
             loss = seq2seq_loss(logits_of(state, batch), batch["labels"])
             return torch.autograd.grad(loss, leaves), loss.detach()
-        b = batch["labels"].shape[0]
-        if b % accum_steps:
-            raise ValueError(f"batch size {b} not divisible by "
-                             f"accum_steps={accum_steps}")
-        mb = b // accum_steps
-        gsum, lsum, csum = None, 0.0, 0.0
-        for i in range(accum_steps):
-            micro = {k: v[i * mb: (i + 1) * mb] for k, v in batch.items()}
-            total, count = seq2seq_loss_sum(logits_of(state, micro),
-                                            micro["labels"])
-            g = torch.autograd.grad(total, leaves)
-            gsum = list(g) if gsum is None else torch._foreach_add(gsum, g)
-            lsum = lsum + total.detach()
-            csum = csum + count.float()
-        denom = torch.clamp_min(csum, 1.0)
-        return [g / denom for g in gsum], lsum / denom
+        grads, loss, _ = accumulate_grads(
+            lambda micro: seq2seq_loss_sum(logits_of(state, micro),
+                                           micro["labels"]),
+            leaves, batch, accum_steps)
+        return grads, loss
 
     def step(state: FTState, batch):
         grads, loss = grads_and_loss(state, batch)

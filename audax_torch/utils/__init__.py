@@ -1,2 +1,3 @@
 """Utilities of the port: ``profiling`` (tracing, slope timing, H100
-peaks) and ``flops`` (analytic Whisper train-step FLOPs)."""
+peaks), ``flops`` (analytic Whisper train-step FLOPs) and ``reports``
+(parameter and memory breakdowns)."""

@@ -18,7 +18,9 @@ continuous-batching serving over HTTP at the full width of
 Whisper-large-v3-turbo, UrbanSound classification at the reference
 classifiers' widths, and the music two-tower's serving path (``infer-
 music``) at Qwen3-0.6B + Whisper-base width -- the four int4
-kernel-experiment tools and the four attention tools, in thirteen phases,
+kernel-experiment tools and the four attention tools, then the music
+training path (``fit_two_tower`` and ``train-lm`` at Qwen3-0.6B width), in
+fourteen phases,
 one output line each (the kernel and path phases print one line per
 case):
 
@@ -260,6 +262,28 @@ case):
      CPU path's teacher-forced argmax over the allowed ids up to the first
      near-tie (``TOL_MUSIC_TIE``). Prints wall, ms a step, tokens/s and
      launches a step with the card's name and power limit;
+ 9c. music_train -- the music training path at Qwen3-0.6B + Whisper-base
+     width, float32: 24 in-memory 10 s examples from the ported MIDI
+     datagen (``_random_melody`` -> ``render_midi`` -> ``midi_to_abc`` ->
+     BPE over Qwen3's vocabulary layout), ``fit_two_tower`` for one epoch
+     at batch 8 and 512 target tokens (two train steps, one val batch;
+     launches K1 once a batch, K2 six times in the frozen encoder and once
+     in the adapter a batch, K7 and K8 once a train step, exactly), one
+     ``eval_note_f1`` on 4 examples at ``max_len`` 64 (K1, K2, K3), two
+     more steps timed (step ms, tokens/s, peak memory, launches a step),
+     the frozen layers bit-identical after the epoch, and one step at batch
+     1 and 128 tokens held against the CPU path (loss within
+     ``TOL_STEP_LOSS``, the adapter's and the top layer's gradients within
+     ``TOL_STEP_GRAD`` of each leaf's largest); then ``train-lm --lm-size
+     qwen3-0.6b`` through ``cli.main.main`` for 3 steps at batch 32 x 256
+     on an ABC corpus and BPE written in the phase (K2, K7, K8 on their
+     3xTF32 bodies, 28 launches each a step), 2 steps of ``fit_lm`` at
+     bfloat16 (the wgmma bodies at head_dim 128) and 2 with ``remat``
+     "full" (K2 56 a step), each loss finite, and one float32 step at batch
+     1 x 128 held against the CPU (loss and every gradient). Its
+     kernel shapes (the adapter's cross-attention at head_dim 128 over 500
+     keys, the LM's causal GQA in float32 and bf16) are phase 3's
+     ``music train`` cases;
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
      ``csrc/flash_bwd.cu``, count the CUDA-core launches, the last two timed
@@ -700,6 +724,9 @@ def kernel_phase(torch, rng):
     # of four slots (on a generator of its own)
     overlap_case("whisper 10 s (music)", MelConfig.whisper(), (4, 160000),
                  np.random.default_rng(19))
+    # the music training step's batch: eight 10 s windows
+    overlap_case("whisper 10 s (music train, batch 8)", MelConfig.whisper(),
+                 (8, 160000), np.random.default_rng(20))
 
     # ---- K4 / K5: direct log-mel (packed; generic) ----------------------------
     from audax_torch.ops import direct_mel
@@ -888,10 +915,16 @@ def kernel_phase(torch, rng):
 
     def flash_case(label, b, hq, hkv, tq, tk, dtype, causal, tol, main,
                    tile=(None, None), gen=None, d=64, kv_len=None,
-                   core_ab=False):
+                   core_ab=False, ref32=False):
         """K2 on the body ``FWD_BODIES`` names, held (o and lse) against
         the plain version; with ``core_ab`` the same call on the CUDA-core
-        body too, held and timed in the same run."""
+        body too, held and timed in the same run. ``ref32`` (bf16): the
+        plain version runs in float32 on the same bf16 inputs (their exact
+        attention); o is gated by the element-wise rounding bound and lse
+        (float32 on both sides) by ``TOL_F32``: the bf16 plain version also
+        rounds q * scale and the scores to bf16, which the bound does not
+        model, and among millions of outputs some reach |o| >= 4, where
+        one bf16 step (0.031) is past ``TOL_BF16``."""
         q = torch.randn(b, hq, tq, d, device=dev, generator=gen).to(dtype)
         k = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
         v = torch.randn(b, hkv, tk, d, device=dev, generator=gen).to(dtype)
@@ -914,20 +947,36 @@ def kernel_phase(torch, rng):
         ks, vs = k[:, :, :kv], v[:, :, :kv]
         o_ref, lse_ref = att.flash_forward_plain(q, ks, vs, causal=causal)
         e = max(err(o, o_ref), err(lse, lse_ref))
+        if ref32:
+            e16 = e
+            o_ref, lse_ref = att.flash_forward_plain(
+                q.float(), ks.float(), vs.float(), causal=causal)
+            e_o, e_lse = err(o, o_ref), err(lse, lse_ref)
+            e = max(e_o, e_lse)
+            print(f"[kernels] {key}[{label}]: max |err| {e16:.3e} against "
+                  f"the bf16 plain version (o and lse); against the float32 "
+                  f"one o {e_o:.3e}, lse {e_lse:.3e} (tol {TOL_F32:.0e})",
+                  flush=True)
+            if not e_lse <= TOL_F32:
+                raise AssertionError(f"{key}[{label}]: lse off the float32 "
+                                     f"plain version by {e_lse:.3e} > "
+                                     f"{TOL_F32:.0e}")
         if dtype == torch.bfloat16:
-            # each element of o against the rounding bf16 allows: both
-            # sides round p to bf16 (relative 2^-8 each, the kernel before
-            # normalising, the plain version after), so o moves by at most
-            # 2^-7 of the attention-weighted |v| (P|V|, in float32 here),
-            # and each rounds its output (one bf16 step of the larger
-            # between them); 2^-12 of P|V| more for float32 sums
+            # each element of o against the rounding bf16 allows: each side
+            # that rounds p to bf16 (relative 2^-8: the kernel before
+            # normalising, the bf16 plain version after; not the float32
+            # one) moves o by at most 2^-8 of the attention-weighted |v|
+            # (P|V|, in float32 here), and each rounds its output (one bf16
+            # step of the larger between them); 2^-12 of P|V| more for
+            # float32 sums
+            p_term = 2 ** -8 if ref32 else 2 ** -7
             pv = att.flash_forward_plain(q.float(), ks.float(),
                                          vs.float().abs(), causal=causal)[0]
             a, r = o.float(), o_ref.float()
             big = torch.maximum(a.abs(), r.abs())
             step = torch.where(big > 0, torch.ldexp(
                 torch.ones_like(big), torch.frexp(big)[1] - 8), 0.0)
-            steps = float(((a - r).abs() / ((2 ** -7 + 2 ** -12) * pv
+            steps = float(((a - r).abs() / ((p_term + 2 ** -12) * pv
                                              + step)).max())
             print(f"[kernels] {key}[{label}]: o at {steps:.3f} of its "
                   "bf16 rounding bound", flush=True)
@@ -945,8 +994,13 @@ def kernel_phase(torch, rng):
         elt = q.element_size()
         nbytes = elt * d * (2 * b * hq * tq + 2 * b * hkv * kv) + 4 * b * hq * tq
         bound = _bound(flops, nbytes, rate)
-        _report(f"{key}[{label}] ({body} body, o and lse)", e, tol, ms,
-                plain, lib, bound)
+        if ref32:
+            _report(f"{key}[{label}] ({body} body, o and lse against the "
+                    f"float32 plain version; lse {e_lse:.3e})", steps, 1.0,
+                    ms, plain, lib, bound, "o/rounding bound")
+        else:
+            _report(f"{key}[{label}] ({body} body, o and lse)", e, tol, ms,
+                    plain, lib, bound)
         if main:
             out[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
                             library_ms=lib, bound=bound)
@@ -1390,6 +1444,27 @@ def kernel_phase(torch, rng):
                      f"{tile[1]}", 8, 12, 12, 1500, 1500, bf16, False,
                      TOL_BF16, False, tile=tile, gen=gen8, reps=3,
                      plain_reps=1)
+
+    # ---- the music training path's sites, at their real shapes ----------------
+    # the two-tower step (batch 8, 512 target tokens, 10 s windows): the
+    # adapter's cross-attention, 8 heads of 128, 512 queries over 500 keys
+    # (7 key tiles of 64 and a ragged 52); train-lm's step (batch 32 x 256):
+    # Qwen3-0.6B's causal GQA, 16 query heads over 8 KV heads of 128, in
+    # float32 (3xTF32 bodies) and bf16 (wgmma bodies); on their own generator
+    gen20 = torch.Generator(device=dev).manual_seed(20)
+    flash_case("f32 music train adapter cross q [8,8,512,128] kv "
+               "[8,8,500,128]", 8, 8, 8, 512, 500, f32, False, TOL_F32,
+               False, gen=gen20, d=128)
+    bwd_case("music train adapter cross f32 q [8,8,512,128] kv "
+             "[8,8,500,128]", 8, 8, 8, 512, 500, torch.float32, False,
+             TOL_F32, False, gen=gen20, d=128, reps=5)
+    for dt, tol, name in ((f32, TOL_F32, "f32"), (bf16, TOL_BF16, "bf16")):
+        flash_case(f"{name} music train LM causal GQA 16q/8kv "
+                   "[32,16,256,128]", 32, 16, 8, 256, 256, dt, True, tol,
+                   False, gen=gen20, d=128, ref32=dt == bf16)
+        bwd_case(f"music train LM causal GQA 16q/8kv {name} "
+                 "[32,16,256,128]", 32, 16, 8, 256, 256, dt, True, tol,
+                 False, gen=gen20, d=128, reps=5)
 
     # ---- caller-set tiles of K2, K7, K8 and P1 (K2 folding heads) -------------
     # on their own generator: the later phases keep the inputs they drew
@@ -3421,14 +3496,15 @@ def _abc_tunes(rng, n):
     return tunes
 
 
-def _abc_tokenizer(rng, base_vocab):
-    """Qwen3's vocabulary layout with ABC added: a BPE trained on synthetic
-    ABC tunes, padded with never-produced filler tokens to ``base_vocab``
-    (151,936), then the three ABC specials and the 125 ABC symbols appended
-    by ``add_tokens`` (the constrained decoding's allowed set)."""
+def _abc_tokenizer(rng, base_vocab, tunes=None):
+    """Qwen3's vocabulary layout with ABC added: a BPE trained on ABC tunes
+    (``tunes``, or 64 synthetic ones), padded with never-produced filler
+    tokens to ``base_vocab`` (151,936), then the three ABC specials and the
+    125 ABC symbols appended by ``add_tokens`` (the constrained decoding's
+    allowed set)."""
     from audax_torch.symbolic.bpe import BPE, train_bpe
 
-    bpe = train_bpe(_abc_tunes(rng, 64), vocab_size=600)
+    bpe = train_bpe(tunes or _abc_tunes(rng, 64), vocab_size=600)
     vocab = dict(bpe.vocab)
     for i in range(len(vocab), base_vocab):
         vocab[f"<unused{i}>"] = i
@@ -3723,6 +3799,471 @@ def music_phase(torch, rng, smi):
     return counts_all
 
 
+#: the music training path's kernels: the two-tower step (float32: K1, K2
+#: in the frozen encoder and the adapter, K7/K8 in the adapter's backward;
+#: the LM's padded attention takes the materialised twin, no kernel), the
+#: note-F1 eval (K1, K2, K3) and train-lm in float32 and bf16
+MUSIC_TRAIN_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
+                       "flash_backward_dq_tf32x3", "flash_backward_dkv_tf32x3")
+LM_TRAIN_KERNELS = {"float32": ("flash_forward_tf32x3",
+                                "flash_backward_dq_tf32x3",
+                                "flash_backward_dkv_tf32x3"),
+                    "bfloat16": ("flash_forward_wgmma",
+                                 "flash_backward_dq_wgmma",
+                                 "flash_backward_dkv_wgmma")}
+#: the music training phase's data: 24 examples of 10 s, melodies of 14
+#: events (chords of up to 3 notes) cut to the window
+MUSIC_TRAIN_ITEMS = 24
+MUSIC_TRAIN_EVENTS = 14
+
+
+class _MemoryMusic:
+    """``MusicDataset``'s interface over in-memory examples (the card
+    machine has no pyarrow to read the Parquet)."""
+
+    def __init__(self, examples, tokenizer):
+        from audax_torch.data.music_dataset import ABC_SPECIALS
+        self.items = examples
+        self.tokenizer = tokenizer
+        self.start_id, self.end_id, self.pad_id = (
+            tokenizer.vocab[t] for t in ABC_SPECIALS)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def _music_examples(np, bpe, mfs, abcs, waves, max_tokens):
+    """MusicExample rows: <abc_start> + the ABC's ids + <abc_end>, cut and
+    padded to ``max_tokens`` (``MusicDataset.__getitem__``)."""
+    from audax_torch.data.music_dataset import ABC_SPECIALS, MusicExample
+    start, end, pad = (bpe.vocab[t] for t in ABC_SPECIALS)
+    out = []
+    for i, (abc, wav) in enumerate(zip(abcs, waves)):
+        ids = ([start] + bpe.encode(abc, with_specials=False)
+               + [end])[:max_tokens]
+        mask = np.zeros(max_tokens, np.int32)
+        mask[: len(ids)] = 1
+        padded = np.full(max_tokens, pad, np.int32)
+        padded[: len(ids)] = ids
+        out.append(MusicExample(wav, 16000, padded, mask, abc,
+                                f"melody_{i:03d}"))
+    return out
+
+
+def _grads(torch, loss_fn, params):
+    """(loss, {path: gradient}) of ``loss_fn(params)`` over every leaf."""
+    from audax_torch.models.whisper import tree_leaves
+    leaves = tree_leaves(params)
+    loss = loss_fn(params)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), dict(zip(_paths(params), grads))
+
+
+#: gradients that are zero up to rounding: the adapter's key bias adds one
+#: q.b to every score of a query row, which the softmax cancels. Each side
+#: holds rounding noise there, so such a leaf is held at zero (its largest
+#: value within TOL_STEP_GRAD of the step's largest gradient, on both
+#: sides) instead of against the other side's noise
+ZERO_GRAD_LEAVES = ("adapter/k/bias",)
+
+
+def _hold_grads(torch, label, loss, grads, cpu_loss, cpu_grads, keys):
+    """The card's loss within TOL_STEP_LOSS (relative) of the CPU's and each
+    gradient of ``keys`` within TOL_STEP_GRAD of the CPU leaf's largest
+    value (a ``ZERO_GRAD_LEAVES`` leaf at zero); prints the worst."""
+    e_loss = abs(loss - cpu_loss) / abs(cpu_loss)
+    top = max(float(cpu_grads[k].float().abs().max()) for k in keys)
+    worst, zero = (0.0, ""), 0.0
+    for k in keys:
+        g, r = grads[k].float().cpu(), cpu_grads[k].float()
+        if k in ZERO_GRAD_LEAVES:
+            zero = max(zero, float(g.abs().max()) / top,
+                       float(r.abs().max()) / top)
+            continue
+        e = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        worst = max(worst, (e, k))
+    print(f"[music_train] {label} card vs CPU: loss {loss:.6f} / "
+          f"{cpu_loss:.6f} (rel {e_loss:.2e}, tol {TOL_STEP_LOSS:.0e}); "
+          f"{len(keys)} gradients, worst {worst[0]:.2e} of the leaf's "
+          f"largest at {worst[1]} (tol {TOL_STEP_GRAD:.0e}); zero-gradient "
+          f"leaves at {zero:.2e} of the largest gradient", flush=True)
+    if not (e_loss <= TOL_STEP_LOSS and worst[0] <= TOL_STEP_GRAD
+            and zero <= TOL_STEP_GRAD):
+        raise AssertionError(f"music_train {label}: the card is off the CPU "
+                             f"path (loss {e_loss:.2e}, gradient "
+                             f"{worst[0]:.2e} at {worst[1]}, zero-gradient "
+                             f"leaves {zero:.2e})")
+
+
+def music_train_phase(torch, rng, smi):
+    """The music training path at Qwen3-0.6B + Whisper-base width:
+    ``fit_two_tower`` and ``train-lm``; returns the launch counts of its
+    runs (the epoch, the note eval, train-lm in float32, bf16 and remat)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from audax_torch.cli import main as cli
+    from audax_torch.core.config import TwoTowerConfig, replace
+    from audax_torch.data.synth import _random_melody, render_midi
+    from audax_torch.frontend.features import LogMelFrontend
+    from audax_torch.models.causal_lm import (CausalLMConfig, init_causal_lm,
+                                              lm_forward)
+    from audax_torch.models.two_tower import build_two_tower
+    from audax_torch.models.whisper import tree_leaves, tree_map
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.symbolic.abc import midi_to_abc
+    from audax_torch.symbolic.bpe import train_bpe
+    from audax_torch.train.lm import LMTrainConfig, fit_lm
+    from audax_torch.train.seq2seq import seq2seq_loss_sum
+    from audax_torch.train.two_tower import (init_two_tower_state,
+                                             make_two_tower_step)
+    from audax_torch.train.two_tower_loop import (collate_music,
+                                                  eval_note_f1,
+                                                  fit_two_tower)
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    t_phase = time.perf_counter()
+    counts_all = []
+    n_layers = CausalLMConfig.qwen3_0_6b().layers
+
+    # ---- data: the ported MIDI datagen, in memory --------------------------
+    t0 = time.perf_counter()
+    mfs = []
+    for _ in range(MUSIC_TRAIN_ITEMS):
+        mf, _ = _random_melody(rng, MUSIC_TRAIN_EVENTS, 100, low=48,
+                               high=84, max_poly=3)
+        mfs.append(mf.cut(10.0) if mf.duration_seconds > 10.0 else mf)
+    abcs = [midi_to_abc(m, title=f"melody_{i:03d}") for i, m in
+            enumerate(mfs)]
+    waves = [render_midi(m, 16000) for m in mfs]
+    bpe = _abc_tokenizer(rng, CausalLMConfig.qwen3_0_6b().vocab_size,
+                         tunes=abcs)
+    tt = replace(TwoTowerConfig(), epochs=1)
+    ds = _MemoryMusic(_music_examples(np, bpe, mfs, abcs, waves,
+                                      tt.max_target_tokens), bpe)
+    n_tok = [int(ex.attention_mask.sum()) for ex in ds.items]
+    print(f"[music_train] data: {len(ds)} melodies of {MUSIC_TRAIN_EVENTS} "
+          f"events (chords up to 3 notes), {min(len(w) for w in waves)}-"
+          f"{max(len(w) for w in waves)} samples at 16 kHz, ABC "
+          f"{min(n_tok)}-{max(n_tok)} of {tt.max_target_tokens} target "
+          f"tokens, BPE {len(bpe)} tokens, in {time.perf_counter() - t0:.2f} "
+          "s", flush=True)
+
+    # ---- the model: Qwen3-0.6B + Whisper-base + the adapter ---------------
+    t0 = time.perf_counter()
+    audio_cfg = cli._whisper_preset(tt.whisper_size)
+    model = build_two_tower(tt, audio_cfg, cli._lm_preset(MUSIC_LM, 2048),
+                            len(bpe),
+                            torch.Generator(device=dev).manual_seed(20),
+                            device=dev)
+    lm_cfg = model.lm_cfg
+    g = torch.Generator(device=dev).manual_seed(21)
+    for gate in ("out", "ffn_out"):      # open the gates: audio reaches the LM
+        k = model.params["adapter"][gate]["kernel"]
+        model.params["adapter"][gate]["kernel"] = torch.randn(
+            k.shape, generator=g, device=dev) / math.sqrt(k.shape[0])
+    sync()
+    top_k = min(tt.top_k_unfrozen_layers, lm_cfg.layers)
+    print(f"[music_train] model: LM {MUSIC_LM} ({lm_cfg.layers} layers, "
+          f"{lm_cfg.heads}q/{lm_cfg.kv_heads}kv of {lm_cfg.head_dim}, vocab "
+          f"{lm_cfg.vocab_size}), Whisper-{tt.whisper_size} frozen, top "
+          f"{top_k} layers unfrozen, adapter lr {tt.adapter_lr} / LM lr "
+          f"{tt.lm_lr}, batch {tt.batch_size}, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---- fit_two_tower: one epoch ------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = fit_two_tower(model, ds, chunk_seconds=10.0, device=dev)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    counts_all.append(counts)
+    peak = peak_gib()
+    _check_launches(counts, MUSIC_TRAIN_KERNELS, "music_train epoch")
+    _no_core_flash(counts, "music_train epoch")
+    n_val = max(1, int(len(ds) * 0.1))
+    steps = (len(ds) - n_val) // tt.batch_size
+    batches = steps + 1                      # the train steps + one val batch
+    want = {"log_mel_overlap_fft": batches,
+            "flash_forward_tf32x3": batches * (audio_cfg.encoder_layers + 1),
+            "flash_backward_dq_tf32x3": steps,
+            "flash_backward_dkv_tf32x3": steps}
+    got = {k: counts[k]["cuda"] for k in want}
+    print(f"[music_train] fit_two_tower 1 epoch ({steps} train steps at "
+          f"batch {tt.batch_size} x {tt.max_target_tokens}, 1 val batch of "
+          f"{n_val}): wall {wall:.2f} s, peak memory {peak:.2f} "
+          f"GiB, train loss {hist['train_loss']}, val loss "
+          f"{hist['val_loss']}; launches {got} (expected {want}) ({smi})",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"music_train epoch: launches {got}, expected "
+                             f"{want}")
+    if not all(np.isfinite(hist["train_loss"] + hist["val_loss"])):
+        raise AssertionError(f"music_train epoch: loss {hist}")
+    frozen = lm_cfg.layers - top_k
+    same = [bool(torch.equal(a[:frozen], b[:frozen])) for a, b in zip(
+        tree_leaves(state.params["lm"]["layers"]),
+        tree_leaves(model.params["lm"]["layers"]))]
+    moved = [not torch.equal(a[frozen:], b[frozen:]) for a, b in zip(
+        tree_leaves(state.params["lm"]["layers"]),
+        tree_leaves(model.params["lm"]["layers"]))]
+    print(f"[music_train] frozen layers 0-{frozen - 1}: {sum(same)}/"
+          f"{len(same)} stacked leaves bit-identical after the epoch; the "
+          f"top {top_k} moved in {sum(moved)}/{len(moved)}", flush=True)
+    if not all(same) or not any(moved):
+        raise AssertionError("music_train: a frozen layer moved, or no "
+                             "trainable layer did")
+
+    # ---- eval_note_f1 on 4 examples at max_len 64 --------------------------
+    fe = LogMelFrontend.whisper(audio_cfg.n_mels, device=dev)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    nf = eval_note_f1(model, state, ds, np.arange(4), fe, 10.0, max_len=64,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    sync()
+    counts = launch_counts()
+    counts_all.append(counts)
+    _check_launches(counts, MUSIC_KERNELS, "music_train note eval")
+    _no_core_flash(counts, "music_train note eval")
+    print(f"[music_train] eval_note_f1 (4 examples, t = 0.7, max_len 64): "
+          f"{nf} in {time.perf_counter() - t0:.2f} s; K1 "
+          f"{counts['log_mel_overlap_fft']["cuda"]}, K2 "
+          f"{counts['flash_forward_tf32x3']["cuda"]}, K3 "
+          f"{counts['decode_attention_stacked']["cuda"]}", flush=True)
+    del state
+
+    # ---- two more steps, timed ---------------------------------------------
+    step, _ = make_two_tower_step(model)
+    st = init_two_tower_state(model)
+    batch = collate_music(ds.items[:tt.batch_size], fe, 10.0)
+    tokens = int(batch["attention_mask"][:, 1:].sum())
+    st, m = step(st, batch)                             # warm
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(2):
+        st, m = step(st, batch)
+        losses.append(m["loss"])
+    sync()
+    step_ms = (time.perf_counter() - t0) / 2 * 1e3
+    counts = launch_counts()
+    per_step = {k: c["cuda"] / 2 for k, c in counts.items() if c["cuda"]}
+    positions = batch["input_ids"].numel()
+    print(f"[music_train] two-tower step (batch {tt.batch_size} x "
+          f"{tt.max_target_tokens}, float32, host clock over 2 steps after a "
+          f"warm one): {step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} "
+          f"target tokens/s ({tokens} non-pad a step), "
+          f"{positions / step_ms * 1e3:.0f} positions/s; peak memory "
+          f"{peak_gib():.2f} GiB; losses "
+          f"{[round(float(x), 4) for x in losses]}; launches a step "
+          f"{per_step} ({smi})", flush=True)
+    del st, step, batch
+
+    # ---- one step at batch 1 x 128 tokens, card against the CPU ------------
+    t0 = time.perf_counter()
+    one = _music_examples(np, bpe, mfs[:1], abcs[:1], waves[:1], 128)
+    cpu = model._replace(
+        audio_params=tree_map(lambda t: t.cpu(), model.audio_params),
+        params=tree_map(lambda t: t.cpu(), model.params))
+    fe_cpu = LogMelFrontend.whisper(audio_cfg.n_mels, device="cpu")
+    res = []
+    for mdl, front in ((model, fe), (cpu, fe_cpu)):
+        b = collate_music(one, front, 10.0)
+        params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          mdl.params)
+        enc = mdl.encode_audio(b["mel"])
+        res.append(_grads(torch, lambda p: mdl.loss(
+            p, enc, b["input_ids"], b["attention_mask"]), params))
+    keys = [k for k in res[0][1] if k.startswith("adapter/")
+            or k.startswith("lm/layers/")]
+    top = {k: v[-1] for k, v in res[0][1].items() if k.startswith("lm/layers")}
+    top_cpu = {k: v[-1] for k, v in res[1][1].items()
+               if k.startswith("lm/layers")}
+    grads = {**res[0][1], **top}
+    cpu_grads = {**res[1][1], **top_cpu}
+    _hold_grads(torch, f"two-tower step (batch 1 x 128, in "
+                f"{time.perf_counter() - t0:.1f} s; adapter and top layer)",
+                res[0][0], grads, res[1][0], cpu_grads, keys)
+    del res, grads, cpu_grads, top, top_cpu, cpu, model
+    torch.cuda.empty_cache()
+
+    # ---- train-lm: Qwen3-0.6B pretraining on an ABC corpus -----------------
+    with tempfile.TemporaryDirectory() as d:
+        corpus = os.path.join(d, "abc")
+        os.makedirs(corpus)
+        for i in range(320):
+            mf, _ = _random_melody(rng, MUSIC_TRAIN_EVENTS, 100, low=48,
+                                   high=84, max_poly=3)
+            with open(os.path.join(corpus, f"t{i:04d}.abc"), "w") as fh:
+                fh.write(midi_to_abc(mf, title=f"t{i:04d}"))
+        texts = []
+        for name in sorted(os.listdir(corpus)):
+            with open(os.path.join(corpus, name)) as fh:
+                texts.append(fh.read())
+        lm_bpe = train_bpe(texts, 600)
+        lm_bpe.save(os.path.join(d, "bpe"))
+        ids = []
+        for t in texts:
+            ids.extend(lm_bpe.encode(t))
+            ids.extend(lm_bpe.encode("\n\n"))
+        ids = np.asarray(ids, np.int32)
+        out_json = os.path.join(d, "lm.json")
+        old = os.getcwd()
+        os.chdir(d)                     # the metrics sink writes under cwd
+        try:
+            sync()
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["train-lm", "--corpus", corpus, "--tokenizer-dir",
+                           os.path.join(d, "bpe"), "--out-dir",
+                           os.path.join(d, "lm"), "--lm-size", MUSIC_LM,
+                           "--steps", "3", "--batch-size", "32",
+                           "--seq-len", "256", "--eval-every", "3",
+                           "--out", out_json, "--device", "cuda"])
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(old)
+        counts = launch_counts()
+        counts_all.append(counts)
+        if rc != 0:
+            raise AssertionError(f"train-lm returned {rc}")
+        with open(out_json) as fh:
+            rec = json.load(fh)
+        _check_launches(counts, LM_TRAIN_KERNELS["float32"], "train-lm")
+        _no_core_flash(counts, "train-lm")
+        eval_fwd = int("eval_loss" in rec["history"][-1])
+        want = {"flash_forward_tf32x3": n_layers * (3 + eval_fwd),
+                "flash_backward_dq_tf32x3": n_layers * 3,
+                "flash_backward_dkv_tf32x3": n_layers * 3}
+        got = {k: counts[k]["cuda"] for k in want}
+        print(f"[music_train] train-lm --lm-size {MUSIC_LM} (3 steps at "
+              f"batch 32 x 256, float32, corpus {len(ids)} tokens, vocab "
+              f"{len(lm_bpe)} in Qwen3's {CausalLMConfig.qwen3_0_6b().vocab_size}"
+              f"-row embedding): wall {wall:.2f} s (init, corpus encoding, "
+              f"eval and checkpoint writes included), fit {rec['seconds']:.2f}"
+              f" s, {rec['seconds'] / 3 * 1e3:.0f} ms a step and "
+              f"{3 * 32 * 256 / rec['seconds']:.0f} tokens/s over the fit; "
+              f"history {rec['history']}; launches {got} (expected {want})"
+              f" ({smi})", flush=True)
+        if got != want:
+            raise AssertionError(f"train-lm: launches {got}, expected {want}")
+    torch.cuda.empty_cache()
+
+    lm_params = None
+    for label, dtype, remat in (("bfloat16", "bfloat16", ""),
+                                ("remat full", "float32", "full")):
+        cfg = LMTrainConfig(warmup_steps=1, max_steps=2, batch_size=32,
+                            seq_len=256, eval_every=0, dtype=dtype,
+                            remat=remat)
+        if lm_params is None:
+            lm_params = init_causal_lm(
+                CausalLMConfig.qwen3_0_6b(),
+                torch.Generator(device=dev).manual_seed(22), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, h = fit_lm(lm_params, CausalLMConfig.qwen3_0_6b(), cfg, ids,
+                      device=dev)
+        sync()
+        fit_s = time.perf_counter() - t0
+        counts = launch_counts()
+        counts_all.append(counts)
+        kernels = LM_TRAIN_KERNELS[dtype]
+        _check_launches(counts, kernels, f"fit_lm {label}")
+        if dtype == "float32":
+            _no_core_flash(counts, f"fit_lm {label}")
+        # a forward a step, one more under remat (the backward's replay),
+        # and the eval's forward after the last step
+        fwd = 2 * (2 if remat else 1) + int("eval_loss" in h[-1])
+        want = {kernels[0]: n_layers * fwd, kernels[1]: n_layers * 2,
+                kernels[2]: n_layers * 2}
+        got = {k: counts[k]["cuda"] for k in want}
+        print(f"[music_train] fit_lm {label} (2 steps at batch 32 x 256): "
+              f"{fit_s:.2f} s, {fit_s / 2 * 1e3:.0f} ms a step (the first "
+              f"and the eval included), peak memory {peak_gib():.2f} GiB, "
+              f"history {h}; launches {got} (expected {want}) ({smi})",
+              flush=True)
+        if got != want or not np.isfinite(h[-1]["loss"]):
+            raise AssertionError(f"fit_lm {label}: launches {got} (expected "
+                                 f"{want}), history {h}")
+
+    # ---- the LM step timed: float32, bf16, remat "full" --------------------
+    from audax_torch.train.lm import init_lm_state, make_lm_train_step
+    from audax_torch.train.lm import pack_corpus
+    windows = torch.from_numpy(pack_corpus(ids, 256)[:32]).to(dev)
+    for label, dtype, remat in (("float32", "float32", ""),
+                                ("bfloat16", "bfloat16", ""),
+                                ("remat full", "float32", "full")):
+        cfg = LMTrainConfig(warmup_steps=1, max_steps=4, batch_size=32,
+                            seq_len=256, dtype=dtype, remat=remat)
+        lm_step = make_lm_train_step(CausalLMConfig.qwen3_0_6b(), cfg)
+        st = init_lm_state(tree_map(lambda t: t.detach().clone(),
+                                    lm_params), cfg)
+        st, m = lm_step(st, windows)                    # warm
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(2):
+            st, m = lm_step(st, windows)
+            losses.append(m["loss"])
+        sync()
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        counts = launch_counts()
+        per_step = {k: c["cuda"] / 2 for k, c in counts.items() if c["cuda"]}
+        print(f"[music_train] LM step {label} (batch 32 x 256, host clock "
+              f"over 2 steps after a warm one): {ms:.1f} ms, "
+              f"{32 * 256 / ms * 1e3:.0f} tokens/s; peak memory "
+              f"{peak_gib():.2f} GiB; losses "
+              f"{[round(float(x), 4) for x in losses]}; launches a step "
+              f"{per_step} ({smi})", flush=True)
+        del st, lm_step
+        torch.cuda.empty_cache()
+
+    # ---- one float32 LM step at batch 1 x 128, card against the CPU --------
+    t0 = time.perf_counter()
+    w = torch.from_numpy(ids[: 129][None].astype(np.int64))
+    cfg = CausalLMConfig.qwen3_0_6b()
+    res = []
+    for params in (lm_params, tree_map(lambda t: t.cpu(), lm_params)):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                     params)
+        ww = w.to(next(iter(tree_leaves(p))).device)
+
+        def loss_fn(q, ww=ww):
+            total, count = seq2seq_loss_sum(
+                lm_forward(q, cfg, ww[:, :-1]).float(), ww[:, 1:])
+            return total / count
+        res.append(_grads(torch, loss_fn, p))
+    _hold_grads(torch, f"LM step (batch 1 x 128, in "
+                f"{time.perf_counter() - t0:.1f} s; every gradient)",
+                res[0][0], res[0][1], res[1][0], res[1][1], list(res[0][1]))
+    del res, lm_params
+    torch.cuda.empty_cache()
+    print(f"[music_train] phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"({smi})", flush=True)
+    return counts_all
+
+
 def _paths(tree, prefix=""):
     """Leaf paths of a nested dict, in ``tree_leaves`` order."""
     out = []
@@ -3902,11 +4443,13 @@ def main() -> int:
     tools = attention_tools_phase(torch)
     # on a generator of its own, so the phases before it draw what they drew
     music = music_phase(torch, np.random.default_rng(19), smi)
+    music_train = music_train_phase(torch, np.random.default_rng(20), smi)
     # launches of the main paths, each counted from 0 just before it; the
     # tools' kernels from the probes phase; K2/K7/K8 and P1 from the
     # attention tools as well
     launches = {k: sum(p[k]["cuda"] for p in (transcribe, decoders, train,
-                                              serve, k6, classify, *music))
+                                              serve, k6, classify, *music,
+                                              *music_train))
                 for k in transcribe}
     launches.update(probes)
     for k in FLASH_BF16 + ("flash_forward_fold",):

@@ -168,8 +168,11 @@ def test_infer_music_constrained_matches_library(files, monkeypatch,
 def test_cli_registry_and_mesh(files, capsys):
     root, _ = files
     assert cli.main(["--help"]) == 0
-    assert capsys.readouterr().out.split() == ["audax_torch", "commands:",
-                                               "infer-music"]
+    assert capsys.readouterr().out.split() == ["audax_torch", "commands:"] \
+        + sorted(["abc2wav", "data-quality", "finetune-proof", "genparquet",
+                  "gentokens-bpe", "gentokens-raw", "infer-music",
+                  "make-midi-dataset", "midi2abc", "midi2wav", "music-proof",
+                  "train-lm", "train-music"])
     assert cli.main(["transcribe"]) == 2
     assert "infer-music" in capsys.readouterr().err
     for flag in (["--tp", "2"], ["--dp", "2"], ["--fsdp"]):

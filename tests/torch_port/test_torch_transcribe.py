@@ -184,7 +184,12 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.infer.streaming', 'audax_torch.cli.stream_server',"
         " 'audax_torch.train.checkpoints', 'audax_torch.models.causal_lm',"
         " 'audax_torch.models.two_tower', 'audax_torch.train.two_tower',"
-        " 'audax_torch.cli.main'}\n"
+        " 'audax_torch.cli.main', 'audax_torch.symbolic.midi',"
+        " 'audax_torch.symbolic.abc', 'audax_torch.symbolic.abc_parse',"
+        " 'audax_torch.symbolic.chords', 'audax_torch.eval.music_metrics',"
+        " 'audax_torch.data.music_dataset', 'audax_torch.data.quality',"
+        " 'audax_torch.train.lm', 'audax_torch.train.two_tower_loop',"
+        " 'audax_torch.train.finetune_loop', 'audax_torch.utils.reports'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow'))\n"
