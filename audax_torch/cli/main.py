@@ -17,9 +17,10 @@ This port registers the music path: the data tools (``make-midi-dataset``,
 command line (preprocess, the classifier trainers and testers, transcribe,
 serve, convert-hf, demo, ...) are not registered yet (ROADMAP A12.2). The
 mesh flags (``--dp``/``--tp``/``--fsdp``) are accepted and raise when set:
-tensor and data parallelism wait for the parallelism slice; so do the MoE
-flags (``--moe-experts`` > 0), which wait for the MoE slice, and a
-``--soundfont`` (the SF2 synth is not ported). Two flags are the port's
+tensor and data parallelism wait for the parallelism slice; so does a
+``--soundfont`` (the SF2 synth is not ported). ``train-lm --moe-experts N``
+pretrains a Qwen3-MoE-family decoder (the ragged impl, the Switch aux
+loss), as the JAX command line does. Two flags are the port's
 own: ``--device`` (default the CUDA card; ``cpu`` runs every kernel's plain
 version) and ``--out`` on ``infer-music`` and ``train-lm`` (a JSON record
 of the run: tokens and text, or the history and seconds).
@@ -272,10 +273,14 @@ def cmd_train_lm(argv) -> int:
                    choices=["float32", "bfloat16"])
     p.add_argument("--eval-every", type=int, default=100)
     p.add_argument("--moe-experts", type=int, default=0,
-                   help=">0: a Qwen3-MoE-family decoder (not ported yet: "
-                        "raises)")
+                   help=">0 pretrains a Qwen3-MoE-family decoder: N experts "
+                        "(ragged impl) with the Switch load-balancing aux "
+                        "loss; see --moe-top-k/--moe-ffn-dim")
     p.add_argument("--moe-top-k", type=int, default=2)
-    p.add_argument("--moe-ffn-dim", type=int, default=0)
+    p.add_argument("--moe-ffn-dim", type=int, default=0,
+                   help="per-expert FFN width (default: the preset's "
+                        "ffn_dim / top_k, at least 16, as the JAX command "
+                        "line)")
     p.add_argument("--remat", default="", choices=["", "full", "dots"],
                    help="per-layer gradient checkpointing")
     p.add_argument("--moment-dtype", default="float32",
@@ -289,9 +294,6 @@ def cmd_train_lm(argv) -> int:
     _add_mesh_flags(p)
     args = p.parse_args(argv)
     _check_no_mesh(args)
-    if args.moe_experts:
-        raise NotImplementedError("--moe-experts: the MoE decoders arrive "
-                                  "with the MoE slice of the port")
 
     import numpy as np
     import torch
@@ -319,6 +321,11 @@ def cmd_train_lm(argv) -> int:
     log.info("corpus: %d files -> %d tokens (vocab %d)", len(paths),
              len(ids), len(bpe))
     cfg = _lm_preset(args.lm_size, len(bpe))
+    if args.moe_experts:
+        cfg = replace(cfg, num_experts=args.moe_experts,
+                      experts_per_tok=args.moe_top_k,
+                      moe_ffn_dim=args.moe_ffn_dim
+                      or max(cfg.ffn_dim // args.moe_top_k, 16))
     train_cfg = LMTrainConfig(
         learning_rate=args.lr, max_steps=args.steps,
         batch_size=args.batch_size, seq_len=args.seq_len,

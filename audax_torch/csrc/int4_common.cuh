@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int4_select.cuh"
+
 namespace int4mm {
 
 constexpr int COLS = 4;                    // output columns per thread
@@ -132,8 +134,13 @@ __global__ void __launch_bounds__(NT)
 split_half_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
                   const float* __restrict__ s, T* __restrict__ y,
                   float* __restrict__ ws, int m, int k, int n, int group,
-                  int rows_per_split, int direct) {
+                  int rows_per_split, int direct, int4sel::Stacked sel) {
   __shared__ __align__(16) float xs[2][MAX_ROWS][MT];  // [half][row][x row]
+  {                                        // K9's device index, if any
+    const long long l = int4sel::slice(sel);
+    w += l * sel.w_stride;
+    s += l * sel.s_stride;
+  }
   const int kh = k / 2, num_g = k / group;
   const int n0 = blockIdx.x * NT * COLS + threadIdx.x * COLS;
   const int split = blockIdx.y;
@@ -222,11 +229,13 @@ split_half_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
 }
 
 // K9's kernel (and its reduction when split) on ``stream``; returns
-// cudaGetLastError() after the launches.
+// cudaGetLastError() after the launches. With ``sel`` (K9's device index)
+// w and s are the stack's first slice.
 template <typename T, int NT, bool BITCAST>
 int launch_split_half(const void* x, const uint8_t* w, const float* s,
                       void* y, float* ws, int m, int k, int n, int group,
-                      int splits, cudaStream_t stream) {
+                      int splits, cudaStream_t stream,
+                      int4sel::Stacked sel = int4sel::Stacked{}) {
   const int kh = k / 2;
   const int rows = ceil_div(kh, splits);
   if (rows > MAX_ROWS || ceil_div(kh, rows) != splits)
@@ -237,13 +246,13 @@ int launch_split_half(const void* x, const uint8_t* w, const float* s,
   T* yt = static_cast<T*>(y);
   if (n % 4 == 0)
     split_half_kernel<T, 4, NT, BITCAST><<<grid, NT, 0, stream>>>(
-        xt, w, s, yt, ws, m, k, n, group, rows, direct);
+        xt, w, s, yt, ws, m, k, n, group, rows, direct, sel);
   else if (n % 2 == 0)
     split_half_kernel<T, 2, NT, BITCAST><<<grid, NT, 0, stream>>>(
-        xt, w, s, yt, ws, m, k, n, group, rows, direct);
+        xt, w, s, yt, ws, m, k, n, group, rows, direct, sel);
   else
     split_half_kernel<T, 1, NT, BITCAST><<<grid, NT, 0, stream>>>(
-        xt, w, s, yt, ws, m, k, n, group, rows, direct);
+        xt, w, s, yt, ws, m, k, n, group, rows, direct, sel);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || direct) return (int)err;
   const long long mn = (long long)m * n;

@@ -9,9 +9,10 @@
 // wrapper, ops/int4_matmul.py:int4_matmul_cuda, called directly); its
 // kernel, int4_common.cuh's split_half_kernel, is also the base of P5 v1
 // (csrc/int4_unpack_variants.cu). For x [M, K] (float32 or bfloat16, M <=
-// 256), packed uint8 [K/2, N] and float32 scales [G, N] (one layer's slice:
-// the wrapper passes the pointer of the selected layer, never a copy) it
-// writes
+// 256), packed uint8 [K/2, N] and float32 scales [G, N] (one slice of a
+// stack: the wrapper passes the pointer of a host-known slice, never a
+// copy, or the stack and a device pointer to the slice's index, which the
+// kernel reads at entry -- int4_select.cuh) it writes
 //
 //   y[m, n] = sum_g s[g, n] * sum_{k in g} x[m, k] * (nib[k, n] - 8)
 //
@@ -62,23 +63,31 @@ int int4_matmul_splits(int m, int kh, int n) {
 // x [m, k] (dtype 0 = float32, 1 = bfloat16), packed [k/2, n] uint8,
 // scales [k/group, n] float32, y [m, n] in x's dtype; ws: float32 [splits,
 // m, n] when splits > 1 (ignored otherwise). All contiguous, on the device.
-// Returns cudaGetLastError() after the launches.
+// sel: nullptr, or a device pointer to the index (int32 for sel_bytes 4,
+// int64 for 8) of the slice to use of a stack of ``count`` [k/2, n] and
+// [k/group, n] slices that packed and scales start (int4_select.cuh; an
+// index outside [0, count) traps). Returns cudaGetLastError() after the
+// launches.
 int int4_matmul(const void* x, const void* packed, const void* scales,
                 void* y, void* ws, int m, int k, int n, int group, int splits,
-                int dtype, void* stream) {
+                int dtype, const void* sel, int sel_bytes, int count,
+                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (m < 1 || k < 2 || k % 2 || n < 1 || group < 1 || (k / 2) % group ||
-      splits < 1)
+      splits < 1 || (sel && ((sel_bytes != 4 && sel_bytes != 8) ||
+                             count < 1)))
     return (int)cudaErrorInvalidValue;
+  const int4sel::Stacked stack =
+      int4sel::stacked(sel, sel_bytes, count, k, n, group);
   const uint8_t* w = static_cast<const uint8_t*>(packed);
   const float* s = static_cast<const float*>(scales);
   float* wsf = static_cast<float*>(ws);
   if (dtype == 0)
     return int4mm::launch_split_half<float, THREADS, false>(
-        x, w, s, y, wsf, m, k, n, group, splits, st);
+        x, w, s, y, wsf, m, k, n, group, splits, st, stack);
   if (dtype == 1)
     return int4mm::launch_split_half<__nv_bfloat16, THREADS, false>(
-        x, w, s, y, wsf, m, k, n, group, splits, st);
+        x, w, s, y, wsf, m, k, n, group, splits, st, stack);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,8 +5,10 @@
 //
 // Replaces the TPU kernel audax/ops/int4_matmul.py:_int4_kernel (called by
 // int4_matmul). For x [M, K] (float32 or bfloat16, M <= 256), packed uint8
-// [K/2, N] and float32 scales [G, N] (one layer's slice: the wrapper passes
-// the pointer of the selected layer, never a copy) it writes
+// [K/2, N] and float32 scales [G, N] (one slice of a stack: the wrapper
+// passes the pointer of a host-known slice, never a copy, or the stack and
+// a device pointer to the slice's index, which the kernel reads at entry,
+// as the TPU kernel's scalar prefetch -- int4_select.cuh) it writes
 //
 //   y[m, n] = sum_g s[g, n] * sum_{k in g} x[m, k] * (nib[k, n] - 8)
 //
@@ -189,6 +191,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int4_select.cuh"
 #include "tf32x3.cuh"
 
 namespace cg = cooperative_groups;
@@ -642,7 +645,7 @@ template <int ROUTE, typename T, int VEC, int NT>
 __global__ void __launch_bounds__(THREADS)
 int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
                const float* __restrict__ s, T* __restrict__ y, int m, int kh,
-               int n, int group, int range) {
+               int n, int group, int range, int4sel::Stacked sel) {
   constexpr bool F32 = sizeof(T) == 4;
   constexpr bool QUANT = ROUTE == ROUTE_W4A8;
   constexpr int PARTS = route_parts(ROUTE, F32);
@@ -654,6 +657,11 @@ int4mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
   constexpr int XV = QUANT ? 8 : 4;
   constexpr int XN = QUANT ? 2 : XB;
   extern __shared__ __align__(16) uint8_t smem[];
+  if constexpr (ROUTE == ROUTE_K9) {       // K9's device index, if any
+    const long long l = int4sel::slice(sel);
+    w += l * sel.w_stride;
+    s += l * sel.s_stride;
+  }
   // every block of the cluster has started once the first wait on the
   // cluster's barrier returns
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -1359,10 +1367,12 @@ int launch_cluster(void (*kernel)(P...), bool& sized, int m, int n, int nt,
   return (int)cudaGetLastError();
 }
 
-// kh: the K/2 packed rows, or on the word route the K/8 word rows
+// kh: the K/2 packed rows, or on the word route the K/8 word rows; sel:
+// K9's device index (w and s then the stack's first slice), else Stacked{}
 template <int ROUTE, typename T, int VEC, int NT>
 int launch(const void* x, const uint8_t* w, const float* s, void* y, int m,
-           int kh, int n, int group, cudaStream_t stream) {
+           int kh, int n, int group, cudaStream_t stream,
+           int4sel::Stacked sel) {
   static bool sized = false;               // once per instantiation
   const int tiles = block_tiles(m, n, NT);
   const T* xt = static_cast<const T*>(x);
@@ -1378,52 +1388,61 @@ int launch(const void* x, const uint8_t* w, const float* s, void* y, int m,
     return launch_cluster(
         int4mma_kernel<ROUTE, T, VEC, NT>, sized, m, n, NT, splits,
         route_smem_bytes(ROUTE, sizeof(T) == 4, VEC, NT, range, group),
-        stream, xt, w, s, yt, m, kh, n, group, range);
+        stream, xt, w, s, yt, m, kh, n, group, range, sel);
   }
 }
 
 // nt A tiles a warp: 1, 2 or 4, or 0 for the plan's pick_nt
 template <int ROUTE, typename T, int VEC>
 int launch_nt(const void* x, const uint8_t* w, const float* s, void* y,
-              int m, int kh, int n, int group, int nt, cudaStream_t stream) {
+              int m, int kh, int n, int group, int nt, cudaStream_t stream,
+              int4sel::Stacked sel) {
   if (nt == 0) nt = pick_nt(ROUTE, m, n, kh);
   if (nt == 4)
-    return launch<ROUTE, T, VEC, 4>(x, w, s, y, m, kh, n, group, stream);
+    return launch<ROUTE, T, VEC, 4>(x, w, s, y, m, kh, n, group, stream, sel);
   if (nt == 2)
-    return launch<ROUTE, T, VEC, 2>(x, w, s, y, m, kh, n, group, stream);
-  return launch<ROUTE, T, VEC, 1>(x, w, s, y, m, kh, n, group, stream);
+    return launch<ROUTE, T, VEC, 2>(x, w, s, y, m, kh, n, group, stream, sel);
+  return launch<ROUTE, T, VEC, 1>(x, w, s, y, m, kh, n, group, stream, sel);
 }
 
+// the copy width every slice the call may read allows (16, 2 or 1 bytes)
 template <int ROUTE, typename T>
 int launch_vec(const void* x, const uint8_t* w, const float* s, void* y,
-               int m, int kh, int n, int group, int nt, cudaStream_t stream) {
-  const uintptr_t base = reinterpret_cast<uintptr_t>(w);
+               int m, int kh, int n, int group, int nt, cudaStream_t stream,
+               int4sel::Stacked sel) {
+  const uintptr_t base = int4sel::slice_bits(w, sel);
   if constexpr (ROUTE == ROUTE_WORD) {     // rows of 4 n bytes, as s's
     if (n % 4 == 0 && base % 16 == 0 &&
         reinterpret_cast<uintptr_t>(s) % 16 == 0)
-      return launch_nt<ROUTE, T, 16>(x, w, s, y, m, kh, n, group, nt, stream);
-    return launch_nt<ROUTE, T, 4>(x, w, s, y, m, kh, n, group, nt, stream);
+      return launch_nt<ROUTE, T, 16>(x, w, s, y, m, kh, n, group, nt, stream,
+                                     sel);
+    return launch_nt<ROUTE, T, 4>(x, w, s, y, m, kh, n, group, nt, stream,
+                                     sel);
   } else {
     if (n % 16 == 0 && base % 16 == 0)
-      return launch_nt<ROUTE, T, 16>(x, w, s, y, m, kh, n, group, nt, stream);
+      return launch_nt<ROUTE, T, 16>(x, w, s, y, m, kh, n, group, nt, stream,
+                                     sel);
     if (n % 2 == 0 && base % 2 == 0)
-      return launch_nt<ROUTE, T, 2>(x, w, s, y, m, kh, n, group, nt, stream);
-    return launch_nt<ROUTE, T, 1>(x, w, s, y, m, kh, n, group, nt, stream);
+      return launch_nt<ROUTE, T, 2>(x, w, s, y, m, kh, n, group, nt, stream,
+                                     sel);
+    return launch_nt<ROUTE, T, 1>(x, w, s, y, m, kh, n, group, nt, stream,
+                                     sel);
   }
 }
 
 template <int ROUTE>
 int launch_dtype(const void* x, const void* packed, const void* scales,
                  void* y, int m, int kh, int n, int group, int nt, int dtype,
-                 void* stream) {
+                 void* stream, int4sel::Stacked sel = int4sel::Stacked{}) {
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* w = static_cast<const uint8_t*>(packed);
   const float* s = static_cast<const float*>(scales);
   if (dtype == 0)
-    return launch_vec<ROUTE, float>(x, w, s, y, m, kh, n, group, nt, st);
+    return launch_vec<ROUTE, float>(x, w, s, y, m, kh, n, group, nt, st,
+                                    sel);
   if (dtype == 1)
     return launch_vec<ROUTE, __nv_bfloat16>(x, w, s, y, m, kh, n, group, nt,
-                                            st);
+                                            st, sel);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1516,18 +1535,24 @@ int w4a8_matmul_mma(const void* x, const void* packed, const void* scales,
 
 // x [m, k] (dtype 0 = float32, 1 = bfloat16, 1 <= m <= 256), packed [k/2, n]
 // uint8, scales [k/group, n] float32, y [m, n] in x's dtype; all
-// contiguous on the device, x aligned to two of its elements. One launch;
-// returns cudaGetLastError() after it, or cudaErrorInvalidValue for a call
-// this body does not take (int4mma::takes).
+// contiguous on the device, x aligned to two of its elements. sel:
+// nullptr, or a device pointer to the index (int32 for sel_bytes 4, int64
+// for 8) of the slice to use of a stack of ``count`` [k/2, n] and [k/group,
+// n] slices that packed and scales start (int4_select.cuh; an index
+// outside [0, count) traps). One launch; returns cudaGetLastError() after
+// it, or cudaErrorInvalidValue for a call this body does not take
+// (int4mma::takes).
 int int4_matmul_mma(const void* x, const void* packed, const void* scales,
                     void* y, int m, int k, int n, int group, int dtype,
-                    void* stream) {
+                    const void* sel, int sel_bytes, int count, void* stream) {
   const int kh = k / 2;
   if (m < 1 || m > 256 || k < 2 || k % 2 || n < 1 ||
-      !int4mma::takes(kh, group))
+      !int4mma::takes(kh, group) ||
+      (sel && ((sel_bytes != 4 && sel_bytes != 8) || count < 1)))
     return (int)cudaErrorInvalidValue;
-  return int4mma::launch_dtype<int4mma::ROUTE_K9>(x, packed, scales, y, m, kh,
-                                                  n, group, 0, dtype, stream);
+  return int4mma::launch_dtype<int4mma::ROUTE_K9>(
+      x, packed, scales, y, m, kh, n, group, 0, dtype, stream,
+      int4sel::stacked(sel, sel_bytes, count, k, n, group));
 }
 
 #endif

@@ -1,18 +1,23 @@
-"""Decoder-only causal LM, the dense Qwen2/Qwen3/LLaMA family, in PyTorch
-(port of ``audax/models/causal_lm.py``).
+"""Decoder-only causal LM, the Qwen2/Qwen3/LLaMA family and its
+mixture-of-experts member Qwen3-MoE, in PyTorch (port of
+``audax/models/causal_lm.py``).
 
 The reference's two-tower model wraps HF ``Qwen/Qwen3-0.6B-Base``
 (reference: .charles/music2midi/model.py:209-224); this module owns the
 architecture: RMSNorm with float32 statistics, rotary position embeddings
 (HF half-split, float32 angles), grouped-query attention, optional
 per-head q/k norms (Qwen3) applied before RoPE, optional q/k/v biases
-(Qwen2), a SwiGLU MLP and tied (or separate) output embeddings.
+(Qwen2), a SwiGLU MLP or, with ``num_experts > 0``, a sparse MoE SwiGLU
+block in every layer (Qwen3-MoE: no shared expert), and tied (or separate)
+output embeddings.
 
 Parameters are the JAX package's tree as nested dicts of tensors
 (``models/bridge.py:causal_lm_from_numpy`` converts one; ``init_causal_lm``
 draws one): layers STACKED with a leading ``[L, ...]`` axis, dense kernels
-``[d_in, d_out]``. Float, int8 and int4 dense leaves run through
-``models/whisper.py:dense``.
+``[d_in, d_out]``, an MoE layer's ``router`` ``[L, d, E]`` and ``experts``
+``{gate, up: [L, E, d, fe], down: [L, E, fe, d]}``. Float, int8 and int4
+dense leaves run through ``models/whisper.py:dense``; the router stays
+float in a quantized tree.
 
 Attention sites:
 
@@ -26,12 +31,27 @@ Attention sites:
     through ``decode_attention_stacked`` (kernel K3, GQA and the per-slot
     causal mask inside the kernel).
 
+The MoE block (``_moe_block``) routes as HF's Qwen3MoeSparseMoeBlock: a
+float32 softmax over all experts, the top k, an optional renormalisation,
+the weights cast back to the activation dtype. Its two impls
+(``cfg.moe_impl``) are JAX's: ``ragged`` sorts the N k (token, expert)
+slots by expert (a stable sort), runs each expert's products over its
+group of rows -- JAX's ``lax.ragged_dot`` is an XLA op, not a Pallas
+kernel; here ``torch.matmul`` over the non-empty groups, whose sizes are
+read on the host once a layer -- and weighted-sums the k slots back in
+token order; ``dense`` runs every expert on every token and combines them
+with the [N, E] router-weight matrix. int8 experts scale the products by
+their per-(expert, channel) scales, int4 experts dequantize whole. The
+decode path for QUANTIZED experts with N k <= E is ``_moe_selected_scan``:
+slot by slot in JAX's order, each slot's gate/up/down read only the
+selected expert -- int4 through kernel K9 with the expert id handed to the
+kernel as a device tensor (``ops/int4_matmul.py``), so the router's
+output never reaches the host.
+
 The rotary tables are computed once per forward or step and shared by
 every layer (the JAX package recomputes them per layer; same float32
 numbers). ``port_causal_lm_from_hf`` takes an in-memory HF model (this
-module imports no ``transformers``). The mixture-of-experts paths of the
-JAX module (``num_experts > 0``) wait for the MoE slice of the port and
-raise ``NotImplementedError``.
+module imports no ``transformers``).
 """
 
 from __future__ import annotations
@@ -50,17 +70,15 @@ from audax_torch.models.whisper import (_remat_body, dense, layer_params,
                                         tree_map)
 from audax_torch.ops.attention import (decode_attention_stacked,
                                        dot_product_attention)
+from audax_torch.ops.int4_matmul import dequantize_int4, int4_matmul
 
 Params = Dict[str, Any]
 
 __all__ = ["CausalLMConfig", "init_causal_lm", "rms_norm",
            "lm_forward", "lm_logits", "embed_tokens", "forward_with_embeds",
            "LMKVCache", "init_lm_cache", "lm_decode_step",
-           "resize_embeddings", "port_causal_lm_from_hf", "check_dense",
+           "resize_embeddings", "port_causal_lm_from_hf",
            "load_balance_loss"]
-
-_MOE = ("mixture-of-experts layers (num_experts > 0) arrive with the MoE "
-        "slice of the port")
 
 
 @dataclass(frozen=True)
@@ -80,12 +98,14 @@ class CausalLMConfig:
     qk_norm: bool = False        # Qwen3: True
     tie_embeddings: bool = True
     max_seq: int = 2048
-    # mixture-of-experts fields, kept so a JAX config rebuilds here; any
-    # num_experts > 0 raises (check_dense)
-    num_experts: int = 0
-    experts_per_tok: int = 0
-    moe_ffn_dim: int = 0
-    norm_topk_prob: bool = True
+    # ---- mixture-of-experts (Qwen3-MoE family: every layer sparse) ----
+    num_experts: int = 0         # 0 -> dense SwiGLU MLP
+    experts_per_tok: int = 0     # router top-k
+    moe_ffn_dim: int = 0         # per-expert FFN width (0 -> ffn)
+    norm_topk_prob: bool = True  # renormalize the top-k router probs
+    #: "ragged": sort the selected slots by expert, each expert's products
+    #: over its rows (exact top-k FLOPs); "dense": every expert on every
+    #: token, combined by the router weights (E/k x the FLOPs)
     moe_impl: str = "ragged"
 
     def __post_init__(self):
@@ -100,6 +120,10 @@ class CausalLMConfig:
             return self.ffn_dim
         return ((int(self.d_model * 8 / 3) + 127) // 128) * 128
 
+    @property
+    def moe_ffn(self) -> int:
+        return self.moe_ffn_dim or self.ffn
+
     @classmethod
     def qwen3_0_6b(cls) -> "CausalLMConfig":
         """Qwen3-0.6B's published config (HF ``Qwen/Qwen3-0.6B-Base``
@@ -111,20 +135,28 @@ class CausalLMConfig:
                    rms_eps=1e-6, qk_norm=True, tie_embeddings=True,
                    max_seq=40960)
 
-
-def check_dense(cfg: CausalLMConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE)
+    @classmethod
+    def qwen3_30b_a3b(cls) -> "CausalLMConfig":
+        """Qwen3-30B-A3B's published config (HF ``Qwen/Qwen3-30B-A3B``
+        config.json): hidden 2048, 48 layers, 32 query and 4 KV heads of
+        128, 128 experts of intermediate 768 with 8 routed a token and the
+        top-k renormalised, vocab 151,936, untied embeddings, rope_theta
+        1e6, q/k norms."""
+        return cls(vocab_size=151936, d_model=2048, layers=48, heads=32,
+                   kv_heads=4, head_dim=128, ffn_dim=6144, rope_theta=1e6,
+                   rms_eps=1e-6, qk_norm=True, tie_embeddings=False,
+                   max_seq=40960, num_experts=128, experts_per_tok=8,
+                   moe_ffn_dim=768, norm_topk_prob=True)
 
 
 # ---------------------------------------------------------------- init ----
 def init_causal_lm(cfg: CausalLMConfig, generator: torch.Generator, *,
                    device: DeviceLike = None) -> Params:
     """Random float32 parameters with the JAX ``init_causal_lm`` layout and
-    scales (dense kernels normal / sqrt(d_in), zero biases, unit norms,
-    embeddings normal x 0.02), drawn from ``generator`` on its device,
-    then moved to ``device``."""
-    check_dense(cfg)
+    scales (dense kernels normal / sqrt(d_in), expert kernels normal /
+    sqrt(their d_in), zero biases, unit norms, embeddings normal x 0.02),
+    drawn from ``generator`` on its device in the order of the JAX tree's
+    leaves, then moved to ``device``."""
     device = resolve_device(device)
     gen_dev = generator.device
     n, d, hd = cfg.layers, cfg.d_model, cfg.head_dim
@@ -140,14 +172,25 @@ def init_causal_lm(cfg: CausalLMConfig, generator: torch.Generator, *,
     def norm(width):
         return {"scale": torch.ones(n, width, device=gen_dev)}
 
+    def experts(d_in, d_out):
+        return {"kernel": torch.randn(n, cfg.num_experts, d_in, d_out,
+                                      generator=generator, device=gen_dev)
+                / math.sqrt(d_in)}
+
     layers = {"attn_norm": norm(d),
               "q": lin(d, cfg.heads * hd, cfg.qkv_bias),
               "k": lin(d, cfg.kv_heads * hd, cfg.qkv_bias),
               "v": lin(d, cfg.kv_heads * hd, cfg.qkv_bias),
               "o": lin(cfg.heads * hd, d),
-              "mlp_norm": norm(d),
-              "gate": lin(d, cfg.ffn), "up": lin(d, cfg.ffn),
-              "down": lin(cfg.ffn, d)}
+              "mlp_norm": norm(d)}
+    if cfg.num_experts:
+        fe = cfg.moe_ffn
+        layers["router"] = lin(d, cfg.num_experts)
+        layers["experts"] = {"gate": experts(d, fe), "up": experts(d, fe),
+                             "down": experts(fe, d)}
+    else:
+        layers.update(gate=lin(d, cfg.ffn), up=lin(d, cfg.ffn),
+                      down=lin(cfg.ffn, d))
     if cfg.qk_norm:
         layers["q_norm"] = norm(hd)
         layers["k_norm"] = norm(hd)
@@ -247,14 +290,172 @@ def _attn_block(layer: Params, cfg: CausalLMConfig, x: torch.Tensor, rope,
 
 def _mlp_block(layer: Params, cfg: CausalLMConfig,
                x: torch.Tensor) -> torch.Tensor:
+    if "router" in layer:
+        return _moe_block(layer, cfg, x)
     h = rms_norm(layer["mlp_norm"], x, cfg.rms_eps)
     return dense(layer["down"],
                  F.silu(dense(layer["gate"], h)) * dense(layer["up"], h))
 
 
-def _check_tree(params: Params) -> None:
-    if "router" in params["layers"]:
-        raise NotImplementedError(_MOE)
+# ------------------------------------------------------------------- MoE --
+def _moe_router(layer: Params, cfg: CausalLMConfig, h: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(top-k weights [N, k] in h's dtype, expert ids [N, k], router logits
+    [N, E]): HF Qwen3MoeSparseMoeBlock's routing -- a softmax over ALL
+    experts in float32, then the top k, then the optional renormalisation.
+    The logits feed ``load_balance_loss``."""
+    logits = dense(layer["router"], h)
+    probs = torch.softmax(logits.float(), dim=-1)
+    w, idx = torch.topk(probs, cfg.experts_per_tok, dim=-1)
+    if cfg.norm_topk_prob:
+        w = w / w.sum(-1, keepdim=True)
+    return w.to(h.dtype), idx, logits
+
+
+def load_balance_loss(router_logits: torch.Tensor, num_experts: int,
+                      top_k: int,
+                      attention_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The Switch-Transformer load-balancing aux loss (eqs. 4-6), HF
+    ``load_balancing_loss_func``'s: the fraction of tokens routed to each
+    expert (per top-k slot) times its mean router probability, summed, x E.
+
+    router_logits [L, N, E] as ``lm_forward(..., return_router_logits=True)``
+    returns them (N = B T); attention_mask [B, T] (1 = real) masks padding
+    out of both statistics."""
+    l, n, e = router_logits.shape
+    probs = torch.softmax(router_logits.reshape(l * n, e).float(), dim=-1)
+    sel = torch.topk(probs, top_k, dim=-1).indices
+    sel_mask = F.one_hot(sel, e).float()                    # [LN, k, E]
+    if attention_mask is None:
+        tokens_per_expert = sel_mask.mean(0)                # [k, E]
+        router_prob = probs.mean(0)                         # [E]
+    else:
+        am = attention_mask.reshape(-1).float().repeat(l)   # jnp.tile
+        denom = am.sum()
+        tokens_per_expert = (sel_mask * am[:, None, None]).sum(0) / denom
+        router_prob = (probs * am[:, None]).sum(0) / denom
+    return (tokens_per_expert * router_prob[None, :]).sum() * num_experts
+
+
+def _expert_weights(p: Params, dtype) -> Tuple[torch.Tensor,
+                                               Optional[torch.Tensor]]:
+    """One layer's expert kernels [E, K, N] in ``dtype`` and the int8
+    per-(expert, output channel) scales [E, N] (None otherwise). int4
+    experts dequantize whole: the prefill and training path, where every
+    expert's weights are read anyway."""
+    if "kernel_q4" in p:
+        return dequantize_int4(p["kernel_q4"], p["kernel_scale4"], dtype), None
+    if "kernel_q" in p:
+        return p["kernel_q"].to(dtype), p["kernel_scale"]
+    return p["kernel"].to(dtype), None
+
+
+def _ragged(xr: torch.Tensor, wk: torch.Tensor, sizes) -> torch.Tensor:
+    """``lax.ragged_dot``: rows grouped by expert (``sizes`` rows each, in
+    expert order) times their expert's [K, N] kernel -> [rows, N]. The rows
+    and the experts are taken by ``split`` and ``unbind``, whose backward
+    writes each input's gradient once (a slice or an index a group would
+    allocate and fill a whole-size gradient per group)."""
+    outs = [x @ w for x, w, c in zip(xr.split(sizes), wk.unbind(0), sizes)
+            if c]
+    return torch.cat(outs) if outs else xr.new_zeros(0, wk.shape[-1])
+
+
+def _moe_experts(ex: Params, h: torch.Tensor, idx: torch.Tensor,
+                 w: torch.Tensor, impl: str) -> torch.Tensor:
+    """The expert FFN of the ``ragged`` or ``dense`` impl (module
+    docstring) over the router's selections: h [N, d], expert ids and
+    weights [N, k] -> [N, d]. ``ex``: {gate, up, down} of one layer's
+    float, int8 or int4 expert leaves."""
+    n, d = h.shape
+    k = idx.shape[1]
+    gk, gsc = _expert_weights(ex["gate"], h.dtype)          # [E, d, fe]
+    uk, usc = _expert_weights(ex["up"], h.dtype)
+    dk, dsc = _expert_weights(ex["down"], h.dtype)          # [E, fe, d]
+    if impl == "dense":
+        comb = torch.zeros(n, gk.shape[0], dtype=w.dtype,
+                           device=w.device).scatter_add(1, idx, w)
+
+        def scale(t_, s_):                                  # t_ [E, N, out]
+            return t_ if s_ is None else t_ * s_[:, None, :].to(t_.dtype)
+
+        g = scale(torch.einsum("nd,edf->enf", h, gk), gsc)
+        u = scale(torch.einsum("nd,edf->enf", h, uk), usc)
+        o = scale(torch.einsum("enf,efd->end", F.silu(g) * u, dk), dsc)
+        return torch.einsum("end,ne->nd", o, comb)
+    if impl != "ragged":
+        raise ValueError(f"unknown moe_impl {impl!r}")
+    fidx = idx.reshape(-1)                                  # [N k]
+    order = torch.argsort(fidx, stable=True)
+    xr = h[order // k]                                      # [N k, d]
+    sizes = torch.bincount(fidx, minlength=gk.shape[0]).tolist()
+    row_e = fidx[order]                                     # row -> expert
+
+    def scale(t_, s_):                                      # t_ [N k, out]
+        return t_ if s_ is None else t_ * s_[row_e].to(t_.dtype)
+
+    g = scale(_ragged(xr, gk, sizes), gsc)
+    u = scale(_ragged(xr, uk, sizes), usc)
+    o = scale(_ragged(F.silu(g) * u, dk, sizes), dsc)
+    o = o[torch.argsort(order)].reshape(n, k, d)            # slot order
+    return torch.einsum("nkd,nk->nd", o, w)
+
+
+def _moe_block(layer: Params, cfg: CausalLMConfig, x: torch.Tensor,
+               return_router_logits: bool = False):
+    """The sparse-MoE SwiGLU FFN of one layer (module docstring): x [B, T,
+    d] -> [B, T, d] (and the router logits [B T, E])."""
+    b, t, d = x.shape
+    n = b * t
+    h = rms_norm(layer["mlp_norm"], x, cfg.rms_eps).reshape(n, d)
+    w, idx, router_logits = _moe_router(layer, cfg, h)
+    ex = layer["experts"]
+    gate = ex["gate"]
+    if (("kernel_q" in gate or "kernel_q4" in gate)
+            and cfg.moe_impl == "ragged"
+            and n * cfg.experts_per_tok <= cfg.num_experts):
+        y = _moe_selected_scan(ex, cfg, h, idx, w)
+    else:
+        y = _moe_experts(ex, h, idx, w, cfg.moe_impl)
+    out = y.reshape(b, t, d)
+    return (out, router_logits) if return_router_logits else out
+
+
+def _moe_selected_scan(ex: Params, cfg: CausalLMConfig, h: torch.Tensor,
+                       idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The selected-experts MoE FFN of JAX's decode path for quantized
+    experts: the n k (token, expert) slots in JAX's order (token-major),
+    each slot's gate, up and down reading ONLY its expert's stored bytes,
+    its router-weighted output added to ``acc`` in h's dtype, slot by slot
+    (JAX's ``acc`` is ``jnp.zeros((n, d), h.dtype)``). int4 experts run
+    kernel K9 with the slot's expert id handed over as a device tensor, a
+    view of the router's top-k output; int8 and float experts are selected
+    by ``index_select``. Nothing here reads a tensor on the host."""
+    n, d = h.shape
+    k = cfg.experts_per_tok
+    fidx = idx.reshape(-1)                                  # [n k]
+    ww = w.reshape(-1)
+
+    def mat(name, e, x):
+        p = ex[name]
+        if "kernel_q4" in p:
+            return int4_matmul(x, p["kernel_q4"], p["kernel_scale4"],
+                               layer=e)
+        if "kernel_q" in p:
+            m = p["kernel_q"].index_select(0, e)[0]
+            sc = p["kernel_scale"].index_select(0, e)[0]
+            return (x @ m.to(x.dtype)) * sc.to(x.dtype)
+        return x @ p["kernel"].index_select(0, e)[0].to(x.dtype)
+
+    acc = torch.zeros(n, d, dtype=h.dtype, device=h.device)
+    for j in range(n * k):
+        t = j // k
+        e = fidx[j: j + 1]                                  # on the device
+        x = h[t: t + 1]
+        g = F.silu(mat("gate", e, x)) * mat("up", e, x)
+        acc[t: t + 1] += mat("down", e, g) * ww[j: j + 1].to(acc.dtype)
+    return acc
 
 
 # ------------------------------------------------------------- forward ----
@@ -268,21 +469,19 @@ def forward_with_embeds(params: Params, cfg: CausalLMConfig,
                         attention_mask: Optional[torch.Tensor] = None,
                         dtype=torch.float32,
                         return_router_logits: bool = False,
-                        remat=False) -> torch.Tensor:
+                        remat=False):
     """Hidden states [B, T, d] (before the logits) from input embeddings
     [B, T, d] (the two-tower fusion's entry point). ``attention_mask`` [B,
     T], 1 = real: padding is masked from the keys (which takes the
     materialised twin); without it the causal attention rides the flash
     path. ``remat`` (False | True | "dots") checkpoints each layer
     (``models/whisper.py:_remat_body``; the training path).
-    ``return_router_logits`` belongs to the MoE decoders and raises."""
-    if return_router_logits:
-        if not cfg.num_experts:
-            raise ValueError("return_router_logits requires an MoE config "
-                             "(num_experts > 0)")
-        raise NotImplementedError(_MOE)
-    check_dense(cfg)
-    _check_tree(params)
+    ``return_router_logits`` (MoE configs; the training aux loss) also
+    returns each layer's router logits stacked, [L, B T, E], from inside
+    the checkpointed layer body."""
+    if return_router_logits and cfg.num_experts == 0:
+        raise ValueError("return_router_logits requires an MoE config "
+                         "(num_experts > 0)")
     b, t, _ = embeds.shape
     x = embeds.to(dtype)
     rope = _rope_tables(torch.arange(t, device=x.device), cfg.head_dim,
@@ -292,12 +491,22 @@ def forward_with_embeds(params: Params, cfg: CausalLMConfig,
 
     def body(x, layer):
         x = x + _attn_block(layer, cfg, x, rope, mask=mask, causal=True)
+        if return_router_logits:
+            y, rl = _moe_block(layer, cfg, x, return_router_logits=True)
+            return x + y, rl
         return x + _mlp_block(layer, cfg, x)
 
     body = _remat_body(body, remat)
+    router = []
     for li in range(cfg.layers):
         x = body(x, layer_params(params["layers"], li))
-    return rms_norm(params["norm"], x, cfg.rms_eps)
+        if return_router_logits:
+            x, rl = x
+            router.append(rl)
+    hidden = rms_norm(params["norm"], x, cfg.rms_eps)
+    if return_router_logits:
+        return hidden, torch.stack(router)
+    return hidden
 
 
 def lm_logits(params: Params, cfg: CausalLMConfig,
@@ -312,22 +521,20 @@ def lm_logits(params: Params, cfg: CausalLMConfig,
 def lm_forward(params: Params, cfg: CausalLMConfig, tokens: torch.Tensor,
                attention_mask: Optional[torch.Tensor] = None,
                dtype=torch.float32, return_router_logits: bool = False,
-               remat=False) -> torch.Tensor:
-    """tokens [B, T] -> logits [B, T, V]. ``remat`` checkpoints each layer
-    (training path); ``return_router_logits`` (MoE) raises."""
-    hidden = forward_with_embeds(params, cfg,
-                                 embed_tokens(params, tokens, dtype),
-                                 attention_mask, dtype,
-                                 return_router_logits=return_router_logits,
-                                 remat=remat)
-    return lm_logits(params, cfg, hidden)
-
-
-def load_balance_loss(router_logits, num_experts: int, top_k: int,
-                      attention_mask=None):
-    """The Switch load-balancing aux loss of the MoE decoders: not ported
-    yet (raises)."""
-    raise NotImplementedError(_MOE)
+               remat=False):
+    """tokens [B, T] -> logits [B, T, V]; with ``return_router_logits`` (MoE
+    configs) also the stacked router logits [L, B T, E] (feed them to
+    ``load_balance_loss`` with the same attention_mask). ``remat``
+    checkpoints each layer (training path)."""
+    out = forward_with_embeds(params, cfg,
+                              embed_tokens(params, tokens, dtype),
+                              attention_mask, dtype,
+                              return_router_logits=return_router_logits,
+                              remat=remat)
+    if return_router_logits:
+        hidden, router = out
+        return lm_logits(params, cfg, hidden), router
+    return lm_logits(params, cfg, out)
 
 
 # ---------------------------------------------------------------- decode --
@@ -348,9 +555,8 @@ def lm_decode_step(params: Params, cfg: CausalLMConfig,
     two-tower fusion reuses it). ``pos``: an int (every row at that depth)
     or a per-slot [B] integer tensor on the model's device (each row writes
     its K/V at its own depth and attends keys <= pos[b]). Returns (logits
-    [B, V], the cache, updated in place)."""
-    check_dense(cfg)
-    _check_tree(params)
+    [B, V], the cache, updated in place). MoE layers with quantized
+    experts take ``_moe_selected_scan`` while B k <= E."""
     if isinstance(pos, torch.Tensor) and pos.dim() == 0:
         pos = int(pos)
     x = embed.to(dtype)[:, None, :]
@@ -415,18 +621,23 @@ def resize_embeddings(params: Params, cfg: CausalLMConfig, new_vocab: int,
 # ------------------------------------------------------------------ port --
 def port_causal_lm_from_hf(hf_model, *, device: DeviceLike = None
                            ) -> Tuple[Params, CausalLMConfig]:
-    """Port an in-memory HF Qwen2/Qwen3/LLaMA-style ForCausalLM (no
-    network): (params on ``device``, config). Mixture-of-experts models
-    raise ``NotImplementedError`` (the MoE slice)."""
+    """Port an in-memory HF Qwen2/Qwen3/Qwen3-MoE/LLaMA-style ForCausalLM
+    (no network): (params on ``device``, config). MoE covers the
+    homogeneous every-layer-sparse stacks the released Qwen3-MoE
+    checkpoints use (layers are stacked, so a mixed dense/sparse stack
+    raises ``NotImplementedError``)."""
     device = resolve_device(device)
     hc = hf_model.config
     sd = {k: v.detach().to("cpu", torch.float32)
           for k, v in hf_model.state_dict().items()}
-    if (int(getattr(hc, "num_experts", 0) or 0) > 0
-            or any(".mlp.experts." in k for k in sd)):
-        raise NotImplementedError(_MOE)
     # a tied lm_head still appears in state_dict: trust the config flag
     tie = bool(getattr(hc, "tie_word_embeddings", "lm_head.weight" not in sd))
+    moe = any(k.endswith("mlp.experts.0.gate_proj.weight") for k in sd)
+    if moe and (list(getattr(hc, "mlp_only_layers", []) or [])
+                or int(getattr(hc, "decoder_sparse_step", 1)) != 1):
+        raise NotImplementedError("mixed dense/sparse layer stacks are not "
+                                  "supported (stacked homogeneous layers "
+                                  "only)")
     cfg = CausalLMConfig(
         vocab_size=hc.vocab_size, d_model=hc.hidden_size,
         layers=hc.num_hidden_layers, heads=hc.num_attention_heads,
@@ -439,7 +650,12 @@ def port_causal_lm_from_hf(hf_model, *, device: DeviceLike = None
         qkv_bias=any(k.endswith("self_attn.q_proj.bias") for k in sd),
         qk_norm=any(k.endswith("self_attn.q_norm.weight") for k in sd),
         tie_embeddings=tie,
-        max_seq=getattr(hc, "max_position_embeddings", 2048))
+        max_seq=getattr(hc, "max_position_embeddings", 2048),
+        num_experts=int(getattr(hc, "num_experts", 0)) if moe else 0,
+        experts_per_tok=(int(getattr(hc, "num_experts_per_tok", 0))
+                         if moe else 0),
+        moe_ffn_dim=int(getattr(hc, "moe_intermediate_size", 0)) if moe else 0,
+        norm_topk_prob=bool(getattr(hc, "norm_topk_prob", True)))
 
     def lin(prefix):
         p = {"kernel": sd[f"{prefix}.weight"].t()}
@@ -458,10 +674,19 @@ def port_causal_lm_from_hf(hf_model, *, device: DeviceLike = None
             "o": lin(f"{pr}.self_attn.o_proj"),
             "mlp_norm": {"scale":
                          sd[f"{pr}.post_attention_layernorm.weight"]},
-            "gate": lin(f"{pr}.mlp.gate_proj"),
-            "up": lin(f"{pr}.mlp.up_proj"),
-            "down": lin(f"{pr}.mlp.down_proj"),
         }
+        if moe:
+            layer["router"] = {"kernel": sd[f"{pr}.mlp.gate.weight"].t()}
+            layer["experts"] = {
+                name: {"kernel": torch.stack([
+                    sd[f"{pr}.mlp.experts.{e}.{proj}.weight"].t()
+                    for e in range(cfg.num_experts)])}
+                for name, proj in (("gate", "gate_proj"), ("up", "up_proj"),
+                                   ("down", "down_proj"))}
+        else:
+            layer.update(gate=lin(f"{pr}.mlp.gate_proj"),
+                         up=lin(f"{pr}.mlp.up_proj"),
+                         down=lin(f"{pr}.mlp.down_proj"))
         if cfg.qk_norm:
             layer["q_norm"] = {"scale": sd[f"{pr}.self_attn.q_norm.weight"]}
             layer["k_norm"] = {"scale": sd[f"{pr}.self_attn.k_norm.weight"]}

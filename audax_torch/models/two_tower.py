@@ -22,8 +22,11 @@ log-mel of the callers (``infer/continuous.py``, ``cli/main.py``) K1.
 ``generate`` is the JAX ``lax.while_loop`` as a host loop with one host
 read of the ``done`` flags a step; sampling at a temperature draws from a
 ``torch.Generator`` (parity with JAX holds at temperature 0). Training
-(the dual-LR optimizer and the step) is ``train/two_tower.py``; the MoE
-decoders arrive with a later slice of the port.
+(the dual-LR optimizer and the step) is ``train/two_tower.py``. The LM may
+be a mixture-of-experts decoder (``models/causal_lm.py``): its decode steps
+then take the selected-experts scan where its experts are quantized, and
+``loss_sum`` adds the Switch load-balancing aux loss when
+``cfg.moe_aux_coef > 0``.
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ import torch.nn.functional as F
 
 from audax_torch.core.config import TwoTowerConfig, WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
-from audax_torch.models.causal_lm import (CausalLMConfig, check_dense,
-                                          embed_tokens, forward_with_embeds,
+from audax_torch.models.causal_lm import (CausalLMConfig, embed_tokens,
+                                          forward_with_embeds,
                                           init_causal_lm, init_lm_cache,
                                           lm_decode_step, lm_logits,
+                                          load_balance_loss,
                                           resize_embeddings)
 from audax_torch.models.whisper import (_gelu, dense, encode,
                                         init_whisper_params, layer_norm,
@@ -147,7 +151,6 @@ def build_two_tower(cfg: TwoTowerConfig, audio_cfg: WhisperConfig,
     reference's resize_token_embeddings contract, model.py:217-224). The
     audio tower, LM, adapter and resize noise draw from four generators
     seeded from ``generator``."""
-    check_dense(lm_cfg)
     device = resolve_device(device)
     g_audio, g_lm, g_adapter, g_resize = _child_generators(generator, 4)
     if audio_params is None:
@@ -215,30 +218,48 @@ class TwoTowerModel(NamedTuple):
     def forward(self, params: Params, enc: torch.Tensor,
                 input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                dtype=torch.float32) -> torch.Tensor:
+                dtype=torch.float32, return_router_logits: bool = False):
         """Teacher-forced logits [B, T, V]: every text position fused with
-        the audio through the adapter (reference :263-288)."""
+        the audio through the adapter (reference :263-288).
+        ``return_router_logits`` (MoE decoders) also returns the stacked
+        per-layer router logits [L, B T, E] for the aux loss."""
         text = embed_tokens(params["lm"], input_ids, dtype)
         fused = adapter_apply(params["adapter"], text, enc,
                               self.cfg.adapter_heads)
-        hidden = forward_with_embeds(params["lm"], self.lm_cfg, fused,
-                                     attention_mask, dtype)
-        return lm_logits(params["lm"], self.lm_cfg, hidden)
+        out = forward_with_embeds(params["lm"], self.lm_cfg, fused,
+                                  attention_mask, dtype,
+                                  return_router_logits=return_router_logits)
+        if return_router_logits:
+            hidden, router = out
+            return lm_logits(params["lm"], self.lm_cfg, hidden), router
+        return lm_logits(params["lm"], self.lm_cfg, out)
 
     def loss_sum(self, params: Params, enc: torch.Tensor,
                  input_ids: torch.Tensor, attention_mask: torch.Tensor,
                  dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
         """(summed shifted CE over non-pad positions, token count): the
-        un-normalised form gradient accumulation needs."""
-        check_dense(self.lm_cfg)         # the MoE aux loss: the MoE slice
-        logits = self.forward(params, enc, input_ids, attention_mask, dtype)
+        un-normalised form gradient accumulation needs. MoE decoders with
+        ``cfg.moe_aux_coef > 0`` add the Switch load-balancing aux loss
+        over the non-pad positions as ``coef * aux * count``, so the
+        normalised loss is ``CE_mean + coef * aux`` (per microbatch under
+        accumulation, as in JAX)."""
+        want_aux = self.lm_cfg.num_experts > 0 and self.cfg.moe_aux_coef > 0
+        out = self.forward(params, enc, input_ids, attention_mask, dtype,
+                           return_router_logits=want_aux)
+        logits, router = out if want_aux else (out, None)
         shift = logits[:, :-1].float()
         labels = input_ids[:, 1:].long()
         mask = attention_mask[:, 1:].float()
         losses = F.cross_entropy(shift.reshape(-1, shift.shape[-1]),
                                  labels.reshape(-1), reduction="none")
         losses = losses.reshape(labels.shape)
-        return (losses * mask).sum(), mask.sum()
+        total, count = (losses * mask).sum(), mask.sum()
+        if want_aux:
+            aux = load_balance_loss(router, self.lm_cfg.num_experts,
+                                    self.lm_cfg.experts_per_tok,
+                                    attention_mask)
+            total = total + self.cfg.moe_aux_coef * aux * count
+        return total, count
 
     def loss(self, params: Params, enc: torch.Tensor,
              input_ids: torch.Tensor, attention_mask: torch.Tensor,

@@ -34,14 +34,23 @@ from the JAX package so its int4 trees cross the bridge unchanged:
     failure of K9 never takes this branch;
   * CPU: ``int4_matmul_plain`` (dequantize, then a float32 product).
 
-A leading layer axis is selected by ``layer``; the kernel is given the
-pointer of that layer's slice (a view, never a copy), which is what the TPU
-kernel's scalar prefetch did.
+A leading stacked axis ([L, K/2, N], [L, G, N]) is selected by ``layer``,
+as the TPU kernel's scalar prefetch selects it, in one of two forms:
+
+  * a Python int (a decode loop's layer counter): the kernel is given the
+    pointer of that slice, a view, never a copy;
+  * an integer tensor of one element on x's device (int32 or int64; the
+    mixture-of-experts decode step's (layer, expert) id, the router's
+    top-k output): the kernel is given the stack and a pointer to the
+    index, reads it once at entry and offsets its pointers by that many
+    slices (``csrc/int4_select.cuh``; an index outside [0, L) traps). The
+    host never reads it: the plain version and the large-M branch select
+    with ``index_select``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -118,15 +127,40 @@ def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor,
     return q * torch.repeat_interleave(scales.to(dtype), g, dim=-2)
 
 
+def _device_index(layer, packed) -> Optional[torch.Tensor]:
+    """``layer`` as a device index (a one-element integer tensor on the
+    stack's device), or None for a host int; raises on anything else."""
+    if not isinstance(layer, torch.Tensor):
+        return None
+    if layer.numel() != 1 or layer.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"a tensor layer index must be one int32 or int64 "
+                         f"element, got {layer.dtype} {tuple(layer.shape)}")
+    if layer.device != packed.device:
+        raise ValueError(f"the layer index lies on {layer.device}, the "
+                         f"weights on {packed.device}")
+    if packed.dim() != 3:
+        raise ValueError("a tensor layer index needs stacked [L, K//2, N] "
+                         "weights")
+    return layer
+
+
 def _select(packed, scales, layer):
-    """(packed [K//2, N], scales [G, N]) of ``layer`` -- views, no copy."""
+    """(packed [K//2, N], scales [G, N]) of ``layer``: views for a host int
+    (no copy), ``index_select`` for a device index (no host read)."""
     if packed.dim() == 3:
         if layer is None:
             raise ValueError("stacked int4 weights need a layer index")
+        idx = _device_index(layer, packed)
+        if idx is not None:
+            idx = idx.reshape(1)
+            return (packed.index_select(0, idx)[0],
+                    scales.index_select(0, idx)[0])
         return packed[int(layer)], scales[int(layer)]
     if packed.dim() != 2:
         raise ValueError(f"packed int4 weights must be [K//2, N] or "
                          f"[L, K//2, N], got {tuple(packed.shape)}")
+    if isinstance(layer, torch.Tensor):
+        _device_index(layer, packed)           # raises: not stacked
     return packed, scales
 
 
@@ -159,13 +193,27 @@ int4_matmul_dequant.launches = 0
 
 def _operands(who, x, packed, scales, layer):
     """Check K9's operands on the card: (x as [M, K] contiguous, packed
-    [K//2, N] and scales [G, N] of ``layer`` -- views --, the leading dims
-    of x, K, N and the group). Raises ``ValueError`` on anything the
-    kernels do not take."""
-    packed, scales = _select(packed, scales, layer)
+    [K//2, N] and scales [G, N] of ``layer`` -- views -- or, with a device
+    index, the whole stack's first slice, the leading dims of x, K, N, the
+    group, and the index's C arguments (pointer or None, its bytes, the
+    slices in the stack)). Raises ``ValueError`` on anything the kernels do
+    not take."""
     if not (x.is_cuda and packed.is_cuda and scales.is_cuda
             and x.device == packed.device == scales.device):
         raise ValueError(f"{who}: every operand must be on one CUDA device")
+    idx = _device_index(layer, packed)
+    sel = (None, 0, 0)
+    if idx is not None:
+        if not (packed.is_contiguous() and scales.is_contiguous()
+                and scales.dim() == 3 and scales.shape[0] == packed.shape[0]):
+            raise ValueError(f"{who}: a device index needs contiguous "
+                             f"stacks of one length, got packed "
+                             f"{tuple(packed.shape)}, scales "
+                             f"{tuple(scales.shape)}")
+        sel = (idx.data_ptr(), idx.element_size(), packed.shape[0])
+        packed, scales = packed[0], scales[0]
+    else:
+        packed, scales = _select(packed, scales, layer)
     if x.dtype not in _DTYPES:
         raise ValueError(f"{who}: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
@@ -184,7 +232,7 @@ def _operands(who, x, packed, scales, layer):
     x2 = x.reshape(-1, k_dim).contiguous()
     if x2.shape[0] > MAX_KERNEL_ROWS:
         raise ValueError(f"{who}: {x2.shape[0]} rows > {MAX_KERNEL_ROWS}")
-    return x2, packed, scales, x.shape[:-1], k_dim, n, k_dim // num_g
+    return x2, packed, scales, x.shape[:-1], k_dim, n, k_dim // num_g, sel
 
 
 def int4_matmul_mma_cuda(x: torch.Tensor, packed: torch.Tensor,
@@ -193,8 +241,9 @@ def int4_matmul_mma_cuda(x: torch.Tensor, packed: torch.Tensor,
     launch: x [..., K] float32 or bfloat16 with at most 256 rows, packed
     uint8 [(L,) K//2, N], scales float32 [(L,) G, N] -> [..., N] in x's
     dtype, summed in float32, at a (K/2, group) that ``BODIES`` gives this
-    body (raises ``ValueError`` otherwise)."""
-    x2, packed, scales, lead, k_dim, n, group = _operands(
+    body (raises ``ValueError`` otherwise). ``layer``: a host int or a
+    device index (module docstring)."""
+    x2, packed, scales, lead, k_dim, n, group, sel = _operands(
         "int4_matmul_mma_cuda", x, packed, scales, layer)
     if int4_body(k_dim, group) != "mma":
         raise ValueError(f"int4_matmul_mma_cuda: no tensor-core body at "
@@ -207,7 +256,7 @@ def int4_matmul_mma_cuda(x: torch.Tensor, packed: torch.Tensor,
         x2 = x2.clone()
     status = native.library("int4_matmul_mma").int4_matmul_mma(
         x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(), m,
-        k_dim, n, group, _DTYPES[x.dtype],
+        k_dim, n, group, _DTYPES[x.dtype], *sel,
         torch.cuda.current_stream(x.device).cuda_stream)
     native.check(status, "int4_matmul_mma")
     int4_matmul_mma_cuda.launches += 1
@@ -222,7 +271,7 @@ def int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
     """K9's split-half body (``csrc/int4_matmul.cu``, CUDA cores), one
     counted call -- its kernel and, with more than one K split, the split
     sum: same operands as ``int4_matmul_mma_cuda``, at any (K/2, group)."""
-    x2, packed, scales, lead, k_dim, n, group = _operands(
+    x2, packed, scales, lead, k_dim, n, group, sel = _operands(
         "int4_matmul_cuda", x, packed, scales, layer)
     m, kh = x2.shape[0], k_dim // 2
     y = torch.empty(m, n, device=x.device, dtype=x.dtype)
@@ -234,7 +283,7 @@ def int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
           if splits > 1 else y)
     status = lib.int4_matmul(
         x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
-        ws.data_ptr(), m, k_dim, n, group, splits, _DTYPES[x.dtype],
+        ws.data_ptr(), m, k_dim, n, group, splits, _DTYPES[x.dtype], *sel,
         torch.cuda.current_stream(x.device).cuda_stream)
     native.check(status, "int4_matmul")
     int4_matmul_cuda.launches += 1
@@ -245,12 +294,14 @@ int4_matmul_cuda.launches = 0
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                *, layer: Optional[int] = None) -> torch.Tensor:
+                *, layer: Union[int, torch.Tensor, None] = None
+                ) -> torch.Tensor:
     """``x @ dequant(packed, scales)`` -> [..., N]. ``packed``/``scales`` as
     ``quantize_int4`` writes them, optionally with one leading stacked axis
-    picked by ``layer``. CUDA: kernel K9 for at most 256 rows (on the body
-    ``BODIES`` gives), dequantize + ``torch.matmul`` above that; CPU: the
-    plain version."""
+    picked by ``layer`` (a host int, or a one-element integer tensor on x's
+    device that the host never reads). CUDA: kernel K9 for at most 256 rows
+    (on the body ``BODIES`` gives), dequantize + ``torch.matmul`` above
+    that; CPU: the plain version."""
     if not x.is_cuda:
         return int4_matmul_plain(x, packed, scales, layer=layer)
     m = x.numel() // max(x.shape[-1], 1)

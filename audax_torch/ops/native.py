@@ -143,10 +143,10 @@ SIGNATURES = {
     },
     "int4_matmul": {
         "int4_matmul_splits": ([_I, _I, _I], _I),
-        "int4_matmul": ([_P] * 5 + [_I] * 6 + [_P], _I),
+        "int4_matmul": ([_P] * 5 + [_I] * 6 + [_P, _I, _I, _P], _I),
     },
     "int4_matmul_mma": {
-        "int4_matmul_mma": ([_P] * 4 + [_I] * 5 + [_P], _I),
+        "int4_matmul_mma": ([_P] * 4 + [_I] * 5 + [_P, _I, _I, _P], _I),
     },
     "int4_unpack_v1_mma": {
         "int4_unpack_v1_mma": ([_P] * 4 + [_I] * 6 + [_P], _I),

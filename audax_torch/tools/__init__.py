@@ -10,7 +10,9 @@ Each int4 tool A/Bs one int4 design against kernel K9
 flash kernels K2/K7/K8 and the fine-tune step: the head-fold probe P1 (a
 fold of K2's tensor-core bodies, ``csrc/flash_fwd_sm90.cu`` and
 ``csrc/flash_fwd_tf32x3.cu``), the tile sweep, the step's
-stages, and the MFU grid. Their entry points:
+stages, and the MFU grid. The MoE probe (``moe_decode_probe.py``, the
+four JAX MoE probes in one) times the MoE FFN's decode arms, K9 over
+int4 experts among them. Their entry points:
 
     python -m audax_torch.tools.int4_layout_ab check|bench [--device cpu] [--out PATH]
     python -m audax_torch.tools.int4_plane_probe [--device cpu] [--out PATH]
@@ -20,6 +22,7 @@ stages, and the MFU grid. Their entry points:
     python -m audax_torch.tools.attn_block_probe [--device cpu] [--out PATH]
     python -m audax_torch.tools.train_step_breakdown [--attn flash|xla] ... [--device cpu] [--out PATH]
     python -m audax_torch.tools.mfu_study [--only 0,10] ... [--device cpu] [--out PATH]
+    python -m audax_torch.tools.moe_decode_probe [--device cpu] [--out PATH]
 
 They run on the CUDA card unless ``--device cpu`` is given (and raise on a
 host without one); on the CPU they run the plain versions at a small shape

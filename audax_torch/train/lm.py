@@ -28,8 +28,8 @@ import torch
 
 from audax_torch.core.logging import get_logger
 from audax_torch.core.runtime import DeviceLike, resolve_device
-from audax_torch.models.causal_lm import (CausalLMConfig, check_dense,
-                                          lm_forward)
+from audax_torch.models.causal_lm import (CausalLMConfig,
+                                          load_balance_loss, lm_forward)
 from audax_torch.models.whisper import tree_leaves, tree_map, tree_unflatten
 from audax_torch.train.optim import (GradientTransformation, adamw_lp,
                                      apply_updates,
@@ -57,6 +57,9 @@ class LMTrainConfig:
     dtype: str = "float32"           # compute dtype; params stay f32
     eval_every: int = 100
     eval_windows: int = 16           # held-out packed windows
+    #: MoE models: Switch load-balancing aux loss coefficient
+    #: (HF Qwen3-MoE router_aux_loss_coef default)
+    aux_loss_coef: float = 0.001
     #: gradient checkpointing: "" off, "full" per-layer recompute,
     #: "dots" per-layer keeping the projection outputs
     remat: str = ""
@@ -116,16 +119,25 @@ def make_lm_train_step(model_cfg: CausalLMConfig, train_cfg: LMTrainConfig):
     """The step ``(state, windows [B, T+1] int tensor) -> (state, {"loss",
     "tokens"})``, in place. Windows' negative ids (LABEL_PAD) are masked
     from the labels and clamped to 0 as inputs. The loss and the token count
-    stay on the device."""
-    check_dense(model_cfg)
+    stay on the device. MoE models add the Switch load-balancing aux loss
+    (``aux_loss_coef``), scaled by the microbatch's token count so that
+    accumulation normalises it with the CE."""
     dtype = _dtype(train_cfg)
     accum = max(1, train_cfg.accum_steps)
     remat = _REMAT[train_cfg.remat]
+    aux = model_cfg.num_experts > 0 and train_cfg.aux_loss_coef
 
     def batch_loss(params, windows):
         inp = torch.clamp_min(windows[:, :-1], 0)
-        logits = lm_forward(params, model_cfg, inp, dtype=dtype, remat=remat)
-        return seq2seq_loss_sum(logits.float(), windows[:, 1:])
+        out = lm_forward(params, model_cfg, inp, dtype=dtype,
+                         return_router_logits=bool(aux), remat=remat)
+        logits, router = out if aux else (out, None)
+        total, count = seq2seq_loss_sum(logits.float(), windows[:, 1:])
+        if aux:
+            total = total + train_cfg.aux_loss_coef * load_balance_loss(
+                router, model_cfg.num_experts,
+                model_cfg.experts_per_tok) * count
+        return total, count
 
     def step(state: LMState, windows: torch.Tensor):
         grads, loss, count = accumulate_grads(

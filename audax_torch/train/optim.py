@@ -175,15 +175,23 @@ def scale_by_adam_lp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         else:
             ms = [m.float() for m in tree_leaves(state.mu)]
         ns = [n.float() for n in tree_leaves(state.nu)]
-        # m = b1 m + (1 - b1) g ;  n = b2 n + (1 - b2) g^2
-        ms = torch._foreach_add(torch._foreach_mul(ms, b1),
-                                torch._foreach_mul(gs, 1.0 - b1))
+        # m = b1 m + (1 - b1) g ;  n = b2 n + (1 - b2) g^2. Each result is
+        # a new tensor (the state's are not written), then updated in place:
+        # the same operations in the same order, with fewer temporaries of
+        # the parameters' size alive at once
+        ms = torch._foreach_mul(ms, b1)
+        torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b1))
         sq = torch._foreach_mul(gs, gs)
-        ns = torch._foreach_add(torch._foreach_mul(ns, b2),
-                                torch._foreach_mul(sq, 1.0 - b2))
-        den = torch._foreach_sqrt(torch._foreach_div(ns, c2))
+        torch._foreach_mul_(sq, 1.0 - b2)
+        ns = torch._foreach_mul(ns, b2)
+        torch._foreach_add_(ns, sq)
+        del sq
+        den = torch._foreach_div(ns, c2)
+        torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)
-        out = torch._foreach_div(torch._foreach_div(ms, c1), den)
+        out = torch._foreach_div(ms, c1)
+        torch._foreach_div_(out, den)
+        del den
         out = [o.to(g.dtype) for o, g in zip(out, tree_leaves(grads))]
         if int8:
             codes = [_q8_encode(m) for m in ms]

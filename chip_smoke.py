@@ -19,8 +19,10 @@ Whisper-large-v3-turbo, UrbanSound classification at the reference
 classifiers' widths, and the music two-tower's serving path (``infer-
 music``) at Qwen3-0.6B + Whisper-base width -- the four int4
 kernel-experiment tools and the four attention tools, then the music
-training path (``fit_two_tower`` and ``train-lm`` at Qwen3-0.6B width), in
-fourteen phases,
+training path (``fit_two_tower`` and ``train-lm`` at Qwen3-0.6B width) and
+the mixture-of-experts paths of the causal LM at Qwen3-30B-A3B's widths
+(the two-tower served with an int4 MoE decoder, ``fit_lm`` with the aux
+loss, the MoE decode probe), in eighteen phases,
 one output line each (the kernel and path phases print one line per
 case):
 
@@ -138,6 +140,17 @@ case):
      and K5 at 1000); and more than 256 bands on every body (320 or 512:
      the FFT body in K1's, K4's and K5's tiers, the direct bodies of K4 and
      K5 at n_fft 1000, one launch per chunk of 256 bands);
+  3a. K9's device index -- K9 at the MoE decode path's two expert shapes
+     (x [1, 2048] @ int4 [1024, 768], x [1, 768] @ int4 [384, 2048], group
+     128), float32 and bf16, its slice of a [256, K/2, N] stack named by a
+     one-element index tensor on the card that the kernel reads itself
+     (``csrc/int4_select.cuh``): one launch of the tensor-core body a call,
+     against the plain version (``index_select``), bit-equal to the
+     host-int route on the same slice, another index giving another
+     result, the split-half body with the same device index against the
+     plain version too; timed in CUDA graphs from HBM (128 slices cycled)
+     and L2-warm beside the plain version and cuBLAS on the dequantized
+     slice;
   3b. precision -- a bf16 ``dense`` at [12000, 5120] x [5120, 1280] within
      one bf16 step of the float64 product (float32 accumulation);
   4. transcription -- random Whisper-tiny weights from a seeded generator,
@@ -284,6 +297,32 @@ case):
      kernel shapes (the adapter's cross-attention at head_dim 128 over 500
      keys, the LM's causal GQA in float32 and bf16) are phase 3's
      ``music train`` cases;
+ 9d. moe -- the two-tower with a mixture-of-experts decoder at
+     Qwen3-30B-A3B's published widths (hidden 2048, 32 query and 4 KV heads
+     of 128, 128 experts of 768, top 8 renormalised, untied head, vocab
+     151,936 + 128; 4 of its 48 layers), a Whisper-base tower and the
+     8-head adapter, random from a seed, the LM int4 by ``quantize_tree``:
+     the MoE blocks of a 4-slot decode step under
+     ``torch.cuda.set_sync_debug_mode("error")`` (the expert ids never
+     reach the host); one ``two_tower_step`` launching K9 exactly
+     ``layers x slots x k x 3 + layers x 4 + 1`` times (401), timed and
+     profiled; a 1-layer copy's decode step card against CPU (the selected
+     experts equal, logits within ``TOL_INT4_F32`` of the largest, the
+     router's smallest top-k gap printed); then ``ContinuousGenerator``
+     over six 10 s clips on four slots, 64 tokens at t = 0 (K1, K2, K3,
+     K9 on their card bodies, no plain version, K9 401 a decode step);
+ 9e. moe training -- ``fit_lm`` at the same widths, 2 of 48 layers, batch 4
+     x 256, 2 steps, bf16 over float32 masters with bf16 Adam moments
+     (the originals kept on the host), ``aux_loss_coef`` 0.001, ragged
+     (the wgmma K2, K7, K8 four times each); one layer's forward dense
+     against ragged on the card within ``TOL_F32``; one float32 step of a
+     1-layer copy at batch 1 x 64 with the aux term, card against CPU
+     (loss within ``TOL_STEP_LOSS``, every gradient within
+     ``TOL_STEP_GRAD`` of its leaf's largest, the router's non-zero);
+ 9f. moe probe -- ``audax_torch.tools.moe_decode_probe`` on the card (d
+     2048, E 128, k 8, f 768, n 1 and 4, bf16): every arm beside its
+     selected-bytes floor; K9's tensor-core body serves the int4 arm, no
+     plain version runs;
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
      ``csrc/flash_bwd.cu``, count the CUDA-core launches, the last two timed
@@ -1933,6 +1972,109 @@ def fold_cases(torch, gen):
             main = dict(max_abs_err=e, ms=ms, plain_ms=plain, library_ms=lib,
                         bound=bound)
     return main
+
+
+#: K9's expert shapes on the MoE decode path at Qwen3-30B-A3B width: x
+#: [1, K] @ int4 [K/2, N] of one expert, selected from a [L E, K/2, N]
+#: stack by a device index (the router's output): gate/up 2048 -> 768,
+#: down 768 -> 2048, group 128
+K9_EXPERT_SHAPES = ((2048, 768, "expert gate/up"), (768, 2048, "expert down"))
+#: slices in the stacks the device-index cases select from (two layers of
+#: 128 experts); the timed calls cycle over 128 of them, 0.1 GB of packed
+#: weights, twice the L2, so each reads its slice from HBM
+K9_STACK = 256
+
+
+def k9_index_cases(torch):
+    """K9 with its stacked index as a device tensor (``ops/int4_matmul.py``,
+    ``csrc/int4_select.cuh``) at the two expert shapes, float32 and bf16:
+    each call one launch of the tensor-core body, held against the plain
+    version (which selects by ``index_select``), bit-equal to the host-int
+    route on the same slice, different for another index; the split-half
+    body with the same device index held against the plain version too.
+    Timed in CUDA graphs from HBM (128 indices cycled, one slice each) and
+    L2-warm, beside the plain version (events) and cuBLAS on the
+    dequantized slice in x's dtype (cycled the same way). Returns {label:
+    summary} for the records."""
+    from audax_torch.ops import int4_matmul as i4
+    from audax_torch.utils.profiling import slope_timed
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) / float(
+            b.float().abs().max())
+
+    def graphs_ms(fns):
+        it = iter(range(10 ** 9))
+        return 1e3 * slope_timed(lambda: fns[next(it) % len(fns)](), (),
+                                 iters=(128, 384), repeats=3, device=dev)
+
+    for k_dim, n, what in K9_EXPERT_SHAPES:
+        q, s = i4.quantize_int4(torch.randn(K9_STACK, k_dim, n, device=dev,
+                                            generator=gen) / k_dim ** 0.5)
+        idx = [torch.tensor(j, device=dev) for j in range(0, K9_STACK, 2)]
+        deq = {dt: [i4.dequantize_int4(q[j], s[j]).to(dt)
+                    for j in range(0, K9_STACK, 2)]
+               for dt in (torch.float32, torch.bfloat16)}
+        group = 2 * q.shape[-2] // s.shape[-2]
+        body = i4.int4_body(k_dim, group)
+        for dtype, tol in ((torch.float32, TOL_INT4_F32),
+                           (torch.bfloat16, TOL_BF16)):
+            x = torch.randn(1, k_dim, device=dev, generator=gen).to(dtype)
+            sel, other = idx[37], idx[38]
+            before = (i4.int4_matmul_mma_cuda.launches,
+                      i4.int4_matmul_cuda.launches)
+            got = i4.int4_matmul(x, q, s, layer=sel)
+            runs = (i4.int4_matmul_mma_cuda.launches - before[0],
+                    i4.int4_matmul_cuda.launches - before[1])
+            if body != "mma" or runs != (1, 0):
+                raise AssertionError(f"K9 {what}: body {body}, launches "
+                                     f"{runs}, not one of the tensor-core "
+                                     "body")
+            host = i4.int4_matmul(x, q, s, layer=74)
+            if not torch.equal(got, host):
+                raise AssertionError(f"K9 {what}: the device index and the "
+                                     "host int give different bits")
+            if torch.equal(got, i4.int4_matmul(x, q, s, layer=other)):
+                raise AssertionError(f"K9 {what}: another index gave the "
+                                     "same result")
+            ref = i4.int4_matmul_plain(x, q, s, layer=sel)
+            e = rel(got, ref)
+            e_split = rel(i4.int4_matmul_cuda(x, q, s, layer=sel), ref)
+            e_split_host = rel(i4.int4_matmul_cuda(x, q, s, layer=74), ref)
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            label = (f"int4_matmul_mma[{what} {dt} [1,{k_dim}]x[{k_dim},{n}]"
+                     f" device index into [{K9_STACK}, {k_dim // 2}, {n}] "
+                     f"group {group}]")
+            if not (e <= tol and e_split <= tol and e_split_host <= tol):
+                raise AssertionError(f"{label}: max rel err {e:.3e}, "
+                                     f"split-half {e_split:.3e} / "
+                                     f"{e_split_host:.3e} > {tol:.0e}")
+            cold = graphs_ms([lambda j=j: i4.int4_matmul(x, q, s, layer=j)
+                              for j in idx])
+            warm = graphs_ms([lambda: i4.int4_matmul(x, q, s, layer=sel)])
+            lib = graphs_ms([lambda w=w: torch.matmul(x, w)
+                             for w in deq[dtype]])
+            plain = _time_ms(torch, lambda: i4.int4_matmul_plain(
+                x, q, s, layer=sel))
+            nbytes = (q[0].numel() + 4 * s[0].numel()
+                      + x.element_size() * (k_dim + n) + 8)
+            parts = 3 if dtype == torch.float32 else 1
+            bound = _bound(2 * k_dim * n, nbytes, BF16_FLOPS / parts)
+            _report(f"{label} (max_abs_err {float((got - ref).abs().max()):.3e}"
+                    f", bit-equal to the host-int route, another index "
+                    f"differs; split-half body with the device index "
+                    f"{e_split:.3e}; ms from HBM (128 slices cycled), "
+                    f"L2-warm {warm:.4f})", e, tol, cold, plain, lib, bound,
+                    "max_rel_err")
+            out[f"{what} {dt}"] = dict(max_rel_err=e, ms=cold, warm_ms=warm,
+                                       plain_ms=plain, library_ms=lib,
+                                       bound=bound)
+        del q, s, deq
+    return out
 
 
 def precision_check(torch):
@@ -3870,7 +4012,8 @@ def _grads(torch, loss_fn, params):
 ZERO_GRAD_LEAVES = ("adapter/k/bias",)
 
 
-def _hold_grads(torch, label, loss, grads, cpu_loss, cpu_grads, keys):
+def _hold_grads(torch, label, loss, grads, cpu_loss, cpu_grads, keys,
+                tag="music_train"):
     """The card's loss within TOL_STEP_LOSS (relative) of the CPU's and each
     gradient of ``keys`` within TOL_STEP_GRAD of the CPU leaf's largest
     value (a ``ZERO_GRAD_LEAVES`` leaf at zero); prints the worst."""
@@ -3885,14 +4028,14 @@ def _hold_grads(torch, label, loss, grads, cpu_loss, cpu_grads, keys):
             continue
         e = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
         worst = max(worst, (e, k))
-    print(f"[music_train] {label} card vs CPU: loss {loss:.6f} / "
+    print(f"[{tag}] {label} card vs CPU: loss {loss:.6f} / "
           f"{cpu_loss:.6f} (rel {e_loss:.2e}, tol {TOL_STEP_LOSS:.0e}); "
           f"{len(keys)} gradients, worst {worst[0]:.2e} of the leaf's "
           f"largest at {worst[1]} (tol {TOL_STEP_GRAD:.0e}); zero-gradient "
           f"leaves at {zero:.2e} of the largest gradient", flush=True)
     if not (e_loss <= TOL_STEP_LOSS and worst[0] <= TOL_STEP_GRAD
             and zero <= TOL_STEP_GRAD):
-        raise AssertionError(f"music_train {label}: the card is off the CPU "
+        raise AssertionError(f"{tag} {label}: the card is off the CPU "
                              f"path (loss {e_loss:.2e}, gradient "
                              f"{worst[0]:.2e} at {worst[1]}, zero-gradient "
                              f"leaves {zero:.2e})")
@@ -4264,6 +4407,341 @@ def music_train_phase(torch, rng, smi):
     return counts_all
 
 
+#: the MoE phases' model: Qwen3-30B-A3B's published widths, its depth cut
+#: (48 layers) to fit the run's time: 4 layers served, 2 trained
+MOE_SERVE_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
+MOE_SLOTS = 4
+MOE_CLIPS = 6
+MOE_TOKENS = 64
+#: the MoE serving path's kernels: K1 (FFT body) and K2 (3xTF32) at admit,
+#: K3 (sm90 body) and K9 (tensor-core body: q/k/v/o, the selected experts,
+#: the untied lm_head) every decode step
+MOE_SERVE_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
+                     "decode_attention_stacked", "decode_attention_sm90",
+                     "int4_matmul_mma")
+
+
+def moe_serve_phase(torch, rng, smi):
+    """The two-tower with an MoE decoder at Qwen3-30B-A3B's widths (4 of 48
+    layers, int4 LM) served by ``ContinuousGenerator``; returns the launch
+    counts of the run."""
+    import dataclasses
+
+    from audax_torch.cli import main as cli
+    from audax_torch.core.config import TwoTowerConfig
+    from audax_torch.infer.continuous import ContinuousGenerator
+    from audax_torch.models import causal_lm as CL
+    from audax_torch.models.quantize import quantize_tree, tree_bytes
+    from audax_torch.models.two_tower import (adapter_cross_kv,
+                                              build_two_tower,
+                                              two_tower_step)
+    from audax_torch.models.whisper import layer_params, tree_map
+    from audax_torch.ops import launch_counts, reset_launches
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    tt = TwoTowerConfig()
+    audio_cfg = cli._whisper_preset(tt.whisper_size)
+    base = CL.CausalLMConfig.qwen3_30b_a3b()
+    vocab = base.vocab_size + 128
+    t0 = time.perf_counter()
+    model = build_two_tower(tt, audio_cfg, dataclasses.replace(
+        base, layers=MOE_SERVE_LAYERS), vocab,
+        torch.Generator(device=dev).manual_seed(30), device=dev)
+    lm_cfg = model.lm_cfg
+    g = torch.Generator(device=dev).manual_seed(31)
+    for gate in ("out", "ffn_out"):      # open the gates: audio reaches the LM
+        k = model.params["adapter"][gate]["kernel"]
+        model.params["adapter"][gate]["kernel"] = torch.randn(
+            k.shape, generator=g, device=dev) / math.sqrt(k.shape[0])
+    f32_bytes = tree_bytes(model.params["lm"])
+    q_lm = quantize_tree(model.params["lm"], bits=4)
+    model = model._replace(params={"adapter": model.params["adapter"],
+                                   "lm": q_lm})
+    torch.cuda.empty_cache()
+    sync()
+    ex = q_lm["layers"]["experts"]
+    print(f"[moe] {smi}: LM Qwen3-30B-A3B widths (d_model {lm_cfg.d_model}, "
+          f"{lm_cfg.layers} of {base.layers} layers, {lm_cfg.heads}q/"
+          f"{lm_cfg.kv_heads}kv of {lm_cfg.head_dim}, {lm_cfg.num_experts} "
+          f"experts of {lm_cfg.moe_ffn}, top {lm_cfg.experts_per_tok} "
+          f"renormalised, untied head, vocab {vocab} = {base.vocab_size} + "
+          f"128), int4 by quantize_tree (experts {tuple(ex['gate']['kernel_q4'].shape)}"
+          f" packed, the router float): {f32_bytes / 1e9:.2f} GB float32 -> "
+          f"{tree_bytes(q_lm) / 1e9:.2f} GB; Whisper-{tt.whisper_size} tower,"
+          f" adapter {tt.adapter_heads} heads; built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---- (a) the MoE blocks of a decode step: no host synchronisation ------
+    x = torch.randn(MOE_SLOTS, 1, lm_cfg.d_model, device=dev, generator=g)
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for li in range(lm_cfg.layers):
+            CL._moe_block(layer_params(q_lm["layers"], li), lm_cfg, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync()
+    print(f"[moe] the MoE blocks of a {MOE_SLOTS}-slot decode step ("
+          f"{lm_cfg.layers} layers x {MOE_SLOTS * lm_cfg.experts_per_tok} "
+          "selected slots, K9 with device expert ids) ran under "
+          "torch.cuda.set_sync_debug_mode('error'): no host read", flush=True)
+
+    # ---- (b) one decode step: K9's launches, time and profile --------------
+    enc = model.encode_audio(torch.randn(1, 1000, audio_cfg.n_mels,
+                                         device=dev, generator=g))
+    ck4, cv4 = adapter_cross_kv(model.params["adapter"],
+                                enc.repeat(MOE_SLOTS, 1, 1), tt.adapter_heads)
+    cache = CL.init_lm_cache(lm_cfg, MOE_SLOTS, MOE_TOKENS + 1, device=dev)
+    pos4 = torch.tensor([0, 9, 30, 63], device=dev)
+    tok4 = torch.tensor([base.vocab_size + 3 * i for i in range(4)],
+                        device=dev)
+
+    @torch.inference_mode()
+    def step():
+        return two_tower_step(model.params, lm_cfg, tok4, ck4, cv4, pos4,
+                              cache)[0].argmax(-1)
+    sync()
+    reset_launches()
+    step()
+    sync()
+    counts = launch_counts()
+    k9 = counts["int4_matmul_mma"]["cuda"]
+    # the selected scan's gate, up and down for each of a layer's slots x
+    # top-k, the four attention projections a layer, the untied lm_head
+    want = (lm_cfg.layers * MOE_SLOTS * lm_cfg.experts_per_tok * 3
+            + lm_cfg.layers * 4 + 1)
+    if k9 != want or counts["int4_matmul"]["cuda"]:
+        raise AssertionError(f"moe decode step: {k9} K9 launches (split-half"
+                             f" {counts['int4_matmul']['cuda']}), {want} "
+                             "predicted")
+    step_ms = _time_ms(torch, step, reps=5)
+    prof = _profile(torch, step, f"moe decode step ({MOE_SLOTS} slots)", n=3)
+    if prof is None:
+        raise AssertionError("moe decode step: the profiler saw no device "
+                             "time")
+    print(f"[moe] decode step, {MOE_SLOTS} slots (adapter + LM + argmax): "
+          f"host {step_ms:.3f} ms (CUDA events, host issue included), device"
+          f" {prof[0]:.3f} ms, {prof[1]} kernel launches; K9 {k9} (predicted"
+          f" {lm_cfg.layers} x {MOE_SLOTS} x {lm_cfg.experts_per_tok} x 3 + "
+          f"{lm_cfg.layers} x 4 + 1 = {want}), K3 "
+          f"{counts['decode_attention_stacked']['cuda']} ({smi})", flush=True)
+    del cache, ck4, cv4
+
+    # ---- (c) a 1-layer copy: one decode step, card against the CPU ---------
+    cfg1 = dataclasses.replace(lm_cfg, layers=1)
+    one = dict(q_lm)
+    one["layers"] = tree_map(lambda t: t[:1], q_lm["layers"])
+    emb = torch.randn(MOE_SLOTS, lm_cfg.d_model, device=dev, generator=g)
+    pos = torch.tensor([0, 5, 17, 40], device=dev)
+    cache = CL.init_lm_cache(cfg1, MOE_SLOTS, 48, device=dev)
+    cache.k.normal_(generator=g)
+    cache.v.normal_(generator=g)
+    one_cpu = tree_map(lambda t: t.cpu(), one)
+    cache_cpu = CL.LMKVCache(cache.k.cpu(), cache.v.cpu())
+    routed = []
+    orig = CL._moe_router
+
+    def recording(*a, **kw):
+        out = orig(*a, **kw)
+        routed.append(out)
+        return out
+    CL._moe_router = recording
+    try:
+        t0 = time.perf_counter()
+        logits, _ = CL.lm_decode_step(one, cfg1, emb, pos, cache)
+        logits_cpu, _ = CL.lm_decode_step(one_cpu, cfg1, emb.cpu(),
+                                          pos.cpu(), cache_cpu)
+        t_cpu = time.perf_counter() - t0
+    finally:
+        CL._moe_router = orig
+    (_, ids, _), (_, ids_cpu, rl_cpu) = routed
+    probs = torch.softmax(rl_cpu.float(), -1)
+    top = probs.topk(cfg1.experts_per_tok + 1, -1).values
+    margin = float((top[:, -2] - top[:, -1]).min())
+    e = float((logits.cpu() - logits_cpu).abs().max()) / float(
+        logits_cpu.abs().max())
+    same = bool(torch.equal(ids.cpu(), ids_cpu))
+    print(f"[moe] 1-layer copy, one decode step at pos [0, 5, 17, 40], card "
+          f"vs CPU ({t_cpu:.1f} s): selected experts equal {same} (smallest "
+          f"k-th to (k+1)-th router probability gap {margin:.3e}); logits "
+          f"max rel err {e:.3e} (tol {TOL_INT4_F32:.0e})", flush=True)
+    if not (same and e <= TOL_INT4_F32):
+        raise AssertionError(f"moe 1-layer step: experts equal {same}, "
+                             f"logits {e:.3e} off the CPU")
+    del one, one_cpu, cache, cache_cpu, routed
+
+    # ---- ContinuousGenerator: six 10 s clips over four slots ---------------
+    clips = {f"clip{i}": _music_clip(rng, 10.0) for i in range(MOE_CLIPS)}
+    gen = ContinuousGenerator(model, start_id=base.vocab_size,
+                              end_id=base.vocab_size + 1, slots=MOE_SLOTS,
+                              window_seconds=10.0,
+                              max_new_tokens=MOE_TOKENS, temperature=0.0,
+                              device=dev)
+    for rid, clip in clips.items():
+        gen.submit(rid, clip)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = gen.run()
+    sync()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    _check_launches(counts, MOE_SERVE_KERNELS, "moe serving")
+    _no_core_flash(counts, "moe serving")
+    steps = gen.decode_steps
+    k9 = counts["int4_matmul_mma"]["cuda"]
+    k3 = counts["decode_attention_stacked"]["cuda"]
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"[moe] ContinuousGenerator ({MOE_CLIPS} clips of 10 s, "
+          f"{MOE_SLOTS} slots, t = 0, {MOE_TOKENS} tokens): wall "
+          f"{wall:.2f} s, {steps} decode steps, {wall / steps * 1e3:.2f} ms a"
+          f" step (admits included), {n_tok} tokens, {n_tok / wall:.1f} "
+          f"tokens/s; K9 {k9} = {k9 / steps:.1f} a step, K3 {k3}, K1 "
+          f"{counts['log_mel_overlap_fft']['cuda']}, K2 "
+          f"{counts['flash_forward_tf32x3']['cuda']} ({smi})", flush=True)
+    if (len(results) != MOE_CLIPS or k9 != want * steps
+            or k3 != lm_cfg.layers * steps):
+        raise AssertionError(f"moe serving: {len(results)} results, K9 "
+                             f"{k9} for {steps} steps (want {want} a step), "
+                             f"K3 {k3}")
+    del gen, model, q_lm
+    torch.cuda.empty_cache()
+    print(f"[moe] serving phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"({smi})", flush=True)
+    return [counts]
+
+
+def moe_train_phase(torch, rng, smi):
+    """``fit_lm`` at Qwen3-30B-A3B's widths (2 of 48 layers) with the aux
+    loss, a 1-layer step against the CPU, and ``dense`` against ``ragged``;
+    returns the launch counts of the fit."""
+    import dataclasses
+
+    import numpy as np
+
+    from audax_torch.models import causal_lm as CL
+    from audax_torch.models.whisper import layer_params, tree_map
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.train.lm import LMTrainConfig, fit_lm
+    from audax_torch.train.seq2seq import seq2seq_loss_sum
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(CL.CausalLMConfig.qwen3_30b_a3b(),
+                              layers=MOE_TRAIN_LAYERS)
+    params = CL.init_causal_lm(cfg, torch.Generator(device=dev).manual_seed(
+        32), device=dev)
+    ids = rng.integers(0, cfg.vocab_size, 4 * 256 * 2 + 1).astype(np.int32)
+    tc = LMTrainConfig(warmup_steps=1, max_steps=2, batch_size=4,
+                       seq_len=256, eval_every=0, eval_windows=0,
+                       dtype="bfloat16", aux_loss_coef=0.001,
+                       moment_dtype="bfloat16")
+
+    # ---- dense against ragged: one layer's forward on the card -------------
+    layer0 = layer_params(params["layers"], 0)
+    x = torch.randn(1, 64, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(33))
+    with torch.no_grad():
+        ragged = CL._moe_block(layer0, cfg, x)
+        dense = CL._moe_block(layer0, dataclasses.replace(
+            cfg, moe_impl="dense"), x)
+    e = float((ragged - dense).abs().max())
+    print(f"[moe] one MoE layer [1, 64, {cfg.d_model}] f32, dense vs ragged "
+          f"on the card: max_abs_err {e:.3e} (tol {TOL_F32:.0e}), output "
+          f"scale {float(ragged.abs().max()):.3f}", flush=True)
+    if not e <= TOL_F32:
+        raise AssertionError(f"moe dense vs ragged: {e:.3e}")
+
+    # ---- a float32 step of a 1-layer copy at batch 1 x 64, card vs CPU -----
+    t0 = time.perf_counter()
+    cfg1 = dataclasses.replace(cfg, layers=1)
+    one = dict(params)
+    one["layers"] = tree_map(lambda t: t[:1], params["layers"])
+    w = torch.from_numpy(ids[:65][None].astype(np.int64))
+    res, aux = [], []
+    for p0 in (one, tree_map(lambda t: t.cpu(), one)):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True), p0)
+        ww = w.to(p["embed"].device)
+
+        def loss_fn(q, ww=ww):
+            logits, rl = CL.lm_forward(q, cfg1, ww[:, :-1],
+                                       return_router_logits=True)
+            total, count = seq2seq_loss_sum(logits.float(), ww[:, 1:])
+            a = CL.load_balance_loss(rl, cfg1.num_experts,
+                                     cfg1.experts_per_tok)
+            aux.append(float(a.detach()))
+            return total / count + tc.aux_loss_coef * a
+        res.append(_grads(torch, loss_fn, p))
+        del p
+    router = float(res[0][1]["layers/router/kernel"].abs().max())
+    print(f"[moe] aux term {aux[0]:.6f} (card) / {aux[1]:.6f} (CPU); the "
+          f"router's largest gradient {router:.3e}", flush=True)
+    if not (np.isfinite(aux).all() and router > 0):
+        raise AssertionError(f"moe step: aux {aux}, router gradient {router}")
+    _hold_grads(torch, f"MoE LM step (1 layer, batch 1 x 64, float32, in "
+                f"{time.perf_counter() - t0:.1f} s; every gradient)",
+                res[0][0], res[0][1], res[1][0], res[1][1], list(res[0][1]),
+                tag="moe")
+    del res, one, layer0, ragged, dense, x
+
+    # ---- fit_lm: the originals on the host, the trained copy on the card --
+    params = tree_map(lambda t: t.cpu(), params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, hist = fit_lm(params, cfg, tc, ids, device=dev)
+    sync()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    kernels = LM_TRAIN_KERNELS["bfloat16"]
+    _check_launches(counts, kernels, "moe fit_lm")
+    want = {k: cfg.layers * 2 for k in kernels}
+    got = {k: counts[k]["cuda"] for k in kernels}
+    print(f"[moe] fit_lm Qwen3-30B-A3B widths ({cfg.layers} of 48 layers, "
+          f"ragged, aux 0.001; 2 steps at batch 4 x 256, bf16 over float32 "
+          f"masters, bf16 Adam moments): {fit_s:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, history "
+          f"{hist}; launches {got} (expected {want}) ({smi})", flush=True)
+    if got != want or not np.isfinite(hist[-1]["loss"]):
+        raise AssertionError(f"moe fit_lm: launches {got} (expected {want}),"
+                             f" history {hist}")
+
+    del params
+    torch.cuda.empty_cache()
+    print(f"[moe] training phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"({smi})", flush=True)
+    return [counts]
+
+
+def moe_probe_phase(torch):
+    """``audax_torch.tools.moe_decode_probe`` on the card: every arm at n
+    1 and 4 beside its floor; K9's tensor-core body must serve the int4 arm
+    and no plain version may run."""
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.tools import moe_decode_probe as MP
+
+    t0 = time.perf_counter()
+    reset_launches()
+    rep = MP.main(device="cuda")
+    counts = launch_counts()
+    plain = {k: c["plain"] for k, c in counts.items() if c["plain"]}
+    k9 = counts["int4_matmul_mma"]["cuda"]
+    rows = "; ".join(f"{r['arm']} n={r['n']} {r['us']:.1f} us (floor "
+                     f"{r['floor_us']:.1f})" for r in rep["rows"])
+    print(f"[moe_probe] {rep['device']}: {rows}; {rep['verdict']}; K9 "
+          f"launches {k9}, in {time.perf_counter() - t0:.1f} s", flush=True)
+    if plain or not k9 or counts["int4_matmul"]["cuda"]:
+        raise AssertionError(f"moe probe: K9 {k9}, split-half "
+                             f"{counts['int4_matmul']['cuda']}, plain {plain}")
+    return rep
+
+
 def _paths(tree, prefix=""):
     """Leaf paths of a nested dict, in ``tree_leaves`` order."""
     out = []
@@ -4433,6 +4911,7 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
+    k9_index_cases(torch)
     precision_check(torch)
     transcribe = main_path_phase(torch, rng)
     decoders = decoders_phase(torch, rng, smi)
@@ -4444,12 +4923,16 @@ def main() -> int:
     # on a generator of its own, so the phases before it draw what they drew
     music = music_phase(torch, np.random.default_rng(19), smi)
     music_train = music_train_phase(torch, np.random.default_rng(20), smi)
+    moe_serve = moe_serve_phase(torch, np.random.default_rng(21), smi)
+    moe_train = moe_train_phase(torch, np.random.default_rng(22), smi)
+    moe_probe_phase(torch)
     # launches of the main paths, each counted from 0 just before it; the
     # tools' kernels from the probes phase; K2/K7/K8 and P1 from the
     # attention tools as well
     launches = {k: sum(p[k]["cuda"] for p in (transcribe, decoders, train,
                                               serve, k6, classify, *music,
-                                              *music_train))
+                                              *music_train, *moe_serve,
+                                              *moe_train))
                 for k in transcribe}
     launches.update(probes)
     for k in FLASH_BF16 + ("flash_forward_fold",):

@@ -146,12 +146,26 @@ def test_qwen3_published_config():
 
 
 def test_moe_raises():
-    moe = P.CausalLMConfig(num_experts=4, experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        P.init_causal_lm(moe, torch.Generator(), device="cpu")
-    _, _, cfg, p = _pair("qwen3-tiny")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        P.lm_forward(p, moe, torch.zeros(1, 4, dtype=torch.long))
+    """MoE configs, which raised before the MoE slice, now build and run:
+    the qwen3-tiny widths with 4 experts of 64 (top 2) drawn by JAX, the
+    port's logits within 1e-4 of JAX's (``test_torch_moe.py`` holds the
+    rest); the port's own draw has JAX's layout; a config without top-k
+    still raises, as in JAX."""
+    kw = dict(CONFIGS["qwen3-tiny"], num_experts=4, experts_per_tok=2,
+              moe_ffn_dim=64)
+    jcfg, cfg = J.CausalLMConfig(**kw), P.CausalLMConfig(**kw)
+    jp = J.init_causal_lm(jcfg, jax.random.key(0))
+    p = causal_lm_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 24))
+    ref = np.asarray(J.lm_forward(jp, jcfg, jnp.asarray(tokens)))
+    ours = P.lm_forward(p, cfg, torch.from_numpy(tokens))
+    np.testing.assert_allclose(ours.numpy(), ref, atol=TOL, rtol=0)
+    own = P.init_causal_lm(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert P.tree_map(lambda t: tuple(t.shape), own) == jax.tree.map(
+        lambda a: tuple(a.shape), jp)
+    with pytest.raises(ValueError, match="experts_per_tok"):
+        P.CausalLMConfig(num_experts=4)
 
 
 def _hf(kind):

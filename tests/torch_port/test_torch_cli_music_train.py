@@ -19,6 +19,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from audax.cli import main as jax_cli
 from audax_torch.cli import main as cli
@@ -92,16 +93,67 @@ def test_data_tools_match_jax(data):
                                read_wav(str(j / "one.wav"))[0], atol=PCM)
 
 
-def test_soundfont_and_moe_flags_raise(data, tmp_path):
+def test_soundfont_and_moe_flags_raise(data, tmp_path, monkeypatch):
+    """A soundfont still raises. ``train-lm --moe-experts 4 --moe-top-k 2``,
+    which raised before the MoE slice, now trains: the port started from
+    the JAX command line's own initial weights (its ``init_causal_lm`` is
+    swapped for JAX's draw through the weight bridge) keeps JAX's loss
+    history, and its checkpoint reloads as an MoE LM."""
+    import jax
+
+    from audax.models import causal_lm as JLM
+    from audax.train import lm as JTrain
+    from audax_torch.models import causal_lm as PLM
+    from audax_torch.models.bridge import causal_lm_from_numpy
+    from audax_torch.train.checkpoints import load_pytree
+
     d = data["p"][0]
     with pytest.raises(NotImplementedError):
         _run(cli, ["abc2wav", "--abc-text", "X:1\nK:C\nCDE|", "--out",
                    str(tmp_path / "x.wav"), "--soundfont", "a.sf2"],
              tmp_path)
-    with pytest.raises(NotImplementedError):
-        _run(cli, ["train-lm", "--corpus", str(d / "abc"),
-                   "--tokenizer-dir", str(d / "bpe"), "--moe-experts", "4",
-                   "--device", "cpu"], tmp_path)
+    monkeypatch.setattr(PLM, "init_causal_lm", lambda cfg, gen, device=None:
+                        causal_lm_from_numpy(jax.tree.map(
+                            np.asarray, JLM.init_causal_lm(
+                                JLM.CausalLMConfig(**vars(cfg)),
+                                jax.random.key(0))), cfg, device=device))
+    jax_history = []
+    fit = JTrain.fit_lm
+    monkeypatch.setattr(JTrain, "fit_lm", lambda *a, **k: (
+        lambda out: (jax_history.extend(out[1]), out)[1])(fit(*a, **k)))
+    moe = ["--moe-experts", "4", "--moe-top-k", "2", "--lm-size", "tiny",
+           "--steps", "3", "--batch-size", "4", "--seq-len", "16",
+           "--eval-every", "1"]
+    for tag, mod, extra in (("p", cli, ["--device", "cpu", "--out",
+                                        str(tmp_path / "p.json")]),
+                            ("j", jax_cli, [])):
+        dd = data[tag][0]
+        rc, _ = _run(mod, ["train-lm", "--corpus", str(dd / "abc"),
+                           "--tokenizer-dir", str(dd / "bpe"), "--out-dir",
+                           str(tmp_path / tag / "lm")] + moe + extra,
+                     tmp_path)
+        assert rc == 0
+    history = json.loads((tmp_path / "p.json").read_text())["history"]
+    assert [r["step"] for r in history] == [r["step"] for r in jax_history]
+    for row, jrow in zip(history, jax_history):
+        for key in ("loss", "eval_loss"):
+            assert row[key] == pytest.approx(jrow[key], rel=1e-4), key
+    cfg_json = json.loads((tmp_path / "p" / "lm" / "config.json")
+                          .read_text())
+    jcfg_json = json.loads((tmp_path / "j" / "lm" / "config.json")
+                           .read_text())
+    assert (cfg_json["num_experts"], cfg_json["experts_per_tok"],
+            cfg_json["moe_ffn_dim"]) == (4, 2, 16) == (
+        jcfg_json["num_experts"], jcfg_json["experts_per_tok"],
+        jcfg_json["moe_ffn_dim"])
+    cfg = PLM.CausalLMConfig(**cfg_json)
+    params = load_pytree(str(tmp_path / "p" / "lm" / "best"))
+    assert params["layers"]["experts"]["gate"]["kernel"].shape == (
+        cfg.layers, 4, cfg.d_model, 16)
+    logits, router = PLM.lm_forward(params, cfg, torch.zeros(
+        1, 8, dtype=torch.long), return_router_logits=True)
+    assert logits.shape == (1, 8, cfg.vocab_size)
+    assert router.shape == (cfg.layers, 8, 4)
 
 
 def test_train_lm_matches_jax(data, tmp_path):

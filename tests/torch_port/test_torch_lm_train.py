@@ -152,16 +152,70 @@ def test_fit_lm_history_matches_jax(lm, tmp_path):
     assert not torch.equal(trained["embed"], params["embed"])
 
 
+MOE = dict(num_experts=4, experts_per_tok=2, moe_ffn_dim=48)
+
+
+def _moe_steps(case):
+    """Three MoE train steps with the Switch aux term (``aux_loss_coef``
+    0.001, scaled by each microbatch's token count) against JAX's: losses
+    and every parameter, the router's and the experts' included. Returns
+    (the port's step config, JAX's step, the JAX parameters, the windows)."""
+    jcfg = JLM.CausalLMConfig(**CFG, **MOE)
+    mcfg = CausalLMConfig(**CFG, **MOE)
+    jparams = JLM.init_causal_lm(jcfg, jax.random.key(2))
+    mparams = causal_lm_from_numpy(jax.tree.map(np.asarray, jparams), mcfg,
+                                   device="cpu")
+    kw = dict(warmup_steps=2, max_steps=3, batch_size=4, seq_len=16,
+              **STEP_CASES[case])
+    assert T.LMTrainConfig().aux_loss_coef == JTrain.LMTrainConfig(
+        ).aux_loss_coef == 0.001
+    jstep = JTrain.make_lm_train_step(jcfg, JTrain.LMTrainConfig(**kw),
+                                      donate=False)
+    step = T.make_lm_train_step(mcfg, T.LMTrainConfig(**kw))
+    jstate = JTrain.init_lm_state(jparams, JTrain.LMTrainConfig(**kw))
+    state = T.init_lm_state(mparams, T.LMTrainConfig(**kw))
+    windows = T.pack_corpus(_corpus(seed=4), 16)
+    for i in range(3):
+        w = windows[4 * i: 4 * i + 4]
+        jstate, jm = jstep(jstate, jnp.asarray(w))
+        state, m = step(state, torch.from_numpy(w))
+        assert float(m["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    ref = flat(jax.tree.map(np.asarray, jstate.params))
+    got = flat(state.params)
+    assert "layers/router/kernel" in got
+    for k, v in got.items():
+        np.testing.assert_allclose(v, ref[k], err_msg=k, **TOL)
+    return mcfg, kw, jstep, jparams, windows
+
+
+@pytest.mark.parametrize("case", ["accum2", "remat-full"])
+def test_moe_steps_match_jax(case):
+    _moe_steps(case)
+
+
 def test_moe_raises(lm):
+    """The MoE train step, which raised before the MoE slice, held against
+    JAX's (``_moe_steps``), and its aux term shown to be in the loss. What
+    still raises: router logits of a dense config and the mesh."""
     _, _, cfg, params = lm
-    moe = CausalLMConfig(**CFG, num_experts=4, experts_per_tok=2)
-    with pytest.raises(NotImplementedError):
-        T.make_lm_train_step(moe, T.LMTrainConfig())
+    mcfg, kw, jstep, jparams, windows = _moe_steps("accum1")
+    # the aux term is in the loss: without it the first loss differs
+    plain = T.make_lm_train_step(mcfg, T.LMTrainConfig(aux_loss_coef=0.0,
+                                                       **kw))
+    fresh = T.init_lm_state(causal_lm_from_numpy(
+        jax.tree.map(np.asarray, jparams), mcfg, device="cpu"),
+        T.LMTrainConfig(**kw))
+    _, m0 = plain(fresh, torch.from_numpy(windows[:4]))
+    _, jm0 = jstep(JTrain.init_lm_state(jparams, JTrain.LMTrainConfig(**kw)),
+                   jnp.asarray(windows[:4]))
+    assert float(m0["loss"]) < float(jm0["loss"])
     with pytest.raises(ValueError):
         lm_forward(params, cfg, torch.zeros(1, 4, dtype=torch.long),
                    return_router_logits=True)
     with pytest.raises(NotImplementedError):
-        load_balance_loss(None, 4, 2)
-    with pytest.raises(NotImplementedError):
         T.fit_lm(params, cfg, T.LMTrainConfig(), _corpus(), mesh=object(),
                  device="cpu")
+    # uniform routing: each of the top-k slots adds 1 (the JAX value)
+    assert float(load_balance_loss(torch.zeros(2, 8, 4), 4, 2)) == \
+        pytest.approx(float(JLM.load_balance_loss(jnp.zeros((2, 8, 4)), 4,
+                                                  2))) == 2.0

@@ -189,7 +189,8 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.symbolic.chords', 'audax_torch.eval.music_metrics',"
         " 'audax_torch.data.music_dataset', 'audax_torch.data.quality',"
         " 'audax_torch.train.lm', 'audax_torch.train.two_tower_loop',"
-        " 'audax_torch.train.finetune_loop', 'audax_torch.utils.reports'}\n"
+        " 'audax_torch.train.finetune_loop', 'audax_torch.utils.reports',"
+        " 'audax_torch.tools.moe_decode_probe'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow'))\n"
