@@ -1,34 +1,54 @@
 """audax_torch command line (port of ``audax/cli/main.py``'s registry,
-``main``, the Whisper and LM presets, and the music subcommands).
+``main``, the Whisper and LM presets, and its subcommands).
 
+    python -m audax_torch.cli.main transcribe a.wav b.wav --size \\
+        large-v3-turbo --ckpt turbo_int4/ --tokenizer-dir tok/
+    python -m audax_torch.cli.main serve --ckpt turbo_int4/ --kv-quant
+    python -m audax_torch.cli.main convert-hf --hf-dir hf/ --out ckpt/ \\
+        [--kind causal-lm] [--quantize int4]
+    python -m audax_torch.cli.main export-hf --ckpt ckpt/ --out hf/
     python -m audax_torch.cli.main infer-music --wav clip.wav \\
         --tokenizer-dir tok/ --ckpt trainable/ [--lm-ckpt lm/] [--constrained]
-    python -m audax_torch.cli.main train-lm --corpus abcs/ \\
-        --tokenizer-dir tok/ --lm-size qwen3-0.6b --steps 1000
-    python -m audax_torch.cli.main train-music --parquet music.parquet \\
-        --tokenizer-dir tok/ --lm-size qwen3-0.6b [--lm-ckpt lm/best]
 
 Each stage of the JAX command line is a subcommand of one entry point.
-This port registers the music path: the data tools (``make-midi-dataset``,
-``midi2wav``, ``midi2abc``, ``abc2wav``, ``gentokens-raw``,
-``gentokens-bpe``, ``genparquet``, ``data-quality``), the trainers
-(``train-lm``, ``train-music``), the proofs (``music-proof``,
-``finetune-proof``) and ``infer-music``. The other subcommands of the JAX
-command line (preprocess, the classifier trainers and testers, transcribe,
-serve, convert-hf, demo, ...) are not registered yet (ROADMAP A12.2). The
-mesh flags (``--dp``/``--tp``/``--fsdp``) are accepted and raise when set:
-tensor and data parallelism wait for the parallelism slice; so does a
-``--soundfont`` (the SF2 synth is not ported). ``train-lm --moe-experts N``
-pretrains a Qwen3-MoE-family decoder (the ragged impl, the Switch aux
-loss), as the JAX command line does. Two flags are the port's
-own: ``--device`` (default the CUDA card; ``cpu`` runs every kernel's plain
-version) and ``--out`` on ``infer-music`` and ``train-lm`` (a JSON record
-of the run: tokens and text, or the history and seconds).
+This port registers 28 of its 35: the UrbanSound commands
+(``preprocess``, ``sample``, ``train-cnn``, ``test-cnn``,
+``train-transformer``, ``test-transformer``, ``classifier-proof``,
+``verify-parity --kind classifier``), Whisper's (``transcribe``,
+``detect-language``, ``finetune``, ``serve``, ``stream-serve``), weight
+I/O (``convert-hf``, ``export-hf``, ``verify-parity``), the music data
+tools (``make-midi-dataset``, ``midi2wav``, ``midi2abc``, ``abc2wav``,
+``gentokens-raw``, ``gentokens-bpe``, ``genparquet``, ``data-quality``),
+the music trainers (``train-lm``, ``train-music``), the proofs
+(``music-proof``, ``finetune-proof``) and ``infer-music``. Not registered
+yet: the five ``bench-*`` commands (ROADMAP A12.2 b), ``memo2wav`` and
+``demo`` (with the native audio decoder, A6.3).
+
+``convert-hf`` and ``export-hf`` read and write HF directories without
+``transformers`` or ``safetensors`` (``models/hf_files.py``);
+``verify-parity --kind whisper|causal-lm`` imports ``transformers`` as its
+reference and raises ``ImportError`` without it. Checkpoints are the port's
+(``train/checkpoints.py``) or the JAX package's orbax trees (read through
+the orbax reader and carried by ``models/bridge.py``), with the
+``<ckpt>.config.json`` sidecar of true dims that ``convert-hf`` and
+``finetune`` write. Inputs are WAV files: another container raises
+``NotImplementedError`` until the native audio decoder is ported. The mesh
+flags (``--dp``/``--tp``/``--fsdp``, ``finetune --sp``) are accepted and
+raise when set: tensor and data parallelism wait for the parallelism
+slice; so does a ``--soundfont`` (the SF2 synth is not ported).
+``train-lm --moe-experts N`` pretrains a Qwen3-MoE-family decoder (the
+ragged impl, the Switch aux loss), as the JAX command line does. The port's
+own flags: ``--device`` (default the CUDA card; ``cpu`` runs every
+kernel's plain version), ``--out`` on ``infer-music`` and ``train-lm`` (a
+JSON record of the run), and ``--no-plot`` on ``test-*`` and
+``classifier-proof`` (no confusion-matrix PNG, for a host without
+matplotlib).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import json
 import os
@@ -684,6 +704,1116 @@ def cmd_make_midi_dataset(argv) -> int:
     print(make_midi_dataset(_datagen_cfg(num_items=args.num_items,
                                          out_dir=args.out_dir,
                                          soundfont=args.soundfont)))
+    return 0
+
+
+# ------------------------------------------------ the Whisper and classifier
+def _mel_from_args(args):
+    from audax_torch.core.config import MelConfig
+    over = {}
+    if args.mels:
+        over["n_mels"] = args.mels
+    if args.hop:
+        over["hop_length"] = args.hop
+    if args.fft:
+        over["n_fft"] = args.fft
+    return replace(MelConfig.from_env(), **over)
+
+
+def _add_mel_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mels", type=int, default=0)
+    p.add_argument("--hop", type=int, default=0)
+    p.add_argument("--fft", type=int, default=0)
+
+
+def _check_wav(paths) -> None:
+    """Raise before any work where an input is not a WAV file: compressed
+    containers need the native audio decoder, which a later slice of the
+    port brings (ROADMAP A6.3), as the server's 415 says."""
+    from audax_torch.data.audio_io import is_wav
+    for path in paths:
+        with open(path, "rb") as fh:
+            head = fh.read(12)
+        if not is_wav(head):
+            raise NotImplementedError(
+                f"{path}: not a WAV file; compressed containers arrive with "
+                "the native audio decoder of a later slice of the port")
+
+
+def _read_audio(path: str, sample_rate: int):
+    from audax_torch.data.audio_io import read_wav, resample, to_mono
+    x, rate = read_wav(path)
+    x = to_mono(x)
+    if rate != sample_rate:
+        x = resample(x, rate, sample_rate)
+    return x
+
+
+@command("preprocess")
+def cmd_preprocess(argv) -> int:
+    """Featurize UrbanSound8K into one Parquet file (log-mel on the card)."""
+    p = argparse.ArgumentParser(prog="audax_torch preprocess")
+    p.add_argument("--dataset-root", default=None)
+    p.add_argument("--out", default=None)
+    p.add_argument("--limit", type=int, default=0)
+    _add_mel_flags(p)
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+    from audax_torch.core.config import UrbanSoundConfig
+    from audax_torch.data.urbansound import preprocess_to_parquet
+    from audax_torch.frontend.features import LogMelFrontend
+    us = UrbanSoundConfig.from_env()
+    if args.dataset_root:
+        us = replace(us, dataset_root=args.dataset_root)
+    mel = _mel_from_args(args)
+    path = preprocess_to_parquet(us, mel, args.out, limit=args.limit or None,
+                                 frontend=LogMelFrontend(mel,
+                                                         device=args.device))
+    print(path)
+    return 0
+
+
+@command("sample")
+def cmd_sample(argv) -> int:
+    """Waveform + spectrogram PNG for one wav (reference --sample-* flags)."""
+    p = argparse.ArgumentParser(prog="audax_torch sample")
+    p.add_argument("--wav", required=True)
+    p.add_argument("--out", default="sample.png")
+    _add_mel_flags(p)
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+    from audax_torch.core.config import UrbanSoundConfig
+    from audax_torch.eval.plots import plot_sample
+    from audax_torch.frontend.features import LogMelFrontend
+    _check_wav([args.wav])
+    mel_cfg = _mel_from_args(args)
+    x = _read_audio(args.wav, mel_cfg.sample_rate)
+    feats = LogMelFrontend(mel_cfg, device=args.device)(
+        x, mel_first=True).cpu().numpy()
+    plot_sample(x, feats, mel_cfg.sample_rate, mel_cfg.hop_length, args.out,
+                window_s=UrbanSoundConfig.from_env().duration_s,
+                title=os.path.basename(args.wav))
+    print(args.out)
+    return 0
+
+
+def _classifier_model(kind: str, n_mels: int, pool: str = "cls",
+                      max_len: int = 2048):
+    """The classifier of ``kind`` ("cnn" or "transformer") for inputs of
+    ``n_mels`` bands, its config from the environment."""
+    from audax_torch.core.config import (CNNClassifierConfig,
+                                         TransformerClassifierConfig)
+    from audax_torch.models.classifiers import (CNNClassifier,
+                                                TransformerClassifier)
+    if kind == "cnn":
+        return CNNClassifier(CNNClassifierConfig.from_env(), n_mels=n_mels)
+    return TransformerClassifier(
+        replace(TransformerClassifierConfig.from_env(), pool=pool),
+        max_len=max_len, n_mels=n_mels)
+
+
+def _classifier_common(argv, model_kind: str, train: bool) -> int:
+    p = argparse.ArgumentParser(
+        prog=f"audax_torch {'train' if train else 'test'}-{model_kind}")
+    p.add_argument("--parquet", required=True)
+    p.add_argument("--run-name", default=None)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--epochs", type=int, default=0)
+    p.add_argument("--batch-size", type=int, default=0)
+    p.add_argument("--pool", default="cls", choices=["cls", "mean"])
+    _add_device_flag(p)
+    if train:
+        _add_mesh_flags(p)
+    else:
+        p.add_argument("--no-plot", action="store_true",
+                       help="skip the confusion-matrix PNG (matplotlib)")
+    args = p.parse_args(argv)
+    if train:
+        _check_no_mesh(args)
+
+    from audax_torch.core.artifacts import stamped_name
+    from audax_torch.core.config import (ClassifierTrainConfig, MelConfig,
+                                         UrbanSoundConfig)
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.data.urbansound import load_split
+    from audax_torch.eval.metrics import (URBANSOUND8K_CLASSES,
+                                          classification_report,
+                                          plot_confusion_matrix)
+    from audax_torch.train.checkpoints import CheckpointManager
+    from audax_torch.train.loops import evaluate_classifier, fit_classifier
+    from audax_torch.train.metrics_sink import MetricsSink
+    from audax_torch.train.optim import adamw
+    from audax_torch.train.steps import TrainState, make_classifier_steps
+
+    device = resolve_device(args.device)
+    us = UrbanSoundConfig.from_env()
+    tc = ClassifierTrainConfig.from_env()
+    if args.epochs:
+        tc = replace(tc, epochs=args.epochs)
+    if args.batch_size:
+        tc = replace(tc, batch_size=args.batch_size)
+    mel = MelConfig.from_env()
+    if train:
+        data = load_split(args.parquet, us.train_folds)
+        ev = load_split(args.parquet, [us.eval_fold])
+        split = data
+    else:
+        split = load_split(args.parquet, [us.test_fold])
+    model = _classifier_model(model_kind, split["x"].shape[-1], args.pool)
+    run = args.run_name or stamped_name(
+        f"urbansound8k_{model_kind}", n_mels=mel.n_mels,
+        hop_length=mel.hop_length, batch_size=tc.batch_size, epochs=tc.epochs,
+        learning_rate=tc.learning_rate, dropout=model.cfg.dropout)
+    ckpt_dir = args.ckpt_dir or os.path.join("artifacts", "ckpt", run)
+
+    if train:
+        sink = MetricsSink(run, config={"model": model_kind, **tc.asdict()})
+        mgr = CheckpointManager(ckpt_dir, config=tc.asdict())
+        fit_classifier(model, data, ev if len(ev["y"]) else None, tc,
+                       sink=sink, ckpt_manager=mgr, device=device)
+        mgr.close()
+        sink.close()
+        print(ckpt_dir)
+        return 0
+
+    # test: fold 10 from the latest checkpoint
+    import torch
+    model.to(device)
+    state = TrainState.create(model, adamw(1e-3))
+    mgr = CheckpointManager(ckpt_dir)
+    restored = mgr.restore({"params": state.params,
+                            "batch_stats": state.buffers})
+    with torch.no_grad():
+        for group, tensors in (("params", state.params),
+                               ("batch_stats", state.buffers)):
+            for name, t in tensors.items():
+                t.copy_(restored[group][name])
+    _, eval_step = make_classifier_steps(model)
+    m, preds = evaluate_classifier(eval_step, state, split, tc.batch_size,
+                                   10)
+    print(classification_report(split["y"], preds, URBANSOUND8K_CLASSES))
+    if args.no_plot:
+        log.success("test accuracy %.4f", m["accuracy"])
+    else:
+        cm_path = os.path.join("artifacts", f"confusion_matrix_{run}.png")
+        os.makedirs("artifacts", exist_ok=True)
+        plot_confusion_matrix(split["y"], preds, URBANSOUND8K_CLASSES,
+                              cm_path,
+                              title=f"{model_kind} fold-{us.test_fold}")
+        log.success("test accuracy %.4f; confusion matrix -> %s",
+                    m["accuracy"], cm_path)
+    mgr.close()
+    return 0
+
+
+@command("train-cnn")
+def cmd_train_cnn(argv) -> int:
+    return _classifier_common(argv, "cnn", train=True)
+
+
+@command("test-cnn")
+def cmd_test_cnn(argv) -> int:
+    return _classifier_common(argv, "cnn", train=False)
+
+
+@command("train-transformer")
+def cmd_train_transformer(argv) -> int:
+    return _classifier_common(argv, "transformer", train=True)
+
+
+@command("test-transformer")
+def cmd_test_transformer(argv) -> int:
+    return _classifier_common(argv, "transformer", train=False)
+
+
+def _read_sidecar(ckpt: str):
+    path = ckpt.rstrip("/") + ".config.json" if ckpt else ""
+    if path and os.path.exists(path):
+        with open(path) as fh:
+            return json.load(fh)
+    return None
+
+
+def _load_tree(path: str, convert, device):
+    """A checkpoint's tree on ``device``: the port's format as it is, a JAX
+    orbax tree (read on this host's CPU through ``read_orbax``) through
+    ``convert``, the bridge of its layout."""
+    import torch
+
+    from audax_torch.models.whisper import tree_map
+    from audax_torch.train.checkpoints import _is_orbax, load_pytree
+    tree = load_pytree(path)
+    if _is_orbax(os.path.abspath(path)):
+        # float leaves as float32 (exact; bf16 has no numpy dtype), codes
+        # as they are
+        return convert(tree_map(lambda t: t.float() if t.is_floating_point()
+                                else t, tree), device)
+    return tree_map(lambda t: torch.as_tensor(t).to(device), tree)
+
+
+def _load_whisper(size: str, ckpt: str, tokenizer_dir: str, device=None):
+    """(params, cfg, tokenizer) from a size preset, an optional checkpoint
+    (the port's, or a JAX orbax one; with its ``.config.json`` sidecar of
+    true dims, which wins over the preset) and a tokenizer directory
+    (vocab.json/merges.txt; a small ad-hoc vocab when none is given -- the
+    weights are then random). A quantized tree is returned as it is."""
+    import torch
+
+    from audax_torch.core.config import WhisperConfig
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.models.bridge import params_from_numpy
+    from audax_torch.models.whisper import init_whisper_params
+    from audax_torch.symbolic.bpe import BPE, train_bpe
+    from audax_torch.symbolic.tokenizer import WhisperTokenizer
+
+    device = resolve_device(device)
+    cfg = _whisper_preset(size)
+    dims = _read_sidecar(ckpt)
+    if dims is not None:
+        cfg = WhisperConfig(**dims)
+    if tokenizer_dir and not os.path.exists(
+            os.path.join(tokenizer_dir, "vocab.json")):
+        # an explicit path that does not resolve is an error: the toy vocab
+        # would decode a real checkpoint's ids into garbage
+        raise FileNotFoundError(
+            f"--tokenizer-dir {tokenizer_dir!r} has no vocab.json")
+    if tokenizer_dir:
+        bpe = BPE.load(tokenizer_dir)
+        try:
+            # real vocabs: the language count from the vocab size
+            tok = WhisperTokenizer.for_vocab_size(bpe, cfg.vocab_size)
+        except ValueError:
+            tok = WhisperTokenizer(bpe)
+    else:
+        log.warning("no tokenizer dir; building a small ad-hoc BPE vocab")
+        corpus = ["the quick brown fox jumps over the lazy dog"] * 4
+        tok = WhisperTokenizer(train_bpe(corpus, vocab_size=300))
+    if tok.vocab_size != cfg.vocab_size:
+        if dims is not None:
+            # the checkpoint's dims win: a mismatched cfg would shape-fail
+            log.warning("tokenizer vocab %d != checkpoint vocab %d -- pass "
+                        "the tokenizer the model was trained with",
+                        tok.vocab_size, cfg.vocab_size)
+        else:
+            cfg = replace(cfg, vocab_size=tok.vocab_size)
+    if ckpt:
+        params = _load_tree(ckpt, lambda t, d: params_from_numpy(t, cfg, d),
+                            device)
+    else:
+        params = init_whisper_params(cfg, torch.Generator().manual_seed(0),
+                                     device=device)
+    return params, cfg, tok
+
+
+@command("convert-hf")
+def cmd_convert_hf(argv) -> int:
+    """Convert a local HF checkpoint directory (Whisper or a Qwen/LLaMA-
+    family causal LM) into the port's checkpoint and its ``.config.json``
+    sidecar, reading ``config.json`` and the weights (``model.safetensors``,
+    its sharded index, or ``pytorch_model.bin``) without ``transformers``
+    (``models/hf_files.py``). No network: the directory must be local."""
+    p = argparse.ArgumentParser(prog="audax_torch convert-hf")
+    p.add_argument("--hf-dir", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--kind", default="whisper", choices=["whisper",
+                                                         "causal-lm"])
+    p.add_argument("--quantize", nargs="?", const="int8", default=None,
+                   choices=["int8", "int4"],
+                   help="save int8/int4 weight-only serving weights "
+                        "(models/quantize.py; loads straight into the "
+                        "Transcriber and the serving engine)")
+    args = p.parse_args(argv)
+    from audax_torch.models.hf_files import read_config, read_state_dict
+    from audax_torch.train.checkpoints import save_pytree
+
+    hc = read_config(args.hf_dir)
+    sd = read_state_dict(args.hf_dir)
+    if args.kind == "whisper":
+        from audax_torch.models.port import (port_whisper_state_dict,
+                                             whisper_config_from_hf)
+        cfg = whisper_config_from_hf(hc)
+        params = port_whisper_state_dict(sd, cfg, device="cpu")
+    else:
+        from audax_torch.models.causal_lm import port_causal_lm_state_dict
+        params, cfg = port_causal_lm_state_dict(sd, hc, device="cpu")
+    del sd
+    if args.quantize:
+        from audax_torch.models.quantize import quantize_tree
+        params = quantize_tree(params, bits=4 if args.quantize == "int4"
+                               else 8)
+    save_pytree(args.out, params)
+    with open(args.out.rstrip("/") + ".config.json", "w") as fh:
+        json.dump(dataclasses.asdict(cfg), fh, indent=2)
+    log.success("ported %s (%s) -> %s", args.hf_dir, args.kind, args.out)
+    print(args.out)
+    return 0
+
+
+@command("verify-parity")
+def cmd_verify_parity(argv) -> int:
+    """One-command parity harness: port a local HF checkpoint and hold the
+    port's logits against the transformers forward (``--kind whisper``,
+    with ``--audio-dir`` the transcriptions of both stacks too, or
+    ``causal-lm``; both need ``transformers`` as the reference), or run the
+    UrbanSound8K fold protocol against the published accuracies
+    (``--kind classifier``)."""
+    p = argparse.ArgumentParser(prog="audax_torch verify-parity")
+    p.add_argument("--hf-dir", required=True,
+                   help="local HF checkpoint directory")
+    p.add_argument("--kind", default="whisper",
+                   choices=["whisper", "causal-lm", "classifier"])
+    p.add_argument("--audio-dir", default="",
+                   help="wavs to transcribe with both stacks; .txt sidecars "
+                        "(when present) add reference WER columns")
+    p.add_argument("--tokenizer-dir", default="",
+                   help="vocab.json/merges.txt dir (default: --hf-dir)")
+    p.add_argument("--lang", default="en")
+    p.add_argument("--tol", type=float, default=1e-4,
+                   help="max |logit diff| allowed for parity PASS")
+    p.add_argument("--samples", type=int, default=16,
+                   help="max clips from --audio-dir")
+    p.add_argument("--max-tokens", type=int, default=64)
+    p.add_argument("--report", default="",
+                   help="write the full JSON report here")
+    p.add_argument("--data-dir", default="",
+                   help="[classifier] UrbanSound8K root (metadata/ + "
+                        "audio/fold*/); featurized to Parquet first")
+    p.add_argument("--parquet", default="",
+                   help="[classifier] already-featurized Parquet")
+    p.add_argument("--variant", default="v2", choices=["v1", "v2"],
+                   help="[classifier] v1 = 64 mels hop 512 (published "
+                        "64%%), v2 = 128 mels hop 128 (published 68%%)")
+    p.add_argument("--model", default="cnn", choices=["cnn", "transformer"])
+    p.add_argument("--epochs", type=int, default=0)
+    p.add_argument("--batch-size", type=int, default=0)
+    p.add_argument("--limit", type=int, default=0,
+                   help="[classifier] cap clips featurized")
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from audax_torch.core.runtime import resolve_device
+    device = resolve_device(args.device)
+    rng = np.random.default_rng(0)
+
+    def finish(report, ok):
+        if args.report:
+            with open(args.report, "w") as fh:
+                json.dump(report, fh, indent=2)
+        print(json.dumps({k: v for k, v in report.items() if k != "clips"}))
+        return 0 if ok else 1
+
+    if args.kind == "classifier":
+        from audax_torch.core.config import (ClassifierTrainConfig,
+                                             MelConfig, UrbanSoundConfig)
+        from audax_torch.data.urbansound import (load_split,
+                                                 preprocess_to_parquet)
+        from audax_torch.frontend.features import LogMelFrontend
+        from audax_torch.train.loops import (evaluate_classifier,
+                                             fit_classifier)
+        from audax_torch.train.steps import make_classifier_steps
+
+        if not (args.data_dir or args.parquet):
+            p.error("--kind classifier needs --data-dir or --parquet")
+        published = {"v1": 0.64, "v2": 0.68}[args.variant]
+        mel = (MelConfig.urbansound_v1() if args.variant == "v1"
+               else MelConfig.urbansound_v2())
+        us = UrbanSoundConfig.from_env()
+        parquet = args.parquet
+        if not parquet:
+            us = replace(us, dataset_root=args.data_dir)
+            parquet = preprocess_to_parquet(
+                us, mel, limit=args.limit or None,
+                frontend=LogMelFrontend(mel, device=device))
+        tc = ClassifierTrainConfig.from_env()
+        if args.epochs:
+            tc = replace(tc, epochs=args.epochs)
+        if args.batch_size:
+            tc = replace(tc, batch_size=args.batch_size)
+        data = load_split(parquet, us.train_folds)
+        ev = load_split(parquet, [us.eval_fold])
+        test = load_split(parquet, [us.test_fold])
+        model = _classifier_model(args.model, data["x"].shape[-1])
+        state, _ = fit_classifier(model, data, ev if len(ev["y"]) else None,
+                                  tc, device=device)
+        _, eval_step = make_classifier_steps(model)
+        accs = {}
+        for name, split in (("fold9", ev), ("fold10", test)):
+            if len(split["y"]):
+                m, _ = evaluate_classifier(eval_step, state, split,
+                                           tc.batch_size, us.num_classes)
+                accs[f"{name}_accuracy"] = round(float(m["accuracy"]), 4)
+        report = {"kind": "classifier", "variant": args.variant,
+                  "model": args.model, "parquet": parquet,
+                  "train_clips": int(len(data["y"])), **accs,
+                  "published_accuracy": published,
+                  "delta_vs_published": (
+                      round(accs["fold10_accuracy"] - published, 4)
+                      if "fold10_accuracy" in accs else None)}
+        return finish(report, bool(accs))
+
+    from audax_torch.models.hf_files import read_config
+    hc = read_config(args.hf_dir)
+    if args.kind == "causal-lm":
+        # the reference's decoder tower family: port + teacher-forced
+        # logit parity against transformers on the CPU
+        from transformers import AutoModelForCausalLM
+
+        from audax_torch.models.causal_lm import (lm_forward,
+                                                  port_causal_lm_state_dict)
+        from audax_torch.models.hf_files import read_state_dict
+        params, cfg = port_causal_lm_state_dict(
+            read_state_dict(args.hf_dir), hc, device=device)
+        hf = AutoModelForCausalLM.from_pretrained(args.hf_dir).eval()
+        toks = rng.integers(0, cfg.vocab_size, (1, 12)).astype(np.int64)
+        with torch.no_grad():
+            ref = hf(input_ids=torch.from_numpy(toks)).logits.float().numpy()
+            got = lm_forward(params, cfg, torch.from_numpy(toks).to(
+                device)).float().cpu().numpy()
+        diff = float(np.abs(got - ref).max())
+        report = {"hf_dir": args.hf_dir, "kind": "causal-lm",
+                  "logit_max_abs_diff": diff, "logit_tol": args.tol,
+                  "logit_parity": diff <= args.tol}
+        return finish(report, report["logit_parity"])
+
+    from transformers import WhisperForConditionalGeneration
+
+    from audax_torch.models.hf_files import read_state_dict
+    from audax_torch.models.port import (port_whisper_state_dict,
+                                         whisper_config_from_hf)
+    from audax_torch.models.whisper import whisper_forward
+
+    cfg = whisper_config_from_hf(hc)
+    params = port_whisper_state_dict(read_state_dict(args.hf_dir), cfg,
+                                     device=device)
+    hf = WhisperForConditionalGeneration.from_pretrained(args.hf_dir).eval()
+    mel = rng.standard_normal((1, 2 * cfg.n_audio_ctx, cfg.n_mels)) \
+        .astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (1, 8)).astype(np.int64)
+    with torch.no_grad():
+        ref = hf(input_features=torch.from_numpy(mel.transpose(0, 2, 1)),
+                 decoder_input_ids=torch.from_numpy(toks)).logits.numpy()
+        got = whisper_forward(params, cfg, torch.from_numpy(mel).to(device),
+                              torch.from_numpy(toks).to(device)
+                              ).float().cpu().numpy()
+    diff = float(np.abs(got - ref).max())
+    report = {"hf_dir": args.hf_dir, "kind": "whisper",
+              "logit_max_abs_diff": diff, "logit_tol": args.tol,
+              "logit_parity": diff <= args.tol}
+
+    if args.audio_dir:
+        from audax_torch.eval.wer import word_error_rate
+        from audax_torch.frontend.features import pad_or_trim
+        from audax_torch.infer.transcribe import Transcriber
+        from audax_torch.symbolic.bpe import BPE
+        from audax_torch.symbolic.tokenizer import WhisperTokenizer
+
+        bpe = BPE.load(args.tokenizer_dir or args.hf_dir)
+        try:
+            tok = WhisperTokenizer.for_vocab_size(bpe, cfg.vocab_size)
+        except ValueError:
+            tok = WhisperTokenizer(bpe)
+        tr = Transcriber(params, cfg, tok, lang=args.lang,
+                         max_new_tokens=args.max_tokens,
+                         temperature_fallback=False, device=device)
+        rows, ours, theirs, refs = [], [], [], []
+        paths = sorted(glob.glob(os.path.join(args.audio_dir, "*.wav")))
+        for path in paths[: args.samples]:
+            x = _read_audio(path, 16000)
+            our_text = tr.transcribe(x).text.strip()
+            # HF consumes the SAME features (the port's frontend), so the
+            # comparison isolates the model and the decode
+            feats = tr.frontend(pad_or_trim(torch.from_numpy(
+                np.ascontiguousarray(x, np.float32)), tr.chunk_samples)[None])
+            with torch.no_grad():
+                ids = hf.generate(input_features=feats.cpu().transpose(1, 2),
+                                  max_new_tokens=args.max_tokens)
+            hf_text = tok.decode([int(t) for t in ids[0]]).strip()
+            row = {"file": os.path.basename(path), "audax": our_text,
+                   "hf": hf_text}
+            side = os.path.splitext(path)[0] + ".txt"
+            if os.path.exists(side):
+                with open(side) as fh:
+                    row["reference"] = fh.read().strip()
+                refs.append(row["reference"])
+            ours.append(our_text)
+            theirs.append(hf_text)
+            rows.append(row)
+        report["clips"] = rows
+        if rows:
+            report["cross_wer_audax_vs_hf"] = round(
+                word_error_rate(theirs, ours), 4)
+        if refs and len(refs) == len(rows):
+            report["wer_audax_vs_reference"] = round(
+                word_error_rate(refs, ours), 4)
+            report["wer_hf_vs_reference"] = round(
+                word_error_rate(refs, theirs), 4)
+    return finish(report, report["logit_parity"])
+
+
+@command("export-hf")
+def cmd_export_hf(argv) -> int:
+    """Export a checkpoint (the port's, or a JAX orbax one) to a local HF
+    checkpoint directory (config.json + model.safetensors or
+    pytorch_model.bin), the inverse of ``convert-hf``, written without
+    ``transformers``/``safetensors`` (``models/hf_files.py``)."""
+    p = argparse.ArgumentParser(prog="audax_torch export-hf")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--out", required=True, help="output HF directory")
+    p.add_argument("--kind", default="whisper", choices=["whisper",
+                                                         "causal-lm"])
+    p.add_argument("--size", default="", choices=("",) + WHISPER_SIZES,
+                   help="whisper size preset when no <ckpt>.config.json "
+                        "sidecar exists")
+    p.add_argument("--config", default="",
+                   help="explicit config JSON (overrides the sidecar)")
+    p.add_argument("--lora-ckpt", default="",
+                   help="LoRA adapter checkpoint (finetune --lora) to merge "
+                        "into the base weights before export")
+    p.add_argument("--lora-alpha", type=float, default=16.0)
+    p.add_argument("--format", default="safetensors",
+                   choices=["safetensors", "bin"],
+                   help="safetensors (default; tied aliases dropped, "
+                        "from_pretrained re-ties them from the config) or "
+                        "a classic pytorch_model.bin")
+    args = p.parse_args(argv)
+    import torch
+
+    from audax_torch.models.hf_files import write_config, write_state_dict
+
+    cfg_path = args.config or (args.ckpt.rstrip("/") + ".config.json")
+    if args.kind == "whisper":
+        from audax_torch.core.config import WhisperConfig
+        from audax_torch.models.bridge import (lora_from_numpy,
+                                               params_from_numpy)
+        from audax_torch.models.export import (export_whisper_state_dict,
+                                               hf_whisper_config_dict)
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as fh:
+                cfg = WhisperConfig(**json.load(fh))
+        elif args.size:
+            cfg = _whisper_preset(args.size)
+        else:
+            raise FileNotFoundError(
+                f"no config sidecar at {cfg_path}; pass --size or --config")
+        params = _load_tree(args.ckpt,
+                            lambda t, d: params_from_numpy(t, cfg, d), "cpu")
+        lora_convert = lora_from_numpy
+    else:
+        from audax_torch.models.bridge import causal_lm_from_numpy
+        from audax_torch.models.causal_lm import CausalLMConfig
+        from audax_torch.models.export import (export_causal_lm_state_dict,
+                                               hf_causal_lm_config_dict)
+        if not os.path.exists(cfg_path):
+            raise FileNotFoundError(
+                f"no config sidecar at {cfg_path}; pass --config")
+        with open(cfg_path) as fh:
+            cfg = CausalLMConfig(**json.load(fh))
+        params = _load_tree(args.ckpt,
+                            lambda t, d: causal_lm_from_numpy(t, cfg, d),
+                            "cpu")
+        lora_convert = None
+    if args.lora_ckpt:
+        from audax_torch.models.lora import merge_lora
+        if lora_convert is None:
+            raise NotImplementedError("--lora-ckpt merges Whisper adapters "
+                                      "(finetune --lora)")
+        params = merge_lora(params, _load_tree(args.lora_ckpt, lora_convert,
+                                               "cpu"),
+                            alpha=args.lora_alpha)
+    if args.kind == "whisper":
+        # a config smaller than the checkpoint would silently drop layers
+        for tower, want in (("encoder", cfg.encoder_layers),
+                            ("decoder", cfg.decoder_layers)):
+            have = int(params[tower]["layers"]["attn_ln"]["scale"].shape[0])
+            if have != want:
+                raise ValueError(
+                    f"config mismatch: checkpoint has {have} {tower} "
+                    f"layers, config says {want} -- wrong --size/--config?")
+        sd = export_whisper_state_dict(params, cfg)
+        hf_cfg = hf_whisper_config_dict(cfg)
+        tied = ["proj_out.weight"]
+    else:
+        sd = export_causal_lm_state_dict(params, cfg)
+        hf_cfg = hf_causal_lm_config_dict(cfg)
+        tied = ["lm_head.weight"] if cfg.tie_embeddings else []
+    n = len(sd)
+    # bf16 leaves (finetune --dtype bfloat16) are written as float32, as
+    # the JAX command writes them
+    sd = {k: v.float() if v.dtype == torch.bfloat16 else v
+          for k, v in sd.items()}
+    if args.format == "safetensors":
+        for k in tied:
+            sd.pop(k, None)
+    write_config(args.out, hf_cfg)
+    write_state_dict(args.out, sd, format=args.format)
+    log.success("exported %s (%s) -> %s (%d tensors)", args.ckpt, args.kind,
+                args.out, n)
+    print(args.out)
+    return 0
+
+
+def _suppress(spec: str):
+    return spec if spec == "-1" else [int(t) for t in spec.split(",")
+                                      if t.strip()]
+
+
+def _dtype(name: str):
+    import torch
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+@command("transcribe")
+def cmd_transcribe(argv) -> int:
+    """Batch wav -> text with a CSV and sidecars (reference:
+    AB/wavToWhisper.py)."""
+    p = argparse.ArgumentParser(prog="audax_torch transcribe")
+    p.add_argument("wavs", nargs="+")
+    p.add_argument("--size", default="tiny")
+    p.add_argument("--ckpt", default="")
+    p.add_argument("--tokenizer-dir", default="")
+    p.add_argument("--csv", default="transcriptions.csv")
+    p.add_argument("--lang", default="en",
+                   help="language code, or 'auto' for per-file detection")
+    p.add_argument("--timestamps", action="store_true")
+    p.add_argument("--word-timestamps", action="store_true")
+    p.add_argument("--beam-width", type=int, default=1)
+    p.add_argument("--best-of", type=int, default=5)
+    p.add_argument("--patience", type=float, default=None)
+    p.add_argument("--length-penalty", type=float, default=None)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--draft-size", default="")
+    p.add_argument("--draft-ckpt", default="")
+    p.add_argument("--spec-tokens", type=int, default=8)
+    p.add_argument("--no-speech-threshold", type=float, default=0.6)
+    p.add_argument("--initial-prompt", default=None)
+    p.add_argument("--task", default="transcribe",
+                   choices=["transcribe", "translate"])
+    p.add_argument("--seek", action="store_true")
+    p.add_argument("--clip-timestamps", default=None)
+    p.add_argument("--hallucination-silence-threshold", type=float,
+                   default=None)
+    p.add_argument("--vad-threshold-db", type=float, default=None)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--suppress-tokens", default="-1")
+    p.add_argument("--no-suppress-blank", action="store_true")
+    p.add_argument("--output-format", default=None,
+                   choices=["txt", "srt", "vtt", "tsv", "json", "all"])
+    p.add_argument("--output-dir", default=None)
+    p.add_argument("--max-line-width", type=int, default=None)
+    p.add_argument("--max-line-count", type=int, default=None)
+    p.add_argument("--max-words-per-line", type=int, default=None)
+    p.add_argument("--highlight-words", action="store_true")
+    _add_device_flag(p)
+    _add_mesh_flags(p)
+    args = p.parse_args(argv)
+    _check_no_mesh(args)
+    import torch
+
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.transcribe import (Transcriber,
+                                              batch_transcribe_to_csv)
+    paths = []
+    for w in args.wavs:
+        paths.extend(sorted(glob.glob(os.path.join(w, "*.wav")))
+                     if os.path.isdir(w) else [w])
+    _check_wav(paths)
+    device = resolve_device(args.device)
+    params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
+                                     device)
+    draft = None
+    if args.draft_size:
+        dparams, dcfg, _ = _load_whisper(args.draft_size, args.draft_ckpt,
+                                         args.tokenizer_dir, device)
+        if dcfg.vocab_size != cfg.vocab_size:
+            if args.draft_ckpt:
+                # never replace user weights: a random draft runs below the
+                # no-draft baseline
+                print(f"--draft-ckpt vocab {dcfg.vocab_size} does not match "
+                      f"the target's {cfg.vocab_size}; the draft must share "
+                      f"the target token space", file=sys.stderr)
+                return 1
+            from audax_torch.models.whisper import init_whisper_params
+            dcfg = replace(dcfg, vocab_size=cfg.vocab_size)
+            dparams = init_whisper_params(
+                dcfg, torch.Generator().manual_seed(1), device=device)
+        draft = (dparams, dcfg)
+    hal = args.hallucination_silence_threshold
+    want_subs = args.output_format in ("srt", "vtt", "tsv", "json", "all")
+    want_words = (args.highlight_words or args.max_line_width is not None
+                  or args.max_words_per_line is not None)
+    tr = Transcriber(params, cfg, tok, lang=args.lang, task=args.task,
+                     timestamps=args.timestamps or args.seek
+                     or hal is not None or want_subs,
+                     seek_by_timestamps=args.seek,
+                     clip_timestamps=args.clip_timestamps,
+                     hallucination_silence_threshold=hal,
+                     word_timestamps=args.word_timestamps
+                     or hal is not None or want_words,
+                     beam_width=args.beam_width,
+                     best_of=args.best_of, patience=args.patience,
+                     length_penalty=args.length_penalty,
+                     draft=draft, spec_tokens=args.spec_tokens,
+                     no_speech_threshold=(args.no_speech_threshold
+                                          if args.no_speech_threshold > 0
+                                          else None),
+                     suppress_tokens=_suppress(args.suppress_tokens),
+                     suppress_blank=not args.no_suppress_blank,
+                     vad_threshold_db=args.vad_threshold_db,
+                     initial_prompt=args.initial_prompt,
+                     dtype=_dtype(args.dtype), device=device)
+    rows = batch_transcribe_to_csv(
+        tr, paths, args.csv, output_format=args.output_format,
+        output_dir=args.output_dir, verbose=args.verbose,
+        writer_opts={"max_line_width": args.max_line_width,
+                     "max_line_count": args.max_line_count,
+                     "max_words_per_line": args.max_words_per_line,
+                     "highlight_words": args.highlight_words})
+    for r in rows:
+        print(f"{r['file']}: {r.get('text', '')[:80]}")
+    print(args.csv)
+    return 0
+
+
+@command("detect-language")
+def cmd_detect_language(argv) -> int:
+    """The spoken language of WAV files (whisper detect_language over the
+    first 30 s window)."""
+    p = argparse.ArgumentParser(prog="audax_torch detect-language")
+    p.add_argument("files", nargs="+")
+    p.add_argument("--size", default="tiny")
+    p.add_argument("--ckpt", default="")
+    p.add_argument("--tokenizer-dir", default="")
+    p.add_argument("--top", type=int, default=5)
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.transcribe import Transcriber
+    _check_wav(args.files)
+    device = resolve_device(args.device)
+    params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
+                                     device)
+    tr = Transcriber(params, cfg, tok, device=device)
+    sr = tr.frontend.cfg.sample_rate
+    rc = 0
+    for path in args.files:
+        try:
+            best, probs = tr.detect(_read_audio(path, sr))
+            top = sorted(probs.items(), key=lambda kv: -kv[1])[: args.top]
+            print(f"{os.path.basename(path)}: {best}  "
+                  + "  ".join(f"{c}={q:.3f}" for c, q in top))
+        except Exception as e:  # noqa: BLE001 - per-file tolerance
+            print(f"{os.path.basename(path)}: error: {e}", file=sys.stderr)
+            rc = 1
+    return rc
+
+
+@command("finetune")
+def cmd_finetune(argv) -> int:
+    """Whisper fine-tune on wavs + transcripts with WER tracking
+    (reference: AB/fineTune.py); writes the serving weights and their
+    ``.config.json`` sidecar, which ``transcribe --ckpt`` and
+    ``export-hf`` read."""
+    p = argparse.ArgumentParser(prog="audax_torch finetune")
+    p.add_argument("--audio-dir", default="")
+    p.add_argument("--transcript", default=None)
+    p.add_argument("--labels-csv", default=None)
+    p.add_argument("--size", default="tiny")
+    p.add_argument("--ckpt", default="")
+    p.add_argument("--tokenizer-dir", default="")
+    p.add_argument("--out", default="artifacts/whisper_ft")
+    p.add_argument("--steps", type=int, default=0)
+    p.add_argument("--batch-size", type=int, default=0)
+    p.add_argument("--lora-rank", type=int, default=-1)
+    p.add_argument("--accum-steps", type=int, default=0)
+    p.add_argument("--dtype", default="", choices=["", "float32", "bfloat16"])
+    p.add_argument("--compare-csv", default="")
+    p.add_argument("--ema-decay", type=float, default=0.0)
+    p.add_argument("--spec-augment", action="store_true")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel axis size (a device mesh: "
+                        "arrives with the parallelism slice)")
+    p.add_argument("--chunk-seconds", type=float, default=30.0)
+    p.add_argument("--eval-suppress-tokens", default="-1")
+    p.add_argument("--moment-dtype", default="",
+                   choices=["", "float32", "bfloat16", "int8"])
+    _add_device_flag(p)
+    _add_mesh_flags(p)
+    args = p.parse_args(argv)
+    if args.sp > 1 and (args.tp > 1 or args.fsdp):
+        p.error("--sp composes with --dp only (not --tp/--fsdp)")
+    if args.sp > 1:
+        raise NotImplementedError("--sp (a device mesh) arrives with the "
+                                  "parallelism slice of the port")
+    _check_no_mesh(args)
+
+    from audax_torch.core.config import FineTuneConfig, MelConfig
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.transcribe import Transcriber
+    from audax_torch.train.checkpoints import save_pytree
+    from audax_torch.train.finetune_loop import (build_speech_dataset,
+                                                 finetune_whisper)
+    from audax_torch.train.metrics_sink import MetricsSink
+
+    device = resolve_device(args.device)
+    ft = FineTuneConfig.from_env()
+    if args.steps:
+        ft = replace(ft, max_steps=args.steps)
+    if args.batch_size:
+        ft = replace(ft, batch_size=args.batch_size)
+    if args.lora_rank >= 0:
+        ft = replace(ft, lora_rank=args.lora_rank)
+    if args.accum_steps:
+        ft = replace(ft, accum_steps=args.accum_steps)
+    if args.dtype:
+        ft = replace(ft, dtype=args.dtype)
+    if args.ema_decay:
+        ft = replace(ft, ema_decay=args.ema_decay)
+    if args.spec_augment:
+        ft = replace(ft, spec_augment=True)
+    if args.moment_dtype:
+        ft = replace(ft, moment_dtype=args.moment_dtype)
+
+    params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
+                                     device)
+    mel_cfg = MelConfig.whisper(cfg.n_mels)
+    if args.chunk_seconds != 30.0:
+        ctx = int(args.chunk_seconds * mel_cfg.sample_rate) \
+            // mel_cfg.hop_length // 2
+        cfg = replace(cfg, n_audio_ctx=ctx)
+        enc = dict(params["encoder"])
+        if enc["pos"].shape[0] < ctx:
+            raise ValueError(f"--chunk-seconds {args.chunk_seconds} needs "
+                             f"{ctx} encoder positions; checkpoint has "
+                             f"{enc['pos'].shape[0]}")
+        enc["pos"] = enc["pos"][:ctx]
+        params = {**params, "encoder": enc}
+    examples = build_speech_dataset(args.audio_dir, tok, mel_cfg,
+                                    transcript=args.transcript,
+                                    labels_csv=args.labels_csv,
+                                    chunk_seconds=args.chunk_seconds)
+    if not examples:
+        print("no training examples", file=sys.stderr)
+        return 1
+
+    before = None
+    if args.compare_csv:
+        tr0 = Transcriber(params, cfg, tok, chunk_seconds=args.chunk_seconds,
+                          device=device)
+        before = {ex["file"]: tr0.transcribe(ex["audio"]).text
+                  for ex in examples}
+    sink = MetricsSink("whisper_ft", config=ft.asdict())
+    state, history = finetune_whisper(
+        params, cfg, tok, examples, ft, mel_cfg=mel_cfg, sink=sink,
+        eval_examples=examples,
+        eval_suppress_tokens=_suppress(args.eval_suppress_tokens),
+        device=device)
+    sink.close()
+    serving = history["best_params"] or state.model_params()
+    save_pytree(args.out, serving)
+    # the dims sidecar: a --chunk-seconds run carries a shortened
+    # n_audio_ctx, which transcribe --ckpt and export-hf read
+    with open(args.out.rstrip("/") + ".config.json", "w") as fh:
+        json.dump(dataclasses.asdict(cfg), fh, indent=2)
+    log.success("saved fine-tuned params -> %s (best WER %.3f)", args.out,
+                history["best_wer"])
+    if args.compare_csv:
+        import csv
+        tr1 = Transcriber(serving, cfg, tok, chunk_seconds=args.chunk_seconds,
+                          device=device)
+        with open(args.compare_csv, "w", newline="") as fh:
+            w = csv.DictWriter(fh, fieldnames=["file", "target", "previous",
+                                               "finetuned"])
+            w.writeheader()
+            for ex in examples:
+                w.writerow({"file": ex["file"], "target": ex["text"],
+                            "previous": before.get(ex["file"], ""),
+                            "finetuned": tr1.transcribe(ex["audio"]).text})
+        print(args.compare_csv)
+    print(args.out)
+    return 0
+
+
+@command("classifier-proof")
+def cmd_classifier_proof(argv) -> int:
+    """The UrbanSound fold protocol end to end on synthetic 10-class audio:
+    datagen -> Parquet (log-mel on the card) -> train folds 1-8 / eval 9 ->
+    test fold 10 -> metrics JSON and a confusion-matrix PNG."""
+    p = argparse.ArgumentParser(prog="audax_torch classifier-proof")
+    p.add_argument("--out", default="results")
+    p.add_argument("--per-fold", type=int, default=20)
+    p.add_argument("--epochs", type=int, default=12)
+    p.add_argument("--model", default="transformer",
+                   choices=["transformer", "cnn"])
+    p.add_argument("--work-dir", default="artifacts/synth_urbansound")
+    p.add_argument("--no-plot", action="store_true",
+                   help="skip the confusion-matrix PNG (matplotlib)")
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+
+    from audax_torch.core.config import (ClassifierTrainConfig,
+                                         CNNClassifierConfig, MelConfig,
+                                         TransformerClassifierConfig,
+                                         UrbanSoundConfig)
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.data.synth import SYNTH_CLASSES, make_synthetic_urbansound
+    from audax_torch.data.urbansound import load_split, preprocess_to_parquet
+    from audax_torch.eval.metrics import plot_confusion_matrix
+    from audax_torch.frontend.features import LogMelFrontend
+    from audax_torch.models.classifiers import (CNNClassifier,
+                                                TransformerClassifier)
+    from audax_torch.train.loops import evaluate_classifier, fit_classifier
+    from audax_torch.train.steps import make_classifier_steps
+
+    device = resolve_device(args.device)
+    root = make_synthetic_urbansound(args.work_dir, per_fold=args.per_fold)
+    us = UrbanSoundConfig(dataset_root=root,
+                          parquet_dir=os.path.join(args.work_dir, "pq"))
+    mel = MelConfig.urbansound_v2()
+    parquet = preprocess_to_parquet(us, mel, frontend=LogMelFrontend(
+        mel, device=device))
+    tc = ClassifierTrainConfig(batch_size=16, epochs=args.epochs,
+                               learning_rate=3e-4)
+    data = load_split(parquet, list(us.train_folds))
+    ev = load_split(parquet, [us.eval_fold])
+    if args.model == "transformer":
+        model = TransformerClassifier(TransformerClassifierConfig(),
+                                      n_mels=mel.n_mels)
+    else:
+        model = CNNClassifier(CNNClassifierConfig(), n_mels=mel.n_mels)
+    state, history = fit_classifier(model, data, ev, tc, num_classes=10,
+                                    device=device)
+    test = load_split(parquet, [us.test_fold])
+    _, eval_step = make_classifier_steps(model)
+    m, preds = evaluate_classifier(eval_step, state, test, tc.batch_size, 10)
+    os.makedirs(args.out, exist_ok=True)
+    if not args.no_plot:
+        plot_confusion_matrix(
+            test["y"], preds, list(SYNTH_CLASSES),
+            os.path.join(args.out, "synthetic_urbansound_confusion.png"),
+            title=f"{args.model} fold-10 (synthetic)")
+    metrics = {"model": args.model, "per_fold": args.per_fold,
+               "epochs": args.epochs,
+               "test_accuracy": round(float(m["accuracy"]), 4),
+               "test_f1_macro": round(float(m["f1_macro"]), 4),
+               "eval_accuracy_last": round(
+                   float(history["eval"][-1]["accuracy"]), 4)
+               if history["eval"] else None,
+               "classes": list(SYNTH_CLASSES)}
+    with open(os.path.join(args.out, "synthetic_urbansound_metrics.json"),
+              "w") as fh:
+        json.dump(metrics, fh, indent=2)
+    print(json.dumps(metrics))
+    return 0 if m["accuracy"] >= 0.5 else 1
+
+
+def _serve_until_stopped(server, on_stop) -> None:
+    """``serve_forever`` until the server is shut down (from another
+    thread) or interrupted, then ``on_stop()`` and close the socket."""
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        on_stop()
+        server.server_close()
+
+
+@command("stream-serve")
+def cmd_stream_serve(argv) -> int:
+    """Live streaming-ASR WebSocket server (RFC 6455 over the fixed-slot
+    batched StreamingTranscriber)."""
+    p = argparse.ArgumentParser(prog="audax_torch stream-serve")
+    p.add_argument("--size", default="base")
+    p.add_argument("--ckpt", default="")
+    p.add_argument("--tokenizer-dir", default="")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8765)
+    p.add_argument("--batch-slots", type=int, default=8)
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the startup warm-up (first request pays it)")
+    p.add_argument("--vad-threshold-db", type=float, default=None)
+    _add_device_flag(p)
+    _add_mesh_flags(p)
+    args = p.parse_args(argv)
+    _check_no_mesh(args)
+
+    from audax_torch.cli import stream_server
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.streaming import StreamingTranscriber
+
+    device = resolve_device(args.device)
+    params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
+                                     device)
+    st = StreamingTranscriber(params, cfg, tok, batch_slots=args.batch_slots,
+                              dtype=_dtype(args.dtype), device=device,
+                              vad_threshold_db=args.vad_threshold_db)
+    if not args.no_warmup:
+        log.info("warming up...")
+        st.warmup()
+    server = stream_server.serve_streaming(st, host=args.host, port=args.port)
+    log.success("streaming ASR on ws://%s:%d/ws?stream=<id>", args.host,
+                server.server_address[1])
+    _serve_until_stopped(server, lambda: None)
+    return 0
+
+
+@command("serve")
+def cmd_serve(argv) -> int:
+    """REST transcription server: every in-flight request is a slot of one
+    continuous-batching engine (infer/continuous.py, cli/http_server.py)."""
+    p = argparse.ArgumentParser(prog="audax_torch serve")
+    p.add_argument("--size", default="base")
+    p.add_argument("--ckpt", default="")
+    p.add_argument("--tokenizer-dir", default="")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--slots", type=int, default=8)
+    p.add_argument("--lang", default="en")
+    p.add_argument("--max-tokens", type=int, default=224)
+    p.add_argument("--steps-per-sync", type=int, default=64)
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--kv-quant", action="store_true",
+                   help="int8 KV caches (serving capacity tier)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the startup warm-up (first request pays it)")
+    p.add_argument("--max-inflight", type=int, default=0,
+                   help="admission cap before 429 (default 8x slots)")
+    p.add_argument("--suppress-blank", action="store_true")
+    p.add_argument("--suppress-tokens", default="-1")
+    _add_device_flag(p)
+    _add_mesh_flags(p)
+    args = p.parse_args(argv)
+    _check_no_mesh(args)
+
+    from audax_torch.cli import http_server
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.continuous import ContinuousBatcher
+
+    device = resolve_device(args.device)
+    params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
+                                     device)
+    cb = ContinuousBatcher(
+        params, cfg, tok, slots=args.slots, lang=args.lang,
+        max_new_tokens=args.max_tokens, steps_per_sync=args.steps_per_sync,
+        dtype=_dtype(args.dtype), kv_quant=args.kv_quant,
+        suppress_blank=args.suppress_blank,
+        suppress_tokens=_suppress(args.suppress_tokens), device=device)
+    del params
+    if not args.no_warmup:
+        log.info("warming up (one full admit of every slot)...")
+        cb.warmup()
+    server = http_server.serve_http(cb, host=args.host, port=args.port,
+                                    max_inflight=args.max_inflight or None)
+    log.success("POST audio to http://%s:%d/v1/audio/transcriptions",
+                args.host, server.server_address[1])
+    _serve_until_stopped(server, server.scheduler.shutdown)
     return 0
 
 

@@ -59,12 +59,13 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from audax_torch.core.runtime import DeviceLike, resolve_device
+from audax_torch.models.hf_files import config_value
 from audax_torch.models.quantize import embed_logits, embed_lookup
 from audax_torch.models.whisper import (_remat_body, dense, layer_params,
                                         tree_map)
@@ -77,7 +78,8 @@ Params = Dict[str, Any]
 __all__ = ["CausalLMConfig", "init_causal_lm", "rms_norm",
            "lm_forward", "lm_logits", "embed_tokens", "forward_with_embeds",
            "LMKVCache", "init_lm_cache", "lm_decode_step",
-           "resize_embeddings", "port_causal_lm_from_hf",
+           "resize_embeddings", "port_causal_lm_state_dict",
+           "port_causal_lm_from_hf",
            "load_balance_loss"]
 
 
@@ -619,83 +621,107 @@ def resize_embeddings(params: Params, cfg: CausalLMConfig, new_vocab: int,
 
 
 # ------------------------------------------------------------------ port --
-def port_causal_lm_from_hf(hf_model, *, device: DeviceLike = None
-                           ) -> Tuple[Params, CausalLMConfig]:
-    """Port an in-memory HF Qwen2/Qwen3/Qwen3-MoE/LLaMA-style ForCausalLM
-    (no network): (params on ``device``, config). MoE covers the
-    homogeneous every-layer-sparse stacks the released Qwen3-MoE
-    checkpoints use (layers are stacked, so a mixed dense/sparse stack
-    raises ``NotImplementedError``)."""
+def port_causal_lm_state_dict(sd: Mapping, hc, *, device: DeviceLike = None
+                              ) -> Tuple[Params, CausalLMConfig]:
+    """Port an HF Qwen2/Qwen3/Qwen3-MoE/LLaMA-style ForCausalLM state dict
+    (tensors of any float dtype, e.g. ``models/hf_files.py:
+    read_state_dict`` of a local directory) with its config (the HF object
+    or the ``config.json`` dict): (params, float32 on ``device``, config).
+    MoE covers the homogeneous every-layer-sparse stacks the released
+    Qwen3-MoE checkpoints use (layers are stacked, so a mixed dense/sparse
+    stack raises ``NotImplementedError``). Each tensor is read once, when
+    its stacked leaf is built."""
     device = resolve_device(device)
-    hc = hf_model.config
-    sd = {k: v.detach().to("cpu", torch.float32)
-          for k, v in hf_model.state_dict().items()}
+    keys = list(sd)
+
+    def t(name: str) -> torch.Tensor:
+        v = sd[name]
+        v = v.detach() if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+        return v.to(device, torch.float32)
+
     # a tied lm_head still appears in state_dict: trust the config flag
-    tie = bool(getattr(hc, "tie_word_embeddings", "lm_head.weight" not in sd))
-    moe = any(k.endswith("mlp.experts.0.gate_proj.weight") for k in sd)
-    if moe and (list(getattr(hc, "mlp_only_layers", []) or [])
-                or int(getattr(hc, "decoder_sparse_step", 1)) != 1):
+    tie = bool(config_value(hc, "tie_word_embeddings",
+                       "lm_head.weight" not in keys))
+    moe = any(k.endswith("mlp.experts.0.gate_proj.weight") for k in keys)
+    if moe and (list(config_value(hc, "mlp_only_layers", []) or [])
+                or int(config_value(hc, "decoder_sparse_step", 1) or 1) != 1):
         raise NotImplementedError("mixed dense/sparse layer stacks are not "
                                   "supported (stacked homogeneous layers "
                                   "only)")
+    rope = config_value(hc, "rope_theta", None)
+    if rope is None:
+        rope = (config_value(hc, "rope_parameters", None) or {}).get(
+            "rope_theta", 1e6)
+    heads = config_value(hc, "num_attention_heads")
     cfg = CausalLMConfig(
-        vocab_size=hc.vocab_size, d_model=hc.hidden_size,
-        layers=hc.num_hidden_layers, heads=hc.num_attention_heads,
-        kv_heads=getattr(hc, "num_key_value_heads", hc.num_attention_heads),
+        vocab_size=config_value(hc, "vocab_size"),
+        d_model=config_value(hc, "hidden_size"),
+        layers=config_value(hc, "num_hidden_layers"), heads=heads,
+        kv_heads=config_value(hc, "num_key_value_heads", heads) or heads,
         # Qwen3 decouples head_dim from hidden_size // heads
-        head_dim=int(getattr(hc, "head_dim", 0) or 0),
-        ffn_dim=hc.intermediate_size,
-        rope_theta=float(getattr(hc, "rope_theta", 1e6)),
-        rms_eps=float(getattr(hc, "rms_norm_eps", 1e-6)),
-        qkv_bias=any(k.endswith("self_attn.q_proj.bias") for k in sd),
-        qk_norm=any(k.endswith("self_attn.q_norm.weight") for k in sd),
+        head_dim=int(config_value(hc, "head_dim", 0) or 0),
+        ffn_dim=config_value(hc, "intermediate_size"),
+        rope_theta=float(rope),
+        rms_eps=float(config_value(hc, "rms_norm_eps", 1e-6)),
+        qkv_bias=any(k.endswith("self_attn.q_proj.bias") for k in keys),
+        qk_norm=any(k.endswith("self_attn.q_norm.weight") for k in keys),
         tie_embeddings=tie,
-        max_seq=getattr(hc, "max_position_embeddings", 2048),
-        num_experts=int(getattr(hc, "num_experts", 0)) if moe else 0,
-        experts_per_tok=(int(getattr(hc, "num_experts_per_tok", 0))
+        max_seq=config_value(hc, "max_position_embeddings", 2048),
+        num_experts=int(config_value(hc, "num_experts", 0)) if moe else 0,
+        experts_per_tok=(int(config_value(hc, "num_experts_per_tok", 0))
                          if moe else 0),
-        moe_ffn_dim=int(getattr(hc, "moe_intermediate_size", 0)) if moe else 0,
-        norm_topk_prob=bool(getattr(hc, "norm_topk_prob", True)))
+        moe_ffn_dim=(int(config_value(hc, "moe_intermediate_size", 0))
+                     if moe else 0),
+        norm_topk_prob=bool(config_value(hc, "norm_topk_prob", True)))
 
-    def lin(prefix):
-        p = {"kernel": sd[f"{prefix}.weight"].t()}
-        if f"{prefix}.bias" in sd:
-            p["bias"] = sd[f"{prefix}.bias"]
+    def stack(fn):
+        return torch.stack([fn(i) for i in range(cfg.layers)])
+
+    def lin(proj):
+        p = {"kernel": stack(lambda i: t(
+            f"model.layers.{i}.{proj}.weight").t())}
+        if f"model.layers.0.{proj}.bias" in sd:
+            p["bias"] = stack(lambda i: t(f"model.layers.{i}.{proj}.bias"))
         return p
 
-    layers = []
-    for i in range(cfg.layers):
-        pr = f"model.layers.{i}"
-        layer = {
-            "attn_norm": {"scale": sd[f"{pr}.input_layernorm.weight"]},
-            "q": lin(f"{pr}.self_attn.q_proj"),
-            "k": lin(f"{pr}.self_attn.k_proj"),
-            "v": lin(f"{pr}.self_attn.v_proj"),
-            "o": lin(f"{pr}.self_attn.o_proj"),
-            "mlp_norm": {"scale":
-                         sd[f"{pr}.post_attention_layernorm.weight"]},
-        }
-        if moe:
-            layer["router"] = {"kernel": sd[f"{pr}.mlp.gate.weight"].t()}
-            layer["experts"] = {
-                name: {"kernel": torch.stack([
-                    sd[f"{pr}.mlp.experts.{e}.{proj}.weight"].t()
-                    for e in range(cfg.num_experts)])}
-                for name, proj in (("gate", "gate_proj"), ("up", "up_proj"),
-                                   ("down", "down_proj"))}
-        else:
-            layer.update(gate=lin(f"{pr}.mlp.gate_proj"),
-                         up=lin(f"{pr}.mlp.up_proj"),
-                         down=lin(f"{pr}.mlp.down_proj"))
-        if cfg.qk_norm:
-            layer["q_norm"] = {"scale": sd[f"{pr}.self_attn.q_norm.weight"]}
-            layer["k_norm"] = {"scale": sd[f"{pr}.self_attn.k_norm.weight"]}
-        layers.append(layer)
+    def scale(name):
+        return {"scale": stack(lambda i: t(f"model.layers.{i}.{name}"))}
+
+    layers: Params = {
+        "attn_norm": scale("input_layernorm.weight"),
+        "q": lin("self_attn.q_proj"), "k": lin("self_attn.k_proj"),
+        "v": lin("self_attn.v_proj"), "o": lin("self_attn.o_proj"),
+        "mlp_norm": scale("post_attention_layernorm.weight"),
+    }
+    if moe:
+        layers["router"] = {"kernel": stack(lambda i: t(
+            f"model.layers.{i}.mlp.gate.weight").t())}
+        layers["experts"] = {
+            name: {"kernel": stack(lambda i, proj=proj: torch.stack([
+                t(f"model.layers.{i}.mlp.experts.{e}.{proj}.weight").t()
+                for e in range(cfg.num_experts)]))}
+            for name, proj in (("gate", "gate_proj"), ("up", "up_proj"),
+                               ("down", "down_proj"))}
+    else:
+        layers.update(gate=lin("mlp.gate_proj"), up=lin("mlp.up_proj"),
+                      down=lin("mlp.down_proj"))
+    if cfg.qk_norm:
+        layers["q_norm"] = scale("self_attn.q_norm.weight")
+        layers["k_norm"] = scale("self_attn.k_norm.weight")
     params: Params = {
-        "embed": sd["model.embed_tokens.weight"],
-        "layers": tree_map(lambda *xs: torch.stack(xs), *layers),
-        "norm": {"scale": sd["model.norm.weight"]},
+        "embed": t("model.embed_tokens.weight"),
+        "layers": layers,
+        "norm": {"scale": t("model.norm.weight")},
     }
     if not tie:
-        params["lm_head"] = {"kernel": sd["lm_head.weight"].t()}
-    return tree_map(lambda t: t.contiguous().to(device), params), cfg
+        params["lm_head"] = {"kernel": t("lm_head.weight").t()}
+    return tree_map(lambda x: x.contiguous(), params), cfg
+
+
+def port_causal_lm_from_hf(hf_model, *, device: DeviceLike = None
+                           ) -> Tuple[Params, CausalLMConfig]:
+    """Port an in-memory HF Qwen2/Qwen3/Qwen3-MoE/LLaMA-style ForCausalLM
+    (no network): ``port_causal_lm_state_dict`` of its state dict and
+    config."""
+    return port_causal_lm_state_dict(hf_model.state_dict(), hf_model.config,
+                                     device=device)

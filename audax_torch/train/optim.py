@@ -27,6 +27,12 @@ and blow up their step. The state's ``mu`` is then ``{"q": tree of int8
 [blocks, 256], "s": tree of float32 [blocks]}``, as in JAX. The update
 arithmetic is float32 in every mode and parameters stay float32 master
 weights.
+
+The update owns its state, as JAX's donated one: it writes the moments in
+place and works one leaf at a time, so the float32 temporaries alive at
+once are of one leaf's size (the clip's scale is applied to each gradient
+leaf as it is read). The results are the bits of the whole-tree chain; the
+caller's gradients are left as they were.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from audax_torch.models.whisper import tree_leaves, tree_map, tree_unflatten
 __all__ = ["adamw", "seq2seq_schedule", "warmup_cosine_decay_schedule",
            "scale_by_adam_lp", "adamw_lp", "GradientTransformation",
            "ScaleByAdamLPState", "apply_updates", "global_norm",
-           "clip_by_global_norm", "moment_bytes_per_param"]
+           "clip_scale", "clip_by_global_norm", "moment_bytes_per_param"]
 
 Schedule = Callable[[int], float]
 #: storage dtype of v (and of m but for "int8") per moments mode
@@ -163,44 +169,73 @@ def scale_by_adam_lp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return ScaleByAdamLPState(0, mu, tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(grads, state: ScaleByAdamLPState, params=None):
+    def leaf_update(g, m, n, c1, c2, mq=None):
+        """One leaf's Adam direction (a new tensor in g's dtype); m and n,
+        the leaf's stored moments, are written in place (for "int8" m is
+        the pair (codes, scales) ``mq``). Every float32 temporary is of
+        this leaf's size."""
+        gs = g.float()
+        if int8:
+            mf = [_q8_decode(mq[0], mq[1], g.shape)]
+        else:
+            mf = [m if m.dtype == torch.float32 else m.float()]
+        nf = [n if n.dtype == torch.float32 else n.float()]
+        # m = b1 m + (1 - b1) g ;  n = b2 n + (1 - b2) g^2: the operations
+        # and their order of the whole-tree chain, one leaf at a time
+        torch._foreach_mul_(mf, b1)
+        torch._foreach_add_(mf, torch._foreach_mul([gs], 1.0 - b1))
+        sq = torch._foreach_mul([gs], [gs])
+        torch._foreach_mul_(sq, 1.0 - b2)
+        torch._foreach_mul_(nf, b2)
+        torch._foreach_add_(nf, sq)
+        del sq, gs
+        den = torch._foreach_div(nf, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        out = torch._foreach_div(mf, c1)
+        torch._foreach_div_(out, den)
+        del den
+        if int8:
+            q, s = _q8_encode(mf[0])
+            mq[0].copy_(q)
+            mq[1].copy_(s)
+        elif mf[0] is not m:
+            m.copy_(mf[0])
+        if nf[0] is not n:
+            n.copy_(nf[0])
+        return out[0].to(g.dtype)
+
+    @torch.no_grad()
+    def update(grads, state: ScaleByAdamLPState, params=None, *,
+               grad_scale=None):
+        """The directions as a new tree; the state's moments are updated
+        in place (the update owns its state, as JAX's donated one) and
+        returned in a state whose count is one more. ``grad_scale``, a
+        pair of float32 scalar tensors (den, num), scales each gradient
+        leaf by ``g / den * num`` as it is read (the clip, fused); the
+        caller's gradients are left as they were."""
         del params
         count = state.count + 1
         c1 = float(_f32(1) - np.power(_f32(b1), _f32(count)))
         c2 = float(_f32(1) - np.power(_f32(b2), _f32(count)))
-        gs = [g.float() for g in tree_leaves(grads)]
+        gl = tree_leaves(grads)
+        nl = tree_leaves(state.nu)
         if int8:
-            ms = [_q8_decode(q, s, g.shape) for q, s, g in zip(
-                tree_leaves(state.mu["q"]), tree_leaves(state.mu["s"]), gs)]
+            ml = list(zip(tree_leaves(state.mu["q"]),
+                          tree_leaves(state.mu["s"])))
         else:
-            ms = [m.float() for m in tree_leaves(state.mu)]
-        ns = [n.float() for n in tree_leaves(state.nu)]
-        # m = b1 m + (1 - b1) g ;  n = b2 n + (1 - b2) g^2. Each result is
-        # a new tensor (the state's are not written), then updated in place:
-        # the same operations in the same order, with fewer temporaries of
-        # the parameters' size alive at once
-        ms = torch._foreach_mul(ms, b1)
-        torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b1))
-        sq = torch._foreach_mul(gs, gs)
-        torch._foreach_mul_(sq, 1.0 - b2)
-        ns = torch._foreach_mul(ns, b2)
-        torch._foreach_add_(ns, sq)
-        del sq
-        den = torch._foreach_div(ns, c2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, eps)
-        out = torch._foreach_div(ms, c1)
-        torch._foreach_div_(out, den)
-        del den
-        out = [o.to(g.dtype) for o, g in zip(out, tree_leaves(grads))]
-        if int8:
-            codes = [_q8_encode(m) for m in ms]
-            mu = {"q": tree_unflatten(state.mu["q"], [c[0] for c in codes]),
-                  "s": tree_unflatten(state.mu["s"], [c[1] for c in codes])}
-        else:
-            mu = tree_unflatten(state.mu, [m.to(store) for m in ms])
-        nu = tree_unflatten(state.nu, [n.to(store) for n in ns])
-        return tree_unflatten(grads, out), ScaleByAdamLPState(count, mu, nu)
+            ml = tree_leaves(state.mu)
+        out = []
+        for g, m, n in zip(gl, ml, nl):
+            if grad_scale is not None:
+                g = g / grad_scale[0] * grad_scale[1]
+            if int8:
+                out.append(leaf_update(g, None, n, c1, c2, mq=m))
+            else:
+                out.append(leaf_update(g, m, n, c1, c2))
+            del g
+        return tree_unflatten(grads, out), ScaleByAdamLPState(
+            count, state.mu, state.nu)
 
     return GradientTransformation(init, update)
 
@@ -211,15 +246,23 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """``optax.clip_by_global_norm``: every leaf times ``max_norm / norm``
-    where the global norm is at least ``max_norm``, decided on the device
-    (no host read of the norm)."""
+def clip_scale(grads, max_norm: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(den, num), float32 scalar tensors: ``optax.clip_by_global_norm``
+    scales every leaf by ``g / den * num``, (norm, max_norm) where the
+    global norm is at least ``max_norm``, else (1, 1); decided on the
+    device (no host read of the norm)."""
     norm = global_norm(grads)
     keep = norm < max_norm
     one = torch.ones_like(norm)
-    den = torch.where(keep, one, norm)
-    num = torch.where(keep, one, torch.full_like(norm, max_norm))
+    return (torch.where(keep, one, norm),
+            torch.where(keep, one, torch.full_like(norm, max_norm)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """``optax.clip_by_global_norm``: every leaf times ``max_norm / norm``
+    where the global norm is at least ``max_norm`` (a new tree)."""
+    den, num = clip_scale(grads, max_norm)
     return tree_map(lambda g: g / den * num, grads)
 
 
@@ -237,14 +280,13 @@ def adamw_lp(learning_rate: Union[float, Schedule],
 
     @torch.no_grad()
     def update(grads, state: ScaleByAdamLPState, params):
-        if grad_clip:
-            grads = clip_by_global_norm(grads, grad_clip)
+        scale = clip_scale(grads, grad_clip) if grad_clip else None
         lr = float(_f32(schedule(state.count)))
-        direction, state = adam.update(grads, state)
-        ds = tree_leaves(direction)
-        torch._foreach_add_(ds, [p.detach() for p in tree_leaves(params)],
-                            alpha=weight_decay)
-        torch._foreach_mul_(ds, -lr)
+        direction, state = adam.update(grads, state, grad_scale=scale)
+        # leaf by leaf, so the update adds no tree-sized temporary
+        for d, p in zip(tree_leaves(direction), tree_leaves(params)):
+            torch._foreach_add_([d], [p.detach()], alpha=weight_decay)
+            torch._foreach_mul_([d], -lr)
         return direction, state
 
     return GradientTransformation(adam.init, update)

@@ -22,7 +22,9 @@ kernel-experiment tools and the four attention tools, then the music
 training path (``fit_two_tower`` and ``train-lm`` at Qwen3-0.6B width) and
 the mixture-of-experts paths of the causal LM at Qwen3-30B-A3B's widths
 (the two-tower served with an int4 MoE decoder, ``fit_lm`` with the aux
-loss, the MoE decode probe), in eighteen phases,
+loss, the MoE decode probe), and last the Whisper and classifier commands
+of the command line (weight I/O at Whisper-large-v3-turbo width), in
+twenty phases,
 one output line each (the kernel and path phases print one line per
 case):
 
@@ -151,7 +153,13 @@ case):
      plain version too; timed in CUDA graphs from HBM (128 slices cycled)
      and L2-warm beside the plain version and cuBLAS on the dequantized
      slice;
-  3b. precision -- a bf16 ``dense`` at [12000, 5120] x [5120, 1280] within
+  3b. K9's trap -- a child process (``sys.executable``) launches K9 with a
+     device index equal to the stack length, once on each body (the
+     tensor-core one through ``int4_matmul``, the split-half one through
+     its wrapper): each child must exit non-zero with a CUDA error in its
+     stderr (the trap ends its CUDA context); then one in-range call here
+     against the plain version;
+  3c. precision -- a bf16 ``dense`` at [12000, 5120] x [5120, 1280] within
      one bf16 step of the float64 product (float32 accumulation);
   4. transcription -- random Whisper-tiny weights from a seeded generator,
      a tokenizer with the published 51,865-token layout, two requests (30 s
@@ -312,8 +320,9 @@ case):
      over six 10 s clips on four slots, 64 tokens at t = 0 (K1, K2, K3,
      K9 on their card bodies, no plain version, K9 401 a decode step);
  9e. moe training -- ``fit_lm`` at the same widths, 2 of 48 layers, batch 4
-     x 256, 2 steps, bf16 over float32 masters with bf16 Adam moments
-     (the originals kept on the host), ``aux_loss_coef`` 0.001, ragged
+     x 256, 2 steps, bf16 over float32 masters with float32 Adam moments
+     and the originals on the card (its peak memory printed),
+     ``aux_loss_coef`` 0.001, ragged
      (the wgmma K2, K7, K8 four times each); one layer's forward dense
      against ragged on the card within ``TOL_F32``; one float32 step of a
      1-layer copy at batch 1 x 64 with the aux term, card against CPU
@@ -323,6 +332,25 @@ case):
      2048, E 128, k 8, f 768, n 1 and 4, bf16): every arm beside its
      selected-bytes floor; K9's tensor-core body serves the int4 arm, no
      plain version runs;
+ 9g. cli -- the Whisper and classifier commands through
+     ``audax_torch.cli.main.main([...])`` in a temporary working
+     directory: ``export-hf`` -> ``convert-hf`` at Whisper-large-v3-turbo
+     (random weights; every tensor bit-equal, and with ``--quantize int4``
+     equal to ``quantize_tree``) and Qwen3-0.6B (``--kind causal-lm``), with
+     the seconds and GB/s of each; ``transcribe --size large-v3-turbo
+     --ckpt <int4>`` on two 30 s WAVs (K1, K2, K3, K9; its CSV text equal to
+     an in-process ``Transcriber`` on the same checkpoint and tokenizer);
+     ``serve --kv-quant`` on the same checkpoint, two concurrent requests
+     answered with HTTP 200 and the text of a ``Transcriber`` at t = 0 with
+     int8 KV (K1, K2, K3's int8 arm, K9); ``finetune --size base`` (3 steps,
+     full and LoRA rank 8: K1, K2, K7, K8) read back by ``export-hf``
+     (both) and ``transcribe --ckpt`` (the full one); ``detect-language``
+     and ``stream-serve`` (one WebSocket window, bf16: the wgmma K2) at
+     Whisper-base;
+     ``preprocess``, ``train-*``/``test-* --no-plot`` (2 epochs),
+     ``classifier-proof --no-plot`` and ``verify-parity --kind classifier``
+     on 200 synthetic UrbanSound clips (the card machine has no
+     matplotlib); every command with its counts from 0, no plain version;
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
      ``csrc/flash_bwd.cu``, count the CUDA-core launches, the last two timed
@@ -2075,6 +2103,71 @@ def k9_index_cases(torch):
                                        bound=bound)
         del q, s, deq
     return out
+
+
+#: the child of ``k9_trap_cases``: K9 launched with a device index equal to
+#: the stack length L; the kernel's trap must end the child with a CUDA
+#: error (argv: the body, "mma" or "split")
+K9_TRAP_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[2])
+import torch
+from audax_torch.core.runtime import resolve_device
+from audax_torch.ops import int4_matmul as i4
+resolve_device("cuda")
+g = torch.Generator(device="cuda").manual_seed(5)
+q, s = i4.quantize_int4(torch.randn(4, 2048, 768, device="cuda",
+                                    generator=g) / 2048 ** 0.5)
+x = torch.randn(1, 2048, device="cuda", generator=g)
+bad = torch.tensor(q.shape[0], device="cuda")
+call = i4.int4_matmul if sys.argv[1] == "mma" else i4.int4_matmul_cuda
+y = call(x, q, s, layer=bad)
+torch.cuda.synchronize()
+print("finished", float(y.abs().max()))
+"""
+
+
+def k9_trap_cases(torch):
+    """K9's out-of-range trap (``csrc/int4_select.cuh``): a child process
+    (``sys.executable``) launches each body, the tensor-core one through
+    ``int4_matmul`` and the split-half one through its wrapper, with a
+    device index equal to L. A trap ends the CUDA context, so it runs
+    apart: the parent requires each child to exit non-zero with a CUDA
+    error in its stderr (a child that exits 0 fails the run), then makes
+    one in-range K9 call here and holds it against its plain version."""
+    from audax_torch.ops import int4_matmul as i4
+
+    for body in ("mma", "split"):
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", K9_TRAP_CHILD, body,
+                                str(ROOT)], capture_output=True, text=True,
+                               timeout=600, cwd=str(ROOT))
+        err = [ln for ln in child.stderr.splitlines()
+               if "cuda error" in ln.lower()]
+        print(f"[k9_trap] {body} body, device index L = 4 into a stack of "
+              f"4: child exit {child.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; {err[-1] if err else ''}"
+              f"{child.stdout.strip()}", flush=True)
+        if child.returncode == 0 or not err:
+            raise AssertionError(f"K9 {body} body with an index out of range:"
+                                 f" exit {child.returncode}, stderr "
+                                 f"{child.stderr[-2000:]}")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, s = i4.quantize_int4(torch.randn(4, 2048, 768, device="cuda",
+                                        generator=g) / 2048 ** 0.5)
+    x = torch.randn(1, 2048, device="cuda", generator=g)
+    idx = torch.tensor(3, device="cuda")
+    before = i4.int4_matmul_mma_cuda.launches
+    got = i4.int4_matmul(x, q, s, layer=idx)
+    ref = i4.int4_matmul_plain(x, q, s, layer=idx)
+    e = float((got - ref).abs().max()) / float(ref.abs().max())
+    print(f"[k9_trap] after the children: in-range K9 (index 3 of 4, "
+          f"{i4.int4_matmul_mma_cuda.launches - before} launch of the "
+          f"tensor-core body) max rel err {e:.3e} (tol "
+          f"{TOL_INT4_F32:.0e})", flush=True)
+    if not (e <= TOL_INT4_F32
+            and i4.int4_matmul_mma_cuda.launches - before == 1):
+        raise AssertionError(f"K9 after the trap children: {e:.3e}")
 
 
 def precision_check(torch):
@@ -4639,7 +4732,7 @@ def moe_train_phase(torch, rng, smi):
     tc = LMTrainConfig(warmup_steps=1, max_steps=2, batch_size=4,
                        seq_len=256, eval_every=0, eval_windows=0,
                        dtype="bfloat16", aux_loss_coef=0.001,
-                       moment_dtype="bfloat16")
+                       moment_dtype="float32")
 
     # ---- dense against ragged: one layer's forward on the card -------------
     layer0 = layer_params(params["layers"], 0)
@@ -4688,8 +4781,8 @@ def moe_train_phase(torch, rng, smi):
                 tag="moe")
     del res, one, layer0, ragged, dense, x
 
-    # ---- fit_lm: the originals on the host, the trained copy on the card --
-    params = tree_map(lambda t: t.cpu(), params)
+    # ---- fit_lm: the originals and the trained copy on the card, float32
+    # Adam moments (the update works leaf by leaf, in place) -------------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sync()
@@ -4705,7 +4798,8 @@ def moe_train_phase(torch, rng, smi):
     got = {k: counts[k]["cuda"] for k in kernels}
     print(f"[moe] fit_lm Qwen3-30B-A3B widths ({cfg.layers} of 48 layers, "
           f"ragged, aux 0.001; 2 steps at batch 4 x 256, bf16 over float32 "
-          f"masters, bf16 Adam moments): {fit_s:.2f} s, peak memory "
+          f"masters, float32 Adam moments, the originals on the card): "
+          f"{fit_s:.2f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, history "
           f"{hist}; launches {got} (expected {want}) ({smi})", flush=True)
     if got != want or not np.isfinite(hist[-1]["loss"]):
@@ -4740,6 +4834,427 @@ def moe_probe_phase(torch):
         raise AssertionError(f"moe probe: K9 {k9}, split-half "
                              f"{counts['int4_matmul']['cuda']}, plain {plain}")
     return rep
+
+
+#: the cli phase's commands and the kernels each must launch
+CLI_TRANSCRIBE_KERNELS = TRANSCRIBE_KERNELS + ("int4_matmul_mma",)
+CLI_TRAIN_KERNELS = ("log_mel_overlap_fft", "flash_forward_tf32x3",
+                     "flash_backward_dq_tf32x3", "flash_backward_dkv_tf32x3")
+CLI_STREAM_KERNELS = ("log_mel_overlap_fft", "flash_forward_wgmma",
+                      "decode_attention_stacked", "decode_attention_sm90")
+#: synthetic UrbanSound clips a fold for the classifier commands (cut from
+#: UrbanSound8K's ~873) and their epochs (cut from 20)
+CLI_PER_FOLD = 20
+CLI_EPOCHS = "2"
+
+
+def _same_tree(torch, label, got, want):
+    from audax_torch.models.whisper import tree_leaves
+    g, w = (dict(zip(_paths(t), tree_leaves(t))) for t in (got, want))
+    bad = sorted(set(g) ^ set(w)) or [
+        k for k in w if not (g[k].dtype == w[k].dtype
+                             and torch.equal(g[k], w[k].to(g[k].device)))]
+    print(f"[cli] {label}: {len(w)} tensors, "
+          f"{'bit-equal' if not bad else 'DIFFER at ' + ', '.join(bad[:5])}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"{label}: {bad[:10]}")
+
+
+def _run_cli(torch, argv, kernels, label):
+    """``cli.main(argv)`` with the counts set to 0 just before it and read
+    just after; (seconds, counts). Fails on a non-zero exit or where a
+    kernel of ``kernels`` did not launch or a plain version ran."""
+    from audax_torch.cli import main as cli
+    from audax_torch.ops import launch_counts, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if rc != 0:
+        raise AssertionError(f"{label}: exit {rc}")
+    _check_launches(counts, kernels, label)
+    _no_core_flash(counts, label)
+    ran = {k: c["cuda"] for k, c in counts.items() if c["cuda"]}
+    print(f"[cli] {label}: {seconds:.2f} s; launches {ran}", flush=True)
+    return seconds, counts
+
+
+def _serve_cli(torch, module, attr, argv, label, client, kernels):
+    """A server command on a thread (its server taken from ``module.attr``
+    as it is made), ``client(server)`` against it, then shut down; the
+    counts of the run from 0, and what ``client`` returned."""
+    import threading
+
+    from audax_torch.cli import main as cli
+    from audax_torch.ops import launch_counts, reset_launches
+
+    box, real = {}, getattr(module, attr)
+
+    def capture(*a, **k):
+        box["server"] = real(*a, **k)
+        return box["server"]
+    setattr(module, attr, capture)
+    torch.cuda.synchronize()
+    reset_launches()
+    thread = threading.Thread(target=lambda: box.setdefault(
+        "rc", cli.main(argv)), daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        while "server" not in box:
+            if not thread.is_alive() or time.perf_counter() - t0 > 600:
+                raise AssertionError(f"{label}: the server did not start "
+                                     f"({box})")
+            time.sleep(0.05)
+        up = time.perf_counter() - t0
+        out = client(box["server"])
+    finally:
+        setattr(module, attr, real)
+        if "server" in box:
+            box["server"].shutdown()
+        thread.join(timeout=120)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if thread.is_alive() or box.get("rc") != 0:
+        raise AssertionError(f"{label}: exit {box.get('rc')}, thread alive "
+                             f"{thread.is_alive()}")
+    _check_launches(counts, kernels, label)
+    ran = {k: c["cuda"] for k, c in counts.items() if c["cuda"]}
+    print(f"[cli] {label}: up (model load + warmup) in {up:.2f} s; "
+          f"launches {ran}", flush=True)
+    return counts, out
+
+
+def cli_phase(torch, rng, smi):
+    """The Whisper and classifier commands through
+    ``audax_torch.cli.main.main([...])`` in-process, on the card (a
+    temporary working directory): ``export-hf`` -> ``convert-hf`` round
+    trips at Whisper-large-v3-turbo and Qwen3-0.6B width (bit-exact; with
+    ``--quantize int4`` equal to ``quantize_tree``), ``transcribe`` and
+    ``serve --kv-quant`` on the int4 checkpoint (held against in-process
+    Transcribers), ``finetune`` (full and LoRA) at Whisper-base read back
+    by ``export-hf`` (and the full one by ``transcribe --ckpt``),
+    ``detect-language`` and ``stream-serve`` at Whisper-base, and the
+    classifier commands on a
+    synthetic UrbanSound stand-in (no PNG: the card machine has no
+    matplotlib). Returns the launch counts of every command."""
+    import csv
+    import dataclasses
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from audax_torch.cli import http_server, stream_server
+    from audax_torch.core.config import WhisperConfig
+    from audax_torch.data.audio_io import read_wav, write_wav
+    from audax_torch.data.synth import make_synthetic_urbansound
+    from audax_torch.infer.transcribe import Transcriber
+    from audax_torch.models import causal_lm as CL
+    from audax_torch.models import whisper as W
+    from audax_torch.models.quantize import quantize_tree
+    from audax_torch.symbolic.bpe import BPE
+    from audax_torch.symbolic.tokenizer import WhisperTokenizer
+    from audax_torch.train.checkpoints import load_pytree, save_pytree
+
+    t_phase = time.perf_counter()
+    all_counts = []
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            all_counts += _cli_round_trips(torch, d, smi, W, CL, WhisperConfig,
+                                           save_pytree, load_pytree,
+                                           quantize_tree, dataclasses)
+            tokdir = os.path.join(d, "tok")
+            _tokenizer(51866).bpe.save(tokdir)
+            wavs = []
+            for i in range(2):
+                wavs.append(os.path.join(d, f"clip{i}.wav"))
+                write_wav(wavs[-1], _speechlike(rng, 30.0,
+                                                pitch=110.0 + 20 * i), 16000)
+            cfg = WhisperConfig.large_v3_turbo()
+            q4 = os.path.join(d, "turbo_int4")
+            tok = WhisperTokenizer.for_vocab_size(BPE.load(tokdir),
+                                                  cfg.vocab_size)
+            qparams = W.tree_map(lambda t: t.cuda(), load_pytree(q4))
+
+            # ---- transcribe, against an in-process Transcriber -----------
+            out_csv = os.path.join(d, "turbo.csv")
+            secs, counts = _run_cli(
+                torch, ["transcribe", *wavs, "--size", "large-v3-turbo",
+                        "--ckpt", q4, "--tokenizer-dir", tokdir,
+                        "--csv", out_csv], CLI_TRANSCRIBE_KERNELS,
+                "transcribe --size large-v3-turbo --ckpt <int4> (two 30 s "
+                "WAVs)")
+            all_counts.append(counts)
+            with open(out_csv, newline="") as fh:
+                rows = {r["file"]: r for r in csv.DictReader(fh)}
+            tr = Transcriber(qparams, cfg, tok, best_of=5, device="cuda")
+            for w in wavs:
+                res = tr.transcribe(read_wav(w)[0])
+                row = rows[os.path.basename(w)]
+                print(f"[cli] transcribe {os.path.basename(w)}: CLI RTF "
+                      f"{row['rtf']}, in-process RTF {res.rtf:.5f}, "
+                      f"{len(res.text)} characters, temperatures "
+                      f"{[s.temperature for s in res.segments]}, equal text "
+                      f"{row['text'] == res.text} ({smi})", flush=True)
+                if "error" in row and row["error"] or row["text"] != res.text:
+                    raise AssertionError(f"transcribe {w}: CSV {row!r} vs "
+                                         f"{res.text!r}")
+            print(f"[cli] transcribe: {secs:.2f} s for 60 s of audio, RTF "
+                  f"{secs / 60.0:.5f} with model load ({smi})", flush=True)
+
+            # ---- serve --kv-quant, against a Transcriber at t = 0 --------
+            bodies = []
+            for w in wavs:
+                with open(w, "rb") as fh:
+                    bodies.append(fh.read())
+
+            def clients(server):
+                port = server.server_address[1]
+                res, lock = {}, threading.Lock()
+
+                def one(i):
+                    r = _post_wav(port, bodies[i])
+                    with lock:
+                        res[i] = r
+                threads = [threading.Thread(target=one, args=(i,))
+                           for i in range(len(bodies))]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                return res, time.perf_counter() - t0
+
+            counts, (answers, wall) = _serve_cli(
+                torch, http_server, "serve_http",
+                ["serve", "--size", "large-v3-turbo", "--ckpt", q4,
+                 "--tokenizer-dir", tokdir, "--kv-quant", "--port", "0",
+                 "--slots", "4", "--dtype", "float32", "--suppress-blank"],
+                "serve --kv-quant --ckpt <int4>", clients, SERVE_KERNELS)
+            all_counts.append(counts)
+            ref = Transcriber(qparams, cfg, tok, kv_quant=True,
+                              temperature_fallback=False,
+                              no_speech_threshold=None, device="cuda")
+            for i, w in enumerate(wavs):
+                code, body, sec = answers.get(i, (None, {}, 0.0))
+                want = ref.transcribe(read_wav(w)[0]).text
+                print(f"[cli] serve request {i}: HTTP {code} in {sec:.2f} s "
+                      f"({len(body.get('tokens', []))} tokens), equal to "
+                      f"the t = 0 Transcriber {body.get('text') == want} "
+                      f"({smi})", flush=True)
+                if code != 200 or body.get("text") != want:
+                    raise AssertionError(f"serve request {i}: {code} "
+                                         f"{body!r} vs {want!r}")
+            print(f"[cli] serve: two concurrent 30 s requests answered in "
+                  f"{wall:.2f} s ({smi})", flush=True)
+            del qparams, tr, ref
+            torch.cuda.empty_cache()
+            all_counts += _cli_base(torch, d, rng, wavs, tokdir, smi,
+                                    stream_server)
+            all_counts += _cli_classifiers(torch, d, smi,
+                                           make_synthetic_urbansound)
+        finally:
+            os.chdir(home)
+    print(f"[cli] phase wall {time.perf_counter() - t_phase:.2f} s ({smi})",
+          flush=True)
+    return all_counts
+
+
+def _cli_round_trips(torch, d, smi, W, CL, WhisperConfig, save_pytree,
+                     load_pytree, quantize_tree, dataclasses):
+    """``export-hf`` -> ``convert-hf`` at Whisper-large-v3-turbo (float and
+    ``--quantize int4``) and Qwen3-0.6B (``--kind causal-lm``), host I/O
+    only; the int4 checkpoint stays in ``d`` for the commands after."""
+    import os
+
+    from audax_torch.cli import main as cli
+
+    def gb(path):
+        return sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(path) for f in fs) / 1e9
+
+    for kind, make in (
+            ("whisper", lambda: (WhisperConfig.large_v3_turbo(), lambda c: (
+                W.init_whisper_params(c, torch.Generator().manual_seed(22),
+                                      device="cpu")))),
+            ("causal-lm", lambda: (CL.CausalLMConfig.qwen3_0_6b(), lambda c: (
+                CL.init_causal_lm(c, torch.Generator().manual_seed(23),
+                                  device="cpu"))))):
+        cfg, init = make()
+        t0 = time.perf_counter()
+        params = init(cfg)
+        name = "turbo" if kind == "whisper" else "qwen3"
+        ckpt, hf = os.path.join(d, name), os.path.join(d, name + "_hf")
+        save_pytree(ckpt, params)
+        with open(ckpt + ".config.json", "w") as fh:
+            json.dump(dataclasses.asdict(cfg), fh)
+        setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if cli.main(["export-hf", "--ckpt", ckpt, "--out", hf,
+                     "--kind", kind]) != 0:
+            raise AssertionError(f"export-hf {kind}")
+        t_exp = time.perf_counter() - t0
+        back = os.path.join(d, name + "_back")
+        t0 = time.perf_counter()
+        if cli.main(["convert-hf", "--hf-dir", hf, "--out", back,
+                     "--kind", kind]) != 0:
+            raise AssertionError(f"convert-hf {kind}")
+        t_conv = time.perf_counter() - t0
+        size = gb(hf)
+        n = sum(t.numel() for t in W.tree_leaves(params))
+        print(f"[cli] {kind} {name} ({n / 1e6:.1f} M params): checkpoint "
+              f"made in {setup:.2f} s; export-hf {t_exp:.2f} s "
+              f"({gb(ckpt):.3f} GB read, {size:.3f} GB of "
+              f"safetensors written, {size / t_exp:.3f} GB/s); convert-hf "
+              f"{t_conv:.2f} s ({size / t_conv:.3f} GB/s of safetensors read)"
+              f" ({smi})", flush=True)
+        _same_tree(torch, f"{kind} export-hf -> convert-hf round trip",
+                   load_pytree(back), params)
+        if kind == "whisper":
+            q4 = os.path.join(d, "turbo_int4")
+            t0 = time.perf_counter()
+            if cli.main(["convert-hf", "--hf-dir", hf, "--out", q4,
+                         "--quantize", "int4"]) != 0:
+                raise AssertionError("convert-hf --quantize int4")
+            print(f"[cli] convert-hf --quantize int4: "
+                  f"{time.perf_counter() - t0:.2f} s, {gb(q4):.3f} GB "
+                  f"({smi})", flush=True)
+            _same_tree(torch, "convert-hf --quantize int4 vs quantize_tree",
+                       load_pytree(q4), quantize_tree(params, bits=4))
+        del params
+    return []
+
+
+def _cli_base(torch, d, rng, wavs, tokdir, smi, stream_server):
+    """``finetune`` (full and LoRA), ``transcribe --ckpt``, ``export-hf``,
+    ``detect-language`` and ``stream-serve`` at Whisper-base."""
+    import os
+    import struct
+
+    from audax_torch.cli.stream_server import OP_TEXT, read_frame
+    from audax_torch.data.audio_io import read_wav, write_wav
+
+    out = []
+    ftdir = os.path.join(d, "ft_audio")
+    os.makedirs(ftdir)
+    for i in range(4):
+        write_wav(os.path.join(ftdir, f"u{i}.wav"),
+                  _speechlike(rng, 8.0, pitch=100.0 + 15 * i), 16000)
+    for rank in ("0", "8"):
+        ck = os.path.join(d, f"base_ft_r{rank}")
+        label = f"finetune --size base --lora-rank {rank} (3 steps, B 4)"
+        _, counts = _run_cli(torch, [
+            "finetune", "--audio-dir", ftdir, "--transcript",
+            "hello world how are you", "--size", "base", "--tokenizer-dir",
+            tokdir, "--out", ck, "--steps", "3", "--batch-size", "4",
+            "--lora-rank", rank], CLI_TRAIN_KERNELS, label)
+        out.append(counts)
+        if rank == "0":
+            csv_path = os.path.join(d, "back.csv")
+            _, counts = _run_cli(torch, [
+                "transcribe", os.path.join(ftdir, "u0.wav"), "--size",
+                "base", "--ckpt", ck, "--tokenizer-dir", tokdir, "--csv",
+                csv_path], TRANSCRIBE_KERNELS,
+                "transcribe --ckpt <full finetune>")
+            out.append(counts)
+            with open(csv_path) as fh:
+                if "error" in fh.readline():
+                    raise AssertionError(f"transcribe --ckpt {ck}: error "
+                                         "row")
+        _, counts = _run_cli(torch, ["export-hf", "--ckpt", ck, "--out",
+                                     ck + "_hf"], (),
+                             f"export-hf --ckpt <finetune r{rank}>")
+        out.append(counts)
+    _, counts = _run_cli(torch, ["detect-language", wavs[0], "--size",
+                                 "base", "--tokenizer-dir", tokdir],
+                         TRANSCRIBE_KERNELS, "detect-language --size base")
+    out.append(counts)
+
+    audio = read_wav(wavs[1])[0].astype("<f4")
+
+    def client(server):
+        sock = _ws_connect(server.server_address[1], "cli")
+        t0 = time.perf_counter()
+        _ws_send(sock, 0x2, audio.tobytes())
+        _ws_send(sock, OP_TEXT, b"flush")
+        op, payload = read_frame(sock)
+        seg = json.loads(payload)
+        _ws_send(sock, 0x8, struct.pack(">H", 1000))
+        sock.close()
+        return op, seg, time.perf_counter() - t0
+
+    counts, (op, seg, sec) = _serve_cli(
+        torch, stream_server, "serve_streaming",
+        ["stream-serve", "--size", "base", "--tokenizer-dir", tokdir,
+         "--port", "0", "--batch-slots", "2"], "stream-serve --size base",
+        client, CLI_STREAM_KERNELS)
+    out.append(counts)
+    print(f"[cli] stream-serve: one 30 s window answered in {sec:.2f} s: "
+          f"{ {k: seg.get(k) for k in ('stream', 'index', 'audio_seconds')} }"
+          f" ({smi})", flush=True)
+    if op != OP_TEXT or seg.get("stream") != "cli" or seg.get("index") != 0:
+        raise AssertionError(f"stream-serve: {op} {seg}")
+    return out
+
+
+def _cli_classifiers(torch, d, smi, make_synthetic_urbansound):
+    """``preprocess``, ``train-*``/``test-*`` (``--no-plot``),
+    ``classifier-proof --no-plot`` and ``verify-parity --kind classifier``
+    on a synthetic UrbanSound stand-in at the reference widths."""
+    import os
+
+    out = []
+    root = make_synthetic_urbansound(os.path.join(d, "us8k"),
+                                     per_fold=CLI_PER_FOLD)
+    pq = os.path.join(d, "us8k.parquet")
+    _, counts = _run_cli(torch, ["preprocess", "--dataset-root", root,
+                                 "--out", pq], ("log_mel_overlap_fft",),
+                         f"preprocess ({10 * CLI_PER_FOLD} clips, "
+                         "UrbanSound v2)")
+    out.append(counts)
+    # the classifiers' attention is plain products (as flax's): no kernel
+    for kind in ("cnn", "transformer"):
+        ck = os.path.join(d, f"ck_{kind}")
+        _, counts = _run_cli(torch, [f"train-{kind}", "--parquet", pq,
+                                     "--ckpt-dir", ck, "--run-name", kind,
+                                     "--epochs", CLI_EPOCHS], (),
+                             f"train-{kind} ({CLI_EPOCHS} epochs)")
+        out.append(counts)
+        _, counts = _run_cli(torch, [f"test-{kind}", "--parquet", pq,
+                                     "--ckpt-dir", ck, "--run-name", kind,
+                                     "--no-plot"], (),
+                             f"test-{kind} --no-plot")
+        out.append(counts)
+    _, counts = _run_cli(torch, ["classifier-proof", "--out",
+                                 os.path.join(d, "proof"), "--work-dir",
+                                 os.path.join(d, "proof_work"), "--no-plot"],
+                         ("log_mel_overlap_fft",),
+                         "classifier-proof --no-plot (200 clips, 12 epochs)")
+    out.append(counts)
+    with open(os.path.join(d, "proof",
+                           "synthetic_urbansound_metrics.json")) as fh:
+        print(f"[cli] classifier-proof: {json.load(fh)}", flush=True)
+    report = os.path.join(d, "parity.json")
+    _, counts = _run_cli(torch, ["verify-parity", "--hf-dir", "unused",
+                                 "--kind", "classifier", "--data-dir", root,
+                                 "--model", "cnn", "--epochs", CLI_EPOCHS,
+                                 "--report", report],
+                         ("log_mel_overlap_fft",),
+                         "verify-parity --kind classifier")
+    out.append(counts)
+    with open(report) as fh:
+        print(f"[cli] verify-parity --kind classifier: {json.load(fh)} "
+              f"({smi})", flush=True)
+    return out
 
 
 def _paths(tree, prefix=""):
@@ -4912,6 +5427,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kern = kernel_phase(torch, rng)
     k9_index_cases(torch)
+    k9_trap_cases(torch)
     precision_check(torch)
     transcribe = main_path_phase(torch, rng)
     decoders = decoders_phase(torch, rng, smi)
@@ -4926,13 +5442,14 @@ def main() -> int:
     moe_serve = moe_serve_phase(torch, np.random.default_rng(21), smi)
     moe_train = moe_train_phase(torch, np.random.default_rng(22), smi)
     moe_probe_phase(torch)
+    cli = cli_phase(torch, np.random.default_rng(23), smi)
     # launches of the main paths, each counted from 0 just before it; the
     # tools' kernels from the probes phase; K2/K7/K8 and P1 from the
     # attention tools as well
     launches = {k: sum(p[k]["cuda"] for p in (transcribe, decoders, train,
                                               serve, k6, classify, *music,
                                               *music_train, *moe_serve,
-                                              *moe_train))
+                                              *moe_train, *cli))
                 for k in transcribe}
     launches.update(probes)
     for k in FLASH_BF16 + ("flash_forward_fold",):

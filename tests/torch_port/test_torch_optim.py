@@ -136,3 +136,103 @@ def test_ema_update_matches_numpy_oracle():
         tree = new
     for got, want in zip(tree_leaves(ema), tree_leaves(ref)):
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+# ---- the leaf-by-leaf, in-place update against the whole-tree chain -------
+def _whole_tree_adamw(lr, moments, grad_clip, wd=1e-4, b1=0.9, b2=0.999,
+                      eps=1e-8):
+    """The earlier ``adamw_lp`` update, every operation over the whole tree
+    at once into new tensors (the state is not written): the formula the
+    leaf-by-leaf update must reproduce bit for bit."""
+    store = O._STORE[moments]
+    int8 = moments == "int8"
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        if grad_clip:
+            grads = O.clip_by_global_norm(grads, grad_clip)
+        rate = float(np.float32(lr(state.count)))
+        count = state.count + 1
+        c1 = float(np.float32(1) - np.power(np.float32(b1), np.float32(count)))
+        c2 = float(np.float32(1) - np.power(np.float32(b2), np.float32(count)))
+        gs = [g.float() for g in tree_leaves(grads)]
+        if int8:
+            ms = [O._q8_decode(q, s, g.shape) for q, s, g in zip(
+                tree_leaves(state.mu["q"]), tree_leaves(state.mu["s"]), gs)]
+        else:
+            ms = [m.float() for m in tree_leaves(state.mu)]
+        ns = [n.float() for n in tree_leaves(state.nu)]
+        ms = torch._foreach_mul(ms, b1)
+        torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b1))
+        sq = torch._foreach_mul(gs, gs)
+        torch._foreach_mul_(sq, 1.0 - b2)
+        ns = torch._foreach_mul(ns, b2)
+        torch._foreach_add_(ns, sq)
+        den = torch._foreach_div(ns, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        out = torch._foreach_div(ms, c1)
+        torch._foreach_div_(out, den)
+        out = [o.to(g.dtype) for o, g in zip(out, tree_leaves(grads))]
+        torch._foreach_add_(out, [p.detach() for p in tree_leaves(params)],
+                            alpha=wd)
+        torch._foreach_mul_(out, -rate)
+        if int8:
+            codes = [O._q8_encode(m) for m in ms]
+            mu = {"q": O.tree_unflatten(state.mu["q"], [c[0] for c in codes]),
+                  "s": O.tree_unflatten(state.mu["s"], [c[1] for c in codes])}
+        else:
+            mu = O.tree_unflatten(state.mu, [m.to(store) for m in ms])
+        nu = O.tree_unflatten(state.nu, [n.to(store) for n in ns])
+        return (O.tree_unflatten(grads, out),
+                O.ScaleByAdamLPState(count, mu, nu))
+    return update
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("clip", [None, 1.0])
+def test_leafwise_inplace_update_is_the_whole_tree_chain(moments, clip):
+    """Three steps (the second gradient above the clip norm): parameters,
+    updates and moments bit-equal to the whole-tree formula; the state's
+    moment tensors are the ones ``init`` made (written in place); the
+    caller's gradients are left as they were; and the parameters match
+    JAX's ``adamw_lp`` (f32 rtol 1e-6, bf16 and int8 atol 2e-3)."""
+    sched = O.seq2seq_schedule(1e-3, 1, 20)
+    tx = O.adamw_lp(sched, grad_clip=clip, moments=moments)
+    old = _whole_tree_adamw(sched, moments, clip)
+    jtx = JO.adamw_lp(JO.seq2seq_schedule(1e-3, 1, 20), grad_clip=clip,
+                      moments=moments)
+    tp = tree_map(torch.from_numpy, _tree())
+    rp = tree_map(torch.from_numpy, _tree())
+    jp = jax.tree.map(jnp.asarray, _tree())
+    ts, rs, js = tx.init(tp), tx.init(rp), jtx.init(jp)
+    first = [id(t) for t in tree_leaves(ts.mu) + tree_leaves(ts.nu)]
+    for step in range(3):
+        g = _grads(step, big=1)
+        tg = tree_map(torch.from_numpy, g)
+        kept = tree_map(lambda t: t.clone(), tg)
+        tu, ts = tx.update(tg, ts, tp)
+        ru, rs = old(tree_map(torch.from_numpy, g), rs, rp)
+        for a, b in zip(tree_leaves(tg), tree_leaves(kept)):
+            assert torch.equal(a, b), "the caller's gradients changed"
+        for a, b in zip(tree_leaves(tu), tree_leaves(ru)):
+            assert torch.equal(a, b), f"step {step}: update differs"
+        O.apply_updates(tp, tu)
+        O.apply_updates(rp, ru)
+        ju, js = jtx.update(jax.tree.map(jnp.asarray, g), js, jp)
+        jp = optax.apply_updates(jp, ju)
+    assert ts.count == rs.count == 3
+    assert [id(t) for t in tree_leaves(ts.mu) + tree_leaves(ts.nu)] == first
+    for a, b in zip(tree_leaves(ts.mu) + tree_leaves(ts.nu),
+                    tree_leaves(rs.mu) + tree_leaves(rs.nu)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(tree_leaves(tp), tree_leaves(rp)):
+        assert torch.equal(a, b)
+    got = _flat(tree_map(lambda t: t.numpy(), tp))
+    want = _flat(jp)
+    for k in want:
+        if moments == "float32":
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=0,
+                                       err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], want[k], atol=2e-3, err_msg=k)

@@ -162,7 +162,8 @@ def test_port_imports_nothing_of_jax():
         "for m in pkgutil.walk_packages(audax_torch.__path__, 'audax_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'audax', 'orbax', 'flax', 'tensorstore', 'transformers'))\n"
+        "('jax', 'audax', 'orbax', 'flax', 'tensorstore', 'transformers',"
+        " 'safetensors'))\n"
         "assert not bad, bad\n"
         "need = {'audax_torch.cli.http_server', 'audax_torch.infer.continuous',"
         " 'audax_torch.models.quantize', 'audax_torch.ops.int4_matmul',"
@@ -190,10 +191,12 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.data.music_dataset', 'audax_torch.data.quality',"
         " 'audax_torch.train.lm', 'audax_torch.train.two_tower_loop',"
         " 'audax_torch.train.finetune_loop', 'audax_torch.utils.reports',"
-        " 'audax_torch.tools.moe_decode_probe'}\n"
+        " 'audax_torch.tools.moe_decode_probe', 'audax_torch.models.hf_files',"
+        " 'audax_torch.models.port', 'audax_torch.models.export',"
+        " 'audax_torch.core.artifacts', 'audax_torch.eval.plots'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('pandas', 'pyarrow'))\n"
+        "('pandas', 'pyarrow', 'matplotlib'))\n"
         "assert not heavy, heavy\n"
         "print(len([n for n in sys.modules if n.startswith('audax_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
