@@ -11,9 +11,9 @@ Endpoints:
     ``response_format`` mirrors the OpenAI audio API: ``json`` (default:
     ``{"text", "avg_logprob", "tokens", "audio_seconds"}``), ``text``,
     ``verbose_json``, ``srt``, ``vtt`` (one cue spanning the decoded
-    window). Compressed containers (``format=m4a``, or a body that is not
-    RIFF/WAVE) get 415: they need the native audio decoder, which a later
-    slice of the port brings.
+    window). ``format=`` names the container (default ``wav``): m4a, mp3,
+    ogg, flac, ... are decoded by the native audio decoder over the system
+    libav (``native/bindings.py``); a body that does not decode gets 400.
   * ``GET /healthz`` -- ``{"ok", "error", "live", "pending"}``;
     ``GET /metrics`` -- latency percentiles and engine counters.
 
@@ -38,7 +38,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from audax_torch.core.logging import get_logger
-from audax_torch.data.audio_io import decode_wav, is_wav, resample, to_mono
+from audax_torch.data.audio_io import decode_audio, resample, to_mono
 
 log = get_logger("audax_torch.http_server")
 
@@ -46,8 +46,6 @@ __all__ = ["serve_http", "Scheduler", "SchedulerDown", "ServerBusy",
            "render_window"]
 
 _MAX_BODY = 512 << 20
-_NEEDS_DECODER = ("compressed audio needs the native audio decoder, which a "
-                  "later slice of the port brings; upload WAV")
 
 
 class SchedulerDown(RuntimeError):
@@ -257,12 +255,8 @@ class _Handler(BaseHTTPRequestHandler):
         if not fmt.isalnum():
             self._json(400, {"error": "bad format"})
             return None
-        if fmt != "wav" or not is_wav(body):
-            self._json(415, {"error": f"unsupported audio (format={fmt}): "
-                             f"{_NEEDS_DECODER}"})
-            return None
         try:
-            x, rate = decode_wav(body, "upload")
+            x, rate = decode_audio(body, fmt)
             x = to_mono(x)
             sr = self.server.scheduler.engine.sample_rate
             if rate != sr:

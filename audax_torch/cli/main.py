@@ -10,19 +10,20 @@
     python -m audax_torch.cli.main infer-music --wav clip.wav \\
         --tokenizer-dir tok/ --ckpt trainable/ [--lm-ckpt lm/] [--constrained]
 
-Each stage of the JAX command line is a subcommand of one entry point.
-This port registers 28 of its 35: the UrbanSound commands
-(``preprocess``, ``sample``, ``train-cnn``, ``test-cnn``,
-``train-transformer``, ``test-transformer``, ``classifier-proof``,
-``verify-parity --kind classifier``), Whisper's (``transcribe``,
+Each stage of the JAX command line is a subcommand of one entry point,
+and the port registers all 35: the UrbanSound commands (``preprocess``,
+``sample``, ``train-cnn``, ``test-cnn``, ``train-transformer``,
+``test-transformer``, ``classifier-proof``), Whisper's (``transcribe``,
 ``detect-language``, ``finetune``, ``serve``, ``stream-serve``), weight
 I/O (``convert-hf``, ``export-hf``, ``verify-parity``), the music data
 tools (``make-midi-dataset``, ``midi2wav``, ``midi2abc``, ``abc2wav``,
 ``gentokens-raw``, ``gentokens-bpe``, ``genparquet``, ``data-quality``),
 the music trainers (``train-lm``, ``train-music``), the proofs
-(``music-proof``, ``finetune-proof``) and ``infer-music``. Not registered
-yet: the five ``bench-*`` commands (ROADMAP A12.2 b), ``memo2wav`` and
-``demo`` (with the native audio decoder, A6.3).
+(``music-proof``, ``finetune-proof``), ``infer-music``, the five benches
+(``bench-rtf``, ``bench-streaming``, ``bench-continuous``,
+``bench-speculative``, ``bench-train``: one JSON line each, with the JAX
+command line's flags, keys and exit codes), ``memo2wav`` and ``demo``
+(the browser demo, ``cli/demo_ui.py``).
 
 ``convert-hf`` and ``export-hf`` read and write HF directories without
 ``transformers`` or ``safetensors`` (``models/hf_files.py``);
@@ -31,18 +32,24 @@ reference and raises ``ImportError`` without it. Checkpoints are the port's
 (``train/checkpoints.py``) or the JAX package's orbax trees (read through
 the orbax reader and carried by ``models/bridge.py``), with the
 ``<ckpt>.config.json`` sidecar of true dims that ``convert-hf`` and
-``finetune`` write. Inputs are WAV files: another container raises
-``NotImplementedError`` until the native audio decoder is ported. The mesh
-flags (``--dp``/``--tp``/``--fsdp``, ``finetune --sp``) are accepted and
-raise when set: tensor and data parallelism wait for the parallelism
-slice; so does a ``--soundfont`` (the SF2 synth is not ported).
-``train-lm --moe-experts N`` pretrains a Qwen3-MoE-family decoder (the
-ragged impl, the Switch aux loss), as the JAX command line does. The port's
-own flags: ``--device`` (default the CUDA card; ``cpu`` runs every
-kernel's plain version), ``--out`` on ``infer-music`` and ``train-lm`` (a
-JSON record of the run), and ``--no-plot`` on ``test-*`` and
-``classifier-proof`` (no confusion-matrix PNG, for a host without
-matplotlib).
+``finetune`` write. Audio inputs are WAV or any container the port's
+native decoder reads over the system libav (``data/audio_io.py:
+read_audio``); ``--soundfont`` renders through the port's SF2 synth
+(``native/``). The mesh flags (``--dp``/``--tp``/``--fsdp``, ``finetune
+--sp``) are accepted and raise when set: tensor and data parallelism wait
+for the parallelism slice. ``train-lm --moe-experts N`` pretrains a
+Qwen3-MoE-family decoder (the ragged impl, the Switch aux loss), as the
+JAX command line does. The port's own flags: ``--device`` (default the
+CUDA card; ``cpu`` runs every kernel's plain version), ``--out`` on
+``infer-music`` and ``train-lm`` (a JSON record of the run), ``--no-plot``
+on ``test-*`` and ``classifier-proof`` (no confusion-matrix PNG, for a host
+without matplotlib), and ``--tokenizer-dir`` on the Whisper benches (a
+vocabulary whose size sets the LM head; the JAX benches always take a
+small ad-hoc one).
+
+    python -m audax_torch.cli.main bench-rtf --size base [--device cpu]
+    python -m audax_torch.cli.main memo2wav --src-dir memos/ --dst-dir wavs/
+    python -m audax_torch.cli.main demo --size tiny [--device cpu]
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import dataclasses
 import glob
 import json
 import os
+import struct
 import sys
 import time
 from dataclasses import replace
@@ -622,7 +630,7 @@ def cmd_abc2wav(argv) -> int:
     p.add_argument("--out", required=True, help="output .wav path")
     p.add_argument("--sample-rate", type=int, default=16000)
     p.add_argument("--soundfont", default="",
-                   help="SF2 soundfont (not ported: raises)")
+                   help="SF2 soundfont (default: the additive synth)")
     p.add_argument("--program", type=int, default=0)
     args = p.parse_args(argv)
     from audax_torch.data.audio_io import write_wav
@@ -726,23 +734,11 @@ def _add_mel_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fft", type=int, default=0)
 
 
-def _check_wav(paths) -> None:
-    """Raise before any work where an input is not a WAV file: compressed
-    containers need the native audio decoder, which a later slice of the
-    port brings (ROADMAP A6.3), as the server's 415 says."""
-    from audax_torch.data.audio_io import is_wav
-    for path in paths:
-        with open(path, "rb") as fh:
-            head = fh.read(12)
-        if not is_wav(head):
-            raise NotImplementedError(
-                f"{path}: not a WAV file; compressed containers arrive with "
-                "the native audio decoder of a later slice of the port")
-
-
 def _read_audio(path: str, sample_rate: int):
-    from audax_torch.data.audio_io import read_wav, resample, to_mono
-    x, rate = read_wav(path)
+    """Mono float32 samples of any audio file (WAV, or a compressed
+    container through the native decoder) at ``sample_rate``."""
+    from audax_torch.data.audio_io import read_audio, resample, to_mono
+    x, rate = read_audio(path)
     x = to_mono(x)
     if rate != sample_rate:
         x = resample(x, rate, sample_rate)
@@ -775,7 +771,8 @@ def cmd_preprocess(argv) -> int:
 
 @command("sample")
 def cmd_sample(argv) -> int:
-    """Waveform + spectrogram PNG for one wav (reference --sample-* flags)."""
+    """Waveform + spectrogram PNG for one audio file (reference --sample-*
+    flags)."""
     p = argparse.ArgumentParser(prog="audax_torch sample")
     p.add_argument("--wav", required=True)
     p.add_argument("--out", default="sample.png")
@@ -785,7 +782,6 @@ def cmd_sample(argv) -> int:
     from audax_torch.core.config import UrbanSoundConfig
     from audax_torch.eval.plots import plot_sample
     from audax_torch.frontend.features import LogMelFrontend
-    _check_wav([args.wav])
     mel_cfg = _mel_from_args(args)
     x = _read_audio(args.wav, mel_cfg.sample_rate)
     feats = LogMelFrontend(mel_cfg, device=args.device)(
@@ -1420,7 +1416,6 @@ def cmd_transcribe(argv) -> int:
     for w in args.wavs:
         paths.extend(sorted(glob.glob(os.path.join(w, "*.wav")))
                      if os.path.isdir(w) else [w])
-    _check_wav(paths)
     device = resolve_device(args.device)
     params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
                                      device)
@@ -1480,8 +1475,8 @@ def cmd_transcribe(argv) -> int:
 
 @command("detect-language")
 def cmd_detect_language(argv) -> int:
-    """The spoken language of WAV files (whisper detect_language over the
-    first 30 s window)."""
+    """The spoken language of audio files (whisper detect_language over
+    the first 30 s window)."""
     p = argparse.ArgumentParser(prog="audax_torch detect-language")
     p.add_argument("files", nargs="+")
     p.add_argument("--size", default="tiny")
@@ -1492,7 +1487,6 @@ def cmd_detect_language(argv) -> int:
     args = p.parse_args(argv)
     from audax_torch.core.runtime import resolve_device
     from audax_torch.infer.transcribe import Transcriber
-    _check_wav(args.files)
     device = resolve_device(args.device)
     params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
                                      device)
@@ -1814,6 +1808,590 @@ def cmd_serve(argv) -> int:
     log.success("POST audio to http://%s:%d/v1/audio/transcriptions",
                 args.host, server.server_address[1])
     _serve_until_stopped(server, server.scheduler.shutdown)
+    return 0
+
+
+# ----------------------------------------------------------- the benches
+def _dtype_tag(args) -> str:
+    return (args.dtype + ("+" + args.quantize if args.quantize else "")
+            + ("+int8kv" if args.kv_quant else ""))
+
+
+def _sync(device) -> None:
+    """End a timed window: wait for the card's queued work."""
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak(dtype: str) -> float:
+    """The H100's peak for ``dtype``'s products, for ``mfu``."""
+    from audax_torch.utils.profiling import H100_BF16_FLOPS, H100_F32_FLOPS
+    return H100_BF16_FLOPS if dtype == "bfloat16" else H100_F32_FLOPS
+
+
+def _add_bench_model_flags(p: argparse.ArgumentParser) -> None:
+    """The port's own flags of the Whisper benches."""
+    p.add_argument("--tokenizer-dir", default="",
+                   help="vocab.json/merges.txt whose size sets the LM head "
+                        "(default: the JAX command line's small ad-hoc "
+                        "vocab)")
+    _add_device_flag(p)
+
+
+@command("bench-rtf")
+def cmd_bench_rtf(argv) -> int:
+    """Serving real-time-factor benchmark: synthetic audio through the full
+    Transcriber (frontend + encoder + KV-cached decode + fallback ladder).
+    Prints one JSON line; exits 1 when the RTF is above the 0.05 target
+    (BASELINE: Whisper-base RTF <= 0.05 on one chip), else 0. The
+    Transcriber's wall time ends with a device synchronize."""
+    p = argparse.ArgumentParser(prog="audax_torch bench-rtf")
+    p.add_argument("--size", default="base")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--seconds", type=float, default=120.0)
+    p.add_argument("--batch-chunks", type=int, default=4)
+    p.add_argument("--max-new-tokens", type=int, default=224)
+    p.add_argument("--runs", type=int, default=3)
+    p.add_argument("--quantize", nargs="?", const="int8", default=None,
+                   choices=["int8", "int4"],
+                   help="int8/int4 weight-only serving (models/quantize.py"
+                   " / ops/int4_matmul.py)")
+    p.add_argument("--kv-quant", action="store_true",
+                   help="int8 self+cross KV caches")
+    p.add_argument("--no-fallback", action="store_true",
+                   help="single greedy decode per chunk (random-weight "
+                   "models always fail the quality gates, so the default "
+                   "measures the full 6-temperature ladder -- the worst "
+                   "case; trained checkpoints mostly decode once)")
+    _add_bench_model_flags(p)
+    args = p.parse_args(argv)
+
+    import numpy as np
+
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.transcribe import Transcriber
+    from audax_torch.utils.profiling import mfu
+    from audax_torch.utils.reports import param_count
+
+    device = resolve_device(args.device)
+    params, cfg, tok = _load_whisper(args.size, "", args.tokenizer_dir,
+                                     device)
+    tr = Transcriber(params, cfg, tok, max_new_tokens=args.max_new_tokens,
+                     quantize=args.quantize, kv_quant=args.kv_quant,
+                     temperature_fallback=not args.no_fallback,
+                     dtype=_dtype(args.dtype), device=device)
+    rng = np.random.default_rng(0)
+    audio = (0.1 * rng.standard_normal(int(args.seconds * 16000))
+             ).astype(np.float32)
+    tr.transcribe(audio, batch_chunks=args.batch_chunks)   # warm-up
+    best = min((tr.transcribe(audio, batch_chunks=args.batch_chunks)
+                for _ in range(args.runs)), key=lambda r: r.rtf)
+    rtf = best.rtf
+    # approximate achieved TFLOP/s by the 2 * params * tokens rule (the
+    # encoder: n_audio_ctx positions a 30 s window; the decoder: one full
+    # forward an emitted token, the count re-derived from the text). The
+    # decode reads weights far more than it multiplies, so a low share is
+    # expected: the number puts the RTF beside the card, not a target.
+    n_chunks = -(-int(args.seconds * 16000) // (30 * 16000))
+    enc_tok = n_chunks * cfg.n_audio_ctx
+    dec_tok = len(tok.encode(best.text)) + 6 * n_chunks
+    flops = (2 * param_count(params["encoder"]) * enc_tok
+             + 2 * param_count(params["decoder"]) * dec_tok)
+    print(json.dumps({"metric": "whisper_rtf", "size": args.size,
+                      "dtype": _dtype_tag(args),
+                      "fallback_ladder": not args.no_fallback,
+                      "seconds": args.seconds,
+                      "value": round(rtf, 5), "target": 0.05,
+                      **mfu(flops, best.wall_seconds,
+                            peak=_peak(args.dtype))}))
+    return 0 if rtf <= 0.05 else 1
+
+
+@command("bench-streaming")
+def cmd_bench_streaming(argv) -> int:
+    """Batched multi-stream serving throughput: N concurrent streams of
+    synthetic audio through StreamingTranscriber's fixed-slot batches.
+    Reports audio-seconds transcribed per wall-second, i.e. how many
+    real-time streams one card sustains (the timed drain ends with a
+    device synchronize)."""
+    p = argparse.ArgumentParser(prog="audax_torch bench-streaming")
+    p.add_argument("--size", default="base")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--streams", type=int, default=16)
+    p.add_argument("--windows", type=int, default=2,
+                   help="30 s windows fed per stream")
+    p.add_argument("--batch-slots", type=int, default=8)
+    p.add_argument("--max-new-tokens", type=int, default=224)
+    p.add_argument("--quantize", nargs="?", const="int8", default=None,
+                   choices=["int8", "int4"])
+    p.add_argument("--kv-quant", action="store_true")
+    _add_bench_model_flags(p)
+    args = p.parse_args(argv)
+
+    import numpy as np
+
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.streaming import StreamingTranscriber
+
+    device = resolve_device(args.device)
+    params, cfg, tok = _load_whisper(args.size, "", args.tokenizer_dir,
+                                     device)
+    if args.quantize:
+        from audax_torch.models.quantize import quantize_tree
+        params = quantize_tree(params, bits=4 if args.quantize == "int4"
+                               else 8)
+    st = StreamingTranscriber(
+        params, cfg, tok, batch_slots=args.batch_slots,
+        max_new_tokens=args.max_new_tokens, kv_quant=args.kv_quant,
+        dtype=_dtype(args.dtype), device=device)
+    rng = np.random.default_rng(0)
+    window = st.window
+
+    def fill():
+        for i in range(args.streams):
+            for _ in range(args.windows):
+                st.feed(f"s{i:03d}",
+                        (0.1 * rng.standard_normal(window)).astype(np.float32))
+
+    fill()
+    st.drain()                                   # warm-up
+    fill()
+    audio_s = args.streams * args.windows * window / 16000.0
+    _sync(device)
+    t0 = time.perf_counter()
+    segs = st.drain()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    if len(segs) != args.streams * args.windows:
+        raise RuntimeError(f"bench-streaming: {len(segs)} segments for "
+                           f"{args.streams * args.windows} windows")
+    print(json.dumps({
+        "metric": "streaming_realtime_streams_per_chip", "size": args.size,
+        "dtype": _dtype_tag(args),
+        "batch_slots": args.batch_slots, "streams": args.streams,
+        "value": round(audio_s / wall, 2), "audio_seconds": audio_s,
+        "wall_seconds": round(wall, 3)}))
+    return 0
+
+
+def _music_engine(args, rng, dtype, device):
+    """``bench-continuous --engine music``: the two-tower (a Whisper
+    audio tower + the Qwen3-0.6B-shaped decoder, or a tiny one), random
+    from generator seed 0, its ContinuousGenerator factory and requests."""
+    import numpy as np
+    import torch
+
+    from audax_torch.core.config import TwoTowerConfig
+    from audax_torch.infer.continuous import ContinuousGenerator
+    from audax_torch.models.causal_lm import CausalLMConfig
+    from audax_torch.models.two_tower import build_two_tower
+
+    audio_cfg = _whisper_preset(args.size)
+    if args.lm_preset == "qwen3-0.6b":
+        lm_cfg = replace(CausalLMConfig.qwen3_0_6b(),
+                         max_seq=max(2048, 1 + args.max_new_tokens))
+    else:
+        lm_cfg = CausalLMConfig(
+            vocab_size=1024, d_model=128, layers=2, heads=4, kv_heads=2,
+            ffn_dim=256, qk_norm=True, tie_embeddings=True,
+            max_seq=max(256, 1 + args.max_new_tokens))
+    model = build_two_tower(TwoTowerConfig(), audio_cfg, lm_cfg,
+                            lm_cfg.vocab_size,
+                            torch.Generator().manual_seed(0), device=device)
+    if args.quantize:
+        from audax_torch.models.quantize import quantize_tree
+        model = model._replace(params=quantize_tree(
+            model.params, bits=4 if args.quantize == "int4" else 8))
+    # constrained decoding: an allow set the size of an ABC alphabet
+    allowed = list(range(3, 515))
+    win = args.window_seconds
+    audio = [(0.1 * rng.standard_normal(int(win * 16000))).astype(np.float32)
+             for _ in range(args.requests)]
+
+    def make():
+        return ContinuousGenerator(
+            model, start_id=0, end_id=1, slots=args.slots,
+            window_seconds=win, max_new_tokens=args.max_new_tokens,
+            temperature=0.7, steps_per_sync=args.steps_per_sync,
+            dtype=dtype, allowed_ids=allowed, device=device)
+    return make, audio
+
+
+@command("bench-continuous")
+def cmd_bench_continuous(argv) -> int:
+    """Continuous batching against the convoy schedule on one
+    variable-length workload (each request's max_tokens drawn uniformly,
+    the shape of real transcript-length traffic). Convoy = admit a full
+    batch, drain it completely, repeat (every slot waits for the
+    slowest); continuous = slot refill mid-decode (infer/continuous.py).
+    Both run on one engine, so the speedup is the schedule's alone. Each
+    timed schedule ends with a device synchronize."""
+    p = argparse.ArgumentParser(prog="audax_torch bench-continuous")
+    p.add_argument("--engine", default="asr", choices=["asr", "music"],
+                   help="asr: whisper ContinuousBatcher; music: two-tower "
+                        "audio->ABC ContinuousGenerator (whisper-base "
+                        "encoder + Qwen3-0.6B-shape decoder, constrained "
+                        "decoding on -- the reference's music2midi serving "
+                        "shape, model.py:209-213)")
+    p.add_argument("--size", default="base")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--requests", type=int, default=32)
+    p.add_argument("--slots", type=int, default=8)
+    p.add_argument("--max-new-tokens", type=int, default=224)
+    p.add_argument("--min-new-tokens", type=int, default=16)
+    p.add_argument("--steps-per-sync", type=int, default=32)
+    p.add_argument("--window-seconds", type=float, default=10.0,
+                   help="music engine: per-request audio window")
+    p.add_argument("--lm-preset", default="qwen3-0.6b",
+                   choices=["qwen3-0.6b", "tiny"],
+                   help="music engine decoder shape (tiny = smoke/test)")
+    p.add_argument("--kv-quant", action="store_true")
+    p.add_argument("--quantize", nargs="?", const="int8", default=None,
+                   choices=["int8", "int4"])
+    _add_bench_model_flags(p)
+    args = p.parse_args(argv)
+
+    import numpy as np
+
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.continuous import ContinuousBatcher
+
+    device = resolve_device(args.device)
+    dtype = _dtype(args.dtype)
+    rng = np.random.default_rng(0)
+    budgets = rng.integers(args.min_new_tokens, args.max_new_tokens + 1,
+                           args.requests)
+    if args.engine == "music":
+        make, audio = _music_engine(args, rng, dtype, device)
+    else:
+        params, cfg, tok = _load_whisper(args.size, "", args.tokenizer_dir,
+                                         device)
+        if args.quantize:
+            from audax_torch.models.quantize import quantize_tree
+            params = quantize_tree(params, bits=4 if args.quantize == "int4"
+                                   else 8)
+        audio = [(0.1 * rng.standard_normal(16000)).astype(np.float32)
+                 for _ in range(args.requests)]
+
+        def make():
+            return ContinuousBatcher(
+                params, cfg, tok, slots=args.slots,
+                max_new_tokens=args.max_new_tokens,
+                steps_per_sync=args.steps_per_sync, dtype=dtype,
+                kv_quant=args.kv_quant, device=device)
+
+    def continuous(cb):
+        for i in range(args.requests):
+            cb.submit(f"r{i}", audio[i], max_new_tokens=int(budgets[i]))
+        return cb.run()
+
+    def convoy(cb):
+        out = []
+        for lo in range(0, args.requests, args.slots):
+            for i in range(lo, min(lo + args.slots, args.requests)):
+                cb.submit(f"r{i}", audio[i], max_new_tokens=int(budgets[i]))
+            out.extend(cb.run())          # barrier: drain the whole batch
+        return out
+
+    cb = make()
+    cb.warmup()
+    results = {}
+    for name, fn in (("continuous", continuous), ("convoy", convoy)):
+        steps0 = cb.steps_run
+        _sync(device)
+        t0 = time.perf_counter()
+        got = fn(cb)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        if len(got) != args.requests:
+            raise RuntimeError(f"bench-continuous {name}: {len(got)} of "
+                               f"{args.requests} requests returned")
+        toks = sum(len(r.tokens) for r in got)
+        steps = cb.steps_run - steps0
+        results[name] = {"wall_s": round(wall, 3),
+                         "tokens_per_s": round(toks / wall, 1),
+                         "decode_steps": steps,
+                         # useful tokens per slot-step: the schedule's
+                         # quality, independent of the host's latency
+                         "slot_efficiency": round(
+                             toks / (steps * args.slots), 3)}
+    speedup = (results["convoy"]["wall_s"] /
+               results["continuous"]["wall_s"])
+    print(json.dumps({
+        "metric": "continuous_batching_speedup_vs_convoy",
+        "engine": args.engine,
+        "size": args.size, "slots": args.slots,
+        "requests": args.requests,
+        "budget_range": [args.min_new_tokens, args.max_new_tokens],
+        "dtype": _dtype_tag(args),
+        "value": round(speedup, 3), **results}))
+    return 0
+
+
+@command("bench-speculative")
+def cmd_bench_speculative(argv) -> int:
+    """Speculative-decoding latency bench (one 30 s chunk, greedy). It
+    reports the acceptance spectrum: a random-weight draft almost never
+    agrees with a random-weight target (the floor: the verify overhead), a
+    self-draft always agrees (the ceiling: the K-token verify amortised);
+    a distilled draft lands between. Each timed call ends with a device
+    synchronize."""
+    p = argparse.ArgumentParser(prog="audax_torch bench-speculative")
+    p.add_argument("--size", default="base")
+    p.add_argument("--draft-size", default="tiny")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--spec-tokens", type=int, default=8)
+    p.add_argument("--max-new-tokens", type=int, default=224)
+    p.add_argument("--kv-quant", action="store_true")
+    p.add_argument("--quantize", nargs="?", const="int8", default=None,
+                   choices=["int8", "int4"],
+                   help="int8/int4 weight-only target (draft stays float)")
+    _add_bench_model_flags(p)
+    args = p.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.frontend.features import LogMelFrontend
+    from audax_torch.infer.decode import generate
+    from audax_torch.infer.speculative import generate_speculative
+    from audax_torch.models.whisper import encode, init_whisper_params
+
+    device = resolve_device(args.device)
+    params, cfg, tok = _load_whisper(args.size, "", args.tokenizer_dir,
+                                     device)
+    if args.quantize:
+        from audax_torch.models.quantize import quantize_tree
+        params = quantize_tree(params, bits=4 if args.quantize == "int4"
+                               else 8)
+    dtype = _dtype(args.dtype)
+    # the draft shares the target's token space (deployments pair a
+    # distilled draft with the same tokenizer, e.g. large-v3 + turbo)
+    dcfg = replace(_whisper_preset(args.draft_size),
+                   vocab_size=cfg.vocab_size)
+    draft = init_whisper_params(dcfg, torch.Generator().manual_seed(1),
+                                device=device)
+    rng = np.random.default_rng(0)
+    audio = (0.1 * rng.standard_normal((1, 30 * 16000))).astype(np.float32)
+    with torch.inference_mode():
+        mel = LogMelFrontend.whisper(cfg.n_mels, device=device)(audio)
+        dmel = (mel if dcfg.n_mels == cfg.n_mels else LogMelFrontend.whisper(
+            dcfg.n_mels, device=device)(audio))
+        enc = encode(params, cfg, mel, dtype)
+        denc = encode(draft, dcfg, dmel, dtype)
+    prompt = torch.tensor([tok.sot_sequence(lang="en", timestamps=False)],
+                          dtype=torch.long, device=device)
+    max_len = prompt.shape[1] + args.max_new_tokens
+    sup = torch.tensor([i for i in tok.special_ids() if i != tok.eot],
+                       dtype=torch.long, device=device)
+
+    def timed(fn, reps=3):
+        fn()                                     # warm-up
+        best = float("inf")
+        for _ in range(reps):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn()
+            _sync(device)
+            best = min(best, time.perf_counter() - t0)
+        return best, out
+
+    t_plain, ref = timed(lambda: generate(
+        params, cfg, enc, prompt, max_len=max_len, eos_id=tok.eot,
+        suppress=sup, dtype=dtype, kv_quant=args.kv_quant))
+    t_draft, _ = timed(lambda: generate(
+        draft, dcfg, denc, prompt, max_len=max_len, eos_id=tok.eot,
+        suppress=sup, dtype=dtype))
+    t_floor, o1 = timed(lambda: generate_speculative(
+        draft, params, dcfg, cfg, denc, enc, prompt, max_len=max_len,
+        eos_id=tok.eot, spec_tokens=args.spec_tokens, suppress=sup,
+        dtype=dtype, kv_quant=args.kv_quant))
+    # self-draft = acceptance 1.0 with a full-cost draft; subtracting the
+    # target's own per-token cost isolates the span-verify overhead, from
+    # which the cheap-draft ceiling follows: ceil = t_draft + t_span/K
+    t_self, o2 = timed(lambda: generate_speculative(
+        params, params, cfg, cfg, enc, enc, prompt, max_len=max_len,
+        eos_id=tok.eot, spec_tokens=args.spec_tokens, suppress=sup,
+        dtype=dtype, kv_quant=args.kv_quant))
+    n = int(ref.lengths[0])
+    # exact in exact arithmetic; in bf16 the span and the 1-row step take
+    # other shapes, which can flip an argmax at a near-tie (random weights
+    # hit them often): report the agreement rate
+    want = ref.tokens[0, :n].cpu()
+    agree = min(float((o.tokens[0, :n].cpu() == want).float().mean())
+                for o in (o1, o2))
+    tok_plain = t_plain / n
+    tok_draft = t_draft / n
+    span_per_tok = max(t_self / n - tok_plain, 0.0)   # verify amortised/K
+    ceil_tok = tok_draft + span_per_tok
+    print(json.dumps({
+        "metric": "speculative_decode_ms_per_token", "size": args.size,
+        "draft": args.draft_size, "dtype": _dtype_tag(args),
+        "spec_tokens": args.spec_tokens, "tokens": n,
+        "plain": round(tok_plain * 1e3, 3),
+        "draft_alone": round(tok_draft * 1e3, 3),
+        "floor_random_draft": round(t_floor / n * 1e3, 3),
+        "ceiling_full_acceptance": round(ceil_tok * 1e3, 3),
+        "ceiling_speedup": round(tok_plain / max(ceil_tok, 1e-9), 2),
+        "greedy_agreement": round(agree, 4)}))
+    return 0
+
+
+@command("bench-train")
+def cmd_bench_train(argv) -> int:
+    """Fine-tune step throughput on the card: the seq2seq train step
+    (optionally LoRA) over 30 s windows. ``mfu`` counts the analytic model
+    FLOPs (``utils/flops.py:whisper_train_step_flops``) against the H100's
+    peak for ``--dtype`` (bf16 tensor cores, or float32). The key
+    ``xla_counted_tflops`` keeps the JAX command line's name for a counted
+    rate: here ``FlopCounterMode`` over one step
+    (``utils/profiling.py:step_flops``), which cannot see the hand-written
+    kernels (the flash attention among them), as XLA's count could not see
+    inside its scan. The timed steps end with a device synchronize."""
+    p = argparse.ArgumentParser(prog="audax_torch bench-train")
+    p.add_argument("--size", default="tiny")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--lora-rank", type=int, default=8)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--label-len", type=int, default=32)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype (master weights stay f32)")
+    p.add_argument("--remat", default="full",
+                   choices=["full", "dots", "none"],
+                   help="gradient checkpointing: full recompute / save "
+                   "matmul outputs / off")
+    _add_mesh_flags(p)
+    _add_bench_model_flags(p)
+    args = p.parse_args(argv)
+    _check_no_mesh(args)
+
+    import numpy as np
+    import torch
+
+    from audax_torch.core.config import FineTuneConfig
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.train.seq2seq import (collate_seq2seq, init_finetune,
+                                           make_finetune_step)
+    from audax_torch.utils.flops import whisper_train_step_flops
+    from audax_torch.utils.profiling import mfu, step_flops
+
+    device = resolve_device(args.device)
+    params, cfg, tok = _load_whisper(args.size, "", args.tokenizer_dir,
+                                     device)
+    ft = FineTuneConfig(learning_rate=1e-4, warmup_steps=1, max_steps=10,
+                        lora_rank=args.lora_rank)
+    state = init_finetune(params, ft)
+    step = make_finetune_step(
+        cfg, remat={"full": True, "dots": "dots", "none": False}[args.remat],
+        dtype=_dtype(args.dtype))
+
+    rng = np.random.default_rng(0)
+    b = args.batch_size
+    mel = torch.from_numpy(rng.standard_normal(
+        (b, 2 * cfg.n_audio_ctx, cfg.n_mels)).astype(np.float32)).to(device)
+    rows = [list(rng.integers(3, cfg.vocab_size - 1, args.label_len))
+            for _ in range(b)]
+    lab = collate_seq2seq(rows, decoder_start_id=1)
+    batch = {"mel": mel,
+             "decoder_input_ids": torch.from_numpy(
+                 lab["decoder_input_ids"]).long().to(device),
+             "labels": torch.from_numpy(lab["labels"]).long().to(device)}
+    flops = whisper_train_step_flops(
+        cfg, b, int(batch["decoder_input_ids"].shape[1]),
+        remat=args.remat, lora=args.lora_rank > 0)
+
+    box = {}
+
+    def first_step():
+        box["state"], box["m"] = step(state, batch)
+    counted = step_flops(first_step)      # the warm-up step, counted
+    state = box["state"]
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        state, m = step(state, batch)
+    _sync(device)
+    dt = (time.perf_counter() - t0) / args.steps
+    print(json.dumps({
+        "metric": "finetune_examples_per_sec", "size": args.size,
+        "lora_rank": args.lora_rank, "batch_size": b, "dtype": args.dtype,
+        "value": round(b / dt, 2), "sec_per_step": round(dt, 4),
+        "audio_seconds_per_sec": round(b * 30.0 / dt, 1),
+        "mesh": None, "fsdp": False, **mfu(flops, dt, peak=_peak(args.dtype)),
+        "xla_counted_tflops": round(counted / dt / 1e12, 2)}))
+    return 0
+
+
+# ------------------------------------------------ memos and the browser demo
+@command("memo2wav")
+def cmd_memo2wav(argv) -> int:
+    """Batch-convert voice memos (m4a/mp3/...) to 16 kHz mono 16-bit WAV
+    (reference: AB/memoToWav.py; decoded in process, no ffmpeg
+    subprocess). Exits 1 when no file converted."""
+    p = argparse.ArgumentParser(prog="audax_torch memo2wav")
+    p.add_argument("--src-dir", required=True)
+    p.add_argument("--dst-dir", required=True)
+    p.add_argument("--rate", type=int, default=16000)
+    args = p.parse_args(argv)
+
+    from audax_torch.data.audio_io import memo_to_wav
+    exts = (".m4a", ".mp4", ".mp3", ".ogg", ".flac", ".webm", ".wav")
+    n = 0
+    for name in sorted(os.listdir(args.src_dir)):
+        if not name.lower().endswith(exts):
+            continue
+        src = os.path.join(args.src_dir, name)
+        try:
+            dst = memo_to_wav(src, args.dst_dir, rate=args.rate)
+            log.info("%s -> %s", name, dst)
+            n += 1
+        except (ValueError, struct.error) as e:   # undecodable: skip it
+            log.warning("skip %s: %s", name, e)
+    log.success("converted %d file(s) -> %s", n, args.dst_dir)
+    return 0 if n else 1
+
+
+@command("demo")
+def cmd_demo(argv) -> int:
+    """Record-and-compare browser demo (reference: AB/UI/Asmo.py)."""
+    p = argparse.ArgumentParser(prog="audax_torch demo")
+    p.add_argument("--size", default="tiny")
+    p.add_argument("--ckpt", default="")
+    p.add_argument("--ft-ckpt", default="")
+    p.add_argument("--tokenizer-dir", default="")
+    p.add_argument("--port", type=int, default=8501)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--ft-steps", type=int, default=50,
+                   help="steps for the UI's Finetune button "
+                        "(AB/fineTune.py:175 used 50)")
+    p.add_argument("--ft-lora-rank", type=int, default=4,
+                   help="LoRA rank for the UI fine-tune (0 = full)")
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+
+    from audax_torch.cli.demo_ui import serve
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.transcribe import Transcriber
+
+    device = resolve_device(args.device)
+    params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
+                                     device)
+    tr = Transcriber(params, cfg, tok, device=device)
+    ft_tr = None
+    if args.ft_ckpt:
+        ft_params, _, _ = _load_whisper(args.size, args.ft_ckpt,
+                                        args.tokenizer_dir, device)
+        ft_tr = Transcriber(ft_params, cfg, tok, device=device)
+    server = serve(tr, ft_tr, port=args.port, host=args.host,
+                   ft_steps=args.ft_steps, ft_lora_rank=args.ft_lora_rank)
+    _serve_until_stopped(server, lambda: None)
     return 0
 
 

@@ -1,24 +1,28 @@
-"""Host audio I/O: WAV codec and resampling in numpy (own copy of
-``audax/data/audio_io.py``: ``read_wav``, ``write_wav``, ``to_mono``,
-``resample``).
+"""Host audio I/O: WAV codec and resampling in numpy, and the front door
+for any audio file (own copy of ``audax/data/audio_io.py``: ``read_wav``,
+``write_wav``, ``to_mono``, ``resample``, ``read_audio``,
+``memo_to_wav``).
 
 Supports PCM 8/16/24/32, float32/64 and WAVE_FORMAT_EXTENSIBLE
 (``decode_wav`` parses the bytes of a file already in memory, as an HTTP
 upload is). Resampling is windowed-sinc polyphase (kaiser), the same filter
-design as the JAX package's. Compressed containers (m4a/AAC, mp3, ogg,
-flac) need the native C++ decoder of ``audax/native``, which a later slice
-of the port brings with ``read_audio`` and ``memo_to_wav``.
+design as the JAX package's. ``read_audio`` reads a WAV here and any
+compressed container (m4a/AAC, mp3, ogg, flac, ...) through the port's
+in-process C++ decoder over the system libav (``native/bindings.py``),
+picking by the file's extension as the JAX package does.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import struct
+import tempfile
 
 import numpy as np
 
 __all__ = ["read_wav", "decode_wav", "is_wav", "write_wav", "resample",
-           "to_mono"]
+           "to_mono", "read_audio", "decode_audio", "memo_to_wav"]
 
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -151,3 +155,45 @@ def resample(x: np.ndarray, orig_rate: int, new_rate: int,
     y = resample_poly(np.asarray(x, dtype=np.float64), up, down, window=h)
     expected = int(math.ceil(len(x) * up / down))
     return y[:expected].astype(np.float32)
+
+
+def read_audio(path: str):
+    """Any audio file -> (float32 samples [n, channels], rate): a ``.wav``
+    through the numpy codec, any other extension through the native decoder
+    (the reference ran an ffmpeg subprocess a file, AB/memoToWav.py:11-26).
+    A file that does not read raises ``ValueError``."""
+    if path.lower().endswith(".wav"):
+        return read_wav(path)
+    from audax_torch.native.bindings import decode_audio_file
+    return decode_audio_file(path)
+
+
+def decode_audio(data: bytes, fmt: str = "wav"):
+    """``read_audio`` of a file's bytes (an upload) in the format ``fmt``
+    (an extension): ``wav`` in memory, any other through the native decoder,
+    which reads a file: the bytes go to a temporary one named ``*.<fmt>``."""
+    if fmt == "wav":
+        return decode_wav(data, "upload")
+    from audax_torch.native.bindings import decode_audio_file
+    fd, tmp = tempfile.mkstemp(suffix="." + fmt)
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            fh.write(data)
+        return decode_audio_file(tmp)
+    finally:
+        os.unlink(tmp)
+
+
+def memo_to_wav(src: str, dst_dir: str, *, rate: int = 16000) -> str:
+    """Convert one voice memo (m4a or anything decodable) to a 16-bit mono
+    WAV at ``rate`` in ``dst_dir``, keeping its stem (AB/memoToWav.py:11-26:
+    ar 16000, ac 1, pcm_s16le). Returns the WAV's path."""
+    x, orig = read_audio(src)
+    x = to_mono(x)
+    if orig != rate:
+        x = resample(x, orig, rate)
+    os.makedirs(dst_dir, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(src))[0]
+    dst = os.path.join(dst_dir, stem + ".wav")
+    write_wav(dst, np.asarray(x, np.float32), rate, bits=16)
+    return dst

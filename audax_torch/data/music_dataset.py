@@ -80,15 +80,12 @@ def _midi2wav_one(args) -> Tuple[str, bool, str]:
 def stage_midi2wav(midi_dir: str, out_dir: str, cfg: DataGenConfig,
                    *, workers: Optional[int] = None) -> List[str]:
     """Cut every .mid to ``cfg.chunk_duration_s`` and render it at
-    ``cfg.sample_rate``; a file that fails is logged and skipped. A
-    soundfont raises ``NotImplementedError`` (not ported)."""
-    if cfg.soundfont:
-        raise NotImplementedError("soundfont rendering (the SF2 synth) is "
-                                  "not ported; render without --soundfont")
+    ``cfg.sample_rate`` (through ``cfg.soundfont`` when one is set); a
+    file that fails is logged and skipped."""
     os.makedirs(out_dir, exist_ok=True)
     paths = _midis(midi_dir)
-    args = [(p, out_dir, cfg.chunk_duration_s, cfg.sample_rate, None)
-            for p in paths]
+    args = [(p, out_dir, cfg.chunk_duration_s, cfg.sample_rate,
+             cfg.soundfont or None) for p in paths]
     results = _run(_midi2wav_one, args,
                    workers or max(1, multiprocessing.cpu_count() // 2))
     ok = [r[2] for r in results if r[1]]

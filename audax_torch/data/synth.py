@@ -15,8 +15,10 @@ sf2synth.cpp``: four decaying harmonics, a 5 ms attack, a 40/s release over
 a 50 ms tail). ``render_simple`` here is that synth in numpy, vectorised
 over each note's samples (float64 phase and envelope, each note's samples
 rounded to float32 and added in note order, as the C++ loop adds them), so
-it needs no host compiler. The soundfont synth is not ported:
-``render_midi(soundfont=...)`` raises ``NotImplementedError``.
+it needs no host compiler. A soundfont renders through the port's C++
+SF2 synth (``native/bindings.py:Sf2Synth``, built by ``g++`` at first
+use; a failed build or an unreadable soundfont raises -- no fallback
+voice).
 ``_numpy_fallback_synth`` is the JAX package's own last-resort voice (one
 sine), used there only when its native library fails to load.
 
@@ -115,12 +117,11 @@ def _numpy_fallback_synth(mf: MidiFile, sample_rate: int) -> np.ndarray:
 def render_midi(mf: MidiFile, sample_rate: int = 16000,
                 soundfont: Optional[str] = None,
                 program: int = 0) -> np.ndarray:
-    """Render ``mf`` with the additive synth. A soundfont raises
-    ``NotImplementedError``: the SF2 synth is not ported."""
-    del program                    # a soundfont preset; the voice has none
+    """Render ``mf`` through ``soundfont``'s preset ``program`` (the SF2
+    synth), or with the additive synth when no soundfont is given."""
     if soundfont:
-        raise NotImplementedError("soundfont rendering (the SF2 synth) is "
-                                  "not ported; render without --soundfont")
+        from audax_torch.native.bindings import Sf2Synth
+        return Sf2Synth(soundfont).render(mf, sample_rate, program=program)
     return render_simple(mf, sample_rate)
 
 
@@ -197,11 +198,12 @@ def make_midi_dataset(cfg: DataGenConfig, *,
                       write_midi: bool = True) -> str:
     """Generate ``cfg.num_items`` melodies; write wav (+ optional .mid)
     files and ``mididataset.csv`` (columns: filename, labels). Returns the
-    CSV path. A soundfont raises ``NotImplementedError``."""
+    CSV path. ``cfg.soundfont`` renders every item through that soundfont
+    (opened once)."""
+    synth = None
     if cfg.soundfont:
-        raise NotImplementedError("soundfont rendering (the SF2 synth) is "
-                                  "not ported; leave DataGenConfig."
-                                  "soundfont empty")
+        from audax_torch.native.bindings import Sf2Synth
+        synth = Sf2Synth(cfg.soundfont)
     rng = np.random.default_rng(cfg.seed)
     os.makedirs(cfg.out_dir, exist_ok=True)
     wav_dir = os.path.join(cfg.out_dir, "wavs")
@@ -214,7 +216,8 @@ def make_midi_dataset(cfg: DataGenConfig, *,
                                    velocity_jitter=cfg.velocity_jitter,
                                    jitter_rng=jit_rng)
         wav_path = os.path.join(wav_dir, f"midi_{i:05d}.wav")
-        audio = render_midi(mf, cfg.sample_rate)
+        audio = (synth.render(mf, cfg.sample_rate) if synth
+                 else render_midi(mf, cfg.sample_rate))
         if cfg.gain_jitter_db > 0.0 or cfg.noise_snr_db > 0.0:
             audio = _apply_audio_jitter(audio, jit_rng, cfg.gain_jitter_db,
                                         cfg.noise_snr_db)

@@ -799,10 +799,10 @@ def batch_transcribe_to_csv(
     ``output_format`` ('txt'/'srt'/'vtt'/'tsv'/'json'/'all') also emits
     per-file transcripts into ``output_dir`` (default: beside the CSV)
     through ``infer/writers.py``; ``writer_opts`` forwards the subtitle
-    line options. Compressed containers need the native audio decoder,
-    which a later slice of the port brings: until then such a file gets a
-    row with its error, as any unreadable file does."""
-    from audax_torch.data.audio_io import read_wav, resample, to_mono
+    line options. Files are read by ``read_audio`` (WAV, or a compressed
+    container through the native decoder, where the JAX package reads WAV
+    only); an unreadable file gets a row with its error."""
+    from audax_torch.data.audio_io import read_audio, resample, to_mono
     from audax_torch.infer.writers import _ts, get_writer
 
     writer = None
@@ -813,7 +813,7 @@ def batch_transcribe_to_csv(
     sr = transcriber.frontend.cfg.sample_rate
     for path in wav_paths:
         try:
-            x, rate = read_wav(path)
+            x, rate = read_audio(path)
             x = to_mono(x)
             if rate != sr:
                 x = resample(x, rate, sr)

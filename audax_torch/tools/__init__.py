@@ -1,4 +1,4 @@
-"""The kernel-experiment tools (port of ``tools/``): the four int4 tools
+"""The tools (port of ``tools/``): the four int4 tools
 (``int4_layout_ab.py``, ``int4_plane_probe.py``, ``w4a8_probe.py``,
 ``int4_unpack_probe.py``) and the four attention tools
 (``attn_headfold_probe.py``, ``attn_block_probe.py``,
@@ -23,6 +23,12 @@ int4 experts among them. Their entry points:
     python -m audax_torch.tools.train_step_breakdown [--attn flash|xla] ... [--device cpu] [--out PATH]
     python -m audax_torch.tools.mfu_study [--only 0,10] ... [--device cpu] [--out PATH]
     python -m audax_torch.tools.moe_decode_probe [--device cpu] [--out PATH]
+
+Three host tools sit beside them: ``preprocess_e2e_bench`` (the whole
+``preprocess`` pipeline's clips/s beside a reference-style torch-CPU loop,
+``[--clips N] [--device cpu] [--out PATH]``), ``ft_run_report`` (a
+fine-tune run's metrics JSONL summarized) and ``make_padded_tokenizer``
+(a trained BPE padded to the published vocabulary size).
 
 They run on the CUDA card unless ``--device cpu`` is given (and raise on a
 host without one); on the CPU they run the plain versions at a small shape

@@ -22,9 +22,10 @@ kernel-experiment tools and the four attention tools, then the music
 training path (``fit_two_tower`` and ``train-lm`` at Qwen3-0.6B width) and
 the mixture-of-experts paths of the causal LM at Qwen3-30B-A3B's widths
 (the two-tower served with an int4 MoE decoder, ``fit_lm`` with the aux
-loss, the MoE decode probe), and last the Whisper and classifier commands
-of the command line (weight I/O at Whisper-large-v3-turbo width), in
-twenty phases,
+loss, the MoE decode probe), the Whisper and classifier commands of the
+command line (weight I/O at Whisper-large-v3-turbo width), and last the
+five bench commands with the browser demo and the host C++ (the SF2
+synth), in twenty-one phases,
 one output line each (the kernel and path phases print one line per
 case):
 
@@ -351,6 +352,33 @@ case):
      ``classifier-proof --no-plot`` and ``verify-parity --kind classifier``
      on 200 synthetic UrbanSound clips (the card machine has no
      matplotlib); every command with its counts from 0, no plain version;
+ 9h. bench -- the five ``bench-*`` commands through ``cli.main`` at their
+     models' published widths (random weights from seeds; the Whisper
+     benches with a tokenizer of the published 51,865/51,866-token
+     layout; only run lengths cut, ``BENCH_RUNS``): ``bench-rtf --size
+     base`` (bf16, the full fallback ladder) and ``--size large-v3-turbo
+     --quantize int4 --kv-quant --no-fallback``, ``bench-streaming --size
+     base``, ``bench-continuous --engine asr --size base`` and ``--engine
+     music --lm-preset qwen3-0.6b``, ``bench-speculative --size base
+     --draft-size tiny``, ``bench-train`` at its default (Whisper-tiny,
+     B 16, LoRA 8, float32) and ``--size base --dtype bfloat16
+     --lora-rank 0``. Each prints one JSON line with every key the JAX
+     command prints and finite numbers, exits by its own rule
+     (``bench-rtf``: 1 exactly when its RTF is above the 0.05 target),
+     launches its kernels and no plain version (the FFT log-mel body,
+     K2's wgmma body in the bf16 encoders, K3 and its int8 arm, K9 in the
+     int4 run; K2/K7/K8 on 3xTF32 in f32 training, wgmma in bf16, with
+     exact counts); the continuous schedule takes no more decode steps
+     than the convoy; ``mfu_pct`` reads against the dtype's peak. Then
+     ``demo`` at Whisper-tiny on a thread: a WAV through ``/transcribe``
+     equal to an in-process Transcriber, ``/add`` of three labelled WAVs,
+     a 5-step ``/finetune`` polled on ``/status`` to ``done`` (``failed``
+     fails the phase), ``/swap`` and ``/transcribe?model=finetuned``.
+     First the host libraries: ``g++ --version`` and whether
+     ``ctypes.util.find_library`` finds libav (printed, never branched
+     on), and the SF2 synth built by g++ from ``audax_torch/native`` and
+     a minimal soundfont written here rendered twice (finite, not silent,
+     bit-equal);
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
      ``csrc/flash_bwd.cu``, count the CUDA-core launches, the last two timed
@@ -5257,6 +5285,343 @@ def _cli_classifiers(torch, d, smi, make_synthetic_urbansound):
     return out
 
 
+#: the keys each bench prints (the JAX command line's, which the port keeps)
+BENCH_KEYS = {
+    "bench-rtf": ("metric", "size", "dtype", "fallback_ladder", "seconds",
+                  "value", "target", "achieved_tflops", "mfu_pct"),
+    "bench-streaming": ("metric", "size", "dtype", "batch_slots", "streams",
+                        "value", "audio_seconds", "wall_seconds"),
+    "bench-continuous": ("metric", "engine", "size", "slots", "requests",
+                         "budget_range", "dtype", "value", "continuous",
+                         "convoy"),
+    "bench-speculative": ("metric", "size", "draft", "dtype", "spec_tokens",
+                          "tokens", "plain", "draft_alone",
+                          "floor_random_draft", "ceiling_full_acceptance",
+                          "ceiling_speedup", "greedy_agreement"),
+    "bench-train": ("metric", "size", "lora_rank", "batch_size", "dtype",
+                    "value", "sec_per_step", "audio_seconds_per_sec", "mesh",
+                    "fsdp", "achieved_tflops", "mfu_pct",
+                    "xla_counted_tflops"),
+}
+SCHEDULE_KEYS = ("wall_s", "tokens_per_s", "decode_steps", "slot_efficiency")
+#: the kernels of the bf16 Whisper paths (encoder on K2's wgmma body) and
+#: of their int4 + int8-KV twin (K3's int8 arm, K9's tensor-core body)
+BENCH_BF16_KERNELS = CLI_STREAM_KERNELS
+BENCH_Q4_KERNELS = ("log_mel_overlap_fft", "flash_forward_wgmma",
+                    "decode_attention_stacked_int8",
+                    "decode_attention_sm90_int8", "int4_matmul_mma")
+BENCH_TRAIN_KERNELS = {"float32": CLI_TRAIN_KERNELS[1:],
+                       "bfloat16": WGMMA}
+#: the bench phase's runs: (label, argv, the kernels it must launch, the
+#: launches predicted for it where the run fixes them). Widths are the
+#: published ones; only run lengths are cut (--seconds, --runs,
+#: --requests, --streams, --windows, --steps, --max-new-tokens).
+#: bench-train's predictions: K2 twice a site a step under full remat,
+#: K7 and K8 once, over 1 + --steps steps (Whisper-tiny 12 sites,
+#: Whisper-base 18)
+BENCH_RUNS = (
+    ("bench-rtf base bf16 (full ladder)",
+     ["bench-rtf", "--size", "base", "--seconds", "30", "--runs", "1"],
+     BENCH_BF16_KERNELS, {}),
+    ("bench-rtf large-v3-turbo int4 + int8 KV",
+     ["bench-rtf", "--size", "large-v3-turbo", "--quantize", "int4",
+      "--kv-quant", "--no-fallback", "--seconds", "30", "--runs", "2"],
+     BENCH_Q4_KERNELS, {}),
+    ("bench-streaming base", ["bench-streaming", "--size", "base",
+                              "--windows", "1"], BENCH_BF16_KERNELS, {}),
+    ("bench-continuous asr base",
+     ["bench-continuous", "--engine", "asr", "--size", "base",
+      "--requests", "16"], BENCH_BF16_KERNELS, {}),
+    ("bench-continuous music qwen3-0.6b",
+     ["bench-continuous", "--engine", "music", "--lm-preset", "qwen3-0.6b",
+      "--requests", "16"], BENCH_BF16_KERNELS, {}),
+    ("bench-speculative base / tiny",
+     ["bench-speculative", "--size", "base", "--draft-size", "tiny",
+      "--max-new-tokens", "32"], BENCH_BF16_KERNELS, {}),
+    ("bench-train tiny f32 LoRA 8 (default)",
+     ["bench-train", "--steps", "5"], BENCH_TRAIN_KERNELS["float32"],
+     {"flash_forward_tf32x3": 144, "flash_backward_dq_tf32x3": 72,
+      "flash_backward_dkv_tf32x3": 72}),
+    ("bench-train base bf16 full",
+     ["bench-train", "--size", "base", "--dtype", "bfloat16", "--lora-rank",
+      "0", "--steps", "5"], BENCH_TRAIN_KERNELS["bfloat16"],
+     {"flash_forward_wgmma": 216, "flash_backward_dq_wgmma": 108,
+      "flash_backward_dkv_wgmma": 108}),
+)
+
+
+def _finite_numbers(obj, where):
+    """Raise unless every number in ``obj`` (a JSON value) is finite."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            _finite_numbers(v, f"{where}.{k}")
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            _finite_numbers(v, f"{where}[{i}]")
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        if not math.isfinite(obj):
+            raise AssertionError(f"{where} = {obj}")
+
+
+def _run_bench(torch, argv, kernels, label, tokdir):
+    """One bench through ``cli.main`` on the card, its counts from 0: the
+    JSON line it prints (every key the JAX command prints, finite numbers),
+    its exit code by the command's own rule, its kernels and no plain
+    version. Returns (record, seconds, counts)."""
+    import contextlib
+    import io
+
+    from audax_torch.cli import main as cli
+    from audax_torch.ops import launch_counts, reset_launches
+
+    if argv[0] != "bench-continuous" or "music" not in argv:
+        argv = argv + ["--tokenizer-dir", tokdir]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    text = out.getvalue()
+    sys.stdout.write(text)
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"{label}: exit {rc}, no JSON line")
+    rec = json.loads(lines[-1])
+    missing = set(BENCH_KEYS[argv[0]]) - set(rec)
+    if missing:
+        raise AssertionError(f"{label}: keys {sorted(missing)} missing")
+    _finite_numbers(rec, label)
+    # bench-rtf's own contract: exit 1 exactly when the RTF is above its
+    # 0.05 target; every other bench exits 0
+    want = (int(rec["value"] > rec["target"]) if argv[0] == "bench-rtf"
+            else 0)
+    if rc != want:
+        raise AssertionError(f"{label}: exit {rc}, expected {want} for "
+                             f"{rec}")
+    _check_launches(counts, kernels, label)
+    _no_core_flash(counts, label)
+    ran = {k: c["cuda"] for k, c in counts.items() if c["cuda"]}
+    print(f"[bench] {label}: exit {rc}, {seconds:.2f} s; launches {ran}",
+          flush=True)
+    return rec, seconds, counts
+
+
+def write_minimal_sf2(path, sample_rate=16000):
+    """A minimal soundfont: one preset (bank 0, program 0) of one looped
+    440 Hz sine zone over every key, root key 69, with attack, decay,
+    sustain and release generators."""
+    import struct
+
+    import numpy as np
+    n = sample_rate // 4
+    smp = np.round(12000 * np.sin(2 * np.pi * 440 * np.arange(n)
+                                  / sample_rate)).astype("<i2")
+
+    def chunk(cid, body):
+        return cid + struct.pack("<I", len(body)) + body + b"\0" * (
+            len(body) & 1)
+
+    def name(s):
+        return s.encode().ljust(20, b"\0")
+
+    def gens(pairs):
+        return b"".join(struct.pack("<Hh", op, amt) for op, amt in pairs)
+
+    pdta = b"pdta" + b"".join(chunk(c, b) for c, b in (
+        (b"phdr", name("Sine") + struct.pack("<HHHIII", 0, 0, 0, 0, 0, 0)
+         + name("EOP") + struct.pack("<HHHIII", 0, 0, 1, 0, 0, 0)),
+        (b"pbag", struct.pack("<HHHH", 0, 0, 1, 0)),
+        (b"pmod", bytes(10)), (b"pgen", gens([(41, 0), (0, 0)])),
+        (b"inst", name("SineInst") + struct.pack("<H", 0) + name("EOI")
+         + struct.pack("<H", 1)),
+        (b"ibag", struct.pack("<HHHH", 0, 0, 7, 0)), (b"imod", bytes(10)),
+        (b"igen", gens([(43, 127 << 8), (34, -7200), (36, -1200), (37, 60),
+                        (38, -2400), (54, 1), (53, 0), (0, 0)])),
+        (b"shdr", name("sine") + struct.pack(
+            "<IIIIIBbHH", 0, n, 400, n - 400, sample_rate, 69, 0, 0, 1)
+         + name("EOS") + struct.pack("<IIIIIBbHH", *([0] * 9)))))
+    body = (b"sfbk" + chunk(b"LIST", b"INFO" + chunk(
+        b"ifil", struct.pack("<HH", 2, 1)))
+            + chunk(b"LIST", b"sdta" + chunk(b"smpl", smp.tobytes()
+                                             + bytes(92)))
+            + chunk(b"LIST", pdta))
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+    return path
+
+
+def _host_libraries(d, rng, smi):
+    """The host toolchain the native code needs (printed, not branched on),
+    then the SF2 synth built by g++ and rendered twice."""
+    import ctypes.util
+    import os
+
+    import numpy as np
+
+    from audax_torch.native.bindings import Sf2Synth
+    from audax_torch.symbolic.midi import MidiFile, Note, Tempo
+
+    gxx = _run(["g++", "--version"]).splitlines()[0]
+    libs = {lib: ctypes.util.find_library(lib)
+            for lib in ("avformat", "avcodec", "avutil")}
+    print(f"[bench] host: {gxx}; find_library {libs}", flush=True)
+    mf = MidiFile(ticks_per_beat=480)
+    mf.tempos.append(Tempo(0, 500000))
+    tick = 0
+    for pitch in rng.integers(48, 84, 24):
+        mf.notes.append(Note(tick, 240, int(pitch), 96))
+        tick += 240
+    t0 = time.perf_counter()
+    synth = Sf2Synth(write_minimal_sf2(os.path.join(d, "sine.sf2")))
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a = synth.render(mf, 16000)
+    render = time.perf_counter() - t0
+    b = synth.render(mf, 16000)
+    synth.close()
+    peak = float(np.abs(a).max())
+    print(f"[bench] SF2 synth: built and opened in {built:.2f} s, "
+          f"{mf.duration_seconds:.2f} s of audio rendered in {render:.4f} s, "
+          f"peak {peak:.4f}, two renders bit-equal {np.array_equal(a, b)} "
+          f"({smi})", flush=True)
+    if not (np.isfinite(a).all() and peak > 0.05 and np.array_equal(a, b)):
+        raise AssertionError(f"SF2 render: peak {peak}, finite "
+                             f"{np.isfinite(a).all()}")
+
+
+def _demo_round_trip(torch, rng, d, smi):
+    """``demo`` (Whisper-tiny, its defaults) on a thread: a WAV through
+    ``/transcribe`` against an in-process Transcriber built the same way,
+    ``/add`` of three labelled WAVs, a 5-step ``/finetune`` polled on
+    ``/status`` to ``done``, ``/swap`` and ``/transcribe?model=finetuned``.
+    Returns the run's counts."""
+    import os
+    import urllib.request
+
+    from audax_torch.cli import demo_ui
+    from audax_torch.cli import main as cli
+    from audax_torch.data.audio_io import read_wav, write_wav
+    from audax_torch.infer.transcribe import Transcriber
+
+    clips = []                          # (samples as read back, WAV bytes)
+    for i in range(4):
+        path = os.path.join(d, f"demo{i}.wav")
+        write_wav(path, _speechlike(rng, 5.0, pitch=100.0 + 20 * i), 16000)
+        with open(path, "rb") as fh:
+            clips.append((read_wav(path)[0][:, 0], fh.read()))
+
+    def call(port, path, body=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=body,
+                                     method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    def client(server):
+        port = server.server_address[1]
+        t0 = time.perf_counter()
+        first = call(port, "/transcribe?model=original", clips[0][1])
+        t_tr = time.perf_counter() - t0
+        for i, text in enumerate(("hello world", "the quick brown fox",
+                                  "how are you today")):
+            call(port, f"/add?text={urllib.request.quote(text)}",
+                 clips[1 + i][1])
+        t0 = time.perf_counter()
+        call(port, "/finetune", b"")
+        while True:
+            status = call(port, "/status")
+            if status["state"] != "running":
+                break
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"demo fine-tune still running: "
+                                     f"{status}")
+            time.sleep(0.2)
+        t_ft = time.perf_counter() - t0
+        if status["state"] != "done":
+            raise AssertionError(f"demo fine-tune: {status}")
+        swapped = call(port, "/swap", b"")
+        tuned = call(port, "/transcribe?model=finetuned", clips[0][1])
+        return first, t_tr, status, t_ft, swapped, tuned
+
+    cwd = os.getcwd()
+    os.chdir(d)                     # the demo's dataset dir is relative
+    try:
+        counts, (first, t_tr, status, t_ft, swapped, tuned) = _serve_cli(
+            torch, demo_ui, "serve",
+            ["demo", "--port", "0", "--ft-steps", "5"], "demo (Whisper-tiny)",
+            client, FINETUNE_KERNELS)
+    finally:
+        os.chdir(cwd)
+    params, cfg, tok = cli._load_whisper("tiny", "", "", "cuda")
+    want = Transcriber(params, cfg, tok, device="cuda").transcribe(
+        clips[0][0]).text
+    print(f"[bench] demo: /transcribe in {t_tr:.2f} s (RTF {first['rtf']}), "
+          f"equal to the in-process Transcriber {first['text'] == want}; "
+          f"5-step /finetune {status['state']} in {t_ft:.2f} s (loss "
+          f"{status['loss']}); /swap {swapped}; finetuned text "
+          f"{len(tuned['text'])} characters ({smi})", flush=True)
+    if first["text"] != want or swapped != {"serving": "finetuned"} \
+            or not math.isfinite(status["loss"]):
+        raise AssertionError(f"demo: {first!r} vs {want!r}; {status}; "
+                             f"{swapped}")
+    return counts
+
+
+def bench_phase(torch, rng, smi):
+    """The five ``bench-*`` commands through ``cli.main`` at their models'
+    published widths (random weights from seeds; the Whisper benches with a
+    tokenizer of the published 51,865/51,866-token layout), the ``demo``
+    round trip at Whisper-tiny, and the host libraries (a g++ and libav
+    probe, the SF2 synth). Returns the launch counts of every run."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    all_counts = []
+    with tempfile.TemporaryDirectory() as d:
+        _host_libraries(d, rng, smi)
+        tokdir = os.path.join(d, "tok")
+        _tokenizer(51866).bpe.save(tokdir)
+        records = {}
+        for label, argv, kernels, predicted in BENCH_RUNS:
+            rec, secs, counts = _run_bench(torch, argv, kernels, label,
+                                           tokdir)
+            all_counts.append(counts)
+            records[label] = rec
+            print(f"[bench] {label}: {secs:.2f} s ({smi})", flush=True)
+            off = {k: (counts[k]["cuda"], n) for k, n in predicted.items()
+                   if counts[k]["cuda"] != n}
+            if off:
+                raise AssertionError(f"{label}: launches (counted, "
+                                     f"predicted) {off}")
+            if argv[0] == "bench-continuous":
+                c, v = rec["continuous"], rec["convoy"]
+                if set(c) != set(SCHEDULE_KEYS) or set(v) != set(
+                        SCHEDULE_KEYS) or c["decode_steps"] > v[
+                        "decode_steps"]:
+                    raise AssertionError(f"{label}: {rec}")
+            if argv[0] == "bench-train":
+                from audax_torch.utils.profiling import (H100_BF16_FLOPS,
+                                                         H100_F32_FLOPS)
+                peak = (H100_BF16_FLOPS if rec["dtype"] == "bfloat16"
+                        else H100_F32_FLOPS)
+                share = 100.0 * rec["achieved_tflops"] * 1e12 / peak
+                print(f"[bench] {label}: {rec['value']} examples/s, "
+                      f"{rec['achieved_tflops']} TFLOP/s = {share:.2f}% of "
+                      f"the {rec['dtype']} peak {peak / 1e12:.0f} TFLOP/s "
+                      f"(mfu_pct {rec['mfu_pct']}) ({smi})", flush=True)
+                if abs(share - rec["mfu_pct"]) > 0.02 + 0.01 * share:
+                    raise AssertionError(f"{label}: mfu_pct {rec}")
+        all_counts.append(_demo_round_trip(torch, rng, d, smi))
+    print(f"[bench] phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"({smi})", flush=True)
+    return all_counts
+
+
 def _paths(tree, prefix=""):
     """Leaf paths of a nested dict, in ``tree_leaves`` order."""
     out = []
@@ -5443,13 +5808,14 @@ def main() -> int:
     moe_train = moe_train_phase(torch, np.random.default_rng(22), smi)
     moe_probe_phase(torch)
     cli = cli_phase(torch, np.random.default_rng(23), smi)
+    bench = bench_phase(torch, np.random.default_rng(24), smi)
     # launches of the main paths, each counted from 0 just before it; the
     # tools' kernels from the probes phase; K2/K7/K8 and P1 from the
     # attention tools as well
     launches = {k: sum(p[k]["cuda"] for p in (transcribe, decoders, train,
                                               serve, k6, classify, *music,
                                               *music_train, *moe_serve,
-                                              *moe_train, *cli))
+                                              *moe_train, *cli, *bench))
                 for k in transcribe}
     launches.update(probes)
     for k in FLASH_BF16 + ("flash_forward_fold",):

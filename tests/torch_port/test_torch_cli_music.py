@@ -178,8 +178,11 @@ def test_cli_registry_and_mesh(files, capsys):
                   "export-hf", "finetune", "preprocess", "sample", "serve",
                   "stream-serve", "test-cnn", "test-transformer",
                   "train-cnn", "train-transformer", "transcribe",
-                  "verify-parity"])
-    assert cli.main(["bench-rtf"]) == 2          # not registered yet
+                  "verify-parity",
+                  # the benches, memo2wav and the demo
+                  "bench-continuous", "bench-rtf", "bench-speculative",
+                  "bench-streaming", "bench-train", "demo", "memo2wav"])
+    assert cli.main(["no-such-command"]) == 2
     assert "infer-music" in capsys.readouterr().err
     for flag in (["--tp", "2"], ["--dp", "2"], ["--fsdp"]):
         with pytest.raises(NotImplementedError, match="parallelism"):

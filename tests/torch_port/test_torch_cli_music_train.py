@@ -94,7 +94,8 @@ def test_data_tools_match_jax(data):
 
 
 def test_soundfont_and_moe_flags_raise(data, tmp_path, monkeypatch):
-    """A soundfont still raises. ``train-lm --moe-experts 4 --moe-top-k 2``,
+    """A soundfont that does not parse raises (no fallback voice).
+    ``train-lm --moe-experts 4 --moe-top-k 2``,
     which raised before the MoE slice, now trains: the port started from
     the JAX command line's own initial weights (its ``init_causal_lm`` is
     swapped for JAX's draw through the weight bridge) keeps JAX's loss
@@ -108,7 +109,7 @@ def test_soundfont_and_moe_flags_raise(data, tmp_path, monkeypatch):
     from audax_torch.train.checkpoints import load_pytree
 
     d = data["p"][0]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="soundfont"):
         _run(cli, ["abc2wav", "--abc-text", "X:1\nK:C\nCDE|", "--out",
                    str(tmp_path / "x.wav"), "--soundfont", "a.sf2"],
              tmp_path)

@@ -13,8 +13,9 @@ fallback is the Transcriber's, held against JAX in its own tests): the
 CSV text is then identical. ``finetune``'s loss history agrees at rel 1e-4,
 ``preprocess`` writes the same Parquet rows (log-mel within 2e-3), the
 classifiers' histories agree at dropout 0 from the JAX init, and the
-servers answer one request each with the same text. The mesh flags and a
-non-WAV input raise.
+servers answer one request each with the same text. The mesh flags raise;
+an mp3 (written by JAX's encoder) reads through the port's native decoder
+in ``transcribe``, ``detect-language`` and ``sample`` with JAX's answers.
 """
 
 import csv
@@ -62,8 +63,8 @@ def _jax_whisper(root, name, n_audio_ctx, vocab, seed=0):
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
-    """Tokenizer dir, a 1 s-window and a 30 s-window checkpoint, three WAVs
-    with transcript sidecars, and one non-WAV file."""
+    """Tokenizer dir, a 1 s-window and a 30 s-window checkpoint, and three
+    WAVs with transcript sidecars."""
     root = tmp_path_factory.mktemp("cli_whisper")
     bpe = jax_train_bpe(CORPUS, vocab_size=300)
     bpe.save(str(root / "tok"))
@@ -77,12 +78,10 @@ def files(tmp_path_factory):
              + 0.05 * r.standard_normal(t.size)).astype(np.float32)
         write_wav(str(wavs / f"m{i}.wav"), x, SR)
         (wavs / f"m{i}.txt").write_text(text)
-    (root / "clip.mp3").write_bytes(b"ID3\x03\x00\x00\x00" + bytes(64))
     return {"root": root, "tok": str(root / "tok"),
             "ckpt": _jax_whisper(root, "w1s", 50, vocab),
             "ckpt30": _jax_whisper(root, "w30s", 1500, vocab, seed=1),
-            "wavs": sorted(str(p) for p in wavs.glob("*.wav")),
-            "mp3": str(root / "clip.mp3")}
+            "wavs": sorted(str(p) for p in wavs.glob("*.wav"))}
 
 
 @pytest.fixture
@@ -465,12 +464,71 @@ def test_sequence_parallel_raises(files):
                   "--device", "cpu"])
 
 
+@pytest.fixture(scope="module")
+def memo(files):
+    """An mp3 written by the JAX package's encoder, and a float32 WAV of the
+    samples JAX's decoder reads from it (JAX's ``transcribe`` and
+    ``sample`` read WAV only)."""
+    from audax.data.audio_io import read_audio as jax_read_audio
+    from audax.native.bindings import encode_audio_file
+    root = files["root"]
+    t = np.arange(int(2.5 * SR)) / SR
+    x = (0.2 * np.sin(2 * np.pi * 330 * t)
+         + 0.05 * np.random.default_rng(3).standard_normal(t.size))
+    mp3, wav = root / "memo" / "memo.mp3", root / "memo_wav" / "memo.wav"
+    mp3.parent.mkdir()
+    wav.parent.mkdir()
+    encode_audio_file(str(mp3), x.astype(np.float32), SR)
+    y, rate = jax_read_audio(str(mp3))
+    write_wav(str(wav), y, rate, bits=32)
+    return {"mp3": str(mp3), "wav": str(wav)}
+
+
 @pytest.mark.parametrize("cmd", ["transcribe", "detect-language", "sample"])
-def test_non_wav_input_raises(files, tmp_path, cmd):
-    argv = ([files["mp3"]] if cmd != "sample" else ["--wav", files["mp3"]])
-    with pytest.raises(NotImplementedError, match="not a WAV"):
-        cli.main([cmd] + argv + ["--csv", str(tmp_path / "x.csv")]
-                 * (cmd == "transcribe") + ["--device", "cpu"])
+def test_compressed_input_matches_jax(files, memo, greedy, tmp_path,
+                                      monkeypatch, capsys, cmd):
+    """The same mp3 through the port's command (its native decoder) gives
+    JAX's answer: ``detect-language`` reads the mp3 on both sides;
+    JAX's ``transcribe`` and ``sample`` read WAV only, so they get the
+    float32 WAV of the samples JAX's decoder gives."""
+    model = ["--ckpt", files["ckpt"], "--tokenizer-dir", files["tok"]]
+    if cmd == "transcribe":
+        ours, theirs = str(tmp_path / "ours.csv"), str(tmp_path / "theirs.csv")
+        assert cli.main(["transcribe", memo["mp3"], *model, "--csv", ours,
+                         "--device", "cpu"]) == 0
+        assert jax_cli._COMMANDS["transcribe"](
+            [memo["wav"], *model, "--csv", theirs]) == 0
+        (a,), (b,) = _rows(ours).values(), _rows(theirs).values()
+        assert a["file"] == "memo.mp3" and not a.get("error")
+        assert a["text"] == b["text"]
+    elif cmd == "detect-language":
+        common = [memo["mp3"], *model, "--top", "3"]
+        assert cli.main(["detect-language", *common, "--device", "cpu"]) == 0
+        ours = capsys.readouterr().out.split()
+        assert jax_cli._COMMANDS["detect-language"](common) == 0
+        theirs = capsys.readouterr().out.split()
+        assert ours[0] == "memo.mp3:" and ours[:2] == theirs[:2]
+        assert [w.split("=")[0] for w in ours[2:]] == \
+            [w.split("=")[0] for w in theirs[2:]]
+        np.testing.assert_allclose(
+            [float(w.split("=")[1]) for w in ours[2:]],
+            [float(w.split("=")[1]) for w in theirs[2:]], atol=1.5e-3)
+    else:
+        from audax.eval import plots as jax_plots
+        from audax_torch.eval import plots
+        got = {}
+        for name, mod in (("ours", plots), ("theirs", jax_plots)):
+            monkeypatch.setattr(mod, "plot_sample", lambda x, f, *a, _n=name,
+                                **k: got.__setitem__(_n, (np.asarray(x),
+                                                          np.asarray(f))))
+        assert cli.main(["sample", "--wav", memo["mp3"], "--out",
+                         str(tmp_path / "a.png"), "--device", "cpu"]) == 0
+        assert jax_cli._COMMANDS["sample"](
+            ["--wav", memo["wav"], "--out", str(tmp_path / "b.png")]) == 0
+        # the samples plotted are JAX's bit for bit; the log-mel beside
+        # them is the frontend's, held against JAX in test_torch_frontend
+        np.testing.assert_array_equal(got["ours"][0], got["theirs"][0])
+        assert got["ours"][1].shape == got["theirs"][1].shape
 
 
 def test_tokenizer_dir_without_vocab_raises(files, tmp_path):
@@ -480,10 +538,6 @@ def test_tokenizer_dir_without_vocab_raises(files, tmp_path):
 
 
 def test_registry_counts_the_ported_commands():
-    """28 of the JAX command line's 35: all but the five benches,
-    ``memo2wav`` and ``demo``."""
-    left = set(jax_cli._COMMANDS) - set(cli._COMMANDS)
-    assert left == {"bench-rtf", "bench-streaming", "bench-continuous",
-                    "bench-speculative", "bench-train", "memo2wav", "demo"}
-    assert len(cli._COMMANDS) == 28 and set(cli._COMMANDS) <= set(
-        jax_cli._COMMANDS)
+    """All 35 of the JAX command line's commands, and no other."""
+    assert set(cli._COMMANDS) == set(jax_cli._COMMANDS)
+    assert len(cli._COMMANDS) == 35

@@ -7,8 +7,10 @@ the JAX package's over its ``ContinuousBatcher``, the port's over its own
 on the CPU. The same 16-bit WAV posted to both gives the same ``json``
 body (tokens and text exact, avg_logprob to 1e-4), and the same ``text``,
 ``srt`` and ``vtt`` bodies; three concurrent clients through two slots all
-get the same answer. ``/healthz`` answers, and a compressed-container
-upload gets 415 naming the native audio decoder.
+get the same answer. ``/healthz`` answers. Compressed uploads (m4a, mp3,
+ogg, flac, written by JAX's encoder) are decoded by the port's native
+decoder with the JAX server's answers; an undecodable one gets JAX's 400
+(415 before the decoder was ported).
 """
 
 import json
@@ -136,9 +138,31 @@ def test_concurrent_clients_share_the_engine(servers, tmp_path):
     ("", b"ID3\x03\x00\x00\x00" + b"\x00" * 64),
 ], ids=["m4a", "mp3-body"])
 def test_compressed_uploads_get_415(servers, query, body):
-    code, msg = _post(servers["torch"], body, query)
-    assert code == 415
-    assert "native audio decoder" in json.loads(msg)["error"]
+    """An undecodable compressed body: 400 "undecodable audio" from both
+    servers (the port answered 415 until its native decoder came)."""
+    for port in servers.values():
+        code, msg = _post(port, body, query)
+        assert code == 400
+        assert "undecodable audio" in json.loads(msg)["error"]
+
+
+@pytest.mark.parametrize("fmt", ["m4a", "mp3", "ogg", "flac"])
+def test_compressed_uploads_match_jax(servers, tmp_path, fmt):
+    """A compressed upload (``?format=<ext>``, written by JAX's encoder)
+    gets the JAX server's answer: the same tokens and text."""
+    from audax.native.bindings import encode_audio_file
+    rng = np.random.default_rng(7)
+    t = np.arange(12000) / 16000.0
+    x = 0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(t.size)
+    path = tmp_path / f"clip.{fmt}"
+    encode_audio_file(str(path), x.astype(np.float32), 16000)
+    body = path.read_bytes()
+    (jcode, jbody), (code, ours) = (_post(servers[k], body, f"?format={fmt}")
+                                    for k in ("jax", "torch"))
+    assert code == jcode == 200, (ours, jbody)
+    ref, got = json.loads(jbody), json.loads(ours)
+    assert got["tokens"] == ref["tokens"] and got["text"] == ref["text"]
+    assert got["audio_seconds"] == ref["audio_seconds"]
 
 
 def test_bad_requests(servers, tmp_path):

@@ -55,10 +55,12 @@ def test_render_simple_matches_native(seed, poly):
 
 
 def test_soundfont_raises(tmp_path):
+    """A soundfont that does not parse raises: the SF2 synth has no
+    fallback voice (the JAX package falls back to its additive synth)."""
     mf = PSynth.piano_full_range("")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="soundfont"):
         PSynth.render_midi(mf, soundfont="piano.sf2")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="soundfont"):
         PSynth.make_midi_dataset(DataGenConfig(num_items=1,
                                                out_dir=str(tmp_path),
                                                soundfont="piano.sf2"))

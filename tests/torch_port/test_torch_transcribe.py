@@ -193,7 +193,12 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.train.finetune_loop', 'audax_torch.utils.reports',"
         " 'audax_torch.tools.moe_decode_probe', 'audax_torch.models.hf_files',"
         " 'audax_torch.models.port', 'audax_torch.models.export',"
-        " 'audax_torch.core.artifacts', 'audax_torch.eval.plots'}\n"
+        " 'audax_torch.core.artifacts', 'audax_torch.eval.plots',"
+        " 'audax_torch.core.rng', 'audax_torch.native.bindings',"
+        " 'audax_torch.native.build', 'audax_torch.cli.demo_ui',"
+        " 'audax_torch.tools.preprocess_e2e_bench',"
+        " 'audax_torch.tools.ft_run_report',"
+        " 'audax_torch.tools.make_padded_tokenizer'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow', 'matplotlib'))\n"
