@@ -93,7 +93,7 @@ class Scheduler(threading.Thread):
         self._inbox: List[tuple] = []
         self._events = {}
         self._results = {}
-        self._stop = False
+        self._stopping = False
         self._cancelled = set()
         #: not None => the scheduler thread died with this error; serving
         #: is down (healthz reports it, new requests 503 at once)
@@ -163,7 +163,7 @@ class Scheduler(threading.Thread):
 
     def shutdown(self) -> None:
         with self._cv:
-            self._stop = True
+            self._stopping = True
             self._cv.notify()
 
     # -- engine thread ----------------------------------------------------
@@ -185,11 +185,11 @@ class Scheduler(threading.Thread):
     def _serve_loop(self) -> None:
         while True:
             with self._cv:
-                while (not self._stop and not self._inbox
+                while (not self._stopping and not self._inbox
                        and self.engine.live() == 0
                        and self.engine.pending() == 0):
                     self._cv.wait()
-                if self._stop:
+                if self._stopping:
                     return
                 inbox, self._inbox = self._inbox, []
                 cancelled, self._cancelled = self._cancelled, set()

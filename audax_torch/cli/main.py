@@ -35,9 +35,13 @@ the orbax reader and carried by ``models/bridge.py``), with the
 ``finetune`` write. Audio inputs are WAV or any container the port's
 native decoder reads over the system libav (``data/audio_io.py:
 read_audio``); ``--soundfont`` renders through the port's SF2 synth
-(``native/``). The mesh flags (``--dp``/``--tp``/``--fsdp``, ``finetune
---sp``) are accepted and raise when set: tensor and data parallelism wait
-for the parallelism slice. ``train-lm --moe-experts N`` pretrains a
+(``native/``). The mesh flags ``--dp``/``--tp``/``--fsdp`` build a (data,
+model) mesh over the ranks of a ``torchrun`` launch (``_mesh_from_args``)
+for ``finetune``, ``transcribe``, ``serve``, ``train-cnn``,
+``train-transformer``, ``train-lm`` and ``infer-music --wav-dir``; rank 0
+writes the files. ``train-music``, ``stream-serve`` and ``finetune --sp``
+raise until slice 11 b of the port's parallelism; the benches time one
+device and raise on them. ``train-lm --moe-experts N`` pretrains a
 Qwen3-MoE-family decoder (the ragged impl, the Switch aux loss), as the
 JAX command line does. The port's own flags: ``--device`` (default the
 CUDA card; ``cpu`` runs every kernel's plain version), ``--out`` on
@@ -90,10 +94,43 @@ def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
                    help="shard params + Adam moments over the data axis")
 
 
-def _check_no_mesh(args) -> None:
+def _check_no_mesh(args, why: str = "arrive with slice 11 b of the port's "
+                   "parallelism") -> None:
     if args.dp or args.tp > 1 or args.fsdp:
-        raise NotImplementedError("--dp/--tp/--fsdp (a device mesh) arrive "
-                                  "with the parallelism slice of the port")
+        raise NotImplementedError(f"--dp/--tp/--fsdp (a device mesh) {why}")
+
+
+def _mesh_from_args(args, device=None):
+    """(mesh, fsdp) from --dp/--tp/--fsdp; (None, False) = one device. The
+    ranks come from ``torchrun`` (``parallel/mesh.py:init_distributed``);
+    a mesh larger than the world raises before any rank waits for
+    another."""
+    if not (args.dp or args.tp > 1 or args.fsdp):
+        return None, False
+    import torch.distributed as dist
+
+    from audax_torch.core.config import MeshConfig
+    from audax_torch.parallel.mesh import init_distributed, make_mesh
+
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    data = args.dp if args.dp else max(1, world // args.tp)
+    if world % args.tp or data * args.tp > world:
+        raise ValueError(f"mesh ({data} data x {args.tp} model) needs "
+                         f"{data * args.tp} devices, only {world} present "
+                         "(launch the ranks with torchrun)")
+    init_distributed(device=device)
+    mesh = make_mesh(MeshConfig(data=args.dp if args.dp else -1,
+                                model=args.tp), device=device)
+    log.info("mesh: %s%s", dict(zip(mesh.mesh_dim_names, mesh.shape)),
+             " + FSDP" if args.fsdp else "")
+    return mesh, args.fsdp
+
+
+def _lead() -> bool:
+    """Whether this process writes the files: rank 0, or the only one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 #: the published whisper family; "turbo" is the distilled
@@ -182,7 +219,8 @@ def cmd_infer_music(argv) -> int:
                         "text, the decode steps and the seconds here")
     _add_mesh_flags(p)
     args = p.parse_args(argv)
-    _check_no_mesh(args)
+    if args.wav and (args.dp or args.tp > 1 or args.fsdp):
+        p.error("a mesh serves --wav-dir (the continuous generator)")
 
     import numpy as np
     import torch
@@ -197,6 +235,7 @@ def cmd_infer_music(argv) -> int:
     from audax_torch.train.two_tower import load_trainable_checkpoint
 
     device = resolve_device(args.device)
+    mesh, _ = _mesh_from_args(args, device)
     tt = TwoTowerConfig.from_env()
     lm_cfg = _lm_preset(args.lm_size, 2048)
     audio_cfg = _whisper_preset(tt.whisper_size)
@@ -230,7 +269,7 @@ def cmd_infer_music(argv) -> int:
             window_seconds=args.chunk_seconds,
             max_new_tokens=args.max_tokens - 1,
             temperature=args.temperature, allowed_ids=allowed,
-            device=device)
+            mesh=mesh, device=device)
         names = sorted(f for f in os.listdir(args.wav_dir)
                        if f.lower().endswith(".wav"))
         t0 = time.perf_counter()
@@ -243,6 +282,8 @@ def cmd_infer_music(argv) -> int:
             r = results[name]
             print(f"== {r.request_id} (avg_logprob {r.avg_logprob:.3f})")
             print(r.text)
+        if not _lead():
+            return 0
         _write_out(args.out, {
             "mode": "wav-dir", "seconds": seconds,
             "decode_steps": g.decode_steps,
@@ -321,7 +362,6 @@ def cmd_train_lm(argv) -> int:
     _add_device_flag(p)
     _add_mesh_flags(p)
     args = p.parse_args(argv)
-    _check_no_mesh(args)
 
     import numpy as np
     import torch
@@ -333,6 +373,7 @@ def cmd_train_lm(argv) -> int:
     from audax_torch.train.metrics_sink import MetricsSink
 
     device = resolve_device(args.device)
+    mesh, fsdp = _mesh_from_args(args, device)
     bpe = BPE.load(args.tokenizer_dir)
     paths = []
     for c in args.corpus:
@@ -363,11 +404,15 @@ def cmd_train_lm(argv) -> int:
     params = init_causal_lm(cfg, torch.Generator().manual_seed(args.seed),
                             device=device)
     sink = MetricsSink("lm", config={"model": cfg.__dict__.copy(),
-                                     "train": train_cfg.__dict__.copy()})
+                                     "train": train_cfg.__dict__.copy()}) \
+        if _lead() else None
     t0 = time.perf_counter()
     _, history = fit_lm(params, cfg, train_cfg, np.asarray(ids, np.int32),
-                        ckpt_dir=args.out_dir, sink=sink, device=device)
+                        ckpt_dir=args.out_dir, sink=sink, mesh=mesh,
+                        fsdp=fsdp, device=device)
     seconds = time.perf_counter() - t0
+    if not _lead():
+        return 0
     sink.close()
     if history:
         print({k: round(v, 4) for k, v in history[-1].items()})
@@ -824,8 +869,6 @@ def _classifier_common(argv, model_kind: str, train: bool) -> int:
         p.add_argument("--no-plot", action="store_true",
                        help="skip the confusion-matrix PNG (matplotlib)")
     args = p.parse_args(argv)
-    if train:
-        _check_no_mesh(args)
 
     from audax_torch.core.artifacts import stamped_name
     from audax_torch.core.config import (ClassifierTrainConfig, MelConfig,
@@ -842,6 +885,7 @@ def _classifier_common(argv, model_kind: str, train: bool) -> int:
     from audax_torch.train.steps import TrainState, make_classifier_steps
 
     device = resolve_device(args.device)
+    mesh = _mesh_from_args(args, device)[0] if train else None
     us = UrbanSoundConfig.from_env()
     tc = ClassifierTrainConfig.from_env()
     if args.epochs:
@@ -863,12 +907,15 @@ def _classifier_common(argv, model_kind: str, train: bool) -> int:
     ckpt_dir = args.ckpt_dir or os.path.join("artifacts", "ckpt", run)
 
     if train:
-        sink = MetricsSink(run, config={"model": model_kind, **tc.asdict()})
+        lead = _lead()
+        sink = (MetricsSink(run, config={"model": model_kind, **tc.asdict()})
+                if lead else None)
         mgr = CheckpointManager(ckpt_dir, config=tc.asdict())
         fit_classifier(model, data, ev if len(ev["y"]) else None, tc,
-                       sink=sink, ckpt_manager=mgr, device=device)
+                       sink=sink, ckpt_manager=mgr, mesh=mesh, device=device)
         mgr.close()
-        sink.close()
+        if sink is not None:
+            sink.close()
         print(ckpt_dir)
         return 0
 
@@ -1406,7 +1453,6 @@ def cmd_transcribe(argv) -> int:
     _add_device_flag(p)
     _add_mesh_flags(p)
     args = p.parse_args(argv)
-    _check_no_mesh(args)
     import torch
 
     from audax_torch.core.runtime import resolve_device
@@ -1417,6 +1463,7 @@ def cmd_transcribe(argv) -> int:
         paths.extend(sorted(glob.glob(os.path.join(w, "*.wav")))
                      if os.path.isdir(w) else [w])
     device = resolve_device(args.device)
+    mesh, _ = _mesh_from_args(args, device)
     params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
                                      device)
     draft = None
@@ -1459,10 +1506,12 @@ def cmd_transcribe(argv) -> int:
                      suppress_blank=not args.no_suppress_blank,
                      vad_threshold_db=args.vad_threshold_db,
                      initial_prompt=args.initial_prompt,
-                     dtype=_dtype(args.dtype), device=device)
+                     dtype=_dtype(args.dtype), mesh=mesh, device=device)
+    lead = _lead()
     rows = batch_transcribe_to_csv(
-        tr, paths, args.csv, output_format=args.output_format,
-        output_dir=args.output_dir, verbose=args.verbose,
+        tr, paths, args.csv if lead else None, write_sidecars=lead,
+        output_format=args.output_format if lead else None,
+        output_dir=args.output_dir, verbose=args.verbose and lead,
         writer_opts={"max_line_width": args.max_line_width,
                      "max_line_count": args.max_line_count,
                      "max_words_per_line": args.max_words_per_line,
@@ -1529,7 +1578,7 @@ def cmd_finetune(argv) -> int:
     p.add_argument("--spec-augment", action="store_true")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel axis size (a device mesh: "
-                        "arrives with the parallelism slice)")
+                        "arrives with slice 11 b of the port)")
     p.add_argument("--chunk-seconds", type=float, default=30.0)
     p.add_argument("--eval-suppress-tokens", default="-1")
     p.add_argument("--moment-dtype", default="",
@@ -1540,9 +1589,8 @@ def cmd_finetune(argv) -> int:
     if args.sp > 1 and (args.tp > 1 or args.fsdp):
         p.error("--sp composes with --dp only (not --tp/--fsdp)")
     if args.sp > 1:
-        raise NotImplementedError("--sp (a device mesh) arrives with the "
-                                  "parallelism slice of the port")
-    _check_no_mesh(args)
+        raise NotImplementedError("--sp (a sequence-parallel device mesh) "
+                                  "arrives with slice 11 b of the port")
 
     from audax_torch.core.config import FineTuneConfig, MelConfig
     from audax_torch.core.runtime import resolve_device
@@ -1553,6 +1601,8 @@ def cmd_finetune(argv) -> int:
     from audax_torch.train.metrics_sink import MetricsSink
 
     device = resolve_device(args.device)
+    mesh, fsdp = _mesh_from_args(args, device)
+    lead = _lead()
     ft = FineTuneConfig.from_env()
     if args.steps:
         ft = replace(ft, max_steps=args.steps)
@@ -1599,14 +1649,16 @@ def cmd_finetune(argv) -> int:
                           device=device)
         before = {ex["file"]: tr0.transcribe(ex["audio"]).text
                   for ex in examples}
-    sink = MetricsSink("whisper_ft", config=ft.asdict())
+    sink = MetricsSink("whisper_ft", config=ft.asdict()) if lead else None
     state, history = finetune_whisper(
         params, cfg, tok, examples, ft, mel_cfg=mel_cfg, sink=sink,
         eval_examples=examples,
         eval_suppress_tokens=_suppress(args.eval_suppress_tokens),
-        device=device)
+        mesh=mesh, fsdp=fsdp, device=device)
+    serving = history["best_params"] or state.full_params()
+    if not lead:
+        return 0
     sink.close()
-    serving = history["best_params"] or state.model_params()
     save_pytree(args.out, serving)
     # the dims sidecar: a --chunk-seconds run carries a shortened
     # n_audio_ctx, which transcribe --ckpt and export-hf read
@@ -1784,30 +1836,43 @@ def cmd_serve(argv) -> int:
     _add_device_flag(p)
     _add_mesh_flags(p)
     args = p.parse_args(argv)
-    _check_no_mesh(args)
 
     from audax_torch.cli import http_server
     from audax_torch.core.runtime import resolve_device
-    from audax_torch.infer.continuous import ContinuousBatcher
+    from audax_torch.infer.continuous import ContinuousBatcher, Lockstep
 
     device = resolve_device(args.device)
+    mesh, _ = _mesh_from_args(args, device)
     params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
                                      device)
+    if mesh is not None:
+        from audax_torch.parallel.sharding import shard_params
+        params = shard_params(params, mesh)
     cb = ContinuousBatcher(
         params, cfg, tok, slots=args.slots, lang=args.lang,
         max_new_tokens=args.max_tokens, steps_per_sync=args.steps_per_sync,
         dtype=_dtype(args.dtype), kv_quant=args.kv_quant,
         suppress_blank=args.suppress_blank,
-        suppress_tokens=_suppress(args.suppress_tokens), device=device)
+        suppress_tokens=_suppress(args.suppress_tokens), mesh=mesh,
+        device=device)
     del params
     if not args.no_warmup:
         log.info("warming up (one full admit of every slot)...")
         cb.warmup()
+    if mesh is not None:
+        # rank 0 answers HTTP; every rank steps the engine in lockstep
+        cb = Lockstep(cb)
+        if not _lead():
+            cb.follow()
+            return 0
     server = http_server.serve_http(cb, host=args.host, port=args.port,
                                     max_inflight=args.max_inflight or None)
     log.success("POST audio to http://%s:%d/v1/audio/transcriptions",
                 args.host, server.server_address[1])
     _serve_until_stopped(server, server.scheduler.shutdown)
+    if mesh is not None:
+        server.scheduler.join()        # its last step, then the followers
+        cb.stop()
     return 0
 
 
@@ -2270,7 +2335,8 @@ def cmd_bench_train(argv) -> int:
     _add_mesh_flags(p)
     _add_bench_model_flags(p)
     args = p.parse_args(argv)
-    _check_no_mesh(args)
+    _check_no_mesh(args, "are not taken by the benches, which time "
+                   "one device")
 
     import numpy as np
     import torch

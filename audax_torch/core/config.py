@@ -28,7 +28,7 @@ T = TypeVar("T", bound="EnvConfig")
 __all__ = ["EnvConfig", "MelConfig", "UrbanSoundConfig",
            "TransformerClassifierConfig", "CNNClassifierConfig",
            "ClassifierTrainConfig", "WhisperConfig", "FineTuneConfig",
-           "TwoTowerConfig", "DataGenConfig", "replace"]
+           "TwoTowerConfig", "DataGenConfig", "MeshConfig", "replace"]
 
 
 def _coerce(raw: str, typ: Any) -> Any:
@@ -311,3 +311,12 @@ class DataGenConfig(EnvConfig):
     bpe_vocab_size: int = 2000
     out_dir: str = "artifacts/datagen"
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig(EnvConfig):
+    """Device-mesh axes. data = DP over batch; model = TP over heads/ffn."""
+
+    data: int = -1               # -1 -> all ranks
+    model: int = 1
+    axis_names: Tuple[str, ...] = ("data", "model")

@@ -89,13 +89,14 @@ def cross_attention_weights(params, cfg: WhisperConfig, tokens: torch.Tensor,
     frame_ok = torch.arange(s, device=device) < (s if n_frames is None
                                                  else int(n_frames))
     half = cfg.decoder_layers // 2
+    hd = cfg.d_model // cfg.heads
     aligned = []
     for li in range(cfg.decoder_layers):
         layer = layer_params(p["layers"], li)
         h = layer_norm(layer["attn_ln"], x)
-        q = _split_heads(dense(layer["attn"]["q"], h), cfg.heads)
-        k = _split_heads(dense(layer["attn"]["k"], h), cfg.heads)
-        v = _split_heads(dense(layer["attn"]["v"], h), cfg.heads)
+        q = _split_heads(dense(layer["attn"]["q"], h), hd)
+        k = _split_heads(dense(layer["attn"]["k"], h), hd)
+        v = _split_heads(dense(layer["attn"]["v"], h), hd)
         scale = q.shape[-1] ** -0.5
         scores = (q * scale) @ k.transpose(-1, -2)
         scores = scores.masked_fill(~causal, torch.finfo(scores.dtype).min)
@@ -103,9 +104,9 @@ def cross_attention_weights(params, cfg: WhisperConfig, tokens: torch.Tensor,
         x = x + dense(layer["attn"]["out"], _merge_heads(probs @ v))
 
         h = layer_norm(layer["cross_ln"], x)
-        cq = _split_heads(dense(layer["cross_attn"]["q"], h), cfg.heads)
-        ck = _split_heads(dense(layer["cross_attn"]["k"], enc), cfg.heads)
-        cv = _split_heads(dense(layer["cross_attn"]["v"], enc), cfg.heads)
+        cq = _split_heads(dense(layer["cross_attn"]["q"], h), hd)
+        ck = _split_heads(dense(layer["cross_attn"]["k"], enc), hd)
+        cv = _split_heads(dense(layer["cross_attn"]["v"], enc), hd)
         cscores = ((cq * cq.shape[-1] ** -0.5) @ ck.transpose(-1, -2)).float()
         cprobs = torch.softmax(cscores, -1)
         x = x + dense(layer["cross_attn"]["out"],

@@ -35,6 +35,10 @@ gather back; the cross-attention K/V is the same for every beam of an item
 and is never reordered. Prompt steps only fill the cache: every lane holds
 the same prompt, so no candidate is ranked until the first generated
 position.
+
+``mesh``: tensor parallelism over ``params``' TP blocks, as in
+``infer/decode.py:generate``; items (with their beams) are cut over the
+batch axes when they divide, and the results all-gathered.
 """
 
 from __future__ import annotations
@@ -45,9 +49,11 @@ import torch
 
 from audax_torch.core.config import WhisperConfig
 from audax_torch.infer.decode import (NEG_INF, TimestampRules,
-                                      apply_timestamp_rules)
+                                      apply_timestamp_rules, gather_rows)
 from audax_torch.models.whisper import (decode_step, init_kv_cache,
-                                        precompute_cross_kv)
+                                        local_heads, precompute_cross_kv)
+from audax_torch.parallel.mesh import use_mesh
+from audax_torch.parallel.sharding import kv_rows
 
 __all__ = ["beam_search", "BeamResult"]
 
@@ -107,13 +113,27 @@ def beam_search(params, cfg: WhisperConfig, enc: torch.Tensor,
                 timestamps: Optional[TimestampRules] = None,
                 dtype=torch.float32, kv_quant: bool = False,
                 patience: Optional[float] = None,
-                length_penalty: Optional[float] = None) -> BeamResult:
+                length_penalty: Optional[float] = None,
+                mesh=None) -> BeamResult:
     """enc [B, S, d], prompt [B, P] forced prefix -> ``BeamResult``.
     ``first_suppress`` ids are banned at the first generated position only
     (whisper's SuppressBlank); ``kv_quant`` keeps int8 self- and
-    cross-attention caches."""
+    cross-attention caches; ``mesh``: tensor parallelism (module
+    docstring)."""
     if patience is not None and patience < 1.0:
         raise ValueError(f"patience must be >= 1.0, got {patience}")
+    if mesh is not None:
+        rows = kv_rows(mesh, enc.shape[0])
+        prompt = torch.as_tensor(prompt, device=enc.device)
+        with use_mesh(mesh):
+            out = beam_search(
+                params, cfg, enc if rows is None else enc[rows],
+                prompt if rows is None else prompt[rows], max_len=max_len,
+                eos_id=eos_id, beam_width=beam_width, suppress=suppress,
+                first_suppress=first_suppress, timestamps=timestamps,
+                dtype=dtype, kv_quant=kv_quant, patience=patience,
+                length_penalty=length_penalty)
+        return out if rows is None else gather_rows(mesh, out)
     device = enc.device
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
     b, p_len = prompt.shape
@@ -129,7 +149,7 @@ def beam_search(params, cfg: WhisperConfig, enc: torch.Tensor,
     cross_kv = precompute_cross_kv(params, cfg, enc.repeat_interleave(w, 0),
                                    quant=kv_quant)
     cache = init_kv_cache(cfg, bw, max_len, dtype, device=device,
-                          quant=kv_quant)
+                          quant=kv_quant, heads=local_heads(params, cfg))
     tokens = torch.zeros(bw, max_len, dtype=torch.long, device=device)
     tokens[:, :p_len] = prompt.repeat_interleave(w, 0)
     # beam 0 starts live; the others at -inf so the first expansion fans out

@@ -42,8 +42,18 @@ depth alone (the JAX engine folds (seed, pos) into a key). An
 ``allowed_ids`` mask constrains every step.
 
 The engines live on one device: ``device=None`` is the CUDA card (raising
-without one); ``device="cpu"`` runs the plain PyTorch versions. Tensor
-parallelism (``mesh``) waits for the parallelism slice.
+without one); ``device="cpu"`` runs the plain PyTorch versions.
+
+``mesh`` (a (data, model) mesh): every rank runs the same host scheduler
+on the same submissions. The slots are cut over the batch axes when they
+divide (``parallel/sharding.py:kv_rows``) -- each rank holds, admits into
+and decodes its own block of slots -- and heads over 'model': the
+``ContinuousBatcher`` takes weights already cut by ``shard_params`` (as the
+JAX engine), the ``ContinuousGenerator`` cuts its LM by
+``CAUSAL_LM_TP_RULES`` itself. At harvest the per-slot rows are
+all-gathered over the batch axes, so every rank retires and refills the
+same slots. A slot's samples come from its own generator, so cutting
+slots over ranks changes no draw.
 """
 
 from __future__ import annotations
@@ -57,16 +67,21 @@ import torch
 from audax_torch.core.config import WhisperConfig
 from audax_torch.core.runtime import DeviceLike, resolve_device
 from audax_torch.frontend.features import LogMelFrontend
-from audax_torch.models.causal_lm import init_lm_cache
+from audax_torch.models.causal_lm import init_lm_cache, lm_cache_heads
 from audax_torch.models.two_tower import (_allowed_mask, adapter_cross_kv,
                                           two_tower_step)
 from audax_torch.models.whisper import (decode_step_ragged, encode,
-                                        init_kv_cache, precompute_cross_kv,
-                                        tree_map)
+                                        init_kv_cache, local_heads,
+                                        precompute_cross_kv, tree_map)
 from audax_torch.ops import native
+from audax_torch.parallel.comm import all_gather_cat
+from audax_torch.parallel.mesh import batch_group, use_mesh
+from audax_torch.parallel.sharding import (CAUSAL_LM_TP_RULES, kv_rows,
+                                           shard_params)
 from audax_torch.symbolic.tokenizer import WhisperTokenizer
 
-__all__ = ["ContinuousBatcher", "ContinuousGenerator", "Result"]
+__all__ = ["ContinuousBatcher", "ContinuousGenerator", "Result",
+           "Lockstep"]
 
 
 @dataclass
@@ -127,6 +142,31 @@ class _SlotEngine:
     _max_len: int
     _stop_id: int
 
+    def _init_rows(self, mesh) -> None:
+        """The slots this rank holds: a block of them when ``mesh``'s
+        batch axes divide the slot count, else all (``self._rows`` None);
+        ``self.local_slots`` is their count."""
+        self.mesh = mesh
+        self._rows = kv_rows(mesh, self.slots)
+        self.local_slots = (self.slots if self._rows is None
+                            else self._rows.stop - self._rows.start)
+
+    def _mine(self, slot_ids: np.ndarray) -> np.ndarray:
+        """Which of ``slot_ids`` (global) this rank holds."""
+        if self._rows is None:
+            return np.ones(len(slot_ids), bool)
+        return (slot_ids >= self._rows.start) & (slot_ids < self._rows.stop)
+
+    def _local_ids(self, slot_ids: np.ndarray) -> np.ndarray:
+        return slot_ids - (0 if self._rows is None else self._rows.start)
+
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-slot rows of every rank (all-gathered over the batch axes
+        when the slots are cut)."""
+        if self._rows is None:
+            return t
+        return all_gather_cat(t, batch_group(self.mesh), 0)
+
     def _init_shell(self) -> None:
         # queue entries: (request_id, samples, n_samples, budget, extra)
         self._queue: List[tuple] = []
@@ -183,14 +223,15 @@ class _SlotEngine:
 
     def _harvest(self) -> List[Result]:
         st = self._state
-        meta = torch.stack([st["done"].float(), st["lengths"].float(),
-                            st["sum_logprob"].float(),
-                            st["gen_count"].float()], 1).cpu().numpy()
+        meta = self._whole(torch.stack([
+            st["done"].float(), st["lengths"].float(),
+            st["sum_logprob"].float(), st["gen_count"].float()], 1)
+        ).cpu().numpy()
         finished = [i for i in range(self.slots)
                     if self._slot_req[i] is not None and meta[i, 0] > 0.5]
         if not finished:
             return []
-        tokens = st["tokens"].cpu().numpy()
+        tokens = self._whole(st["tokens"]).cpu().numpy()
         out: List[Result] = []
         for i in finished:
             ids = [int(t) for t in tokens[i, self._p_len: int(meta[i, 1])]
@@ -261,13 +302,11 @@ class ContinuousBatcher(_SlotEngine):
                  kv_quant: bool = False, mesh=None,
                  suppress_blank: bool = False, suppress_tokens="-1",
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError("ContinuousBatcher(mesh=...) arrives "
-                                      "with the parallelism slice of the port")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.slots = slots
+        self._init_rows(mesh)
         self.dtype = dtype
         self.kv_quant = kv_quant
         self.steps_per_sync = steps_per_sync
@@ -312,14 +351,17 @@ class ContinuousBatcher(_SlotEngine):
         self._init_shell()
 
     def _init_state(self) -> dict:
-        cfg, b, dev = self.cfg, self.slots, self.device
+        cfg, b, dev = self.cfg, self.local_slots, self.device
         long = dict(dtype=torch.long, device=dev)
+        heads = local_heads(self.params, cfg)
         return {
             "cache": init_kv_cache(cfg, b, self._max_len, self.dtype,
-                                   device=dev, quant=self.kv_quant),
+                                   device=dev, quant=self.kv_quant,
+                                   heads=heads),
             # cross-attention K/V slots: the same layout over the encoder
             "cross_kv": init_kv_cache(cfg, b, cfg.n_audio_ctx, self.dtype,
-                                      device=dev, quant=self.kv_quant),
+                                      device=dev, quant=self.kv_quant,
+                                      heads=heads),
             "tokens": torch.zeros(b, self._max_len, **long),
             "pos": torch.zeros(b, **long),              # per-slot depth
             "done": torch.ones(b, dtype=torch.bool, device=dev),  # all free
@@ -351,12 +393,20 @@ class ContinuousBatcher(_SlotEngine):
     @torch.inference_mode()
     def _install(self, batch, slot_ids, budgets, extras) -> None:
         """Encode the admitted requests in one batch and install each into
-        its slot (indexed writes into the device state)."""
+        its slot (indexed writes into the device state). Under a mesh a
+        rank encodes only the requests admitted into its own slots."""
         st = self._state
+        mine = self._mine(slot_ids)
+        if not mine.any():
+            return
+        batch, budgets = batch[mine], budgets[mine]
+        extras = [e for e, m in zip(extras, mine) if m]
+        slot_ids = self._local_ids(slot_ids[mine])
         mels = self.frontend(batch)
-        enc = encode(self.params, self.cfg, mels, self.dtype)
-        new = precompute_cross_kv(self.params, self.cfg, enc,
-                                  quant=self.kv_quant)
+        with use_mesh(self.mesh):
+            enc = encode(self.params, self.cfg, mels, self.dtype)
+            new = precompute_cross_kv(self.params, self.cfg, enc,
+                                      quant=self.kv_quant)
         slots = torch.from_numpy(slot_ids).to(self.device)
         for full, rows in zip(st["cross_kv"], new):
             full[:, slots] = rows.to(full.dtype)
@@ -372,18 +422,20 @@ class ContinuousBatcher(_SlotEngine):
     @torch.inference_mode()
     def _chunk(self) -> None:
         """Up to ``steps_per_sync`` ragged decode steps, stopping once every
-        slot is done (the JAX ``_decode_chunk``)."""
+        slot is done (the JAX ``_decode_chunk``). Under a mesh, over this
+        rank's slots."""
         st = self._state
-        bidx = torch.arange(self.slots, device=self.device)
+        bidx = torch.arange(self.local_slots, device=self.device)
         neg_inf = torch.finfo(torch.float32).min
         for _ in range(self.steps_per_sync):
             if bool(st["done"].all()):
                 break
             pos = st["pos"]
             tok = st["tokens"][bidx, pos]
-            logits, _ = decode_step_ragged(self.params, self.cfg, tok, pos,
-                                           st["cache"], st["cross_kv"],
-                                           self.dtype)
+            with use_mesh(self.mesh):
+                logits, _ = decode_step_ragged(self.params, self.cfg, tok,
+                                               pos, st["cache"],
+                                               st["cross_kv"], self.dtype)
             logits = logits.float()
             if self._suppress.numel():
                 logits[:, self._suppress] = neg_inf
@@ -426,15 +478,15 @@ class ContinuousGenerator(_SlotEngine):
                  max_new_tokens: int = 256, temperature: float = 0.7,
                  steps_per_sync: int = 32, dtype=torch.float32, mesh=None,
                  allowed_ids=None, device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError("ContinuousGenerator(mesh=...) arrives "
-                                      "with the parallelism slice of the port")
         self.device = resolve_device(device)
         self.model = model
         self.bpe = bpe
         # the engine's own device copies, detached: serving records no graph
         self.params = tree_map(lambda t: t.detach().to(self.device),
                                params if params is not None else model.params)
+        if mesh is not None:
+            self.params = {**self.params, "lm": shard_params(
+                self.params["lm"], mesh, CAUSAL_LM_TP_RULES)}
         self.audio_params = tree_map(lambda t: t.detach().to(self.device),
                                      model.audio_params)
         #: constrained decoding: permit only these ids (+ end_id)
@@ -442,6 +494,7 @@ class ContinuousGenerator(_SlotEngine):
                                           model.lm_cfg.vocab_size,
                                           self.device)
         self.slots = slots
+        self._init_rows(mesh)
         self.dtype = dtype
         self.temperature = float(temperature)
         self.steps_per_sync = steps_per_sync
@@ -468,13 +521,15 @@ class ContinuousGenerator(_SlotEngine):
         self._init_shell()
 
     def _init_state(self, s: int) -> dict:
-        b, dev = self.slots, self.device
+        b, dev = self.local_slots, self.device
         heads = self.model.cfg.adapter_heads
         hd = self.model.lm_cfg.d_model // heads
         long = dict(dtype=torch.long, device=dev)
+        with use_mesh(self.mesh):
+            kv = lm_cache_heads(self.params["lm"], self.model.lm_cfg)
         return {
             "cache": init_lm_cache(self.model.lm_cfg, b, self._max_len,
-                                   self.dtype, device=dev),
+                                   self.dtype, device=dev, heads=kv),
             "cross_k": torch.zeros(b, heads, s, hd, dtype=self.dtype,
                                    device=dev),
             "cross_v": torch.zeros(b, heads, s, hd, dtype=self.dtype,
@@ -504,8 +559,16 @@ class ContinuousGenerator(_SlotEngine):
         """Encode the admitted clips in one frozen-encoder pass, project the
         adapter's cross-K/V once, and install each into its slot (the JAX
         ``_gen_admit``). The LM cache needs no clearing: the per-slot
-        causal mask hides the previous occupant's rows."""
+        causal mask hides the previous occupant's rows. Under a mesh a rank
+        encodes only the clips admitted into its own slots."""
         st = self._state
+        mine = self._mine(slot_ids)
+        if not mine.any():
+            return
+        for slot, e in zip(slot_ids, extras):     # every rank: every stream
+            self._gens[int(slot)].manual_seed(e[0] if e else 0)
+        batch, budgets = batch[mine], budgets[mine]
+        slot_ids = self._local_ids(slot_ids[mine])
         mels = self.frontend(batch)
         enc = encode(self.audio_params, self.model.audio_cfg, mels,
                      self.dtype)
@@ -521,8 +584,6 @@ class ContinuousGenerator(_SlotEngine):
         st["sum_logprob"][slots] = 0.0
         st["gen_count"][slots] = 0
         st["budget"][slots] = torch.from_numpy(budgets).to(self.device)
-        for slot, e in zip(slot_ids, extras):
-            self._gens[int(slot)].manual_seed(e[0] if e else 0)
 
     @torch.inference_mode()
     def _chunk(self) -> None:
@@ -532,17 +593,19 @@ class ContinuousGenerator(_SlotEngine):
         of the ``done`` flags a step."""
         st = self._state
         lm_cfg = self.model.lm_cfg
-        bidx = torch.arange(self.slots, device=self.device)
+        bidx = torch.arange(self.local_slots, device=self.device)
+        first = 0 if self._rows is None else self._rows.start
         floor = torch.finfo(torch.float32).min
         for _ in range(self.steps_per_sync):
             done = st["done"].cpu().numpy()
             if done.all():
                 break
             pos = st["pos"]
-            logits, _ = two_tower_step(self.params, lm_cfg,
-                                       st["tokens"][bidx, pos],
-                                       st["cross_k"], st["cross_v"], pos,
-                                       st["cache"], self.dtype)
+            with use_mesh(self.mesh):
+                logits, _ = two_tower_step(self.params, lm_cfg,
+                                           st["tokens"][bidx, pos],
+                                           st["cross_k"], st["cross_v"], pos,
+                                           st["cache"], self.dtype)
             if self.allowed_mask is not None:
                 # constrained decoding (the reference's abandoned "mask out
                 # non-ABC tokens" variant, model.py:346-417, made to work)
@@ -551,11 +614,11 @@ class ContinuousGenerator(_SlotEngine):
                 nxt = logits.argmax(-1)
             else:
                 probs = torch.softmax(logits / self.temperature, -1)
-                nxt = torch.zeros(self.slots, dtype=torch.long,
+                nxt = torch.zeros(self.local_slots, dtype=torch.long,
                                   device=self.device)
                 for i in np.flatnonzero(~done):
-                    nxt[i] = torch.multinomial(probs[i], 1,
-                                               generator=self._gens[i])[0]
+                    nxt[i] = torch.multinomial(
+                        probs[i], 1, generator=self._gens[first + i])[0]
             _advance(st, nxt, logits, p_len=self._p_len,
                      eos_id=self._stop_id, bidx=bidx)
             self.decode_steps += 1
@@ -572,3 +635,61 @@ class ContinuousGenerator(_SlotEngine):
             native.build()
         super().warmup()
         self.decode_steps = 0
+
+
+class Lockstep:
+    """An engine on a mesh driven from rank 0: a front end (the HTTP
+    server) calls ``submit``/``cancel``/``step`` on rank 0 only; every
+    ``step`` broadcasts the submissions and cancels made since the last
+    one, and every other rank, in ``follow``, applies them and steps too,
+    so all ranks run the same scheduler on the same requests. ``stop``
+    (rank 0) ends the followers. Other attributes read the engine's. The
+    followers wait in a broadcast between steps: an idle spell longer than
+    the process group's timeout (torch's default, 30 minutes for gloo)
+    ends them, so a long-lived server sets a longer one."""
+
+    def __init__(self, engine):
+        import torch.distributed as dist
+
+        self.engine = engine
+        self._dist = dist
+        self._ops: List[tuple] = []
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def submit(self, request_id, samples, max_new_tokens=None, **kw):
+        self._ops.append(("submit", request_id, np.asarray(samples),
+                          max_new_tokens, kw))
+        return self.engine.submit(request_id, samples, max_new_tokens, **kw)
+
+    def cancel(self, request_id) -> bool:
+        self._ops.append(("cancel", request_id))
+        return self.engine.cancel(request_id)
+
+    def _broadcast(self, ops):
+        box = [ops]
+        self._dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def step(self) -> List[Result]:
+        ops, self._ops = self._ops, []
+        self._broadcast(ops)
+        return self.engine.step()
+
+    def stop(self) -> None:
+        self._broadcast(None)
+
+    def follow(self) -> None:
+        """A rank but 0: apply rank 0's operations and step, until
+        ``stop``."""
+        while True:
+            ops = self._broadcast(None)
+            if ops is None:
+                return
+            for op in ops:
+                if op[0] == "submit":
+                    self.engine.submit(op[1], op[2], op[3], **op[4])
+                else:
+                    self.engine.cancel(op[1])
+            self.engine.step()

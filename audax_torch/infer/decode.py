@@ -19,8 +19,15 @@ monotonically non-decreasing, and a new segment's opener strictly greater.
 
 ``kv_quant`` keeps the self- and cross-attention caches in int8 with
 per-vector scales (``models/whisper.py:QuantKV``; K3's int8 arm on the
-card). Tensor parallelism (``mesh``) arrives with a later slice of the
-port.
+card).
+
+``mesh`` (tensor parallelism, ``parallel/sharding.py``): ``params`` are
+this rank's TP blocks (``shard_params``), the caches hold this rank's heads
+(``models/whisper.py:local_heads``) and each layer's two row-parallel
+projections meet in one all-reduce; greedy rows are also cut over the
+batch axes when they divide (``kv_rows``: each rank decodes its rows, the
+results are all-gathered), sampled rows are decoded whole on every rank so
+the draws stay the single-device ones.
 """
 
 from __future__ import annotations
@@ -31,10 +38,13 @@ import torch
 
 from audax_torch.core.config import WhisperConfig
 from audax_torch.models.whisper import (decode_step, init_kv_cache,
-                                        precompute_cross_kv)
+                                        local_heads, precompute_cross_kv)
+from audax_torch.parallel.comm import all_gather_cat
+from audax_torch.parallel.mesh import batch_group, use_mesh
+from audax_torch.parallel.sharding import kv_rows
 
 __all__ = ["generate", "GenerateResult", "TimestampRules",
-           "apply_timestamp_rules"]
+           "apply_timestamp_rules", "gather_rows"]
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -88,6 +98,14 @@ class GenerateResult(NamedTuple):
         return self.sum_logprob / torch.clamp_min(self.gen_count, 1)
 
 
+def gather_rows(mesh, tup):
+    """A NamedTuple of per-row tensors, each all-gathered over the batch
+    axes along dim 0 (None fields stay None)."""
+    group = batch_group(mesh)
+    return type(tup)(*[None if t is None else all_gather_cat(t, group, 0)
+                       for t in tup])
+
+
 @torch.inference_mode()
 def generate(params, cfg: WhisperConfig, enc: torch.Tensor,
              prompt: torch.Tensor, *, max_len: int, eos_id: int,
@@ -99,7 +117,7 @@ def generate(params, cfg: WhisperConfig, enc: torch.Tensor,
              dtype=torch.float32,
              no_speech_id: Optional[int] = None,
              no_speech_pos: Optional[int] = None,
-             kv_quant: bool = False) -> GenerateResult:
+             kv_quant: bool = False, mesh=None) -> GenerateResult:
     """Decode until EOS or ``max_len``.
 
     enc [B, S, d] encoder states; prompt [B, P] forced prefix (the SOT
@@ -108,13 +126,27 @@ def generate(params, cfg: WhisperConfig, enc: torch.Tensor,
     SuppressBlank). ``kv_quant``: int8 self- and cross-attention caches.
     Sampling (``temperature > 0``) draws from
     ``generator`` -- a fresh one seeded 0 on enc's device when None, so a
-    call is deterministic for its seed."""
+    call is deterministic for its seed. ``mesh``: tensor parallelism over
+    ``params``' TP blocks (module docstring)."""
+    if mesh is not None:
+        rows = None if temperature > 0.0 else kv_rows(mesh, enc.shape[0])
+        prompt = torch.as_tensor(prompt, device=enc.device)
+        with use_mesh(mesh):
+            out = generate(
+                params, cfg, enc if rows is None else enc[rows],
+                prompt if rows is None else prompt[rows], max_len=max_len,
+                eos_id=eos_id, temperature=temperature, generator=generator,
+                suppress=suppress, first_suppress=first_suppress,
+                timestamps=timestamps, dtype=dtype,
+                no_speech_id=no_speech_id, no_speech_pos=no_speech_pos,
+                kv_quant=kv_quant)
+        return out if rows is None else gather_rows(mesh, out)
     device = enc.device
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
     b, p_len = prompt.shape
     cross_kv = precompute_cross_kv(params, cfg, enc, quant=kv_quant)
     cache = init_kv_cache(cfg, b, max_len, dtype, device=device,
-                          quant=kv_quant)
+                          quant=kv_quant, heads=local_heads(params, cfg))
     tokens = torch.zeros(b, max_len, dtype=torch.long, device=device)
     tokens[:, :p_len] = prompt
     if temperature > 0.0 and generator is None:

@@ -8,7 +8,7 @@ run through the frontend (K1), the encoder (K2) and greedy ``generate``
 (K3) in one pass. A short final window is zero-padded to the window
 (Whisper's own convention). With ``vad_threshold_db`` a window below that
 energy is answered as an empty segment without taking a slot or a decode.
-Tensor parallelism (``mesh``) arrives with a later slice of the port.
+Tensor parallelism (``mesh``) arrives with slice 11 b of the port.
 """
 
 from __future__ import annotations
@@ -72,8 +72,8 @@ class StreamingTranscriber:
                  vad_threshold_db: Optional[float] = None):
         if mesh is not None:
             raise NotImplementedError("StreamingTranscriber(mesh=...) "
-                                      "arrives with the parallelism slice of "
-                                      "the port")
+                                      "arrives with slice 11 b of the "
+                                      "port's parallelism")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer

@@ -24,8 +24,15 @@ complete segment's end, and anomalous words around long silences skipped.
 cross-attention DTW (``infer/align.py``); ``vad_threshold_db`` answers a
 window below that energy as silence without a decode (``infer/vad.py``);
 ``clip_timestamps`` transcribes only the given ranges; ``lang="auto"``
-detects the language of each call's first window. Tensor parallelism
-(``mesh``) arrives with a later slice of the port.
+detects the language of each call's first window.
+
+``mesh`` (tensor parallelism): the Transcriber cuts the weights it is
+given (after quantizing them) by ``WHISPER_TP_RULES`` and runs every model
+call of every rank under the mesh -- the encoder and decoder on their
+heads, ``generate``/``beam_search`` with ``mesh=``. int4 blocks stay whole
+(kernel K9 runs whole on each rank; such a block's caches hold all heads).
+The speculative-draft shortcut is off under a mesh, as in JAX, and word
+timestamps raise there (their cross-attention heads are cut over ranks).
 """
 
 from __future__ import annotations
@@ -53,8 +60,11 @@ from audax_torch.infer.speculative import generate_speculative
 from audax_torch.infer.vad import is_silent
 from audax_torch.models.quantize import quantize_tree
 from audax_torch.models.whisper import (decode_step, encode, init_kv_cache,
-                                        precompute_cross_kv, tree_map)
+                                        local_heads, precompute_cross_kv,
+                                        tree_map)
 from audax_torch.ops import native
+from audax_torch.parallel.mesh import use_mesh
+from audax_torch.parallel.sharding import shard_params
 from audax_torch.symbolic.tokenizer import WhisperTokenizer
 
 __all__ = ["Transcriber", "TranscriptionResult", "Segment",
@@ -67,11 +77,6 @@ FALLBACK_TEMPERATURES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
 LOGPROB_THRESHOLD = -1.0
 COMPRESSION_THRESHOLD = 2.4
 
-#: constructor knobs of the JAX Transcriber that the port does not carry
-#: yet: name -> (default, the later slice that brings it)
-_LATER_KNOBS = {
-    "mesh": (None, "parallelism"),
-}
 
 
 def compression_ratio(text: str) -> float:
@@ -188,7 +193,8 @@ def detect_language(params, cfg: WhisperConfig, tokenizer: WhisperTokenizer,
     Returns (lang_code [B] list, probs [B, n_languages])."""
     b = enc.shape[0]
     cross_kv = precompute_cross_kv(params, cfg, enc)
-    cache = init_kv_cache(cfg, b, 2, dtype, device=enc.device)
+    cache = init_kv_cache(cfg, b, 2, dtype, device=enc.device,
+                          heads=local_heads(params, cfg))
     sot = torch.full((b,), tokenizer.sot, dtype=torch.long, device=enc.device)
     logits, _ = decode_step(params, cfg, sot, 0, cache, cross_kv, dtype)
     langs = tokenizer.languages          # 99- or 100-language layout
@@ -231,12 +237,9 @@ class Transcriber:
                  append_punctuations: str = APPEND_PUNCTUATIONS,
                  seek_by_timestamps: bool = False,
                  vad_threshold_db: Optional[float] = None):
-        given = dict(mesh=mesh)
-        for name, (default, later) in _LATER_KNOBS.items():
-            if given[name] != default:
-                raise NotImplementedError(
-                    f"Transcriber({name}={given[name]!r}) arrives with a "
-                    f"later slice of the port: {later}")
+        if mesh is not None and word_timestamps:
+            raise ValueError("word_timestamps under a mesh: the alignment "
+                             "heads' cross-attention is cut over ranks")
         if task not in ("transcribe", "translate"):
             raise ValueError(f"task must be transcribe/translate, got {task!r}")
         if best_of < 1:
@@ -257,6 +260,9 @@ class Transcriber:
                                  f"'int8' or 4/'int4'")
             params = quantize_tree(
                 params, bits=4 if str(quantize) in ("4", "int4") else 8)
+        self.mesh = mesh
+        if mesh is not None:
+            params = shard_params(params, mesh)
         self.params = params
         #: int8 self- and cross-attention KV caches in decode
         self.kv_quant = kv_quant
@@ -360,7 +366,8 @@ class Transcriber:
                       first_suppress=self.first_suppress, dtype=self.dtype,
                       kv_quant=self.kv_quant)
         if (denc is not None and temperature == 0.0 and rules is None
-                and self.beam_width == 1 and enc.shape[0] == 1):
+                and self.beam_width == 1 and enc.shape[0] == 1
+                and self.mesh is None):
             # draft-verified greedy; the last verify span (start
             # max_len - 1) must still have spec_tokens position rows
             max_len = min(max_len,
@@ -375,7 +382,8 @@ class Transcriber:
             res = beam_search(self.params, self.cfg, enc, prompt_t,
                               max_len=max_len, beam_width=self.beam_width,
                               timestamps=rules, patience=self.patience,
-                              length_penalty=self.length_penalty, **common)
+                              length_penalty=self.length_penalty,
+                              mesh=self.mesh, **common)
             lengths = res.lengths[:, 0]
             gen_count = torch.clamp_min(lengths - prompt.shape[1], 1)
             return GenerateResult(res.tokens[:, 0], lengths,
@@ -387,7 +395,7 @@ class Transcriber:
         bo = self.best_of if temperature > 0.0 else 1
         kw = dict(max_len=max_len, temperature=temperature,
                   timestamps=rules, no_speech_id=ns_id, no_speech_pos=ns_pos,
-                  **common)
+                  mesh=self.mesh, **common)
         if bo == 1:
             return generate(self.params, self.cfg, enc, prompt_t, **kw)
         # best-of: each window tiled bo times (every row draws its own
@@ -464,7 +472,8 @@ class Transcriber:
             native.build()
         mel = self.frontend(torch.zeros(batch_chunks, self.chunk_samples,
                                         device=self.device))
-        enc = encode(self.params, self.cfg, mel, self.dtype)
+        with use_mesh(self.mesh):
+            enc = encode(self.params, self.cfg, mel, self.dtype)
         self._decode_once(enc, self._prompt(batch_chunks), 0.0)
 
     @torch.inference_mode()
@@ -475,7 +484,8 @@ class Transcriber:
         compression ratio, no-speech prob) via the fallback ladder, encoder
         states [N, S, d] for the word alignment)."""
         mel = self.frontend(audio_chunks)
-        enc = encode(self.params, self.cfg, mel, self.dtype)
+        with use_mesh(self.mesh):
+            enc = encode(self.params, self.cfg, mel, self.dtype)
         n = len(audio_chunks)
         denc = None
         if self.draft is not None and n == 1:
@@ -563,10 +573,12 @@ class Transcriber:
         first = audio[: self.chunk_samples]
         if len(first) < self.chunk_samples:
             first = np.pad(first, (0, self.chunk_samples - len(first)))
-        enc0 = encode(self.params, self.cfg, self.frontend(first[None]),
-                      self.dtype)
-        detected, probs = detect_language(self.params, self.cfg,
-                                          self.tokenizer, enc0, self.dtype)
+        with use_mesh(self.mesh):
+            enc0 = encode(self.params, self.cfg, self.frontend(first[None]),
+                          self.dtype)
+            detected, probs = detect_language(self.params, self.cfg,
+                                              self.tokenizer, enc0,
+                                              self.dtype)
         row = probs[0].double().cpu().numpy()
         return detected[0], {c: float(p)
                              for c, p in zip(self.tokenizer.languages, row)}
@@ -784,7 +796,8 @@ class Transcriber:
 
 
 def batch_transcribe_to_csv(
-    transcriber: Transcriber, wav_paths: Sequence[str], csv_path: str,
+    transcriber: Transcriber, wav_paths: Sequence[str],
+    csv_path: Optional[str],
     *, write_sidecars: bool = True,
     previous: Optional[dict] = None,
     output_format: Optional[str] = None,
@@ -799,7 +812,10 @@ def batch_transcribe_to_csv(
     ``output_format`` ('txt'/'srt'/'vtt'/'tsv'/'json'/'all') also emits
     per-file transcripts into ``output_dir`` (default: beside the CSV)
     through ``infer/writers.py``; ``writer_opts`` forwards the subtitle
-    line options. Files are read by ``read_audio`` (WAV, or a compressed
+    line options. ``csv_path`` None writes no CSV (with
+    ``write_sidecars=False`` and no ``output_format``, no file at all: the
+    ranks but 0 of a mesh). Files are read by ``read_audio`` (WAV, or a
+    compressed
     container through the native decoder, where the JAX package reads WAV
     only); an unreadable file gets a row with its error."""
     from audax_torch.data.audio_io import read_audio, resample, to_mono
@@ -838,7 +854,7 @@ def batch_transcribe_to_csv(
             log.warning("skip %s: %s", path, e)
             rows.append({"file": os.path.basename(path), "text": "",
                          "rtf": -1.0, "error": str(e)})
-    if rows:
+    if rows and csv_path is not None:
         os.makedirs(os.path.dirname(csv_path) or ".", exist_ok=True)
         keys = sorted({k for r in rows for k in r})
         with open(csv_path, "w", newline="") as fh:

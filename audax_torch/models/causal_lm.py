@@ -48,6 +48,16 @@ selected expert -- int4 through kernel K9 with the expert id handed to the
 kernel as a device tensor (``ops/int4_matmul.py``), so the router's
 output never reaches the host.
 
+Under tensor parallelism (``parallel/sharding.py:CAUSAL_LM_TP_RULES``) a
+rank holds its blocks: q/k/v, gate/up by columns, o/down by rows, the
+embedding by vocab rows, ``lm_head`` by vocab columns, and an MoE layer's
+experts by the expert axis (each rank runs its experts on every token and
+the combine is all-reduced). k/v whose ``kv_heads`` do not divide the
+model axis are gathered (or kept whole) and each rank reads the KV heads
+of its query heads (``_kv_select``); replicated tensors read by a rank's
+part only (q/k norms, whole k/v, the router weights of the local experts)
+pass Megatron's f so their gradient is summed over 'model'.
+
 The rotary tables are computed once per forward or step and shared by
 every layer (the JAX package recomputes them per layer; same float32
 numbers). ``port_causal_lm_from_hf`` takes an in-memory HF model (this
@@ -67,11 +77,18 @@ import torch.nn.functional as F
 from audax_torch.core.runtime import DeviceLike, resolve_device
 from audax_torch.models.hf_files import config_value
 from audax_torch.models.quantize import embed_logits, embed_lookup
-from audax_torch.models.whisper import (_remat_body, dense, layer_params,
+from audax_torch.models.whisper import (_col_dense, _remat_body, _row_dense,
+                                        _width, dense, layer_params,
                                         tree_map)
 from audax_torch.ops.attention import (decode_attention_stacked,
                                        dot_product_attention)
 from audax_torch.ops.int4_matmul import dequantize_int4, int4_matmul
+from audax_torch.parallel.comm import (copy_to_model, gather_for_use,
+                                       gather_from_model, local_block,
+                                       model_rank, reduce_from_model,
+                                       sum_over, tp_active, vocab_embed,
+                                       vocab_logits)
+from audax_torch.parallel.mesh import axis_group, current_mesh
 
 Params = Dict[str, Any]
 
@@ -80,7 +97,7 @@ __all__ = ["CausalLMConfig", "init_causal_lm", "rms_norm",
            "LMKVCache", "init_lm_cache", "lm_decode_step",
            "resize_embeddings", "port_causal_lm_state_dict",
            "port_causal_lm_from_hf",
-           "load_balance_loss"]
+           "load_balance_loss", "lm_cache_heads"]
 
 
 @dataclass(frozen=True)
@@ -249,6 +266,42 @@ class LMKVCache(NamedTuple):
 Pos = Union[int, torch.Tensor]
 
 
+def _to_model(p: Params) -> Params:
+    """A replicated parameter dict read by a rank-partitioned computation
+    (its heads or experts): Megatron's f on each tensor, so its gradient,
+    a partial sum on each rank, is all-reduced over 'model'."""
+    return {k: copy_to_model(v) for k, v in p.items()}
+
+
+def _kv_select(cfg: CausalLMConfig, hq: int) -> Tuple[list, bool]:
+    """The whole-tree KV heads this rank's ``hq`` query heads read, as an
+    index list, and whether they form uniform GQA groups (each KV head
+    read by the same run of consecutive query heads): then the cache holds
+    each KV head once, else one per query head."""
+    g = cfg.heads // cfg.kv_heads
+    idx = [(model_rank() * hq + i) // g for i in range(hq)]
+    kvs = sorted(set(idx))
+    rep = hq // len(kvs)
+    uniform = hq % len(kvs) == 0 and idx == [kv for kv in kvs
+                                             for _ in range(rep)]
+    return (kvs if uniform else idx), uniform
+
+
+def lm_cache_heads(params: Params, cfg: CausalLMConfig) -> int:
+    """The KV heads a rank's decode cache holds: kv_heads / tp when the
+    k/v projections are cut by whole heads, else the heads its query heads
+    read (``_kv_select``); all of them without TP."""
+    layers = params["layers"]
+    hd = cfg.head_dim
+    hq = _width(layers["q"]) // hd
+    if not tp_active(hq * hd, cfg.heads * hd, "attention q"):
+        return cfg.kv_heads
+    kw = _width(layers["k"])
+    if kw < cfg.kv_heads * hd and kw % hd == 0:
+        return kw // hd
+    return len(_kv_select(cfg, hq)[0])
+
+
 def _attn_block(layer: Params, cfg: CausalLMConfig, x: torch.Tensor, rope,
                 *, mask: Optional[torch.Tensor] = None, causal: bool = False,
                 cache: Optional[LMKVCache] = None, pos: Optional[Pos] = None,
@@ -262,12 +315,35 @@ def _attn_block(layer: Params, cfg: CausalLMConfig, x: torch.Tensor, rope,
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(layer["attn_norm"], x, cfg.rms_eps)
-    q = _heads(dense(layer["q"], h), cfg.heads, hd)
-    k = _heads(dense(layer["k"], h), cfg.kv_heads, hd)
-    v = _heads(dense(layer["v"], h), cfg.kv_heads, hd)
+    hq = _width(layer["q"]) // hd
+    tp = tp_active(hq * hd, cfg.heads * hd, "attention q")
+    kp, vp = layer["k"], layer["v"]
+    kw = _width(kp)
+    whole_kv = tp and not (kw < cfg.kv_heads * hd and kw % hd == 0)
+    if tp:
+        h = copy_to_model(h)
+        if kw == cfg.kv_heads * hd:        # replicated k/v, partial use
+            kp, vp = _to_model(kp), _to_model(vp)
+    q = _heads(_col_dense(layer["q"], h), hq, hd)
+    k, v = _col_dense(kp, h), _col_dense(vp, h)
+    if whole_kv and kw < cfg.kv_heads * hd:
+        # k/v cut inside a head (kv_heads does not divide the axis, its
+        # width does): gather the whole heads; the gradient, partial on
+        # each rank, is reduce-scattered back
+        group = axis_group(current_mesh(), "model")
+        k, v = gather_for_use(k, group, 2), gather_for_use(v, group, 2)
+    k = _heads(k, k.shape[-1] // hd, hd)
+    v = _heads(v, v.shape[-1] // hd, hd)
     if cfg.qk_norm:
-        q = rms_norm(layer["q_norm"], q, cfg.rms_eps)
-        k = rms_norm(layer["k_norm"], k, cfg.rms_eps)
+        qn, kn = layer["q_norm"], layer["k_norm"]
+        if tp:                              # each rank normalises its heads
+            qn, kn = _to_model(qn), _to_model(kn)
+        q = rms_norm(qn, q, cfg.rms_eps)
+        k = rms_norm(kn, k, cfg.rms_eps)
+    if whole_kv:
+        sel, _ = _kv_select(cfg, hq)
+        ix = torch.tensor(sel, device=k.device)
+        k, v = k.index_select(1, ix), v.index_select(1, ix)
     q = _rope(q, rope)                     # contiguous (a concatenation)
     k = _rope(k, rope)
     if cache is not None:
@@ -286,8 +362,8 @@ def _attn_block(layer: Params, cfg: CausalLMConfig, x: torch.Tensor, rope,
     else:
         out = dot_product_attention(q, k, v.contiguous(), causal=causal,
                                     mask=mask, scale=hd ** -0.5)
-    out = out.transpose(1, 2).reshape(b, t, cfg.heads * hd)
-    return dense(layer["o"], out)
+    out = out.transpose(1, 2).reshape(b, t, hq * hd)
+    return _row_dense(layer["o"], out, tp)
 
 
 def _mlp_block(layer: Params, cfg: CausalLMConfig,
@@ -295,8 +371,11 @@ def _mlp_block(layer: Params, cfg: CausalLMConfig,
     if "router" in layer:
         return _moe_block(layer, cfg, x)
     h = rms_norm(layer["mlp_norm"], x, cfg.rms_eps)
-    return dense(layer["down"],
-                 F.silu(dense(layer["gate"], h)) * dense(layer["up"], h))
+    tp = tp_active(_width(layer["gate"]), cfg.ffn, "mlp gate")
+    if tp:
+        h = copy_to_model(h)
+    return _row_dense(layer["down"], F.silu(_col_dense(layer["gate"], h))
+                      * _col_dense(layer["up"], h), tp)
 
 
 # ------------------------------------------------------------------- MoE --
@@ -316,27 +395,41 @@ def _moe_router(layer: Params, cfg: CausalLMConfig, h: torch.Tensor
 
 def load_balance_loss(router_logits: torch.Tensor, num_experts: int,
                       top_k: int,
-                      attention_mask: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      attention_mask: Optional[torch.Tensor] = None,
+                      group=None) -> torch.Tensor:
     """The Switch-Transformer load-balancing aux loss (eqs. 4-6), HF
     ``load_balancing_loss_func``'s: the fraction of tokens routed to each
     expert (per top-k slot) times its mean router probability, summed, x E.
 
     router_logits [L, N, E] as ``lm_forward(..., return_router_logits=True)``
     returns them (N = B T); attention_mask [B, T] (1 = real) masks padding
-    out of both statistics."""
+    out of both statistics.
+
+    ``group``: the data-parallel process group when each rank holds its
+    rows of the batch; the statistics are then the whole batch's (the sums
+    all-reduced, the router probabilities' differentiably)."""
     l, n, e = router_logits.shape
     probs = torch.softmax(router_logits.reshape(l * n, e).float(), dim=-1)
     sel = torch.topk(probs, top_k, dim=-1).indices
     sel_mask = F.one_hot(sel, e).float()                    # [LN, k, E]
-    if attention_mask is None:
-        tokens_per_expert = sel_mask.mean(0)                # [k, E]
-        router_prob = probs.mean(0)                         # [E]
+    am = (attention_mask.reshape(-1).float().repeat(l)     # jnp.tile
+          if attention_mask is not None else None)
+    if group is None:
+        if am is None:
+            tokens_per_expert = sel_mask.mean(0)            # [k, E]
+            router_prob = probs.mean(0)                     # [E]
+        else:
+            denom = am.sum()
+            tokens_per_expert = (sel_mask * am[:, None, None]).sum(0) / denom
+            router_prob = (probs * am[:, None]).sum(0) / denom
     else:
-        am = attention_mask.reshape(-1).float().repeat(l)   # jnp.tile
-        denom = am.sum()
-        tokens_per_expert = (sel_mask * am[:, None, None]).sum(0) / denom
-        router_prob = (probs * am[:, None]).sum(0) / denom
+        am = torch.ones(l * n, device=probs.device) if am is None else am
+        stats = sum_over(torch.cat([
+            (sel_mask * am[:, None, None]).sum(0).reshape(-1),
+            (probs * am[:, None]).sum(0), am.sum()[None]]), group)
+        denom = stats[-1]
+        tokens_per_expert = stats[: top_k * e].reshape(top_k, e) / denom
+        router_prob = stats[top_k * e: -1] / denom
     return (tokens_per_expert * router_prob[None, :]).sum() * num_experts
 
 
@@ -414,7 +507,11 @@ def _moe_block(layer: Params, cfg: CausalLMConfig, x: torch.Tensor,
     w, idx, router_logits = _moe_router(layer, cfg, h)
     ex = layer["experts"]
     gate = ex["gate"]
-    if (("kernel_q" in gate or "kernel_q4" in gate)
+    el = (gate.get("kernel", gate.get("kernel_q", gate.get("kernel_q4")))
+          .shape[0])
+    if tp_active(el, cfg.num_experts, "experts"):
+        y = _moe_local_experts(ex, cfg, h, idx, w)
+    elif (("kernel_q" in gate or "kernel_q4" in gate)
             and cfg.moe_impl == "ragged"
             and n * cfg.experts_per_tok <= cfg.num_experts):
         y = _moe_selected_scan(ex, cfg, h, idx, w)
@@ -422,6 +519,31 @@ def _moe_block(layer: Params, cfg: CausalLMConfig, x: torch.Tensor,
         y = _moe_experts(ex, h, idx, w, cfg.moe_impl)
     out = y.reshape(b, t, d)
     return (out, router_logits) if return_router_logits else out
+
+
+def _moe_local_experts(ex: Params, cfg: CausalLMConfig, h: torch.Tensor,
+                       idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The dense impl over this rank's block of experts (the expert axis
+    sharded over 'model'): every token through the local experts, combined
+    by their columns of the router-weight matrix, the partial sums
+    all-reduced. The replicated router's weights and ``h`` meet the
+    rank-partitioned experts through Megatron's f."""
+    n = h.shape[0]
+    comb = torch.zeros(n, cfg.num_experts, dtype=w.dtype,
+                       device=w.device).scatter_add(1, idx, w)
+    comb = copy_to_model(comb)[:, local_block(cfg.num_experts)]
+    hin = copy_to_model(h)
+    gk, gsc = _expert_weights(ex["gate"], h.dtype)          # [E/tp, d, fe]
+    uk, usc = _expert_weights(ex["up"], h.dtype)
+    dk, dsc = _expert_weights(ex["down"], h.dtype)
+
+    def scale(t_, s_):                                      # t_ [E, N, out]
+        return t_ if s_ is None else t_ * s_[:, None, :].to(t_.dtype)
+
+    g = scale(torch.einsum("nd,edf->enf", hin, gk), gsc)
+    u = scale(torch.einsum("nd,edf->enf", hin, uk), usc)
+    o = scale(torch.einsum("enf,efd->end", F.silu(g) * u, dk), dsc)
+    return reduce_from_model(torch.einsum("end,ne->nd", o, comb))
 
 
 def _moe_selected_scan(ex: Params, cfg: CausalLMConfig, h: torch.Tensor,
@@ -462,7 +584,14 @@ def _moe_selected_scan(ex: Params, cfg: CausalLMConfig, h: torch.Tensor,
 
 # ------------------------------------------------------------- forward ----
 def embed_tokens(params: Params, tokens: torch.Tensor,
-                 dtype=torch.float32) -> torch.Tensor:
+                 dtype=torch.float32,
+                 vocab: Optional[int] = None) -> torch.Tensor:
+    """The token embedding; ``vocab`` (the config's) lets a vocab-sharded
+    table (TP) take the vocab-parallel lookup."""
+    if vocab is not None and "embed" in params:
+        emb = vocab_embed(params["embed"], tokens, vocab)
+        if emb is not None:
+            return emb.to(dtype)
     return embed_lookup(params, tokens, dtype)
 
 
@@ -513,11 +642,21 @@ def forward_with_embeds(params: Params, cfg: CausalLMConfig,
 
 def lm_logits(params: Params, cfg: CausalLMConfig,
               hidden: torch.Tensor) -> torch.Tensor:
-    """Tied-embedding logits (or the separate ``lm_head``): [..., V]."""
+    """Tied-embedding logits (or the separate ``lm_head``): [..., V],
+    all-gathered over 'model' from a vocab-sharded table or head."""
     if cfg.tie_embeddings or not any(k.startswith("lm_head")
                                      for k in params):
-        return embed_logits(params, hidden)
-    return dense(params["lm_head"], hidden)
+        y = (vocab_logits(params["embed"], hidden, cfg.vocab_size)
+             if "embed" in params else None)
+        return y if y is not None else embed_logits(params, hidden)
+    head = params["lm_head"]
+    if "kernel" in head and tp_active(head["kernel"].shape[-1],
+                                      cfg.vocab_size, "lm_head"):
+        y = copy_to_model(hidden) @ head["kernel"].to(hidden.dtype)
+        if "bias" in head:
+            y = y + head["bias"][local_block(cfg.vocab_size)].to(y.dtype)
+        return gather_from_model(y, dim=-1)
+    return dense(head, hidden)
 
 
 def lm_forward(params: Params, cfg: CausalLMConfig, tokens: torch.Tensor,
@@ -529,7 +668,8 @@ def lm_forward(params: Params, cfg: CausalLMConfig, tokens: torch.Tensor,
     ``load_balance_loss`` with the same attention_mask). ``remat``
     checkpoints each layer (training path)."""
     out = forward_with_embeds(params, cfg,
-                              embed_tokens(params, tokens, dtype),
+                              embed_tokens(params, tokens, dtype,
+                                           cfg.vocab_size),
                               attention_mask, dtype,
                               return_router_logits=return_router_logits,
                               remat=remat)
@@ -541,10 +681,12 @@ def lm_forward(params: Params, cfg: CausalLMConfig, tokens: torch.Tensor,
 
 # ---------------------------------------------------------------- decode --
 def init_lm_cache(cfg: CausalLMConfig, batch: int, max_len: int,
-                  dtype=torch.float32, device: DeviceLike = None
-                  ) -> LMKVCache:
+                  dtype=torch.float32, device: DeviceLike = None,
+                  heads: Optional[int] = None) -> LMKVCache:
+    """Zeroed [L, B, kvH, max_len, hd] cache; ``heads`` the KV heads this
+    rank holds (``lm_cache_heads``; default all)."""
     device = resolve_device(device)
-    shape = (cfg.layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
+    shape = (cfg.layers, batch, heads or cfg.kv_heads, max_len, cfg.head_dim)
     return LMKVCache(torch.zeros(shape, dtype=dtype, device=device),
                      torch.zeros(shape, dtype=dtype, device=device))
 

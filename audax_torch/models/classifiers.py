@@ -52,6 +52,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from audax_torch.core.config import CNNClassifierConfig, TransformerClassifierConfig
+from audax_torch.parallel.comm import sum_over
+from audax_torch.parallel.mesh import batch_group, batch_size, current_mesh
 
 __all__ = ["CNNClassifier", "TransformerClassifier", "WaveformCNNClassifier"]
 
@@ -110,7 +112,11 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Over the channels of ``[B, C, T]``, statistics over batch and time."""
+    """Over the channels of ``[B, C, T]``, statistics over batch and time.
+    Under a mesh whose batch axes cut the batch (``parallel/mesh.py:
+    use_mesh``), the statistics are the whole batch's: the sums are
+    all-reduced over the data ranks, differentiably (synchronised
+    BatchNorm, which is what JAX computes over a sharded batch)."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-5):
@@ -123,8 +129,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool):
         if train:
-            mean = x.mean((0, 2))
-            var = torch.clamp_min((x * x).mean((0, 2)) - mean * mean, 0.0)
+            mean, sq = _batch_means(x)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             m = self.momentum
             with torch.no_grad():        # biased variance, as flax keeps it
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -133,6 +139,20 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.scale
         return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+
+
+def _batch_means(x: torch.Tensor):
+    """Means of x and x^2 over batch and time, over the whole batch when a
+    current mesh cuts it over its batch axes."""
+    mesh = current_mesh()
+    if mesh is None or batch_size(mesh) == 1:
+        return x.mean((0, 2)), (x * x).mean((0, 2))
+    n = torch.tensor([float(x.shape[0] * x.shape[2])], device=x.device,
+                     dtype=x.dtype)
+    sums = sum_over(torch.cat([x.sum((0, 2)), (x * x).sum((0, 2)), n]),
+                    batch_group(mesh))
+    c = x.shape[1]
+    return sums[:c] / sums[-1], sums[c: 2 * c] / sums[-1]
 
 
 class Conv(nn.Module):

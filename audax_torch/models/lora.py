@@ -24,6 +24,8 @@ from typing import Any, Dict, Iterator, Sequence, Tuple
 
 import torch
 
+from audax_torch.parallel.comm import copy_to_model, model_rank
+
 Params = Dict[str, Any]
 
 __all__ = ["init_lora", "apply_lora", "merge_lora", "lora_param_count",
@@ -88,15 +90,37 @@ def _apply_at(tree: Params, parts, delta: torch.Tensor) -> Params:
     return {**tree, key: _apply_at(tree[key], parts[1:], delta)}
 
 
+def _leaf_at(tree: Params, parts):
+    for key in parts:
+        tree = tree[key]
+    return tree
+
+
 def apply_lora(params: Params, lora: Params, alpha: float = 16.0) -> Params:
     """Params with ``kernel += (B @ A)^T * (alpha / rank)`` per target (a
-    new tree; the base tensors are not modified)."""
+    new tree; the base tensors are not modified).
+
+    Under tensor parallelism (``parallel/sharding.py``) a base kernel may
+    be this rank's block of columns or rows while the adapters stay whole:
+    the delta is cut to the same block, and the adapters pass Megatron's f
+    (``parallel/comm.py:copy_to_model``) so their gradient, partial on each
+    rank, is summed over 'model'."""
     out = params
     for path, ab in lora.items():
-        rank = ab["a"].shape[-2]
-        delta = torch.einsum("...or,...ri->...io", ab["b"], ab["a"]) * (
-            alpha / rank)
-        out = _apply_at(out, path.split("/"), delta)
+        parts = path.split("/")
+        base = _leaf_at(params, parts)
+        a, b = ab["a"], ab["b"]
+        rank = a.shape[-2]
+        cut = b.shape[-2] != base.shape[-1] or a.shape[-1] != base.shape[-2]
+        if cut:
+            a, b = copy_to_model(a), copy_to_model(b)
+        delta = torch.einsum("...or,...ri->...io", b, a) * (alpha / rank)
+        if cut:
+            for dim in (-2, -1):
+                n = base.shape[dim]
+                if delta.shape[dim] != n:
+                    delta = delta.narrow(dim, model_rank() * n, n)
+        out = _apply_at(out, parts, delta)
     return out
 
 

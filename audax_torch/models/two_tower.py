@@ -178,7 +178,8 @@ def two_tower_step(params: Params, lm_cfg: CausalLMConfig,
     row). Returns (float32 logits [B, V], the updated cache); the caller
     masks and samples (the JAX ``step_embed`` + ``lm_decode_step`` of
     ``_generate_jit`` and ``_gen_chunk``)."""
-    text = embed_tokens(params["lm"], tokens[:, None], dtype)
+    text = embed_tokens(params["lm"], tokens[:, None], dtype,
+                        lm_cfg.vocab_size)
     emb = adapter_apply_kv(params["adapter"], text, ck, cv)[:, 0]
     logits, cache = lm_decode_step(params["lm"], lm_cfg, emb, pos, cache,
                                    dtype)
@@ -223,7 +224,8 @@ class TwoTowerModel(NamedTuple):
         the audio through the adapter (reference :263-288).
         ``return_router_logits`` (MoE decoders) also returns the stacked
         per-layer router logits [L, B T, E] for the aux loss."""
-        text = embed_tokens(params["lm"], input_ids, dtype)
+        text = embed_tokens(params["lm"], input_ids, dtype,
+                            self.lm_cfg.vocab_size)
         fused = adapter_apply(params["adapter"], text, enc,
                               self.cfg.adapter_heads)
         out = forward_with_embeds(params["lm"], self.lm_cfg, fused,

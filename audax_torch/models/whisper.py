@@ -29,6 +29,16 @@ Serving (``infer/continuous.py``) decodes with ``decode_step_ragged``:
 every slot at its own position, its new K/V row written in place at that
 position.
 
+Tensor parallelism (``parallel/sharding.py:WHISPER_TP_RULES``): a rank
+may hold its blocks of the tree -- q/k/v and ``mlp_in`` cut by columns,
+``out`` and ``mlp_out`` by rows, the token embedding by vocab rows. The
+code finds the cut by a projection's width against the config
+(``parallel/comm.py:tp_active``), runs its own heads and FFN columns, and
+writes the Megatron collectives under the current mesh: one all-reduce a
+row-parallel projection (its bias added after it), the masked
+vocab-parallel lookup, and the tied logits all-gathered. Whole trees take
+none of them.
+
 ``remat`` (the training path) checkpoints each layer's body with
 ``torch.utils.checkpoint``: True recomputes the whole layer in the backward,
 "dots" keeps its dense-projection outputs (the JAX
@@ -53,6 +63,9 @@ from audax_torch.models.quantize import (dequant_dense, embed_logits,
 from audax_torch.ops.attention import (decode_attention,
                                        decode_attention_stacked,
                                        dot_product_attention)
+from audax_torch.parallel.comm import (copy_to_model, local_block,
+                                       reduce_from_model, tp_active,
+                                       vocab_embed, vocab_logits)
 
 Params = Dict[str, Any]
 
@@ -62,7 +75,7 @@ __all__ = [
     "KVCache", "QuantKV", "quantize_kv", "init_kv_cache",
     "precompute_cross_kv", "decode_step", "decode_span",
     "decode_step_ragged", "embed_lookup", "embed_logits", "layer_params",
-    "tree_map", "tree_leaves", "tree_unflatten",
+    "tree_map", "tree_leaves", "tree_unflatten", "local_heads",
 ]
 
 
@@ -187,9 +200,11 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """[B, T, h hd] -> [B, h, T, hd]: the head count from the width, so a
+    rank's head-sharded projection splits into its own heads."""
     b, t, d = x.shape
-    return x.reshape(b, t, heads, d // heads).transpose(1, 2).contiguous()
+    return x.reshape(b, t, d // hd, hd).transpose(1, 2).contiguous()
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -203,8 +218,66 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
 
 
+def _width(p: Params) -> int:
+    """The output width of a float, int8 or int4 dense dict."""
+    for key in ("kernel", "kernel_q", "kernel_q4"):
+        if key in p:
+            return p[key].shape[-1]
+    raise KeyError("not a dense parameter dict")
+
+
+def _col_dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``dense`` of a column-parallel projection: an int8 kernel's whole
+    per-column scale (it matches no TP rule, ``parallel/sharding.py``)
+    cut to this rank's block of columns."""
+    if "kernel_q" in p and p["kernel_scale"].shape[-1] != \
+            p["kernel_q"].shape[-1]:
+        p = {**p, "kernel_scale": p["kernel_scale"][
+            ..., local_block(p["kernel_scale"].shape[-1])]}
+    return dense(p, x)
+
+
+def _row_dense(p: Params, x: torch.Tensor, tp: bool) -> torch.Tensor:
+    """``dense`` of a row-parallel projection: under TP the partial
+    products are summed over 'model' (Megatron's g) and the replicated
+    bias is added once, after the sum."""
+    if not tp:
+        return dense(p, x)
+    y = dense({k: v for k, v in p.items() if k != "bias"}, x)
+    y = reduce_from_model(y)
+    return y + p["bias"].to(y.dtype) if "bias" in p else y
+
+
 def _mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return dense(p["mlp_out"], _gelu(dense(p["mlp_in"], x)))
+    tp = tp_active(_width(p["mlp_in"]), 4 * x.shape[-1], "mlp_in")
+    h = _gelu(_col_dense(p["mlp_in"], copy_to_model(x) if tp else x))
+    return _row_dense(p["mlp_out"], h, tp)
+
+
+def _embed(p: Params, tokens: torch.Tensor, dtype, vocab: int
+           ) -> torch.Tensor:
+    """The token embedding: vocab-parallel on a vocab-sharded table."""
+    if "embed" in p:
+        emb = vocab_embed(p["embed"], tokens, vocab)
+        if emb is not None:
+            return emb.to(dtype)
+    return embed_lookup(p, tokens, dtype)
+
+
+def _logits(p: Params, x: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Tied logits: all-gathered over 'model' from a vocab-sharded table."""
+    if "embed" in p:
+        y = vocab_logits(p["embed"], x, vocab)
+        if y is not None:
+            return y
+    return embed_logits(p, x)
+
+
+def local_heads(params: Params, cfg: WhisperConfig) -> int:
+    """The decoder self-attention heads this rank computes (and its caches
+    hold): heads / tp under TP, all of them for a whole (int4) block."""
+    return _width(params["decoder"]["layers"]["attn"]["q"]) // (
+        cfg.d_model // cfg.heads)
 
 
 def attention(p: Params, x: torch.Tensor, heads: int, *,
@@ -215,12 +288,19 @@ def attention(p: Params, x: torch.Tensor, heads: int, *,
     cross-attention source (self-attention when None); ``mask``: a boolean
     [.., Tq, Tk] mask, which takes the materialised twin. ``kv_cached``:
     precomputed head tensors, float (k, v) [B, H, S, hd] or a ``QuantKV``;
-    without a mask they go through ``decode_attention`` (K6)."""
-    q = _split_heads(dense(p["q"], x), heads)
+    without a mask they go through ``decode_attention`` (K6).
+
+    ``heads`` is the model's head count; with head-sharded projections
+    (TP, ``parallel/sharding.py``) this rank computes its own heads and
+    the output projection's partial sums meet in one all-reduce."""
+    hd = x.shape[-1] // heads
+    tp = tp_active(_width(p["q"]), x.shape[-1], "attention q")
+    xin = copy_to_model(x) if tp else x
+    q = _split_heads(_col_dense(p["q"], xin), hd)
     scale = q.shape[-1] ** -0.5
     if kv_cached is not None and mask is None:
         out = decode_attention(q, kv_cached, scale=scale)
-        return dense(p["out"], _merge_heads(out))
+        return _row_dense(p["out"], _merge_heads(out), tp)
     if isinstance(kv_cached, QuantKV):
         # every int8-KV caller is maskless and takes K6 above, as in JAX
         raise NotImplementedError("QuantKV attention with an explicit mask "
@@ -228,12 +308,12 @@ def attention(p: Params, x: torch.Tensor, heads: int, *,
     if kv_cached is not None:
         k, v = kv_cached
     else:
-        src = kv if kv is not None else x
-        k = _split_heads(dense(p["k"], src), heads)
-        v = _split_heads(dense(p["v"], src), heads)
+        src = xin if kv is None else (copy_to_model(kv) if tp else kv)
+        k = _split_heads(_col_dense(p["k"], src), hd)
+        v = _split_heads(_col_dense(p["v"], src), hd)
     out = dot_product_attention(q, k, v, causal=causal, mask=mask,
                                 scale=scale)
-    return dense(p["out"], _merge_heads(out))
+    return _row_dense(p["out"], _merge_heads(out), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +390,7 @@ def decode_train(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     and cross-attention to ``enc``."""
     p = params["decoder"]
     n = tokens.shape[1]
-    x = embed_lookup(p, tokens, dtype) + p["pos"][:n].to(dtype)
+    x = _embed(p, tokens, dtype, cfg.vocab_size) + p["pos"][:n].to(dtype)
 
     def body(x, layer):
         x = x + attention(layer["attn"], layer_norm(layer["attn_ln"], x),
@@ -322,7 +402,7 @@ def decode_train(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     body = _remat_body(body, remat)
     for li in range(cfg.decoder_layers):
         x = body(x, layer_params(p["layers"], li))
-    return embed_logits(p, layer_norm(p["ln"], x))
+    return _logits(p, layer_norm(p["ln"], x), cfg.vocab_size)
 
 
 def whisper_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
@@ -371,13 +451,14 @@ def quantize_kv(k: torch.Tensor, v: torch.Tensor) -> QuantKV:
 
 def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int,
                   dtype=torch.float32, device: DeviceLike = None,
-                  quant: bool = False):
+                  quant: bool = False, heads: Optional[int] = None):
     """Zeroed self-attention cache [layers, batch, H, max_len, hd]: float
     (``KVCache``) or, with ``quant``, int8 codes and unit scales
-    (``QuantKV``)."""
+    (``QuantKV``). ``heads``: the heads this rank holds (``local_heads``;
+    default all)."""
     device = resolve_device(device)
     hd = cfg.d_model // cfg.heads
-    shape = (cfg.decoder_layers, batch, cfg.heads, max_len, hd)
+    shape = (cfg.decoder_layers, batch, heads or cfg.heads, max_len, hd)
     if quant:
         return QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.ones(shape[:-1], device=device),
@@ -391,14 +472,16 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int,
 def precompute_cross_kv(params: Params, cfg: WhisperConfig,
                         enc: torch.Tensor, quant: bool = False):
     """Cross-attention K/V of every layer, once per utterance:
-    [layers, B, H, S, hd] each (``quant``: a ``QuantKV``)."""
+    [layers, B, H, S, hd] each (``quant``: a ``QuantKV``); under TP this
+    rank's heads."""
     layers = params["decoder"]["layers"]["cross_attn"]
+    hd = cfg.d_model // cfg.heads
     ks, vs = [], []
     for li in range(cfg.decoder_layers):
-        ks.append(_split_heads(dense(layer_params(layers["k"], li), enc),
-                               cfg.heads))
-        vs.append(_split_heads(dense(layer_params(layers["v"], li), enc),
-                               cfg.heads))
+        ks.append(_split_heads(_col_dense(layer_params(layers["k"], li),
+                                          enc), hd))
+        vs.append(_split_heads(_col_dense(layer_params(layers["v"], li),
+                                          enc), hd))
     k, v = torch.stack(ks), torch.stack(vs)
     return quantize_kv(k, v) if quant else (k, v)
 
@@ -418,11 +501,24 @@ def _write_kv(cache, li: int, index, k1: torch.Tensor, v1: torch.Tensor):
 def _cross_and_mlp(layer: Params, cfg: WhisperConfig, x: torch.Tensor,
                    cross_kv, li: int) -> torch.Tensor:
     h = layer_norm(layer["cross_ln"], x)
-    qc = _split_heads(dense(layer["cross_attn"]["q"], h), cfg.heads)
+    qp = layer["cross_attn"]["q"]
+    tp = tp_active(_width(qp), x.shape[-1], "cross-attention q")
+    qc = _split_heads(_col_dense(qp, h), cfg.d_model // cfg.heads)
     co = decode_attention_stacked(qc, cross_kv, li,
                                   scale=qc.shape[-1] ** -0.5)
-    x = x + dense(layer["cross_attn"]["out"], _merge_heads(co))
+    x = x + _row_dense(layer["cross_attn"]["out"], _merge_heads(co), tp)
     return x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
+
+
+def _self_qkv(layer: Params, cfg: WhisperConfig, h: torch.Tensor):
+    """(q, k, v) heads of the decoder self-attention, and whether they are
+    this rank's TP block."""
+    p = layer["attn"]
+    hd = cfg.d_model // cfg.heads
+    tp = tp_active(_width(p["q"]), h.shape[-1], "attention q")
+    return (_split_heads(_col_dense(p["q"], h), hd),
+            _split_heads(_col_dense(p["k"], h), hd),
+            _split_heads(_col_dense(p["v"], h), hd), tp)
 
 
 @torch.no_grad()
@@ -435,21 +531,19 @@ def decode_span(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     place)."""
     p = params["decoder"]
     kk = tokens.shape[1]
-    x = embed_lookup(p, tokens, dtype) + p["pos"][pos: pos + kk][None].to(dtype)
+    x = _embed(p, tokens, dtype, cfg.vocab_size) + \
+        p["pos"][pos: pos + kk][None].to(dtype)
     for li in range(cfg.decoder_layers):
         layer = layer_params(p["layers"], li)
-        h = layer_norm(layer["attn_ln"], x)
-        q = _split_heads(dense(layer["attn"]["q"], h), cfg.heads)
-        k1 = _split_heads(dense(layer["attn"]["k"], h), cfg.heads)
-        v1 = _split_heads(dense(layer["attn"]["v"], h), cfg.heads)
+        q, k1, v1, tp = _self_qkv(layer, cfg, layer_norm(layer["attn_ln"], x))
         _write_kv(cache, li, (slice(None), slice(None), slice(pos, pos + kk)),
                   k1, v1)
         attn_out = decode_attention_stacked(q, cache, li, pos=pos,
                                             scale=q.shape[-1] ** -0.5)
-        x = x + dense(layer["attn"]["out"], _merge_heads(attn_out))
+        x = x + _row_dense(layer["attn"]["out"], _merge_heads(attn_out), tp)
         x = _cross_and_mlp(layer, cfg, x, cross_kv, li)
     x = layer_norm(p["ln"], x)
-    return embed_logits(p, x), cache
+    return _logits(p, x, cfg.vocab_size), cache
 
 
 def decode_step(params: Params, cfg: WhisperConfig, token: torch.Tensor,
@@ -477,19 +571,17 @@ def decode_step_ragged(params: Params, cfg: WhisperConfig,
     pos = pos.long()
     pos32 = pos.to(torch.int32)
     bidx = torch.arange(token.shape[0], device=token.device)
-    x = embed_lookup(p, token[:, None], dtype) + p["pos"][pos][:, None].to(dtype)
+    x = _embed(p, token[:, None], dtype, cfg.vocab_size) + \
+        p["pos"][pos][:, None].to(dtype)
     for li in range(cfg.decoder_layers):
         layer = layer_params(p["layers"], li)
-        h = layer_norm(layer["attn_ln"], x)
-        q = _split_heads(dense(layer["attn"]["q"], h), cfg.heads)
-        k1 = _split_heads(dense(layer["attn"]["k"], h), cfg.heads)
-        v1 = _split_heads(dense(layer["attn"]["v"], h), cfg.heads)
+        q, k1, v1, tp = _self_qkv(layer, cfg, layer_norm(layer["attn_ln"], x))
         # row b of the new K/V lands at (li, b, :, pos[b])
         _write_kv(cache, li, (bidx, slice(None), pos), k1[:, :, 0],
                   v1[:, :, 0])
         attn_out = decode_attention_stacked(q, cache, li, pos=pos32,
                                             scale=q.shape[-1] ** -0.5)
-        x = x + dense(layer["attn"]["out"], _merge_heads(attn_out))
+        x = x + _row_dense(layer["attn"]["out"], _merge_heads(attn_out), tp)
         x = _cross_and_mlp(layer, cfg, x, cross_kv, li)
     x = layer_norm(p["ln"], x)
-    return embed_logits(p, x)[:, 0], cache
+    return _logits(p, x, cfg.vocab_size)[:, 0], cache

@@ -11,8 +11,9 @@ whose decode reads the stacked decode-attention kernel (K3).
 
 Batches are drawn exactly as the JAX loop draws them
 (``np.random.default_rng(cfg.seed).choice``), so both packages train on the
-same examples in the same order. The mesh, FSDP and sequence-parallel
-modes belong to the parallelism slice of the port.
+same examples in the same order. Under a mesh every rank draws the same
+batch and keeps its rows (``finetune_whisper``); sequence parallelism
+(``sp_mesh``) arrives with slice 11 b.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ from audax_torch.frontend.features import LogMelFrontend
 from audax_torch.infer.transcribe import Transcriber
 from audax_torch.models.whisper import tree_map
 from audax_torch.ops.augment import spec_augment
+from audax_torch.parallel.fsdp import shard_state
+from audax_torch.parallel.mesh import batch_size, shard_batch
 from audax_torch.symbolic.tokenizer import WhisperTokenizer
 from audax_torch.train.ema import ema_init, ema_model_params, ema_update
 from audax_torch.train.metrics_sink import MetricsSink
@@ -135,17 +138,33 @@ def finetune_whisper(
     every ``cfg.loss_fetch_every`` steps), "wer" (``{"step", "wer"}`` per
     eval), "best_wer", "best_params" (a copy of the best serving weights)
     and, with EMA on, "ema_params". ``eval_suppress_tokens`` feeds the eval
-    ``Transcriber``. ``device=None`` means the CUDA card."""
-    for name, value in (("mesh", mesh), ("fsdp", fsdp), ("sp_mesh", sp_mesh)):
-        if value not in (None, False):
-            raise NotImplementedError(
-                f"finetune_whisper({name}=...) arrives with the parallelism "
-                "slice of the port (data/tensor/sequence-parallel training)")
+    ``Transcriber``. ``device=None`` means the CUDA card.
+
+    ``mesh`` (a (data, model) mesh, ``parallel/mesh.py:make_mesh``) runs
+    the same step on every rank of it: parameters Megatron-TP-cut over
+    'model' (``WHISPER_TP_RULES``), every batch's rows cut over 'data',
+    the summed loss, token count and the gradients of replicated leaves
+    all-reduced. ``fsdp=True`` also cuts parameters and Adam moments over
+    'data' (ZeRO-3, ``parallel/fsdp.py``). The returned state then holds
+    this rank's blocks; ``state.full_params()`` gathers the serving tree,
+    and "best_params" / "ema_params" are whole. Evaluation runs whole on
+    every rank, as in JAX. ``sp_mesh`` (sequence parallelism) arrives with
+    slice 11 b and raises."""
+    if sp_mesh is not None:
+        raise NotImplementedError(
+            "finetune_whisper(sp_mesh=...) (sequence parallelism) arrives "
+            "with slice 11 b of the port (parallel/sp.py, ring attention)")
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True needs a mesh")
     device = resolve_device(device)
     mel_cfg = mel_cfg or MelConfig.whisper(model_cfg.n_mels)
     frontend = LogMelFrontend(mel_cfg, device=device, whisper_frames=True)
     params = tree_map(lambda t: t.to(device), params)
+    # every rank builds the same whole state (same seed), then keeps its
+    # blocks: the adapters are drawn at their whole shapes
     state = init_finetune(params, cfg, lora_targets=lora_targets)
+    if mesh is not None:
+        state = shard_state(state, mesh, fsdp=fsdp)
     step_fn = make_finetune_step(
         model_cfg, remat=cfg.gradient_checkpointing,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
@@ -167,8 +186,10 @@ def finetune_whisper(
 
     n = len(examples)
     # realized batch size: capped by the dataset, rounded to a multiple of
-    # accum_steps; tiny datasets round UP (sample with replacement)
-    div = max(1, cfg.accum_steps)
+    # accum_steps x the data ranks; tiny datasets round UP (sample with
+    # replacement)
+    div = max(1, cfg.accum_steps) * (1 if mesh is None
+                                     else batch_size(mesh))
     bsz = min(cfg.batch_size, n)
     bsz = max(div, (bsz // div) * div)
     for step in range(cfg.max_steps):
@@ -186,6 +207,9 @@ def finetune_whisper(
                  "decoder_input_ids": torch.from_numpy(
                      coll["decoder_input_ids"]).to(device),
                  "labels": torch.from_numpy(coll["labels"]).to(device)}
+        if mesh is not None:
+            # every rank draws the same global batch; each keeps its rows
+            batch = shard_batch(mesh, batch, device)
         state, m = step_fn(state, batch)
         if ema is not None:
             ema = ema_update(ema, state.trainable, cfg.ema_decay, state.step)
@@ -208,8 +232,12 @@ def finetune_whisper(
         if do_eval:
             # with EMA on, WER and the best checkpoint use the averaged
             # weights -- the tree one would serve
-            serving = (ema_model_params(state, ema) if ema is not None
-                       else state.model_params())
+            if mesh is not None:
+                serving = state.full_params(ema)
+            elif ema is not None:
+                serving = ema_model_params(state, ema)
+            else:
+                serving = state.model_params()
             # window from the model's encoder context, not a fixed 30 s
             win_s = (2 * model_cfg.n_audio_ctx * mel_cfg.hop_length
                      / mel_cfg.sample_rate)
@@ -228,7 +256,9 @@ def finetune_whisper(
     history["best_wer"] = best_wer
     history["best_params"] = best_params
     if ema is not None:
-        history["ema_params"] = _copy(ema_model_params(state, ema))
+        history["ema_params"] = _copy(
+            ema_model_params(state, ema) if mesh is None
+            else state.full_params(ema))
     return state, history
 
 

@@ -15,6 +15,11 @@ microbatches one after the other with summed CE and token counts,
 normalised once, so the update equals the full-batch step. The step
 updates the parameters and the optimizer state in place. ``dtype``
 bfloat16 computes in bfloat16 over float32 master weights.
+
+``fit_lm(mesh=)`` trains on every rank of a (data, model) mesh: the
+parameters cut by ``CAUSAL_LM_TP_RULES`` (with ``fsdp``, also over
+'data'), each batch's rows over 'data', the summed CE, the token count
+and the MoE aux loss's statistics summed over the data ranks.
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ from audax_torch.models.whisper import tree_leaves, tree_map, tree_unflatten
 from audax_torch.train.optim import (GradientTransformation, adamw_lp,
                                      apply_updates,
                                      warmup_cosine_decay_schedule)
+from audax_torch.parallel.fsdp import shard_state
+from audax_torch.parallel.mesh import batch_group, shard_batch, use_mesh
+from audax_torch.parallel.sharding import CAUSAL_LM_TP_RULES
 from audax_torch.train.seq2seq import accumulate_grads, seq2seq_loss_sum
 
 log = get_logger("audax_torch.train.lm")
@@ -74,6 +82,8 @@ class LMState:
     params: Any
     opt_state: Any
     tx: GradientTransformation
+    #: the params' layout over a mesh (parallel/fsdp.py:shard_state)
+    layout: Any = None
 
     def replace(self, **changes) -> "LMState":
         return dataclasses.replace(self, **changes)
@@ -127,7 +137,7 @@ def make_lm_train_step(model_cfg: CausalLMConfig, train_cfg: LMTrainConfig):
     remat = _REMAT[train_cfg.remat]
     aux = model_cfg.num_experts > 0 and train_cfg.aux_loss_coef
 
-    def batch_loss(params, windows):
+    def batch_loss(params, windows, group=None):
         inp = torch.clamp_min(windows[:, :-1], 0)
         out = lm_forward(params, model_cfg, inp, dtype=dtype,
                          return_router_logits=bool(aux), remat=remat)
@@ -136,16 +146,26 @@ def make_lm_train_step(model_cfg: CausalLMConfig, train_cfg: LMTrainConfig):
         if aux:
             total = total + train_cfg.aux_loss_coef * load_balance_loss(
                 router, model_cfg.num_experts,
-                model_cfg.experts_per_tok) * count
+                model_cfg.experts_per_tok, group=group) * count
         return total, count
 
     def step(state: LMState, windows: torch.Tensor):
-        grads, loss, count = accumulate_grads(
-            lambda micro: batch_loss(state.params, micro),
-            tree_leaves(state.params), windows, accum)
+        lay = state.layout
+        if lay is None:
+            grads, loss, count = accumulate_grads(
+                lambda micro: batch_loss(state.params, micro),
+                tree_leaves(state.params), windows, accum)
+        else:
+            with use_mesh(lay.mesh):
+                grads, loss, count = accumulate_grads(
+                    lambda micro: batch_loss(lay.use(state.params), micro,
+                                             batch_group(lay.mesh)),
+                    tree_leaves(state.params), windows, accum,
+                    reduce=lay.reduce)
         grads = tree_unflatten(state.params, grads)
+        kw = {} if lay is None else {"norm": lay.norm(grads)}
         updates, opt_state = state.tx.update(grads, state.opt_state,
-                                             state.params)
+                                             state.params, **kw)
         apply_updates(state.params, updates)
         return (state.replace(step=state.step + 1, opt_state=opt_state),
                 {"loss": loss, "tokens": count})
@@ -175,10 +195,13 @@ def fit_lm(params: Any, model_cfg: CausalLMConfig, train_cfg: LMTrainConfig,
     them (``np.random.default_rng(seed).choice``). Saves checkpoints
     (latest + best by eval loss, ``train/checkpoints.py:CheckpointManager``,
     with the model config as ``config.json``) when ``ckpt_dir`` is set.
-    ``mesh``/``fsdp`` belong to the parallelism slice and raise."""
-    if mesh is not None or fsdp:
-        raise NotImplementedError("fit_lm(mesh=/fsdp=) arrives with the "
-                                  "parallelism slice of the port")
+
+    ``mesh``: train on every rank of it (module docstring); ``fsdp`` also
+    cuts parameters and moments over 'data'. The evaluation runs whole on
+    every rank, rank 0 alone writes the checkpoints, and the returned
+    params are whole."""
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True needs a mesh")
     device = resolve_device(device)
     windows = pack_corpus(corpus_ids, train_cfg.seq_len)
     n_eval = min(train_cfg.eval_windows,
@@ -195,9 +218,14 @@ def fit_lm(params: Any, model_cfg: CausalLMConfig, train_cfg: LMTrainConfig,
     step = make_lm_train_step(model_cfg, train_cfg)
     state = init_lm_state(tree_map(lambda t: t.detach().to(device).clone(),
                                    params), train_cfg)
+    lay = None
+    if mesh is not None:
+        state = shard_state(state, mesh, fsdp=fsdp, rules=CAUSAL_LM_TP_RULES)
+        lay = state.layout
+    lead = mesh is None or torch.distributed.get_rank() == 0
     rng = np.random.default_rng(train_cfg.seed)
     manager = None
-    if ckpt_dir:
+    if ckpt_dir and lead:
         from audax_torch.train.checkpoints import CheckpointManager
         manager = CheckpointManager(ckpt_dir, best_metric="val_loss",
                                     config=dataclasses.asdict(model_cfg))
@@ -205,14 +233,21 @@ def fit_lm(params: Any, model_cfg: CausalLMConfig, train_cfg: LMTrainConfig,
     for it in range(train_cfg.max_steps):
         idx = rng.choice(len(train_w), train_cfg.batch_size,
                          replace=len(train_w) < train_cfg.batch_size)
-        state, metrics = step(state, train_dev[torch.from_numpy(idx).to(
-            device)])
+        batch = train_dev[torch.from_numpy(idx).to(device)]
+        if mesh is not None:
+            batch = shard_batch(mesh, batch, device)
+        state, metrics = step(state, batch)
         is_eval = (train_cfg.eval_every
                    and (it + 1) % train_cfg.eval_every == 0)
         if is_eval or it + 1 == train_cfg.max_steps:
             row = {"step": it + 1, "loss": float(metrics["loss"])}
-            if eval_dev is not None:
+            if eval_dev is not None and lay is not None:
+                with use_mesh(mesh), torch.no_grad():
+                    ev = _eval_loss(lay.use(state.params), model_cfg,
+                                    eval_dev, dtype)
+            elif eval_dev is not None:
                 ev = _eval_loss(state.params, model_cfg, eval_dev, dtype)
+            if eval_dev is not None:
                 row["eval_loss"] = ev
                 row["eval_ppl"] = float(np.exp(min(ev, 30.0)))
             history.append(row)
@@ -220,9 +255,14 @@ def fit_lm(params: Any, model_cfg: CausalLMConfig, train_cfg: LMTrainConfig,
                 sink.log(row)
             log.info("lm step %d: %s", it + 1,
                      {k: round(v, 4) for k, v in row.items()})
+            if ckpt_dir:
+                # every rank joins the gather; rank 0 writes
+                whole = (state.params if lay is None
+                         else lay.full(state.params))
             if manager is not None:
-                manager.save(it + 1, state.params, metrics={
+                manager.save(it + 1, whole, metrics={
                     "val_loss": row.get("eval_loss", row["loss"])})
     if manager is not None:
         manager.close()
-    return tree_map(lambda t: t.detach(), state.params), history
+    whole = state.params if lay is None else lay.full(state.params)
+    return tree_map(lambda t: t.detach(), whole), history

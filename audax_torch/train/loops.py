@@ -10,8 +10,14 @@ batch and masks the padding rows, and fetches its predictions once.
 
 Two differences from the JAX loop, by design: ``fit_classifier`` trains the
 module's parameters as the caller built (or bridged) them, where the JAX
-loop initialises from ``cfg.seed``; and it trains one device, so ``mesh=``
-waits for the parallelism slice (ROADMAP item 11).
+loop initialises from ``cfg.seed``; and under a mesh each rank draws its
+own dropout masks, so mesh and single-device runs agree at dropout 0.
+
+``mesh=`` trains data-parallel (``train/steps.py``): every batch goes
+through ``parallel/mesh.py:shard_batch``, which pads it to a multiple of
+the data ranks by repeating row 0, unmasked, as JAX's does -- the padding
+rows count in the loss and metrics of both packages. Rank 0 alone writes
+the checkpoints.
 
 ``ckpt_manager`` (a ``train/checkpoints.py:CheckpointManager``) keeps the
 JAX contract: every epoch's end saves the parameters, the BatchNorm
@@ -37,6 +43,8 @@ from audax_torch.core.runtime import DeviceLike, resolve_device
 from audax_torch.data.batching import eval_batches, train_batches
 from audax_torch.eval.metrics import detailed_metrics
 from audax_torch.train.metrics_sink import MetricsSink
+from audax_torch.parallel.fsdp import Layout
+from audax_torch.parallel.mesh import P, shard_batch
 from audax_torch.train.optim import adamw
 from audax_torch.train.steps import TrainState, make_classifier_steps
 
@@ -45,20 +53,36 @@ __all__ = ["fit_classifier", "evaluate_classifier"]
 log = get_logger("audax_torch.train")
 
 
-def _no_mesh(mesh) -> None:
+def _to_device(batch: Dict[str, np.ndarray], device: torch.device,
+               mesh=None):
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data-parallel classifier training) waits for the "
-            "parallelism slice of the port (ROADMAP item 11)")
-
-
-def _to_device(batch: Dict[str, np.ndarray], device: torch.device):
+        batch = shard_batch(mesh, {k: np.asarray(v) for k, v in
+                                   batch.items()}, device)
+        return {k: v.to(torch.int64 if k == "y" else torch.float32)
+                for k, v in batch.items()}
     out = {"x": torch.from_numpy(np.ascontiguousarray(batch["x"],
                                                       np.float32)),
            "y": torch.from_numpy(np.asarray(batch["y"], np.int64))}
     if "w" in batch:
         out["w"] = torch.from_numpy(np.asarray(batch["w"], np.float32))
     return {k: v.to(device, non_blocking=True) for k, v in out.items()}
+
+
+class _ReadOnly:
+    """A checkpoint manager that restores but does not write (the ranks
+    but 0 of a mesh)."""
+
+    def __init__(self, manager):
+        self._m = manager
+
+    def __getattr__(self, name):
+        return getattr(self._m, name)
+
+    def save(self, *args, **kwargs):
+        return None
+
+    def wait(self):
+        return None
 
 
 def _device_of(state: TrainState) -> torch.device:
@@ -100,13 +124,14 @@ def evaluate_classifier(eval_step, state: TrainState,
                         data: Dict[str, np.ndarray], batch_size: int,
                         num_classes: int, mesh=None) -> Tuple[Dict, np.ndarray]:
     """Run eval over a split on the state's device; returns (metrics dict
-    incl. loss, predictions)."""
-    _no_mesh(mesh)
+    incl. loss, predictions). ``mesh``: ``eval_step`` is the mesh's
+    (``make_classifier_steps(model, mesh)``) and each batch is cut over
+    it."""
     device = _device_of(state)
     preds, losses, keeps = [], [], []
     numeric = {k: data[k] for k in ("x", "y")}
     for batch in eval_batches(numeric, batch_size):
-        out = eval_step(state, _to_device(batch, device))
+        out = eval_step(state, _to_device(batch, device, mesh))
         keeps.append(int(batch["w"].sum()))
         preds.append(out["predictions"])
         losses.append(out["loss"])
@@ -141,16 +166,22 @@ def fit_classifier(
     per-epoch eval with the full metric suite. Returns the train state and
     ``{"train_loss": [per epoch], "eval": [metrics per epoch]}``; each
     epoch's record (loss, accuracy, ``examples_per_s``, eval metrics) goes
-    to ``sink`` or the log."""
-    _no_mesh(mesh)
+    to ``sink`` or the log. ``mesh``: data-parallel over its batch axes
+    (module docstring)."""
     device = resolve_device(device)
     model.to(device)
     train_data = {k: train_data[k] for k in ("x", "y")}
     if eval_data is not None:
         eval_data = {k: eval_data[k] for k in ("x", "y")}
-    train_step, eval_step = make_classifier_steps(model)
+    train_step, eval_step = make_classifier_steps(model, mesh)
     state = TrainState.create(model, adamw(cfg.learning_rate,
                                            cfg.weight_decay))
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    if mesh is not None:
+        state = state.replace(layout=Layout(
+            mesh, {k: P() for k in state.params}))
+        if not lead:
+            ckpt_manager = _ReadOnly(ckpt_manager) if ckpt_manager else None
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     history: Dict[str, list] = {"train_loss": [], "eval": []}
 
@@ -166,7 +197,7 @@ def fit_classifier(
         losses, accs = [], []
         for batch in train_batches(train_data, cfg.batch_size, cfg.seed,
                                    epoch):
-            state, m = train_step(state, _to_device(batch, device),
+            state, m = train_step(state, _to_device(batch, device, mesh),
                                   generator)
             losses.append(m["loss"])
             accs.append(m["accuracy"])
@@ -186,7 +217,7 @@ def fit_classifier(
 
         if eval_data is not None:
             em, _ = evaluate_classifier(eval_step, state, eval_data,
-                                        cfg.batch_size, num_classes)
+                                        cfg.batch_size, num_classes, mesh)
             record.update({
                 "eval_loss": em["loss"], "eval_accuracy": em["accuracy"],
                 "eval_f1_macro": em["f1_macro"],

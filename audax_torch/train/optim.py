@@ -246,13 +246,15 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_scale(grads, max_norm: float
+def clip_scale(grads, max_norm: float, norm: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(den, num), float32 scalar tensors: ``optax.clip_by_global_norm``
     scales every leaf by ``g / den * num``, (norm, max_norm) where the
     global norm is at least ``max_norm``, else (1, 1); decided on the
-    device (no host read of the norm)."""
-    norm = global_norm(grads)
+    device (no host read of the norm). ``norm``: the global norm when the
+    gradients are shards (``parallel/fsdp.py:Layout.norm``)."""
+    if norm is None:
+        norm = global_norm(grads)
     keep = norm < max_norm
     one = torch.ones_like(norm)
     return (torch.where(keep, one, norm),
@@ -279,8 +281,10 @@ def adamw_lp(learning_rate: Union[float, Schedule],
                 else (lambda _count: learning_rate))
 
     @torch.no_grad()
-    def update(grads, state: ScaleByAdamLPState, params):
-        scale = clip_scale(grads, grad_clip) if grad_clip else None
+    def update(grads, state: ScaleByAdamLPState, params, *, norm=None):
+        """``norm``: the whole tree's global norm for the clip, when
+        ``grads`` are this rank's shards of it."""
+        scale = clip_scale(grads, grad_clip, norm) if grad_clip else None
         lr = float(_f32(schedule(state.count)))
         direction, state = adam.update(grads, state, grad_scale=scale)
         # leaf by leaf, so the update adds no tree-sized temporary

@@ -27,6 +27,7 @@ from audax_torch.core.config import FineTuneConfig, WhisperConfig
 from audax_torch.models.lora import apply_lora, init_lora
 from audax_torch.models.whisper import (tree_leaves, tree_map, tree_unflatten,
                                         whisper_forward)
+from audax_torch.parallel.mesh import use_mesh
 from audax_torch.train.optim import (GradientTransformation, adamw_lp,
                                      apply_updates, seq2seq_schedule)
 
@@ -81,14 +82,20 @@ def seq2seq_loss_sum(logits: torch.Tensor, labels: torch.Tensor
 
 
 def accumulate_grads(loss_sum_fn: Callable, leaves: Sequence[torch.Tensor],
-                     batch, accum_steps: int):
+                     batch, accum_steps: int,
+                     reduce: Optional[Callable] = None):
     """Gradient accumulation: ``batch`` (a tensor or a dict of tensors, B
     rows, B divisible by ``accum_steps``) split into ``accum_steps``
     microbatches run one after the other; the gradients of each one's
     summed loss (``loss_sum_fn(micro) -> (total, count)``) and the counts
     accumulate and are normalised once, so the update equals the
     full-batch step even with ragged label rows. Returns (gradients of
-    ``leaves``, mean loss, summed count)."""
+    ``leaves``, mean loss, summed count).
+
+    ``reduce(grads, loss_sum, count) -> (grads, loss_sum, count)`` sums the
+    three over the data ranks before the one normalisation (a mesh's
+    ``Layout.reduce``): the loss is the global sum over the global count,
+    never a mean of the ranks' means."""
     rows = (next(iter(batch.values())) if isinstance(batch, dict)
             else batch).shape[0]
     if rows % accum_steps:
@@ -105,6 +112,8 @@ def accumulate_grads(loss_sum_fn: Callable, leaves: Sequence[torch.Tensor],
         gsum = list(g) if gsum is None else torch._foreach_add(gsum, g)
         lsum = lsum + total.detach()
         csum = csum + count.float()
+    if reduce is not None:
+        gsum, lsum, csum = reduce(gsum, lsum, csum)
     denom = torch.clamp_min(csum, 1.0)
     return [g / denom for g in gsum], lsum / denom, csum
 
@@ -119,7 +128,11 @@ def seq2seq_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 class FTState:
     """Train state. ``trainable`` is the LoRA tree or the full parameters
     (leaves that require grad); ``base_params`` is the frozen base when
-    LoRA is active, else empty."""
+    LoRA is active, else empty.
+
+    Under a mesh (``parallel/fsdp.py:shard_state``) both trees hold this
+    rank's blocks: ``layout`` is the trainable tree's (TP and, with FSDP,
+    the data axis), ``base_layout`` the frozen base's."""
     step: int
     base_params: Any
     trainable: Any
@@ -127,12 +140,30 @@ class FTState:
     tx: GradientTransformation
     use_lora: bool = False
     lora_alpha: float = 16.0
+    layout: Any = None
+    base_layout: Any = None
 
     def model_params(self):
+        """The tree the forward reads (under a mesh: this rank's TP blocks,
+        the FSDP leaves gathered; call inside ``use_mesh``)."""
+        trainable = (self.trainable if self.layout is None
+                     else self.layout.use(self.trainable))
         if self.use_lora:
-            return apply_lora(self.base_params, self.trainable,
-                              self.lora_alpha)
-        return self.trainable
+            return apply_lora(self.base_params, trainable, self.lora_alpha)
+        return trainable
+
+    def full_params(self, trainable=None):
+        """The whole serving tree (LoRA merged) on every rank: gathered
+        from the blocks under a mesh. ``trainable``: a tree laid out like
+        the trainable one (an EMA) to serve instead."""
+        trainable = self.trainable if trainable is None else trainable
+        if self.layout is not None:
+            trainable = self.layout.full(trainable)
+        if not self.use_lora:
+            return trainable
+        base = (self.base_params if self.base_layout is None
+                else self.base_layout.full(self.base_params))
+        return apply_lora(base, trainable, self.lora_alpha)
 
     def replace(self, **changes) -> "FTState":
         return dataclasses.replace(self, **changes)
@@ -174,7 +205,13 @@ def make_finetune_step(model_cfg: WhisperConfig, *, remat=True,
     many microbatches run one after the other, the gradients of the SUMMED
     CE and the token counts are accumulated and normalised once, so the
     update equals the full-batch step even with ragged label rows. B must
-    be divisible by ``accum_steps``. The loss stays on the device."""
+    be divisible by ``accum_steps``. The loss stays on the device.
+
+    A state laid out over a mesh (``parallel/fsdp.py:shard_state``) takes
+    this rank's block of the batch: the forward runs under the mesh (TP
+    collectives, FSDP gathers), the summed CE and the token count are
+    summed over the data ranks before the one normalisation, and the
+    clip's norm is the whole tree's."""
     fwd = partial(whisper_forward, remat=remat)
 
     def logits_of(state: FTState, batch):
@@ -192,11 +229,23 @@ def make_finetune_step(model_cfg: WhisperConfig, *, remat=True,
             leaves, batch, accum_steps)
         return grads, loss
 
+    def mesh_grads_and_loss(state: FTState, batch):
+        with use_mesh(state.layout.mesh):
+            grads, loss, _ = accumulate_grads(
+                lambda micro: seq2seq_loss_sum(logits_of(state, micro),
+                                               micro["labels"]),
+                tree_leaves(state.trainable), batch, accum_steps,
+                reduce=state.layout.reduce)
+        return grads, loss
+
     def step(state: FTState, batch):
-        grads, loss = grads_and_loss(state, batch)
+        lay = state.layout
+        grads, loss = (grads_and_loss if lay is None
+                       else mesh_grads_and_loss)(state, batch)
         grads = tree_unflatten(state.trainable, grads)
+        kw = {} if lay is None else {"norm": lay.norm(grads)}
         updates, opt_state = state.tx.update(grads, state.opt_state,
-                                             state.trainable)
+                                             state.trainable, **kw)
         apply_updates(state.trainable, updates)
         return (state.replace(step=state.step + 1, opt_state=opt_state),
                 {"loss": loss})

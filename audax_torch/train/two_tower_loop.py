@@ -15,7 +15,7 @@ order. SpecAugment and ``eval_note_f1``'s sampling draw from
 parity holds with augmentation off and at temperature 0). A dataset is
 anything with ``MusicDataset``'s interface: ``__len__``, ``__getitem__``
 -> ``MusicExample``, ``tokenizer``, ``start_id``, ``end_id``, ``pad_id``.
-The mesh and FSDP modes belong to the parallelism slice and raise.
+The mesh and FSDP modes arrive with slice 11 b of the port and raise.
 """
 
 from __future__ import annotations
@@ -184,7 +184,7 @@ def fit_two_tower(
     mels (validation and note evals stay clean)."""
     if mesh is not None or fsdp:
         raise NotImplementedError("fit_two_tower(mesh=/fsdp=) arrives with "
-                                  "the parallelism slice of the port")
+                                  "slice 11 b of the port's parallelism")
     device = resolve_device(device)
     model = model._replace(
         audio_params=tree_map(lambda t: t.to(device), model.audio_params),

@@ -25,7 +25,8 @@ the mixture-of-experts paths of the causal LM at Qwen3-30B-A3B's widths
 loss, the MoE decode probe), the Whisper and classifier commands of the
 command line (weight I/O at Whisper-large-v3-turbo width), and last the
 five bench commands with the browser demo and the host C++ (the SF2
-synth), in twenty-one phases,
+synth), and the parallelism of the port over ``torch.distributed``
+(``parallel_phase``), in twenty-two phases,
 one output line each (the kernel and path phases print one line per
 case):
 
@@ -294,7 +295,7 @@ case):
      ``eval_note_f1`` on 4 examples at ``max_len`` 64 (K1, K2, K3), two
      more steps timed (step ms, tokens/s, peak memory, launches a step),
      the frozen layers bit-identical after the epoch, and one step at batch
-     1 and 128 tokens held against the CPU path (loss within
+     1 and ``HOLD_TOKENS`` (64) tokens held against the CPU path (loss within
      ``TOL_STEP_LOSS``, the adapter's and the top layer's gradients within
      ``TOL_STEP_GRAD`` of each leaf's largest); then ``train-lm --lm-size
      qwen3-0.6b`` through ``cli.main.main`` for 3 steps at batch 32 x 256
@@ -302,7 +303,7 @@ case):
      3xTF32 bodies, 28 launches each a step), 2 steps of ``fit_lm`` at
      bfloat16 (the wgmma bodies at head_dim 128) and 2 with ``remat``
      "full" (K2 56 a step), each loss finite, and one float32 step at batch
-     1 x 128 held against the CPU (loss and every gradient). Its
+     1 x ``HOLD_TOKENS`` held against the CPU (loss and every gradient). Its
      kernel shapes (the adapter's cross-attention at head_dim 128 over 500
      keys, the LM's causal GQA in float32 and bf16) are phase 3's
      ``music train`` cases;
@@ -339,7 +340,7 @@ case):
      (random weights; every tensor bit-equal, and with ``--quantize int4``
      equal to ``quantize_tree``) and Qwen3-0.6B (``--kind causal-lm``), with
      the seconds and GB/s of each; ``transcribe --size large-v3-turbo
-     --ckpt <int4>`` on two 30 s WAVs (K1, K2, K3, K9; its CSV text equal to
+     --ckpt <int4>`` on a 30 s WAV (K1, K2, K3, K9; its CSV text equal to
      an in-process ``Transcriber`` on the same checkpoint and tokenizer);
      ``serve --kv-quant`` on the same checkpoint, two concurrent requests
      answered with HTTP 200 and the text of a ``Transcriber`` at t = 0 with
@@ -379,6 +380,18 @@ case):
      on), and the SF2 synth built by g++ from ``audax_torch/native`` and
      a minimal soundfont written here rendered twice (finite, not silent,
      bit-equal);
+ 9i. parallel -- data, tensor, fully-sharded and expert parallelism
+     (``parallel_phase``): a world of one over NCCL holds
+     ``finetune_whisper(mesh=, fsdp=True)`` at Whisper-base, float32,
+     ``ContinuousBatcher(mesh=)`` at Whisper-large-v3-turbo width with int8
+     KV, ``moe_expert_parallel`` on one Qwen3-30B-A3B layer and
+     ``fit_lm(mesh=, fsdp=True)`` at Qwen3-0.6B width against the same
+     paths without a mesh; then a world of two processes on the one card
+     over gloo probes which collectives gloo carries on CUDA tensors,
+     decodes at turbo width with 10 of 20 heads a rank (the world of
+     one's tokens) and, where gloo carries its collectives, trains
+     Whisper-base under FSDP (data 2: a world of one cuts nothing) against
+     the whole run: losses, gathered first moments and updates;
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
      ``csrc/flash_bwd.cu``, count the CUDA-core launches, the last two timed
@@ -3743,6 +3756,8 @@ TOL_MUSIC_TIE = 2 * TOL_LOGITS
 MUSIC_PROMPT = "X:1\nK:D\n"
 #: the LM preset of ``infer-music --lm-size``: Qwen3-0.6B's published config
 MUSIC_LM = "qwen3-0.6b"
+#: infer-music's --max-tokens in the music phase
+MUSIC_MAX_TOKENS = 64
 
 
 def _abc_tunes(rng, n):
@@ -3964,7 +3979,7 @@ def music_phase(torch, rng, smi):
                       _music_clip(rng, sec), 16000)
         common = ["--tokenizer-dir", tok_dir, "--ckpt", ck, "--lm-size",
                   MUSIC_LM, "--constrained", "--temperature", "0",
-                  "--max-tokens", "256", "--device", "cuda"]
+                  "--max-tokens", str(MUSIC_MAX_TOKENS), "--device", "cuda"]
         runs = {}
         for label, args in (("--wav", ["--wav", wav, "--prompt",
                                        MUSIC_PROMPT]),
@@ -3994,7 +4009,8 @@ def music_phase(torch, rng, smi):
                                      f"{lm_cfg.layers} layers")
             n_gen = sum(len(r["tokens"]) for r in rec["requests"])
             print(f"[music] infer-music {label} ({len(rec['requests'])} "
-                  f"clips, --constrained, t = 0, max 256 tokens): wall "
+                  f"clips, --constrained, t = 0, max {MUSIC_MAX_TOKENS} "
+                  f"tokens): wall "
                   f"{wall:.2f} s (model build and checkpoint merge "
                   f"included), generation {rec['seconds']:.2f} s, "
                   f"{steps} decode steps, {rec['seconds'] / steps * 1e3:.2f} "
@@ -4018,7 +4034,7 @@ def music_phase(torch, rng, smi):
                      : runs["--wav"]["decode_steps"] + 1], p_len)]
         for r in runs["--wav-dir"]["requests"]:
             seq = [start] + r["tokens"]
-            if len(r["tokens"]) < 255:
+            if len(r["tokens"]) < MUSIC_MAX_TOKENS - 1:     # ended itself
                 seq.append(end)
             seqs.append((f"--wav-dir {r['id']}",
                          os.path.join(wav_dir, r["id"]), seq, 0))
@@ -4077,6 +4093,8 @@ LM_TRAIN_KERNELS = {"float32": ("flash_forward_tf32x3",
 #: the music training phase's data: 24 examples of 10 s, melodies of 14
 #: events (chords of up to 3 notes) cut to the window
 MUSIC_TRAIN_ITEMS = 24
+#: tokens of the music_train phase's card-vs-CPU steps (two-tower and LM)
+HOLD_TOKENS = 64
 MUSIC_TRAIN_EVENTS = 14
 
 
@@ -4339,9 +4357,9 @@ def music_train_phase(torch, rng, smi):
           f"{per_step} ({smi})", flush=True)
     del st, step, batch
 
-    # ---- one step at batch 1 x 128 tokens, card against the CPU ------------
+    # ---- one step at batch 1 x HOLD_TOKENS, card against the CPU ------------
     t0 = time.perf_counter()
-    one = _music_examples(np, bpe, mfs[:1], abcs[:1], waves[:1], 128)
+    one = _music_examples(np, bpe, mfs[:1], abcs[:1], waves[:1], HOLD_TOKENS)
     cpu = model._replace(
         audio_params=tree_map(lambda t: t.cpu(), model.audio_params),
         params=tree_map(lambda t: t.cpu(), model.params))
@@ -4361,7 +4379,7 @@ def music_train_phase(torch, rng, smi):
                if k.startswith("lm/layers")}
     grads = {**res[0][1], **top}
     cpu_grads = {**res[1][1], **top_cpu}
-    _hold_grads(torch, f"two-tower step (batch 1 x 128, in "
+    _hold_grads(torch, f"two-tower step (batch 1 x {HOLD_TOKENS}, in "
                 f"{time.perf_counter() - t0:.1f} s; adapter and top layer)",
                 res[0][0], grads, res[1][0], cpu_grads, keys)
     del res, grads, cpu_grads, top, top_cpu, cpu, model
@@ -4503,9 +4521,9 @@ def music_train_phase(torch, rng, smi):
         del st, lm_step
         torch.cuda.empty_cache()
 
-    # ---- one float32 LM step at batch 1 x 128, card against the CPU --------
+    # ---- one float32 LM step at batch 1 x HOLD_TOKENS, card against the CPU
     t0 = time.perf_counter()
-    w = torch.from_numpy(ids[: 129][None].astype(np.int64))
+    w = torch.from_numpy(ids[: HOLD_TOKENS + 1][None].astype(np.int64))
     cfg = CausalLMConfig.qwen3_0_6b()
     res = []
     for params in (lm_params, tree_map(lambda t: t.cpu(), lm_params)):
@@ -4518,7 +4536,7 @@ def music_train_phase(torch, rng, smi):
                 lm_forward(q, cfg, ww[:, :-1]).float(), ww[:, 1:])
             return total / count
         res.append(_grads(torch, loss_fn, p))
-    _hold_grads(torch, f"LM step (batch 1 x 128, in "
+    _hold_grads(torch, f"LM step (batch 1 x {HOLD_TOKENS}, in "
                 f"{time.perf_counter() - t0:.1f} s; every gradient)",
                 res[0][0], res[0][1], res[1][0], res[1][1], list(res[0][1]))
     del res, lm_params
@@ -5016,16 +5034,16 @@ def cli_phase(torch, rng, smi):
             # ---- transcribe, against an in-process Transcriber -----------
             out_csv = os.path.join(d, "turbo.csv")
             secs, counts = _run_cli(
-                torch, ["transcribe", *wavs, "--size", "large-v3-turbo",
+                torch, ["transcribe", wavs[0], "--size", "large-v3-turbo",
                         "--ckpt", q4, "--tokenizer-dir", tokdir,
                         "--csv", out_csv], CLI_TRANSCRIBE_KERNELS,
-                "transcribe --size large-v3-turbo --ckpt <int4> (two 30 s "
-                "WAVs)")
+                "transcribe --size large-v3-turbo --ckpt <int4> (one 30 s "
+                "WAV)")
             all_counts.append(counts)
             with open(out_csv, newline="") as fh:
                 rows = {r["file"]: r for r in csv.DictReader(fh)}
             tr = Transcriber(qparams, cfg, tok, best_of=5, device="cuda")
-            for w in wavs:
+            for w in wavs[:1]:
                 res = tr.transcribe(read_wav(w)[0])
                 row = rows[os.path.basename(w)]
                 print(f"[cli] transcribe {os.path.basename(w)}: CLI RTF "
@@ -5036,8 +5054,8 @@ def cli_phase(torch, rng, smi):
                 if "error" in row and row["error"] or row["text"] != res.text:
                     raise AssertionError(f"transcribe {w}: CSV {row!r} vs "
                                          f"{res.text!r}")
-            print(f"[cli] transcribe: {secs:.2f} s for 60 s of audio, RTF "
-                  f"{secs / 60.0:.5f} with model load ({smi})", flush=True)
+            print(f"[cli] transcribe: {secs:.2f} s for 30 s of audio, RTF "
+                  f"{secs / 30.0:.5f} with model load ({smi})", flush=True)
 
             # ---- serve --kv-quant, against a Transcriber at t = 0 --------
             bodies = []
@@ -5321,23 +5339,26 @@ BENCH_TRAIN_KERNELS = {"float32": CLI_TRAIN_KERNELS[1:],
 #: Whisper-base 18)
 BENCH_RUNS = (
     ("bench-rtf base bf16 (full ladder)",
-     ["bench-rtf", "--size", "base", "--seconds", "30", "--runs", "1"],
+     ["bench-rtf", "--size", "base", "--seconds", "30", "--runs", "1",
+      "--max-new-tokens", "64"],
      BENCH_BF16_KERNELS, {}),
     ("bench-rtf large-v3-turbo int4 + int8 KV",
      ["bench-rtf", "--size", "large-v3-turbo", "--quantize", "int4",
-      "--kv-quant", "--no-fallback", "--seconds", "30", "--runs", "2"],
+      "--kv-quant", "--no-fallback", "--seconds", "30", "--runs", "1"],
      BENCH_Q4_KERNELS, {}),
     ("bench-streaming base", ["bench-streaming", "--size", "base",
                               "--windows", "1"], BENCH_BF16_KERNELS, {}),
     ("bench-continuous asr base",
      ["bench-continuous", "--engine", "asr", "--size", "base",
-      "--requests", "16"], BENCH_BF16_KERNELS, {}),
+      "--requests", "16", "--max-new-tokens", "112"], BENCH_BF16_KERNELS,
+     {}),
     ("bench-continuous music qwen3-0.6b",
      ["bench-continuous", "--engine", "music", "--lm-preset", "qwen3-0.6b",
-      "--requests", "16"], BENCH_BF16_KERNELS, {}),
+      "--requests", "16", "--max-new-tokens", "112"], BENCH_BF16_KERNELS,
+     {}),
     ("bench-speculative base / tiny",
      ["bench-speculative", "--size", "base", "--draft-size", "tiny",
-      "--max-new-tokens", "32"], BENCH_BF16_KERNELS, {}),
+      "--max-new-tokens", "16"], BENCH_BF16_KERNELS, {}),
     ("bench-train tiny f32 LoRA 8 (default)",
      ["bench-train", "--steps", "5"], BENCH_TRAIN_KERNELS["float32"],
      {"flash_forward_tf32x3": 144, "flash_backward_dq_tf32x3": 72,
@@ -5622,6 +5643,488 @@ def bench_phase(torch, rng, smi):
     return all_counts
 
 
+#: the parallel phase's fine-tune and LM runs: steps, the LM's depth
+PARALLEL_STEPS = 3
+PARALLEL_LM_LAYERS = 2
+#: the float32 flash bodies a mesh step must launch exactly as often as the
+#: step without one
+PARALLEL_FLASH = ("flash_forward_tf32x3", "flash_backward_dq_tf32x3",
+                  "flash_backward_dkv_tf32x3")
+#: TP decoding at Whisper-large-v3-turbo width: tokens after the prompt
+PARALLEL_TOKENS = 12
+#: the world of two's FSDP (data 2) Whisper-base run: steps, and the
+#: bounds on its gathered first moments and updates (each leaf's norm of
+#: the difference over the whole run's; a sign flipped by rounding where a
+#: gradient is ~0 moves an update by 2 lr, hence the looser one)
+PARALLEL_FSDP_STEPS = 2
+PARALLEL_FSDP_TOL = {"mu": 1e-4, "update": 1e-2}
+#: the collectives the world of two probes on CUDA tensors over gloo
+GLOO_PROBES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter", "reduce_scatter_tensor",
+               "all_to_all_single", "broadcast")
+PARALLEL_CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.exit(chip_smoke.parallel_child(int(sys.argv[2]), sys.argv[3]))
+"""
+
+
+def _turbo_request(np):
+    """The TP decode case's input: one 30 s speechlike clip from its own
+    seed, the same in the parent and in both children."""
+    return _speechlike(np.random.default_rng(34), 30.0, pitch=140.0)
+
+
+def _turbo_tp_tokens(torch, mesh):
+    """Greedy TP decoding of ``_turbo_request`` at Whisper-large-v3-turbo
+    width over ``mesh``'s model axis (random float32 weights from seed
+    32 drawn on the card): (tokens [1, L] as a list, seconds, launch
+    counts of the encode and decode, counted from 0)."""
+    import numpy as np
+
+    from audax_torch.core.config import WhisperConfig
+    from audax_torch.frontend.features import LogMelFrontend, pad_or_trim
+    from audax_torch.infer.decode import generate
+    from audax_torch.models import whisper as W
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.parallel.mesh import use_mesh
+    from audax_torch.parallel.sharding import shard_params
+
+    cfg = WhisperConfig.large_v3_turbo()
+    tok = _tokenizer(cfg.vocab_size)
+    params = W.init_whisper_params(
+        cfg, torch.Generator(device="cuda").manual_seed(32), device="cuda")
+    local = shard_params(params, mesh)
+    del params
+    fe = LogMelFrontend.whisper(cfg.n_mels, device="cuda")
+    x = torch.from_numpy(_turbo_request(np)).cuda()
+    prompt = torch.tensor([tok.sot_sequence(lang="en")], device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with use_mesh(mesh), torch.no_grad():
+        enc = W.encode(local, cfg, fe(pad_or_trim(x, 480000)[None]))
+    res = generate(local, cfg, enc, prompt, eos_id=tok.eot, mesh=mesh,
+                   max_len=prompt.shape[1] + PARALLEL_TOKENS)
+    torch.cuda.synchronize()
+    return (res.tokens[0].tolist(), time.perf_counter() - t0,
+            launch_counts())
+
+
+def _gloo_probe(torch, dist):
+    """Each collective of ``GLOO_PROBES`` on CUDA tensors over the current
+    (gloo) world of two: "ok" when it ran and gave the right values, else
+    the error's first line. Nothing is copied through the host here."""
+    r = dist.get_rank()
+    x = torch.full((4,), float(r + 1), device="cuda")
+
+    def empty(n):
+        return torch.empty(n, device="cuda")
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y, [3.0] * 4
+
+    def all_gather():
+        parts = [empty(4), empty(4)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts), [1.0] * 4 + [2.0] * 4
+
+    def all_gather_into_tensor():
+        y = empty(8)
+        dist.all_gather_into_tensor(y, x)
+        return y, [1.0] * 4 + [2.0] * 4
+
+    def reduce_scatter():
+        y = empty(2)
+        dist.reduce_scatter(y, [x[:2].clone(), x[2:].clone()])
+        return y, [3.0] * 2
+
+    def reduce_scatter_tensor():
+        y = empty(2)
+        dist.reduce_scatter_tensor(y, x)
+        return y, [3.0] * 2
+
+    def all_to_all_single():
+        y = empty(4)
+        dist.all_to_all_single(y, x)
+        return y, [1.0] * 2 + [2.0] * 2
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0)
+        return y, [1.0] * 4
+
+    probes = {f.__name__: f for f in (all_reduce, all_gather,
+                                      all_gather_into_tensor, reduce_scatter,
+                                      reduce_scatter_tensor,
+                                      all_to_all_single, broadcast)}
+    out = {}
+    for name in GLOO_PROBES:
+        try:
+            got, want = probes[name]()
+            out[name] = "ok" if got.tolist() == want else "wrong values"
+        except Exception as e:             # what gloo cannot carry
+            out[name] = (str(e).strip().splitlines() or [repr(e)])[0][:160]
+        dist.barrier()
+    return out
+
+
+def parallel_child(rank: int, d: str) -> int:
+    """One rank of the parallel phase's world of two on the one card,
+    over gloo (named: NCCL refuses two ranks on one GPU): the collective
+    probe, TP decoding at Whisper-large-v3-turbo width (10 of 20 heads a
+    rank), and, where gloo carried the collectives FSDP needs,
+    ``PARALLEL_FSDP_STEPS`` FSDP (data 2) Whisper-base steps against the
+    same steps whole: the losses, and the first moments and updates
+    gathered whole (a scaled gradient leaves Adam's direction and the
+    losses as they are, not the moments). Writes ``out{rank}.json`` in
+    ``d``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from audax_torch.core.config import (FineTuneConfig, MeshConfig,
+                                         WhisperConfig)
+    from audax_torch.core.runtime import resolve_device
+    from audax_torch.models import whisper as W
+    from audax_torch.parallel.fsdp import fsdp_shard_state
+    from audax_torch.parallel.mesh import make_mesh, shard_batch
+    from audax_torch.train.seq2seq import (collate_seq2seq, init_finetune,
+                                           make_finetune_step)
+
+    resolve_device("cuda")
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=2)
+    out = {"backend": dist.get_backend(), "probe": _gloo_probe(torch, dist)}
+    mesh = make_mesh(MeshConfig(model=2), device="cuda")
+    tokens, secs, counts = _turbo_tp_tokens(torch, mesh)
+    out.update(tokens=tokens, seconds=secs,
+               counts={k: c["cuda"] for k, c in counts.items()},
+               plain={k: c["plain"] for k, c in counts.items()
+                      if c["plain"]})
+    if all(out["probe"][k] == "ok" for k in ("all_gather",
+                                             "reduce_scatter",
+                                             "all_reduce")):
+        cfg = WhisperConfig.base()
+        params = W.init_whisper_params(
+            cfg, torch.Generator(device="cuda").manual_seed(35),
+            device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(36)
+        lab = collate_seq2seq([[50258, 50259, 50359, 50363] + list(range(
+            300, 316)) + [50257]] * 4, decoder_start_id=50258)
+        batch = {"mel": torch.randn(4, 3000, cfg.n_mels, device="cuda",
+                                    generator=g),
+                 "decoder_input_ids": torch.from_numpy(
+                     lab["decoder_input_ids"]).cuda(),
+                 "labels": torch.from_numpy(lab["labels"]).cuda()}
+        ft = FineTuneConfig(lora_rank=0, moment_dtype="float32",
+                            learning_rate=1e-4, warmup_steps=0)
+        step = make_finetune_step(cfg, remat=True)
+        whole, wl = init_finetune(params, ft), []
+        for _ in range(PARALLEL_FSDP_STEPS):
+            whole, m = step(whole, batch)
+            wl.append(float(m["loss"]))
+        dmesh = make_mesh(MeshConfig(data=2), device="cuda")
+        st, fl = fsdp_shard_state(init_finetune(params, ft), dmesh), []
+        local = shard_batch(dmesh, batch)
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_FSDP_STEPS):
+            st, m = step(st, local)
+            fl.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        # the trained tree and the first moments (the averaged, clipped
+        # gradients: Adam's direction is blind to their scale), gathered
+        # whole, against the whole run's; each leaf's update p - p0 and
+        # moment by the norm of its difference over the whole run's
+        cut = sum(any(a is not None for a in s) for s in st.layout.spec_list)
+
+        leaves = W.tree_leaves
+
+        @torch.no_grad()
+        def rel(a, b):
+            return max(float((x - y).norm() / y.norm().clamp_min(1e-30))
+                       for x, y in zip(a, b))
+
+        with torch.no_grad():
+            p0 = leaves(params)
+            upd = [x - y for x, y in zip(leaves(st.layout.full(
+                st.trainable)), p0)]
+            upd_whole = [x - y for x, y in zip(leaves(whole.trainable), p0)]
+        out["fsdp"] = {
+            "losses": fl, "whole": wl, "seconds": secs, "cut": cut,
+            "leaves": len(st.layout.spec_list),
+            "mu_rel": rel(leaves(st.layout.full(st.opt_state.mu)),
+                          leaves(whole.opt_state.mu)),
+            "update_rel": rel(upd, upd_whole)}
+        del whole, st, upd, upd_whole
+    with open(os.path.join(d, f"out{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(torch, rng, smi):
+    """Data, tensor, fully-sharded and expert parallelism on the card.
+
+    Part 1, a world of one over NCCL (``make_mesh`` on CUDA): each mesh
+    path against the same path without a mesh on the card --
+    ``finetune_whisper(mesh=, fsdp=True)`` at Whisper-base in float32
+    (losses within 1e-5 relative, the 3xTF32 flash launches equal),
+    ``ContinuousBatcher(mesh=)`` at Whisper-large-v3-turbo width with int8
+    KV (the same tokens), ``moe_expert_parallel`` on one Qwen3-30B-A3B
+    layer against ``_moe_block`` (``TOL_F32``), ``fit_lm(mesh=,
+    fsdp=True)`` at Qwen3-0.6B width and ``PARALLEL_LM_LAYERS`` layers;
+    and TP decoding at turbo width over the mesh, the reference for part
+    2. Part 2, a world of two processes on the one card over gloo
+    (``parallel_child``): the gloo collective probe on CUDA tensors, TP
+    decoding with 10 of turbo's 20 heads a rank (the same tokens as the
+    world of one), and FSDP (data 2) Whisper-base steps where gloo
+    carried their collectives, held by their gathered moments and updates
+    (the world of one's FSDP run cuts nothing: it shows the path runs on
+    NCCL and the kernels, not the cut). Returns the launch counts of the
+    mesh runs (the children's included)."""
+    import dataclasses
+    import os
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from audax_torch.core.config import (FineTuneConfig, MelConfig,
+                                         MeshConfig, WhisperConfig)
+    from audax_torch.data.audio_io import write_wav
+    from audax_torch.infer.continuous import ContinuousBatcher
+    from audax_torch.models import causal_lm as CL
+    from audax_torch.models import whisper as W
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.parallel.ep import moe_expert_parallel
+    from audax_torch.parallel.mesh import make_mesh
+    from audax_torch.parallel.sharding import shard_params
+    from audax_torch.train.finetune_loop import (build_speech_dataset,
+                                                 finetune_whisper)
+    from audax_torch.train.lm import LMTrainConfig, fit_lm
+
+    t_phase = time.perf_counter()
+    counts_all = []
+
+    def run(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launch_counts()
+
+    def ran(counts):
+        return {k: c["cuda"] for k, c in counts.items() if c["cuda"]}
+
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    print(f"[parallel] world of one: backend {dist.get_backend()}, mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} ({smi})",
+          flush=True)
+
+    # ---- finetune_whisper(mesh=, fsdp=True), Whisper-base float32 ---------
+    cfg = WhisperConfig.base()
+    tok = _tokenizer()
+    params = W.init_whisper_params(cfg, torch.Generator().manual_seed(31),
+                                   device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        for i, text in enumerate(_transcripts(rng, tok, 4)):
+            write_wav(os.path.join(d, f"p{i}.wav"),
+                      _speechlike(rng, 30.0, pitch=110.0 + 20 * i), 16000)
+            with open(os.path.join(d, f"p{i}.txt"), "w") as fh:
+                fh.write(text)
+        examples = build_speech_dataset(d, tok, MelConfig.whisper(cfg.n_mels),
+                                        chunk_seconds=30.0)
+    ft = FineTuneConfig(batch_size=4, max_steps=PARALLEL_STEPS, lora_rank=0,
+                        moment_dtype="float32", learning_rate=1e-4,
+                        warmup_steps=1, eval_every=10 ** 6)
+    (_, h0), s0, c0 = run(lambda: finetune_whisper(params, cfg, tok,
+                                                   examples, ft,
+                                                   device="cuda"))
+    (st1, h1), s1, c1 = run(lambda: finetune_whisper(
+        params, cfg, tok, examples, ft, mesh=mesh, fsdp=True, device="cuda"))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(h1["loss"], h0["loss"]))
+    flash = {k: (c1[k]["cuda"], c0[k]["cuda"]) for k in PARALLEL_FLASH}
+    print(f"[parallel] finetune_whisper(mesh=, fsdp=True) Whisper-base f32, "
+          f"{PARALLEL_STEPS} steps at B 4: losses {h1['loss']} vs without a "
+          f"mesh {h0['loss']}, max rel diff {rel:.3e} (tol 1e-05); "
+          f"{s1:.2f} s vs {s0:.2f} s; flash launches (mesh, none) {flash}; "
+          f"launches {ran(c1)} ({smi})", flush=True)
+    if rel > 1e-5 or any(a != b or a == 0 for a, b in flash.values()):
+        raise AssertionError(f"finetune under a mesh: rel {rel}, {flash}")
+    _check_launches(c1, FINETUNE_KERNELS[:4], "parallel finetune")
+    _no_core_flash(c1, "parallel finetune")
+    counts_all.append(c1)
+    del st1, params, examples
+
+    # ---- ContinuousBatcher(mesh=), turbo width, int8 KV --------------------
+    tcfg = WhisperConfig.large_v3_turbo()
+    ttok = _tokenizer(tcfg.vocab_size)
+    tparams = W.init_whisper_params(
+        tcfg, torch.Generator(device="cuda").manual_seed(32), device="cuda")
+    clips = [_speechlike(rng, sec, pitch=120.0 + 10 * i)
+             for i, sec in enumerate((30.0, 12.0, 21.0))]
+
+    def serve(m, p):
+        cb = ContinuousBatcher(p, tcfg, ttok, slots=2, kv_quant=True,
+                               max_new_tokens=24, mesh=m, device="cuda")
+        for i, c in enumerate(clips):
+            cb.submit(f"r{i}", c)
+        return {r.request_id: r.tokens for r in cb.run()}
+
+    plain, sp, _ = run(lambda: serve(None, tparams))
+    meshed, sm, cm = run(lambda: serve(mesh, shard_params(tparams, mesh)))
+    print(f"[parallel] ContinuousBatcher(mesh=) turbo int8 KV, 3 requests "
+          f"over 2 slots: tokens equal to the engine without a mesh "
+          f"{meshed == plain} ({sum(len(v) for v in meshed.values())} "
+          f"tokens); {sm:.2f} s vs {sp:.2f} s; launches {ran(cm)} ({smi})",
+          flush=True)
+    if meshed != plain:
+        raise AssertionError(f"serving under a mesh: {meshed} vs {plain}")
+    _check_launches(cm, DECODE_Q8_KERNELS, "parallel serve")
+    counts_all.append(cm)
+    del tparams
+
+    # ---- TP decoding over the world of one: part 2's reference -------------
+    ref_tokens, sr, cr = _turbo_tp_tokens(torch, mesh)
+    print(f"[parallel] generate(mesh=) turbo, world of one: "
+          f"{len(ref_tokens)} tokens in {sr:.2f} s; launches {ran(cr)} "
+          f"({smi})", flush=True)
+    _check_launches(cr, TRANSCRIBE_KERNELS, "parallel TP decode")
+    counts_all.append(cr)
+
+    # ---- moe_expert_parallel, one Qwen3-30B-A3B layer -----------------------
+    mcfg = dataclasses.replace(CL.CausalLMConfig.qwen3_30b_a3b(), layers=1)
+    mp = CL.init_causal_lm(mcfg, torch.Generator(device="cuda").manual_seed(
+        33), device="cuda")
+    layer = W.layer_params(mp["layers"], 0)
+    x = torch.randn(4, 64, mcfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(37))
+    with torch.no_grad():
+        ref, s_ref, _ = run(lambda: CL._moe_block(layer, mcfg, x))
+        ep, s_ep, ce = run(lambda: moe_expert_parallel(layer, mcfg, x, mesh))
+    err = float((ep - ref).abs().max()) / float(ref.abs().max())
+    print(f"[parallel] moe_expert_parallel Qwen3-30B-A3B layer (E "
+          f"{mcfg.num_experts}, k {mcfg.experts_per_tok}, d {mcfg.d_model}, "
+          f"moe_ffn {mcfg.moe_ffn}) x [4, 64]: max rel err vs _moe_block "
+          f"{err:.3e} (tol {TOL_F32:.0e}); {s_ep * 1e3:.1f} ms vs "
+          f"{s_ref * 1e3:.1f} ms; launches {ran(ce)} ({smi})", flush=True)
+    if not err <= TOL_F32:
+        raise AssertionError(f"EP vs _moe_block: {err}")
+    del mp, layer, x, ref, ep
+
+    # ---- fit_lm(mesh=, fsdp=True), Qwen3-0.6B width ------------------------
+    lcfg = dataclasses.replace(CL.CausalLMConfig.qwen3_0_6b(),
+                               layers=PARALLEL_LM_LAYERS)
+    lp = CL.init_causal_lm(lcfg, torch.Generator(device="cuda").manual_seed(
+        38), device="cuda")
+    corpus = rng.integers(0, 4000, 20000).astype(np.int32)
+    tc = LMTrainConfig(max_steps=PARALLEL_STEPS, batch_size=4, seq_len=256,
+                       eval_every=PARALLEL_STEPS, eval_windows=2,
+                       warmup_steps=0)
+    (_, l0), t0_, k0 = run(lambda: fit_lm(lp, lcfg, tc, corpus,
+                                          device="cuda"))
+    (_, l1), t1_, k1 = run(lambda: fit_lm(lp, lcfg, tc, corpus, mesh=mesh,
+                                          fsdp=True, device="cuda"))
+    rel = max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(l1, l0)
+              for key in ("loss", "eval_loss"))
+    flash = {k: (k1[k]["cuda"], k0[k]["cuda"]) for k in PARALLEL_FLASH}
+    print(f"[parallel] fit_lm(mesh=, fsdp=True) Qwen3-0.6B width, "
+          f"{PARALLEL_LM_LAYERS} layers, {PARALLEL_STEPS} steps at 4 x 256: "
+          f"history {l1} vs without a mesh {l0}, max rel diff {rel:.3e} "
+          f"(tol 1e-05); {t1_:.2f} s vs {t0_:.2f} s; flash launches (mesh, "
+          f"none) {flash} ({smi})", flush=True)
+    if rel > 1e-5 or any(a != b or a == 0 for a, b in flash.values()):
+        raise AssertionError(f"fit_lm under a mesh: rel {rel}, {flash}")
+    _no_core_flash(k1, "parallel fit_lm")
+    counts_all.append(k1)
+    del lp
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- part 2: a world of two on the one card over gloo ------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen([sys.executable, "-c", PARALLEL_CHILD,
+                                   str(ROOT), str(r), d], cwd=str(ROOT),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            raise AssertionError(f"parallel children {bad} failed:\n"
+                                 + "\n".join(lg[-3000:] for lg in logs))
+        outs = []
+        for r in range(2):
+            with open(os.path.join(d, f"out{r}.json")) as fh:
+                outs.append(json.load(fh))
+    wall = time.perf_counter() - t0
+    probe = outs[0]["probe"]
+    carried = [k for k, v in probe.items() if v == "ok"]
+    print(f"[parallel] world of two on one card, backend "
+          f"{outs[0]['backend']}: gloo carried {carried} on CUDA tensors; "
+          f"not: { {k: v for k, v in probe.items() if v != 'ok'} } ({smi})",
+          flush=True)
+    same = all(o["tokens"] == ref_tokens for o in outs)
+    print(f"[parallel] generate(mesh=) turbo TP 2 over gloo: tokens equal to "
+          f"the world of one {same}; {outs[0]['seconds']:.2f} s (world of "
+          f"one {sr:.2f} s); rank 0 launches "
+          f"{ {k: v for k, v in outs[0]['counts'].items() if v} } "
+          f"(children and their start included: {wall:.2f} s) ({smi})",
+          flush=True)
+    if not same or any(o["plain"] for o in outs):
+        raise AssertionError(f"TP decode over gloo: "
+                             f"{[o['tokens'] for o in outs]} vs {ref_tokens};"
+                             f" plain {[o['plain'] for o in outs]}")
+    for o in outs:
+        if not (o["counts"]["flash_forward_tf32x3"] > 0
+                and o["counts"]["decode_attention_stacked"] > 0):
+            raise AssertionError(f"TP decode child launches {o['counts']}")
+        counts_all.append({k: {"cuda": v, "plain": 0}
+                           for k, v in o["counts"].items()})
+    if "fsdp" in outs[0]:
+        for r, f in enumerate(o["fsdp"] for o in outs):
+            frel = max(abs(a - b) / abs(b)
+                       for a, b in zip(f["losses"], f["whole"]))
+            if r == 0:
+                print(f"[parallel] FSDP (data 2) Whisper-base over gloo on "
+                      f"one card, {PARALLEL_FSDP_STEPS} steps, {f['cut']} of "
+                      f"{f['leaves']} leaves cut: losses {f['losses']} vs "
+                      f"the whole run {f['whole']} (max rel {frel:.2e}, tol "
+                      f"1e-05); gathered first moments max leaf rel "
+                      f"{f['mu_rel']:.2e} (tol {PARALLEL_FSDP_TOL['mu']:.0e})"
+                      f", updates p - p0 max leaf rel {f['update_rel']:.2e} "
+                      f"(tol {PARALLEL_FSDP_TOL['update']:.0e}); "
+                      f"{f['seconds']:.2f} s ({smi})", flush=True)
+            if (frel > 1e-5 or f["cut"] == 0
+                    or not f["mu_rel"] <= PARALLEL_FSDP_TOL["mu"]
+                    or not f["update_rel"] <= PARALLEL_FSDP_TOL["update"]):
+                raise AssertionError(f"FSDP over gloo, rank {r}: {f}")
+    else:
+        print("[parallel] FSDP (data 2) over gloo on one card: not run (gloo "
+              "did not carry its collectives)", flush=True)
+    print(f"[parallel] phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"({smi})", flush=True)
+    return counts_all
+
+
 def _paths(tree, prefix=""):
     """Leaf paths of a nested dict, in ``tree_leaves`` order."""
     out = []
@@ -5809,13 +6312,15 @@ def main() -> int:
     moe_probe_phase(torch)
     cli = cli_phase(torch, np.random.default_rng(23), smi)
     bench = bench_phase(torch, np.random.default_rng(24), smi)
+    parallel = parallel_phase(torch, np.random.default_rng(25), smi)
     # launches of the main paths, each counted from 0 just before it; the
     # tools' kernels from the probes phase; K2/K7/K8 and P1 from the
     # attention tools as well
     launches = {k: sum(p[k]["cuda"] for p in (transcribe, decoders, train,
                                               serve, k6, classify, *music,
                                               *music_train, *moe_serve,
-                                              *moe_train, *cli, *bench))
+                                              *moe_train, *cli, *bench,
+                                              *parallel))
                 for k in transcribe}
     launches.update(probes)
     for k in FLASH_BF16 + ("flash_forward_fold",):

@@ -45,3 +45,20 @@ def pytest_collection_modifyitems(session, config, items):
                 seen.add(id(it))
                 left_out.append(it)
         reporter.stats["deselected"] = left_out
+
+
+@pytest.fixture
+def mesh_of_one(tmp_path):
+    """A (1 data x 1 model) CPU mesh over a gloo world of this process
+    alone (a ``file://`` store under ``tmp_path``), torn down after the
+    test: the mesh paths of the port's entry points in one process."""
+    import torch.distributed as dist
+
+    from audax_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/world1",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()

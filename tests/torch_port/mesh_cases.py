@@ -1,0 +1,376 @@
+"""The multi-rank cases of the port's parallelism tests, run on every rank
+of a gloo world by ``mesh_world.run_world``.
+
+This module imports numpy, torch and the port only (never JAX): each case
+takes its inputs pickled from the test (port parameter trees, configs,
+numpy arrays) and returns numpy results, which the test holds against the
+JAX package in its own process.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from audax_torch.core.config import MeshConfig
+from audax_torch.parallel.mesh import make_mesh, use_mesh
+
+
+def _np(t):
+    return t.detach().float().numpy() if t.dtype.is_floating_point \
+        else t.detach().numpy()
+
+
+def _mesh(model: int, data: int = -1):
+    return make_mesh(MeshConfig(data=data, model=model), device="cpu")
+
+
+# ------------------------------------------------------------- mesh.py ----
+def mesh_layout(batch: np.ndarray):
+    """make_mesh's shapes and errors, the multi-host mesh's groups, and
+    each rank's shard_batch block."""
+    from audax_torch.parallel.mesh import (axis_rank, batch_rank, batch_size,
+                                           init_distributed,
+                                           make_multihost_mesh, shard_batch)
+
+    out = {"rank": dist.get_rank()}
+    errors = {}
+    for name, cfg in (("model3", MeshConfig(model=3)),
+                      ("too_big", MeshConfig(data=4, model=2)),
+                      ("subset", MeshConfig(data=1, model=2))):
+        try:
+            make_mesh(cfg, device="cpu")
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    shapes = {}
+    for name, cfg in (("default", MeshConfig()),
+                      ("model2", MeshConfig(model=2)),
+                      ("data2", MeshConfig(data=2, model=2))):
+        m = make_mesh(cfg, device="cpu")
+        shapes[name] = (tuple(m.mesh_dim_names), tuple(m.shape),
+                        axis_rank(m, "data"), axis_rank(m, "model"))
+    out["shapes"] = shapes
+    m = make_mesh(MeshConfig(model=2), device="cpu")
+    out["block"] = shard_batch(m, {"x": batch})["x"].numpy()
+    mh = make_multihost_mesh(MeshConfig(model=2), num_hosts=2, device="cpu")
+    out["multihost"] = (tuple(mh.mesh_dim_names), tuple(mh.shape),
+                        batch_size(mh), batch_rank(mh))
+    out["mh_block"] = shard_batch(mh, batch).numpy()
+    out["init_noop"] = init_distributed()
+    return out
+
+
+# --------------------------------------------------------------- TP ------
+def tp_whisper(params, cfg, mel, tokens, labels, prompt, eos, params_big,
+               cfg_big, tok, audio):
+    """Whisper under a (data, model) mesh: the forward, its gradients
+    (data + tensor parallel, gathered whole), greedy / beam / int8-KV
+    decoding and the int4 Transcriber."""
+    from audax_torch.infer.beam import beam_search
+    from audax_torch.infer.decode import generate
+    from audax_torch.infer.transcribe import Transcriber
+    from audax_torch.models.whisper import (encode, tree_leaves, tree_map,
+                                            whisper_forward)
+    from audax_torch.parallel.fsdp import Layout
+    from audax_torch.parallel.mesh import shard_batch
+    from audax_torch.parallel.sharding import shard_params, tp_specs
+    from audax_torch.train.seq2seq import seq2seq_loss_sum
+
+    mesh = _mesh(2)
+    local = shard_params(params, mesh)
+    mel_t, tok_t = torch.from_numpy(mel), torch.from_numpy(tokens)
+    out = {}
+    with use_mesh(mesh), torch.no_grad():
+        out["logits"] = _np(whisper_forward(local, cfg, mel_t, tok_t))
+        enc = encode(local, cfg, mel_t)
+    out["enc"] = _np(enc)
+
+    # gradients of the summed CE over the global count: this rank's rows,
+    # its TP blocks; summed over 'data' by the layout, gathered whole
+    lay = Layout(mesh, tp_specs(params, mesh))
+    train = tree_map(lambda t: t.clone().requires_grad_(True), local)
+    rows = shard_batch(mesh, {"mel": mel_t, "tok": tok_t,
+                              "lab": torch.from_numpy(labels)})
+    with use_mesh(mesh):
+        total, count = seq2seq_loss_sum(
+            whisper_forward(train, cfg, rows["mel"], rows["tok"]),
+            rows["lab"])
+    grads = list(torch.autograd.grad(total, tree_leaves(train)))
+    grads, total, count = lay.reduce(grads, total.detach(), count)
+    it = iter([g / count for g in grads])
+    out["grads"] = tree_map(_np, lay.full(tree_map(lambda _: next(it),
+                                                   train)))
+    out["loss"] = float(total / count)
+
+    pr = torch.from_numpy(prompt)
+    out["greedy"] = _np(generate(local, cfg, enc, pr, max_len=12,
+                                 eos_id=eos, mesh=mesh).tokens)
+    out["greedy_kvq"] = _np(generate(local, cfg, enc, pr, max_len=12,
+                                     eos_id=eos, kv_quant=True,
+                                     mesh=mesh).tokens)
+    res = beam_search(local, cfg, enc, pr, max_len=12, eos_id=eos,
+                      beam_width=3, mesh=mesh)
+    out["beam"] = _np(res.tokens)
+    out["beam_scores"] = _np(res.scores)
+
+    tr = Transcriber(params_big, cfg_big, tok, max_new_tokens=6,
+                     temperature_fallback=False, quantize="int4",
+                     mesh=mesh, device="cpu")
+    out["int4_text"] = tr.transcribe(audio).text
+    tr = Transcriber(params_big, cfg_big, tok, max_new_tokens=6,
+                     temperature_fallback=False, beam_width=2, mesh=mesh,
+                     device="cpu")
+    out["beam_text"] = tr.transcribe(audio).text
+    return out
+
+
+def tp_lm(models, tokens, steps):
+    """The causal LM under a (1 x 2) mesh: the forward and greedy
+    KV-cached decoding of each (params, cfg)."""
+    from audax_torch.models.causal_lm import (embed_tokens, init_lm_cache,
+                                              lm_cache_heads, lm_decode_step,
+                                              lm_forward)
+    from audax_torch.parallel.sharding import CAUSAL_LM_TP_RULES, shard_params
+
+    mesh = _mesh(2)
+    tok_t = torch.from_numpy(tokens)
+    out = []
+    for params, cfg in models:
+        local = shard_params(params, mesh, CAUSAL_LM_TP_RULES)
+        with use_mesh(mesh), torch.no_grad():
+            logits = lm_forward(local, cfg, tok_t)
+            b = tok_t.shape[0]
+            cache = init_lm_cache(cfg, b, steps + 2, device="cpu",
+                                  heads=lm_cache_heads(local, cfg))
+            cur = tok_t[:, 0]
+            seq = []
+            for pos in range(steps):
+                emb = embed_tokens(local, cur[:, None], torch.float32,
+                                   cfg.vocab_size)[:, 0]
+                step_logits, cache = lm_decode_step(local, cfg, emb, pos,
+                                                    cache)
+                cur = step_logits.argmax(-1)
+                seq.append(cur)
+        out.append({"logits": _np(logits),
+                    "greedy": _np(torch.stack(seq, 1)),
+                    "k_local": tuple(local["layers"]["k"]["kernel"].shape)})
+    return out
+
+
+# --------------------------------------------------------------- EP ------
+def ep_cases(layer, cfg, x, factors, moe_params, moe_cfg, tokens):
+    """moe_expert_parallel over a model axis of the world's size at each
+    capacity factor, its gradient, and the expert-sharded dense MoE
+    forward of a whole model."""
+    from audax_torch.models.causal_lm import lm_forward
+    from audax_torch.parallel.ep import moe_expert_parallel
+    from audax_torch.parallel.sharding import CAUSAL_LM_TP_RULES, shard_params
+
+    mesh = _mesh(dist.get_world_size())
+    xt = torch.from_numpy(x)
+    out = {}
+    with torch.no_grad():
+        for cf in factors:
+            out[cf] = _np(moe_expert_parallel(layer, cfg, xt, mesh,
+                                              capacity_factor=cf))
+    xg = xt.clone().requires_grad_(True)
+    y = moe_expert_parallel(layer, cfg, xg, mesh)
+    (y * y).sum().backward()
+    out["x_grad"] = _np(xg.grad)
+    with use_mesh(mesh), torch.no_grad():
+        out["dense_tp"] = _np(lm_forward(
+            shard_params(moe_params, mesh, CAUSAL_LM_TP_RULES), moe_cfg,
+            torch.from_numpy(tokens)))
+    try:
+        q4 = {**layer, "experts": {k: {"kernel_q4": v["kernel"]}
+                                   for k, v in layer["experts"].items()}}
+        moe_expert_parallel(q4, cfg, xt, mesh)
+        out["int4_error"] = None
+    except ValueError as e:
+        out["int4_error"] = str(e)
+    return out
+
+
+# --------------------------------------------------------- generator -----
+def generator_mesh(model, clips, kw, budgets, seed):
+    """``ContinuousGenerator(mesh=)`` over a (data, model 2) mesh: the
+    greedy results of ``clips`` (slots cut over 'data', the engine's own
+    ``CAUSAL_LM_TP_RULES`` cut of the LM over 'model'), then sampled
+    tokens at temperature 0.8 with seeds ``seed + i``."""
+    from audax_torch.infer.continuous import ContinuousGenerator
+
+    mesh = _mesh(2)
+    g = ContinuousGenerator(model, mesh=mesh, device="cpu", **kw)
+    for rid, x in clips.items():
+        g.submit(rid, x, max_new_tokens=budgets.get(rid))
+    out = {"greedy": {r.request_id: (r.tokens, r.avg_logprob)
+                      for r in g.run()},
+           "local_slots": g.local_slots,
+           "lm_q": tuple(g.params["lm"]["layers"]["q"]["kernel"].shape),
+           "embed": tuple(g.params["lm"]["embed"].shape),
+           "chunks": g.chunks_run}
+    g = ContinuousGenerator(model, mesh=mesh, device="cpu",
+                            **{**kw, "temperature": 0.8})
+    for i, (rid, x) in enumerate(clips.items()):
+        g.submit(rid, x, seed=seed + i)
+    out["sampled"] = {r.request_id: r.tokens for r in g.run()}
+    return out
+
+
+# -------------------------------------------------------------- FSDP -----
+def fsdp_cases(params, cfg, batch, steps, model):
+    """Fine-tune steps whole, under DP (x TP) and under FSDP with float32
+    and bfloat16 moments: the losses, the per-rank bytes, the moments'
+    dtypes and shapes, and the whole trained tree."""
+    from audax_torch.core.config import FineTuneConfig
+    from audax_torch.models.whisper import tree_leaves, tree_map
+    from audax_torch.parallel.fsdp import fsdp_shard_state, shard_state
+    from audax_torch.parallel.mesh import shard_batch
+    from audax_torch.train.seq2seq import init_finetune, make_finetune_step
+
+    mesh = _mesh(model)
+    bt = {k: torch.from_numpy(v) for k, v in batch.items()}
+    local = shard_batch(mesh, bt)
+    step = make_finetune_step(cfg, remat=False)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def run(state, b):
+        losses = []
+        for _ in range(steps):
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    out = {}
+    for moments in ("float32", "bfloat16"):
+        ft = FineTuneConfig(learning_rate=1e-3, warmup_steps=1,
+                            max_steps=10, lora_rank=0, moment_dtype=moments)
+        whole = init_finetune(params, ft)
+        out[f"whole_bytes_{moments}"] = (nbytes(whole.trainable),
+                                         nbytes(whole.opt_state.mu))
+        _, out[f"ref_{moments}"] = run(whole, bt)
+        st = fsdp_shard_state(init_finetune(params, ft), mesh, min_size=256)
+        out[f"bytes_{moments}"] = (nbytes(st.trainable),
+                                   nbytes(st.opt_state.mu))
+        mu = st.opt_state.mu["decoder"]["layers"]["attn"]["q"]["kernel"]
+        out[f"mu_{moments}"] = (str(mu.dtype), tuple(mu.shape))
+        st, out[f"fsdp_{moments}"] = run(st, local)
+        out[f"params_{moments}"] = tree_map(_np, st.full_params())
+        tp_only = shard_state(init_finetune(params, ft), mesh)
+        _, out[f"dp_{moments}"] = run(tp_only, local)
+    lora = FineTuneConfig(learning_rate=1e-2, warmup_steps=0, max_steps=10,
+                          lora_rank=2)
+    g = torch.Generator().manual_seed(0)
+    _, out["lora_ref"] = run(init_finetune(params, lora, generator=g), bt)
+    g = torch.Generator().manual_seed(0)
+    st = fsdp_shard_state(init_finetune(params, lora, generator=g), mesh,
+                          min_size=256)
+    _, out["lora_fsdp"] = run(st, local)
+    return out
+
+
+# --------------------------------------------------------------- CLI -----
+def cli_world(music, runs, tiny_cfg, env, lora_draw, fit, serve):
+    """The command-line and loop cases of one world: ``music`` (argv, run
+    dir, env) through ``cli.main``, then each of ``runs`` (argv, run dir)
+    with the ``tiny`` Whisper preset cut to ``tiny_cfg``, ``env`` set and
+    the LoRA adapters' A drawn as ``lora_draw`` (path -> array, the JAX
+    package's draw), every rank in the run's directory (rank 0 writes the
+    files), then ``fit_cases(**fit)`` and ``serve_case(**serve)``."""
+    from audax_torch.cli import main as cli
+    from audax_torch.core.config import WhisperConfig
+    from audax_torch.train import seq2seq
+
+    drawn = seq2seq.init_lora
+
+    def init_lora(params, rank, *, targets, generator):
+        lora = drawn(params, rank, targets=targets, generator=generator)
+        assert set(lora) == set(lora_draw), sorted(lora)
+        return {k: {**ab, "a": torch.from_numpy(lora_draw[k]).to(
+            ab["a"].device)} for k, ab in lora.items()}
+
+    seq2seq.init_lora = init_lora
+    os.environ["WORLD_SIZE"] = str(dist.get_world_size())
+    codes = []
+
+    def run(argv, run_dir):
+        os.makedirs(run_dir, exist_ok=True)
+        os.chdir(run_dir)
+        codes.append(cli.main(argv))
+        dist.barrier()
+
+    argv, run_dir, music_env = music
+    os.environ.update(music_env)
+    run(argv, run_dir)
+    WhisperConfig.tiny = classmethod(lambda cls: tiny_cfg)
+    os.environ.update(env)
+    for argv, run_dir in runs:
+        run(argv, run_dir)
+    return {"codes": codes, "fit": fit_cases(**fit),
+            "serve": serve_case(**serve)}
+
+
+def fit_cases(lm_params, lm_cfg, train_cfg, corpus, model_cls, data,
+              eval_data, cls_cfg):
+    """fit_lm under a (data, model) mesh with and without FSDP, and
+    fit_classifier data-parallel."""
+    from audax_torch.train.lm import fit_lm
+    from audax_torch.train.loops import fit_classifier
+
+    mesh = _mesh(2)
+    out = {}
+    for fsdp in (False, True):
+        _, hist = fit_lm(lm_params, lm_cfg, train_cfg, corpus, mesh=mesh,
+                         fsdp=fsdp, device="cpu")
+        out[f"lm_fsdp{int(fsdp)}"] = hist
+    dmesh = _mesh(1)
+    _, hist = fit_classifier(model_cls, data, eval_data, cls_cfg,
+                             mesh=dmesh, device="cpu")
+    out["cls"] = {"train_loss": hist["train_loss"],
+                  "eval_loss": [e["loss"] for e in hist["eval"]],
+                  "eval_acc": [e["accuracy"] for e in hist["eval"]]}
+    return out
+
+
+def serve_case(params, cfg, tok, wav_bytes, port_file):
+    """``ContinuousBatcher(mesh=)`` behind the HTTP server: rank 0 serves,
+    every other rank follows in lockstep; one request's text."""
+    import json
+    import threading
+    import urllib.request
+
+    from audax_torch.cli.http_server import serve_http
+    from audax_torch.infer.continuous import ContinuousBatcher, Lockstep
+    from audax_torch.parallel.sharding import shard_params
+
+    mesh = _mesh(2)
+    cb = Lockstep(ContinuousBatcher(shard_params(params, mesh), cfg, tok,
+                                    slots=2, window_seconds=1.0,
+                                    max_new_tokens=5, steps_per_sync=4,
+                                    mesh=mesh, device="cpu"))
+    if dist.get_rank() != 0:
+        cb.follow()
+        return None
+    srv = serve_http(cb, port=0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}"
+            "/v1/audio/transcriptions?max_tokens=5", data=wav_bytes,
+            method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            text = json.load(r)["text"]
+    finally:
+        srv.scheduler.shutdown()
+        srv.shutdown()
+        srv.scheduler.join()
+        cb.stop()
+    return text

@@ -230,15 +230,21 @@ def test_metrics_and_report_equal(rng):
         port_metrics.confusion_matrix(np.array([-1]), np.array([0]), 10)
 
 
-def test_one_device_knobs_raise(rng, tmp_path):
-    """``mesh=`` raises (the parallelism slice); ``ckpt_manager=`` no longer
-    does: it saves every epoch (``test_torch_checkpoints.py`` holds the
-    resume)."""
-    _, pm, shape = _pair("cnn")
+def test_one_device_knobs_raise(rng, tmp_path, mesh_of_one):
+    """Neither knob raises any more: ``mesh=`` trains data-parallel (a mesh
+    of one rank gives the run without a mesh, to the bit;
+    ``test_torch_cli_mesh.py`` holds four ranks against JAX), and
+    ``ckpt_manager=`` saves every epoch (``test_torch_checkpoints.py``
+    holds the resume)."""
+    _, pm, shape = _pair("cnn", dropout=0.0)
     data = _data(rng, 16, shape)
     cfg = ClassifierTrainConfig(batch_size=16, epochs=1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fit_classifier(pm, data, None, cfg, mesh="mesh", device="cpu")
+    start = {k: v.clone() for k, v in pm.state_dict().items()}
+    _, plain = fit_classifier(pm, data, None, cfg, device="cpu")
+    pm.load_state_dict(start)
+    _, meshed = fit_classifier(pm, data, None, cfg, mesh=mesh_of_one,
+                               device="cpu")
+    assert meshed["train_loss"] == plain["train_loss"]
     mgr = CheckpointManager(str(tmp_path / "ck"))
     fit_classifier(pm, data, None, cfg, ckpt_manager=mgr, device="cpu")
     assert mgr.latest_step() == 0 and (tmp_path / "ck" / "0").is_dir()

@@ -103,14 +103,22 @@ def test_continuous_matches_jax(setup, name):
     assert (counts["int4_matmul"]["plain"] > 0) == (sc["bits"] == 4)
 
 
-def test_engine_device_and_mesh(setup):
+def test_engine_device_and_mesh(setup, mesh_of_one):
+    """``mesh=`` serves (one rank: the engine without a mesh, token for
+    token; ``test_torch_tp.py`` and the dry run hold more ranks)."""
     jtok, tok, jcfg, jparams, _, cfg, params = setup
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ContinuousBatcher(params, cfg, tok, window_seconds=1.0)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        ContinuousBatcher(params, cfg, tok, window_seconds=1.0, mesh="mesh",
-                          device="cpu")
+    served = []
+    for mesh in (None, mesh_of_one):
+        cb = ContinuousBatcher(params, cfg, tok, window_seconds=1.0,
+                               slots=2, max_new_tokens=4, mesh=mesh,
+                               device="cpu")
+        for rid, x in list(_requests().items())[:3]:
+            cb.submit(rid, x)
+        served.append({r.request_id: r.tokens for r in cb.run()})
+    assert served[0] == served[1] and len(served[0]) == 3
     with pytest.raises(ValueError, match="n_audio_ctx"):
         ContinuousBatcher(params, cfg, tok, window_seconds=2.0, device="cpu")
 

@@ -179,11 +179,17 @@ def test_wav_codec_and_resample_match_jax(tmp_path, rng):
 
 
 def test_entry_point_device_and_parallel_rules(setup):
+    """``mesh=``/``fsdp=`` are this slice's (``test_torch_cli_mesh.py``
+    and the dry run hold them); FSDP without a mesh is refused, and
+    sequence parallelism still raises, naming slice 11 b."""
     _, _, tok, _, _, cfg, params = setup
     ft = FineTuneConfig(max_steps=1, batch_size=1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             F.finetune_whisper(params, cfg, tok, [], ft)
-    for kw in (dict(mesh="m"), dict(fsdp=True), dict(sp_mesh="m")):
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            F.finetune_whisper(params, cfg, tok, [], ft, device="cpu", **kw)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        F.finetune_whisper(params, cfg, tok, [], ft, device="cpu",
+                           fsdp=True)
+    with pytest.raises(NotImplementedError, match="11 b"):
+        F.finetune_whisper(params, cfg, tok, [], ft, device="cpu",
+                           sp_mesh="m")

@@ -196,7 +196,8 @@ def test_moe_steps_match_jax(case):
 def test_moe_raises(lm):
     """The MoE train step, which raised before the MoE slice, held against
     JAX's (``_moe_steps``), and its aux term shown to be in the loss. What
-    still raises: router logits of a dense config and the mesh."""
+    still raises: router logits of a dense config, and FSDP without a mesh
+    (``fit_lm(mesh=)`` itself is held by ``test_torch_cli_mesh.py``)."""
     _, _, cfg, params = lm
     mcfg, kw, jstep, jparams, windows = _moe_steps("accum1")
     # the aux term is in the loss: without it the first loss differs
@@ -212,8 +213,8 @@ def test_moe_raises(lm):
     with pytest.raises(ValueError):
         lm_forward(params, cfg, torch.zeros(1, 4, dtype=torch.long),
                    return_router_logits=True)
-    with pytest.raises(NotImplementedError):
-        T.fit_lm(params, cfg, T.LMTrainConfig(), _corpus(), mesh=object(),
+    with pytest.raises(ValueError, match="needs a mesh"):
+        T.fit_lm(params, cfg, T.LMTrainConfig(), _corpus(), fsdp=True,
                  device="cpu")
     # uniform routing: each of the top-k slots adds 1 (the JAX value)
     assert float(load_balance_loss(torch.zeros(2, 8, 4), 4, 2)) == \

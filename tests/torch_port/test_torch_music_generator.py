@@ -8,6 +8,12 @@ equal JAX's, with the same avg_logprob to 1e-4, with and without the
 allowed-id mask and with per-request ``max_new_tokens``. Sampling at a
 temperature is reproducible per request: a request's tokens depend on its
 ``seed`` alone, not on its slot or its neighbours.
+
+Over a (data 2, model 2) mesh in a four-rank gloo world, the engine cuts
+its four slots over 'data' (two a rank, so admission, harvest and refill
+cross ranks) and its LM over 'model' itself; every rank's greedy tokens
+equal JAX's engine without a mesh exactly (avg_logprob to 1e-4), and its
+sampled tokens the port's engine without a mesh on the same seeds.
 """
 
 import numpy as np
@@ -18,6 +24,7 @@ from audax.infer.continuous import ContinuousGenerator as JaxGenerator
 from audax_torch.infer.continuous import ContinuousGenerator
 from audax_torch.ops import launch_counts, reset_launches
 
+from .mesh_world import run_world
 from .test_torch_two_tower import build
 
 
@@ -94,11 +101,55 @@ def test_sampling_streams_follow_the_request(pair):
     assert other.run()[0].tokens != solo
 
 
-def test_generator_device_and_mesh(pair):
+def test_generator_device_and_mesh(pair, mesh_of_one):
+    """``mesh=`` serves (one rank: the tokens of the engine without one)."""
     _, pm = pair
     kw = dict(start_id=0, end_id=2, window_seconds=1.0)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        ContinuousGenerator(pm, mesh="mesh", device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    clip = (0.1 * rng.standard_normal(16000)).astype(np.float32)
+    tokens = []
+    for mesh in (None, mesh_of_one):
+        g = ContinuousGenerator(pm, mesh=mesh, device="cpu", slots=2,
+                                max_new_tokens=6, **kw)
+        g.submit("a", clip, seed=3)
+        tokens.append(g.run()[0].tokens)
+    assert tokens[0] == tokens[1]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ContinuousGenerator(pm, **kw)
+
+
+MESH_KW = dict(start_id=0, end_id=2, slots=4, window_seconds=1.0,
+               max_new_tokens=7, temperature=0.0, steps_per_sync=3)
+MESH_BUDGETS = {"c1": 2, "c3": 4}
+
+
+def test_generator_mesh_matches_jax(pair, tmp_path):
+    jm, pm = pair
+    clips = _clips(6)
+    outs = run_world(4, "tests.torch_port.mesh_cases:generator_mesh", dict(
+        model=pm, clips=clips, kw=MESH_KW, budgets=MESH_BUDGETS, seed=21),
+        tmp_path, timeout=300)
+    jg = JaxGenerator(jm, **MESH_KW)
+    for rid, x in clips.items():
+        jg.submit(rid, x, max_new_tokens=MESH_BUDGETS.get(rid))
+    ref = {r.request_id: r for r in jg.run()}
+    sampler = ContinuousGenerator(pm, device="cpu",
+                                  **{**MESH_KW, "temperature": 0.8})
+    for i, (rid, x) in enumerate(clips.items()):
+        sampler.submit(rid, x, seed=21 + i)
+    sampled = {r.request_id: r.tokens for r in sampler.run()}
+    lm = pm.params["lm"]
+    for out in outs:
+        assert out["local_slots"] == 2 and out["chunks"] >= 3
+        q = lm["layers"]["q"]["kernel"].shape
+        assert out["lm_q"] == (q[0], q[1], q[2] // 2)
+        assert out["embed"][0] == lm["embed"].shape[0] // 2
+        assert set(out["greedy"]) == set(ref) == set(clips)
+        for rid, r in ref.items():
+            tokens, avg = out["greedy"][rid]
+            assert tokens == r.tokens, rid
+            assert avg == pytest.approx(r.avg_logprob, abs=1e-4)
+        assert out["sampled"] == sampled
+    assert any(r.tokens for r in ref.values())
+    assert any(sampled.values())

@@ -135,15 +135,13 @@ def test_device_none_needs_cuda(model):
     ("seek_by_timestamps", True), ("vad_threshold_db", -50.0),
     ("lang", "auto"),
 ])
-def test_later_slice_knobs_raise(model, knob, value):
-    """Only ``mesh`` (the parallelism slice) still raises; every other knob
-    of the JAX Transcriber is accepted and kept."""
+def test_later_slice_knobs_raise(model, knob, value, request):
+    """No knob raises any more: every knob of the JAX Transcriber is
+    accepted and kept, ``mesh`` too (a mesh of one rank here;
+    ``test_torch_tp.py`` runs more)."""
     _, tok, _, _, cfg, params = model
-    if knob in T._LATER_KNOBS:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            T.Transcriber(params, cfg, tok, device="cpu", **{knob: value})
-        return
-    assert set(T._LATER_KNOBS) == {"mesh"}
+    if knob == "mesh":
+        value = request.getfixturevalue("mesh_of_one")
     extra = {}
     if knob == "draft":
         value = (params, cfg)
@@ -198,7 +196,10 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.native.build', 'audax_torch.cli.demo_ui',"
         " 'audax_torch.tools.preprocess_e2e_bench',"
         " 'audax_torch.tools.ft_run_report',"
-        " 'audax_torch.tools.make_padded_tokenizer'}\n"
+        " 'audax_torch.tools.make_padded_tokenizer',"
+        " 'audax_torch.parallel.mesh', 'audax_torch.parallel.sharding',"
+        " 'audax_torch.parallel.comm', 'audax_torch.parallel.fsdp',"
+        " 'audax_torch.parallel.ep', 'audax_torch.tools.dryrun_multichip'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow', 'matplotlib'))\n"
