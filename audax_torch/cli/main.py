@@ -37,11 +37,13 @@ native decoder reads over the system libav (``data/audio_io.py:
 read_audio``); ``--soundfont`` renders through the port's SF2 synth
 (``native/``). The mesh flags ``--dp``/``--tp``/``--fsdp`` build a (data,
 model) mesh over the ranks of a ``torchrun`` launch (``_mesh_from_args``)
-for ``finetune``, ``transcribe``, ``serve``, ``train-cnn``,
-``train-transformer``, ``train-lm`` and ``infer-music --wav-dir``; rank 0
-writes the files. ``train-music``, ``stream-serve`` and ``finetune --sp``
-raise until slice 11 b of the port's parallelism; the benches time one
-device and raise on them. ``train-lm --moe-experts N`` pretrains a
+for ``finetune``, ``transcribe``, ``serve``, ``stream-serve``,
+``train-cnn``, ``train-transformer``, ``train-lm``, ``train-music`` and
+``infer-music --wav-dir``; rank 0 writes the files (and answers the
+servers' clients, the other ranks following in lockstep). ``finetune --sp
+N`` builds a (data, seq) mesh instead and runs the ring-attention step
+(``parallel/sp.py``). The benches time one device and raise on the mesh
+flags. ``train-lm --moe-experts N`` pretrains a
 Qwen3-MoE-family decoder (the ragged impl, the Switch aux loss), as the
 JAX command line does. The port's own flags: ``--device`` (default the
 CUDA card; ``cpu`` runs every kernel's plain version), ``--out`` on
@@ -94,10 +96,18 @@ def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
                    help="shard params + Adam moments over the data axis")
 
 
-def _check_no_mesh(args, why: str = "arrive with slice 11 b of the port's "
-                   "parallelism") -> None:
+def _check_no_mesh(args, why: str) -> None:
     if args.dp or args.tp > 1 or args.fsdp:
         raise NotImplementedError(f"--dp/--tp/--fsdp (a device mesh) {why}")
+
+
+def _world_size() -> int:
+    """The ranks of this launch: the process group's, else torchrun's
+    ``WORLD_SIZE`` (1 without one)."""
+    import torch.distributed as dist
+
+    return (dist.get_world_size() if dist.is_initialized()
+            else int(os.environ.get("WORLD_SIZE", "1")))
 
 
 def _mesh_from_args(args, device=None):
@@ -107,13 +117,10 @@ def _mesh_from_args(args, device=None):
     another."""
     if not (args.dp or args.tp > 1 or args.fsdp):
         return None, False
-    import torch.distributed as dist
-
     from audax_torch.core.config import MeshConfig
     from audax_torch.parallel.mesh import init_distributed, make_mesh
 
-    world = (dist.get_world_size() if dist.is_initialized()
-             else int(os.environ.get("WORLD_SIZE", "1")))
+    world = _world_size()
     data = args.dp if args.dp else max(1, world // args.tp)
     if world % args.tp or data * args.tp > world:
         raise ValueError(f"mesh ({data} data x {args.tp} model) needs "
@@ -446,7 +453,6 @@ def cmd_train_music(argv) -> int:
     _add_device_flag(p)
     _add_mesh_flags(p)
     args = p.parse_args(argv)
-    _check_no_mesh(args)
 
     import torch
 
@@ -461,6 +467,8 @@ def cmd_train_music(argv) -> int:
     from audax_torch.utils.reports import TWO_TOWER_DIAGRAM, model_report
 
     device = resolve_device(args.device)
+    mesh, fsdp = _mesh_from_args(args, device)
+    lead = _lead()
     tt = TwoTowerConfig.from_env()
     if args.epochs:
         tt = replace(tt, epochs=args.epochs)
@@ -482,16 +490,19 @@ def cmd_train_music(argv) -> int:
                             torch.Generator().manual_seed(tt.seed),
                             lm_params=lm_params, device=device)
     del lm_params
-    print(model_report(
-        {"whisper(frozen)": model.audio_params,
-         "adapter": model.params["adapter"], "lm": model.params["lm"]},
-        trainable={"adapter": True, "lm": True},
-        diagram=TWO_TOWER_DIAGRAM))
-    sink = MetricsSink("two_tower", config=tt.asdict())
+    if lead:
+        print(model_report(
+            {"whisper(frozen)": model.audio_params,
+             "adapter": model.params["adapter"], "lm": model.params["lm"]},
+            trainable={"adapter": True, "lm": True},
+            diagram=TWO_TOWER_DIAGRAM))
+    sink = MetricsSink("two_tower", config=tt.asdict()) if lead else None
     fit_two_tower(model, ds, chunk_seconds=args.chunk_seconds, sink=sink,
                   ckpt_dir=args.ckpt_dir,
                   note_eval_every=args.note_eval_every, resume=args.resume,
-                  device=device)
+                  mesh=mesh, fsdp=fsdp, device=device)
+    if not lead:
+        return 0
     sink.close()
     print(args.ckpt_dir)
     return 0
@@ -1577,8 +1588,8 @@ def cmd_finetune(argv) -> int:
     p.add_argument("--ema-decay", type=float, default=0.0)
     p.add_argument("--spec-augment", action="store_true")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel axis size (a device mesh: "
-                        "arrives with slice 11 b of the port)")
+                   help="sequence-parallel axis size: a (data, seq) mesh "
+                        "over the ranks, ring attention over the mel frames")
     p.add_argument("--chunk-seconds", type=float, default=30.0)
     p.add_argument("--eval-suppress-tokens", default="-1")
     p.add_argument("--moment-dtype", default="",
@@ -1588,9 +1599,16 @@ def cmd_finetune(argv) -> int:
     args = p.parse_args(argv)
     if args.sp > 1 and (args.tp > 1 or args.fsdp):
         p.error("--sp composes with --dp only (not --tp/--fsdp)")
+    sp_dp = 0
     if args.sp > 1:
-        raise NotImplementedError("--sp (a sequence-parallel device mesh) "
-                                  "arrives with slice 11 b of the port")
+        # the ranks' count is checked before any checkpoint or dataset is
+        # read: an infeasible --dp x --sp must not fail minutes into a run
+        world = _world_size()
+        sp_dp = args.dp if args.dp > 0 else max(1, world // args.sp)
+        if sp_dp * args.sp > world:
+            p.error(f"--dp {sp_dp} x --sp {args.sp} needs "
+                    f"{sp_dp * args.sp} devices; {world} available "
+                    "(launch the ranks with torchrun)")
 
     from audax_torch.core.config import FineTuneConfig, MelConfig
     from audax_torch.core.runtime import resolve_device
@@ -1601,7 +1619,18 @@ def cmd_finetune(argv) -> int:
     from audax_torch.train.metrics_sink import MetricsSink
 
     device = resolve_device(args.device)
-    mesh, fsdp = _mesh_from_args(args, device)
+    sp_mesh = None
+    if args.sp > 1:
+        from audax_torch.parallel.mesh import (init_distributed,
+                                               make_named_mesh)
+        init_distributed(device=device)
+        sp_mesh = make_named_mesh([("data", sp_dp), ("seq", args.sp)],
+                                  device=device)
+        mesh, fsdp = None, False
+        log.info("SP mesh: %s", dict(zip(sp_mesh.mesh_dim_names,
+                                          sp_mesh.shape)))
+    else:
+        mesh, fsdp = _mesh_from_args(args, device)
     lead = _lead()
     ft = FineTuneConfig.from_env()
     if args.steps:
@@ -1654,7 +1683,7 @@ def cmd_finetune(argv) -> int:
         params, cfg, tok, examples, ft, mel_cfg=mel_cfg, sink=sink,
         eval_examples=examples,
         eval_suppress_tokens=_suppress(args.eval_suppress_tokens),
-        mesh=mesh, fsdp=fsdp, device=device)
+        mesh=mesh, fsdp=fsdp, sp_mesh=sp_mesh, device=device)
     serving = history["best_params"] or state.full_params()
     if not lead:
         return 0
@@ -1787,25 +1816,39 @@ def cmd_stream_serve(argv) -> int:
     _add_device_flag(p)
     _add_mesh_flags(p)
     args = p.parse_args(argv)
-    _check_no_mesh(args)
 
     from audax_torch.cli import stream_server
     from audax_torch.core.runtime import resolve_device
+    from audax_torch.infer.continuous import Lockstep
     from audax_torch.infer.streaming import StreamingTranscriber
 
     device = resolve_device(args.device)
+    mesh, _ = _mesh_from_args(args, device)
     params, cfg, tok = _load_whisper(args.size, args.ckpt, args.tokenizer_dir,
                                      device)
     st = StreamingTranscriber(params, cfg, tok, batch_slots=args.batch_slots,
                               dtype=_dtype(args.dtype), device=device,
-                              vad_threshold_db=args.vad_threshold_db)
+                              vad_threshold_db=args.vad_threshold_db,
+                              mesh=mesh)
+    del params
     if not args.no_warmup:
         log.info("warming up...")
         st.warmup()
+    if mesh is not None:
+        # rank 0 answers the WebSockets; every rank drains in lockstep
+        st = Lockstep(st, recorded=("feed", "flush", "remove"), run="drain")
+        if not _lead():
+            st.follow()
+            return 0
     server = stream_server.serve_streaming(st, host=args.host, port=args.port)
     log.success("streaming ASR on ws://%s:%d/ws?stream=<id>", args.host,
                 server.server_address[1])
-    _serve_until_stopped(server, lambda: None)
+
+    def stop():
+        if mesh is not None:
+            with server.hub.lock:             # after any drain in flight
+                st.stop()
+    _serve_until_stopped(server, stop)
     return 0
 
 
@@ -1847,7 +1890,7 @@ def cmd_serve(argv) -> int:
                                      device)
     if mesh is not None:
         from audax_torch.parallel.sharding import shard_params
-        params = shard_params(params, mesh)
+        params = shard_params(params, mesh, heads=cfg.heads)
     cb = ContinuousBatcher(
         params, cfg, tok, slots=args.slots, lang=args.lang,
         max_new_tokens=args.max_tokens, steps_per_sync=args.steps_per_sync,

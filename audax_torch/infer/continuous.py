@@ -486,7 +486,8 @@ class ContinuousGenerator(_SlotEngine):
                                params if params is not None else model.params)
         if mesh is not None:
             self.params = {**self.params, "lm": shard_params(
-                self.params["lm"], mesh, CAUSAL_LM_TP_RULES)}
+                self.params["lm"], mesh, CAUSAL_LM_TP_RULES,
+                heads=model.lm_cfg.heads)}
         self.audio_params = tree_map(lambda t: t.detach().to(self.device),
                                      model.audio_params)
         #: constrained decoding: permit only these ids (+ end_id)
@@ -639,57 +640,60 @@ class ContinuousGenerator(_SlotEngine):
 
 class Lockstep:
     """An engine on a mesh driven from rank 0: a front end (the HTTP
-    server) calls ``submit``/``cancel``/``step`` on rank 0 only; every
-    ``step`` broadcasts the submissions and cancels made since the last
-    one, and every other rank, in ``follow``, applies them and steps too,
-    so all ranks run the same scheduler on the same requests. ``stop``
-    (rank 0) ends the followers. Other attributes read the engine's. The
-    followers wait in a broadcast between steps: an idle spell longer than
-    the process group's timeout (torch's default, 30 minutes for gloo)
-    ends them, so a long-lived server sets a longer one."""
+    server, or the streaming server for a ``StreamingTranscriber``) calls
+    the ``recorded`` methods and ``run`` on rank 0 only; every ``run``
+    broadcasts the calls recorded since the last one, and every other rank,
+    in ``follow``, makes them and runs too, so all ranks run the same
+    device work on the same requests. ``stop`` (rank 0) ends the
+    followers; a ``run`` after it does nothing. Other attributes read the
+    engine's. The followers wait in a broadcast between runs: an idle
+    spell longer than the process group's timeout (torch's default, 30
+    minutes for gloo) ends them, so a long-lived server sets a longer
+    one."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, recorded=("submit", "cancel"), run="step"):
         import torch.distributed as dist
 
         self.engine = engine
+        self._recorded = tuple(recorded)
+        self._run = run
         self._dist = dist
         self._ops: List[tuple] = []
+        self._stopped = False
 
     def __getattr__(self, name):
-        return getattr(self.engine, name)
-
-    def submit(self, request_id, samples, max_new_tokens=None, **kw):
-        self._ops.append(("submit", request_id, np.asarray(samples),
-                          max_new_tokens, kw))
-        return self.engine.submit(request_id, samples, max_new_tokens, **kw)
-
-    def cancel(self, request_id) -> bool:
-        self._ops.append(("cancel", request_id))
-        return self.engine.cancel(request_id)
+        attr = getattr(self.engine, name)
+        if name in self._recorded:
+            def record(*args, **kw):
+                self._ops.append((name, args, kw))
+                return attr(*args, **kw)
+            return record
+        if name == self._run:
+            def run():
+                if self._stopped:        # the followers have left
+                    return []
+                ops, self._ops = self._ops, []
+                self._broadcast(ops)
+                return attr()
+            return run
+        return attr
 
     def _broadcast(self, ops):
         box = [ops]
         self._dist.broadcast_object_list(box, src=0)
         return box[0]
 
-    def step(self) -> List[Result]:
-        ops, self._ops = self._ops, []
-        self._broadcast(ops)
-        return self.engine.step()
-
     def stop(self) -> None:
+        self._stopped = True
         self._broadcast(None)
 
     def follow(self) -> None:
-        """A rank but 0: apply rank 0's operations and step, until
+        """A rank but 0: make rank 0's recorded calls and run, until
         ``stop``."""
         while True:
             ops = self._broadcast(None)
             if ops is None:
                 return
-            for op in ops:
-                if op[0] == "submit":
-                    self.engine.submit(op[1], op[2], op[3], **op[4])
-                else:
-                    self.engine.cancel(op[1])
-            self.engine.step()
+            for name, args, kw in ops:
+                getattr(self.engine, name)(*args, **kw)
+            getattr(self.engine, self._run)()

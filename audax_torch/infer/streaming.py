@@ -8,7 +8,11 @@ run through the frontend (K1), the encoder (K2) and greedy ``generate``
 (K3) in one pass. A short final window is zero-padded to the window
 (Whisper's own convention). With ``vad_threshold_db`` a window below that
 energy is answered as an empty segment without taking a slot or a decode.
-Tensor parallelism (``mesh``) arrives with slice 11 b of the port.
+With ``mesh`` (a (data, model) mesh) the parameters are cut over 'model'
+(``parallel/sharding.py:shard_params``), the window batch's mel rows go
+over 'data' when they divide (else every rank encodes them all), and the
+decode runs ``generate(mesh=)``; every rank feeds the same streams and
+returns the same segments.
 """
 
 from __future__ import annotations
@@ -27,6 +31,10 @@ from audax_torch.frontend.features import LogMelFrontend
 from audax_torch.infer.decode import generate
 from audax_torch.infer.vad import is_silent
 from audax_torch.models.whisper import encode, tree_map
+from audax_torch.parallel.comm import all_gather_cat
+from audax_torch.parallel.mesh import (batch_group, batch_size, shard_batch,
+                                       use_mesh)
+from audax_torch.parallel.sharding import shard_params
 from audax_torch.symbolic.tokenizer import WhisperTokenizer
 
 log = get_logger("audax_torch.streaming")
@@ -70,10 +78,6 @@ class StreamingTranscriber:
                  mesh=None, dtype=torch.float32, device: DeviceLike = None,
                  kv_quant: bool = False,
                  vad_threshold_db: Optional[float] = None):
-        if mesh is not None:
-            raise NotImplementedError("StreamingTranscriber(mesh=...) "
-                                      "arrives with slice 11 b of the "
-                                      "port's parallelism")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -84,6 +88,9 @@ class StreamingTranscriber:
         #: int8 KV caches: half the per-slot decode cache bytes
         self.kv_quant = kv_quant
         self.params = tree_map(lambda t: t.detach(), params)
+        self.mesh = mesh
+        if mesh is not None:
+            self.params = shard_params(self.params, mesh, heads=cfg.heads)
         self.frontend = LogMelFrontend.whisper(cfg.n_mels, device=self.device)
         self.window = int(window_seconds * self.frontend.cfg.sample_rate)
         self.streams: Dict[str, _Stream] = {}
@@ -138,11 +145,23 @@ class StreamingTranscriber:
     @torch.inference_mode()
     def _run_batch(self, audio: np.ndarray) -> List[List[int]]:
         mel = self.frontend(audio)
-        enc = encode(self.params, self.cfg, mel, self.dtype)
+        mesh = self.mesh
+        if mesh is None:
+            enc = encode(self.params, self.cfg, mel, self.dtype)
+        elif batch_size(mesh) > 1 and mel.shape[0] % batch_size(mesh) == 0:
+            # the rows ride the data axis, and come back whole for the
+            # decode, which cuts its slots itself
+            with use_mesh(mesh):
+                enc = encode(self.params, self.cfg, shard_batch(mesh, mel),
+                             self.dtype)
+            enc = all_gather_cat(enc, batch_group(mesh), 0)
+        else:
+            with use_mesh(mesh):
+                enc = encode(self.params, self.cfg, mel, self.dtype)
         result = generate(self.params, self.cfg, enc, self._prompt,
                           max_len=self._max_len, eos_id=self.tokenizer.eot,
                           suppress=self._suppress, dtype=self.dtype,
-                          kv_quant=self.kv_quant)
+                          kv_quant=self.kv_quant, mesh=mesh)
         tokens = result.tokens.cpu().numpy()
         lengths = result.lengths.cpu().numpy()
         p = self._prompt.shape[1]

@@ -262,7 +262,7 @@ class Transcriber:
                 params, bits=4 if str(quantize) in ("4", "int4") else 8)
         self.mesh = mesh
         if mesh is not None:
-            params = shard_params(params, mesh)
+            params = shard_params(params, mesh, heads=cfg.heads)
         self.params = params
         #: int8 self- and cross-attention KV caches in decode
         self.kv_quant = kv_quant

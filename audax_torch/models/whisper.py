@@ -71,7 +71,8 @@ Params = Dict[str, Any]
 
 __all__ = [
     "init_whisper_params", "sinusoidal_positions", "layer_norm", "dense",
-    "attention", "conv_stem", "encode", "decode_train", "whisper_forward",
+    "attention", "conv_stem", "encoder_layer", "encode", "decode_train",
+    "whisper_forward",
     "KVCache", "QuantKV", "quantize_kv", "init_kv_cache",
     "precompute_cross_kv", "decode_step", "decode_span",
     "decode_step_ragged", "embed_lookup", "embed_logits", "layer_params",
@@ -283,12 +284,16 @@ def local_heads(params: Params, cfg: WhisperConfig) -> int:
 def attention(p: Params, x: torch.Tensor, heads: int, *,
               kv: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None,
-              causal: bool = False, kv_cached=None) -> torch.Tensor:
+              causal: bool = False, kv_cached=None,
+              core=None) -> torch.Tensor:
     """Multi-head attention through ``dot_product_attention``. ``kv``: the
     cross-attention source (self-attention when None); ``mask``: a boolean
     [.., Tq, Tk] mask, which takes the materialised twin. ``kv_cached``:
     precomputed head tensors, float (k, v) [B, H, S, hd] or a ``QuantKV``;
-    without a mask they go through ``decode_attention`` (K6).
+    without a mask they go through ``decode_attention`` (K6). ``core(q, k,
+    v, scale)``: another exact attention over the head tensors in place of
+    ``dot_product_attention`` (sequence parallelism's ring,
+    ``parallel/sp.py``).
 
     ``heads`` is the model's head count; with head-sharded projections
     (TP, ``parallel/sharding.py``) this rank computes its own heads and
@@ -311,8 +316,9 @@ def attention(p: Params, x: torch.Tensor, heads: int, *,
         src = xin if kv is None else (copy_to_model(kv) if tp else kv)
         k = _split_heads(_col_dense(p["k"], src), hd)
         v = _split_heads(_col_dense(p["v"], src), hd)
-    out = dot_product_attention(q, k, v, causal=causal, mask=mask,
-                                scale=scale)
+    out = (dot_product_attention(q, k, v, causal=causal, mask=mask,
+                                 scale=scale) if core is None
+           else core(q, k, v, scale))
     return _row_dense(p["out"], _merge_heads(out), tp)
 
 
@@ -361,6 +367,14 @@ def _remat_body(body, remat):
     return run
 
 
+def encoder_layer(layer: Params, cfg: WhisperConfig, x: torch.Tensor, *,
+                  core=None) -> torch.Tensor:
+    """One pre-norm encoder layer (``core``: as ``attention`` takes it)."""
+    x = x + attention(layer["attn"], layer_norm(layer["attn_ln"], x),
+                      cfg.heads, core=core)
+    return x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
+
+
 def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
            dtype=torch.float32, *, remat=False) -> torch.Tensor:
     """mel [B, T_frames, n_mels] (time-major) -> encoder states
@@ -370,9 +384,7 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
     x = conv_stem(params, cfg, mel, dtype)
 
     def body(x, layer):
-        x = x + attention(layer["attn"], layer_norm(layer["attn_ln"], x),
-                          cfg.heads)
-        return x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
+        return encoder_layer(layer, cfg, x)
 
     body = _remat_body(body, remat)
     for li in range(cfg.encoder_layers):

@@ -23,6 +23,14 @@ gradient.
 
 Every operator reads the current mesh (``parallel/mesh.py:use_mesh``) and
 is the identity outside one, or when its axis has size 1.
+
+``ring_shift`` is JAX's ``ppermute`` on a ring (sequence parallelism's K/V
+blocks) or a chain (pipeline parallelism's stages). It is one
+``all_to_all_single`` in which only the neighbour's split is non-empty, on
+every backend: gloo does not carry ``send``/``recv``/``batch_isend_irecv``
+on CUDA tensors (it hands the device pointer to its TCP transport, which
+aborts with "Bad address"), and carries ``all_to_all_single`` on them; NCCL
+runs the same call.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ __all__ = ["model_size", "model_rank", "copy_to_model", "reduce_from_model",
            "gather_from_model", "gather_over", "copy_over", "sum_over",
            "all_reduce_sum", "all_gather_cat",
            "gather_for_use", "vocab_embed", "vocab_logits", "tp_active",
-           "local_block"]
+           "local_block", "ring_shift", "reduce_over"]
 
 
 def _axis(name: str):
@@ -201,6 +209,13 @@ def copy_over(x: torch.Tensor, group) -> torch.Tensor:
     return _CopyToModel.apply(x, group)
 
 
+def reduce_over(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g over any ``group``: summed forward, identity backward
+    -- for a result every rank then reads alike (pipeline outputs that
+    only the last stage fills)."""
+    return _ReduceFromModel.apply(x, group)
+
+
 def gather_over(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The shards of ``x`` over ``group`` concatenated along ``dim``, for a
     result every rank then uses alike (backward: this rank's slice)."""
@@ -212,6 +227,53 @@ def gather_for_use(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     along ``dim``; the backward reduce-scatters the gradient (summing the
     ranks' batch contributions, each keeping its shard)."""
     return _GatherForUse.apply(x, group, dim)
+
+
+def _shift(x: torch.Tensor, group, step: int, wrap: bool) -> torch.Tensor:
+    """Rank r's ``x`` sent to rank r + ``step`` of ``group`` (no
+    autograd): what this rank receives from r - ``step``. Without ``wrap``
+    a rank past either end sends nothing and one that has no sender
+    receives zeros."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.clone() if wrap else torch.zeros_like(x)
+    r = dist.get_rank(group)
+    dst, src = r + step, r - step
+    send = wrap or 0 <= dst < n
+    recv = wrap or 0 <= src < n
+    flat = x.detach().contiguous().reshape(-1)
+    m = flat.numel()
+    ins, outs = [0] * n, [0] * n
+    if send:
+        ins[dst % n] = m
+    if recv:
+        outs[src % n] = m
+    out = flat.new_empty(m if recv else 0)
+    dist.all_to_all_single(out, flat if send else flat[:0],
+                           output_split_sizes=outs, input_split_sizes=ins,
+                           group=group)
+    return out.view(x.shape) if recv else torch.zeros_like(x)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, wrap):
+        ctx.group, ctx.wrap = group, wrap
+        return _shift(x, group, 1, wrap)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -1, ctx.wrap), None, None
+
+
+def ring_shift(x: torch.Tensor, group, *, wrap: bool) -> torch.Tensor:
+    """JAX's ``ppermute``: rank i's ``x`` goes to rank i + 1 of ``group``
+    and this rank returns what rank i - 1 sent. ``wrap=True`` closes the
+    ring (sequence parallelism's ``[(i, (i + 1) % n)]``); ``wrap=False`` is
+    the chain ``[(i, i + 1)]``, where the last rank sends nothing and the
+    first receives zeros. The backward shifts the gradient the other way.
+    Every rank of ``group`` must call it, the same number of times."""
+    return _RingShift.apply(x, group, wrap)
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,

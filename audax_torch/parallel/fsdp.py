@@ -25,7 +25,8 @@ shards (``norm``) and the whole tree back (``full``).
 from __future__ import annotations
 
 import math
-from typing import Any, List, Sequence, Tuple
+import re
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -35,7 +36,8 @@ from audax_torch.parallel.comm import (all_gather_cat, all_reduce_sum,
                                        gather_for_use)
 from audax_torch.parallel.mesh import (P, axis_group, axis_size, batch_axes,
                                        batch_group, batch_size)
-from audax_torch.parallel.sharding import (WHISPER_TP_RULES, _in_int4,
+from audax_torch.parallel.sharding import (ATTENTION_LEAVES,
+                                           WHISPER_TP_RULES, _in_int4,
                                            _int4_dense_prefixes, _zip_map,
                                            local_slice, map_with_path,
                                            shard_params, spec_for_path,
@@ -86,16 +88,21 @@ def _add_fsdp_dim(spec: P, shape, mesh, axis: str, min_size: int) -> P:
 
 def fsdp_specs(params: Any, mesh, *,
                rules: Sequence[Tuple[str, P]] = WHISPER_TP_RULES,
-               axis: str = "data", min_size: int = 1 << 12) -> Any:
+               axis: str = "data", min_size: int = 1 << 12,
+               heads: Optional[int] = None) -> Any:
     """Tree of partition specs: TP rules first (with the divisibility
-    fallback), then the FSDP ``axis`` on each tensor's largest free dim.
-    int4-packed dense dicts stay replicated as a unit."""
+    fallback, and ``heads`` as ``sharding.tp_specs`` takes them), then the
+    FSDP ``axis`` on each tensor's largest free dim. int4-packed dense
+    dicts stay replicated as a unit."""
     int4 = _int4_dense_prefixes(params)
+    whole_attn = heads is not None and heads % axis_size(mesh, "model")
 
     def one(s, leaf):
         if _in_int4(s, int4):
             return P()
         spec = _valid(spec_for_path(s, rules, leaf.dim()), leaf.shape, mesh)
+        if whole_attn and re.search(ATTENTION_LEAVES, s):
+            spec = P()
         return _add_fsdp_dim(spec, tuple(leaf.shape), mesh, axis, min_size)
 
     return map_with_path(one, params)
@@ -103,17 +110,19 @@ def fsdp_specs(params: Any, mesh, *,
 
 def shard_params_fsdp(params: Any, mesh, *,
                       rules: Sequence[Tuple[str, P]] = WHISPER_TP_RULES,
-                      axis: str = "data", min_size: int = 1 << 12) -> Any:
+                      axis: str = "data", min_size: int = 1 << 12,
+                      heads: Optional[int] = None) -> Any:
     """This rank's local tree in the ZeRO-3 layout (TP rules + FSDP
     axis)."""
     specs = fsdp_specs(params, mesh, rules=rules, axis=axis,
-                       min_size=min_size)
+                       min_size=min_size, heads=heads)
     return Layout(mesh, specs, axis).local(params)
 
 
 def shard_state(state, mesh, *, fsdp: bool = False,
                 rules: Sequence[Tuple[str, P]] = WHISPER_TP_RULES,
-                axis: str = "data", min_size: int = 1 << 12):
+                axis: str = "data", min_size: int = 1 << 12,
+                heads: Optional[int] = None):
     """A train state (``train/seq2seq.py:FTState``, ``train/lm.py:LMState``
     or ``train/steps.py:TrainState``) whose trees are whole on every rank,
     moved onto ``mesh``: the trainable leaves and each Adam moment cut to
@@ -123,31 +132,34 @@ def shard_state(state, mesh, *, fsdp: bool = False,
     whole over 'model' and their delta is cut where it is applied,
     ``models/lora.py:apply_lora``) and its frozen base is cut by the rules.
     Optimizer leaves that are not per-parameter trees (the count) stay as
-    they are."""
+    they are. ``heads``: the model's attention heads (``sharding.
+    tp_specs``)."""
     name = "trainable" if hasattr(state, "trainable") else "params"
     tree = getattr(state, name)
     lora = getattr(state, "use_lora", False)
     trules = () if lora else rules
     specs = (fsdp_specs(tree, mesh, rules=trules, axis=axis,
-                        min_size=min_size) if fsdp
-             else tp_specs(tree, mesh, trules))
+                        min_size=min_size, heads=heads) if fsdp
+             else tp_specs(tree, mesh, trules, heads=heads))
     lay = Layout(mesh, specs, axis)
     changes = {name: lay.local(tree, grad=True),
                "opt_state": lay.local_opt_state(state.opt_state),
                "layout": lay}
     if lora:
-        changes["base_params"] = shard_params(state.base_params, mesh, rules)
+        changes["base_params"] = shard_params(state.base_params, mesh, rules,
+                                              heads=heads)
         changes["base_layout"] = Layout(
-            mesh, tp_specs(state.base_params, mesh, rules), axis)
+            mesh, tp_specs(state.base_params, mesh, rules, heads=heads), axis)
     return state.replace(**changes)
 
 
 def fsdp_shard_state(state, mesh, *,
                      rules: Sequence[Tuple[str, P]] = WHISPER_TP_RULES,
-                     axis: str = "data", min_size: int = 1 << 12):
+                     axis: str = "data", min_size: int = 1 << 12,
+                     heads: Optional[int] = None):
     """``shard_state`` into the ZeRO-3 layout (TP rules + FSDP axis)."""
     return shard_state(state, mesh, fsdp=True, rules=rules, axis=axis,
-                       min_size=min_size)
+                       min_size=min_size, heads=heads)
 
 
 class Layout:

@@ -9,6 +9,14 @@ One process drives one rank. ``make_mesh`` lays the world's ranks out as a
   model     -- TP axis: attention heads / FFN hidden sharded across it
   dcn_data  -- (multi-host) outer DP axis laid out across hosts, so its
                all-reduces cross hosts while data/model stay inside one
+  seq       -- sequence parallelism: the encoder's frames cut across it
+               (``parallel/sp.py``)
+  stage     -- pipeline parallelism: the layer stack cut across it
+               (``parallel/pp.py``)
+
+``make_named_mesh`` builds any layout of those names, as the JAX package
+builds its SP meshes ("data", "seq") and ("data", "model", "seq") and its
+PP meshes ("stage",) and ("stage", "data") with ``Mesh(devices, names)``.
 
 Where JAX's GSPMD inserts the collectives from the shardings, the port
 writes them where they belong (``parallel/comm.py``); the mesh only names
@@ -44,7 +52,7 @@ __all__ = ["make_mesh", "data_sharding", "replicated", "shard_batch", "P",
            "make_multihost_mesh", "multihost_device_grid", "use_mesh",
            "current_mesh", "axis_size", "axis_rank", "axis_group",
            "batch_axes", "batch_size", "batch_rank", "batch_group",
-           "mesh_device", "backend_for"]
+           "mesh_device", "backend_for", "make_named_mesh", "block_of"]
 
 
 class P(tuple):
@@ -165,6 +173,38 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
     return _device_mesh(dev, arr, cfg.axis_names)
 
 
+def make_named_mesh(axes: Sequence[Tuple[str, int]], *,
+                    device: DeviceLike = None):
+    """A mesh of the named ``axes`` ((name, size) pairs, outermost first;
+    one size may be -1 to take the ranks the others leave) over the
+    world's ranks in row-major order, so the last axis varies fastest. The
+    mesh must cover the world (one process runs each rank)."""
+    dev = resolve_device(device)
+    world = _ensure_world(dev)
+    names = tuple(a for a, _ in axes)
+    sizes = [int(n) for _, n in axes]
+    if len(set(names)) != len(names):
+        raise ValueError(f"mesh axes {names} repeat a name")
+    known = math.prod(n for n in sizes if n > 0)
+    if sizes.count(-1) > 1 or any(n == 0 or n < -1 for n in sizes):
+        raise ValueError(f"mesh axes {dict(axes)}: sizes must be positive, "
+                         "one of them may be -1")
+    if -1 in sizes:
+        if world % known:
+            raise ValueError(f"{world} devices not divisible by "
+                             f"{known} (mesh axes {dict(axes)})")
+        sizes[sizes.index(-1)] = world // known
+    total = math.prod(sizes)
+    if total > world:
+        raise ValueError(f"mesh {dict(zip(names, sizes))} needs {total} "
+                         f"devices, only {world} present")
+    if total != world:
+        raise ValueError(f"mesh {dict(zip(names, sizes))} covers {total} "
+                         f"of the world's {world} ranks; one process runs "
+                         "each rank, so the mesh must cover them all")
+    return _device_mesh(dev, np.arange(world).reshape(sizes), names)
+
+
 def local_mesh(device: DeviceLike = None):
     """The mesh over every rank on the data axis (the common one-rank
     case)."""
@@ -240,9 +280,14 @@ def axis_group(mesh, name: str):
     return mesh.get_group(name)
 
 
+#: the axes a batch never shards over: TP's, SP's and PP's
+_NOT_BATCH = ("model", "seq", "stage")
+
+
 def batch_axes(mesh) -> Tuple[str, ...]:
-    """The axes a batch shards over: every axis but 'model'."""
-    return tuple(n for n in mesh.mesh_dim_names if n != "model")
+    """The axes a batch shards over: every axis but 'model', 'seq' and
+    'stage'."""
+    return tuple(n for n in mesh.mesh_dim_names if n not in _NOT_BATCH)
 
 
 def batch_size(mesh) -> int:
@@ -259,8 +304,11 @@ def batch_rank(mesh) -> int:
 
 
 def batch_group(mesh):
-    """The process group over the batch axes (all of them flattened)."""
+    """The process group over the batch axes (all of them flattened; None
+    when the mesh has none)."""
     axes = batch_axes(mesh)
+    if not axes:
+        return None
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     return mesh.audax_batch_group
@@ -296,6 +344,12 @@ def data_sharding(mesh, ndim: int = 1) -> P:
 
 def replicated(mesh) -> P:
     return P()
+
+
+def block_of(x: torch.Tensor, n: int, r: int, dim: int = 0) -> torch.Tensor:
+    """Block ``r`` of ``n`` equal blocks of ``x`` along ``dim`` (a view)."""
+    size = x.shape[dim] // n
+    return x.narrow(dim, r * size, size)
 
 
 def pad_to_multiple(n: int, m: int) -> int:

@@ -34,8 +34,8 @@ import torch
 from audax_torch.parallel.mesh import (P, axis_rank, axis_size, batch_rank,
                                        batch_size)
 
-__all__ = ["WHISPER_TP_RULES", "CAUSAL_LM_TP_RULES", "spec_for_path",
-           "shard_params", "param_specs", "kv_rows",
+__all__ = ["WHISPER_TP_RULES", "CAUSAL_LM_TP_RULES", "ATTENTION_LEAVES",
+           "spec_for_path", "shard_params", "param_specs", "kv_rows",
            "tp_specs", "local_slice", "path_leaves", "map_with_path", "P"]
 
 
@@ -130,26 +130,44 @@ def param_specs(params: Any, rules: Sequence[Tuple[str, P]] = WHISPER_TP_RULES
         else spec_for_path(s, rules, leaf.dim()), params)
 
 
-def tp_specs(params: Any, mesh,
-             rules: Sequence[Tuple[str, P]] = WHISPER_TP_RULES) -> Any:
-    """The specs ``shard_params`` applies: ``param_specs`` with a leaf
-    whose sharded dim does not divide its mesh axis replicated."""
-    specs = param_specs(params, rules)
+#: the attention projections of both rule tables (Whisper's
+#: ``layers/(attn|cross_attn)/(q|k|v|out)``, the causal LM's
+#: ``layers/(q|k|v|o)``): they are cut by whole heads or not at all
+ATTENTION_LEAVES = r"layers/((attn|cross_attn)/)?(q|k|v|o|out)/"
 
-    def fit(spec: P, leaf) -> P:
+
+def tp_specs(params: Any, mesh,
+             rules: Sequence[Tuple[str, P]] = WHISPER_TP_RULES, *,
+             heads: Optional[int] = None) -> Any:
+    """The specs ``shard_params`` applies: ``param_specs`` with a leaf
+    whose sharded dim does not divide its mesh axis replicated. ``heads``
+    (the model's attention heads): when the model axis does not divide
+    them, every attention projection stays whole too, so each rank
+    computes all the heads (a cut by width would split a head), as int4
+    blocks stay whole."""
+    specs = param_specs(params, rules)
+    whole_attn = heads is not None and heads % axis_size(mesh, "model")
+
+    def fit(spec: P, leaf, path: str) -> P:
+        if whole_attn and re.search(ATTENTION_LEAVES, path):
+            return P()
         for dim, axis in enumerate(spec):
             if axis is not None and leaf.shape[dim] % axis_size(mesh,
                                                                 axis):
                 return P()
         return spec
 
-    return _zip_map(fit, specs, params)
+    return _zip_map(fit, specs, params, with_path=True)
 
 
-def _zip_map(fn, specs, tree):
+def _zip_map(fn, specs, tree, prefix: str = "", *, with_path=False):
+    """``fn(spec, leaf)`` (and the leaf's path, ``with_path``) over a
+    spec tree and the tree it describes."""
     if isinstance(tree, dict):
-        return {k: _zip_map(fn, specs[k], v) for k, v in tree.items()}
-    return fn(specs, tree)
+        return {k: _zip_map(fn, specs[k], v,
+                            f"{prefix}/{k}" if prefix else str(k),
+                            with_path=with_path) for k, v in tree.items()}
+    return fn(specs, tree, prefix) if with_path else fn(specs, tree)
 
 
 def local_slice(leaf: torch.Tensor, spec: P, mesh) -> torch.Tensor:
@@ -174,12 +192,14 @@ def local_slice(leaf: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 
 
 def shard_params(params: Any, mesh,
-                 rules: Sequence[Tuple[str, P]] = WHISPER_TP_RULES) -> Any:
+                 rules: Sequence[Tuple[str, P]] = WHISPER_TP_RULES, *,
+                 heads: Optional[int] = None) -> Any:
     """This rank's local tree of ``params`` (every rank's full tree equal):
     each leaf's block under its rule-derived spec, a copy of its own (so
     the full tree can be freed). Dims not divisible by the mesh axis fall
-    back to replication for that param."""
-    specs = tp_specs(params, mesh, rules)
+    back to replication for that param, and with ``heads`` the model axis
+    does not divide, the attention projections (``tp_specs``)."""
+    specs = tp_specs(params, mesh, rules, heads=heads)
     return _zip_map(
         lambda spec, leaf: local_slice(leaf, spec, mesh).clone()
         if any(a is not None for a in spec) else leaf, specs, params)

@@ -1,6 +1,6 @@
-"""The multi-rank dry run of the port's data, tensor, fully-sharded and
-expert parallelism (the counterpart of the JAX package's
-``__graft_entry__.py:dryrun_multichip``, this slice's stages).
+"""The multi-rank dry run of the port's parallelism (the counterpart of the
+JAX package's ``__graft_entry__.py:dryrun_multichip``, every one of its
+stages, in its order).
 
 ``python -m audax_torch.tools.dryrun_multichip N`` starts N CPU processes
 joined in one gloo world (a ``file://`` store in a fresh temporary
@@ -10,7 +10,14 @@ without a mesh:
 
   * EP through the expert-sharded dense MoE (experts over 'model');
   * EP through the GShard all_to_all dispatch (``parallel/ep.py``);
+  * the PP x DP causal-LM train step on (stage 2, data N/2), the stack
+    and its moments cut over 'stage', three steps, losses falling (N
+    divisible by 4);
   * the multi-host (dcn_data, data, model) mesh forward (N divisible by 4);
+  * the SP encoder (ring attention) on (data N/4, model 2, seq 2), the PP
+    encoder over 2 stages, and the SP x DP fine-tune step on (data N/2,
+    seq 2) against the single-device step (N divisible by 4; JAX runs
+    them at 8 devices, the port's mesh must cover its world);
   * the DP x TP fine-tune step, three steps, losses falling;
   * ``accum_steps=2`` equal to the full batch under DP x TP;
   * FSDP with bfloat16 moments equal to the replicated step;
@@ -18,8 +25,7 @@ without a mesh:
   * DP x TP continuous batching equal to the replicated engine.
 
 Rank 0 prints one line a stage and ``dryrun_multichip(N): all K stages
-OK``; any failure exits non-zero. Sequence and pipeline parallelism are the
-next slice's.
+OK``; any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -55,8 +61,14 @@ def run_rank(n: int) -> int:
     from audax_torch.parallel.ep import moe_expert_parallel
     from audax_torch.parallel.fsdp import fsdp_shard_state, shard_state
     from audax_torch.parallel.mesh import (batch_group, make_mesh,
-                                           make_multihost_mesh, shard_batch,
+                                           make_multihost_mesh,
+                                           make_named_mesh, shard_batch,
                                            use_mesh)
+    from audax_torch.parallel.pp import (encode_pipelined,
+                                         make_pp_lm_train_step, pp_shard)
+    from audax_torch.parallel.sp import (encode_sequence_parallel,
+                                         make_sp_finetune_step)
+    from audax_torch.train.optim import adamw
     from audax_torch.parallel.sharding import CAUSAL_LM_TP_RULES, shard_params
     from audax_torch.symbolic.bpe import train_bpe
     from audax_torch.symbolic.tokenizer import WhisperTokenizer
@@ -102,10 +114,35 @@ def run_rank(n: int) -> int:
     assert err < 1e-4, err
     ok(f"EP all_to_all dispatch (GShard schedule) max|diff|={err:.2e}")
 
+    # ---- pipeline-parallel training composed with DP ---------------------
+    if n % 4 == 0:
+        pp_mesh = make_named_mesh([("stage", 2), ("data", n // 2)],
+                                  device="cpu")
+        pp_cfg = CausalLMConfig(vocab_size=96, d_model=32, layers=4, heads=4,
+                                kv_heads=2, ffn_dim=64)
+        pp_params = pp_shard(init_causal_lm(
+            pp_cfg, torch.Generator().manual_seed(2), device="cpu"), pp_mesh)
+        pp_opt = adamw(1e-2)
+        pp_state = pp_opt.init(pp_params)
+        pp_step = make_pp_lm_train_step(pp_cfg, pp_mesh, pp_opt, n_micro=2,
+                                        data_axis="data", remat=True)
+        pp_toks = torch.from_numpy(rng.integers(0, pp_cfg.vocab_size,
+                                                (2 * (n // 2), 9)))
+        pp_losses = []
+        for _ in range(3):
+            pp_params, pp_state, pl = pp_step(pp_params, pp_state, pp_toks)
+            pp_losses.append(float(pl))
+        assert pp_losses[-1] < pp_losses[0], pp_losses
+        q = tuple(pp_params["layers"]["q"]["kernel"].shape)
+        assert q[0] == pp_cfg.layers // 2, q
+        ok(f"PP x DP LM train step (mesh {{'stage': 2, 'data': {n // 2}}}, "
+           f"stage-cut stack + moments, q {q}) "
+           f"losses={[round(v, 4) for v in pp_losses]} (decreasing)")
+
     # ---- Whisper: multi-host forward, fine-tune, decode, serve ----------
-    cfg = WhisperConfig(n_mels=16, n_audio_ctx=8, d_model=32,
-                        encoder_layers=1, decoder_layers=1, heads=4,
-                        vocab_size=64, n_text_ctx=8)
+    cfg = WhisperConfig(n_mels=80, n_audio_ctx=64, d_model=64, heads=4,
+                        encoder_layers=2, decoder_layers=2, vocab_size=512,
+                        n_text_ctx=32)
     params0 = init_whisper_params(cfg, torch.Generator().manual_seed(0),
                                   device="cpu")
     b = 8
@@ -133,6 +170,38 @@ def run_rank(n: int) -> int:
     local = shard_batch(mesh, batch)
     ft = FineTuneConfig(learning_rate=1e-3, warmup_steps=1, max_steps=10,
                         lora_rank=0)
+
+    # ---- sequence and pipeline parallelism -------------------------------
+    if n % 4 == 0:
+        with torch.no_grad():
+            ref = encode(params0, cfg, mel)
+            mesh3 = make_named_mesh([("data", n // 4), ("model", 2),
+                                     ("seq", 2)], device="cpu")
+            sp = all_gather_cat(encode_sequence_parallel(
+                params0, cfg, mel, mesh3), mesh3.get_group("data"), 0)
+            err = _err(sp, ref)
+            assert err < 1e-3, err
+            ok(f"SP encoder (ring attention) over "
+               f"{dict(zip(mesh3.mesh_dim_names, mesh3.shape))} "
+               f"max|diff|={err:.2e}")
+            stage_mesh = make_named_mesh([("stage", 2), ("data", n // 2)],
+                                         device="cpu")
+            err = _err(encode_pipelined(params0, cfg, mel, stage_mesh,
+                                        n_micro=2), ref)
+            assert err < 1e-3, err
+            ok(f"PP encoder over 2 stages max|diff|={err:.2e}")
+        sp_mesh = make_named_mesh([("data", n // 2), ("seq", 2)],
+                                  device="cpu")
+        _, m_ref = make_finetune_step(cfg, remat=False)(
+            init_finetune(params0, ft), batch)
+        _, m_sp = make_sp_finetune_step(cfg, sp_mesh, ft)(
+            init_finetune(params0, ft), batch)
+        l_ref, l_sp = float(m_ref["loss"]), float(m_sp["loss"])
+        assert abs(l_sp - l_ref) < 1e-3 * max(abs(l_ref), 1.0), (l_sp,
+                                                                  l_ref)
+        ok(f"SP x DP fine-tune step (ring-attention grads, mesh "
+           f"{dict(zip(sp_mesh.mesh_dim_names, sp_mesh.shape))}) loss "
+           f"matches single-device ({l_sp:.4f} vs {l_ref:.4f})")
     step = make_finetune_step(cfg, remat=True)
     state = shard_state(init_finetune(params0, ft), mesh)
     losses = []

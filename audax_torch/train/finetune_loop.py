@@ -12,8 +12,9 @@ whose decode reads the stacked decode-attention kernel (K3).
 Batches are drawn exactly as the JAX loop draws them
 (``np.random.default_rng(cfg.seed).choice``), so both packages train on the
 same examples in the same order. Under a mesh every rank draws the same
-batch and keeps its rows (``finetune_whisper``); sequence parallelism
-(``sp_mesh``) arrives with slice 11 b.
+batch and keeps its rows (``finetune_whisper``); under a sequence-parallel
+mesh (``sp_mesh``) every rank takes the same global batch into the DP x SP
+step (``parallel/sp.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from audax_torch.infer.transcribe import Transcriber
 from audax_torch.models.whisper import tree_map
 from audax_torch.ops.augment import spec_augment
 from audax_torch.parallel.fsdp import shard_state
-from audax_torch.parallel.mesh import batch_size, shard_batch
+from audax_torch.parallel.mesh import axis_size, batch_size, shard_batch
 from audax_torch.symbolic.tokenizer import WhisperTokenizer
 from audax_torch.train.ema import ema_init, ema_model_params, ema_update
 from audax_torch.train.metrics_sink import MetricsSink
@@ -148,12 +149,18 @@ def finetune_whisper(
     'data' (ZeRO-3, ``parallel/fsdp.py``). The returned state then holds
     this rank's blocks; ``state.full_params()`` gathers the serving tree,
     and "best_params" / "ema_params" are whole. Evaluation runs whole on
-    every rank, as in JAX. ``sp_mesh`` (sequence parallelism) arrives with
-    slice 11 b and raises."""
-    if sp_mesh is not None:
-        raise NotImplementedError(
-            "finetune_whisper(sp_mesh=...) (sequence parallelism) arrives "
-            "with slice 11 b of the port (parallel/sp.py, ring attention)")
+    every rank, as in JAX.
+
+    ``sp_mesh`` (a ("data", "seq") mesh, ``parallel/mesh.py:
+    make_named_mesh``) instead runs the DP x SP ring-attention step
+    (``parallel/sp.py:make_sp_finetune_step``): the mel frames are cut over
+    'seq' inside the encoder, so windows whose encoder activations exceed
+    one card still train; the batch's rows go over 'data'. The state stays
+    whole on every rank and every rank applies the same update. Exclusive
+    of ``mesh``/``fsdp``; ``accum_steps`` composes (its microbatches run
+    outside the ring)."""
+    if sp_mesh is not None and (mesh is not None or fsdp):
+        raise ValueError("sp_mesh is mutually exclusive with mesh/fsdp")
     if fsdp and mesh is None:
         raise ValueError("fsdp=True needs a mesh")
     device = resolve_device(device)
@@ -164,11 +171,15 @@ def finetune_whisper(
     # blocks: the adapters are drawn at their whole shapes
     state = init_finetune(params, cfg, lora_targets=lora_targets)
     if mesh is not None:
-        state = shard_state(state, mesh, fsdp=fsdp)
-    step_fn = make_finetune_step(
-        model_cfg, remat=cfg.gradient_checkpointing,
-        dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
-        accum_steps=cfg.accum_steps)
+        state = shard_state(state, mesh, fsdp=fsdp, heads=model_cfg.heads)
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if sp_mesh is not None:
+        from audax_torch.parallel.sp import make_sp_finetune_step
+        step_fn = make_sp_finetune_step(model_cfg, sp_mesh, cfg, dtype=dtype)
+    else:
+        step_fn = make_finetune_step(
+            model_cfg, remat=cfg.gradient_checkpointing, dtype=dtype,
+            accum_steps=cfg.accum_steps)
 
     audio = torch.from_numpy(
         np.stack([ex["audio"] for ex in examples]).astype(np.float32)
@@ -188,8 +199,9 @@ def finetune_whisper(
     # realized batch size: capped by the dataset, rounded to a multiple of
     # accum_steps x the data ranks; tiny datasets round UP (sample with
     # replacement)
-    div = max(1, cfg.accum_steps) * (1 if mesh is None
-                                     else batch_size(mesh))
+    div = max(1, cfg.accum_steps) * (
+        axis_size(sp_mesh, "data") if sp_mesh is not None
+        else 1 if mesh is None else batch_size(mesh))
     bsz = min(cfg.batch_size, n)
     bsz = max(div, (bsz // div) * div)
     for step in range(cfg.max_steps):

@@ -220,7 +220,8 @@ def fit_lm(params: Any, model_cfg: CausalLMConfig, train_cfg: LMTrainConfig,
                                    params), train_cfg)
     lay = None
     if mesh is not None:
-        state = shard_state(state, mesh, fsdp=fsdp, rules=CAUSAL_LM_TP_RULES)
+        state = shard_state(state, mesh, fsdp=fsdp, rules=CAUSAL_LM_TP_RULES,
+                            heads=model_cfg.heads)
         lay = state.layout
     lead = mesh is None or torch.distributed.get_rank() == 0
     rng = np.random.default_rng(train_cfg.seed)

@@ -261,10 +261,12 @@ def clip_scale(grads, max_norm: float, norm: Optional[torch.Tensor] = None
             torch.where(keep, one, torch.full_like(norm, max_norm)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
     """``optax.clip_by_global_norm``: every leaf times ``max_norm / norm``
-    where the global norm is at least ``max_norm`` (a new tree)."""
-    den, num = clip_scale(grads, max_norm)
+    where the global norm is at least ``max_norm`` (a new tree; ``norm``
+    as ``clip_scale`` takes it)."""
+    den, num = clip_scale(grads, max_norm, norm)
     return tree_map(lambda g: g / den * num, grads)
 
 

@@ -25,7 +25,12 @@ embeddings and the final norm are not in ``layers`` and train at the LM's
 rate.
 
 The step runs eagerly and updates the state's parameters and moments in
-place (the JAX step donates them). On the card its forward and backward go
+place (the JAX step donates them). Over a mesh (``make_two_tower_step(...,
+layout=)``, a ``parallel/fsdp.py:Layout`` of the trainable tree) the
+state holds this rank's blocks, the forward runs under the mesh, and the
+CE is the global sum over the global token count, so a batch every rank
+runs whole (one whose rows the data axis does not divide) gives the same
+gradient as one cut over the ranks. On the card its forward and backward go
 through the kernels of ``models/two_tower.py``: K2 in the frozen encoder
 and the adapter's cross-attention, K7/K8 in the adapter's backward; the
 LM's attention has a padding mask and takes the materialised twin, as in
@@ -126,8 +131,10 @@ def init_two_tower_optimizer(model: TwoTowerModel
              for g in _GROUPS})
 
     @torch.no_grad()
-    def update(grads, state: TwoTowerOptState, params):
-        grads = clip_by_global_norm(grads, cfg.grad_clip)
+    def update(grads, state: TwoTowerOptState, params, *, norm=None):
+        """``norm``: the whole tree's global norm when ``grads`` are this
+        rank's blocks of it."""
+        grads = clip_by_global_norm(grads, cfg.grad_clip, norm)
         updates, adam = {}, {}
         for g in _GROUPS:
             tx = adamw(float(state.learning_rate[g]), _WEIGHT_DECAY)
@@ -160,8 +167,8 @@ def scale_learning_rates(opt_state: TwoTowerOptState,
         g: lr * f for g, lr in opt_state.learning_rate.items()})
 
 
-def make_two_tower_step(model: TwoTowerModel, *, accum_steps: int = 1
-                        ) -> Tuple[Callable, Callable]:
+def make_two_tower_step(model: TwoTowerModel, *, accum_steps: int = 1,
+                        layout=None) -> Tuple[Callable, Callable]:
     """(train_step, eval_step) on a batch = {"mel": [B, T, n_mels],
     "input_ids": [B, L], "attention_mask": [B, L]} of tensors on the
     model's device; each returns {"loss": a device scalar} (train_step also
@@ -171,7 +178,15 @@ def make_two_tower_step(model: TwoTowerModel, *, accum_steps: int = 1
     other (gradient_accumulation_steps semantics, AB/fineTune.py:165): the
     frozen encoder runs inside each microbatch, the gradients of the summed
     CE and the token counts accumulate and are normalised once, so the
-    update equals the full-batch step. B must be divisible."""
+    update equals the full-batch step. B must be divisible.
+
+    ``layout``: the state's trainable tree laid out over a mesh (its
+    ``mesh``, whose current use the step enters): each batch is this
+    rank's rows or the whole batch on every rank; the summed CE and the
+    token count are summed over the batch axes before the division, the
+    gradients reduced and the clip's norm taken over the whole tree."""
+    if layout is not None:
+        return _mesh_steps(model, accum_steps, layout)
 
     def grads_and_loss(params, batch):
         leaves = tree_leaves(params)
@@ -203,6 +218,57 @@ def make_two_tower_step(model: TwoTowerModel, *, accum_steps: int = 1
         enc = model.encode_audio(batch["mel"])
         return {"loss": model.loss(state.params, enc, batch["input_ids"],
                                    batch["attention_mask"])}
+
+    return train_step, eval_step
+
+
+def _mesh_steps(model: TwoTowerModel, accum_steps: int, lay
+                ) -> Tuple[Callable, Callable]:
+    """``make_two_tower_step``'s pair over ``lay.mesh``."""
+    from audax_torch.parallel.comm import all_reduce_sum
+    from audax_torch.parallel.mesh import batch_group, batch_size, use_mesh
+
+    group = batch_group(lay.mesh) if batch_size(lay.mesh) > 1 else None
+
+    def summed(t):
+        return t if group is None else all_reduce_sum(t, group)
+
+    def grads_and_loss(params, batch):
+        leaves = tree_leaves(params)
+        if accum_steps > 1:
+            grads, loss, _ = accumulate_grads(
+                lambda micro: model.loss_sum(
+                    lay.use(params), model.encode_audio(micro["mel"]),
+                    micro["input_ids"], micro["attention_mask"]),
+                leaves, batch, accum_steps, reduce=lay.reduce)
+            return grads, loss
+        total, count = model.loss_sum(lay.use(params),
+                                      model.encode_audio(batch["mel"]),
+                                      batch["input_ids"],
+                                      batch["attention_mask"])
+        count = torch.clamp_min(summed(count.float()), 1.0)
+        grads = lay.reduce_grads(torch.autograd.grad(total / count, leaves))
+        return grads, summed(total.detach()) / count
+
+    def train_step(state: TwoTowerState, batch):
+        with use_mesh(lay.mesh):
+            grads, loss = grads_and_loss(state.params, batch)
+            grads = _mask_lm_grads(tree_unflatten(state.params, grads),
+                                   state.layer_mask)
+            updates, opt_state = state.tx.update(
+                grads, state.opt_state, state.params, norm=lay.norm(grads))
+        apply_updates(state.params,
+                      _mask_lm_grads(updates, state.layer_mask))
+        return (state.replace(step=state.step + 1, opt_state=opt_state),
+                {"loss": loss})
+
+    @torch.no_grad()
+    def eval_step(state: TwoTowerState, batch):
+        with use_mesh(lay.mesh):
+            enc = model.encode_audio(batch["mel"])
+            return {"loss": model.loss(lay.use(state.params), enc,
+                                       batch["input_ids"],
+                                       batch["attention_mask"])}
 
     return train_step, eval_step
 

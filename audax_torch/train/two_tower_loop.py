@@ -15,7 +15,12 @@ order. SpecAugment and ``eval_note_f1``'s sampling draw from
 parity holds with augmentation off and at temperature 0). A dataset is
 anything with ``MusicDataset``'s interface: ``__len__``, ``__getitem__``
 -> ``MusicExample``, ``tokenizer``, ``start_id``, ``end_id``, ``pad_id``.
-The mesh and FSDP modes arrive with slice 11 b of the port and raise.
+
+Over a (data, model) mesh (``fit_two_tower(mesh=)``) the frozen Whisper
+tower is cut over 'model' by ``WHISPER_TP_RULES``, the adapter and the LM
+by ``CAUSAL_LM_TP_RULES`` (``fsdp=True`` also cuts them and their Adam
+moments over 'data'), and each batch's rows go over 'data' -- a batch
+whose rows the axis does not divide runs whole on every rank, as in JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ from audax_torch.models.two_tower import TwoTowerModel
 from audax_torch.models.whisper import tree_map
 from audax_torch.ops.augment import SHORT_CLIP_FREQ_WIDTH, SHORT_CLIP_TIME_WIDTH
 from audax_torch.ops.augment import spec_augment as _spec_augment
+from audax_torch.parallel.fsdp import Layout, fsdp_specs
+from audax_torch.parallel.mesh import batch_size, shard_batch, use_mesh
+from audax_torch.parallel.sharding import (CAUSAL_LM_TP_RULES,
+                                           WHISPER_TP_RULES, shard_params,
+                                           tp_specs)
 from audax_torch.symbolic.abc_parse import AbcParseError, abc_to_midi
 from audax_torch.train.metrics_sink import MetricsSink
 from audax_torch.train.two_tower import (TwoTowerState, init_two_tower_state,
@@ -181,14 +191,22 @@ def fit_two_tower(
     ``resume=True`` continues from the latest ``epoch_NNN`` checkpoint in
     ``ckpt_dir``: parameters, optimizer state (Adam moments and the plateau
     scheduler's scaled rates) and step. ``spec_augment`` masks the TRAIN
-    mels (validation and note evals stay clean)."""
-    if mesh is not None or fsdp:
-        raise NotImplementedError("fit_two_tower(mesh=/fsdp=) arrives with "
-                                  "slice 11 b of the port's parallelism")
+    mels (validation and note evals stay clean).
+
+    ``mesh`` runs the same loop on every rank of a (data, model) mesh
+    (module docstring); ``fsdp`` also cuts the trainable leaves and their
+    moments over 'data'. Checkpoints and note evals see the whole tree
+    (rank 0 writes), and the returned state is whole on every rank."""
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True needs a mesh")
     device = resolve_device(device)
     model = model._replace(
         audio_params=tree_map(lambda t: t.to(device), model.audio_params),
         params=tree_map(lambda t: t.to(device), model.params))
+    if mesh is not None:
+        model = model._replace(audio_params=shard_params(
+            model.audio_params, mesh, WHISPER_TP_RULES,
+            heads=model.audio_cfg.heads))
     cfg = model.cfg
     frontend = frontend or LogMelFrontend.whisper(model.audio_cfg.n_mels,
                                                   device=device)
@@ -212,8 +230,12 @@ def fit_two_tower(
             start_epoch = last + 1
             log.info("resumed from epoch %d", last)
 
-    train_step, eval_step = make_two_tower_step(model,
-                                                accum_steps=cfg.accum_steps)
+    lay = None
+    if mesh is not None:
+        state, lay = _onto_mesh(state, mesh, fsdp, model.lm_cfg.heads)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    train_step, eval_step = make_two_tower_step(
+        model, accum_steps=cfg.accum_steps, layout=lay)
     counts = trainable_param_counts(model, state.layer_mask)
     log.info("two-tower params: %s", {k: f"{v:,}" for k, v in counts.items()})
 
@@ -223,6 +245,18 @@ def fit_two_tower(
              if len(dataset) > 1 and val_fraction > 0 else 0)
     val_idx, train_idx = idx[:n_val], idx[n_val:]
     log.info("split: %d train / %d val", len(train_idx), len(val_idx))
+    # over a mesh the train batches split evenly over the batch axes when
+    # the split allows; one whose rows do not divide runs whole everywhere
+    n_rows = 1 if mesh is None else batch_size(mesh)
+    train_bs = cfg.batch_size
+    if n_rows > 1 and len(train_idx):
+        train_bs = max(n_rows, (min(train_bs, len(train_idx)) // n_rows)
+                       * n_rows)
+
+    def place(batch):
+        if n_rows == 1 or next(iter(batch.values())).shape[0] % n_rows:
+            return batch
+        return shard_batch(mesh, batch)
 
     history: Dict[str, list] = {"train_loss": [], "val_loss": []}
     best_val = float("inf")
@@ -234,9 +268,8 @@ def fit_two_tower(
                if spec_augment else None)
     for epoch in range(start_epoch, cfg.epochs):
         losses, log_at = [], []
-        for i, batch in enumerate(_batches(dataset, train_idx,
-                                           cfg.batch_size, frontend,
-                                           chunk_seconds,
+        for i, batch in enumerate(_batches(dataset, train_idx, train_bs,
+                                           frontend, chunk_seconds,
                                            shuffle_rng=shuffle_rng)):
             if aug_gen is not None:
                 batch["mel"] = _spec_augment(
@@ -244,7 +277,7 @@ def fit_two_tower(
                     freq_masks=sa_freq_masks,
                     max_time_width=sa_max_time_width or SHORT_CLIP_TIME_WIDTH,
                     max_freq_width=sa_max_freq_width or SHORT_CLIP_FREQ_WIDTH)
-            state, m = train_step(state, batch)
+            state, m = train_step(state, place(batch))
             losses.append(m["loss"])
             if sink and (i + 1) % log_every == 0:
                 log_at.append((i, state.step))
@@ -269,9 +302,10 @@ def fit_two_tower(
                   "val_loss": val_loss}
         if note_eval_every and (epoch + 1) % note_eval_every == 0 \
                 and len(val_idx):
-            nm = eval_note_f1(model, state, dataset,
-                              val_idx[:note_eval_samples], frontend,
-                              chunk_seconds)
+            with use_mesh(mesh):
+                nm = eval_note_f1(model, _whole(state, lay), dataset,
+                                  val_idx[:note_eval_samples], frontend,
+                                  chunk_seconds)
             record.update(nm)
             history.setdefault("note_f1", []).append(nm.get("note_f1"))
         if sink:
@@ -280,11 +314,12 @@ def fit_two_tower(
             log.info("epoch %d: train %.4f val %.4f", epoch, train_loss,
                      val_loss)
 
-        if ckpt_dir:
+        whole = _whole(state, lay) if ckpt_dir else None
+        if ckpt_dir and lead:
             # the write overlaps the next epoch; pending writes are waited
             # for before a path is pruned or rewritten, and before return
             h = save_trainable_checkpoint(
-                os.path.join(ckpt_dir, f"epoch_{epoch:03d}"), state, model,
+                os.path.join(ckpt_dir, f"epoch_{epoch:03d}"), whole, model,
                 extra={"epoch": epoch, "val_loss": val_loss}, block=False)
             epoch_handles.append((epoch, h))
             while keep_epochs and len(epoch_handles) > keep_epochs:
@@ -297,11 +332,11 @@ def fit_two_tower(
         if val_loss < best_val - 1e-6:
             best_val = val_loss
             epochs_since_improvement = 0
-            if ckpt_dir:
+            if ckpt_dir and lead:
                 if best_handle is not None:
                     best_handle.wait_until_finished()
                 best_handle = save_trainable_checkpoint(
-                    os.path.join(ckpt_dir, "best_model"), state, model,
+                    os.path.join(ckpt_dir, "best_model"), whole, model,
                     extra={"epoch": epoch, "val_loss": val_loss},
                     block=False)
         else:
@@ -316,7 +351,37 @@ def fit_two_tower(
         h.wait_until_finished()
     if best_handle is not None:
         best_handle.wait_until_finished()
-    return state, history
+    return _whole(state, lay), history
+
+
+def _onto_mesh(state: TwoTowerState, mesh, fsdp: bool, lm_heads: int):
+    """The whole state cut to this rank's blocks over ``mesh`` (the
+    adapter and LM by ``CAUSAL_LM_TP_RULES``, with ``fsdp`` also over
+    'data'; each group's moments like its parameters) and its layout."""
+    specs = (fsdp_specs(state.params, mesh, rules=CAUSAL_LM_TP_RULES,
+                        heads=lm_heads) if fsdp
+             else tp_specs(state.params, mesh, CAUSAL_LM_TP_RULES,
+                           heads=lm_heads))
+    lay = Layout(mesh, specs)
+    opt = state.opt_state
+    adam = {g: Layout(mesh, specs[g]).local_opt_state(a)
+            for g, a in opt.adam.items()}
+    return state.replace(params=lay.local(state.params, grad=True),
+                         opt_state=opt._replace(adam=adam)), lay
+
+
+def _whole(state: TwoTowerState, lay) -> TwoTowerState:
+    """``state`` with its parameters and moments whole (gathered over the
+    mesh; every rank calls this alike). Without a layout, ``state``."""
+    if lay is None:
+        return state
+    opt = state.opt_state
+    adam = {}
+    for g, a in opt.adam.items():
+        part = Layout(lay.mesh, lay.specs[g])
+        adam[g] = a._replace(mu=part.full(a.mu), nu=part.full(a.nu))
+    return state.replace(params=lay.full(state.params),
+                         opt_state=opt._replace(adam=adam))
 
 
 def music_transcription_proof(

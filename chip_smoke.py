@@ -391,7 +391,19 @@ case):
      decodes at turbo width with 10 of 20 heads a rank (the world of
      one's tokens) and, where gloo carries its collectives, trains
      Whisper-base under FSDP (data 2: a world of one cuts nothing) against
-     the whole run: losses, gathered first moments and updates;
+     the whole run: losses, gathered first moments and updates. Sequence
+     and pipeline parallelism run in the same world of two, on
+     the weights it already holds: two more worlds probe whether gloo
+     carries ``send``/``recv``/``batch_isend_irecv`` on CUDA tensors
+     (``parallel/comm.py:ring_shift`` is one ``all_to_all_single`` either
+     way); the SP encoder at turbo width on (seq 2), ring and Ulysses,
+     against ``encode``; ``finetune_whisper(sp_mesh=)`` at Whisper-base
+     against the run without a mesh; the PP encoder at turbo width over 2
+     stages; and the PP causal-LM train step at Qwen3-0.6B width against
+     the one-rank step, each with its K2/K7/K8 launches as predicted. The
+     world of one also holds ``fit_two_tower(mesh=, fsdp=True)`` at
+     music_train's widths (losses bit-equal) and
+     ``StreamingTranscriber(mesh=)`` at Whisper-base (the same text);
  10. the kernels' JSON line (``flash_forward``, ``flash_backward_dq`` and
      ``flash_backward_dkv``, the rows of ``csrc/flash_fwd.cu`` and
      ``csrc/flash_bwd.cu``, count the CUDA-core launches, the last two timed
@@ -5347,14 +5359,15 @@ BENCH_RUNS = (
       "--kv-quant", "--no-fallback", "--seconds", "30", "--runs", "1"],
      BENCH_Q4_KERNELS, {}),
     ("bench-streaming base", ["bench-streaming", "--size", "base",
-                              "--windows", "1"], BENCH_BF16_KERNELS, {}),
+                              "--streams", "8", "--windows", "1"],
+     BENCH_BF16_KERNELS, {}),
     ("bench-continuous asr base",
      ["bench-continuous", "--engine", "asr", "--size", "base",
-      "--requests", "16", "--max-new-tokens", "112"], BENCH_BF16_KERNELS,
+      "--requests", "8", "--max-new-tokens", "112"], BENCH_BF16_KERNELS,
      {}),
     ("bench-continuous music qwen3-0.6b",
      ["bench-continuous", "--engine", "music", "--lm-preset", "qwen3-0.6b",
-      "--requests", "16", "--max-new-tokens", "112"], BENCH_BF16_KERNELS,
+      "--requests", "8", "--max-new-tokens", "112"], BENCH_BF16_KERNELS,
      {}),
     ("bench-speculative base / tiny",
      ["bench-speculative", "--size", "base", "--draft-size", "tiny",
@@ -5662,6 +5675,45 @@ PARALLEL_FSDP_TOL = {"mu": 1e-4, "update": 1e-2}
 GLOO_PROBES = ("all_reduce", "all_gather", "all_gather_into_tensor",
                "reduce_scatter", "reduce_scatter_tensor",
                "all_to_all_single", "broadcast")
+#: the world of two's sequence- and pipeline-parallel cases: the SP and PP
+#: encoders and the SP fine-tune's losses against the world of one's
+#: (relative), the SP fine-tune's steps; the PP causal-LM step's depth,
+#: batch (rows, tokens), steps, its losses' relative bound and its stage
+#: slices' (JAX's ``tests/test_pp.py`` bounds)
+SP_TOL = 1e-4
+SP_FT_STEPS = 2
+PP_LM_LAYERS = 4
+PP_LM_BATCH = (4, 128)
+PP_LM_STEPS = 2
+PP_LM_TOL = {"loss": 1e-5, "atol": 5e-5, "rtol": 1e-3}
+#: the point-to-point operations probed on CUDA tensors over gloo, each in
+#: a world of two of its own (gloo may abort the process)
+P2P_PROBES = ("send_recv", "batch_isend_irecv")
+P2P_CHILD = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+name, rank, d = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=2)
+x = torch.full((1024,), float(rank + 1), device="cuda")
+y = torch.zeros_like(x)
+if name == "send_recv":
+    if rank == 0:
+        dist.send(x, 1)
+        dist.recv(y, 1)
+    else:
+        dist.recv(y, 0)
+        dist.send(x, 0)
+else:
+    ops = [dist.P2POp(dist.isend, x, 1 - rank),
+           dist.P2POp(dist.irecv, y, 1 - rank)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+torch.cuda.synchronize()
+print(json.dumps({"ok": bool((y == float(2 - rank)).all())}), flush=True)
+dist.destroy_process_group()
+"""
 PARALLEL_CHILD = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -5676,11 +5728,22 @@ def _turbo_request(np):
     return _speechlike(np.random.default_rng(34), 30.0, pitch=140.0)
 
 
-def _turbo_tp_tokens(torch, mesh):
+def _turbo_params(torch):
+    """Whisper-large-v3-turbo's config and its random float32 weights from
+    seed 32, drawn on the card."""
+    from audax_torch.core.config import WhisperConfig
+    from audax_torch.models import whisper as W
+
+    cfg = WhisperConfig.large_v3_turbo()
+    return cfg, W.init_whisper_params(
+        cfg, torch.Generator(device="cuda").manual_seed(32), device="cuda")
+
+
+def _turbo_tp_tokens(torch, mesh, params=None):
     """Greedy TP decoding of ``_turbo_request`` at Whisper-large-v3-turbo
-    width over ``mesh``'s model axis (random float32 weights from seed
-    32 drawn on the card): (tokens [1, L] as a list, seconds, launch
-    counts of the encode and decode, counted from 0)."""
+    width over ``mesh``'s model axis (``_turbo_params``' weights, or
+    ``params``, which stay whole): (tokens [1, L] as a list, seconds,
+    launch counts of the encode and decode, counted from 0)."""
     import numpy as np
 
     from audax_torch.core.config import WhisperConfig
@@ -5691,11 +5754,12 @@ def _turbo_tp_tokens(torch, mesh):
     from audax_torch.parallel.mesh import use_mesh
     from audax_torch.parallel.sharding import shard_params
 
-    cfg = WhisperConfig.large_v3_turbo()
+    if params is None:
+        cfg, params = _turbo_params(torch)
+    else:
+        cfg = WhisperConfig.large_v3_turbo()
     tok = _tokenizer(cfg.vocab_size)
-    params = W.init_whisper_params(
-        cfg, torch.Generator(device="cuda").manual_seed(32), device="cuda")
-    local = shard_params(params, mesh)
+    local = shard_params(params, mesh, heads=cfg.heads)
     del params
     fe = LogMelFrontend.whisper(cfg.n_mels, device="cuda")
     x = torch.from_numpy(_turbo_request(np)).cuda()
@@ -5772,6 +5836,146 @@ def _gloo_probe(torch, dist):
     return out
 
 
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _sp_pp_child(torch, params, cfg):
+    """The sequence- and pipeline-parallel cases of a rank of the world of
+    two: the SP encoder at turbo width on (seq 2), ring and Ulysses, and
+    the PP encoder at turbo width over 2 stages, each against ``encode``
+    on this rank; ``finetune_whisper(sp_mesh=(data 1, seq 2))`` at
+    Whisper-base in float32 for ``SP_FT_STEPS`` steps (the parent runs it
+    without a mesh); the PP causal-LM train step at Qwen3-0.6B width
+    (``PP_LM_LAYERS`` layers) for ``PP_LM_STEPS`` steps with remat,
+    against the one-rank step and the one-stage pipeline step on this
+    rank. ``params``/``cfg``: turbo's, whole. Returns {case: {errors,
+    seconds, launches, ...}}."""
+    import dataclasses
+
+    import numpy as np
+
+    from audax_torch.frontend.features import LogMelFrontend, pad_or_trim
+    from audax_torch.models import causal_lm as CL
+    from audax_torch.models import whisper as W
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.parallel.mesh import make_named_mesh
+    from audax_torch.parallel.pp import (encode_pipelined,
+                                         make_pp_lm_train_step, pp_shard)
+    from audax_torch.parallel.sp import encode_sequence_parallel
+    from audax_torch.train.finetune_loop import finetune_whisper
+    from audax_torch.train.optim import adamw, apply_updates
+    from audax_torch.train.seq2seq import seq2seq_loss_sum
+
+    sync = torch.cuda.synchronize
+    out = {}
+
+    plain = {}
+
+    def run(fn):
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        counts = launch_counts()
+        plain.update({k: c["plain"] for k, c in counts.items()
+                      if c["plain"]})
+        return res, time.perf_counter() - t0, {
+            k: c["cuda"] for k, c in counts.items() if c["cuda"]}
+
+    seq = make_named_mesh([("seq", 2)], device="cuda")
+    stage = make_named_mesh([("stage", 2)], device="cuda")
+    fe = LogMelFrontend.whisper(cfg.n_mels, device="cuda")
+    clips = [_turbo_request(np), _speechlike(np.random.default_rng(35),
+                                             30.0, pitch=180.0)]
+    mel = fe(torch.stack([pad_or_trim(torch.from_numpy(c).cuda(), 480000)
+                          for c in clips]))
+    with torch.no_grad():
+        ref = W.encode(params, cfg, mel)
+        for ring in (True, False):
+            enc, secs, counts = run(lambda: encode_sequence_parallel(
+                params, cfg, mel[:1], seq, ring=ring))
+            out["sp_ring" if ring else "sp_ulysses"] = {
+                "rel": _rel(enc, ref[:1]), "seconds": secs,
+                "counts": counts, "layers": cfg.encoder_layers}
+        enc, secs, counts = run(lambda: encode_pipelined(
+            params, cfg, mel, stage, n_micro=2))
+        out["pp_encode"] = {"rel": _rel(enc, ref), "seconds": secs,
+                            "counts": counts, "layers": cfg.encoder_layers}
+    del ref, enc
+
+    # ---- finetune_whisper(sp_mesh=), Whisper-base float32 -----------------
+    # (the run without a mesh is the parent's, on the same inputs)
+    bcfg, bparams, tok, examples, ft = _sp_finetune_inputs(torch, np)
+    ds = make_named_mesh([("data", 1), ("seq", 2)], device="cuda")
+    (_, h1), s1, c1 = run(lambda: finetune_whisper(
+        bparams, bcfg, tok, examples, ft, sp_mesh=ds, device="cuda"))
+    out["sp_finetune"] = {"losses": h1["loss"], "seconds": s1, "counts": c1,
+                          "remat": ft.gradient_checkpointing,
+                          "layers": (bcfg.encoder_layers,
+                                     bcfg.decoder_layers)}
+    del bparams, examples
+
+    # ---- the PP causal-LM train step, Qwen3-0.6B width ---------------------
+    lcfg = dataclasses.replace(CL.CausalLMConfig.qwen3_0_6b(),
+                               layers=PP_LM_LAYERS)
+    p0 = CL.init_causal_lm(lcfg, torch.Generator(device="cuda").manual_seed(
+        39), device="cuda")
+    rows, t = PP_LM_BATCH
+    toks = torch.from_numpy(np.random.default_rng(39).integers(
+        0, lcfg.vocab_size, (rows, t + 1))).cuda()
+    opt = adamw(1e-3)
+    whole = W.tree_map(lambda x: x.clone().requires_grad_(True), p0)
+    state, ref_losses = opt.init(whole), []
+    for _ in range(PP_LM_STEPS):
+        total, count = seq2seq_loss_sum(
+            CL.lm_forward(whole, lcfg, toks[:, :-1]).float(), toks[:, 1:])
+        loss = total / count.clamp_min(1)
+        grads = torch.autograd.grad(loss, W.tree_leaves(whole))
+        ref_losses.append(float(loss))
+        up, state = opt.update(W.tree_unflatten(whole, list(grads)), state,
+                               whole)
+        apply_updates(whole, up)
+    one = make_named_mesh([("stage", 1), ("data", 2)], device="cuda")
+
+    def train(mesh):
+        # a copy: the step updates in place, and the leaves no stage cuts
+        # come back from pp_shard as they are
+        params = pp_shard(W.tree_map(lambda x: x.clone(), p0), mesh)
+        step = make_pp_lm_train_step(lcfg, mesh, opt, n_micro=2, remat=True)
+        st, losses = opt.init(params), []
+        for _ in range(PP_LM_STEPS):
+            params, st, loss = step(params, st, toks)
+            losses.append(float(loss))
+        return params, losses
+
+    (local, losses), secs, counts = run(lambda: train(stage))
+    one_stage, _ = train(one)
+    del p0
+
+    def excess(ref):
+        """Each leaf's worst |diff| - rtol |ref| against ``ref`` cut to
+        this stage (allclose holds where it is at most atol)."""
+        ref = pp_shard(W.tree_map(lambda x: x.detach(), ref), stage)
+        return {path: float(((a.detach() - b).abs()
+                             - PP_LM_TOL["rtol"] * b.abs()).max())
+                for path, a, b in zip(_paths(local), W.tree_leaves(local),
+                                      W.tree_leaves(ref))}
+
+    out["pp_lm"] = {"losses": losses, "whole": ref_losses, "seconds": secs,
+                    "counts": counts, "excess": excess(one_stage),
+                    "excess_whole": excess(whole),
+                    "q_local": list(local["layers"]["q"]["kernel"].shape)}
+    del whole, local, one_stage, state
+    torch.cuda.empty_cache()
+    for o in out.values():
+        o["plain"] = plain
+    return out
+
+
 def parallel_child(rank: int, d: str) -> int:
     """One rank of the parallel phase's world of two on the one card,
     over gloo (named: NCCL refuses two ranks on one GPU): the collective
@@ -5801,11 +6005,15 @@ def parallel_child(rank: int, d: str) -> int:
                             rank=rank, world_size=2)
     out = {"backend": dist.get_backend(), "probe": _gloo_probe(torch, dist)}
     mesh = make_mesh(MeshConfig(model=2), device="cuda")
-    tokens, secs, counts = _turbo_tp_tokens(torch, mesh)
+    tcfg, tparams = _turbo_params(torch)
+    tokens, secs, counts = _turbo_tp_tokens(torch, mesh, tparams)
     out.update(tokens=tokens, seconds=secs,
                counts={k: c["cuda"] for k, c in counts.items()},
                plain={k: c["plain"] for k, c in counts.items()
                       if c["plain"]})
+    out["sp_pp"] = _sp_pp_child(torch, tparams, tcfg)
+    del tparams
+    torch.cuda.empty_cache()
     if all(out["probe"][k] == "ok" for k in ("all_gather",
                                              "reduce_scatter",
                                              "all_reduce")):
@@ -5901,6 +6109,7 @@ def parallel_phase(torch, rng, smi):
                                          MeshConfig, WhisperConfig)
     from audax_torch.data.audio_io import write_wav
     from audax_torch.infer.continuous import ContinuousBatcher
+    from audax_torch.infer.streaming import StreamingTranscriber
     from audax_torch.models import causal_lm as CL
     from audax_torch.models import whisper as W
     from audax_torch.ops import launch_counts, reset_launches
@@ -5910,6 +6119,7 @@ def parallel_phase(torch, rng, smi):
     from audax_torch.train.finetune_loop import (build_speech_dataset,
                                                  finetune_whisper)
     from audax_torch.train.lm import LMTrainConfig, fit_lm
+    from audax_torch.train.two_tower_loop import fit_two_tower
 
     t_phase = time.perf_counter()
     counts_all = []
@@ -5963,7 +6173,28 @@ def parallel_phase(torch, rng, smi):
     _check_launches(c1, FINETUNE_KERNELS[:4], "parallel finetune")
     _no_core_flash(c1, "parallel finetune")
     counts_all.append(c1)
-    del st1, params, examples
+    del st1, examples
+
+    # ---- StreamingTranscriber(mesh=), Whisper-base, one window -------------
+    window = _speechlike(rng, 30.0, pitch=150.0)
+
+    def stream(m):
+        st = StreamingTranscriber(params, cfg, tok, batch_slots=1,
+                                  max_new_tokens=24, mesh=m, device="cuda")
+        st.feed("mic", window)
+        return [s.text for s in st.drain()]
+
+    text0, ss0, _ = run(lambda: stream(None))
+    text1, ss1, cs = run(lambda: stream(mesh))
+    print(f"[parallel] StreamingTranscriber(mesh=) Whisper-base, one 30 s "
+          f"window: text {text1!r} equal to the transcriber without a mesh "
+          f"{text1 == text0}; {ss1:.2f} s vs {ss0:.2f} s; launches "
+          f"{ran(cs)} ({smi})", flush=True)
+    if text1 != text0 or not text1:
+        raise AssertionError(f"streaming under a mesh: {text1} vs {text0}")
+    _check_launches(cs, TRANSCRIBE_KERNELS, "parallel streaming")
+    counts_all.append(cs)
+    del params
 
     # ---- ContinuousBatcher(mesh=), turbo width, int8 KV --------------------
     tcfg = WhisperConfig.large_v3_turbo()
@@ -6047,11 +6278,51 @@ def parallel_phase(torch, rng, smi):
     _no_core_flash(k1, "parallel fit_lm")
     counts_all.append(k1)
     del lp
+
+    # ---- fit_two_tower(mesh=, fsdp=True), music_train's widths -------------
+    tt_model, tt_ds, tt_steps = _two_tower_case(torch, np, rng)
+    (_, th0), tt0, tk0 = run(lambda: fit_two_tower(
+        tt_model, tt_ds, chunk_seconds=10.0, device="cuda"))
+    (_, th1), tt1, tk1 = run(lambda: fit_two_tower(
+        tt_model, tt_ds, chunk_seconds=10.0, mesh=mesh, fsdp=True,
+        device="cuda"))
+    same = all(th1[k] == th0[k] for k in ("train_loss", "val_loss"))
+    print(f"[parallel] fit_two_tower(mesh=, fsdp=True) Qwen3-0.6B + "
+          f"Whisper-base, {tt_steps} steps at batch "
+          f"{tt_model.cfg.batch_size}: history {th1} bit-equal to the run "
+          f"without a mesh {th0}: {same}; {tt1:.2f} s vs {tt0:.2f} s; "
+          f"launches {ran(tk1)} ({smi})", flush=True)
+    if not same:
+        raise AssertionError(f"fit_two_tower under a mesh: {th1} vs {th0}")
+    if ran(tk1) != ran(tk0):
+        raise AssertionError(f"fit_two_tower launches {ran(tk1)} vs "
+                             f"{ran(tk0)}")
+    _check_launches(tk1, MUSIC_TRAIN_KERNELS, "parallel fit_two_tower")
+    _no_core_flash(tk1, "parallel fit_two_tower")
+    counts_all.append(tk1)
+    del tt_model, tt_ds
+
+    # ---- the world of two's SP fine-tune, without a mesh -------------------
+    bcfg, bparams, btok, bex, bft = _sp_finetune_inputs(torch, np)
+    (_, sh), ssp, _ = run(lambda: finetune_whisper(bparams, bcfg, btok, bex,
+                                                   bft, device="cuda"))
+    sp_whole = sh["loss"]
+    print(f"[parallel] the SP fine-tune's inputs without a mesh: losses "
+          f"{sp_whole} in {ssp:.2f} s ({smi})", flush=True)
+    del bparams, bex
     dist.destroy_process_group()
     torch.cuda.empty_cache()
 
     # ---- part 2: a world of two on the one card over gloo ------------------
     t0 = time.perf_counter()
+    p2p_dir = tempfile.TemporaryDirectory()
+    p2p = {name: [subprocess.Popen(
+        [sys.executable, "-c", P2P_CHILD, name, str(r),
+         os.path.join(p2p_dir.name, name)], cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)] for name in P2P_PROBES}
+    for name in P2P_PROBES:
+        os.makedirs(os.path.join(p2p_dir.name, name))
     with tempfile.TemporaryDirectory() as d:
         procs = [subprocess.Popen([sys.executable, "-c", PARALLEL_CHILD,
                                    str(ROOT), str(r), d], cwd=str(ROOT),
@@ -6077,11 +6348,32 @@ def parallel_phase(torch, rng, smi):
                 outs.append(json.load(fh))
     wall = time.perf_counter() - t0
     probe = outs[0]["probe"]
+    for name, procs in p2p.items():
+        res = []
+        for p in procs:
+            try:
+                o, e = p.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                o, e = p.communicate()
+            lines = (e or "").strip().splitlines()
+            res.append("ok" if p.returncode == 0 and '"ok": true' in o
+                       else f"exit {p.returncode}: "
+                       + ([ln for ln in lines if "what()" in ln or "Error"
+                           in ln] or lines or [""])[-1][:160])
+        probe[name] = "ok" if res == ["ok", "ok"] else "; ".join(res)
+    p2p_dir.cleanup()
     carried = [k for k, v in probe.items() if v == "ok"]
     print(f"[parallel] world of two on one card, backend "
           f"{outs[0]['backend']}: gloo carried {carried} on CUDA tensors; "
-          f"not: { {k: v for k, v in probe.items() if v != 'ok'} } ({smi})",
+          f"not: { {k: v for k, v in probe.items() if v != 'ok'} }; "
+          f"ring_shift's exchange is all_to_all_single (gloo carried it "
+          f"{probe['all_to_all_single'] == 'ok'}, point-to-point "
+          f"{all(probe[k] == 'ok' for k in P2P_PROBES)}) ({smi})",
           flush=True)
+    if probe["all_to_all_single"] != "ok":
+        raise AssertionError("gloo does not carry all_to_all_single on "
+                             "CUDA tensors: ring_shift cannot run")
     same = all(o["tokens"] == ref_tokens for o in outs)
     print(f"[parallel] generate(mesh=) turbo TP 2 over gloo: tokens equal to "
           f"the world of one {same}; {outs[0]['seconds']:.2f} s (world of "
@@ -6120,9 +6412,149 @@ def parallel_phase(torch, rng, smi):
     else:
         print("[parallel] FSDP (data 2) over gloo on one card: not run (gloo "
               "did not carry its collectives)", flush=True)
+    for o in outs:
+        got = _check_sp_pp(o["sp_pp"], sp_whole, smi)
+        counts_all.append({k: {"cuda": got.get(k, 0), "plain": 0}
+                           for k in launch_counts()})
     print(f"[parallel] phase wall {time.perf_counter() - t_phase:.2f} s "
           f"({smi})", flush=True)
     return counts_all
+
+
+def _two_tower_case(torch, np, rng):
+    """The world of one's two-tower case at music_train's widths
+    (Qwen3-0.6B + Whisper-base, the adapter's gates open, TwoTowerConfig's
+    batch and target tokens): (model, in-memory dataset of 18 melodies of
+    10 s, the epoch's train steps)."""
+    from audax_torch.cli import main as cli
+    from audax_torch.core.config import TwoTowerConfig, replace
+    from audax_torch.data.synth import _random_melody, render_midi
+    from audax_torch.models.causal_lm import CausalLMConfig
+    from audax_torch.models.two_tower import build_two_tower
+    from audax_torch.symbolic.abc import midi_to_abc
+
+    dev = torch.device("cuda")
+    tt = replace(TwoTowerConfig(), epochs=1)
+    n = 2 * tt.batch_size + 2                    # 2 steps + 1 val + 1 over
+    mfs = []
+    for _ in range(n):
+        mf, _ = _random_melody(rng, MUSIC_TRAIN_EVENTS, 100, low=48,
+                               high=84, max_poly=3)
+        mfs.append(mf.cut(10.0) if mf.duration_seconds > 10.0 else mf)
+    abcs = [midi_to_abc(m, title=f"melody_{i:03d}") for i, m in
+            enumerate(mfs)]
+    bpe = _abc_tokenizer(rng, CausalLMConfig.qwen3_0_6b().vocab_size,
+                         tunes=abcs)
+    ds = _MemoryMusic(_music_examples(np, bpe, mfs, abcs,
+                                      [render_midi(m, 16000) for m in mfs],
+                                      tt.max_target_tokens), bpe)
+    model = build_two_tower(tt, cli._whisper_preset(tt.whisper_size),
+                            cli._lm_preset(MUSIC_LM, 2048), len(bpe),
+                            torch.Generator(device=dev).manual_seed(40),
+                            device=dev)
+    g = torch.Generator(device=dev).manual_seed(41)
+    for gate in ("out", "ffn_out"):
+        k = model.params["adapter"][gate]["kernel"]
+        model.params["adapter"][gate]["kernel"] = torch.randn(
+            k.shape, generator=g, device=dev) / math.sqrt(k.shape[0])
+    n_val = max(1, int(n * 0.1))
+    return model, ds, (n - n_val) // tt.batch_size
+
+
+def _sp_finetune_inputs(torch, np):
+    """The SP fine-tune case's inputs, the same in the parent (the run
+    without a mesh) and in both children: Whisper-base from seed 36, four
+    30 s clips with their labels, ``SP_FT_STEPS`` full float32 steps at
+    B 4 with remat, no warm-up."""
+    from audax_torch.core.config import FineTuneConfig, WhisperConfig
+    from audax_torch.models import whisper as W
+
+    bcfg = WhisperConfig.base()
+    tok = _tokenizer()
+    bparams = W.init_whisper_params(bcfg, torch.Generator().manual_seed(36),
+                                    device="cuda")
+    rng = np.random.default_rng(36)
+    examples = [{"audio": _speechlike(rng, 30.0, pitch=110.0 + 20 * i),
+                 "labels": tok.sot_sequence(lang="en") + tok.encode(text)
+                 + [tok.eot], "text": text, "file": f"sp{i}"}
+                for i, text in enumerate(_transcripts(rng, tok, 4))]
+    ft = FineTuneConfig(batch_size=4, max_steps=SP_FT_STEPS, lora_rank=0,
+                        moment_dtype="float32", learning_rate=1e-4,
+                        warmup_steps=0, eval_every=10 ** 6)
+    return bcfg, bparams, tok, examples, ft
+
+
+def _sp_pp_predicted(case, o):
+    """The K2/K7/K8 launches a rank of the world of two makes in ``case``
+    of ``_sp_pp_child`` (3xTF32 bodies: float32 throughout)."""
+    if case == "sp_ring":                        # a launch per held block
+        return {"flash_forward_tf32x3": 2 * o["layers"]}
+    if case == "sp_ulysses":
+        return {"flash_forward_tf32x3": o["layers"]}
+    if case == "pp_encode":                      # 3 ticks x a stage's layers
+        return {"flash_forward_tf32x3": 3 * o["layers"] // 2}
+    if case == "sp_finetune":
+        enc, dec = o["layers"]
+        r = 2 if o["remat"] else 1              # the recompute replays K2
+        return {"flash_forward_tf32x3": SP_FT_STEPS * r * (2 * enc + 2 * dec),
+                "flash_backward_dq_tf32x3": SP_FT_STEPS * (2 * enc
+                                                           + 2 * dec),
+                "flash_backward_dkv_tf32x3": SP_FT_STEPS * (2 * enc
+                                                            + 2 * dec)}
+    ticks = 2 + 2 - 1                            # n_micro + stages - 1
+    layers = PP_LM_LAYERS // 2
+    return {"flash_forward_tf32x3": PP_LM_STEPS * 2 * ticks * layers,
+            "flash_backward_dq_tf32x3": PP_LM_STEPS * ticks * layers,
+            "flash_backward_dkv_tf32x3": PP_LM_STEPS * ticks * layers}
+
+
+def _check_sp_pp(r, sp_whole, smi):
+    """Print and hold one rank's ``_sp_pp_child`` results (``sp_whole``:
+    the SP fine-tune's losses without a mesh); returns the launches of its
+    cases, summed."""
+    total = {}
+    for case, o in r.items():
+        want = _sp_pp_predicted(case, o)
+        got = {k: o["counts"].get(k, 0) for k in want}
+        for k, v in o["counts"].items():
+            total[k] = total.get(k, 0) + v
+        if case in ("sp_ring", "sp_ulysses", "pp_encode"):
+            line = (f"max rel err vs encode {o['rel']:.3e} (tol "
+                    f"{SP_TOL:.0e})")
+            bad = not o["rel"] <= SP_TOL
+        elif case == "sp_finetune":
+            rel = max(abs(a - b) / abs(b) for a, b in zip(o["losses"],
+                                                          sp_whole))
+            line = (f"losses {o['losses']} vs without a mesh {sp_whole} "
+                    f"max rel {rel:.3e} (tol {SP_TOL:.0e})")
+            bad = not rel <= SP_TOL
+        else:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(o["losses"],
+                                                          o["whole"]))
+            ex, ew = o["excess"], o["excess_whole"]
+            worst = max(ex, key=ex.get)
+            worst_whole = max(ew, key=ew.get)
+            line = (f"losses {o['losses']} vs the one-rank step "
+                    f"{o['whole']} max rel {rel:.3e} (tol "
+                    f"{PP_LM_TOL['loss']:.0e}); every leaf of this stage "
+                    f"against the one-stage pipeline step (the same two "
+                    f"microbatches): worst |diff| - rtol |ref| "
+                    f"{ex[worst]:.3e} at {worst} (atol "
+                    f"{PP_LM_TOL['atol']:.0e}); against the one-rank step "
+                    f"{ew[worst_whole]:.3e} at {worst_whole} (not held: "
+                    f"AdamW where a first gradient is below its eps 1e-8 "
+                    f"turns the two batchings' rounding into ~0.4 lr, "
+                    f"PERF.md §6); q {o['q_local']}")
+            bad = (not rel <= PP_LM_TOL["loss"]
+                   or not ex[worst] <= PP_LM_TOL["atol"])
+        print(f"[parallel] {case} over gloo (world of two): {line}; "
+              f"{o['seconds']:.2f} s; launches {got} (predicted {want}); "
+              f"all {o['counts']} ({smi})", flush=True)
+        if bad or got != want or o["plain"]:
+            raise AssertionError(f"{case}: {o}")
+        _no_core_flash({k: {"cuda": o["counts"].get(k, 0)} for k in FLASH},
+                       case)
+    return total
 
 
 def _paths(tree, prefix=""):

@@ -9,6 +9,7 @@ JAX package in its own process.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -129,19 +130,21 @@ def tp_whisper(params, cfg, mel, tokens, labels, prompt, eos, params_big,
     return out
 
 
-def tp_lm(models, tokens, steps):
+def tp_lm(models, tokens, steps, mesh=None):
     """The causal LM under a (1 x 2) mesh: the forward and greedy
-    KV-cached decoding of each (params, cfg)."""
+    KV-cached decoding of each (params, cfg), cut by
+    ``shard_params(..., heads=cfg.heads)``."""
     from audax_torch.models.causal_lm import (embed_tokens, init_lm_cache,
                                               lm_cache_heads, lm_decode_step,
                                               lm_forward)
     from audax_torch.parallel.sharding import CAUSAL_LM_TP_RULES, shard_params
 
-    mesh = _mesh(2)
+    mesh = mesh or _mesh(2)
     tok_t = torch.from_numpy(tokens)
     out = []
     for params, cfg in models:
-        local = shard_params(params, mesh, CAUSAL_LM_TP_RULES)
+        local = shard_params(params, mesh, CAUSAL_LM_TP_RULES,
+                             heads=cfg.heads)
         with use_mesh(mesh), torch.no_grad():
             logits = lm_forward(local, cfg, tok_t)
             b = tok_t.shape[0]
@@ -311,18 +314,22 @@ def cli_world(music, runs, tiny_cfg, env, lora_draw, fit, serve):
     run(argv, run_dir)
     WhisperConfig.tiny = classmethod(lambda cls: tiny_cfg)
     os.environ.update(env)
-    for argv, run_dir in runs:
+    for argv, run_dir, *run_env in runs:
+        os.environ.update(*run_env)
         run(argv, run_dir)
     return {"codes": codes, "fit": fit_cases(**fit),
             "serve": serve_case(**serve)}
 
 
 def fit_cases(lm_params, lm_cfg, train_cfg, corpus, model_cls, data,
-              eval_data, cls_cfg):
-    """fit_lm under a (data, model) mesh with and without FSDP, and
-    fit_classifier data-parallel."""
+              eval_data, cls_cfg, two_tower):
+    """fit_lm under a (data, model) mesh with and without FSDP,
+    fit_classifier data-parallel, and fit_two_tower under the (data,
+    model) mesh with and without FSDP (``two_tower``: model, dataset,
+    keyword arguments)."""
     from audax_torch.train.lm import fit_lm
     from audax_torch.train.loops import fit_classifier
+    from audax_torch.train.two_tower_loop import fit_two_tower
 
     mesh = _mesh(2)
     out = {}
@@ -336,6 +343,13 @@ def fit_cases(lm_params, lm_cfg, train_cfg, corpus, model_cls, data,
     out["cls"] = {"train_loss": hist["train_loss"],
                   "eval_loss": [e["loss"] for e in hist["eval"]],
                   "eval_acc": [e["accuracy"] for e in hist["eval"]]}
+    tt_model, tt_data, tt_kw = two_tower
+    for fsdp in (False, True):
+        state, hist = fit_two_tower(tt_model, tt_data, mesh=mesh, fsdp=fsdp,
+                                    device="cpu", **tt_kw)
+        out[f"two_tower_fsdp{int(fsdp)}"] = {
+            "history": hist, "step": state.step,
+            "adapter_q": _np(state.params["adapter"]["q"]["kernel"])}
     return out
 
 
@@ -374,3 +388,258 @@ def serve_case(params, cfg, tok, wav_bytes, port_file):
         srv.scheduler.join()
         cb.stop()
     return text
+
+
+# --------------------------------------------------------------- SP ------
+def _ring_grads(q, k, v, do, axes, ring):
+    """Ring (or Ulysses) attention over the 'seq' axis of a mesh of
+    ``axes``: each rank's block of the output and of dq/dk/dv, gathered
+    over 'seq' in frame order."""
+    from audax_torch.parallel.comm import all_gather_cat
+    from audax_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
+                                           make_named_mesh)
+    from audax_torch.parallel.sp import ring_attention, ulysses_attention
+
+    mesh = make_named_mesh(axes, device="cpu")
+    group = axis_group(mesh, "seq")
+    n, r = axis_size(mesh, "seq"), axis_rank(mesh, "seq")
+
+    def mine(a):
+        s = a.shape[2] // n
+        return torch.from_numpy(a[:, :, r * s:(r + 1) * s]).clone()
+
+    ql, kl, vl = (mine(a).requires_grad_(True) for a in (q, k, v))
+    attend = ring_attention if ring else ulysses_attention
+    o = attend(ql, kl, vl, group=group, scale=q.shape[-1] ** -0.5)
+    o.backward(mine(do))
+    return {key: _np(all_gather_cat(t, group, 2)) for key, t in
+            (("o", o), ("dq", ql.grad), ("dk", kl.grad), ("dv", vl.grad))}
+
+
+def sp_cases(enc, long, qkv, steps, bad):
+    """The sequence-parallel cases of a world of four:
+    ``encode_sequence_parallel`` (ring and Ulysses) on (data 2, seq 2) and
+    (data 1, model 2, seq 2) meshes and on a long sequence in four blocks;
+    ring attention's output and gradients at n_seq 2 and 4; the SP
+    fine-tune step on (data 2, seq 2) for each of ``steps`` (name ->
+    (state kwargs, FineTuneConfig kwargs, ring)); the indivisible
+    sequence's error."""
+    from audax_torch.core.config import FineTuneConfig
+    from audax_torch.models.bridge import lora_from_numpy
+    from audax_torch.models.whisper import tree_map
+    from audax_torch.parallel.comm import all_gather_cat
+    from audax_torch.parallel.mesh import axis_group, make_named_mesh
+    from audax_torch.parallel.sp import (encode_sequence_parallel,
+                                         make_sp_finetune_step)
+    from audax_torch.train.seq2seq import init_finetune
+
+    out = {}
+    ds = make_named_mesh([("data", 2), ("seq", 2)], device="cpu")
+    dms = make_named_mesh([("data", 1), ("model", 2), ("seq", 2)],
+                          device="cpu")
+    params, cfg, mel = enc
+    mel = torch.from_numpy(mel)
+    with torch.no_grad():
+        for ring in (True, False):
+            e = encode_sequence_parallel(params, cfg, mel, ds, ring=ring)
+            out[("enc", "ds", ring)] = _np(all_gather_cat(
+                e, axis_group(ds, "data"), 0))
+            out[("enc", "dms", ring)] = _np(encode_sequence_parallel(
+                params, cfg, mel, dms, ring=ring))
+        params, cfg, mel = long
+        s4 = make_named_mesh([("seq", 4)], device="cpu")
+        out["long"] = _np(encode_sequence_parallel(
+            params, cfg, torch.from_numpy(mel), s4, ring=True))
+    for n_seq, axes in ((2, [("data", 2), ("seq", 2)]), (4, [("seq", 4)])):
+        for ring in (True, False):
+            out[("attn", n_seq, ring)] = _ring_grads(*qkv, axes, ring)
+    params, cfg, batch = steps["model"]
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for name, (lora, ft_kw, ring) in steps["runs"].items():
+        ft = FineTuneConfig(**ft_kw)
+        state = init_finetune(params, ft)
+        if lora is not None:
+            tr = tree_map(lambda t: t.requires_grad_(True),
+                          lora_from_numpy(lora, device="cpu"))
+            state = state.replace(trainable=tr, opt_state=state.tx.init(tr))
+        state, m = make_sp_finetune_step(cfg, ds, ft, ring=ring)(state,
+                                                                  batch)
+        out[("step", name)] = (float(m["loss"]),
+                               tree_map(_np, state.trainable))
+    params, cfg, mel = bad
+    try:
+        encode_sequence_parallel(params, cfg, torch.from_numpy(mel), ds)
+        out["bad"] = None
+    except ValueError as e:
+        out["bad"] = str(e)
+    return out
+
+
+# --------------------------------------------------------------- PP ------
+def _pp_gather(tree, mesh):
+    """A stage-cut tree whole again: every leaf under ``layers``
+    all-gathered over 'stage' on its leading axis."""
+    from audax_torch.parallel.comm import all_gather_cat
+    from audax_torch.parallel.mesh import axis_group
+    from audax_torch.parallel.sharding import map_with_path
+
+    group = axis_group(mesh, "stage")
+    return map_with_path(
+        lambda path, t: _np(all_gather_cat(t, group, 0))
+        if "layers" in path.split("/") else _np(t), tree)
+
+
+def pp_cases(enc, enc_runs, lm, tokens, mask, grad_tokens, train):
+    """The pipeline-parallel cases of a world of four: ``encode_pipelined``
+    at each (stages, n_micro) of ``enc_runs``; ``lm_forward_pipelined``
+    with and without a key-padding mask at 2 and 4 stages; the gradient of
+    the mean next-token CE at 2 stages, remat off and on (the layer leaves
+    gathered whole); the train step at 4 stages and under PP x DP on
+    (stage 2, data 2) (``train``: tokens, steps, learning rate); the
+    divisibility errors."""
+    from audax_torch.models.whisper import tree_leaves, tree_map
+    from audax_torch.parallel.mesh import make_named_mesh
+    from audax_torch.parallel.pp import (encode_pipelined,
+                                         lm_forward_pipelined,
+                                         make_pp_lm_train_step, pp_shard)
+    from audax_torch.train.optim import adamw
+
+    meshes = {2: make_named_mesh([("stage", 2), ("data", 2)], device="cpu"),
+              4: make_named_mesh([("stage", 4)], device="cpu")}
+    out = {}
+    params, cfg, mel = enc
+    mel = torch.from_numpy(mel)
+    with torch.no_grad():
+        for stages, n_micro in enc_runs:
+            b = 2 * n_micro
+            out[("enc", stages, n_micro)] = _np(encode_pipelined(
+                params, cfg, mel[:b], meshes[stages], n_micro=n_micro))
+        lm_params, lm_cfg = lm
+        tok = torch.from_numpy(tokens)
+        for stages in (2, 4):
+            local = pp_shard(lm_params, meshes[stages])
+            out[("lm", stages)] = _np(lm_forward_pipelined(
+                local, lm_cfg, tok, meshes[stages], n_micro=2))
+            out[("lm_mask", stages)] = _np(lm_forward_pipelined(
+                local, lm_cfg, tok, meshes[stages], n_micro=2,
+                attention_mask=torch.from_numpy(mask)))
+    gt = torch.from_numpy(grad_tokens).long()
+    for remat in (False, True):
+        local = tree_map(lambda t: t.clone().requires_grad_(True),
+                         pp_shard(lm_params, meshes[2]))
+        logits = lm_forward_pipelined(local, lm_cfg, gt[:, :-1], meshes[2],
+                                      n_micro=2, remat=remat)
+        ce = -torch.log_softmax(logits, -1).gather(
+            -1, gt[:, 1:, None]).mean()
+        grads = torch.autograd.grad(ce, tree_leaves(local))
+        it = iter(grads)
+        out[("grads", remat)] = _pp_gather(
+            tree_map(lambda _: next(it), local), meshes[2])
+    dp = make_named_mesh([("stage", 2), ("data", 2)], device="cpu")
+    for name, mesh, data_axis in (("pp", meshes[4], None),
+                                  ("pp_dp", dp, "data")):
+        toks, steps, lr, p0 = train[name]
+        opt = adamw(lr)
+        params_pp = tree_map(lambda t: t.clone(), pp_shard(p0, mesh))
+        state = opt.init(params_pp)
+        step = make_pp_lm_train_step(lm_cfg, mesh, opt, n_micro=2,
+                                     data_axis=data_axis, remat=True)
+        losses = []
+        for _ in range(steps):
+            params_pp, state, loss = step(params_pp, state,
+                                          torch.from_numpy(toks))
+            losses.append(float(loss))
+        out[("train", name)] = (losses, _pp_gather(params_pp, mesh),
+                                tuple(params_pp["layers"]["q"]["kernel"]
+                                      .shape))
+    errors = []
+    six = dataclasses.replace(cfg, encoder_layers=6)
+    for run in (lambda: encode_pipelined(params, six, mel[:4], meshes[4],
+                                         n_micro=2),
+                lambda: encode_pipelined(params, cfg, mel[:4], meshes[2],
+                                         n_micro=3),
+                lambda: lm_forward_pipelined(lm_params, lm_cfg, tok[:3],
+                                             meshes[2], n_micro=2)):
+        try:
+            run()
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    out["errors"] = errors
+    return out
+
+
+# ------------------------------------------------------------- C7 --------
+def tp_c7(params, cfg, mel, tokens, prompt, eos, lm_params, lm_cfg,
+          lm_tokens, steps):
+    """Tensor parallelism over (1 x 2) at a head count the model axis does
+    not divide (3 heads, ``d_model`` it does): Whisper's forward, encoder
+    states and greedy decoding, the causal LM's forward and greedy
+    KV-cached decoding, with ``shard_params(..., heads=)``; and what the
+    width cut without ``heads`` does."""
+    from audax_torch.infer.decode import generate
+    from audax_torch.models.whisper import encode, local_heads, whisper_forward
+    from audax_torch.parallel.sharding import CAUSAL_LM_TP_RULES, shard_params
+
+    mesh = _mesh(2)
+    local = shard_params(params, mesh, heads=cfg.heads)
+    out = {"q_local": tuple(
+        local["encoder"]["layers"]["attn"]["q"]["kernel"].shape),
+           "mlp_local": tuple(
+               local["encoder"]["layers"]["mlp_in"]["kernel"].shape),
+           "local_heads": local_heads(local, cfg)}
+    mel_t, tok_t = torch.from_numpy(mel), torch.from_numpy(tokens)
+    with use_mesh(mesh), torch.no_grad():
+        out["logits"] = _np(whisper_forward(local, cfg, mel_t, tok_t))
+        enc = encode(local, cfg, mel_t)
+    out["enc"] = _np(enc)
+    out["greedy"] = _np(generate(local, cfg, enc, torch.from_numpy(prompt),
+                                 max_len=12, eos_id=eos, mesh=mesh).tokens)
+    try:
+        with use_mesh(mesh), torch.no_grad():
+            encode(shard_params(params, mesh), cfg, mel_t)
+        out["width_cut"] = None
+    except (ValueError, RuntimeError) as e:
+        out["width_cut"] = type(e).__name__
+    out["lm"] = tp_lm([(lm_params, lm_cfg)], lm_tokens, steps, mesh=mesh)[0]
+    return out
+
+
+# --------------------------------------------------------- streaming -----
+def stream_mesh(params, cfg, tok, audio, slots):
+    """``StreamingTranscriber(mesh=)`` over (data 2, model 2) at each slot
+    count: every rank feeding and draining the same streams, then rank 0
+    alone driving it through ``Lockstep`` (the others follow)."""
+    from audax_torch.infer.continuous import Lockstep
+    from audax_torch.infer.streaming import StreamingTranscriber
+
+    mesh = _mesh(2)
+    out = {}
+
+    def segs(ss):
+        return [(s.stream_id, s.index, s.text, s.audio_seconds) for s in ss]
+
+    for n in slots:
+        def make():
+            return StreamingTranscriber(params, cfg, tok, batch_slots=n,
+                                        window_seconds=1.0,
+                                        max_new_tokens=6, mesh=mesh,
+                                        device="cpu")
+        st = make()
+        for sid, x in audio.items():
+            st.feed(sid, x)
+            st.flush(sid)
+        direct = segs(st.drain())
+        lk = Lockstep(make(), recorded=("feed", "flush", "remove"),
+                      run="drain")
+        if dist.get_rank() == 0:
+            for sid, x in audio.items():
+                lk.feed(sid, x)
+                lk.flush(sid)
+            lock = segs(lk.drain())
+            lk.stop()
+        else:
+            lk.follow()
+            lock = None
+        out[n] = {"direct": direct, "lockstep": lock}
+    return out

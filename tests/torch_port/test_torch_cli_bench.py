@@ -179,7 +179,17 @@ def test_bench_speculative(patched, capsys):
 def test_bench_train(patched, capsys, monkeypatch):
     from audax.train import seq2seq as JS
     from audax_torch.train import seq2seq as S
+    from audax_torch.utils import profiling as P
     losses = {"jax": [], "torch": []}
+    counted = []
+    real_count = P.step_flops
+
+    def count(*a, **k):
+        counted.append(real_count(*a, **k))
+        return counted[-1]
+    # the counted FLOPs themselves: the printed rate is rounded to 0.01
+    # TFLOP/s, which a slow CPU step rounds to 0
+    monkeypatch.setattr(P, "step_flops", count)
     real = S.make_finetune_step
 
     def port_step(*a, **k):
@@ -227,7 +237,9 @@ def test_bench_train(patched, capsys, monkeypatch):
     # one step's loss (LoRA adds zero at its init, so both agree then too)
     np.testing.assert_allclose(losses["torch"][0], losses["jax"][0],
                                rtol=TOL_LOSS)
-    assert ours["xla_counted_tflops"] > 0
+    assert len(counted) == 1 and counted[0] > 0
+    rate = ours["xla_counted_tflops"]
+    assert isinstance(rate, float) and np.isfinite(rate) and rate >= 0
 
 
 def test_bench_train_mesh_flags_raise(patched):

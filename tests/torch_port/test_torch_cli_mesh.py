@@ -60,6 +60,7 @@ from audax_torch.train.checkpoints import load_pytree
 from audax_torch.train.lm import LMTrainConfig
 
 from .mesh_world import run_world
+from .music_pair import CHUNK_S, build_pair, music_dataset
 from .test_torch_classifiers import _data, _init, _pair
 from .test_torch_cli_music import _args as _music_args
 from .test_torch_cli_music import write_music_files
@@ -73,17 +74,47 @@ LM = dict(vocab_size=96, d_model=32, layers=2, heads=4, kv_heads=2,
           ffn_dim=64)
 LM_TRAIN = dict(max_steps=3, batch_size=4, seq_len=16, eval_every=1,
                 eval_windows=2, warmup_steps=0)
+#: fit_two_tower's keyword arguments, and train-music's environment
+TT_KW = dict(chunk_seconds=CHUNK_S, val_fraction=0.25)
+MT_ENV = {"WHISPER_SIZE": "tiny", "MAX_TARGET_TOKENS": "48"}
 
 
-def _losses(run_dir):
+def _losses(run_dir, name="whisper_ft", key="loss"):
     rows = []
     with open(os.path.join(run_dir,
-                           "artifacts/runs/whisper_ft.metrics.jsonl")) as fh:
+                           f"artifacts/runs/{name}.metrics.jsonl")) as fh:
         for line in fh:
             r = json.loads(line)
-            if "loss" in r:
-                rows.append(r["loss"])
+            if key in r:
+                rows.append(r[key])
     return rows
+
+
+def _music_train_files(root):
+    """The port's data tools over six MIDI items (as
+    ``test_torch_cli_music_train.py`` runs them), and ``train-music``'s
+    arguments over their Parquet and BPE."""
+    root.mkdir()
+    old = os.getcwd()
+    os.chdir(root)
+    try:
+        for argv in (["make-midi-dataset", "--num-items", "6", "--out-dir",
+                      "gen"],
+                     ["midi2wav", "--midi-dir", "gen", "--out-dir", "wav",
+                      "--chunk-seconds", "2", "--workers", "1"],
+                     ["midi2abc", "--midi-dir", "wav", "--out-dir", "abc",
+                      "--workers", "1"],
+                     ["gentokens-bpe", "--abc-dir", "abc", "--out-dir",
+                      "bpe", "--vocab-size", "200"],
+                     ["genparquet", "--wav-dir", "wav", "--abc-dir", "abc",
+                      "--out", "music.parquet"]):
+            assert cli.main(argv) == 0
+    finally:
+        os.chdir(old)
+    return {"argv": ["train-music", "--parquet", str(root / "music.parquet"),
+                     "--tokenizer-dir", str(root / "bpe"), "--epochs", "2",
+                     "--batch-size", "2", "--chunk-seconds", "1",
+                     "--lm-size", "tiny", "--device", "cpu"]}
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +149,17 @@ def world(tmp_path_factory):
                                       "--tp", "2"], str(root / "run_tp")),
             (["finetune"] + common + ["--lora-rank", "2", "--out",
                                       str(root / "out_fsdp"), "--dp", "4",
-                                      "--fsdp"], str(root / "run_fsdp"))]
+                                      "--fsdp"], str(root / "run_fsdp")),
+            (["finetune"] + common + ["--lora-rank", "0", "--out",
+                                      str(root / "out_sp"), "--dp", "2",
+                                      "--sp", "2", "--accum-steps", "2"],
+             str(root / "run_sp"))]
+    # train-music over (data 2, model 2) with FSDP, on the port's own data
+    # tools' files; its single-device twin runs in the parent
+    music_train = _music_train_files(root / "music_train")
+    runs.append((music_train["argv"] + ["--dp", "2", "--tp", "2", "--fsdp",
+                                        "--ckpt-dir", str(root / "mt_ck")],
+                 str(root / "run_mt"), MT_ENV))
     # fit_lm and fit_classifier from the JAX draws
     jlm = JLM.init_causal_lm(JLM.CausalLMConfig(**LM), jax.random.key(0))
     lm_params = causal_lm_from_numpy(jax.tree.map(np.asarray, jlm),
@@ -130,10 +171,13 @@ def world(tmp_path_factory):
                          weight_decay=1e-4, seed=0)
     variables = _init(jm, train["x"][:15], seed=jtc.seed)
     classifier_from_numpy(variables, pm)
+    tt_data = music_dataset(n=8, seed=3)
+    jtt, ptt = build_pair(len(tt_data.tokenizer), seed=1)
     fit = dict(lm_params=lm_params, lm_cfg=CausalLMConfig(**LM),
                train_cfg=LMTrainConfig(**LM_TRAIN), corpus=corpus,
                model_cls=pm, data=train, eval_data=ev,
-               cls_cfg=ClassifierTrainConfig(**jtc.asdict()))
+               cls_cfg=ClassifierTrainConfig(**jtc.asdict()),
+               two_tower=(ptt, tt_data, TT_KW))
     # the server: a 1 s window Whisper, one request
     stok = jax_train_bpe(["hello world"] * 3, vocab_size=280)
     scfg = JaxWhisperConfig(n_mels=80, n_audio_ctx=50, d_model=32,
@@ -165,7 +209,8 @@ def world(tmp_path_factory):
     return dict(outs=outs, root=root, common=common, jcfg=jcfg, jlm=jlm,
                 corpus=corpus, jm=jm, train=train, ev=ev, jtc=jtc,
                 variables=variables, serve=(sparams, scfg, stok, wav),
-                mroot=mroot, lora_draw=lora_draw)
+                mroot=mroot, lora_draw=lora_draw, tt=(jtt, tt_data),
+                music_train=music_train)
 
 
 def _jax_finetune(world, run, lora_rank):
@@ -230,7 +275,7 @@ def _same_checkpoint(world, ref_ckpt, ours_dir):
 
 def test_commands_exit_zero(world):
     for out in world["outs"]:
-        assert out["codes"] == [0, 0, 0]
+        assert out["codes"] == [0, 0, 0, 0, 0]
 
 
 def test_infer_music_mesh_matches_jax(world, capsys, monkeypatch):
@@ -323,3 +368,67 @@ def test_mesh_larger_than_the_world_raises():
         with pytest.raises(ValueError, match="devices, only 1 present"):
             cli.main(["train-lm", "--corpus", "x", "--tokenizer-dir", "t",
                       "--device", "cpu"] + flags)
+
+
+def test_finetune_sp_accum_matches_jax(world, jax_finetune):
+    """``finetune --dp 2 --sp 2 --accum-steps 2``: the ring over the mel
+    frames, the microbatches outside it, against JAX's single-device
+    ``finetune`` (``tests/test_cli_mesh.py``'s bounds)."""
+    ref, ref_ckpt = jax_finetune
+    ours = _losses(str(world["root"] / "run_sp"))
+    assert len(ours) == len(ref) == 3
+    np.testing.assert_allclose(ours, ref, rtol=1e-3, atol=1e-5)
+    _same_checkpoint(world, ref_ckpt, str(world["root"] / "out_sp"))
+
+
+def test_finetune_sp_flag_validation():
+    """``--sp`` composes with ``--dp`` only, and an infeasible ``--dp x
+    --sp`` stops at argparse time (``tests/test_cli_mesh.py:362-380``)."""
+    for bad in (["--sp", "2", "--tp", "2"], ["--sp", "2", "--fsdp"],
+                ["--dp", "8", "--sp", "8"]):
+        with pytest.raises(SystemExit):
+            cli.main(["finetune", "--audio-dir", "/nonexistent",
+                      "--device", "cpu"] + bad)
+
+
+@pytest.mark.parametrize("fsdp", [0, 1], ids=["tp", "tp_fsdp"])
+def test_fit_two_tower_mesh_matches_jax(world, fsdp):
+    """``fit_two_tower`` over (data 2, model 2), with and without FSDP:
+    the loss history of JAX's single-device loop from the same weights
+    (``tests/test_cli_mesh.py``'s rtol 1e-3), on every rank."""
+    from audax.train import two_tower_loop as JLoop
+    jm, data = world["tt"]
+    jm = jm._replace(params=jax.tree.map(jax.numpy.copy, jm.params))
+    _, ref = JLoop.fit_two_tower(jm, data, **TT_KW)
+    for out in world["outs"]:
+        got = out["fit"][f"two_tower_fsdp{fsdp}"]
+        for key in ("train_loss", "val_loss"):
+            np.testing.assert_allclose(got["history"][key], ref[key],
+                                       rtol=1e-3, err_msg=key)
+        assert got["step"] == 2
+    np.testing.assert_array_equal(
+        world["outs"][1]["fit"][f"two_tower_fsdp{fsdp}"]["adapter_q"],
+        world["outs"][0]["fit"][f"two_tower_fsdp{fsdp}"]["adapter_q"])
+
+
+def test_train_music_mesh_matches_one_device(world, tmp_path, monkeypatch):
+    """``train-music --dp 2 --tp 2 --fsdp`` against the same command in
+    one process (the port draws the same weights from the seed; JAX's
+    own draw differs, so ``test_torch_cli_music_train.py`` holds the
+    command against JAX on its report and files): the per-epoch losses
+    and the checkpoint directories."""
+    for k, v in MT_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(WhisperConfig, "tiny",
+                        classmethod(lambda cls: WhisperConfig(**TINY)))
+    monkeypatch.chdir(tmp_path)
+    ck = tmp_path / "ck"
+    assert cli.main(world["music_train"]["argv"]
+                    + ["--ckpt-dir", str(ck)]) == 0
+    for key in ("train_loss", "val_loss"):
+        ref = _losses(str(tmp_path), "two_tower", key)
+        ours = _losses(str(world["root"] / "run_mt"), "two_tower", key)
+        assert len(ours) == len(ref) == 2
+        np.testing.assert_allclose(ours, ref, rtol=1e-4, err_msg=key)
+    assert sorted(os.listdir(world["root"] / "mt_ck")) == sorted(
+        os.listdir(ck))

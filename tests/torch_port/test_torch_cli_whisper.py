@@ -452,21 +452,23 @@ def test_stream_serve_answers_as_jax(files, monkeypatch):
 @pytest.mark.parametrize("mesh", [["--dp", "2"], ["--tp", "2"],
                                   ["--dp", "2", "--fsdp"]])
 def test_mesh_flags_raise(files, cmd, extra, mesh):
-    """``stream-serve``'s mesh is slice 11 b's; the others build one over
-    the ranks of a torchrun launch, and in one process a mesh of two
-    ranks raises before any model is loaded."""
+    """Each command builds its mesh over the ranks of a torchrun launch,
+    and in one process a mesh of two ranks raises before any model is
+    loaded."""
     extra = [e.format(wav=files["wavs"][0],
                       dir=os.path.dirname(files["wavs"][0])) for e in extra]
-    error = NotImplementedError if cmd == "stream-serve" else ValueError
-    with pytest.raises(error, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         cli.main([cmd] + extra + mesh + ["--device", "cpu"])
 
 
-def test_sequence_parallel_raises(files):
-    with pytest.raises(NotImplementedError, match="mesh"):
+def test_sequence_parallel_raises(files, capsys):
+    """``--sp 2`` in one process: the (data, seq) mesh needs two ranks,
+    and argparse says so before any checkpoint or dataset is read."""
+    with pytest.raises(SystemExit):
         cli.main(["finetune", "--audio-dir",
                   os.path.dirname(files["wavs"][0]), "--sp", "2",
                   "--device", "cpu"])
+    assert "--sp 2 needs 2 devices; 1 available" in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")

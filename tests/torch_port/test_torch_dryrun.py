@@ -1,6 +1,6 @@
 """The port's multi-rank dry run (``audax_torch/tools/dryrun_multichip.py``)
-at four CPU ranks: every stage of the data, tensor, fully-sharded and
-expert parallelism slice prints OK against its run without a mesh."""
+at four CPU ranks: every stage of the JAX package's dry run, in its order,
+prints OK against its run without a mesh."""
 
 import os
 import subprocess
@@ -9,7 +9,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 STAGES = ("EP Qwen3-MoE forward", "EP all_to_all dispatch",
-          "multi-host mesh", "DP x TP fine-tune", "accum_steps=2",
+          "PP x DP LM train step", "multi-host mesh",
+          "SP encoder (ring attention)", "PP encoder over 2 stages",
+          "SP x DP fine-tune step", "DP x TP fine-tune", "accum_steps=2",
           "FSDP (ZeRO-3", "TP decode", "DP x TP continuous batching")
 
 

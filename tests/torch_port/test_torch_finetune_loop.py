@@ -190,6 +190,6 @@ def test_entry_point_device_and_parallel_rules(setup):
     with pytest.raises(ValueError, match="needs a mesh"):
         F.finetune_whisper(params, cfg, tok, [], ft, device="cpu",
                            fsdp=True)
-    with pytest.raises(NotImplementedError, match="11 b"):
+    with pytest.raises(ValueError, match="mutually exclusive"):
         F.finetune_whisper(params, cfg, tok, [], ft, device="cpu",
-                           sp_mesh="m")
+                           sp_mesh="m", fsdp=True)

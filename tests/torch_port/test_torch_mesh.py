@@ -112,3 +112,35 @@ def test_single_process_helpers(world, monkeypatch):
     assert tuple(M.data_sharding(None, 3)) == tuple(
         JM.P("data", None, None))
     assert tuple(M.replicated(None)) == ()
+
+
+def test_named_mesh_and_ring_shift_in_a_world_of_one(mesh_of_one):
+    """``make_named_mesh`` lays out any of JAX's SP/PP axis names (one
+    size may be -1), refuses what cannot cover the world, and keeps
+    'seq'/'stage' out of the batch axes; ``ring_shift`` in a group of one
+    is the identity on a ring and zeros on a chain (JAX's ``ppermute``
+    over [(0, 0)] and [])."""
+    import torch
+
+    from audax_torch.parallel.comm import ring_shift
+    from audax_torch.parallel.mesh import (axis_group, axis_size, batch_axes,
+                                           make_named_mesh)
+
+    m = make_named_mesh([("data", -1), ("model", 1), ("seq", 1)],
+                        device="cpu")
+    assert m.mesh_dim_names == ("data", "model", "seq")
+    assert batch_axes(m) == ("data",)
+    pp = make_named_mesh([("stage", 1), ("data", 1)], device="cpu")
+    assert batch_axes(pp) == ("data",) and axis_size(pp, "stage") == 1
+    for axes, msg in ((([("seq", 2)]), "needs 2 devices, only 1"),
+                      ([("data", 1), ("data", 1)], "repeat"),
+                      ([("data", -1), ("seq", -1)], "one of them")):
+        with pytest.raises(ValueError, match=msg):
+            make_named_mesh(axes, device="cpu")
+    x = torch.arange(6.0, requires_grad=True)
+    g = axis_group(m, "seq")
+    y = ring_shift(x, g, wrap=True)
+    assert torch.equal(y, x.detach())
+    assert torch.equal(ring_shift(x, g, wrap=False), torch.zeros(6))
+    y.sum().backward()
+    assert torch.equal(x.grad, torch.ones(6))

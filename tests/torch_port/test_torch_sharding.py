@@ -11,6 +11,8 @@ the same axes serves, and its ranks pick the local blocks ``shard_params``
 cuts, which must be JAX's shards of the same arrays.
 """
 
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -188,3 +190,28 @@ def test_constrain_kv_layout_matches_jax(heads, batch):
         want = range(batch)[shard.index[1]]
         got = range(batch) if rows is None else range(batch)[rows]
         assert got == want, coords
+
+
+# ------------------------------------------- C7: heads the axis splits ------
+@pytest.mark.parametrize("heads,whole", [(3, True), (6, False)])
+def test_tp_specs_keep_attention_whole_at_indivisible_heads(heads, whole):
+    """At d_model 96 over model 2, 3 heads would be cut inside a head:
+    every attention projection stays whole (the MLP is still cut); 6
+    heads divide and take the rule tables' specs. ``heads=None`` is the
+    width-only cut."""
+    cfg = JaxWhisperConfig(n_mels=16, n_audio_ctx=8, d_model=96,
+                           encoder_layers=1, decoder_layers=1, heads=heads,
+                           vocab_size=96, n_text_ctx=8)
+    tree = params_from_numpy(jax.tree.map(
+        np.asarray, init_whisper_params(cfg, jax.random.key(0))),
+        WhisperConfig(**cfg.asdict()), device="cpu")
+    mesh = FakeMesh({"data": 1, "model": 2})
+    specs = _flat(S.tp_specs(tree, mesh, heads=heads))
+    width = _flat(S.tp_specs(tree, mesh))
+    for path, spec in specs.items():
+        attn = re.search(S.ATTENTION_LEAVES, path)
+        assert spec == (S.P() if whole and attn else width[path]), path
+    assert specs["encoder/layers/mlp_in/kernel"] == S.P(None, None, "model")
+    local = S.shard_params(tree, mesh, heads=heads)
+    q = local["decoder"]["layers"]["attn"]["q"]["kernel"]
+    assert q.shape[-1] == (96 if whole else 48)

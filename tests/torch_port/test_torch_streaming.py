@@ -27,6 +27,7 @@ from audax_torch.cli.stream_server import (OP_BINARY, OP_CLOSE, OP_TEXT,
                                            write_frame, ws_handshake_accept)
 from audax_torch.infer.streaming import StreamingTranscriber
 
+from .mesh_world import run_world
 from .whisper_pair import model, tokenizers
 
 SR = 16000
@@ -119,11 +120,56 @@ def test_vad_answers_silent_windows_without_a_pass(pair, rng):
     assert [s.text for s in st.step()] == [""] and calls == []
 
 
-def test_mesh_is_a_later_slice(pair):
-    _, st = pair(1)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        StreamingTranscriber(st.params, st.cfg, st.tokenizer, mesh="mesh",
-                             device="cpu")
+def test_mesh_is_a_later_slice(pair, rng, mesh_of_one):
+    """``StreamingTranscriber(mesh=)`` over a mesh of this one process:
+    the same segments as the transcriber without one, and JAX's."""
+    jst, st = pair(2)
+    meshed = StreamingTranscriber(st.params, st.cfg, st.tokenizer,
+                                  batch_slots=2, window_seconds=1.0,
+                                  max_new_tokens=6, mesh=mesh_of_one,
+                                  device="cpu")
+    audio = (0.05 * rng.standard_normal(int(1.5 * SR))).astype(np.float32)
+    for s in (jst, st, meshed):
+        s.feed("x", audio)
+        s.flush("x")
+    ref = _segs(jst.drain())
+    assert _segs(st.drain()) == ref and _segs(meshed.drain()) == ref
+
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    """Four ranks as (data 2, model 2): the transcriber at 2 slots (the
+    window rows over 'data') and at 3 (every rank encodes them all), each
+    run on every rank and driven from rank 0 through ``Lockstep``."""
+    jtok, tok = tokenizers()
+    jcfg, jparams, _, cfg, params = model(heads=4, seed=5)
+    rng = np.random.default_rng(11)
+    audio = {f"s{i}": (0.05 * rng.standard_normal(int(n * SR))).astype(
+        np.float32) for i, n in enumerate((2.5, 1.0, 1.7))}
+    outs = run_world(4, "tests.torch_port.mesh_cases:stream_mesh", dict(
+        params=params, cfg=cfg, tok=tok, audio=audio, slots=(2, 3)),
+        tmp_path_factory.mktemp("stream_mesh"))
+    refs = {}
+    for slots in (2, 3):
+        jst = JaxStreaming(jparams, jcfg, jtok, batch_slots=slots,
+                           window_seconds=1.0, max_new_tokens=6,
+                           backend="xla")
+        for sid, x in audio.items():
+            jst.feed(sid, x)
+            jst.flush(sid)
+        refs[slots] = _segs(jst.drain())
+    return outs, refs
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+def test_streaming_over_mesh_matches_jax(mesh_world, slots):
+    """TP 2 x DP 2: the segments (text, order, seconds) equal JAX's, on
+    every rank, and through ``Lockstep`` from rank 0."""
+    outs, refs = mesh_world
+    for r, out in enumerate(outs):
+        assert out[slots]["direct"] == refs[slots], r
+    assert outs[0][slots]["lockstep"] == refs[slots]
+    assert all(o[slots]["lockstep"] is None for o in outs[1:])
 
 
 # --------------------------------------------------------- WebSocket ----

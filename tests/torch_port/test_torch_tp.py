@@ -216,3 +216,70 @@ def test_causal_lm_tp_matches_jax(lm, i):
     # the k projection is cut over 'model' in both cases (kv_heads 1: a
     # head's width in two, as JAX's rule does)
     assert outs[0][i]["k_local"][-1] == kv // 2
+
+
+# ----------------------------------------------------------- C7 ----------
+C7 = JaxWhisperConfig(n_mels=16, n_audio_ctx=32, d_model=48,
+                      encoder_layers=1, decoder_layers=2, heads=3,
+                      vocab_size=90, n_text_ctx=32)
+C7_LM = dict(vocab_size=64, d_model=48, layers=2, heads=3, kv_heads=1,
+             ffn_dim=64, qk_norm=True, tie_embeddings=True)
+
+
+@pytest.fixture(scope="module")
+def c7(tmp_path_factory):
+    """3 heads over a model axis of 2 (d_model 48 divides, the heads do
+    not): every attention projection stays whole, the MLP is cut."""
+    rng = np.random.default_rng(7)
+    jparams = init_whisper_params(C7, jax.random.key(7))
+    cfg = WhisperConfig(**C7.asdict())
+    mel = rng.standard_normal((2, 64, 16)).astype(np.float32)
+    tokens = rng.integers(0, 90, (2, 6)).astype(np.int64)
+    prompt = np.array([[1, 5, 9]] * 2)
+    jlm_cfg = JLM.CausalLMConfig(**C7_LM)
+    jlm = JLM.init_causal_lm(jlm_cfg, jax.random.key(8))
+    lm_tokens = rng.integers(0, 64, (2, 8)).astype(np.int64)
+    outs = run_world(2, "tests.torch_port.mesh_cases:tp_c7", dict(
+        params=params_from_numpy(_np(jparams), cfg, device="cpu"), cfg=cfg,
+        mel=mel, tokens=tokens, prompt=prompt, eos=EOS,
+        lm_params=causal_lm_from_numpy(_np(jlm), CausalLMConfig(**C7_LM),
+                                       device="cpu"),
+        lm_cfg=CausalLMConfig(**C7_LM), lm_tokens=lm_tokens, steps=LM_STEPS),
+        tmp_path_factory.mktemp("tp_c7"))
+    return dict(outs=outs, jparams=jparams, mel=mel, tokens=tokens,
+                prompt=prompt, jlm=(jlm_cfg, jlm), lm_tokens=lm_tokens)
+
+
+def test_tp_indivisible_heads_match_jax(c7):
+    """Whisper's forward, encoder states and greedy tokens at 3 heads over
+    TP 2 against JAX (which runs the same whole), on both ranks."""
+    mel = jnp.asarray(c7["mel"])
+    logits = jforward(c7["jparams"], C7, mel,
+                      jnp.asarray(c7["tokens"], jnp.int32))
+    enc = jencode(c7["jparams"], C7, mel)
+    greedy = jgenerate(c7["jparams"], C7, enc,
+                       jnp.asarray(c7["prompt"], jnp.int32), max_len=12,
+                       eos_id=EOS).tokens
+    for out in c7["outs"]:
+        np.testing.assert_allclose(out["logits"], np.asarray(logits),
+                                   atol=2e-4, rtol=1e-3)
+        np.testing.assert_allclose(out["enc"], np.asarray(enc), atol=2e-4,
+                                   rtol=1e-3)
+        np.testing.assert_array_equal(out["greedy"], np.asarray(greedy))
+        assert out["q_local"] == (1, 48, 48)       # whole: all 3 heads
+        assert out["mlp_local"] == (1, 48, 96)     # cut: 192 / 2
+        assert out["local_heads"] == 3
+        # the width cut alone splits a head, which attention refuses
+        assert out["width_cut"] is not None
+
+
+def test_tp_indivisible_heads_causal_lm_matches_jax(c7):
+    jcfg, jparams = c7["jlm"]
+    tokens = c7["lm_tokens"]
+    ref = JLM.lm_forward(jparams, jcfg, jnp.asarray(tokens, jnp.int32))
+    for out in c7["outs"]:
+        np.testing.assert_allclose(out["lm"]["logits"], np.asarray(ref),
+                                   atol=2e-4, rtol=1e-3)
+        np.testing.assert_array_equal(out["lm"]["greedy"],
+                                      _jax_greedy(jparams, jcfg, tokens))
+        assert out["lm"]["k_local"] == (2, 48, 16)  # whole: the one KV head

@@ -199,7 +199,9 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.tools.make_padded_tokenizer',"
         " 'audax_torch.parallel.mesh', 'audax_torch.parallel.sharding',"
         " 'audax_torch.parallel.comm', 'audax_torch.parallel.fsdp',"
-        " 'audax_torch.parallel.ep', 'audax_torch.tools.dryrun_multichip'}\n"
+        " 'audax_torch.parallel.ep', 'audax_torch.tools.dryrun_multichip',"
+        " 'audax_torch.parallel.sp', 'audax_torch.parallel.pp',"
+        " 'audax_torch.data.pipeline'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow', 'matplotlib'))\n"

@@ -238,5 +238,7 @@ def test_eval_note_f1_matches_jax(pair, data):
 
 
 def test_mesh_raises(pair, data):
-    with pytest.raises(NotImplementedError):
-        L.fit_two_tower(pair[1], data, mesh=object(), device="cpu")
+    """FSDP without a mesh raises (the mesh runs are held in
+    ``test_torch_cli_mesh.py``'s world)."""
+    with pytest.raises(ValueError, match="needs a mesh"):
+        L.fit_two_tower(pair[1], data, fsdp=True, device="cpu")
