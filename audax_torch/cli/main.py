@@ -38,15 +38,14 @@ read_audio``); ``--soundfont`` renders through the port's SF2 synth
 (``native/``). The mesh flags ``--dp``/``--tp``/``--fsdp`` build a (data,
 model) mesh over the ranks of a ``torchrun`` launch (``_mesh_from_args``)
 for ``finetune``, ``transcribe``, ``serve``, ``stream-serve``,
-``train-cnn``, ``train-transformer``, ``train-lm``, ``train-music`` and
-``infer-music --wav-dir``; rank 0 writes the files (and answers the
-servers' clients, the other ranks following in lockstep). ``finetune --sp
-N`` builds a (data, seq) mesh instead and runs the ring-attention step
-(``parallel/sp.py``). The benches time one device and raise on the mesh
-flags. ``train-lm --moe-experts N`` pretrains a
-Qwen3-MoE-family decoder (the ragged impl, the Switch aux loss), as the
-JAX command line does. The port's own flags: ``--device`` (default the
-CUDA card; ``cpu`` runs every kernel's plain version), ``--out`` on
+``train-cnn``, ``train-transformer``, ``train-lm``, ``train-music``,
+``infer-music --wav-dir`` and ``bench-train``; rank 0 writes the files (and
+answers the servers' clients, the other ranks following in lockstep).
+``finetune --sp N`` builds a (data, seq) mesh instead and runs the
+ring-attention step (``parallel/sp.py``). ``train-lm --moe-experts N``
+pretrains a Qwen3-MoE-family decoder (the ragged impl, the Switch aux
+loss), as the JAX command line does. The port's own flags: ``--device``
+(default the CUDA card; ``cpu`` runs every kernel's plain version), ``--out`` on
 ``infer-music`` and ``train-lm`` (a JSON record of the run), ``--no-plot``
 on ``test-*`` and ``classifier-proof`` (no confusion-matrix PNG, for a host
 without matplotlib), and ``--tokenizer-dir`` on the Whisper benches (a
@@ -94,11 +93,6 @@ def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
                    help="tensor-parallel axis size")
     p.add_argument("--fsdp", action="store_true",
                    help="shard params + Adam moments over the data axis")
-
-
-def _check_no_mesh(args, why: str) -> None:
-    if args.dp or args.tp > 1 or args.fsdp:
-        raise NotImplementedError(f"--dp/--tp/--fsdp (a device mesh) {why}")
 
 
 def _world_size() -> int:
@@ -2361,7 +2355,14 @@ def cmd_bench_train(argv) -> int:
     rate: here ``FlopCounterMode`` over one step
     (``utils/profiling.py:step_flops``), which cannot see the hand-written
     kernels (the flash attention among them), as XLA's count could not see
-    inside its scan. The timed steps end with a device synchronize."""
+    inside its scan. The timed steps end with a device synchronize.
+
+    ``--dp/--tp/--fsdp`` run the step over a (data, model) mesh of the
+    ``torchrun`` ranks, as ``finetune`` does: the state cut by the TP rules
+    (and with ``--fsdp`` over 'data', ``parallel/fsdp.py:shard_state``),
+    each rank's rows of the batch (``shard_batch``), and the analytic
+    FLOPs divided by the mesh size for the per-card rate. Every rank
+    prints its line; ``xla_counted_tflops`` stays this rank's count."""
     p = argparse.ArgumentParser(prog="audax_torch bench-train")
     p.add_argument("--size", default="tiny")
     p.add_argument("--batch-size", type=int, default=16)
@@ -2378,25 +2379,30 @@ def cmd_bench_train(argv) -> int:
     _add_mesh_flags(p)
     _add_bench_model_flags(p)
     args = p.parse_args(argv)
-    _check_no_mesh(args, "are not taken by the benches, which time "
-                   "one device")
+
+    import math
 
     import numpy as np
     import torch
 
     from audax_torch.core.config import FineTuneConfig
     from audax_torch.core.runtime import resolve_device
+    from audax_torch.parallel.fsdp import shard_state
+    from audax_torch.parallel.mesh import shard_batch
     from audax_torch.train.seq2seq import (collate_seq2seq, init_finetune,
                                            make_finetune_step)
     from audax_torch.utils.flops import whisper_train_step_flops
     from audax_torch.utils.profiling import mfu, step_flops
 
     device = resolve_device(args.device)
+    mesh, fsdp = _mesh_from_args(args, device)
     params, cfg, tok = _load_whisper(args.size, "", args.tokenizer_dir,
                                      device)
     ft = FineTuneConfig(learning_rate=1e-4, warmup_steps=1, max_steps=10,
                         lora_rank=args.lora_rank)
     state = init_finetune(params, ft)
+    if mesh is not None:
+        state = shard_state(state, mesh, fsdp=fsdp, heads=cfg.heads)
     step = make_finetune_step(
         cfg, remat={"full": True, "dots": "dots", "none": False}[args.remat],
         dtype=_dtype(args.dtype))
@@ -2412,9 +2418,12 @@ def cmd_bench_train(argv) -> int:
              "decoder_input_ids": torch.from_numpy(
                  lab["decoder_input_ids"]).long().to(device),
              "labels": torch.from_numpy(lab["labels"]).long().to(device)}
+    if mesh is not None:
+        batch = shard_batch(mesh, batch, device)
     flops = whisper_train_step_flops(
         cfg, b, int(batch["decoder_input_ids"].shape[1]),
-        remat=args.remat, lora=args.lora_rank > 0)
+        remat=args.remat, lora=args.lora_rank > 0) \
+        / (math.prod(mesh.shape) if mesh is not None else 1)
 
     box = {}
 
@@ -2433,7 +2442,9 @@ def cmd_bench_train(argv) -> int:
         "lora_rank": args.lora_rank, "batch_size": b, "dtype": args.dtype,
         "value": round(b / dt, 2), "sec_per_step": round(dt, 4),
         "audio_seconds_per_sec": round(b * 30.0 / dt, 1),
-        "mesh": None, "fsdp": False, **mfu(flops, dt, peak=_peak(args.dtype)),
+        "mesh": (dict(zip(mesh.mesh_dim_names, mesh.shape))
+                 if mesh is not None else None),
+        "fsdp": bool(fsdp), **mfu(flops, dt, peak=_peak(args.dtype)),
         "xla_counted_tflops": round(counted / dt / 1e12, 2)}))
     return 0
 
@@ -2505,7 +2516,13 @@ def cmd_demo(argv) -> int:
 
 
 def main(argv=None) -> int:
+    """Run one command. A ``.env`` file in the working directory fills the
+    environment variables that are not set yet (``core/config.py:
+    load_dotenv``), which the configs' ``from_env`` then read."""
+    from audax_torch.core.config import load_dotenv
+
     argv = list(sys.argv[1:] if argv is None else argv)
+    load_dotenv()
     if not argv or argv[0] in ("-h", "--help"):
         print("audax_torch commands:\n  " + "\n  ".join(sorted(_COMMANDS)))
         return 0

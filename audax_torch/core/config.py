@@ -7,9 +7,10 @@ Whisper presets, ``UrbanSoundConfig``, the classifier configs
 (``TransformerClassifierConfig``, ``CNNClassifierConfig``,
 ``ClassifierTrainConfig``), ``WhisperConfig`` with the published tiny ..
 large-v3-turbo family, ``FineTuneConfig``, the music two-tower's
-``TwoTowerConfig`` and the synthetic MIDI datagen's ``DataGenConfig``. Field names and defaults
-match the JAX package so a config can be rebuilt from the other's
-``asdict()``.
+``TwoTowerConfig`` and the synthetic MIDI datagen's ``DataGenConfig``, and
+``load_dotenv``, the ``.env`` reader the command line calls first. Field
+names and defaults match the JAX package so a config can be rebuilt from
+the other's ``asdict()``.
 
 The JAX ``MelConfig.matmul_precision`` field is not carried: every matmul of
 the port's log-mel runs in full float32 (the port's kernels do not use TF32,
@@ -28,7 +29,35 @@ T = TypeVar("T", bound="EnvConfig")
 __all__ = ["EnvConfig", "MelConfig", "UrbanSoundConfig",
            "TransformerClassifierConfig", "CNNClassifierConfig",
            "ClassifierTrainConfig", "WhisperConfig", "FineTuneConfig",
-           "TwoTowerConfig", "DataGenConfig", "MeshConfig", "replace"]
+           "TwoTowerConfig", "DataGenConfig", "MeshConfig", "load_dotenv",
+           "replace"]
+
+
+def load_dotenv(path: str = ".env", *,
+                override: bool = False) -> Dict[str, str]:
+    """Minimal dotenv loader (KEY=VALUE lines, ``#`` comments, optional
+    quotes; a copy of ``audax/core/config.py:load_dotenv``).
+
+    Mirrors the reference's python-dotenv usage (spectrogram.py:48) without
+    the dependency. Returns the parsed mapping and (by default) only fills
+    env vars that are not already set.
+    """
+    parsed: Dict[str, str] = {}
+    if not os.path.exists(path):
+        return parsed
+    with open(path, "r", encoding="utf-8") as fh:
+        for line in fh:
+            line = line.strip()
+            if not line or line.startswith("#") or "=" not in line:
+                continue
+            key, _, value = line.partition("=")
+            key, value = key.strip(), value.strip()
+            if value and value[0] == value[-1] and value[0] in "\"'":
+                value = value[1:-1]
+            parsed[key] = value
+            if override or key not in os.environ:
+                os.environ[key] = value
+    return parsed
 
 
 def _coerce(raw: str, typ: Any) -> Any:

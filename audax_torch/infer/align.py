@@ -16,6 +16,12 @@ The attention of this pass is a plain product, as in the JAX package (its
 probabilities themselves are the output, so no kernel that keeps them in
 registers applies. The [layers/2, B, H, L, S] stack stays on the device;
 the caller copies only the rows it aligns to the host.
+
+Under tensor parallelism (the parameters cut by ``parallel/sharding.py:
+shard_params``, the mesh current) each rank runs the pass on its own heads
+with the model's TP projections, z-normalises its heads as openai-whisper
+does per head, and the heads' sums of the normalised maps and of the mass
+meet in one all-reduce over 'model' before the mean and the median filter.
 """
 
 from __future__ import annotations
@@ -27,9 +33,10 @@ import numpy as np
 import torch
 
 from audax_torch.core.config import WhisperConfig
-from audax_torch.models.quantize import embed_lookup
-from audax_torch.models.whisper import (_merge_heads, _mlp, _split_heads,
-                                        dense, layer_norm, layer_params)
+from audax_torch.models.whisper import (_col_dense, _embed, _merge_heads,
+                                        _mlp, _row_dense, _split_heads,
+                                        _width, layer_norm, layer_params)
+from audax_torch.parallel.comm import reduce_from_model, tp_active
 
 __all__ = ["WordTiming", "cross_attention_weights", "dtw_path",
            "word_timings", "merge_punctuations",
@@ -77,50 +84,67 @@ def cross_attention_weights(params, cfg: WhisperConfig, tokens: torch.Tensor,
     along frames (edge padding), and mask frames past ``n_frames`` with
     -1e9 so the DTW never walks there. ``mass`` is the head-mean softmax
     mass before normalisation. As in the JAX package the median filter
-    runs on the head-averaged matrix, not per head."""
+    runs on the head-averaged matrix, not per head. Under TP (module
+    docstring) the head means are taken after one all-reduce over
+    'model' of the two head sums."""
     p = params["decoder"]
     b, l = tokens.shape
     s = enc.shape[1]
     device = enc.device
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=device)
-    x = embed_lookup(p, tokens, dtype) + p["pos"][:l].to(dtype)
+    x = _embed(p, tokens, dtype, cfg.vocab_size) + p["pos"][:l].to(dtype)
     causal = torch.tril(torch.ones(l, l, dtype=torch.bool, device=device))
     enc = enc.to(dtype)
     frame_ok = torch.arange(s, device=device) < (s if n_frames is None
                                                  else int(n_frames))
     half = cfg.decoder_layers // 2
     hd = cfg.d_model // cfg.heads
+    # whether this rank holds a block of the heads (int4 blocks and head
+    # counts the model axis does not divide stay whole)
+    self_tp = tp_active(_width(p["layers"]["attn"]["q"]), cfg.d_model,
+                        "attention q")
+    cross_tp = tp_active(_width(p["layers"]["cross_attn"]["q"]), cfg.d_model,
+                         "cross-attention q")
     aligned = []
     for li in range(cfg.decoder_layers):
         layer = layer_params(p["layers"], li)
         h = layer_norm(layer["attn_ln"], x)
-        q = _split_heads(dense(layer["attn"]["q"], h), hd)
-        k = _split_heads(dense(layer["attn"]["k"], h), hd)
-        v = _split_heads(dense(layer["attn"]["v"], h), hd)
+        q = _split_heads(_col_dense(layer["attn"]["q"], h), hd)
+        k = _split_heads(_col_dense(layer["attn"]["k"], h), hd)
+        v = _split_heads(_col_dense(layer["attn"]["v"], h), hd)
         scale = q.shape[-1] ** -0.5
         scores = (q * scale) @ k.transpose(-1, -2)
         scores = scores.masked_fill(~causal, torch.finfo(scores.dtype).min)
         probs = torch.softmax(scores.float(), -1).to(x.dtype)
-        x = x + dense(layer["attn"]["out"], _merge_heads(probs @ v))
+        x = x + _row_dense(layer["attn"]["out"], _merge_heads(probs @ v),
+                           self_tp)
 
         h = layer_norm(layer["cross_ln"], x)
-        cq = _split_heads(dense(layer["cross_attn"]["q"], h), hd)
-        ck = _split_heads(dense(layer["cross_attn"]["k"], enc), hd)
-        cv = _split_heads(dense(layer["cross_attn"]["v"], enc), hd)
+        cq = _split_heads(_col_dense(layer["cross_attn"]["q"], h), hd)
+        ck = _split_heads(_col_dense(layer["cross_attn"]["k"], enc), hd)
+        cv = _split_heads(_col_dense(layer["cross_attn"]["v"], enc), hd)
         cscores = ((cq * cq.shape[-1] ** -0.5) @ ck.transpose(-1, -2)).float()
         cprobs = torch.softmax(cscores, -1)
-        x = x + dense(layer["cross_attn"]["out"],
-                      _merge_heads(cprobs.to(x.dtype) @ cv))
+        x = x + _row_dense(layer["cross_attn"]["out"],
+                           _merge_heads(cprobs.to(x.dtype) @ cv), cross_tp)
         x = x + _mlp(layer, layer_norm(layer["mlp_ln"], x))
         if li >= half:
             # alignment probabilities: re-softmax over the valid frames
             aligned.append(torch.softmax(
                 cscores.masked_fill(~frame_ok, float("-inf")), -1))
-    aligned = torch.stack(aligned)             # [layers - half, B, H, L, S]
-    mass = aligned.mean(dim=(0, 2))                        # [B, L, S]
+    aligned = torch.stack(aligned)             # [layers - half, B, h, L, S]
     mean = aligned.mean(dim=-2, keepdim=True)              # across tokens
     std = aligned.std(dim=-2, keepdim=True, correction=0) + 1e-9
-    w = ((aligned - mean) / std).mean(dim=(0, 2))          # head-mean
+    if cross_tp:
+        # this rank's heads summed, then summed over the ranks' heads
+        both = reduce_from_model(torch.stack([
+            aligned.sum(dim=(0, 2)),
+            ((aligned - mean) / std).sum(dim=(0, 2))]))
+        n = aligned.shape[0] * cfg.heads
+        mass, w = both[0] / n, both[1] / n
+    else:
+        mass = aligned.mean(dim=(0, 2))                    # [B, L, S]
+        w = ((aligned - mean) / std).mean(dim=(0, 2))      # head-mean
     if medfilt > 1:
         pad = medfilt // 2
         cols = (torch.arange(s, device=device)[:, None]

@@ -260,15 +260,21 @@ class _SlotEngine:
             out.extend(self.step())
         return out
 
-    def warmup(self) -> None:
+    def warmup(self, all_buckets: bool = True) -> None:
         """Serve one full admit of ``slots`` dummy requests before the first
         real one, so the first real admit and chunk meet warm kernels and
-        library heuristics. The counters are reset after."""
-        for i in range(self.slots):
+        library heuristics; ``all_buckets=False`` serves one dummy request
+        (the JAX package's single-request bucket). The counters are reset
+        after, and a sampling engine's default seed stream is left where
+        it was, so reproducible replay does not depend on the warmup."""
+        seed0 = getattr(self, "_seed_counter", None)
+        for i in range(self.slots if all_buckets else 1):
             self.submit(f"__warmup{i}__", np.zeros(16000, np.float32),
                         max_new_tokens=1)
         self.run()
         self.steps_run = self.chunks_run = 0
+        if seed0 is not None:
+            self._seed_counter = seed0
 
     # -- subclass hooks ---------------------------------------------------
     def _install(self, batch: np.ndarray, slot_ids: np.ndarray,
@@ -455,12 +461,12 @@ class ContinuousBatcher(_SlotEngine):
     def _text(self, ids) -> str:
         return self.tokenizer.decode(ids)
 
-    def warmup(self) -> None:
+    def warmup(self, all_buckets: bool = True) -> None:
         """Build the CUDA kernels (on the card), then serve the dummy
         requests of ``_SlotEngine.warmup``."""
         if self.device.type == "cuda":
             native.build()
-        super().warmup()
+        super().warmup(all_buckets)
 
 
 # ---------------------------------------------------- two-tower engine ----
@@ -629,12 +635,12 @@ class ContinuousGenerator(_SlotEngine):
             return ""
         return self.bpe.decode(ids, skip_specials=True)
 
-    def warmup(self) -> None:
+    def warmup(self, all_buckets: bool = True) -> None:
         """Build the CUDA kernels (on the card), then serve the dummy
         requests of ``_SlotEngine.warmup``."""
         if self.device.type == "cuda":
             native.build()
-        super().warmup()
+        super().warmup(all_buckets)
         self.decode_steps = 0
 
 

@@ -31,8 +31,9 @@ given (after quantizing them) by ``WHISPER_TP_RULES`` and runs every model
 call of every rank under the mesh -- the encoder and decoder on their
 heads, ``generate``/``beam_search`` with ``mesh=``. int4 blocks stay whole
 (kernel K9 runs whole on each rank; such a block's caches hold all heads).
-The speculative-draft shortcut is off under a mesh, as in JAX, and word
-timestamps raise there (their cross-attention heads are cut over ranks).
+The speculative-draft shortcut is off under a mesh, as in JAX. Word
+timestamps run the alignment pass on each rank's heads and sum the head
+maps over 'model' (``infer/align.py``).
 """
 
 from __future__ import annotations
@@ -237,9 +238,6 @@ class Transcriber:
                  append_punctuations: str = APPEND_PUNCTUATIONS,
                  seek_by_timestamps: bool = False,
                  vad_threshold_db: Optional[float] = None):
-        if mesh is not None and word_timestamps:
-            raise ValueError("word_timestamps under a mesh: the alignment "
-                             "heads' cross-attention is cut over ranks")
         if task not in ("transcribe", "translate"):
             raise ValueError(f"task must be transcribe/translate, got {task!r}")
         if best_of < 1:
@@ -428,10 +426,11 @@ class Transcriber:
         n_frames = max(1, min(n_valid_samples
                               // (2 * self.frontend.cfg.hop_length),
                               enc_row.shape[0]))
-        w, mass = cross_attention_weights(
-            self.params, self.cfg,
-            torch.tensor([toks], dtype=torch.long, device=self.device),
-            enc_row[None], n_frames=n_frames, dtype=self.dtype)
+        with use_mesh(self.mesh):
+            w, mass = cross_attention_weights(
+                self.params, self.cfg,
+                torch.tensor([toks], dtype=torch.long, device=self.device),
+                enc_row[None], n_frames=n_frames, dtype=self.dtype)
         # each token's row is the attention at its own input position
         # (openai-whisper find_alignment slicing); one host copy of them
         sl = slice(prompt_len, prompt_len + n_ids)

@@ -13,7 +13,10 @@ over the data ranks, so the optimizer update is local on the shard.
 The moments keep their own parameter's layout. The JAX package assigns
 them a spec by shape (the first parameter of each shape lends its spec), so
 under TP a moment can take another leaf's layout there and XLA reshards it
-in the update; the port's update stays local instead.
+in the update; the port's update stays local instead. Blockwise int8 first
+moments match no parameter's shape: they stay whole on every rank, as in
+JAX, and the update gathers a cut leaf's gradient for them
+(``whole_leaf``, ``train/optim.py:scale_by_adam_lp``).
 
 ``Layout`` is what a step under a mesh needs of a trainable tree's specs:
 its local blocks (``local``), the tree of whole-over-'data' tensors for the
@@ -184,17 +187,33 @@ class Layout:
 
     def local_opt_state(self, opt_state):
         """``train/optim.py:ScaleByAdamLPState`` with each moment tree cut
-        like the trainable tree. Blockwise int8 moments are laid out over
-        the flattened whole leaf and cannot be cut: they raise."""
+        like the trainable tree. Blockwise int8 first moments are laid out
+        over the flattened whole leaf: they stay whole (module
+        docstring)."""
         mu, nu = opt_state.mu, opt_state.nu
-        cut = any(axis_size(self.mesh, a) > 1 for s in self.spec_list
-                  for a in s if a is not None)
-        if cut and isinstance(mu, dict) and set(mu) == {"q", "s"} and \
-                _is_q8(mu):
-            raise NotImplementedError(
-                "int8 moments are blockwise over the whole leaf; shard "
-                "float32 or bfloat16 moments")
-        return opt_state._replace(mu=self.local(mu), nu=self.local(nu))
+        if not _is_q8(mu):
+            mu = self.local(mu)
+        return opt_state._replace(mu=mu, nu=self.local(nu))
+
+    def _cut(self, spec: P):
+        return [(d, a) for d, a in enumerate(spec)
+                if a is not None and axis_size(self.mesh, a) > 1]
+
+    def is_cut(self, i: int) -> bool:
+        """Whether leaf ``i`` (in ``tree_leaves`` order) is cut over an
+        axis of more than one rank."""
+        return bool(self._cut(self.spec_list[i]))
+
+    def whole_leaf(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i``'s blocks ``t`` all-gathered whole over every axis it
+        is cut over (no autograd)."""
+        for d, a in self._cut(self.spec_list[i]):
+            t = all_gather_cat(t, axis_group(self.mesh, a), d)
+        return t
+
+    def block_leaf(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole tensor shaped like leaf ``i``."""
+        return local_slice(t, self.spec_list[i], self.mesh)
 
     def _fsdp_dim(self, spec: P):
         for d, a in enumerate(spec):
@@ -271,9 +290,8 @@ class Layout:
         over every axis it is cut over."""
         def one(spec, leaf):
             t = leaf.detach()
-            for d, a in enumerate(spec):
-                if a is not None and axis_size(self.mesh, a) > 1:
-                    t = all_gather_cat(t, axis_group(self.mesh, a), d)
+            for d, a in self._cut(spec):
+                t = all_gather_cat(t, axis_group(self.mesh, a), d)
             return t
         return _zip_map(one, self.specs, tree)
 
@@ -285,5 +303,8 @@ def _spec_leaves(specs: Any) -> List[P]:
 
 
 def _is_q8(mu) -> bool:
+    """Whether a first-moment tree is the int8 one, ``{"q", "s"}``."""
+    if not (isinstance(mu, dict) and set(mu) == {"q", "s"}):
+        return False
     leaves = tree_leaves(mu["q"])
     return bool(leaves) and leaves[0].dtype == torch.int8

@@ -1,20 +1,27 @@
-"""Whisper tokenizer: the published special-token layout after a BPE base
-vocab (port of ``audax/symbolic/tokenizer.py:WhisperTokenizer``, own copy).
+"""Task tokenizers: the Whisper special-token layout after a BPE base vocab
+and a plain vocab tokenizer (port of ``audax/symbolic/tokenizer.py``:
+``WhisperTokenizer``, ``VocabTokenizer``; own copies).
 
 The layout (<|endoftext|>, <|startoftranscript|>, 99 language tags, task
 tags, timestamps at 0.02 s resolution) is appended after an arbitrary
 byte-level BPE base vocab: with the published vocab.json/merges.txt on disk
 the ids match OpenAI/HF checkpoints; in tests a tiny trained vocab gets the
 same structure.
+
+``VocabTokenizer`` is the simple lookup tokenizer of the raw ABC-token
+variant (a token -> id JSON, the reference's preprocess_data.py:311-361).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import json
+import os
+from typing import Dict, List, Sequence
 
 from audax_torch.symbolic.bpe import BPE
 
-__all__ = ["WhisperTokenizer", "WHISPER_LANGUAGES", "WHISPER_LANGUAGES_V3"]
+__all__ = ["WhisperTokenizer", "VocabTokenizer", "WHISPER_LANGUAGES",
+           "WHISPER_LANGUAGES_V3"]
 
 # the 99 whisper language codes in canonical id order; large-v3 appends
 # "yue" (Cantonese) as language 100, shifting every later special id by one
@@ -180,3 +187,56 @@ class WhisperTokenizer:
         if i >= self.timestamp_begin:
             return f"<|{self.timestamp_seconds(i):.2f}|>"
         return f"<|special_{i}|>"
+
+
+class VocabTokenizer:
+    """Plain token<->id lookup tokenizer over whitespace-split or
+    caller-supplied token streams (raw ABC-token mode)."""
+
+    def __init__(self, vocab: Dict[str, int], *, unk: str = "<unk>",
+                 pad: str = "<pad>", bos: str = "<s>", eos: str = "</s>"):
+        self.vocab = dict(vocab)
+        for sp in (pad, bos, eos, unk):
+            if sp not in self.vocab:
+                self.vocab[sp] = len(self.vocab)
+        self.unk, self.pad, self.bos, self.eos = unk, pad, bos, eos
+        self.id_to_token = {i: t for t, i in self.vocab.items()}
+
+    @property
+    def pad_id(self) -> int:
+        return self.vocab[self.pad]
+
+    @property
+    def bos_id(self) -> int:
+        return self.vocab[self.bos]
+
+    @property
+    def eos_id(self) -> int:
+        return self.vocab[self.eos]
+
+    def __len__(self) -> int:
+        return len(self.vocab)
+
+    def encode_tokens(self, tokens: Sequence[str]) -> List[int]:
+        unk = self.vocab[self.unk]
+        return [self.vocab.get(t, unk) for t in tokens]
+
+    def decode(self, ids: Sequence[int], *,
+               skip_special: bool = True) -> List[str]:
+        specials = {self.pad, self.bos, self.eos} if skip_special else set()
+        out = []
+        for i in ids:
+            t = self.id_to_token.get(int(i))
+            if t is not None and t not in specials:
+                out.append(t)
+        return out
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(self.vocab, fh, ensure_ascii=False, indent=0)
+
+    @classmethod
+    def load(cls, path: str) -> "VocabTokenizer":
+        with open(path) as fh:
+            return cls(json.load(fh))

@@ -163,7 +163,7 @@ def make_lm_train_step(model_cfg: CausalLMConfig, train_cfg: LMTrainConfig):
                     tree_leaves(state.params), windows, accum,
                     reduce=lay.reduce)
         grads = tree_unflatten(state.params, grads)
-        kw = {} if lay is None else {"norm": lay.norm(grads)}
+        kw = {} if lay is None else {"norm": lay.norm(grads), "layout": lay}
         updates, opt_state = state.tx.update(grads, state.opt_state,
                                              state.params, **kw)
         apply_updates(state.params, updates)

@@ -1,7 +1,8 @@
 """The optimizers: the classifiers' AdamW, and the fine-tune AdamW with
 reduced-precision moment storage and the warmup + linear-decay schedule
 (port of ``audax/train/optim.py``: ``adamw``, ``seq2seq_schedule``,
-``scale_by_adam_lp``, ``adamw_lp``, ``moment_bytes_per_param``), and the
+``scale_by_adam_lp``, ``adamw_lp``, ``moment_bytes_per_param``, and the
+two-tower recipe's ``dual_lr`` and ``reduce_on_plateau``), and the
 causal-LM pretraining's ``warmup_cosine_decay_schedule`` (optax's, which
 ``audax/train/lm.py`` uses).
 
@@ -28,6 +29,14 @@ and blow up their step. The state's ``mu`` is then ``{"q": tree of int8
 arithmetic is float32 in every mode and parameters stay float32 master
 weights.
 
+Under a mesh (``parallel/fsdp.py:Layout``) the blocks are laid out over the
+whole flattened leaf, so an int8 m stays whole and the same on every rank,
+as JAX keeps it replicated; v is cut like its parameter. For a cut leaf the
+update gathers the gradient whole, updates and re-encodes the whole m on
+every rank, and takes this rank's block of the decoded m for the
+direction: the int8 m costs its 1 + 4/256 ~ 1.016 bytes a parameter on
+every rank.
+
 The update owns its state, as JAX's donated one: it writes the moments in
 place and works one leaf at a time, so the float32 temporaries alive at
 once are of one leaf's size (the clip's scale is applied to each gradient
@@ -38,7 +47,8 @@ caller's gradients are left as they were.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
+from functools import partial
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,7 +59,9 @@ from audax_torch.models.whisper import tree_leaves, tree_map, tree_unflatten
 __all__ = ["adamw", "seq2seq_schedule", "warmup_cosine_decay_schedule",
            "scale_by_adam_lp", "adamw_lp", "GradientTransformation",
            "ScaleByAdamLPState", "apply_updates", "global_norm",
-           "clip_scale", "clip_by_global_norm", "moment_bytes_per_param"]
+           "clip_scale", "clip_by_global_norm", "moment_bytes_per_param",
+           "dual_lr", "reduce_on_plateau", "DualLRState",
+           "ReduceLROnPlateauState"]
 
 Schedule = Callable[[int], float]
 #: storage dtype of v (and of m but for "int8") per moments mode
@@ -169,30 +181,37 @@ def scale_by_adam_lp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return ScaleByAdamLPState(0, mu, tree_map(zeros, params))
 
     @torch.no_grad()
-    def leaf_update(g, m, n, c1, c2, mq=None):
+    def leaf_update(g, m, n, c1, c2, mq=None, whole=None, block=None):
         """One leaf's Adam direction (a new tensor in g's dtype); m and n,
         the leaf's stored moments, are written in place (for "int8" m is
         the pair (codes, scales) ``mq``). Every float32 temporary is of
-        this leaf's size."""
+        this leaf's size. ``whole``/``block``: for an int8 m kept whole
+        beside a cut leaf, the gradient's blocks gathered whole and this
+        rank's block of a whole tensor (module docstring)."""
         gs = g.float()
+        gm = gs if whole is None else whole(gs)
         if int8:
-            mf = [_q8_decode(mq[0], mq[1], g.shape)]
+            if mq[0].shape[0] != _blocks(gm):
+                raise ValueError(
+                    f"an int8 m of {mq[0].shape[0]} blocks beside a gradient "
+                    f"of {_blocks(gm)}: a cut leaf's update needs layout=")
+            mf = [_q8_decode(mq[0], mq[1], gm.shape)]
         else:
             mf = [m if m.dtype == torch.float32 else m.float()]
         nf = [n if n.dtype == torch.float32 else n.float()]
         # m = b1 m + (1 - b1) g ;  n = b2 n + (1 - b2) g^2: the operations
         # and their order of the whole-tree chain, one leaf at a time
         torch._foreach_mul_(mf, b1)
-        torch._foreach_add_(mf, torch._foreach_mul([gs], 1.0 - b1))
+        torch._foreach_add_(mf, torch._foreach_mul([gm], 1.0 - b1))
         sq = torch._foreach_mul([gs], [gs])
         torch._foreach_mul_(sq, 1.0 - b2)
         torch._foreach_mul_(nf, b2)
         torch._foreach_add_(nf, sq)
-        del sq, gs
+        del sq, gs, gm
         den = torch._foreach_div(nf, c2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)
-        out = torch._foreach_div(mf, c1)
+        out = torch._foreach_div(mf if block is None else [block(mf[0])], c1)
         torch._foreach_div_(out, den)
         del den
         if int8:
@@ -207,13 +226,16 @@ def scale_by_adam_lp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads, state: ScaleByAdamLPState, params=None, *,
-               grad_scale=None):
+               grad_scale=None, layout=None):
         """The directions as a new tree; the state's moments are updated
         in place (the update owns its state, as JAX's donated one) and
         returned in a state whose count is one more. ``grad_scale``, a
         pair of float32 scalar tensors (den, num), scales each gradient
         leaf by ``g / den * num`` as it is read (the clip, fused); the
-        caller's gradients are left as they were."""
+        caller's gradients are left as they were. ``layout``: the
+        ``parallel/fsdp.py:Layout`` of ``grads`` when they are this rank's
+        blocks; an int8 m is then whole (``Layout.local_opt_state``) and
+        reads each cut leaf's gradient gathered whole."""
         del params
         count = state.count + 1
         c1 = float(_f32(1) - np.power(_f32(b1), _f32(count)))
@@ -226,10 +248,15 @@ def scale_by_adam_lp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         else:
             ml = tree_leaves(state.mu)
         out = []
-        for g, m, n in zip(gl, ml, nl):
+        for i, (g, m, n) in enumerate(zip(gl, ml, nl)):
             if grad_scale is not None:
                 g = g / grad_scale[0] * grad_scale[1]
-            if int8:
+            if int8 and layout is not None and layout.is_cut(i):
+                out.append(leaf_update(
+                    g, None, n, c1, c2, mq=m,
+                    whole=partial(layout.whole_leaf, i),
+                    block=partial(layout.block_leaf, i)))
+            elif int8:
                 out.append(leaf_update(g, None, n, c1, c2, mq=m))
             else:
                 out.append(leaf_update(g, m, n, c1, c2))
@@ -283,12 +310,15 @@ def adamw_lp(learning_rate: Union[float, Schedule],
                 else (lambda _count: learning_rate))
 
     @torch.no_grad()
-    def update(grads, state: ScaleByAdamLPState, params, *, norm=None):
+    def update(grads, state: ScaleByAdamLPState, params, *, norm=None,
+               layout=None):
         """``norm``: the whole tree's global norm for the clip, when
-        ``grads`` are this rank's shards of it."""
+        ``grads`` are this rank's shards of it; ``layout``: their
+        ``Layout`` (``scale_by_adam_lp``'s update)."""
         scale = clip_scale(grads, grad_clip, norm) if grad_clip else None
         lr = float(_f32(schedule(state.count)))
-        direction, state = adam.update(grads, state, grad_scale=scale)
+        direction, state = adam.update(grads, state, grad_scale=scale,
+                                       layout=layout)
         # leaf by leaf, so the update adds no tree-sized temporary
         for d, p in zip(tree_leaves(direction), tree_leaves(params)):
             torch._foreach_add_([d], [p.detach()], alpha=weight_decay)
@@ -305,6 +335,111 @@ def adamw(learning_rate: float, weight_decay: float = 0.0,
     moments."""
     return adamw_lp(learning_rate, weight_decay, moments="float32",
                     grad_clip=grad_clip)
+
+
+class DualLRState(NamedTuple):
+    """Each group's AdamW state, over that group's leaves (in the order of
+    ``tree_leaves``) as a flat ``{index: tensor}`` tree."""
+    groups: Dict[str, ScaleByAdamLPState]
+
+
+def dual_lr(label_fn, lrs: Dict[str, float], *,
+            grad_clip: Optional[float] = None,
+            frozen_label: str = "frozen") -> GradientTransformation:
+    """Per-group learning rates, ``optax.multi_transform``'s semantics (the
+    functional equivalent of torch param groups + requires_grad=False):
+    ``label_fn`` maps the parameter tree to a tree of group labels (or is
+    that tree); each group in ``lrs`` takes its own ``optax.adamw(lr)``
+    (weight decay 1e-4 on every leaf, float32 moments) over its leaves,
+    and leaves labelled ``frozen_label`` get zero updates. ``grad_clip``
+    clips the whole tree by its global norm first, the frozen leaves'
+    gradients included, as ``optax.chain(clip_by_global_norm, tx)``."""
+    groups = {name: adamw(lr, weight_decay=1e-4) for name, lr in lrs.items()}
+
+    def labels(params):
+        return tree_leaves(label_fn(params) if callable(label_fn)
+                           else label_fn)
+
+    def split(tree, names):
+        leaves = tree_leaves(tree)
+        return {g: {str(i): leaves[i] for i, n in enumerate(names) if n == g}
+                for g in groups}
+
+    def init(params) -> DualLRState:
+        names = labels(params)
+        unknown = set(names) - set(groups) - {frozen_label}
+        if unknown:
+            raise ValueError(f"labels {sorted(unknown)} have no rate in lrs "
+                             f"and are not {frozen_label!r}")
+        parts = split(params, names)
+        return DualLRState({g: tx.init(parts[g]) for g, tx in groups.items()})
+
+    @torch.no_grad()
+    def update(grads, state: DualLRState, params):
+        names = labels(params)
+        if grad_clip:
+            grads = clip_by_global_norm(grads, grad_clip)
+        gparts, pparts = split(grads, names), split(params, names)
+        out = [torch.zeros_like(g) for g in tree_leaves(grads)]
+        new = {}
+        for g, tx in groups.items():
+            upd, new[g] = tx.update(gparts[g], state.groups[g], pparts[g])
+            for i, u in upd.items():
+                out[int(i)] = u
+        return tree_unflatten(grads, out), DualLRState(new)
+
+    return GradientTransformation(init, update)
+
+
+class ReduceLROnPlateauState(NamedTuple):
+    """``optax.contrib.ReduceLROnPlateauState`` on the host, at optax's
+    default cooldown (none) and accumulation size (one value a decision):
+    the float32 scale and best value, and the calls since an
+    improvement."""
+    scale: np.float32
+    best_value: np.float32
+    plateau_count: int
+
+
+#: ``optax.contrib.reduce_on_plateau``'s default rtol (its atol is 0)
+_PLATEAU_RTOL = 1e-4
+
+
+def reduce_on_plateau(patience: int = 2, factor: float = 0.5,
+                      min_scale: float = 1e-3) -> GradientTransformation:
+    """ReduceLROnPlateau (reference: music2midi/train.py:467,524), the state
+    machine of ``optax.contrib.reduce_on_plateau`` at the JAX package's
+    patience, factor and min_scale and optax's defaults for the rest (rtol
+    1e-4, atol 0, no cooldown, one value a decision). ``update(updates,
+    state, params=None, *, value)``: a ``value`` (a validation loss) below
+    ``(1 - rtol) * best`` is an improvement, and ``patience`` calls
+    without one scale the updates by ``factor`` (down to ``min_scale``).
+    Every call returns the updates times the current scale. Arithmetic in
+    float32, as optax's."""
+    if not 0.0 < factor < 1.0:
+        raise ValueError(f"Factor must be in the range (0, 1), got factor "
+                         f"= {factor}.")
+
+    def init(params=None) -> ReduceLROnPlateauState:
+        del params
+        return ReduceLROnPlateauState(_f32(1.0), _f32(np.inf), 0)
+
+    @torch.no_grad()
+    def update(updates, state: ReduceLROnPlateauState, params=None, *,
+               value):
+        del params
+        value = _f32(value)
+        improved = bool(value < _f32(1 - _PLATEAU_RTOL) * state.best_value)
+        plateau = 0 if improved else state.plateau_count + 1
+        hit = plateau == patience
+        scale = np.maximum(state.scale * _f32(factor) if hit
+                           else state.scale, _f32(min_scale))
+        state = ReduceLROnPlateauState(
+            _f32(scale), value if improved else state.best_value,
+            0 if hit else plateau)
+        return tree_map(lambda g: g * float(state.scale), updates), state
+
+    return GradientTransformation(init, update)
 
 
 @torch.no_grad()

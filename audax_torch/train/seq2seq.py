@@ -243,7 +243,7 @@ def make_finetune_step(model_cfg: WhisperConfig, *, remat=True,
         grads, loss = (grads_and_loss if lay is None
                        else mesh_grads_and_loss)(state, batch)
         grads = tree_unflatten(state.trainable, grads)
-        kw = {} if lay is None else {"norm": lay.norm(grads)}
+        kw = {} if lay is None else {"norm": lay.norm(grads), "layout": lay}
         updates, opt_state = state.tx.update(grads, state.opt_state,
                                              state.trainable, **kw)
         apply_updates(state.trainable, updates)

@@ -281,9 +281,10 @@ case):
      checkpoint: ``--wav`` on one 10 s synthetic clip with ``--prompt``,
      ``--wav-dir`` on six clips over four slots. Each run must launch K1
      (FFT body), K2 (3xTF32 body) and K3 (sm90 body, 28 a decode step
-     exactly) and no plain version; each request's tokens must equal the
-     CPU path's teacher-forced argmax over the allowed ids up to the first
-     near-tie (``TOL_MUSIC_TIE``). Prints wall, ms a step, tokens/s and
+     exactly) and no plain version; the tokens of the first
+     ``MUSIC_HOLD_REQUESTS`` requests (the ``--wav`` clip's, then the
+     last ``--wav-dir`` ones', admitted into freed slots) must equal the CPU path's teacher-forced argmax
+     over the allowed ids up to the first near-tie (``TOL_MUSIC_TIE``). Prints wall, ms a step, tokens/s and
      launches a step with the card's name and power limit;
  9c. music_train -- the music training path at Qwen3-0.6B + Whisper-base
      width, float32: 24 in-memory 10 s examples from the ported MIDI
@@ -295,7 +296,7 @@ case):
      ``eval_note_f1`` on 4 examples at ``max_len`` 64 (K1, K2, K3), two
      more steps timed (step ms, tokens/s, peak memory, launches a step),
      the frozen layers bit-identical after the epoch, and one step at batch
-     1 and ``HOLD_TOKENS`` (64) tokens held against the CPU path (loss within
+     1 and ``HOLD_TOKENS`` (32) tokens held against the CPU path (loss within
      ``TOL_STEP_LOSS``, the adapter's and the top layer's gradients within
      ``TOL_STEP_GRAD`` of each leaf's largest); then ``train-lm --lm-size
      qwen3-0.6b`` through ``cli.main.main`` for 3 steps at batch 32 x 256
@@ -2190,21 +2191,28 @@ def k9_trap_cases(torch):
     one in-range K9 call here and holds it against its plain version."""
     from audax_torch.ops import int4_matmul as i4
 
-    for body in ("mma", "split"):
-        t0 = time.perf_counter()
-        child = subprocess.run([sys.executable, "-c", K9_TRAP_CHILD, body,
-                                str(ROOT)], capture_output=True, text=True,
-                               timeout=600, cwd=str(ROOT))
-        err = [ln for ln in child.stderr.splitlines()
-               if "cuda error" in ln.lower()]
+    # both children at once: each process's start is most of its time
+    t0 = time.perf_counter()
+    children = {body: subprocess.Popen(
+        [sys.executable, "-c", K9_TRAP_CHILD, body, str(ROOT)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT)) for body in ("mma", "split")}
+    for body, child in children.items():
+        try:
+            out, stderr = child.communicate(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        err = [ln for ln in stderr.splitlines() if "cuda error" in ln.lower()]
         print(f"[k9_trap] {body} body, device index L = 4 into a stack of "
               f"4: child exit {child.returncode} in "
-              f"{time.perf_counter() - t0:.1f} s; {err[-1] if err else ''}"
-              f"{child.stdout.strip()}", flush=True)
+              f"{time.perf_counter() - t0:.1f} s (both children at once); "
+              f"{err[-1] if err else ''}{out.strip()}", flush=True)
         if child.returncode == 0 or not err:
             raise AssertionError(f"K9 {body} body with an index out of range:"
                                  f" exit {child.returncode}, stderr "
-                                 f"{child.stderr[-2000:]}")
+                                 f"{stderr[-2000:]}")
     g = torch.Generator(device="cuda").manual_seed(5)
     q, s = i4.quantize_int4(torch.randn(4, 2048, 768, device="cuda",
                                         generator=g) / 2048 ** 0.5)
@@ -3770,6 +3778,10 @@ MUSIC_PROMPT = "X:1\nK:D\n"
 MUSIC_LM = "qwen3-0.6b"
 #: infer-music's --max-tokens in the music phase
 MUSIC_MAX_TOKENS = 64
+#: the requests whose card tokens the CPU holds at full width (the --wav
+#: clip and the last --wav-dir ones, admitted into slots freed mid-flight;
+#: each one teacher-forced forward on the chip machine's CPU)
+MUSIC_HOLD_REQUESTS = 3
 
 
 def _abc_tunes(rng, n):
@@ -4044,7 +4056,9 @@ def music_phase(torch, rng, smi):
         seqs = [("--wav clip.wav", wav,
                  runs["--wav"]["requests"][0]["all_tokens"][
                      : runs["--wav"]["decode_steps"] + 1], p_len)]
-        for r in runs["--wav-dir"]["requests"]:
+        # the clips are submitted in file order over four slots, so
+        # the last ones are admitted into slots that others freed
+        for r in runs["--wav-dir"]["requests"][1 - MUSIC_HOLD_REQUESTS:]:
             seq = [start] + r["tokens"]
             if len(r["tokens"]) < MUSIC_MAX_TOKENS - 1:     # ended itself
                 seq.append(end)
@@ -4106,7 +4120,7 @@ LM_TRAIN_KERNELS = {"float32": ("flash_forward_tf32x3",
 #: events (chords of up to 3 notes) cut to the window
 MUSIC_TRAIN_ITEMS = 24
 #: tokens of the music_train phase's card-vs-CPU steps (two-tower and LM)
-HOLD_TOKENS = 64
+HOLD_TOKENS = 32
 MUSIC_TRAIN_EVENTS = 14
 
 
@@ -5610,7 +5624,8 @@ def bench_phase(torch, rng, smi):
     published widths (random weights from seeds; the Whisper benches with a
     tokenizer of the published 51,865/51,866-token layout), the ``demo``
     round trip at Whisper-tiny, and the host libraries (a g++ and libav
-    probe, the SF2 synth). Returns the launch counts of every run."""
+    probe, the SF2 synth). Returns the launch counts of every run, and each
+    bench's (JSON line, counts) by its ``BENCH_RUNS`` label."""
     import os
     import tempfile
 
@@ -5625,7 +5640,7 @@ def bench_phase(torch, rng, smi):
             rec, secs, counts = _run_bench(torch, argv, kernels, label,
                                            tokdir)
             all_counts.append(counts)
-            records[label] = rec
+            records[label] = (rec, counts)
             print(f"[bench] {label}: {secs:.2f} s ({smi})", flush=True)
             off = {k: (counts[k]["cuda"], n) for k, n in predicted.items()
                    if counts[k]["cuda"] != n}
@@ -5653,7 +5668,7 @@ def bench_phase(torch, rng, smi):
         all_counts.append(_demo_round_trip(torch, rng, d, smi))
     print(f"[bench] phase wall {time.perf_counter() - t_phase:.2f} s "
           f"({smi})", flush=True)
-    return all_counts
+    return all_counts, records
 
 
 #: the parallel phase's fine-tune and LM runs: steps, the LM's depth
@@ -5668,9 +5683,11 @@ PARALLEL_TOKENS = 12
 #: the world of two's FSDP (data 2) Whisper-base run: steps, and the
 #: bounds on its gathered first moments and updates (each leaf's norm of
 #: the difference over the whole run's; a sign flipped by rounding where a
-#: gradient is ~0 moves an update by 2 lr, hence the looser one)
+#: gradient is ~0 moves an update by 2 lr, hence the looser one) and, with
+#: int8 moments, on the share of the last step's codes that rounding
+#: moved (``mesh_world.hold_int8_tree``'s 1 in 1,000)
 PARALLEL_FSDP_STEPS = 2
-PARALLEL_FSDP_TOL = {"mu": 1e-4, "update": 1e-2}
+PARALLEL_FSDP_TOL = {"mu": 1e-4, "update": 1e-2, "codes": 1e-3}
 #: the collectives the world of two probes on CUDA tensors over gloo
 GLOO_PROBES = ("all_reduce", "all_gather", "all_gather_into_tensor",
                "reduce_scatter", "reduce_scatter_tensor",
@@ -5686,6 +5703,23 @@ PP_LM_LAYERS = 4
 PP_LM_BATCH = (4, 128)
 PP_LM_STEPS = 2
 PP_LM_TOL = {"loss": 1e-5, "atol": 5e-5, "rtol": 1e-3}
+#: C8: bench-train over a mesh. The world of one's run is the
+#: ``BENCH_RUNS`` base bf16 line's (full fine-tune, B 16, 5 steps) with
+#: ``--dp 1 --fsdp``; each child of the world of two runs Whisper-tiny LoRA
+#: 8 in float32 over ``--dp 2``, its launches a rank (K2 twice a site a step
+#: under full remat, K7 and K8 once; 12 sites, 1 + 2 steps)
+PARALLEL_BENCH_ARGV = ["bench-train", "--size", "base", "--dtype",
+                       "bfloat16", "--lora-rank", "0", "--dp", "1", "--fsdp",
+                       "--batch-size", "16", "--steps", "5"]
+PARALLEL_BENCH_LINE = "bench-train base bf16 full"
+CHILD_BENCH_ARGV = ["bench-train", "--dp", "2", "--size", "tiny",
+                    "--lora-rank", "8", "--steps", "2"]
+CHILD_BENCH_LAUNCHES = {"flash_forward_tf32x3": 72,
+                        "flash_backward_dq_tf32x3": 36,
+                        "flash_backward_dkv_tf32x3": 36}
+#: C9: the turbo TP 2 clip's word times against the run without a mesh
+#: (one encoder frame)
+WORD_TIME_TOL = 0.02
 #: the point-to-point operations probed on CUDA tensors over gloo, each in
 #: a world of two of its own (gloo may abort the process)
 P2P_PROBES = ("send_recv", "batch_isend_irecv")
@@ -5774,6 +5808,191 @@ def _turbo_tp_tokens(torch, mesh, params=None):
     torch.cuda.synchronize()
     return (res.tokens[0].tolist(), time.perf_counter() - t0,
             launch_counts())
+
+
+def _turbo_words(torch, mesh, params):
+    """Word timestamps of ``_turbo_request`` at Whisper-large-v3-turbo width
+    through ``Transcriber(word_timestamps=True, mesh=)`` (``params`` whole;
+    the Transcriber cuts them over ``mesh``'s model axis), greedy,
+    ``PARALLEL_TOKENS`` tokens: ([(word, start, end)], seconds, launch
+    counts of the call, counted from 0)."""
+    import numpy as np
+
+    from audax_torch.core.config import WhisperConfig
+    from audax_torch.infer.transcribe import Transcriber
+    from audax_torch.ops import launch_counts, reset_launches
+
+    cfg = WhisperConfig.large_v3_turbo()
+    tr = Transcriber(params, cfg, _tokenizer(cfg.vocab_size),
+                     word_timestamps=True, mesh=mesh,
+                     max_new_tokens=PARALLEL_TOKENS,
+                     temperature_fallback=False, device="cuda")
+    x = _turbo_request(np)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = tr.transcribe(x)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del tr
+    return ([(w.word, w.start, w.end) for seg in res.segments
+             for w in (seg.words or [])], secs, launch_counts())
+
+
+def _bench_child(torch, tokdir):
+    """``CHILD_BENCH_ARGV`` through ``cli.main`` on this rank: its exit
+    code, JSON line, seconds (host clock ending in a synchronize) and
+    launch counts, counted from 0."""
+    import contextlib
+    import io
+
+    from audax_torch.cli import main as cli
+    from audax_torch.ops import launch_counts, reset_launches
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(CHILD_BENCH_ARGV + ["--tokenizer-dir", tokdir])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    return {"rc": rc, "rec": json.loads(lines[-1]) if lines else None,
+            "seconds": secs,
+            "counts": {k: c["cuda"] for k, c in launch_counts().items()},
+            "plain": {k: c["plain"] for k, c in launch_counts().items()
+                      if c["plain"]}}
+
+
+def _fsdp_case(torch, params, cfg, batch, moments):
+    """``PARALLEL_FSDP_STEPS`` Whisper-base steps whole and in the ZeRO-3
+    layout over (data 2) with ``moments``: the losses, seconds and launches
+    of the FSDP run, its first moments and updates against the whole run's
+    (each leaf's norm of the difference over the whole run's; int8 first
+    moments, whole on every rank: their scales so, and their codes by how
+    many moved and how far) and the bytes of each moment tree a rank."""
+    from audax_torch.core.config import FineTuneConfig, MeshConfig
+    from audax_torch.models import whisper as W
+    from audax_torch.ops import launch_counts, reset_launches
+    from audax_torch.parallel.fsdp import fsdp_shard_state
+    from audax_torch.parallel.mesh import make_mesh, shard_batch
+    from audax_torch.train.seq2seq import init_finetune, make_finetune_step
+
+    ft = FineTuneConfig(lora_rank=0, moment_dtype=moments,
+                        learning_rate=1e-4, warmup_steps=0)
+    step = make_finetune_step(cfg, remat=True)
+    int8 = moments == "int8"
+
+    def codes(state):
+        """The int8 first moments after a step: (codes, scales) a leaf."""
+        mu = state.opt_state.mu
+        return [(q.clone(), s.clone()) for q, s in zip(
+            W.tree_leaves(mu["q"]), W.tree_leaves(mu["s"]))]
+
+    whole, wl, wsnap = init_finetune(params, ft), [], []
+    for _ in range(PARALLEL_FSDP_STEPS):
+        whole, m = step(whole, batch)
+        wl.append(float(m["loss"]))
+        if int8:
+            wsnap.append(codes(whole))
+    dmesh = make_mesh(MeshConfig(data=2), device="cuda")
+    st, fl, fsnap = fsdp_shard_state(init_finetune(params, ft), dmesh), [], []
+    local = shard_batch(dmesh, batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(PARALLEL_FSDP_STEPS):
+        st, m = step(st, local)
+        fl.append(float(m["loss"]))
+        if int8:
+            fsnap.append(codes(st))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: c["cuda"] for k, c in launch_counts().items()}
+    plain = {k: c["plain"] for k, c in launch_counts().items() if c["plain"]}
+    # the trained tree and the first moments (the averaged, clipped
+    # gradients: Adam's direction is blind to their scale), gathered
+    # whole, against the whole run's; each leaf's update p - p0 and
+    # moment by the norm of its difference over the whole run's
+    cut = sum(any(a is not None for a in s) for s in st.layout.spec_list)
+    leaves = W.tree_leaves
+
+    @torch.no_grad()
+    def rel(a, b):
+        return max(float((x.float() - y.float()).norm()
+                         / y.float().norm().clamp_min(1e-30))
+                   for x, y in zip(a, b))
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+    out = {"losses": fl, "whole": wl, "seconds": secs, "cut": cut,
+           "leaves": len(st.layout.spec_list), "counts": counts,
+           "plain": plain,
+           "mu_bytes": nbytes(st.opt_state.mu),
+           "nu_bytes": nbytes(st.opt_state.nu),
+           "params": sum(t.numel() for t in leaves(params))}
+    with torch.no_grad():
+        p0 = leaves(params)
+        upd = [x - y for x, y in zip(leaves(st.layout.full(st.trainable)),
+                                     p0)]
+        upd_whole = [x - y for x, y in zip(leaves(whole.trainable), p0)]
+        out["update_rel"] = rel(upd, upd_whole)
+        if int8:
+            out.update(_int8_moments(torch, fsnap, wsnap))
+        else:
+            out["mu_rel"] = rel(leaves(st.layout.full(st.opt_state.mu)),
+                                leaves(whole.opt_state.mu))
+    del whole, st, upd, upd_whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_moments(torch, fsnap, wsnap, b1=0.9):
+    """The int8 first moments of the FSDP run against the whole run's,
+    step by step (``fsnap``/``wsnap``: each step's (codes, scales) a leaf,
+    both whole). A code is 1/127 of its block's max, so rounding in the
+    gradient's sum can move one by a step, and the next step carries the
+    move (m = b1 dec(q) + (1 - b1) g): where a block's m nearly cancels,
+    one step of the earlier, larger scale is many of the new one. So each
+    step's decoded difference is held after taking out both runs' own
+    rounding (half a step each) and b1 times the previous step's decoded
+    difference: what is left is the gradients' float difference, held by
+    the float32 case's bound (``PARALLEL_FSDP_TOL["mu"]``, each leaf's
+    norm over the whole run's) as "mu_excess_rel". Also: the last step's
+    codes moved (their share held by ``PARALLEL_FSDP_TOL["codes"]``) and
+    by how far, the scales' difference and the decoded difference as they
+    are (printed)."""
+    out = {"scale_rel": 0.0, "mu_rel": 0.0, "mu_excess_rel": 0.0}
+    prev = [None] * len(wsnap[0])
+    with torch.no_grad():
+        for fk, wk in zip(fsnap, wsnap):
+            for i, ((qa, sa), (qb, sb)) in enumerate(zip(fk, wk)):
+                da = qa.float() * sa[:, None]
+                db = qb.float() * sb[:, None]
+                norm = db.norm().clamp_min(1e-30)
+                diff = (da - db).abs()
+                carried = 0.0 if prev[i] is None else b1 * prev[i]
+                excess = (diff - carried - 0.5 * (sa + sb)[:, None]
+                          ).clamp_min(0.0)
+                out["mu_excess_rel"] = max(out["mu_excess_rel"],
+                                           float(excess.norm() / norm))
+                prev[i] = diff
+        last = list(zip(fsnap[-1], wsnap[-1]))
+        for (qa, sa), (qb, sb) in last:
+            db = qb.float() * sb[:, None]
+            out["scale_rel"] = max(out["scale_rel"], float(
+                (sa - sb).norm() / sb.norm().clamp_min(1e-30)))
+            out["mu_rel"] = max(out["mu_rel"], float(
+                (qa.float() * sa[:, None] - db).norm()
+                / db.norm().clamp_min(1e-30)))
+        out["codes_moved"] = sum(int((qa != qb).sum())
+                                 for (qa, _), (qb, _) in last)
+        out["codes"] = sum(qa.numel() for (qa, _), _ in last)
+        out["code_step_max"] = max(int((qa.int() - qb.int()).abs().max())
+                                   for (qa, _), (qb, _) in last)
+    return out
 
 
 def _gloo_probe(torch, dist):
@@ -5980,25 +6199,23 @@ def parallel_child(rank: int, d: str) -> int:
     """One rank of the parallel phase's world of two on the one card,
     over gloo (named: NCCL refuses two ranks on one GPU): the collective
     probe, TP decoding at Whisper-large-v3-turbo width (10 of 20 heads a
-    rank), and, where gloo carried the collectives FSDP needs,
-    ``PARALLEL_FSDP_STEPS`` FSDP (data 2) Whisper-base steps against the
-    same steps whole: the losses, and the first moments and updates
-    gathered whole (a scaled gradient leaves Adam's direction and the
-    losses as they are, not the moments). Writes ``out{rank}.json`` in
+    rank) and the same clip's word timestamps through
+    ``Transcriber(mesh=)``, the SP/PP cases, ``bench-train --dp 2`` through
+    the command line (the tokenizer in ``d``/tok), and, where gloo carried
+    the collectives FSDP needs, ``PARALLEL_FSDP_STEPS`` FSDP (data 2)
+    Whisper-base steps against the same steps whole, with float32 and with
+    int8 first moments (``_fsdp_case``). Writes ``out{rank}.json`` in
     ``d``."""
     import os
 
     import torch
     import torch.distributed as dist
 
-    from audax_torch.core.config import (FineTuneConfig, MeshConfig,
-                                         WhisperConfig)
+    from audax_torch.core.config import MeshConfig, WhisperConfig
     from audax_torch.core.runtime import resolve_device
     from audax_torch.models import whisper as W
-    from audax_torch.parallel.fsdp import fsdp_shard_state
-    from audax_torch.parallel.mesh import make_mesh, shard_batch
-    from audax_torch.train.seq2seq import (collate_seq2seq, init_finetune,
-                                           make_finetune_step)
+    from audax_torch.parallel.mesh import make_mesh
+    from audax_torch.train.seq2seq import collate_seq2seq
 
     resolve_device("cuda")
     dist.init_process_group("gloo", init_method=f"file://{d}/store",
@@ -6011,9 +6228,15 @@ def parallel_child(rank: int, d: str) -> int:
                counts={k: c["cuda"] for k, c in counts.items()},
                plain={k: c["plain"] for k, c in counts.items()
                       if c["plain"]})
+    words, secs, counts = _turbo_words(torch, mesh, tparams)
+    out["words"] = {"words": words, "seconds": secs,
+                    "counts": {k: c["cuda"] for k, c in counts.items()},
+                    "plain": {k: c["plain"] for k, c in counts.items()
+                              if c["plain"]}}
     out["sp_pp"] = _sp_pp_child(torch, tparams, tcfg)
     del tparams
     torch.cuda.empty_cache()
+    out["bench"] = _bench_child(torch, os.path.join(d, "tok"))
     if all(out["probe"][k] == "ok" for k in ("all_gather",
                                              "reduce_scatter",
                                              "all_reduce")):
@@ -6029,47 +6252,8 @@ def parallel_child(rank: int, d: str) -> int:
                  "decoder_input_ids": torch.from_numpy(
                      lab["decoder_input_ids"]).cuda(),
                  "labels": torch.from_numpy(lab["labels"]).cuda()}
-        ft = FineTuneConfig(lora_rank=0, moment_dtype="float32",
-                            learning_rate=1e-4, warmup_steps=0)
-        step = make_finetune_step(cfg, remat=True)
-        whole, wl = init_finetune(params, ft), []
-        for _ in range(PARALLEL_FSDP_STEPS):
-            whole, m = step(whole, batch)
-            wl.append(float(m["loss"]))
-        dmesh = make_mesh(MeshConfig(data=2), device="cuda")
-        st, fl = fsdp_shard_state(init_finetune(params, ft), dmesh), []
-        local = shard_batch(dmesh, batch)
-        t0 = time.perf_counter()
-        for _ in range(PARALLEL_FSDP_STEPS):
-            st, m = step(st, local)
-            fl.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        # the trained tree and the first moments (the averaged, clipped
-        # gradients: Adam's direction is blind to their scale), gathered
-        # whole, against the whole run's; each leaf's update p - p0 and
-        # moment by the norm of its difference over the whole run's
-        cut = sum(any(a is not None for a in s) for s in st.layout.spec_list)
-
-        leaves = W.tree_leaves
-
-        @torch.no_grad()
-        def rel(a, b):
-            return max(float((x - y).norm() / y.norm().clamp_min(1e-30))
-                       for x, y in zip(a, b))
-
-        with torch.no_grad():
-            p0 = leaves(params)
-            upd = [x - y for x, y in zip(leaves(st.layout.full(
-                st.trainable)), p0)]
-            upd_whole = [x - y for x, y in zip(leaves(whole.trainable), p0)]
-        out["fsdp"] = {
-            "losses": fl, "whole": wl, "seconds": secs, "cut": cut,
-            "leaves": len(st.layout.spec_list),
-            "mu_rel": rel(leaves(st.layout.full(st.opt_state.mu)),
-                          leaves(whole.opt_state.mu)),
-            "update_rel": rel(upd, upd_whole)}
-        del whole, st, upd, upd_whole
+        out["fsdp"] = _fsdp_case(torch, params, cfg, batch, "float32")
+        out["fsdp_int8"] = _fsdp_case(torch, params, cfg, batch, "int8")
     with open(os.path.join(d, f"out{rank}.json"), "w") as fh:
         json.dump(out, fh)
     dist.barrier()
@@ -6077,7 +6261,159 @@ def parallel_child(rank: int, d: str) -> int:
     return 0
 
 
-def parallel_phase(torch, rng, smi):
+def _mesh_bench_case(torch, bpe, bench, smi):
+    """C8 in the world of one: ``PARALLEL_BENCH_ARGV`` through the command
+    line (``_run_bench``, the tokenizer ``bpe`` saved for it), its "mesh"
+    and "fsdp", and its wgmma launches equal to the bench phase's line
+    without a mesh (``bench``, else ``BENCH_RUNS``' prediction), its
+    examples/s and MFU printed beside that line's. Returns its counts."""
+    import os
+    import tempfile
+
+    label = "parallel bench-train --dp 1 --fsdp base bf16 full"
+    with tempfile.TemporaryDirectory() as td:
+        bpe.save(os.path.join(td, "tok"))
+        rec, sb, cb = _run_bench(torch, PARALLEL_BENCH_ARGV,
+                                 BENCH_TRAIN_KERNELS["bfloat16"], label,
+                                 os.path.join(td, "tok"))
+    predicted = {lab: pred for lab, _, _, pred in BENCH_RUNS}
+    line = (bench or {}).get(PARALLEL_BENCH_LINE)
+    want = ({k: line[1][k]["cuda"] for k in WGMMA} if line is not None
+            else predicted[PARALLEL_BENCH_LINE])
+    got = {k: cb[k]["cuda"] for k in WGMMA}
+    beside = ("not run in this call" if line is None else
+              f"{line[0]['value']} examples/s, mfu_pct {line[0]['mfu_pct']}"
+              f" ({rec['value'] / line[0]['value']:.4f}x)")
+    print(f"[parallel] {label}: mesh {rec['mesh']}, fsdp {rec['fsdp']}; "
+          f"{rec['value']} examples/s, mfu_pct {rec['mfu_pct']}, "
+          f"{rec['sec_per_step']} s a step; the bench phase's "
+          f"{PARALLEL_BENCH_LINE!r} line: {beside}; wgmma launches {got} "
+          f"(the line without a mesh {want}); {sb:.2f} s ({smi})",
+          flush=True)
+    if rec["mesh"] != {"data": 1, "model": 1} or rec["fsdp"] is not True:
+        raise AssertionError(f"{label}: {rec}")
+    if got != want:
+        raise AssertionError(f"{label}: wgmma launches {got} vs {want}")
+    return cb
+
+
+def _check_children(outs, ref_words, sw, smi):
+    """The world of two's new cases, each rank's held and rank 0's
+    printed: C9's words against ``ref_words`` (the run without a mesh,
+    ``sw`` s), C8's ``bench-train --dp 2`` and C10's FSDP (data 2) runs
+    with float32 and int8 first moments. Returns their launch counts."""
+    counts_all = []
+    # C9: the clip's words under TP 2 against the run without a mesh
+    for r, o in enumerate(outs):
+        w = o["words"]
+        got = w["words"]
+        same = [x[0] for x in got] == [x[0] for x in ref_words]
+        moved = sum(a[1] != b[1] or a[2] != b[2]
+                    for a, b in zip(got, ref_words))
+        off = max((abs(a[i] - b[i]) for a, b in zip(got, ref_words)
+                   for i in (1, 2)), default=0.0)
+        if r == 0:
+            print(f"[parallel] Transcriber(word_timestamps=True, mesh=) "
+                  f"turbo TP 2 over gloo: {len(got)} words equal to the run "
+                  f"without a mesh {same}; {moved} with other times, max "
+                  f"{off:.3f} s (tol {WORD_TIME_TOL} s, one frame); "
+                  f"{w['seconds']:.2f} s (without a mesh {sw:.2f} s); "
+                  f"rank 0 launches "
+                  f"{ {k: v for k, v in w['counts'].items() if v} } ({smi})",
+                  flush=True)
+        if not same or off > WORD_TIME_TOL + 1e-6:
+            raise AssertionError(f"TP words, rank {r}: {got} vs "
+                                 f"{ref_words}")
+        wc = _child_counts(w)
+        _check_launches(wc, TRANSCRIBE_KERNELS, "parallel TP words")
+        counts_all.append(wc)
+    # C8: bench-train --dp 2 through the command line on each rank
+    for r, o in enumerate(outs):
+        b = o["bench"]
+        rec = b["rec"] or {}
+        flash = {k: b["counts"][k] for k in CHILD_BENCH_LAUNCHES}
+        if r == 0:
+            print(f"[parallel] {' '.join(CHILD_BENCH_ARGV)} over gloo: exit "
+                  f"{b['rc']}, mesh {rec.get('mesh')}, fsdp "
+                  f"{rec.get('fsdp')}; {rec.get('value')} examples/s, "
+                  f"{rec.get('sec_per_step')} s a step; {b['seconds']:.2f} s "
+                  f"(host crossings); rank 0 3xTF32 launches {flash} "
+                  f"(predicted {CHILD_BENCH_LAUNCHES}) ({smi})", flush=True)
+        missing = set(BENCH_KEYS["bench-train"]) - set(rec)
+        if (b["rc"] != 0 or missing
+                or rec.get("mesh") != {"data": 2, "model": 1}
+                or rec.get("fsdp") is not False
+                or flash != CHILD_BENCH_LAUNCHES):
+            raise AssertionError(f"bench-train --dp 2, rank {r}: {b}")
+        _finite_numbers(rec, f"bench-train --dp 2, rank {r}")
+        bc = _child_counts(b)
+        _check_launches(bc, CLI_TRAIN_KERNELS[1:], "parallel bench --dp 2")
+        _no_core_flash(bc, "parallel bench --dp 2")
+        counts_all.append(bc)
+    if "fsdp" in outs[0]:
+        for r, o in enumerate(outs):
+            for key in ("fsdp", "fsdp_int8"):
+                f = o[key]
+                frel = max(abs(a - b) / abs(b)
+                           for a, b in zip(f["losses"], f["whole"]))
+                int8 = key == "fsdp_int8"
+                moved = f.get("codes_moved", 0) / max(f.get("codes", 1), 1)
+                if r == 0:
+                    q8 = (f"; past each step's rounding and the carried "
+                          f"difference, max leaf rel "
+                          f"{f['mu_excess_rel']:.2e} (tol "
+                          f"{PARALLEL_FSDP_TOL['mu']:.0e}); the last step's "
+                          f"codes moved {f['codes_moved']} of {f['codes']} "
+                          f"({moved:.2e}, tol "
+                          f"{PARALLEL_FSDP_TOL['codes']:.0e}, max "
+                          f"{f['code_step_max']} steps), "
+                          f"scales max leaf rel {f['scale_rel']:.2e}"
+                          if int8 else "")
+                    print(f"[parallel] FSDP (data 2) Whisper-base over gloo "
+                          f"on one card, {'int8' if int8 else 'float32'} "
+                          f"first moments, {PARALLEL_FSDP_STEPS} steps, "
+                          f"{f['cut']} of {f['leaves']} leaves cut: losses "
+                          f"{f['losses']} vs the whole run {f['whole']} (max "
+                          f"rel {frel:.2e}, tol 1e-05); "
+                          + ("" if int8 else "gathered ")
+                          + f"first moments max leaf rel {f['mu_rel']:.2e}"
+                          + ("" if int8 else
+                             f" (tol {PARALLEL_FSDP_TOL['mu']:.0e})") + q8
+                          + f"; updates p - p0 max leaf rel "
+                          f"{f['update_rel']:.2e} (tol "
+                          f"{PARALLEL_FSDP_TOL['update']:.0e})"
+                          + f"; moment bytes a rank: m "
+                          f"{f['mu_bytes'] / f['params']:.4f} B/param, v "
+                          f"{f['nu_bytes'] / f['params']:.4f} B/param; "
+                          f"{f['seconds']:.2f} s; launches "
+                          f"{ {k: v for k, v in f['counts'].items() if v} } "
+                          f"({smi})", flush=True)
+                ok = (frel <= 1e-5 and f["cut"] > 0
+                      and f["update_rel"] <= PARALLEL_FSDP_TOL["update"])
+                if int8:
+                    ok = (ok and moved <= PARALLEL_FSDP_TOL["codes"]
+                          and f["mu_excess_rel"] <= PARALLEL_FSDP_TOL["mu"])
+                else:
+                    ok = ok and f["mu_rel"] <= PARALLEL_FSDP_TOL["mu"]
+                if not ok:
+                    raise AssertionError(f"FSDP {key} over gloo, rank {r}: "
+                                         f"{f}")
+                fc = _child_counts(f)
+                _check_launches(fc, CLI_TRAIN_KERNELS[1:],
+                                f"parallel {key}")
+                _no_core_flash(fc, f"parallel {key}")
+                counts_all.append(fc)
+    return counts_all
+
+
+def _child_counts(case):
+    """A child case's launch counts ({kernel: cuda} and its "plain") in
+    ``launch_counts()``'s form."""
+    return {k: {"cuda": v, "plain": case["plain"].get(k, 0)}
+            for k, v in case["counts"].items()}
+
+
+def parallel_phase(torch, rng, smi, bench=None):
     """Data, tensor, fully-sharded and expert parallelism on the card.
 
     Part 1, a world of one over NCCL (``make_mesh`` on CUDA): each mesh
@@ -6087,16 +6423,20 @@ def parallel_phase(torch, rng, smi):
     ``ContinuousBatcher(mesh=)`` at Whisper-large-v3-turbo width with int8
     KV (the same tokens), ``moe_expert_parallel`` on one Qwen3-30B-A3B
     layer against ``_moe_block`` (``TOL_F32``), ``fit_lm(mesh=,
-    fsdp=True)`` at Qwen3-0.6B width and ``PARALLEL_LM_LAYERS`` layers;
-    and TP decoding at turbo width over the mesh, the reference for part
-    2. Part 2, a world of two processes on the one card over gloo
-    (``parallel_child``): the gloo collective probe on CUDA tensors, TP
-    decoding with 10 of turbo's 20 heads a rank (the same tokens as the
-    world of one), and FSDP (data 2) Whisper-base steps where gloo
-    carried their collectives, held by their gathered moments and updates
-    (the world of one's FSDP run cuts nothing: it shows the path runs on
-    NCCL and the kernels, not the cut). Returns the launch counts of the
-    mesh runs (the children's included)."""
+    fsdp=True)`` at Qwen3-0.6B width and ``PARALLEL_LM_LAYERS`` layers,
+    ``bench-train --dp 1 --fsdp`` through the command line beside the bench
+    phase's line without a mesh (``bench``: ``bench_phase``'s lines; the
+    wgmma launches equal); and TP decoding and word timestamps at turbo
+    width, the references for part 2. Part 2, a world of two processes on
+    the one card over gloo (``parallel_child``): the gloo collective probe
+    on CUDA tensors, TP decoding with 10 of turbo's 20 heads a rank (the
+    same tokens as the world of one) and the clip's words (within one
+    frame of the run without a mesh), ``bench-train --dp 2``, and FSDP
+    (data 2) Whisper-base steps with float32 and int8 first moments where
+    gloo carried their collectives, held by their moments and updates (the
+    world of one's FSDP run cuts nothing: it shows the path runs on NCCL
+    and the kernels, not the cut). Returns the launch counts of the mesh
+    runs (the children's included)."""
     import dataclasses
     import os
     import subprocess
@@ -6225,12 +6565,24 @@ def parallel_phase(torch, rng, smi):
     del tparams
 
     # ---- TP decoding over the world of one: part 2's reference -------------
-    ref_tokens, sr, cr = _turbo_tp_tokens(torch, mesh)
+    _, tparams = _turbo_params(torch)
+    ref_tokens, sr, cr = _turbo_tp_tokens(torch, mesh, tparams)
     print(f"[parallel] generate(mesh=) turbo, world of one: "
           f"{len(ref_tokens)} tokens in {sr:.2f} s; launches {ran(cr)} "
           f"({smi})", flush=True)
     _check_launches(cr, TRANSCRIBE_KERNELS, "parallel TP decode")
     counts_all.append(cr)
+    # the same clip's word timestamps without a mesh: part 2's reference (C9)
+    ref_words, sw, cw = _turbo_words(torch, None, tparams)
+    print(f"[parallel] Transcriber(word_timestamps=True) turbo without a "
+          f"mesh: {len(ref_words)} words in {sw:.2f} s; launches {ran(cw)} "
+          f"({smi})", flush=True)
+    if not ref_words:
+        raise AssertionError("the turbo clip aligned no words")
+    _check_launches(cw, TRANSCRIBE_KERNELS, "parallel words")
+    counts_all.append(cw)
+    del tparams
+    torch.cuda.empty_cache()
 
     # ---- moe_expert_parallel, one Qwen3-30B-A3B layer -----------------------
     mcfg = dataclasses.replace(CL.CausalLMConfig.qwen3_30b_a3b(), layers=1)
@@ -6302,6 +6654,10 @@ def parallel_phase(torch, rng, smi):
     counts_all.append(tk1)
     del tt_model, tt_ds
 
+    # ---- bench-train --dp 1 --fsdp, Whisper-base bf16 (C8) ----------------
+    bpe = _tokenizer(51866).bpe
+    counts_all.append(_mesh_bench_case(torch, bpe, bench, smi))
+
     # ---- the world of two's SP fine-tune, without a mesh -------------------
     bcfg, bparams, btok, bex, bft = _sp_finetune_inputs(torch, np)
     (_, sh), ssp, _ = run(lambda: finetune_whisper(bparams, bcfg, btok, bex,
@@ -6324,6 +6680,7 @@ def parallel_phase(torch, rng, smi):
     for name in P2P_PROBES:
         os.makedirs(os.path.join(p2p_dir.name, name))
     with tempfile.TemporaryDirectory() as d:
+        bpe.save(os.path.join(d, "tok"))
         procs = [subprocess.Popen([sys.executable, "-c", PARALLEL_CHILD,
                                    str(ROOT), str(r), d], cwd=str(ROOT),
                                   stdout=subprocess.PIPE,
@@ -6391,25 +6748,8 @@ def parallel_phase(torch, rng, smi):
             raise AssertionError(f"TP decode child launches {o['counts']}")
         counts_all.append({k: {"cuda": v, "plain": 0}
                            for k, v in o["counts"].items()})
-    if "fsdp" in outs[0]:
-        for r, f in enumerate(o["fsdp"] for o in outs):
-            frel = max(abs(a - b) / abs(b)
-                       for a, b in zip(f["losses"], f["whole"]))
-            if r == 0:
-                print(f"[parallel] FSDP (data 2) Whisper-base over gloo on "
-                      f"one card, {PARALLEL_FSDP_STEPS} steps, {f['cut']} of "
-                      f"{f['leaves']} leaves cut: losses {f['losses']} vs "
-                      f"the whole run {f['whole']} (max rel {frel:.2e}, tol "
-                      f"1e-05); gathered first moments max leaf rel "
-                      f"{f['mu_rel']:.2e} (tol {PARALLEL_FSDP_TOL['mu']:.0e})"
-                      f", updates p - p0 max leaf rel {f['update_rel']:.2e} "
-                      f"(tol {PARALLEL_FSDP_TOL['update']:.0e}); "
-                      f"{f['seconds']:.2f} s ({smi})", flush=True)
-            if (frel > 1e-5 or f["cut"] == 0
-                    or not f["mu_rel"] <= PARALLEL_FSDP_TOL["mu"]
-                    or not f["update_rel"] <= PARALLEL_FSDP_TOL["update"]):
-                raise AssertionError(f"FSDP over gloo, rank {r}: {f}")
-    else:
+    counts_all += _check_children(outs, ref_words, sw, smi)
+    if "fsdp" not in outs[0]:
         print("[parallel] FSDP (data 2) over gloo on one card: not run (gloo "
               "did not carry its collectives)", flush=True)
     for o in outs:
@@ -6743,8 +7083,9 @@ def main() -> int:
     moe_train = moe_train_phase(torch, np.random.default_rng(22), smi)
     moe_probe_phase(torch)
     cli = cli_phase(torch, np.random.default_rng(23), smi)
-    bench = bench_phase(torch, np.random.default_rng(24), smi)
-    parallel = parallel_phase(torch, np.random.default_rng(25), smi)
+    bench, bench_lines = bench_phase(torch, np.random.default_rng(24), smi)
+    parallel = parallel_phase(torch, np.random.default_rng(25), smi,
+                              bench=bench_lines)
     # launches of the main paths, each counted from 0 just before it; the
     # tools' kernels from the probes phase; K2/K7/K8 and P1 from the
     # attention tools as well

@@ -68,10 +68,11 @@ def mesh_layout(batch: np.ndarray):
 
 # --------------------------------------------------------------- TP ------
 def tp_whisper(params, cfg, mel, tokens, labels, prompt, eos, params_big,
-               cfg_big, tok, audio):
+               cfg_big, tok, audio, int8_steps):
     """Whisper under a (data, model) mesh: the forward, its gradients
     (data + tensor parallel, gathered whole), greedy / beam / int8-KV
-    decoding and the int4 Transcriber."""
+    decoding, the int4 Transcriber, and ``int8_steps`` fine-tune steps
+    with int8 moments (``tp_int8_steps``)."""
     from audax_torch.infer.beam import beam_search
     from audax_torch.infer.decode import generate
     from audax_torch.infer.transcribe import Transcriber
@@ -127,6 +128,60 @@ def tp_whisper(params, cfg, mel, tokens, labels, prompt, eos, params_big,
                      temperature_fallback=False, beam_width=2, mesh=mesh,
                      device="cpu")
     out["beam_text"] = tr.transcribe(audio).text
+    out["int8"] = tp_int8_steps(params, cfg, {
+        "mel": mel, "decoder_input_ids": tokens, "labels": labels},
+        int8_steps)
+    return out
+
+
+def tp_words(params, cfg, tok, audio, kws):
+    """``Transcriber(word_timestamps=True, mesh=)`` over a (1 x 2) mesh,
+    the alignment pass on each rank's heads: each ``kws`` entry's text and
+    segments with their words (word, start, end, probability)."""
+    from audax_torch.infer.transcribe import Transcriber
+
+    mesh = _mesh(2)
+    out = {}
+    for name, kw in kws.items():
+        res = Transcriber(params, cfg, tok, mesh=mesh, device="cpu",
+                          **kw).transcribe(audio)
+        out[name] = {"text": res.text, "segments": [
+            (s.start, s.end, None if s.words is None else
+             [(w.word, w.start, w.end, w.probability) for w in s.words])
+            for s in res.segments]}
+    return out
+
+
+def tp_int8_steps(params, cfg, batch, steps):
+    """Fine-tune steps with int8 moments whole and under TP over the
+    world's (data, model 2) mesh: the losses, the TP run's whole trained
+    tree, the whole run's, and the q kernel's moment shapes (m whole, v
+    cut)."""
+    from audax_torch.core.config import FineTuneConfig
+    from audax_torch.models.whisper import tree_map
+    from audax_torch.parallel.fsdp import shard_state
+    from audax_torch.parallel.mesh import shard_batch
+    from audax_torch.train.seq2seq import init_finetune, make_finetune_step
+
+    mesh = _mesh(2)
+    ft = FineTuneConfig(learning_rate=1e-3, warmup_steps=1, max_steps=10,
+                        lora_rank=0, moment_dtype="int8")
+    step = make_finetune_step(cfg, remat=False)
+    bt = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for name, st, b in (
+            ("whole", init_finetune(params, ft), bt),
+            ("tp", shard_state(init_finetune(params, ft), mesh,
+                               heads=cfg.heads), shard_batch(mesh, bt))):
+        losses = []
+        for _ in range(steps):
+            st, m = step(st, b)
+            losses.append(float(m["loss"]))
+        q = st.opt_state.mu["q"]["decoder"]["layers"]["attn"]["q"]["kernel"]
+        nu = st.opt_state.nu["decoder"]["layers"]["attn"]["q"]["kernel"]
+        out[name] = {"losses": losses, "mu": tuple(q.shape),
+                     "nu": tuple(nu.shape),
+                     "params": tree_map(_np, st.full_params())}
     return out
 
 
@@ -227,9 +282,10 @@ def generator_mesh(model, clips, kw, budgets, seed):
 
 # -------------------------------------------------------------- FSDP -----
 def fsdp_cases(params, cfg, batch, steps, model):
-    """Fine-tune steps whole, under DP (x TP) and under FSDP with float32
-    and bfloat16 moments: the losses, the per-rank bytes, the moments'
-    dtypes and shapes, and the whole trained tree."""
+    """Fine-tune steps whole, under DP (x TP) and under FSDP with float32,
+    bfloat16 and int8 moments: the losses, the per-rank bytes, the
+    moments' dtypes and shapes, the whole trained tree, and the int8 first
+    moment (kept whole on every rank)."""
     from audax_torch.core.config import FineTuneConfig
     from audax_torch.models.whisper import tree_leaves, tree_map
     from audax_torch.parallel.fsdp import fsdp_shard_state, shard_state
@@ -251,21 +307,34 @@ def fsdp_cases(params, cfg, batch, steps, model):
             losses.append(float(m["loss"]))
         return state, losses
 
+    def q_kernel(tree):
+        return tree["decoder"]["layers"]["attn"]["q"]["kernel"]
+
     out = {}
-    for moments in ("float32", "bfloat16"):
+    for moments in ("float32", "bfloat16", "int8"):
         ft = FineTuneConfig(learning_rate=1e-3, warmup_steps=1,
                             max_steps=10, lora_rank=0, moment_dtype=moments)
         whole = init_finetune(params, ft)
         out[f"whole_bytes_{moments}"] = (nbytes(whole.trainable),
                                          nbytes(whole.opt_state.mu))
-        _, out[f"ref_{moments}"] = run(whole, bt)
+        whole, out[f"ref_{moments}"] = run(whole, bt)
+        if moments == "int8":
+            out["whole_params_int8"] = tree_map(_np, whole.trainable)
+            out["whole_mu_int8"] = tree_map(_np, whole.opt_state.mu)
+        del whole
         st = fsdp_shard_state(init_finetune(params, ft), mesh, min_size=256)
         out[f"bytes_{moments}"] = (nbytes(st.trainable),
                                    nbytes(st.opt_state.mu))
-        mu = st.opt_state.mu["decoder"]["layers"]["attn"]["q"]["kernel"]
+        mu = st.opt_state.mu
+        mu = q_kernel(mu["q"] if moments == "int8" else mu)
+        nu = q_kernel(st.opt_state.nu)
         out[f"mu_{moments}"] = (str(mu.dtype), tuple(mu.shape))
+        out[f"nu_{moments}"] = (str(nu.dtype), tuple(nu.shape))
         st, out[f"fsdp_{moments}"] = run(st, local)
         out[f"params_{moments}"] = tree_map(_np, st.full_params())
+        if moments == "int8":
+            # the whole int8 first moment, the same bits on every rank
+            out["mu_int8_whole"] = tree_map(_np, st.opt_state.mu)
         tp_only = shard_state(init_finetune(params, ft), mesh)
         _, out[f"dp_{moments}"] = run(tp_only, local)
     lora = FineTuneConfig(learning_rate=1e-2, warmup_steps=0, max_steps=10,
@@ -280,6 +349,51 @@ def fsdp_cases(params, cfg, batch, steps, model):
 
 
 # --------------------------------------------------------------- CLI -----
+def bench_train_world(params, cfg, tok, runs):
+    """``bench-train`` over a mesh of the world's ranks through
+    ``cli.main``, ``_load_whisper`` returning (params, cfg, tok): each
+    run's (name -> argv) exit code, its JSON line, the losses of its steps
+    and the FLOPs ``mfu`` was given."""
+    import contextlib
+    import io
+    import json
+
+    from audax_torch.cli import main as cli
+    from audax_torch.train import seq2seq
+    from audax_torch.utils import profiling
+
+    cli._load_whisper = lambda *a, **k: (params, cfg, tok)
+    real_step, real_mfu = seq2seq.make_finetune_step, profiling.mfu
+    seen = {"losses": [], "flops": []}
+
+    def make_step(*a, **k):
+        step = real_step(*a, **k)
+
+        def run(state, batch):
+            state, m = step(state, batch)
+            seen["losses"].append(float(m["loss"]))
+            return state, m
+        return run
+
+    def mfu(flops, sec, *a, **k):
+        seen["flops"].append(flops)
+        return real_mfu(flops, sec, *a, **k)
+
+    seq2seq.make_finetune_step = make_step
+    profiling.mfu = mfu
+    out = {}
+    for name, argv in runs.items():
+        seen["losses"], seen["flops"] = [], []
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        out[name] = {"rc": rc,
+                     "json": json.loads(buf.getvalue().splitlines()[-1]),
+                     "losses": list(seen["losses"]),
+                     "flops": list(seen["flops"])}
+    return out
+
+
 def cli_world(music, runs, tiny_cfg, env, lora_draw, fit, serve):
     """The command-line and loop cases of one world: ``music`` (argv, run
     dir, env) through ``cli.main``, then each of ``runs`` (argv, run dir)

@@ -10,7 +10,9 @@ timeout, every child is killed on the way out, and a child's traceback is
 raised in the test.
 
 Run as a module it is the child: ``python -m tests.torch_port.mesh_world
-SPEC RANK``.
+SPEC RANK``. ``hold_int8_tree`` is the tests' bound between a tree trained
+with int8 Adam moments over a mesh and the same steps whole, and
+``hold_int8_updates`` theirs between such a tree and the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import sys
 import time
 import traceback
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -74,6 +78,50 @@ def run_world(n: int, target: str, args: dict, tmp, timeout: float = 300):
         with open(tmp / f"out{r}.pkl", "rb") as fh:
             results.append(pickle.load(fh))
     return results
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _flat(v)]
+    return [tree]
+
+
+#: int8 moments against the JAX package's: each leaf's update p - p0 by
+#: the norm of the difference over the norm of JAX's. The blocks of m run
+#: over each package's own layout of a leaf (the bridge transposes the
+#: conv kernels), so such a leaf's m rounds in other blocks (measured on
+#: ``test_torch_fsdp.py``'s model: the conv kernels' updates 6.1e-2, their
+#: moments 1.4e-2; elsewhere at most 2.5e-3 and 3.7e-3)
+INT8_UPDATE_REL = 0.1
+
+
+def hold_int8_updates(got, ref, start):
+    """Each leaf's update ``got - start`` within ``INT8_UPDATE_REL`` of
+    ``ref - start`` (numpy trees; ``ref`` JAX's, bridged), by the norm."""
+    for a, b, p in zip(_flat(got), _flat(ref), _flat(start)):
+        b, p = (t.detach().numpy() if hasattr(t, "detach") else np.asarray(t)
+                for t in (b, p))
+        err = np.linalg.norm(a - b)
+        assert err <= INT8_UPDATE_REL * np.linalg.norm(b - p), (
+            err / np.linalg.norm(b - p), b.shape)
+
+
+def hold_int8_tree(got, want, start):
+    """A tree trained with int8 first moments over a mesh (``got``, numpy)
+    against the same steps whole (``want``, numpy) from ``start``: within
+    the float bound (atol 1e-5, rtol 1e-4) but where rounding in the
+    gradients' sums moved an int8 code of m -- in each leaf at most one
+    element in 1,000 (one in a leaf of fewer), each within the largest
+    update of its leaf (a code is 1/127 of its block's max, and one step
+    of m moves that element's direction by up to its size)."""
+    for a, b, p in zip(_flat(got), _flat(want), _flat(start)):
+        p = p.detach().numpy() if hasattr(p, "detach") else np.asarray(p)
+        bad = ~np.isclose(a, b, atol=1e-5, rtol=1e-4)
+        assert int(bad.sum()) <= max(1, b.size // 1000), (
+            int(bad.sum()), b.shape)
+        if bad.any():
+            assert np.abs(a - b)[bad].max() <= np.abs(b - p).max(), (
+                np.abs(a - b)[bad].max(), np.abs(b - p).max())
 
 
 def _child(spec_path: str, rank: int) -> int:

@@ -5,8 +5,11 @@ The model is the JAX alignment test's (``tests/test_align.py``: d_model 32,
 JAX-initialised and bridged. The alignment matrix must agree within 1e-4,
 the attention mass within 1e-5, the DTW path exactly and the word timings
 equal; ``Transcriber(word_timestamps=True)`` must attach the JAX
-Transcriber's words to the same segments.
+Transcriber's words to the same segments, also with its heads cut over a
+two-rank tensor-parallel mesh (a gloo world of two processes).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +31,8 @@ from audax_torch.models.bridge import params_from_numpy
 from audax_torch.models.whisper import encode
 from audax_torch.symbolic.bpe import train_bpe
 from audax_torch.symbolic.tokenizer import WhisperTokenizer
+
+from .mesh_world import run_world
 
 CORPUS = ["the quick brown fox jumps"] * 4
 
@@ -182,3 +187,55 @@ def test_transcriber_word_timestamps_match_jax(small_model, rng, timestamps):
                                        atol=1e-5)
             n_words += len(a.words)
     assert n_words > 0
+
+
+#: the tensor-parallel case: two of four heads a rank over a (1 x 2) mesh;
+#: the model's seed is one whose 8 s of noise transcribes to words
+TP_HEADS = 4
+TP_SEED = 6
+TP_KW = dict(max_new_tokens=10, temperature_fallback=False, timestamps=True,
+             word_timestamps=True)
+
+
+@pytest.fixture(scope="module")
+def tp_words(small_model, tmp_path_factory):
+    """The alignment test's model at 4 heads, and its
+    ``Transcriber(word_timestamps=True, mesh=)`` over a two-rank gloo
+    mesh (``mesh_cases.tp_words``), by rank."""
+    jtok, tok, jcfg, _, _, _ = small_model
+    jcfg = dataclasses.replace(jcfg, heads=TP_HEADS)
+    jparams = init_whisper_params(jcfg, jax.random.key(TP_SEED))
+    cfg = WhisperConfig(**jcfg.asdict())
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                               device="cpu")
+    audio = (0.05 * np.random.default_rng(3).standard_normal(16000 * 8)
+             ).astype(np.float32)
+    outs = run_world(2, "tests.torch_port.mesh_cases:tp_words", dict(
+        params=params, cfg=cfg, tok=tok, audio=audio, kws={"tp": TP_KW}),
+        tmp_path_factory.mktemp("tp_words"))
+    return outs, (jtok, jcfg, jparams), audio
+
+
+def test_transcriber_word_timestamps_under_tp_match_jax(tp_words):
+    """Word timestamps with the heads cut over 'model' (each rank
+    z-normalises its own heads; the head sums meet in one all-reduce):
+    every rank's text, segments and words equal the JAX Transcriber's
+    without a mesh, the probabilities within 1e-5."""
+    outs, (jtok, jcfg, jparams), audio = tp_words
+    ref = JaxTranscriber(jparams, jcfg, jtok, backend="xla",
+                         **TP_KW).transcribe(audio)
+    for out in outs:
+        ours = out["tp"]
+        assert ours["text"] == ref.text
+        assert len(ours["segments"]) == len(ref.segments)
+        n_words = 0
+        for (start, end, words), b in zip(ours["segments"], ref.segments):
+            assert (start, end) == pytest.approx((b.start, b.end))
+            assert (words is None) == (b.words is None)
+            if words is not None:
+                assert [w[:3] for w in words] == _words(b.words)
+                np.testing.assert_allclose([w[3] for w in words],
+                                           [w.probability for w in b.words],
+                                           atol=1e-5)
+                n_words += len(words)
+        assert n_words > 0

@@ -15,7 +15,9 @@ token-exact; the music engine at ``--lm-preset tiny`` for its schema only,
 since t = 0.7 draws from each package's own generator);
 ``bench-speculative``'s ``tokens`` and ``greedy_agreement``;
 ``bench-train``'s analytic FLOPs (``whisper_train_step_flops``) and one
-step's loss within 1e-4. Times are the CPU's and are not compared.
+step's loss within 1e-4, also over a two-rank gloo mesh (``--dp 2``, with
+and without ``--fsdp``) against JAX's command with the same flags. Times
+are the CPU's and are not compared.
 """
 
 import dataclasses
@@ -29,6 +31,7 @@ from audax.core.config import WhisperConfig as JaxWhisperConfig
 from audax_torch.cli import main as cli
 from audax_torch.core.config import WhisperConfig
 
+from .mesh_world import run_world
 from .whisper_pair import model as make_model
 from .whisper_pair import tokenizers
 
@@ -176,8 +179,43 @@ def test_bench_speculative(patched, capsys):
         assert ours[k] == theirs[k]
 
 
-def test_bench_train(patched, capsys, monkeypatch):
+TRAIN_ARGV = ["bench-train", "--batch-size", "2", "--steps", "1",
+              "--label-len", "8", "--remat", "dots"]
+#: bench-train over a two-rank mesh: the flags of each run
+MESH_RUNS = {"dp2": ["--dp", "2"], "dp2_fsdp": ["--dp", "2", "--fsdp"]}
+
+
+def _record_jax_losses(monkeypatch, losses):
+    """JAX's bench-train appends each step's loss to ``losses`` (its step
+    is AOT-compiled: the compiled call is wrapped)."""
     from audax.train import seq2seq as JS
+    jreal = JS.make_finetune_step
+
+    def jax_step(*a, **k):
+        jitted = jreal(*a, **k)
+
+        class Lowered:
+            def __init__(self, low):
+                self.low = low
+
+            def compile(self):
+                compiled = self.low.compile()
+
+                def call(state, batch):
+                    state, m = compiled(state, batch)
+                    losses.append(float(m["loss"]))
+                    return state, m
+                call.cost_analysis = compiled.cost_analysis
+                return call
+
+        class Step:
+            def lower(self, *aa):
+                return Lowered(jitted.lower(*aa))
+        return Step()
+    monkeypatch.setattr(JS, "make_finetune_step", jax_step)
+
+
+def test_bench_train(patched, capsys, monkeypatch):
     from audax_torch.train import seq2seq as S
     from audax_torch.utils import profiling as P
     losses = {"jax": [], "torch": []}
@@ -201,33 +239,8 @@ def test_bench_train(patched, capsys, monkeypatch):
             return state, m
         return run
     monkeypatch.setattr(S, "make_finetune_step", port_step)
-    jreal = JS.make_finetune_step
-
-    def jax_step(*a, **k):
-        jitted = jreal(*a, **k)
-
-        class Lowered:
-            def __init__(self, low):
-                self.low = low
-
-            def compile(self):
-                compiled = self.low.compile()
-
-                def call(state, batch):
-                    state, m = compiled(state, batch)
-                    losses["jax"].append(float(m["loss"]))
-                    return state, m
-                call.cost_analysis = compiled.cost_analysis
-                return call
-
-        class Step:
-            def lower(self, *aa):
-                return Lowered(jitted.lower(*aa))
-        return Step()
-    monkeypatch.setattr(JS, "make_finetune_step", jax_step)
-    argv = ["bench-train", "--batch-size", "2", "--steps", "1",
-            "--label-len", "8", "--remat", "dots"]
-    rc, ours, jrc, theirs = _run_both(argv, capsys)
+    _record_jax_losses(monkeypatch, losses["jax"])
+    rc, ours, jrc, theirs = _run_both(TRAIN_ARGV, capsys)
     assert rc == jrc == 0
     for k in ("metric", "size", "lora_rank", "batch_size", "dtype", "mesh",
               "fsdp"):
@@ -242,9 +255,47 @@ def test_bench_train(patched, capsys, monkeypatch):
     assert isinstance(rate, float) and np.isfinite(rate) and rate >= 0
 
 
-def test_bench_train_mesh_flags_raise(patched):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cli.main(["bench-train", "--dp", "2", "--device", "cpu"])
+@pytest.fixture(scope="module")
+def train_world(pair, tmp_path_factory):
+    """The port's bench-train of each ``MESH_RUNS`` entry over a two-rank
+    gloo world (``mesh_cases.bench_train_world``), by rank."""
+    params, cfg, tok = pair["torch"]
+    runs = {k: TRAIN_ARGV + v + ["--device", "cpu"]
+            for k, v in MESH_RUNS.items()}
+    return run_world(2, "tests.torch_port.mesh_cases:bench_train_world",
+                     dict(params=params, cfg=cfg, tok=tok, runs=runs),
+                     tmp_path_factory.mktemp("bench_train"))
+
+
+@pytest.mark.parametrize("run", sorted(MESH_RUNS))
+def test_bench_train_mesh(patched, capsys, monkeypatch, train_world, run):
+    """``bench-train --dp 2 [--fsdp]`` over two ranks: each rank exits 0
+    and prints JAX's keys, with the "mesh" and "fsdp" JAX prints for the
+    same flags (over two of its virtual CPU devices) and JAX's analytic
+    FLOPs divided by the mesh size; the first step's loss (each rank's
+    rows summed over both) is JAX's single-device run's."""
+    losses = []
+    _record_jax_losses(monkeypatch, losses)
+    assert jax_cli._COMMANDS["bench-train"](TRAIN_ARGV[1:]) == 0
+    assert jax_cli._COMMANDS["bench-train"](TRAIN_ARGV[1:]
+                                            + MESH_RUNS[run]) == 0
+    theirs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert theirs["mesh"] == {"data": 2, "model": 1}
+    assert theirs["fsdp"] == ("--fsdp" in MESH_RUNS[run])
+    single, meshed = patched["jax"]
+    assert meshed == single / 2
+    for out in train_world:
+        got = out[run]
+        ours = got["json"]
+        assert got["rc"] == 0 and set(ours) == set(theirs)
+        for k in ("metric", "size", "lora_rank", "batch_size", "dtype",
+                  "mesh", "fsdp"):
+            assert ours[k] == theirs[k], k
+        assert got["flops"] == [meshed]
+        np.testing.assert_allclose(got["losses"][0], losses[0],
+                                   rtol=TOL_LOSS)
+        np.testing.assert_allclose(got["losses"][0], losses[1],
+                                   rtol=TOL_LOSS)
 
 
 def test_benches_default_to_the_card(monkeypatch):

@@ -6,7 +6,8 @@ packages: five requests through two slots, so slots are refilled
 mid-flight while their neighbours decode. Results must be token-exact, with
 equal text and avg_logprob to 1e-4, for float weights, int4 weights with
 int8 KV, and int8 weights; and with per-request ``max_new_tokens`` and
-``lang``, with ``suppress_blank``, and after ``warmup``. A request
+``lang``, with ``suppress_blank``, and after ``warmup`` (the full admit,
+and ``all_buckets=False``'s one dummy request, as JAX's). A request
 cancelled before admission never runs. ``Transcriber(quantize="int4",
 kv_quant=True)`` is token-exact against the JAX ``Transcriber`` too.
 """
@@ -52,7 +53,9 @@ SCENARIOS = {
                          budgets={"r0": 2, "r2": 4}, langs={"r1": "de"}),
     "suppress_blank": dict(bits=None, kv_quant=False,
                            engine=dict(suppress_blank=True)),
-    "warmup": dict(bits=4, kv_quant=True, warmup=True),
+    "warmup": dict(bits=4, kv_quant=True, warmup={}),
+    "warmup-one-bucket": dict(bits=None, kv_quant=False,
+                              warmup={"all_buckets": False}),
 }
 
 
@@ -68,10 +71,26 @@ def test_continuous_matches_jax(setup, name):
               **sc.get("engine", {}))
     jcb = JaxBatcher(jparams, jcfg, jtok, **kw)
     cb = ContinuousBatcher(params, cfg, tok, device="cpu", **kw)
-    if sc.get("warmup"):
-        jcb.warmup()
-        cb.warmup()
+    if sc.get("warmup") is not None:
+        served = {}
+        for key, engine in (("jax", jcb), ("torch", cb)):
+            run = engine.run
+
+            def counted(_run=run, _key=key):
+                out = _run()
+                served.setdefault(_key, []).extend(r.request_id for r in out)
+                return out
+            engine.run = counted
+            engine.warmup(**sc["warmup"])
+            del engine.run
         assert cb.steps_run == cb.chunks_run == 0 and cb.live() == 0
+        assert jcb.steps_run == jcb.chunks_run == 0
+        # the port's full admit is ``slots`` dummies; one bucket is one
+        # dummy in both packages
+        one = sc["warmup"].get("all_buckets") is False
+        assert len(served["torch"]) == (1 if one else kw["slots"])
+        if one:
+            assert len(served["jax"]) == 1
     reqs = _requests()
     budgets, langs = sc.get("budgets", {}), sc.get("langs", {})
     for engine in (jcb, cb):

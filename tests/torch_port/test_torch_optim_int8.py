@@ -105,3 +105,15 @@ def test_int8_state_is_smaller_and_decodes_zero():
                  + tree_leaves(st.nu))
     # the padding of the last block of each leaf sits above the 3.02 B/param
     assert O.moment_bytes_per_param("int8") * n <= stored < 4 * n
+
+
+def test_int8_m_of_a_cut_leaf_needs_the_layout():
+    """An int8 m is laid out over the whole leaf; a rank's block of the
+    gradient passed without its ``layout=`` raises rather than decode the
+    first elements of the whole m as this rank's."""
+    tx = O.scale_by_adam_lp(moments="int8")
+    st = tx.init({"w": torch.zeros(4, 256)})            # 4 blocks
+    with pytest.raises(ValueError, match="needs layout="):
+        tx.update({"w": torch.ones(2, 256)}, st)        # a rank's half
+    upd, _ = tx.update({"w": torch.ones(4, 256)}, st)   # whole: runs
+    assert upd["w"].shape == (4, 256)

@@ -2,11 +2,12 @@
 package, on the CPU.
 
 Two gloo worlds serve the module (``mesh_world.run_world``): four ranks as
-a (data 2, model 2) mesh run the Whisper cases, two ranks as (1, 2) the
-causal-LM cases. Each rank cuts the same JAX-initialised tree by
-``WHISPER_TP_RULES`` / ``CAUSAL_LM_TP_RULES`` and runs the port's entry
-points with ``mesh=``; the JAX package computes the same functions whole
-(its own tests hold its meshes to that).
+a (data 2, model 2) mesh run the Whisper cases (int8-moment fine-tune
+steps among them), two ranks as (1, 2) the causal-LM cases. Each rank
+cuts the same JAX-initialised tree by ``WHISPER_TP_RULES`` /
+``CAUSAL_LM_TP_RULES`` and runs the port's entry points with ``mesh=``;
+the JAX package computes the same functions whole (its own tests hold its
+meshes to that).
 
 Tolerances: the forward within atol 2e-4 / rtol 1e-3 (``tests/
 test_parallel.py``'s), greedy and beam tokens and the int4 and beam
@@ -28,12 +29,15 @@ from audax.models import causal_lm as JLM
 from audax.models.whisper import encode as jencode
 from audax.models.whisper import init_whisper_params
 from audax.models.whisper import whisper_forward as jforward
+from audax.core.config import FineTuneConfig as JaxFineTuneConfig
+from audax.train.seq2seq import init_finetune as jinit
+from audax.train.seq2seq import make_finetune_step as jstep
 from audax.train.seq2seq import seq2seq_loss
 from audax_torch.core.config import WhisperConfig
 from audax_torch.models.bridge import causal_lm_from_numpy, params_from_numpy
 from audax_torch.models.causal_lm import CausalLMConfig
 
-from .mesh_world import run_world
+from .mesh_world import hold_int8_tree, hold_int8_updates, run_world
 from .whisper_pair import model as pair_model
 from .whisper_pair import tokenizers
 
@@ -41,6 +45,8 @@ JCFG = JaxWhisperConfig(n_mels=16, n_audio_ctx=32, d_model=32,
                         encoder_layers=1, decoder_layers=2, heads=4,
                         vocab_size=90, n_text_ctx=32)
 EOS = 23
+#: fine-tune steps with int8 Adam moments under TP
+INT8_STEPS = 3
 
 
 def _np(tree):
@@ -68,7 +74,8 @@ def whisper(tmp_path_factory):
     outs = run_world(4, "tests.torch_port.mesh_cases:tp_whisper", dict(
         params=params, cfg=cfg, mel=mel, tokens=tokens, labels=labels,
         prompt=prompt, eos=EOS, params_big=params_b, cfg_big=cfg_b,
-        tok=tok, audio=audio), tmp_path_factory.mktemp("tp_whisper"))
+        tok=tok, audio=audio, int8_steps=INT8_STEPS),
+        tmp_path_factory.mktemp("tp_whisper"))
     ref = {"jparams": jparams, "jenc": jencode(jparams, JCFG,
                                                jnp.asarray(mel)),
            "jbig": (jcfg_b, jparams_b, jtok)}
@@ -158,6 +165,42 @@ def test_tp_int4_and_beam_transcribers_match_jax(whisper):
                              **kw)
         assert whisper["outs"][0][key] == jtr.transcribe(
             whisper["audio"]).text
+
+
+def test_tp_int8_moments_match_whole_and_jax(whisper):
+    """int8 Adam moments under (data 2 x model 2): each blockwise m stays
+    whole on every rank ([blocks, 256] of the whole q kernel) while v is
+    cut like its parameter. The losses equal the whole run's and JAX's
+    (rtol 2e-5, ``test_torch_fsdp.py``'s bound); the trained tree
+    gathered from the blocks equals the whole run's within 1e-5 but where
+    rounding moved an int8 code (``hold_int8_tree``), and each of its
+    leaves' updates JAX's (``hold_int8_updates``)."""
+    ft = JaxFineTuneConfig(learning_rate=1e-3, warmup_steps=1, max_steps=10,
+                           lora_rank=0, moment_dtype="int8")
+    state = jinit(jax.tree.map(jnp.copy, whisper["ref"]["jparams"]), ft)
+    step = jstep(JCFG, remat=False, donate=False)
+    batch = {"mel": jnp.asarray(whisper["mel"]),
+             "decoder_input_ids": jnp.asarray(whisper["tokens"], jnp.int32),
+             "labels": jnp.asarray(whisper["labels"], jnp.int32)}
+    ref = []
+    for _ in range(INT8_STEPS):
+        state, m = step(state, batch)
+        ref.append(float(np.asarray(m["loss"])))
+    start = params_from_numpy(_np(whisper["ref"]["jparams"]),
+                              WhisperConfig(**JCFG.asdict()), device="cpu")
+    theirs = params_from_numpy(_np(state.trainable),
+                               WhisperConfig(**JCFG.asdict()), device="cpu")
+    for out in whisper["outs"]:
+        got = out["int8"]
+        for run in ("whole", "tp"):
+            np.testing.assert_allclose(got[run]["losses"], ref, rtol=2e-5,
+                                       atol=1e-6)
+        # the decoder's q kernel [2, 32, 32]: 2048 elements in 8 blocks,
+        # v's columns cut over 'model'
+        assert got["tp"]["mu"] == got["whole"]["mu"] == (8, 256)
+        assert got["tp"]["nu"] == (2, 32, 16)
+        hold_int8_tree(got["tp"]["params"], got["whole"]["params"], start)
+        hold_int8_updates(got["tp"]["params"], theirs, start)
 
 
 # ---------------------------------------------------------------- LM ------

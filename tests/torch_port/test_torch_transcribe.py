@@ -201,8 +201,16 @@ def test_port_imports_nothing_of_jax():
         " 'audax_torch.parallel.comm', 'audax_torch.parallel.fsdp',"
         " 'audax_torch.parallel.ep', 'audax_torch.tools.dryrun_multichip',"
         " 'audax_torch.parallel.sp', 'audax_torch.parallel.pp',"
-        " 'audax_torch.data.pipeline'}\n"
+        " 'audax_torch.data.pipeline', 'audax_torch.core.config',"
+        " 'audax_torch.symbolic.tokenizer', 'audax_torch.train.optim'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
+        "from audax_torch.core.config import load_dotenv\n"
+        "from audax_torch.symbolic.tokenizer import VocabTokenizer\n"
+        "from audax_torch.train.optim import dual_lr, reduce_on_plateau\n"
+        "from audax_torch.infer.continuous import ContinuousBatcher\n"
+        "import inspect\n"
+        "assert 'all_buckets' in inspect.signature("
+        "ContinuousBatcher.warmup).parameters\n"
         "heavy = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('pandas', 'pyarrow', 'matplotlib'))\n"
         "assert not heavy, heavy\n"
